@@ -1,0 +1,514 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``langstream_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (every one unguarded: any failure exits non-zero):
+
+1. set-up: require CUDA, print the card's name and power limit, build the
+   kernels from ``langstream_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
+   started together) and print the build time;
+2. each kernel against its plain PyTorch version at Llama-3-8B width
+   (H=32, Kh=8, D=128) in bf16 and f32, with its time, the plain version's
+   time, its bound and, for flash, ``scaled_dot_product_attention`` as the
+   library yardstick (timed here only; the port never calls it);
+3. the main path: ``TorchServingEngine`` serving the chat example's resource
+   (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
+   KV) answering concurrent greedy requests, launch counters set to 0 just
+   before and read just after;
+4. the same with ``kv-layout: paged``, ``kv-quantize: int8``;
+5. the tiny f32 engine on the card against the same engine on the CPU with
+   the same params: greedy tokens must be identical;
+6. one ``{"kernels": [...]}`` JSON line, then the last line
+   ``{"ok": true, "device": {...}}``.
+
+Weights are random, made from a seed; nothing is downloaded.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import gc
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+TOL_BF16 = 2e-2
+TOL_F32 = 1e-4
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def paged_case(torch, *, B, H, Kh, D, bs, max_len, dtype, int8, dense, seed):
+    """Ragged slots (0, a sub-block, a block-exact and a full-length one
+    among them) over a pool with shuffled block tables, or the dense view
+    (identity tables over a (B, max_len) cache)."""
+    from langstream_tpu_torch.models.kvquant import quantize_rows
+
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, max_len + 1, (B,), generator=g)
+    lengths[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, max_len])
+    max_blocks = -(-max_len // bs)
+    if dense:
+        nb = B * max_blocks
+        tables = (torch.arange(B)[:, None] * max_blocks + torch.arange(max_blocks)[None, :])
+    else:
+        nb = int(sum(-(-int(n) // bs) for n in lengths)) + 1
+        perm = (torch.randperm(nb - 1, generator=g) + 1).tolist()
+        tables = torch.zeros((B, max_blocks), dtype=torch.int64)
+        for b in range(B):
+            for j in range(-(-int(lengths[b]) // bs)):
+                tables[b, j] = perm.pop()
+    KhD = Kh * D
+    q = torch.randn((B, H, D), generator=g).to(dtype)
+    pools = [torch.randn((nb, bs, KhD), generator=g).to(dtype) for _ in range(2)]
+    if int8:  # rows quantized as the engine stores them
+        pools = [
+            {"q": r["q"].reshape(nb, bs, KhD), "s": r["s"]}
+            for r in (quantize_rows(p.reshape(nb, bs, Kh, D)) for p in pools)
+        ]
+
+    def cuda(x):
+        if isinstance(x, dict):
+            return {k: v.cuda() for k, v in x.items()}
+        return x.cuda()
+
+    return (cuda(q), cuda(pools[0]), cuda(pools[1]),
+            tables.to(torch.int32).cuda(), lengths.to(torch.int32).cuda(),
+            max_blocks)
+
+
+def check_paged(torch, name, fn, plain, case, *, kv_heads, head_dim, tol):
+    from langstream_tpu_torch.ops.paged_attention import (
+        NEG_INF, merge_partial_attention,
+    )
+
+    q, kp, vp, tables, lengths, nrb = case
+    kw = dict(num_read_blocks=nrb, kv_heads=kv_heads, head_dim=head_dim)
+    got = fn(q, kp, vp, tables, lengths, **kw)
+    want = plain(q, kp, vp, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    for t in got:
+        if not torch.isfinite(t[lengths > 0]).all():
+            fail(f"{name}: non-finite partials")
+    zero = (lengths == 0).nonzero().flatten()
+    acc, m, l = got
+    if len(zero) and not (
+        (m[zero] == NEG_INF).all() and (l[zero] == 0).all() and (acc[zero] == 0).all()
+    ):
+        fail(f"{name}: a length-0 slot must give m=NEG_INF, l=0, acc=0")
+    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max().item()
+    if not err <= tol:
+        fail(f"{name}: normalised max abs error {err} > {tol}")
+    return err
+
+
+def phase_kernels(torch) -> dict:
+    from langstream_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_reference,
+    )
+    from langstream_tpu_torch.ops.paged_attention import (
+        _paged_attention_partial_q8, paged_attention_partial,
+        paged_attention_reference,
+    )
+
+    F = torch.nn.functional
+    H, Kh, D, B = 32, 8, 128, 64
+    rows = {}
+
+    # -- kernels 2 and 3: paged decode reads --------------------------------
+    cases = [
+        ("paged_attention", "bs64 bf16", paged_attention_partial,
+         dict(bs=64, dtype=torch.bfloat16, int8=False, dense=False), TOL_BF16),
+        ("paged_attention", "dense bs128 bf16", paged_attention_partial,
+         dict(bs=128, dtype=torch.bfloat16, int8=False, dense=True), TOL_BF16),
+        ("paged_attention_q8", "bs64 int8", _paged_attention_partial_q8,
+         dict(bs=64, dtype=torch.bfloat16, int8=True, dense=False), TOL_BF16),
+        ("paged_attention", "bs64 f32", paged_attention_partial,
+         dict(bs=64, dtype=torch.float32, int8=False, dense=False), TOL_F32),
+        ("paged_attention_q8", "bs64 int8 f32-q", _paged_attention_partial_q8,
+         dict(bs=64, dtype=torch.float32, int8=True, dense=False), TOL_F32),
+    ]
+    for name, label, fn, spec, tol in cases:
+        case = paged_case(torch, B=B, H=H, Kh=Kh, D=D, max_len=2048, seed=7, **spec)
+        err = check_paged(torch, f"{name} {label}", fn, paged_attention_reference,
+                          case, kv_heads=Kh, head_dim=D, tol=tol)
+        q, kp, vp, tables, lengths, nrb = case
+        kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+        ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))
+        plain_ms = cuda_ms(torch, lambda: paged_attention_reference(
+            q, kp, vp, tables, lengths, **kw), iters=3, warmup=1)
+        n_rows = int(lengths.clamp(max=nrb * spec["bs"]).sum())
+        elem = 1 if spec["int8"] else (2 if spec["dtype"] == torch.bfloat16 else 4)
+        nbytes = (
+            2 * n_rows * Kh * D * elem + (2 * n_rows * Kh * 4 if spec["int8"] else 0)
+            + q.numel() * q.element_size() + B * H * (D + 2) * 4
+            + tables.numel() * 4 + B * 4
+        )
+        flops = 4.0 * H * D * n_rows
+        peak = BF16_FLOPS_PER_S if spec["dtype"] == torch.bfloat16 else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        print(f"kernel {name} [{label}] B={B} H={H} Kh={Kh} D={D} rows={n_rows}: "
+              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) achieved={nbytes / ms / 1e6:.1f} GB/s",
+              flush=True)
+        if label in ("bs64 bf16", "bs64 int8"):
+            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # -- kernel 1: flash prefill ---------------------------------------------
+    g = torch.Generator().manual_seed(11)
+    for S, dtype, tol, label in (
+        (512, torch.bfloat16, TOL_BF16, "bf16"),
+        (2048, torch.bfloat16, TOL_BF16, "bf16"),
+        (512, torch.float32, TOL_F32, "f32"),
+    ):
+        Bf = 4
+        true_len = torch.tensor([S, S - 37, S // 2 + 3, 17])
+        valid = (torch.arange(S)[None, :] < true_len[:, None])[:, :, None, None]
+        q = (torch.randn((Bf, S, H, D), generator=g) * valid).to(dtype).cuda()
+        k = (torch.randn((Bf, S, Kh, D), generator=g) * valid).to(dtype).cuda()
+        v = (torch.randn((Bf, S, Kh, D), generator=g) * valid).to(dtype).cuda()
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_reference(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            fail(f"flash_attention S={S} {label}: non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= tol:
+            fail(f"flash_attention S={S} {label}: max abs error {err} > {tol}")
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+        plain_ms = cuda_ms(torch, lambda: flash_attention_reference(q, k, v, causal=True),
+                           iters=2, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True).transpose(1, 2)
+        lib_err = (lib_out.float() - want.float()).abs().max().item()
+        elem = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem
+        flops = 4.0 * Bf * H * D * S * (S + 1) / 2
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        print(f"kernel flash_attention [{label}] B={Bf} S={S} H={H} Kh={Kh} D={D}: "
+              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (library err {lib_err:.2e}) "
+              f"bound_ms={b_ms:.4f} ({b_by}) "
+              f"achieved={flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        if S == 2048:
+            rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=library_ms)
+        del q, k, v, got, want, qt, kt, vt, lib_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: the engine
+# ---------------------------------------------------------------------------
+
+
+def reset_counts():
+    from langstream_tpu_torch.ops.flash_attention import flash_attention
+    from langstream_tpu_torch.ops.paged_attention import (
+        _paged_attention_partial_q8, paged_attention_partial,
+    )
+
+    flash_attention.launches = 0
+    paged_attention_partial.launches = 0
+    _paged_attention_partial_q8.launches = 0
+
+
+def read_counts() -> dict:
+    from langstream_tpu_torch.ops.flash_attention import flash_attention
+    from langstream_tpu_torch.ops.paged_attention import (
+        _paged_attention_partial_q8, paged_attention_partial,
+    )
+
+    return {
+        "flash_attention": flash_attention.launches,
+        "paged_attention": paged_attention_partial.launches,
+        "paged_attention_q8": _paged_attention_partial_q8.launches,
+    }
+
+
+def chat_prompts() -> list[str]:
+    long = ("You are a helpful assistant. Summarize the following support "
+            "ticket and propose next steps. ") * 6  # > 512 byte tokens
+    return [
+        long,
+        long,  # the same prompt twice must give the same tokens
+        "What is the capital of France?",
+        "Write a haiku about GPUs.",
+        "Explain paged attention in two sentences.",
+        "List three prime numbers.",
+        "Translate 'good morning' into Spanish.",
+        "How many legs does a spider have?",
+    ]
+
+
+async def serve(engine, prompts, max_tokens):
+    t0 = time.monotonic()
+    results = await asyncio.gather(*(
+        engine.generate(p, {"max-tokens": max_tokens, "temperature": 0})
+        for p in prompts
+    ))
+    wall = time.monotonic() - t0
+    stats = engine.stats()
+    return results, wall, stats
+
+
+def device_breakdown(torch, prof, wall_s: float) -> str:
+    """Kernel time by group from a torch.profiler capture: the device's busy
+    and idle share of the captured window, and the top kernels."""
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kern:
+        return "profile: no device events captured"
+    by_name: dict[str, float] = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    busy = sum(by_name.values())
+    span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
+    groups = {"flash_fwd_kernel": 0.0, "paged_decode_kernel": 0.0, "gemm": 0.0,
+              "memcpy/memset": 0.0, "other (elementwise, reductions)": 0.0}
+    for name, us in by_name.items():
+        low = name.lower()
+        if "flash_fwd_kernel" in name:
+            groups["flash_fwd_kernel"] += us
+        elif "paged_decode_kernel" in name:
+            groups["paged_decode_kernel"] += us
+        elif any(k in low for k in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
+            groups["gemm"] += us
+        elif "memcpy" in low or "memset" in low:
+            groups["memcpy/memset"] += us
+        else:
+            groups["other (elementwise, reductions)"] += us
+    lines = [f"profile: wall_s={wall_s:.3f} device_span_ms={span / 1e3:.1f} "
+             f"device_busy_ms={busy / 1e3:.1f} busy_share_of_span={busy / span:.3f} "
+             f"kernels={len(kern)}"]
+    for g, us in groups.items():
+        lines.append(f"profile group {g}: {us / 1e3:.1f} ms ({us / busy:.3f} of busy)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        lines.append(f"profile top {us / 1e3:9.2f} ms  {name[:110]}")
+    return "\n".join(lines)
+
+
+def phase_main_path(torch, label, cfg: dict, params=None, profile=False):
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    t0 = time.monotonic()
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device="cuda", params=params)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = chat_prompts()
+    if len(engine.tokenizer.encode(prompts[0])) < 512:
+        fail("the long prompt must be at least 512 tokens")
+
+    async def run():
+        try:
+            measured = await serve(engine, prompts, 64)
+            counts = read_counts()
+            report = None
+            if profile:  # a second, identical wave under the profiler
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as torch_profile
+
+                with torch_profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA],
+                                   acc_events=True) as prof:
+                    _, wall, _ = await serve(engine, prompts, 64)
+                report = device_breakdown(torch, prof, wall)
+            return measured, counts, report
+        finally:
+            await engine.close()
+
+    reset_counts()
+    (results, wall, stats), counts, report = asyncio.run(run())
+    for i, r in enumerate(results):
+        if not r["tokens"] or len(r["tokens"]) > 64:
+            fail(f"{label}: request {i} returned {len(r['tokens'])} tokens")
+        if not all(math.isfinite(x) for x in r["logprobs"]):
+            fail(f"{label}: request {i} has non-finite logprobs")
+    if results[0]["tokens"] != results[1]["tokens"]:
+        fail(f"{label}: the same prompt gave different greedy tokens")
+    dc = stats["decode-chunks"]
+    if dc["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk {dc['host_fetches_per_chunk']} != 1.0")
+    ttft = sorted(r["ttft"] for r in results)
+    n_tokens = sum(len(r["tokens"]) for r in results)
+    step_ms = dc["seconds"] / dc["steps"] * 1e3 if dc["steps"] else float("nan")
+    decode_tok_s = (n_tokens - len(results)) / dc["seconds"] if dc["seconds"] else 0.0
+    print(f"main path [{label}]: init_s={init_s:.2f} requests={len(results)} "
+          f"tokens={n_tokens} wall_s={wall:.3f} ttft_s min={ttft[0]:.3f} "
+          f"max={ttft[-1]:.3f} tok_s_wall={n_tokens / wall:.1f} "
+          f"decode_tok_s={decode_tok_s:.1f} decode_steps={dc['steps']} "
+          f"ms_per_step={step_ms:.2f} chunks={dc['dispatched']} "
+          f"prefill_calls={stats['prefill-calls']} launches={counts} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
+    if report:
+        print(report, flush=True)
+    return engine.params, counts
+
+
+def phase_card_vs_cpu(torch):
+    from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    prompts = ["paged cache equivalence", "second prompt!", "a",
+               "and a longer fourth prompt here", "fifth"]
+    c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
+    params = init_llama_params(c, torch.Generator().manual_seed(3))
+    for layout in ({"kv-layout": "dense"},
+                   {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
+                   {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
+                    "kv-quantize": "int8"}):
+        cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3,
+               "max-seq-len": 256, "decode-chunk": 4, **layout}
+        out = {}
+        for device in ("cuda", "cpu"):
+            engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
+                                        params=params)
+
+            async def run(engine=engine):
+                try:
+                    return await serve(engine, prompts, 12)
+                finally:
+                    await engine.close()
+
+            out[device] = [r["tokens"] for r in asyncio.run(run())[0]]
+        if out["cuda"] != out["cpu"]:
+            fail(f"card vs CPU {layout}: greedy tokens differ:\n{out}")
+        print(f"card vs CPU [{layout}]: {len(prompts)} greedy streams identical",
+              flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this script needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    try:
+        from langstream_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable next to this script: {e}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- phase 1: set-up --------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.monotonic()
+    built = _build.build_all()
+    print(f"built {sorted(built)} in {time.monotonic() - t0:.1f} s into "
+          f"{_build.build_dir()}", flush=True)
+    for name, log in built.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas [{name}] {line.strip()}")
+
+    # -- phase 2: kernels against plain ------------------------------------
+    t0 = time.monotonic()
+    rows = phase_kernels(torch)
+    print(f"phase kernels: {time.monotonic() - t0:.1f} s", flush=True)
+
+    # -- phases 3 and 4: the main path --------------------------------------
+    base = {"model": "llama3-8b", "quantize": "int8", "slots": 64,
+            "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
+    t0 = time.monotonic()
+    params, dense_counts = phase_main_path(torch, "dense bf16 KV", base, profile=True)
+    if dense_counts["flash_attention"] == 0 or dense_counts["paged_attention"] == 0:
+        fail(f"dense main path did not launch flash and paged kernels: {dense_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, q8_counts = phase_main_path(
+        torch, "paged int8 KV",
+        {**base, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False},
+        params=params,
+    )
+    if q8_counts["paged_attention_q8"] == 0 or q8_counts["flash_attention"] == 0:
+        fail(f"int8-KV main path did not launch flash and q8 kernels: {q8_counts}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase main path: {time.monotonic() - t0:.1f} s", flush=True)
+
+    # -- phase 5: card against CPU -----------------------------------------
+    t0 = time.monotonic()
+    phase_card_vs_cpu(torch)
+    print(f"phase card vs CPU: {time.monotonic() - t0:.1f} s", flush=True)
+
+    # -- phase 6: kernels line, then the device line ------------------------
+    meta = {
+        "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
+                            "langstream_tpu/ops/flash_attention.py:36",
+                            dense_counts["flash_attention"] + q8_counts["flash_attention"]),
+        "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
+                            "langstream_tpu/ops/paged_attention.py:44",
+                            dense_counts["paged_attention"]),
+        "paged_attention_q8": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
+                               "langstream_tpu/ops/paged_attention.py:126",
+                               q8_counts["paged_attention_q8"]),
+    }
+    kernels = []
+    for name, (source, replaces, launches) in meta.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches, **rows[name]})
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,2 @@
+"""Model layer of the port: Llama math, weight and KV quantization, the
+paged KV pool, and the carrier of parameters from the JAX package."""

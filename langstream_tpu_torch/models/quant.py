@@ -1,0 +1,156 @@
+"""Weight-only int8 quantization (port of ``langstream_tpu/models/quant.py``).
+
+Per-output-channel symmetric int8 with f32 scales. :func:`as_weight`
+dequantizes at the matmul site exactly as the JAX package writes it
+(``q.astype(dtype) * s.astype(dtype)``); the JAX package leaves that
+product to XLA outside any Pallas kernel, so here it is plain PyTorch and
+the product goes to ``torch.matmul``. A fused int8 GEMV is later work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass
+class QTensor:
+    """int8 weight + f32 scale, shaped to broadcast on dequant.
+
+    ``dtype`` is the pre-quantization dtype the weight dequantizes back to,
+    so quantized and plain params are interchangeable in the model code.
+    """
+
+    q: torch.Tensor  # int8, original shape
+    s: torch.Tensor  # f32, reduced to 1 along the contraction axis
+    dtype: torch.dtype = torch.bfloat16
+
+    def __getitem__(self, idx) -> "QTensor":
+        """Index the leading (layer) axis of a stacked weight."""
+        return QTensor(self.q[idx], self.s[idx], self.dtype)
+
+    def to(self, device) -> "QTensor":
+        return QTensor(self.q.to(device), self.s.to(device), self.dtype)
+
+
+def as_weight(t):
+    """Dequantize a QTensor (or pass a plain tensor through)."""
+    if isinstance(t, QTensor):
+        return t.q.to(t.dtype) * t.s.to(t.dtype)
+    return t
+
+
+def embedding_take(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Row gather that understands quantized embeddings (gathers int8 rows
+    and their per-row scales, dequantizes only the gathered rows)."""
+    if isinstance(embed, QTensor):
+        rows = embed.q[tokens].to(embed.dtype)
+        scales = embed.s[tokens].to(embed.dtype)
+        return rows * scales
+    return embed[tokens]
+
+
+def quantize_tensor(w: torch.Tensor, axis: int) -> QTensor:
+    """Symmetric per-channel int8: scale reduces over ``axis`` (the
+    contraction dimension of the matmul that consumes ``w``)."""
+    wf = w.to(torch.float32)
+    amax = wf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return QTensor(q=q, s=scale, dtype=w.dtype)
+
+
+def quantize_llama_params(params: dict) -> dict:
+    """Quantize every matmul weight of a Llama param tree; norms stay as
+    they are. Projections contract the middle axis of their stacked
+    ``(L, in, out)`` layout; embed is gathered per row; lm_head contracts
+    hidden."""
+    layers = params["layers"]
+    out_layers = {
+        "attn_norm": layers["attn_norm"],
+        "mlp_norm": layers["mlp_norm"],
+    }
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        out_layers[name] = quantize_tensor(layers[name], axis=1)
+    return {
+        "embed": quantize_tensor(params["embed"], axis=1),
+        "layers": out_layers,
+        "final_norm": params["final_norm"],
+        "lm_head": quantize_tensor(params["lm_head"], axis=0),
+    }
+
+
+# ---------------------------------------------------------------------------
+# direct quantized random-init (never materializes the full-precision tree)
+# ---------------------------------------------------------------------------
+
+
+def _q8_chunk(shape, fan_in, axis, generator, device):
+    """One f32 random-normal chunk quantized per channel along ``axis``."""
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32) * (1.0 / math.sqrt(fan_in))
+    amax = w.abs().amax(dim=axis, keepdim=True)
+    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _chunks(n: int, target: int = 32) -> int:
+    """Largest chunk count <= target that divides n (vocab chunking)."""
+    for d in range(min(target, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def init_llama_params_q8(config, generator: torch.Generator | None = None,
+                         device="cpu") -> dict:
+    """Random-init Llama params already weight-quantized: the same tree,
+    shapes and scale layout as ``quantize_llama_params(init_llama_params(c))``,
+    but the peak during init is the int8 tree plus ONE chunk's f32
+    transient (one layer's ``(in, out)`` matrix, or 1/32 of the vocab),
+    never the full-precision tree. Runs on ``device``."""
+    c = config
+    L = c.layers
+    qkv_dim = c.heads * c.head_dim
+    kv_dim = c.kv_heads * c.head_dim
+
+    def stacked(rows, cols, fan_in):
+        q = torch.empty((L, rows, cols), dtype=torch.int8, device=device)
+        s = torch.empty((L, 1, cols), dtype=torch.float32, device=device)
+        for i in range(L):
+            q[i], s[i] = _q8_chunk((rows, cols), fan_in, 0, generator, device)
+        return QTensor(q=q, s=s, dtype=c.dtype)
+
+    V, Hd = c.vocab_size, c.hidden
+    nb = _chunks(V)
+    rows = V // nb
+    eq = torch.empty((V, Hd), dtype=torch.int8, device=device)
+    es = torch.empty((V, 1), dtype=torch.float32, device=device)
+    hq = torch.empty((Hd, V), dtype=torch.int8, device=device)
+    hs = torch.empty((1, V), dtype=torch.float32, device=device)
+    for i in range(nb):
+        sl = slice(i * rows, (i + 1) * rows)
+        eq[sl], es[sl] = _q8_chunk((rows, Hd), Hd, 1, generator, device)
+    layers = {
+        "attn_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
+        "wq": stacked(Hd, qkv_dim, Hd),
+        "wk": stacked(Hd, kv_dim, Hd),
+        "wv": stacked(Hd, kv_dim, Hd),
+        "wo": stacked(qkv_dim, Hd, qkv_dim),
+        "mlp_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
+        "w_gate": stacked(Hd, c.intermediate, Hd),
+        "w_up": stacked(Hd, c.intermediate, Hd),
+        "w_down": stacked(c.intermediate, Hd, c.intermediate),
+    }
+    for i in range(nb):
+        sl = slice(i * rows, (i + 1) * rows)
+        hq[:, sl], hs[:, sl] = _q8_chunk((Hd, rows), Hd, 0, generator, device)
+    return {
+        "embed": QTensor(q=eq, s=es, dtype=c.dtype),
+        "layers": layers,
+        "final_norm": torch.ones((Hd,), dtype=c.dtype, device=device),
+        "lm_head": QTensor(q=hq, s=hs, dtype=c.dtype),
+    }

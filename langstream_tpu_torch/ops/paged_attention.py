@@ -1,0 +1,276 @@
+"""Paged-attention decode read (port of ``langstream_tpu/ops/paged_attention.py``).
+
+One decode step reads each slot's KV blocks straight out of the shared
+pool through its block table and returns *partial* results
+``(acc, m, l)`` — unnormalised accumulator, running max, running sum-exp —
+because decode attends over two segments (the pool here and the in-chunk
+buffer); the caller merges them with :func:`merge_partial_attention`.
+
+:func:`paged_attention_partial` launches the CUDA kernels of
+``csrc/paged_attention.cu`` for tensors on the card — the bf16/f32 kernel
+for a plain pool, the int8 kernel for an ``{"q","s"}`` pool — and takes
+:func:`paged_attention_reference` (the JAX package's
+``_cache_partial_xla``) for tensors on the CPU.
+
+Shapes (one layer):
+  q             (B, H, D)
+  k_pool/v_pool (nb, bs, Kh*D), or {"q": int8 (nb, bs, Kh*D), "s": f32 (nb, bs, Kh)}
+  block_tables  (B, max_blocks) int32
+  lengths       (B,) int32 — cache rows to attend per slot
+  → acc (B, H, D) f32, m (B, H) f32, l (B, H) f32
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from langstream_tpu_torch.models.kvquant import cache_scores, cache_values
+from langstream_tpu_torch.models.paged import gather_kv
+from langstream_tpu_torch.ops._build import load_library
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+#: 128 and 64 are the served models' widths; 16 is the tiny test model's
+HEAD_DIMS = (16, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels keep G*D accumulators over 128 threads, at most 8 each
+_MAX_GROUP_WIDTH = 1024
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library("paged_attention")
+    fn, fn8 = lib.paged_attention_partial_fwd, lib.paged_attention_partial_q8_fwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        fn8.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn8.restype = ctypes.c_int
+    return lib
+
+
+def merge_partial_attention(parts):
+    """Combine per-segment ``(acc, m, l)`` partials into normalised attention
+    output: the associative online-softmax merge."""
+    acc, m, l = parts[0]
+    for acc2, m2, l2 in parts[1:]:
+        m_new = torch.maximum(m, m2)
+        shift = torch.where(m_new <= NEG_INF, torch.zeros_like(m_new), m_new)
+        a1 = torch.exp(torch.where(m <= NEG_INF, torch.full_like(m, NEG_INF), m - shift))
+        a2 = torch.exp(torch.where(m2 <= NEG_INF, torch.full_like(m2, NEG_INF), m2 - shift))
+        acc = acc * a1[..., None] + acc2 * a2[..., None]
+        l = l * a1 + l2 * a2
+        m = m_new
+    inv = torch.where(
+        l > 0.0, 1.0 / torch.clamp(l, min=1e-30), torch.zeros_like(l)
+    )
+    return acc * inv[..., None]
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def _gather_layer_window(pool_l, block_tables, num_read_blocks, kv_heads, head_dim):
+    """Densify one layer's window: (B, W, Kh, D), or the int8
+    {"q": (B,W,Kh,D), "s": (B,W,Kh)} pair ready for the kvquant helpers."""
+    if isinstance(pool_l, dict):
+        w = gather_kv({n: a[None] for n, a in pool_l.items()}, block_tables,
+                      num_read_blocks)
+        B, W = w["s"].shape[1:3]
+        return {
+            "q": w["q"][0].reshape(B, W, kv_heads, head_dim),
+            "s": w["s"][0],
+        }
+    w = gather_kv(pool_l[None], block_tables, num_read_blocks)[0]
+    B, W = w.shape[:2]
+    return w.reshape(B, W, kv_heads, head_dim)
+
+
+def paged_attention_reference(
+    q, k_pool, v_pool, block_tables, lengths, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None,
+):
+    """Plain version of both kernels: gather the window densely, compute
+    partial softmax stats (``_cache_partial_xla`` of the JAX package). int8
+    pools read through the fused kvquant helpers (scales onto scores and
+    probabilities)."""
+    B, H, D = q.shape
+    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    W = (kw["s"] if isinstance(kw, dict) else kw).shape[1]
+    G = H // kv_heads
+    qg = q.reshape(B, kv_heads, G, head_dim)
+    s = cache_scores(qg, kw)
+    s = s / math.sqrt(head_dim) if scale is None else s * scale
+    mask = (
+        torch.arange(W, device=q.device)[None, :] < lengths.to(torch.long)[:, None]
+    )[:, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                        # (B, Kh, G)
+    shift = torch.where(m <= NEG_INF, torch.zeros_like(m), m)
+    p = torch.exp(s - shift[..., None])
+    p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    acc = cache_values(p.to(q.dtype), vw).to(torch.float32)
+    return acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_common(q, tables, lengths, pool, kv_heads, head_dim, num_read_blocks):
+    dev = q.device
+    if q.dim() != 3 or not q.is_contiguous() or q.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"paged_attention: q must be a contiguous (B,H,D) float32/bfloat16 "
+            f"tensor, got {tuple(q.shape)} {q.dtype}"
+        )
+    B, H, D = q.shape
+    if D != head_dim or D not in HEAD_DIMS:
+        raise ValueError(f"paged_attention: head_dim {D} (want one of {HEAD_DIMS})")
+    if H % kv_heads or (H // kv_heads) * D > _MAX_GROUP_WIDTH:
+        raise ValueError(
+            f"paged_attention: {H} heads on {kv_heads} kv heads with head_dim "
+            f"{D} (group width G*D must be <= {_MAX_GROUP_WIDTH})"
+        )
+    for name, t in (("block_tables", tables), ("lengths", lengths)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be contiguous int32 on {dev}")
+    if tables.dim() != 2 or tables.shape[0] != B or lengths.shape != (B,):
+        raise ValueError(
+            f"paged_attention: tables {tuple(tables.shape)} / lengths "
+            f"{tuple(lengths.shape)} do not match batch {B}"
+        )
+    if not 0 < num_read_blocks <= tables.shape[1]:
+        raise ValueError(
+            f"paged_attention: num_read_blocks {num_read_blocks} outside "
+            f"(0, {tables.shape[1]}]"
+        )
+    if (pool.device != dev or pool.dim() != 3 or not pool.is_contiguous()
+            or pool.shape[2] != kv_heads * head_dim or pool.data_ptr() % 16):
+        raise ValueError(
+            f"paged_attention: pool must be a contiguous, 16-byte aligned "
+            f"(nb, bs, {kv_heads * head_dim}) tensor on {dev}, got "
+            f"{tuple(pool.shape)}"
+        )
+
+
+def paged_attention_partial(
+    q: torch.Tensor,             # (B, H, D)
+    k_pool,                      # (nb, bs, Kh*D), or int8 {"q","s"} pool
+    v_pool,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    lengths: torch.Tensor,       # (B,) int32
+    *,
+    num_read_blocks: int,        # table columns the read may cover
+    kv_heads: int,
+    head_dim: int,
+    scale: float | None = None,
+):
+    """Partial (unnormalised) paged attention over the cache segment:
+    ``(acc (B,H,D) f32, m (B,H) f32, l (B,H) f32)``. The kernel walks only
+    the ``ceil(length/32)`` row tiles each slot holds, never more than
+    ``num_read_blocks`` blocks."""
+    if isinstance(k_pool, dict):
+        return _paged_attention_partial_q8(
+            q, k_pool, v_pool, block_tables, lengths,
+            num_read_blocks=num_read_blocks, kv_heads=kv_heads,
+            head_dim=head_dim, scale=scale,
+        )
+    if not q.is_cuda:
+        return paged_attention_reference(
+            q, k_pool, v_pool, block_tables, lengths,
+            num_read_blocks=num_read_blocks, kv_heads=kv_heads,
+            head_dim=head_dim, scale=scale,
+        )
+    for pool in (k_pool, v_pool):
+        _check_common(q, block_tables, lengths, pool, kv_heads, head_dim,
+                      num_read_blocks)
+        if pool.dtype != q.dtype:
+            raise ValueError(
+                f"paged_attention: pool dtype {pool.dtype} != q dtype {q.dtype}"
+            )
+    if k_pool.shape != v_pool.shape:
+        raise ValueError("paged_attention: k and v pools differ in shape")
+    B, H, D = q.shape
+    acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return acc, m, l
+    rc = _lib().paged_attention_partial_fwd(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, H, kv_heads, D, k_pool.shape[1], block_tables.shape[1],
+        num_read_blocks, _DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(D) if scale is None else scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed (CUDA error {rc})")
+    paged_attention_partial.launches += 1
+    return acc, m, l
+
+
+def _paged_attention_partial_q8(
+    q, k_pool: dict, v_pool: dict, block_tables, lengths, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None,
+):
+    """int8-pool twin of :func:`paged_attention_partial` (fused dequant in
+    the kernel: k scale on the score, v scale folded into p)."""
+    if not q.is_cuda:
+        return paged_attention_reference(
+            q, k_pool, v_pool, block_tables, lengths,
+            num_read_blocks=num_read_blocks, kv_heads=kv_heads,
+            head_dim=head_dim, scale=scale,
+        )
+    for pool in (k_pool, v_pool):
+        _check_common(q, block_tables, lengths, pool["q"], kv_heads, head_dim,
+                      num_read_blocks)
+        s = pool["s"]
+        if (pool["q"].dtype != torch.int8 or s.dtype != torch.float32
+                or s.device != q.device or not s.is_contiguous()
+                or s.shape != pool["q"].shape[:2] + (kv_heads,)):
+            raise ValueError(
+                "paged_attention_q8: pool must be {'q': int8 (nb,bs,Kh*D), "
+                "'s': contiguous float32 (nb,bs,Kh)} on q's device"
+            )
+    B, H, D = q.shape
+    acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return acc, m, l
+    rc = _lib().paged_attention_partial_q8_fwd(
+        q.data_ptr(), k_pool["q"].data_ptr(), k_pool["s"].data_ptr(),
+        v_pool["q"].data_ptr(), v_pool["s"].data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, H, kv_heads, D, k_pool["q"].shape[1], block_tables.shape[1],
+        num_read_blocks, _DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(D) if scale is None else scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention_q8 kernel launch failed (CUDA error {rc})")
+    _paged_attention_partial_q8.launches += 1
+    return acc, m, l
+
+
+#: kernel launches since the count was last set to 0
+paged_attention_partial.launches = 0
+_paged_attention_partial_q8.launches = 0

@@ -1,0 +1,949 @@
+"""Continuous-batching serving engine (port of the main path of
+``langstream_tpu/serving/engine.py``).
+
+Execution model:
+
+- A fixed pool of ``slots`` (the decode batch dimension). FIFO admission:
+  queued requests prefill in batches of up to ``prefill-batch`` prompts
+  that share a length bucket (:func:`_bucket`); the first token is sampled
+  on the device and the request joins the decode batch.
+- Decode runs in chunks of ``decode-chunk`` fused steps over the active
+  slots (halved while every request needs fewer). The KV cache — dense
+  ``(L, slots, S, Kh, D)`` read through identity block tables, or the paged
+  pool — is read-only inside a chunk; one commit writes the chunk's rows.
+- Each chunk ends with exactly ONE device-to-host copy: the tokens and
+  their logprobs packed into one int32 tensor on the device
+  (``stats()["decode-chunks"]["host_fetches_per_chunk"] == 1.0``).
+- Device work runs on one executor thread, so the asyncio loop stays live.
+
+Settings whose feature this slice lacks raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item; settings that only change latency are accepted and
+logged once. The engine runs on the card (``device="cuda"``) unless the
+caller passes ``device="cpu"``; it never falls back on its own.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import os
+import time
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from langstream_tpu_torch.models.llama import (
+    LlamaConfig,
+    init_llama_params,
+    prefill_forward,
+)
+from langstream_tpu_torch.models.llama_paged import (
+    llama_decode_chunk_dense_pallas,
+    llama_decode_chunk_paged,
+    llama_prefill_paged,
+    pack_tokens_logprobs,
+)
+from langstream_tpu_torch.models.paged import (
+    BlockManager,
+    PagedLayout,
+    init_paged_kv_cache,
+    init_paged_kv_cache_int8,
+)
+from langstream_tpu_torch.models.quant import (
+    QTensor,
+    init_llama_params_q8,
+    quantize_llama_params,
+)
+from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
+from langstream_tpu_torch.ops.flash_attention import flash_attention
+from langstream_tpu_torch.ops.paged_attention import (
+    _paged_attention_partial_q8,
+    paged_attention_partial,
+)
+from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
+
+log = logging.getLogger(__name__)
+
+_MODEL_CONFIGS = {
+    "tiny": LlamaConfig.tiny,
+    "llama-1b": LlamaConfig.llama_1b,
+    "llama3-8b": LlamaConfig.llama3_8b,
+    "llama-3-8b": LlamaConfig.llama3_8b,
+    "llama3-70b": LlamaConfig.llama3_70b,
+    "llama-3-70b": LlamaConfig.llama3_70b,
+}
+_MOE_MODELS = ("moe-tiny", "moe-8x7b", "mixtral-8x7b")
+_DTYPES = {
+    "float32": torch.float32, "f32": torch.float32,
+    "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+}
+
+
+def _parse_bool(v: Any) -> bool:
+    """YAML/env values arrive as strings; bool("false") is True, so parse."""
+    if isinstance(v, str):
+        return v.strip().lower() in ("1", "true", "yes", "on")
+    return bool(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """The ``tpu-serving-configuration`` resource: the same fields, kebab
+    keys and defaults as the JAX package's ``ServingConfig``. Sections of
+    planes this port does not carry yet (qos, slo, prefix-store,
+    adapter-store, faults) are kept as the raw mapping the resource gave."""
+
+    model: str = "tiny"
+    slots: int = 8
+    max_seq_len: int = 512
+    tokenizer: str | None = None
+    checkpoint: str | None = None
+    mesh: tuple[tuple[str, int], ...] = ()
+    default_max_tokens: int = 128
+    seed: int = 0
+    decode_chunk: int = 16
+    decode_chunk_light: int = 8
+    light_load_slots: int | None = None
+    warmup_on_start: bool = False
+    prefill_batch: int = 8
+    model_dtype: str | None = None
+    quantize: str | None = None
+    kv_quantize: str | None = None
+    kv_layout: str = "dense"
+    kv_block_size: int = 64
+    kv_pool_fraction: float = 0.5
+    kv_pool_blocks: int | None = None
+    paged_kernel: str = "auto"
+    dense_kernel: str = "auto"
+    prefix_cache: bool = True
+    speculative_drafts: int = 0
+    prefill_chunk: int = 0
+    qos: Any = None
+    pipeline: bool = True
+    wedge_window_s: float = 60.0
+    slo: Any = None
+    streaming: bool = False
+    stream_stall_s: float = 2.0
+    pool_role: str = "combined"
+    prefix_store: Any = None
+    adapter_store: Any = None
+    shrink_fraction: float = 0.125
+    shrink_recovery_s: float = 30.0
+    faults: tuple = ()
+    journal_dir: str | None = None
+    incident_dir: str | None = None
+    prefix_cache_max_suffix: int = 4096
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ServingConfig":
+        def get(key: str, default=None):
+            return d.get(key, d.get(key.replace("-", "_"), default))
+
+        def opt_int(key: str):
+            v = get(key)
+            return int(v) if v is not None else None
+
+        mesh = tuple((k, int(v)) for k, v in (d.get("mesh") or {}).items())
+        return cls(
+            model=d.get("model", "tiny"),
+            slots=int(d.get("slots", 8)),
+            max_seq_len=int(get("max-seq-len", 512)),
+            tokenizer=d.get("tokenizer"),
+            checkpoint=d.get("checkpoint"),
+            mesh=mesh,
+            default_max_tokens=int(d.get("max-tokens", 128)),
+            seed=int(d.get("seed", 0)),
+            decode_chunk=int(d.get("decode-chunk", 16)),
+            decode_chunk_light=int(get("decode-chunk-light", 8)),
+            light_load_slots=opt_int("light-load-slots"),
+            warmup_on_start=_parse_bool(get("warmup-on-start", False)),
+            prefill_batch=int(d.get("prefill-batch", 8)),
+            model_dtype=get("model-dtype"),
+            quantize=d.get("quantize"),
+            kv_quantize=get("kv-quantize"),
+            kv_layout=get("kv-layout", "dense"),
+            kv_block_size=int(get("kv-block-size", 64)),
+            kv_pool_fraction=float(get("kv-pool-fraction", 0.5)),
+            kv_pool_blocks=(
+                int(d.get("kv-pool-blocks") or d.get("kv_pool_blocks"))
+                if (d.get("kv-pool-blocks") or d.get("kv_pool_blocks"))
+                else None
+            ),
+            paged_kernel=get("paged-kernel", "auto"),
+            dense_kernel=get("dense-kernel", "auto"),
+            prefix_cache=_parse_bool(get("prefix-cache", True)),
+            prefix_cache_max_suffix=int(get("prefix-cache-max-suffix", 4096)),
+            prefix_store=get("prefix-store"),
+            adapter_store=get("adapter-store"),
+            prefill_chunk=int(get("prefill-chunk", 0)),
+            speculative_drafts=int(get("speculative-drafts", 0)),
+            qos=d.get("qos"),
+            pool_role=str(get("pool-role", os.environ.get("LS_POOL_ROLE") or "combined")),
+            pipeline=_parse_bool(d.get("pipeline", True)),
+            wedge_window_s=float(get("wedge-window-s", 60.0)),
+            slo=d.get("slo"),
+            streaming=_parse_bool(d.get("streaming", False)),
+            stream_stall_s=float(get("stream-stall-s", 2.0)),
+            shrink_fraction=float(get("shrink-fraction", 0.125)),
+            shrink_recovery_s=float(get("shrink-recovery-s", 30.0)),
+            faults=tuple(d.get("faults") or ()),
+            journal_dir=get("journal-dir", os.environ.get("LS_TPU_JOURNAL_DIR") or None),
+            incident_dir=get("incident-dir", os.environ.get("LS_TPU_INCIDENT_DIR") or None),
+        )
+
+
+#: settings this slice does not serve: (predicate, message)
+_UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
+    (lambda c: bool(c.mesh), "mesh: multi-GPU serving is ROADMAP.md Queue 1 item 13"),
+    (lambda c: bool(c.checkpoint),
+     "checkpoint: loading real weights waits for a checkpoint in the "
+     "repository (ROADMAP.md Queue 1 item 1); random init from seed only"),
+    (lambda c: c.speculative_drafts > 0,
+     "speculative-drafts > 0: speculation is ROADMAP.md Queue 1 item 8"),
+    (lambda c: c.prefill_chunk > 0,
+     "prefill-chunk > 0: chunked prefill is ROADMAP.md Queue 1 item 7"),
+    (lambda c: c.kv_layout == "paged" and c.prefix_cache,
+     "prefix-cache with kv-layout: paged: the prefix cache is ROADMAP.md "
+     "Queue 1 item 7; set prefix-cache: false"),
+    (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
+     "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
+     "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
+    (lambda c: c.adapter_store is not None,
+     "adapter-store: multi-LoRA is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.prefix_store is not None,
+     "prefix-store: the tiered prefix store is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.qos is not None, "qos: scheduling/QoS is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.slo is not None, "slo: the health/SLO plane is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.streaming, "streaming: the streaming/TBT plane is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.pool_role != "combined",
+     "pool-role other than combined: KV handoff is ROADMAP.md Queue 1 item 10"),
+    (lambda c: bool(c.faults), "faults: fault injection is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.journal_dir is not None,
+     "journal-dir: the crash-requeue journal is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.incident_dir is not None,
+     "incident-dir: incident capture is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.model in _MOE_MODELS, "MoE models are ROADMAP.md Queue 1 item 12"),
+)
+
+#: accepted settings that change only latency here; logged once when set
+_LATENCY_ONLY = (
+    "decode_chunk_light", "light_load_slots", "warmup_on_start", "pipeline",
+    "paged_kernel", "dense_kernel", "wedge_window_s", "stream_stall_s",
+    "shrink_fraction", "shrink_recovery_s", "prefix_cache_max_suffix",
+)
+
+
+def _check_supported(config: ServingConfig) -> None:
+    for unsupported, message in _UNSUPPORTED:
+        if unsupported(config):
+            raise NotImplementedError(f"not in this port yet: {message}")
+    if config.quantize not in (None, "none", "int8"):
+        raise ValueError(f"unknown quantize mode {config.quantize!r}")
+    if config.kv_quantize not in (None, "none", "int8"):
+        raise ValueError(f"unknown kv_quantize mode {config.kv_quantize!r}")
+    if config.kv_layout not in ("dense", "paged"):
+        raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
+    if config.model not in _MODEL_CONFIGS:
+        raise ValueError(
+            f"unknown model {config.model!r}; known: {sorted(_MODEL_CONFIGS)}"
+        )
+    if config.model_dtype is not None and config.model_dtype not in _DTYPES:
+        raise ValueError(
+            f"unknown model_dtype {config.model_dtype!r}; known: {sorted(_DTYPES)}"
+        )
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: "_Request | None" = None
+
+    @property
+    def free(self) -> bool:
+        return self.request is None
+
+
+@dataclasses.dataclass
+class _Request:
+    prompt_tokens: list[int]
+    max_tokens: int
+    temperature: float
+    top_k: int
+    top_p: float
+    future: asyncio.Future
+    on_token: Callable | None = None
+    on_chunk: Callable | None = None
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    generated: list[int] = dataclasses.field(default_factory=list)
+    logprobs: list[float] = dataclasses.field(default_factory=list)
+    enqueue_time: float = 0.0
+    admit_time: float | None = None
+    first_token_time: float | None = None
+    # stop sequences: generation halts when any string appears in the
+    # decoded output; the final text is cut at the match (match excluded)
+    stop: list = dataclasses.field(default_factory=list)
+    stop_matched: bool = False
+    stream_sent_tokens: int = 0
+    stream_sent_chars: int = 0
+
+
+def _normalize_stop(value) -> list[str]:
+    """A string becomes a singleton list, falsy entries drop, non-string
+    entries are coerced to strings."""
+    if not value:
+        return []
+    if isinstance(value, str):
+        value = [value]
+    return [s if isinstance(s, str) else str(s) for s in value if s]
+
+
+def _bucket(n: int, lo: int = 32, hi: int = 32768) -> int:
+    b = lo
+    while b < n and b < hi:
+        b *= 2
+    return min(b, hi)
+
+
+class TorchServingEngine:
+    """The serving engine of the port. ``params=None`` means random init
+    from ``config.seed`` (``init_llama_params_q8`` for ``quantize: int8``,
+    else ``init_llama_params``); otherwise ``params`` is a port parameter
+    tree (see :func:`langstream_tpu_torch.models.convert.params_from_numpy`),
+    quantized here when the config asks for int8 and it is not."""
+
+    def __init__(self, config: ServingConfig, *, device="cuda",
+                 params: dict | None = None):
+        _check_supported(config)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchServingEngine runs on the card: torch.cuda is not "
+                "available here (pass device='cpu' to run the plain versions)"
+            )
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported device {device!r}")
+        self.config = config
+        mc = _MODEL_CONFIGS[config.model](max_seq_len=config.max_seq_len)
+        if config.model_dtype is not None:
+            mc = dataclasses.replace(mc, dtype=_DTYPES[config.model_dtype])
+        self.model_config = mc
+        self.tokenizer: Tokenizer = load_tokenizer(config.tokenizer)
+        if self.tokenizer.vocab_size > mc.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab {self.tokenizer.vocab_size} exceeds model "
+                f"vocab {mc.vocab_size}"
+            )
+        defaults = ServingConfig()
+        ignored = {
+            name: getattr(config, name) for name in _LATENCY_ONLY
+            if getattr(config, name) != getattr(defaults, name)
+        }
+        if ignored:
+            log.info(
+                "latency-only settings accepted, not acted on by this engine "
+                "(ROADMAP.md Queue 1 item 4): %s", ignored,
+            )
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(config.seed)
+        self._init_model(params)
+
+        self.slots = [_Slot() for _ in range(config.slots)]
+        self._queue: deque[_Request] = deque()
+        self._wake = asyncio.Event()
+        self._stop = False
+        self._loop_task: asyncio.Task | None = None
+        # one dispatch thread: device work is serialised, asyncio stays live
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-engine"
+        )
+        self._lengths = np.zeros(config.slots, dtype=np.int32)
+        self._current = np.zeros(config.slots, dtype=np.int64)
+        self._temps = np.zeros(config.slots, dtype=np.float32)
+        self._topks = np.zeros(config.slots, dtype=np.int32)
+        self._topps = np.ones(config.slots, dtype=np.float32)
+        self._pres = np.zeros(config.slots, dtype=np.float32)
+        self._freq = np.zeros(config.slots, dtype=np.float32)
+        self._pending_emits: list = []
+        self._finished_requests: list = []
+        self.total_generated = 0
+        self.completed_requests = 0
+        self._decode_dispatches = 0
+        self._decode_fetches = 0
+        self._decode_steps = 0
+        self._decode_s = 0.0
+        self._prefill_calls = 0
+
+    # ------------------------------------------------------------------
+    # model + cache
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _init_model(self, params: dict | None) -> None:
+        mc, dev = self.model_config, self.device
+        int8 = self.config.quantize == "int8"
+        if params is None:
+            log.warning(
+                "no checkpoint configured for model %r: using random-init "
+                "weights (offline/dev mode)", self.config.model,
+            )
+            init = init_llama_params_q8 if int8 else init_llama_params
+            params = init(mc, self._generator, device=dev)
+        else:
+            params = _to_device(params, dev)
+            if int8 and not isinstance(params["layers"]["wq"], QTensor):
+                params = quantize_llama_params(params)
+        self.params = params
+        self.block_mgr = None
+        self.paged_layout = None
+        if self.config.kv_layout == "paged":
+            self.paged_layout = PagedLayout.for_model(
+                mc.max_seq_len, self.config.slots,
+                block_size=self.config.kv_block_size,
+                hbm_fraction_of_dense=self.config.kv_pool_fraction,
+                num_blocks=self.config.kv_pool_blocks,
+            )
+            self.block_mgr = BlockManager(self.paged_layout, self.config.slots)
+            init_pool = (
+                init_paged_kv_cache_int8 if self.config.kv_quantize == "int8"
+                else init_paged_kv_cache
+            )
+            self.cache_k, self.cache_v = init_pool(mc, self.paged_layout, device=dev)
+        else:
+            shape = (mc.layers, self.config.slots, mc.max_seq_len,
+                     mc.kv_heads, mc.head_dim)
+            self.cache_k = torch.zeros(shape, dtype=mc.dtype, device=dev)
+            self.cache_v = torch.zeros(shape, dtype=mc.dtype, device=dev)
+
+    # ------------------------------------------------------------------
+    # read-window buckets
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _sampler_mode(temps, topks, topps) -> tuple:
+        """(use_top_p, use_top_k, all_greedy) for the given active rows."""
+        use_top_p = bool((topps < 1.0).any())
+        use_top_k = bool((topks > 0).any())
+        all_greedy = bool((temps <= 0).all()) and not use_top_p and not use_top_k
+        return (use_top_p, use_top_k, all_greedy)
+
+    def _window_for(self, max_len: int) -> int | None:
+        """Smallest 128-multiple cache window covering ``max_len`` rows up to
+        1024, powers of two beyond; None = the whole cache."""
+        S = self.model_config.max_seq_len
+        if max_len <= 1024:
+            w = max(128, -(-max_len // 128) * 128)
+        else:
+            w = 2048
+            while w < max_len:
+                w *= 2
+        return None if w >= S else w
+
+    def _read_blocks_for(self, max_len: int) -> int:
+        """Paged analogue of :meth:`_window_for`: block-table columns the
+        read may cover."""
+        bs = self.paged_layout.block_size
+        window = self._window_for(max_len) or self.model_config.max_seq_len
+        return max(1, min(-(-window // bs), self.paged_layout.max_blocks_per_slot))
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    async def generate(
+        self,
+        prompt: str | list[int],
+        options: dict[str, Any] | None = None,
+        on_token: Callable[[int, float, bool], Any] | None = None,
+        on_chunk: Callable[[list, str, bool], Any] | None = None,
+    ) -> dict[str, Any]:
+        """Generate a completion. ``on_token(token_id, logprob, last)`` fires
+        per token; ``on_chunk(new_token_ids, new_text, is_final)`` once per
+        request per decode chunk, with text deltas that concatenate to the
+        final ``text`` (both sync or async). Returns
+        ``{"tokens", "text", "logprobs", "num_prompt_tokens", "ttft"}``."""
+        if self._stop:
+            raise RuntimeError("serving engine is stopped (closed)")
+        options = options or {}
+        tokens = (
+            self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+        )
+        S = self.model_config.max_seq_len
+        if len(tokens) > S - 2:
+            tokens = tokens[-(S - 2):]
+        top_k = int(options.get("top-k", 0))
+        if top_k > K_MAX:
+            log.warning("top-k %d exceeds the window of %d; clamping", top_k, K_MAX)
+            top_k = K_MAX
+        max_tokens = min(
+            int(options.get("max-tokens", self.config.default_max_tokens)),
+            S - len(tokens) - 1,
+        )
+        if self.block_mgr is not None and not self.block_mgr.fits_ever(
+            len(tokens) + max_tokens + 1
+        ):
+            raise ValueError(
+                f"request needs {len(tokens) + max_tokens + 1} tokens of KV, "
+                f"more than the paged pool can ever hold; lower max-tokens or "
+                f"grow kv-pool-blocks/kv-pool-fraction"
+            )
+        loop = asyncio.get_running_loop()
+        request = _Request(
+            prompt_tokens=tokens,
+            max_tokens=max_tokens,
+            temperature=float(options.get("temperature", 0.0)),
+            top_k=top_k,
+            top_p=float(options.get("top-p", 1.0)),
+            future=loop.create_future(),
+            on_token=on_token,
+            on_chunk=on_chunk,
+            presence_penalty=float(options.get("presence-penalty", 0.0)),
+            frequency_penalty=float(options.get("frequency-penalty", 0.0)),
+            enqueue_time=time.monotonic(),
+            stop=_normalize_stop(options.get("stop")),
+        )
+        self._queue.append(request)
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.ensure_future(self._run_loop())
+        self._wake.set()
+        return await request.future
+
+    def stats(self) -> dict[str, Any]:
+        out = {
+            "model": self.config.model,
+            "device": str(self.device),
+            "slots": self.config.slots,
+            "active": sum(1 for s in self.slots if not s.free),
+            "queued": len(self._queue),
+            "total-generated": self.total_generated,
+            "completed": self.completed_requests,
+            "prefill-calls": self._prefill_calls,
+            "decode-chunks": {
+                "dispatched": self._decode_dispatches,
+                "fetched": self._decode_fetches,
+                # the one-fetch invariant: above 1.0 means the decode tail
+                # crosses the host boundary more than once per chunk
+                "host_fetches_per_chunk": (
+                    round(self._decode_fetches / self._decode_dispatches, 4)
+                    if self._decode_dispatches else 0.0
+                ),
+                # fused steps and host-clock seconds from dispatch to the
+                # end of the fetch (the fetch waits for the device)
+                "steps": self._decode_steps,
+                "seconds": self._decode_s,
+            },
+            # launch counters of the port's kernels in this process
+            "kernels": {
+                "flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention_partial.launches,
+                "paged_attention_q8": _paged_attention_partial_q8.launches,
+            },
+        }
+        if self.block_mgr is not None:
+            out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
+        return out
+
+    async def close(self) -> None:
+        self._stop = True
+        self._wake.set()
+        if self._loop_task is not None:
+            await self._loop_task
+        self._executor.shutdown(wait=True)
+        closed = RuntimeError("serving engine closed")
+        for request in list(self._queue):
+            if not request.future.done():
+                request.future.set_exception(closed)
+        self._queue.clear()
+
+    # ------------------------------------------------------------------
+    # the loop
+    # ------------------------------------------------------------------
+
+    async def _run_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while not self._stop:
+            try:
+                if self._queue:
+                    await self._admit(loop)
+                active = [i for i, s in enumerate(self.slots) if not s.free]
+                if not active:
+                    if not self._queue:
+                        self._wake.clear()
+                        try:
+                            await asyncio.wait_for(self._wake.wait(), timeout=1.0)
+                        except asyncio.TimeoutError:
+                            pass
+                    continue
+                await self._decode_chunk(loop, active)
+            except Exception as e:  # device/runtime error: fail in-flight work,
+                # free the slots, keep serving (callers see the exception)
+                log.exception("serving engine step failed")
+                self._fail_inflight(e)
+
+    def _fail_inflight(self, error: Exception) -> None:
+        for slot_id, slot in enumerate(self.slots):
+            request = slot.request
+            if request is None:
+                continue
+            self._release_slot(slot_id)
+            if not request.future.done():
+                request.future.set_exception(error)
+        self._pending_emits.clear()
+        self._finished_requests.clear()
+
+    def _release_slot(self, slot_id: int) -> None:
+        self.slots[slot_id].request = None
+        self._lengths[slot_id] = 0
+        if self.block_mgr is not None:
+            self.block_mgr.release(slot_id)
+
+    # ------------------------------------------------------------------
+    # admission + prefill
+    # ------------------------------------------------------------------
+
+    async def _admit(self, loop) -> None:
+        """Admit queued requests FIFO in batched prefill calls (one batch per
+        prompt-length bucket, up to ``prefill-batch`` rows)."""
+        S = self.model_config.max_seq_len
+        while self._queue:
+            free = [i for i, s in enumerate(self.slots) if s.free]
+            if not free:
+                return
+            batch: list[tuple[int, _Request]] = []
+            bucket = None
+            while self._queue and len(batch) < min(len(free), self.config.prefill_batch):
+                request = self._queue[0]
+                if request.future.cancelled():
+                    self._queue.popleft()  # caller gave up while queued
+                    continue
+                total = len(request.prompt_tokens) + request.max_tokens + 1
+                if self.block_mgr is not None and not self.block_mgr.can_admit(total):
+                    break  # paged backpressure: finishing slots free reservations
+                b = _bucket(len(request.prompt_tokens), hi=S)
+                if bucket is None:
+                    bucket = b
+                elif b != bucket:
+                    break
+                slot_id = free[len(batch)]
+                self._queue.popleft()
+                if self.block_mgr is not None:
+                    self.block_mgr.admit(slot_id, total)
+                batch.append((slot_id, request))
+            if not batch:
+                return
+            now = time.monotonic()
+            for slot_id, request in batch:
+                self.slots[slot_id].request = request
+                request.admit_time = now
+                if self.block_mgr is not None:
+                    self.block_mgr.ensure_capacity(slot_id, len(request.prompt_tokens))
+            B = len(batch)
+            padded = np.zeros((B, bucket), dtype=np.int64)
+            lengths = np.zeros(B, dtype=np.int32)
+            slot_ids = np.zeros(B, dtype=np.int64)
+            temps = np.zeros(B, dtype=np.float32)
+            topks = np.zeros(B, dtype=np.int32)
+            topps = np.ones(B, dtype=np.float32)
+            for i, (slot_id, request) in enumerate(batch):
+                padded[i, : len(request.prompt_tokens)] = request.prompt_tokens
+                lengths[i] = len(request.prompt_tokens)
+                slot_ids[i] = slot_id
+                temps[i] = request.temperature
+                topks[i] = request.top_k
+                topps[i] = request.top_p
+            tables = (
+                self.block_mgr.tables[slot_ids].copy()
+                if self.block_mgr is not None else None
+            )
+            mode = self._sampler_mode(temps, topks, topps)
+            next_np, logprob_np = await loop.run_in_executor(
+                self._executor,
+                partial(self._run_prefill, padded, lengths, slot_ids, tables,
+                        temps, topks, topps, mode),
+            )
+            now = time.monotonic()
+            for i, (slot_id, request) in enumerate(batch):
+                self._lengths[slot_id] = len(request.prompt_tokens)
+                self._current[slot_id] = int(next_np[i])
+                self._temps[slot_id] = request.temperature
+                self._topks[slot_id] = request.top_k
+                self._topps[slot_id] = request.top_p
+                self._pres[slot_id] = request.presence_penalty
+                self._freq[slot_id] = request.frequency_penalty
+                if request.first_token_time is None:
+                    request.first_token_time = now
+                self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
+            await self._flush_emits()
+
+    def _device_sampler(self, temps, topks, topps, mode, pres=None, freq=None):
+        """A ``sample_fn`` closure over device copies of the rows' settings."""
+        dev = self.device
+        use_top_p, use_top_k, all_greedy = mode
+        temps_t = torch.from_numpy(temps).to(dev)
+        topks_t = torch.from_numpy(topks).to(dev)
+        topps_t = torch.from_numpy(topps).to(dev)
+        pen = pres is not None
+        pres_t = torch.from_numpy(pres).to(dev) if pen else None
+        freq_t = torch.from_numpy(freq).to(dev) if pen else None
+
+        def sample_fn(logits, counts=None):
+            return sample_tokens(
+                logits, self._generator, temps_t, topks_t,
+                use_top_p=use_top_p, top_ps=topps_t, use_top_k=use_top_k,
+                all_greedy=all_greedy, use_penalties=pen, presences=pres_t,
+                frequencies=freq_t, counts=counts,
+            )
+
+        return sample_fn
+
+    @torch.no_grad()
+    def _run_prefill(self, padded, lengths, slot_ids, tables, temps, topks,
+                     topps, mode):
+        """Dispatch thread: one batched prefill + first-token sample; one
+        packed device-to-host copy. Returns (tokens, logprobs) numpy."""
+        dev, mc = self.device, self.model_config
+        tokens = torch.from_numpy(padded).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
+        if self.block_mgr is not None:
+            logits, _, _ = llama_prefill_paged(
+                mc, self.params, tokens, lengths_t, self.cache_k, self.cache_v,
+                torch.from_numpy(tables).to(dev),
+            )
+        else:
+            logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t)
+            sel = torch.from_numpy(slot_ids).to(dev)
+            Pn = tokens.shape[1]
+            self.cache_k[:, sel, :Pn] = ks
+            self.cache_v[:, sel, :Pn] = vs
+        nxt, lps = self._device_sampler(temps, topks, topps, mode)(logits)
+        self._prefill_calls += 1
+        packed = pack_tokens_logprobs(nxt, lps).cpu().numpy()
+        B = len(lengths)
+        return packed[:B], packed[B:].view(np.float32)
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+
+    async def _decode_chunk(self, loop, active: list[int]) -> None:
+        """One chunk of fused decode steps over the active slots, one packed
+        fetch, then per-token host processing."""
+        cfg = self.config
+        active_mask = np.zeros(cfg.slots, dtype=bool)
+        active_mask[active] = True
+        mode = self._sampler_mode(
+            self._temps[active_mask], self._topks[active_mask],
+            self._topps[active_mask],
+        )
+        K = cfg.decode_chunk
+        max_remaining = 1
+        for slot_id in active:
+            request = self.slots[slot_id].request
+            max_remaining = max(max_remaining, request.max_tokens - len(request.generated))
+        # never fuse far past the longest remaining budget
+        while K >= 2 * max_remaining:
+            K //= 2
+        pen = bool(
+            (self._pres[active_mask] != 0).any() or (self._freq[active_mask] != 0).any()
+        )
+        counts = None
+        if pen:
+            counts = np.zeros((cfg.slots, self.model_config.vocab_size), dtype=np.int32)
+            for slot_id in active:
+                for t in self.slots[slot_id].request.generated:
+                    counts[slot_id, t] += 1
+        base_max = int(self._lengths[active].max())
+        tables = None
+        if self.block_mgr is not None:
+            S = self.model_config.max_seq_len
+            for slot_id in active:
+                request = self.slots[slot_id].request
+                cap = len(request.prompt_tokens) + request.max_tokens + 1
+                need = min(int(self._lengths[slot_id]) + K, cap, S)
+                self.block_mgr.ensure_capacity(slot_id, need)
+            tables = self.block_mgr.tables.copy()
+            window = self._read_blocks_for(base_max)
+        else:
+            window = self._window_for(base_max)
+        packed = await loop.run_in_executor(
+            self._executor,
+            partial(
+                self._run_decode, self._current.copy(), self._lengths.copy(),
+                active_mask, tables, window, K, mode, self._temps.copy(),
+                self._topks.copy(), self._topps.copy(),
+                self._pres.copy() if pen else None,
+                self._freq.copy() if pen else None, counts,
+            ),
+        )
+        n = K * cfg.slots
+        chunk_t = packed[:n].reshape(K, cfg.slots)
+        chunk_lp = packed[n:].view(np.float32).reshape(K, cfg.slots)
+        self._process_chunk(chunk_t, chunk_lp, active)
+        await self._flush_emits()
+
+    @torch.no_grad()
+    def _run_decode(self, tokens, lengths, active_mask, tables, window, K, mode,
+                    temps, topks, topps, pres, freq, counts):
+        """Dispatch thread: one decode chunk; returns the packed host copy."""
+        dev, mc = self.device, self.model_config
+        t0 = time.monotonic()
+        sample_fn = self._device_sampler(temps, topks, topps, mode, pres, freq)
+        extras = None
+        if counts is not None:
+            extras = (None, None, torch.from_numpy(counts).to(dev))
+        args = (
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(active_mask).to(dev),
+        )
+        if self.block_mgr is not None:
+            out = llama_decode_chunk_paged(
+                mc, self.params, *args, self.cache_k, self.cache_v,
+                torch.from_numpy(tables).to(dev), sample_fn, K,
+                num_read_blocks=window, sample_extras=extras,
+                return_packed=True,
+            )
+        else:
+            out = llama_decode_chunk_dense_pallas(
+                mc, self.params, *args, self.cache_k, self.cache_v,
+                sample_fn, K, window, sample_extras=extras, return_packed=True,
+            )
+        self._decode_dispatches += 1
+        packed = out[0].cpu().numpy()  # the chunk's one device-to-host copy
+        self._decode_fetches += 1
+        self._decode_steps += K
+        self._decode_s += time.monotonic() - t0
+        return packed
+
+    # ------------------------------------------------------------------
+    # host-side token handling
+    # ------------------------------------------------------------------
+
+    def _process_chunk(self, chunk_tokens, chunk_lps, active: list[int]) -> None:
+        K = chunk_tokens.shape[0]
+        for slot_id in active:
+            for k in range(K):
+                if self.slots[slot_id].request is None:
+                    break  # finished mid-chunk; discard the tail
+                self._lengths[slot_id] += 1
+                token = int(chunk_tokens[k, slot_id])
+                self._current[slot_id] = token
+                self._emit_token(slot_id, token, float(chunk_lps[k, slot_id]))
+
+    def _emit_token(self, slot_id: int, token: int, logprob: float) -> bool:
+        """Apply one token to its request; returns True when it finished."""
+        request = self.slots[slot_id].request
+        if request is None:
+            return False
+        is_eos = token == self.tokenizer.eos_id
+        if not is_eos:
+            request.generated.append(token)
+            request.logprobs.append(logprob)
+        stop_matched = False
+        if request.stop and not is_eos:
+            # decode only a tail window: any new match involves the newest
+            # token, and every token decodes from at least one byte
+            window = max(len(s.encode("utf-8")) for s in request.stop) + 8
+            tail = self.tokenizer.decode(request.generated[-window:])
+            if any(s in tail for s in request.stop):
+                request.stop_matched = stop_matched = True
+        self.total_generated += 1
+        done = bool(
+            is_eos
+            or stop_matched
+            or len(request.generated) >= request.max_tokens
+            or self._lengths[slot_id] + 1 >= self.model_config.max_seq_len
+            or request.future.cancelled()
+        )
+        if request.on_token is not None or request.on_chunk is not None:
+            self._pending_emits.append((request, token, logprob, done))
+        if done:
+            self._release_slot(slot_id)
+            self._finished_requests.append((request, is_eos))
+        return done
+
+    def _final_text(self, request: _Request) -> str:
+        """Full decode, cut at the earliest stop match (match excluded)."""
+        text = self.tokenizer.decode(request.generated)
+        if request.stop_matched:
+            hits = [i for i in (text.find(s) for s in request.stop) if i >= 0]
+            if hits:
+                text = text[: min(hits)]
+        return text
+
+    def _stream_text(self, request: _Request, is_final: bool) -> str:
+        """The stream-safe decoded prefix: the final text when final, else
+        the decode minus a trailing UTF-8 partial and minus any tail that
+        could still grow into a stop match."""
+        if is_final:
+            return self._final_text(request)
+        text = self.tokenizer.decode(request.generated)
+        if text.endswith("�"):
+            text = text[:-1]
+        if request.stop:
+            hits = [i for i in (text.find(s) for s in request.stop) if i >= 0]
+            if hits:
+                return text[: min(hits)]
+            hold = 0
+            for s in request.stop:
+                for k in range(min(len(s) - 1, len(text)), 0, -1):
+                    if s.startswith(text[-k:]):
+                        hold = max(hold, k)
+                        break
+            if hold:
+                text = text[: len(text) - hold]
+        return text
+
+    async def _flush_emits(self) -> None:
+        emits, self._pending_emits = self._pending_emits, []
+        chunks: "OrderedDict[int, list]" = OrderedDict()
+        for request, token, logprob, done in emits:
+            if request.on_token is not None:
+                result = request.on_token(token, logprob, done)
+                if asyncio.iscoroutine(result):
+                    await result
+            if request.on_chunk is not None:
+                entry = chunks.setdefault(id(request), [request, False])
+                entry[1] = entry[1] or done
+        for request, done in chunks.values():
+            text = self._stream_text(request, done)
+            new_tokens = request.generated[request.stream_sent_tokens:]
+            new_text = text[request.stream_sent_chars:]
+            request.stream_sent_tokens = len(request.generated)
+            request.stream_sent_chars = max(request.stream_sent_chars, len(text))
+            result = request.on_chunk(new_tokens, new_text, done)
+            if asyncio.iscoroutine(result):
+                await result
+        finished, self._finished_requests = self._finished_requests, []
+        now = time.monotonic()
+        for request, is_eos in finished:
+            if request.future.done():
+                continue  # cancelled by the caller
+            self.completed_requests += 1
+            first = request.first_token_time or now
+            admit = request.admit_time or first
+            request.future.set_result({
+                "tokens": request.generated,
+                "text": self._final_text(request),
+                "logprobs": request.logprobs,
+                "num_prompt_tokens": len(request.prompt_tokens),
+                "num_completion_tokens": len(request.generated),
+                "ttft": first - request.enqueue_time,
+                "queue_wait": admit - request.enqueue_time,
+                "prefill": first - admit,
+                "finish_reason": (
+                    "stop" if is_eos or request.stop_matched else "length"
+                ),
+            })
+
+
+def _to_device(tree, device):
+    if isinstance(tree, QTensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+CUDA kernels have no CPU or interpret mode, so every test here skips on a
+machine without an NVIDIA GPU. This file imports nothing of JAX, so it runs
+on the card's machine, where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_card.py -q
+
+(``--noconftest``: the suite's conftest.py imports JAX.)
+"""
+
+import asyncio
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from langstream_tpu_torch.models.kvquant import quantize_rows
+from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
+from langstream_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+from langstream_tpu_torch.ops.paged_attention import (
+    NEG_INF,
+    _paged_attention_partial_q8,
+    merge_partial_attention,
+    paged_attention_partial,
+    paged_attention_reference,
+)
+from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+pytestmark = pytest.mark.skipif(
+    "not torch.cuda.is_available()",
+    reason="CUDA kernels run only on an NVIDIA GPU (no CPU/interpret mode)",
+)
+
+TABLES = np.array([[1, 2, 3, 0], [4, 5, 0, 0], [6, 7, 8, 9]], np.int32)
+
+
+@pytest.fixture(autouse=True)
+def _exact_f32_matmuls():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal,S", [(True, 200), (False, 77)])
+def test_flash_kernel_matches_plain(D, dtype, tol, causal, S):
+    rng = np.random.default_rng(0)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal((2, S, h, D), dtype=np.float32))
+        .to(dtype).cuda()
+        for h in (8, 2, 2)
+    )
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_reference(q, k, v, causal=causal)
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("lengths", [[20, 9, 24], [0, 5, 16]])
+def test_paged_kernels_match_plain(int8, D, lengths):
+    rng = np.random.default_rng(1)
+    nb, bs, Kh = 10, 8, 2
+    q = torch.from_numpy(rng.standard_normal((3, 4, D), dtype=np.float32)).cuda()
+    pools = [torch.from_numpy(rng.standard_normal((nb, bs, Kh * D), dtype=np.float32))
+             for _ in range(2)]
+    fn = paged_attention_partial
+    if int8:
+        pools = [
+            {"q": r["q"].reshape(nb, bs, Kh * D), "s": r["s"]}
+            for r in (quantize_rows(p.reshape(nb, bs, Kh, D)) for p in pools)
+        ]
+        pools = [{k: v.cuda() for k, v in p.items()} for p in pools]
+        fn = _paged_attention_partial_q8
+    else:
+        pools = [p.cuda() for p in pools]
+    lengths = torch.tensor(lengths, dtype=torch.int32).cuda()
+    args = (q, pools[0], pools[1], torch.from_numpy(TABLES).cuda(), lengths)
+    kw = dict(num_read_blocks=3, kv_heads=Kh, head_dim=D)
+    before = fn.launches
+    got = paged_attention_partial(*args, **kw)
+    assert fn.launches == before + 1
+    want = paged_attention_reference(*args, **kw)
+    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+    assert err.item() <= 1e-4
+    acc, m, l = got
+    empty = lengths == 0
+    assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all() and (acc[empty] == 0).all()
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros((1, 16, 4, 32), device="cuda")  # head_dim 32
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    q = torch.zeros((1, 4, 64), device="cuda")
+    pool = torch.zeros((4, 8, 128), device="cuda", dtype=torch.bfloat16)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        paged_attention_partial(q, pool, pool, tables, lengths,
+                                num_read_blocks=2, kv_heads=2, head_dim=64)
+
+
+@pytest.mark.parametrize(
+    "layout",
+    [
+        {"kv-layout": "dense"},
+        {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
+        {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
+         "kv-quantize": "int8"},
+    ],
+)
+def test_tiny_engine_card_matches_cpu(layout):
+    prompts = ["paged cache equivalence", "second prompt!", "a",
+               "and a longer fourth prompt here", "fifth"]
+    c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
+    params = init_llama_params(c, torch.Generator().manual_seed(3))
+    cfg = ServingConfig.from_dict({"model": "tiny", "model-dtype": "float32",
+                                   "slots": 3, "max-seq-len": 256,
+                                   "decode-chunk": 4, **layout})
+    out = {}
+    for device in ("cuda", "cpu"):
+        async def run(engine=TorchServingEngine(cfg, device=device, params=params)):
+            try:
+                return await asyncio.gather(
+                    *(engine.generate(p, {"max-tokens": 12}) for p in prompts)
+                )
+            finally:
+                await engine.close()
+
+        out[device] = [r["tokens"] for r in asyncio.run(run())]
+    assert out["cuda"] == out["cpu"]

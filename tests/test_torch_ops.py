@@ -1,0 +1,232 @@
+"""Port kernels' plain versions against the JAX package's Pallas kernels.
+
+The same inputs, made with numpy from a seed, go through the JAX function
+(Pallas kernels in interpret mode, as tests/test_ops.py and
+tests/test_paged.py run them) and through the port's wrapper, which takes
+its plain PyTorch version for CPU tensors. The CUDA kernels themselves run
+only on the card: tests/test_torch_card.py holds them to the plain versions
+there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from langstream_tpu.models.kvquant import quantize_rows as jax_quantize_rows
+from langstream_tpu.models.llama import LlamaConfig as JaxConfig
+from langstream_tpu.models.llama_paged import _cache_partial_xla as jax_cache_partial
+from langstream_tpu.ops.flash_attention import flash_attention as jax_flash
+from langstream_tpu.ops.paged_attention import (
+    merge_partial_attention as jax_merge,
+    paged_attention_partial as jax_paged,
+)
+from langstream_tpu_torch.models.llama import LlamaConfig as TorchConfig
+from langstream_tpu_torch.models.llama_paged import _cache_partial_xla
+from langstream_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+from langstream_tpu_torch.ops.paged_attention import (
+    NEG_INF,
+    merge_partial_attention,
+    paged_attention_partial,
+    paged_attention_reference,
+)
+
+def _qkv(B=2, S=64, H=8, Kh=4, D=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return (
+        rng.standard_normal((B, S, H, D), dtype=np.float32),
+        rng.standard_normal((B, S, Kh, D), dtype=np.float32),
+        rng.standard_normal((B, S, Kh, D), dtype=np.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernel 1)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "causal,shape",
+    [
+        (True, {}),                       # aligned
+        (False, {}),                      # non-causal
+        (True, {"S": 48}),                # unaligned S: padding hidden by causality
+        (False, {"S": 40, "H": 4, "Kh": 4}),  # non-causal + padded keys masked
+        (True, {"H": 8, "Kh": 2}),        # GQA 8 -> 2 group mapping
+    ],
+)
+def test_flash_plain_matches_jax_kernel(causal, shape):
+    q, k, v = _qkv(**shape)
+    want = jax_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=32, block_k=32, interpret=True,
+    )
+    got = flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_flash_cpu_takes_plain_version():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(S=16))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    assert flash_attention.launches == before  # no kernel on the CPU
+    torch.testing.assert_close(out, flash_attention_reference(q, k, v), rtol=0, atol=0)
+
+
+def test_flash_rejects_cross_attention_causal():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(S=16))
+    with pytest.raises(ValueError, match="self-attention"):
+        flash_attention(q, k[:, :8], v[:, :8], causal=True)
+
+
+# ---------------------------------------------------------------------------
+# paged decode read (kernels 2 and 3)
+# ---------------------------------------------------------------------------
+
+
+def _paged_inputs(seed, *, B=3, H=4, Kh=2, D=16, bs=8, nb=10, q_dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D), dtype=np.float32).astype(q_dtype)
+    pools = [rng.standard_normal((nb, bs, Kh * D), dtype=np.float32) for _ in range(2)]
+    return q, pools
+
+
+TABLES = np.array([[1, 2, 3, 0], [4, 5, 0, 0], [6, 7, 8, 9]], np.int32)
+
+
+@pytest.mark.parametrize(
+    "lengths",
+    [
+        [20, 9, 24],     # the JAX package's own case
+        [0, 5, 16],      # an inactive slot, a sub-block length, a block-exact length
+        [0, 0, 0],       # nothing to read anywhere
+    ],
+)
+def test_paged_plain_matches_jax_kernel_and_xla(lengths):
+    q, (pk, pv) = _paged_inputs(0)
+    lengths = np.array(lengths, np.int32)
+    Kh, D, nrb = 2, 16, 3
+    c = JaxConfig.tiny()
+    j_args = (jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+              jnp.asarray(TABLES), jnp.asarray(lengths))
+    want_kernel = jax_paged(*j_args, num_read_blocks=nrb, kv_heads=Kh,
+                            head_dim=D, interpret=True)
+    want_xla = jax_cache_partial(c, *j_args, nrb)
+    got = paged_attention_partial(
+        torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
+        torch.from_numpy(TABLES), torch.from_numpy(lengths),
+        num_read_blocks=nrb, kv_heads=Kh, head_dim=D,
+    )
+    out = merge_partial_attention([got]).numpy()
+    for want in (want_kernel, want_xla):
+        np.testing.assert_allclose(
+            out, np.asarray(jax_merge([want])), rtol=1e-5, atol=1e-5
+        )
+    # the model layer's named twin is the same plain version
+    twin = _cache_partial_xla(
+        TorchConfig.tiny(), torch.from_numpy(q), torch.from_numpy(pk),
+        torch.from_numpy(pv), torch.from_numpy(TABLES), torch.from_numpy(lengths), nrb,
+    )
+    for g, t in zip(got, twin):
+        torch.testing.assert_close(g, t, rtol=0, atol=0)
+    # the inactive-slot contract the merge's guards rely on
+    acc, m, l = (t.numpy() for t in got)
+    for b in np.nonzero(lengths == 0)[0]:
+        assert (m[b] == NEG_INF).all() and (l[b] == 0).all() and (acc[b] == 0).all()
+    assert np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("lengths", [[20, 9, 24], [0, 5, 16]])
+def test_paged_q8_plain_matches_jax_kernel_and_xla(lengths):
+    """int8 pools with bf16 queries: the port's plain version against the
+    JAX int8 kernel twin (interpret) and the XLA gather path."""
+    rng = np.random.default_rng(1)
+    Kh, D, bs, nb, nrb = 2, 16, 8, 10, 3
+    q32 = rng.standard_normal((3, 4, D), dtype=np.float32)
+    q_j = jnp.asarray(q32).astype(jnp.bfloat16)
+    pools_j = []
+    for _ in range(2):
+        rows = rng.standard_normal((nb, bs, Kh, D), dtype=np.float32)
+        qr = jax_quantize_rows(jnp.asarray(rows))
+        pools_j.append({"q": qr["q"].reshape(nb, bs, Kh * D), "s": qr["s"]})
+    lengths = np.array(lengths, np.int32)
+    c = JaxConfig.tiny()
+    j_args = (q_j, pools_j[0], pools_j[1], jnp.asarray(TABLES), jnp.asarray(lengths))
+    want_kernel = jax_paged(*j_args, num_read_blocks=nrb, kv_heads=Kh,
+                            head_dim=D, interpret=True)
+    want_xla = jax_cache_partial(c, *j_args, nrb)
+
+    def port_pool(p):
+        return {"q": torch.from_numpy(np.array(p["q"])),
+                "s": torch.from_numpy(np.array(p["s"]))}
+
+    q_t = torch.from_numpy(q32).to(torch.bfloat16)
+    got = paged_attention_partial(
+        q_t, port_pool(pools_j[0]), port_pool(pools_j[1]),
+        torch.from_numpy(TABLES), torch.from_numpy(lengths),
+        num_read_blocks=nrb, kv_heads=Kh, head_dim=D,
+    )
+    out = merge_partial_attention([got]).to(torch.float32).numpy()
+    for want in (want_kernel, want_xla):
+        np.testing.assert_allclose(
+            out, np.asarray(jax_merge([want]), dtype=np.float32),
+            rtol=5e-2, atol=5e-2,  # bf16 math, blocked vs full softmax orders
+        )
+
+
+def test_merge_partial_attention_matches_jax():
+    rng = np.random.default_rng(2)
+    parts = []
+    for _ in range(3):
+        acc = rng.standard_normal((4, 6, 8), dtype=np.float32)
+        m = rng.standard_normal((4, 6), dtype=np.float32)
+        l = rng.uniform(0.5, 2.0, (4, 6)).astype(np.float32)
+        parts.append([acc, m, l])
+    # an empty segment and an all-empty row exercise the NEG_INF guards
+    parts[1][1][0] = NEG_INF
+    parts[1][2][0] = 0.0
+    parts[1][0][0] = 0.0
+    for p in parts:
+        p[1][1] = NEG_INF
+        p[2][1] = 0.0
+        p[0][1] = 0.0
+    want = np.asarray(jax_merge([tuple(jnp.asarray(a) for a in p) for p in parts]))
+    got = merge_partial_attention(
+        [tuple(torch.from_numpy(a) for a in p) for p in parts]
+    ).numpy()
+    # exp is the only transcendental: XLA's and PyTorch's CPU exp may round
+    # the last bit differently, so equality is held to 2 ulp of f32
+    np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=0)
+    assert (got[1] == 0).all()
+
+
+def test_paged_cpu_takes_plain_version():
+    q, (pk, pv) = _paged_inputs(3)
+    args = (torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
+            torch.from_numpy(TABLES), torch.tensor([3, 8, 20], dtype=torch.int32))
+    kw = dict(num_read_blocks=3, kv_heads=2, head_dim=16)
+    before = paged_attention_partial.launches
+    got = paged_attention_partial(*args, **kw)
+    want = paged_attention_reference(*args, **kw)
+    assert paged_attention_partial.launches == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """A build that cannot run raises; there is no fallback."""
+    from langstream_tpu_torch.ops import _build
+
+    monkeypatch.setenv("LS_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path / "no-bin"))
+    assert _build.library_path("flash_attention").parent == tmp_path / "build"
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert _build.build_all(names=()) == {}
