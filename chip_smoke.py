@@ -11,14 +11,20 @@ Phases (every one unguarded: any failure exits non-zero):
 2. each kernel against its plain PyTorch version at Llama-3-8B width
    (H=32, Kh=8, D=128) in bf16 and f32, with its time, the plain version's
    time, its bound and, for flash, ``scaled_dot_product_attention`` as the
-   library yardstick (timed here only; the port never calls it);
-3. the main path: ``TorchServingEngine`` serving the chat example's resource
+   library yardstick (timed here only; the port never calls it) — the
+   multi-query history read at the chunk's T=512 and at T=16;
+3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV) answering concurrent greedy requests, launch counters set to 0 just
-   before and read just after;
-4. the same with ``kv-layout: paged``, ``kv-quantize: int8``;
+   before and read just after (as for every path);
+4. main path B: the same with ``kv-layout: paged``, ``kv-quantize: int8``;
+   main path C: paged bf16 KV with the prefix cache and ``prefill-chunk:
+   512``, three waves in turn over a shared ~1,100-token preamble (chunked
+   prefills, then prefix hits, then a repeated prompt);
 5. the tiny f32 engine on the card against the same engine on the CPU with
-   the same params: greedy tokens must be identical;
+   the same params, two waves in turn: greedy tokens must be identical
+   (dense, paged, int8 KV, and paged with the prefix cache, with chunked
+   prefill and with int8 KV);
 6. one ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -240,33 +246,105 @@ def phase_kernels(torch) -> dict:
     return rows
 
 
+def phase_mq_kernel(torch) -> dict:
+    """Kernel 4: the multi-query history read at Llama-3-8B width, B=8
+    slots with ragged history over shuffled tables, T=16 and the chunk's
+    T=512, bf16 and f32."""
+    from langstream_tpu_torch.ops.paged_attention import (
+        NEG_INF, merge_partial_attention, paged_attention_multiquery_partial,
+        paged_attention_multiquery_reference,
+    )
+
+    H, Kh, D, bs, B, max_len = 32, 8, 128, 64, 8, 2048
+    g = torch.Generator().manual_seed(13)
+    starts = torch.randint(1, 1537, (B,), generator=g)
+    starts[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, 1536])  # 0, sub-block, exact
+    max_blocks = max_len // bs
+    nrb = -(-int(starts.max()) // bs)
+    nb = int(sum(-(-int(n) // bs) for n in starts)) + 1
+    perm = (torch.randperm(nb - 1, generator=g) + 1).tolist()
+    tables = torch.zeros((B, max_blocks), dtype=torch.int32)
+    for b in range(B):
+        for j in range(-(-int(starts[b]) // bs)):
+            tables[b, j] = perm.pop()
+    tables, starts_d = tables.cuda(), starts.to(torch.int32).cuda()
+    n_rows = int(starts.sum())
+    row = None
+    for T, dtype, tol, label in ((16, torch.bfloat16, TOL_BF16, "bf16"),
+                                 (512, torch.bfloat16, TOL_BF16, "bf16"),
+                                 (16, torch.float32, TOL_F32, "f32"),
+                                 (512, torch.float32, TOL_F32, "f32")):
+        q = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
+        kp, vp = (torch.randn((nb, bs, Kh * D), generator=g).to(dtype).cuda()
+                  for _ in range(2))
+        args = (q, kp, vp, tables, starts_d)
+        kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+        got = paged_attention_multiquery_partial(*args, **kw)
+        want = paged_attention_multiquery_reference(*args, **kw)
+        torch.cuda.synchronize()
+        acc, m, l = got
+        if not (torch.isfinite(acc[1:]).all() and torch.isfinite(l[1:]).all()):
+            fail(f"paged_attention_multiquery T={T} {label}: non-finite partials")
+        if not ((m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()):
+            fail(f"paged_attention_multiquery T={T} {label}: a starts == 0 slot "
+                 f"must give m=NEG_INF, l=0, acc=0")
+        err = (merge_partial_attention([got]) - merge_partial_attention([want])
+               ).abs().max().item()
+        if not err <= tol:
+            fail(f"paged_attention_multiquery T={T} {label}: normalised max abs "
+                 f"error {err} > {tol}")
+        del got, want, acc, m, l
+        ms = cuda_ms(torch, lambda: paged_attention_multiquery_partial(*args, **kw))
+        plain_ms = cuda_ms(torch, lambda: paged_attention_multiquery_reference(*args, **kw),
+                           iters=2, warmup=1)
+        elem = q.element_size()
+        nbytes = (2 * n_rows * Kh * D * elem + q.numel() * elem
+                  + B * T * H * (D + 2) * 4 + tables.numel() * 4 + B * 4)
+        flops = 4.0 * T * H * D * n_rows
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        b_ms, b_by = bound_ms(nbytes, flops, peak)
+        print(f"kernel paged_attention_multiquery [T={T} {label}] B={B} H={H} Kh={Kh} "
+              f"D={D} bs={bs} history_rows={n_rows}: max_abs_err={err:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"achieved={flops / ms / 1e9:.1f} TFLOP/s "
+              f"library_ms=none (no PyTorch call returns these partials from a "
+              f"block table)", flush=True)
+        if T == 512 and dtype == torch.bfloat16:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None)
+        del q, kp, vp, args
+        torch.cuda.empty_cache()
+    return {"paged_attention_multiquery": row}
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the engine
 # ---------------------------------------------------------------------------
 
 
-def reset_counts():
+def _wrappers() -> dict:
+    """Each kernel's wrapper (its launch counter) by kernel name."""
     from langstream_tpu_torch.ops.flash_attention import flash_attention
     from langstream_tpu_torch.ops.paged_attention import (
-        _paged_attention_partial_q8, paged_attention_partial,
-    )
-
-    flash_attention.launches = 0
-    paged_attention_partial.launches = 0
-    _paged_attention_partial_q8.launches = 0
-
-
-def read_counts() -> dict:
-    from langstream_tpu_torch.ops.flash_attention import flash_attention
-    from langstream_tpu_torch.ops.paged_attention import (
-        _paged_attention_partial_q8, paged_attention_partial,
+        _paged_attention_partial_q8, paged_attention_multiquery_partial,
+        paged_attention_partial,
     )
 
     return {
-        "flash_attention": flash_attention.launches,
-        "paged_attention": paged_attention_partial.launches,
-        "paged_attention_q8": _paged_attention_partial_q8.launches,
+        "flash_attention": flash_attention,
+        "paged_attention": paged_attention_partial,
+        "paged_attention_q8": _paged_attention_partial_q8,
+        "paged_attention_multiquery": paged_attention_multiquery_partial,
     }
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def chat_prompts() -> list[str]:
@@ -307,7 +385,8 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     busy = sum(by_name.values())
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
-    groups = {"flash_fwd_kernel": 0.0, "paged_decode_kernel": 0.0, "gemm": 0.0,
+    groups = {"flash_fwd_kernel": 0.0, "paged_decode_kernel": 0.0,
+              "paged_mq_kernel": 0.0, "gemm": 0.0,
               "memcpy/memset": 0.0, "other (elementwise, reductions)": 0.0}
     for name, us in by_name.items():
         low = name.lower()
@@ -315,6 +394,8 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
             groups["flash_fwd_kernel"] += us
         elif "paged_decode_kernel" in name:
             groups["paged_decode_kernel"] += us
+        elif "paged_mq_kernel" in name:
+            groups["paged_mq_kernel"] += us
         elif any(k in low for k in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
             groups["gemm"] += us
         elif "memcpy" in low or "memset" in low:
@@ -388,17 +469,112 @@ def phase_main_path(torch, label, cfg: dict, params=None, profile=False):
     return engine.params, counts
 
 
+def preamble_prompts() -> tuple[list[str], list[str], list[str]]:
+    """Main path C's three waves: six questions on a shared preamble of
+    about 1,100 byte tokens plus two short distinct prompts; six new
+    questions on the same preamble; one prompt of the first wave again."""
+    preamble = ("You are the support assistant of a cloud storage service. "
+                "Answer from the policy below and cite the section. Policy: "
+                "accounts keep deleted files for thirty days; shared links "
+                "expire after seven days unless renewed; uploads above five "
+                "gigabytes resume in parts; two-factor sign-in is required for "
+                "administrators; quotas are counted per organisation, not per "
+                "user. ") * 3
+    first = [preamble + f"Question {i}: {q}" for i, q in enumerate((
+        "How long are deleted files kept?", "Can a shared link last a month?",
+        "Do large uploads restart from zero?", "Who must use two-factor sign-in?",
+        "Is the quota per user?", "What happens after thirty days?"))]
+    second = [preamble + f"Question {i + 6}: {q}" for i, q in enumerate((
+        "How do I renew a shared link?", "Are quotas shared by a team?",
+        "Can a viewer restore a deleted file?", "What is the upload part size?",
+        "Do guests need two-factor sign-in?", "Which section covers links?"))]
+    short = ["What is the capital of France?", "List three prime numbers."]
+    return first + short, second, [first[2]]
+
+
+def phase_prefix_path(torch, label, cfg: dict, params):
+    """Main path C: three waves in turn through the prefix cache and the
+    chunked prefill; checks the cache hits and that the repeated prompt
+    gives its wave-1 greedy tokens (first 8)."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    t0 = time.monotonic()
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device="cuda", params=params)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    waves = preamble_prompts()
+    n_pre = len(engine.tokenizer.encode(waves[1][0]))
+    if not 1024 + 64 <= n_pre <= 1300:
+        fail(f"{label}: the preamble prompts must be about 1,100 tokens, got {n_pre}")
+
+    async def run():
+        try:
+            out = []
+            for wave in waves:
+                out.append(await serve(engine, wave, 64))
+            return out
+        finally:
+            await engine.close()
+
+    reset_counts()
+    t0 = time.monotonic()
+    served = asyncio.run(run())
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    stats = served[-1][2]
+    for w, (results, _, _) in enumerate(served):
+        for i, r in enumerate(results):
+            if not r["tokens"] or len(r["tokens"]) > 64:
+                fail(f"{label}: wave {w + 1} request {i} returned {len(r['tokens'])} tokens")
+            if not all(math.isfinite(x) for x in r["logprobs"]):
+                fail(f"{label}: wave {w + 1} request {i} has non-finite logprobs")
+    before, again = served[0][0][2]["tokens"], served[2][0][0]["tokens"]
+    common = next((i for i, (a, b) in enumerate(zip(before, again)) if a != b),
+                  min(len(before), len(again)))
+    ttft = [sorted(r["ttft"] for r in results) for results, _, _ in served]
+    dc = stats["decode-chunks"]
+    pre = stats["prefix"]
+    print(f"main path [{label}]: init_s={init_s:.2f} wall_s={wall:.3f} "
+          f"prompt_tokens={n_pre} "
+          + " ".join(f"wave{w + 1}_ttft_s min={t[0]:.3f} max={t[-1]:.3f}"
+                     for w, t in enumerate(ttft))
+          + f" prefix_hits={pre['hits']} prefix_tokens={pre['tokens_reused']} "
+          f"cached_prefix_blocks={stats['kv']['cached_prefix_blocks']} "
+          f"host_fetches_per_chunk={dc['host_fetches_per_chunk']} "
+          f"prefill_calls={stats['prefill-calls']} "
+          f"continue_calls={stats['prefill-continue-calls']} "
+          f"repeat_common_prefix={common}/{len(before)} launches={counts} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
+    if min(counts["paged_attention_multiquery"], counts["flash_attention"],
+           counts["paged_attention"]) == 0:
+        fail(f"{label}: the multi-query, flash and paged kernels must all launch: {counts}")
+    if pre["hits"] < 6:
+        fail(f"{label}: prefix_hits {pre['hits']} < 6")
+    if dc["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk {dc['host_fetches_per_chunk']} != 1.0")
+    if common < 8:
+        fail(f"{label}: the repeated prompt's first 8 greedy tokens differ from "
+             f"wave 1 ({before[:8]} vs {again[:8]})")
+    return counts
+
+
 def phase_card_vs_cpu(torch):
     from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
+    preamble = "A shared preamble of more than three blocks of sixteen tokens. "
     prompts = ["paged cache equivalence", "second prompt!", "a",
-               "and a longer fourth prompt here", "fifth"]
+               preamble + "and a longer fourth prompt here", preamble + "fifth"]
     c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
-    params = init_llama_params(c, torch.Generator().manual_seed(3))
+    params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
     for layout in ({"kv-layout": "dense"},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
+                    "kv-quantize": "int8"},
+                   {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16},
+                   {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
+                    "prefill-chunk": 32},
+                   {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
                     "kv-quantize": "int8"}):
         cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3,
                "max-seq-len": 256, "decode-chunk": 4, **layout}
@@ -408,16 +584,21 @@ def phase_card_vs_cpu(torch):
                                         params=params)
 
             async def run(engine=engine):
-                try:
-                    return await serve(engine, prompts, 12)
+                try:  # two waves in turn: with the prefix cache the second hits
+                    first, _, _ = await serve(engine, prompts, 12)
+                    second, _, stats = await serve(engine, prompts, 12)
+                    return first + second, stats["prefix"]["hits"]
                 finally:
                     await engine.close()
 
-            out[device] = [r["tokens"] for r in asyncio.run(run())[0]]
+            results, hits = asyncio.run(run())
+            out[device] = ([r["tokens"] for r in results], hits)
         if out["cuda"] != out["cpu"]:
-            fail(f"card vs CPU {layout}: greedy tokens differ:\n{out}")
-        print(f"card vs CPU [{layout}]: {len(prompts)} greedy streams identical",
-              flush=True)
+            fail(f"card vs CPU {layout}: greedy tokens or prefix hits differ:\n{out}")
+        if layout.get("prefix-cache") and out["cuda"][1] < 2:
+            fail(f"card vs CPU {layout}: the second wave made no prefix hits")
+        print(f"card vs CPU [{layout}]: {2 * len(prompts)} greedy streams identical, "
+              f"prefix_hits={out['cuda'][1]}", flush=True)
 
 
 def main() -> int:
@@ -457,6 +638,7 @@ def main() -> int:
     # -- phase 2: kernels against plain ------------------------------------
     t0 = time.monotonic()
     rows = phase_kernels(torch)
+    rows.update(phase_mq_kernel(torch))
     print(f"phase kernels: {time.monotonic() - t0:.1f} s", flush=True)
 
     # -- phases 3 and 4: the main path --------------------------------------
@@ -475,6 +657,13 @@ def main() -> int:
     )
     if q8_counts["paged_attention_q8"] == 0 or q8_counts["flash_attention"] == 0:
         fail(f"int8-KV main path did not launch flash and q8 kernels: {q8_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_counts = phase_prefix_path(
+        torch, "paged bf16 KV, prefix cache, prefill-chunk 512",
+        {**base, "kv-layout": "paged", "prefix-cache": True, "prefill-chunk": 512},
+        params=params,
+    )
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -486,19 +675,23 @@ def main() -> int:
     print(f"phase card vs CPU: {time.monotonic() - t0:.1f} s", flush=True)
 
     # -- phase 6: kernels line, then the device line ------------------------
-    meta = {
+    paths = (dense_counts, q8_counts, c_counts)
+    meta = {  # launches: summed over the three main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
-                            "langstream_tpu/ops/flash_attention.py:36",
-                            dense_counts["flash_attention"] + q8_counts["flash_attention"]),
+                            "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
-                            "langstream_tpu/ops/paged_attention.py:44",
-                            dense_counts["paged_attention"]),
+                            "langstream_tpu/ops/paged_attention.py:44"),
         "paged_attention_q8": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
-                               "langstream_tpu/ops/paged_attention.py:126",
-                               q8_counts["paged_attention_q8"]),
+                               "langstream_tpu/ops/paged_attention.py:126"),
+        "paged_attention_multiquery": (
+            "langstream_tpu_torch/ops/csrc/paged_attention_mq.cu",
+            "langstream_tpu/ops/paged_attention.py:379"),
     }
     kernels = []
-    for name, (source, replaces, launches) in meta.items():
+    for name, (source, replaces) in meta.items():
+        launches = sum(counts[name] for counts in paths)
+        if launches == 0:
+            fail(f"kernel {name} launched on no main path")
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches, **rows[name]})
     print(smi)

@@ -12,13 +12,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from langstream_tpu_torch._device import require_device
 from langstream_tpu_torch.models.quant import QTensor
 
 
-def tensor_from_numpy(a: np.ndarray, *, device="cpu") -> torch.Tensor:
-    """numpy → torch, bfloat16 included: ``np.asarray`` of a JAX bf16 array
-    has the ``ml_dtypes`` bfloat16 dtype, which ``torch.from_numpy``
-    refuses, so its bits pass through as uint16."""
+def tensor_from_numpy(a: np.ndarray, *, device="cuda") -> torch.Tensor:
+    """numpy → torch on ``device`` (the card unless the caller asks for the
+    CPU), bfloat16 included: ``np.asarray`` of a JAX bf16 array has the
+    ``ml_dtypes`` bfloat16 dtype, which ``torch.from_numpy`` refuses, so its
+    bits pass through as uint16."""
+    device = require_device(device, "tensor_from_numpy")
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16)
@@ -26,10 +29,12 @@ def tensor_from_numpy(a: np.ndarray, *, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_numpy(tree, *, device="cpu", dtype: torch.dtype | None = None):
-    """Port a numpy parameter tree. ``{"q", "s"}`` leaves become
+def params_from_numpy(tree, *, device="cuda", dtype: torch.dtype | None = None):
+    """Port a numpy parameter tree onto ``device`` (the card unless the
+    caller asks for the CPU). ``{"q", "s"}`` leaves become
     :class:`QTensor` (dequantizing to ``dtype``, default bfloat16); other
     leaves become tensors, cast to ``dtype`` when given."""
+    device = require_device(device, "params_from_numpy")
     if isinstance(tree, dict) and set(tree) == {"q", "s"}:
         return QTensor(
             q=tensor_from_numpy(tree["q"], device=device),

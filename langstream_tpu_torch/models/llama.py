@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from langstream_tpu_torch._device import require_device
 from langstream_tpu_torch.models.quant import as_weight as _w, embedding_take
 from langstream_tpu_torch.ops.flash_attention import flash_attention
 
@@ -78,10 +79,13 @@ class LlamaConfig:
 
 def init_llama_params(config: LlamaConfig,
                       generator: torch.Generator | None = None,
-                      device="cpu") -> dict:
-    """Random-init params (stacked per-layer leading dim L). The numbers
-    differ from the JAX package's init for the same seed: the two RNGs
-    differ, so tests carry parameters across with ``params_from_numpy``."""
+                      device="cuda") -> dict:
+    """Random-init params (stacked per-layer leading dim L) on ``device``
+    (the card unless the caller asks for the CPU; the generator must live
+    on the same device). The numbers differ from the JAX package's init
+    for the same seed: the two RNGs differ, so tests carry parameters
+    across with ``params_from_numpy``."""
+    device = require_device(device, "init_llama_params")
     c = config
     qkv_dim = c.heads * c.head_dim
     kv_dim = c.kv_heads * c.head_dim

@@ -6,6 +6,9 @@ geometry changes. Decode attention runs in two segments — the paged pool
 (the CUDA read kernels, or their plain version on the CPU) and the in-chunk
 KV buffer — merged with the online-softmax combine. The pool is read-only
 during a chunk; one :func:`write_rows` commits the chunk buffer at its end.
+The continuation prefill (:func:`llama_prefill_continue_paged`, behind the
+prefix cache and chunked prefill) attends a suffix to its paged history
+and to itself, the same two-segment merge.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from langstream_tpu_torch.models.llama import (
     layer_params,
     prefill_forward,
 )
+from langstream_tpu_torch.models.kvquant import cache_scores, cache_values
 from langstream_tpu_torch.models.paged import pool_layer, write_rows
 from langstream_tpu_torch.models.quant import as_weight as _w, embedding_take
 from langstream_tpu_torch.ops.paged_attention import (
     NEG_INF,
     merge_partial_attention,
+    paged_attention_multiquery_partial,
     paged_attention_partial,
     paged_attention_reference,
 )
@@ -59,6 +64,177 @@ def llama_prefill_paged(
     pool_k = write_rows(pool_k, ks.reshape(L, B, Pn, KhD), block_tables, starts, valid)
     pool_v = write_rows(pool_v, vs.reshape(L, B, Pn, KhD), block_tables, starts, valid)
     return logits, pool_k, pool_v
+
+
+def llama_prefill_continue_paged(
+    config: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,          # (B, P2) SUFFIX tokens, right-padded
+    start_lengths: torch.Tensor,   # (B,) int32 — tokens already in the pool
+    suffix_lengths: torch.Tensor,  # (B,) int32 — true suffix lengths
+    pool_k,                        # (L, nb, bs, Kh*D) or int8 {"q","s"}
+    pool_v,
+    block_tables: torch.Tensor,    # (B, max_blocks) int32
+    num_read_blocks: int,          # block columns covering max(start)
+    return_all_logits: bool = False,
+):
+    """Prefill CONTINUATION: process a prompt suffix whose prefix K/V is
+    already in the paged pool (positions ``[0, start)`` per slot) — the
+    prefix cache's suffix prefill and every chunk of a chunked prefill.
+
+    Attention per suffix query merges two segments with the online-softmax
+    combine:
+
+    - **history**, the pool rows ``< start``. A bf16/f32 pool goes through
+      :func:`paged_attention_multiquery_partial` (its CUDA kernel on the
+      card). An int8 pool goes through a blocked gather of about 128 rows
+      of table columns per step with the kvquant helpers: the JAX package
+      has no int8 twin of the multi-query kernel and takes this route for
+      int8 pools itself, so the branch follows the pool's type.
+    - **suffix**, causal among the suffix, online over key blocks of
+      ``gcd(P2, 128)`` rows and masked at ``k_pos < suffix_len``.
+
+    A row with ``start == 0`` (the first chunk of a chunked prefill) gets
+    m = NEG_INF, l = 0 from the history and merges to suffix-only
+    attention. Each layer's suffix K/V is committed at ``start`` (rows
+    past ``suffix_len`` go to scratch) right after that layer's attention,
+    in place: the layer's history read only sees rows ``< start``, so the
+    result equals the JAX package's one commit after the last layer,
+    without holding every layer's K/V. Returns ``(logits, pool_k,
+    pool_v)``: the last real suffix token's logits ``(B, V)`` f32, or with
+    ``return_all_logits`` every position's ``(B, P2, V)``."""
+    c = config
+    B, P2 = tokens.shape
+    device = tokens.device
+    quant = isinstance(pool_k, dict)
+    bs = (pool_k["q"] if quant else pool_k).shape[2]
+    KhD = c.kv_heads * c.head_dim
+    Kh, G, D = c.kv_heads, c.heads // c.kv_heads, c.head_dim
+    starts = start_lengths.to(torch.long)
+    suffix_lengths = suffix_lengths.to(torch.long)
+    x = embedding_take(params["embed"], tokens)
+    ar = torch.arange(P2, device=device)
+    cos, sin = _rope(starts[:, None] + ar[None, :], D, c.rope_theta)
+    pos_valid = ar[None, :] < suffix_lengths[:, None]                 # (B, P2)
+    scale = 1.0 / math.sqrt(D)
+    # suffix key block: bounds score memory at O(P2 * sbs) per step
+    sbs = math.gcd(P2, 128)
+    # int8 history: ~128 rows of table columns per gather step
+    cps = max(1, 128 // bs)
+
+    def online_update(carry, qg_flat, k_blk, v_blk, mask):
+        """One flash-style block update; carry (o (B,Kh,G,P2,D) f32, l, m),
+        k/v (B, T, Kh, D) or int8 {"q","s"}, mask broadcastable over
+        (B, Kh, G, P2, T)."""
+        o, l, m = carry
+        T = (k_blk["s"] if isinstance(k_blk, dict) else k_blk).shape[1]
+        s = cache_scores(qg_flat, k_blk).reshape(B, Kh, G, P2, T) * scale
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        shift = torch.where(m_new <= NEG_INF, torch.zeros_like(m_new), m_new)
+        p = torch.where(mask, torch.exp(s - shift[..., None]), torch.zeros_like(s))
+        alpha = torch.exp(
+            torch.where(m <= NEG_INF, torch.full_like(m, NEG_INF), m - shift)
+        )
+        l = l * alpha + p.sum(dim=-1)
+        update = cache_values(
+            p.to(qg_flat.dtype).reshape(B, Kh, G * P2, T), v_blk
+        ).reshape(B, Kh, G, P2, D)
+        o = o * alpha[..., None] + update.to(torch.float32)
+        return o, l, m_new
+
+    def history_gather(ck_l, cv_l, qg_flat):
+        """int8 pools: the blocked gather over the history."""
+        carry = (
+            torch.zeros((B, Kh, G, P2, D), dtype=torch.float32, device=device),
+            torch.zeros((B, Kh, G, P2), dtype=torch.float32, device=device),
+            torch.full((B, Kh, G, P2), NEG_INF, dtype=torch.float32, device=device),
+        )
+        tables = block_tables.to(torch.long)
+        for step in range(-(-num_read_blocks // cps)):
+            col_idx = step * cps + torch.arange(cps, device=device)
+            cols = tables[:, torch.clamp(col_idx, max=num_read_blocks - 1)]
+
+            def take(pool_l):
+                if isinstance(pool_l, dict):
+                    return {
+                        "q": pool_l["q"][cols].reshape(B, cps * bs, Kh, D),
+                        "s": pool_l["s"][cols].reshape(B, cps * bs, Kh),
+                    }
+                return pool_l[cols].reshape(B, cps * bs, Kh, D)
+
+            # positions from the UNclamped columns: a clamped duplicate tail
+            # column lies at or past num_read_blocks * bs, never < start
+            w_pos = (col_idx[:, None] * bs + torch.arange(bs, device=device)).reshape(-1)
+            mask = (w_pos[None, :] < starts[:, None])[:, None, None, None, :]
+            carry = online_update(carry, qg_flat, take(ck_l), take(cv_l), mask)
+        return carry
+
+    for layer in range(c.layers):
+        lp = layer_params(params, layer)
+        ck_l, cv_l = pool_layer(pool_k, layer), pool_layer(pool_v, layer)
+        h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
+        q, k, v = _qkv(c, h, lp)                     # (B, P2, heads|Kh, D)
+        q = _apply_rope(q, cos, sin)
+        k = _apply_rope(k, cos, sin)
+        # the kvquant helpers work on (B, Kh, G', T/D): fold P2 into G
+        qg_flat = (
+            q.reshape(B, P2, Kh, G, D).permute(0, 2, 3, 1, 4).reshape(B, Kh, G * P2, D)
+        )
+        if quant:
+            carry = history_gather(ck_l, cv_l, qg_flat)
+        else:
+            acc_h, m_h, l_h = paged_attention_multiquery_partial(
+                q.contiguous(), ck_l, cv_l, block_tables, start_lengths,
+                num_read_blocks=num_read_blocks, kv_heads=Kh, head_dim=D,
+                scale=scale,
+            )
+            # (B, P2, H[, D]) -> the (B, Kh, G, P2[, D]) carry layout
+            carry = (
+                acc_h.reshape(B, P2, Kh, G, D).permute(0, 2, 3, 1, 4),
+                l_h.reshape(B, P2, Kh, G).permute(0, 2, 3, 1),
+                m_h.reshape(B, P2, Kh, G).permute(0, 2, 3, 1),
+            )
+            del acc_h, m_h, l_h
+        for t in range(P2 // sbs):
+            k_pos = t * sbs + torch.arange(sbs, device=device)
+            mask = (
+                (ar[:, None] >= k_pos[None, :])[None]
+                & (k_pos[None, None, :] < suffix_lengths[:, None, None])
+            )[:, None, None, :, :]
+            carry = online_update(
+                carry, qg_flat, k[:, t * sbs:(t + 1) * sbs],
+                v[:, t * sbs:(t + 1) * sbs], mask,
+            )
+        o, l, _ = carry
+        del carry
+        inv = torch.where(l > 0.0, 1.0 / torch.clamp(l, min=1e-30), torch.zeros_like(l))
+        out = (o * inv[..., None]).to(x.dtype)       # (B, Kh, G, P2, D)
+        del o
+        out = out.permute(0, 3, 1, 2, 4).reshape(B, P2, c.heads * D)
+        x = x + out @ _w(lp["wo"])
+        h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
+        x = x + _default_ffn(h2, lp)
+        # commit this layer's suffix rows (in place, through layer views)
+        write_rows(_layer_slice(pool_k, layer), k.reshape(1, B, P2, KhD),
+                   block_tables, start_lengths, pos_valid)
+        write_rows(_layer_slice(pool_v, layer), v.reshape(1, B, P2, KhD),
+                   block_tables, start_lengths, pos_valid)
+    x = _rms_norm(x, params["final_norm"], c.norm_eps)
+    if return_all_logits:
+        logits = (x @ _w(params["lm_head"])).to(torch.float32)
+    else:
+        last = x[torch.arange(B, device=device), (suffix_lengths - 1).clamp(min=0)]
+        logits = (last @ _w(params["lm_head"])).to(torch.float32)
+    return logits, pool_k, pool_v
+
+
+def _layer_slice(pool, layer: int):
+    """A one-layer ``(1, nb, bs, ...)`` view of a pool (either layout), so
+    :func:`write_rows` scatters into that layer in place."""
+    if isinstance(pool, dict):
+        return {name: a[layer:layer + 1] for name, a in pool.items()}
+    return pool[layer:layer + 1]
 
 
 def pack_tokens_logprobs(tokens: torch.Tensor, logprobs: torch.Tensor) -> torch.Tensor:

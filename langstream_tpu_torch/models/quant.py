@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from langstream_tpu_torch._device import require_device
+
 
 @dataclasses.dataclass
 class QTensor:
@@ -106,12 +108,14 @@ def _chunks(n: int, target: int = 32) -> int:
 
 
 def init_llama_params_q8(config, generator: torch.Generator | None = None,
-                         device="cpu") -> dict:
+                         device="cuda") -> dict:
     """Random-init Llama params already weight-quantized: the same tree,
     shapes and scale layout as ``quantize_llama_params(init_llama_params(c))``,
     but the peak during init is the int8 tree plus ONE chunk's f32
     transient (one layer's ``(in, out)`` matrix, or 1/32 of the vocab),
-    never the full-precision tree. Runs on ``device``."""
+    never the full-precision tree. Runs on ``device``: the card unless the
+    caller asks for the CPU."""
+    device = require_device(device, "init_llama_params_q8")
     c = config
     L = c.layers
     qkv_dim = c.heads * c.head_dim

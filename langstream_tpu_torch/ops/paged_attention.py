@@ -1,23 +1,30 @@
-"""Paged-attention decode read (port of ``langstream_tpu/ops/paged_attention.py``).
+"""Paged-attention reads (port of ``langstream_tpu/ops/paged_attention.py``).
 
-One decode step reads each slot's KV blocks straight out of the shared
-pool through its block table and returns *partial* results
-``(acc, m, l)`` — unnormalised accumulator, running max, running sum-exp —
-because decode attends over two segments (the pool here and the in-chunk
-buffer); the caller merges them with :func:`merge_partial_attention`.
+A read goes straight through each slot's block table into the shared pool
+and returns *partial* results ``(acc, m, l)`` — unnormalised accumulator,
+running max, running sum-exp — because its caller attends over more than
+one segment; the caller merges them with :func:`merge_partial_attention`.
 
-:func:`paged_attention_partial` launches the CUDA kernels of
-``csrc/paged_attention.cu`` for tensors on the card — the bf16/f32 kernel
-for a plain pool, the int8 kernel for an ``{"q","s"}`` pool — and takes
-:func:`paged_attention_reference` (the JAX package's
-``_cache_partial_xla``) for tensors on the CPU.
+- :func:`paged_attention_partial`: one decode query per slot over its
+  cache rows (the other segment is the in-chunk buffer). For tensors on
+  the card it launches the kernels of ``csrc/paged_attention.cu`` — the
+  bf16/f32 kernel for a plain pool, the int8 kernel for an ``{"q","s"}``
+  pool; for tensors on the CPU it takes :func:`paged_attention_reference`
+  (the JAX package's ``_cache_partial_xla``).
+- :func:`paged_attention_multiquery_partial`: T suffix queries per slot
+  over the slot's history rows (the continuation prefill; the other
+  segment is the suffix itself). The kernel of
+  ``csrc/paged_attention_mq.cu`` on the card,
+  :func:`paged_attention_multiquery_reference` on the CPU; bf16/f32 pools
+  only, as in the JAX package.
 
 Shapes (one layer):
-  q             (B, H, D)
+  q             (B, H, D), or (B, T, H, D) for the multi-query read
   k_pool/v_pool (nb, bs, Kh*D), or {"q": int8 (nb, bs, Kh*D), "s": f32 (nb, bs, Kh)}
   block_tables  (B, max_blocks) int32
-  lengths       (B,) int32 — cache rows to attend per slot
-  → acc (B, H, D) f32, m (B, H) f32, l (B, H) f32
+  lengths       (B,) int32 — cache rows to attend per slot (``starts`` for
+                the multi-query read)
+  → acc (B, [T,] H, D) f32, m (B, [T,] H) f32, l (B, [T,] H) f32
 """
 
 from __future__ import annotations
@@ -37,6 +44,20 @@ HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels keep G*D accumulators over 128 threads, at most 8 each
 _MAX_GROUP_WIDTH = 1024
+#: query rows per CTA of the multi-query kernel: (64 / G) positions x G heads
+_MQ_ROWS = 64
+
+
+def _lib_mq() -> ctypes.CDLL:
+    lib = load_library("paged_attention_mq")
+    fn = lib.paged_attention_mq_partial_fwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _lib() -> ctypes.CDLL:
@@ -158,6 +179,10 @@ def _check_common(q, tables, lengths, pool, kv_heads, head_dim, num_read_blocks)
             f"paged_attention: num_read_blocks {num_read_blocks} outside "
             f"(0, {tables.shape[1]}]"
         )
+    _check_pool(pool, dev, kv_heads, head_dim)
+
+
+def _check_pool(pool, dev, kv_heads, head_dim):
     if (pool.device != dev or pool.dim() != 3 or not pool.is_contiguous()
             or pool.shape[2] != kv_heads * head_dim or pool.data_ptr() % 16):
         raise ValueError(
@@ -271,6 +296,147 @@ def _paged_attention_partial_q8(
     return acc, m, l
 
 
+# ---------------------------------------------------------------------------
+# multi-query history read (continuation prefill)
+# ---------------------------------------------------------------------------
+
+
+def paged_attention_multiquery_reference(
+    q, k_pool, v_pool, block_tables, starts, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None,
+):
+    """Plain version of the multi-query kernel: gather the window densely
+    and compute the partials in f32, as the kernel does (scores scaled by
+    ``scale``, masked at ``col >= starts[b]`` for every query row, the
+    NEG_INF guards of the decode read)."""
+    B, T, H, D = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    W = kw.shape[1]
+    G = H // kv_heads
+    qg = q.reshape(B, T, kv_heads, G, head_dim).to(torch.float32)
+    s = torch.einsum("btkgd,bwkd->bkgtw", qg, kw.to(torch.float32)) * scale
+    mask = (
+        torch.arange(W, device=q.device)[None, :] < starts.to(torch.long)[:, None]
+    )[:, None, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                        # (B, Kh, G, T)
+    shift = torch.where(m <= NEG_INF, torch.zeros_like(m), m)
+    p = torch.exp(s - shift[..., None])
+    p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgtw,bwkd->bkgtd", p, vw.to(torch.float32))
+    return (
+        acc.permute(0, 3, 1, 2, 4).reshape(B, T, H, D),
+        m.permute(0, 3, 1, 2).reshape(B, T, H),
+        l.permute(0, 3, 1, 2).reshape(B, T, H),
+    )
+
+
+def paged_attention_multiquery_partial(
+    q: torch.Tensor,             # (B, T, H, D) — T suffix queries per slot
+    k_pool,                      # (nb, bs, Kh*D) bf16/f32
+    v_pool,
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    starts: torch.Tensor,        # (B,) int32 — history rows per slot
+    *,
+    num_read_blocks: int,        # table columns covering max(starts)
+    kv_heads: int,
+    head_dim: int,
+    t_block: int = 16,
+    scale: float | None = None,
+):
+    """Multi-query twin of :func:`paged_attention_partial`: the T suffix
+    queries of each slot attend the slot's paged HISTORY (rows
+    ``< starts[b]``), a mask that is the same for all T queries.
+
+    Returns ``(acc (B,T,H,D) f32, m (B,T,H) f32, l (B,T,H) f32)``; a slot
+    with ``starts == 0`` gives ``m = NEG_INF, l = 0, acc = 0``. ``t_block``
+    keeps the JAX signature; in the JAX package it is the query tile and T
+    must be a multiple of it. Here T may be anything: the kernel's own
+    query tile is ``64 / G`` positions (16 at Llama-3-8B) and it masks the
+    ragged edge itself, so ``t_block`` is only checked to be positive.
+    bf16/f32 pools only: an int8 pool raises ``ValueError`` (its history
+    read is the model function's blocked gather, as in the JAX package)."""
+    if isinstance(k_pool, dict) or isinstance(v_pool, dict):
+        raise ValueError(
+            "paged_attention_multiquery_partial reads bf16/float32 pools only; "
+            "an int8 pool's history goes through the blocked gather of "
+            "llama_prefill_continue_paged"
+        )
+    if t_block <= 0:
+        raise ValueError(f"paged_attention_multiquery: t_block {t_block} must be > 0")
+    if not q.is_cuda:
+        return paged_attention_multiquery_reference(
+            q, k_pool, v_pool, block_tables, starts,
+            num_read_blocks=num_read_blocks, kv_heads=kv_heads,
+            head_dim=head_dim, scale=scale,
+        )
+    dev = q.device
+    if q.dim() != 4 or not q.is_contiguous() or q.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"paged_attention_multiquery: q must be a contiguous (B,T,H,D) "
+            f"float32/bfloat16 tensor, got {tuple(q.shape)} {q.dtype}"
+        )
+    B, T, H, D = q.shape
+    if D != head_dim or D not in HEAD_DIMS:
+        raise ValueError(
+            f"paged_attention_multiquery: head_dim {D} (want one of {HEAD_DIMS})"
+        )
+    if H % kv_heads or _MQ_ROWS % (H // kv_heads):
+        raise ValueError(
+            f"paged_attention_multiquery: {H} heads on {kv_heads} kv heads "
+            f"(the group size must divide {_MQ_ROWS})"
+        )
+    for name, t in (("block_tables", block_tables), ("starts", starts)):
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(
+                f"paged_attention_multiquery: {name} must be contiguous int32 on {dev}"
+            )
+    if block_tables.dim() != 2 or block_tables.shape[0] != B or starts.shape != (B,):
+        raise ValueError(
+            f"paged_attention_multiquery: tables {tuple(block_tables.shape)} / "
+            f"starts {tuple(starts.shape)} do not match batch {B}"
+        )
+    if not 0 < num_read_blocks <= block_tables.shape[1]:
+        raise ValueError(
+            f"paged_attention_multiquery: num_read_blocks {num_read_blocks} "
+            f"outside (0, {block_tables.shape[1]}]"
+        )
+    for pool in (k_pool, v_pool):
+        _check_pool(pool, dev, kv_heads, head_dim)
+        if pool.dtype != q.dtype:
+            raise ValueError(
+                f"paged_attention_multiquery: pool dtype {pool.dtype} != q dtype {q.dtype}"
+            )
+    if k_pool.shape != v_pool.shape:
+        raise ValueError("paged_attention_multiquery: k and v pools differ in shape")
+    acc = torch.empty((B, T, H, D), dtype=torch.float32, device=dev)
+    m = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    if B == 0 or T == 0:
+        return acc, m, l
+    rc = _lib_mq().paged_attention_mq_partial_fwd(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        block_tables.data_ptr(), starts.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, T, H, kv_heads, D, k_pool.shape[1], block_tables.shape[1],
+        num_read_blocks, _DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(D) if scale is None else scale,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention_multiquery kernel launch failed (CUDA error {rc})"
+        )
+    paged_attention_multiquery_partial.launches += 1
+    return acc, m, l
+
+
 #: kernel launches since the count was last set to 0
 paged_attention_partial.launches = 0
 _paged_attention_partial_q8.launches = 0
+paged_attention_multiquery_partial.launches = 0

@@ -7,6 +7,13 @@ Execution model:
   queued requests prefill in batches of up to ``prefill-batch`` prompts
   that share a length bucket (:func:`_bucket`); the first token is sampled
   on the device and the request joins the decode batch.
+- Paged layout with ``prefix-cache`` (the default): a prompt that starts
+  with a cached block chain adopts those blocks and prefills only its
+  suffix through the continuation path; every finished prefill publishes
+  its full prompt blocks. With ``prefill-chunk > 0`` a prompt whose
+  remaining tokens exceed the chunk claims its slot at admission and then
+  prefills one chunk per loop pass (continuation path again), interleaved
+  with the decode chunks of the other slots.
 - Decode runs in chunks of ``decode-chunk`` fused steps over the active
   slots (halved while every request needs fewer). The KV cache — dense
   ``(L, slots, S, Kh, D)`` read through identity block tables, or the paged
@@ -37,6 +44,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from langstream_tpu_torch._device import require_device
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     init_llama_params,
@@ -45,6 +53,7 @@ from langstream_tpu_torch.models.llama import (
 from langstream_tpu_torch.models.llama_paged import (
     llama_decode_chunk_dense_pallas,
     llama_decode_chunk_paged,
+    llama_prefill_continue_paged,
     llama_prefill_paged,
     pack_tokens_logprobs,
 )
@@ -63,6 +72,7 @@ from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
 from langstream_tpu_torch.ops.flash_attention import flash_attention
 from langstream_tpu_torch.ops.paged_attention import (
     _paged_attention_partial_q8,
+    paged_attention_multiquery_partial,
     paged_attention_partial,
 )
 from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
@@ -205,11 +215,6 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
      "repository (ROADMAP.md Queue 1 item 1); random init from seed only"),
     (lambda c: c.speculative_drafts > 0,
      "speculative-drafts > 0: speculation is ROADMAP.md Queue 1 item 8"),
-    (lambda c: c.prefill_chunk > 0,
-     "prefill-chunk > 0: chunked prefill is ROADMAP.md Queue 1 item 7"),
-    (lambda c: c.kv_layout == "paged" and c.prefix_cache,
-     "prefix-cache with kv-layout: paged: the prefix cache is ROADMAP.md "
-     "Queue 1 item 7; set prefix-cache: false"),
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
@@ -234,7 +239,7 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
 _LATENCY_ONLY = (
     "decode_chunk_light", "light_load_slots", "warmup_on_start", "pipeline",
     "paged_kernel", "dense_kernel", "wedge_window_s", "stream_stall_s",
-    "shrink_fraction", "shrink_recovery_s", "prefix_cache_max_suffix",
+    "shrink_fraction", "shrink_recovery_s",
 )
 
 
@@ -256,11 +261,20 @@ def _check_supported(config: ServingConfig) -> None:
         raise ValueError(
             f"unknown model_dtype {config.model_dtype!r}; known: {sorted(_DTYPES)}"
         )
+    if config.prefill_chunk > 0 and config.kv_layout != "paged":
+        raise ValueError(
+            "prefill-chunk requires kv-layout=paged (chunked prefill "
+            "commits through the paged continuation path)"
+        )
 
 
 @dataclasses.dataclass
 class _Slot:
     request: "_Request | None" = None
+    # chunked prefill: prompt tokens committed so far / mid-prefill flag
+    # (the slot holds its reservation but stays out of decode until done)
+    prefilling: bool = False
+    prefill_done: int = 0
 
     @property
     def free(self) -> bool:
@@ -319,14 +333,7 @@ class TorchServingEngine:
     def __init__(self, config: ServingConfig, *, device="cuda",
                  params: dict | None = None):
         _check_supported(config)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "TorchServingEngine runs on the card: torch.cuda is not "
-                "available here (pass device='cpu' to run the plain versions)"
-            )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {device!r}")
+        self.device = require_device(device, "TorchServingEngine")
         self.config = config
         mc = _MODEL_CONFIGS[config.model](max_seq_len=config.max_seq_len)
         if config.model_dtype is not None:
@@ -377,6 +384,11 @@ class TorchServingEngine:
         self._decode_steps = 0
         self._decode_s = 0.0
         self._prefill_calls = 0
+        self._continue_calls = 0
+        # prefix cache: admissions that reused cached blocks, and the
+        # prompt tokens they did not prefill
+        self.prefix_hits = 0
+        self.prefix_tokens = 0
 
     # ------------------------------------------------------------------
     # model + cache
@@ -521,7 +533,13 @@ class TorchServingEngine:
             "queued": len(self._queue),
             "total-generated": self.total_generated,
             "completed": self.completed_requests,
+            # prefill dispatches, and those of them through the
+            # continuation path (prefix-cache hits and prefill chunks)
             "prefill-calls": self._prefill_calls,
+            "prefill-continue-calls": self._continue_calls,
+            "prefix": {
+                "hits": self.prefix_hits, "tokens_reused": self.prefix_tokens,
+            },
             "decode-chunks": {
                 "dispatched": self._decode_dispatches,
                 "fetched": self._decode_fetches,
@@ -541,6 +559,7 @@ class TorchServingEngine:
                 "flash_attention": flash_attention.launches,
                 "paged_attention": paged_attention_partial.launches,
                 "paged_attention_q8": _paged_attention_partial_q8.launches,
+                "paged_attention_multiquery": paged_attention_multiquery_partial.launches,
             },
         }
         if self.block_mgr is not None:
@@ -569,9 +588,16 @@ class TorchServingEngine:
             try:
                 if self._queue:
                     await self._admit(loop)
-                active = [i for i, s in enumerate(self.slots) if not s.free]
+                if self._has_prefilling():
+                    # one bounded chunk per loop pass: long prefills make
+                    # progress without stalling the decode chunks below
+                    await self._advance_prefills(loop)
+                active = [
+                    i for i, s in enumerate(self.slots)
+                    if not s.free and not s.prefilling
+                ]
                 if not active:
-                    if not self._queue:
+                    if not self._queue and not self._has_prefilling():
                         self._wake.clear()
                         try:
                             await asyncio.wait_for(self._wake.wait(), timeout=1.0)
@@ -583,6 +609,9 @@ class TorchServingEngine:
                 # free the slots, keep serving (callers see the exception)
                 log.exception("serving engine step failed")
                 self._fail_inflight(e)
+
+    def _has_prefilling(self) -> bool:
+        return any(s.prefilling for s in self.slots)
 
     def _fail_inflight(self, error: Exception) -> None:
         for slot_id, slot in enumerate(self.slots):
@@ -596,7 +625,10 @@ class TorchServingEngine:
         self._finished_requests.clear()
 
     def _release_slot(self, slot_id: int) -> None:
-        self.slots[slot_id].request = None
+        slot = self.slots[slot_id]
+        slot.request = None
+        slot.prefilling = False
+        slot.prefill_done = 0
         self._lengths[slot_id] = 0
         if self.block_mgr is not None:
             self.block_mgr.release(slot_id)
@@ -607,23 +639,59 @@ class TorchServingEngine:
 
     async def _admit(self, loop) -> None:
         """Admit queued requests FIFO in batched prefill calls (one batch per
-        prompt-length bucket, up to ``prefill-batch`` rows)."""
+        length bucket of the tokens to prefill, up to ``prefill-batch``
+        rows).
+
+        With the paged prefix cache on, each request first matches its
+        prompt against cached block chains; a matched request adopts the
+        shared blocks and prefills only its SUFFIX, and a batch with any
+        such row goes through the continuation path. With ``prefill-chunk``
+        a request with more tokens to prefill than the chunk claims its
+        slot and reservation here and prefills in :meth:`_advance_prefills`.
+        """
         S = self.model_config.max_seq_len
+        cfg = self.config
+        use_prefix = self.block_mgr is not None and cfg.prefix_cache
         while self._queue:
             free = [i for i, s in enumerate(self.slots) if s.free]
             if not free:
                 return
-            batch: list[tuple[int, _Request]] = []
+            batch: list[tuple[int, _Request, int]] = []  # (slot, request, reuse)
             bucket = None
-            while self._queue and len(batch) < min(len(free), self.config.prefill_batch):
+            while self._queue and len(batch) < min(len(free), cfg.prefill_batch):
                 request = self._queue[0]
                 if request.future.cancelled():
                     self._queue.popleft()  # caller gave up while queued
                     continue
-                total = len(request.prompt_tokens) + request.max_tokens + 1
+                prompt = request.prompt_tokens
+                total = len(prompt) + request.max_tokens + 1
                 if self.block_mgr is not None and not self.block_mgr.can_admit(total):
                     break  # paged backpressure: finishing slots free reservations
-                b = _bucket(len(request.prompt_tokens), hi=S)
+                blocks, reuse = [], 0
+                if use_prefix:
+                    blocks, reuse = self.block_mgr.match_prefix(prompt)
+                    if reuse and len(prompt) - reuse > cfg.prefix_cache_max_suffix:
+                        blocks, reuse = [], 0  # long suffix, small saving
+                to_prefill = len(prompt) - reuse
+                if cfg.prefill_chunk > 0 and to_prefill > cfg.prefill_chunk:
+                    # chunked prefill: claim the slot and its reservation
+                    # now, feed the prompt one chunk per loop pass
+                    slot_id = free.pop(len(batch))
+                    self._queue.popleft()
+                    self.block_mgr.admit(slot_id, total)
+                    if blocks:
+                        self.block_mgr.adopt_prefix(slot_id, blocks)
+                    slot = self.slots[slot_id]
+                    slot.request = request
+                    slot.prefilling = True
+                    slot.prefill_done = reuse
+                    self.block_mgr.ensure_capacity(slot_id, len(prompt))
+                    request.admit_time = time.monotonic()
+                    if reuse:
+                        self.prefix_hits += 1
+                        self.prefix_tokens += reuse
+                    continue
+                b = _bucket(to_prefill, hi=S)
                 if bucket is None:
                     bucket = b
                 elif b != bucket:
@@ -631,12 +699,15 @@ class TorchServingEngine:
                 slot_id = free[len(batch)]
                 self._queue.popleft()
                 if self.block_mgr is not None:
+                    # reserve at pop time: the next can_admit sees it
                     self.block_mgr.admit(slot_id, total)
-                batch.append((slot_id, request))
+                    if blocks:
+                        self.block_mgr.adopt_prefix(slot_id, blocks)
+                batch.append((slot_id, request, reuse))
             if not batch:
                 return
             now = time.monotonic()
-            for slot_id, request in batch:
+            for slot_id, request, _ in batch:
                 self.slots[slot_id].request = request
                 request.admit_time = now
                 if self.block_mgr is not None:
@@ -644,13 +715,16 @@ class TorchServingEngine:
             B = len(batch)
             padded = np.zeros((B, bucket), dtype=np.int64)
             lengths = np.zeros(B, dtype=np.int32)
+            starts = np.zeros(B, dtype=np.int32)
             slot_ids = np.zeros(B, dtype=np.int64)
             temps = np.zeros(B, dtype=np.float32)
             topks = np.zeros(B, dtype=np.int32)
             topps = np.ones(B, dtype=np.float32)
-            for i, (slot_id, request) in enumerate(batch):
-                padded[i, : len(request.prompt_tokens)] = request.prompt_tokens
-                lengths[i] = len(request.prompt_tokens)
+            for i, (slot_id, request, reuse) in enumerate(batch):
+                suffix = request.prompt_tokens[reuse:]
+                padded[i, : len(suffix)] = suffix
+                lengths[i] = len(suffix)
+                starts[i] = reuse
                 slot_ids[i] = slot_id
                 temps[i] = request.temperature
                 topks[i] = request.top_k
@@ -659,25 +733,99 @@ class TorchServingEngine:
                 self.block_mgr.tables[slot_ids].copy()
                 if self.block_mgr is not None else None
             )
+            # a batch with any reused prefix goes through the continuation
+            # path; its rows with start 0 merge to suffix-only attention
+            cont = (
+                (starts, self._read_blocks_for(int(starts.max())))
+                if starts.any() else None
+            )
             mode = self._sampler_mode(temps, topks, topps)
             next_np, logprob_np = await loop.run_in_executor(
                 self._executor,
                 partial(self._run_prefill, padded, lengths, slot_ids, tables,
-                        temps, topks, topps, mode),
+                        temps, topks, topps, mode, cont),
             )
+            if use_prefix:
+                for slot_id, request, reuse in batch:
+                    self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
+                    if reuse:
+                        self.prefix_hits += 1
+                        self.prefix_tokens += reuse
             now = time.monotonic()
-            for i, (slot_id, request) in enumerate(batch):
-                self._lengths[slot_id] = len(request.prompt_tokens)
-                self._current[slot_id] = int(next_np[i])
-                self._temps[slot_id] = request.temperature
-                self._topks[slot_id] = request.top_k
-                self._topps[slot_id] = request.top_p
-                self._pres[slot_id] = request.presence_penalty
-                self._freq[slot_id] = request.frequency_penalty
-                if request.first_token_time is None:
-                    request.first_token_time = now
+            for i, (slot_id, request, _) in enumerate(batch):
+                self._start_decoding(slot_id, request, int(next_np[i]), now)
                 self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
             await self._flush_emits()
+
+    def _start_decoding(self, slot_id: int, request: "_Request", token: int,
+                        now: float) -> None:
+        """The slot's prompt is in the cache and ``token`` is its first
+        generated token: set the slot's decode state."""
+        self._lengths[slot_id] = len(request.prompt_tokens)
+        self._current[slot_id] = token
+        self._temps[slot_id] = request.temperature
+        self._topks[slot_id] = request.top_k
+        self._topps[slot_id] = request.top_p
+        self._pres[slot_id] = request.presence_penalty
+        self._freq[slot_id] = request.frequency_penalty
+        if request.first_token_time is None:
+            request.first_token_time = now
+
+    async def _advance_prefills(self, loop) -> None:
+        """One chunk of at most ``prefill-chunk`` prompt tokens for every
+        mid-prefill slot, batched through the continuation path with
+        ``starts`` at the rows already committed. The final chunk's sampled
+        token is the request's first generated token; the slot then joins
+        decode."""
+        for slot_id, slot in enumerate(self.slots):
+            if slot.prefilling and slot.request.future.cancelled():
+                self._release_slot(slot_id)  # frees the reservation too
+        pre = [i for i, s in enumerate(self.slots) if s.prefilling]
+        if not pre:
+            return
+        C = self.config.prefill_chunk
+        B = len(pre)
+        tokens = np.zeros((B, C), dtype=np.int64)
+        starts = np.zeros(B, dtype=np.int32)
+        suffix_lens = np.zeros(B, dtype=np.int32)
+        temps = np.zeros(B, dtype=np.float32)
+        topks = np.zeros(B, dtype=np.int32)
+        topps = np.ones(B, dtype=np.float32)
+        for i, slot_id in enumerate(pre):
+            slot = self.slots[slot_id]
+            request = slot.request
+            chunk = request.prompt_tokens[slot.prefill_done: slot.prefill_done + C]
+            tokens[i, : len(chunk)] = chunk
+            starts[i] = slot.prefill_done
+            suffix_lens[i] = len(chunk)
+            temps[i] = request.temperature
+            topks[i] = request.top_k
+            topps[i] = request.top_p
+        slot_ids = np.asarray(pre, dtype=np.int64)
+        cont = (starts, self._read_blocks_for(max(int(starts.max()), 1)))
+        mode = self._sampler_mode(temps, topks, topps)
+        next_np, logprob_np = await loop.run_in_executor(
+            self._executor,
+            partial(self._run_prefill, tokens, suffix_lens, slot_ids,
+                    self.block_mgr.tables[slot_ids].copy(), temps, topks,
+                    topps, mode, cont),
+        )
+        now = time.monotonic()
+        for i, slot_id in enumerate(pre):
+            slot = self.slots[slot_id]
+            request = slot.request
+            slot.prefill_done += int(suffix_lens[i])
+            if slot.prefill_done < len(request.prompt_tokens):
+                continue
+            slot.prefilling = False
+            self._start_decoding(slot_id, request, int(next_np[i]), now)
+            # register BEFORE emitting: a max-tokens=1 or instant-EOS
+            # request is released inside _emit_token, and registering
+            # against a released slot's empty table publishes nothing
+            if self.config.prefix_cache:
+                self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
+            self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
+        await self._flush_emits()
 
     def _device_sampler(self, temps, topks, topps, mode, pres=None, freq=None):
         """A ``sample_fn`` closure over device copies of the rows' settings."""
@@ -702,13 +850,23 @@ class TorchServingEngine:
 
     @torch.no_grad()
     def _run_prefill(self, padded, lengths, slot_ids, tables, temps, topks,
-                     topps, mode):
+                     topps, mode, cont=None):
         """Dispatch thread: one batched prefill + first-token sample; one
-        packed device-to-host copy. Returns (tokens, logprobs) numpy."""
+        packed device-to-host copy. ``cont = (starts, num_read_blocks)``
+        sends the batch through the continuation path (``padded`` then
+        holds each row's suffix). Returns (tokens, logprobs) numpy."""
         dev, mc = self.device, self.model_config
         tokens = torch.from_numpy(padded).to(dev)
         lengths_t = torch.from_numpy(lengths).to(dev)
-        if self.block_mgr is not None:
+        if cont is not None:
+            starts, nrb = cont
+            logits, _, _ = llama_prefill_continue_paged(
+                mc, self.params, tokens, torch.from_numpy(starts).to(dev),
+                lengths_t, self.cache_k, self.cache_v,
+                torch.from_numpy(tables).to(dev), num_read_blocks=nrb,
+            )
+            self._continue_calls += 1
+        elif self.block_mgr is not None:
             logits, _, _ = llama_prefill_paged(
                 mc, self.params, tokens, lengths_t, self.cache_k, self.cache_v,
                 torch.from_numpy(tables).to(dev),

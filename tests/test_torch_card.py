@@ -26,6 +26,8 @@ from langstream_tpu_torch.ops.paged_attention import (
     NEG_INF,
     _paged_attention_partial_q8,
     merge_partial_attention,
+    paged_attention_multiquery_partial,
+    paged_attention_multiquery_reference,
     paged_attention_partial,
     paged_attention_reference,
 )
@@ -96,6 +98,39 @@ def test_paged_kernels_match_plain(int8, D, lengths):
     assert (m[empty] == NEG_INF).all() and (l[empty] == 0).all() and (acc[empty] == 0).all()
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "H,Kh,D,bs,T",
+    [(4, 2, 16, 16, 16), (4, 2, 16, 16, 37), (32, 8, 128, 64, 16),
+     (32, 8, 128, 64, 100), (8, 8, 64, 32, 9)],
+)
+def test_multiquery_kernel_matches_plain(dtype, tol, H, Kh, D, bs, T):
+    """The multi-query history read at tiny and Llama-3-8B widths, slots
+    with no history among them, T on and off the kernel's query tile."""
+    rng = np.random.default_rng(2)
+    B, max_blocks = 4, 6
+    starts = torch.tensor([0, bs // 2 + 3, 2 * bs, max_blocks * bs - 5], dtype=torch.int32)
+    nb = 1 + B * max_blocks
+    perm = rng.permutation(np.arange(1, nb))
+    tables = torch.from_numpy(perm.reshape(B, max_blocks).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, T, H, D), dtype=np.float32)).to(dtype).cuda()
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, bs, Kh * D), dtype=np.float32))
+              .to(dtype).cuda() for _ in range(2))
+    args = (q, kp, vp, tables, starts.cuda())
+    kw = dict(num_read_blocks=max_blocks, kv_heads=Kh, head_dim=D)
+    before = paged_attention_multiquery_partial.launches
+    got = paged_attention_multiquery_partial(*args, **kw)
+    assert paged_attention_multiquery_partial.launches == before + 1
+    want = paged_attention_multiquery_reference(*args, **kw)
+    torch.cuda.synchronize()
+    acc, m, l = got
+    assert acc.shape == (B, T, H, D) and m.shape == l.shape == (B, T, H)
+    assert (m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    assert torch.isfinite(acc[1:]).all() and torch.isfinite(l[1:]).all()
+    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+    assert err.item() <= tol
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros((1, 16, 4, 32), device="cuda")  # head_dim 32
     with pytest.raises(ValueError, match="head_dim"):
@@ -107,6 +142,10 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="dtype"):
         paged_attention_partial(q, pool, pool, tables, lengths,
                                 num_read_blocks=2, kv_heads=2, head_dim=64)
+    with pytest.raises(ValueError, match="dtype"):
+        paged_attention_multiquery_partial(q[:, None].contiguous(), pool, pool, tables,
+                                           lengths, num_read_blocks=2, kv_heads=2,
+                                           head_dim=64)
 
 
 @pytest.mark.parametrize(
@@ -116,25 +155,35 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
         {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
          "kv-quantize": "int8"},
+        {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16},
+        {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
+         "prefill-chunk": 32},
     ],
 )
 def test_tiny_engine_card_matches_cpu(layout):
+    preamble = "A shared preamble of more than three blocks of sixteen tokens. "
     prompts = ["paged cache equivalence", "second prompt!", "a",
-               "and a longer fourth prompt here", "fifth"]
+               preamble + "and a longer fourth prompt here", preamble + "fifth"]
     c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
-    params = init_llama_params(c, torch.Generator().manual_seed(3))
+    params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
     cfg = ServingConfig.from_dict({"model": "tiny", "model-dtype": "float32",
                                    "slots": 3, "max-seq-len": 256,
                                    "decode-chunk": 4, **layout})
     out = {}
     for device in ("cuda", "cpu"):
         async def run(engine=TorchServingEngine(cfg, device=device, params=params)):
-            try:
-                return await asyncio.gather(
-                    *(engine.generate(p, {"max-tokens": 12}) for p in prompts)
-                )
+            try:  # two waves in turn: with the prefix cache the second hits
+                results = []
+                for _ in range(2):
+                    results += await asyncio.gather(
+                        *(engine.generate(p, {"max-tokens": 12}) for p in prompts)
+                    )
+                return results, engine.stats()["prefix"]["hits"]
             finally:
                 await engine.close()
 
-        out[device] = [r["tokens"] for r in asyncio.run(run())]
+        results, hits = asyncio.run(run())
+        out[device] = ([r["tokens"] for r in results], hits)
     assert out["cuda"] == out["cpu"]
+    if layout.get("prefix-cache"):
+        assert out["cuda"][1] >= 2

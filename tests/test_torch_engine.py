@@ -103,7 +103,7 @@ def test_port_engine_matches_jax_engine(name):
     async def run_port():
         engine = TorchServingEngine(
             ServingConfig.from_dict(cfg), device="cpu",
-            params=params_from_numpy(flat, dtype=torch.float32),
+            params=params_from_numpy(flat, device="cpu", dtype=torch.float32),
         )
         try:
             return await _serve(engine, stop), engine.stats()
@@ -172,8 +172,6 @@ def test_engine_needs_the_card_unless_told_cpu():
         ({"mesh": {"tp": 2}}, "mesh"),
         ({"checkpoint": "/nonexistent"}, "checkpoint"),
         ({"speculative-drafts": 2, **PAGED}, "speculative"),
-        ({"prefill-chunk": 64, **PAGED}, "prefill-chunk"),
-        ({"kv-layout": "paged"}, "prefix-cache: false"),
         ({"kv-quantize": "int8"}, "kv-layout: paged"),
         ({"adapter-store": {"rank": 4}}, "adapter-store"),
         ({"prefix-store": {"t0-bytes": 0}}, "prefix-store"),

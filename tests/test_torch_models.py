@@ -50,7 +50,7 @@ def _np(x):
 def _t(x):
     if isinstance(x, dict):
         return {k: _t(v) for k, v in x.items()}
-    return tensor_from_numpy(np.asarray(x))
+    return tensor_from_numpy(np.asarray(x), device="cpu")
 
 
 def _configs(max_seq_len=128):
@@ -77,7 +77,7 @@ def test_quantize_rows_bit_exact(dtype):
     x[0, 0, 0] = 0.0  # an all-zero row takes the 1e-8 floor
     xj = jnp.asarray(x).astype(dtype)
     want = jkv.quantize_rows(xj)
-    got = tkv.quantize_rows(tensor_from_numpy(np.asarray(xj)))
+    got = tkv.quantize_rows(tensor_from_numpy(np.asarray(xj), device="cpu"))
     np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
     np.testing.assert_array_equal(got["s"].numpy(), np.asarray(want["s"]))
 
@@ -99,7 +99,9 @@ def test_quantize_tensor_bit_exact(axis):
 def test_quantize_llama_params_matches_jax(tiny):
     jc, tc, jparams = tiny
     want = flatten_jax_params(jq.quantize_llama_params(jparams))
-    got = tq.quantize_llama_params(params_from_numpy(flatten_jax_params(jparams)))
+    got = tq.quantize_llama_params(
+        params_from_numpy(flatten_jax_params(jparams), device="cpu")
+    )
     for name in ("embed", "lm_head"):
         np.testing.assert_array_equal(got[name].q.numpy(), want[name]["q"])
         np.testing.assert_array_equal(got[name].s.numpy(), want[name]["s"])
@@ -130,7 +132,7 @@ def test_init_llama_params_q8_layout_matches_jax():
         lambda a: (a.shape, str(a.dtype)),
         flatten_jax_params(jq.init_llama_params_q8(jc, jax.random.PRNGKey(0))),
     )
-    got_tree = tq.init_llama_params_q8(tc, torch.Generator().manual_seed(0))
+    got_tree = tq.init_llama_params_q8(tc, torch.Generator().manual_seed(0), device="cpu")
 
     def desc(t):
         if isinstance(t, tq.QTensor):
@@ -145,7 +147,7 @@ def test_init_llama_params_q8_layout_matches_jax():
 
 def test_params_from_numpy_bf16_bits_pass_through():
     x = jnp.asarray(np.random.default_rng(3).standard_normal((4, 5)), jnp.bfloat16)
-    t = tensor_from_numpy(np.asarray(x))
+    t = tensor_from_numpy(np.asarray(x), device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(
         t.view(torch.int16).numpy(), np.asarray(x).view(np.int16)
@@ -284,7 +286,7 @@ def _prompts():
 
 def test_prefill_forward_matches_jax(tiny):
     jc, tc, jparams = tiny
-    params = params_from_numpy(flatten_jax_params(jparams))
+    params = params_from_numpy(flatten_jax_params(jparams), device="cpu")
     tokens, lengths = _prompts()
     lj, kj, vj = jl.prefill_forward(jc, jparams, jnp.asarray(tokens),
                                     jnp.asarray(lengths), use_flash=False)
@@ -306,7 +308,7 @@ def test_llama_forward_matches_hf_golden():
     golden = np.load(FIXTURES / "golden.npz")
     jc, tc = _configs()
     params = params_from_numpy(
-        flatten_jax_params(load_llama_checkpoint(str(FIXTURES), jc))
+        flatten_jax_params(load_llama_checkpoint(str(FIXTURES), jc)), device="cpu"
     )
     for p in (0, 1):
         tokens = torch.from_numpy(golden[f"prompt_{p}"][None, :]).long()
@@ -336,7 +338,8 @@ def test_paged_prefill_and_two_decode_chunks_match_jax(tiny, weights_int8, kv_in
     jc, tc, jparams = tiny
     if weights_int8:
         jparams = jq.quantize_llama_params(jparams)
-    params = params_from_numpy(flatten_jax_params(jparams), dtype=torch.float32)
+    params = params_from_numpy(flatten_jax_params(jparams), device="cpu",
+                               dtype=torch.float32)
     tokens, lengths = _prompts()
     layout = jp.PagedLayout.for_model(128, 3, block_size=8, num_blocks=40)
     mgr = jp.BlockManager(layout, 3)
@@ -347,10 +350,10 @@ def test_paged_prefill_and_two_decode_chunks_match_jax(tiny, weights_int8, kv_in
     tables = mgr.tables.copy()
     if kv_int8:
         pk_j, pv_j = jp.init_paged_kv_cache_int8(jc, layout)
-        pk_t, pv_t = tp.init_paged_kv_cache_int8(tc, layout)
+        pk_t, pv_t = tp.init_paged_kv_cache_int8(tc, layout, device="cpu")
     else:
         pk_j, pv_j = jp.init_paged_kv_cache(jc, layout)
-        pk_t, pv_t = tp.init_paged_kv_cache(tc, layout)
+        pk_t, pv_t = tp.init_paged_kv_cache(tc, layout, device="cpu")
 
     lj, pk_j, pv_j = jlp.llama_prefill_paged(
         jc, jparams, jnp.asarray(tokens), jnp.asarray(lengths), pk_j, pv_j,
@@ -399,15 +402,15 @@ def test_dense_decode_chunk_matches_jax_dense_chunk(tiny):
     """The dense layout through identity-table blocks against the JAX
     package's dense ``llama_decode_chunk`` (its CPU decode path)."""
     jc, tc, jparams = tiny
-    params = params_from_numpy(flatten_jax_params(jparams))
+    params = params_from_numpy(flatten_jax_params(jparams), device="cpu")
     tokens, lengths = _prompts()
     ck_j, cv_j = jl.init_kv_cache(jc, 3)
     logits, ck_j, cv_j = jl.llama_prefill(
         jc, jparams, jnp.asarray(tokens), jnp.asarray(lengths), ck_j, cv_j,
         jnp.arange(3), use_flash=False,
     )
-    ck_t = tensor_from_numpy(np.asarray(ck_j))
-    cv_t = tensor_from_numpy(np.asarray(cv_j))
+    ck_t = tensor_from_numpy(np.asarray(ck_j), device="cpu")
+    cv_t = tensor_from_numpy(np.asarray(cv_j), device="cpu")
     first = np.asarray(jnp.argmax(logits, -1)).astype(np.int32)
     active = np.array([True, False, True])
     out_j = jl.llama_decode_chunk(
