@@ -11,8 +11,11 @@ Phases (every one unguarded: any failure exits non-zero):
 2. each kernel against its plain PyTorch version at Llama-3-8B width
    (H=32, Kh=8, D=128) in bf16 and f32, with its time, the plain version's
    time, its bound and, for flash, ``scaled_dot_product_attention`` as the
-   library yardstick (timed here only; the port never calls it) — the
-   multi-query history read at the chunk's T=512 and at T=16;
+   library yardstick (timed here only; the port never calls it) — flash
+   at S=512 and 2048 (bf16 through the wgmma kernel, f32 through the FMA
+   kernel), the decode read over 64 ragged slots (bf16/f32 pools through
+   the split read, int8 pools through the int8 kernel), the multi-query
+   history read at the chunk's T=512 and at T=16;
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV) answering concurrent greedy requests, launch counters set to 0 just
@@ -49,6 +52,23 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TOL_BF16 = 2e-2
 TOL_F32 = 1e-4
+
+
+def ptxas_report(logs: dict) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: its
+    (mangled) name, registers and spills."""
+    out = []
+    for lib, log in sorted(logs.items()):
+        fn = spill = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and fn:
+                out.append(f"ptxas [{lib}] {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+                fn = spill = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -146,11 +166,11 @@ def check_paged(torch, name, fn, plain, case, *, kv_heads, head_dim, tol):
 
 def phase_kernels(torch) -> dict:
     from langstream_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference,
+        flash_attention, flash_attention_reference, flash_kernel_route,
     )
     from langstream_tpu_torch.ops.paged_attention import (
         _paged_attention_partial_q8, paged_attention_partial,
-        paged_attention_reference,
+        paged_attention_reference, paged_read_splits,
     )
 
     F = torch.nn.functional
@@ -189,7 +209,8 @@ def phase_kernels(torch) -> dict:
         flops = 4.0 * H * D * n_rows
         peak = BF16_FLOPS_PER_S if spec["dtype"] == torch.bfloat16 else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, peak)
-        print(f"kernel {name} [{label}] B={B} H={H} Kh={Kh} D={D} rows={n_rows}: "
+        spans = "int8 kernel" if spec["int8"] else f"spans={paged_read_splits(nrb, spec['bs'])}"
+        print(f"kernel {name} [{label}] B={B} H={H} Kh={Kh} D={D} rows={n_rows} {spans}: "
               f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) achieved={nbytes / ms / 1e6:.1f} GB/s",
               flush=True)
@@ -232,7 +253,8 @@ def phase_kernels(torch) -> dict:
         flops = 4.0 * Bf * H * D * S * (S + 1) / 2
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, peak)
-        print(f"kernel flash_attention [{label}] B={Bf} S={S} H={H} Kh={Kh} D={D}: "
+        print(f"kernel flash_attention [{label}] B={Bf} S={S} H={H} Kh={Kh} D={D} "
+              f"kernel={flash_kernel_route(dtype, D)}: "
               f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (library err {lib_err:.2e}) "
               f"bound_ms={b_ms:.4f} ({b_by}) "
@@ -385,17 +407,20 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     busy = sum(by_name.values())
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
-    groups = {"flash_fwd_kernel": 0.0, "paged_decode_kernel": 0.0,
-              "paged_mq_kernel": 0.0, "gemm": 0.0,
+    # flash_fwd_wgmma_kernel (bf16) and flash_fwd_kernel (f32); the decode
+    # read's paged_decode_split_kernel + paged_decode_combine_kernel (bf16/
+    # f32 pools) and paged_decode_kernel (int8 pools)
+    groups = {"flash prefill (flash_fwd_*)": 0.0, "paged read (paged_decode_*)": 0.0,
+              "multi-query read (paged_mq_kernel)": 0.0, "gemm": 0.0,
               "memcpy/memset": 0.0, "other (elementwise, reductions)": 0.0}
     for name, us in by_name.items():
         low = name.lower()
-        if "flash_fwd_kernel" in name:
-            groups["flash_fwd_kernel"] += us
-        elif "paged_decode_kernel" in name:
-            groups["paged_decode_kernel"] += us
+        if "flash_fwd_" in name:
+            groups["flash prefill (flash_fwd_*)"] += us
+        elif "paged_decode_" in name:
+            groups["paged read (paged_decode_*)"] += us
         elif "paged_mq_kernel" in name:
-            groups["paged_mq_kernel"] += us
+            groups["multi-query read (paged_mq_kernel)"] += us
         elif any(k in low for k in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
             groups["gemm"] += us
         elif "memcpy" in low or "memset" in low:
@@ -630,10 +655,8 @@ def main() -> int:
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.monotonic() - t0:.1f} s into "
           f"{_build.build_dir()}", flush=True)
-    for name, log in built.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas [{name}] {line.strip()}")
+    for line in ptxas_report(built):
+        print(line)
 
     # -- phase 2: kernels against plain ------------------------------------
     t0 = time.monotonic()

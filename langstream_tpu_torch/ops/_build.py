@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Builds
-happen at first use (never at import), keyed by a hash of the source and
-the flags, into ``build/langstream_tpu_torch/`` at the repository root
+happen at first use (never at import), keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, into
+``build/langstream_tpu_torch/`` at the repository root
 (``LS_TORCH_BUILD_DIR`` overrides it). :func:`build_all` starts one
 ``nvcc`` per missing library, all at once. A build error raises; there is
 no fallback.
@@ -53,11 +54,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return build_dir() / f"{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every shared
+    header of ``csrc/`` (an edited header must not reuse a stale library)
+    and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, str]:

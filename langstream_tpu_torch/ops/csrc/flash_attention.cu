@@ -12,23 +12,42 @@
 // head) against O(S*D) bytes, so from about S = 1k upward it passes the
 // card's ~295 FLOP/byte balance point and is bound by operations (at
 // B=4, S=2048, H=32, D=128: 0.139 ms of bf16 tensor-core work against
-// 0.05 ms of bytes). This first version does the two products with plain
-// f32 FMAs from shared memory (no tensor cores), so it runs at a fraction
-// of the 989 TFLOP/s bf16 peak; mma/wgmma tiles are later work.
+// 0.05 ms of bytes). Two kernels, chosen by the caller (`kernel`):
 //
-// Design: one CTA per (64-row query tile, head, batch), 256 threads in a
-// 16x16 layout. The Q tile is staged in shared memory once (as f32); the
-// CTA loops over 64-row K/V tiles up to the causal bound, skipping tiles
-// that lie entirely in the future. Thread (ty, tx) owns query rows
-// ty+16i and key columns tx+16j of each score tile, so Q reads broadcast
-// and K reads (row stride D+1) hit distinct banks; the 16 threads that
-// share a row reduce max/sum with warp shuffles. The output tile (64 x D)
-// stays in registers. All tiles are f32 in dynamic shared memory (115 KB
-// at D = 128), past the 48 KB static limit, hence cudaFuncSetAttribute.
+// flash_fwd_wgmma_kernel (bfloat16, D in {64, 128}; what prefill runs):
+// both products on the tensor cores with wgmma, bf16 in, f32 accumulate.
+// One CTA of three warpgroups per 192 query rows of one (batch, head);
+// each warpgroup owns 64 rows. Q is loaded once into shared memory in
+// bf16; 128-key K/V tiles come through a two-stage ring filled by 16-byte
+// cp.async copies (zero-filled past Sk), so tile t+1 loads while tile t is
+// computed; one barrier per tile (177 KB of shared memory at D = 128).
+// Every tile is stored as D/64 slabs of 128-byte rows with the 128-byte
+// swizzle the wgmma descriptors name. S = Q.K^T is an m64n128k16 wgmma
+// with both operands in shared memory; the online softmax runs on its f32
+// accumulator fragments in registers (the scale folded into the exp2's
+// multiply-add); P is rounded to bf16 in registers (the Pallas kernel's
+// p.astype(v.dtype)) and fed back as the A operand of O += P.V (m64nDk16,
+// V read MN-major from shared memory), so P never goes through shared
+// memory. Causal: tiles wholly in a warpgroup's future are skipped, only
+// the diagonal and the ragged tile are masked, and the grid starts with
+// the last (longest) query tiles so its tail is short. Not done yet: TMA
+// loads, a producer warp and warpgroup ping-pong (the softmax still takes
+// issue slots the products could use).
+//
+// flash_fwd_kernel (float32, and D = 16): the first port, plain f32 FMA
+// tiles from shared memory. A TF32 product would miss the f32 tolerance
+// (1e-4) and the card-vs-CPU greedy identity, so f32 stays here. One CTA
+// per (64-row query tile, head, batch), 256 threads in a 16x16 layout;
+// thread (ty, tx) owns query rows ty+16i and key columns tx+16j of each
+// score tile; the output tile stays in registers; all tiles are f32 in
+// dynamic shared memory (115 KB at D = 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
+
 
 namespace {
 
@@ -212,23 +231,360 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (a cudaError_t code; 0 = success); unsupported shapes return -1.
+namespace tc {
+
+// Three warpgroups (12 warps, one CTA per SM) let one
+// warpgroup's softmax run while another's products do; 128-key tiles halve
+// the barriers and waits per key against 64.
+constexpr int NWG = 3;        // warpgroups per CTA, 64 query rows each
+constexpr int BM = 64 * NWG;  // query rows per CTA
+constexpr int BN = 128;       // keys per K/V tile
+constexpr int NT = 128 * NWG;
+
+// Byte offset of 16-byte chunk cc (of D/8) of row r in a tile of R rows:
+// D/64 slabs of R rows x 128 bytes, chunk c of row r stored at c ^ (r % 8).
+template <int R>
+__device__ __forceinline__ uint32_t swz(int r, int cc) {
+  return (cc >> 3) * (R * 128) + r * 128 + (((cc & 7) ^ (r & 7)) << 4);
+}
+
+// Rows [row0, row0 + R) of head `head` of x (B, S, heads, D) into a tile;
+// rows >= S are zero-filled. Thread tid copies chunk column tid % (D/8) of
+// rows tid / (D/8) + j * RPP; RPP is a multiple of 8, so the swizzle term
+// is the same for every j and each copy costs a few instructions. Offsets
+// are 32-bit: the host entry refuses tensors of 2^31 elements or more.
+template <int R, int D>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const __nv_bfloat16* x, int b,
+                                          int row0, int S, int heads, int head,
+                                          int tid) {
+  constexpr int CPR = D / 8;
+  constexpr int RPP = NT / CPR;  // rows per pass
+  static_assert(NT % CPR == 0 && RPP % 8 == 0, "passes must keep the swizzle phase");
+  const int cc = tid % CPR;
+  const int r0 = tid / CPR;
+  const uint32_t stride = (uint32_t)heads * D;  // elements from one row to the next
+  const uint32_t off = (uint32_t)(b * S + row0 + r0) * stride + head * D + cc * 8;
+  uint8_t* d = dst + swz<R>(r0, cc);
+#pragma unroll
+  for (int j = 0; j < (R + RPP - 1) / RPP; ++j) {
+    if (R % RPP != 0 && r0 + j * RPP >= R) break;
+    const bool ok = row0 + r0 + j * RPP < S;
+    ls::cp_async16(d + j * RPP * 128, x + (ok ? off + j * RPP * stride : 0), ok ? 16 : 0);
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands
+// (Q, K): lbo unused (16), sbo = 1024 (next 8 rows). MN-major V: lbo = the
+// slab stride (next 64 columns of D), sbo = 1024 (next 8 keys).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// S (64 x 128 f32 fragments) = A (64 x 16, shared) . B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 64 f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 128 f32) += A (64 x 16, registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return size_t(BM) * D * 2 + 4 * size_t(BN) * D * 2 + 1024;  // Q, 2 x (K, V), alignment
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                       int B, int Sq, int Sk, int H, int Kh, float scale_log2,
+                       int causal) {
+  static_assert(D == 64 || D == 128, "tensor-core flash takes D in {64, 128}");
+  constexpr uint32_t Q_BYTES = BM * D * 2;
+  constexpr uint32_t KV_BYTES = BN * D * 2;
+  constexpr float NEG_INF = ls::NEG_INF;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* sm = smem_raw + ((1024 - (ls::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;
+  uint8_t* Ks = sm + Q_BYTES;     // 2 stages
+  uint8_t* Vs = Ks + 2 * KV_BYTES;  // 2 stages
+
+  // one CTA per (query tile, batch, head), the last query tiles first
+  const int n_qt = (Sq + BM - 1) / BM;
+  int idx = blockIdx.x;
+  const int h = idx % H;
+  idx /= H;
+  const int b = idx % B;
+  const int qt = n_qt - 1 - idx / B;
+  const int kh = h / (H / Kh);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int q0 = qt * BM;
+  const int q0w = q0 + wg * 64;                    // this warpgroup's first row
+  const int row0 = q0w + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const bool wg_live = q0w < Sq;
+
+  int n_kt = (Sk + BN - 1) / BN;
+  if (causal) n_kt = min(n_kt, (q0 + BM - 1) / BN + 1);
+
+  load_tile<BM, D>(Qs, q, b, q0, Sq, H, h, tid);
+  load_tile<BN, D>(Ks, k, b, 0, Sk, Kh, kh, tid);
+  load_tile<BN, D>(Vs, v, b, 0, Sk, Kh, kh, tid);
+  ls::cp_async_commit();
+
+  // Fragment of an m64nN f32 accumulator: element 4j+e is row row0 + 8*(e>>1),
+  // column 8j + 2*(lane%4) + (e&1).
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};  // this thread's columns only; summed over the quad at the end
+  const uint32_t q_base = ls::smem_u32(Qs) + wg * 64 * 128;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    ls::cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt is in for every thread; tile kt-1's readers are done
+    if (kt + 1 < n_kt) {
+      load_tile<BN, D>(Ks + (st ^ 1) * KV_BYTES, k, b, (kt + 1) * BN, Sk, Kh, kh, tid);
+      load_tile<BN, D>(Vs + (st ^ 1) * KV_BYTES, v, b, (kt + 1) * BN, Sk, Kh, kh, tid);
+      ls::cp_async_commit();
+    }
+    const int k0 = kt * BN;
+    if (!wg_live || (causal && k0 > q0w + 63)) continue;  // wholly in the future
+    const uint32_t k_base = ls::smem_u32(Ks + st * KV_BYTES);
+    const uint32_t v_base = ls::smem_u32(Vs + st * KV_BYTES);
+
+    // S = Q . K^T, D/16 steps of k16 (32 bytes inside a 128-byte row, then the next slab)
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qo = (kk >> 2) * (BM * 128) + (kk & 3) * 32;
+      const uint32_t ko = (kk >> 2) * (BN * 128) + (kk & 3) * 32;
+      wgmma_ss(s, desc(q_base + qo, 16, 1024), desc(k_base + ko, 16, 1024),
+               kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // mask the diagonal and the ragged tile, then the online softmax; m is
+    // kept in unscaled score units (the scale is positive) and the scale
+    // (base 2) folds into the exponent's multiply-add
+    if ((k0 + BN > Sk) || (causal && k0 + BN - 1 > q0w)) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (col >= Sk || (causal && col > row)) s[4 * j + e] = NEG_INF;
+        }
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      shift[r] = (m_new <= NEG_INF) ? 0.f : m_new * scale_log2;
+      alpha[r] = (m_r[r] <= NEG_INF) ? 0.f : exp2f(m_r[r] * scale_log2 - shift[r]);
+      m_r[r] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a masked score is NEG_INF and shift is finite: p is exactly 0
+        const float p = exp2f(fmaf(s[4 * j + e], scale_log2, -shift[e >> 1]));
+        psum[e >> 1] += p;
+        s[4 * j + e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + psum[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
+
+    // P in bf16 as the A fragments of k16 step kk: keys 16kk..16kk+15
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P . V: 16 keys (two 8-key groups, 2048 bytes) per step
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc, pa[kk], desc(v_base + kk * 2048, BN * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  if (!wg_live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    const float inv = l_r[r] > 0.f ? 1.f / fmaxf(l_r[r], 1e-30f) : 0.f;
+    __nv_bfloat16* dst = o + ((size_t)(b * Sq + row) * H + h) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+           int H, int Kh, float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (Sq + BM - 1) / BM;
+  flash_fwd_wgmma_kernel<D><<<n_qt * H * B, NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), B, Sq, Sk, H,
+      Kh, scale * 1.4426950408889634f, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// dtype: 0 = float32, 1 = bfloat16. kernel: 0 = the FMA tiles (float32 at
+// D in {16, 64, 128}, bfloat16 at D = 16), 1 = the tensor cores (bfloat16
+// at D in {64, 128}, tensors under 2^31 elements). Returns
+// cudaGetLastError() after the launch (a cudaError_t code; 0 = success); an
+// unsupported combination returns -1.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H,
                                    int Kh, int D, int dtype, float scale,
-                                   int causal, void* stream) {
+                                   int causal, int kernel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == 1 && ((long long)B * Sq * H * D >= (1ll << 31) ||
+                      (long long)B * Sk * Kh * D >= (1ll << 31)))
+    return -1;
+  if (kernel == 1 && dtype == 1 && D == 128)
+    return tc::launch<128>(q, k, v, o, B, Sq, Sk, H, Kh, scale, causal, s);
+  if (kernel == 1 && dtype == 1 && D == 64)
+    return tc::launch<64>(q, k, v, o, B, Sq, Sk, H, Kh, scale, causal, s);
+  if (kernel != 0) return -1;
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, B, Sq, Sk, H, Kh, scale, causal, s);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, B, Sq, Sk, H, Kh, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, Sq, Sk, H, Kh, scale,
-                                      causal, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, Sq, Sk, H, Kh, scale,
-                                     causal, s);
   if (dtype == 0 && D == 16)
     return launch<float, 16>(q, k, v, o, B, Sq, Sk, H, Kh, scale, causal, s);
   if (dtype == 1 && D == 16)

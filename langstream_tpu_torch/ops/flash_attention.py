@@ -5,8 +5,10 @@
 for tensors on the card and takes :func:`flash_attention_reference`, its
 plain PyTorch version, for tensors on the CPU. Layout ``(B, S, H, D)``;
 ``H`` may be a multiple of ``Kh`` (query head ``h`` reads KV head
-``h // (H // Kh)``). No block padding is needed: the kernel masks the
-ragged edge itself.
+``h // (H // Kh)``). No block padding is needed: the kernels mask the
+ragged edge themselves. bfloat16 at head_dim 64 and 128 (the served
+models) runs on the tensor cores (wgmma); float32, and head_dim 16, run
+the f32 FMA kernel (see :func:`flash_kernel_route`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 #: 128 and 64 are the served models' widths; 16 is the tiny test model's
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: kernel codes of ``flash_attention_fwd``
+_KERNEL_CODES = {"fma": 0, "wgmma": 1}
 
 
 def _lib() -> ctypes.CDLL:
@@ -30,10 +34,19 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return lib
+
+
+def flash_kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which CUDA kernel serves a call: ``"wgmma"`` (tensor cores, bf16 in,
+    f32 accumulate) for bfloat16 at head_dim 64 or 128, else ``"fma"``
+    (f32 FMA tiles: a TF32 product would miss the f32 tolerance)."""
+    if dtype == torch.bfloat16 and head_dim in (64, 128):
+        return "wgmma"
+    return "fma"
 
 
 def flash_attention_reference(
@@ -85,6 +98,11 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if flash_kernel_route(q.dtype, D) == "wgmma" and max(q.numel(), k.numel()) >= 2**31:
+        raise ValueError(
+            "flash_attention: the tensor-core kernel takes tensors of fewer "
+            "than 2^31 elements (32-bit offsets)"
+        )
 
 
 def flash_attention(
@@ -115,7 +133,8 @@ def flash_attention(
     rc = _lib().flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, Sq, Sk, H, k.shape[2], D, _DTYPE_CODES[q.dtype], scale,
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), _KERNEL_CODES[flash_kernel_route(q.dtype, D)],
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (CUDA error {rc})")

@@ -7,10 +7,13 @@ one segment; the caller merges them with :func:`merge_partial_attention`.
 
 - :func:`paged_attention_partial`: one decode query per slot over its
   cache rows (the other segment is the in-chunk buffer). For tensors on
-  the card it launches the kernels of ``csrc/paged_attention.cu`` — the
-  bf16/f32 kernel for a plain pool, the int8 kernel for an ``{"q","s"}``
-  pool; for tensors on the CPU it takes :func:`paged_attention_reference`
-  (the JAX package's ``_cache_partial_xla``).
+  the card it launches the kernels of ``csrc/paged_attention.cu`` — for a
+  plain bf16/f32 pool the split read (each CTA one span of
+  :data:`SPLIT_ROWS` rows, then a combine of the spans; see
+  :func:`paged_attention_split_reference`), for an ``{"q","s"}`` int8 pool
+  the int8 kernel; for tensors on the CPU it takes
+  :func:`paged_attention_reference` (the JAX package's
+  ``_cache_partial_xla``).
 - :func:`paged_attention_multiquery_partial`: T suffix queries per slot
   over the slot's history rows (the continuation prefill; the other
   segment is the suffix itself). The kernel of
@@ -42,8 +45,13 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 #: 128 and 64 are the served models' widths; 16 is the tiny test model's
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernels keep G*D accumulators over 128 threads, at most 8 each
+#: the int8 kernel keeps G*D accumulators over 128 threads, at most 8 each
 _MAX_GROUP_WIDTH = 1024
+#: the split read gives each of its 4 warps at most 2 query heads
+_MAX_GROUP = 8
+#: cache rows one CTA of the bf16/f32 decode read walks (SPLIT_ROWS of the
+#: CUDA source; the entry point refuses any other value)
+SPLIT_ROWS = 256
 #: query rows per CTA of the multi-query kernel: (64 / G) positions x G heads
 _MQ_ROWS = 64
 
@@ -65,7 +73,7 @@ def _lib() -> ctypes.CDLL:
     fn, fn8 = lib.paged_attention_partial_fwd, lib.paged_attention_partial_q8_fwd
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -116,18 +124,10 @@ def _gather_layer_window(pool_l, block_tables, num_read_blocks, kv_heads, head_d
     return w.reshape(B, W, kv_heads, head_dim)
 
 
-def paged_attention_reference(
-    q, k_pool, v_pool, block_tables, lengths, *,
-    num_read_blocks: int, kv_heads: int, head_dim: int,
-    scale: float | None = None,
-):
-    """Plain version of both kernels: gather the window densely, compute
-    partial softmax stats (``_cache_partial_xla`` of the JAX package). int8
-    pools read through the fused kvquant helpers (scales onto scores and
-    probabilities)."""
+def _window_partials(q, kw, vw, lengths, *, kv_heads, head_dim, scale):
+    """Partial softmax stats of one query per slot over a dense window
+    ``kw``/``vw`` (B, W, Kh, D) (or int8 ``{"q","s"}``), rows ``< lengths``."""
     B, H, D = q.shape
-    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
-    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
     W = (kw["s"] if isinstance(kw, dict) else kw).shape[1]
     G = H // kv_heads
     qg = q.reshape(B, kv_heads, G, head_dim)
@@ -144,6 +144,81 @@ def paged_attention_reference(
     l = p.sum(dim=-1)
     acc = cache_values(p.to(q.dtype), vw).to(torch.float32)
     return acc.reshape(B, H, D), m.reshape(B, H), l.reshape(B, H)
+
+
+def paged_attention_reference(
+    q, k_pool, v_pool, block_tables, lengths, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None,
+):
+    """Plain version of both kernels: gather the window densely, compute
+    partial softmax stats (``_cache_partial_xla`` of the JAX package). int8
+    pools read through the fused kvquant helpers (scales onto scores and
+    probabilities)."""
+    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    return _window_partials(q, kw, vw, lengths, kv_heads=kv_heads,
+                            head_dim=head_dim, scale=scale)
+
+
+def paged_read_splits(num_read_blocks: int, block_size: int,
+                      split_rows: int = SPLIT_ROWS) -> int:
+    """Spans of ``split_rows`` cache rows the split read launches per slot
+    and KV head: from the host's ints, so no device value is read."""
+    return max(1, -(-num_read_blocks * block_size // split_rows))
+
+
+def combine_split_partials(acc, m, l, lengths, *, window: int,
+                           split_rows: int = SPLIT_ROWS):
+    """The combine kernel's algebra: merge the span partials
+    ``acc (B,n,H,D), m (B,n,H), l (B,n,H)`` of each slot over its
+    ``ceil(min(length, window) / split_rows)`` live spans only (the kernel
+    never writes the others), with the NEG_INF guards of
+    :func:`merge_partial_attention`; no live span gives m = NEG_INF, l = 0,
+    acc = 0."""
+    n = m.shape[1]
+    rows = lengths.to(torch.long).clamp(0, window)
+    live = (torch.arange(n, device=m.device)[None, :]
+            < (-(-rows // split_rows))[:, None])[..., None]           # (B, n, 1)
+    m_live = torch.where(live, m, torch.full_like(m, NEG_INF))
+    M = m_live.amax(dim=1)                                            # (B, H)
+    shift = torch.where(M <= NEG_INF, torch.zeros_like(M), M)
+    w = torch.where(live & (m > NEG_INF), torch.exp(m_live - shift[:, None]),
+                    torch.zeros_like(m))
+    L = (torch.where(live, l, torch.zeros_like(l)) * w).sum(dim=1)
+    A = (torch.where(live[..., None], acc, torch.zeros_like(acc)) * w[..., None]).sum(dim=1)
+    return A, M, L
+
+
+def paged_attention_split_reference(
+    q, k_pool, v_pool, block_tables, lengths, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None, split_rows: int = SPLIT_ROWS,
+):
+    """Plain version of the split read, span by span: the partials of each
+    ``split_rows`` rows of the window as :func:`paged_attention_reference`
+    computes them, merged by :func:`combine_split_partials`. Equal to the
+    unsplit read up to rounding."""
+    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    window = (kw["s"] if isinstance(kw, dict) else kw).shape[1]
+
+    def rows(w, lo):
+        if isinstance(w, dict):
+            return {n: a[:, lo:lo + split_rows] for n, a in w.items()}
+        return w[:, lo:lo + split_rows]
+
+    parts = []
+    for i in range(paged_read_splits(num_read_blocks, window // num_read_blocks,
+                                     split_rows)):
+        lo = i * split_rows
+        span_len = (lengths.to(torch.long) - lo).clamp(0, split_rows)
+        parts.append(_window_partials(q, rows(kw, lo), rows(vw, lo), span_len,
+                                      kv_heads=kv_heads, head_dim=head_dim,
+                                      scale=scale))
+    acc, m, l = (torch.stack(t, dim=1) for t in zip(*parts))
+    return combine_split_partials(acc, m, l, lengths, window=window,
+                                  split_rows=split_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -205,9 +280,10 @@ def paged_attention_partial(
     scale: float | None = None,
 ):
     """Partial (unnormalised) paged attention over the cache segment:
-    ``(acc (B,H,D) f32, m (B,H) f32, l (B,H) f32)``. The kernel walks only
-    the ``ceil(length/32)`` row tiles each slot holds, never more than
-    ``num_read_blocks`` blocks."""
+    ``(acc (B,H,D) f32, m (B,H) f32, l (B,H) f32)``. The kernels read only
+    the rows each slot holds, never more than ``num_read_blocks`` blocks.
+    For a bf16/f32 pool one call is two launches (the spans, then their
+    combine; one launch when the window is one span)."""
     if isinstance(k_pool, dict):
         return _paged_attention_partial_q8(
             q, k_pool, v_pool, block_tables, lengths,
@@ -230,17 +306,32 @@ def paged_attention_partial(
     if k_pool.shape != v_pool.shape:
         raise ValueError("paged_attention: k and v pools differ in shape")
     B, H, D = q.shape
-    acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    if H // kv_heads > _MAX_GROUP:
+        raise ValueError(
+            f"paged_attention: {H // kv_heads} query heads per kv head; the "
+            f"split read takes at most {_MAX_GROUP}"
+        )
+    dev = q.device
+    acc = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    m = torch.empty((B, H), dtype=torch.float32, device=dev)
+    l = torch.empty((B, H), dtype=torch.float32, device=dev)
     if B == 0:
         return acc, m, l
+    bs = k_pool.shape[1]
+    n_split = paged_read_splits(num_read_blocks, bs)
+    if n_split > 1:  # span partials, merged by the combine launch
+        parts = (torch.empty((B, n_split, H, D), dtype=torch.float32, device=dev),
+                 torch.empty((B, n_split, H), dtype=torch.float32, device=dev),
+                 torch.empty((B, n_split, H), dtype=torch.float32, device=dev))
+    else:  # one span writes the outputs itself
+        parts = (acc, m, l)
     rc = _lib().paged_attention_partial_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, H, kv_heads, D, k_pool.shape[1], block_tables.shape[1],
-        num_read_blocks, _DTYPE_CODES[q.dtype],
+        *(t.data_ptr() for t in parts),
+        B, H, kv_heads, D, bs, block_tables.shape[1],
+        num_read_blocks, n_split, SPLIT_ROWS, _DTYPE_CODES[q.dtype],
         1.0 / math.sqrt(D) if scale is None else scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -21,15 +21,19 @@ from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
 from langstream_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+    flash_kernel_route,
 )
 from langstream_tpu_torch.ops.paged_attention import (
     NEG_INF,
+    SPLIT_ROWS,
     _paged_attention_partial_q8,
     merge_partial_attention,
     paged_attention_multiquery_partial,
     paged_attention_multiquery_reference,
     paged_attention_partial,
     paged_attention_reference,
+    paged_attention_split_reference,
+    paged_read_splits,
 )
 from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
@@ -63,6 +67,87 @@ def test_flash_kernel_matches_plain(D, dtype, tol, causal, S):
     want = flash_attention_reference(q, k, v, causal=causal)
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_kernel_matches_plain(D, S, causal):
+    """bf16 at the served widths goes through the wgmma kernel: ragged
+    query and key edges around its 64-row warpgroup and 128-key tiles,
+    and Sq != Sk without causality."""
+    assert flash_kernel_route(torch.bfloat16, D) == "wgmma"
+    rng = np.random.default_rng(S)
+    Sk = S if causal else S + 37
+    q = torch.from_numpy(rng.standard_normal((2, S, 8, D), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, Sk, 2, D), dtype=np.float32))
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16).cuda() for x in (q, k, v))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_reference(q, k, v, causal=causal)
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs", [16, 128])
+def test_split_read_matches_plain(dtype, bs):
+    """The split read at Llama-3-8B width over 64 slots: one slot at the
+    whole window (every span live), lengths 0, SPLIT_ROWS and
+    SPLIT_ROWS +- 1, the rest random, over shuffled block tables."""
+    rng = np.random.default_rng(bs)
+    B, H, Kh, D, nrb = 64, 32, 8, 128, 1024 // bs
+    window = nrb * bs
+    assert paged_read_splits(nrb, bs) == window // SPLIT_ROWS > 1
+    lengths = rng.integers(1, window + 1, B)
+    lengths[:5] = [window, 0, SPLIT_ROWS, SPLIT_ROWS - 1, SPLIT_ROWS + 1]
+    nb = B * nrb + 1
+    tables = torch.from_numpy(
+        (rng.permutation(nb - 1) + 1)[: B * nrb].reshape(B, nrb).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to(dtype).cuda()
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, bs, Kh * D), dtype=np.float32))
+              .to(dtype).cuda() for _ in range(2))
+    lengths = torch.from_numpy(lengths.astype(np.int32)).cuda()
+    args = (q, kp, vp, tables, lengths)
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    before = paged_attention_partial.launches
+    got = paged_attention_partial(*args, **kw)
+    assert paged_attention_partial.launches == before + 1
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for want in (paged_attention_reference(*args, **kw),
+                 paged_attention_split_reference(*args, **kw)):
+        err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+        assert err.item() <= tol
+    acc, m, l = got
+    assert (m[1] == NEG_INF).all() and (l[1] == 0).all() and (acc[1] == 0).all()
+    live = lengths > 0
+    assert torch.isfinite(acc[live]).all() and (l[live] > 0).all()
+
+
+def test_int8_pool_launches_the_q8_kernel():
+    rng = np.random.default_rng(3)
+    nb, bs, Kh, D = 10, 8, 2, 128
+    pools = []
+    for _ in range(2):
+        r = quantize_rows(torch.from_numpy(
+            rng.standard_normal((nb, bs, Kh, D), dtype=np.float32)))
+        pools.append({"q": r["q"].reshape(nb, bs, Kh * D).cuda(), "s": r["s"].cuda()})
+    q = torch.from_numpy(rng.standard_normal((3, 8, D), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+    args = (q, pools[0], pools[1], torch.from_numpy(TABLES).cuda(),
+            torch.tensor([20, 0, 24], dtype=torch.int32).cuda())
+    kw = dict(num_read_blocks=3, kv_heads=Kh, head_dim=D)
+    plain, q8 = paged_attention_partial.launches, _paged_attention_partial_q8.launches
+    got = paged_attention_partial(*args, **kw)
+    assert _paged_attention_partial_q8.launches == q8 + 1
+    assert paged_attention_partial.launches == plain
+    want = paged_attention_reference(*args, **kw)
+    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+    assert err.item() <= 2e-2
 
 
 @pytest.mark.parametrize("int8", [False, True])

@@ -26,12 +26,18 @@ from langstream_tpu_torch.models.llama_paged import _cache_partial_xla
 from langstream_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+    flash_kernel_route,
 )
+from langstream_tpu_torch.models.kvquant import quantize_rows
 from langstream_tpu_torch.ops.paged_attention import (
     NEG_INF,
+    SPLIT_ROWS,
+    combine_split_partials,
     merge_partial_attention,
     paged_attention_partial,
     paged_attention_reference,
+    paged_attention_split_reference,
+    paged_read_splits,
 )
 
 def _qkv(B=2, S=64, H=8, Kh=4, D=32, seed=0):
@@ -77,6 +83,20 @@ def test_flash_cpu_takes_plain_version():
     out = flash_attention(q, k, v)
     assert flash_attention.launches == before  # no kernel on the CPU
     torch.testing.assert_close(out, flash_attention_reference(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,route",
+    [
+        (torch.bfloat16, 128, "wgmma"),  # Llama-3-8B prefill
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 16, "fma"),     # the tiny test model
+        (torch.float32, 128, "fma"),     # TF32 would miss the f32 tolerance
+        (torch.float32, 16, "fma"),
+    ],
+)
+def test_flash_kernel_route(dtype, head_dim, route):
+    assert flash_kernel_route(dtype, head_dim) == route
 
 
 def test_flash_rejects_cross_attention_causal():
@@ -180,6 +200,105 @@ def test_paged_q8_plain_matches_jax_kernel_and_xla(lengths):
         )
 
 
+@pytest.mark.parametrize("split_rows", [8, 16])
+@pytest.mark.parametrize(
+    "lengths",
+    [
+        [16, 17, 0],     # on a span boundary, one row past it, an inactive slot
+        [8, 9, 24],      # the first boundary, one past it, the whole window
+        [0, 0, 0],       # every slot empty
+        [20, 9, 24],     # the JAX package's own case
+    ],
+)
+def test_paged_split_plain_matches_unsplit_and_jax_kernel(lengths, split_rows):
+    """The split read's plain version (span partials merged by the combine
+    kernel's algebra) against the unsplit plain version and the JAX kernel
+    in interpret mode, with spans small enough that the tiny window holds
+    several."""
+    q, (pk, pv) = _paged_inputs(4)
+    lengths = np.array(lengths, np.int32)
+    Kh, D, nrb = 2, 16, 3
+    args = (torch.from_numpy(q), torch.from_numpy(pk), torch.from_numpy(pv),
+            torch.from_numpy(TABLES), torch.from_numpy(lengths))
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    got = paged_attention_split_reference(*args, split_rows=split_rows, **kw)
+    unsplit = paged_attention_reference(*args, **kw)
+    for g, u in zip(got, unsplit):
+        torch.testing.assert_close(g, u, rtol=1e-5, atol=1e-5)
+    want = jax_paged(jnp.asarray(q), jnp.asarray(pk), jnp.asarray(pv),
+                     jnp.asarray(TABLES), jnp.asarray(lengths), num_read_blocks=nrb,
+                     kv_heads=Kh, head_dim=D, interpret=True)
+    np.testing.assert_allclose(merge_partial_attention([got]).numpy(),
+                               np.asarray(jax_merge([want])), rtol=1e-5, atol=1e-5)
+    acc, m, l = (t.numpy() for t in got)
+    for b in np.nonzero(lengths == 0)[0]:
+        assert (m[b] == NEG_INF).all() and (l[b] == 0).all() and (acc[b] == 0).all()
+
+
+def test_paged_split_plain_reads_int8_pools():
+    rng = np.random.default_rng(5)
+    Kh, D, bs, nb, nrb = 2, 16, 8, 10, 3
+    pools = []
+    for _ in range(2):
+        r = quantize_rows(torch.from_numpy(
+            rng.standard_normal((nb, bs, Kh, D), dtype=np.float32)))
+        pools.append({"q": r["q"].reshape(nb, bs, Kh * D), "s": r["s"]})
+    q = torch.from_numpy(rng.standard_normal((3, 4, D), dtype=np.float32))
+    args = (q, pools[0], pools[1], torch.from_numpy(TABLES),
+            torch.tensor([17, 0, 24], dtype=torch.int32))
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    got = paged_attention_split_reference(*args, split_rows=8, **kw)
+    for g, u in zip(got, paged_attention_reference(*args, **kw)):
+        torch.testing.assert_close(g, u, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "num_read_blocks,block_size,split_rows,want",
+    [
+        (32, 64, 256, 8),    # 2,048 rows of the paged pool: 8 spans
+        (16, 128, 256, 8),   # the dense layout's identity tables
+        (4, 64, 256, 1),     # exactly one span: no combine launch
+        (5, 64, 256, 2),     # one block past a span
+        (1, 16, 256, 1),
+        (3, 8, 8, 3),        # the CPU tests' small spans
+        (3, 8, 16, 2),
+    ],
+)
+def test_paged_read_splits(num_read_blocks, block_size, split_rows, want):
+    assert paged_read_splits(num_read_blocks, block_size, split_rows) == want
+    assert paged_read_splits(num_read_blocks, block_size) == max(
+        1, -(-num_read_blocks * block_size // SPLIT_ROWS))
+
+
+def test_combine_split_partials_reads_live_spans_only():
+    """Spans past a slot's length are never written by the kernel: the
+    combine must not read them (NaN there stays out), and a slot with no
+    live span gives m = NEG_INF, l = 0, acc = 0; live spans merge as
+    merge_partial_attention does, NEG_INF spans included."""
+    rng = np.random.default_rng(6)
+    B, n, H, D, R = 4, 3, 2, 5, 8
+    acc = torch.from_numpy(rng.standard_normal((B, n, H, D), dtype=np.float32))
+    m = torch.from_numpy(rng.standard_normal((B, n, H), dtype=np.float32))
+    l = torch.from_numpy(rng.uniform(0.5, 2.0, (B, n, H)).astype(np.float32))
+    lengths = torch.tensor([0, 8, 9, 30], dtype=torch.int32)  # 0, 1, 2 and 3 live spans
+    m[3, 1] = NEG_INF  # a live span whose rows all scored NEG_INF
+    l[3, 1] = 0.0
+    acc[3, 1] = 0.0
+    for b, live in enumerate((0, 1, 2, 3)):
+        acc[b, live:] = float("nan")
+        m[b, live:] = float("nan")
+        l[b, live:] = float("nan")
+    A, M, L = combine_split_partials(acc, m, l, lengths, window=n * R, split_rows=R)
+    assert torch.isfinite(A).all() and torch.isfinite(L).all()
+    assert (M[0] == NEG_INF).all() and (L[0] == 0).all() and (A[0] == 0).all()
+    for b, live in enumerate((1, 2, 3), start=1):
+        parts = [(acc[b, s], m[b, s], l[b, s]) for s in range(live)]
+        torch.testing.assert_close(
+            merge_partial_attention([(A[b], M[b], L[b])]),
+            merge_partial_attention(parts), rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(M[b], m[b, :live].amax(dim=0), rtol=0, atol=0)
+
+
 def test_merge_partial_attention_matches_jax():
     rng = np.random.default_rng(2)
     parts = []
@@ -230,3 +349,22 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert _build.build_all(names=()) == {}
+
+
+def test_kernel_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited shared header, like an edited source or flag, gives a new
+    library path, so a stale build is never reused."""
+    from langstream_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (csrc / "common.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path("k") not in (first, second)
