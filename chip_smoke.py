@@ -9,21 +9,28 @@ Phases (every one unguarded: any failure exits non-zero):
    kernels from ``langstream_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
    started together) and print the build time;
 2. each kernel against its plain PyTorch version at Llama-3-8B width
-   (H=32, Kh=8, D=128) in bf16 and f32, with its time, the plain version's
-   time, its bound and, for flash, ``scaled_dot_product_attention`` as the
-   library yardstick (timed here only; the port never calls it) — flash
-   at S=512 and 2048 (bf16 through the wgmma kernel, f32 through the FMA
-   kernel), the decode read over 64 ragged slots (bf16/f32 pools through
-   the split read, int8 pools through the int8 kernel), the multi-query
-   history read at the chunk's T=512 and at T=16;
+   (H=32, Kh=8, D=128) in bf16 and f32, with its time (the card's alone:
+   a CUDA graph of the calls replayed; the eager time, host included,
+   beside it), the plain version's time (eager), its bound and, for flash,
+   ``scaled_dot_product_attention`` as the library yardstick (graph-timed
+   as the kernel; timed here only, the port never calls it) — flash at S=512 and 2048 (bf16 through
+   the wgmma kernel, f32 through the FMA kernel), the decode read over 64
+   ragged slots (bf16/f32 and int8 pools through the split read, 256-row
+   spans plus a combine launch; int8 with bf16 queries through mma.sync,
+   with f32 ones through FMAs), the multi-query history read at the
+   chunk's T=512, the prefix hits' T=64 and T=16 (bf16 through the wgmma
+   kernel with its plan of warpgroups and history spans; f32 through the
+   FMA kernel);
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV) answering concurrent greedy requests, launch counters set to 0 just
    before and read just after (as for every path);
-4. main path B: the same with ``kv-layout: paged``, ``kv-quantize: int8``;
+4. main path B: the same with ``kv-layout: paged``, ``kv-quantize: int8``
+   (a profiled second wave, as path A);
    main path C: paged bf16 KV with the prefix cache and ``prefill-chunk:
    512``, three waves in turn over a shared ~1,100-token preamble (chunked
-   prefills, then prefix hits, then a repeated prompt);
+   prefills, then prefix hits, then a repeated prompt), printing the
+   (batch, T) of each multi-query call;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (dense, paged, int8 KV, and paged with the prefix cache, with chunked
@@ -75,18 +82,49 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2, graph: bool = False) -> float:
+    """Mean ms per call between CUDA events. ``graph``: the calls are
+    captured once in a CUDA graph and replayed, so the time is the card's
+    alone (a wrapper's host work between launches is left out; without it
+    a call shorter than its host work measures the host)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_by_kernel(torch, fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches (a split read and
+    its combine, say), from a torch.profiler capture of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1].split()[-1]
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / iters / 1e3
+    return {k: round(v, 4) for k, v in out.items()}
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -196,7 +234,8 @@ def phase_kernels(torch) -> dict:
                           case, kv_heads=Kh, head_dim=D, tol=tol)
         q, kp, vp, tables, lengths, nrb = case
         kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
-        ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))
+        ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw), graph=True)
+        eager_ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))
         plain_ms = cuda_ms(torch, lambda: paged_attention_reference(
             q, kp, vp, tables, lengths, **kw), iters=3, warmup=1)
         n_rows = int(lengths.clamp(max=nrb * spec["bs"]).sum())
@@ -209,13 +248,17 @@ def phase_kernels(torch) -> dict:
         flops = 4.0 * H * D * n_rows
         peak = BF16_FLOPS_PER_S if spec["dtype"] == torch.bfloat16 else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, peak)
-        spans = "int8 kernel" if spec["int8"] else f"spans={paged_read_splits(nrb, spec['bs'])}"
+        spans = f"spans={paged_read_splits(nrb, spec['bs'])}"
+        if spec["int8"]:  # the int8 read's products: mma.sync for bf16 q, FMAs for f32
+            spans += f" kernel={'mma' if spec['dtype'] == torch.bfloat16 else 'fma'}"
         print(f"kernel {name} [{label}] B={B} H={H} Kh={Kh} D={D} rows={n_rows} {spans}: "
-              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}) achieved={nbytes / ms / 1e6:.1f} GB/s",
+              f"max_abs_err={err:.3e} ms={ms:.4f} eager_ms={eager_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"achieved={nbytes / ms / 1e6:.1f} GB/s by_kernel="
+              f"{device_ms_by_kernel(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))}",
               flush=True)
         if label in ("bs64 bf16", "bs64 int8"):
-            rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            rows[name] = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # -- kernel 1: flash prefill ---------------------------------------------
@@ -239,12 +282,13 @@ def phase_kernels(torch) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         if not err <= tol:
             fail(f"flash_attention S={S} {label}: max abs error {err} > {tol}")
-        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+        ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True), graph=True)
+        eager_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
         plain_ms = cuda_ms(torch, lambda: flash_attention_reference(q, k, v, causal=True),
                            iters=2, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+            qt, kt, vt, is_causal=True, enable_gqa=True), graph=True)
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True).transpose(1, 2)
         lib_err = (lib_out.float() - want.float()).abs().max().item()
@@ -255,14 +299,15 @@ def phase_kernels(torch) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops, peak)
         print(f"kernel flash_attention [{label}] B={Bf} S={S} H={H} Kh={Kh} D={D} "
               f"kernel={flash_kernel_route(dtype, D)}: "
-              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"max_abs_err={err:.3e} ms={ms:.4f} eager_ms={eager_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (library err {lib_err:.2e}) "
               f"bound_ms={b_ms:.4f} ({b_by}) "
               f"achieved={flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         if S == 2048:
-            rows["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=b_ms, bound_by=b_by,
-                                           library_ms=library_ms)
+            rows["flash_attention"] = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                                           plain_ms=plain_ms, bound_ms=b_ms,
+                                           bound_by=b_by, library_ms=library_ms)
         del q, k, v, got, want, qt, kt, vt, lib_out
         torch.cuda.empty_cache()
     return rows
@@ -270,11 +315,11 @@ def phase_kernels(torch) -> dict:
 
 def phase_mq_kernel(torch) -> dict:
     """Kernel 4: the multi-query history read at Llama-3-8B width, B=8
-    slots with ragged history over shuffled tables, T=16 and the chunk's
-    T=512, bf16 and f32."""
+    slots with ragged history over shuffled tables, T=16, the prefix hits'
+    T=64 and the chunk's T=512, bf16 and f32."""
     from langstream_tpu_torch.ops.paged_attention import (
-        NEG_INF, merge_partial_attention, paged_attention_multiquery_partial,
-        paged_attention_multiquery_reference,
+        NEG_INF, _multiquery_plan, merge_partial_attention, multiquery_kernel_route,
+        paged_attention_multiquery_partial, paged_attention_multiquery_reference,
     )
 
     H, Kh, D, bs, B, max_len = 32, 8, 128, 64, 8, 2048
@@ -293,30 +338,34 @@ def phase_mq_kernel(torch) -> dict:
     n_rows = int(starts.sum())
     row = None
     for T, dtype, tol, label in ((16, torch.bfloat16, TOL_BF16, "bf16"),
+                                 (64, torch.bfloat16, TOL_BF16, "bf16"),
                                  (512, torch.bfloat16, TOL_BF16, "bf16"),
                                  (16, torch.float32, TOL_F32, "f32"),
+                                 (64, torch.float32, TOL_F32, "f32"),
                                  (512, torch.float32, TOL_F32, "f32")):
         q = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
         kp, vp = (torch.randn((nb, bs, Kh * D), generator=g).to(dtype).cuda()
                   for _ in range(2))
         args = (q, kp, vp, tables, starts_d)
         kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
-        got = paged_attention_multiquery_partial(*args, **kw)
+        route = multiquery_kernel_route(dtype, D)
         want = paged_attention_multiquery_reference(*args, **kw)
+        got = paged_attention_multiquery_partial(*args, **kw)
         torch.cuda.synchronize()
         acc, m, l = got
+        tag = f"paged_attention_multiquery T={T} {label}"
         if not (torch.isfinite(acc[1:]).all() and torch.isfinite(l[1:]).all()):
-            fail(f"paged_attention_multiquery T={T} {label}: non-finite partials")
+            fail(f"{tag}: non-finite partials")
         if not ((m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()):
-            fail(f"paged_attention_multiquery T={T} {label}: a starts == 0 slot "
-                 f"must give m=NEG_INF, l=0, acc=0")
+            fail(f"{tag}: a starts == 0 slot must give m=NEG_INF, l=0, acc=0")
         err = (merge_partial_attention([got]) - merge_partial_attention([want])
                ).abs().max().item()
         if not err <= tol:
-            fail(f"paged_attention_multiquery T={T} {label}: normalised max abs "
-                 f"error {err} > {tol}")
-        del got, want, acc, m, l
-        ms = cuda_ms(torch, lambda: paged_attention_multiquery_partial(*args, **kw))
+            fail(f"{tag}: normalised max abs error {err} > {tol}")
+        call = lambda: paged_attention_multiquery_partial(*args, **kw)  # noqa: E731
+        ms = cuda_ms(torch, call, graph=True)
+        eager_ms = cuda_ms(torch, call)
+        kept_wg, spans, _ = _multiquery_plan(B, T, H // Kh, Kh, nrb, bs)
         plain_ms = cuda_ms(torch, lambda: paged_attention_multiquery_reference(*args, **kw),
                            iters=2, warmup=1)
         elem = q.element_size()
@@ -326,15 +375,19 @@ def phase_mq_kernel(torch) -> dict:
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, peak)
         print(f"kernel paged_attention_multiquery [T={T} {label}] B={B} H={H} Kh={Kh} "
-              f"D={D} bs={bs} history_rows={n_rows}: max_abs_err={err:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"achieved={flops / ms / 1e9:.1f} TFLOP/s "
+              f"D={D} bs={bs} history_rows={n_rows} kernel={route} "
+              f"warpgroups={kept_wg if route == 'wgmma' else '-'} "
+              f"spans={spans if route == 'wgmma' else 1}: "
+              f"max_abs_err={err:.3e} "
+              f"ms={ms:.4f} eager_ms={eager_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) achieved={flops / ms / 1e9:.1f} TFLOP/s "
+              f"by_kernel={device_ms_by_kernel(torch, call)} "
               f"library_ms=none (no PyTorch call returns these partials from a "
               f"block table)", flush=True)
         if T == 512 and dtype == torch.bfloat16:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=None)
-        del q, kp, vp, args
+            row = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del q, kp, vp, args, want, got, acc, m, l
         torch.cuda.empty_cache()
     return {"paged_attention_multiquery": row}
 
@@ -408,10 +461,12 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
     busy = sum(by_name.values())
     span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
     # flash_fwd_wgmma_kernel (bf16) and flash_fwd_kernel (f32); the decode
-    # read's paged_decode_split_kernel + paged_decode_combine_kernel (bf16/
-    # f32 pools) and paged_decode_kernel (int8 pools)
+    # read's paged_decode_split_kernel (bf16/f32 pools) or
+    # paged_decode_split_q8_kernel (int8 pools) + paged_decode_combine_kernel;
+    # the multi-query read's paged_mq_wgmma_kernel + paged_mq_combine_kernel
+    # (bf16) or paged_mq_kernel (f32)
     groups = {"flash prefill (flash_fwd_*)": 0.0, "paged read (paged_decode_*)": 0.0,
-              "multi-query read (paged_mq_kernel)": 0.0, "gemm": 0.0,
+              "multi-query read (paged_mq_*)": 0.0, "gemm": 0.0,
               "memcpy/memset": 0.0, "other (elementwise, reductions)": 0.0}
     for name, us in by_name.items():
         low = name.lower()
@@ -419,8 +474,8 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
             groups["flash prefill (flash_fwd_*)"] += us
         elif "paged_decode_" in name:
             groups["paged read (paged_decode_*)"] += us
-        elif "paged_mq_kernel" in name:
-            groups["multi-query read (paged_mq_kernel)"] += us
+        elif "paged_mq_" in name:
+            groups["multi-query read (paged_mq_*)"] += us
         elif any(k in low for k in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
             groups["gemm"] += us
         elif "memcpy" in low or "memset" in low:
@@ -541,11 +596,28 @@ def phase_prefix_path(torch, label, cfg: dict, params):
         finally:
             await engine.close()
 
+    # which (batch, T) each continuation pass gives the multi-query read:
+    # a recorder around the model's call (the wrapper still counts launches)
+    from langstream_tpu_torch.models import llama_paged
+
+    real_mq, mq_calls = llama_paged.paged_attention_multiquery_partial, []
+
+    def recording_mq(q, *args, **kw):
+        mq_calls.append((q.shape[0], q.shape[1], kw["num_read_blocks"]))
+        return real_mq(q, *args, **kw)
+
+    llama_paged.paged_attention_multiquery_partial = recording_mq
     reset_counts()
     t0 = time.monotonic()
-    served = asyncio.run(run())
+    try:
+        served = asyncio.run(run())
+    finally:
+        llama_paged.paged_attention_multiquery_partial = real_mq
     wall = time.monotonic() - t0
     counts = read_counts()
+    layers = engine.model_config.layers
+    print(f"main path [{label}]: multi-query calls per continuation pass "
+          f"(B, T, num_read_blocks): {mq_calls[::layers]}", flush=True)
     stats = served[-1][2]
     for w, (results, _, _) in enumerate(served):
         for i, r in enumerate(results):
@@ -676,7 +748,7 @@ def main() -> int:
     _, q8_counts = phase_main_path(
         torch, "paged int8 KV",
         {**base, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False},
-        params=params,
+        params=params, profile=True,
     )
     if q8_counts["paged_attention_q8"] == 0 or q8_counts["flash_attention"] == 0:
         fail(f"int8-KV main path did not launch flash and q8 kernels: {q8_counts}")
@@ -715,8 +787,12 @@ def main() -> int:
         launches = sum(counts[name] for counts in paths)
         if launches == 0:
             fail(f"kernel {name} launched on no main path")
+        # ms: a replayed CUDA graph of the calls (the card's time alone);
+        # eager_ms: the same calls launched one by one (the wrapper's host
+        # work included, which is what the main path pays)
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches, **rows[name]})
+                        "replaces": replaces, "launches": launches,
+                        "timing": "cuda_graph", **rows[name]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

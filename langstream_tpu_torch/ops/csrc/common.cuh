@@ -1,5 +1,5 @@
 // Helpers shared by the port's kernels: the NaN-guard constant, float
-// conversions and the cp.async copies.
+// conversions, the cp.async copies and the partials' merge.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,12 +29,41 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                : "memory");
 }
 
+// 4-byte copy (through L1: .cg takes 16 bytes only); src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The combine's algebra for column d of one output row: merge the n
+// partials (acc, m, l) at rows row + s * stride (acc rows D wide) with the
+// NEG_INF guards of merge_partial_attention; n = 0 gives m = NEG_INF,
+// l = 0, acc = 0. Serves the span combines and the int8 read's warp merge.
+__device__ __forceinline__ void merge_partials(const float* acc_p, const float* m_p,
+                                               const float* l_p, size_t row, size_t stride,
+                                               int n, int D, int d, float& A, float& M,
+                                               float& L) {
+  M = NEG_INF;
+  for (int s = 0; s < n; ++s) M = fmaxf(M, m_p[row + s * stride]);
+  const float shift = (M <= NEG_INF) ? 0.f : M;
+  A = 0.f;
+  L = 0.f;
+  for (int s = 0; s < n; ++s) {
+    const size_t r = row + s * stride;
+    const float ms = m_p[r];
+    const float w = (ms <= NEG_INF) ? 0.f : expf(ms - shift);
+    L += l_p[r] * w;
+    A += acc_p[r * D + d] * w;
+  }
 }
 
 }  // namespace ls

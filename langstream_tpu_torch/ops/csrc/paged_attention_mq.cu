@@ -20,20 +20,44 @@
 // card's bf16 balance point is 989e12 / 3.35e12 = 295 operations per byte,
 // so at Llama-3-8B (G = 4) a decode-sized suffix (T = 16: 64 per byte) is
 // bound by bytes, and a chunk-sized one (T = 512: 2048 per byte) by
-// operations; the crossover is T near 74. This first kernel does its two
-// products with f32 FMAs from shared memory, far from the tensor-core rate:
-// tensor cores (mma.sync / wgmma) and cp.async double buffering are later
-// work.
+// operations; the crossover is T near 74. Two kernels, chosen by the caller
+// (`kernel`, multiquery_kernel_route in the wrapper):
 //
-// Design: grid (B, Kh, ceil(T / TQ)), 256 threads. A CTA owns R = 64 query
-// rows of one (slot, KV head): TQ = 64 / G query positions times the G
-// heads that share the KV head (16 x 4 at Llama-3-8B). It walks only the
-// ceil(starts[b] / 32) history tiles of 32 rows the slot holds, looking
-// each row's block up in the table itself, so a short or empty history
-// costs what it holds and any block size works. Per tile: K and V are
-// widened to f32 in shared memory (K with a padded stride); each warp owns
-// 8 query rows and each lane one history row, so the scores stay in
-// registers through the warp's max/sum shuffles; then each thread adds
+// paged_mq_wgmma_kernel (bfloat16, D in {64, 128}; what the served models
+// run): both products on the tensor cores, as in flash_attention.cu and
+// with its helpers (wgmma.cuh). A warpgroup owns 64 query rows of one
+// (slot, KV head): 64/G positions times the G heads that share the KV head,
+// row R being position R / G, head kh*G + R % G, so the tile is runs of G*D
+// contiguous bf16, loaded once into the 128-byte-swizzled layout; a CTA has
+// `warpgroups` (1 or 3) of them. The history comes in 64-row K/V tiles
+// through a two-stage cp.async ring with the same swizzle: the span's block
+// ids are read into shared memory once, each row is looked up through them
+// (any block size) and rows at or past starts[b] are zero-filled. S = Q.K^T
+// is an m64n64k16 wgmma from shared memory; the online softmax runs on its
+// f32 fragments with the uniform mask (only the ragged last tile has masked
+// columns, whose p is exactly 0); P is rounded to bf16 in registers (the
+// Pallas kernel's p.astype(v.dtype)) and fed as the A operand of O += P.V
+// (V read MN-major). A decode- or hit-sized suffix (T*G <= 256) runs one
+// warpgroup per CTA (more, smaller CTAs), a chunk three (each K/V tile
+// serves 192 query rows). When the grid is small (B * Kh * ceil(T*G /
+// (64*warpgroups)) CTAs under the card's 132 SMs, at most four query
+// tiles per (slot, KV head)), the history is split in
+// n_split spans of span_rows rows across CTAs, as the decode read does:
+// dead spans exit at once and paged_mq_combine_kernel merges the
+// ceil(min(starts, window) / span_rows) live ones. n_split and span_rows
+// come from the host's ints (multiquery_read_splits in the wrapper); a
+// chunk-sized suffix (T = 512) already fills the card and is never split.
+//
+// paged_mq_kernel (float32, and D = 16): the first port, f32 FMA tiles. A
+// TF32 product would miss the f32 tolerance (1e-4) and the card-vs-CPU
+// greedy identity of the tiny f32 engine, so f32 stays here. Grid (B, Kh,
+// ceil(T / TQ)), 256 threads. A CTA owns R = 64 query rows of one (slot, KV
+// head): TQ = 64 / G query positions times the G heads that share the KV
+// head. It walks only the ceil(starts[b] / 32) history tiles of 32 rows the
+// slot holds, looking each row's block up in the table itself. Per tile: K
+// and V are widened to f32 in shared memory (K with a padded stride); each
+// warp owns 8 query rows and each lane one history row, so the scores stay
+// in registers through the warp's max/sum shuffles; then each thread adds
 // its 64*D/256 output accumulators (registers) from the probability tile.
 // Query rows at or past T are masked: warps whose rows all lie past T skip
 // the tile, and nothing is written for such rows. About 75 KB of shared
@@ -42,6 +66,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -281,25 +308,332 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
 
 }  // namespace
 
+namespace tc {
+
+using namespace wg;  // swz, desc, the fences and the wgmma products
+
+constexpr int BN = 64;  // history rows per K/V tile
+constexpr float NEG_INF = ls::NEG_INF;
+
+template <int D, int NWG>
+size_t smem_bytes(int max_blk) {
+  // alignment, Q, 2 x (K, V), the span's block ids
+  return 1024 + size_t(64 * NWG) * D * 2 + 4 * size_t(BN) * D * 2 + sizeof(int) * max_blk;
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+paged_mq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ kp,
+                      const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
+                      const int* __restrict__ starts, float* __restrict__ acc_out,
+                      float* __restrict__ m_out, float* __restrict__ l_out, int Tq, int H,
+                      int Kh, int bs, int max_blocks, int nrb, int n_split, int span_rows,
+                      float scale, float scale_log2) {
+  static_assert(D == 64 || D == 128, "the tensor-core read takes D in {64, 128}");
+  constexpr int BM = 64 * NWG;  // query rows per CTA
+  constexpr int NT = 128 * NWG;
+  constexpr uint32_t Q_BYTES = BM * D * 2;
+  constexpr uint32_t KV_BYTES = BN * D * 2;
+  constexpr int CPR = D / 8;      // 16-byte chunks per row
+  constexpr int RPP = NT / CPR;   // rows per copy pass
+  static_assert(NT % CPR == 0 && RPP % 8 == 0, "passes must keep the swizzle phase");
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle repeats every 1024 bytes: align the tiles to it
+  uint8_t* sm = smem_raw + ((1024 - (ls::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = sm;
+  uint8_t* Ks = sm + Q_BYTES;       // 2 stages
+  uint8_t* Vs = Ks + 2 * KV_BYTES;  // 2 stages
+  int* blk = reinterpret_cast<int*>(Vs + 2 * KV_BYTES);  // the span's block ids
+
+  const int qt = blockIdx.x;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z / n_split;
+  const int split = blockIdx.z % n_split;
+  const int G = H / Kh;
+  const int n_qrows = Tq * G;  // query rows of this (slot, KV head): row R = (t, g)
+  const int start = max(0, min(starts[b], nrb * bs));
+  const int r0 = split * span_rows;
+  if (split > 0 && r0 >= start) return;  // a dead span: the combine reads live ones only
+  const int nrows = max(0, min(span_rows, start - r0));
+  const int n_kt = (nrows + BN - 1) / BN;
+  const int tid = threadIdx.x;
+  const int wgi = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int q0w = qt * BM + wgi * 64;              // this warpgroup's first query row
+  const int row0 = q0w + warp * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const bool wg_live = q0w < n_qrows;
+  const int cc = tid % CPR;  // the copies: chunk column cc of rows rq + j * RPP
+  const int rq = tid / CPR;
+  const uint32_t KhD = (uint32_t)Kh * D;
+
+  const int blk0 = r0 / bs;
+  const int n_blk = nrows > 0 ? (r0 + nrows - 1) / bs - blk0 + 1 : 0;
+  for (int i = tid; i < n_blk; i += NT) blk[i] = tables[(size_t)b * max_blocks + blk0 + i];
+
+  // Q: row R of the tile is position R / G, head kh * G + R % G, so the tile
+  // is runs of G * D contiguous elements; rows past T * G are zero-filled
+#pragma unroll
+  for (int j = 0; j < (BM + RPP - 1) / RPP; ++j) {
+    const int r = rq + j * RPP;
+    if (BM % RPP != 0 && r >= BM) break;
+    const int R = qt * BM + r;
+    const bool ok = R < n_qrows;
+    const int t = R / G;
+    const uint32_t off = ((uint32_t)(b * Tq + t) * H + kh * G + (R - t * G)) * D + cc * 8;
+    ls::cp_async16(Qs + swz<BM>(r, cc), q + (ok ? off : 0), ok ? 16 : 0);
+  }
+  __syncthreads();  // the block ids are in
+
+  // history rows [kt * BN, kt * BN + BN) of the span, looked up row by row
+  // through the block ids (any block size), zero-filled at or past nrows
+  auto load_kv = [&](int kt) {
+    uint8_t* kd = Ks + (kt & 1) * KV_BYTES + swz<BN>(rq, cc);
+    uint8_t* vd = Vs + (kt & 1) * KV_BYTES + swz<BN>(rq, cc);
+    const int i0 = kt * BN + rq;  // span row of this thread's first row
+    int bi = (r0 + i0) / bs;
+    int in = r0 + i0 - bi * bs;
+#pragma unroll
+    for (int j = 0; j < (BN + RPP - 1) / RPP; ++j) {
+      if (BN % RPP != 0 && rq + j * RPP >= BN) break;
+      const bool ok = i0 + j * RPP < nrows;
+      const uint32_t off = ok ? ((uint32_t)blk[bi - blk0] * bs + in) * KhD + kh * D + cc * 8 : 0;
+      ls::cp_async16(kd + j * RPP * 128, kp + off, ok ? 16 : 0);
+      ls::cp_async16(vd + j * RPP * 128, vp + off, ok ? 16 : 0);
+      in += RPP;
+      while (in >= bs) {
+        in -= bs;
+        ++bi;
+      }
+    }
+  };
+  if (n_kt > 0) load_kv(0);
+  ls::cp_async_commit();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};  // in unscaled score units (the scale is positive)
+  float l_r[2] = {0.f, 0.f};  // this thread's columns only; summed over the quad at the end
+  const uint32_t q_base = ls::smem_u32(Qs) + wgi * 64 * 128;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1;
+    ls::cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // tile kt is in for every thread; tile kt-1's readers are done
+    if (kt + 1 < n_kt) {
+      load_kv(kt + 1);
+      ls::cp_async_commit();
+    }
+    if (!wg_live) continue;
+    const uint32_t k_base = ls::smem_u32(Ks + st * KV_BYTES);
+    const uint32_t v_base = ls::smem_u32(Vs + st * KV_BYTES);
+
+    // S = Q . K^T: D/16 steps of k16 (32 bytes inside a 128-byte row, then the next slab)
+    float s[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t qo = (kk >> 2) * (BM * 128) + (kk & 3) * 32;
+      const uint32_t ko = (kk >> 2) * (BN * 128) + (kk & 3) * 32;
+      wgmma_ss(s, desc(q_base + qo, 16, 1024), desc(k_base + ko, 16, 1024), kk > 0 ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // the mask col < starts is the same for every query row: only the
+    // ragged last tile has masked columns
+    if (kt * BN + BN > nrows) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (kt * BN + 8 * j + 2 * (lane & 3) + (e & 1) >= nrows) s[4 * j + e] = NEG_INF;
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    float shift[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      shift[r] = (m_new <= NEG_INF) ? 0.f : m_new * scale_log2;
+      alpha[r] = (m_r[r] <= NEG_INF) ? 0.f : exp2f(m_r[r] * scale_log2 - shift[r]);
+      m_r[r] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a masked score is NEG_INF and shift is finite: p is exactly 0
+        const float p = exp2f(fmaf(s[4 * j + e], scale_log2, -shift[e >> 1]));
+        psum[e >> 1] += p;
+        s[4 * j + e] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + psum[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
+
+    // P in bf16 (the Pallas kernel's p.astype(v.dtype)) as the A fragments
+    // of k16 step kk: history rows 16kk..16kk+15
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P . V: 16 rows (two 8-row groups, 2048 bytes) per step, V MN-major
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs(acc, pa[kk], desc(v_base + kk * 2048, BN * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+
+  ls::cp_async_wait<0>();  // no copy outlives the CTA (the Q tile of an empty span)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  if (!wg_live) return;
+  // the UNNORMALISED partials of rows (t, g) < (T, G); m in natural units
+  const size_t out_t0 = (size_t)(b * n_split + split) * Tq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int R = row0 + 8 * r;
+    if (R >= n_qrows) continue;
+    const int t = R / G;
+    const size_t o = (out_t0 + t) * H + (size_t)kh * G + (R - t * G);
+    float* dst = acc_out + o * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    if ((lane & 3) == 0) {
+      m_out[o] = (m_r[r] <= NEG_INF) ? NEG_INF : m_r[r] * scale;
+      l_out[o] = l_r[r];
+    }
+  }
+}
+
+// Merges the live spans of slot b, query row th = t * H + h: grid (T*H, B),
+// D threads; the algebra of paged_decode_combine_kernel with span_rows.
+__global__ void paged_mq_combine_kernel(const float* __restrict__ acc_p,
+                                        const float* __restrict__ m_p,
+                                        const float* __restrict__ l_p,
+                                        const int* __restrict__ starts,
+                                        float* __restrict__ acc, float* __restrict__ m,
+                                        float* __restrict__ l, int TH, int D, int n_split,
+                                        int max_rows, int span_rows) {
+  const int th = blockIdx.x;
+  const int b = blockIdx.y;
+  const int d = threadIdx.x;
+  const int start = max(0, min(starts[b], max_rows));
+  float A, M, L;  // span s of (b, th) is row (b * n_split + s) * TH + th
+  ls::merge_partials(acc_p, m_p, l_p, (size_t)b * n_split * TH + th, TH,
+                     (start + span_rows - 1) / span_rows, D, d, A, M, L);
+  acc[((size_t)b * TH + th) * D + d] = A;
+  if (d == 0) {
+    m[(size_t)b * TH + th] = M;
+    l[(size_t)b * TH + th] = L;
+  }
+}
+
+template <int D, int NWG>
+int launch(const void* q, const void* kp, const void* vp, const void* tables,
+           const void* starts, void* acc, void* m, void* l, void* acc_p, void* m_p,
+           void* l_p, int B, int Tq, int H, int Kh, int bs, int max_blocks, int nrb,
+           int n_split, int span_rows, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D, NWG>((span_rows + bs - 1) / bs + 1);
+  auto kernel = paged_mq_wgmma_kernel<D, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (Tq * (H / Kh) + 64 * NWG - 1) / (64 * NWG);
+  const bool direct = n_split == 1;
+  kernel<<<dim3(n_qt, Kh, B * n_split), 128 * NWG, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables),
+      static_cast<const int*>(starts), static_cast<float*>(direct ? acc : acc_p),
+      static_cast<float*>(direct ? m : m_p), static_cast<float*>(direct ? l : l_p), Tq, H,
+      Kh, bs, max_blocks, nrb, n_split, span_rows, scale, scale * 1.4426950408889634f);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || direct) return (int)err;
+  paged_mq_combine_kernel<<<dim3(Tq * H, B), D, 0, stream>>>(
+      static_cast<const float*>(acc_p), static_cast<const float*>(m_p),
+      static_cast<const float*>(l_p), static_cast<const int*>(starts),
+      static_cast<float*>(acc), static_cast<float*>(m), static_cast<float*>(l), Tq * H, D,
+      n_split, nrb * bs, span_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 // q (B,T,H,D), pools (nb,bs,Kh*D) in q's dtype (0 = float32, 1 = bfloat16),
 // tables (B,max_blocks) int32, starts (B,) int32. G = H/Kh must divide 64.
-// Returns cudaGetLastError() after the launch (0 = success); unsupported
-// shapes return -1.
+// kernel: 0 = the FMA tiles (float32, and bfloat16 at D = 16; n_split must
+// be 1), 1 = the tensor cores (bfloat16 at D in {64, 128}; `warpgroups` 1
+// or 3 per CTA; q and pools under 2^31 elements, which the wrapper
+// checks). The history is read in n_split spans of span_rows rows (a
+// multiple of 64 that covers the window nrb*bs in n_split spans); with
+// n_split > 1, acc_part/m_part/l_part are (B, n_split, T, H, D) and (B,
+// n_split, T, H) f32 scratch that a combine launch merges. Returns
+// cudaGetLastError() after the launches (0 = success); unsupported
+// arguments return -1.
 extern "C" int paged_attention_mq_partial_fwd(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* starts, void* acc, void* m, void* l, int B, int Tq, int H,
-    int Kh, int D, int bs, int max_blocks, int nrb, int dtype, float scale,
+    const void* starts, void* acc, void* m, void* l, void* acc_part, void* m_part,
+    void* l_part, int B, int Tq, int H, int Kh, int D, int bs, int max_blocks, int nrb,
+    int n_split, int span_rows, int dtype, int kernel, int warpgroups, float scale,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Kh <= 0 || H % Kh != 0 || R % (H / Kh) != 0 || B <= 0 || Tq <= 0) return -1;
+  if (Kh <= 0 || H % Kh != 0 || R % (H / Kh) != 0 || B <= 0 || Tq <= 0 || n_split < 1)
+    return -1;
+  if (kernel == 1) {
+    const int window = nrb * bs;
+    if (dtype != 1 || span_rows <= 0 || span_rows % tc::BN != 0 ||
+        (long long)span_rows * n_split < window ||
+        (long long)span_rows * (n_split - 1) >= window || (long long)B * n_split > 65535)
+      return -1;
+#define LAUNCH(DD, NWG)                                                                  \
+  return tc::launch<DD, NWG>(q, k_pool, v_pool, tables, starts, acc, m, l, acc_part,      \
+                             m_part, l_part, B, Tq, H, Kh, bs, max_blocks, nrb, n_split, \
+                             span_rows, scale, s)
+    if (D == 128 && warpgroups == 1) LAUNCH(128, 1);
+    if (D == 128 && warpgroups == 3) LAUNCH(128, 3);
+    if (D == 64 && warpgroups == 1) LAUNCH(64, 1);
+    if (D == 64 && warpgroups == 3) LAUNCH(64, 3);
+#undef LAUNCH
+    return -1;
+  }
+  if (kernel != 0 || n_split != 1) return -1;
 #define LAUNCH(TT, DD)                                                       \
   return launch<TT, DD>(q, k_pool, v_pool, tables, starts, acc, m, l, B, Tq, \
                         H, Kh, bs, max_blocks, nrb, scale, s)
   if (dtype == 0 && D == 128) LAUNCH(float, 128);
   if (dtype == 0 && D == 64) LAUNCH(float, 64);
   if (dtype == 0 && D == 16) LAUNCH(float, 16);
-  if (dtype == 1 && D == 128) LAUNCH(__nv_bfloat16, 128);
-  if (dtype == 1 && D == 64) LAUNCH(__nv_bfloat16, 64);
   if (dtype == 1 && D == 16) LAUNCH(__nv_bfloat16, 16);
 #undef LAUNCH
   return -1;

@@ -7,19 +7,22 @@ one segment; the caller merges them with :func:`merge_partial_attention`.
 
 - :func:`paged_attention_partial`: one decode query per slot over its
   cache rows (the other segment is the in-chunk buffer). For tensors on
-  the card it launches the kernels of ``csrc/paged_attention.cu`` — for a
-  plain bf16/f32 pool the split read (each CTA one span of
-  :data:`SPLIT_ROWS` rows, then a combine of the spans; see
-  :func:`paged_attention_split_reference`), for an ``{"q","s"}`` int8 pool
-  the int8 kernel; for tensors on the CPU it takes
+  the card it launches the kernels of ``csrc/paged_attention.cu``: the
+  split read (each CTA one span of :data:`SPLIT_ROWS` rows, then a combine
+  of the spans; see :func:`paged_attention_split_reference`), in the
+  pool's own type for a bf16/f32 pool and widening each int8 element once
+  for an ``{"q","s"}`` int8 pool (``mma.sync`` products for bf16 queries,
+  f32 FMAs for f32 ones); for tensors on the CPU it takes
   :func:`paged_attention_reference` (the JAX package's
   ``_cache_partial_xla``).
 - :func:`paged_attention_multiquery_partial`: T suffix queries per slot
   over the slot's history rows (the continuation prefill; the other
-  segment is the suffix itself). The kernel of
-  ``csrc/paged_attention_mq.cu`` on the card,
-  :func:`paged_attention_multiquery_reference` on the CPU; bf16/f32 pools
-  only, as in the JAX package.
+  segment is the suffix itself). The kernels of
+  ``csrc/paged_attention_mq.cu`` on the card (:func:`multiquery_kernel_route`:
+  the tensor cores for bf16 at head_dim 64/128, the history split across
+  CTAs when the grid is small, :func:`multiquery_read_splits`; f32 FMA tiles
+  otherwise), :func:`paged_attention_multiquery_reference` on the CPU;
+  bf16/f32 pools only, as in the JAX package.
 
 Shapes (one layer):
   q             (B, H, D), or (B, T, H, D) for the multi-query read
@@ -45,15 +48,24 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 #: 128 and 64 are the served models' widths; 16 is the tiny test model's
 HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the int8 kernel keeps G*D accumulators over 128 threads, at most 8 each
-_MAX_GROUP_WIDTH = 1024
-#: the split read gives each of its 4 warps at most 2 query heads
+#: query heads per KV head the decode reads take (the bf16/f32 read gives
+#: each of its 4 warps at most 2 heads, the int8 read keeps at most 8)
 _MAX_GROUP = 8
-#: cache rows one CTA of the bf16/f32 decode read walks (SPLIT_ROWS of the
-#: CUDA source; the entry point refuses any other value)
+#: cache rows one CTA of the decode reads walks (SPLIT_ROWS of the CUDA
+#: source; the entry points refuse any other value)
 SPLIT_ROWS = 256
-#: query rows per CTA of the multi-query kernel: (64 / G) positions x G heads
+#: query rows per warpgroup (wgmma kernel) or CTA (FMA kernel) of the
+#: multi-query read: (64 / G) positions x G heads
 _MQ_ROWS = 64
+#: warpgroups per CTA of the multi-query wgmma kernel (1 or 3): one for a
+#: suffix of at most _MQ_SMALL_ROWS query rows (decode- and hit-sized: more,
+#: smaller CTAs), else _MQ_WARPGROUPS (a chunk: each K/V tile serves 192 rows)
+_MQ_WARPGROUPS = 3
+_MQ_SMALL_ROWS = 4 * _MQ_ROWS
+#: history rows per K/V tile of the multi-query wgmma kernel (BN of the source)
+_MQ_TILE = 64
+#: streaming multiprocessors of the H100 SXM the split rule fills
+_SMS = 132
 
 
 def _lib_mq() -> ctypes.CDLL:
@@ -61,7 +73,7 @@ def _lib_mq() -> ctypes.CDLL:
     fn = lib.paged_attention_mq_partial_fwd
     if fn.argtypes is None:
         fn.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -78,7 +90,7 @@ def _lib() -> ctypes.CDLL:
         )
         fn.restype = ctypes.c_int
         fn8.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn8.restype = ctypes.c_int
@@ -170,18 +182,20 @@ def paged_read_splits(num_read_blocks: int, block_size: int,
 
 def combine_split_partials(acc, m, l, lengths, *, window: int,
                            split_rows: int = SPLIT_ROWS):
-    """The combine kernel's algebra: merge the span partials
-    ``acc (B,n,H,D), m (B,n,H), l (B,n,H)`` of each slot over its
-    ``ceil(min(length, window) / split_rows)`` live spans only (the kernel
-    never writes the others), with the NEG_INF guards of
+    """The combine kernels' algebra: merge the span partials
+    ``acc (B,n,...,H,D), m (B,n,...,H), l (B,n,...,H)`` of each slot over
+    its ``ceil(min(length, window) / split_rows)`` live spans only (the
+    kernel never writes the others), with the NEG_INF guards of
     :func:`merge_partial_attention`; no live span gives m = NEG_INF, l = 0,
-    acc = 0."""
+    acc = 0. The trailing axes are the decode read's ``H`` or the
+    multi-query read's ``T, H``."""
     n = m.shape[1]
     rows = lengths.to(torch.long).clamp(0, window)
     live = (torch.arange(n, device=m.device)[None, :]
-            < (-(-rows // split_rows))[:, None])[..., None]           # (B, n, 1)
+            < (-(-rows // split_rows))[:, None])                       # (B, n)
+    live = live.reshape(live.shape + (1,) * (m.dim() - 2))            # (B, n, 1, ...)
     m_live = torch.where(live, m, torch.full_like(m, NEG_INF))
-    M = m_live.amax(dim=1)                                            # (B, H)
+    M = m_live.amax(dim=1)                                            # (B, ..., H)
     shift = torch.where(M <= NEG_INF, torch.zeros_like(M), M)
     w = torch.where(live & (m > NEG_INF), torch.exp(m_live - shift[:, None]),
                     torch.zeros_like(m))
@@ -226,6 +240,22 @@ def paged_attention_split_reference(
 # ---------------------------------------------------------------------------
 
 
+def _partial_outputs(B, H, D, dev, lead=()):
+    """Empty f32 ``acc (B, *lead, H, D), m, l (B, *lead, H)``."""
+    return (torch.empty((B, *lead, H, D), dtype=torch.float32, device=dev),
+            torch.empty((B, *lead, H), dtype=torch.float32, device=dev),
+            torch.empty((B, *lead, H), dtype=torch.float32, device=dev))
+
+
+def _split_scratch(n_split, shape, dev, outputs):
+    """Span partials ``(B, n_split, ..., H[, D])`` the combine launch merges;
+    with one span the kernel writes ``outputs`` itself."""
+    if n_split == 1:
+        return outputs
+    B, *rest = shape
+    return _partial_outputs(B, rest[-2], rest[-1], dev, (n_split, *rest[:-2]))
+
+
 def _check_common(q, tables, lengths, pool, kv_heads, head_dim, num_read_blocks):
     dev = q.device
     if q.dim() != 3 or not q.is_contiguous() or q.dtype not in _DTYPE_CODES:
@@ -236,10 +266,10 @@ def _check_common(q, tables, lengths, pool, kv_heads, head_dim, num_read_blocks)
     B, H, D = q.shape
     if D != head_dim or D not in HEAD_DIMS:
         raise ValueError(f"paged_attention: head_dim {D} (want one of {HEAD_DIMS})")
-    if H % kv_heads or (H // kv_heads) * D > _MAX_GROUP_WIDTH:
+    if H % kv_heads or H // kv_heads > _MAX_GROUP:
         raise ValueError(
-            f"paged_attention: {H} heads on {kv_heads} kv heads with head_dim "
-            f"{D} (group width G*D must be <= {_MAX_GROUP_WIDTH})"
+            f"paged_attention: {H} heads on {kv_heads} kv heads (the reads take "
+            f"at most {_MAX_GROUP} query heads per kv head)"
         )
     for name, t in (("block_tables", tables), ("lengths", lengths)):
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
@@ -306,25 +336,12 @@ def paged_attention_partial(
     if k_pool.shape != v_pool.shape:
         raise ValueError("paged_attention: k and v pools differ in shape")
     B, H, D = q.shape
-    if H // kv_heads > _MAX_GROUP:
-        raise ValueError(
-            f"paged_attention: {H // kv_heads} query heads per kv head; the "
-            f"split read takes at most {_MAX_GROUP}"
-        )
-    dev = q.device
-    acc = torch.empty((B, H, D), dtype=torch.float32, device=dev)
-    m = torch.empty((B, H), dtype=torch.float32, device=dev)
-    l = torch.empty((B, H), dtype=torch.float32, device=dev)
+    acc, m, l = _partial_outputs(B, H, D, q.device)
     if B == 0:
         return acc, m, l
     bs = k_pool.shape[1]
     n_split = paged_read_splits(num_read_blocks, bs)
-    if n_split > 1:  # span partials, merged by the combine launch
-        parts = (torch.empty((B, n_split, H, D), dtype=torch.float32, device=dev),
-                 torch.empty((B, n_split, H), dtype=torch.float32, device=dev),
-                 torch.empty((B, n_split, H), dtype=torch.float32, device=dev))
-    else:  # one span writes the outputs itself
-        parts = (acc, m, l)
+    parts = _split_scratch(n_split, (B, H, D), q.device, (acc, m, l))
     rc = _lib().paged_attention_partial_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(),
@@ -346,8 +363,10 @@ def _paged_attention_partial_q8(
     num_read_blocks: int, kv_heads: int, head_dim: int,
     scale: float | None = None,
 ):
-    """int8-pool twin of :func:`paged_attention_partial` (fused dequant in
-    the kernel: k scale on the score, v scale folded into p)."""
+    """int8-pool twin of :func:`paged_attention_partial`: the int8 split
+    read (fused dequant: k scale on the score, v scale folded into p; bf16
+    queries through ``mma.sync``, f32 ones through FMAs), then the same
+    combine launch when the window holds more than one span."""
     if not q.is_cuda:
         return paged_attention_reference(
             q, k_pool, v_pool, block_tables, lengths,
@@ -365,19 +384,23 @@ def _paged_attention_partial_q8(
                 "paged_attention_q8: pool must be {'q': int8 (nb,bs,Kh*D), "
                 "'s': contiguous float32 (nb,bs,Kh)} on q's device"
             )
+    if k_pool["q"].shape != v_pool["q"].shape:
+        raise ValueError("paged_attention_q8: k and v pools differ in shape")
     B, H, D = q.shape
-    acc = torch.empty((B, H, D), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    acc, m, l = _partial_outputs(B, H, D, q.device)
     if B == 0:
         return acc, m, l
+    bs = k_pool["q"].shape[1]
+    n_split = paged_read_splits(num_read_blocks, bs)
+    parts = _split_scratch(n_split, (B, H, D), q.device, (acc, m, l))
     rc = _lib().paged_attention_partial_q8_fwd(
         q.data_ptr(), k_pool["q"].data_ptr(), k_pool["s"].data_ptr(),
         v_pool["q"].data_ptr(), v_pool["s"].data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, H, kv_heads, D, k_pool["q"].shape[1], block_tables.shape[1],
-        num_read_blocks, _DTYPE_CODES[q.dtype],
+        *(t.data_ptr() for t in parts),
+        B, H, kv_heads, D, bs, block_tables.shape[1],
+        num_read_blocks, n_split, SPLIT_ROWS, _DTYPE_CODES[q.dtype],
         1.0 / math.sqrt(D) if scale is None else scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -392,20 +415,48 @@ def _paged_attention_partial_q8(
 # ---------------------------------------------------------------------------
 
 
-def paged_attention_multiquery_reference(
-    q, k_pool, v_pool, block_tables, starts, *,
-    num_read_blocks: int, kv_heads: int, head_dim: int,
-    scale: float | None = None,
-):
-    """Plain version of the multi-query kernel: gather the window densely
-    and compute the partials in f32, as the kernel does (scores scaled by
-    ``scale``, masked at ``col >= starts[b]`` for every query row, the
-    NEG_INF guards of the decode read)."""
+def multiquery_kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel the multi-query read launches on the card: ``"wgmma"``
+    (tensor cores) for bf16 at head_dim 64/128, ``"fma"`` (f32 FMA tiles)
+    for float32, where TF32 would miss the 1e-4 tolerance, and for the tiny
+    head_dim 16."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim in (64, 128) else "fma"
+
+
+def _multiquery_plan(batch: int, t: int, group: int, kv_heads: int,
+                     num_read_blocks: int, block_size: int) -> tuple[int, int, int]:
+    """``(warpgroups, n_split, span_rows)`` of the wgmma multi-query read:
+    one span of the whole window unless the grid is under one CTA per SM
+    and each (slot, KV head) has at most four query tiles (decode- and
+    hit-sized suffixes), then enough spans of whole 64-row tiles for about
+    two CTAs per SM."""
+    rows = t * group
+    wg = 1 if rows <= _MQ_SMALL_ROWS else _MQ_WARPGROUPS
+    window = num_read_blocks * block_size
+    tiles = max(1, -(-window // _MQ_TILE))
+    q_tiles = -(-rows // (_MQ_ROWS * wg))
+    ctas = batch * kv_heads * q_tiles
+    n = 1
+    if ctas < _SMS and q_tiles <= 4:
+        n = min(-(-2 * _SMS // max(ctas, 1)), tiles)
+    span = -(-tiles // n) * _MQ_TILE
+    return wg, max(1, -(-window // span)), span
+
+
+def multiquery_read_splits(batch: int, t: int, group: int, kv_heads: int,
+                           num_read_blocks: int, block_size: int) -> int:
+    """Spans the wgmma multi-query read splits each slot's history into:
+    from the host's ints, so no device value is read. 1 whenever the
+    unsplit grid fills the card's 132 SMs, for a suffix of more than four
+    query tiles (a 512-token chunk) and when the window is one 64-row
+    tile."""
+    return _multiquery_plan(batch, t, group, kv_heads, num_read_blocks, block_size)[1]
+
+
+def _multiquery_window_partials(q, kw, vw, starts, *, kv_heads, head_dim, scale):
+    """Partials of T queries per slot over a dense window ``kw``/``vw``
+    (B, W, Kh, D), rows ``< starts`` for every query, in f32."""
     B, T, H, D = q.shape
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
-    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
     W = kw.shape[1]
     G = H // kv_heads
     qg = q.reshape(B, T, kv_heads, G, head_dim).to(torch.float32)
@@ -425,6 +476,53 @@ def paged_attention_multiquery_reference(
         m.permute(0, 3, 1, 2).reshape(B, T, H),
         l.permute(0, 3, 1, 2).reshape(B, T, H),
     )
+
+
+def paged_attention_multiquery_reference(
+    q, k_pool, v_pool, block_tables, starts, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None,
+):
+    """Plain version of the multi-query kernels: gather the window densely
+    and compute the partials in f32 (scores scaled by ``scale``, masked at
+    ``col >= starts[b]`` for every query row, the NEG_INF guards of the
+    decode read)."""
+    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    return _multiquery_window_partials(
+        q, kw, vw, starts, kv_heads=kv_heads, head_dim=head_dim,
+        scale=1.0 / math.sqrt(q.shape[-1]) if scale is None else scale)
+
+
+def paged_attention_multiquery_split_reference(
+    q, k_pool, v_pool, block_tables, starts, *,
+    num_read_blocks: int, kv_heads: int, head_dim: int,
+    scale: float | None = None, span_rows: int | None = None,
+):
+    """Plain version of the split multi-query read, span by span: the
+    partials of each ``span_rows`` rows of the window as
+    :func:`paged_attention_multiquery_reference` computes them, merged by
+    :func:`combine_split_partials`. ``span_rows=None`` takes the wgmma
+    kernel's own spans for these shapes. Equal to the unsplit read up to
+    rounding."""
+    B, T, H, D = q.shape
+    if span_rows is None:
+        _, _, span_rows = _multiquery_plan(B, T, H // kv_heads, kv_heads,
+                                           num_read_blocks, k_pool.shape[1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    kw = _gather_layer_window(k_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    vw = _gather_layer_window(v_pool, block_tables, num_read_blocks, kv_heads, head_dim)
+    window = kw.shape[1]
+    parts = []
+    for lo in range(0, window, span_rows):
+        span_len = (starts.to(torch.long) - lo).clamp(0, span_rows)
+        parts.append(_multiquery_window_partials(
+            q, kw[:, lo:lo + span_rows], vw[:, lo:lo + span_rows], span_len,
+            kv_heads=kv_heads, head_dim=head_dim, scale=scale))
+    acc, m, l = (torch.stack(t, dim=1) for t in zip(*parts))
+    return combine_split_partials(acc, m, l, starts, window=window,
+                                  split_rows=span_rows)
 
 
 def paged_attention_multiquery_partial(
@@ -447,9 +545,11 @@ def paged_attention_multiquery_partial(
     Returns ``(acc (B,T,H,D) f32, m (B,T,H) f32, l (B,T,H) f32)``; a slot
     with ``starts == 0`` gives ``m = NEG_INF, l = 0, acc = 0``. ``t_block``
     keeps the JAX signature; in the JAX package it is the query tile and T
-    must be a multiple of it. Here T may be anything: the kernel's own
-    query tile is ``64 / G`` positions (16 at Llama-3-8B) and it masks the
-    ragged edge itself, so ``t_block`` is only checked to be positive.
+    must be a multiple of it. Here T may be anything: the kernels' own
+    query tile is ``64 / G`` positions (16 at Llama-3-8B) per warpgroup or
+    CTA and they mask the ragged edge themselves, so ``t_block`` is only
+    checked to be positive. On the card one call is one launch, or two
+    when the wgmma read splits the history (the spans, then their combine).
     bf16/f32 pools only: an int8 pool raises ``ValueError`` (its history
     read is the model function's blocked gather, as in the JAX package)."""
     if isinstance(k_pool, dict) or isinstance(v_pool, dict):
@@ -505,17 +605,29 @@ def paged_attention_multiquery_partial(
             )
     if k_pool.shape != v_pool.shape:
         raise ValueError("paged_attention_multiquery: k and v pools differ in shape")
-    acc = torch.empty((B, T, H, D), dtype=torch.float32, device=dev)
-    m = torch.empty((B, T, H), dtype=torch.float32, device=dev)
-    l = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    bs = k_pool.shape[1]
+    wgmma = multiquery_kernel_route(q.dtype, D) == "wgmma"
+    if wgmma and max(q.numel(), k_pool.numel()) >= 2**31:
+        raise ValueError(
+            "paged_attention_multiquery: the tensor-core read takes q and pools "
+            "under 2^31 elements (32-bit offsets)"
+        )
+    acc, m, l = _partial_outputs(B, H, D, dev, (T,))
     if B == 0 or T == 0:
         return acc, m, l
+    warpgroups, n_split, span_rows = (
+        _multiquery_plan(B, T, H // kv_heads, kv_heads, num_read_blocks, bs)
+        if wgmma else (1, 1, num_read_blocks * bs)
+    )
+    parts = _split_scratch(n_split, (B, T, H, D), dev, (acc, m, l))
     rc = _lib_mq().paged_attention_mq_partial_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), starts.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        B, T, H, kv_heads, D, k_pool.shape[1], block_tables.shape[1],
-        num_read_blocks, _DTYPE_CODES[q.dtype],
+        *(t.data_ptr() for t in parts),
+        B, T, H, kv_heads, D, bs, block_tables.shape[1],
+        num_read_blocks, n_split, span_rows, _DTYPE_CODES[q.dtype],
+        1 if wgmma else 0, warpgroups,
         1.0 / math.sqrt(D) if scale is None else scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )

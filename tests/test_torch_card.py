@@ -28,8 +28,11 @@ from langstream_tpu_torch.ops.paged_attention import (
     SPLIT_ROWS,
     _paged_attention_partial_q8,
     merge_partial_attention,
+    multiquery_kernel_route,
+    multiquery_read_splits,
     paged_attention_multiquery_partial,
     paged_attention_multiquery_reference,
+    paged_attention_multiquery_split_reference,
     paged_attention_partial,
     paged_attention_reference,
     paged_attention_split_reference,
@@ -148,6 +151,149 @@ def test_int8_pool_launches_the_q8_kernel():
     want = paged_attention_reference(*args, **kw)
     err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
     assert err.item() <= 2e-2
+
+
+def _int8_pools(rng, nb, bs, Kh, D):
+    pools = []
+    for _ in range(2):
+        r = quantize_rows(torch.from_numpy(
+            rng.standard_normal((nb, bs, Kh, D), dtype=np.float32)))
+        pools.append({"q": r["q"].reshape(nb, bs, Kh * D).cuda(), "s": r["s"].cuda()})
+    return pools
+
+
+@pytest.mark.parametrize("q_dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("bs", [16, 64, 128])
+def test_int8_split_read_matches_plain(bs, D, q_dtype, tol):
+    """The int8 split read against both plain versions over 8 slots with
+    lengths 0, 255, 256, 257 and the whole 1,024-row window (4 spans)."""
+    rng = np.random.default_rng(bs + D)
+    B, H, Kh, nrb = 8, 8, 2, 1024 // bs
+    window = nrb * bs
+    lengths = rng.integers(1, window + 1, B)
+    lengths[:5] = [0, SPLIT_ROWS - 1, SPLIT_ROWS, SPLIT_ROWS + 1, window]
+    nb = B * nrb + 1
+    tables = torch.from_numpy(
+        (rng.permutation(nb - 1) + 1)[: B * nrb].reshape(B, nrb).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to(q_dtype).cuda()
+    kp, vp = _int8_pools(rng, nb, bs, Kh, D)
+    lengths = torch.from_numpy(lengths.astype(np.int32)).cuda()
+    args = (q, kp, vp, tables, lengths)
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    before = _paged_attention_partial_q8.launches
+    got = paged_attention_partial(*args, **kw)
+    assert _paged_attention_partial_q8.launches == before + 1
+    torch.cuda.synchronize()
+    for want in (paged_attention_reference(*args, **kw),
+                 paged_attention_split_reference(*args, **kw)):
+        err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+        assert err.item() <= tol
+    acc, m, l = got
+    assert (m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    assert torch.isfinite(acc[1:]).all() and (l[1:] > 0).all()
+
+
+@pytest.mark.parametrize("q_dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("H,Kh", [(4, 2), (16, 2), (6, 2)])
+def test_int8_split_read_group_sizes(H, Kh, q_dtype, tol):
+    """G = 2 (the tiny model), 8 and 3 query heads per KV head, through
+    both product routes (mma.sync for bf16 q, FMAs for f32 q)."""
+    rng = np.random.default_rng(H)
+    B, D, bs, nrb = 4, 128, 64, 8
+    nb = B * nrb + 1
+    tables = torch.from_numpy(
+        (rng.permutation(nb - 1) + 1)[: B * nrb].reshape(B, nrb).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to(
+        q_dtype).cuda()
+    kp, vp = _int8_pools(rng, nb, bs, Kh, D)
+    lengths = torch.tensor([0, 70, 300, 512], dtype=torch.int32).cuda()
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    got = paged_attention_partial(q, kp, vp, tables, lengths, **kw)
+    want = paged_attention_reference(q, kp, vp, tables, lengths, **kw)
+    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+    assert err.item() <= tol
+    assert (got[1][0] == NEG_INF).all() and (got[2][0] == 0).all()
+
+
+MQ_STARTS = [0, 1, 63, 64, 65, 1536]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("T", [1, 16, 17, 64, 512])
+def test_multiquery_kernel_routes_match_plain(T, bs, D, dtype, tol):
+    """Both routes of the multi-query read (wgmma for bf16, FMA for f32),
+    starts on and off the 64-row tile, split (T <= 64) and unsplit
+    (T = 512), against the plain version and its split twin."""
+    rng = np.random.default_rng(T * bs + D)
+    B, H, Kh = len(MQ_STARTS), 8, 2
+    nrb = max(MQ_STARTS) // bs
+    nb = 1 + B * nrb
+    tables = torch.from_numpy(
+        (rng.permutation(nb - 1) + 1).reshape(B, nrb).astype(np.int32)).cuda()
+    starts = torch.tensor(MQ_STARTS, dtype=torch.int32).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, T, H, D), dtype=np.float32)).to(dtype).cuda()
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, bs, Kh * D), dtype=np.float32))
+              .to(dtype).cuda() for _ in range(2))
+    args = (q, kp, vp, tables, starts)
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    n_split = multiquery_read_splits(B, T, H // Kh, Kh, nrb, bs)
+    assert (n_split > 1) == (T <= 64)
+    before = paged_attention_multiquery_partial.launches
+    got = paged_attention_multiquery_partial(*args, **kw)
+    assert paged_attention_multiquery_partial.launches == before + 1
+    torch.cuda.synchronize()
+    acc, m, l = got
+    assert acc.shape == (B, T, H, D) and m.shape == l.shape == (B, T, H)
+    assert (m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    assert torch.isfinite(acc[1:]).all() and (l[1:] > 0).all()
+    for want in (paged_attention_multiquery_reference(*args, **kw),
+                 paged_attention_multiquery_split_reference(*args, **kw)):
+        err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+        assert err.item() <= tol
+
+
+def test_new_reads_launch_their_kernels():
+    """The int8 pool and the bf16 multi-query call go through the kernels
+    of this design (by name, in a profile); f32 keeps the FMA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(9)
+    B, H, Kh, D, bs, nrb = 4, 8, 2, 128, 64, 8
+    nb = 1 + B * nrb
+    tables = torch.from_numpy(
+        (rng.permutation(nb - 1) + 1).reshape(B, nrb).astype(np.int32)).cuda()
+    lengths = torch.tensor([0, 100, 300, 512], dtype=torch.int32).cuda()
+    kq, vq = _int8_pools(rng, nb, bs, Kh, D)
+    kb, vb = (torch.from_numpy(rng.standard_normal((nb, bs, Kh * D), dtype=np.float32))
+              .to(torch.bfloat16).cuda() for _ in range(2))
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    q1 = torch.from_numpy(rng.standard_normal((B, H, D), dtype=np.float32)).to(
+        torch.bfloat16).cuda()
+    q16 = torch.from_numpy(rng.standard_normal((B, 16, H, D), dtype=np.float32)).cuda()
+    assert multiquery_kernel_route(torch.bfloat16, D) == "wgmma"
+    assert multiquery_kernel_route(torch.float32, D) == "fma"
+    counts = (_paged_attention_partial_q8.launches,
+              paged_attention_multiquery_partial.launches)
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        paged_attention_partial(q1, kq, vq, tables, lengths, **kw)
+        paged_attention_partial(q1.float(), kq, vq, tables, lengths, **kw)
+        paged_attention_multiquery_partial(q16.to(torch.bfloat16), kb, vb, tables,
+                                           lengths, **kw)
+        paged_attention_multiquery_partial(q16, kb.float(), vb.float(), tables,
+                                           lengths, **kw)
+        torch.cuda.synchronize()
+    assert _paged_attention_partial_q8.launches == counts[0] + 2
+    assert paged_attention_multiquery_partial.launches == counts[1] + 2
+    names = {e.name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+             .split("::")[-1].split()[-1] for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    for kernel in ("paged_decode_split_q8_mma_kernel", "paged_decode_split_q8_kernel",
+                   "paged_decode_combine_kernel", "paged_mq_wgmma_kernel",
+                   "paged_mq_combine_kernel", "paged_mq_kernel"):
+        assert kernel in names, (kernel, names)
 
 
 @pytest.mark.parametrize("int8", [False, True])

@@ -19,6 +19,7 @@ from langstream_tpu.models.llama_paged import _cache_partial_xla as jax_cache_pa
 from langstream_tpu.ops.flash_attention import flash_attention as jax_flash
 from langstream_tpu.ops.paged_attention import (
     merge_partial_attention as jax_merge,
+    paged_attention_multiquery_partial as jax_paged_mq,
     paged_attention_partial as jax_paged,
 )
 from langstream_tpu_torch.models.llama import LlamaConfig as TorchConfig
@@ -33,7 +34,12 @@ from langstream_tpu_torch.ops.paged_attention import (
     NEG_INF,
     SPLIT_ROWS,
     combine_split_partials,
+    _multiquery_plan,
     merge_partial_attention,
+    multiquery_kernel_route,
+    multiquery_read_splits,
+    paged_attention_multiquery_reference,
+    paged_attention_multiquery_split_reference,
     paged_attention_partial,
     paged_attention_reference,
     paged_attention_split_reference,
@@ -297,6 +303,143 @@ def test_combine_split_partials_reads_live_spans_only():
             merge_partial_attention([(A[b], M[b], L[b])]),
             merge_partial_attention(parts), rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(M[b], m[b, :live].amax(dim=0), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q_dtype,tol", [("bfloat16", 5e-2), ("float32", 1e-5)])
+@pytest.mark.parametrize("split_rows", [8, 16])
+@pytest.mark.parametrize("lengths", [[16, 17, 0], [8, 9, 24], [20, 9, 24]])
+def test_paged_q8_split_plain_matches_jax_kernel(lengths, split_rows, q_dtype, tol):
+    """The int8 split read's plain version (span partials of the int8 pool
+    merged by the combine's algebra) against the JAX int8 kernel
+    ``_paged_kernel_q8`` in interpret mode, with spans small enough that
+    the tiny window holds several: span boundaries, one row past them, an
+    empty slot and the whole window."""
+    rng = np.random.default_rng(7)
+    Kh, D, bs, nb, nrb = 2, 16, 8, 10, 3
+    q32 = rng.standard_normal((3, 4, D), dtype=np.float32)
+    q_j = jnp.asarray(q32).astype(q_dtype)
+    pools_j = []
+    for _ in range(2):
+        rows = rng.standard_normal((nb, bs, Kh, D), dtype=np.float32)
+        qr = jax_quantize_rows(jnp.asarray(rows))
+        pools_j.append({"q": qr["q"].reshape(nb, bs, Kh * D), "s": qr["s"]})
+    lengths = np.array(lengths, np.int32)
+    want = jax_paged(q_j, pools_j[0], pools_j[1], jnp.asarray(TABLES), jnp.asarray(lengths),
+                     num_read_blocks=nrb, kv_heads=Kh, head_dim=D, interpret=True)
+    pools = [{"q": torch.from_numpy(np.array(p["q"])), "s": torch.from_numpy(np.array(p["s"]))}
+             for p in pools_j]
+    q_t = torch.from_numpy(q32).to(getattr(torch, q_dtype))
+    args = (q_t, pools[0], pools[1], torch.from_numpy(TABLES), torch.from_numpy(lengths))
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    got = paged_attention_split_reference(*args, split_rows=split_rows, **kw)
+    np.testing.assert_allclose(
+        merge_partial_attention([got]).to(torch.float32).numpy(),
+        np.asarray(jax_merge([want]), dtype=np.float32), rtol=tol, atol=tol)
+    acc, m, l = got
+    for b in np.nonzero(lengths == 0)[0]:
+        assert (m[b] == NEG_INF).all() and (l[b] == 0).all() and (acc[b] == 0).all()
+
+
+MQ_TABLES = np.array([[3, 1, 4, 0, 0, 0], [5, 9, 2, 0, 0, 0], [6, 8, 7, 0, 0, 0]], np.int32)
+
+
+@pytest.mark.parametrize("span_rows", [8, 16])
+@pytest.mark.parametrize(
+    "starts",
+    [
+        [0, 8, 9],      # no history, on the first 8-row boundary, one past it
+        [16, 17, 24],   # on the 16-row boundary, one past it, the whole window
+        [0, 0, 0],      # no history anywhere
+    ],
+)
+def test_multiquery_split_plain_matches_unsplit_and_jax_kernel(starts, span_rows):
+    """The split multi-query read's plain version (span partials merged by
+    the combine's algebra, T axis included) against the unsplit plain
+    version and the JAX kernel in interpret mode, with spans small enough
+    that the tiny 24-row window holds several."""
+    rng = np.random.default_rng(11)
+    B, T, H, Kh, D, bs, nb, nrb = 3, 16, 8, 2, 16, 8, 10, 3
+    q = rng.standard_normal((B, T, H, D), dtype=np.float32)
+    kp, vp = (rng.standard_normal((nb, bs, Kh * D), dtype=np.float32) for _ in range(2))
+    st = np.array(starts, np.int32)
+    args = (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(MQ_TABLES), torch.from_numpy(st))
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    got = paged_attention_multiquery_split_reference(*args, span_rows=span_rows, **kw)
+    for g, u in zip(got, paged_attention_multiquery_reference(*args, **kw)):
+        torch.testing.assert_close(g, u, rtol=1e-5, atol=1e-5)
+    want = jax_paged_mq(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                        jnp.asarray(MQ_TABLES), jnp.asarray(st), t_block=8,
+                        interpret=True, **kw)
+    np.testing.assert_allclose(merge_partial_attention([got]).numpy(),
+                               np.asarray(jax_merge([want])), rtol=1e-5, atol=1e-5)
+    acc, m, l = got
+    for b in np.nonzero(st == 0)[0]:
+        assert (m[b] == NEG_INF).all() and (l[b] == 0).all() and (acc[b] == 0).all()
+
+
+@pytest.mark.parametrize(
+    "batch,t,num_read_blocks,want",
+    [
+        (8, 512, 24, 1),   # a 512-token chunk (path C's passes): never split
+        (1, 512, 32, 1),   # ... not even alone
+        (8, 16, 24, 5),    # B=8, T=16: 64 CTAs, 5 spans of 320 rows
+        (8, 64, 32, 1),    # the hits' bucket at B=8: 256 one-warpgroup CTAs fill the card
+        (6, 64, 32, 1),    # path C's wave 2: 192 CTAs
+        (1, 64, 32, 8),    # path C's wave 3: 32 CTAs, 8 spans of 256 rows
+        (8, 16, 1, 1),     # the window is one 64-row tile
+    ],
+)
+def test_multiquery_read_splits(batch, t, num_read_blocks, want):
+    """Pinned at Llama-3-8B's G = 4, Kh = 8 and bs 64: the spans cover the
+    window exactly, in whole 64-row tiles, with no empty trailing span."""
+    n = multiquery_read_splits(batch, t, 4, 8, num_read_blocks, 64)
+    assert n == want
+    wg, n2, span = _multiquery_plan(batch, t, 4, 8, num_read_blocks, 64)
+    window = num_read_blocks * 64
+    assert n2 == n and span % 64 == 0 and (n - 1) * span < window <= n * span
+    assert wg == (1 if t * 4 <= 256 else 3)
+
+
+def test_combine_split_partials_reads_live_spans_only_with_a_t_axis():
+    """The multi-query combine's algebra: partials (B, n, T, H[, D]); spans
+    past a slot's history are never written (NaN there stays out), a slot
+    with no live span gives m = NEG_INF, l = 0, acc = 0."""
+    rng = np.random.default_rng(8)
+    B, n, T, H, D, R = 4, 3, 5, 2, 6, 8
+    acc = torch.from_numpy(rng.standard_normal((B, n, T, H, D), dtype=np.float32))
+    m = torch.from_numpy(rng.standard_normal((B, n, T, H), dtype=np.float32))
+    l = torch.from_numpy(rng.uniform(0.5, 2.0, (B, n, T, H)).astype(np.float32))
+    starts = torch.tensor([0, 8, 9, 30], dtype=torch.int32)  # 0, 1, 2 and 3 live spans
+    for b, live in enumerate((0, 1, 2, 3)):
+        acc[b, live:] = float("nan")
+        m[b, live:] = float("nan")
+        l[b, live:] = float("nan")
+    A, M, L = combine_split_partials(acc, m, l, starts, window=n * R, split_rows=R)
+    assert A.shape == (B, T, H, D) and M.shape == L.shape == (B, T, H)
+    assert torch.isfinite(A).all() and torch.isfinite(L).all()
+    assert (M[0] == NEG_INF).all() and (L[0] == 0).all() and (A[0] == 0).all()
+    for b, live in enumerate((1, 2, 3), start=1):
+        parts = [(acc[b, s], m[b, s], l[b, s]) for s in range(live)]
+        torch.testing.assert_close(
+            merge_partial_attention([(A[b], M[b], L[b])]),
+            merge_partial_attention(parts), rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(M[b], m[b, :live].amax(dim=0), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,route",
+    [
+        (torch.bfloat16, 128, "wgmma"),  # Llama-3-8B's continuation prefill
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.bfloat16, 16, "fma"),     # the tiny test model
+        (torch.float32, 128, "fma"),     # TF32 would miss the f32 tolerance
+        (torch.float32, 64, "fma"),
+        (torch.float32, 16, "fma"),
+    ],
+)
+def test_multiquery_kernel_route(dtype, head_dim, route):
+    assert multiquery_kernel_route(dtype, head_dim) == route
 
 
 def test_merge_partial_attention_matches_jax():
