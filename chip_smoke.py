@@ -18,7 +18,8 @@ Phases (every one unguarded: any failure exits non-zero):
    ragged slots (bf16/f32 and int8 pools through the split read, 256-row
    spans plus a combine launch; int8 with bf16 queries through mma.sync,
    with f32 ones through FMAs), the multi-query history read at the
-   chunk's T=512, the prefix hits' T=64 and T=16 (bf16 through the wgmma
+   chunk's T=512, the prefix hits' T=64 and T=16, and the speculative
+   verify's T=5 at B=8 (history split) and B=64 (bf16 through the wgmma
    kernel with its plan of warpgroups and history spans; f32 through the
    FMA kernel);
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
@@ -31,11 +32,19 @@ Phases (every one unguarded: any failure exits non-zero):
    512``, three waves in turn over a shared ~1,100-token preamble (chunked
    prefills, then prefix hits, then a repeated prompt), printing the
    (batch, T) of each multi-query call;
+   main path D: paged bf16 KV with ``speculative-drafts: 4``, one wave of
+   six greedy prompts that repeat a phrase and two sampled ones: the
+   speculative stats, the (batch, T) of the verify's multi-query calls,
+   TTFT and tokens per step; then the greedy prompts with speculation off
+   and the share of tokens that match (printed, not required);
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (dense, paged, int8 KV, and paged with the prefix cache, with chunked
-   prefill and with int8 KV);
-6. one ``{"kernels": [...]}`` JSON line, then the last line
+   prefill and with int8 KV; speculative on bf16/f32 and int8 KV, a
+   repetitive prompt added so drafts land, the f32 streams also equal to
+   speculation off);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-D),
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Weights are random, made from a seed; nothing is downloaded.
@@ -48,6 +57,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -313,36 +323,49 @@ def phase_kernels(torch) -> dict:
     return rows
 
 
+def mq_case(torch, B: int, seed: int):
+    """Ragged history over shuffled tables for the multi-query read: B
+    slots, starts 0, a sub-block, block-exact and 1,536 among them."""
+    bs, max_len = 64, 2048
+    g = torch.Generator().manual_seed(seed)
+    starts = torch.randint(1, 1537, (B,), generator=g)
+    starts[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, 1536])
+    nrb = -(-int(starts.max()) // bs)
+    nb = int(sum(-(-int(n) // bs) for n in starts)) + 1
+    perm = (torch.randperm(nb - 1, generator=g) + 1).tolist()
+    tables = torch.zeros((B, max_len // bs), dtype=torch.int32)
+    for b in range(B):
+        for j in range(-(-int(starts[b]) // bs)):
+            tables[b, j] = perm.pop()
+    return g, starts, tables.cuda(), starts.to(torch.int32).cuda(), nrb, nb
+
+
 def phase_mq_kernel(torch) -> dict:
-    """Kernel 4: the multi-query history read at Llama-3-8B width, B=8
-    slots with ragged history over shuffled tables, T=16, the prefix hits'
-    T=64 and the chunk's T=512, bf16 and f32."""
+    """Kernel 4: the multi-query history read at Llama-3-8B width, ragged
+    history over shuffled tables: B=8 slots at T=16, the prefix hits' T=64
+    and the chunk's T=512; the speculative verify's T=5 (four drafts + 1)
+    at B=8 (history split) and B=64 (the 64-slot verify, unsplit); bf16
+    and f32."""
     from langstream_tpu_torch.ops.paged_attention import (
         NEG_INF, _multiquery_plan, merge_partial_attention, multiquery_kernel_route,
         paged_attention_multiquery_partial, paged_attention_multiquery_reference,
     )
 
-    H, Kh, D, bs, B, max_len = 32, 8, 128, 64, 8, 2048
-    g = torch.Generator().manual_seed(13)
-    starts = torch.randint(1, 1537, (B,), generator=g)
-    starts[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, 1536])  # 0, sub-block, exact
-    max_blocks = max_len // bs
-    nrb = -(-int(starts.max()) // bs)
-    nb = int(sum(-(-int(n) // bs) for n in starts)) + 1
-    perm = (torch.randperm(nb - 1, generator=g) + 1).tolist()
-    tables = torch.zeros((B, max_blocks), dtype=torch.int32)
-    for b in range(B):
-        for j in range(-(-int(starts[b]) // bs)):
-            tables[b, j] = perm.pop()
-    tables, starts_d = tables.cuda(), starts.to(torch.int32).cuda()
-    n_rows = int(starts.sum())
-    row = None
-    for T, dtype, tol, label in ((16, torch.bfloat16, TOL_BF16, "bf16"),
-                                 (64, torch.bfloat16, TOL_BF16, "bf16"),
-                                 (512, torch.bfloat16, TOL_BF16, "bf16"),
-                                 (16, torch.float32, TOL_F32, "f32"),
-                                 (64, torch.float32, TOL_F32, "f32"),
-                                 (512, torch.float32, TOL_F32, "f32")):
+    H, Kh, D, bs = 32, 8, 128, 64
+    cases = {B: mq_case(torch, B, seed) for B, seed in ((8, 13), (64, 17))}
+    row, verify = None, {}
+    for B, T, dtype, tol, label in ((8, 16, torch.bfloat16, TOL_BF16, "bf16"),
+                                    (8, 64, torch.bfloat16, TOL_BF16, "bf16"),
+                                    (8, 512, torch.bfloat16, TOL_BF16, "bf16"),
+                                    (8, 5, torch.bfloat16, TOL_BF16, "bf16"),
+                                    (64, 5, torch.bfloat16, TOL_BF16, "bf16"),
+                                    (8, 16, torch.float32, TOL_F32, "f32"),
+                                    (8, 64, torch.float32, TOL_F32, "f32"),
+                                    (8, 512, torch.float32, TOL_F32, "f32"),
+                                    (8, 5, torch.float32, TOL_F32, "f32"),
+                                    (64, 5, torch.float32, TOL_F32, "f32")):
+        g, starts, tables, starts_d, nrb, nb = cases[B]
+        n_rows = int(starts.sum())
         q = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
         kp, vp = (torch.randn((nb, bs, Kh * D), generator=g).to(dtype).cuda()
                   for _ in range(2))
@@ -353,7 +376,7 @@ def phase_mq_kernel(torch) -> dict:
         got = paged_attention_multiquery_partial(*args, **kw)
         torch.cuda.synchronize()
         acc, m, l = got
-        tag = f"paged_attention_multiquery T={T} {label}"
+        tag = f"paged_attention_multiquery B={B} T={T} {label}"
         if not (torch.isfinite(acc[1:]).all() and torch.isfinite(l[1:]).all()):
             fail(f"{tag}: non-finite partials")
         if not ((m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()):
@@ -384,12 +407,17 @@ def phase_mq_kernel(torch) -> dict:
               f"by_kernel={device_ms_by_kernel(torch, call)} "
               f"library_ms=none (no PyTorch call returns these partials from a "
               f"block table)", flush=True)
+        timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if T == 512 and dtype == torch.bfloat16:
-            row = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            row = timing
+        elif T == 5 and dtype == torch.bfloat16:
+            verify[f"B{B}"] = {"spans": spans, **timing}
         del q, kp, vp, args, want, got, acc, m, l
         torch.cuda.empty_cache()
-    return {"paged_attention_multiquery": row}
+    # the row of the kernels line: T=512 (path C's chunk) as in earlier
+    # runs, the verify's T=5 beside it
+    return {"paged_attention_multiquery": {**row, "verify_t5_bf16": verify}}
 
 
 # ---------------------------------------------------------------------------
@@ -655,6 +683,165 @@ def phase_prefix_path(torch, label, cfg: dict, params):
     return counts
 
 
+def spec_prompts() -> tuple[list[str], list[dict]]:
+    """Main path D's wave: six greedy prompts that repeat a phrase (what
+    prompt lookup drafts from) and two sampled ones (temperature 0.8,
+    top-k 20)."""
+    phrases = ("the quick brown fox jumps over the lazy dog. ",
+               "def add(a, b):\n    return a + b\n",
+               "Error: disk quota exceeded on volume /data. ",
+               "SELECT name, email FROM users WHERE active = 1; ",
+               "Section 4.2: shared links expire after seven days. ",
+               "red, green, blue, red, green, blue, ")
+    greedy = [f"Repeat the text below exactly.\n{p * 6}\n{p * 2}" for p in phrases]
+    sampled = ["Write a short story about a lighthouse keeper.",
+               "Continue the list: apples, pears, plums, "]
+    opts = ([{"max-tokens": 64, "temperature": 0}] * len(greedy)
+            + [{"max-tokens": 64, "temperature": 0.8, "top-k": 20}] * len(sampled))
+    return greedy + sampled, opts
+
+
+def phase_spec_path(torch, label, cfg: dict, params):
+    """Main path D: one wave of 8 concurrent requests through the
+    speculative burst (prompt lookup, verify through the multi-query read
+    at T = drafts + 1), with the host-clock time of each verify step and
+    each plain chunk (both end in their one fetch, so the device is done);
+    then the greedy prompts with speculation off and the share of their
+    tokens that match (printed, not required: bf16 near-ties may flip
+    between the verify and decode shapes); then the wave again under the
+    profiler with speculation held on (no calibration chunks)."""
+    from langstream_tpu_torch.models import llama_paged
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    prompts, opts = spec_prompts()
+    n_greedy = sum(1 for o in opts if o["temperature"] == 0)
+
+    def serve_wave(engine, prompts, opts):
+        async def run():
+            try:
+                t0 = time.monotonic()
+                results = await asyncio.gather(*(
+                    engine.generate(p, o) for p, o in zip(prompts, opts)))
+                return results, time.monotonic() - t0, engine.stats()
+            finally:
+                await engine.close()
+
+        return asyncio.run(run())
+
+    def timed(engine, name, log):
+        """Record the host-clock seconds of each call of an engine method."""
+        real = getattr(engine, name)
+
+        def call(*args):
+            t0 = time.monotonic()
+            out = real(*args)
+            log.append((args[5] if name == "_run_decode" else 0, time.monotonic() - t0))
+            return out
+
+        setattr(engine, name, call)
+
+    t0 = time.monotonic()
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device="cuda", params=params)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    spec_log, plain_log = [], []
+    timed(engine, "_run_spec_step", spec_log)
+    timed(engine, "_run_decode", plain_log)
+    real_mq, mq_calls = llama_paged.paged_attention_multiquery_partial, []
+
+    def recording_mq(q, *args, **kw):
+        mq_calls.append((q.shape[0], q.shape[1]))
+        return real_mq(q, *args, **kw)
+
+    llama_paged.paged_attention_multiquery_partial = recording_mq
+    reset_counts()
+    try:
+        results, wall, stats = serve_wave(engine, prompts, opts)
+    finally:
+        llama_paged.paged_attention_multiquery_partial = real_mq
+    counts = read_counts()
+    for i, r in enumerate(results):
+        if not r["tokens"] or len(r["tokens"]) > 64:
+            fail(f"{label}: request {i} returned {len(r['tokens'])} tokens")
+        if not all(math.isfinite(x) for x in r["logprobs"]):
+            fail(f"{label}: request {i} has non-finite logprobs")
+    sp, dc = stats["speculative"], stats["decode-chunks"]
+    layers = engine.model_config.layers
+    shapes = sorted({bt: mq_calls.count(bt) // layers for bt in set(mq_calls)}.items())
+    ttft = sorted(r["ttft"] for r in results)
+    n_tokens = sum(len(r["tokens"]) for r in results)
+    drafted = sp["drafts_accepted"] + sp["rejected"]
+    steps = sp["steps"] + dc["steps"]
+
+    def ms(samples):
+        xs = sorted(t for t in samples)
+        return (f"n={len(xs)} median={xs[len(xs) // 2] * 1e3:.2f} min={xs[0] * 1e3:.2f} "
+                f"max={xs[-1] * 1e3:.2f}" if xs else "n=0")
+
+    print(f"main path [{label}]: init_s={init_s:.2f} requests={len(results)} "
+          f"tokens={n_tokens} wall_s={wall:.3f} ttft_s min={ttft[0]:.3f} "
+          f"max={ttft[-1]:.3f} speculative={sp} "
+          f"accept_ratio={sp['drafts_accepted'] / drafted if drafted else 0.0:.4f} "
+          f"decode_steps={dc['steps']} decode_chunks={dc['dispatched']} "
+          f"tokens_per_step={(n_tokens - len(results)) / steps if steps else 0.0:.3f} "
+          f"(batch tokens after the first over verify steps + plain decode steps) "
+          f"multiquery_calls_per_step (B, T): count={shapes} launches={counts} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
+    print(f"main path [{label}]: host-clock ms per verify step "
+          f"{ms(t for _, t in spec_log)}; per K=1 plain chunk "
+          f"{ms(t for k, t in plain_log if k == 1)}; per step of K>1 plain chunks "
+          f"{ms(t / k for k, t in plain_log if k > 1)}", flush=True)
+    if sp["steps"] == 0:
+        fail(f"{label}: no speculative step ran: {sp}")
+    if not sp["dispatches"] == sp["fetches"] == sp["steps"]:
+        fail(f"{label}: dispatches/fetches/steps differ: {sp}")
+    if not any(t == cfg["speculative-drafts"] + 1 for _, t in mq_calls):
+        fail(f"{label}: the multi-query kernel never ran at T=drafts+1: {shapes}")
+    if counts["paged_attention_multiquery"] == 0:
+        fail(f"{label}: the multi-query kernel did not launch: {counts}")
+
+    # the greedy prompts again with speculation off: how far the streams
+    # match, and at each first divergence the two streams' logprobs of
+    # their own token (close for a near-tie of the top two)
+    plain_engine = TorchServingEngine(
+        ServingConfig.from_dict({**cfg, "speculative-drafts": 0}), device="cuda",
+        params=params)
+    plain, _, _ = serve_wave(plain_engine, prompts[:n_greedy], opts[:n_greedy])
+    same = total = 0
+    forks = []
+    for a, b in zip(results[:n_greedy], plain):
+        n = min(len(a["tokens"]), len(b["tokens"]))
+        common = next((i for i in range(n) if a["tokens"][i] != b["tokens"][i]), n)
+        same += common
+        total += max(len(a["tokens"]), len(b["tokens"]))
+        if common < n:
+            forks.append((common, round(a["logprobs"][common], 4),
+                          round(b["logprobs"][common], 4)))
+    print(f"main path [{label}]: greedy streams against speculation off: "
+          f"common prefix {same}/{total} tokens ({same / total:.3f}); first "
+          f"divergences (position, logprob speculative, logprob plain): {forks}",
+          flush=True)
+
+    # the wave again under the profiler, speculation held on
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    os.environ["LS_TPU_SPEC_CALIBRATE_EVERY"] = str(10**9)
+    try:
+        prof_engine = TorchServingEngine(ServingConfig.from_dict(cfg), device="cuda",
+                                         params=params)
+    finally:
+        os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       acc_events=True) as prof:
+        _, wall, pstats = serve_wave(prof_engine, prompts, opts)
+    print(f"main path [{label}]: profiled wave, speculation held on: "
+          f"speculative={pstats['speculative']} "
+          f"decode_steps={pstats['decode-chunks']['steps']}", flush=True)
+    print(device_breakdown(torch, prof, wall), flush=True)
+    return counts
+
+
 def phase_card_vs_cpu(torch):
     from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
@@ -662,8 +849,33 @@ def phase_card_vs_cpu(torch):
     preamble = "A shared preamble of more than three blocks of sixteen tokens. "
     prompts = ["paged cache equivalence", "second prompt!", "a",
                preamble + "and a longer fourth prompt here", preamble + "fifth"]
+    repetitive = "the cat sat on the mat. " * 6  # prompt lookup drafts land here
     c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
     params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
+
+    def run_layout(layout, device, prompts):
+        cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3,
+               "max-seq-len": 256, "decode-chunk": 4, **layout}
+        # no uplift calibration here: its verdict is a wall-clock ratio and
+        # would switch the card and the CPU to plain decode at other steps
+        os.environ["LS_TPU_SPEC_CALIBRATE_EVERY"] = str(10**9)
+        try:
+            engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
+                                        params=params)
+        finally:
+            os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
+
+        async def run():
+            try:  # two waves in turn: with the prefix cache the second hits
+                first, _, _ = await serve(engine, prompts, 12)
+                second, _, stats = await serve(engine, prompts, 12)
+                return first + second, stats
+            finally:
+                await engine.close()
+
+        results, stats = asyncio.run(run())
+        return [r["tokens"] for r in results], stats
+
     for layout in ({"kv-layout": "dense"},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
@@ -672,30 +884,35 @@ def phase_card_vs_cpu(torch):
                    {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
                     "prefill-chunk": 32},
                    {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
-                    "kv-quantize": "int8"}):
-        cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3,
-               "max-seq-len": 256, "decode-chunk": 4, **layout}
-        out = {}
+                    "kv-quantize": "int8"},
+                   {"kv-layout": "paged", "speculative-drafts": 4},
+                   {"kv-layout": "paged", "speculative-drafts": 4, "kv-quantize": "int8"}):
+        spec = layout.get("speculative-drafts", 0) > 0
+        wave = prompts + [repetitive] if spec else prompts
+        out, stats = {}, {}
         for device in ("cuda", "cpu"):
-            engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
-                                        params=params)
-
-            async def run(engine=engine):
-                try:  # two waves in turn: with the prefix cache the second hits
-                    first, _, _ = await serve(engine, prompts, 12)
-                    second, _, stats = await serve(engine, prompts, 12)
-                    return first + second, stats["prefix"]["hits"]
-                finally:
-                    await engine.close()
-
-            results, hits = asyncio.run(run())
-            out[device] = ([r["tokens"] for r in results], hits)
+            tokens, stats[device] = run_layout(layout, device, wave)
+            out[device] = (tokens, stats[device]["prefix"]["hits"])
         if out["cuda"] != out["cpu"]:
             fail(f"card vs CPU {layout}: greedy tokens or prefix hits differ:\n{out}")
         if layout.get("prefix-cache") and out["cuda"][1] < 2:
             fail(f"card vs CPU {layout}: the second wave made no prefix hits")
-        print(f"card vs CPU [{layout}]: {2 * len(prompts)} greedy streams identical, "
-              f"prefix_hits={out['cuda'][1]}", flush=True)
+        extra = ""
+        if spec:
+            sp, sp_cpu = (stats[d]["speculative"] for d in ("cuda", "cpu"))
+            keys = ("steps", "drafts_accepted", "rejected")
+            if sp["drafts_accepted"] == 0 or any(sp[k] != sp_cpu[k] for k in keys):
+                fail(f"card vs CPU {layout}: no draft accepted, or the speculative "
+                     f"counts differ: {sp} vs {sp_cpu}")
+            extra = f" speculative={sp}"
+            if "kv-quantize" not in layout:  # int8: commit boundaries differ
+                plain, _ = run_layout({**layout, "speculative-drafts": 0}, "cuda", wave)
+                if plain != out["cuda"][0]:
+                    fail(f"card {layout}: speculative greedy streams differ from "
+                         f"speculation off:\n{out['cuda'][0]}\n{plain}")
+                extra += " equal to speculation off"
+        print(f"card vs CPU [{layout}]: {2 * len(wave)} greedy streams identical, "
+              f"prefix_hits={out['cuda'][1]}{extra}", flush=True)
 
 
 def main() -> int:
@@ -759,6 +976,13 @@ def main() -> int:
         {**base, "kv-layout": "paged", "prefix-cache": True, "prefill-chunk": 512},
         params=params,
     )
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_counts = phase_spec_path(
+        torch, "paged bf16 KV, speculative-drafts 4",
+        {**base, "kv-layout": "paged", "prefix-cache": False, "speculative-drafts": 4},
+        params=params,
+    )
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -770,8 +994,8 @@ def main() -> int:
     print(f"phase card vs CPU: {time.monotonic() - t0:.1f} s", flush=True)
 
     # -- phase 6: kernels line, then the device line ------------------------
-    paths = (dense_counts, q8_counts, c_counts)
-    meta = {  # launches: summed over the three main paths
+    paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts}
+    meta = {  # launches: summed over the four main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
@@ -784,7 +1008,7 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        launches = sum(counts[name] for counts in paths)
+        launches = sum(counts[name] for counts in paths.values())
         if launches == 0:
             fail(f"kernel {name} launched on no main path")
         # ms: a replayed CUDA graph of the calls (the card's time alone);
@@ -792,6 +1016,7 @@ def main() -> int:
         # work included, which is what the main path pays)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
+                        "launches_by_path": {p: c[name] for p, c in paths.items()},
                         "timing": "cuda_graph", **rows[name]})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ KV buffer — merged with the online-softmax combine. The pool is read-only
 during a chunk; one :func:`write_rows` commits the chunk buffer at its end.
 The continuation prefill (:func:`llama_prefill_continue_paged`, behind the
 prefix cache and chunked prefill) attends a suffix to its paged history
-and to itself, the same two-segment merge.
+and to itself, the same two-segment merge. The speculative verify step
+(:func:`llama_verify_chunk_paged`, driven by :func:`llama_spec_step_paged`
+with the :func:`prompt_lookup_draft` drafter) is a continuation of
+``1 + drafts`` positions that returns every position's logits.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from langstream_tpu_torch.ops.paged_attention import (
     paged_attention_partial,
     paged_attention_reference,
 )
+from langstream_tpu_torch.serving.sampler import speculative_accept
 
 
 def llama_prefill_paged(
@@ -246,6 +250,184 @@ def pack_tokens_logprobs(tokens: torch.Tensor, logprobs: torch.Tensor) -> torch.
         tokens.to(torch.int32).reshape(-1),
         logprobs.to(torch.float32).contiguous().view(torch.int32).reshape(-1),
     ])
+
+
+def prompt_lookup_draft(
+    ctx: torch.Tensor,   # (B, S) int — [prompt | generated] per row, zero-padded
+    n: torch.Tensor,     # (B,) int — valid tokens per row
+    num_drafts: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prompt-lookup drafter, row by row over a batch: continue each row's
+    LAST occurrence of its final bigram. Candidates are ``i in [1, n-2]``
+    with ``(ctx[i-1], ctx[i]) == (ctx[n-2], ctx[n-1])``; the draft is
+    ``ctx[i+1 : i+1+num_drafts]``, clipped to ``n`` and zero-padded. No
+    match (or ``n < 3``) drafts zeros with ``n_real = 0``. Returns
+    ``(drafts (B, num_drafts) int32, n_real (B,) int32)``."""
+    B, S = ctx.shape
+    device = ctx.device
+    pos = torch.arange(S, device=device)[None, :]
+    n = n.to(torch.long)[:, None]                                      # (B, 1)
+    last0 = torch.gather(ctx, 1, (n - 2).clamp(min=0))
+    last1 = torch.gather(ctx, 1, (n - 1).clamp(min=0))
+    prev = torch.roll(ctx, 1, dims=1)  # prev[:, i] = ctx[:, i-1]; i = 0 masked
+    match = (prev == last0) & (ctx == last1) & (pos >= 1) & (pos <= n - 2)
+    i = torch.where(match, pos, torch.full_like(pos, -1)).amax(dim=1, keepdim=True)
+    found = (i >= 0) & (n >= 3)
+    start = i + 1
+    offs = start + torch.arange(num_drafts, device=device)[None, :]
+    drafts = torch.where(
+        (offs < n) & found, torch.gather(ctx, 1, offs.clamp(0, S - 1)),
+        torch.zeros_like(offs, dtype=ctx.dtype),
+    )
+    n_real = torch.where(found, (n - start).clamp(0, num_drafts), torch.zeros_like(n))
+    return drafts.to(torch.int32), n_real[:, 0].to(torch.int32)
+
+
+def llama_spec_step_paged(
+    config: LlamaConfig,
+    params: dict,
+    ctx: torch.Tensor,            # (B, S+1) int32 context rows; column S is a sentinel
+    current: torch.Tensor,        # (B,) last emitted token per slot
+    base_lengths: torch.Tensor,   # (B,) int32 — tokens committed in the pool
+    active: torch.Tensor,         # (B,) bool
+    pool_k,
+    pool_v,
+    block_tables: torch.Tensor,
+    num_drafts: int,
+    num_read_blocks: int,
+    generator: torch.Generator | None = None,
+    temps: torch.Tensor | None = None,
+    topks: torch.Tensor | None = None,
+    topps: torch.Tensor | None = None,
+    sampler_mode: tuple | None = None,
+):
+    """One speculative step on the device: prompt-lookup drafts from the
+    context rows, the verify forward, and the context update, with no host
+    sync. The rows hold ``[prompt | generated]``, so ``n = lengths + 1``
+    (``current`` is ``ctx[n-1]``, not yet in the pool). The emitted run is
+    written back at ``n .. n+adv-1`` so the next step drafts from a current
+    context; unemitted columns and positions past the context go to the
+    sentinel column ``S`` (the counterpart of the JAX package's
+    out-of-bounds drop, without a boolean select).
+
+    Returns ``(packed, ctx, pool_k, pool_v)``, ``packed`` the int32 layout
+    ``[emitted (B*D1) | adv (B) | next (B) | new_lengths (B) | n_real (B) |
+    bitcast logprobs (B*D1)]`` that the engine copies to the host once."""
+    B, S1 = ctx.shape
+    S = S1 - 1
+    n = base_lengths.to(torch.long) + 1
+    drafts, n_real = prompt_lookup_draft(ctx[:, :S], n, num_drafts)
+    drafts = torch.where(active[:, None], drafts, torch.zeros_like(drafts))
+    n_real = torch.where(active, n_real, torch.zeros_like(n_real))
+    tokens = torch.cat([current.to(torch.long)[:, None], drafts.to(torch.long)], dim=1)
+    emitted, adv, next_tokens, new_lengths, pool_k, pool_v, logprobs = (
+        llama_verify_chunk_paged(
+            config, params, tokens, base_lengths, active, pool_k, pool_v,
+            block_tables, num_read_blocks, generator=generator, temps=temps,
+            topks=topks, topps=topps, sampler_mode=sampler_mode,
+        )
+    )
+    D1 = num_drafts + 1
+    js = torch.arange(D1, device=ctx.device)[None, :]
+    write_pos = n[:, None] + js                    # emitted[:, j] → ctx[n+j]
+    cols = torch.where((js < adv[:, None]) & (write_pos < S), write_pos,
+                       torch.full_like(write_pos, S))
+    ctx.scatter_(1, cols, emitted.to(ctx.dtype))
+    packed = torch.cat([
+        emitted.to(torch.int32).reshape(-1),
+        adv.to(torch.int32),
+        next_tokens.to(torch.int32),
+        new_lengths.to(torch.int32),
+        n_real.to(torch.int32),
+        logprobs.to(torch.float32).contiguous().view(torch.int32).reshape(-1),
+    ])
+    return packed, ctx, pool_k, pool_v
+
+
+def llama_verify_chunk_paged(
+    config: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,         # (B, D1): [current, draft_0 .. draft_{D1-2}]
+    base_lengths: torch.Tensor,   # (B,) int32 — tokens in the pool per slot
+    active: torch.Tensor,         # (B,) bool
+    pool_k,
+    pool_v,
+    block_tables: torch.Tensor,
+    num_read_blocks: int,
+    generator: torch.Generator | None = None,
+    temps: torch.Tensor | None = None,
+    topks: torch.Tensor | None = None,
+    topps: torch.Tensor | None = None,
+    sampler_mode: tuple | None = None,   # (use_top_p, use_top_k, all_greedy)
+):
+    """Speculative VERIFY step: one continuation forward over ``D1 = 1 +
+    drafts`` positions per slot scores every draft at once (its history
+    read is the multi-query kernel on bf16/f32 pools).
+
+    - **Greedy** (``sampler_mode`` None or all-greedy): keep the longest
+      prefix of drafts equal to the model's own argmax, plus the model's
+      token after it, so greedy streams equal plain decode on a bf16/f32
+      pool. On an int8 pool a position reads as fresh K/V before its
+      commit and as int8 after, at other boundaries than the decode chunk,
+      so near-tie argmaxes may differ from a non-speculative stream.
+    - **Sampled**: :func:`~langstream_tpu_torch.serving.sampler.speculative_accept`
+      against the filtered target; greedy rows in the batch take the
+      greedy rule.
+
+    Inactive rows get suffix length 0 (their writes go to scratch, not
+    through their real tables), and rows are capped at the context limit:
+    a position >= ``max_seq_len`` would clamp to the slot's last table
+    column in :func:`write_rows` and overwrite committed K/V. K/V of all
+    verified positions is committed; rows past ``new_lengths`` hold
+    rejected drafts, which no read sees and the next step overwrites.
+
+    Returns ``(emitted (B, D1), adv (B,), next_tokens (B,), new_lengths
+    (B,), pool_k, pool_v, logprobs (B, D1))``: the token to emit at each
+    position, how many leading ones are real (1..D1, 0 when inactive), the
+    next step's current token, and the lengths after the step."""
+    c = config
+    B, D1 = tokens.shape
+    room = (c.max_seq_len - base_lengths.to(torch.long)).clamp(min=0)
+    suffix_lengths = torch.where(
+        active, room.clamp(max=D1), torch.zeros_like(room)
+    ).to(torch.int32)
+    logits, pool_k, pool_v = llama_prefill_continue_paged(
+        c, params, tokens, base_lengths, suffix_lengths, pool_k, pool_v,
+        block_tables, num_read_blocks, return_all_logits=True,
+    )  # (B, D1, V) f32
+    drafts = tokens[:, 1:]
+    if sampler_mode is None or sampler_mode[2]:  # all greedy
+        model_next = torch.argmax(logits, dim=-1)                  # (B, D1)
+        # draft j (input position j+1) is accepted iff every earlier draft
+        # was and the model's token at position j equals it
+        match = (model_next[:, :-1] == drafts).to(torch.int32)
+        accepted = torch.cumprod(match, dim=1).sum(dim=1)
+        emitted = model_next
+    else:
+        use_top_p, use_top_k, _ = sampler_mode
+        accepted, fallback = speculative_accept(
+            logits, drafts, generator, temps, topks, topps,
+            use_top_p=use_top_p, use_top_k=use_top_k,
+        )
+        # accepted drafts verbatim, then the residual/bonus sample at the
+        # stop position (the only fallback column the engine reads)
+        pos = torch.arange(D1, device=tokens.device)[None, :]
+        drafts_pad = torch.nn.functional.pad(drafts, (0, 1))
+        emitted = torch.where(pos < accepted[:, None], drafts_pad.to(torch.long),
+                              fallback.to(torch.long))
+    emitted = emitted.to(torch.int32)
+    logprobs = torch.gather(
+        torch.log_softmax(logits, dim=-1), 2, emitted.to(torch.long)[..., None]
+    ).squeeze(-1)
+    adv = torch.where(active, accepted.to(torch.int32) + 1,
+                      torch.zeros_like(accepted, dtype=torch.int32))
+    new_lengths = base_lengths.to(torch.int32) + adv
+    next_tokens = torch.where(
+        active,
+        torch.gather(emitted, 1, (adv.to(torch.long) - 1).clamp(min=0)[:, None]).squeeze(1),
+        tokens[:, 0].to(torch.int32),
+    )
+    return emitted, adv, next_tokens, new_lengths, pool_k, pool_v, logprobs
 
 
 def _cache_partial_xla(c: LlamaConfig, q, ck_l, cv_l, block_tables, lengths,

@@ -21,6 +21,14 @@ Execution model:
 - Each chunk ends with exactly ONE device-to-host copy: the tokens and
   their logprobs packed into one int32 tensor on the device
   (``stats()["decode-chunks"]["host_fetches_per_chunk"] == 1.0``).
+- Paged layout with ``speculative-drafts: N``: while no active request has
+  penalties, decode runs as speculative steps instead of chunks. One
+  dispatch drafts N tokens per slot by prompt lookup over device-resident
+  context rows, verifies N + 1 positions (greedy acceptance, or rejection
+  sampling for sampled requests) and extends the rows; one packed fetch
+  per step. A plain K=1 chunk every ``_spec_cal_every`` steps measures the
+  uplift; below 1 speculation turns off until ``_spec_retry_plain`` plain
+  chunks have run (``stats()["speculative"]``).
 - Device work runs on one executor thread, so the asyncio loop stays live.
 
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
@@ -55,6 +63,7 @@ from langstream_tpu_torch.models.llama_paged import (
     llama_decode_chunk_paged,
     llama_prefill_continue_paged,
     llama_prefill_paged,
+    llama_spec_step_paged,
     pack_tokens_logprobs,
 )
 from langstream_tpu_torch.models.paged import (
@@ -213,8 +222,6 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
     (lambda c: bool(c.checkpoint),
      "checkpoint: loading real weights waits for a checkpoint in the "
      "repository (ROADMAP.md Queue 1 item 1); random init from seed only"),
-    (lambda c: c.speculative_drafts > 0,
-     "speculative-drafts > 0: speculation is ROADMAP.md Queue 1 item 8"),
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
@@ -265,6 +272,11 @@ def _check_supported(config: ServingConfig) -> None:
         raise ValueError(
             "prefill-chunk requires kv-layout=paged (chunked prefill "
             "commits through the paged continuation path)"
+        )
+    if config.speculative_drafts > 0 and config.kv_layout != "paged":
+        raise ValueError(
+            "speculative-drafts requires kv-layout=paged (the verify "
+            "step commits through the paged continuation path)"
         )
 
 
@@ -355,6 +367,14 @@ class TorchServingEngine:
                 "latency-only settings accepted, not acted on by this engine "
                 "(ROADMAP.md Queue 1 item 4): %s", ignored,
             )
+        if config.speculative_drafts > 0 and config.kv_quantize == "int8":
+            # verify quantizes K/V at other commit boundaries than the
+            # decode chunk: greedy streams may differ at near-tie argmaxes
+            log.info(
+                "speculative-drafts with kv-quantize=int8: greedy streams "
+                "may diverge from non-speculative runs (int8 KV commit-"
+                "boundary quantization differs under the verify path)"
+            )
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(config.seed)
         self._init_model(params)
@@ -389,6 +409,35 @@ class TorchServingEngine:
         # prompt tokens they did not prefill
         self.prefix_hits = 0
         self.prefix_tokens = 0
+        # speculation: verify steps, accepted and rejected real drafts, and
+        # the one-fetch ledger (one dispatch, one packed fetch per step)
+        self.spec_steps = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self._spec_dispatches = 0
+        self._spec_fetches = 0
+        # the device context rows the drafter reads, (slots, S + 1) int32
+        # with a sentinel column, made at the first speculative step and
+        # touched only on the dispatch thread; the host ledger counts the
+        # leading entries of each row known to hold the slot's current
+        # request (plain decode chunks leave it stale, release resets it)
+        self._ctx_dev: torch.Tensor | None = None
+        self._ctx_synced = np.zeros(config.slots, dtype=np.int64)
+        # measured-uplift auto-disable: rolling (tokens, seconds) windows of
+        # speculative steps and of plain K=1 calibration chunks; uplift =
+        # speculative tok/s over plain tok/s, below 1 over a full window
+        # turns speculation off until _spec_retry_plain plain decode chunks
+        # have run
+        win = max(int(os.environ.get("LS_TPU_SPEC_UPLIFT_WINDOW", "32")), 1)
+        self._spec_window: deque = deque(maxlen=win)
+        self._plain_window: deque = deque(maxlen=win)
+        self._spec_cal_every = int(os.environ.get("LS_TPU_SPEC_CALIBRATE_EVERY", "32"))
+        self._spec_retry_plain = int(os.environ.get("LS_TPU_SPEC_RETRY_CHUNKS", "256"))
+        self._spec_steps_since_cal = 0
+        self._spec_auto_disabled = False
+        self._spec_plain_since_disable = 0
+        self._spec_last_uplift: float | None = None
+        self._spec_flips = 0  # auto-disables plus re-enables
 
     # ------------------------------------------------------------------
     # model + cache
@@ -564,7 +613,28 @@ class TorchServingEngine:
         }
         if self.block_mgr is not None:
             out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
+        if self.config.speculative_drafts > 0:
+            out["speculative"] = self.speculative_section()
         return out
+
+    def speculative_section(self) -> dict[str, Any]:
+        """``stats()["speculative"]``: the keys of the JAX engine's section.
+        ``dispatches`` and ``fetches`` track ``steps`` one to one (one
+        packed fetch per draft+verify step); ``uplift`` is the last measured
+        speculative/plain tokens-per-second ratio (None until a full
+        window and a calibration sample exist)."""
+        return {
+            "steps": self.spec_steps,
+            "drafts_accepted": self.spec_accepted,
+            "rejected": self.spec_rejected,
+            "dispatches": self._spec_dispatches,
+            "fetches": self._spec_fetches,
+            "uplift": self._spec_last_uplift,
+            "auto_disabled": self._spec_auto_disabled,
+            "flips": self._spec_flips,
+            "window_steps": len(self._spec_window),
+            "window_plain": len(self._plain_window),
+        }
 
     async def close(self) -> None:
         self._stop = True
@@ -604,7 +674,10 @@ class TorchServingEngine:
                         except asyncio.TimeoutError:
                             pass
                     continue
-                await self._decode_chunk(loop, active)
+                if self._speculating(active):
+                    await self._speculative_burst(loop, active)
+                else:
+                    await self._decode_chunk(loop, active)
             except Exception as e:  # device/runtime error: fail in-flight work,
                 # free the slots, keep serving (callers see the exception)
                 log.exception("serving engine step failed")
@@ -630,6 +703,7 @@ class TorchServingEngine:
         slot.prefilling = False
         slot.prefill_done = 0
         self._lengths[slot_id] = 0
+        self._ctx_synced[slot_id] = 0
         if self.block_mgr is not None:
             self.block_mgr.release(slot_id)
 
@@ -887,9 +961,11 @@ class TorchServingEngine:
     # decode
     # ------------------------------------------------------------------
 
-    async def _decode_chunk(self, loop, active: list[int]) -> None:
-        """One chunk of fused decode steps over the active slots, one packed
-        fetch, then per-token host processing."""
+    async def _decode_chunk(self, loop, active: list[int],
+                            num_steps: int | None = None) -> None:
+        """One chunk of ``num_steps`` (default ``decode-chunk``) fused decode
+        steps over the active slots, one packed fetch, then per-token host
+        processing."""
         cfg = self.config
         active_mask = np.zeros(cfg.slots, dtype=bool)
         active_mask[active] = True
@@ -897,7 +973,7 @@ class TorchServingEngine:
             self._temps[active_mask], self._topks[active_mask],
             self._topps[active_mask],
         )
-        K = cfg.decode_chunk
+        K = num_steps or cfg.decode_chunk
         max_remaining = 1
         for slot_id in active:
             request = self.slots[slot_id].request
@@ -942,6 +1018,8 @@ class TorchServingEngine:
         chunk_lp = packed[n:].view(np.float32).reshape(K, cfg.slots)
         self._process_chunk(chunk_t, chunk_lp, active)
         await self._flush_emits()
+        if cfg.speculative_drafts > 0 and self._spec_auto_disabled:
+            self._spec_count_plain_chunk()
 
     @torch.no_grad()
     def _run_decode(self, tokens, lengths, active_mask, tables, window, K, mode,
@@ -976,6 +1054,238 @@ class TorchServingEngine:
         self._decode_steps += K
         self._decode_s += time.monotonic() - t0
         return packed
+
+    # ------------------------------------------------------------------
+    # speculation (prompt lookup, paged pool)
+    # ------------------------------------------------------------------
+
+    def _speculating(self, active: list[int]) -> bool:
+        """Speculate when configured and not auto-disabled, unless an active
+        request has penalties: they change the distribution per emitted
+        token and the verify step keeps no counts, so those batches decode
+        plainly."""
+        return (
+            self.config.speculative_drafts > 0
+            and not self._spec_auto_disabled
+            and not ((self._pres[active] != 0).any() or (self._freq[active] != 0).any())
+        )
+
+    def _sync_ctx_rows(self, live: list[int]):
+        """The stale rows of the device context buffer, as ``(slot ids,
+        rows (n, S) int32)`` or ``(None, None)``. A row is current when the
+        ledger holds ``lengths + 1`` (history plus the pending current
+        token); speculative steps extend rows on the device, so only slots
+        fresh from prefill or from plain decode chunks upload, one full row
+        each. Loop thread only (it updates the ledger)."""
+        S = self.model_config.max_seq_len
+        rows, vals = [], []
+        for slot_id in live:
+            request = self.slots[slot_id].request
+            n = min(int(self._lengths[slot_id]) + 1, S)
+            if int(self._ctx_synced[slot_id]) == n:
+                continue
+            ctx = request.prompt_tokens + request.generated
+            row = np.zeros(S, dtype=np.int32)
+            m = min(n, len(ctx))
+            row[:m] = ctx[:m]
+            rows.append(slot_id)
+            vals.append(row)
+            self._ctx_synced[slot_id] = n
+        if not rows:
+            return None, None
+        return np.asarray(rows, dtype=np.int64), np.stack(vals)
+
+    def _fetch_spec(self, packed: torch.Tensor, d1: int) -> tuple[np.ndarray, ...]:
+        """The step's ONE device-to-host copy, split into emitted tokens,
+        advance counts, next tokens, new lengths, real-draft counts and
+        logprobs."""
+        B = self.config.slots
+        nE = B * d1
+        flat = packed.cpu().numpy()
+        self._spec_fetches += 1
+        return (
+            flat[:nE].reshape(B, d1),
+            flat[nE:nE + B],
+            flat[nE + B:nE + 2 * B],
+            flat[nE + 2 * B:nE + 3 * B],
+            flat[nE + 3 * B:nE + 4 * B],
+            flat[nE + 4 * B:].view(np.float32).reshape(B, d1),
+        )
+
+    def _spec_note_step(self, tokens: int, wall_s: float) -> None:
+        if tokens > 0 and wall_s > 0:
+            self._spec_window.append((tokens, wall_s))
+
+    def _spec_note_plain(self, tokens: int, wall_s: float) -> None:
+        if tokens > 0 and wall_s > 0:
+            self._plain_window.append((tokens, wall_s))
+
+    def _spec_uplift(self) -> float | None:
+        """Speculative tokens/s over plain tokens/s; None until the
+        speculative window is full and a plain sample exists."""
+        if len(self._spec_window) < (self._spec_window.maxlen or 1):
+            return None
+        if not self._plain_window:
+            return None
+        spec_n = sum(n for n, _ in self._spec_window)
+        spec_t = sum(w for _, w in self._spec_window)
+        plain_n = sum(n for n, _ in self._plain_window)
+        plain_t = sum(w for _, w in self._plain_window)
+        if spec_t <= 0 or plain_t <= 0 or plain_n <= 0:
+            return None
+        return (spec_n / spec_t) / (plain_n / plain_t)
+
+    def _spec_check_uplift(self) -> bool:
+        """Turn speculation off when the measured uplift is below 1; True
+        when that happened (the burst returns to plain decode)."""
+        uplift = self._spec_uplift()
+        if uplift is None:
+            return False
+        self._spec_last_uplift = uplift
+        if uplift >= 1.0:
+            return False
+        self._spec_auto_disabled = True
+        self._spec_plain_since_disable = 0
+        self._spec_flips += 1
+        log.info("speculation auto-disabled: measured uplift %.4f over %d steps "
+                 "and %d plain samples", uplift, len(self._spec_window),
+                 len(self._plain_window))
+        self._spec_window.clear()
+        self._plain_window.clear()
+        return True
+
+    def _spec_count_plain_chunk(self) -> None:
+        """One plain decode chunk ran while speculation was auto-disabled;
+        after ``_spec_retry_plain`` of them speculation re-auditions, with a
+        calibration chunk due at once."""
+        self._spec_plain_since_disable += 1
+        if self._spec_plain_since_disable < self._spec_retry_plain:
+            return
+        self._spec_auto_disabled = False
+        self._spec_plain_since_disable = 0
+        self._spec_steps_since_cal = self._spec_cal_every
+        self._spec_window.clear()
+        self._plain_window.clear()
+        self._spec_flips += 1
+        log.info("speculation re-enabled after %d plain decode chunks",
+                 self._spec_retry_plain)
+
+    def _spec_cal_due(self) -> bool:
+        return self._spec_steps_since_cal >= self._spec_cal_every
+
+    async def _speculative_burst(self, loop, active: list[int]) -> None:
+        """Prompt-lookup speculative decoding over the paged pool: per step
+        one dispatch drafts each slot's continuation from the device
+        context rows, verifies ``drafts + 1`` positions and extends the
+        rows, and one packed fetch brings back all the host needs. Every
+        ``_spec_cal_every`` steps a plain K=1 decode chunk calibrates the
+        uplift verdict. Returns to the loop when a slot finishes, work
+        waits (queue, prefills) or speculation turns itself off."""
+        D1 = self.config.speculative_drafts + 1
+        S = self.model_config.max_seq_len
+        while not self._spec_auto_disabled:
+            live = [i for i in active
+                    if self.slots[i].request is not None and not self.slots[i].prefilling]
+            if not live:
+                return
+            if self._spec_cal_due():
+                t_wall = time.monotonic()
+                before = self.total_generated
+                await self._decode_chunk(loop, live, num_steps=1)
+                self._spec_note_plain(self.total_generated - before,
+                                      time.monotonic() - t_wall)
+                self._spec_steps_since_cal = 0
+                if self._spec_check_uplift() or self._should_yield(live):
+                    return
+                continue  # the chunk advanced the lengths
+            for slot_id in live:
+                self.block_mgr.ensure_capacity(
+                    slot_id, min(int(self._lengths[slot_id]) + D1, S))
+            active_mask = np.zeros(self.config.slots, dtype=bool)
+            active_mask[live] = True
+            nrb = self._read_blocks_for(max(int(self._lengths[live].max()), 1))
+            mode = self._sampler_mode(
+                self._temps[active_mask], self._topks[active_mask],
+                self._topps[active_mask],
+            )
+            ctx_rows, ctx_vals = self._sync_ctx_rows(live)
+            t_wall = time.monotonic()
+            emitted, adv, nxt, _, n_real, logprobs = await loop.run_in_executor(
+                self._executor,
+                partial(self._run_spec_step, ctx_rows, ctx_vals, self._current.copy(),
+                        self._lengths.copy(), active_mask,
+                        self.block_mgr.tables.copy(), nrb, mode, self._temps.copy(),
+                        self._topks.copy(), self._topps.copy()),
+            )
+            self.spec_steps += 1
+            self._spec_steps_since_cal += 1
+            emitted_before = self.total_generated
+            for slot_id in live:
+                a = int(adv[slot_id])
+                base = int(self._lengths[slot_id])
+                done = False
+                accepted = 0
+                for j in range(a):
+                    # advance the length BEFORE each emit, so the emit's
+                    # context-cap guard sees the true context size
+                    self._lengths[slot_id] = base + j + 1
+                    done = self._emit_token(slot_id, int(emitted[slot_id, j]),
+                                            float(logprobs[slot_id, j]))
+                    if j > 0:
+                        accepted += 1
+                    if done:
+                        break
+                if not done:
+                    self._current[slot_id] = int(nxt[slot_id])
+                    # the step appended the emitted run to the device row
+                    self._ctx_synced[slot_id] = base + a + 1
+                self.spec_accepted += accepted
+                # only real drafts count as rejected; drafts left unread by
+                # a stop or EOS inside the run were wasted positions too
+                self.spec_rejected += max(0, int(n_real[slot_id]) - accepted)
+            self._spec_note_step(self.total_generated - emitted_before,
+                                 time.monotonic() - t_wall)
+            disabled = self._spec_check_uplift()
+            await self._flush_emits()
+            if disabled or self._should_yield(live):
+                return
+
+    def _should_yield(self, live: list[int]) -> bool:
+        """A burst hands back to the loop when a slot finished or other work
+        waits: queued requests, mid-prefill slots, a stop."""
+        return (
+            any(self.slots[i].request is None for i in live)
+            or bool(self._queue) or self._stop or self._has_prefilling()
+        )
+
+    @torch.no_grad()
+    def _run_spec_step(self, ctx_rows, ctx_vals, current, lengths, active_mask,
+                       tables, nrb, mode, temps, topks, topps):
+        """Dispatch thread: patch the stale context rows, one
+        ``llama_spec_step_paged``, one packed fetch."""
+        dev = self.device
+        S = self.model_config.max_seq_len
+        if self._ctx_dev is None:
+            self._ctx_dev = torch.zeros((self.config.slots, S + 1), dtype=torch.int32,
+                                        device=dev)
+        if ctx_rows is not None:
+            self._ctx_dev[torch.from_numpy(ctx_rows).to(dev), :S] = (
+                torch.from_numpy(ctx_vals).to(dev))
+        greedy = mode[2]
+        packed, self._ctx_dev, self.cache_k, self.cache_v = llama_spec_step_paged(
+            self.model_config, self.params, self._ctx_dev,
+            torch.from_numpy(current).to(dev), torch.from_numpy(lengths).to(dev),
+            torch.from_numpy(active_mask).to(dev), self.cache_k, self.cache_v,
+            torch.from_numpy(tables).to(dev),
+            num_drafts=self.config.speculative_drafts, num_read_blocks=nrb,
+            generator=self._generator,
+            temps=None if greedy else torch.from_numpy(temps).to(dev),
+            topks=None if greedy else torch.from_numpy(topks).to(dev),
+            topps=None if greedy else torch.from_numpy(topps).to(dev),
+            sampler_mode=mode,
+        )
+        self._spec_dispatches += 1
+        return self._fetch_spec(packed, self.config.speculative_drafts + 1)
 
     # ------------------------------------------------------------------
     # host-side token handling

@@ -362,6 +362,104 @@ def test_multiquery_kernel_matches_plain(dtype, tol, H, Kh, D, bs, T):
     assert err.item() <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B", [8, 64])
+def test_multiquery_kernel_at_the_verify_width(B, dtype, tol):
+    """The speculative verify's history read at Llama-3-8B width: T = 5
+    (four drafts + 1), 20 query rows of a 64-row tile; B = 8 splits the
+    history (64 CTAs), B = 64 runs 512 CTAs unsplit."""
+    rng = np.random.default_rng(B)
+    H, Kh, D, bs, max_len, T = 32, 8, 128, 64, 2048, 5
+    starts = rng.integers(1, 1537, B)
+    starts[:4] = [0, bs // 2 + 5, 2 * bs, 1536]
+    nrb = -(-int(starts.max()) // bs)
+    nb = 1 + B * nrb
+    tables = torch.from_numpy(
+        (rng.permutation(nb - 1) + 1).reshape(B, nrb).astype(np.int32)).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, T, H, D), dtype=np.float32)).to(dtype).cuda()
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, bs, Kh * D), dtype=np.float32))
+              .to(dtype).cuda() for _ in range(2))
+    args = (q, kp, vp, tables, torch.from_numpy(starts.astype(np.int32)).cuda())
+    kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+    if dtype == torch.bfloat16:
+        assert (multiquery_read_splits(B, T, H // Kh, Kh, nrb, bs) > 1) == (B == 8)
+    before = paged_attention_multiquery_partial.launches
+    got = paged_attention_multiquery_partial(*args, **kw)
+    assert paged_attention_multiquery_partial.launches == before + 1
+    torch.cuda.synchronize()
+    acc, m, l = got
+    assert (m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()
+    assert torch.isfinite(acc[1:]).all() and (l[1:] > 0).all()
+    want = paged_attention_multiquery_reference(*args, **kw)
+    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max()
+    assert err.item() <= tol
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["f32-pool", "int8-pool"])
+def test_verify_chunk_card_matches_cpu(kv_int8):
+    """``llama_verify_chunk_paged`` on the tiny f32 model: the card (the
+    multi-query kernel on the f32 pool, the blocked gather on the int8 one)
+    against the CPU's plain versions on the same pool: random drafts, an
+    inactive row and a row at the context cap."""
+    from langstream_tpu_torch.models.llama_paged import (
+        llama_prefill_paged,
+        llama_verify_chunk_paged,
+    )
+    from langstream_tpu_torch.models.paged import (
+        BlockManager,
+        PagedLayout,
+        init_paged_kv_cache,
+        init_paged_kv_cache_int8,
+    )
+
+    S, bs = 64, 16
+    c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=S), dtype=torch.float32)
+    params = init_llama_params(c, torch.Generator().manual_seed(5), device="cpu")
+    lens = [8, 11, 5, S - 2]
+    B = len(lens)
+    layout = PagedLayout.for_model(S, B, block_size=bs, num_blocks=24)
+    mgr = BlockManager(layout, B)
+    for b in range(B):
+        mgr.admit(b, S)
+        mgr.ensure_capacity(b, S)
+    tables = torch.from_numpy(mgr.tables.copy())
+    rng = np.random.default_rng(11)
+    prompts = torch.zeros((B, max(lens)), dtype=torch.long)
+    for b, n in enumerate(lens):
+        prompts[b, :n] = torch.from_numpy(rng.integers(1, 300, n))
+    init = init_paged_kv_cache_int8 if kv_int8 else init_paged_kv_cache
+    pk, pv = init(c, layout, device="cpu")
+    logits, pk, pv = llama_prefill_paged(c, params, prompts, torch.tensor(lens), pk, pv,
+                                         tables)
+    tokens = torch.from_numpy(rng.integers(1, 300, (B, 5)))
+    tokens[:, 0] = logits.argmax(-1)
+    active = torch.tensor([True, True, False, True])
+    out = {}
+    for device in ("cpu", "cuda"):
+        before = paged_attention_multiquery_partial.launches
+        em, adv, nxt, nl, _, _, lp = llama_verify_chunk_paged(
+            c, _to(params, device), tokens.to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device), active.to(device),
+            _to(pk, device), _to(pv, device), tables.to(device), S // bs)
+        launched = paged_attention_multiquery_partial.launches - before
+        out[device] = (em.cpu(), adv.cpu(), nxt.cpu(), nl.cpu(), lp.cpu(), launched)
+    em_c, adv_c, nxt_c, nl_c, lp_c, launched_c = out["cpu"]
+    em_g, adv_g, nxt_g, nl_g, lp_g, launched_g = out["cuda"]
+    assert launched_c == 0 and launched_g == (0 if kv_int8 else c.layers)
+    assert torch.equal(adv_g, adv_c) and torch.equal(nxt_g, nxt_c) and torch.equal(nl_g, nl_c)
+    for b in range(B):
+        a = int(adv_c[b])
+        assert em_g[b, :a].tolist() == em_c[b, :a].tolist()
+        if a:  # the inactive row emits nothing
+            assert (lp_g[b, :a] - lp_c[b, :a]).abs().max().item() <= 1e-4
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros((1, 16, 4, 32), device="cuda")  # head_dim 32
     with pytest.raises(ValueError, match="head_dim"):
@@ -389,12 +487,19 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16},
         {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
          "prefill-chunk": 32},
+        {"kv-layout": "paged", "speculative-drafts": 4},
+        {"kv-layout": "paged", "speculative-drafts": 4, "kv-quantize": "int8"},
     ],
 )
-def test_tiny_engine_card_matches_cpu(layout):
+def test_tiny_engine_card_matches_cpu(layout, monkeypatch):
+    # no uplift calibration: its wall-clock verdict would switch the two
+    # devices to plain decode at other steps
+    monkeypatch.setenv("LS_TPU_SPEC_CALIBRATE_EVERY", str(10**9))
     preamble = "A shared preamble of more than three blocks of sixteen tokens. "
     prompts = ["paged cache equivalence", "second prompt!", "a",
                preamble + "and a longer fourth prompt here", preamble + "fifth"]
+    if layout.get("speculative-drafts"):
+        prompts.append("the cat sat on the mat. " * 6)  # drafts land here
     c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
     params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
     cfg = ServingConfig.from_dict({"model": "tiny", "model-dtype": "float32",
@@ -409,12 +514,15 @@ def test_tiny_engine_card_matches_cpu(layout):
                     results += await asyncio.gather(
                         *(engine.generate(p, {"max-tokens": 12}) for p in prompts)
                     )
-                return results, engine.stats()["prefix"]["hits"]
+                stats = engine.stats()
+                return results, stats["prefix"]["hits"], stats.get("speculative")
             finally:
                 await engine.close()
 
-        results, hits = asyncio.run(run())
+        results, hits, spec = asyncio.run(run())
         out[device] = ([r["tokens"] for r in results], hits)
+        if spec is not None:
+            assert spec["drafts_accepted"] > 0
     assert out["cuda"] == out["cpu"]
     if layout.get("prefix-cache"):
         assert out["cuda"][1] >= 2

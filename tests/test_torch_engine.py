@@ -36,6 +36,8 @@ CONFIGS = {  # name: (settings, the token whose lm_head column EOS copies)
     "paged": (PAGED, 32),
     "paged-int8-weights": ({**PAGED, "quantize": "int8"}, 116),
     "paged-int8-kv": ({**PAGED, "kv-quantize": "int8"}, 32),
+    "paged-spec": ({**PAGED, "speculative-drafts": 4}, 32),
+    "paged-int8-kv-spec": ({**PAGED, "kv-quantize": "int8", "speculative-drafts": 4}, 32),
 }
 REQUESTS = [  # one of them also gets a stop string its greedy text contains
     ("paged cache equivalence", {}),
@@ -45,6 +47,8 @@ REQUESTS = [  # one of them also gets a stop string its greedy text contains
     ("fifth one", {"max-tokens": 5}),
     ("the sixth request, longer than the others by a bit", {}),
 ]
+# speculative configs add a request that repeats itself, so drafts land
+REPETITIVE = ("the cat sat on the mat. " * 4, {"max-tokens": 24})
 
 
 def flatten_jax_params(tree):
@@ -69,14 +73,14 @@ def _with_eos_column(params, like: int):
     return {**params, "lm_head": lm}
 
 
-async def _serve(engine, stop=None):
+async def _serve(engine, stop=None, requests=REQUESTS):
     """All requests at once; ``stop = (index, string)`` adds a stop string."""
     return await asyncio.gather(*(
         engine.generate(prompt, {
             "max-tokens": BASE["max-tokens"], **opts,
             **({"stop": stop[1]} if stop and stop[0] == i else {}),
         })
-        for i, (prompt, opts) in enumerate(REQUESTS)
+        for i, (prompt, opts) in enumerate(requests)
     ))
 
 
@@ -84,6 +88,8 @@ async def _serve(engine, stop=None):
 def test_port_engine_matches_jax_engine(name):
     settings, eos_like = CONFIGS[name]
     cfg = {**BASE, **settings}
+    spec = cfg.get("speculative-drafts", 0) > 0
+    requests = REQUESTS + [REPETITIVE] if spec else REQUESTS
 
     async def run_jax():
         engine = TpuServingEngine(JaxServingConfig.from_dict(cfg))
@@ -91,32 +97,43 @@ def test_port_engine_matches_jax_engine(name):
         try:
             flat = flatten_jax_params(engine.params)
             # the second character of the first greedy text that has one
-            texts = [r["text"].replace("\ufffd", "") for r in await _serve(engine)]
+            texts = [r["text"].replace("\ufffd", "")
+                     for r in await _serve(engine, requests=requests)]
             i = next(i for i, t in enumerate(texts) if len(t) >= 2)
             stop = (i, texts[i][1])
-            return flat, stop, await _serve(engine, stop)
+            return flat, stop, await _serve(engine, stop, requests)
         finally:
             await engine.close()
 
     flat, stop, want = asyncio.run(run_jax())
 
-    async def run_port():
+    async def run_port(cfg):
         engine = TorchServingEngine(
             ServingConfig.from_dict(cfg), device="cpu",
             params=params_from_numpy(flat, device="cpu", dtype=torch.float32),
         )
         try:
-            return await _serve(engine, stop), engine.stats()
+            return await _serve(engine, stop, requests), engine.stats()
         finally:
             await engine.close()
 
-    got, stats = asyncio.run(run_port())
-    for (prompt, opts), w, g in zip(REQUESTS, want, got):
-        assert g["tokens"] == w["tokens"], (name, prompt)
-        assert g["text"] == w["text"], (name, prompt)
-        assert g["finish_reason"] == w["finish_reason"], (name, prompt)
-        assert g["num_prompt_tokens"] == w["num_prompt_tokens"]
-        np.testing.assert_allclose(g["logprobs"], w["logprobs"], rtol=1e-4, atol=1e-4)
+    got, stats = asyncio.run(run_port(cfg))
+    # with speculation the streams also equal the port's speculation-off
+    # ones; on an int8 pool the verify quantizes K/V at other boundaries
+    # than the decode chunk, so there the logprobs differ by more than 1e-4
+    wants = [(want, True)]
+    if spec:
+        plain = asyncio.run(run_port({**cfg, "speculative-drafts": 0}))[0]
+        wants.append((plain, "kv-quantize" not in settings))
+    for i, ((prompt, opts), g) in enumerate(zip(requests, got)):
+        for w, same_logprobs in ((ws[i], same) for ws, same in wants):
+            assert g["tokens"] == w["tokens"], (name, prompt)
+            assert g["text"] == w["text"], (name, prompt)
+            assert g["finish_reason"] == w["finish_reason"], (name, prompt)
+            assert g["num_prompt_tokens"] == w["num_prompt_tokens"]
+            if same_logprobs:
+                np.testing.assert_allclose(g["logprobs"], w["logprobs"],
+                                           rtol=1e-4, atol=1e-4)
     # the cases the comparison must have exercised
     reasons = [(r["finish_reason"], len(r["tokens"])) for r in got]
     i, s = stop
@@ -124,9 +141,15 @@ def test_port_engine_matches_jax_engine(name):
     assert any(f == "stop" and n < 12 and j != i and not REQUESTS[j][1]
                for j, (f, n) in enumerate(reasons)), reasons  # an EOS
     assert len(got[4]["tokens"]) <= 5 and any(f == "length" for f, _ in reasons)
-    dc = stats["decode-chunks"]
-    assert dc["dispatched"] > 0 and dc["host_fetches_per_chunk"] == 1.0
-    assert stats["completed"] == len(REQUESTS) and stats["active"] == 0
+    if spec:
+        sp = stats["speculative"]
+        assert sp["steps"] > 0 and sp["drafts_accepted"] > 0
+        assert sp["dispatches"] == sp["fetches"] == sp["steps"]
+    else:
+        dc = stats["decode-chunks"]
+        assert dc["dispatched"] > 0 and dc["host_fetches_per_chunk"] == 1.0
+        assert "speculative" not in stats
+    assert stats["completed"] == len(requests) and stats["active"] == 0
 
 
 def test_streaming_callbacks_tile_the_text():
@@ -171,7 +194,6 @@ def test_engine_needs_the_card_unless_told_cpu():
     [
         ({"mesh": {"tp": 2}}, "mesh"),
         ({"checkpoint": "/nonexistent"}, "checkpoint"),
-        ({"speculative-drafts": 2, **PAGED}, "speculative"),
         ({"kv-quantize": "int8"}, "kv-layout: paged"),
         ({"adapter-store": {"rank": 4}}, "adapter-store"),
         ({"prefix-store": {"t0-bytes": 0}}, "prefix-store"),
@@ -190,6 +212,17 @@ def test_unsupported_settings_raise_naming_the_roadmap(overrides, match):
     with pytest.raises(NotImplementedError, match=match) as info:
         TorchServingEngine(cfg, device="cpu")
     assert "ROADMAP.md" in str(info.value)
+
+
+def test_speculative_drafts_need_the_paged_layout():
+    """As in the JAX engine: the verify step commits through the paged
+    continuation path, so a dense layout is a ValueError."""
+    cfg = ServingConfig.from_dict({"model": "tiny", "speculative-drafts": 4})
+    with pytest.raises(ValueError, match="speculative-drafts requires kv-layout=paged"):
+        TorchServingEngine(cfg, device="cpu")
+    with pytest.raises(ValueError, match="speculative"):
+        TpuServingEngine(JaxServingConfig.from_dict({"model": "tiny",
+                                                     "speculative-drafts": 4}))
 
 
 def test_serving_config_parses_the_jax_keys():
