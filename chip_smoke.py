@@ -37,17 +37,30 @@ Phases (every one unguarded: any failure exits non-zero):
    speculative stats, the (batch, T) of the verify's multi-query calls,
    TTFT and tokens per step; then the greedy prompts with speculation off
    and the share of tokens that match (printed, not required);
+   main path E: the chat example's resource (``CHAT_EXAMPLE_RESOURCE``:
+   dense bf16 KV, ``decode-chunk-light: 8``, ``warmup-on-start``) through
+   the port's provider, as the ``ai-chat-completions`` agent reaches it:
+   the first chat runs the warmup; a streamed wave of 8 (light regime, at
+   most 8 steps per decode dispatch) and one of 24 (heavy, more than 8);
+   a stop string; an ``adapter`` and a spent ``deadline`` refused before
+   they queue; then the embeddings service (minilm-l6) on the card against
+   the CPU within 1e-4;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
-   (dense, paged, int8 KV, and paged with the prefix cache, with chunked
+   (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
+   ``checkpoint:``, dense, whose greedy tokens must also equal the
+   fixture's, and paged with int8 KV; random weights dense, paged, int8
+   KV, and paged with the prefix cache, with chunked
    prefill and with int8 KV; speculative on bf16/f32 and int8 KV, a
    repetitive prompt added so drafts land, the f32 streams also equal to
    speculation off);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-D),
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-E),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
-Weights are random, made from a seed; nothing is downloaded.
+Weights are random, made from a seed (path E's LM head keeps only the
+printable ASCII columns, so its greedy text is not empty), apart from the
+tiny HF fixture in the repository; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -69,6 +82,23 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TOL_BF16 = 2e-2
 TOL_F32 = 1e-4
+TOL_EMBED = 1e-4
+# examples/applications/chat-completions/configuration.yaml's resource, as
+# yaml.safe_load reads it (written out: the card may lack PyYAML; a CPU
+# test holds the two equal)
+CHAT_EXAMPLE_RESOURCE = {
+    "type": "tpu-serving-configuration",
+    "name": "tpu",
+    "configuration": {
+        "model": "llama3-8b",
+        "slots": 64,
+        "max-seq-len": 2048,
+        "decode-chunk": 32,
+        "decode-chunk-light": 8,
+        "warmup-on-start": True,
+        "quantize": "int8",
+    },
+}
 
 
 def ptxas_report(logs: dict) -> list[str]:
@@ -842,7 +872,209 @@ def phase_spec_path(torch, label, cfg: dict, params):
     return counts
 
 
-def phase_card_vs_cpu(torch):
+def ascii_head(engine) -> None:
+    """Zero the LM head's columns outside the byte tokenizer's printable
+    ASCII ids (32-126): a random head over Llama-3's 128,256 ids almost
+    never picks an id the byte tokenizer prints, and path E's stream and
+    stop checks need text. The 95 kept columns are random, so one of them
+    has a positive logit (the zeroed ones' 0) at every step but with
+    probability 2**-95."""
+    import torch
+
+    head = engine.params["lm_head"]
+    vocab = (head.q if hasattr(head, "q") else head).shape[-1]
+    keep = torch.zeros(vocab, dtype=torch.bool, device=engine.device)
+    keep[32:127] = True
+    if hasattr(head, "s"):  # int8: (1, vocab) scales
+        head.s[..., ~keep] = 0
+    else:
+        head[:, ~keep] = 0
+
+
+async def stream_chat(service, messages, options):
+    """One streamed chat completion: (result, the Chunks it streamed)."""
+    chunks = []
+    result = await service.chat_completions(messages, options, chunks.append)
+    return result, chunks
+
+
+def check_stream(label, result, chunks) -> None:
+    text = "".join(c.text for c in chunks)
+    if text != result.text:
+        fail(f"{label}: streamed text {text!r} != final text {result.text!r}")
+    if [c.index for c in chunks] != list(range(len(chunks))):
+        fail(f"{label}: chunk indices {[c.index for c in chunks]} are not 0, 1, 2, ...")
+    if not chunks or not chunks[-1].last or any(c.last for c in chunks[:-1]):
+        fail(f"{label}: exactly the last chunk must be marked last")
+
+
+def phase_provider_path(torch, resource: dict, device="cuda", max_tokens=32) -> dict:
+    """Main path E: the chat example's resource through the port's provider
+    (``TorchServiceProvider.get_completions_service``), as the
+    ``ai-chat-completions`` agent reaches it: (a) one chat request, which
+    runs the warmup first; (b) a wave of 8 streamed chats (light regime:
+    8 <= slots // 8); (c) a wave of 24 (heavy regime), steps per decode
+    dispatch of each wave from the ``decode-chunks`` deltas; (d) one chat
+    with a stop string its greedy text contains; (e) an ``adapter`` and an
+    expired ``deadline``, both refused before they touch a slot. Then the
+    embeddings service (minilm-l6, weights from a CPU generator seeded 0)
+    on ``device`` against the CPU. Returns the launch counts of (a)-(e)."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.serving.deadline import DeadlineExceeded
+    from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+    from langstream_tpu_torch.serving.engine import TorchServingEngine
+
+    label = "E: chat example resource through the provider"
+    # the mapping the platform hands a provider: type and name beside the
+    # resource's configuration keys
+    cfg = {"type": resource["type"], "name": resource["name"], **resource["configuration"]}
+    held_gb = torch.cuda.memory_allocated() / 1e9 if device == "cuda" else 0.0
+    t0 = time.monotonic()
+    provider = TorchServiceProvider(cfg, device=device)
+    service = provider.get_completions_service({})
+    engine = service.engine
+    init_s = time.monotonic() - t0
+    if engine.stats()["warmup"]["state"] != "pending":
+        fail(f"{label}: warmup-on-start must leave the warmup pending until a request")
+    ascii_head(engine)
+    light_threshold = engine._light_threshold()
+    questions = [p for p in chat_prompts() for _ in range(4)]  # 32 messages
+    chats = [[{"role": "user", "content": q}] for q in questions]
+    opts = {"max-tokens": max_tokens, "temperature": 0}
+
+    def dc_delta(before, after):
+        a, b = before["decode-chunks"], after["decode-chunks"]
+        return (b["steps"] - a["steps"], b["dispatched"] - a["dispatched"],
+                b["seconds"] - a["seconds"])
+
+    async def run():
+        out = {}
+        try:
+            # (a) the first request runs the warmup, then itself
+            t = time.monotonic()
+            out["a"] = await stream_chat(service, chats[0], opts)
+            out["a_wall"] = time.monotonic() - t
+            out["warmup"] = engine.stats()["warmup"]
+            # (b) light and (c) heavy waves, every request streamed
+            for name, n in (("b", 8), ("c", 24)):
+                before = engine.stats()
+                t = time.monotonic()
+                out[name] = await asyncio.gather(*(
+                    stream_chat(service, chats[1 + i], opts) for i in range(n)))
+                out[name + "_wall"] = time.monotonic() - t
+                out[name + "_dc"] = dc_delta(before, engine.stats())
+            # (d) a stop string the request's greedy text contains
+            plain = out["a"][0].text
+            cands = {plain[i:i + 2] for i in range(len(plain) - 1)
+                     if "�" not in plain[i:i + 2]}
+            if not cands:
+                fail(f"{label}: the greedy text {plain!r} has no stop candidate")
+            stop = max(sorted(cands), key=plain.find)  # the latest first match
+            out["d"] = await stream_chat(service, chats[0], {**opts, "stop": stop})
+            out["d_stop"], out["d_plain"] = stop, plain
+            # (e) refused before the request queues
+            before = engine.stats()
+            try:
+                await service.chat_completions(chats[0], {**opts, "adapter": "tenant-ft"})
+                fail(f"{label}: a request naming an adapter was served")
+            except ValueError as e:
+                out["e_adapter"] = str(e)
+            try:
+                await service.chat_completions(chats[0], {**opts, "deadline": time.time() - 1})
+                fail(f"{label}: a request with a spent deadline was served")
+            except DeadlineExceeded as e:
+                out["e_deadline"] = str(e)
+            after = engine.stats()
+            keys = ("active", "queued", "completed", "prefill-calls", "total-generated")
+            if any(before[k] != after[k] for k in keys) or after["active"]:
+                fail(f"{label}: a refused request touched the engine: "
+                     f"{[(k, before[k], after[k]) for k in keys]}")
+            out["stats"] = after
+            return out
+        finally:
+            TorchServingEngine.reset_instances()
+            await engine.close()
+
+    reset_counts()
+    out = asyncio.run(run())
+    counts = read_counts()
+    warm = out["warmup"]
+    if warm["state"] != "done":
+        fail(f"{label}: warmup did not complete: {warm}")
+    results = [out["a"]] + out["b"] + out["c"] + [out["d"]]
+    for i, (r, chunks) in enumerate(results):
+        check_stream(f"{label}: request {i}", r, chunks)
+        if not 0 < r.num_completion_tokens <= max_tokens:
+            fail(f"{label}: request {i} returned {r.num_completion_tokens} tokens")
+    d, stop = out["d"][0], out["d_stop"]
+    if d.finish_reason != "stop" or stop in d.text:
+        fail(f"{label}: stop {stop!r}: finish_reason {d.finish_reason}, text {d.text!r}")
+    per_dispatch = {}
+    for name in ("b", "c"):
+        steps, dispatched, _ = out[name + "_dc"]
+        per_dispatch[name] = steps / dispatched if dispatched else float("nan")
+    if not per_dispatch["b"] <= 8 < per_dispatch["c"]:
+        fail(f"{label}: steps per decode dispatch light {per_dispatch['b']} must be "
+             f"<= 8 and heavy {per_dispatch['c']} > 8")
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        # (CPU tensors take the plain versions, which count nothing)
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    waves = out["b"] + out["c"]
+    ttft = sorted(r.ttft_s for r, _ in waves)
+    steps = out["b_dc"][0] + out["c_dc"][0]
+    secs = out["b_dc"][2] + out["c_dc"][2]
+    n_decode = sum(r.num_completion_tokens - 1 for r, _ in waves)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
+    print(f"main path [{label}]: init_s={init_s:.2f} light_threshold={light_threshold} "
+          f"warmup_s={warm['seconds']:.3f} (probe {warm['probe_tokens']} tokens, wave "
+          f"{warm['wave']}) first_request wall_s={out['a_wall']:.3f} "
+          f"ttft_s={out['a'][0].ttft_s:.3f}", flush=True)
+    print(f"main path [{label}]: light wave (8) wall_s={out['b_wall']:.3f} "
+          f"steps_per_dispatch={per_dispatch['b']:.2f} ({out['b_dc'][0]}/{out['b_dc'][1]}); "
+          f"heavy wave (24) wall_s={out['c_wall']:.3f} "
+          f"steps_per_dispatch={per_dispatch['c']:.2f} ({out['c_dc'][0]}/{out['c_dc'][1]}); "
+          f"ttft_s min={ttft[0]:.3f} max={ttft[-1]:.3f} "
+          f"decode_tok_s={n_decode / secs if secs else 0.0:.1f} "
+          f"ms_per_step={secs / steps * 1e3 if steps else float('nan'):.2f} "
+          f"chunks_streamed={sum(len(c) for _, c in results)} launches={counts} "
+          f"peak_mem_gb={peak:.1f} (held before the engine: {held_gb:.1f})", flush=True)
+    print(f"main path [{label}]: stop {stop!r} -> text {d.text!r} (greedy "
+          f"{out['d_plain']!r}; equal to its cut: "
+          f"{d.text == out['d_plain'][:out['d_plain'].find(stop)]}); refused: "
+          f"{out['e_adapter']!r}, {out['e_deadline']!r}; "
+          f"deadline_sheds={out['stats']['deadline-sheds']}", flush=True)
+
+    # embeddings: the same weights on the device and on the CPU
+    texts = [("embed this sentence. " * (1 + 3 * i))[: 16 + 37 * i] for i in range(16)]
+
+    def embed_on(dev):
+        svc = TorchServiceProvider(cfg, device=dev).get_embeddings_service({})
+        t = time.monotonic()
+        vectors = asyncio.run(svc.compute_embeddings(texts))
+        return vectors, time.monotonic() - t, svc.engine
+
+    vec_dev, s_dev, emb = embed_on(device)
+    vec_dev2, s_dev2, _ = embed_on(device)  # the second call: warm
+    vec_cpu, s_cpu, _ = embed_on("cpu")
+    import numpy as np
+
+    a, b = np.asarray(vec_dev2), np.asarray(vec_cpu)
+    err = float(np.abs(a - b).max())
+    if a.shape != (16, emb.config.hidden) or not np.isfinite(a).all():
+        fail(f"embeddings: shape {a.shape} or non-finite values")
+    if not err <= TOL_EMBED or vec_dev != vec_dev2:
+        fail(f"embeddings: {device} vs CPU max abs error {err} > {TOL_EMBED}, or two "
+             f"calls differ")
+    print(f"embeddings [minilm-l6, {len(texts)} texts of {len(texts[0])}-"
+          f"{len(texts[-1])} chars]: max_abs_err vs CPU={err:.3e} (tolerance {TOL_EMBED}) "
+          f"wall_s first={s_dev:.3f} warm={s_dev2:.3f} cpu={s_cpu:.3f}", flush=True)
+    for engine_ in list(EmbeddingEngine._instances.values()):
+        engine_.close()
+    EmbeddingEngine.reset_instances()
+    return counts
+
+
+def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
     from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
@@ -852,6 +1084,11 @@ def phase_card_vs_cpu(torch):
     repetitive = "the cat sat on the mat. " * 6  # prompt lookup drafts land here
     c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
     params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
+    golden_dir = REPO / "tests" / "fixtures" / "llama_tiny_golden"
+    import numpy as np
+
+    golden = np.load(golden_dir / "golden.npz")
+    golden_prompts = [golden[f"prompt_{p}"].tolist() for p in (0, 1)]
 
     def run_layout(layout, device, prompts):
         cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3,
@@ -860,8 +1097,9 @@ def phase_card_vs_cpu(torch):
         # would switch the card and the CPU to plain decode at other steps
         os.environ["LS_TPU_SPEC_CALIBRATE_EVERY"] = str(10**9)
         try:
-            engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
-                                        params=params)
+            engine = TorchServingEngine(
+                ServingConfig.from_dict(cfg), device=device,
+                params=None if "checkpoint" in layout else params)
         finally:
             os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
 
@@ -869,6 +1107,12 @@ def phase_card_vs_cpu(torch):
             try:  # two waves in turn: with the prefix cache the second hits
                 first, _, _ = await serve(engine, prompts, 12)
                 second, _, stats = await serve(engine, prompts, 12)
+                if "checkpoint" in layout:  # HF's greedy continuations
+                    golden_out = await asyncio.gather(*(
+                        engine.generate(p, {"max-tokens": len(golden[f"greedy_{i}"]),
+                                            "temperature": 0})
+                        for i, p in enumerate(golden_prompts)))
+                    stats["golden"] = [r["tokens"] for r in golden_out]
                 return first + second, stats
             finally:
                 await engine.close()
@@ -876,7 +1120,11 @@ def phase_card_vs_cpu(torch):
         results, stats = asyncio.run(run())
         return [r["tokens"] for r in results], stats
 
-    for layout in ({"kv-layout": "dense"},
+    checkpoint = {"checkpoint": str(golden_dir)}
+    for layout in ({**checkpoint, "kv-layout": "dense"},
+                   {**checkpoint, "kv-layout": "paged", "prefix-cache": False,
+                    "kv-block-size": 16, "kv-quantize": "int8"},
+                   {"kv-layout": "dense"},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
                     "kv-quantize": "int8"},
@@ -890,14 +1138,23 @@ def phase_card_vs_cpu(torch):
         spec = layout.get("speculative-drafts", 0) > 0
         wave = prompts + [repetitive] if spec else prompts
         out, stats = {}, {}
-        for device in ("cuda", "cpu"):
-            tokens, stats[device] = run_layout(layout, device, wave)
-            out[device] = (tokens, stats[device]["prefix"]["hits"])
+        for name, device in zip(("cuda", "cpu"), devices):
+            tokens, stats[name] = run_layout(layout, device, wave)
+            out[name] = (tokens, stats[name]["prefix"]["hits"])
         if out["cuda"] != out["cpu"]:
             fail(f"card vs CPU {layout}: greedy tokens or prefix hits differ:\n{out}")
+        extra = ""
+        if "checkpoint" in layout:
+            if stats["cuda"]["golden"] != stats["cpu"]["golden"]:
+                fail(f"card vs CPU {layout}: the golden prompts' greedy tokens differ")
+            if layout["kv-layout"] == "dense":
+                want = [golden[f"greedy_{p}"].tolist() for p in (0, 1)]
+                if stats["cuda"]["golden"] != want:
+                    fail(f"card {layout}: greedy tokens {stats['cuda']['golden']} != "
+                         f"the fixture's HF greedy {want}")
+                extra = " golden greedy_0/greedy_1 equal"
         if layout.get("prefix-cache") and out["cuda"][1] < 2:
             fail(f"card vs CPU {layout}: the second wave made no prefix hits")
-        extra = ""
         if spec:
             sp, sp_cpu = (stats[d]["speculative"] for d in ("cuda", "cpu"))
             keys = ("steps", "drafts_accepted", "rejected")
@@ -906,12 +1163,13 @@ def phase_card_vs_cpu(torch):
                      f"counts differ: {sp} vs {sp_cpu}")
             extra = f" speculative={sp}"
             if "kv-quantize" not in layout:  # int8: commit boundaries differ
-                plain, _ = run_layout({**layout, "speculative-drafts": 0}, "cuda", wave)
+                plain, _ = run_layout({**layout, "speculative-drafts": 0}, devices[0], wave)
                 if plain != out["cuda"][0]:
                     fail(f"card {layout}: speculative greedy streams differ from "
                          f"speculation off:\n{out['cuda'][0]}\n{plain}")
                 extra += " equal to speculation off"
-        print(f"card vs CPU [{layout}]: {2 * len(wave)} greedy streams identical, "
+        shown = {k: ("fixture" if k == "checkpoint" else v) for k, v in layout.items()}
+        print(f"card vs CPU [{shown}]: {2 * len(wave)} greedy streams identical, "
               f"prefix_hits={out['cuda'][1]}{extra}", flush=True)
 
 
@@ -962,11 +1220,11 @@ def main() -> int:
         fail(f"dense main path did not launch flash and paged kernels: {dense_counts}")
     gc.collect()
     torch.cuda.empty_cache()
-    _, q8_counts = phase_main_path(
+    q8_counts = phase_main_path(
         torch, "paged int8 KV",
         {**base, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False},
         params=params, profile=True,
-    )
+    )[1]  # (its params are path A's: bound to no name, freed with them below)
     if q8_counts["paged_attention_q8"] == 0 or q8_counts["flash_attention"] == 0:
         fail(f"int8-KV main path did not launch flash and q8 kernels: {q8_counts}")
     gc.collect()
@@ -983,7 +1241,11 @@ def main() -> int:
         {**base, "kv-layout": "paged", "prefix-cache": False, "speculative-drafts": 4},
         params=params,
     )
-    del params
+    del params  # path E makes its own weights: two 8B sets never share the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e_counts = phase_provider_path(torch, CHAT_EXAMPLE_RESOURCE)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase main path: {time.monotonic() - t0:.1f} s", flush=True)
@@ -994,8 +1256,9 @@ def main() -> int:
     print(f"phase card vs CPU: {time.monotonic() - t0:.1f} s", flush=True)
 
     # -- phase 6: kernels line, then the device line ------------------------
-    paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts}
-    meta = {  # launches: summed over the four main paths
+    paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
+             "E": e_counts}
+    meta = {  # launches: summed over the five main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -6,11 +6,16 @@ imports ``torch`` and never ``jax`` or anything of ``langstream_tpu``.
 
 Layers (entry point down to the kernels):
 
-- :mod:`langstream_tpu_torch.serving.engine` — ``TorchServingEngine``:
-  FIFO admission, batched prefill, K-step decode chunks, one packed
-  device-to-host fetch per chunk.
+- :mod:`langstream_tpu_torch.agents` — ``TorchServiceProvider``: the
+  completions and embeddings services the platform's AI agents call
+  (``serve_torch.py`` at the repository root registers it).
+- :mod:`langstream_tpu_torch.serving` — ``TorchServingEngine``: submit-time
+  checks, warmup, FIFO admission, batched prefill, K-step decode chunks
+  (light and heavy regimes), one packed device-to-host fetch per chunk;
+  ``EmbeddingEngine`` for the encoder.
 - :mod:`langstream_tpu_torch.models` — Llama math (dense and paged), int8
-  weights, int8 KV rows, the paged pool and its host-side block manager.
+  weights, int8 KV rows, the paged pool and its host-side block manager,
+  the BERT-class encoder and the HF checkpoint loader.
 - :mod:`langstream_tpu_torch.ops` — the hand-written Hopper kernels (CUDA
   C++ under ``ops/csrc``) beside their plain PyTorch versions.
 

@@ -457,10 +457,14 @@ def llama_decode_chunk_paged(
     num_read_blocks: int,         # block columns covering the longest slot
     sample_extras=None,           # (presences, frequencies, counts0 (B, V))
     return_packed: bool = False,
+    commit_inactive: bool = False,
 ):
     """K fused decode steps against the paged pool: the pool is read-only,
     each step's new K/V lands in a chunk buffer ``(L, B, K, Kh, D)``, and
-    one scatter commits the buffer at the end.
+    one scatter commits the buffer at the end. Inactive slots' rows go to
+    scratch block 0, unless ``commit_inactive`` (a pool without a scratch
+    block): then they land past the slot's own length, where no read
+    looks.
 
     Returns ``(chunk_tokens (K,B), chunk_logprobs (K,B), final_tokens,
     final_lengths, pool_k, pool_v)``, or with ``return_packed``
@@ -534,7 +538,8 @@ def llama_decode_chunk_paged(
         out_lps.append(lp_)
 
     L = c.layers
-    valid = active[:, None].expand(B, num_steps)
+    valid = (torch.ones_like(active) if commit_inactive else active)[:, None].expand(
+        B, num_steps)
     pool_k = write_rows(pool_k, kbuf.reshape(L, B, num_steps, KhD),
                         block_tables, base_lengths, valid)
     pool_v = write_rows(pool_v, vbuf.reshape(L, B, num_steps, KhD),
@@ -576,7 +581,9 @@ def llama_decode_chunk_dense_pallas(
     degenerate block pool — slot ``b``'s rows are the contiguous blocks
     ``[b*S/bs, (b+1)*S/bs)`` — so the cache viewed as
     ``(L, B*S/bs, bs, Kh*D)`` with identity block tables goes through the
-    same kernel (and the commit writes through the view, in place)."""
+    same kernel (and the commit writes through the view, in place). Block
+    0 is slot 0's first rows here, not scratch, so inactive slots commit
+    into their own rows past their length instead."""
     c = config
     L, B, S, Kh, D = cache_k.shape
     bs = dense_block_size(S, block_size)
@@ -594,5 +601,6 @@ def llama_decode_chunk_dense_pallas(
         c, params, tokens0, base_lengths, active, pool_k, pool_v, tables,
         sample_fn, num_steps, num_read_blocks=num_read_blocks,
         sample_extras=sample_extras, return_packed=return_packed,
+        commit_inactive=True,
     )
     return out[:-2] + (cache_k, cache_v)

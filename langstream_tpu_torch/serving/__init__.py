@@ -1,1 +1,2 @@
-"""Serving layer of the port: the engine and the on-device sampler."""
+"""Serving layer of the port: the engine, its sampler and deadlines, and
+the embedding engine."""

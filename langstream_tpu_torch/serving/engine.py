@@ -14,8 +14,12 @@ Execution model:
   remaining tokens exceed the chunk claims its slot at admission and then
   prefills one chunk per loop pass (continuation path again), interleaved
   with the decode chunks of the other slots.
-- Decode runs in chunks of ``decode-chunk`` fused steps over the active
-  slots (halved while every request needs fewer). The KV cache — dense
+- Decode runs in bursts of chunks over the active slots, the JAX engine's
+  sequential loop: ``decode-chunk-light`` fused steps per chunk while at
+  most :meth:`TorchServingEngine._light_threshold` slots are active (the
+  TTFT regime), ``decode-chunk`` above it, halved while every request
+  needs fewer; a burst keeps its K until a slot finishes or queued work
+  can land in a free slot. The KV cache — dense
   ``(L, slots, S, Kh, D)`` read through identity block tables, or the paged
   pool — is read-only inside a chunk; one commit writes the chunk's rows.
 - Each chunk ends with exactly ONE device-to-host copy: the tokens and
@@ -30,6 +34,14 @@ Execution model:
   uplift; below 1 speculation turns off until ``_spec_retry_plain`` plain
   chunks have run (``stats()["speculative"]``).
 - Device work runs on one executor thread, so the asyncio loop stays live.
+- ``warmup-on-start``: the first request starts one shared warmup task (a
+  lone greedy probe, then a concurrent wave) and every early request awaits
+  it; see :meth:`TorchServingEngine.warmup`.
+- Submit-time refusals, as in the JAX engine: a request naming an
+  ``adapter`` (no adapter store here) raises ``ValueError``; one whose
+  ``deadline``/``deadline-s`` budget is spent raises
+  :class:`~langstream_tpu_torch.serving.deadline.DeadlineExceeded`; both
+  before the request queues.
 
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item; settings that only change latency are accepted and
@@ -43,6 +55,7 @@ import asyncio
 import dataclasses
 import logging
 import os
+import threading
 import time
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
@@ -53,6 +66,7 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch._device import require_device
+from langstream_tpu_torch.models.checkpoints import load_llama_checkpoint
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     init_llama_params,
@@ -83,6 +97,11 @@ from langstream_tpu_torch.ops.paged_attention import (
     _paged_attention_partial_q8,
     paged_attention_multiquery_partial,
     paged_attention_partial,
+)
+from langstream_tpu_torch.serving.deadline import (
+    DeadlineExceeded,
+    deadline_from_options,
+    remaining_s,
 )
 from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
 
@@ -219,9 +238,6 @@ class ServingConfig:
 #: settings this slice does not serve: (predicate, message)
 _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
     (lambda c: bool(c.mesh), "mesh: multi-GPU serving is ROADMAP.md Queue 1 item 13"),
-    (lambda c: bool(c.checkpoint),
-     "checkpoint: loading real weights waits for a checkpoint in the "
-     "repository (ROADMAP.md Queue 1 item 1); random init from seed only"),
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
@@ -239,15 +255,30 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
      "journal-dir: the crash-requeue journal is ROADMAP.md Queue 1 item 9"),
     (lambda c: c.incident_dir is not None,
      "incident-dir: incident capture is ROADMAP.md Queue 1 item 9"),
+    (lambda c: c.model in _MOE_MODELS and bool(c.checkpoint),
+     "checkpoint: MoE checkpoints (load_moe_checkpoint) are ROADMAP.md Queue 1 "
+     "item 12"),
     (lambda c: c.model in _MOE_MODELS, "MoE models are ROADMAP.md Queue 1 item 12"),
 )
 
 #: accepted settings that change only latency here; logged once when set
 _LATENCY_ONLY = (
-    "decode_chunk_light", "light_load_slots", "warmup_on_start", "pipeline",
-    "paged_kernel", "dense_kernel", "wedge_window_s", "stream_stall_s",
-    "shrink_fraction", "shrink_recovery_s",
+    "pipeline", "paged_kernel", "dense_kernel", "wedge_window_s",
+    "stream_stall_s", "shrink_fraction", "shrink_recovery_s",
 )
+
+#: request options the agents forward whose plane this port lacks: accepted,
+#: logged once per engine, not acted on
+_UNACTED_OPTIONS = {
+    "stream-key": "client-disconnect cancellation is the streaming plane, "
+                  "ROADMAP.md Queue 1 item 9",
+    "qos-tenant": "tenant scheduling is the QoS plane, ROADMAP.md Queue 1 item 9",
+    "priority": "priority classes are the QoS plane, ROADMAP.md Queue 1 item 9",
+    "deadline": "only spent budgets are refused; the admission-estimate shed "
+                "is the scheduler plane, ROADMAP.md Queue 1 item 9",
+    "deadline-s": "only spent budgets are refused; the admission-estimate shed "
+                  "is the scheduler plane, ROADMAP.md Queue 1 item 9",
+}
 
 
 def _check_supported(config: ServingConfig) -> None:
@@ -336,11 +367,43 @@ def _bucket(n: int, lo: int = 32, hi: int = 32768) -> int:
 
 
 class TorchServingEngine:
-    """The serving engine of the port. ``params=None`` means random init
-    from ``config.seed`` (``init_llama_params_q8`` for ``quantize: int8``,
-    else ``init_llama_params``); otherwise ``params`` is a port parameter
-    tree (see :func:`langstream_tpu_torch.models.convert.params_from_numpy`),
-    quantized here when the config asks for int8 and it is not."""
+    """The serving engine of the port. ``params=None`` means the weights of
+    ``config.checkpoint`` when set (an HF-format Llama directory, see
+    :func:`~langstream_tpu_torch.models.checkpoints.load_llama_checkpoint`),
+    else random init from ``config.seed`` (``init_llama_params_q8`` for
+    ``quantize: int8``, else ``init_llama_params``); otherwise ``params`` is
+    a port parameter tree (see
+    :func:`langstream_tpu_torch.models.convert.params_from_numpy`). Trees
+    not yet int8 are quantized here when the config asks for int8.
+
+    :meth:`get_or_create` shares one engine per ``(config, device)`` in the
+    process, as the JAX engine does per config: every agent of an
+    application that names the same resource reaches the same engine."""
+
+    _instances: dict[tuple, "TorchServingEngine"] = {}
+    _instances_lock = threading.Lock()
+
+    @classmethod
+    def get_or_create(cls, config: ServingConfig, device="cuda") -> "TorchServingEngine":
+        """The process's engine for ``(config, device)``, made on first
+        use. An engine that was closed, or whose event loop has closed (a
+        finished ``asyncio.run``), is replaced: its loop task and events
+        cannot serve another loop."""
+        _check_supported(config)  # before hashing: rejected keys hold dicts
+        key = (config, str(torch.device(device)))
+        with cls._instances_lock:
+            engine = cls._instances.get(key)
+            if engine is None or engine._stale():
+                if engine is not None:
+                    engine._executor.shutdown(wait=False)
+                engine = cls._instances[key] = cls(config, device=device)
+            return engine
+
+    @classmethod
+    def reset_instances(cls) -> None:
+        """Forget every shared engine (the caller closes them)."""
+        with cls._instances_lock:
+            cls._instances.clear()
 
     def __init__(self, config: ServingConfig, *, device="cuda",
                  params: dict | None = None):
@@ -384,6 +447,14 @@ class TorchServingEngine:
         self._wake = asyncio.Event()
         self._stop = False
         self._loop_task: asyncio.Task | None = None
+        # the event loop of the first request: the engine's task, event and
+        # warmup belong to it (get_or_create replaces the engine once it
+        # has closed)
+        self._event_loop: asyncio.AbstractEventLoop | None = None
+        self._warmup_task: asyncio.Task | None = None
+        self._warmup_result: dict | None = None
+        self._unacted_logged: set[str] = set()
+        self.deadline_sheds = 0
         # one dispatch thread: device work is serialised, asyncio stays live
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="torch-engine"
@@ -447,6 +518,11 @@ class TorchServingEngine:
     def _init_model(self, params: dict | None) -> None:
         mc, dev = self.model_config, self.device
         int8 = self.config.quantize == "int8"
+        if params is None and self.config.checkpoint:
+            # loaded on the CPU in the model dtype, then moved and (int8)
+            # quantized: the JAX engine's order, so the bf16 rounding
+            # happens before the quantizer as there
+            params = load_llama_checkpoint(self.config.checkpoint, mc)
         if params is None:
             log.warning(
                 "no checkpoint configured for model %r: using random-init "
@@ -521,15 +597,32 @@ class TorchServingEngine:
         options: dict[str, Any] | None = None,
         on_token: Callable[[int, float, bool], Any] | None = None,
         on_chunk: Callable[[list, str, bool], Any] | None = None,
+        _warmup_probe: bool = False,
     ) -> dict[str, Any]:
         """Generate a completion. ``on_token(token_id, logprob, last)`` fires
         per token; ``on_chunk(new_token_ids, new_text, is_final)`` once per
         request per decode chunk, with text deltas that concatenate to the
         final ``text`` (both sync or async). Returns
-        ``{"tokens", "text", "logprobs", "num_prompt_tokens", "ttft"}``."""
+        ``{"tokens", "text", "logprobs", "num_prompt_tokens", "ttft"}``.
+
+        Refused before the request queues: ``adapter`` (``ValueError``: no
+        adapter store in this port) and a spent ``deadline``/``deadline-s``
+        budget (:class:`DeadlineExceeded`). ``_warmup_probe`` is internal:
+        warmup's own requests skip the warmup gate (they are the warmup)."""
         if self._stop:
             raise RuntimeError("serving engine is stopped (closed)")
+        self._event_loop = self._event_loop or asyncio.get_running_loop()
         options = options or {}
+        if self.config.warmup_on_start and not _warmup_probe:
+            # one shared task: every early arrival awaits it; a warmup
+            # failure is logged by the task's callback, never surfaced as
+            # this request's failure
+            task = self._warmup_begun()
+            if not task.done():
+                try:
+                    await asyncio.shield(task)
+                except Exception:
+                    pass
         tokens = (
             self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
         )
@@ -552,6 +645,26 @@ class TorchServingEngine:
                 f"more than the paged pool can ever hold; lower max-tokens or "
                 f"grow kv-pool-blocks/kv-pool-fraction"
             )
+        adapter = str(options.get("adapter", "") or "")
+        if adapter:
+            # refused loudly at submit: a silently-ignored adapter would
+            # serve base-model output under the tenant's fine-tune name
+            raise ValueError(
+                f"request names adapter {adapter!r} but this engine has "
+                "no adapter store configured (serving adapter-store)"
+            )
+        self._log_unacted(options)
+        deadline = deadline_from_options(options)
+        if deadline is not None and not _warmup_probe:
+            left = remaining_s(deadline)
+            if left <= 0.0:
+                # an unmeetable budget is refused before it queues: never
+                # a silent late completion
+                self.deadline_sheds += 1
+                raise DeadlineExceeded(
+                    f"deadline exceeded at submit: {left:.3f}s of budget "
+                    f"left, admission estimate 0.000s",
+                )
         loop = asyncio.get_running_loop()
         request = _Request(
             prompt_tokens=tokens,
@@ -615,6 +728,8 @@ class TorchServingEngine:
             out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
         if self.config.speculative_drafts > 0:
             out["speculative"] = self.speculative_section()
+        out["deadline-sheds"] = self.deadline_sheds
+        out["warmup"] = {"state": self._warmup_state(), **(self._warmup_result or {})}
         return out
 
     def speculative_section(self) -> dict[str, Any]:
@@ -636,10 +751,93 @@ class TorchServingEngine:
             "window_plain": len(self._plain_window),
         }
 
+    def _log_unacted(self, options: dict) -> None:
+        for key, why in _UNACTED_OPTIONS.items():
+            if key not in self._unacted_logged and options.get(key) not in (None, ""):
+                self._unacted_logged.add(key)
+                log.info("request option %r accepted, not acted on by this "
+                         "engine: %s", key, why)
+
+    def _stale(self) -> bool:
+        """Closed, or bound to an event loop that has closed."""
+        return self._stop or (
+            self._event_loop is not None and self._event_loop.is_closed()
+        )
+
+    # ------------------------------------------------------------------
+    # warmup
+    # ------------------------------------------------------------------
+
+    def _warmup_state(self) -> str:
+        """``not-required`` (no ``warmup-on-start``, no explicit call),
+        ``pending`` (``warmup-on-start``, no request yet), ``running``,
+        ``done`` or ``failed``."""
+        task = self._warmup_task
+        if task is None:
+            return "pending" if self.config.warmup_on_start else "not-required"
+        if not task.done():
+            return "running"
+        return "failed" if task.cancelled() or task.exception() else "done"
+
+    def _warmup_begun(self) -> asyncio.Task:
+        """The one shared warmup task, created on first need (an explicit
+        :meth:`warmup` call or the ``warmup-on-start`` gate) and credited
+        to both."""
+        if self._warmup_task is None:
+            self._warmup_task = asyncio.ensure_future(self._do_warmup())
+
+            def _log_done(task: asyncio.Task) -> None:
+                if task.cancelled():
+                    return
+                if task.exception() is not None:
+                    log.error("engine warmup failed; serving continues cold",
+                              exc_info=task.exception())
+                else:
+                    log.info("engine warmup complete: %s", task.result())
+
+            self._warmup_task.add_done_callback(_log_done)
+        return self._warmup_task
+
+    async def warmup(self) -> dict[str, Any]:
+        """Run the serving path once before real traffic (see
+        :meth:`_do_warmup`). Idempotent: shares one task with the
+        ``warmup-on-start`` gate, so the probe and wave never repeat."""
+        return await asyncio.shield(self._warmup_begun())
+
+    async def _do_warmup(self) -> dict[str, Any]:
+        """A lone greedy probe of ``max(decode-chunk, decode-chunk-light) +
+        1`` tokens (single-row prefill, a light-regime burst), then a
+        concurrent wave of ``min(slots, max(2, light threshold + 1,
+        prefill-batch))`` probes (padded batch prefill, a heavy-regime
+        burst), as the JAX engine's warmup. There it settles XLA compiles;
+        here it settles what the first requests would otherwise pay: the
+        kernels' first build and load and their first launches, the
+        caching allocator's first growth, and cuBLAS's handles and
+        workspaces. Probe tokens count toward the engine's counters (they
+        ran on the device); probe results go to no caller."""
+        t0 = time.monotonic()
+        text = "engine warmup probe text. " * 4
+        k = max(self.config.decode_chunk, self.config.decode_chunk_light) + 1
+        opts = {"max-tokens": k, "temperature": 0}
+        await self.generate(text, dict(opts), _warmup_probe=True)
+        wave = min(
+            self.config.slots,
+            max(2, self._light_threshold() + 1, self.config.prefill_batch),
+        )
+        await asyncio.gather(*(
+            self.generate(text, dict(opts), _warmup_probe=True)
+            for _ in range(wave)
+        ))
+        self._warmup_result = {"probe_tokens": k, "wave": wave,
+                               "seconds": time.monotonic() - t0}
+        return self._warmup_result
+
     async def close(self) -> None:
         self._stop = True
         self._wake.set()
-        if self._loop_task is not None:
+        if self._warmup_task is not None and not self._warmup_task.done():
+            self._warmup_task.cancel()
+        if self._loop_task is not None and not self._loop_task.done():
             await self._loop_task
         self._executor.shutdown(wait=True)
         closed = RuntimeError("serving engine closed")
@@ -677,7 +875,7 @@ class TorchServingEngine:
                 if self._speculating(active):
                     await self._speculative_burst(loop, active)
                 else:
-                    await self._decode_chunk(loop, active)
+                    await self._decode_burst(loop, active)
             except Exception as e:  # device/runtime error: fail in-flight work,
                 # free the slots, keep serving (callers see the exception)
                 log.exception("serving engine step failed")
@@ -961,11 +1159,56 @@ class TorchServingEngine:
     # decode
     # ------------------------------------------------------------------
 
-    async def _decode_chunk(self, loop, active: list[int],
-                            num_steps: int | None = None) -> None:
-        """One chunk of ``num_steps`` (default ``decode-chunk``) fused decode
-        steps over the active slots, one packed fetch, then per-token host
-        processing."""
+    def _light_threshold(self) -> int:
+        """Active-slot count at or below which bursts run
+        ``decode-chunk-light`` steps per chunk (the TTFT regime); 0 when the
+        light chunk is off or would not be shorter."""
+        cfg = self.config
+        if cfg.decode_chunk_light <= 0 or cfg.decode_chunk_light >= cfg.decode_chunk:
+            return 0
+        if cfg.light_load_slots is not None:
+            return cfg.light_load_slots
+        return max(1, cfg.slots // 8)
+
+    def _burst_steps(self, active: list[int]) -> int:
+        """K of a burst over ``active``, the JAX engine's rule: the light or
+        the full chunk, halved while it is at least twice the longest
+        remaining budget (and twice the light chunk)."""
+        cfg = self.config
+        light = len(active) <= self._light_threshold()
+        K = cfg.decode_chunk_light if light else cfg.decode_chunk
+        max_remaining = 1
+        for slot_id in active:
+            request = self.slots[slot_id].request
+            max_remaining = max(max_remaining, request.max_tokens - len(request.generated))
+        while K >= 2 * max(max_remaining, cfg.decode_chunk_light, 1):
+            K //= 2
+        return K
+
+    def _burst_should_yield(self, finished: bool) -> bool:
+        """A burst ends when the loop can make progress elsewhere: a slot
+        finished, a prefill is mid-flight, the engine stops, or queued work
+        can land in a free slot (a queue with every slot busy keeps the
+        burst going)."""
+        if self._stop or self._has_prefilling() or finished:
+            return True
+        if not self._queue:
+            return False
+        return any(s.free for s in self.slots)
+
+    async def _decode_burst(self, loop, active: list[int]) -> None:
+        """Decode chunks of one K over a fixed set of active slots, one at a
+        time, until :meth:`_burst_should_yield` (the JAX engine's
+        sequential loop: its light-load, penalty and ``pipeline: false``
+        posture)."""
+        K = self._burst_steps(active)
+        while not self._burst_should_yield(await self._decode_chunk(loop, active, K)):
+            pass
+
+    async def _decode_chunk(self, loop, active: list[int], K: int) -> bool:
+        """One chunk of ``K`` fused decode steps over the active slots, one
+        packed fetch, then per-token host processing; True when a slot
+        finished."""
         cfg = self.config
         active_mask = np.zeros(cfg.slots, dtype=bool)
         active_mask[active] = True
@@ -973,14 +1216,6 @@ class TorchServingEngine:
             self._temps[active_mask], self._topks[active_mask],
             self._topps[active_mask],
         )
-        K = num_steps or cfg.decode_chunk
-        max_remaining = 1
-        for slot_id in active:
-            request = self.slots[slot_id].request
-            max_remaining = max(max_remaining, request.max_tokens - len(request.generated))
-        # never fuse far past the longest remaining budget
-        while K >= 2 * max_remaining:
-            K //= 2
         pen = bool(
             (self._pres[active_mask] != 0).any() or (self._freq[active_mask] != 0).any()
         )
@@ -1016,10 +1251,11 @@ class TorchServingEngine:
         n = K * cfg.slots
         chunk_t = packed[:n].reshape(K, cfg.slots)
         chunk_lp = packed[n:].view(np.float32).reshape(K, cfg.slots)
-        self._process_chunk(chunk_t, chunk_lp, active)
+        finished = self._process_chunk(chunk_t, chunk_lp, active)
         await self._flush_emits()
         if cfg.speculative_drafts > 0 and self._spec_auto_disabled:
             self._spec_count_plain_chunk()
+        return finished
 
     @torch.no_grad()
     def _run_decode(self, tokens, lengths, active_mask, tables, window, K, mode,
@@ -1191,7 +1427,7 @@ class TorchServingEngine:
             if self._spec_cal_due():
                 t_wall = time.monotonic()
                 before = self.total_generated
-                await self._decode_chunk(loop, live, num_steps=1)
+                await self._decode_chunk(loop, live, 1)
                 self._spec_note_plain(self.total_generated - before,
                                       time.monotonic() - t_wall)
                 self._spec_steps_since_cal = 0
@@ -1291,8 +1527,10 @@ class TorchServingEngine:
     # host-side token handling
     # ------------------------------------------------------------------
 
-    def _process_chunk(self, chunk_tokens, chunk_lps, active: list[int]) -> None:
+    def _process_chunk(self, chunk_tokens, chunk_lps, active: list[int]) -> bool:
+        """Apply a chunk's tokens; True when a slot finished."""
         K = chunk_tokens.shape[0]
+        finished = False
         for slot_id in active:
             for k in range(K):
                 if self.slots[slot_id].request is None:
@@ -1300,7 +1538,9 @@ class TorchServingEngine:
                 self._lengths[slot_id] += 1
                 token = int(chunk_tokens[k, slot_id])
                 self._current[slot_id] = token
-                self._emit_token(slot_id, token, float(chunk_lps[k, slot_id]))
+                finished |= self._emit_token(slot_id, token,
+                                             float(chunk_lps[k, slot_id]))
+        return finished
 
     def _emit_token(self, slot_id: int, token: int, logprob: float) -> bool:
         """Apply one token to its request; returns True when it finished."""

@@ -302,18 +302,36 @@ def test_prefill_forward_matches_jax(tiny):
 
 def test_llama_forward_matches_hf_golden():
     """The port against the independent HF reference fixture, params loaded
-    by the JAX package's loader and carried across."""
-    from langstream_tpu.models.checkpoints import load_llama_checkpoint
+    by the port's own loader: forward logits within 2e-3, and the engine
+    (``checkpoint:`` the fixture) decodes HF's greedy continuation."""
+    import asyncio
+
+    from langstream_tpu_torch.models.checkpoints import load_llama_checkpoint
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     golden = np.load(FIXTURES / "golden.npz")
-    jc, tc = _configs()
-    params = params_from_numpy(
-        flatten_jax_params(load_llama_checkpoint(str(FIXTURES), jc)), device="cpu"
-    )
+    _, tc = _configs()
+    params = load_llama_checkpoint(str(FIXTURES), tc)
     for p in (0, 1):
         tokens = torch.from_numpy(golden[f"prompt_{p}"][None, :]).long()
         logits = tl.llama_forward(tc, params, tokens)[0].numpy()
         np.testing.assert_allclose(logits, golden[f"logits_{p}"], rtol=2e-3, atol=2e-3)
+
+    engine = TorchServingEngine(ServingConfig.from_dict({
+        "model": "tiny", "model-dtype": "float32", "max-seq-len": 128,
+        "checkpoint": str(FIXTURES)}), device="cpu")
+
+    async def greedy():
+        try:
+            return await asyncio.gather(*(
+                engine.generate(golden[f"prompt_{p}"].tolist(),
+                                {"max-tokens": len(golden[f"greedy_{p}"]), "temperature": 0})
+                for p in (0, 1)))
+        finally:
+            await engine.close()
+
+    for p, result in enumerate(asyncio.run(greedy())):
+        assert result["tokens"] == golden[f"greedy_{p}"].tolist()
 
 
 def _greedy_jax(logits, key, counts=None):
@@ -423,12 +441,15 @@ def test_dense_decode_chunk_matches_jax_dense_chunk(tiny):
     )
     np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_j[0]))
     np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_j[1]), rtol=1e-5, atol=1e-5)
-    # the commit wrote the active slots' new rows through the view
+    # the commit wrote the active slots' new rows through the view and left
+    # their earlier rows alone (the inactive slot has no scratch block to
+    # commit into: it must not land on slot 0's first rows)
     for b in np.nonzero(active)[0]:
         n = lengths[b]
-        np.testing.assert_allclose(out_t[4][:, b, n:n + 4].numpy(),
-                                   np.asarray(out_j[4])[:, b, n:n + 4],
-                                   rtol=1e-5, atol=1e-5)
+        for cache_t, cache_j in ((out_t[4], out_j[4]), (out_t[5], out_j[5])):
+            np.testing.assert_allclose(cache_t[:, b, :n + 4].numpy(),
+                                       np.asarray(cache_j)[:, b, :n + 4],
+                                       rtol=1e-5, atol=1e-5)
 
 
 def test_pack_tokens_logprobs_matches_jax():
