@@ -45,6 +45,15 @@ Phases (every one unguarded: any failure exits non-zero):
    a stop string; an ``adapter`` and a spent ``deadline`` refused before
    they queue; then the embeddings service (minilm-l6) on the card against
    the CPU within 1e-4;
+   main path F: the saturated load, 96 greedy requests (30-600 byte tokens,
+   max-tokens cycling 48/96/128/160) on 64 slots, four times: F1 the chat
+   example's resource (dense bf16 KV) with the pipelined loop, F2 the same
+   with ``pipeline: false``, F3/F4 paged int8 KV pipelined/sequential; per
+   run decode tok/s, ms per step, steps per dispatch,
+   ``host_fetches_per_chunk`` (must be 1.0), the flight split (device,
+   exposed host, stall, overlapped host) and idle share, the attribution's expected against achieved decode ms at
+   the card's bandwidth, device-cache counts and peak memory; F1's greedy
+   streams against F2's (recorded); the block manager idle after F3/F4;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -53,8 +62,9 @@ Phases (every one unguarded: any failure exits non-zero):
    KV, and paged with the prefix cache, with chunked
    prefill and with int8 KV; speculative on bf16/f32 and int8 KV, a
    repetitive prompt added so drafts land, the f32 streams also equal to
-   speculation off);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-E),
+   speculation off; the pipelined loop, dense and paged int8 KV, under a
+   mixed-length load of 8 requests on 3 slots);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-F),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -955,13 +965,15 @@ def phase_provider_path(torch, resource: dict, device="cuda", max_tokens=32) -> 
             out["a"] = await stream_chat(service, chats[0], opts)
             out["a_wall"] = time.monotonic() - t
             out["warmup"] = engine.stats()["warmup"]
-            # (b) light and (c) heavy waves, every request streamed
+            # (b) light and (c) heavy waves, every request streamed; the
+            # counts once the loop has applied the heavy wave's over-run chunk
             for name, n in (("b", 8), ("c", 24)):
                 before = engine.stats()
                 t = time.monotonic()
                 out[name] = await asyncio.gather(*(
                     stream_chat(service, chats[1 + i], opts) for i in range(n)))
                 out[name + "_wall"] = time.monotonic() - t
+                await engine.settled()
                 out[name + "_dc"] = dc_delta(before, engine.stats())
             # (d) a stop string the request's greedy text contains
             plain = out["a"][0].text
@@ -1074,6 +1086,198 @@ def phase_provider_path(torch, resource: dict, device="cuda", max_tokens=32) -> 
     return counts
 
 
+F_BUDGETS = (48, 96, 128, 160)
+
+
+def saturated_requests(n: int = 96) -> list[tuple[str, int]]:
+    """Path F's load: ``n`` greedy requests of 30-600 byte tokens, their
+    max-tokens cycling through ``F_BUDGETS``, so slots finish mid-burst and
+    the 32 requests queued behind 64 slots are admitted under a pending
+    chunk."""
+    text = ("Customer wrote: my order arrived late and the box was damaged; "
+            "please advise on a refund or a replacement and the steps to "
+            "return the item. ") * 8
+    out = []
+    for i in range(n):
+        length = 30 + (i * 577) % 571  # 30..600
+        prompt = (f"#{i} " + text)[:length]
+        out.append((prompt, F_BUDGETS[i % len(F_BUDGETS)]))
+    return out
+
+
+def _decode_k(program: str | None) -> int | None:
+    """K of a decode program id (``decode:w<rows>:k<K>:<sampler>``)."""
+    if not program or not program.startswith("decode:"):
+        return None
+    return int(program.split(":")[2][1:])
+
+
+def phase_saturated_path(torch, label, cfg: dict, params=None, device="cuda"):
+    """One run of main path F: the saturated load through one engine. Returns
+    (results, launch counts, the engine's params)."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    requests = saturated_requests()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+    async def run():
+        t0 = time.monotonic()
+
+        async def one(prompt, max_tokens):  # its result and completion time
+            r = await engine.generate(prompt, {"max-tokens": max_tokens, "temperature": 0})
+            return r, time.monotonic() - t0
+
+        try:
+            done = await asyncio.gather(*(one(p, m) for p, m in requests))
+            return done, time.monotonic() - t0
+        finally:
+            await engine.close()
+
+    reset_counts()
+    done, wall = asyncio.run(run())
+    results = [r for r, _ in done]
+    latency = sorted(t for _, t in done)
+    counts = read_counts()
+    stats = engine.stats()  # after close: the loop has applied every chunk
+    dc = stats["decode-chunks"]
+    for i, ((_, budget), r) in enumerate(zip(requests, results)):
+        if not 0 < len(r["tokens"]) <= budget or r["finish_reason"] not in ("stop", "length"):
+            fail(f"{label}: request {i} returned {len(r['tokens'])} tokens of {budget}, "
+                 f"finish_reason {r['finish_reason']!r}")
+        if not all(math.isfinite(x) for x in r["logprobs"]):
+            fail(f"{label}: request {i} has non-finite logprobs")
+    if dc["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk {dc['host_fetches_per_chunk']} != 1.0")
+    if stats["completed"] != len(requests) or stats["active"] or stats["queued"]:
+        fail(f"{label}: {stats['completed']} of {len(requests)} completed, "
+             f"{stats['active']} active, {stats['queued']} queued")
+    if "kv" in stats:
+        kv = stats["kv"]
+        if kv["reserved_blocks"] or kv["live_blocks"] or engine._deferred_releases:
+            fail(f"{label}: the block manager is not idle after the load: {kv}, "
+                 f"deferred {engine._deferred_releases}")
+    flight = engine.flight
+    summary = flight.summary()
+    totals = summary["totals"]
+    if flight.dropped:
+        fail(f"{label}: the flight ring dropped {flight.dropped} samples")
+    decode_tokens = stats["total-generated"] - len(requests)  # less the prefills' tokens
+    att = stats["attribution"]
+    programs = [
+        f"{p['program']} x{p['dispatches']}: expected {p['expected']['expected_ms']:.2f} "
+        f"ms ({p['expected']['expected_ms'] / _decode_k(p['program']):.3f}/step) "
+        f"achieved p50 {p['measured_ms_p50']:.2f} ms "
+        f"({p['measured_ms_p50'] / _decode_k(p['program']):.2f}/step) "
+        f"achieved_vs_expected {p['achieved_vs_expected']}"
+        for p in att["programs"] if p["kind"] == "decode" and p["measured_ms_p50"]
+    ]
+    wall_ms = totals["wall_ms"]
+    report = {
+        "wall_s": round(wall, 3),
+        # seconds from the wave's submission to each request's result
+        "latency_s_p50_p95": (round(latency[len(latency) // 2], 3),
+                              round(latency[int(0.95 * len(latency))], 3)),
+        "ttft_s_p50": round(sorted(r["ttft"] for r in results)[len(results) // 2], 3),
+        "decode_tok_s": round(decode_tokens / dc["seconds"], 1) if dc["seconds"] else 0.0,
+        "ms_per_step": round(dc["seconds"] / dc["steps"] * 1e3, 2) if dc["steps"] else None,
+        "steps_per_dispatch": round(dc["steps"] / dc["dispatched"], 2),
+        "chunks_light_heavy": (dc["light"], dc["heavy"]),
+        "launch_s": round(dc["launch_seconds"], 3),
+        "flight_s": {k: round(totals[k] / 1e3, 3)
+                     for k in ("wall_ms", "device_ms", "host_ms", "stall_ms")},
+        "host_overlapped_ms": totals["host_overlapped_ms"],
+        "overlap_ratio": summary["window"]["overlap_ratio"],
+        "idle_share": round((totals["host_ms"] + totals["stall_ms"]) / wall_ms, 4)
+        if wall_ms else None,
+    }
+    print(f"main path [{label}]: requests={len(requests)} tokens={stats['total-generated']} "
+          f"host_fetches_per_chunk={dc['host_fetches_per_chunk']} "
+          f"pipeline={stats['pipeline']} {json.dumps(report)} "
+          f"device_cache={json.dumps(stats['device-cache'])} launches={counts} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0:.1f}",
+          flush=True)
+    print(f"main path [{label}]: attribution at {att['hbm_gbps_assumed']} GB/s "
+          f"(generation {att['generation']}, memory limit "
+          f"{att['memory']['limit_bytes']} from {att['memory']['limit_source']}): "
+          + "; ".join(programs), flush=True)
+    return results, counts, engine.params
+
+
+def profiled_saturated_wave(torch, label, cfg: dict, params) -> None:
+    """All slots busy under the profiler (device activity only): one greedy
+    request of 97 tokens per slot, three K=32 chunks each, so the pipelined
+    loop keeps a chunk in flight; prints the device's busy share of the
+    profiled span (its idle share is the rest)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device="cuda", params=params)
+    prompts = [p for p, _ in saturated_requests(cfg["slots"])]
+
+    async def run():
+        try:
+            return await asyncio.gather(*(
+                engine.generate(p, {"max-tokens": 97, "temperature": 0}) for p in prompts))
+        finally:
+            await engine.close()
+
+    with torch_profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.monotonic()
+        results = asyncio.run(run())
+        wall = time.monotonic() - t0
+    dc = engine.stats()["decode-chunks"]
+    print(f"main path [{label}, profiled wave of {len(prompts)} x 97 tokens]: "
+          f"tokens={sum(len(r['tokens']) for r in results)} "
+          f"chunks={dc['dispatched']} steps={dc['steps']}", flush=True)
+    print(device_breakdown(torch, prof, wall), flush=True)
+
+
+def phase_saturated(torch, base: dict, device="cuda") -> dict:
+    """Main path F: the saturated load (96 greedy requests on 64 slots) four
+    times: F1 the chat example's resource (dense bf16 KV) pipelined, F2 the
+    same sequential, F3 paged int8 KV pipelined, F4 the same sequential.
+    Compares F1's greedy streams with F2's (recorded, not required: bf16
+    near-ties may flip). Returns the launch counts summed over the runs."""
+    dense = {**base, "decode-chunk-light": 8}
+    paged = {**dense, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False}
+    runs = [("F1: dense bf16 KV, pipeline", {**dense, "pipeline": True}),
+            ("F2: dense bf16 KV, sequential", {**dense, "pipeline": False}),
+            ("F3: paged int8 KV, pipeline", {**paged, "pipeline": True}),
+            ("F4: paged int8 KV, sequential", {**paged, "pipeline": False})]
+    total: dict[str, int] = {}
+    params, out = None, {}
+    for label, cfg in runs:
+        results, counts, params = phase_saturated_path(torch, label, cfg, params, device)
+        if device == "cuda" and label[:2] in ("F1", "F2"):
+            profiled_saturated_wave(torch, label, cfg, params)
+        out[label[:2]] = results
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    same = n_all = 0
+    forks = []
+    for a, b in zip(out["F1"], out["F2"]):
+        n = min(len(a["tokens"]), len(b["tokens"]))
+        common = next((i for i in range(n) if a["tokens"][i] != b["tokens"][i]), n)
+        same += common
+        n_all += max(len(a["tokens"]), len(b["tokens"]))
+        if common < n:
+            forks.append((common, round(a["logprobs"][common], 4),
+                          round(b["logprobs"][common], 4)))
+    print(f"main path [F1 vs F2]: greedy common prefix {same}/{n_all} tokens "
+          f"({same / n_all:.3f}); {len(forks)} streams diverge; first divergences "
+          f"(position, logprob pipelined, logprob sequential): {forks[:12]}", flush=True)
+    del params
+    return total
+
+
 def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
     from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
@@ -1090,7 +1294,8 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
     golden = np.load(golden_dir / "golden.npz")
     golden_prompts = [golden[f"prompt_{p}"].tolist() for p in (0, 1)]
 
-    def run_layout(layout, device, prompts):
+    def run_layout(layout, device, prompts, budgets=None):
+        """Two waves of ``prompts`` (12 tokens each, or ``budgets``)."""
         cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3,
                "max-seq-len": 256, "decode-chunk": 4, **layout}
         # no uplift calibration here: its verdict is a wall-clock ratio and
@@ -1103,10 +1308,18 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
         finally:
             os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
 
+        async def wave():
+            if budgets is None:
+                return (await serve(engine, prompts, 12))[0]
+            return await asyncio.gather(*(
+                engine.generate(p, {"max-tokens": m, "temperature": 0})
+                for p, m in zip(prompts, budgets)))
+
         async def run():
             try:  # two waves in turn: with the prefix cache the second hits
-                first, _, _ = await serve(engine, prompts, 12)
-                second, _, stats = await serve(engine, prompts, 12)
+                first = await wave()
+                second = await wave()
+                stats = engine.stats()
                 if "checkpoint" in layout:  # HF's greedy continuations
                     golden_out = await asyncio.gather(*(
                         engine.generate(p, {"max-tokens": len(golden[f"greedy_{i}"]),
@@ -1118,6 +1331,8 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
                 await engine.close()
 
         results, stats = asyncio.run(run())
+        if budgets is not None and stats["decode-chunks"]["heavy"] == 0:
+            fail(f"card vs CPU {layout}: the mixed load ran no heavy (pipelined) chunk")
         return [r["tokens"] for r in results], stats
 
     checkpoint = {"checkpoint": str(golden_dir)}
@@ -1171,6 +1386,21 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
         shown = {k: ("fixture" if k == "checkpoint" else v) for k, v in layout.items()}
         print(f"card vs CPU [{shown}]: {2 * len(wave)} greedy streams identical, "
               f"prefix_hits={out['cuda'][1]}{extra}", flush=True)
+
+    # the pipelined loop under a mixed-length load with more requests than
+    # slots: slots finish mid-burst and freeze, queued requests are admitted
+    # under a pending chunk
+    mixed = prompts + ["judge my vow", "abcdefgh, ijklmnop", "the quick brown fox"]
+    budgets = [5, 12, 9, 16, 7, 21, 11, 14]
+    for layout in ({"kv-layout": "dense", "pipeline": True, "decode-chunk-light": 0},
+                   {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
+                    "kv-quantize": "int8", "pipeline": True}):
+        out = {name: run_layout(layout, device, mixed, budgets)[0]
+               for name, device in zip(("cuda", "cpu"), devices)}
+        if out["cuda"] != out["cpu"]:
+            fail(f"card vs CPU {layout}: pipelined greedy tokens differ:\n{out}")
+        print(f"card vs CPU [{layout}]: {2 * len(mixed)} greedy streams of a mixed-length "
+              f"load ({len(mixed)} requests on 3 slots) identical", flush=True)
 
 
 def main() -> int:
@@ -1248,7 +1478,12 @@ def main() -> int:
     e_counts = phase_provider_path(torch, CHAT_EXAMPLE_RESOURCE)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"phase main path: {time.monotonic() - t0:.1f} s", flush=True)
+    t_f = time.monotonic()
+    f_counts = phase_saturated(torch, base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
+          f"{time.monotonic() - t_f:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -1257,8 +1492,8 @@ def main() -> int:
 
     # -- phase 6: kernels line, then the device line ------------------------
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
-             "E": e_counts}
-    meta = {  # launches: summed over the five main paths
+             "E": e_counts, "F": f_counts}
+    meta = {  # launches: summed over the six main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -72,6 +72,20 @@ class LlamaConfig:
         )
 
 
+def param_count(config: LlamaConfig) -> int:
+    """Parameters of the model: attention, SwiGLU FFN and the two norms per
+    layer, embedding and LM head, the final norm."""
+    c = config
+    per_layer = (
+        c.hidden * c.heads * c.head_dim
+        + 2 * c.hidden * c.kv_heads * c.head_dim
+        + c.heads * c.head_dim * c.hidden
+        + 3 * c.hidden * c.intermediate
+        + 2 * c.hidden
+    )
+    return c.layers * per_layer + 2 * c.vocab_size * c.hidden + c.hidden
+
+
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------

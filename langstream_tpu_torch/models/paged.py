@@ -371,6 +371,13 @@ class BlockManager:
     def reserved_blocks(self) -> int:
         return self._reserved
 
+    def used_ratio(self) -> float:
+        """Admission pressure: the reserved share of the usable pool (the
+        flight recorder's ``kv_used``; admission gates on reservations,
+        not on allocated blocks)."""
+        usable = self.usable_blocks
+        return self._reserved / usable if usable > 0 else 1.0
+
     def admit(self, slot: int, total_tokens: int) -> None:
         need = self.blocks_needed(total_tokens)
         if not self.can_admit(total_tokens):

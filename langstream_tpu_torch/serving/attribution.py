@@ -1,0 +1,381 @@
+"""Device attribution plane: per-program cost ledger and device-memory
+ledger (port of ``langstream_tpu/serving/attribution.py``, carried over
+rather than imported).
+
+**Program cost ledger** (:class:`ProgramLedger`): for every program
+variant the engine dispatches (decode chunks by window, K and sampler;
+prefill buckets; continuations; speculative steps), an analytical cost
+(weight bytes streamed, KV bytes read and written, activation bytes,
+FLOPs) from the model's shape and the variant's static shape, paired with
+the measured device time of each dispatch (the flight recorder's sample
+of it). ``report()`` gives achieved-vs-expected per program: the gap to
+the roofline, split by program. The expected time is the bytes floor at
+the assumed bandwidth; decode is bound by memory bandwidth.
+
+**Device-memory ledger** (:func:`memory_ledger`): bytes by owner
+(weights, KV pool, sampler state, the device-upload caches, in-transit
+handoff payloads) and ``slack``, the detected limit minus everything
+accounted (the allocator's cache, kernels' workspaces, activations).
+Prefix-cache blocks live inside the pool, so they are a sub-owner and never
+counted twice.
+
+The program ids, the cost model and the report's keys are the JAX
+package's, so a census of one engine compares with the other's.
+Registration and observation are dict and deque updates on the engine
+loop; readers snapshot with ``dict()``/``list()`` and do arithmetic only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any
+
+import torch
+
+#: program kinds the ledger knows (mirrors flight PHASES + the
+#: continuation split the cost model needs)
+PROGRAM_KINDS = ("decode", "prefill", "prefill-continue", "verify")
+
+
+def tree_device_bytes(tree: Any) -> int:
+    """Total bytes of the tensors in a tree of dicts, lists, tuples and
+    ``QTensor`` (its ``q`` and ``s``); 0 for None. Attribute reads only,
+    never a device sync."""
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_device_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_device_bytes(v) for v in tree)
+    if hasattr(tree, "q") and hasattr(tree, "s"):  # QTensor
+        return tree_device_bytes(tree.q) + tree_device_bytes(tree.s)
+    return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShape:
+    """The static model facts every program cost derives from — built
+    once per engine so cost registration is pure arithmetic."""
+
+    layers: int
+    hidden: int
+    heads: int
+    kv_heads: int
+    head_dim: int
+    intermediate: int
+    vocab: int
+    #: total streamed weight bytes (measured from the live param tree,
+    #: so int8 scales and MoE experts are included exactly)
+    weight_bytes: int
+    #: parameter count (exact for llama trees; estimated from bytes for
+    #: MoE) — feeds the FLOPs term only
+    param_count: int
+    #: bytes per (position, kv-head) cache row, K or V (int8: head_dim
+    #: + 4-byte scale; otherwise head_dim × dtype width)
+    kv_row_bytes: int
+    #: activation dtype width (2 bf16 / 4 f32)
+    act_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgramCost:
+    """Analytical per-dispatch cost of one program variant."""
+
+    kind: str
+    weight_bytes: int
+    kv_read_bytes: int
+    kv_write_bytes: int
+    act_bytes: int
+    flops: int
+    hbm_gbps: float
+    #: tokens the dispatch advances when fully active (normalization)
+    tokens: int
+
+    @property
+    def total_bytes(self) -> int:
+        return (
+            self.weight_bytes + self.kv_read_bytes + self.kv_write_bytes
+            + self.act_bytes
+        )
+
+    def expected_ms(self) -> float:
+        """The memory-bandwidth floor for one dispatch of this program."""
+        return self.total_bytes / (self.hbm_gbps * 1e9) * 1e3
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "weight_bytes": self.weight_bytes,
+            "kv_read_bytes": self.kv_read_bytes,
+            "kv_write_bytes": self.kv_write_bytes,
+            "act_bytes": self.act_bytes,
+            "total_bytes": self.total_bytes,
+            "flops": self.flops,
+            "tokens": self.tokens,
+            "expected_ms": round(self.expected_ms(), 4),
+        }
+
+
+def decode_cost(
+    shape: ModelShape,
+    *,
+    slots: int,
+    window_rows: int,
+    k_steps: int,
+    hbm_gbps: float,
+) -> ProgramCost:
+    """One decode-chunk dispatch: ``k_steps`` fused steps over the full
+    ``slots`` batch, each streaming every weight byte and sweeping a
+    ``window_rows`` KV window per slot (K and V), writing one new row
+    per slot per step."""
+    weight = k_steps * shape.weight_bytes
+    kv_row = shape.kv_heads * shape.kv_row_bytes * 2  # K and V
+    kv_read = k_steps * shape.layers * slots * window_rows * kv_row
+    kv_write = k_steps * shape.layers * slots * kv_row
+    act = k_steps * slots * shape.act_bytes * (
+        shape.layers * (2 * shape.hidden + shape.intermediate) + shape.vocab
+    )
+    flops = k_steps * slots * (
+        2 * shape.param_count
+        + 4 * shape.heads * shape.head_dim * window_rows
+    )
+    return ProgramCost(
+        kind="decode",
+        weight_bytes=weight,
+        kv_read_bytes=kv_read,
+        kv_write_bytes=kv_write,
+        act_bytes=act,
+        flops=flops,
+        hbm_gbps=hbm_gbps,
+        tokens=k_steps * slots,
+    )
+
+
+def prefill_cost(
+    shape: ModelShape,
+    *,
+    rows: int,
+    tokens_per_row: int,
+    prefix_rows: int,
+    hbm_gbps: float,
+) -> ProgramCost:
+    """One (possibly batched) prefill dispatch: ``rows`` padded batch
+    rows of ``tokens_per_row`` new tokens each. ``prefix_rows`` > 0 is
+    the continuation path (suffix prefill against cached history): the
+    program additionally reads that many KV rows per batch row."""
+    kind = "prefill-continue" if prefix_rows else "prefill"
+    weight = shape.weight_bytes  # streamed once for the whole batch
+    kv_row = shape.kv_heads * shape.kv_row_bytes * 2
+    kv_read = shape.layers * rows * prefix_rows * kv_row
+    kv_write = shape.layers * rows * tokens_per_row * kv_row
+    act = rows * shape.act_bytes * (
+        tokens_per_row * shape.layers
+        * (2 * shape.hidden + shape.intermediate)
+        + shape.vocab  # logits at the last position only
+    )
+    # dense FLOPs for every new token, plus the causal attention sweep
+    # (each new token attends its prefix: ~tokens/2 new + prefix_rows)
+    flops = rows * tokens_per_row * (
+        2 * shape.param_count
+        + 4 * shape.heads * shape.head_dim
+        * (tokens_per_row // 2 + prefix_rows)
+    )
+    return ProgramCost(
+        kind=kind,
+        weight_bytes=weight,
+        kv_read_bytes=kv_read,
+        kv_write_bytes=kv_write,
+        act_bytes=act,
+        flops=flops,
+        hbm_gbps=hbm_gbps,
+        tokens=rows,
+    )
+
+
+def verify_cost(
+    shape: ModelShape,
+    *,
+    slots: int,
+    window_rows: int,
+    drafts: int,
+    hbm_gbps: float,
+) -> ProgramCost:
+    """One speculative verify dispatch: every slot advances ``drafts+1``
+    positions in one forward over the full KV window."""
+    positions = drafts + 1
+    weight = shape.weight_bytes
+    kv_row = shape.kv_heads * shape.kv_row_bytes * 2
+    kv_read = shape.layers * slots * window_rows * kv_row
+    kv_write = shape.layers * slots * positions * kv_row
+    act = slots * positions * shape.act_bytes * (
+        shape.layers * (2 * shape.hidden + shape.intermediate) + shape.vocab
+    )
+    flops = slots * positions * (
+        2 * shape.param_count
+        + 4 * shape.heads * shape.head_dim * window_rows
+    )
+    return ProgramCost(
+        kind="verify",
+        weight_bytes=weight,
+        kv_read_bytes=kv_read,
+        kv_write_bytes=kv_write,
+        act_bytes=act,
+        flops=flops,
+        hbm_gbps=hbm_gbps,
+        tokens=slots * positions,
+    )
+
+
+def _pct(sorted_values: list, q: float):
+    if not sorted_values:
+        return None
+    return sorted_values[
+        min(len(sorted_values) - 1, int(q * len(sorted_values)))
+    ]
+
+
+class ProgramLedger:
+    """Per-program achieved-vs-expected ledger.
+
+    Single writer (the engine loop registers at dispatch preparation and
+    observes at each flight record); many readers. Same cross-thread
+    contract as the flight recorder: writes are plain dict/deque
+    mutations (GIL-atomic container ops, no locks), readers snapshot
+    with C-level ``dict()``/``list()`` copies before doing math."""
+
+    def __init__(self, window: int = 512):
+        self.window = window
+        # per program id: measured device-ms ring, dispatch count,
+        # cumulative device seconds — registered BEFORE the cost entry
+        # so a reader iterating _costs always finds the companions
+        self._times: dict[str, deque] = {}
+        self._dispatches: dict[str, int] = {}
+        self._device_s: dict[str, float] = {}
+        self._costs: dict[str, ProgramCost] = {}
+
+    # -- writes (engine loop only; arithmetic + container ops) ----------
+
+    def known(self, program: str) -> bool:
+        return program in self._costs
+
+    def register(self, program: str, cost: ProgramCost) -> None:
+        if program in self._costs:
+            return
+        self._times[program] = deque(maxlen=self.window)
+        self._dispatches[program] = 0
+        self._device_s[program] = 0.0
+        # published LAST: once visible in _costs, every companion exists
+        self._costs[program] = cost
+
+    def observe(self, program: str, device_s: float) -> None:
+        """Record one dispatch's measured device wait. Unregistered ids
+        are dropped (a registration always precedes the dispatch on the
+        same thread, so this only guards torn test doubles)."""
+        times = self._times.get(program)
+        if times is None:
+            return
+        times.append(device_s * 1000.0)
+        self._dispatches[program] = self._dispatches.get(program, 0) + 1
+        self._device_s[program] = (
+            self._device_s.get(program, 0.0) + device_s
+        )
+
+    # -- reads (snapshot + arithmetic; wait-free by contract) ------------
+
+    def report(self) -> list[dict[str, Any]]:
+        """One entry per registered program: the analytical expectation,
+        the measured device-time distribution, and their ratio —
+        heaviest (by cumulative device time) first."""
+        out: list[dict[str, Any]] = []
+        for program, cost in list(self._costs.items()):
+            samples = sorted(list(self._times.get(program) or ()))
+            dispatches = self._dispatches.get(program, 0)
+            device_s = self._device_s.get(program, 0.0)
+            measured_p50 = _pct(samples, 0.50)
+            expected = cost.expected_ms()
+            entry: dict[str, Any] = {
+                "program": program,
+                "kind": cost.kind,
+                "dispatches": dispatches,
+                "device_s_total": round(device_s, 4),
+                "expected": cost.to_dict(),
+                "measured_ms_p50": (
+                    round(measured_p50, 4) if measured_p50 is not None else None
+                ),
+                "measured_ms_p95": (
+                    round(p95, 4)
+                    if (p95 := _pct(samples, 0.95)) is not None
+                    else None
+                ),
+                # the per-program roofline: expected (bytes floor) over
+                # measured — 1.0 means the program runs at the assumed
+                # HBM bandwidth; low means THIS program owns gap
+                "achieved_vs_expected": (
+                    round(expected / measured_p50, 6)
+                    if measured_p50 else None
+                ),
+            }
+            out.append(entry)
+        out.sort(key=lambda e: -e["device_s_total"])
+        return out
+
+    def census(self) -> dict[str, int]:
+        """Compact program-variant census (``{program: dispatches}``) —
+        what bench records stamp so ``perf_diff`` can align rounds
+        across code changes."""
+        return dict(self._dispatches)
+
+
+def memory_ledger(
+    *,
+    weights_bytes: int,
+    kv_pool_bytes: int,
+    prefix_blocks: int,
+    bytes_per_block: int,
+    sampler_bytes: int,
+    tables_bytes: int,
+    limit_bytes: int | None,
+    limit_source: str,
+    in_transit_bytes: int = 0,
+    kv_withheld_bytes: int = 0,
+) -> dict[str, Any]:
+    """Assemble the ``hbm_bytes_by_owner`` breakdown.
+
+    ``slack`` is the detected limit minus every accounted owner —
+    activations, kernel workspaces, allocator overhead: resident bytes
+    the host cannot attribute. By construction the owner sum (slack
+    included) equals ``limit_bytes`` exactly when a limit is known; a
+    *negative* slack is reported honestly (the accounting or the
+    capacity table is wrong — either way the operator must see it).
+    Prefix-cache blocks live inside the KV pool arrays, so they are a
+    sub-owner (``kv_pool_prefix_bytes``), never added to the sum — and
+    so are budget blocks withheld by an adaptive pool-shrink
+    (``kv_pool_withheld_bytes``, docs/RESILIENCE.md): the arrays stay
+    allocated through a shrink, only the admission budget moves, so the
+    owner sum is identical across shrink/restore by construction."""
+    owners: dict[str, int] = {
+        "weights": weights_bytes,
+        "kv-pool": kv_pool_bytes,
+        "sampler-state": sampler_bytes,
+        "device-lru": tables_bytes,
+        # KV handoff payloads serialized but not yet picked up by the
+        # decode pool (docs/DISAGG.md): host-resident, but accounted in
+        # the same ledger so a stalled handoff pipeline names its bytes
+        "in-transit": in_transit_bytes,
+    }
+    accounted = sum(owners.values())
+    slack = None
+    if limit_bytes is not None:
+        slack = limit_bytes - accounted
+        owners["slack"] = slack
+    return {
+        "hbm_bytes_by_owner": owners,
+        "accounted_bytes": accounted,
+        "kv_pool_prefix_bytes": prefix_blocks * bytes_per_block,
+        "kv_pool_withheld_bytes": kv_withheld_bytes,
+        "limit_bytes": limit_bytes,
+        "limit_source": limit_source,
+        "slack_bytes": slack,
+    }

@@ -14,17 +14,41 @@ Execution model:
   remaining tokens exceed the chunk claims its slot at admission and then
   prefills one chunk per loop pass (continuation path again), interleaved
   with the decode chunks of the other slots.
-- Decode runs in bursts of chunks over the active slots, the JAX engine's
-  sequential loop: ``decode-chunk-light`` fused steps per chunk while at
-  most :meth:`TorchServingEngine._light_threshold` slots are active (the
-  TTFT regime), ``decode-chunk`` above it, halved while every request
-  needs fewer; a burst keeps its K until a slot finishes or queued work
-  can land in a free slot. The KV cache — dense
-  ``(L, slots, S, Kh, D)`` read through identity block tables, or the paged
-  pool — is read-only inside a chunk; one commit writes the chunk's rows.
+- Decode runs in bursts of chunks over the active slots:
+  ``decode-chunk-light`` fused steps per chunk while at most
+  :meth:`TorchServingEngine._light_threshold` slots are active (the TTFT
+  regime), ``decode-chunk`` above it, halved while every request needs
+  fewer. The KV cache — dense ``(L, slots, S, Kh, D)`` read through
+  identity block tables, or the paged pool — is read-only inside a chunk;
+  one commit writes the chunk's rows.
+- Heavy bursts run the JAX engine's depth-2 **pipelined loop**
+  (``pipeline: true``, the default; ``LS_TPU_PIPELINE=0`` turns it off):
+  chunk N+1 is dispatched from chunk N's device-resident final tokens and
+  lengths before chunk N's tokens reach the host, so the host's work on
+  chunk N runs while N+1 executes. Slots that finish inside a chunk freeze
+  in the device active mask from the next dispatch on (their over-run
+  tokens are dropped on the host, never billed); their blocks are
+  released when the burst ends. A burst that ends because queued work can
+  be admitted leaves its last chunk in flight: the admission prefill is
+  queued behind it on the same stream, and the loop applies the chunk
+  afterwards, per slot only to the request it ran for. The light regime,
+  penalty bursts and ``pipeline: false`` run the sequential loop (one
+  chunk at a time, the burst ends on any finish), the reference the
+  pipelined loop is tested against.
 - Each chunk ends with exactly ONE device-to-host copy: the tokens and
-  their logprobs packed into one int32 tensor on the device
-  (``stats()["decode-chunks"]["host_fetches_per_chunk"] == 1.0``).
+  their logprobs packed into one int32 tensor on the device, copied into
+  one of two pinned host buffers without blocking and waited for through
+  a CUDA event (``stats()["decode-chunks"]["host_fetches_per_chunk"] ==
+  1.0``). Nothing else on the dispatch path syncs: the block tables and
+  the sampler settings upload through content-keyed device caches
+  (``stats()["device-cache"]``), the rest from pinned memory.
+- Observability (carried from the JAX package): ``self.flight``, the
+  flight recorder (wall time split into device, exposed host and stall;
+  ``flight.summary()``), and ``self.attribution``, the per-program ledger
+  of expected (bytes at the card's bandwidth) against measured device
+  time (``stats()["attribution"]``); ``self.profiler`` captures a
+  ``torch.profiler`` trace of the first chunks when ``LS_TPU_PROFILE_DIR``
+  is set.
 - Paged layout with ``speculative-drafts: N``: while no active request has
   penalties, decode runs as speculative steps instead of chunks. One
   dispatch drafts N tokens per slot by prompt lookup over device-resident
@@ -70,6 +94,7 @@ from langstream_tpu_torch.models.checkpoints import load_llama_checkpoint
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     init_llama_params,
+    param_count,
     prefill_forward,
 )
 from langstream_tpu_torch.models.llama_paged import (
@@ -98,10 +123,26 @@ from langstream_tpu_torch.ops.paged_attention import (
     paged_attention_multiquery_partial,
     paged_attention_partial,
 )
+from langstream_tpu_torch.serving.attribution import (
+    ModelShape,
+    ProgramLedger,
+    decode_cost,
+    memory_ledger,
+    prefill_cost,
+    tree_device_bytes,
+    verify_cost,
+)
 from langstream_tpu_torch.serving.deadline import (
     DeadlineExceeded,
     deadline_from_options,
     remaining_s,
+)
+from langstream_tpu_torch.serving.flight import FlightRecorder
+from langstream_tpu_torch.serving.profiling import (
+    ProfilerHooks,
+    detect_generation,
+    detect_hbm_capacity,
+    detect_hbm_gbps,
 )
 from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
 
@@ -263,7 +304,7 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
 
 #: accepted settings that change only latency here; logged once when set
 _LATENCY_ONLY = (
-    "pipeline", "paged_kernel", "dense_kernel", "wedge_window_s",
+    "paged_kernel", "dense_kernel", "wedge_window_s",
     "stream_stall_s", "shrink_fraction", "shrink_recovery_s",
 )
 
@@ -366,6 +407,72 @@ def _bucket(n: int, lo: int = 32, hi: int = 32768) -> int:
     return min(b, hi)
 
 
+def _pow2(n: int) -> int:
+    """Smallest power of two >= n: the JAX engine pads a prefill batch to
+    it, so program ids name that row count and censuses compare."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _dev_cache_cap() -> int:
+    try:
+        return max(1, int(os.environ.get("LS_TPU_DEV_CACHE_CAP", "32")))
+    except ValueError:
+        return 32
+
+
+class _DeviceLru:
+    """Content-keyed device-upload cache with an LRU bound (the JAX
+    engine's): the block tables and the sampler tuple change rarely between
+    chunks, and an upload from the host is a copy on the stream. The bound
+    and the eviction counter (``stats()["device-cache"]``) keep a
+    long-lived engine from holding one device copy per content it ever
+    saw. Touched from the dispatch thread and read by ``stats()`` on the
+    loop, so the bookkeeping sits behind a lock that is never held across
+    the upload."""
+
+    def __init__(self, cap: int | None = None):
+        self.cap = cap if cap is not None else _dev_cache_cap()
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get_or_put(self, key: bytes, factory: Callable[[], Any]) -> Any:
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return entry
+            self.misses += 1
+        entry = factory()
+        with self._lock:
+            self._entries[key] = entry
+            while len(self._entries) > self.cap:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+        return entry
+
+    def device_bytes(self) -> int:
+        """Bytes held by the cached entries (the memory ledger's
+        ``device-lru`` and ``sampler-state`` owners); a snapshot read."""
+        return sum(tree_device_bytes(e) for e in list(self._entries.values()))
+
+    def stats(self) -> dict[str, int]:
+        with self._lock:
+            return {
+                "size": len(self._entries),
+                "cap": self.cap,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+            }
+
+
 class TorchServingEngine:
     """The serving engine of the port. ``params=None`` means the weights of
     ``config.checkpoint`` when set (an HF-format Llama directory, see
@@ -396,6 +503,7 @@ class TorchServingEngine:
             if engine is None or engine._stale():
                 if engine is not None:
                     engine._executor.shutdown(wait=False)
+                    engine._fetch_executor.shutdown(wait=False)
                 engine = cls._instances[key] = cls(config, device=device)
             return engine
 
@@ -509,6 +617,47 @@ class TorchServingEngine:
         self._spec_plain_since_disable = 0
         self._spec_last_uplift: float | None = None
         self._spec_flips = 0  # auto-disables plus re-enables
+        # decode chunks dispatched in the light and the heavy regime, and
+        # the host seconds spent launching decode chunks
+        self._light_chunks = 0
+        self._heavy_chunks = 0
+        self._decode_launch_s = 0.0
+        # the pipelined loop: the config key, with LS_TPU_PIPELINE=0 as the
+        # escape hatch to the sequential loop (the JAX engine's rule). The
+        # wait for chunk N's copy runs on a second thread, so the host works
+        # on chunk N while the dispatch thread still launches chunk N+1 (an
+        # eager chunk's launches take about its device time)
+        self._pipeline_on = config.pipeline and (
+            os.environ.get("LS_TPU_PIPELINE", "1") != "0"
+        )
+        self._fetch_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-fetch")
+        # a dispatched, unprocessed decode chunk carried across the burst
+        # boundary, so the admission prefill is queued behind it: (out,
+        # active slots, their requests at dispatch, K, program id)
+        self._pending_chunk: tuple | None = None
+        # set while no decode burst runs and no chunk is pending
+        self._settled = asyncio.Event()
+        self._settled.set()
+        # inside a pipelined burst, finished slots' blocks are released when
+        # the burst ends: an in-flight chunk still commits through the
+        # tables taken at its dispatch, and a block handed to a live slot
+        # mid-burst would take that stale commit on top of its rows
+        self._defer_release = False
+        self._deferred_releases: list[int] = []
+        # device-upload caches (content-keyed, LRU-bounded) and the two
+        # pinned host buffers of the packed fetch (at most two chunks are
+        # in flight)
+        self._tables_dev_cache = _DeviceLru()
+        self._sampler_dev_cache = _DeviceLru()
+        self._fetch_bufs: list[torch.Tensor | None] = [None, None]
+        self._fetch_turn = 0
+        # observability planes: flight recorder, profiler hooks, and the
+        # per-program attribution ledger with the static facts it needs
+        self.flight = FlightRecorder(slots=config.slots)
+        self.profiler = ProfilerHooks()
+        self.attribution = ProgramLedger()
+        self._init_attribution()
 
     # ------------------------------------------------------------------
     # model + cache
@@ -555,6 +704,187 @@ class TorchServingEngine:
                      mc.kv_heads, mc.head_dim)
             self.cache_k = torch.zeros(shape, dtype=mc.dtype, device=dev)
             self.cache_v = torch.zeros(shape, dtype=mc.dtype, device=dev)
+
+    # ------------------------------------------------------------------
+    # attribution plane (serving/attribution.py)
+    # ------------------------------------------------------------------
+
+    def _init_attribution(self) -> None:
+        """The static facts the cost models and the memory ledger need,
+        computed once (the shapes are fixed for the engine's life), and
+        the card's capacity and bandwidth."""
+        mc = self.model_config
+        self._weights_bytes = tree_device_bytes(self.params)
+        self._kv_cache_bytes = (
+            tree_device_bytes(self.cache_k) + tree_device_bytes(self.cache_v))
+        self._kv_block_bytes = (
+            self._kv_cache_bytes // self.paged_layout.num_blocks
+            if self.block_mgr is not None else 0
+        )
+        act_bytes = torch.empty((), dtype=mc.dtype).element_size()
+        if self.config.kv_quantize == "int8":
+            kv_row_bytes = mc.head_dim + 4  # int8 row + f32 scale
+        else:
+            kv_row_bytes = mc.head_dim * act_bytes
+        self._prog_shape = ModelShape(
+            layers=mc.layers, hidden=mc.hidden, heads=mc.heads,
+            kv_heads=mc.kv_heads, head_dim=mc.head_dim,
+            intermediate=mc.intermediate, vocab=mc.vocab_size,
+            weight_bytes=self._weights_bytes, param_count=param_count(mc),
+            kv_row_bytes=kv_row_bytes, act_bytes=act_bytes,
+        )
+        self._hbm_limit, self._hbm_limit_source = (
+            detect_hbm_capacity() if self.device.type == "cuda" else (None, "unknown"))
+        self._hbm_gbps = detect_hbm_gbps()
+        self._hbm_generation = (
+            detect_generation() if self.device.type == "cuda" else None)
+
+    @staticmethod
+    def _sampler_code(sampler_mode: tuple) -> str:
+        """Compact sampler-variant tag for program ids."""
+        use_top_p, use_top_k, all_greedy = sampler_mode
+        if all_greedy:
+            return "greedy"
+        tag = "sample"
+        if use_top_k:
+            tag += "-tk"
+        if use_top_p:
+            tag += "-tp"
+        return tag
+
+    def _window_rows(self, window: int | None) -> int:
+        """Cache rows a decode variant sweeps per slot: block-table columns
+        on the paged pool, a row window on the dense cache (None = all)."""
+        if self.block_mgr is not None:
+            blocks = window or self.paged_layout.max_blocks_per_slot
+            return blocks * self.paged_layout.block_size
+        return window or self.model_config.max_seq_len
+
+    def _program(self, program: str, cost: Callable[[], Any]) -> str:
+        if not self.attribution.known(program):
+            self.attribution.register(program, cost())
+        return program
+
+    def _program_decode(self, window: int | None, k_steps: int,
+                        sampler_mode: tuple, pen: bool) -> str:
+        """Program id of a decode-chunk variant (the JAX engine's id);
+        registers its cost on first sight."""
+        rows = self._window_rows(window)
+        return self._program(
+            f"decode:w{rows}:k{k_steps}:{self._sampler_code(sampler_mode)}"
+            + (":pen" if pen else ""),
+            lambda: decode_cost(self._prog_shape, slots=self.config.slots,
+                                window_rows=rows, k_steps=k_steps,
+                                hbm_gbps=self._hbm_gbps),
+        )
+
+    def _program_prefill(self, bucket: int, rows: int, sampler_mode: tuple) -> str:
+        return self._program(
+            f"prefill:p{bucket}:b{rows}:{self._sampler_code(sampler_mode)}",
+            lambda: prefill_cost(self._prog_shape, rows=rows, tokens_per_row=bucket,
+                                 prefix_rows=0, hbm_gbps=self._hbm_gbps),
+        )
+
+    def _program_prefill_continue(self, nrb: int, rows: int, chunk: int,
+                                  sampler_mode: tuple) -> str:
+        return self._program(
+            f"prefill-continue:nrb{nrb}:b{rows}:c{chunk}:"
+            f"{self._sampler_code(sampler_mode)}",
+            lambda: prefill_cost(self._prog_shape, rows=rows, tokens_per_row=chunk,
+                                 prefix_rows=nrb * self.paged_layout.block_size,
+                                 hbm_gbps=self._hbm_gbps),
+        )
+
+    def _program_spec_step(self, nrb: int, sampler_mode: tuple) -> str:
+        drafts = self.config.speculative_drafts
+        return self._program(
+            f"specstep:nrb{nrb}:d{drafts}:{self._sampler_code(sampler_mode)}",
+            lambda: verify_cost(self._prog_shape, slots=self.config.slots,
+                                window_rows=nrb * self.paged_layout.block_size,
+                                drafts=drafts, hbm_gbps=self._hbm_gbps),
+        )
+
+    def _admission_stall(self) -> str | None:
+        """Why queued work is not admitted right now (None: the queue is
+        empty or the next pass admits)."""
+        if not self._queue:
+            return None
+        if not any(s.free for s in self.slots):
+            return "no-free-slot"
+        if self.block_mgr is not None:
+            head = self._queue[0]
+            if not self.block_mgr.can_admit(len(head.prompt_tokens) + head.max_tokens + 1):
+                return "no-kv-blocks"
+        if self._has_prefilling():
+            return "prefill-in-flight"
+        return None
+
+    def _kv_used(self) -> float | None:
+        return self.block_mgr.used_ratio() if self.block_mgr is not None else None
+
+    def _flight_record(self, phase: str, device_s: float, tokens: int = 0,
+                       overlapped_s: float = 0.0, spec_accepted: int = 0,
+                       spec_rejected: int = 0, program: str | None = None,
+                       span_s: float | None = None) -> None:
+        """One flight sample per dispatch (see flight.py): ``device_s`` is
+        the host's blocked wait for the dispatch's fetch, ``overlapped_s``
+        host work credited while a later chunk still ran. ``program`` also
+        feeds the attribution ledger with the dispatch's device time: on
+        the card ``span_s``, the CUDA-event span from its first launch to
+        its fetch (an eager dispatch launches for about as long as the card
+        runs it, so the wait alone would read near 0); on the CPU, as the
+        JAX engine, the wait plus the overlapped share."""
+        if program is not None:
+            self.attribution.observe(
+                program, span_s if span_s is not None else device_s + overlapped_s)
+        sample = self.flight.sample(
+            phase, device_s=device_s, overlapped_s=overlapped_s, tokens=tokens,
+            occupancy=sum(1 for s in self.slots if not s.free),
+            queue_depth=len(self._queue), stall=self._admission_stall(),
+            kv_used=self._kv_used(), prefix_hits=self.prefix_hits,
+            spec_accepted=spec_accepted, spec_rejected=spec_rejected,
+            program=program,
+        )
+        if phase == "decode":
+            self._decode_s += sample["wall_ms"] / 1000.0
+            if self.config.speculative_drafts > 0 and self._spec_auto_disabled:
+                self._spec_count_plain_chunk()
+
+    def _flight_stall(self, reason: str) -> None:
+        """An idle gap of the loop, recorded as stall time."""
+        self.flight.stall(
+            reason, occupancy=sum(1 for s in self.slots if not s.free),
+            queue_depth=len(self._queue), kv_used=self._kv_used(),
+        )
+
+    def attribution_section(self) -> dict[str, Any]:
+        """``stats()["attribution"]``: the per-program achieved-vs-expected
+        ledger and the device-memory ledger (the JAX engine's keys);
+        snapshot reads and arithmetic only."""
+        return {
+            "model": self.config.model,
+            "slots": self.config.slots,
+            "generation": self._hbm_generation,
+            "hbm_gbps_assumed": self._hbm_gbps,
+            "programs": self.attribution.report(),
+            "memory": self._memory_ledger(),
+        }
+
+    def _memory_ledger(self) -> dict[str, Any]:
+        """Device bytes by owner; the limit is the card's total memory.
+        No KV handoff (ROADMAP.md Queue 1 item 10) and no pool shrink
+        (item 9) in this port: their terms are 0."""
+        return memory_ledger(
+            weights_bytes=self._weights_bytes,
+            kv_pool_bytes=self._kv_cache_bytes,
+            prefix_blocks=(self.block_mgr.prefix_block_count()
+                           if self.block_mgr is not None else 0),
+            bytes_per_block=self._kv_block_bytes,
+            sampler_bytes=self._sampler_dev_cache.device_bytes(),
+            tables_bytes=self._tables_dev_cache.device_bytes(),
+            limit_bytes=self._hbm_limit,
+            limit_source=self._hbm_limit_source,
+        )
 
     # ------------------------------------------------------------------
     # read-window buckets
@@ -703,6 +1033,8 @@ class TorchServingEngine:
                 "hits": self.prefix_hits, "tokens_reused": self.prefix_tokens,
             },
             "decode-chunks": {
+                "light": self._light_chunks,
+                "heavy": self._heavy_chunks,
                 "dispatched": self._decode_dispatches,
                 "fetched": self._decode_fetches,
                 # the one-fetch invariant: above 1.0 means the decode tail
@@ -711,11 +1043,25 @@ class TorchServingEngine:
                     round(self._decode_fetches / self._decode_dispatches, 4)
                     if self._decode_dispatches else 0.0
                 ),
-                # fused steps and host-clock seconds from dispatch to the
-                # end of the fetch (the fetch waits for the device)
+                # fused steps dispatched; the loop's wall seconds of the
+                # decode samples (flight recorder: they tile the timeline,
+                # so pipelined chunks are not counted twice); the host
+                # seconds spent launching the chunks
                 "steps": self._decode_steps,
                 "seconds": self._decode_s,
+                "launch_seconds": self._decode_launch_s,
             },
+            # the loop posture and the bounded device-upload caches
+            "pipeline": self._pipeline_on,
+            "device-cache": {
+                "tables": self._tables_dev_cache.stats(),
+                "sampler": self._sampler_dev_cache.stats(),
+            },
+            # dispatches by phase (flight recorder)
+            "steps": dict(self.flight.steps_by_phase),
+            # per-program expected against measured device time, and the
+            # device-memory ledger
+            "attribution": self.attribution_section(),
             # launch counters of the port's kernels in this process
             "kernels": {
                 "flash_attention": flash_attention.launches,
@@ -828,18 +1174,30 @@ class TorchServingEngine:
             self.generate(text, dict(opts), _warmup_probe=True)
             for _ in range(wave)
         ))
+        # the wave's pipelined burst applies its over-run chunk after the
+        # results: warmup ends when it has, so the first request finds the
+        # loop free
+        await self.settled()
         self._warmup_result = {"probe_tokens": k, "wave": wave,
                                "seconds": time.monotonic() - t0}
         return self._warmup_result
 
+    async def settled(self) -> None:
+        """Return once no decode burst runs and no chunk is pending (a
+        pipelined burst applies its last chunk after the results it
+        finished were delivered), or the engine closes."""
+        await self._settled.wait()
+
     async def close(self) -> None:
         self._stop = True
         self._wake.set()
+        self._settled.set()
         if self._warmup_task is not None and not self._warmup_task.done():
             self._warmup_task.cancel()
         if self._loop_task is not None and not self._loop_task.done():
             await self._loop_task
         self._executor.shutdown(wait=True)
+        self._fetch_executor.shutdown(wait=True)
         closed = RuntimeError("serving engine closed")
         for request in list(self._queue):
             if not request.future.done():
@@ -852,10 +1210,20 @@ class TorchServingEngine:
 
     async def _run_loop(self) -> None:
         loop = asyncio.get_running_loop()
+        # the loop starts at the first request: the gap since construction
+        # is no sample's wall time
+        self.flight.mark()
         while not self._stop:
             try:
                 if self._queue:
                     await self._admit(loop)
+                # a pipelined burst may have left a chunk in flight: applied
+                # only after admission, so the prefill above was queued
+                # behind it; then the slots it freed admit at once
+                if self._pending_chunk is not None:
+                    await self._drain_pending(loop)
+                    if self._queue:
+                        await self._admit(loop)
                 if self._has_prefilling():
                     # one bounded chunk per loop pass: long prefills make
                     # progress without stalling the decode chunks below
@@ -871,6 +1239,9 @@ class TorchServingEngine:
                             await asyncio.wait_for(self._wake.wait(), timeout=1.0)
                         except asyncio.TimeoutError:
                             pass
+                        # the whole gap was idle: a stall sample keeps the
+                        # flight timeline contiguous
+                        self._flight_stall("queue-empty")
                     continue
                 if self._speculating(active):
                     await self._speculative_burst(loop, active)
@@ -880,11 +1251,25 @@ class TorchServingEngine:
                 # free the slots, keep serving (callers see the exception)
                 log.exception("serving engine step failed")
                 self._fail_inflight(e)
+        if self._pending_chunk is not None:
+            # a stop between a pipelined burst and the next pass leaves one
+            # chunk in flight: apply it, so dispatches and fetches stay 1:1
+            await self._drain_pending(loop)
 
     def _has_prefilling(self) -> bool:
         return any(s.prefilling for s in self.slots)
 
     def _fail_inflight(self, error: Exception) -> None:
+        self.flight.event(
+            "preempt", error=f"{type(error).__name__}: {error}"[:200],
+            inflight=sum(1 for s in self.slots if not s.free),
+        )
+        # a pending chunk belongs to the failed dispatch stream: dropped;
+        # the releases a pipelined burst deferred happen now
+        self._pending_chunk = None
+        self._settled.set()
+        self._defer_release = False
+        self._flush_deferred_releases()
         for slot_id, slot in enumerate(self.slots):
             request = slot.request
             if request is None:
@@ -902,8 +1287,25 @@ class TorchServingEngine:
         slot.prefill_done = 0
         self._lengths[slot_id] = 0
         self._ctx_synced[slot_id] = 0
-        if self.block_mgr is not None:
+        self._release_blocks(slot_id)
+
+    def _release_blocks(self, slot_id: int) -> None:
+        """Free a slot's blocks: at once between bursts, at the end of the
+        burst inside a pipelined one (its in-flight chunk still commits
+        through the tables taken at dispatch). Between bursts an immediate
+        release is safe: the prefill that takes the blocks is queued behind
+        any chunk still in flight, on the same stream, so it writes last."""
+        if self.block_mgr is None:
+            return
+        if self._defer_release:
+            self._deferred_releases.append(slot_id)
+        else:
             self.block_mgr.release(slot_id)
+
+    def _flush_deferred_releases(self) -> None:
+        for slot_id in self._deferred_releases:
+            self.block_mgr.release(slot_id)
+        self._deferred_releases.clear()
 
     # ------------------------------------------------------------------
     # admission + prefill
@@ -1012,7 +1414,11 @@ class TorchServingEngine:
                 if starts.any() else None
             )
             mode = self._sampler_mode(temps, topks, topps)
-            next_np, logprob_np = await loop.run_in_executor(
+            program = (
+                self._program_prefill_continue(cont[1], _pow2(B), bucket, mode)
+                if cont is not None else self._program_prefill(bucket, _pow2(B), mode)
+            )
+            next_np, logprob_np, wait_s, span_s = await loop.run_in_executor(
                 self._executor,
                 partial(self._run_prefill, padded, lengths, slot_ids, tables,
                         temps, topks, topps, mode, cont),
@@ -1027,6 +1433,8 @@ class TorchServingEngine:
             for i, (slot_id, request, _) in enumerate(batch):
                 self._start_decoding(slot_id, request, int(next_np[i]), now)
                 self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
+            self._flight_record("prefill", wait_s, tokens=B, program=program,
+                                span_s=span_s)
             await self._flush_emits()
 
     def _start_decoding(self, slot_id: int, request: "_Request", token: int,
@@ -1076,19 +1484,22 @@ class TorchServingEngine:
         slot_ids = np.asarray(pre, dtype=np.int64)
         cont = (starts, self._read_blocks_for(max(int(starts.max()), 1)))
         mode = self._sampler_mode(temps, topks, topps)
-        next_np, logprob_np = await loop.run_in_executor(
+        program = self._program_prefill_continue(cont[1], _pow2(B), C, mode)
+        next_np, logprob_np, wait_s, span_s = await loop.run_in_executor(
             self._executor,
             partial(self._run_prefill, tokens, suffix_lens, slot_ids,
                     self.block_mgr.tables[slot_ids].copy(), temps, topks,
                     topps, mode, cont),
         )
         now = time.monotonic()
+        done = 0
         for i, slot_id in enumerate(pre):
             slot = self.slots[slot_id]
             request = slot.request
             slot.prefill_done += int(suffix_lens[i])
             if slot.prefill_done < len(request.prompt_tokens):
                 continue
+            done += 1
             slot.prefilling = False
             self._start_decoding(slot_id, request, int(next_np[i]), now)
             # register BEFORE emitting: a max-tokens=1 or instant-EOS
@@ -1097,18 +1508,38 @@ class TorchServingEngine:
             if self.config.prefix_cache:
                 self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
             self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
+        self._flight_record("prefill", wait_s, tokens=done, program=program,
+                            span_s=span_s)
         await self._flush_emits()
 
-    def _device_sampler(self, temps, topks, topps, mode, pres=None, freq=None):
-        """A ``sample_fn`` closure over device copies of the rows' settings."""
-        dev = self.device
+    def _timing_event(self):
+        """A CUDA timing event recorded on the stream now; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    @staticmethod
+    def _span_s(start, end) -> float | None:
+        """Seconds of the card's timeline between two completed events."""
+        return None if start is None else start.elapsed_time(end) / 1e3
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without syncing the stream
+        (a blocking upload would wait for every chunk queued before it): on
+        the card a pinned copy and an asynchronous copy, the caching host
+        allocator keeping the pinned block until the copy has run; on the
+        CPU a copy (the caller may change the array afterwards)."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone()
+
+    def _sample_fn(self, temps_t, topks_t, topps_t, mode, pres_t=None, freq_t=None):
+        """A ``sample_fn`` closure over device tensors of the rows' settings."""
         use_top_p, use_top_k, all_greedy = mode
-        temps_t = torch.from_numpy(temps).to(dev)
-        topks_t = torch.from_numpy(topks).to(dev)
-        topps_t = torch.from_numpy(topps).to(dev)
-        pen = pres is not None
-        pres_t = torch.from_numpy(pres).to(dev) if pen else None
-        freq_t = torch.from_numpy(freq).to(dev) if pen else None
+        pen = pres_t is not None
 
         def sample_fn(logits, counts=None):
             return sample_tokens(
@@ -1120,40 +1551,61 @@ class TorchServingEngine:
 
         return sample_fn
 
+    def _sampler_device(self, active_mask, temps, topks, topps) -> tuple:
+        """Device copies of (active mask, temps, top-ks, top-ps), uploaded
+        only on a content miss (:class:`_DeviceLru`)."""
+        key = active_mask.tobytes() + temps.tobytes() + topks.tobytes() + topps.tobytes()
+        return self._sampler_dev_cache.get_or_put(
+            key, lambda: tuple(self._upload(a) for a in (active_mask, temps, topks, topps)))
+
+    def _tables_device(self, tables: np.ndarray | None):
+        """Device copy of the block tables, uploaded only on a content miss
+        (most chunks allocate no block)."""
+        if tables is None:
+            return None
+        return self._tables_dev_cache.get_or_put(tables.tobytes(),
+                                                 lambda: self._upload(tables))
+
     @torch.no_grad()
     def _run_prefill(self, padded, lengths, slot_ids, tables, temps, topks,
                      topps, mode, cont=None):
         """Dispatch thread: one batched prefill + first-token sample; one
         packed device-to-host copy. ``cont = (starts, num_read_blocks)``
         sends the batch through the continuation path (``padded`` then
-        holds each row's suffix). Returns (tokens, logprobs) numpy."""
-        dev, mc = self.device, self.model_config
-        tokens = torch.from_numpy(padded).to(dev)
-        lengths_t = torch.from_numpy(lengths).to(dev)
+        holds each row's suffix). Returns (tokens, logprobs) numpy, the
+        seconds the copy waited for the card and the dispatch's span on
+        the card (None on the CPU)."""
+        mc, up = self.model_config, self._upload
+        start = self._timing_event()
+        tokens = up(padded)
+        lengths_t = up(lengths)
         if cont is not None:
             starts, nrb = cont
             logits, _, _ = llama_prefill_continue_paged(
-                mc, self.params, tokens, torch.from_numpy(starts).to(dev),
-                lengths_t, self.cache_k, self.cache_v,
-                torch.from_numpy(tables).to(dev), num_read_blocks=nrb,
+                mc, self.params, tokens, up(starts), lengths_t, self.cache_k,
+                self.cache_v, up(tables), num_read_blocks=nrb,
             )
             self._continue_calls += 1
         elif self.block_mgr is not None:
             logits, _, _ = llama_prefill_paged(
                 mc, self.params, tokens, lengths_t, self.cache_k, self.cache_v,
-                torch.from_numpy(tables).to(dev),
+                up(tables),
             )
         else:
             logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t)
-            sel = torch.from_numpy(slot_ids).to(dev)
+            sel = up(slot_ids)
             Pn = tokens.shape[1]
             self.cache_k[:, sel, :Pn] = ks
             self.cache_v[:, sel, :Pn] = vs
-        nxt, lps = self._device_sampler(temps, topks, topps, mode)(logits)
+        nxt, lps = self._sample_fn(up(temps), up(topks), up(topps), mode)(logits)
         self._prefill_calls += 1
-        packed = pack_tokens_logprobs(nxt, lps).cpu().numpy()
+        packed = pack_tokens_logprobs(nxt, lps)
+        end = self._timing_event()
+        t0 = time.monotonic()
+        host = packed.cpu().numpy()  # the prefill's one device-to-host copy
+        wait_s = time.monotonic() - t0
         B = len(lengths)
-        return packed[:B], packed[B:].view(np.float32)
+        return host[:B], host[B:].view(np.float32), wait_s, self._span_s(start, end)
 
     # ------------------------------------------------------------------
     # decode
@@ -1170,10 +1622,10 @@ class TorchServingEngine:
             return cfg.light_load_slots
         return max(1, cfg.slots // 8)
 
-    def _burst_steps(self, active: list[int]) -> int:
-        """K of a burst over ``active``, the JAX engine's rule: the light or
-        the full chunk, halved while it is at least twice the longest
-        remaining budget (and twice the light chunk)."""
+    def _burst_steps(self, active: list[int]) -> tuple[int, bool]:
+        """(K, light) of a burst over ``active``, the JAX engine's rule: the
+        light or the full chunk, halved while it is at least twice the
+        longest remaining budget (and twice the light chunk)."""
         cfg = self.config
         light = len(active) <= self._light_threshold()
         K = cfg.decode_chunk_light if light else cfg.decode_chunk
@@ -1183,32 +1635,79 @@ class TorchServingEngine:
             max_remaining = max(max_remaining, request.max_tokens - len(request.generated))
         while K >= 2 * max(max_remaining, cfg.decode_chunk_light, 1):
             K //= 2
-        return K
+        return K, light
 
-    def _burst_should_yield(self, finished: bool) -> bool:
-        """A burst ends when the loop can make progress elsewhere: a slot
-        finished, a prefill is mid-flight, the engine stops, or queued work
-        can land in a free slot (a queue with every slot busy keeps the
-        burst going)."""
-        if self._stop or self._has_prefilling() or finished:
+    def _burst_should_yield(self, finished: bool, pipelined: bool = False) -> bool:
+        """A burst ends when the loop can make progress elsewhere: the
+        engine stops, a prefill is mid-flight, queued work can land in a
+        free slot (a queue with every slot busy keeps the burst going), or
+        a slot finished. A pipelined burst survives a finish while nobody
+        is queued: the slot freezes in the device mask instead."""
+        if self._stop or self._has_prefilling():
             return True
+        if finished:
+            return not (pipelined and not self._queue)
         if not self._queue:
             return False
         return any(s.free for s in self.slots)
 
-    async def _decode_burst(self, loop, active: list[int]) -> None:
-        """Decode chunks of one K over a fixed set of active slots, one at a
-        time, until :meth:`_burst_should_yield` (the JAX engine's
-        sequential loop: its light-load, penalty and ``pipeline: false``
-        posture)."""
-        K = self._burst_steps(active)
-        while not self._burst_should_yield(await self._decode_chunk(loop, active, K)):
-            pass
+    def _penalized(self, active: list[int]) -> bool:
+        return bool((self._pres[active] != 0).any() or (self._freq[active] != 0).any())
 
-    async def _decode_chunk(self, loop, active: list[int], K: int) -> bool:
+    def _grow_blocks(self, active: list[int], K: int, pending_chunks: int):
+        """Paged: allocate blocks for this dispatch's chunk and for the
+        ``pending_chunks`` dispatched chunks the host lengths do not show
+        yet (0 in the sequential loop, 1 in the pipelined one), capped at
+        each request's own budget. Returns a host copy of the tables."""
+        if self.block_mgr is None:
+            return None
+        S = self.model_config.max_seq_len
+        grown_blocks = grown_slots = 0
+        for slot_id in active:
+            request = self.slots[slot_id].request
+            if request is None:
+                continue
+            cap = len(request.prompt_tokens) + request.max_tokens + 1
+            need = min(int(self._lengths[slot_id]) + (pending_chunks + 1) * K, cap, S)
+            n = self.block_mgr.ensure_capacity(slot_id, need)
+            grown_blocks += n
+            grown_slots += bool(n)
+        if grown_blocks:
+            self.flight.event("pool-grow", slots=grown_slots, blocks=grown_blocks,
+                              bytes=grown_blocks * self._kv_block_bytes, phase="decode")
+        return self.block_mgr.tables.copy()
+
+    def _window(self, max_len: int) -> int | None:
+        """The read bucket of a chunk over slots of up to ``max_len`` rows."""
+        if self.block_mgr is not None:
+            return self._read_blocks_for(max_len)
+        return self._window_for(max_len)
+
+    async def _decode_burst(self, loop, active: list[int]) -> None:
+        """Decode chunks of one K over the active slots until
+        :meth:`_burst_should_yield`: the pipelined loop for heavy bursts,
+        the sequential one (one chunk at a time, the reference) for the
+        light regime, penalty bursts and ``pipeline: false``."""
+        K, light = self._burst_steps(active)
+        self._settled.clear()
+        try:
+            if light or self._penalized(active) or not self._pipeline_on:
+                while not self._burst_should_yield(
+                    await self._decode_chunk(loop, active, K, light)
+                ):
+                    pass
+            else:
+                await self._pipelined_burst(loop, active, K)
+        finally:
+            if self._pending_chunk is None:
+                self._settled.set()
+
+    async def _decode_chunk(self, loop, active: list[int], K: int,
+                            light: bool | None = None) -> bool:
         """One chunk of ``K`` fused decode steps over the active slots, one
         packed fetch, then per-token host processing; True when a slot
-        finished."""
+        finished. ``light`` names the regime it counts under (None: a
+        speculative calibration chunk, counted under neither)."""
         cfg = self.config
         active_mask = np.zeros(cfg.slots, dtype=bool)
         active_mask[active] = True
@@ -1216,29 +1715,22 @@ class TorchServingEngine:
             self._temps[active_mask], self._topks[active_mask],
             self._topps[active_mask],
         )
-        pen = bool(
-            (self._pres[active_mask] != 0).any() or (self._freq[active_mask] != 0).any()
-        )
+        pen = self._penalized(active)
         counts = None
         if pen:
             counts = np.zeros((cfg.slots, self.model_config.vocab_size), dtype=np.int32)
             for slot_id in active:
                 for t in self.slots[slot_id].request.generated:
                     counts[slot_id, t] += 1
-        base_max = int(self._lengths[active].max())
-        tables = None
-        if self.block_mgr is not None:
-            S = self.model_config.max_seq_len
-            for slot_id in active:
-                request = self.slots[slot_id].request
-                cap = len(request.prompt_tokens) + request.max_tokens + 1
-                need = min(int(self._lengths[slot_id]) + K, cap, S)
-                self.block_mgr.ensure_capacity(slot_id, need)
-            tables = self.block_mgr.tables.copy()
-            window = self._read_blocks_for(base_max)
-        else:
-            window = self._window_for(base_max)
-        packed = await loop.run_in_executor(
+        window = self._window(int(self._lengths[active].max()))
+        tables = self._grow_blocks(active, K, 0)
+        program = self._program_decode(window, K, mode, pen)
+        if light is not None:
+            if light:
+                self._light_chunks += 1
+            else:
+                self._heavy_chunks += 1
+        chunk_t, chunk_lp, wait_s, span_s = await loop.run_in_executor(
             self._executor,
             partial(
                 self._run_decode, self._current.copy(), self._lengths.copy(),
@@ -1248,48 +1740,207 @@ class TorchServingEngine:
                 self._freq.copy() if pen else None, counts,
             ),
         )
-        n = K * cfg.slots
-        chunk_t = packed[:n].reshape(K, cfg.slots)
-        chunk_lp = packed[n:].view(np.float32).reshape(K, cfg.slots)
+        before = self.total_generated
         finished = self._process_chunk(chunk_t, chunk_lp, active)
+        self._flight_record("decode", wait_s, tokens=self.total_generated - before,
+                            program=program, span_s=span_s)
         await self._flush_emits()
-        if cfg.speculative_drafts > 0 and self._spec_auto_disabled:
-            self._spec_count_plain_chunk()
         return finished
+
+    async def _pipelined_burst(self, loop, active: list[int], K: int) -> None:
+        """The depth-2 pipelined loop (the JAX engine's, ``engine.py``
+        ``_decode_burst``): chunk N+1 is dispatched from chunk N's
+        device-resident final tokens and lengths, then the host fetches and
+        applies chunk N while N+1 executes; that host work is credited as
+        overlapped while a readiness probe shows N+1 still running. Slots
+        that finish freeze in the device mask from the next dispatch on;
+        their over-run tokens are dropped by :meth:`_process_chunk`. When
+        the burst yields for queued work, its last chunk stays in flight
+        as ``_pending_chunk`` (see :meth:`_drain_pending`)."""
+        mask = np.zeros(self.config.slots, dtype=bool)
+        mask[active] = True
+        mode = self._sampler_mode(self._temps[mask], self._topks[mask], self._topps[mask])
+        base_max = int(self._lengths[active].max())
+        programs: list[str] = []  # ids of the dispatched, unrecorded chunks
+
+        def submit(tokens, lengths, pending_chunks: int):
+            """Loop-thread half of a dispatch (bucket, program id, block
+            growth, snapshots); the dispatch thread launches the chunk."""
+            window = self._window(base_max)
+            programs.append(self._program_decode(window, K, mode, False))
+            tables = self._grow_blocks(active, K, pending_chunks)
+            sampler = (mask.copy(), self._temps.copy(), self._topks.copy(),
+                       self._topps.copy())
+            self._heavy_chunks += 1
+            return loop.run_in_executor(
+                self._executor,
+                partial(self._dispatch_decode, tokens, lengths, sampler, tables,
+                        window, K, mode),
+            )
+
+        def busy(task) -> bool:
+            """The card still works on the chunk ``task`` dispatches."""
+            return not task.done() or not self._chunk_ready(task.result()[0])
+
+        out = await submit(self._current.copy(), self._lengths.copy(), 0)
+        self._defer_release = self.block_mgr is not None
+        finished = False
+        try:
+            while True:
+                if finished:
+                    live = [i for i in active if self.slots[i].request is not None]
+                    if not live:  # all done: apply the over-run chunk, end
+                        await self._apply_chunk(loop, out, active, [None] * len(active),
+                                                K, programs.pop(0))
+                        return
+                    if len(live) != len(active):
+                        active = live
+                        mask = np.zeros(self.config.slots, dtype=bool)
+                        mask[active] = True
+                base_max += K
+                next_task = submit(out[1], out[2], 1)
+                chunk_t, chunk_lp, wait_s, span_s = await loop.run_in_executor(
+                    self._fetch_executor, partial(self._fetch_chunk, out[0], K))
+                before = self.total_generated
+                t_overlap = time.monotonic()
+                in_flight = busy(next_task)
+                finished = self._process_chunk(chunk_t, chunk_lp, active)
+                await self._flush_emits()
+                elapsed = time.monotonic() - t_overlap
+                if not in_flight:
+                    overlapped_s = 0.0  # the card was done before the host began
+                elif busy(next_task):
+                    overlapped_s = elapsed  # the card outlasted the host's work
+                else:
+                    overlapped_s = elapsed / 2.0  # it finished in between
+                out = await next_task
+                self._flight_record("decode", wait_s, tokens=self.total_generated - before,
+                                    overlapped_s=overlapped_s, program=programs.pop(0),
+                                    span_s=span_s)
+                if self._burst_should_yield(finished, pipelined=True):
+                    expected = [self.slots[i].request for i in active]
+                    if self._stop:  # nothing will drain it later
+                        await self._apply_chunk(loop, out, active, expected, K,
+                                                programs.pop(0))
+                    else:
+                        self._pending_chunk = (out, list(active), expected, K,
+                                               programs.pop(0))
+                    return
+        finally:
+            self._defer_release = False
+            self._flush_deferred_releases()
+
+    async def _apply_chunk(self, loop, out, active: list[int], expected: list,
+                           K: int, program: str) -> None:
+        """Fetch and apply a dispatched chunk, each slot's tokens only to
+        the request it ran for when the chunk was dispatched."""
+        chunk_t, chunk_lp, wait_s, span_s = await loop.run_in_executor(
+            self._fetch_executor, partial(self._fetch_chunk, out[0], K))
+        before = self.total_generated
+        self._process_chunk(chunk_t, chunk_lp, active, expected=expected)
+        self._flight_record("decode", wait_s, tokens=self.total_generated - before,
+                            program=program, span_s=span_s)
+        await self._flush_emits()
+
+    async def _drain_pending(self, loop) -> None:
+        """Apply the chunk the last pipelined burst left in flight. The
+        loop runs it after admission, so the admission prefill was queued
+        behind it; a slot re-admitted since its dispatch ignores the old
+        request's tokens."""
+        pending, self._pending_chunk = self._pending_chunk, None
+        if pending is not None:
+            await self._apply_chunk(loop, *pending)
+        self._settled.set()
 
     @torch.no_grad()
     def _run_decode(self, tokens, lengths, active_mask, tables, window, K, mode,
                     temps, topks, topps, pres, freq, counts):
-        """Dispatch thread: one decode chunk; returns the packed host copy."""
-        dev, mc = self.device, self.model_config
-        t0 = time.monotonic()
-        sample_fn = self._device_sampler(temps, topks, topps, mode, pres, freq)
-        extras = None
-        if counts is not None:
-            extras = (None, None, torch.from_numpy(counts).to(dev))
-        args = (
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(active_mask).to(dev),
+        """Dispatch thread, sequential loop: one chunk from host state,
+        then its fetch. Returns what ``_fetch_chunk`` returns."""
+        out = self._dispatch_decode(
+            tokens, lengths, (active_mask, temps, topks, topps), tables, window,
+            K, mode, None if pres is None else (pres, freq, counts),
         )
+        return self._fetch_chunk(out[0], K)
+
+    @torch.no_grad()
+    def _dispatch_decode(self, tokens, lengths, sampler: tuple, tables, window,
+                         K: int, mode: tuple, penalties: tuple | None = None):
+        """Dispatch thread: launch one decode chunk and start its packed
+        fetch; nothing here waits for the card. ``tokens``/``lengths`` are
+        host arrays (a burst's first chunk, uploaded) or the previous
+        chunk's device outputs. Returns (fetch handle, final tokens, final
+        lengths), the last two on the device."""
+        t0 = time.monotonic()
+        self.profiler.on_decode_chunk()
+        start = self._timing_event()
+        if isinstance(tokens, np.ndarray):
+            tokens, lengths = self._upload(tokens), self._upload(lengths)
+        amask, temps_t, topks_t, topps_t = self._sampler_device(*sampler)
+        pres_t = freq_t = extras = None
+        if penalties is not None:
+            pres_t, freq_t, counts_t = (self._upload(a) for a in penalties)
+            extras = (None, None, counts_t)
+        sample_fn = self._sample_fn(temps_t, topks_t, topps_t, mode, pres_t, freq_t)
+        mc = self.model_config
         if self.block_mgr is not None:
             out = llama_decode_chunk_paged(
-                mc, self.params, *args, self.cache_k, self.cache_v,
-                torch.from_numpy(tables).to(dev), sample_fn, K,
-                num_read_blocks=window, sample_extras=extras,
-                return_packed=True,
+                mc, self.params, tokens, lengths, amask, self.cache_k, self.cache_v,
+                self._tables_device(tables), sample_fn, K, num_read_blocks=window,
+                sample_extras=extras, return_packed=True,
             )
         else:
             out = llama_decode_chunk_dense_pallas(
-                mc, self.params, *args, self.cache_k, self.cache_v,
+                mc, self.params, tokens, lengths, amask, self.cache_k, self.cache_v,
                 sample_fn, K, window, sample_extras=extras, return_packed=True,
             )
         self._decode_dispatches += 1
-        packed = out[0].cpu().numpy()  # the chunk's one device-to-host copy
-        self._decode_fetches += 1
         self._decode_steps += K
-        self._decode_s += time.monotonic() - t0
-        return packed
+        handle = self._start_fetch(out[0], start)
+        self._decode_launch_s += time.monotonic() - t0
+        return handle, out[1], out[2]
+
+    def _start_fetch(self, packed: torch.Tensor, start=None) -> tuple:
+        """Begin the chunk's one device-to-host copy without blocking: into
+        one of the two pinned buffers (at most two chunks are in flight),
+        with a CUDA event behind it (``start``: the event before the
+        chunk's first launch). On the CPU the tensor is the result."""
+        if packed.device.type != "cuda":
+            return packed, None, None
+        n = packed.numel()
+        buf = self._fetch_bufs[self._fetch_turn]
+        if buf is None or buf.numel() < n:
+            cap = 2 * self.config.slots * max(self.config.decode_chunk,
+                                              self.config.decode_chunk_light, 1)
+            buf = torch.empty(max(n, cap), dtype=torch.int32, pin_memory=True)
+            self._fetch_bufs[self._fetch_turn] = buf
+        self._fetch_turn ^= 1
+        view = buf[:n]
+        view.copy_(packed, non_blocking=True)
+        return view, self._timing_event(), start
+
+    @staticmethod
+    def _chunk_ready(handle: tuple) -> bool:
+        """Non-blocking probe: the chunk's copy has landed (always on the
+        CPU, where the dispatch computed it)."""
+        return handle[1] is None or handle[1].query()
+
+    def _fetch_chunk(self, handle: tuple, K: int):
+        """The chunk's ONE device-to-host copy: wait for its event, split
+        the packed int32 into tokens (K, B) and logprobs (K, B); then the
+        seconds blocked on the card and the chunk's span on the card (None
+        on the CPU)."""
+        view, event, start = handle
+        t0 = time.monotonic()
+        if event is not None:
+            event.synchronize()
+        flat = view.numpy().copy()  # the pinned buffer serves a later chunk
+        wait_s = time.monotonic() - t0
+        self._decode_fetches += 1
+        B = self.config.slots
+        n = K * B
+        return (flat[:n].reshape(K, B), flat[n:].view(np.float32).reshape(K, B), wait_s,
+                self._span_s(start, event))
 
     # ------------------------------------------------------------------
     # speculation (prompt lookup, paged pool)
@@ -1331,13 +1982,15 @@ class TorchServingEngine:
             return None, None
         return np.asarray(rows, dtype=np.int64), np.stack(vals)
 
-    def _fetch_spec(self, packed: torch.Tensor, d1: int) -> tuple[np.ndarray, ...]:
+    def _fetch_spec(self, packed: torch.Tensor, d1: int) -> tuple:
         """The step's ONE device-to-host copy, split into emitted tokens,
         advance counts, next tokens, new lengths, real-draft counts and
-        logprobs."""
+        logprobs; with the seconds the copy waited for the card."""
         B = self.config.slots
         nE = B * d1
+        t0 = time.monotonic()
         flat = packed.cpu().numpy()
+        wait_s = time.monotonic() - t0
         self._spec_fetches += 1
         return (
             flat[:nE].reshape(B, d1),
@@ -1346,7 +1999,7 @@ class TorchServingEngine:
             flat[nE + 2 * B:nE + 3 * B],
             flat[nE + 3 * B:nE + 4 * B],
             flat[nE + 4 * B:].view(np.float32).reshape(B, d1),
-        )
+        ), wait_s
 
     def _spec_note_step(self, tokens: int, wall_s: float) -> None:
         if tokens > 0 and wall_s > 0:
@@ -1445,17 +2098,20 @@ class TorchServingEngine:
                 self._topps[active_mask],
             )
             ctx_rows, ctx_vals = self._sync_ctx_rows(live)
+            program = self._program_spec_step(nrb, mode)
             t_wall = time.monotonic()
-            emitted, adv, nxt, _, n_real, logprobs = await loop.run_in_executor(
+            fetched, wait_s, span_s = await loop.run_in_executor(
                 self._executor,
                 partial(self._run_spec_step, ctx_rows, ctx_vals, self._current.copy(),
                         self._lengths.copy(), active_mask,
                         self.block_mgr.tables.copy(), nrb, mode, self._temps.copy(),
                         self._topks.copy(), self._topps.copy()),
             )
+            emitted, adv, nxt, _, n_real, logprobs = fetched
             self.spec_steps += 1
             self._spec_steps_since_cal += 1
             emitted_before = self.total_generated
+            accepted_before, rejected_before = self.spec_accepted, self.spec_rejected
             for slot_id in live:
                 a = int(adv[slot_id])
                 base = int(self._lengths[slot_id])
@@ -1481,6 +2137,11 @@ class TorchServingEngine:
                 self.spec_rejected += max(0, int(n_real[slot_id]) - accepted)
             self._spec_note_step(self.total_generated - emitted_before,
                                  time.monotonic() - t_wall)
+            self._flight_record(
+                "verify", wait_s, tokens=self.total_generated - emitted_before,
+                spec_accepted=self.spec_accepted - accepted_before,
+                spec_rejected=self.spec_rejected - rejected_before, program=program,
+                span_s=span_s)
             disabled = self._spec_check_uplift()
             await self._flush_emits()
             if disabled or self._should_yield(live):
@@ -1498,42 +2159,52 @@ class TorchServingEngine:
     def _run_spec_step(self, ctx_rows, ctx_vals, current, lengths, active_mask,
                        tables, nrb, mode, temps, topks, topps):
         """Dispatch thread: patch the stale context rows, one
-        ``llama_spec_step_paged``, one packed fetch."""
-        dev = self.device
+        ``llama_spec_step_paged``, one packed fetch. Returns the fetched
+        parts, the seconds the fetch waited and the step's span on the card
+        (None on the CPU)."""
         S = self.model_config.max_seq_len
+        up = self._upload
+        start = self._timing_event()
         if self._ctx_dev is None:
             self._ctx_dev = torch.zeros((self.config.slots, S + 1), dtype=torch.int32,
-                                        device=dev)
+                                        device=self.device)
         if ctx_rows is not None:
-            self._ctx_dev[torch.from_numpy(ctx_rows).to(dev), :S] = (
-                torch.from_numpy(ctx_vals).to(dev))
+            self._ctx_dev[up(ctx_rows), :S] = up(ctx_vals)
         greedy = mode[2]
         packed, self._ctx_dev, self.cache_k, self.cache_v = llama_spec_step_paged(
-            self.model_config, self.params, self._ctx_dev,
-            torch.from_numpy(current).to(dev), torch.from_numpy(lengths).to(dev),
-            torch.from_numpy(active_mask).to(dev), self.cache_k, self.cache_v,
-            torch.from_numpy(tables).to(dev),
+            self.model_config, self.params, self._ctx_dev, up(current), up(lengths),
+            up(active_mask), self.cache_k, self.cache_v, up(tables),
             num_drafts=self.config.speculative_drafts, num_read_blocks=nrb,
             generator=self._generator,
-            temps=None if greedy else torch.from_numpy(temps).to(dev),
-            topks=None if greedy else torch.from_numpy(topks).to(dev),
-            topps=None if greedy else torch.from_numpy(topps).to(dev),
+            temps=None if greedy else up(temps),
+            topks=None if greedy else up(topks),
+            topps=None if greedy else up(topps),
             sampler_mode=mode,
         )
         self._spec_dispatches += 1
-        return self._fetch_spec(packed, self.config.speculative_drafts + 1)
+        end = self._timing_event()
+        parts, wait_s = self._fetch_spec(packed, self.config.speculative_drafts + 1)
+        return parts, wait_s, self._span_s(start, end)
 
     # ------------------------------------------------------------------
     # host-side token handling
     # ------------------------------------------------------------------
 
-    def _process_chunk(self, chunk_tokens, chunk_lps, active: list[int]) -> bool:
-        """Apply a chunk's tokens; True when a slot finished."""
+    def _process_chunk(self, chunk_tokens, chunk_lps, active: list[int],
+                       expected: list | None = None) -> bool:
+        """Apply a chunk's tokens; True when a slot finished. A slot's
+        tokens after its request finished (the pipelined loop's over-run)
+        are dropped, never billed; with ``expected`` (the requests the
+        slots ran when the chunk was dispatched) a slot that now runs
+        another request is skipped."""
         K = chunk_tokens.shape[0]
         finished = False
-        for slot_id in active:
+        for pos, slot_id in enumerate(active):
+            request = self.slots[slot_id].request
+            if request is None or (expected is not None and request is not expected[pos]):
+                continue
             for k in range(K):
-                if self.slots[slot_id].request is None:
+                if self.slots[slot_id].request is not request:
                     break  # finished mid-chunk; discard the tail
                 self._lengths[slot_id] += 1
                 token = int(chunk_tokens[k, slot_id])

@@ -113,9 +113,12 @@ def test_port_engine_matches_jax_engine(name):
             params=params_from_numpy(flat, device="cpu", dtype=torch.float32),
         )
         try:
-            return await _serve(engine, stop, requests), engine.stats()
+            results = await _serve(engine, stop, requests)
         finally:
             await engine.close()
+        # read after close: when the last result is delivered a pipelined
+        # burst may still hold its over-run chunk in flight
+        return results, engine.stats()
 
     got, stats = asyncio.run(run_port(cfg))
     # with speculation the streams also equal the port's speculation-off

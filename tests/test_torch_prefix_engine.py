@@ -78,9 +78,13 @@ def test_prefix_engine_matches_jax_engine(name):
             params=params_from_numpy(flat, device="cpu", dtype=torch.float32),
         )
         try:
-            return await _two_waves(engine), engine.stats()
+            results = await _two_waves(engine)
         finally:
             await engine.close()
+        # read after close: when the last result is delivered a pipelined
+        # burst may still hold its over-run chunk (and the block releases
+        # it defers) in flight
+        return results, engine.stats()
 
     got, stats = asyncio.run(run_port())
     prompts = [p for wave in WAVES for p in wave]
