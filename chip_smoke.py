@@ -21,7 +21,9 @@ Phases (every one unguarded: any failure exits non-zero):
    chunk's T=512, the prefix hits' T=64 and T=16, and the speculative
    verify's T=5 at B=8 (history split) and B=64 (bf16 through the wgmma
    kernel with its plan of warpgroups and history spans; f32 through the
-   FMA kernel);
+   FMA kernel); and at Mixtral-8x7B's context (path G), flash at S=4096,
+   the bf16 and int8 decode reads over 4,096 history rows and the
+   multi-query read over histories to 3,584 rows;
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV) answering concurrent greedy requests, launch counters set to 0 just
@@ -54,6 +56,15 @@ Phases (every one unguarded: any failure exits non-zero):
    exposed host, stall, overlapped host) and idle share, the attribution's expected against achieved decode ms at
    the card's bandwidth, device-cache counts and peak memory; F1's greedy
    streams against F2's (recorded); the block manager idle after F3/F4;
+   main path G: Mixtral-8x7B (``moe-8x7b``, 32 layers, full width, random
+   int8 weights) at the ``moe-mixtral-ep`` resource without its mesh (32
+   slots, 4,096 context): G1 with the example's dense bf16 KV, a wave of 8
+   (one ~3,000-token prompt: flash at the 4,096 bucket), a wave of 32
+   (pipelined) and a profiled wave of 32 (prompts of one bucket, 17
+   tokens each; device busy time by group: dequant, GEMMs, the expert
+   FFN's routing/dispatch/activation/combine, flash, paged read); G2 paged int8 KV, a wave
+   of 32; per run ms per step, decode tok/s, TTFT, the attribution's
+   expected against achieved ms and peak memory;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -62,9 +73,11 @@ Phases (every one unguarded: any failure exits non-zero):
    KV, and paged with the prefix cache, with chunked
    prefill and with int8 KV; speculative on bf16/f32 and int8 KV, a
    repetitive prompt added so drafts land, the f32 streams also equal to
-   speculation off; the pipelined loop, dense and paged int8 KV, under a
-   mixed-length load of 8 requests on 3 slots);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-F),
+   speculation off; moe-tiny dense, paged int8 KV, prefix cache with
+   chunked prefill, and speculative; the pipelined loop, dense and paged
+   int8 KV, and moe-tiny dense, under a mixed-length load of 8 requests
+   on 3 slots, where moe-tiny's capacity drops choices);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-G),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -263,7 +276,7 @@ def phase_kernels(torch) -> dict:
 
     F = torch.nn.functional
     H, Kh, D, B = 32, 8, 128, 64
-    rows = {}
+    rows, at_4096 = {}, {}
 
     # -- kernels 2 and 3: paged decode reads --------------------------------
     cases = [
@@ -277,9 +290,17 @@ def phase_kernels(torch) -> dict:
          dict(bs=64, dtype=torch.float32, int8=False, dense=False), TOL_F32),
         ("paged_attention_q8", "bs64 int8 f32-q", _paged_attention_partial_q8,
          dict(bs=64, dtype=torch.float32, int8=True, dense=False), TOL_F32),
+        # Mixtral-8x7B's context (path G): 4,096 history rows, 16 spans
+        ("paged_attention", "dense bs128 bf16 4096", paged_attention_partial,
+         dict(bs=128, dtype=torch.bfloat16, int8=False, dense=True, max_len=4096),
+         TOL_BF16),
+        ("paged_attention_q8", "bs64 int8 4096", _paged_attention_partial_q8,
+         dict(bs=64, dtype=torch.bfloat16, int8=True, dense=False, max_len=4096),
+         TOL_BF16),
     ]
     for name, label, fn, spec, tol in cases:
-        case = paged_case(torch, B=B, H=H, Kh=Kh, D=D, max_len=2048, seed=7, **spec)
+        spec = {"max_len": 2048, **spec}
+        case = paged_case(torch, B=B, H=H, Kh=Kh, D=D, seed=7, **spec)
         err = check_paged(torch, f"{name} {label}", fn, paged_attention_reference,
                           case, kv_heads=Kh, head_dim=D, tol=tol)
         q, kp, vp, tables, lengths, nrb = case
@@ -307,19 +328,23 @@ def phase_kernels(torch) -> dict:
               f"achieved={nbytes / ms / 1e6:.1f} GB/s by_kernel="
               f"{device_ms_by_kernel(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))}",
               flush=True)
+        timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if label in ("bs64 bf16", "bs64 int8"):
-            rows[name] = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            rows[name] = timing
+        elif label.endswith("4096"):
+            at_4096[name] = {"case": label, **timing}
 
     # -- kernel 1: flash prefill ---------------------------------------------
     g = torch.Generator().manual_seed(11)
     for S, dtype, tol, label in (
         (512, torch.bfloat16, TOL_BF16, "bf16"),
         (2048, torch.bfloat16, TOL_BF16, "bf16"),
+        (4096, torch.bfloat16, TOL_BF16, "bf16"),  # path G's longest bucket
         (512, torch.float32, TOL_F32, "f32"),
     ):
-        Bf = 4
-        true_len = torch.tensor([S, S - 37, S // 2 + 3, 17])
+        Bf = 2 if S == 4096 else 4  # the plain version holds B*H*S*S f32 scores
+        true_len = torch.tensor([S, S - 37, S // 2 + 3, 17])[:Bf]
         valid = (torch.arange(S)[None, :] < true_len[:, None])[:, :, None, None]
         q = (torch.randn((Bf, S, H, D), generator=g) * valid).to(dtype).cuda()
         k = (torch.randn((Bf, S, Kh, D), generator=g) * valid).to(dtype).cuda()
@@ -354,22 +379,27 @@ def phase_kernels(torch) -> dict:
               f"library_ms={library_ms:.4f} (library err {lib_err:.2e}) "
               f"bound_ms={b_ms:.4f} ({b_by}) "
               f"achieved={flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
         if S == 2048:
-            rows["flash_attention"] = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
-                                           plain_ms=plain_ms, bound_ms=b_ms,
-                                           bound_by=b_by, library_ms=library_ms)
+            rows["flash_attention"] = timing
+        elif S == 4096:
+            at_4096["flash_attention"] = {"case": f"B={Bf} S=4096 bf16", **timing}
         del q, k, v, got, want, qt, kt, vt, lib_out
         torch.cuda.empty_cache()
+    for name, timing in at_4096.items():  # beside each row of the kernels line
+        rows[name]["mixtral_4096"] = timing
     return rows
 
 
-def mq_case(torch, B: int, seed: int):
+def mq_case(torch, B: int, seed: int, max_len: int = 2048):
     """Ragged history over shuffled tables for the multi-query read: B
-    slots, starts 0, a sub-block, block-exact and 1,536 among them."""
-    bs, max_len = 64, 2048
+    slots, starts 0, a sub-block, block-exact and ``max_len - 512`` among
+    them."""
+    bs, top = 64, max_len - 512
     g = torch.Generator().manual_seed(seed)
-    starts = torch.randint(1, 1537, (B,), generator=g)
-    starts[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, 1536])
+    starts = torch.randint(1, top + 1, (B,), generator=g)
+    starts[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, top])
     nrb = -(-int(starts.max()) // bs)
     nb = int(sum(-(-int(n) // bs) for n in starts)) + 1
     perm = (torch.randperm(nb - 1, generator=g) + 1).tolist()
@@ -393,8 +423,10 @@ def phase_mq_kernel(torch) -> dict:
 
     H, Kh, D, bs = 32, 8, 128, 64
     cases = {B: mq_case(torch, B, seed) for B, seed in ((8, 13), (64, 17))}
+    cases["8 at 4096"] = mq_case(torch, 8, 19, max_len=4096)  # Mixtral's context
     row, verify = None, {}
     for B, T, dtype, tol, label in ((8, 16, torch.bfloat16, TOL_BF16, "bf16"),
+                                    ("8 at 4096", 64, torch.bfloat16, TOL_BF16, "bf16"),
                                     (8, 64, torch.bfloat16, TOL_BF16, "bf16"),
                                     (8, 512, torch.bfloat16, TOL_BF16, "bf16"),
                                     (8, 5, torch.bfloat16, TOL_BF16, "bf16"),
@@ -405,6 +437,8 @@ def phase_mq_kernel(torch) -> dict:
                                     (8, 5, torch.float32, TOL_F32, "f32"),
                                     (64, 5, torch.float32, TOL_F32, "f32")):
         g, starts, tables, starts_d, nrb, nb = cases[B]
+        history = B
+        B = tables.shape[0]
         n_rows = int(starts.sum())
         q = torch.randn((B, T, H, D), generator=g).to(dtype).cuda()
         kp, vp = (torch.randn((nb, bs, Kh * D), generator=g).to(dtype).cuda()
@@ -449,7 +483,9 @@ def phase_mq_kernel(torch) -> dict:
               f"block table)", flush=True)
         timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        if T == 512 and dtype == torch.bfloat16:
+        if history == "8 at 4096":
+            at_4096 = {"case": f"B=8 T={T} history to {int(starts.max())} bf16", **timing}
+        elif T == 512 and dtype == torch.bfloat16:
             row = timing
         elif T == 5 and dtype == torch.bfloat16:
             verify[f"B{B}"] = {"spans": spans, **timing}
@@ -457,7 +493,8 @@ def phase_mq_kernel(torch) -> dict:
         torch.cuda.empty_cache()
     # the row of the kernels line: T=512 (path C's chunk) as in earlier
     # runs, the verify's T=5 beside it
-    return {"paged_attention_multiquery": {**row, "verify_t5_bf16": verify}}
+    return {"paged_attention_multiquery": {**row, "verify_t5_bf16": verify,
+                                           "mixtral_4096": at_4096}}
 
 
 # ---------------------------------------------------------------------------
@@ -1278,8 +1315,299 @@ def phase_saturated(torch, base: dict, device="cuda") -> dict:
     return total
 
 
+# examples/applications/moe-mixtral-ep/configuration.yaml's resource
+# without its mesh (ep: 4, tp: 2): the port serves the model on one card
+# (expert parallelism is ROADMAP.md Queue 1 item 13). Written out, as
+# CHAT_EXAMPLE_RESOURCE; a CPU test holds the two equal.
+MOE_EXAMPLE_RESOURCE = {
+    "model": "moe-8x7b",
+    "slots": 32,
+    "max-seq-len": 4096,
+    "quantize": "int8",
+}
+G_MAX_TOKENS = 32
+
+
+def moe_prompts() -> tuple[list[str], list[str], list[str]]:
+    """Path G's waves: 8 prompts, the first ~3,000 byte tokens (a prefill
+    at the 4,096 bucket); 32 of 40-700 tokens; and for the profiled wave
+    the same 32 cut to 129-200 tokens (one bucket: four prefills of 8)."""
+    log = ("2026-03-02 11:04:17 storage-node-7 WARN write latency p99 above "
+           "40 ms on volume vol-3181; replication lag 2.4 s; compaction "
+           "running on 3 of 12 shards. ")
+    long = ("Summarize the incident log below in three bullet points and name "
+            "the most likely root cause.\n" + log * 40)[:3000]
+    topics = ("paged attention", "expert routing", "a write-ahead log",
+              "consistent hashing", "a bloom filter", "speculative decoding",
+              "token bucket rate limiting", "a B-tree split")
+    shorts = []
+    for i in range(32):
+        body = (f"Request {i}: explain {topics[i % len(topics)]} to a new "
+                f"engineer, with one example from production. ")
+        shorts.append((body * (1 + (i * 7) % 16))[: 40 + (i * 97) % 661])
+    uniform = [(s * 4)[: 129 + (i * 13) % 72] for i, s in enumerate(shorts)]
+    return [long] + shorts[:7], shorts, uniform
+
+
+class _Ranges:
+    """While active, the dequant (``as_weight`` in the model modules) and
+    the routed FFN (``moe_ffn``) run inside ``record_function`` ranges, so
+    a profiler running on the dispatch thread attributes their kernels."""
+
+    def __init__(self, torch):
+        from langstream_tpu_torch.models import llama, llama_paged, moe
+
+        self.torch = torch
+        self.sites = [(llama, "_w", "dequant"), (llama_paged, "_w", "dequant"),
+                      (moe, "as_weight", "dequant"), (moe, "moe_ffn", "expert ffn")]
+        self.saved = [getattr(mod, name) for mod, name, _ in self.sites]
+
+    def __enter__(self):
+        record = self.torch.profiler.record_function
+        for (mod, name, label), real in zip(self.sites, self.saved):
+            def ranged(*args, _real=real, _label=label, **kw):
+                with record(f"moe:{_label}"):
+                    return _real(*args, **kw)
+            setattr(mod, name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _), real in zip(self.sites, self.saved):
+            setattr(mod, name, real)
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_" in name:
+        return "flash"
+    if "paged_decode_" in name or "paged_mq_" in name:
+        return "paged read"
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "cublas", "gemv", "nvjet")):
+        return "gemm"
+    return "other"
+
+
+def moe_breakdown(torch, prof, wall_s: float) -> str:
+    """Device busy time of a profiled path-G wave by group: GEMMs, flash,
+    the paged read and the rest by kernel name; of the rest, the dequant's
+    kernels and the routed FFN's non-GEMM kernels (routing, dispatch, the
+    experts' SiLU and product, combine) from the ranges that launched
+    them. The ranges' own device spans (user annotations) are not
+    kernels and are left out."""
+    cuda = torch.autograd.DeviceType.CUDA
+    t0 = time.monotonic()
+    events = prof.events()
+    kern = [e for e in events if e.device_type == cuda and not e.name.startswith("moe:")]
+    if not kern:
+        return "profile: no device events captured"
+    busy = sum(e.time_range.end - e.time_range.start for e in kern)
+    span = max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)
+    groups = {"gemm": 0.0, "flash": 0.0, "paged read": 0.0, "other": 0.0}
+    for e in kern:
+        groups[_kernel_group(e.name)] += e.time_range.end - e.time_range.start
+
+    def subtree_kernels(e):
+        yield from e.kernels
+        for ch in e.cpu_children:
+            yield from subtree_kernels(ch)
+
+    ranged = {"moe:dequant": 0.0, "moe:expert ffn": 0.0}
+    for e in events:
+        if e.device_type != cuda and e.name in ranged:
+            ranged[e.name] += sum(k.duration for k in subtree_kernels(e)
+                                  if _kernel_group(k.name) == "other")
+    groups["dequant"] = ranged["moe:dequant"]
+    groups["expert ffn non-gemm"] = ranged["moe:expert ffn"]
+    groups["other"] -= groups["dequant"] + groups["expert ffn non-gemm"]
+    lines = [f"profile: wall_s={wall_s:.3f} device_span_ms={span / 1e3:.1f} "
+             f"device_busy_ms={busy / 1e3:.1f} busy_share_of_span={busy / span:.3f} "
+             f"kernels={len(kern)} analysis_s={time.monotonic() - t0:.1f}"]
+    for g in ("dequant", "gemm", "expert ffn non-gemm", "flash", "paged read",
+              "other"):
+        lines.append(f"profile group {g}: {groups[g] / 1e3:.1f} ms "
+                     f"({groups[g] / busy:.3f} of busy)")
+    by_name: dict[str, float] = {}
+    for e in kern:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        lines.append(f"profile top {us / 1e3:9.2f} ms  {name[:110]}")
+    return "\n".join(lines)
+
+
+def _peak_gb(torch, device) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else 0.0
+
+
+def _wave_line(label, before, after, results, wall, peak_gb) -> str:
+    """One run's numbers: ms per step, decode tok/s, TTFT, chunks by
+    regime, the launches, peak memory."""
+    dc0, dc1 = before["decode-chunks"], after["decode-chunks"]
+    steps = dc1["steps"] - dc0["steps"]
+    secs = dc1["seconds"] - dc0["seconds"]
+    tokens = sum(len(r["tokens"]) for r in results)
+    ttft = sorted(r["ttft"] for r in results)
+    report = {
+        "requests": len(results), "tokens": tokens, "wall_s": round(wall, 3),
+        "ttft_s_min_p50_max": (round(ttft[0], 3), round(ttft[len(ttft) // 2], 3),
+                               round(ttft[-1], 3)),
+        "decode_tok_s": round((tokens - len(results)) / secs, 1) if secs else None,
+        "ms_per_step": round(secs / steps * 1e3, 2) if steps else None,
+        "chunks_light_heavy": (dc1["light"] - dc0["light"], dc1["heavy"] - dc0["heavy"]),
+        "prefill_calls": after["prefill-calls"] - before["prefill-calls"],
+    }
+    return f"main path [{label}]: {json.dumps(report)} peak_mem_gb={peak_gb:.1f}"
+
+
+def _attribution_lines(label, stats) -> str:
+    att = stats["attribution"]
+    programs = [
+        f"{p['program']} x{p['dispatches']}: expected {p['expected']['expected_ms']:.2f} ms "
+        f"achieved p50 {p['measured_ms_p50']:.2f} ms "
+        f"achieved_vs_expected {p['achieved_vs_expected']}"
+        for p in att["programs"] if p["measured_ms_p50"]
+        and (p["kind"] == "decode" or p["program"].startswith("prefill:p4096"))
+    ]
+    return (f"main path [{label}]: attribution at {att['hbm_gbps_assumed']} GB/s "
+            f"(decode programs, the 4,096-bucket prefill): "
+            + "; ".join(programs))
+
+
+def phase_moe_path(torch, resource: dict = MOE_EXAMPLE_RESOURCE,
+                   device="cuda") -> tuple[dict, dict]:
+    """Main path G: Mixtral-8x7B (``moe-8x7b``) at full width and depth, 32
+    layers, random int8 weights from seed 0, at the ``moe-mixtral-ep``
+    resource without its mesh. G1 (the example's dense bf16 KV): a wave of
+    8 (one ~3,000-token prompt: flash at the 4,096 bucket), a wave of 32
+    (heavy, pipelined), then 32 prompts of one bucket, 17 tokens each (one
+    K=16 chunk and the over-run), under the profiler (run on the dispatch
+    thread, with the dequant and the routed FFN in ranges). G2
+    (paged int8 KV, the params shared): one wave of 32. Returns the launch
+    counts of G1 and G2. ``device="cpu"`` with a tiny resource rehearses
+    the path on the CPU (no profiled wave there)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = {**resource, "seed": 0}
+    t0 = time.monotonic()
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+    if cuda:
+        torch.cuda.synchronize()
+    print(f"main path [G: {cfg['model']} {cfg.get('quantize')}]: "
+          f"init_s={time.monotonic() - t0:.2f} "
+          f"layers={engine.model_config.layers} hidden={engine.model_config.hidden} "
+          f"experts={engine.model_config.experts} weight_bytes={engine._weights_bytes} "
+          f"peak_mem_gb={_peak_gb(torch, device):.1f}", flush=True)
+    light, heavy, uniform = moe_prompts()
+    n_long = len(engine.tokenizer.encode(light[0]))
+    if not 2048 < n_long <= 4096 - G_MAX_TOKENS:
+        fail(f"path G: the long prompt must take the 4,096 bucket, got {n_long} tokens")
+    opts = {"max-tokens": G_MAX_TOKENS, "temperature": 0}
+
+    async def wave(label, prompts, max_tokens=G_MAX_TOKENS):
+        before = engine.stats()
+        t = time.monotonic()
+        results = await asyncio.gather(*(
+            engine.generate(p, {**opts, "max-tokens": max_tokens}) for p in prompts))
+        wall = time.monotonic() - t
+        await engine.settled()
+        for i, r in enumerate(results):
+            if not 0 < len(r["tokens"]) <= max_tokens:
+                fail(f"{label}: request {i} returned {len(r['tokens'])} tokens")
+            if not all(math.isfinite(x) for x in r["logprobs"]):
+                fail(f"{label}: request {i} has non-finite logprobs")
+        print(_wave_line(label, before, engine.stats(), results, wall,
+                         _peak_gb(torch, device)), flush=True)
+        return results, wall
+
+    async def run_g1():
+        loop = asyncio.get_running_loop()
+        try:
+            first, _ = await wave("G1: dense bf16 KV, wave of 8", light)
+            await wave("G1: dense bf16 KV, wave of 32", heavy)
+            if not cuda:
+                return first, None, 0.0
+            # the profiler on the dispatch thread, where the model's ops run
+            holder = {}
+
+            def start():
+                holder["prof"] = torch_profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                holder["prof"].__enter__()
+
+            def stop():
+                torch.cuda.synchronize()
+                holder["prof"].__exit__(None, None, None)
+
+            with _Ranges(torch):
+                await loop.run_in_executor(engine._executor, start)
+                # one decode chunk (K=16) and the pipelined loop's over-run
+                _, wall = await wave("G1: dense bf16 KV, profiled wave of 32 x 17 tokens",
+                                     uniform, max_tokens=17)
+                t = time.monotonic()
+                await loop.run_in_executor(engine._executor, stop)
+                print(f"profile: stop_s={time.monotonic() - t:.1f}", flush=True)
+            return first, holder["prof"], wall
+        finally:
+            await engine.close()
+
+    reset_counts()
+    first, prof, prof_wall = asyncio.run(run_g1())
+    g1 = read_counts()
+    stats = engine.stats()
+    print(_attribution_lines("G1", stats), flush=True)
+    if prof is not None:
+        print(moe_breakdown(torch, prof, prof_wall), flush=True)
+    print(f"main path [G1]: launches={g1} host_fetches_per_chunk="
+          f"{stats['decode-chunks']['host_fetches_per_chunk']}", flush=True)
+    if cuda and (g1["flash_attention"] == 0 or g1["paged_attention"] == 0):
+        fail(f"G1 did not launch flash and the bf16 paged read: {g1}")
+    if stats["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
+        fail(f"G1: host_fetches_per_chunk {stats['decode-chunks']['host_fetches_per_chunk']}")
+    params = engine.params
+    del engine, prof
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    g2_cfg = {**cfg, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    engine = TorchServingEngine(ServingConfig.from_dict(g2_cfg), device=device,
+                                params=params)
+
+    async def run_g2():
+        try:
+            return await wave("G2: paged int8 KV, wave of 32", light[:1] + heavy[1:])
+        finally:
+            await engine.close()
+
+    reset_counts()
+    asyncio.run(run_g2())
+    g2 = read_counts()
+    stats = engine.stats()
+    print(_attribution_lines("G2", stats), flush=True)
+    print(f"main path [G2]: launches={g2} host_fetches_per_chunk="
+          f"{stats['decode-chunks']['host_fetches_per_chunk']} "
+          f"peak_mem_gb={_peak_gb(torch, device):.1f}", flush=True)
+    if cuda and (g2["flash_attention"] == 0 or g2["paged_attention_q8"] == 0):
+        fail(f"G2 did not launch flash and the int8 paged read: {g2}")
+    if stats["kv"]["reserved_blocks"] or stats["kv"]["live_blocks"]:
+        fail(f"G2: the block manager is not idle after the wave: {stats['kv']}")
+    del engine, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return g1, g2
+
+
 def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
     from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from langstream_tpu_torch.models.moe import MoEConfig, init_moe_params
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     preamble = "A shared preamble of more than three blocks of sixteen tokens. "
@@ -1287,7 +1615,11 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
                preamble + "and a longer fourth prompt here", preamble + "fifth"]
     repetitive = "the cat sat on the mat. " * 6  # prompt lookup drafts land here
     c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
-    params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
+    mc = dataclasses.replace(MoEConfig.tiny(max_seq_len=256), dtype=torch.float32)
+    params = {  # by model
+        "tiny": init_llama_params(c, torch.Generator().manual_seed(3), device="cpu"),
+        "moe-tiny": init_moe_params(mc, torch.Generator().manual_seed(3), device="cpu"),
+    }
     golden_dir = REPO / "tests" / "fixtures" / "llama_tiny_golden"
     import numpy as np
 
@@ -1304,7 +1636,7 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
         try:
             engine = TorchServingEngine(
                 ServingConfig.from_dict(cfg), device=device,
-                params=None if "checkpoint" in layout else params)
+                params=None if "checkpoint" in layout else params[cfg["model"]])
         finally:
             os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
 
@@ -1349,7 +1681,14 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
                    {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
                     "kv-quantize": "int8"},
                    {"kv-layout": "paged", "speculative-drafts": 4},
-                   {"kv-layout": "paged", "speculative-drafts": 4, "kv-quantize": "int8"}):
+                   {"kv-layout": "paged", "speculative-drafts": 4, "kv-quantize": "int8"},
+                   # moe-tiny (path G's family): capacity drops at 3 slots
+                   {"model": "moe-tiny", "kv-layout": "dense"},
+                   {"model": "moe-tiny", "kv-layout": "paged", "prefix-cache": False,
+                    "kv-block-size": 16, "kv-quantize": "int8"},
+                   {"model": "moe-tiny", "kv-layout": "paged", "prefix-cache": True,
+                    "kv-block-size": 16, "prefill-chunk": 32},
+                   {"model": "moe-tiny", "kv-layout": "paged", "speculative-drafts": 4}):
         spec = layout.get("speculative-drafts", 0) > 0
         wave = prompts + [repetitive] if spec else prompts
         out, stats = {}, {}
@@ -1377,7 +1716,9 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
                 fail(f"card vs CPU {layout}: no draft accepted, or the speculative "
                      f"counts differ: {sp} vs {sp_cpu}")
             extra = f" speculative={sp}"
-            if "kv-quantize" not in layout:  # int8: commit boundaries differ
+            # int8: commit boundaries differ; MoE: the verify's batch shape
+            # sets other capacities than a decode step's
+            if "kv-quantize" not in layout and "model" not in layout:
                 plain, _ = run_layout({**layout, "speculative-drafts": 0}, devices[0], wave)
                 if plain != out["cuda"][0]:
                     fail(f"card {layout}: speculative greedy streams differ from "
@@ -1394,7 +1735,9 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
     budgets = [5, 12, 9, 16, 7, 21, 11, 14]
     for layout in ({"kv-layout": "dense", "pipeline": True, "decode-chunk-light": 0},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
-                    "kv-quantize": "int8", "pipeline": True}):
+                    "kv-quantize": "int8", "pipeline": True},
+                   {"model": "moe-tiny", "kv-layout": "dense", "pipeline": True,
+                    "decode-chunk-light": 0}):
         out = {name: run_layout(layout, device, mixed, budgets)[0]
                for name, device in zip(("cuda", "cpu"), devices)}
         if out["cuda"] != out["cpu"]:
@@ -1482,8 +1825,10 @@ def main() -> int:
     f_counts = phase_saturated(torch, base)
     gc.collect()
     torch.cuda.empty_cache()
+    t_g = time.monotonic()
+    g1_counts, g2_counts = phase_moe_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
-          f"{time.monotonic() - t_f:.1f} s)", flush=True)
+          f"{t_g - t_f:.1f} s, path G {time.monotonic() - t_g:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -1491,9 +1836,10 @@ def main() -> int:
     print(f"phase card vs CPU: {time.monotonic() - t0:.1f} s", flush=True)
 
     # -- phase 6: kernels line, then the device line ------------------------
+    g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
-             "E": e_counts, "F": f_counts}
-    meta = {  # launches: summed over the six main paths
+             "E": e_counts, "F": f_counts, "G": g_counts}
+    meta = {  # launches: summed over the seven main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

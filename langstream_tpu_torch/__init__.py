@@ -13,9 +13,10 @@ Layers (entry point down to the kernels):
   checks, warmup, FIFO admission, batched prefill, K-step decode chunks
   (light and heavy regimes), one packed device-to-host fetch per chunk;
   ``EmbeddingEngine`` for the encoder.
-- :mod:`langstream_tpu_torch.models` — Llama math (dense and paged), int8
-  weights, int8 KV rows, the paged pool and its host-side block manager,
-  the BERT-class encoder and the HF checkpoint loader.
+- :mod:`langstream_tpu_torch.models` — Llama math (dense and paged) with
+  its FFN hook, the Mixtral family's top-2 routed FFN, int8 weights, int8
+  KV rows, the paged pool and its host-side block manager, the BERT-class
+  encoder and the HF checkpoint loaders.
 - :mod:`langstream_tpu_torch.ops` — the hand-written Hopper kernels (CUDA
   C++ under ``ops/csrc``) beside their plain PyTorch versions.
 

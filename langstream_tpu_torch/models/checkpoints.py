@@ -1,13 +1,14 @@
-"""Llama checkpoint loading (port of the Llama half of
+"""Checkpoint loading (port of the loaders of
 ``langstream_tpu/models/checkpoints.py``).
 
 Reads a local HF-format directory (``*.safetensors`` or
-``pytorch_model*.bin``, standard Llama tensor names, with or without the
-``model.`` prefix) into the port's stacked-layer tree: ``(L, in, out)``
-matrices, ``(L, hidden)`` norms. Nothing is downloaded. A missing directory
-or missing weight files raise ``FileNotFoundError``; the caller never falls
-back to random weights. Mixtral checkpoints come with the MoE model
-(ROADMAP.md Queue 1 item 12).
+``pytorch_model*.bin``, standard Llama or Mixtral tensor names, with or
+without the ``model.`` prefix) into the port's stacked-layer tree:
+``(L, in, out)`` matrices, ``(L, hidden)`` norms, and for Mixtral ``(L, E,
+in, out)`` experts and a float32 ``(L, hidden, E)`` router. Nothing is
+downloaded. A missing directory or missing weight files raise
+``FileNotFoundError``; the caller never falls back to random weights. The
+writer (``save_moe_checkpoint``) is not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pathlib import Path
 import torch
 
 from langstream_tpu_torch.models.llama import LlamaConfig
+from langstream_tpu_torch.models.moe import MoEConfig
 
 
 def _load_state_dict(path: Path) -> dict[str, torch.Tensor]:
@@ -100,6 +102,42 @@ def load_llama_checkpoint(checkpoint_dir: str, config: LlamaConfig) -> dict:
         "layers": {
             ours: _stack_layers(g, "layers.{i}." + hf, config.layers, config.dtype, t)
             for ours, (hf, t) in {**_ATTN_NAMES, **_MLP_NAMES}.items()
+        },
+        "final_norm": head["final_norm"],
+        "lm_head": head["lm_head"],
+    }
+
+
+def load_moe_checkpoint(checkpoint_dir: str, config: MoEConfig) -> dict:
+    """The port's MoE parameter tree from an HF-format Mixtral directory, on
+    the CPU in ``config.dtype``: ``block_sparse_moe.experts.{e}.w1/w3/w2``
+    become ``w_gate``/``w_up``/``w_down`` (transposed), each expert cast
+    as it is read (a stacked f32 Mixtral projection would be ~60 GB of
+    host memory); ``block_sparse_moe.gate`` becomes the float32 router."""
+    state = _load_state_dict(Path(checkpoint_dir))
+    c = config
+    g = _getter(state)
+    head = _load_head_tensors(state, g, c.dtype)
+
+    def experts(w: str) -> torch.Tensor:
+        return torch.stack([
+            torch.stack([
+                g(f"layers.{i}.block_sparse_moe.experts.{e}.{w}.weight").T.to(c.dtype)
+                for e in range(c.experts)
+            ])
+            for i in range(c.layers)
+        ]).contiguous()
+
+    return {
+        "embed": head["embed"],
+        "layers": {
+            **{ours: _stack_layers(g, "layers.{i}." + hf, c.layers, c.dtype, t)
+               for ours, (hf, t) in _ATTN_NAMES.items()},
+            "router": _stack_layers(g, "layers.{i}.block_sparse_moe.gate.weight",
+                                    c.layers, torch.float32),
+            "w_gate": experts("w1"),
+            "w_up": experts("w3"),
+            "w_down": experts("w2"),
         },
         "final_norm": head["final_norm"],
         "lm_head": head["lm_head"],

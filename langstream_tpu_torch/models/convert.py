@@ -33,7 +33,9 @@ def params_from_numpy(tree, *, device="cuda", dtype: torch.dtype | None = None):
     """Port a numpy parameter tree onto ``device`` (the card unless the
     caller asks for the CPU). ``{"q", "s"}`` leaves become
     :class:`QTensor` (dequantizing to ``dtype``, default bfloat16); other
-    leaves become tensors, cast to ``dtype`` when given."""
+    leaves become tensors, cast to ``dtype`` when given, except a MoE
+    tree's ``router``, which stays float32 (a rounded router flips routing
+    decisions)."""
     device = require_device(device, "params_from_numpy")
     if isinstance(tree, dict) and set(tree) == {"q", "s"}:
         return QTensor(
@@ -43,7 +45,8 @@ def params_from_numpy(tree, *, device="cuda", dtype: torch.dtype | None = None):
         )
     if isinstance(tree, dict):
         return {
-            name: params_from_numpy(leaf, device=device, dtype=dtype)
+            name: params_from_numpy(
+                leaf, device=device, dtype=None if name == "router" else dtype)
             for name, leaf in tree.items()
         }
     t = tensor_from_numpy(tree, device=device)

@@ -177,8 +177,12 @@ def _swiglu(x, w_gate, w_up, w_down):
     return (gate * up) @ _w(w_down)
 
 
-def _default_ffn(h, lp):
-    """The dense SwiGLU FFN sub-block."""
+def _default_ffn(h, lp, valid=None):
+    """The dense SwiGLU FFN sub-block. The ``ffn=`` hook of every model
+    entry point defaults to it; the MoE family plugs in its routed FFN
+    (``models/moe.py``) and reuses the attention and cache paths.
+    ``valid`` marks real positions: a pointwise FFN ignores it, a routed
+    one must not let padded or inactive positions take expert capacity."""
     return _swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
@@ -201,18 +205,23 @@ def prefill_forward(
     params: dict,
     tokens: torch.Tensor,   # (B, P) int, right-padded
     lengths: torch.Tensor,  # (B,) true lengths
+    ffn=None,               # (h (B,P,H), lp, valid (B,P)) -> (B,P,H); default SwiGLU
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared prompt forward: returns (last-token logits (B, V) f32, ks, vs)
     where ks/vs are the roped per-layer K/V ``(L, B, P, Kh, D)``.
 
     Causality alone hides right-padded keys from every real query row, so
     the attention needs no per-row length; padded rows' outputs are
-    garbage the caller discards."""
+    garbage the caller discards. The FFN hook gets the (B, P) real-token
+    mask."""
     c = config
+    if ffn is None:
+        ffn = _default_ffn
     B, Pn = tokens.shape
     x = embedding_take(params["embed"], tokens)  # (B, P, H)
     positions = torch.arange(Pn, device=tokens.device)[None, :].expand(B, Pn)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
+    pos_valid = positions < lengths.to(torch.long)[:, None]
     ks, vs = [], []
     for layer in range(c.layers):
         lp = layer_params(params, layer)
@@ -223,7 +232,7 @@ def prefill_forward(
         out = flash_attention(q, k, v, causal=True)
         x = x + out.reshape(B, Pn, c.heads * c.head_dim) @ _w(lp["wo"])
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
-        x = x + _default_ffn(h2, lp)
+        x = x + ffn(h2, lp, pos_valid)
         ks.append(k)
         vs.append(v)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
@@ -237,9 +246,13 @@ def llama_forward(
     config: LlamaConfig,
     params: dict,
     tokens: torch.Tensor,  # (B, S) int
+    ffn=None,              # (h (B,S,H), lp, valid=None) -> (B,S,H); default SwiGLU
 ) -> torch.Tensor:
-    """All-position logits (B, S, V) f32, no KV cache (causal attention)."""
+    """All-position logits (B, S, V) f32, no KV cache (causal attention);
+    every position is a real token."""
     c = config
+    if ffn is None:
+        ffn = _default_ffn
     B, S = tokens.shape
     x = embedding_take(params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
@@ -253,6 +266,6 @@ def llama_forward(
         out = flash_attention(q, k, v, causal=True)
         x = x + out.reshape(B, S, c.heads * c.head_dim) @ _w(lp["wo"])
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
-        x = x + _swiglu(h2, lp["w_gate"], lp["w_up"], lp["w_down"])
+        x = x + ffn(h2, lp)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     return (x @ _w(params["lm_head"])).to(torch.float32)

@@ -52,18 +52,24 @@ def llama_prefill_paged(
     pool_k,                      # (L, nb, bs, Kh*D) or int8 {"q","s"}
     pool_v,
     block_tables: torch.Tensor,  # (B, max_blocks) — rows for THIS batch
+    ffn=None,                    # FFN hook (MoE family), see prefill_forward
+    commit_rows: torch.Tensor | None = None,  # (B,) bool — rows that commit
 ):
     """Prompt forward + paged cache fill (one scatter per K and V, in place).
-    Returns ``(logits (B, V) f32, pool_k, pool_v)``."""
+    ``commit_rows`` leaves out rows whose K/V must not land (a padded
+    batch's duplicate rows commit once). Returns ``(logits (B, V) f32,
+    pool_k, pool_v)``."""
     c = config
     B, Pn = tokens.shape
-    logits, ks, vs = prefill_forward(c, params, tokens, lengths)
+    logits, ks, vs = prefill_forward(c, params, tokens, lengths, ffn=ffn)
     KhD = c.kv_heads * c.head_dim
     L = ks.shape[0]
     valid = (
         torch.arange(Pn, device=tokens.device)[None, :]
         < lengths.to(torch.long)[:, None]
     )
+    if commit_rows is not None:
+        valid = valid & commit_rows[:, None]
     starts = torch.zeros((B,), dtype=torch.long, device=tokens.device)
     pool_k = write_rows(pool_k, ks.reshape(L, B, Pn, KhD), block_tables, starts, valid)
     pool_v = write_rows(pool_v, vs.reshape(L, B, Pn, KhD), block_tables, starts, valid)
@@ -81,6 +87,8 @@ def llama_prefill_continue_paged(
     block_tables: torch.Tensor,    # (B, max_blocks) int32
     num_read_blocks: int,          # block columns covering max(start)
     return_all_logits: bool = False,
+    ffn=None,                      # FFN hook (MoE family), gets pos_valid
+    commit_rows: torch.Tensor | None = None,  # (B,) bool — rows that commit
 ):
     """Prefill CONTINUATION: process a prompt suffix whose prefix K/V is
     already in the paged pool (positions ``[0, start)`` per slot) — the
@@ -104,10 +112,14 @@ def llama_prefill_continue_paged(
     past ``suffix_len`` go to scratch) right after that layer's attention,
     in place: the layer's history read only sees rows ``< start``, so the
     result equals the JAX package's one commit after the last layer,
-    without holding every layer's K/V. Returns ``(logits, pool_k,
+    without holding every layer's K/V; ``commit_rows`` leaves rows out of
+    the commit (a padded batch's duplicate rows commit once). The FFN hook
+    gets the (B, P2) real-suffix mask. Returns ``(logits, pool_k,
     pool_v)``: the last real suffix token's logits ``(B, V)`` f32, or with
     ``return_all_logits`` every position's ``(B, P2, V)``."""
     c = config
+    if ffn is None:
+        ffn = _default_ffn
     B, P2 = tokens.shape
     device = tokens.device
     quant = isinstance(pool_k, dict)
@@ -120,6 +132,7 @@ def llama_prefill_continue_paged(
     ar = torch.arange(P2, device=device)
     cos, sin = _rope(starts[:, None] + ar[None, :], D, c.rope_theta)
     pos_valid = ar[None, :] < suffix_lengths[:, None]                 # (B, P2)
+    commit = pos_valid if commit_rows is None else pos_valid & commit_rows[:, None]
     scale = 1.0 / math.sqrt(D)
     # suffix key block: bounds score memory at O(P2 * sbs) per step
     sbs = math.gcd(P2, 128)
@@ -218,12 +231,12 @@ def llama_prefill_continue_paged(
         out = out.permute(0, 3, 1, 2, 4).reshape(B, P2, c.heads * D)
         x = x + out @ _w(lp["wo"])
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
-        x = x + _default_ffn(h2, lp)
+        x = x + ffn(h2, lp, pos_valid)
         # commit this layer's suffix rows (in place, through layer views)
         write_rows(_layer_slice(pool_k, layer), k.reshape(1, B, P2, KhD),
-                   block_tables, start_lengths, pos_valid)
+                   block_tables, start_lengths, commit)
         write_rows(_layer_slice(pool_v, layer), v.reshape(1, B, P2, KhD),
-                   block_tables, start_lengths, pos_valid)
+                   block_tables, start_lengths, commit)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     if return_all_logits:
         logits = (x @ _w(params["lm_head"])).to(torch.float32)
@@ -300,6 +313,7 @@ def llama_spec_step_paged(
     topks: torch.Tensor | None = None,
     topps: torch.Tensor | None = None,
     sampler_mode: tuple | None = None,
+    ffn=None,
 ):
     """One speculative step on the device: prompt-lookup drafts from the
     context rows, the verify forward, and the context update, with no host
@@ -324,7 +338,7 @@ def llama_spec_step_paged(
         llama_verify_chunk_paged(
             config, params, tokens, base_lengths, active, pool_k, pool_v,
             block_tables, num_read_blocks, generator=generator, temps=temps,
-            topks=topks, topps=topps, sampler_mode=sampler_mode,
+            topks=topks, topps=topps, sampler_mode=sampler_mode, ffn=ffn,
         )
     )
     D1 = num_drafts + 1
@@ -359,6 +373,7 @@ def llama_verify_chunk_paged(
     topks: torch.Tensor | None = None,
     topps: torch.Tensor | None = None,
     sampler_mode: tuple | None = None,   # (use_top_p, use_top_k, all_greedy)
+    ffn=None,                            # FFN hook (MoE family)
 ):
     """Speculative VERIFY step: one continuation forward over ``D1 = 1 +
     drafts`` positions per slot scores every draft at once (its history
@@ -393,7 +408,7 @@ def llama_verify_chunk_paged(
     ).to(torch.int32)
     logits, pool_k, pool_v = llama_prefill_continue_paged(
         c, params, tokens, base_lengths, suffix_lengths, pool_k, pool_v,
-        block_tables, num_read_blocks, return_all_logits=True,
+        block_tables, num_read_blocks, return_all_logits=True, ffn=ffn,
     )  # (B, D1, V) f32
     drafts = tokens[:, 1:]
     if sampler_mode is None or sampler_mode[2]:  # all greedy
@@ -458,6 +473,7 @@ def llama_decode_chunk_paged(
     sample_extras=None,           # (presences, frequencies, counts0 (B, V))
     return_packed: bool = False,
     commit_inactive: bool = False,
+    ffn=None,                     # (h (B,H), lp, active (B,)) -> (B,H); default SwiGLU
 ):
     """K fused decode steps against the paged pool: the pool is read-only,
     each step's new K/V lands in a chunk buffer ``(L, B, K, Kh, D)``, and
@@ -470,6 +486,8 @@ def llama_decode_chunk_paged(
     final_lengths, pool_k, pool_v)``, or with ``return_packed``
     ``(packed, final_tokens, final_lengths, pool_k, pool_v)``."""
     c = config
+    if ffn is None:
+        ffn = _default_ffn
     B = tokens0.shape[0]
     device = tokens0.device
     KhD = c.kv_heads * c.head_dim
@@ -525,7 +543,7 @@ def llama_decode_chunk_paged(
             ]).to(x.dtype)
             x = x + out.reshape(B, c.heads * c.head_dim) @ _w(lp["wo"])
             h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
-            x = x + _default_ffn(h2, lp)
+            x = x + ffn(h2, lp, active)
         x = _rms_norm(x, params["final_norm"], c.norm_eps)
         logits = (x @ _w(params["lm_head"])).to(torch.float32)
         nxt, lp_ = sample_fn(logits, counts) if pen else sample_fn(logits)
@@ -576,6 +594,7 @@ def llama_decode_chunk_dense_pallas(
     block_size: int = 128,
     sample_extras=None,
     return_packed: bool = False,
+    ffn=None,
 ):
     """Dense-cache decode through the paged read kernels: a dense cache is a
     degenerate block pool — slot ``b``'s rows are the contiguous blocks
@@ -601,6 +620,6 @@ def llama_decode_chunk_dense_pallas(
         c, params, tokens0, base_lengths, active, pool_k, pool_v, tables,
         sample_fn, num_steps, num_read_blocks=num_read_blocks,
         sample_extras=sample_extras, return_packed=return_packed,
-        commit_inactive=True,
+        commit_inactive=True, ffn=ffn,
     )
     return out[:-2] + (cache_k, cache_v)

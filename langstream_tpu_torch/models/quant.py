@@ -84,6 +84,42 @@ def quantize_llama_params(params: dict) -> dict:
     }
 
 
+def quantize_moe_params(params: dict) -> dict:
+    """MoE twin of :func:`quantize_llama_params`: attention, embed and LM
+    head as there; experts per (layer, expert, output column), contracting
+    axis 2 of ``(L, E, in, out)``, one layer at a time so the f32
+    transient is one layer's experts; the router stays float32."""
+    layers = params["layers"]
+
+    def experts(w: torch.Tensor) -> QTensor:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        s = torch.empty(w.shape[:2] + (1, w.shape[3]), dtype=torch.float32,
+                        device=w.device)
+        for i in range(w.shape[0]):
+            t = quantize_tensor(w[i], axis=1)
+            q[i], s[i] = t.q, t.s
+        return QTensor(q=q, s=s, dtype=w.dtype)
+
+    return {
+        "embed": quantize_tensor(params["embed"], axis=1),
+        "layers": {
+            "attn_norm": layers["attn_norm"],
+            "wq": quantize_tensor(layers["wq"], axis=1),
+            "wk": quantize_tensor(layers["wk"], axis=1),
+            "wv": quantize_tensor(layers["wv"], axis=1),
+            "wo": quantize_tensor(layers["wo"], axis=1),
+            "mlp_norm": layers["mlp_norm"],
+            "router": layers["router"],
+            # (L, E, H, I) contract H; (L, E, I, H) contract I
+            "w_gate": experts(layers["w_gate"]),
+            "w_up": experts(layers["w_up"]),
+            "w_down": experts(layers["w_down"]),
+        },
+        "final_norm": params["final_norm"],
+        "lm_head": quantize_tensor(params["lm_head"], axis=0),
+    }
+
+
 # ---------------------------------------------------------------------------
 # direct quantized random-init (never materializes the full-precision tree)
 # ---------------------------------------------------------------------------
@@ -107,6 +143,56 @@ def _chunks(n: int, target: int = 32) -> int:
     return 1
 
 
+def _q8_stacked(n, rows, cols, fan_in, dtype, generator, device) -> QTensor:
+    """``n`` random ``(rows, cols)`` matrices quantized per output column,
+    one f32 chunk at a time: ``(n, rows, cols)`` int8, ``(n, 1, cols)``
+    scales."""
+    q = torch.empty((n, rows, cols), dtype=torch.int8, device=device)
+    s = torch.empty((n, 1, cols), dtype=torch.float32, device=device)
+    for i in range(n):
+        q[i], s[i] = _q8_chunk((rows, cols), fan_in, 0, generator, device)
+    return QTensor(q=q, s=s, dtype=dtype)
+
+
+def _q8_embed(c, generator, device) -> QTensor:
+    """The embedding quantized per row, 1/32 of the vocab at a time."""
+    V, Hd = c.vocab_size, c.hidden
+    nb = _chunks(V)
+    rows = V // nb
+    eq = torch.empty((V, Hd), dtype=torch.int8, device=device)
+    es = torch.empty((V, 1), dtype=torch.float32, device=device)
+    for i in range(nb):
+        sl = slice(i * rows, (i + 1) * rows)
+        eq[sl], es[sl] = _q8_chunk((rows, Hd), Hd, 1, generator, device)
+    return QTensor(q=eq, s=es, dtype=c.dtype)
+
+
+def _q8_lm_head(c, generator, device) -> QTensor:
+    """The LM head quantized per vocab column, 1/32 of the vocab at a time."""
+    V, Hd = c.vocab_size, c.hidden
+    nb = _chunks(V)
+    rows = V // nb
+    hq = torch.empty((Hd, V), dtype=torch.int8, device=device)
+    hs = torch.empty((1, V), dtype=torch.float32, device=device)
+    for i in range(nb):
+        sl = slice(i * rows, (i + 1) * rows)
+        hq[:, sl], hs[:, sl] = _q8_chunk((Hd, rows), Hd, 0, generator, device)
+    return QTensor(q=hq, s=hs, dtype=c.dtype)
+
+
+def _q8_attention(c, generator, device) -> dict:
+    """A layer stack's attention projections, quantized per output column."""
+    L, Hd = c.layers, c.hidden
+    qkv_dim = c.heads * c.head_dim
+    kv_dim = c.kv_heads * c.head_dim
+    return {
+        "wq": _q8_stacked(L, Hd, qkv_dim, Hd, c.dtype, generator, device),
+        "wk": _q8_stacked(L, Hd, kv_dim, Hd, c.dtype, generator, device),
+        "wv": _q8_stacked(L, Hd, kv_dim, Hd, c.dtype, generator, device),
+        "wo": _q8_stacked(L, qkv_dim, Hd, qkv_dim, c.dtype, generator, device),
+    }
+
+
 def init_llama_params_q8(config, generator: torch.Generator | None = None,
                          device="cuda") -> dict:
     """Random-init Llama params already weight-quantized: the same tree,
@@ -117,44 +203,56 @@ def init_llama_params_q8(config, generator: torch.Generator | None = None,
     caller asks for the CPU."""
     device = require_device(device, "init_llama_params_q8")
     c = config
-    L = c.layers
-    qkv_dim = c.heads * c.head_dim
-    kv_dim = c.kv_heads * c.head_dim
-
-    def stacked(rows, cols, fan_in):
-        q = torch.empty((L, rows, cols), dtype=torch.int8, device=device)
-        s = torch.empty((L, 1, cols), dtype=torch.float32, device=device)
-        for i in range(L):
-            q[i], s[i] = _q8_chunk((rows, cols), fan_in, 0, generator, device)
-        return QTensor(q=q, s=s, dtype=c.dtype)
-
-    V, Hd = c.vocab_size, c.hidden
-    nb = _chunks(V)
-    rows = V // nb
-    eq = torch.empty((V, Hd), dtype=torch.int8, device=device)
-    es = torch.empty((V, 1), dtype=torch.float32, device=device)
-    hq = torch.empty((Hd, V), dtype=torch.int8, device=device)
-    hs = torch.empty((1, V), dtype=torch.float32, device=device)
-    for i in range(nb):
-        sl = slice(i * rows, (i + 1) * rows)
-        eq[sl], es[sl] = _q8_chunk((rows, Hd), Hd, 1, generator, device)
+    L, Hd, I = c.layers, c.hidden, c.intermediate
+    embed = _q8_embed(c, generator, device)
     layers = {
         "attn_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
-        "wq": stacked(Hd, qkv_dim, Hd),
-        "wk": stacked(Hd, kv_dim, Hd),
-        "wv": stacked(Hd, kv_dim, Hd),
-        "wo": stacked(qkv_dim, Hd, qkv_dim),
+        **_q8_attention(c, generator, device),
         "mlp_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
-        "w_gate": stacked(Hd, c.intermediate, Hd),
-        "w_up": stacked(Hd, c.intermediate, Hd),
-        "w_down": stacked(c.intermediate, Hd, c.intermediate),
+        "w_gate": _q8_stacked(L, Hd, I, Hd, c.dtype, generator, device),
+        "w_up": _q8_stacked(L, Hd, I, Hd, c.dtype, generator, device),
+        "w_down": _q8_stacked(L, I, Hd, I, c.dtype, generator, device),
     }
-    for i in range(nb):
-        sl = slice(i * rows, (i + 1) * rows)
-        hq[:, sl], hs[:, sl] = _q8_chunk((Hd, rows), Hd, 0, generator, device)
     return {
-        "embed": QTensor(q=eq, s=es, dtype=c.dtype),
+        "embed": embed,
         "layers": layers,
         "final_norm": torch.ones((Hd,), dtype=c.dtype, device=device),
-        "lm_head": QTensor(q=hq, s=hs, dtype=c.dtype),
+        "lm_head": _q8_lm_head(c, generator, device),
+    }
+
+
+def init_moe_params_q8(config, generator: torch.Generator | None = None,
+                       device="cuda") -> dict:
+    """MoE twin of :func:`init_llama_params_q8`: the tree of
+    ``quantize_moe_params(init_moe_params(c))``, experts made one ``(in,
+    out)`` f32 chunk per (layer, expert) on ``device`` (a Mixtral-8x7B
+    expert chunk is 235 MB; the stacked f32 tensor would be 60 GB). The
+    router stays float32, unquantized."""
+    device = require_device(device, "init_moe_params_q8")
+    c = config
+    L, E, Hd, I = c.layers, c.experts, c.hidden, c.moe_intermediate
+
+    def experts(rows, cols, fan_in) -> QTensor:
+        # (L*E) chunks -> (L, E, rows, cols), scales (L, E, 1, cols): the
+        # layout of quantize_tensor(axis=2)
+        w = _q8_stacked(L * E, rows, cols, fan_in, c.dtype, generator, device)
+        return QTensor(q=w.q.view(L, E, rows, cols), s=w.s.view(L, E, 1, cols),
+                       dtype=c.dtype)
+
+    embed = _q8_embed(c, generator, device)
+    layers = {
+        "attn_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
+        **_q8_attention(c, generator, device),
+        "mlp_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
+        "router": torch.randn((L, Hd, E), generator=generator, device=device,
+                              dtype=torch.float32) * (1.0 / math.sqrt(Hd)),
+        "w_gate": experts(Hd, I, Hd),
+        "w_up": experts(Hd, I, Hd),
+        "w_down": experts(I, Hd, I),
+    }
+    return {
+        "embed": embed,
+        "layers": layers,
+        "final_norm": torch.ones((Hd,), dtype=c.dtype, device=device),
+        "lm_head": _q8_lm_head(c, generator, device),
     }

@@ -61,6 +61,13 @@ Execution model:
 - ``warmup-on-start``: the first request starts one shared warmup task (a
   lone greedy probe, then a concurrent wave) and every early request awaits
   it; see :meth:`TorchServingEngine.warmup`.
+- Mixtral-family models (``moe-tiny``, ``moe-8x7b``, ``mixtral-8x7b``)
+  serve on the same paths: the engine passes ``moe_serving_ffn`` as the
+  ``ffn=`` hook of every model call. Capacity follows the padded batch,
+  so a MoE prefill pads its rows to a power of two with copies of the last
+  row, as the JAX engine does for every model; the copies take expert
+  capacity as there, and only the last copy commits its K/V (the JAX
+  scatter's last write on the CPU).
 - Submit-time refusals, as in the JAX engine: a request naming an
   ``adapter`` (no adapter store here) raises ``ValueError``; one whose
   ``deadline``/``deadline-s`` budget is spent raises
@@ -90,7 +97,10 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch._device import require_device
-from langstream_tpu_torch.models.checkpoints import load_llama_checkpoint
+from langstream_tpu_torch.models.checkpoints import (
+    load_llama_checkpoint,
+    load_moe_checkpoint,
+)
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     init_llama_params,
@@ -105,6 +115,11 @@ from langstream_tpu_torch.models.llama_paged import (
     llama_spec_step_paged,
     pack_tokens_logprobs,
 )
+from langstream_tpu_torch.models.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_serving_ffn,
+)
 from langstream_tpu_torch.models.paged import (
     BlockManager,
     PagedLayout,
@@ -114,7 +129,9 @@ from langstream_tpu_torch.models.paged import (
 from langstream_tpu_torch.models.quant import (
     QTensor,
     init_llama_params_q8,
+    init_moe_params_q8,
     quantize_llama_params,
+    quantize_moe_params,
 )
 from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
 from langstream_tpu_torch.ops.flash_attention import flash_attention
@@ -156,7 +173,12 @@ _MODEL_CONFIGS = {
     "llama3-70b": LlamaConfig.llama3_70b,
     "llama-3-70b": LlamaConfig.llama3_70b,
 }
-_MOE_MODELS = ("moe-tiny", "moe-8x7b", "mixtral-8x7b")
+# MoE (Mixtral-family) models serve on the same engine through the FFN hook
+_MOE_MODELS = {
+    "moe-tiny": MoEConfig.tiny,
+    "moe-8x7b": MoEConfig.mixtral_8x7b,
+    "mixtral-8x7b": MoEConfig.mixtral_8x7b,
+}
 _DTYPES = {
     "float32": torch.float32, "f32": torch.float32,
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -278,7 +300,8 @@ class ServingConfig:
 
 #: settings this slice does not serve: (predicate, message)
 _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
-    (lambda c: bool(c.mesh), "mesh: multi-GPU serving is ROADMAP.md Queue 1 item 13"),
+    (lambda c: bool(c.mesh),
+     "mesh: multi-GPU serving (expert parallelism too) is ROADMAP.md Queue 1 item 13"),
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
@@ -296,10 +319,6 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
      "journal-dir: the crash-requeue journal is ROADMAP.md Queue 1 item 9"),
     (lambda c: c.incident_dir is not None,
      "incident-dir: incident capture is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.model in _MOE_MODELS and bool(c.checkpoint),
-     "checkpoint: MoE checkpoints (load_moe_checkpoint) are ROADMAP.md Queue 1 "
-     "item 12"),
-    (lambda c: c.model in _MOE_MODELS, "MoE models are ROADMAP.md Queue 1 item 12"),
 )
 
 #: accepted settings that change only latency here; logged once when set
@@ -332,9 +351,10 @@ def _check_supported(config: ServingConfig) -> None:
         raise ValueError(f"unknown kv_quantize mode {config.kv_quantize!r}")
     if config.kv_layout not in ("dense", "paged"):
         raise ValueError(f"unknown kv_layout {config.kv_layout!r}")
-    if config.model not in _MODEL_CONFIGS:
+    if config.model not in _MODEL_CONFIGS and config.model not in _MOE_MODELS:
         raise ValueError(
-            f"unknown model {config.model!r}; known: {sorted(_MODEL_CONFIGS)}"
+            f"unknown model {config.model!r}; known: "
+            f"{sorted(_MODEL_CONFIGS) + sorted(_MOE_MODELS)}"
         )
     if config.model_dtype is not None and config.model_dtype not in _DTYPES:
         raise ValueError(
@@ -475,11 +495,11 @@ class _DeviceLru:
 
 class TorchServingEngine:
     """The serving engine of the port. ``params=None`` means the weights of
-    ``config.checkpoint`` when set (an HF-format Llama directory, see
-    :func:`~langstream_tpu_torch.models.checkpoints.load_llama_checkpoint`),
-    else random init from ``config.seed`` (``init_llama_params_q8`` for
-    ``quantize: int8``, else ``init_llama_params``); otherwise ``params`` is
-    a port parameter tree (see
+    ``config.checkpoint`` when set (an HF-format Llama or Mixtral directory,
+    see :mod:`langstream_tpu_torch.models.checkpoints`), else random init
+    from ``config.seed`` (``init_llama_params_q8``/``init_moe_params_q8``
+    for ``quantize: int8``, else ``init_llama_params``/``init_moe_params``);
+    otherwise ``params`` is a port parameter tree (see
     :func:`langstream_tpu_torch.models.convert.params_from_numpy`). Trees
     not yet int8 are quantized here when the config asks for int8.
 
@@ -518,7 +538,9 @@ class TorchServingEngine:
         _check_supported(config)
         self.device = require_device(device, "TorchServingEngine")
         self.config = config
-        mc = _MODEL_CONFIGS[config.model](max_seq_len=config.max_seq_len)
+        self.is_moe = config.model in _MOE_MODELS
+        factory = (_MOE_MODELS if self.is_moe else _MODEL_CONFIGS)[config.model]
+        mc = factory(max_seq_len=config.max_seq_len)
         if config.model_dtype is not None:
             mc = dataclasses.replace(mc, dtype=_DTYPES[config.model_dtype])
         self.model_config = mc
@@ -667,22 +689,34 @@ class TorchServingEngine:
     def _init_model(self, params: dict | None) -> None:
         mc, dev = self.model_config, self.device
         int8 = self.config.quantize == "int8"
+        # the routed expert FFN for MoE models; None: the dense SwiGLU
+        self._ffn = moe_serving_ffn(mc) if self.is_moe else None
+        if self.is_moe:
+            load, init, init_q8, quantize = (
+                load_moe_checkpoint, init_moe_params, init_moe_params_q8,
+                quantize_moe_params)
+        else:
+            load, init, init_q8, quantize = (
+                load_llama_checkpoint, init_llama_params, init_llama_params_q8,
+                quantize_llama_params)
         if params is None and self.config.checkpoint:
-            # loaded on the CPU in the model dtype, then moved and (int8)
-            # quantized: the JAX engine's order, so the bf16 rounding
-            # happens before the quantizer as there
-            params = load_llama_checkpoint(self.config.checkpoint, mc)
+            # loaded on the CPU in the model dtype, then (int8) quantized:
+            # the JAX engine's order, so the bf16 rounding happens before
+            # the quantizer as there. A MoE tree is quantized before it
+            # moves: an int8 Mixtral-8x7B fits the card, a bf16 one not
+            params = load(self.config.checkpoint, mc)
+            if int8 and self.is_moe:
+                params = quantize(params)
         if params is None:
             log.warning(
                 "no checkpoint configured for model %r: using random-init "
                 "weights (offline/dev mode)", self.config.model,
             )
-            init = init_llama_params_q8 if int8 else init_llama_params
-            params = init(mc, self._generator, device=dev)
+            params = (init_q8 if int8 else init)(mc, self._generator, device=dev)
         else:
             params = _to_device(params, dev)
             if int8 and not isinstance(params["layers"]["wq"], QTensor):
-                params = quantize_llama_params(params)
+                params = quantize(params)
         self.params = params
         self.block_mgr = None
         self.paged_layout = None
@@ -722,6 +756,14 @@ class TorchServingEngine:
             if self.block_mgr is not None else 0
         )
         act_bytes = torch.empty((), dtype=mc.dtype).element_size()
+        if self.is_moe:
+            # routed experts: which ones fire is the data's, so the
+            # operations term counts parameters from the measured weight
+            # bytes over the weights' width (the JAX engine's estimate)
+            n_params = self._weights_bytes // (
+                1 if self.config.quantize == "int8" else act_bytes)
+        else:
+            n_params = param_count(mc)
         if self.config.kv_quantize == "int8":
             kv_row_bytes = mc.head_dim + 4  # int8 row + f32 scale
         else:
@@ -729,8 +771,9 @@ class TorchServingEngine:
         self._prog_shape = ModelShape(
             layers=mc.layers, hidden=mc.hidden, heads=mc.heads,
             kv_heads=mc.kv_heads, head_dim=mc.head_dim,
-            intermediate=mc.intermediate, vocab=mc.vocab_size,
-            weight_bytes=self._weights_bytes, param_count=param_count(mc),
+            intermediate=mc.moe_intermediate if self.is_moe else mc.intermediate,
+            vocab=mc.vocab_size,
+            weight_bytes=self._weights_bytes, param_count=n_params,
             kv_row_bytes=kv_row_bytes, act_bytes=act_bytes,
         )
         self._hbm_limit, self._hbm_limit_source = (
@@ -1387,14 +1430,16 @@ class TorchServingEngine:
                 if self.block_mgr is not None:
                     self.block_mgr.ensure_capacity(slot_id, len(request.prompt_tokens))
             B = len(batch)
-            padded = np.zeros((B, bucket), dtype=np.int64)
-            lengths = np.zeros(B, dtype=np.int32)
-            starts = np.zeros(B, dtype=np.int32)
-            slot_ids = np.zeros(B, dtype=np.int64)
-            temps = np.zeros(B, dtype=np.float32)
-            topks = np.zeros(B, dtype=np.int32)
-            topps = np.ones(B, dtype=np.float32)
-            for i, (slot_id, request, reuse) in enumerate(batch):
+            rows = self._prefill_rows(B)
+            padded = np.zeros((len(rows), bucket), dtype=np.int64)
+            lengths = np.zeros(len(rows), dtype=np.int32)
+            starts = np.zeros(len(rows), dtype=np.int32)
+            slot_ids = np.zeros(len(rows), dtype=np.int64)
+            temps = np.zeros(len(rows), dtype=np.float32)
+            topks = np.zeros(len(rows), dtype=np.int32)
+            topps = np.ones(len(rows), dtype=np.float32)
+            for i, j in enumerate(rows):
+                slot_id, request, reuse = batch[j]
                 suffix = request.prompt_tokens[reuse:]
                 padded[i, : len(suffix)] = suffix
                 lengths[i] = len(suffix)
@@ -1437,6 +1482,15 @@ class TorchServingEngine:
                                 span_s=span_s)
             await self._flush_emits()
 
+    def _prefill_rows(self, n: int) -> list[int]:
+        """Batch index of each row of an ``n``-request prefill. A routed FFN
+        takes its capacity from the padded batch, so MoE pads to the JAX
+        engine's rows: a power of two, the extra rows copies of the last
+        request. A dense FFN is row-independent and runs the ``n`` rows."""
+        if not self.is_moe:
+            return list(range(n))
+        return [min(i, n - 1) for i in range(_pow2(n))]
+
     def _start_decoding(self, slot_id: int, request: "_Request", token: int,
                         now: float) -> None:
         """The slot's prompt is in the cache and ``token`` is its first
@@ -1465,13 +1519,15 @@ class TorchServingEngine:
             return
         C = self.config.prefill_chunk
         B = len(pre)
-        tokens = np.zeros((B, C), dtype=np.int64)
-        starts = np.zeros(B, dtype=np.int32)
-        suffix_lens = np.zeros(B, dtype=np.int32)
-        temps = np.zeros(B, dtype=np.float32)
-        topks = np.zeros(B, dtype=np.int32)
-        topps = np.ones(B, dtype=np.float32)
-        for i, slot_id in enumerate(pre):
+        rows = self._prefill_rows(B)
+        tokens = np.zeros((len(rows), C), dtype=np.int64)
+        starts = np.zeros(len(rows), dtype=np.int32)
+        suffix_lens = np.zeros(len(rows), dtype=np.int32)
+        temps = np.zeros(len(rows), dtype=np.float32)
+        topks = np.zeros(len(rows), dtype=np.int32)
+        topps = np.ones(len(rows), dtype=np.float32)
+        for i, j in enumerate(rows):
+            slot_id = pre[j]
             slot = self.slots[slot_id]
             request = slot.request
             chunk = request.prompt_tokens[slot.prefill_done: slot.prefill_done + C]
@@ -1481,7 +1537,7 @@ class TorchServingEngine:
             temps[i] = request.temperature
             topks[i] = request.top_k
             topps[i] = request.top_p
-        slot_ids = np.asarray(pre, dtype=np.int64)
+        slot_ids = np.asarray([pre[j] for j in rows], dtype=np.int64)
         cont = (starts, self._read_blocks_for(max(int(starts.max()), 1)))
         mode = self._sampler_mode(temps, topks, topps)
         program = self._program_prefill_continue(cont[1], _pow2(B), C, mode)
@@ -1579,22 +1635,32 @@ class TorchServingEngine:
         start = self._timing_event()
         tokens = up(padded)
         lengths_t = up(lengths)
+        # a slot named by several rows (a padded batch) commits its last row
+        commit = np.array([s not in slot_ids[i + 1:] for i, s in enumerate(slot_ids)])
+        commit_t = None if commit.all() else up(commit)
         if cont is not None:
             starts, nrb = cont
             logits, _, _ = llama_prefill_continue_paged(
                 mc, self.params, tokens, up(starts), lengths_t, self.cache_k,
-                self.cache_v, up(tables), num_read_blocks=nrb,
+                self.cache_v, up(tables), num_read_blocks=nrb, ffn=self._ffn,
+                commit_rows=commit_t,
             )
             self._continue_calls += 1
         elif self.block_mgr is not None:
             logits, _, _ = llama_prefill_paged(
                 mc, self.params, tokens, lengths_t, self.cache_k, self.cache_v,
-                up(tables),
+                up(tables), ffn=self._ffn, commit_rows=commit_t,
             )
         else:
-            logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t)
-            sel = up(slot_ids)
+            logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t,
+                                             ffn=self._ffn)
             Pn = tokens.shape[1]
+            if commit_t is None:
+                sel = up(slot_ids)
+            else:
+                sel = up(slot_ids[commit])
+                keep = up(np.flatnonzero(commit))
+                ks, vs = ks[:, keep], vs[:, keep]
             self.cache_k[:, sel, :Pn] = ks
             self.cache_v[:, sel, :Pn] = vs
         nxt, lps = self._sample_fn(up(temps), up(topks), up(topps), mode)(logits)
@@ -1887,12 +1953,13 @@ class TorchServingEngine:
             out = llama_decode_chunk_paged(
                 mc, self.params, tokens, lengths, amask, self.cache_k, self.cache_v,
                 self._tables_device(tables), sample_fn, K, num_read_blocks=window,
-                sample_extras=extras, return_packed=True,
+                sample_extras=extras, return_packed=True, ffn=self._ffn,
             )
         else:
             out = llama_decode_chunk_dense_pallas(
                 mc, self.params, tokens, lengths, amask, self.cache_k, self.cache_v,
                 sample_fn, K, window, sample_extras=extras, return_packed=True,
+                ffn=self._ffn,
             )
         self._decode_dispatches += 1
         self._decode_steps += K
@@ -2179,7 +2246,7 @@ class TorchServingEngine:
             temps=None if greedy else up(temps),
             topks=None if greedy else up(topks),
             topps=None if greedy else up(topps),
-            sampler_mode=mode,
+            sampler_mode=mode, ffn=self._ffn,
         )
         self._spec_dispatches += 1
         end = self._timing_event()

@@ -18,6 +18,7 @@ import torch
 
 from langstream_tpu_torch.models.kvquant import quantize_rows
 from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
+from langstream_tpu_torch.models.moe import MoEConfig, init_moe_params
 from langstream_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -526,3 +527,42 @@ def test_tiny_engine_card_matches_cpu(layout, monkeypatch):
     assert out["cuda"] == out["cpu"]
     if layout.get("prefix-cache"):
         assert out["cuda"][1] >= 2
+
+
+@pytest.mark.parametrize(
+    "layout",
+    [
+        {"kv-layout": "dense"},
+        {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
+         "kv-quantize": "int8"},
+        {"kv-layout": "paged", "prefix-cache": True, "kv-block-size": 16,
+         "prefill-chunk": 32},
+    ],
+)
+def test_moe_tiny_engine_card_matches_cpu(layout):
+    """moe-tiny in f32 on the card and on the CPU with the same params: two
+    waves of more requests than slots (capacity drops at 3 slots), greedy
+    tokens identical."""
+    preamble = "A shared preamble of more than three blocks of sixteen tokens. "
+    prompts = ["paged cache equivalence", "second prompt!", "a", "judge my vow",
+               preamble + "and a longer fourth prompt here", preamble + "fifth"]
+    c = dataclasses.replace(MoEConfig.tiny(max_seq_len=256), dtype=torch.float32)
+    params = init_moe_params(c, torch.Generator().manual_seed(3), device="cpu")
+    cfg = ServingConfig.from_dict({"model": "moe-tiny", "model-dtype": "float32",
+                                   "slots": 3, "max-seq-len": 256,
+                                   "decode-chunk": 4, **layout})
+    out = {}
+    for device in ("cuda", "cpu"):
+        async def run(engine=TorchServingEngine(cfg, device=device, params=params)):
+            try:
+                results = []
+                for _ in range(2):
+                    results += await asyncio.gather(
+                        *(engine.generate(p, {"max-tokens": 12}) for p in prompts)
+                    )
+                return results
+            finally:
+                await engine.close()
+
+        out[device] = [r["tokens"] for r in asyncio.run(run())]
+    assert out["cuda"] == out["cpu"]

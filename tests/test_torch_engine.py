@@ -196,7 +196,7 @@ def test_engine_needs_the_card_unless_told_cpu():
     "overrides,match",
     [
         ({"mesh": {"tp": 2}}, "mesh"),
-        ({"model": "moe-tiny", "checkpoint": "/nonexistent"}, "checkpoint"),
+        ({"model": "moe-tiny", "mesh": {"ep": 2}}, "mesh"),
         ({"kv-quantize": "int8"}, "kv-layout: paged"),
         ({"adapter-store": {"rank": 4}}, "adapter-store"),
         ({"prefix-store": {"t0-bytes": 0}}, "prefix-store"),
@@ -207,7 +207,6 @@ def test_engine_needs_the_card_unless_told_cpu():
         ({"faults": [{"site": "prefill"}]}, "faults"),
         ({"journal-dir": "j"}, "journal-dir"),
         ({"incident-dir": "i"}, "incident-dir"),
-        ({"model": "moe-tiny"}, "MoE"),
     ],
 )
 def test_unsupported_settings_raise_naming_the_roadmap(overrides, match):

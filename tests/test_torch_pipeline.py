@@ -328,7 +328,13 @@ def test_dispatch_path_makes_no_blocking_copy(layout):
     no blocking copy and no host read of a device value; after a burst's
     first chunk (host tokens, uploaded) the only uploads are device-cache
     misses, and each chunk has exactly one fetch."""
-    engine = _engine(layout, True)
+    check_dispatch_path_makes_no_blocking_copy(_engine(layout, True),
+                                               paged=layout != "dense")
+
+
+def check_dispatch_path_makes_no_blocking_copy(engine, paged: bool):
+    """The guard of :func:`test_dispatch_path_makes_no_blocking_copy` over
+    ``engine`` serving the workload (also run on a MoE engine)."""
     log = []  # per dispatch: (fed from the device, guarded calls, uploads, misses)
     uploads = []
     real_dispatch, real_upload = engine._dispatch_decode, engine._upload
@@ -364,5 +370,5 @@ def test_dispatch_path_makes_no_blocking_copy(layout):
     dc = stats["decode-chunks"]
     assert dc["dispatched"] == dc["fetched"] == len(log)
     assert stats["device-cache"]["sampler"]["hits"] > 0
-    if layout != "dense":
+    if paged:
         assert stats["device-cache"]["tables"]["hits"] > 0
