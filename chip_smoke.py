@@ -56,7 +56,7 @@ Phases (every one unguarded: any failure exits non-zero):
    exposed host, stall, overlapped host) and idle share, the attribution's expected against achieved decode ms at
    the card's bandwidth, device-cache counts and peak memory; F1's greedy
    streams against F2's (recorded); the block manager idle after F3/F4;
-   main path G: Mixtral-8x7B (``moe-8x7b``, 32 layers, full width, random
+   main path G: Mixtral-8x7B (``moe-8x7b``, 16 of its 32 layers, full width, random
    int8 weights) at the ``moe-mixtral-ep`` resource without its mesh (32
    slots, 4,096 context): G1 with the example's dense bf16 KV, a wave of 8
    (one ~3,000-token prompt: flash at the 4,096 bucket), a wave of 32
@@ -65,6 +65,22 @@ Phases (every one unguarded: any failure exits non-zero):
    FFN's routing/dispatch/activation/combine, flash, paged read); G2 paged int8 KV, a wave
    of 32; per run ms per step, decode tok/s, TTFT, the attribution's
    expected against achieved ms and peak memory;
+   main path H: the admission and delivery planes at llama3-8b, the chat
+   example's resource with paged int8 KV, ``streaming: true``, a ``qos``
+   section (three classes, a ``bulk`` tenant's request bucket) and an
+   ``slo`` section, the pool sized so the batch wave reserves 94% of it:
+   48 batch requests (300-600 tokens, 256 generated) decode, 16
+   interactive ones arrive through the provider's streaming branch with
+   stream keys (four cancelled through the stream registry after their
+   second chunk) and batch victims are preempted and resume, 16 further
+   bulk submissions are throttled; H1 with QoS, H2 the same traffic FIFO.
+   Per run TTFT and TBT by class, preemptions, resume waits, sheds,
+   cancelled against reclaimed, decode tok/s, ``health()`` and the SLO
+   burn; exits non-zero unless every request that was neither shed nor
+   cancelled completes and tiles its stream, preemptions equal resumes,
+   reclaimed equals cancelled, the block manager ends idle,
+   ``host_fetches_per_chunk`` is 1.0 and H1's ``health()`` ends ok;
+   the preempted streams against H2's (recorded);
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -76,8 +92,10 @@ Phases (every one unguarded: any failure exits non-zero):
    speculation off; moe-tiny dense, paged int8 KV, prefix cache with
    chunked prefill, and speculative; the pipelined loop, dense and paged
    int8 KV, and moe-tiny dense, under a mixed-length load of 8 requests
-   on 3 slots, where moe-tiny's capacity drops choices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-G),
+   on 3 slots, where moe-tiny's capacity drops choices; a QoS layout, 8
+   blocks of 16 on 2 slots, where a batch request is preempted by an
+   interactive one and resumes to its unpreempted tokens);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-H),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1326,6 +1344,10 @@ MOE_EXAMPLE_RESOURCE = {
     "quantize": "int8",
 }
 G_MAX_TOKENS = 32
+# path G's depth: 16 of Mixtral-8x7B's 32 layers at the published widths,
+# cut when path H joined the smoke (a Mixtral step is device-bound, so its
+# time and the profiled wave's kernel count follow the depth)
+G_LAYERS = 16
 
 
 def moe_prompts() -> tuple[list[str], list[str], list[str]]:
@@ -1474,9 +1496,9 @@ def _attribution_lines(label, stats) -> str:
 
 def phase_moe_path(torch, resource: dict = MOE_EXAMPLE_RESOURCE,
                    device="cuda") -> tuple[dict, dict]:
-    """Main path G: Mixtral-8x7B (``moe-8x7b``) at full width and depth, 32
-    layers, random int8 weights from seed 0, at the ``moe-mixtral-ep``
-    resource without its mesh. G1 (the example's dense bf16 KV): a wave of
+    """Main path G: Mixtral-8x7B (``moe-8x7b``) at full width and
+    ``G_LAYERS`` of its 32 layers, random int8 weights from seed 0, at the
+    ``moe-mixtral-ep`` resource without its mesh. G1 (the example's dense bf16 KV): a wave of
     8 (one ~3,000-token prompt: flash at the 4,096 bucket), a wave of 32
     (heavy, pipelined), then 32 prompts of one bucket, 17 tokens each (one
     K=16 chunk and the over-run), under the profiler (run on the dispatch
@@ -1487,14 +1509,29 @@ def phase_moe_path(torch, resource: dict = MOE_EXAMPLE_RESOURCE,
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from langstream_tpu_torch.serving import engine as engine_module
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     cuda = device == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     cfg = {**resource, "seed": 0}
+
+    def make_engine(cfg, params=None):
+        """The engine at ``G_LAYERS``: it takes the model's shape from its
+        name, so the cut depth goes in through that table, for this
+        construction only."""
+        full = engine_module._MOE_MODELS[cfg["model"]]
+        engine_module._MOE_MODELS[cfg["model"]] = lambda **kw: dataclasses.replace(
+            full(**kw), layers=min(full(**kw).layers, G_LAYERS))
+        try:
+            return TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
+                                      params=params)
+        finally:
+            engine_module._MOE_MODELS[cfg["model"]] = full
+
     t0 = time.monotonic()
-    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+    engine = make_engine(cfg)
     if cuda:
         torch.cuda.synchronize()
     print(f"main path [G: {cfg['model']} {cfg.get('quantize')}]: "
@@ -1577,8 +1614,7 @@ def phase_moe_path(torch, resource: dict = MOE_EXAMPLE_RESOURCE,
     g2_cfg = {**cfg, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False}
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    engine = TorchServingEngine(ServingConfig.from_dict(g2_cfg), device=device,
-                                params=params)
+    engine = make_engine(g2_cfg, params)
 
     async def run_g2():
         try:
@@ -1603,6 +1639,308 @@ def phase_moe_path(torch, resource: dict = MOE_EXAMPLE_RESOURCE,
     if cuda:
         torch.cuda.empty_cache()
     return g1, g2
+
+
+# ---------------------------------------------------------------------------
+# path H: the admission and delivery planes under a multi-tenant load
+# ---------------------------------------------------------------------------
+
+H_BATCH, H_INTER, H_EXTRA, H_CANCEL = 48, 16, 16, 4
+H_BATCH_TOKENS, H_INTER_TOKENS, H_EXTRA_TOKENS = 256, 64, 32
+# the three default classes (the interactive one with a TBT target), and a
+# bulk tenant whose request bucket holds the batch wave and refills at one
+# request per 1,000 s, so the later bulk submissions are throttled
+H_QOS = {
+    # K=32 chunks at 62-88 ms per step (PERF.md section 5) deliver every
+    # 2.0-2.8 s on the card; the target leaves room for a resume's prefill
+    "classes": {"interactive": {"tbt-p99-s": 8.0}, "default": {}, "batch": {}},
+    "tenants": {"bulk": {"requests-per-s": 0.001, "request-burst": H_BATCH}},
+}
+H_SLO = {"objectives": {"ttft": {"target": 0.9, "threshold-ms": 10000},
+                        "queue-wait": {"target": 0.9, "threshold-ms": 5000},
+                        "shed-rate": {"target": 0.99}}}
+
+
+def qos_prompts() -> tuple[list[str], list[str], list[str]]:
+    """Path H's prompts: 48 batch prompts of 300-600 byte tokens sharing a
+    support-ticket preamble (their later prefills hit its cached blocks),
+    16 interactive questions of 30-120 tokens, and 16 further bulk
+    prompts. Each ends in its index, so no two are equal."""
+    ticket = ("Support ticket: the customer reports that the nightly export "
+              "job fails after the upgrade, attaches logs, and asks for a "
+              "root cause, a workaround and a timeline for the fix. ") * 6
+    question = "Quick question from the chat window: what does this error mean? " * 2
+    batch = [ticket[: 299 + (i * 97) % 301 - 6] + f" #{i:04d}" for i in range(H_BATCH)]
+    inter = [question[: 29 + (i * 37) % 91 - 6] + f" #{i:04d}" for i in range(H_INTER)]
+    extra = [ticket[: 199 - 6] + f" #{i:04d}" for i in range(H_EXTRA)]
+    return batch, inter, extra
+
+
+def qos_pool_blocks(batch, inter, block_size: int) -> tuple[int, float]:
+    """kv-pool-blocks for path H: the batch wave's worst-case reservations
+    (prompt + max-tokens + 1, the byte tokenizer's BOS included) take 94%
+    of the usable pool (block 0 is scratch), at least the 90% path H asks
+    for and under the 95% the KV-saturation predicate flags, so the
+    interactive wave cannot all find blocks; returns (blocks, the batch
+    share)."""
+    need = [-(-(len(p.encode()) + 1 + H_BATCH_TOKENS + 1) // block_size) for p in batch]
+    usable = math.ceil(sum(need) / 0.94)
+    inter_need = sum(-(-(len(p.encode()) + 1 + H_INTER_TOKENS + 1) // block_size)
+                     for p in inter)
+    if inter_need <= usable - sum(need):
+        fail(f"H: the interactive wave ({inter_need} blocks) fits the pool's free "
+             f"{usable - sum(need)} blocks: nothing would be preempted")
+    return usable + 1, sum(need) / usable
+
+
+def phase_qos_run(torch, label: str, cfg: dict, device: str):
+    """One run of path H through one engine (made by the port's provider, as
+    the chat agent reaches it): the batch wave, then the interactive wave
+    through the provider's streaming branch with stream keys, four of them
+    cancelled through the stream registry after their second chunk, then
+    the further bulk submissions. Every request streams. Returns (report,
+    launch counts, batch results by prompt index, preempted indices); both
+    runs make the same random weights from the resource's seed."""
+    import threading
+
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.serving.engine import TorchServingEngine
+    from langstream_tpu_torch.serving.qos import RateLimited
+    from langstream_tpu_torch.serving.streaming import STREAMS
+
+    batch, inter, extra = qos_prompts()
+    qos_on = "qos" in cfg
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    service = TorchServiceProvider(cfg, device=device).get_completions_service({})
+    engine = service.engine
+    ascii_head(engine)
+    preempted: list[str] = []
+    real_preempt = engine._preempt_slot
+
+    def note_preempt(slot_id, *args, **kwargs):  # which stream was the victim
+        preempted.append(engine.slots[slot_id].request.stream_key)
+        real_preempt(slot_id, *args, **kwargs)
+
+    engine._preempt_slot = note_preempt
+    chunks = {}
+
+    def collector(key):
+        chunks[key] = []
+        return lambda ids, delta, final: chunks[key].append((list(ids), delta, final))
+
+    async def run():
+        out = {}
+        try:
+            await engine.warmup()  # the resource's warmup-on-start, before the clock
+            before = engine.stats()
+            t0 = time.monotonic()
+            batch_tasks = [asyncio.ensure_future(engine.generate(
+                p, {"max-tokens": H_BATCH_TOKENS, "temperature": 0, "priority": "batch",
+                    "qos-tenant": "bulk", "stream-key": f"bulk-{i}"},
+                on_chunk=collector(f"bulk-{i}"))) for i, p in enumerate(batch)]
+            while any(not chunks.get(f"bulk-{i}") for i in range(H_BATCH)):
+                await asyncio.sleep(0.005)  # every batch request is decoding
+            out["batch_started_s"] = time.monotonic() - t0
+            cancelled = set(range(0, H_INTER, H_INTER // H_CANCEL))
+
+            def consumer(i):
+                key = f"chat-{i}"
+                chunks[key] = []
+
+                def on_chunk(chunk):
+                    chunks[key].append(chunk)
+                    if i in cancelled and len(chunks[key]) == 2:
+                        # the gateway's disconnect, from its own thread
+                        threading.Thread(target=STREAMS.cancel, args=(key,)).start()
+                return on_chunk
+
+            t_inter = time.monotonic()
+            inter_tasks = [asyncio.ensure_future(service.text_completions(
+                p, {"max-tokens": H_INTER_TOKENS, "temperature": 0,
+                    "priority": "interactive", "stream-key": f"chat-{i}"}, consumer(i)))
+                for i, p in enumerate(inter)]
+            await asyncio.sleep(0)
+            extra_tasks = [asyncio.ensure_future(engine.generate(
+                p, {"max-tokens": H_EXTRA_TOKENS, "temperature": 0, "priority": "batch",
+                    "qos-tenant": "bulk"}, on_chunk=collector(f"extra-{i}")))
+                for i, p in enumerate(extra)]
+            out["inter"] = await asyncio.gather(*inter_tasks, return_exceptions=True)
+            out["inter_wall"] = time.monotonic() - t_inter
+            out["extra"] = await asyncio.gather(*extra_tasks, return_exceptions=True)
+            out["batch"] = await asyncio.gather(*batch_tasks, return_exceptions=True)
+            out["wall"] = time.monotonic() - t0
+            await engine.settled()
+            out["health"] = engine.health()
+            out["slo"] = engine.slo_status()
+            out["before"] = before
+            out["cancelled_keys"] = [f"chat-{i}" for i in sorted(cancelled)]
+            return out
+        finally:
+            TorchServingEngine.reset_instances()
+            await engine.close()
+
+    reset_counts()
+    out = asyncio.run(run())
+    counts = read_counts()
+    stats = engine.stats()  # after close: every chunk applied
+    for key in out["cancelled_keys"]:
+        STREAMS.consume_cancelled(key)
+    # -- hard checks ------------------------------------------------------
+    errors = [r for r in out["batch"] if isinstance(r, BaseException)]
+    if errors:
+        fail(f"{label}: batch requests failed: {errors[:3]}")
+    for i, r in enumerate(out["batch"]):
+        ids = [t for c in chunks[f"bulk-{i}"] for t in c[0]]
+        text = "".join(c[1] for c in chunks[f"bulk-{i}"])
+        if (len(r["tokens"]) != H_BATCH_TOKENS or ids != r["tokens"] or text != r["text"]
+                or not chunks[f"bulk-{i}"][-1][2]):
+            fail(f"{label}: batch stream {i} ({len(r['tokens'])} tokens, preempted "
+                 f"{preempted.count(f'bulk-{i}')}x) does not tile its result")
+    inter_cancelled = [i for i, r in enumerate(out["inter"])
+                       if isinstance(r, asyncio.CancelledError)]
+    if inter_cancelled != [int(k.split("-")[1]) for k in out["cancelled_keys"]]:
+        fail(f"{label}: cancelled interactive requests {inter_cancelled}, expected "
+             f"{out['cancelled_keys']}: {out['inter']}")
+    for i, r in enumerate(out["inter"]):
+        if i in inter_cancelled:
+            continue
+        if isinstance(r, BaseException) or r.num_completion_tokens != H_INTER_TOKENS:
+            fail(f"{label}: interactive request {i} did not complete: {r!r}")
+        check_stream(f"{label}: interactive request {i}", r, chunks[f"chat-{i}"])
+    shed = [r for r in out["extra"] if isinstance(r, RateLimited)]
+    if qos_on and (len(shed) != H_EXTRA or any(e.reason != "throttled" for e in shed)):
+        fail(f"{label}: the further bulk submissions must all be throttled: {out['extra']}")
+    if not qos_on and any(isinstance(r, BaseException) for r in out["extra"]):
+        fail(f"{label}: FIFO refused further bulk submissions: {out['extra']}")
+    sched, streaming = stats["scheduler"], stats["streaming"]
+    events = engine.flight.recent_events(0)
+    # (the event ring is bounded: counts from the counters, waits from the ring)
+    n_preempt = sched.get("preempted", len(preempted))
+    n_resume = engine.flight.events_by_type.get("resume", 0)
+    resumes = [e for e in events if e["kind"] == "resume"]
+    if qos_on and not (n_preempt == len(preempted) == n_resume
+                       == sched["resumed"] >= 1):
+        fail(f"{label}: preemptions {n_preempt} ({len(preempted)} victims) and resumes "
+             f"{n_resume} ({sched['resumed']}) must be equal and at least 1")
+    if not qos_on and (preempted or n_resume):
+        fail(f"{label}: FIFO preempted {preempted}")
+    if not streaming["cancelled"] == streaming["reclaimed"] == H_CANCEL:
+        fail(f"{label}: cancelled {streaming['cancelled']} reclaimed "
+             f"{streaming['reclaimed']}, expected {H_CANCEL} each")
+    kv = stats["kv"]
+    if kv["reserved_blocks"] or kv["live_blocks"] or engine._deferred_releases:
+        fail(f"{label}: the block manager is not idle: {kv}")
+    dc = stats["decode-chunks"]
+    if dc["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk {dc['host_fetches_per_chunk']} != 1.0")
+    health = out["health"]
+    # with QoS the run must end healthy; FIFO admits the bulk work QoS
+    # throttles and holds the pool saturated, so its verdict is recorded
+    # (it must not be wedged)
+    if (health["state"] != "ok" if qos_on else health["state"] == "wedged"):
+        fail(f"{label}: health() ends {health['state']}: {health['reasons']}")
+    # -- report ------------------------------------------------------------
+    def pct(values, q):
+        values = sorted(values)
+        return round(values[min(len(values) - 1, int(q * len(values)))], 3) if values else None
+
+    ttft = {"batch": [r["ttft"] for r in out["batch"]],
+            "interactive": [r.ttft_s for r in out["inter"] if not isinstance(r, BaseException)]}
+    if not qos_on:
+        ttft["batch (further bulk)"] = [r["ttft"] for r in out["extra"]]
+    before = out["before"]["decode-chunks"]
+    steps, secs = dc["steps"] - before["steps"], dc["seconds"] - before["seconds"]
+    gen = stats["total-generated"] - out["before"]["total-generated"]
+    waited = [e["waited_ms"] / 1e3 for e in resumes]
+    # what the health predicates read: the decode samples' overlapped share
+    # of host time and their mean occupancy (the overlap-collapse inputs)
+    decode = [x for x in engine.flight.recent(240) if x["phase"] == "decode"]
+    host = sum(x["host_ms"] + x["host_overlapped_ms"] for x in decode)
+    sheds: dict[str, int] = {}
+    for e in events:
+        if e["kind"] == "shed":
+            sheds[e["reason"]] = sheds.get(e["reason"], 0) + 1
+    report = {
+        "wall_s": round(out["wall"], 3), "batch_started_s": round(out["batch_started_s"], 3),
+        "interactive_wall_s": round(out["inter_wall"], 3),
+        "ttft_s_p50_p99_max": {c: (pct(v, 0.5), pct(v, 0.99), pct(v, 1.0))
+                               for c, v in ttft.items()},
+        "tbt_s_p50_p99": {c: (d["p50"], d["p99"]) for c, d in streaming["tbt"].items()},
+        "stalls": streaming["stalls"], "emits": streaming["emits"],
+        "preemptions": n_preempt, "resumes": n_resume,
+        "resume_wait_s_p50_max": (pct(waited, 0.5), pct(waited, 1.0)),
+        "sheds": sheds, "deadline_sheds": stats["deadline-sheds"],
+        "cancelled": streaming["cancelled"], "reclaimed": streaming["reclaimed"],
+        "decode_tok_s": round(gen / secs, 1) if secs else None,
+        "ms_per_step": round(secs / steps * 1e3, 2) if steps else None,
+        "host_fetches_per_chunk": dc["host_fetches_per_chunk"],
+        "kv_pool_blocks": kv["num_blocks"], "prefix_hits": stats["prefix"]["hits"],
+        "decode_samples": len(decode),
+        "decode_overlapped_share": round(sum(x["host_overlapped_ms"] for x in decode)
+                                         / host, 4) if host else None,
+        "decode_occupancy_mean": round(sum(x["occupancy"] for x in decode)
+                                       / len(decode), 2) if decode else None,
+    }
+    slo = out["slo"]
+    slo_line = {name: (o["burn_rate_fast"], o["total_good"], o["total_bad"])
+                for name, o in slo["objectives"].items()} if slo else None
+    print(f"main path [{label}]: {json.dumps(report)} launches={counts} "
+          f"peak_mem_gb={_peak_gb(torch, device):.1f}", flush=True)
+    print(f"main path [{label}]: health={health['state']} reasons={health['reasons']} "
+          f"ready={health['ready']} tbt_burn={health.get('tbt_burn')}; slo (burn fast, "
+          f"good, bad)={slo_line} alerting={slo['alerting'] if slo else None}; "
+          f"scheduler={json.dumps({k: v for k, v in sched.items() if k != 'classes'})}",
+          flush=True)
+    results = {i: r for i, r in enumerate(out["batch"])}
+    victims = sorted({int(k.split("-")[1]) for k in preempted})
+    return report, counts, results, victims
+
+
+def phase_qos_path(torch, resource: dict = CHAT_EXAMPLE_RESOURCE, device="cuda",
+                   block_size: int = 64) -> dict:
+    """Main path H: the chat example's resource with paged int8 KV
+    (``kv-block-size`` 64, the default, and the prefix cache on, the
+    default), ``streaming: true``, a ``qos`` section (the three classes, the
+    interactive one with ``tbt-p99-s``; a ``bulk`` tenant with a request
+    bucket) and an ``slo`` section (TTFT, queue wait, shed rate), the pool
+    sized so that the batch wave reserves 94% of it. H1 with QoS, H2 the
+    same traffic with ``qos`` absent (FIFO: nothing is preempted or
+    throttled; the further bulk submissions are served). H1 must end with
+    ``health()`` ok; H2's verdict is printed (not wedged). Then the batch
+    streams H1 preempted against the same prompts in H2 (not preempted):
+    common prefix and the logprob gap at the first divergence (printed,
+    not required). Returns the launch counts summed over H1 and H2."""
+    batch, inter, _ = qos_prompts()
+    blocks, share = qos_pool_blocks(batch, inter, block_size)
+    base = {"type": resource["type"], "name": resource["name"],
+            **resource["configuration"], "kv-layout": "paged", "kv-quantize": "int8",
+            "kv-block-size": block_size, "kv-pool-blocks": blocks, "streaming": True,
+            "slo": H_SLO}
+    print(f"main path [H]: kv-pool-blocks={blocks} of {block_size} tokens; the batch "
+          f"wave's reservations take {share:.4f} of the usable pool", flush=True)
+    r1, c1, res1, victims = phase_qos_run(
+        torch, "H1: QoS, paged int8 KV", {**base, "qos": H_QOS}, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    r2, c2, res2, _ = phase_qos_run(torch, "H2: FIFO, paged int8 KV", base, device)
+    forks = []
+    for i in victims:
+        a, b = res1[i], res2[i]
+        n = min(len(a["tokens"]), len(b["tokens"]))
+        common = next((j for j in range(n) if a["tokens"][j] != b["tokens"][j]), n)
+        gap = (round(abs(a["logprobs"][common] - b["logprobs"][common]), 4)
+               if common < n else None)
+        forks.append((i, common, gap))
+    print(f"main path [H1 vs H2]: preempted batch streams against the same prompts "
+          f"unpreempted (index, common prefix of {H_BATCH_TOKENS}, logprob gap at the "
+          f"first divergence): {forks}", flush=True)
+    print(f"main path [H1 vs H2]: interactive TTFT p50 "
+          f"{r1['ttft_s_p50_p99_max']['interactive'][0]} s with QoS, "
+          f"{r2['ttft_s_p50_p99_max']['interactive'][0]} s FIFO", flush=True)
+    return {k: c1[k] + c2[k] for k in c1}
 
 
 def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
@@ -1745,6 +2083,60 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
         print(f"card vs CPU [{layout}]: {2 * len(mixed)} greedy streams of a mixed-length "
               f"load ({len(mixed)} requests on 3 slots) identical", flush=True)
 
+    # QoS: tests/test_qos.py's preemption shape (8 blocks of 16, 2 slots)
+    qos_cfg = {"model": "tiny", "model-dtype": "float32", "slots": 2, "max-seq-len": 256,
+               "decode-chunk": 4, "kv-layout": "paged", "kv-block-size": 16,
+               "kv-pool-blocks": 8, "prefix-cache": False, "qos": {}}
+    out = {name: qos_preemption_round_trip(torch, qos_cfg, device, params["tiny"])
+           for name, device in zip(("cuda", "cpu"), devices)}
+    alone, resumed, interactive, counts = out["cuda"]
+    if out["cuda"] != out["cpu"] or resumed != alone or counts != (1, 1):
+        fail(f"card vs CPU [QoS preemption]: the card {out['cuda']} against the CPU "
+             f"{out['cpu']}: tokens must be identical, the resumed stream equal to the "
+             f"unpreempted one, one preemption and one resume")
+    print(f"card vs CPU [QoS preemption, 8 blocks of 16, 2 slots]: the preempted batch "
+          f"request's {len(resumed)} greedy tokens equal its unpreempted run and the "
+          f"CPU's; the interactive request's {len(interactive)} identical; "
+          f"preempted/resumed={counts}", flush=True)
+
+
+def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
+    """A batch request alone, then again with an interactive request
+    arriving at its third token (submitted and queued inside that token's
+    delivery, so every device sees it at the same chunk boundary): the
+    pool cannot hold both, so the batch request is preempted and resumes.
+    Returns (tokens alone, tokens resumed, interactive tokens, (preempted,
+    resumed))."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+    batch_prompt, inter_prompt = "quarterly report: revenue", "what should i check now?"
+
+    async def run():
+        try:
+            alone = await engine.generate(batch_prompt, {"max-tokens": 40})
+            seen, inter = 0, []
+
+            async def on_token(token, logprob, last):
+                nonlocal seen
+                seen += 1
+                if seen == 3:
+                    inter.append(asyncio.ensure_future(engine.generate(
+                        inter_prompt, {"max-tokens": 8, "priority": "interactive"})))
+                    for _ in range(3):
+                        await asyncio.sleep(0)
+
+            resumed = await engine.generate(
+                batch_prompt, {"max-tokens": 40, "priority": "batch"}, on_token=on_token)
+            interactive = await inter[0]
+            sched = engine.stats()["scheduler"]
+            return (alone["tokens"], resumed["tokens"], interactive["tokens"],
+                    (sched["preempted"], sched["resumed"]))
+        finally:
+            await engine.close()
+
+    return asyncio.run(run())
+
 
 def main() -> int:
     import torch
@@ -1827,8 +2219,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_g = time.monotonic()
     g1_counts, g2_counts = phase_moe_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_h = time.monotonic()
+    h_counts = phase_qos_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
-          f"{t_g - t_f:.1f} s, path G {time.monotonic() - t_g:.1f} s)", flush=True)
+          f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
+          f"{time.monotonic() - t_h:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -1838,8 +2235,8 @@ def main() -> int:
     # -- phase 6: kernels line, then the device line ------------------------
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
-             "E": e_counts, "F": f_counts, "G": g_counts}
-    meta = {  # launches: summed over the seven main paths
+             "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts}
+    meta = {  # launches: summed over the eight main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

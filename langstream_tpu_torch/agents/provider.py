@@ -9,7 +9,9 @@ topology (model, slots, checkpoint, ...) comes from the resource, the
 per-request options (max-tokens, temperature, ...) from the agent at call
 time, so every agent of an application shares one engine per resource.
 Which package serves is not a resource key: ``serve_torch.py`` at the
-repository root registers this provider with the platform.
+repository root registers this provider with the platform, and hands it
+the platform's stream registry, so a gateway's disconnect cancels the
+port's requests by their ``stream-key``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from langstream_tpu_torch.serving.engine import (
     TorchServingEngine,
     _normalize_stop,
 )
+from langstream_tpu_torch.serving.streaming import StreamCancelRegistry
 
 
 def _render_chat_prompt(messages: list[dict[str, str]]) -> str:
@@ -95,19 +98,44 @@ class _StreamAdapter:
             self.index += 1
 
 
+class _ChunkAdapter:
+    """Bridges engine ``on_chunk`` deliveries to the agents' chunk consumers
+    on a ``streaming: true`` engine. The engine has already detokenised the
+    delta, held back partial UTF-8 sequences and possible stop-prefix tails
+    and cut at stop matches, so this only reshapes ``(new_ids, new_text,
+    is_final)`` into :class:`Chunk` calls; each delivery is what the
+    engine's TBT digests time."""
+
+    def __init__(self, consumer: StreamingChunksConsumer):
+        self.consumer = consumer
+        self.index = 0
+
+    async def on_chunk(self, new_ids: list, new_text: str, is_final: bool) -> None:
+        result = self.consumer(Chunk(new_text, self.index, last=is_final))
+        if hasattr(result, "__await__"):
+            await result
+        self.index += 1
+
+
 class TorchCompletionsService(CompletionsService):
     def __init__(self, engine: TorchServingEngine):
         self.engine = engine
 
     async def _generate(self, prompt: str, options: dict[str, Any],
                         consumer: StreamingChunksConsumer | None) -> CompletionResult:
-        adapter = (
-            _StreamAdapter(self.engine.tokenizer, consumer, stop=options.get("stop"))
-            if consumer is not None else None
-        )
-        result = await self.engine.generate(
-            prompt, options, on_token=adapter.on_token if adapter else None,
-        )
+        if consumer is not None and self.engine.config.streaming:
+            # a streaming engine delivers at the chunk boundary (timed for
+            # TBT) and holds back itself
+            result = await self.engine.generate(
+                prompt, options, on_chunk=_ChunkAdapter(consumer).on_chunk)
+        else:
+            adapter = (
+                _StreamAdapter(self.engine.tokenizer, consumer, stop=options.get("stop"))
+                if consumer is not None else None
+            )
+            result = await self.engine.generate(
+                prompt, options, on_token=adapter.on_token if adapter else None,
+            )
         return CompletionResult(
             text=result["text"],
             num_prompt_tokens=result["num_prompt_tokens"],
@@ -146,18 +174,23 @@ class TorchEmbeddingsService(EmbeddingsService):
 class TorchServiceProvider(ServiceProvider):
     """The provider for one ``tpu-serving-configuration`` resource (its
     ``type`` and ``name`` stripped), on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). ``streams`` is the stream registry its
+    engine registers ``stream-key`` requests with (``None``: the port's
+    own)."""
 
-    def __init__(self, resource_config: dict[str, Any], *, device="cuda"):
+    def __init__(self, resource_config: dict[str, Any], *, device="cuda",
+                 streams: StreamCancelRegistry | None = None):
         self.resource_config = resource_config
         self.device = device
+        self.streams = streams
 
     def _engine_config(self) -> dict[str, Any]:
         return {k: v for k, v in self.resource_config.items() if k not in ("type", "name")}
 
     def get_completions_service(self, config: dict[str, Any]) -> CompletionsService:
         engine = TorchServingEngine.get_or_create(
-            ServingConfig.from_dict(self._engine_config()), device=self.device)
+            ServingConfig.from_dict(self._engine_config()), device=self.device,
+            streams=self.streams)
         return TorchCompletionsService(engine)
 
     def get_embeddings_service(self, config: dict[str, Any]) -> EmbeddingsService:

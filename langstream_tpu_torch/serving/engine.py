@@ -73,6 +73,30 @@ Execution model:
   ``deadline``/``deadline-s`` budget is spent raises
   :class:`~langstream_tpu_torch.serving.deadline.DeadlineExceeded`; both
   before the request queues.
+- Admission plane (``serving/scheduler.py``, ``serving/qos.py``): every
+  request enters through ``self.scheduler`` — FIFO by default, the QoS
+  scheduler under ``qos:`` (priority classes with WDRR dequeue, bounded
+  class queues and tenant token buckets, whose refusals raise
+  :class:`~langstream_tpu_torch.serving.qos.RateLimited`). At admission a
+  request whose ``deadline`` budget cannot cover the median recent
+  prefill is shed. Under QoS, when the head of the queue stalls on KV
+  blocks, the loop's safe point (no chunk in flight) preempts the
+  policy's victim: its slot and blocks free at once and it requeues at
+  the front of its class; on readmission it re-prefills its prompt plus
+  the tokens it generated (``_Request.context_tokens``) and continues.
+- Delivery plane (``serving/streaming.py``): ``on_chunk`` consumers get one
+  delivery per request per flush; with ``streaming: true`` each delivery's
+  gap feeds a per-request and a per-class TBT digest, gaps longer than
+  ``stream-stall-s`` (or the class's ``tbt-p99-s``) count as stalls, and a
+  class with ``tbt-p99-s`` gets its own burn-rate tracker. A
+  ``stream-key`` registers the request's future with the stream registry,
+  so a gateway's disconnect cancels it; the slot frees at the next chunk
+  boundary.
+- Health plane (``serving/health.py``): the watchdog is beaten at every
+  flight boundary; :meth:`TorchServingEngine.health` judges it (wait-free)
+  with the degradation predicates, ``slo:`` objectives are tracked with
+  multi-window burn rates (:meth:`TorchServingEngine.slo_status`), and
+  :func:`health_report` lists every live engine's verdict.
 
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item; settings that only change latency are accepted and
@@ -155,13 +179,22 @@ from langstream_tpu_torch.serving.deadline import (
     remaining_s,
 )
 from langstream_tpu_torch.serving.flight import FlightRecorder
+from langstream_tpu_torch.serving.health import (
+    EngineWatchdog,
+    SloObjective,
+    SloSpec,
+    SloTracker,
+)
 from langstream_tpu_torch.serving.profiling import (
     ProfilerHooks,
     detect_generation,
     detect_hbm_capacity,
     detect_hbm_gbps,
 )
+from langstream_tpu_torch.serving.qos import QosSpec, RateLimited, normalize_priority
 from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
+from langstream_tpu_torch.serving.scheduler import make_scheduler
+from langstream_tpu_torch.serving.streaming import STREAMS, StreamCancelRegistry, TbtDigest
 
 log = logging.getLogger(__name__)
 
@@ -195,8 +228,9 @@ def _parse_bool(v: Any) -> bool:
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """The ``tpu-serving-configuration`` resource: the same fields, kebab
-    keys and defaults as the JAX package's ``ServingConfig``. Sections of
-    planes this port does not carry yet (qos, slo, prefix-store,
+    keys and defaults as the JAX package's ``ServingConfig``. ``qos`` and
+    ``slo`` parse into their frozen specs (so the config stays hashable);
+    sections of planes this port does not carry yet (prefix-store,
     adapter-store, faults) are kept as the raw mapping the resource gave."""
 
     model: str = "tiny"
@@ -224,10 +258,10 @@ class ServingConfig:
     prefix_cache: bool = True
     speculative_drafts: int = 0
     prefill_chunk: int = 0
-    qos: Any = None
+    qos: QosSpec | None = None
     pipeline: bool = True
     wedge_window_s: float = 60.0
-    slo: Any = None
+    slo: SloSpec | None = None
     streaming: bool = False
     stream_stall_s: float = 2.0
     pool_role: str = "combined"
@@ -283,11 +317,11 @@ class ServingConfig:
             adapter_store=get("adapter-store"),
             prefill_chunk=int(get("prefill-chunk", 0)),
             speculative_drafts=int(get("speculative-drafts", 0)),
-            qos=d.get("qos"),
+            qos=QosSpec.from_dict(d.get("qos")),
             pool_role=str(get("pool-role", os.environ.get("LS_POOL_ROLE") or "combined")),
             pipeline=_parse_bool(d.get("pipeline", True)),
             wedge_window_s=float(get("wedge-window-s", 60.0)),
-            slo=d.get("slo"),
+            slo=SloSpec.from_dict(d.get("slo")),
             streaming=_parse_bool(d.get("streaming", False)),
             stream_stall_s=float(get("stream-stall-s", 2.0)),
             shrink_fraction=float(get("shrink-fraction", 0.125)),
@@ -309,9 +343,6 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
      "adapter-store: multi-LoRA is ROADMAP.md Queue 1 item 9"),
     (lambda c: c.prefix_store is not None,
      "prefix-store: the tiered prefix store is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.qos is not None, "qos: scheduling/QoS is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.slo is not None, "slo: the health/SLO plane is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.streaming, "streaming: the streaming/TBT plane is ROADMAP.md Queue 1 item 9"),
     (lambda c: c.pool_role != "combined",
      "pool-role other than combined: KV handoff is ROADMAP.md Queue 1 item 10"),
     (lambda c: bool(c.faults), "faults: fault injection is ROADMAP.md Queue 1 item 9"),
@@ -323,22 +354,8 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
 
 #: accepted settings that change only latency here; logged once when set
 _LATENCY_ONLY = (
-    "paged_kernel", "dense_kernel", "wedge_window_s",
-    "stream_stall_s", "shrink_fraction", "shrink_recovery_s",
+    "paged_kernel", "dense_kernel", "shrink_fraction", "shrink_recovery_s",
 )
-
-#: request options the agents forward whose plane this port lacks: accepted,
-#: logged once per engine, not acted on
-_UNACTED_OPTIONS = {
-    "stream-key": "client-disconnect cancellation is the streaming plane, "
-                  "ROADMAP.md Queue 1 item 9",
-    "qos-tenant": "tenant scheduling is the QoS plane, ROADMAP.md Queue 1 item 9",
-    "priority": "priority classes are the QoS plane, ROADMAP.md Queue 1 item 9",
-    "deadline": "only spent budgets are refused; the admission-estimate shed "
-                "is the scheduler plane, ROADMAP.md Queue 1 item 9",
-    "deadline-s": "only spent budgets are refused; the admission-estimate shed "
-                  "is the scheduler plane, ROADMAP.md Queue 1 item 9",
-}
 
 
 def _check_supported(config: ServingConfig) -> None:
@@ -406,8 +423,45 @@ class _Request:
     # decoded output; the final text is cut at the match (match excluded)
     stop: list = dataclasses.field(default_factory=list)
     stop_matched: bool = False
+    # warmup probes bypass QoS policy and stay out of the latency records
+    warmup: bool = False
+    # QoS identity: the priority class drives WDRR dequeue and preemption
+    # eligibility, the tenant keys the token buckets; the defaults are the
+    # unprivileged middle ground, so a QoS-off engine behaves as before
+    tenant: str = ""
+    priority: str = "default"
+    # times preempted so far (capped by qos.max-preemptions) and, while
+    # requeued, when the preemption happened (the resume wait)
+    preemptions: int = 0
+    preempt_time: float | None = None
+    # end-to-end deadline: absolute epoch seconds, None = none
+    deadline: float | None = None
+    # streaming delivery: the sent counters drive the deltas (chunks tile
+    # the final text), stream_tbt is the bounded inter-emit digest (only on
+    # streaming engines), stream_key the gateway's stream id, the handle
+    # disconnect cancellation grabs
+    stream_key: str | None = None
     stream_sent_tokens: int = 0
     stream_sent_chars: int = 0
+    stream_first_emit: float | None = None
+    stream_last_emit: float | None = None
+    stream_emits: int = 0
+    stream_stalls: int = 0
+    stream_closed: bool = False
+    stream_tbt: TbtDigest | None = None
+    # counted once as a cancelled stream when the engine frees its slot
+    stream_cancel_counted: bool = False
+
+    @property
+    def context_tokens(self) -> list[int]:
+        """The model context: the prompt plus everything generated so far.
+        Equals ``prompt_tokens`` until a preemption; a resumed request
+        re-prefills it to rebuild its KV, so a greedy continuation equals
+        the unpreempted one (the generated tokens and the request's sampling
+        settings are the whole snapshot)."""
+        if not self.generated:
+            return self.prompt_tokens
+        return self.prompt_tokens + self.generated
 
 
 def _normalize_stop(value) -> list[str]:
@@ -505,26 +559,31 @@ class TorchServingEngine:
 
     :meth:`get_or_create` shares one engine per ``(config, device)`` in the
     process, as the JAX engine does per config: every agent of an
-    application that names the same resource reaches the same engine."""
+    application that names the same resource reaches the same engine.
+    ``streams`` is the stream registry a ``stream-key`` registers with
+    (``None``: the port's :data:`~langstream_tpu_torch.serving.streaming.STREAMS`);
+    the engine calls only its ``register(key, future, loop)``."""
 
     _instances: dict[tuple, "TorchServingEngine"] = {}
     _instances_lock = threading.Lock()
 
     @classmethod
-    def get_or_create(cls, config: ServingConfig, device="cuda") -> "TorchServingEngine":
-        """The process's engine for ``(config, device)``, made on first
-        use. An engine that was closed, or whose event loop has closed (a
-        finished ``asyncio.run``), is replaced: its loop task and events
+    def get_or_create(cls, config: ServingConfig, device="cuda",
+                      streams: StreamCancelRegistry | None = None) -> "TorchServingEngine":
+        """The process's engine for ``(config, device, streams)``, made on
+        first use. An engine that was closed, or whose event loop has closed
+        (a finished ``asyncio.run``), is replaced: its loop task and events
         cannot serve another loop."""
         _check_supported(config)  # before hashing: rejected keys hold dicts
-        key = (config, str(torch.device(device)))
+        key = (config, str(torch.device(device)), streams or STREAMS)
         with cls._instances_lock:
             engine = cls._instances.get(key)
             if engine is None or engine._stale():
                 if engine is not None:
                     engine._executor.shutdown(wait=False)
                     engine._fetch_executor.shutdown(wait=False)
-                engine = cls._instances[key] = cls(config, device=device)
+                engine = cls._instances[key] = cls(config, device=device,
+                                                   streams=streams)
             return engine
 
     @classmethod
@@ -534,7 +593,8 @@ class TorchServingEngine:
             cls._instances.clear()
 
     def __init__(self, config: ServingConfig, *, device="cuda",
-                 params: dict | None = None):
+                 params: dict | None = None,
+                 streams: StreamCancelRegistry | None = None):
         _check_supported(config)
         self.device = require_device(device, "TorchServingEngine")
         self.config = config
@@ -573,7 +633,10 @@ class TorchServingEngine:
         self._init_model(params)
 
         self.slots = [_Slot() for _ in range(config.slots)]
-        self._queue: deque[_Request] = deque()
+        # admission: FIFO, or the QoS scheduler under a qos section
+        self.scheduler = make_scheduler(config.qos)
+        self._qos_enabled = config.qos is not None and config.qos.enabled
+        self.streams = streams or STREAMS
         self._wake = asyncio.Event()
         self._stop = False
         self._loop_task: asyncio.Task | None = None
@@ -583,8 +646,11 @@ class TorchServingEngine:
         self._event_loop: asyncio.AbstractEventLoop | None = None
         self._warmup_task: asyncio.Task | None = None
         self._warmup_result: dict | None = None
-        self._unacted_logged: set[str] = set()
         self.deadline_sheds = 0
+        # the latency record of each served request (the JAX engine's keys:
+        # queue_wait, prefill, ttft, decode, tokens, tbt_*), bounded; the
+        # admission estimate reads its recent prefill times
+        self.request_timings: deque[dict[str, float]] = deque(maxlen=4096)
         # one dispatch thread: device work is serialised, asyncio stays live
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="torch-engine"
@@ -680,6 +746,34 @@ class TorchServingEngine:
         self.profiler = ProfilerHooks()
         self.attribution = ProgramLedger()
         self._init_attribution()
+        # health plane: the watchdog is beaten at every flight boundary and
+        # judged (wait-free) by health(); the SLO tracker exists only with a
+        # declared slo section
+        self.watchdog = EngineWatchdog(wedge_window_s=config.wedge_window_s)
+        self.slo = SloTracker(config.slo) if config.slo is not None else None
+        # delivery plane: counters and per-class digests stay empty on
+        # non-streaming engines; one TBT burn tracker per class that
+        # declares tbt-p99-s, windowed like the slo section when there is one
+        self.stream_emits_total = 0
+        self.stream_stalls_total = 0
+        self.stream_cancels_total = 0
+        self.stream_reclaims_total = 0
+        self._stream_tbt_by_class: dict[str, TbtDigest] = {}
+        self._stream_slo: dict[str, SloTracker] = {}
+        # slots freed by a cancelled stream whose blocks are still held by a
+        # pipelined burst: counted reclaimed when the release happens
+        self._reclaim_pending: set[int] = set()
+        if config.streaming and config.qos is not None:
+            windows = config.slo or SloSpec()
+            for policy in config.qos.classes:
+                if policy.tbt_p99_s is None:
+                    continue
+                self._stream_slo[policy.name] = SloTracker(SloSpec(
+                    objectives=(SloObjective("tbt", 0.99, policy.tbt_p99_s * 1000.0),),
+                    fast_window_s=windows.fast_window_s,
+                    slow_window_s=windows.slow_window_s,
+                    fast_burn=windows.fast_burn,
+                ))
 
     # ------------------------------------------------------------------
     # model + cache
@@ -849,13 +943,17 @@ class TorchServingEngine:
 
     def _admission_stall(self) -> str | None:
         """Why queued work is not admitted right now (None: the queue is
-        empty or the next pass admits)."""
-        if not self._queue:
+        empty or the next pass admits). The head's need is the JAX engine's
+        ``prompt + max-tokens + 1``, so both engines stall on the same
+        head."""
+        if self.scheduler.empty():
             return None
         if not any(s.free for s in self.slots):
             return "no-free-slot"
         if self.block_mgr is not None:
-            head = self._queue[0]
+            head = self.scheduler.peek()  # loop thread only
+            if head is None:
+                return None
             if not self.block_mgr.can_admit(len(head.prompt_tokens) + head.max_tokens + 1):
                 return "no-kv-blocks"
         if self._has_prefilling():
@@ -883,22 +981,27 @@ class TorchServingEngine:
         sample = self.flight.sample(
             phase, device_s=device_s, overlapped_s=overlapped_s, tokens=tokens,
             occupancy=sum(1 for s in self.slots if not s.free),
-            queue_depth=len(self._queue), stall=self._admission_stall(),
+            queue_depth=self.scheduler.qsize(), stall=self._admission_stall(),
             kv_used=self._kv_used(), prefix_hits=self.prefix_hits,
             spec_accepted=spec_accepted, spec_rejected=spec_rejected,
-            program=program,
+            queue_by_class=self.scheduler.depths(), program=program,
         )
+        # watchdog heartbeat: a recorded dispatch is step progress
+        self.watchdog.beat(sample["queue_depth"])
         if phase == "decode":
             self._decode_s += sample["wall_ms"] / 1000.0
             if self.config.speculative_drafts > 0 and self._spec_auto_disabled:
                 self._spec_count_plain_chunk()
 
     def _flight_stall(self, reason: str) -> None:
-        """An idle gap of the loop, recorded as stall time."""
-        self.flight.stall(
+        """An idle gap of the loop, recorded as stall time; it beats the
+        watchdog too, so an idle engine never reads as wedged."""
+        sample = self.flight.stall(
             reason, occupancy=sum(1 for s in self.slots if not s.free),
-            queue_depth=len(self._queue), kv_used=self._kv_used(),
+            queue_depth=self.scheduler.qsize(), kv_used=self._kv_used(),
+            queue_by_class=self.scheduler.depths(),
         )
+        self.watchdog.beat(sample["queue_depth"])
 
     def attribution_section(self) -> dict[str, Any]:
         """``stats()["attribution"]``: the per-program achieved-vs-expected
@@ -978,10 +1081,18 @@ class TorchServingEngine:
         final ``text`` (both sync or async). Returns
         ``{"tokens", "text", "logprobs", "num_prompt_tokens", "ttft"}``.
 
+        Options of the serving planes: ``qos-tenant`` and ``priority`` (the
+        QoS scheduler's tenant and class), ``stream-key`` (registered with
+        the stream registry: a cancel by that key cancels the request),
+        ``deadline``/``deadline-s`` (shed at admission when the budget left
+        cannot cover the median recent prefill).
+
         Refused before the request queues: ``adapter`` (``ValueError``: no
-        adapter store in this port) and a spent ``deadline``/``deadline-s``
-        budget (:class:`DeadlineExceeded`). ``_warmup_probe`` is internal:
-        warmup's own requests skip the warmup gate (they are the warmup)."""
+        adapter store in this port), a spent ``deadline``/``deadline-s``
+        budget (:class:`DeadlineExceeded`) and, under QoS, a full class
+        queue or an empty tenant bucket (:class:`RateLimited`).
+        ``_warmup_probe`` is internal: warmup's own requests skip the warmup
+        gate (they are the warmup) and QoS policy."""
         if self._stop:
             raise RuntimeError("serving engine is stopped (closed)")
         self._event_loop = self._event_loop or asyncio.get_running_loop()
@@ -1026,18 +1137,6 @@ class TorchServingEngine:
                 f"request names adapter {adapter!r} but this engine has "
                 "no adapter store configured (serving adapter-store)"
             )
-        self._log_unacted(options)
-        deadline = deadline_from_options(options)
-        if deadline is not None and not _warmup_probe:
-            left = remaining_s(deadline)
-            if left <= 0.0:
-                # an unmeetable budget is refused before it queues: never
-                # a silent late completion
-                self.deadline_sheds += 1
-                raise DeadlineExceeded(
-                    f"deadline exceeded at submit: {left:.3f}s of budget "
-                    f"left, admission estimate 0.000s",
-                )
         loop = asyncio.get_running_loop()
         request = _Request(
             prompt_tokens=tokens,
@@ -1052,8 +1151,39 @@ class TorchServingEngine:
             frequency_penalty=float(options.get("frequency-penalty", 0.0)),
             enqueue_time=time.monotonic(),
             stop=_normalize_stop(options.get("stop")),
+            warmup=_warmup_probe,
+            tenant=str(options.get("qos-tenant", "") or ""),
+            priority=normalize_priority(options.get("priority")),
+            deadline=deadline_from_options(options),
+            stream_key=str(options["stream-key"]) if options.get("stream-key") else None,
         )
-        self._queue.append(request)
+        if on_chunk is not None and self.config.streaming:
+            # the bounded per-request TBT digest: only streaming engines pay
+            request.stream_tbt = TbtDigest()
+        if request.deadline is not None and not _warmup_probe:
+            left = remaining_s(request.deadline)
+            if left <= 0.0:
+                # an unmeetable budget is refused before it queues: never a
+                # silent late completion
+                raise self._note_deadline_shed(request, "submit", left)
+        try:
+            self.scheduler.submit(request)
+        except RateLimited as e:
+            # load shed or tenant throttle, refused before any slot or block
+            # was touched; callers map it to 429 with Retry-After
+            self.flight.event("shed", reason=e.reason, tenant=request.tenant,
+                              priority=request.priority, retry_after_s=e.retry_after)
+            if not _warmup_probe:
+                self._slo_record("shed-rate", False)
+            raise
+        if not _warmup_probe:
+            # the shed-rate objective counts every submission: admitted good
+            self._slo_record("shed-rate", True)
+            if request.stream_key is not None:
+                # the disconnect-as-cancellation bridge: a cancel by this
+                # key cancels the future (at once if the key was cancelled
+                # already); the entry self-cleans when the future resolves
+                self.streams.register(request.stream_key, request.future, loop)
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.ensure_future(self._run_loop())
         self._wake.set()
@@ -1065,8 +1195,11 @@ class TorchServingEngine:
             "device": str(self.device),
             "slots": self.config.slots,
             "active": sum(1 for s in self.slots if not s.free),
-            "queued": len(self._queue),
+            "queued": self.scheduler.qsize(),
             "total-generated": self.total_generated,
+            # admission policy counters: FIFO totals, or per class, shed,
+            # preempted and resumed under QoS
+            "scheduler": self.scheduler.stats(),
             "completed": self.completed_requests,
             # prefill dispatches, and those of them through the
             # continuation path (prefix-cache hits and prefill chunks)
@@ -1105,6 +1238,8 @@ class TorchServingEngine:
             # per-program expected against measured device time, and the
             # device-memory ledger
             "attribution": self.attribution_section(),
+            # the watchdog's verdict and the readiness posture
+            "health": self.health(),
             # launch counters of the port's kernels in this process
             "kernels": {
                 "flash_attention": flash_attention.launches,
@@ -1117,6 +1252,11 @@ class TorchServingEngine:
             out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
         if self.config.speculative_drafts > 0:
             out["speculative"] = self.speculative_section()
+        slo = self.slo_status()
+        if slo is not None:
+            out["slo"] = slo
+        if self.config.streaming:
+            out["streaming"] = self.streaming_section()
         out["deadline-sheds"] = self.deadline_sheds
         out["warmup"] = {"state": self._warmup_state(), **(self._warmup_result or {})}
         return out
@@ -1140,12 +1280,101 @@ class TorchServingEngine:
             "window_plain": len(self._plain_window),
         }
 
-    def _log_unacted(self, options: dict) -> None:
-        for key, why in _UNACTED_OPTIONS.items():
-            if key not in self._unacted_logged and options.get(key) not in (None, ""):
-                self._unacted_logged.add(key)
-                log.info("request option %r accepted, not acted on by this "
-                         "engine: %s", key, why)
+    # ------------------------------------------------------------------
+    # health plane (serving/health.py)
+    # ------------------------------------------------------------------
+
+    def health(self) -> dict[str, Any]:
+        """Wait-free health snapshot, callable while the engine is wedged:
+        snapshot reads and arithmetic only, no device work, no locks. Judges
+        the watchdog's heartbeat against the live queue and occupancy and
+        runs the degradation predicates over the flight window; a state
+        transition is recorded as a ``health`` flight event. The keys are
+        the JAX engine's (``draining`` and ``budget_withheld`` stay at their
+        idle values: the drain and pool-shrink planes are not ported)."""
+        queued = self.scheduler.qsize()
+        occupancy = sum(1 for s in self.slots if not s.free)
+        tbt_burn = self._tbt_burning()
+        verdict = self.watchdog.evaluate(
+            queued=queued, occupancy=occupancy,
+            samples=self.flight.recent(240), events=self.flight.recent_events(256),
+            stopped=self._stop,
+            extra_reasons=tuple(
+                f"tbt burn-rate alert: class {name!r} is burning its tbt-p99-s "
+                f"error budget at page rate" for name in tbt_burn),
+        )
+        if verdict.pop("transition"):
+            self.flight.event(
+                "health", state=verdict["state"], previous=verdict["previous"],
+                reasons=list(verdict["reasons"]),
+                last_step_age_s=verdict["last_step_age_s"], queued=queued,
+                occupancy=occupancy,
+            )
+        warmup = self._warmup_state()
+        out = {
+            "model": self.config.model,
+            "slots": self.config.slots,
+            **verdict,
+            "warmup": warmup,
+            "draining": False,
+            "ready": warmup not in ("pending", "running") and verdict["state"] != "wedged",
+            "budget_withheld": 0,
+        }
+        if self.config.streaming:
+            out["tbt_burn"] = tbt_burn
+        return out
+
+    def slo_status(self) -> dict[str, Any] | None:
+        """``stats()["slo"]`` (None without a declared slo section);
+        wait-free like :meth:`health`."""
+        return self.slo.status() if self.slo is not None else None
+
+    def _slo_record(self, objective: str, good: bool) -> None:
+        """Record one event against an SLO objective (loop thread only; a
+        no-op without a spec or for an undeclared objective)."""
+        if self.slo is not None:
+            self._slo_emit(objective, self.slo.record(objective, good))
+
+    def _slo_record_latency(self, objective: str, seconds: float) -> None:
+        """Record a measured latency; the tracker judges it against the
+        objective's declared threshold."""
+        if self.slo is not None:
+            self._slo_emit(objective, self.slo.record_latency(objective, seconds * 1000.0))
+
+    def _slo_emit(self, objective: str, verdict: dict | None) -> None:
+        """An ``alert`` flight event when an objective's multi-window fast
+        burn starts or stops: alerts fire at record time, so an unwatched
+        engine still leaves the evidence in its event ring."""
+        if verdict is not None and verdict["transition"]:
+            self.flight.event(
+                "alert", objective=objective,
+                state="firing" if verdict["alerting"] else "resolved",
+                burn_rate_fast=verdict["burn_rate_fast"],
+                burn_rate_slow=verdict["burn_rate_slow"],
+                budget_remaining=verdict["budget_remaining"], target=verdict["target"],
+            )
+
+    def streaming_section(self) -> dict[str, Any]:
+        """``stats()["streaming"]`` (streaming engines only): streams that
+        hold a slot, emit/stall/cancel/reclaim counters and the per-class
+        TBT digests; counter snapshots only."""
+        return {
+            "active": sum(1 for s in self.slots
+                          if s.request is not None and s.request.on_chunk is not None),
+            "emits": self.stream_emits_total,
+            "stalls": self.stream_stalls_total,
+            "cancelled": self.stream_cancels_total,
+            "reclaimed": self.stream_reclaims_total,
+            "tbt": {name: digest.summary()
+                    for name, digest in sorted(self._stream_tbt_by_class.items())},
+            "tbt_burn": self._tbt_burning(),
+        }
+
+    def _tbt_burning(self) -> list[str]:
+        """Classes whose ``tbt-p99-s`` tracker is paging (committed alert
+        state, so ``health()`` and the streaming section agree)."""
+        return sorted(name for name, tracker in self._stream_slo.items()
+                      if tracker.alerting.get("tbt"))
 
     def _stale(self) -> bool:
         """Closed, or bound to an event loop that has closed."""
@@ -1242,10 +1471,9 @@ class TorchServingEngine:
         self._executor.shutdown(wait=True)
         self._fetch_executor.shutdown(wait=True)
         closed = RuntimeError("serving engine closed")
-        for request in list(self._queue):
+        for request in self.scheduler.drain():
             if not request.future.done():
                 request.future.set_exception(closed)
-        self._queue.clear()
 
     # ------------------------------------------------------------------
     # the loop
@@ -1254,18 +1482,25 @@ class TorchServingEngine:
     async def _run_loop(self) -> None:
         loop = asyncio.get_running_loop()
         # the loop starts at the first request: the gap since construction
-        # is no sample's wall time
+        # is no sample's wall time, and the wedge window measures from here
         self.flight.mark()
+        self.watchdog.beat(self.scheduler.qsize())
         while not self._stop:
             try:
-                if self._queue:
+                if not self.scheduler.empty():
                     await self._admit(loop)
                 # a pipelined burst may have left a chunk in flight: applied
                 # only after admission, so the prefill above was queued
-                # behind it; then the slots it freed admit at once
+                # behind it, and before preemption, so a victim's state is
+                # settled (the JAX engine's order)
                 if self._pending_chunk is not None:
                     await self._drain_pending(loop)
-                    if self._queue:
+                if not self.scheduler.empty():
+                    # the slots the drained chunk freed admit at once; then,
+                    # under QoS, a head stalled on KV blocks may preempt a
+                    # lower class's victim and land in this pass
+                    await self._admit(loop)
+                    if self._maybe_preempt():
                         await self._admit(loop)
                 if self._has_prefilling():
                     # one bounded chunk per loop pass: long prefills make
@@ -1276,7 +1511,7 @@ class TorchServingEngine:
                     if not s.free and not s.prefilling
                 ]
                 if not active:
-                    if not self._queue and not self._has_prefilling():
+                    if self.scheduler.empty() and not self._has_prefilling():
                         self._wake.clear()
                         try:
                             await asyncio.wait_for(self._wake.wait(), timeout=1.0)
@@ -1320,11 +1555,22 @@ class TorchServingEngine:
             self._release_slot(slot_id)
             if not request.future.done():
                 request.future.set_exception(error)
+                if not request.warmup:
+                    self._slo_record("availability", False)
         self._pending_emits.clear()
         self._finished_requests.clear()
 
     def _release_slot(self, slot_id: int) -> None:
         slot = self.slots[slot_id]
+        request = slot.request
+        if (request is not None and request.future.cancelled()
+                and request.on_chunk is not None and self.config.streaming
+                and not request.stream_cancel_counted):
+            # a cancelled stream held this slot: counted once here, and
+            # reclaimed when its blocks are released
+            request.stream_cancel_counted = True
+            self.stream_cancels_total += 1
+            self._reclaim_pending.add(slot_id)
         slot.request = None
         slot.prefilling = False
         slot.prefill_done = 0
@@ -1338,63 +1584,167 @@ class TorchServingEngine:
         through the tables taken at dispatch). Between bursts an immediate
         release is safe: the prefill that takes the blocks is queued behind
         any chunk still in flight, on the same stream, so it writes last."""
-        if self.block_mgr is None:
-            return
-        if self._defer_release:
+        if self.block_mgr is not None and self._defer_release:
             self._deferred_releases.append(slot_id)
-        else:
+            return
+        if self.block_mgr is not None:
             self.block_mgr.release(slot_id)
+        self._note_reclaimed(slot_id)
 
     def _flush_deferred_releases(self) -> None:
         for slot_id in self._deferred_releases:
             self.block_mgr.release(slot_id)
+            self._note_reclaimed(slot_id)
         self._deferred_releases.clear()
+
+    def _note_reclaimed(self, slot_id: int) -> None:
+        if slot_id in self._reclaim_pending:
+            self._reclaim_pending.discard(slot_id)
+            self.stream_reclaims_total += 1
+
+    # ------------------------------------------------------------------
+    # admission plane: deadline shed, preemption and resume
+    # ------------------------------------------------------------------
+
+    def _note_deadline_shed(self, request: _Request, where: str, left: float,
+                            estimate: float = 0.0) -> DeadlineExceeded:
+        """Record one deadline refusal (counter, ``deadline-exceeded``
+        flight event, a bad shed-rate event) and build the error the caller
+        raises or sets."""
+        self.deadline_sheds += 1
+        self.flight.event("deadline-exceeded", where=where, remaining_s=round(left, 6),
+                          estimate_s=round(estimate, 6), tenant=request.tenant,
+                          priority=request.priority)
+        if not request.warmup:
+            self._slo_record("shed-rate", False)
+        return DeadlineExceeded(
+            f"deadline exceeded at {where}: {left:.3f}s of budget left, "
+            f"admission estimate {estimate:.3f}s",
+            overrun_s=max(0.0, estimate - left),
+        )
+
+    def _admit_estimate_s(self) -> float:
+        """What a deadline must still cover at admission: the median of the
+        last 32 served requests' prefill times (0.0 without history, so a
+        fresh engine sheds only spent budgets)."""
+        vals = sorted(t.get("prefill", 0.0) for t in list(self.request_timings)[-32:])
+        return vals[len(vals) // 2] if vals else 0.0
+
+    def _maybe_preempt(self) -> bool:
+        """Under QoS, when admission stalls on ``no-kv-blocks`` and the
+        scheduler's cost model names a running victim (a strictly lower
+        class than the stalled head, preemptions left, more deadline slack
+        than the head), preempt it so the head's blocks free at once. True
+        when a slot was preempted (the caller admits again). Runs at the
+        loop's safe point: no chunk is in flight and no release deferred,
+        so the victim's blocks can go to the head's prefill at once."""
+        if not self._qos_enabled or self.block_mgr is None:
+            return False
+        if self._admission_stall() != "no-kv-blocks":
+            return False
+        head = self.scheduler.peek()
+        if head is None:
+            return False
+        running = [(i, s.request) for i, s in enumerate(self.slots)
+                   if s.request is not None and not s.prefilling]
+        victim = self.scheduler.preempt_candidate(head, running)
+        if victim is None:
+            return False
+        self._preempt_slot(victim)
+        return True
+
+    def _preempt_slot(self, slot_id: int, reason: str = "no-kv-blocks") -> None:
+        """Preempt one running request: its generated tokens and sampling
+        settings are its snapshot (a resume re-prefills
+        ``context_tokens``). The slot, its device length and its blocks
+        free now; the request requeues at the front of its class, so its
+        resume waits on the pressure, not the backlog."""
+        request = self.slots[slot_id].request
+        now = time.monotonic()
+        self._release_slot(slot_id)
+        request.preemptions += 1
+        request.preempt_time = now
+        self.scheduler.note_preempted(request)
+        self.scheduler.requeue_front(request)
+        self.flight.event("preempt", reason=reason, priority=request.priority,
+                          tenant=request.tenant, generated=len(request.generated))
+
+    def _note_resume(self, request: _Request) -> None:
+        """A preempted request was just readmitted: a ``resume`` flight
+        event with the wait since its preemption."""
+        if request.preempt_time is None:
+            return
+        waited = time.monotonic() - request.preempt_time
+        self.flight.event("resume", priority=request.priority, tenant=request.tenant,
+                          generated=len(request.generated),
+                          waited_ms=round(waited * 1000.0, 3))
+        request.preempt_time = None
 
     # ------------------------------------------------------------------
     # admission + prefill
     # ------------------------------------------------------------------
 
     async def _admit(self, loop) -> None:
-        """Admit queued requests FIFO in batched prefill calls (one batch per
-        length bucket of the tokens to prefill, up to ``prefill-batch``
-        rows).
+        """Admit queued requests in the scheduler's order in batched prefill
+        calls (one batch per length bucket of the tokens to prefill, up to
+        ``prefill-batch`` rows). A request whose deadline budget cannot
+        cover the admission estimate is shed here, before any device work.
 
         With the paged prefix cache on, each request first matches its
         prompt against cached block chains; a matched request adopts the
         shared blocks and prefills only its SUFFIX, and a batch with any
-        such row goes through the continuation path. With ``prefill-chunk``
-        a request with more tokens to prefill than the chunk claims its
-        slot and reservation here and prefills in :meth:`_advance_prefills`.
+        such row goes through the continuation path. A resumed request
+        prefills its whole context (prompt and generated tokens) and stays
+        out of the prefix cache both ways, as in the JAX engine: its chain
+        mixes generated tokens into what looks like a prompt. With
+        ``prefill-chunk`` a request with more tokens to prefill than the
+        chunk claims its slot and reservation here and prefills in
+        :meth:`_advance_prefills`.
         """
         S = self.model_config.max_seq_len
         cfg = self.config
         use_prefix = self.block_mgr is not None and cfg.prefix_cache
-        while self._queue:
+        while not self.scheduler.empty():
             free = [i for i, s in enumerate(self.slots) if s.free]
             if not free:
                 return
             batch: list[tuple[int, _Request, int]] = []  # (slot, request, reuse)
             bucket = None
-            while self._queue and len(batch) < min(len(free), cfg.prefill_batch):
-                request = self._queue[0]
+            while not self.scheduler.empty() and len(batch) < min(len(free), cfg.prefill_batch):
+                # the next candidate: the FIFO head, or the WDRR-selected
+                # class head under QoS
+                request = self.scheduler.peek()
+                if request is None:
+                    break
                 if request.future.cancelled():
-                    self._queue.popleft()  # caller gave up while queued
+                    self.scheduler.pop()  # caller gave up while queued
                     continue
-                prompt = request.prompt_tokens
-                total = len(prompt) + request.max_tokens + 1
+                if request.deadline is not None:
+                    left = remaining_s(request.deadline)
+                    estimate = self._admit_estimate_s()
+                    if left <= estimate:
+                        self.scheduler.pop()
+                        err = self._note_deadline_shed(request, "admission", left, estimate)
+                        if not request.future.done():
+                            request.future.set_exception(err)
+                        continue
+                ctx = request.context_tokens
+                total = len(request.prompt_tokens) + request.max_tokens + 1
                 if self.block_mgr is not None and not self.block_mgr.can_admit(total):
-                    break  # paged backpressure: finishing slots free reservations
+                    # paged backpressure: finishing slots free reservations
+                    # (under QoS the loop may preempt a lower-class victim)
+                    break
                 blocks, reuse = [], 0
-                if use_prefix:
-                    blocks, reuse = self.block_mgr.match_prefix(prompt)
-                    if reuse and len(prompt) - reuse > cfg.prefix_cache_max_suffix:
+                if use_prefix and not request.preemptions:
+                    blocks, reuse = self.block_mgr.match_prefix(ctx)
+                    if reuse and len(ctx) - reuse > cfg.prefix_cache_max_suffix:
                         blocks, reuse = [], 0  # long suffix, small saving
-                to_prefill = len(prompt) - reuse
+                to_prefill = len(ctx) - reuse
                 if cfg.prefill_chunk > 0 and to_prefill > cfg.prefill_chunk:
                     # chunked prefill: claim the slot and its reservation
                     # now, feed the prompt one chunk per loop pass
                     slot_id = free.pop(len(batch))
-                    self._queue.popleft()
+                    self.scheduler.pop()
                     self.block_mgr.admit(slot_id, total)
                     if blocks:
                         self.block_mgr.adopt_prefix(slot_id, blocks)
@@ -1402,8 +1752,9 @@ class TorchServingEngine:
                     slot.request = request
                     slot.prefilling = True
                     slot.prefill_done = reuse
-                    self.block_mgr.ensure_capacity(slot_id, len(prompt))
+                    self.block_mgr.ensure_capacity(slot_id, len(ctx))
                     request.admit_time = time.monotonic()
+                    self._note_resume(request)
                     if reuse:
                         self.prefix_hits += 1
                         self.prefix_tokens += reuse
@@ -1414,7 +1765,7 @@ class TorchServingEngine:
                 elif b != bucket:
                     break
                 slot_id = free[len(batch)]
-                self._queue.popleft()
+                self.scheduler.pop()
                 if self.block_mgr is not None:
                     # reserve at pop time: the next can_admit sees it
                     self.block_mgr.admit(slot_id, total)
@@ -1427,8 +1778,9 @@ class TorchServingEngine:
             for slot_id, request, _ in batch:
                 self.slots[slot_id].request = request
                 request.admit_time = now
+                self._note_resume(request)
                 if self.block_mgr is not None:
-                    self.block_mgr.ensure_capacity(slot_id, len(request.prompt_tokens))
+                    self.block_mgr.ensure_capacity(slot_id, len(request.context_tokens))
             B = len(batch)
             rows = self._prefill_rows(B)
             padded = np.zeros((len(rows), bucket), dtype=np.int64)
@@ -1440,7 +1792,7 @@ class TorchServingEngine:
             topps = np.ones(len(rows), dtype=np.float32)
             for i, j in enumerate(rows):
                 slot_id, request, reuse = batch[j]
-                suffix = request.prompt_tokens[reuse:]
+                suffix = request.context_tokens[reuse:]
                 padded[i, : len(suffix)] = suffix
                 lengths[i] = len(suffix)
                 starts[i] = reuse
@@ -1470,6 +1822,8 @@ class TorchServingEngine:
             )
             if use_prefix:
                 for slot_id, request, reuse in batch:
+                    if request.preemptions:
+                        continue  # a resumed context is no shareable prompt
                     self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
                     if reuse:
                         self.prefix_hits += 1
@@ -1493,9 +1847,10 @@ class TorchServingEngine:
 
     def _start_decoding(self, slot_id: int, request: "_Request", token: int,
                         now: float) -> None:
-        """The slot's prompt is in the cache and ``token`` is its first
-        generated token: set the slot's decode state."""
-        self._lengths[slot_id] = len(request.prompt_tokens)
+        """The slot's context is in the cache and ``token`` is the next
+        generated token: set the slot's decode state. A resumed request
+        keeps its first token's time (TTFT is what the client saw)."""
+        self._lengths[slot_id] = len(request.context_tokens)
         self._current[slot_id] = token
         self._temps[slot_id] = request.temperature
         self._topks[slot_id] = request.top_k
@@ -1530,7 +1885,7 @@ class TorchServingEngine:
             slot_id = pre[j]
             slot = self.slots[slot_id]
             request = slot.request
-            chunk = request.prompt_tokens[slot.prefill_done: slot.prefill_done + C]
+            chunk = request.context_tokens[slot.prefill_done: slot.prefill_done + C]
             tokens[i, : len(chunk)] = chunk
             starts[i] = slot.prefill_done
             suffix_lens[i] = len(chunk)
@@ -1553,7 +1908,7 @@ class TorchServingEngine:
             slot = self.slots[slot_id]
             request = slot.request
             slot.prefill_done += int(suffix_lens[i])
-            if slot.prefill_done < len(request.prompt_tokens):
+            if slot.prefill_done < len(request.context_tokens):
                 continue
             done += 1
             slot.prefilling = False
@@ -1561,7 +1916,7 @@ class TorchServingEngine:
             # register BEFORE emitting: a max-tokens=1 or instant-EOS
             # request is released inside _emit_token, and registering
             # against a released slot's empty table publishes nothing
-            if self.config.prefix_cache:
+            if self.config.prefix_cache and not request.preemptions:
                 self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
             self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
         self._flight_record("prefill", wait_s, tokens=done, program=program,
@@ -1712,8 +2067,8 @@ class TorchServingEngine:
         if self._stop or self._has_prefilling():
             return True
         if finished:
-            return not (pipelined and not self._queue)
-        if not self._queue:
+            return not (pipelined and self.scheduler.empty())
+        if self.scheduler.empty():
             return False
         return any(s.free for s in self.slots)
 
@@ -2219,7 +2574,7 @@ class TorchServingEngine:
         waits: queued requests, mid-prefill slots, a stop."""
         return (
             any(self.slots[i].request is None for i in live)
-            or bool(self._queue) or self._stop or self._has_prefilling()
+            or not self.scheduler.empty() or self._stop or self._has_prefilling()
         )
 
     @torch.no_grad()
@@ -2344,8 +2699,71 @@ class TorchServingEngine:
                 text = text[: len(text) - hold]
         return text
 
+    def _stream_stall_threshold(self, cls_name: str) -> float:
+        """A class's stall line: its ``tbt-p99-s`` when it declares one,
+        ``stream-stall-s`` otherwise."""
+        if self.config.qos is not None:
+            tbt = self.config.qos.class_policy(cls_name).tbt_p99_s
+            if tbt is not None:
+                return tbt
+        return self.config.stream_stall_s
+
+    async def _deliver_chunk(self, request: _Request, is_final: bool, now: float) -> None:
+        """Deliver one flush's delta to the request's ``on_chunk`` consumer
+        and, on a streaming engine, record its gap since the last delivery
+        (the TBT digests, stall count, one ``stream-emit`` event per
+        stream). A cancelled request gets nothing more."""
+        if request.stream_closed:
+            return
+        if request.future.cancelled():
+            request.stream_closed = True
+            return
+        safe = self._stream_text(request, is_final)
+        delta = safe[request.stream_sent_chars:]
+        new_ids = request.generated[request.stream_sent_tokens:]
+        if not delta and not new_ids and not is_final:
+            return  # the holdback kept the whole chunk back
+        request.stream_sent_chars = max(request.stream_sent_chars, len(safe))
+        request.stream_sent_tokens = len(request.generated)
+        if request.stream_tbt is not None:
+            if request.stream_first_emit is None:
+                request.stream_first_emit = now
+            else:
+                interval = now - (request.stream_last_emit or now)
+                request.stream_tbt.add(interval)
+                digest = self._stream_tbt_by_class.get(request.priority)
+                if digest is None:
+                    digest = self._stream_tbt_by_class[request.priority] = TbtDigest()
+                digest.add(interval)
+                threshold = self._stream_stall_threshold(request.priority)
+                if interval > threshold:
+                    request.stream_stalls += 1
+                    self.stream_stalls_total += 1
+                    self.flight.event("stream-stall", interval_s=round(interval, 6),
+                                      threshold_s=threshold, priority=request.priority,
+                                      tokens=len(request.generated))
+            request.stream_last_emit = now
+            request.stream_emits += 1
+            self.stream_emits_total += 1
+        if is_final:
+            request.stream_closed = True
+            if request.stream_tbt is not None:
+                # one summarized event per stream, never one per chunk
+                summary = request.stream_tbt.summary()
+                self.flight.event(
+                    "stream-emit", emits=request.stream_emits,
+                    tokens=len(request.generated), tbt_p50_s=summary["p50"],
+                    tbt_p99_s=summary["p99"], tbt_max_s=summary["max"],
+                    stalls=request.stream_stalls, priority=request.priority,
+                )
+        result = request.on_chunk(new_ids, delta, is_final)
+        if asyncio.iscoroutine(result):
+            await result
+
     async def _flush_emits(self) -> None:
         emits, self._pending_emits = self._pending_emits, []
+        # on_token consumers get every token; on_chunk consumers one delivery
+        # per request per flush, in first-appearance order
         chunks: "OrderedDict[int, list]" = OrderedDict()
         for request, token, logprob, done in emits:
             if request.on_token is not None:
@@ -2355,37 +2773,88 @@ class TorchServingEngine:
             if request.on_chunk is not None:
                 entry = chunks.setdefault(id(request), [request, False])
                 entry[1] = entry[1] or done
-        for request, done in chunks.values():
-            text = self._stream_text(request, done)
-            new_tokens = request.generated[request.stream_sent_tokens:]
-            new_text = text[request.stream_sent_chars:]
-            request.stream_sent_tokens = len(request.generated)
-            request.stream_sent_chars = max(request.stream_sent_chars, len(text))
-            result = request.on_chunk(new_tokens, new_text, done)
-            if asyncio.iscoroutine(result):
-                await result
+        if chunks:
+            # one clock per flush: emission is what the client observes
+            now = time.monotonic()
+            for request, done in chunks.values():
+                await self._deliver_chunk(request, done, now)
         finished, self._finished_requests = self._finished_requests, []
-        now = time.monotonic()
         for request, is_eos in finished:
+            # the tenant's tokens/s post-debit; a cancelled request's tokens
+            # burned capacity too
+            self.scheduler.on_finished(request)
             if request.future.done():
-                continue  # cancelled by the caller
+                # cancelled by the caller: not a served request (its slot
+                # and the stream-cancel count went with _release_slot)
+                if request.stream_cancel_counted:
+                    self.flight.event(
+                        "stream-cancel", tokens_generated=len(request.generated),
+                        tokens_delivered=request.stream_sent_tokens,
+                        tokens_wasted=len(request.generated) - request.stream_sent_tokens,
+                        emits=request.stream_emits, priority=request.priority,
+                        tenant=request.tenant, slot_reclaimed=True,
+                    )
+                continue
             self.completed_requests += 1
-            first = request.first_token_time or now
+            done_t = time.monotonic()
+            first = request.first_token_time or done_t
             admit = request.admit_time or first
+            if request.deadline is not None:
+                # a completion past its budget still answers; the overrun is
+                # recorded
+                overrun = time.time() - request.deadline
+                if overrun > 0:
+                    self.flight.event("deadline-overrun", overrun_s=round(overrun, 6),
+                                      tokens=len(request.generated), tenant=request.tenant)
+            timing = {
+                "queue_wait": admit - request.enqueue_time,
+                "prefill": first - admit,
+                "ttft": first - request.enqueue_time,
+                "decode": done_t - first,
+                "tokens": float(len(request.generated)),
+            }
+            if request.stream_tbt is not None and request.stream_tbt.count:
+                summary = request.stream_tbt.summary()
+                timing["tbt_p50"] = summary["p50"]
+                timing["tbt_p99"] = summary["p99"]
+                timing["tbt_max"] = summary["max"]
+                timing["tbt_count"] = float(summary["count"])
+            if not request.warmup:
+                self.request_timings.append(timing)
+                # SLO evidence (no-ops without a declared objective)
+                self._slo_record("availability", True)
+                self._slo_record_latency("ttft", timing["ttft"])
+                self._slo_record_latency("queue-wait", timing["queue_wait"])
+                if request.stream_tbt is not None and request.stream_tbt.count:
+                    # one tbt event per finished stream: its own p99 gap,
+                    # against slo.tbt and the class's tbt-p99-s tracker
+                    p99 = request.stream_tbt.quantile(0.99)
+                    self._slo_record_latency("tbt", p99)
+                    tracker = self._stream_slo.get(request.priority)
+                    if tracker is not None:
+                        verdict = tracker.record_latency("tbt", p99 * 1000.0)
+                        if verdict is not None and verdict["transition"]:
+                            self.flight.event(
+                                "alert", objective=f"tbt:{request.priority}",
+                                state="firing" if verdict["alerting"] else "resolved",
+                                burn_rate_fast=verdict["burn_rate_fast"],
+                                burn_rate_slow=verdict["burn_rate_slow"],
+                                budget_remaining=verdict["budget_remaining"],
+                                target=verdict["target"],
+                            )
             request.future.set_result({
                 "tokens": request.generated,
                 "text": self._final_text(request),
                 "logprobs": request.logprobs,
                 "num_prompt_tokens": len(request.prompt_tokens),
                 "num_completion_tokens": len(request.generated),
-                "ttft": first - request.enqueue_time,
-                "queue_wait": admit - request.enqueue_time,
-                "prefill": first - admit,
+                "ttft": timing["ttft"],
+                "queue_wait": timing["queue_wait"],
+                "prefill": timing["prefill"],
                 "finish_reason": (
                     "stop" if is_eos or request.stop_matched else "length"
                 ),
             })
-
 
 def _to_device(tree, device):
     if isinstance(tree, QTensor):
@@ -2393,3 +2862,12 @@ def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def health_report() -> list[dict[str, Any]]:
+    """Every live shared engine's :meth:`TorchServingEngine.health` verdict,
+    for a pod's liveness and readiness probes. Wait-free: the instance map
+    is copied without its lock, so a probe never queues behind a
+    constructor holding it; a torn read at worst misses a brand-new
+    engine for one poll."""
+    return [engine.health() for engine in list(TorchServingEngine._instances.values())]

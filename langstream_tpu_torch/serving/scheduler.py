@@ -1,0 +1,367 @@
+"""Pluggable admission scheduling for the serving engine (the port's copy
+of ``langstream_tpu/serving/scheduler.py``).
+
+The engine admits through a :class:`Scheduler`:
+
+- :class:`FifoScheduler` — the default: one unbounded FIFO, head-of-line
+  admission, the engine's order when QoS is off.
+- :class:`QosScheduler` — priority classes with **weighted deficit
+  round-robin** dequeue (each class's weight is its guaranteed share of
+  admissions under contention; batch can never starve interactive, and
+  interactive can never starve batch below its share), **bounded
+  per-class queues** (a full queue sheds load with a retry hint instead
+  of growing without bound), **per-tenant token buckets** (requests/s
+  pre-debited, generated tokens/s post-debited), and the **preemption
+  policy**: when admission stalls on KV pressure, pick the running victim
+  whose class ranks strictly below the stalled head's and whose deadline
+  has the most slack (cheapest progress to redo breaks ties).
+
+The engine owns the *mechanics* (slot and block bookkeeping, resume by
+re-prefilling the context — see ``engine.py``); the scheduler owns the
+*policy* (who waits, who sheds, who gets preempted). Everything here runs
+on the engine's event-loop thread: plain deques, no locks, no I/O.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, Iterable
+
+from langstream_tpu_torch.serving.qos import (
+    PRIORITY_CLASSES,
+    QosSpec,
+    RateLimited,
+    TenantLimiter,
+    normalize_priority,
+    priority_rank,
+)
+
+
+def _pct(sorted_values: list, q: float):
+    if not sorted_values:
+        return None
+    return sorted_values[min(len(sorted_values) - 1, int(q * len(sorted_values)))]
+
+
+class Scheduler:
+    """Admission-queue policy the engine loop drives.
+
+    The contract mirrors how the engine consumed its old queue: ``peek``
+    returns the next admission candidate without removing it (admission
+    checks KV headroom against the head before committing), ``pop``
+    removes exactly the peeked request, ``requeue_front`` re-enqueues a
+    preempted request ahead of its class so resume latency is bounded.
+    All methods run on the engine's event-loop thread.
+    """
+
+    def submit(self, request) -> None:
+        """Enqueue a new request. Raises
+        :class:`~langstream_tpu_torch.serving.qos.RateLimited` when policy
+        refuses it (tenant bucket empty / class queue full)."""
+        raise NotImplementedError
+
+    def peek(self):
+        raise NotImplementedError
+
+    def pop(self):
+        raise NotImplementedError
+
+    def requeue_front(self, request) -> None:
+        raise NotImplementedError
+
+    def drain(self) -> list:
+        """Remove and return everything queued (engine failure path)."""
+        raise NotImplementedError
+
+    def empty(self) -> bool:
+        return self.qsize() == 0
+
+    def qsize(self) -> int:
+        raise NotImplementedError
+
+    def depths(self) -> dict[str, int] | None:
+        """Per-class queue depths (None for policies without classes —
+        keeps the flight-sample schema unchanged for FIFO engines)."""
+        return None
+
+    def on_finished(self, request) -> None:
+        """A request completed: account its generated tokens."""
+
+    def preempt_candidate(self, head, running: Iterable[tuple[int, Any]]):
+        """Given the stalled head-of-queue request and ``(slot_id,
+        request)`` pairs currently decoding, return the slot to preempt,
+        or None. FIFO never preempts."""
+        return None
+
+    def note_preempted(self, request) -> None:
+        """Bookkeeping hook when the engine actually preempted."""
+
+    def stats(self) -> dict[str, Any]:
+        raise NotImplementedError
+
+
+class FifoScheduler(Scheduler):
+    """The pre-QoS default: one unbounded FIFO, head-of-line admission."""
+
+    def __init__(self) -> None:
+        self._queue: deque = deque()
+        self.admitted = 0
+
+    def submit(self, request) -> None:
+        self._queue.append(request)
+
+    def peek(self):
+        return self._queue[0] if self._queue else None
+
+    def pop(self):
+        request = self._queue.popleft()
+        self.admitted += 1
+        return request
+
+    def requeue_front(self, request) -> None:
+        self._queue.appendleft(request)
+
+    def drain(self) -> list:
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
+    def qsize(self) -> int:
+        return len(self._queue)
+
+    def stats(self) -> dict[str, Any]:
+        return {
+            "policy": "fifo",
+            "queued": len(self._queue),
+            "admitted": self.admitted,
+        }
+
+
+class QosScheduler(Scheduler):
+    """Priority classes + WDRR dequeue + tenant buckets + preemption
+    policy (see the module docstring for the policy model; the full
+    write-up lives in ``docs/SCHEDULING.md``)."""
+
+    def __init__(self, spec: QosSpec, clock=time.monotonic):
+        self.spec = spec
+        self._clock = clock
+        self.limiter = TenantLimiter(spec, clock=clock)
+        self._order = PRIORITY_CLASSES
+        self._queues: dict[str, deque] = {c: deque() for c in self._order}
+        self._policies = {c: spec.class_policy(c) for c in self._order}
+        # WDRR state: a class with deficit >= 1 owns the next dequeue;
+        # each visit of the round-robin pointer grants one quantum
+        # (= the class weight), so shares converge to the weight ratio
+        self._deficit: dict[str, float] = {c: 0.0 for c in self._order}
+        self._ptr = 0
+        self._selected: str | None = None
+        # per-class counters + bounded queue-wait windows (seconds): the
+        # deterministic saturation acceptance asserts on these, and the
+        # /qos route serves them
+        self.counters: dict[str, dict[str, int]] = {
+            c: {"queued": 0, "admitted": 0, "shed": 0, "preempted": 0,
+                "resumed": 0}
+            for c in self._order
+        }
+        self._waits: dict[str, deque] = {
+            c: deque(maxlen=512) for c in self._order
+        }
+
+    # -- enqueue ---------------------------------------------------------
+
+    def submit(self, request) -> None:
+        cls = normalize_priority(getattr(request, "priority", "default"))
+        request.priority = cls
+        queue = self._queues[cls]
+        # engine-internal warmup probes bypass policy entirely: a '*'
+        # catch-all tenant policy must not fail warmup (losing the
+        # pre-compiles) or pre-drain the anonymous tenant's budget
+        if getattr(request, "warmup", False):
+            queue.append(request)
+            self.counters[cls]["queued"] += 1
+            return
+        # queue bound BEFORE the bucket debit: a shed request must not
+        # also burn rate budget (the client's retry would then be
+        # throttled for work the engine never accepted)
+        if len(queue) >= self._policies[cls].queue_limit:
+            self.counters[cls]["shed"] += 1
+            # the honest hint is one service interval: the queue drains at
+            # an unknowable rate, so report the class deadline as backoff
+            raise RateLimited(
+                "queue-full", self._policies[cls].deadline_s,
+                f"class {cls!r} queue is full "
+                f"({self._policies[cls].queue_limit}); shedding",
+            )
+        tenant = getattr(request, "tenant", "") or ""
+        retry = self.limiter.admit_request(tenant)
+        if retry is not None:
+            raise RateLimited(
+                "throttled", retry,
+                f"tenant {tenant or '<anonymous>'!r} over its rate limit; "
+                f"retry after {retry:.3f}s",
+            )
+        queue.append(request)
+        self.counters[cls]["queued"] += 1
+
+    def requeue_front(self, request) -> None:
+        # a preempted request re-enters ahead of its class (its wait was
+        # already served once) and is exempt from the queue bound — shed
+        # policy applies to NEW work, never to work already admitted
+        cls = normalize_priority(getattr(request, "priority", "default"))
+        self._queues[cls].appendleft(request)
+
+    # -- WDRR dequeue ----------------------------------------------------
+
+    def _select(self) -> str | None:
+        if self._selected and self._queues[self._selected]:
+            if self._deficit[self._selected] >= 1.0:
+                return self._selected
+        self._selected = None
+        if not any(self._queues[c] for c in self._order):
+            return None
+        for _ in range(len(self._order) + 1):
+            cls = self._order[self._ptr % len(self._order)]
+            if self._queues[cls]:
+                if self._deficit[cls] < 1.0:
+                    # one quantum per visit; integer weights >= 1 mean one
+                    # grant always reaches serving credit
+                    self._deficit[cls] += self._policies[cls].weight
+                self._selected = cls
+                return cls
+            self._deficit[cls] = 0.0
+            self._ptr += 1
+        return None
+
+    def peek(self):
+        cls = self._select()
+        return self._queues[cls][0] if cls else None
+
+    def pop(self):
+        cls = self._select()
+        if cls is None:
+            raise IndexError("pop from empty scheduler")
+        request = self._queues[cls].popleft()
+        self._deficit[cls] -= 1.0
+        if not self._queues[cls]:
+            self._deficit[cls] = 0.0
+        if self._deficit[cls] < 1.0:
+            self._ptr += 1
+            self._selected = None
+        self.counters[cls]["admitted"] += 1
+        if getattr(request, "preemptions", 0):
+            self.counters[cls]["resumed"] += 1
+        else:
+            enqueued = getattr(request, "enqueue_time", None)
+            if enqueued is not None:
+                self._waits[cls].append(self._clock() - enqueued)
+        return request
+
+    def drain(self) -> list:
+        out: list = []
+        for cls in self._order:
+            out.extend(self._queues[cls])
+            self._queues[cls].clear()
+            self._deficit[cls] = 0.0
+        self._selected = None
+        return out
+
+    def qsize(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def depths(self) -> dict[str, int]:
+        return {c: len(self._queues[c]) for c in self._order}
+
+    # -- completion + preemption policy ----------------------------------
+
+    def on_finished(self, request) -> None:
+        if getattr(request, "warmup", False):
+            return  # warmup tokens are engine-internal, not tenant spend
+        self.limiter.debit_tokens(
+            getattr(request, "tenant", "") or "",
+            len(getattr(request, "generated", ()) or ()),
+        )
+
+    def preempt_candidate(self, head, running):
+        """Deadline-aware victim choice: eligible victims run in a class
+        strictly below the stalled head's, have preemptions left, and
+        are not closer to a still-achievable deadline than the head —
+        preempting someone tighter-but-on-time than the waiter would
+        just move the miss, but a victim already PAST its soft deadline
+        stays eligible (its SLO is lost either way; long-running batch
+        work going overdue must not become unpreemptable, or preemption
+        silently disables exactly during sustained overload). Among
+        eligible: lowest class first, then most slack, then least
+        generated progress (cheapest resume)."""
+        if not self.spec.preempt:
+            return None
+        now = self._clock()
+        head_cls = normalize_priority(getattr(head, "priority", "default"))
+        head_rank = priority_rank(head_cls)
+        head_slack = (
+            getattr(head, "enqueue_time", now)
+            + self._policies[head_cls].deadline_s
+            - now
+        )
+        best = None
+        best_key = None
+        for slot_id, request in running:
+            cls = normalize_priority(getattr(request, "priority", "default"))
+            if priority_rank(cls) <= head_rank:
+                continue
+            if getattr(request, "preemptions", 0) >= self.spec.max_preemptions:
+                continue
+            slack = (
+                getattr(request, "enqueue_time", now)
+                + self._policies[cls].deadline_s
+                - now
+            )
+            if 0 <= slack <= head_slack:
+                continue
+            key = (
+                -priority_rank(cls),  # lowest class first
+                -slack,               # most slack first
+                len(getattr(request, "generated", ()) or ()),  # cheapest redo
+            )
+            if best_key is None or key < best_key:
+                best, best_key = slot_id, key
+        return best
+
+    def note_preempted(self, request) -> None:
+        cls = normalize_priority(getattr(request, "priority", "default"))
+        self.counters[cls]["preempted"] += 1
+
+    # -- introspection ---------------------------------------------------
+
+    def stats(self) -> dict[str, Any]:
+        classes: dict[str, Any] = {}
+        for cls in self._order:
+            waits = sorted(self._waits[cls])
+            classes[cls] = {
+                **self.counters[cls],
+                "depth": len(self._queues[cls]),
+                "weight": self._policies[cls].weight,
+                "queue_limit": self._policies[cls].queue_limit,
+                "queue_wait_p50_s": _pct(waits, 0.50),
+                "queue_wait_p95_s": _pct(waits, 0.95),
+            }
+        totals = {
+            key: sum(self.counters[c][key] for c in self._order)
+            for key in ("queued", "admitted", "shed", "preempted", "resumed")
+        }
+        return {
+            "policy": "qos",
+            # live depth vs the cumulative ``queued`` counter below
+            "depth": self.qsize(),
+            **totals,
+            "classes": classes,
+            "tenants": self.limiter.stats(),
+        }
+
+
+def make_scheduler(spec: QosSpec | None) -> Scheduler:
+    """The engine's factory: a QoS spec that exists and is enabled gets
+    the QoS scheduler; everything else keeps the FIFO default."""
+    if spec is not None and spec.enabled:
+        return QosScheduler(spec)
+    return FifoScheduler()

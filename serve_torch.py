@@ -18,6 +18,11 @@ by the port's engines on ``--device`` (default ``cuda``: the card). Which
 package serves is the launcher's choice, not the application's: the
 resource keeps the keys it has.
 
+The port's engines register ``stream-key`` requests with the platform's
+stream registry (``langstream_tpu.serving.streaming.STREAMS``), the one the
+gateway cancels by on a client disconnect and the AI agents consult, so a
+disconnect frees the port's decode slot as it frees the JAX engine's.
+
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
 nothing of JAX. The platform layers it starts (runner, gateway, control
@@ -32,13 +37,15 @@ import sys
 
 def register(device="cuda") -> None:
     """Make the port serve every ``tpu-serving-configuration`` resource
-    resolved from now on in this process."""
+    resolved from now on in this process, its stream keys registered with
+    the platform's stream registry."""
     from langstream_tpu.agents.services import register_provider
+    from langstream_tpu.serving.streaming import STREAMS
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
 
     register_provider(
         "tpu-serving-configuration",
-        lambda resource: TorchServiceProvider(resource, device=device),
+        lambda resource: TorchServiceProvider(resource, device=device, streams=STREAMS),
     )
 
 

@@ -566,3 +566,23 @@ def test_moe_tiny_engine_card_matches_cpu(layout):
 
         out[device] = [r["tokens"] for r in asyncio.run(run())]
     assert out["cuda"] == out["cpu"]
+
+
+
+def test_qos_preemption_card_matches_cpu():
+    """tests/test_qos.py's preemption shape (8 blocks of 16, 2 slots) in
+    f32 (``chip_smoke.py`` phase 5's QoS layout): a batch request preempted
+    by an interactive arrival at its third token resumes to its unpreempted
+    tokens, and the card's streams equal the CPU's."""
+    import chip_smoke
+
+    c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
+    params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
+    cfg = {"model": "tiny", "model-dtype": "float32", "slots": 2, "max-seq-len": 256,
+           "decode-chunk": 4, "kv-layout": "paged", "kv-block-size": 16,
+           "kv-pool-blocks": 8, "prefix-cache": False, "qos": {}}
+    out = {device: chip_smoke.qos_preemption_round_trip(torch, cfg, device, params)
+           for device in ("cuda", "cpu")}
+    assert out["cuda"] == out["cpu"]
+    alone, resumed, _, counts = out["cuda"]
+    assert resumed == alone and counts == (1, 1)

@@ -200,9 +200,6 @@ def test_engine_needs_the_card_unless_told_cpu():
         ({"kv-quantize": "int8"}, "kv-layout: paged"),
         ({"adapter-store": {"rank": 4}}, "adapter-store"),
         ({"prefix-store": {"t0-bytes": 0}}, "prefix-store"),
-        ({"qos": {"classes": {}}}, "qos"),
-        ({"slo": {"ttft-p99-s": 1.0}}, "slo"),
-        ({"streaming": True}, "streaming"),
         ({"pool-role": "prefill"}, "pool-role"),
         ({"faults": [{"site": "prefill"}]}, "faults"),
         ({"journal-dir": "j"}, "journal-dir"),
