@@ -56,7 +56,7 @@ Phases (every one unguarded: any failure exits non-zero):
    exposed host, stall, overlapped host) and idle share, the attribution's expected against achieved decode ms at
    the card's bandwidth, device-cache counts and peak memory; F1's greedy
    streams against F2's (recorded); the block manager idle after F3/F4;
-   main path G: Mixtral-8x7B (``moe-8x7b``, 16 of its 32 layers, full width, random
+   main path G: Mixtral-8x7B (``moe-8x7b``, 8 of its 32 layers, full width, random
    int8 weights) at the ``moe-mixtral-ep`` resource without its mesh (32
    slots, 4,096 context): G1 with the example's dense bf16 KV, a wave of 8
    (one ~3,000-token prompt: flash at the 4,096 bucket), a wave of 32
@@ -81,6 +81,24 @@ Phases (every one unguarded: any failure exits non-zero):
    reclaimed equals cancelled, the block manager ends idle,
    ``host_fetches_per_chunk`` is 1.0 and H1's ``health()`` ends ok;
    the preempted streams against H2's (recorded);
+   main path I: KV off the card at llama3-8b int8 on path A's params (run
+   between D and E, while those params are on the card). I1: the chat
+   example's resource with paged int8 KV and a ``prefix-store`` (T0 budget
+   the 24-block preamble P and two blocks, T1 three preambles' blocks, T2
+   a local temporary directory), one request at a time: P's question 1
+   cold, questions 1-7 as T0 hits, a wave on two other preambles that
+   demotes P's blocks to T1, questions 1-7 again (T1 promotion); engine A's
+   budgets then drop to 0 and 1 byte until every block is in T2, and a
+   fresh engine B on the same weights and directory serves questions 1-7
+   from T2 hydration. TTFT cold, T0 hit, T1 promote and T2 hydrate;
+   demote, promote and hydrate bytes, ms and GB/s; ``stats()["prefixstore"]``
+   of both engines. Fails unless the promoted and hydrated greedy tokens
+   equal the T0 hits', both tier ledgers balance, one fetch per chunk and
+   idle block managers. I2: the resource with paged bf16 KV as a combined
+   engine, then as a ``pool-role: prefill`` engine whose 16 exports land in
+   a ``pool-role: decode`` engine (bf16 rows through the wire as raw
+   words); the decoded greedy tokens must equal the combined engine's;
+   payload bytes and export/import ms;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -94,8 +112,11 @@ Phases (every one unguarded: any failure exits non-zero):
    int8 KV, and moe-tiny dense, under a mixed-length load of 8 requests
    on 3 slots, where moe-tiny's capacity drops choices; a QoS layout, 8
    blocks of 16 on 2 slots, where a batch request is preempted by an
-   interactive one and resumes to its unpreempted tokens);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-H),
+   interactive one and resumes to its unpreempted tokens; the prefix store
+   on paged f32 and int8 KV, where the cold, T1-promoted and T2-hydrated
+   streams are one stream on both devices; handoffs whose export is made
+   on the card and import on the CPU, and the reverse, equal to CPU->CPU);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-I),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1344,10 +1365,11 @@ MOE_EXAMPLE_RESOURCE = {
     "quantize": "int8",
 }
 G_MAX_TOKENS = 32
-# path G's depth: 16 of Mixtral-8x7B's 32 layers at the published widths,
-# cut when path H joined the smoke (a Mixtral step is device-bound, so its
-# time and the profiled wave's kernel count follow the depth)
-G_LAYERS = 16
+# path G's depth: 8 of Mixtral-8x7B's 32 layers at the published widths
+# (16 when path H joined the smoke, 8 since path I did; a Mixtral step is
+# device-bound, so its time and the profiled wave's kernel count follow the
+# depth)
+G_LAYERS = 8
 
 
 def moe_prompts() -> tuple[list[str], list[str], list[str]]:
@@ -1943,6 +1965,439 @@ def phase_qos_path(torch, resource: dict = CHAT_EXAMPLE_RESOURCE, device="cuda",
     return {k: c1[k] + c2[k] for k in c1}
 
 
+# -- path I: KV off the card --------------------------------------------------
+
+I_BLOCKS = 24      # the shared preamble's blocks (of 64 rows) in path I1
+I_MAX_TOKENS = 16
+I2_MAX_TOKENS = 32
+
+
+def _preamble(topic: str, n_tokens: int) -> str:
+    """An ASCII preamble of exactly ``n_tokens`` byte tokens with the BOS."""
+    sentence = (f"You are the {topic} assistant. Answer from the handbook "
+                f"below and cite its section. Handbook on {topic}: the team "
+                f"keeps records for thirty days, renews access every seven "
+                f"days, and escalates outages within one hour. ")
+    return (sentence * (n_tokens // len(sentence) + 1))[: n_tokens - 1]
+
+
+def tier_prompts(block_size: int = 64) -> tuple[list[str], list[str]]:
+    """Path I1: eight questions on preamble P (``I_BLOCKS`` full blocks,
+    every question shorter than a block, so a prompt's cached chain is the
+    preamble), and four questions each on two other preambles Q and R."""
+    questions = ("How long are records kept?", "When is access renewed?",
+                 "How fast are outages escalated?", "Which section covers access?",
+                 "Who approves a renewal?", "Is the handbook binding?",
+                 "What counts as an outage?", "Where are records stored?")
+    n = I_BLOCKS * block_size
+    p = _preamble("storage", n)
+    first = [p + f" Question {i}: {q}" for i, q in enumerate(questions)]
+    second = [_preamble(topic, n) + f" Question {i}: {q}"
+              for topic in ("billing", "networking") for i, q in enumerate(questions[:4])]
+    return first, second
+
+
+def _events_since(engine, seq: int, *kinds) -> list[dict]:
+    return [e for e in engine.flight.recent_events(0)
+            if e["seq"] > seq and (not kinds or e["kind"] in kinds)]
+
+
+async def _tiers_settled(engine, timeout_s: float = 120.0) -> bool:
+    """Wait until no demotion is pending and the hydrator has nothing in
+    flight."""
+    for _ in range(int(timeout_s / 0.05)):
+        st = engine.stats()["prefixstore"]
+        if (not engine._prefix_demote_pending() and not st["t2"]["pending_jobs"]
+                and not st["t2"]["in_transit_bytes"]):
+            return True
+        await asyncio.sleep(0.05)
+    return False
+
+
+def phase_tier_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                    device="cuda") -> dict:
+    """Path I1: the chat example's resource with paged int8 KV and a prefix
+    store (T0 budget: the preamble and two blocks; T1: three preambles'
+    blocks; T2: a local directory). Wave 1: P's question 1 alone (cold),
+    then questions 1-7 one at a time (T0 hits). Wave 2: Q's and R's
+    questions at once (their chains push P's out of T0, leaf first, into
+    T1). Wave 3: P's questions 1-7 again one at a time (the first promotes
+    P's blocks from T1). Then engine A's budgets drop to 0 (t0) and 1 byte
+    (t1), as for a retiring replica, and every block cascades to T2; a fresh
+    engine B on the same weights and directory serves wave 3 from T2
+    hydration. T1 holds all of wave 2's demotions, so each tier's TTFT is
+    its own: were P split between T1 and T2, hydration's pinned entries
+    would push P's unpinned T1 entries to T2, and the promotion stops at
+    that gap in the chain (the JAX package's rule). One request at a time,
+    so the T0 hits and the promoted and hydrated runs prefill the same
+    shapes. Fails unless waves 3 on A and B give the T0 hits' greedy tokens,
+    the tier ledgers balance, one fetch per chunk and idle block managers."""
+    import tempfile
+
+    from langstream_tpu_torch.serving.engine import (
+        _MODEL_CONFIGS,
+        ServingConfig,
+        TorchServingEngine,
+    )
+
+    base = dict(resource["configuration"])
+    base.update({"kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": True})
+    bs = int(base.get("kv-block-size", 64))
+    first, second = tier_prompts(bs)
+    t2_dir = tempfile.mkdtemp(prefix="ls-prefix-t2-")
+    # one block of the int8 pool: K and V, every layer, int8 rows and f32
+    # scales per KV head
+    mc = _MODEL_CONFIGS[base["model"]](max_seq_len=int(base["max-seq-len"]))
+    block_bytes = 2 * mc.layers * bs * (mc.kv_heads * mc.head_dim + 4 * mc.kv_heads)
+    store = {"t0-bytes": (I_BLOCKS + 2) * block_bytes, "t1-bytes": 3 * I_BLOCKS * block_bytes,
+             "t2": {"type": "local", "path": t2_dir}, "t2-rescan-s": 0.2,
+             "hydrate-timeout-s": 60.0}
+    cfg = {**base, "prefix-store": store}
+    opts = {"max-tokens": I_MAX_TOKENS, "temperature": 0}
+    label = "I1 tiers"
+
+    async def one(engine, prompt):
+        r = await engine.generate(prompt, dict(opts))
+        if not r["tokens"] or not all(math.isfinite(x) for x in r["logprobs"]):
+            fail(f"{label}: empty or non-finite result")
+        return r
+
+    def tier_counts(engine):
+        st = engine.stats()["prefixstore"]
+        return {k: st[k] for k in ("promotions", "hydrations", "demotions_t0_t1",
+                                   "demotions_t1_t2")} | {"t1_hits": st["t1"]["hits"]}
+
+    engine_a = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+    if engine_a._kv_block_bytes != block_bytes:
+        fail(f"{label}: block bytes {engine_a._kv_block_bytes} != {block_bytes}")
+    out: dict = {}
+
+    async def run_a():
+        try:
+            cold = await one(engine_a, first[1])
+            hits = [await one(engine_a, p) for p in first[1:]]
+            if engine_a.prefix_hits < len(hits):
+                fail(f"{label}: wave 1's repeats made {engine_a.prefix_hits} T0 hits")
+            seq = engine_a.flight.recent_events(1)[-1]["seq"]
+            t_w2 = time.monotonic()
+            await asyncio.gather(*(one(engine_a, p) for p in second))
+            if not await _tiers_settled(engine_a):
+                fail(f"{label}: the demotion after wave 2 did not settle")
+            w2_s = time.monotonic() - t_w2
+            st = engine_a.stats()["prefixstore"]
+            demoted = _events_since(engine_a, seq, "prefix-demote")
+            p_chain = engine_a.block_mgr.chain_digests(engine_a.tokenizer.encode(first[1]))
+            p_in_t0 = sum(engine_a.block_mgr.prefix_has(d) for d in p_chain)
+            out["after_wave2"] = {
+                "p_blocks_in_t0": p_in_t0, "p_blocks": len(p_chain),
+                "p_blocks_in_t1": sum(engine_a.prefix_store.t1_has(d.hex()) for d in p_chain),
+                "p_blocks_in_t2": sum(engine_a.prefix_store.t2_has(d.hex()) for d in p_chain),
+                "demote_events": len(demoted), "wave2_s": round(w2_s, 3),
+                "demote_fetches": st["t0"]["demote_fetches"],
+                "demote_seconds": st["t0"]["demote_seconds"],
+                "demoted_bytes": st["demotions_t0_t1"] * block_bytes,
+            }
+            if p_in_t0 == len(p_chain):
+                fail(f"{label}: wave 2 demoted none of P's blocks: {out['after_wave2']}")
+            seq = engine_a.flight.recent_events(1)[-1]["seq"]
+            before = tier_counts(engine_a)
+            warm = [await one(engine_a, p) for p in first[1:]]
+            after = tier_counts(engine_a)
+            promoted = _events_since(engine_a, seq, "prefix-promote")
+            hydrated = _events_since(engine_a, seq, "prefix-hydrate")
+            if after["promotions"] == before["promotions"] or hydrated:
+                fail(f"{label}: wave 3 must promote from T1 alone ({before} -> {after}, "
+                     f"hydration events {hydrated})")
+            # the retiring replica: every prefix block down to T2
+            engine_a.prefix_store.spec = dataclasses.replace(
+                engine_a.prefix_store.spec, t0_bytes=0, t1_bytes=1)
+            engine_a._wake.set()
+            for _ in range(2400):
+                st = engine_a.stats()["prefixstore"]
+                if (st["t0"]["blocks"] == 0 and st["t1"]["entries"] == 0
+                        and not st["t2"]["pending_jobs"] and not st["t2"]["in_transit_bytes"]):
+                    break
+                await asyncio.sleep(0.05)
+            else:
+                fail(f"{label}: engine A did not drain to T2: {st}")
+            out.update(cold=cold, hits=hits, warm=warm, promoted=promoted,
+                       hydrated=hydrated, tiers_wave3=(before, after),
+                       stats_a=engine_a.stats())
+        finally:
+            await engine_a.close()
+
+    reset_counts()
+    t0 = time.monotonic()
+    asyncio.run(run_a())
+    stats_a = out["stats_a"]
+    if stats_a["kv"]["reserved_blocks"] or engine_a.block_mgr.stats()["live_blocks"]:
+        fail(f"{label}: engine A's block manager is not idle: {engine_a.block_mgr.stats()}")
+    del engine_a
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    engine_b = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+    async def run_b():
+        try:
+            if not engine_b.prefix_store.flush(60):
+                fail(f"{label}: engine B's first T2 scan did not finish")
+            engine_b.prefix_store.apply_results()
+            out["t2_known"] = engine_b.stats()["prefixstore"]["t2"]["entries"]
+            out["hydrate"] = [await one(engine_b, p) for p in first[1:]]
+            out["stats_b"] = engine_b.stats()
+            out["hydrate_events"] = _events_since(engine_b, 0, "prefix-hydrate")
+        finally:
+            await engine_b.close()
+
+    asyncio.run(run_b())
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    if engine_b.block_mgr.stats()["reserved_blocks"] or engine_b.block_mgr.stats()["live_blocks"]:
+        fail(f"{label}: engine B's block manager is not idle: {engine_b.block_mgr.stats()}")
+    stats_b = out["stats_b"]
+    del engine_b
+    gc.collect()
+
+    # the T0 hits (P's questions 1-7) are the reference
+    ref = [r["tokens"] for r in out["hits"]]
+    warm_tokens = [r["tokens"] for r in out["warm"]]
+    hyd_tokens = [r["tokens"] for r in out["hydrate"]]
+    if warm_tokens != ref:
+        fail(f"{label}: T1-promoted greedy tokens differ from the T0 hits:\n{warm_tokens}\n{ref}")
+    if hyd_tokens != ref:
+        fail(f"{label}: T2-hydrated greedy tokens differ from the T0 hits:\n{hyd_tokens}\n{ref}")
+    cold_t, hit_t = out["cold"]["tokens"], out["hits"][0]["tokens"]
+    common = next((i for i, (a, b) in enumerate(zip(cold_t, hit_t)) if a != b),
+                  min(len(cold_t), len(hit_t)))
+    for name, st in (("A", stats_a), ("B", stats_b)):
+        ps = st["prefixstore"]
+        ledger = ps["ledger"]
+        resident = ledger["t1_bytes"] + ledger["in_transit_bytes"] + ledger["t2_bytes"]
+        flows = (ledger["inserted_bytes"] + ledger["discovered_bytes"]
+                 - ledger["taken_bytes"] - ledger["evicted_bytes"])
+        if resident != flows:
+            fail(f"{label}: engine {name}'s tier ledger does not balance: {ledger}")
+        if st["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
+            fail(f"{label}: engine {name} host_fetches_per_chunk "
+                 f"{st['decode-chunks']['host_fetches_per_chunk']} != 1.0")
+    ps_b = stats_b["prefixstore"]
+    if ps_b["hydrations"] == 0 or ps_b["fingerprint_refusals"]:
+        fail(f"{label}: engine B hydrated nothing from T2: {ps_b}")
+    if device == "cuda" and (counts["flash_attention"] == 0
+                             or counts["paged_attention_q8"] == 0):
+        fail(f"{label}: flash and the int8 read must launch: {counts}")
+
+    def ms(x):
+        return round(x * 1e3, 3)
+
+    aw2 = out["after_wave2"]
+    demote_gbps = (aw2["demoted_bytes"] / aw2["demote_seconds"] / 1e9
+                   if aw2["demote_seconds"] else float("nan"))
+    prom_bytes = sum(e["bytes"] for e in out["promoted"])
+    prom_ms = sum(e["device_ms"] for e in out["promoted"])
+    fetched = [e for e in out["hydrate_events"] if e.get("stage") == "fetched"]
+    begin = [e for e in out["hydrate_events"] if e.get("stage") == "begin"]
+    done = [e for e in out["hydrate_events"] if e.get("stage") in ("done", "timeout")]
+    hyd_bytes = sum(e["bytes"] for e in fetched)
+    hyd_wait = (done[0]["m_s"] - begin[0]["m_s"]) if begin and done else float("nan")
+    hit_ttft = sorted(r["ttft"] for r in out["hits"])
+    print(f"path [{label}]: wall_s={wall:.3f} block_bytes={block_bytes} "
+          f"preamble_blocks={I_BLOCKS} ttft_s cold={out['cold']['ttft']:.4f} "
+          f"t0_hit median={hit_ttft[len(hit_ttft) // 2]:.4f} "
+          f"t1_promote={out['warm'][0]['ttft']:.4f} "
+          f"t2_hydrate={out['hydrate'][0]['ttft']:.4f} "
+          f"cold_vs_t0_common_prefix={common}/{len(cold_t)}", flush=True)
+    print(f"path [{label}]: after wave 2 {aw2}; demote {aw2['demoted_bytes']} bytes in "
+          f"{aw2['demote_fetches']} fetches, {ms(aw2['demote_seconds'])} ms waited, "
+          f"{demote_gbps:.3f} GB/s device->host", flush=True)
+    print(f"path [{label}]: wave 3 tiers {out['tiers_wave3']}; promote "
+          f"{prom_bytes} bytes in {len(out['promoted'])} scatters, {prom_ms:.3f} ms on the "
+          f"card, {prom_bytes / prom_ms / 1e6 if prom_ms else float('nan'):.3f} GB/s "
+          f"host->device; wave 3 hydration events "
+          f"{[e.get('stage') for e in out['hydrated']]}", flush=True)
+    print(f"path [{label}]: engine B: {out['t2_known']} T2 blobs known; hydrate {hyd_bytes} "
+          f"bytes in {len(fetched)} blobs, stash {ms(hyd_wait) if begin else 'n/a'} ms; "
+          f"then promote {ps_b['promotions']} run(s); greedy tokens of T1 promotion and T2 "
+          f"hydration equal the T0 hits ({len(ref)} requests x {I_MAX_TOKENS} tokens); "
+          f"launches={counts}", flush=True)
+    print(f"path [{label}]: stats()['prefixstore'] engine A "
+          f"{json.dumps(stats_a['prefixstore'], sort_keys=True)}", flush=True)
+    print(f"path [{label}]: stats()['prefixstore'] engine B "
+          f"{json.dumps(ps_b, sort_keys=True)}", flush=True)
+    return counts
+
+
+def i2_prompts() -> list[str]:
+    return chat_prompts() + [
+        "Name a planet with rings.", "What does HBM stand for?",
+        "Give an antonym of 'early'.", "Count from one to five.",
+        "Describe a paged KV cache briefly.", "Which ocean is the largest?",
+        "Spell 'kernel' backwards.", "What is two plus two?",
+    ]
+
+
+def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                       device="cuda") -> dict:
+    """Path I2: the chat example's resource with paged bf16 KV as a
+    ``combined`` engine, then as a ``pool-role: prefill`` engine whose 16
+    exports (``take_export``) land in a ``pool-role: decode`` engine
+    (``import_handoff``), all three on the same weights: bf16 rows through
+    the wire as raw 2-byte words. The 16 arrive together at every engine, so
+    the prefill batches and the decode chunks are the same; the decoded
+    greedy tokens must equal the combined engine's."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
+    base.update({"kv-layout": "paged", "prefix-cache": False})
+    prompts = i2_prompts()
+    opts = {"max-tokens": I2_MAX_TOKENS, "temperature": 0}
+    label = "I2 pool roles"
+
+    def make(role):
+        return TorchServingEngine(ServingConfig.from_dict({**base, "pool-role": role}),
+                                  device=device, params=params)
+
+    reset_counts()
+    t0 = time.monotonic()
+    combined = make("combined")
+
+    async def run_combined():
+        try:
+            return await asyncio.gather(*(combined.generate(p, dict(opts)) for p in prompts))
+        finally:
+            await combined.close()
+
+    want = asyncio.run(run_combined())
+    del combined
+    gc.collect()
+    pre, dec = make("prefill"), make("decode")
+
+    async def run_pair():
+        try:
+            tickets = await asyncio.gather(*(pre.generate(p, dict(opts)) for p in prompts))
+            payloads = [pre.take_export(t["handoff"]) for t in tickets]
+            t_imp = time.monotonic()
+            got = await asyncio.gather(*(dec.import_handoff(p) for p in payloads))
+            return (tickets, payloads, got, time.monotonic() - t_imp,
+                    _events_since(pre, 0, "kv-export"), _events_since(dec, 0, "kv-import"),
+                    pre.stats(), dec.stats())
+        finally:
+            await pre.close()
+            await dec.close()
+
+    tickets, payloads, got, import_wall, exports, imports, st_pre, st_dec = asyncio.run(run_pair())
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    for name, engine in (("prefill", pre), ("decode", dec)):
+        bm = engine.block_mgr.stats()
+        if bm["reserved_blocks"] or bm["live_blocks"]:
+            fail(f"{label}: the {name} engine's block manager is not idle: {bm}")
+    fp = pre.kv_fingerprint()
+    del pre, dec
+    gc.collect()
+    if fp["dtype"] != "bfloat16":
+        fail(f"{label}: the pools must hold bf16 rows, fingerprint {fp}")
+    if any(t["finish_reason"] != "handoff" for t in tickets):
+        fail(f"{label}: the prefill engine must answer with handoff tickets")
+    got_t, want_t = [r["tokens"] for r in got], [r["tokens"] for r in want]
+    if got_t != want_t:
+        diffs = [i for i, (a, b) in enumerate(zip(got_t, want_t)) if a != b]
+        fail(f"{label}: decoded greedy tokens differ from the combined engine's at "
+             f"requests {diffs}")
+    if st_dec["kvtransfer"]["imports"] != len(prompts) or (
+            device == "cuda" and counts["paged_attention"] == 0):
+        fail(f"{label}: {st_dec['kvtransfer']} imports, launches {counts}")
+    if st_dec["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk != 1.0")
+    sizes = sorted(len(p) for p in payloads)
+    exp_ms = sorted(e["ms"] for e in exports)
+    exp_dev = sorted(e["device_ms"] for e in exports)
+    imp_ms = sorted(e["ms"] for e in imports)
+    imp_dev = sorted(e["device_ms"] for e in imports)
+    total = sum(sizes)
+    print(f"path [{label}]: wall_s={wall:.3f} requests={len(prompts)} dtype={fp['dtype']} "
+          f"payload_bytes min={sizes[0]} max={sizes[-1]} total={total} "
+          f"export_ms min={exp_ms[0]:.3f} max={exp_ms[-1]:.3f} (fetch {exp_dev[0]:.3f}-"
+          f"{exp_dev[-1]:.3f}, {total / sum(exp_dev) / 1e6:.3f} GB/s device->host) "
+          f"import_ms min={imp_ms[0]:.3f} max={imp_ms[-1]:.3f} (scatter {imp_dev[0]:.3f}-"
+          f"{imp_dev[-1]:.3f}, {total / sum(imp_dev) / 1e6:.3f} GB/s host->device) "
+          f"import_wall_s={import_wall:.3f}; greedy tokens equal the combined engine's "
+          f"({len(prompts)} x <= {I2_MAX_TOKENS}); launches={counts}", flush=True)
+    return counts
+
+
+def tier_round_trip(torch, cfg: dict, device: str, params) -> list:
+    """Phase 5's tier layout on one device: a request cold, the same again
+    after its blocks demoted to T2 (promotion), and on a fresh engine over
+    the same T2 directory (hydration). Returns the three greedy streams."""
+    import tempfile
+
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    store = {"t0-bytes": 0, "t1-bytes": 1, "t2-rescan-s": 0.1,
+             "t2": {"type": "local", "path": tempfile.mkdtemp(prefix="ls-prefix-t2-")}}
+    cfg = {**cfg, "prefix-store": store}
+    prompt = list(range(1, 100))
+    opts = {"max-tokens": 12, "temperature": 0}
+
+    async def writer():
+        engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+        try:
+            cold = await engine.generate(prompt, dict(opts))
+            for _ in range(600):
+                st = engine.stats()["prefixstore"]
+                if (st["t0"]["blocks"] == 0 and st["t1"]["entries"] == 0
+                        and not st["t2"]["pending_jobs"] and not st["t2"]["in_transit_bytes"]):
+                    break
+                await asyncio.sleep(0.02)
+            warm = await engine.generate(prompt, dict(opts))
+            if engine.stats()["prefixstore"]["promotions"] == 0:
+                fail(f"card vs CPU tiers {cfg}: no promotion on {device}")
+            return cold["tokens"], warm["tokens"]
+        finally:
+            await engine.close()
+
+    async def reader():
+        engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+        try:
+            engine.prefix_store.flush(10)
+            out = await engine.generate(prompt, dict(opts))
+            if engine.stats()["prefixstore"]["hydrations"] == 0:
+                fail(f"card vs CPU tiers {cfg}: no hydration on {device}")
+            return out["tokens"]
+        finally:
+            await engine.close()
+
+    cold, warm = asyncio.run(writer())
+    return [cold, warm, asyncio.run(reader())]
+
+
+def handoff_across(torch, cfg: dict, src: str, dst: str, params) -> list:
+    """An export made on ``src`` imported on ``dst``; the decoded streams."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    prompts = ["disaggregated serving byte identity prompt", "second prompt!"]
+
+    async def run():
+        pre = TorchServingEngine(ServingConfig.from_dict({**cfg, "pool-role": "prefill"}),
+                                 device=src, params=params)
+        dec = TorchServingEngine(ServingConfig.from_dict({**cfg, "pool-role": "decode"}),
+                                 device=dst, params=params)
+        try:
+            out = []
+            for p in prompts:
+                ticket = await pre.generate(p, {"max-tokens": 12, "temperature": 0})
+                out.append((await dec.import_handoff(pre.take_export(ticket["handoff"])))["tokens"])
+            return out
+        finally:
+            await pre.close()
+            await dec.close()
+
+    return asyncio.run(run())
+
+
 def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
     from langstream_tpu_torch.models.llama import LlamaConfig, init_llama_params
     from langstream_tpu_torch.models.moe import MoEConfig, init_moe_params
@@ -2099,6 +2554,32 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
           f"CPU's; the interactive request's {len(interactive)} identical; "
           f"preempted/resumed={counts}", flush=True)
 
+    # KV off the card: T1 promotion and T2 hydration (cold = promoted =
+    # hydrated on each device, card = CPU), and handoffs across devices
+    tiny = {"model": "tiny", "model-dtype": "float32", "slots": 3, "max-seq-len": 256,
+            "decode-chunk": 4, "kv-layout": "paged", "kv-block-size": 16}
+    for layout in ({}, {"kv-quantize": "int8"}):
+        cfg = {**tiny, **layout}
+        out = {name: tier_round_trip(torch, cfg, device, params["tiny"])
+               for name, device in zip(("cuda", "cpu"), devices)}
+        if out["cuda"] != out["cpu"] or any(t != out["cuda"][0] for t in out["cuda"]):
+            fail(f"card vs CPU tiers {layout}: cold, T1-promoted and T2-hydrated greedy "
+                 f"tokens must be one stream on both devices:\n{out}")
+        print(f"card vs CPU [tiers, paged {layout.get('kv-quantize') or 'f32'} KV]: cold, "
+              f"T1-promoted and T2-hydrated greedy streams identical on the card and the "
+              f"CPU", flush=True)
+    for layout in ({}, {"kv-quantize": "int8"}):
+        cfg = {**tiny, **layout, "prefix-cache": False}
+        ref = handoff_across(torch, cfg, devices[1], devices[1], params["tiny"])
+        out = {f"{a}->{b}": handoff_across(torch, cfg, da, db, params["tiny"])
+               for (a, da), (b, db) in ((("card", devices[0]), ("cpu", devices[1])),
+                                        (("cpu", devices[1]), ("card", devices[0])))}
+        if any(v != ref for v in out.values()):
+            fail(f"card vs CPU handoff {layout}: {out} against CPU->CPU {ref}")
+        print(f"card vs CPU [handoff, paged {layout.get('kv-quantize') or 'f32'} KV]: "
+              f"exports made on the card decode on the CPU and the reverse with the "
+              f"CPU->CPU greedy tokens", flush=True)
+
 
 def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
     """A batch request alone, then again with an interactive request
@@ -2206,6 +2687,15 @@ def main() -> int:
         {**base, "kv-layout": "paged", "prefix-cache": False, "speculative-drafts": 4},
         params=params,
     )
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_i = time.monotonic()
+    i1_counts = phase_tier_path(torch, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    i2_counts = phase_handoff_path(torch, params)
+    i_counts = {k: i1_counts[k] + i2_counts[k] for k in i1_counts}
+    print(f"path I: {time.monotonic() - t_i:.1f} s", flush=True)
     del params  # path E makes its own weights: two 8B sets never share the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -2235,8 +2725,8 @@ def main() -> int:
     # -- phase 6: kernels line, then the device line ------------------------
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
-             "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts}
-    meta = {  # launches: summed over the eight main paths
+             "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts}
+    meta = {  # launches: summed over the nine main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -183,15 +183,26 @@ class BlockManager:
     writes below its start position, so sharing is safe) and prefills only
     the suffix. Cache-only blocks (refcount held just by the cache) are
     evicted LRU, leaf first, when the free list runs dry, so caching never
-    reduces admissible capacity. The tiered-store hooks and the pool-shrink
-    budget of the JAX package's manager are not here (ROADMAP.md Queue 1
-    item 9).
+    reduces admissible capacity.
+
+    **Tiered prefix store hooks** (``serving/prefixstore.py``): demotion
+    picks LRU cache-only leaf blocks (:meth:`evictable_prefixes`), the
+    engine gathers their rows to host, then :meth:`drop_prefix` frees
+    them; promotion allocates and publishes fresh blocks for a chain
+    segment (:meth:`install_prefix_chain`) that the engine scatters rows
+    into. ``on_prefix_evict(digest_hex, block)`` is called when pool
+    pressure evicts a cached block with no demotion, so the tier ledgers
+    see every block leave. The pool-shrink budget of the JAX package's
+    manager is not here (ROADMAP.md Queue 1 item 9).
     """
 
     def __init__(self, layout: PagedLayout, slots: int):
         self.layout = layout
         self._free = list(range(layout.num_blocks - 1, 0, -1))  # block 0 reserved
         self._reserved = 0
+        # tiered prefix store hook: (digest_hex, block) of a cached block
+        # that pool pressure evicted without a demotion
+        self.on_prefix_evict = None
         # per slot: shared (adopted, refcounted) prefix blocks + owned tail
         self._slot_shared: list[list[int]] = [[] for _ in range(slots)]
         self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
@@ -316,8 +327,88 @@ class BlockManager:
             if parent and parent in self._nchildren:
                 self._nchildren[parent] -= 1
             self._unref(b)
+            if self.on_prefix_evict is not None:
+                # no demotion took the rows: the tier ledgers record the loss
+                self.on_prefix_evict(d.hex(), b)
             return True
         return False
+
+    # -- tiered prefix store surface (serving/prefixstore.py): wait-free
+    # dict walks and list ops, no I/O, no device work --------------------
+
+    def evictable_prefixes(self, max_n: int) -> list[tuple[bytes, int, bytes]]:
+        """Up to ``max_n`` demotion candidates, LRU first: cache-only
+        (refcount 1) leaf blocks as ``(digest, block, parent_digest)``.
+        Nothing is claimed until :meth:`drop_prefix`."""
+        out: list[tuple[bytes, int, bytes]] = []
+        for d, b in self._prefix.items():  # insertion order = LRU
+            if len(out) >= max_n:
+                break
+            if self._refs.get(b, 0) != 1 or self._nchildren.get(d, 0) > 0:
+                continue
+            out.append((d, b, self._parent.get(d, b"")))
+        return out
+
+    def drop_prefix(self, digest: bytes) -> int | None:
+        """Free ONE cached block by digest: cache-only leaves only (a block
+        a slot still reads, or an interior chain link, refuses with None).
+        The demotion calls it only once the block's rows are on the host."""
+        b = self._prefix.get(digest)
+        if b is None or self._refs.get(b, 0) != 1 or self._nchildren.get(digest, 0) > 0:
+            return None
+        del self._prefix[digest]
+        del self._block_digest[b]
+        parent = self._parent.pop(digest, b"")
+        self._nchildren.pop(digest, None)
+        if parent and parent in self._nchildren:
+            self._nchildren[parent] -= 1
+        self._unref(b)
+        return b
+
+    def install_prefix_chain(self, chain: list[tuple[bytes, bytes]]) -> list[int] | None:
+        """Allocate and publish fresh cache-owned blocks for a promoted
+        chain segment (``[(digest, parent_digest), ...]`` in chain order;
+        the first parent must be cached or empty). The engine scatters the
+        promoted rows into the returned blocks before any admission adopts
+        them. All or nothing: a failed allocation mid-chain rolls the
+        published links back and returns None (cold compute)."""
+        if not chain:
+            return []
+        first_parent = chain[0][1]
+        if first_parent and first_parent not in self._prefix:
+            return None  # broken linkage: would orphan the whole segment
+        installed: list[tuple[bytes, int, bytes]] = []
+        try:
+            for digest, parent in chain:
+                if digest in self._prefix:
+                    # a concurrent register published it: keep that block
+                    raise RuntimeError("digest already cached")
+                # the parent turns interior BEFORE the allocation: _alloc
+                # may evict a cache-only leaf, and it must not be the parent
+                if parent:
+                    self._nchildren[parent] = self._nchildren.get(parent, 0) + 1
+                try:
+                    b = self._alloc()  # refcount 1: cache-owned
+                except RuntimeError:
+                    if parent and parent in self._nchildren:
+                        self._nchildren[parent] -= 1
+                    raise
+                self._prefix[digest] = b
+                self._block_digest[b] = digest
+                self._parent[digest] = parent
+                self._nchildren.setdefault(digest, 0)
+                installed.append((digest, b, parent))
+        except RuntimeError:
+            for digest, b, parent in reversed(installed):
+                del self._prefix[digest]
+                del self._block_digest[b]
+                self._parent.pop(digest, None)
+                self._nchildren.pop(digest, None)
+                if parent and parent in self._nchildren:
+                    self._nchildren[parent] -= 1
+                self._unref(b)
+            return None
+        return [b for _, b, _ in installed]
 
     def prefix_block_count(self) -> int:
         """Blocks currently pinned by the prefix cache."""

@@ -98,6 +98,20 @@ Execution model:
   multi-window burn rates (:meth:`TorchServingEngine.slo_status`), and
   :func:`health_report` lists every live engine's verdict.
 
+- KV off the card (``serving/kvtransfer.py``, ``serving/prefixstore.py``):
+  with ``prefix-store`` the paged prefix cache is T0 of three tiers. Over
+  ``t0-bytes`` the loop's safe point (no chunk in flight) demotes LRU
+  cache-only leaf blocks to host RAM (T1, one timed fetch per pass), T1
+  overflow serializes to object storage (T2, on a hydrator thread), and an
+  admission whose prompt chain continues in T1 promotes those rows into
+  fresh blocks (pinned uploads, one scatter); one whose chain continues in
+  T2 waits off the queue for the hydration, or computes cold after
+  ``hydrate-timeout-s``. ``pool-role: prefill`` exports each finished
+  prefill as an LSKV payload (:meth:`TorchServingEngine.take_export`) and
+  frees its slot; ``pool-role: decode`` admits payloads through
+  :meth:`TorchServingEngine.import_handoff` with no prefill. Payloads and
+  blobs are byte-compatible with the JAX package's.
+
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item; settings that only change latency are accepted and
 logged once. The engine runs on the card (``device="cuda"``) unless the
@@ -179,6 +193,7 @@ from langstream_tpu_torch.serving.deadline import (
     remaining_s,
 )
 from langstream_tpu_torch.serving.flight import FlightRecorder
+from langstream_tpu_torch.serving import kvtransfer
 from langstream_tpu_torch.serving.health import (
     EngineWatchdog,
     SloObjective,
@@ -191,6 +206,7 @@ from langstream_tpu_torch.serving.profiling import (
     detect_hbm_capacity,
     detect_hbm_gbps,
 )
+from langstream_tpu_torch.serving.prefixstore import PrefixStore, PrefixStoreSpec
 from langstream_tpu_torch.serving.qos import QosSpec, RateLimited, normalize_priority
 from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
 from langstream_tpu_torch.serving.scheduler import make_scheduler
@@ -216,6 +232,8 @@ _DTYPES = {
     "float32": torch.float32, "f32": torch.float32,
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 }
+#: the model dtypes as the JAX engine's fingerprint spells them
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
 def _parse_bool(v: Any) -> bool:
@@ -228,10 +246,11 @@ def _parse_bool(v: Any) -> bool:
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """The ``tpu-serving-configuration`` resource: the same fields, kebab
-    keys and defaults as the JAX package's ``ServingConfig``. ``qos`` and
-    ``slo`` parse into their frozen specs (so the config stays hashable);
-    sections of planes this port does not carry yet (prefix-store,
-    adapter-store, faults) are kept as the raw mapping the resource gave."""
+    keys and defaults as the JAX package's ``ServingConfig``. ``qos``,
+    ``slo`` and ``prefix-store`` parse into their frozen specs (so the
+    config stays hashable); sections of planes this port does not carry yet
+    (adapter-store, faults) are kept as the raw mapping the resource
+    gave."""
 
     model: str = "tiny"
     slots: int = 8
@@ -265,7 +284,7 @@ class ServingConfig:
     streaming: bool = False
     stream_stall_s: float = 2.0
     pool_role: str = "combined"
-    prefix_store: Any = None
+    prefix_store: PrefixStoreSpec | None = None
     adapter_store: Any = None
     shrink_fraction: float = 0.125
     shrink_recovery_s: float = 30.0
@@ -313,7 +332,7 @@ class ServingConfig:
             dense_kernel=get("dense-kernel", "auto"),
             prefix_cache=_parse_bool(get("prefix-cache", True)),
             prefix_cache_max_suffix=int(get("prefix-cache-max-suffix", 4096)),
-            prefix_store=get("prefix-store"),
+            prefix_store=PrefixStoreSpec.from_dict(get("prefix-store")),
             adapter_store=get("adapter-store"),
             prefill_chunk=int(get("prefill-chunk", 0)),
             speculative_drafts=int(get("speculative-drafts", 0)),
@@ -340,11 +359,7 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
     (lambda c: c.adapter_store is not None,
-     "adapter-store: multi-LoRA is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.prefix_store is not None,
-     "prefix-store: the tiered prefix store is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.pool_role != "combined",
-     "pool-role other than combined: KV handoff is ROADMAP.md Queue 1 item 10"),
+     "adapter-store: multi-LoRA is ROADMAP.md Queue 1 item 9, the next slice"),
     (lambda c: bool(c.faults), "faults: fault injection is ROADMAP.md Queue 1 item 9"),
     (lambda c: c.journal_dir is not None,
      "journal-dir: the crash-requeue journal is ROADMAP.md Queue 1 item 9"),
@@ -387,6 +402,26 @@ def _check_supported(config: ServingConfig) -> None:
             "speculative-drafts requires kv-layout=paged (the verify "
             "step commits through the paged continuation path)"
         )
+    if config.pool_role not in ("combined", "prefill", "decode"):
+        raise ValueError(
+            f"unknown pool_role {config.pool_role!r}; known: combined, prefill, decode"
+        )
+    if config.pool_role != "combined" and config.kv_layout != "paged":
+        raise ValueError(
+            "pool-role prefill/decode requires kv-layout=paged (the KV handoff "
+            "serializes paged blocks; a dense cache has no block tables)"
+        )
+    if config.prefix_store is not None and config.prefix_store.enabled:
+        if config.kv_layout != "paged":
+            raise ValueError(
+                "prefix-store requires kv-layout=paged (the tiers demote and "
+                "promote content-addressed pool blocks; a dense cache has none)"
+            )
+        if not config.prefix_cache:
+            raise ValueError(
+                "prefix-store requires prefix-cache=true (T0 is the automatic "
+                "prefix cache; without it there is nothing to demote or promote)"
+            )
 
 
 @dataclasses.dataclass
@@ -451,6 +486,13 @@ class _Request:
     stream_tbt: TbtDigest | None = None
     # counted once as a cancelled stream when the engine frees its slot
     stream_cancel_counted: bool = False
+    # tiered prefix store: True once admission stashed this request for a
+    # T2 hydration; it never stashes twice, so a failed or timed-out
+    # hydration falls back to cold compute
+    hydrate_attempted: bool = False
+    # KV handoff: admitted through import_handoff on a decode-role engine
+    # (its KV arrived over the wire; admission skipped prefill)
+    imported: bool = False
 
     @property
     def context_tokens(self) -> list[int]:
@@ -774,6 +816,41 @@ class TorchServingEngine:
                     slow_window_s=windows.slow_window_s,
                     fast_burn=windows.fast_burn,
                 ))
+        # KV handoff (pool roles): exports are finished-prefill payloads
+        # keyed by request id awaiting pickup (bounded: an abandoned
+        # handoff must not pin host memory for good); imports queue here
+        # and land at the loop's safe point, like admission. The bytes in
+        # transit are the memory ledger's ``in-transit`` owner.
+        self._pool_role = config.pool_role
+        self._exports: "OrderedDict[str, dict[str, Any]]" = OrderedDict()
+        self._export_seq = 0
+        self._export_cap = max(8, int(os.environ.get("LS_TPU_KV_EXPORT_CAP", "256") or 256))
+        self._pending_imports: deque = deque()
+        self._kv_in_transit_bytes = 0
+        self.kv_exports_total = 0
+        self.kv_exports_evicted = 0
+        self.kv_imports_total = 0
+        self.kv_import_sheds = 0
+        self.kv_export_bytes = 0
+        self.kv_import_bytes = 0
+        # tiered prefix store: T1 host RAM and T2 object storage under the
+        # T0 prefix cache (paged engines with the cache on, checked above).
+        # Requests waiting on a T2 hydration are stashed off the scheduler,
+        # so they never block the head of the queue.
+        self.prefix_store: PrefixStore | None = None
+        self._prefix_hydrating: list = []  # (request, deadline_m, digests)
+        self.prefix_t0_evictions = 0
+        self.prefix_demote_fetches = 0
+        self.prefix_demote_s = 0.0
+        if (config.prefix_store is not None and config.prefix_store.enabled
+                and self.block_mgr is not None and config.prefix_cache):
+            self.prefix_store = PrefixStore(
+                config.prefix_store, fingerprint=self.kv_fingerprint(),
+                block_bytes=self._kv_block_bytes,
+                rows_per_block=self.paged_layout.block_size,
+            )
+            # pool-pressure evictions bypass demotion: record the loss
+            self.block_mgr.on_prefix_evict = self._note_prefix_pool_evict
 
     # ------------------------------------------------------------------
     # model + cache
@@ -1018,8 +1095,9 @@ class TorchServingEngine:
 
     def _memory_ledger(self) -> dict[str, Any]:
         """Device bytes by owner; the limit is the card's total memory.
-        No KV handoff (ROADMAP.md Queue 1 item 10) and no pool shrink
-        (item 9) in this port: their terms are 0."""
+        ``in-transit`` names the serialized handoff payloads awaiting
+        pickup; no pool shrink in this port (ROADMAP.md Queue 1 item 9):
+        its term is 0."""
         return memory_ledger(
             weights_bytes=self._weights_bytes,
             kv_pool_bytes=self._kv_cache_bytes,
@@ -1030,6 +1108,7 @@ class TorchServingEngine:
             tables_bytes=self._tables_dev_cache.device_bytes(),
             limit_bytes=self._hbm_limit,
             limit_source=self._hbm_limit_source,
+            in_transit_bytes=self._kv_in_transit_bytes,
         )
 
     # ------------------------------------------------------------------
@@ -1248,6 +1327,14 @@ class TorchServingEngine:
                 "paged_attention_multiquery": paged_attention_multiquery_partial.launches,
             },
         }
+        if self._pool_role != "combined":
+            # the KV handoff's counters and in-transit posture (a combined
+            # engine's stats stay as they were)
+            out["kvtransfer"] = self.kv_transfer_section()
+        if self.prefix_store is not None:
+            # per-tier bytes and budgets, hits, demotions, evictions and the
+            # exact byte ledger
+            out["prefixstore"] = self.prefix_store_section()
         if self.block_mgr is not None:
             out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
         if self.config.speculative_drafts > 0:
@@ -1470,8 +1557,14 @@ class TorchServingEngine:
             await self._loop_task
         self._executor.shutdown(wait=True)
         self._fetch_executor.shutdown(wait=True)
+        if self.prefix_store is not None:
+            self.prefix_store.close()
         closed = RuntimeError("serving engine closed")
-        for request in self.scheduler.drain():
+        stashed = [entry[0] for entry in self._prefix_hydrating]
+        imports = [entry[2] for entry in self._pending_imports]
+        self._prefix_hydrating = []
+        self._pending_imports.clear()
+        for request in self.scheduler.drain() + stashed + imports:
             if not request.future.done():
                 request.future.set_exception(closed)
 
@@ -1487,6 +1580,16 @@ class TorchServingEngine:
         self.watchdog.beat(self.scheduler.qsize())
         while not self._stop:
             try:
+                if self.prefix_store is not None:
+                    # tier bookkeeping first: hydrations that landed requeue
+                    # at their class's front, so the admission below sees them
+                    self._prefix_tier_step()
+                if self._pending_imports:
+                    # KV handoff imports land at the safe point, like
+                    # admission: a free slot and a worst-case reservation,
+                    # then the rows scatter in and the request decodes with
+                    # no prefill (queued behind any chunk still in flight)
+                    await self._apply_imports(loop)
                 if not self.scheduler.empty():
                     await self._admit(loop)
                 # a pipelined burst may have left a chunk in flight: applied
@@ -1502,10 +1605,21 @@ class TorchServingEngine:
                     await self._admit(loop)
                     if self._maybe_preempt():
                         await self._admit(loop)
+                if self.prefix_store is not None:
+                    # T0 byte-budget demotion at the same safe point: no
+                    # chunk is in flight (the pending one is applied, the
+                    # burst's deferred releases are done), so the gather
+                    # reads settled rows and a freed block cannot be written
+                    # by a chunk dispatched before it was freed
+                    await self._demote_prefix_blocks(loop)
                 if self._has_prefilling():
                     # one bounded chunk per loop pass: long prefills make
                     # progress without stalling the decode chunks below
                     await self._advance_prefills(loop)
+                if self._pool_role == "prefill":
+                    # a prefill pool exports every slot whose prefill just
+                    # finished and releases it instead of decoding
+                    await self._export_ready_slots(loop)
                 active = [
                     i for i, s in enumerate(self.slots)
                     if not s.free and not s.prefilling
@@ -1513,8 +1627,13 @@ class TorchServingEngine:
                 if not active:
                     if self.scheduler.empty() and not self._has_prefilling():
                         self._wake.clear()
+                        # a stashed hydration resolves on the hydrator
+                        # thread and a T0 cache over budget has demotions
+                        # to run: poll tightly while either is pending
+                        idle_s = (0.02 if self._prefix_hydrating
+                                  or self._prefix_demote_pending() else 1.0)
                         try:
-                            await asyncio.wait_for(self._wake.wait(), timeout=1.0)
+                            await asyncio.wait_for(self._wake.wait(), timeout=idle_s)
                         except asyncio.TimeoutError:
                             pass
                         # the whole gap was idle: a stall sample keeps the
@@ -1557,6 +1676,16 @@ class TorchServingEngine:
                 request.future.set_exception(error)
                 if not request.warmup:
                     self._slo_record("availability", False)
+        # imports not yet landed and hydration stashes fail with the loop's
+        # error too: a stash outliving the failure would strand its future
+        for request in ([entry[2] for entry in self._pending_imports]
+                        + [entry[0] for entry in self._prefix_hydrating]):
+            if not request.future.done():
+                request.future.set_exception(error)
+                if not request.warmup:
+                    self._slo_record("availability", False)
+        self._pending_imports.clear()
+        self._prefix_hydrating = []
         self._pending_emits.clear()
         self._finished_requests.clear()
 
@@ -1627,7 +1756,8 @@ class TorchServingEngine:
         """What a deadline must still cover at admission: the median of the
         last 32 served requests' prefill times (0.0 without history, so a
         fresh engine sheds only spent budgets)."""
-        vals = sorted(t.get("prefill", 0.0) for t in list(self.request_timings)[-32:])
+        vals = sorted(t.get("prefill", 0.0) for t in list(self.request_timings)[-32:]
+                      if not t.get("imported"))
         return vals[len(vals) // 2] if vals else 0.0
 
     def _maybe_preempt(self) -> bool:
@@ -1681,6 +1811,536 @@ class TorchServingEngine:
         request.preempt_time = None
 
     # ------------------------------------------------------------------
+    # tiered prefix store (serving/prefixstore.py)
+    # ------------------------------------------------------------------
+
+    def _note_prefix_pool_evict(self, digest_hex: str, block: int) -> None:
+        """Pool pressure evicted a cached prefix block with no demotion
+        (``BlockManager._evict_one``): the T0 loss is counted and evented,
+        never silent."""
+        self.prefix_t0_evictions += 1
+        self.flight.event("prefix-evict", tier="t0", digest=digest_hex[:16],
+                          bytes=self._kv_block_bytes, reason="pool-pressure")
+
+    def _emit_prefix_events(self) -> None:
+        """Drain the store's pending events into the flight ring (the
+        Prometheus mirror waits for the pod-endpoint plane, ROADMAP.md
+        Queue 1 item 9)."""
+        for kind, detail in self.prefix_store.drain_events():
+            self.flight.event(kind, **detail)
+
+    def _prefix_tier_step(self) -> None:
+        """Tier bookkeeping at the loop's safe point (wait-free): apply the
+        hydrator's results, emit the store's events, and settle the
+        hydration stash. A request whose T2 fetches landed in T1, failed
+        or timed out requeues at the FRONT of its class, so the admission
+        right after finds it; a timeout is a counted cold compute."""
+        store = self.prefix_store
+        store.apply_results()
+        self._emit_prefix_events()
+        if not self._prefix_hydrating:
+            return
+        now = time.monotonic()
+        still_waiting = []
+        # newest first: each settled request requeues at the front, so the
+        # oldest ends at the head and arrival order survives
+        for request, deadline_m, digests in reversed(self._prefix_hydrating):
+            if request.future.cancelled():
+                continue
+            ready = all(store.t1_has(d) for d in digests)
+            pending = any(store.hydrating(d) for d in digests)
+            if not ready and pending and now < deadline_m:
+                still_waiting.append((request, deadline_m, digests))
+                continue
+            # ready, failed or timed out: admission promotes what T1 holds
+            # and prefills the rest
+            hit = sum(1 for d in digests if store.t1_has(d))
+            timed_out = not ready and now >= deadline_m
+            if timed_out:
+                store.hydrate_failures += 1
+            self.flight.event("prefix-hydrate", stage="timeout" if timed_out else "done",
+                              blocks=hit, requested=len(digests))
+            # (the hydrate-done journey edge waits for the journey plane,
+            # ROADMAP.md Queue 1 item 9)
+            self.scheduler.requeue_front(request)
+        still_waiting.reverse()
+        self._prefix_hydrating = still_waiting
+
+    def _prefix_demote_pending(self) -> bool:
+        """The T0 prefix cache is over its byte budget and has demotion
+        candidates (the idle loop polls tightly while it is)."""
+        store = self.prefix_store
+        if store is None or store.spec.t0_bytes is None:
+            return False
+        if self.block_mgr.prefix_block_count() * self._kv_block_bytes <= store.spec.t0_bytes:
+            return False
+        return bool(self.block_mgr.evictable_prefixes(1))
+
+    def _chain_t2_candidates(self, chain: list[bytes]) -> list[str]:
+        """The chain digests an admission should wait for: the consecutive
+        run, from where T0 and T1 coverage ends, of digests the T2 index
+        knows (empty: nothing worth stashing for). Membership tests only."""
+        store = self.prefix_store
+        out: list[str] = []
+        for d in chain:
+            if self.block_mgr.prefix_has(d):
+                continue
+            h = d.hex()
+            if store.t1_has(h):
+                continue
+            if store.t2_has(h) or store.hydrating(h):
+                out.append(h)
+            else:
+                break  # a gap: deeper links are unreachable anyway
+        return out
+
+    async def _promote_prefix(self, loop, request: _Request, chain: list[bytes]) -> int:
+        """Promote the T1 run that extends this prompt's T0 chain into
+        freshly allocated pool blocks (T1 -> T0): take the entries, install
+        cache-owned blocks, and scatter the host rows in on the dispatch
+        thread through :func:`kvtransfer.scatter_slot` (pinned uploads
+        without blocking, then one timed wait for the scatter). The
+        ``match_prefix`` after it sees the longer chain. Returns the blocks
+        promoted (0: nothing to do, or no pool space)."""
+        store = self.prefix_store
+        run: list[tuple[bytes, bytes]] = []  # (digest, parent)
+        prev = b""
+        for d in chain:
+            if self.block_mgr.prefix_has(d):
+                prev = d
+                continue
+            if not store.t1_has(d.hex()):
+                break
+            run.append((d, prev))
+            prev = d
+        if not run:
+            return 0
+        entries = []
+        for d, _parent in run:
+            entry = store.take_t1(d.hex())
+            if entry is None:  # raced with a shrink: the run ends here
+                break
+            entries.append(entry)
+        run = run[: len(entries)]
+        if not entries:
+            return 0
+        blocks = self.block_mgr.install_prefix_chain(run)
+        if blocks is None:
+            # no pool space even after eviction: the entries go back (MRU,
+            # they were just wanted) and the prompt computes cold
+            for (d, parent), entry in zip(run, entries):
+                store.insert_t1(d.hex(), parent.hex() if parent else "",
+                                entry["arrays"], source="t2")
+            return 0
+        rows = len(blocks) * self.paged_layout.block_size
+        # rows pad to the import path's power-of-two bucket and the table
+        # row to the slot's width (pad rows go to the scratch block)
+        padded = _bucket(rows, hi=self.model_config.max_seq_len)
+        table_row = np.zeros(self.paged_layout.max_blocks_per_slot, dtype=np.int32)
+        table_row[: len(blocks)] = blocks
+        # each name's per-block rows in chain order (the scatter uploads them
+        # block by block: demoted blocks are pinned already)
+        arrays = {name: [e["arrays"][name] for e in entries] for name in entries[0]["arrays"]}
+        device_s = await loop.run_in_executor(
+            self._executor, partial(self._run_scatter, arrays, table_row, rows, padded))
+        nbytes = sum(e["nbytes"] for e in entries)
+        store.note_promoted(len(blocks), nbytes, device_ms=device_s * 1e3)
+        self._emit_prefix_events()
+        return len(blocks)
+
+    @torch.no_grad()
+    def _run_scatter(self, arrays, table_row, rows: int, padded: int) -> float:
+        """Dispatch thread: write host rows into the pools through one
+        block-table row (a promotion or an import), then wait for the
+        scatter. Returns its device seconds: the CUDA-event span on the
+        card, the wall of the (synchronous) scatter on the CPU."""
+        start = self._timing_event()
+        t0 = time.monotonic()
+        self.cache_k, self.cache_v = kvtransfer.scatter_slot(
+            self.cache_k, self.cache_v, arrays, table_row, rows, padded)
+        end = self._timing_event()
+        if end is None:
+            return time.monotonic() - t0
+        end.synchronize()
+        return self._span_s(start, end)
+
+    async def _demote_prefix_blocks(self, loop) -> None:
+        """T0 byte-budget enforcement at the loop's safe point: while the
+        prefix cache is over ``t0-bytes``, gather up to four LRU cache-only
+        leaf blocks to host in ONE timed fetch, hand their rows to T1, then
+        free the pool blocks. Bounded per pass, so a storm never starves
+        admission."""
+        store = self.prefix_store
+        budget = store.spec.t0_bytes
+        if budget is None or self._kv_block_bytes <= 0:
+            return
+        over = self.block_mgr.prefix_block_count() * self._kv_block_bytes - budget
+        if over <= 0:
+            return
+        candidates = self.block_mgr.evictable_prefixes(min(4, -(-over // self._kv_block_bytes)))
+        if not candidates:
+            return
+        table_row = np.asarray([b for _, b, _ in candidates], dtype=np.int32)
+        blocks, device_s = await loop.run_in_executor(
+            self._executor, partial(self._run_gather, table_row, None))
+        self.prefix_demote_fetches += 1
+        self.prefix_demote_s += device_s
+        for (digest, _block, parent), rows in zip(candidates, blocks):
+            if self.block_mgr.drop_prefix(digest) is None:
+                continue  # re-referenced while gathering: it stays in T0
+            store.insert_t1(digest.hex(), parent.hex() if parent else "", rows)
+        self._emit_prefix_events()
+
+    @torch.no_grad()
+    def _run_gather(self, table_row, rows: int | None):
+        """Dispatch thread: gather the blocks of one table row and fetch
+        them in one timed device-to-host fetch: their first ``rows`` rows
+        (:func:`kvtransfer.fetch_rows`, an export), or block by block with
+        ``rows=None`` (:func:`kvtransfer.fetch_blocks`, a demotion)."""
+        gathered_k, gathered_v = kvtransfer.gather_slot(
+            self.cache_k, self.cache_v, table_row, len(table_row))
+        if rows is None:
+            return kvtransfer.fetch_blocks(gathered_k, gathered_v, len(table_row))
+        return kvtransfer.fetch_rows(gathered_k, gathered_v, rows)
+
+    def prefix_store_section(self) -> dict[str, Any]:
+        """``stats()["prefixstore"]``: per-tier bytes against budget, hit,
+        demotion and eviction counters and the exact byte ledger (the JAX
+        engine's keys); snapshot reads and arithmetic."""
+        store = self.prefix_store
+        t0_blocks = self.block_mgr.prefix_block_count()
+        return {
+            "t0": {
+                "blocks": t0_blocks,
+                "bytes": t0_blocks * self._kv_block_bytes,
+                "budget_bytes": store.spec.t0_bytes,
+                "hits": self.prefix_hits,
+                "tokens_reused": self.prefix_tokens,
+                "pool_evictions": self.prefix_t0_evictions,
+                # the demotion's device-to-host fetches and their waits
+                "demote_fetches": self.prefix_demote_fetches,
+                "demote_seconds": self.prefix_demote_s,
+            },
+            "hydrating_requests": len(self._prefix_hydrating),
+            **store.stats(),
+        }
+
+    # ------------------------------------------------------------------
+    # KV handoff: prefill and decode pools (serving/kvtransfer.py)
+    # ------------------------------------------------------------------
+
+    def kv_fingerprint(self) -> dict[str, Any]:
+        """The layout facts a KV handoff or a T2 prefix blob must agree on,
+        spelled as the JAX engine spells them (so the packages' payloads
+        and blobs cross); attribute reads only."""
+        mc = self.model_config
+        return {
+            "model": self.config.model,
+            "dtype": _DTYPE_NAMES[mc.dtype],
+            "kv-quantize": self.config.kv_quantize or None,
+            "kv-block-size": self.config.kv_block_size,
+            "layers": mc.layers,
+            "kv-heads": mc.kv_heads,
+            "head-dim": mc.head_dim,
+            "max-seq-len": mc.max_seq_len,
+        }
+
+    def kv_transfer_section(self) -> dict[str, Any]:
+        """``stats()["kvtransfer"]``: transfer counters and the in-transit
+        posture (the cross-replica chainer's keys wait for ``handoff.py``,
+        ROADMAP.md Queue 1 item 9)."""
+        return {
+            "role": self._pool_role,
+            "exports": self.kv_exports_total,
+            "exports_evicted": self.kv_exports_evicted,
+            "imports": self.kv_imports_total,
+            "import_sheds": self.kv_import_sheds,
+            "export_bytes": self.kv_export_bytes,
+            "import_bytes": self.kv_import_bytes,
+            "pending_exports": len(self._exports),
+            "pending_imports": len(self._pending_imports),
+            "in_transit_bytes": self._kv_in_transit_bytes,
+        }
+
+    def take_export_entry(self, request_id: str) -> dict[str, Any] | None:
+        """Pop one export entry (the payload and its stashed coordinates);
+        the payload leaves the in-transit ledger here."""
+        entry = self._exports.pop(request_id, None)
+        if entry is None:
+            return None
+        self._kv_in_transit_bytes -= entry["bytes"]
+        return entry
+
+    def take_export(self, request_id: str) -> bytes | None:
+        """Pop one serialized handoff payload (once: a second take is None)."""
+        entry = self.take_export_entry(request_id)
+        return None if entry is None else entry["payload"]
+
+    async def _export_ready_slots(self, loop) -> None:
+        """Prefill-pool half of the handoff: every slot whose prefill
+        finished (it would join decode on a combined engine) exports its
+        KV rows and request snapshot and releases, so the slot and its
+        reservation serve the next prompt at once. Runs at the loop's safe
+        point."""
+        for slot_id, slot in enumerate(self.slots):
+            request = slot.request
+            if request is None or slot.prefilling or request.imported:
+                continue
+            if request.future.cancelled():
+                # the caller gave up between prefill and export: nothing to
+                # hand off; the tenant's post-debit still happens
+                self._release_slot(slot_id)
+                self.scheduler.on_finished(request)
+                continue
+            if request.future.done():
+                continue
+            await self._export_slot(loop, slot_id, request)
+
+    async def _export_slot(self, loop, slot_id: int, request: _Request) -> None:
+        """Export one finished-prefill slot: gather its pool rows (the one
+        device sync, :func:`kvtransfer.fetch_rows`, timed on the dispatch
+        thread), serialize, stash the payload for pickup, release the slot
+        and resolve the caller's future with the handoff ticket."""
+        t_start = time.monotonic()
+        rows = int(self._lengths[slot_id])
+        blocks_live = self.block_mgr.blocks_needed(max(rows, 1))
+        table_row = self.block_mgr.tables[slot_id, :blocks_live].copy()
+        arrays, device_s = await loop.run_in_executor(
+            self._executor, partial(self._run_gather, table_row, rows))
+        self._export_seq += 1
+        rid = f"{self.config.model}-{self._export_seq:08d}"
+        now = time.monotonic()
+        first = request.first_token_time or now
+        admit = request.admit_time or first
+        timings = {
+            "queue_wait": admit - request.enqueue_time,
+            "prefill": first - admit,
+            "ttft": first - request.enqueue_time,
+        }
+        header = {
+            "fingerprint": self.kv_fingerprint(),
+            "request": rid,
+            # no tracing plane in the port (journeys: ROADMAP.md Queue 1
+            # item 9): the coordinates ride empty
+            "trace": None,
+            "journey": None,
+            "prompt-digest": kvtransfer.prompt_digest(request.prompt_tokens),
+            "prompt-tokens": list(request.prompt_tokens),
+            "generated": list(request.generated),
+            "logprobs": list(request.logprobs),
+            "current-token": int(self._current[slot_id]),
+            "kv-rows": rows,
+            "max-tokens": request.max_tokens,
+            "temperature": request.temperature,
+            "top-k": request.top_k,
+            "top-p": request.top_p,
+            "presence-penalty": request.presence_penalty,
+            "frequency-penalty": request.frequency_penalty,
+            "stop": list(request.stop),
+            "tenant": request.tenant,
+            "priority": request.priority,
+            "deadline": request.deadline,
+            "timings": {k: round(v, 6) for k, v in timings.items()},
+        }
+        payload = kvtransfer.serialize_handoff(header, arrays)
+        # released before stashing: the slot serves the next prompt now;
+        # published prefix blocks stay cached (the cache holds its refs)
+        self._release_slot(slot_id)
+        if not request.warmup:
+            self._exports[rid] = {"payload": payload, "bytes": len(payload),
+                                  "blocks": blocks_live, "m_s": now,
+                                  "deadline": request.deadline}
+            self._kv_in_transit_bytes += len(payload)
+            while len(self._exports) > self._export_cap:
+                # an evicted export is a LOST handoff (its blocks went at
+                # export time): the pickup misses and the caller re-prefills
+                evicted_rid, evicted = self._exports.popitem(last=False)
+                self._kv_in_transit_bytes -= evicted["bytes"]
+                self.kv_exports_evicted += 1
+                self.flight.event("kv-export-dropped", request=evicted_rid,
+                                  bytes=evicted["bytes"],
+                                  age_s=round(now - evicted["m_s"], 3),
+                                  cap=self._export_cap)
+            self.kv_exports_total += 1
+            self.kv_export_bytes += len(payload)
+            self.request_timings.append({**{k: round(v, 6) for k, v in timings.items()},
+                                         "decode": 0.0,
+                                         "tokens": float(len(request.generated)),
+                                         "handoff": 1.0})
+            self._slo_record("availability", True)
+            self._slo_record_latency("ttft", timings["ttft"])
+            self._slo_record_latency("queue-wait", timings["queue_wait"])
+        ms = round((time.monotonic() - t_start) * 1000.0, 3)
+        self.flight.event("kv-export", request=rid, bytes=len(payload),
+                          blocks=blocks_live, rows=rows, ms=ms,
+                          device_ms=round(device_s * 1000.0, 3), warmup=request.warmup)
+        self.scheduler.on_finished(request)
+        self.completed_requests += 1
+        if not request.future.done():
+            request.future.set_result({
+                "handoff": rid,
+                "tokens": list(request.generated),
+                "text": self.tokenizer.decode(request.generated),
+                "logprobs": list(request.logprobs),
+                "num_prompt_tokens": len(request.prompt_tokens),
+                "num_completion_tokens": len(request.generated),
+                "ttft": timings["ttft"],
+                "queue_wait": timings["queue_wait"],
+                "prefill": timings["prefill"],
+                "finish_reason": "handoff",
+            })
+
+    async def import_handoff(self, payload: bytes, header: dict[str, Any] | None = None,
+                             deadline: float | None = None) -> dict[str, Any]:
+        """Decode-pool half of the handoff: admit a request whose KV state
+        arrived over the wire. Blocks allocate through the block manager,
+        the rows scatter back through ``write_rows`` and the request joins
+        decode directly (prefill skipped; its ``request_timings`` entry
+        carries ``imported``). Raises
+        :class:`~langstream_tpu_torch.serving.kvtransfer.LayoutMismatch` on a
+        wire or fingerprint mismatch (a refusal) and :class:`RateLimited`
+        when the pool cannot take it now (retry another decode replica)."""
+        if self._stop:
+            raise RuntimeError("serving engine is stopped (closed)")
+        if self._pool_role == "prefill":
+            raise kvtransfer.LayoutMismatch("prefill-role engine does not accept KV imports")
+        if self.block_mgr is None:
+            raise kvtransfer.LayoutMismatch(
+                "kv-layout=dense engine cannot accept a paged KV handoff")
+        self._event_loop = self._event_loop or asyncio.get_running_loop()
+        header, arrays = kvtransfer.deserialize_handoff(payload, header)
+        kvtransfer.check_fingerprint(self.kv_fingerprint(), header.get("fingerprint") or {})
+        prompt = [int(t) for t in header.get("prompt-tokens") or []]
+        generated = [int(t) for t in header.get("generated") or []]
+        rows = int(header.get("kv-rows") or 0)
+        max_tokens = int(header.get("max-tokens") or 0)
+        if rows < 1 or rows >= self.model_config.max_seq_len:
+            raise kvtransfer.LayoutMismatch(
+                f"handoff kv-rows {rows} outside (0, {self.model_config.max_seq_len})")
+        for name, arr in arrays.items():
+            if arr.shape[0] != self.model_config.layers or arr.shape[1] < rows:
+                raise kvtransfer.LayoutMismatch(
+                    f"handoff array {name!r} shape {tuple(arr.shape)} does not cover "
+                    f"{self.model_config.layers} layers x {rows} rows")
+        if not self.block_mgr.fits_ever(len(prompt) + max_tokens + 1):
+            raise ValueError(
+                f"imported request needs {len(prompt) + max_tokens + 1} tokens of "
+                f"KV, more than this pool can ever hold")
+        loop = asyncio.get_running_loop()
+        wire_deadline = header.get("deadline")
+        request = _Request(
+            prompt_tokens=prompt,
+            max_tokens=max_tokens,
+            temperature=float(header.get("temperature") or 0.0),
+            top_k=int(header.get("top-k") or 0),
+            top_p=float(header.get("top-p") or 1.0),
+            future=loop.create_future(),
+            presence_penalty=float(header.get("presence-penalty") or 0.0),
+            frequency_penalty=float(header.get("frequency-penalty") or 0.0),
+            generated=generated,
+            logprobs=[float(x) for x in header.get("logprobs") or []],
+            enqueue_time=time.monotonic(),
+            stop=_normalize_stop(header.get("stop")),
+            tenant=str(header.get("tenant") or ""),
+            priority=normalize_priority(header.get("priority")),
+            imported=True,
+            # the wire's stamp (the prefill side's original budget) first
+            deadline=(float(wire_deadline) if wire_deadline else
+                      float(deadline) if deadline else None),
+        )
+        if request.deadline is not None and remaining_s(request.deadline) <= 0.0:
+            # expired in transit: refused before any block or device work
+            raise self._note_deadline_shed(request, "kv-import", 0.0)
+        self._pending_imports.append((header, arrays, request, len(payload)))
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.ensure_future(self._run_loop())
+        self._wake.set()
+        return await request.future
+
+    def _shed_import(self, request: _Request, reason: str, detail: str) -> None:
+        """Refuse one pending import explicitly: ``RateLimited`` with a retry
+        hint, so the caller retries another decode replica (never a silent
+        loss)."""
+        self.kv_import_sheds += 1
+        self.flight.event("shed", reason=reason, tenant=request.tenant,
+                          priority=request.priority, retry_after_s=1.0, imported=True)
+        if not request.future.done():
+            request.future.set_exception(RateLimited(reason, 1.0, detail))
+
+    async def _apply_imports(self, loop) -> None:
+        """Admit every queued KV import at the loop's safe point: a free
+        slot and the worst-case block reservation, as admission needs; a
+        refusal is an explicit retryable shed."""
+        while self._pending_imports:
+            header, arrays, request, nbytes = self._pending_imports.popleft()
+            if request.future.done():
+                continue  # the caller gave up while queued
+            if request.deadline is not None:
+                left = remaining_s(request.deadline)
+                if left <= 0.0:
+                    err = self._note_deadline_shed(request, "kv-import", left)
+                    if not request.future.done():
+                        request.future.set_exception(err)
+                    continue
+            free = next((i for i, s in enumerate(self.slots) if s.free), None)
+            total = len(request.prompt_tokens) + request.max_tokens + 1
+            if free is None:
+                self._shed_import(request, "no-free-slot",
+                                  "decode pool has no free slot; retry another replica")
+                continue
+            if not self.block_mgr.can_admit(total):
+                self._shed_import(
+                    request, "kv-import-capacity",
+                    "decode pool cannot reserve the request's worst-case KV "
+                    "blocks; retry another replica")
+                continue
+            rows = int(header["kv-rows"])
+            t_start = time.monotonic()
+            try:
+                self.block_mgr.admit(free, total)
+                self.block_mgr.ensure_capacity(free, rows)
+            except RuntimeError as e:
+                # the allocator refused: a shed, never a request failure
+                self.block_mgr.release(free)
+                self._shed_import(request, "kv-import-capacity",
+                                  f"block allocation failed ({e}); retry another replica")
+                continue
+            table_row = self.block_mgr.tables[free].copy()
+            padded = _bucket(rows, hi=self.model_config.max_seq_len)
+            try:
+                device_s = await loop.run_in_executor(
+                    self._executor,
+                    partial(self._run_scatter, arrays, table_row, rows, padded))
+            except Exception:
+                self.block_mgr.release(free)
+                raise
+            slot = self.slots[free]
+            slot.request = request
+            slot.prefilling = False
+            slot.prefill_done = 0
+            self._lengths[free] = rows
+            self._current[free] = int(header["current-token"])
+            self._temps[free] = request.temperature
+            self._topks[free] = request.top_k
+            self._topps[free] = request.top_p
+            self._pres[free] = request.presence_penalty
+            self._freq[free] = request.frequency_penalty
+            now = time.monotonic()
+            # prefill is skipped: admission is the first-token boundary
+            # (the first token was produced on the prefill pool)
+            request.admit_time = now
+            request.first_token_time = now
+            self.kv_imports_total += 1
+            self.kv_import_bytes += nbytes
+            self.flight.event(
+                "kv-import", request=header.get("request"),
+                digest=header.get("prompt-digest"), bytes=nbytes,
+                blocks=self.block_mgr.blocks_needed(max(rows, 1)), rows=rows,
+                ms=round((time.monotonic() - t_start) * 1000.0, 3),
+                device_ms=round(device_s * 1000.0, 3),
+            )
+
+    # ------------------------------------------------------------------
     # admission + prefill
     # ------------------------------------------------------------------
 
@@ -1730,13 +2390,40 @@ class TorchServingEngine:
                         continue
                 ctx = request.context_tokens
                 total = len(request.prompt_tokens) + request.max_tokens + 1
+                # one chain-digest walk per admission attempt, shared by the
+                # hydration check, the promotion and match_prefix
+                chain = (
+                    self.block_mgr.chain_digests(ctx)
+                    if self.prefix_store is not None and use_prefix
+                    and not request.preemptions else None
+                )
+                if chain is not None and not request.hydrate_attempted:
+                    # the prompt's chain reaches into T2: stash the request
+                    # off the queue while the hydrator pulls the blobs into
+                    # T1; it requeues at its class's front when they land or
+                    # the timeout sends it to cold compute
+                    request.hydrate_attempted = True
+                    missing = self._chain_t2_candidates(chain)
+                    if missing and self.prefix_store.request_hydration(missing):
+                        self.scheduler.pop()
+                        deadline_m = time.monotonic() + self.prefix_store.spec.hydrate_timeout_s
+                        self._prefix_hydrating.append((request, deadline_m, missing))
+                        self.flight.event("prefix-hydrate", stage="begin",
+                                          blocks=len(missing))
+                        continue
                 if self.block_mgr is not None and not self.block_mgr.can_admit(total):
                     # paged backpressure: finishing slots free reservations
                     # (under QoS the loop may preempt a lower-class victim)
                     break
                 blocks, reuse = [], 0
                 if use_prefix and not request.preemptions:
-                    blocks, reuse = self.block_mgr.match_prefix(ctx)
+                    if chain is not None and await self._promote_prefix(loop, request, chain):
+                        # the scatter yielded to the event loop: a request
+                        # submitted meanwhile may head the queue now, and
+                        # this one keeps its promoted blocks for its turn
+                        if self.scheduler.peek() is not request:
+                            continue
+                    blocks, reuse = self.block_mgr.match_prefix(ctx, digests=chain)
                     if reuse and len(ctx) - reuse > cfg.prefix_cache_max_suffix:
                         blocks, reuse = [], 0  # long suffix, small saving
                 to_prefill = len(ctx) - reuse
@@ -2813,6 +3500,10 @@ class TorchServingEngine:
                 "decode": done_t - first,
                 "tokens": float(len(request.generated)),
             }
+            if request.imported:
+                # admitted through import_handoff: prefill was skipped (the
+                # prefill pool's share rode the handoff header)
+                timing["imported"] = 1.0
             if request.stream_tbt is not None and request.stream_tbt.count:
                 summary = request.stream_tbt.summary()
                 timing["tbt_p50"] = summary["p50"]

@@ -39,6 +39,7 @@ from langstream_tpu_torch.ops.paged_attention import (
     paged_attention_split_reference,
     paged_read_splits,
 )
+from langstream_tpu_torch.serving import kvtransfer
 from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
 pytestmark = pytest.mark.skipif(
@@ -586,3 +587,46 @@ def test_qos_preemption_card_matches_cpu():
     assert out["cuda"] == out["cpu"]
     alone, resumed, _, counts = out["cuda"]
     assert resumed == alone and counts == (1, 1)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_kv_transfer_pinned_paths_equal_the_cpu(int8):
+    """The card's gather, fetch (pinned buffers, one event) and scatter
+    (pinned pieces, asynchronous uploads) move the same bytes as the CPU's
+    plain path: an export's rows, a demotion's blocks and a scatter of
+    block lists and of whole arrays."""
+    gen = torch.Generator().manual_seed(4)
+    L, nb, bs, khd, kh = 4, 12, 64, 256, 2
+
+    def pool():
+        if int8:
+            return {"q": torch.randint(-127, 127, (L, nb, bs, khd), dtype=torch.int8,
+                                       generator=gen),
+                    "s": torch.rand((L, nb, bs, kh), generator=gen)}
+        return torch.randn((L, nb, bs, khd), generator=gen).to(torch.bfloat16)
+
+    def to(p, device):  # always a copy: the scatter writes in place
+        if int8:
+            return {k: v.to(device, copy=True) for k, v in p.items()}
+        return p.to(device, copy=True)
+
+    pk, pv, dk, dv = pool(), pool(), pool(), pool()
+    table = np.array([5, 2, 9], dtype=np.int32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        k, v = to(pk, device), to(pv, device)
+        rows, _ = kvtransfer.fetch_rows(*kvtransfer.gather_slot(k, v, table, 3), 150)
+        blocks, _ = kvtransfer.fetch_blocks(*kvtransfer.gather_slot(k, v, table, 3), 3)
+        dst = (to(dk, device), to(dv, device))
+        lists = {name: [b[name] for b in blocks] for name in blocks[0]}
+        dst = kvtransfer.scatter_slot(*dst, lists, np.array([1, 3, 4, 0], np.int32), 170, 256)
+        dst = kvtransfer.scatter_slot(*dst, rows, np.array([6, 7, 8, 0], np.int32), 150, 256)
+        torch.cuda.synchronize()
+        out[device] = (rows, blocks, to(dst[0], "cpu"), to(dst[1], "cpu"))
+    assert kvtransfer.serialize_handoff({}, out["cuda"][0]) == kvtransfer.serialize_handoff(
+        {}, out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert kvtransfer.serialize_handoff({}, a) == kvtransfer.serialize_handoff({}, b)
+    for x, y in zip(out["cuda"][2:], out["cpu"][2:]):
+        for a, b in (zip(x.values(), y.values()) if int8 else [(x, y)]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)

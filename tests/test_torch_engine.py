@@ -199,11 +199,12 @@ def test_engine_needs_the_card_unless_told_cpu():
         ({"model": "moe-tiny", "mesh": {"ep": 2}}, "mesh"),
         ({"kv-quantize": "int8"}, "kv-layout: paged"),
         ({"adapter-store": {"rank": 4}}, "adapter-store"),
-        ({"prefix-store": {"t0-bytes": 0}}, "prefix-store"),
-        ({"pool-role": "prefill"}, "pool-role"),
-        ({"faults": [{"site": "prefill"}]}, "faults"),
-        ({"journal-dir": "j"}, "journal-dir"),
-        ({"incident-dir": "i"}, "incident-dir"),
+        # prefix-store and pool-role are served since the KV-tiers slice
+        # (tests/test_torch_prefixstore.py, test_torch_kvtransfer.py); the
+        # cases after them keep their ids
+        pytest.param({"faults": [{"site": "prefill"}]}, "faults", id="overrides6-faults"),
+        pytest.param({"journal-dir": "j"}, "journal-dir", id="overrides7-journal-dir"),
+        pytest.param({"incident-dir": "i"}, "incident-dir", id="overrides8-incident-dir"),
     ],
 )
 def test_unsupported_settings_raise_naming_the_roadmap(overrides, match):
