@@ -47,7 +47,8 @@ Phases (every one unguarded: any failure exits non-zero):
    a stop string; an ``adapter`` and a spent ``deadline`` refused before
    they queue; then the embeddings service (minilm-l6) on the card against
    the CPU within 1e-4;
-   main path F: the saturated load, 96 greedy requests (30-600 byte tokens,
+   main path F: the saturated load at 16 of llama3-8b's 32 layers
+   (``F_LAYERS``), 96 greedy requests (30-600 byte tokens,
    max-tokens cycling 48/96/128/160) on 64 slots, four times: F1 the chat
    example's resource (dense bf16 KV) with the pipelined loop, F2 the same
    with ``pipeline: false``, F3/F4 paged int8 KV pipelined/sequential; per
@@ -65,8 +66,9 @@ Phases (every one unguarded: any failure exits non-zero):
    FFN's routing/dispatch/activation/combine, flash, paged read); G2 paged int8 KV, a wave
    of 32; per run ms per step, decode tok/s, TTFT, the attribution's
    expected against achieved ms and peak memory;
-   main path H: the admission and delivery planes at llama3-8b, the chat
-   example's resource with paged int8 KV, ``streaming: true``, a ``qos``
+   main path H: the admission and delivery planes at llama3-8b (16 of its
+   32 layers, ``H_LAYERS``), the chat example's resource with paged int8
+   KV, ``streaming: true``, a ``qos``
    section (three classes, a ``bulk`` tenant's request bucket) and an
    ``slo`` section, the pool sized so the batch wave reserves 94% of it:
    48 batch requests (300-600 tokens, 256 generated) decode, 16
@@ -99,6 +101,28 @@ Phases (every one unguarded: any failure exits non-zero):
    a ``pool-role: decode`` engine (bf16 rows through the wire as raw
    words); the decoded greedy tokens must equal the combined engine's;
    payload bytes and export/import ms;
+   main path J: multi-LoRA at llama3-8b int8 on path A's params (run after
+   I, while those params are on the card). J1: the chat example's resource
+   with paged int8 KV (no warmup, the prefix cache off) and an
+   ``adapter-store`` (rank 16, four T0 rows, T1 for four adapters' f32
+   factors, T2 a local temporary directory); six adapters
+   (``make_lora_arrays``, ``scale=0.5``), three installed and three
+   published to T2 only. A load wave of 64 (48 over the six adapters, 16
+   base) and the same prompts on a store-less engine: ms per step, decode
+   tok/s, TTFT by kind (T0 hit, T1 -> T0 load, T2 hydrate, base), peak
+   memory, row-load and hydration times; a profiled decode window at the
+   engine's shapes with ``lora_delta`` in a ``record_function`` range
+   (kernels per step with and without adapters, the deltas' share of busy
+   time). One request at a time, exact greedy tokens: (a) base prompts on
+   the adapter engine equal the store-less engine's, (b) a T2-hydrated
+   adapter equals it installed locally on a fresh engine, (c) an adapter
+   evicted and reloaded into another T0 row gives its tokens, (d) the
+   adapter changes the tokens; an unknown adapter is refused; the adapter
+   ledger balances, no pin is left, the block managers end idle. J2: paged
+   bf16 KV with ``speculative-drafts: 4`` and two adapters over 8
+   repetitive prompts: the verify's (B, T) multi-query calls with the
+   adapter rows of the speculative dispatches, tokens per step, then the
+   same with speculation off and the common prefix (printed);
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -115,8 +139,10 @@ Phases (every one unguarded: any failure exits non-zero):
    interactive one and resumes to its unpreempted tokens; the prefix store
    on paged f32 and int8 KV, where the cold, T1-promoted and T2-hydrated
    streams are one stream on both devices; handoffs whose export is made
-   on the card and import on the CPU, and the reverse, equal to CPU->CPU);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-I),
+   on the card and import on the CPU, and the reverse, equal to CPU->CPU;
+   paged f32 and int8 KV under one adapter, equal on both devices and to
+   a store-less engine whose weights carry the adapter merged offline);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-J),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -128,6 +154,7 @@ tiny HF fixture in the repository; nothing is downloaded.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
 import json
@@ -178,6 +205,29 @@ def ptxas_report(logs: dict) -> list[str]:
                 out.append(f"ptxas [{lib}] {fn}: {line.split(':', 1)[-1].strip()}; {spill}")
                 fn = spill = None
     return out
+
+
+#: depth of paths F and H (of llama3-8b's 32 layers, full width) from PR
+#: 11 on: with path J the whole smoke took 1,141 s of its 1,200 on a slow
+#: host at full depth
+F_LAYERS = 16
+H_LAYERS = 16
+
+
+@contextlib.contextmanager
+def cut_depth(model: str, layers: int):
+    """Engines made inside the block serve ``model`` at ``layers`` layers
+    (full width): the engine takes the model's shape from its name, so the
+    cut goes in through that table while the block runs."""
+    from langstream_tpu_torch.serving import engine as engine_module
+
+    full = engine_module._MODEL_CONFIGS[model]
+    engine_module._MODEL_CONFIGS[model] = lambda **kw: dataclasses.replace(
+        full(**kw), layers=min(full(**kw).layers, layers))
+    try:
+        yield
+    finally:
+        engine_module._MODEL_CONFIGS[model] = full
 
 
 def fail(msg: str) -> None:
@@ -594,7 +644,10 @@ async def serve(engine, prompts, max_tokens):
 
 def device_breakdown(torch, prof, wall_s: float) -> str:
     """Kernel time by group from a torch.profiler capture: the device's busy
-    and idle share of the captured window, and the top kernels."""
+    and idle share of the captured window, and the top kernels. The
+    captures record device activity only: host events would double the
+    events to parse and the breakdown reads none of them."""
+    t_analysis = time.monotonic()
     kern = [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
@@ -628,7 +681,7 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
             groups["other (elementwise, reductions)"] += us
     lines = [f"profile: wall_s={wall_s:.3f} device_span_ms={span / 1e3:.1f} "
              f"device_busy_ms={busy / 1e3:.1f} busy_share_of_span={busy / span:.3f} "
-             f"kernels={len(kern)}"]
+             f"kernels={len(kern)} analysis_s={time.monotonic() - t_analysis:.1f}"]
     for g, us in groups.items():
         lines.append(f"profile group {g}: {us / 1e3:.1f} ms ({us / busy:.3f} of busy)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
@@ -656,8 +709,7 @@ def phase_main_path(torch, label, cfg: dict, params=None, profile=False):
                 from torch.profiler import ProfilerActivity
                 from torch.profiler import profile as torch_profile
 
-                with torch_profile(activities=[ProfilerActivity.CPU,
-                                               ProfilerActivity.CUDA],
+                with torch_profile(activities=[ProfilerActivity.CUDA],
                                    acc_events=True) as prof:
                     _, wall, _ = await serve(engine, prompts, 64)
                 report = device_breakdown(torch, prof, wall)
@@ -948,8 +1000,7 @@ def phase_spec_path(torch, label, cfg: dict, params):
                                          params=params)
     finally:
         os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       acc_events=True) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         _, wall, pstats = serve_wave(prof_engine, prompts, opts)
     print(f"main path [{label}]: profiled wave, speculation held on: "
           f"speculative={pstats['speculative']} "
@@ -2328,6 +2379,535 @@ def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path J: multi-LoRA serving
+# ---------------------------------------------------------------------------
+
+J_RANK = 16
+J_T0_ENTRIES = 4
+J_NAMES = tuple(f"tenant-j{m}" for m in range(1, 7))  # j1-j3 installed, j4-j6 in T2 only
+J_MAX_TOKENS = 64        # the load waves
+J_CHECK_TOKENS = 12      # the one-at-a-time checks
+J2_MAX_TOKENS = 48
+
+
+def j_arrays(mc, name: str) -> dict:
+    """Adapter ``tenant-jm``'s factors: ``make_lora_arrays(..., seed=100 +
+    m, scale=0.5)`` at the model's widths (f32 on the host)."""
+    from langstream_tpu_torch.serving.adapters import make_lora_arrays
+
+    return make_lora_arrays(layers=mc.layers, hidden=mc.hidden, heads=mc.heads,
+                            kv_heads=mc.kv_heads, head_dim=mc.head_dim, rank=J_RANK,
+                            seed=100 + int(name[len("tenant-j"):]), scale=0.5)
+
+
+def j_prompts() -> list[str]:
+    """64 distinct prompts of 200-600 byte tokens."""
+    filler = ("Customer ticket: the upload of a large archive stalls at ninety "
+              "percent and the client retries forever; logs show timeouts. ") * 8
+    return [f"Request {i:02d}. " + filler[: 200 + (i * 53) % 401] for i in range(64)]
+
+
+def j_mix(n: int = 64) -> list[str]:
+    """The load wave's adapters: every fourth request base, the other 48
+    cycling over the six adapters (8 each)."""
+    out, k = [], 0
+    for i in range(n):
+        if i % 4 == 3:
+            out.append("")
+        else:
+            out.append(J_NAMES[k % len(J_NAMES)])
+            k += 1
+    return out
+
+
+class _LoraRanges:
+    """While active, ``lora_delta`` runs inside a ``record_function`` range
+    (``lora:delta``), so a profiler attributes its kernels."""
+
+    def __init__(self, torch):
+        from langstream_tpu_torch.models import llama
+
+        self.torch, self.llama, self.real = torch, llama, llama.lora_delta
+
+    def __enter__(self):
+        record, real = self.torch.profiler.record_function, self.real
+
+        def ranged(*args):
+            with record("lora:delta"):
+                return real(*args)
+
+        self.llama.lora_delta = ranged
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.lora_delta = self.real
+
+
+def lora_decode_profile(torch, engine, ids, steps: int = 2) -> str:
+    """A profiled window of the engine's decode program at its shapes (all
+    slots active at 400 history rows, read through scratch tables, the
+    commit to the scratch block): ``steps`` fused steps with the engine's
+    adapters at ``ids``, then the same without adapters. Prints the
+    kernels per step of each, the ``lora_delta`` kernels and their device
+    time, and the deltas' share of the adapter step's busy time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from langstream_tpu_torch.models.llama_paged import llama_decode_chunk_paged
+
+    B, dev = engine.config.slots, engine.device
+    mc = engine.model_config
+    tokens0 = torch.full((B,), 65, dtype=torch.int64, device=dev)
+    lengths = torch.full((B,), 400, dtype=torch.int32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    tables = torch.zeros((B, engine.paged_layout.max_blocks_per_slot), dtype=torch.int32,
+                         device=dev)
+    nrb = engine._read_blocks_for(400 + steps)
+    sample_fn = engine._sample_fn(torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32,
+                                  device=dev), torch.ones(B, device=dev), (False, False, True))
+    adapters = engine._adapters_device(np.asarray(ids, dtype=np.int32))
+    record = torch.profiler.record_function
+    cuda_dev = dev.type == "cuda"  # the CPU rehearsal has no kernels to count
+    sync = torch.cuda.synchronize if cuda_dev else (lambda: None)
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda_dev else [])
+
+    def chunk(ad):
+        return llama_decode_chunk_paged(mc, engine.params, tokens0, lengths, active,
+                                        engine.cache_k, engine.cache_v, tables, sample_fn,
+                                        steps, num_read_blocks=nrb, return_packed=True,
+                                        adapters=ad)
+
+    with torch.no_grad():
+        chunk(adapters), chunk(None)  # settle the allocator
+        sync()
+        with _LoraRanges(torch), torch_profile(activities=activities) as prof:
+            for name, ad in (("lora:with", adapters), ("lora:without", None)):
+                with record(name):
+                    chunk(ad)
+                sync()
+    t0 = time.monotonic()
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def subtree_kernels(e):
+        yield from e.kernels
+        for ch in e.cpu_children:
+            yield from subtree_kernels(ch)
+
+    def collect(name):
+        ks = [k for e in prof.events() if e.device_type != cuda and e.name == name
+              for k in subtree_kernels(e)]
+        return len(ks), sum(k.duration for k in ks)
+
+    with_n, with_us = collect("lora:with")
+    without_n, without_us = collect("lora:without")
+    lora_n, lora_us = collect("lora:delta")
+    return (f"lora decode profile (B={B}, {steps} steps, 400 rows, adapter rows "
+            f"{sorted(set(int(i) for i in ids))}): kernels per step with adapters "
+            f"{with_n / steps:.0f} (busy {with_us / steps / 1e3:.3f} ms), without "
+            f"{without_n / steps:.0f} (busy {without_us / steps / 1e3:.3f} ms); lora_delta "
+            f"{lora_n / steps:.0f} kernels per step, {lora_us / steps / 1e3:.3f} ms busy, "
+            f"{lora_us / with_us if with_us else float('nan'):.4f} of the adapter step's busy "
+            f"time; per K=32 chunk {32 * with_n / steps:.0f} launches with adapters, "
+            f"{32 * without_n / steps:.0f} without; analysis_s={time.monotonic() - t0:.1f}")
+
+
+def phase_lora_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                    device="cuda") -> dict:
+    """Path J1: mixed-adapter traffic and the adapter tiers at Llama-3-8B
+    int8 on path A's params. The chat example's resource with paged int8 KV
+    (the prefix cache off, so every comparison below runs one path) and an
+    ``adapter-store`` of rank 16, four T0 rows, T1 for four adapters' f32
+    factors and a local T2 directory; six adapters, three installed locally
+    and three published to T2 alone (as another replica would).
+
+    A load wave of 64 (200-600 tokens, 64 generated, greedy): 48 requests
+    over the six adapters, 16 base; then the same 64 prompts on a
+    store-less engine. Per wave ms per step, decode tok/s, TTFT by kind
+    (the adapter's tier when the request first resolved: T0 hit, T1 -> T0
+    load, T2 hydrate; base), peak memory; row loads and hydrations from the
+    flight events; a profiled decode window with ``lora_delta`` in a
+    range. Soft: printed only.
+
+    Hard, one request at a time (so batches are equal between the runs
+    compared): (a) 8 base prompts on the adapter engine equal the
+    store-less engine's tokens; (b) 4 prompts under a T2-hydrated adapter
+    equal the same adapter installed locally on a fresh engine; (c) an
+    adapter evicted and reloaded into another T0 row gives its earlier
+    tokens; (d) the adapter changes the tokens of at least one of the 8
+    prompts. An unknown adapter is refused with ``AdapterUnavailable``; the
+    adapter ledger balances, no pin is left, the block managers end idle."""
+    import tempfile
+
+    from langstream_tpu_torch.serving.adapters import AdapterUnavailable, publish_adapter
+    from langstream_tpu_torch.serving.engine import (
+        _MODEL_CONFIGS,
+        ServingConfig,
+        TorchServingEngine,
+    )
+
+    label = "J1 adapters"
+    # no warmup (as path I2): paths A-I ran the kernels and grew the
+    # allocator already, and every engine here serves the same shapes
+    base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
+    base.update({"kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False})
+    t2 = {"type": "local", "path": tempfile.mkdtemp(prefix="ls-adapter-t2-")}
+    prompts = j_prompts()
+    checks = prompts[:8]
+    opts = {"max-tokens": J_MAX_TOKENS, "temperature": 0}
+    copts = {"max-tokens": J_CHECK_TOKENS, "temperature": 0}
+
+    def make(store: bool):
+        cfg = dict(base)
+        if store:
+            cfg["adapter-store"] = store_cfg
+        return TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+    store_cfg = {"rank": J_RANK, "t0-entries": J_T0_ENTRIES, "t2": t2, "t2-rescan-s": 0.2,
+                 "hydrate-timeout-s": 60.0}
+    reset_counts()
+    t_start = time.monotonic()
+    mc = _MODEL_CONFIGS[base["model"]](max_seq_len=int(base["max-seq-len"]))
+    arrays = {n: j_arrays(mc, n) for n in J_NAMES}
+    per_f32 = int(sum(a.nbytes for a in arrays[J_NAMES[0]].values()))
+    store_cfg["t1-bytes"] = 4 * per_f32
+    eng = make(True)
+    st0 = eng.adapter_store
+    # one T0 row holds the factors in the model dtype (bf16: half the f32 bytes)
+    width = torch.empty((), dtype=eng.model_config.dtype).element_size()
+    if st0.entry_bytes != per_f32 // 4 * width or st0.entry_bytes * (J_T0_ENTRIES + 1) != sum(
+            t.numel() * t.element_size() for t in eng._ad_layers.values()):
+        fail(f"{label}: entry bytes {st0.entry_bytes} against f32 {per_f32}")
+    for n in J_NAMES[:3]:
+        eng.install_adapter(n, arrays[n])
+    for n in J_NAMES[3:]:
+        publish_adapter(t2, n, arrays[n], eng.adapter_fingerprint())
+    kinds: dict = {}
+    real_resolve = eng._resolve_adapter
+
+    async def resolve(loop, request):
+        store = eng.adapter_store
+        key = tuple(request.prompt_tokens[:12])
+        if key not in kinds:
+            kinds[key] = ("t0-hit" if request.adapter in store.t0_resident() else
+                          "t1-load" if store.t1_has(request.adapter) else "t2-hydrate")
+        return await real_resolve(loop, request)
+
+    eng._resolve_adapter = resolve
+    out: dict = {}
+
+    async def one(engine, prompt, adapter=""):
+        r = await engine.generate(prompt, {**copts, **({"adapter": adapter} if adapter else {})})
+        if not r["tokens"] or not all(math.isfinite(x) for x in r["logprobs"]):
+            fail(f"{label}: empty or non-finite result")
+        return r["tokens"]
+
+    async def wave(engine, name, adapters):
+        torch.cuda.reset_peak_memory_stats() if device == "cuda" else None
+        before = engine.stats()
+        t = time.monotonic()
+        results = await asyncio.gather(*(
+            engine.generate(p, {**opts, **({"adapter": a} if a else {})})
+            for p, a in zip(prompts, adapters)))
+        wall = time.monotonic() - t
+        await engine.settled()
+        for i, r in enumerate(results):
+            if not 0 < len(r["tokens"]) <= J_MAX_TOKENS or not all(
+                    math.isfinite(x) for x in r["logprobs"]):
+                fail(f"{label}: {name} request {i} returned {len(r['tokens'])} tokens")
+        print(_wave_line(f"J1 {name}", before, engine.stats(), results, wall,
+                         _peak_gb(torch, device)), flush=True)
+        return results
+
+    async def run_adapter_engine():
+        try:
+            ads = eng.adapter_store
+            for _ in range(600):  # the hydrator's rescan finds the published blobs
+                ads.apply_results()
+                if all(ads.known(n) for n in J_NAMES):
+                    break
+                await asyncio.sleep(0.05)
+            if not all(ads.known(n) for n in J_NAMES):
+                fail(f"{label}: adapters unknown to the store: {ads.stats()}")
+            mix = j_mix(len(prompts))
+            results = await wave(eng, "load wave, 48 adapter + 16 base requests", mix)
+            by_kind: dict = {}
+            for p, a, r in zip(prompts, mix, results):
+                key = tuple(eng.tokenizer.encode(p)[:12])
+                by_kind.setdefault(kinds.get(key, "base") if a else "base", []).append(r["ttft"])
+            out["ttft_by_kind"] = {k: (len(v), round(sorted(v)[len(v) // 2], 4),
+                                       round(max(v), 4)) for k, v in sorted(by_kind.items())}
+            out["wave_events"] = _events_since(eng, 0, "adapter-load", "adapter-hydrate",
+                                               "adapter-evict", "adapter-demote")
+            store = eng.adapter_store
+            rows = [store.t0_resident()[n] for n in sorted(store.t0_resident())]
+            ids = [0 if i % 4 == 3 else rows[i % len(rows)] for i in range(eng.config.slots)]
+            out["profile"] = lora_decode_profile(torch, eng, ids)
+            # (a) and (d): 8 prompts base, then under tenant-j1
+            out["a_adapter_engine"] = [await one(eng, p) for p in checks]
+            out["d_adapter"] = [await one(eng, p, J_NAMES[0]) for p in checks]
+            # (c): evict j1, then reload it into another row
+            store = eng.adapter_store
+            row_before = store.t0_resident()[J_NAMES[0]]
+            others = [n for n in J_NAMES if n != J_NAMES[0]]
+            for step in range(24):
+                resident = store.t0_resident()
+                nxt = (store._rows_free[-1] if store._rows_free
+                       else next(iter(store._t0.values())))
+                if J_NAMES[0] not in resident and nxt != row_before:
+                    break
+                await eng.generate(checks[0], {"max-tokens": 1, "adapter": others[step % 5]})
+            else:
+                fail(f"{label}: could not evict {J_NAMES[0]} to another row")
+            out["c_reload"] = [await one(eng, p, J_NAMES[0]) for p in checks[:2]]
+            out["c_rows"] = (row_before, store.t0_resident()[J_NAMES[0]])
+            # (b): a T2-hydrated adapter (j4, hydrated in the load wave)
+            out["b_hydrated"] = [await one(eng, p, J_NAMES[3]) for p in checks[:4]]
+            try:
+                await eng.generate(checks[0], {**copts, "adapter": "tenant-unknown"})
+                fail(f"{label}: an unknown adapter was served")
+            except AdapterUnavailable as e:
+                out["unknown"] = str(e)
+            out["stats_ad"] = eng.stats()
+            out["load_events"] = _events_since(eng, 0, "adapter-load")
+            out["hydrate_events"] = _events_since(eng, 0, "adapter-hydrate")
+        finally:
+            await eng.close()
+
+    asyncio.run(run_adapter_engine())
+    st_ad = out["stats_ad"]
+    bm = eng.block_mgr.stats()
+    if bm["reserved_blocks"] or bm["live_blocks"]:
+        fail(f"{label}: the adapter engine's block manager is not idle: {bm}")
+    del eng
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    plain = make(False)
+
+    async def run_plain():
+        try:
+            await wave(plain, "the same 64 prompts on a store-less engine", [""] * len(prompts))
+            out["a_plain"] = [await one(plain, p) for p in checks]
+            out["stats_plain"] = plain.stats()
+        finally:
+            await plain.close()
+
+    asyncio.run(run_plain())
+    del plain
+    gc.collect()
+    local = make(True)  # fresh, same T2 directory: j4 installed locally
+
+    async def run_local():
+        try:
+            local.install_adapter(J_NAMES[3], arrays[J_NAMES[3]])
+            out["b_local"] = [await one(local, p, J_NAMES[3]) for p in checks[:4]]
+            out["stats_local"] = local.stats()
+        finally:
+            await local.close()
+
+    asyncio.run(run_local())
+    wall = time.monotonic() - t_start
+    counts = read_counts()
+    del local
+    gc.collect()
+
+    if out["a_adapter_engine"] != out["a_plain"]:
+        fail(f"{label} (a): base prompts on the adapter engine differ from the store-less "
+             f"engine:\n{out['a_adapter_engine']}\n{out['a_plain']}")
+    if out["b_hydrated"] != out["b_local"]:
+        fail(f"{label} (b): T2-hydrated tokens differ from the locally installed "
+             f"adapter's:\n{out['b_hydrated']}\n{out['b_local']}")
+    if out["c_rows"][0] == out["c_rows"][1] or out["c_reload"] != out["d_adapter"][:2]:
+        fail(f"{label} (c): reload into row {out['c_rows']} gave {out['c_reload']} against "
+             f"{out['d_adapter'][:2]}")
+    differ = sum(a != b for a, b in zip(out["d_adapter"], out["a_adapter_engine"]))
+    if differ == 0:
+        fail(f"{label} (d): the adapter changed none of the 8 prompts' tokens")
+    ads = st_ad["adapters"]
+    ledger = ads["ledger"]
+    if (ledger["t1_bytes"] + ledger["in_transit_bytes"] + ledger["t2_bytes"]
+            != ledger["inserted_bytes"] + ledger["discovered_bytes"] - ledger["evicted_bytes"]):
+        fail(f"{label}: the adapter ledger does not balance: {ledger}")
+    if ads["t0"]["pinned"] or out["stats_local"]["adapters"]["t0"]["pinned"]:
+        fail(f"{label}: pins left at the end: {ads['t0']['pinned']}")
+    if ads["refusals"] != 1 or ads["hydrations"] == 0 or ads["t0"]["evictions"] == 0:
+        fail(f"{label}: refusals {ads['refusals']}, hydrations {ads['hydrations']}, "
+             f"T0 evictions {ads['t0']['evictions']}")
+    for name in ("stats_ad", "stats_plain", "stats_local"):
+        if out[name]["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
+            fail(f"{label}: {name} host_fetches_per_chunk "
+                 f"{out[name]['decode-chunks']['host_fetches_per_chunk']}")
+    if device == "cuda" and (counts["flash_attention"] == 0 or counts["paged_attention_q8"] == 0):
+        fail(f"{label}: flash and the int8 read must launch: {counts}")
+    loads = [e for e in out["load_events"]]
+    load_ms = sorted(e["device_ms"] for e in loads)
+    fetched = [e for e in out["hydrate_events"] if e.get("stage") == "fetched"]
+    opened, waits = {}, []  # each fetch against the first stash that asked for it
+    for e in out["hydrate_events"]:
+        if e.get("stage") == "begin":
+            opened.setdefault(e["adapter"], e["m_s"])
+        elif e.get("stage") == "fetched" and e["adapter"] in opened:
+            waits.append(round((e["m_s"] - opened.pop(e["adapter"])) * 1e3, 3))
+    entry = ads["entry_bytes"]
+    print(f"path [{label}]: wall_s={wall:.3f} entry_bytes={entry} (bf16 rows) "
+          f"f32_bytes_per_adapter={per_f32} t0_rows={J_T0_ENTRIES}+1 "
+          f"ttft_s by kind (n, p50, max): {out['ttft_by_kind']}", flush=True)
+    print(f"path [{label}]: row loads n={len(loads)} device_ms min={load_ms[0] if load_ms else 0} "
+          f"median={load_ms[len(load_ms) // 2] if load_ms else 0} max={load_ms[-1] if load_ms else 0} "
+          f"({entry / (load_ms[len(load_ms) // 2] / 1e3) / 1e9 if load_ms else 0:.3f} GB/s of "
+          f"bf16 rows at the median, from f32 host factors); T2 fetches {len(fetched)} x "
+          f"{fetched[0]['bytes'] if fetched else 0} bytes, ms from the first stash to the "
+          f"fetch {sorted(waits)}", flush=True)
+    if out.get("profile"):
+        print(f"path [{label}]: {out['profile']}", flush=True)
+    print(f"path [{label}]: checks (a) 8 base prompts equal the store-less engine's; (b) "
+          f"{J_NAMES[3]} hydrated from T2 equals it installed locally (4 prompts); (c) "
+          f"{J_NAMES[0]} reloaded from row {out['c_rows'][0]} into row {out['c_rows'][1]} "
+          f"gives its tokens; (d) the adapter changed {differ}/8 prompts' tokens; unknown "
+          f"adapter refused ({out['unknown']!r}); launches={counts}", flush=True)
+    print(f"path [{label}]: stats()['adapters'] {json.dumps(ads, sort_keys=True)}", flush=True)
+    return counts
+
+
+def phase_lora_spec_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                         device="cuda") -> dict:
+    """Path J2: adapters through speculation. Paged bf16 KV with
+    ``speculative-drafts: 4`` (held on: no calibration chunk), the prefix
+    cache off, two locally installed adapters over 8 repetitive greedy
+    prompts: the verify's (B, T) multi-query calls, the adapter rows of the
+    speculative dispatches and tokens per step; then the same requests
+    with speculation off and the common prefix of their tokens (bf16
+    near-ties may flip between the verify and decode shapes: printed, not
+    required)."""
+    from langstream_tpu_torch.models import llama_paged
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    label = "J2 adapters x speculation"
+    base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
+    base.update({"kv-layout": "paged", "prefix-cache": False, "speculative-drafts": 4,
+                 "adapter-store": {"rank": J_RANK, "t0-entries": J_T0_ENTRIES}})
+    greedy = [p for p, o in zip(*spec_prompts()) if o["temperature"] == 0]
+    prompts = greedy + ["Repeat exactly: " + "alpha beta gamma delta. " * 12,
+                        "Repeat exactly: " + "0, 1, 1, 2, 3, 5, 8, 13, " * 10]
+    adapters = [J_NAMES[i % 2] for i in range(len(prompts))]
+    opts = {"max-tokens": J2_MAX_TOKENS, "temperature": 0}
+
+    def run(spec: bool):
+        cfg = {**base, "speculative-drafts": 4 if spec else 0}
+        os.environ["LS_TPU_SPEC_CALIBRATE_EVERY"] = str(10**9)
+        try:
+            engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
+                                        params=params)
+        finally:
+            os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY")
+        mc = engine.model_config
+        for n in J_NAMES[:2]:
+            engine.install_adapter(n, j_arrays(mc, n))
+        rows_seen = []
+        real_step = engine._run_spec_step
+
+        def spec_step(*args):
+            rows_seen.append(args[-1])
+            return real_step(*args)
+
+        engine._run_spec_step = spec_step
+
+        async def main():
+            try:
+                t = time.monotonic()
+                results = await asyncio.gather(*(
+                    engine.generate(p, {**opts, "adapter": a}) for p, a in zip(prompts, adapters)))
+                return results, time.monotonic() - t, engine.stats()
+            finally:
+                await engine.close()
+
+        results, wall, stats = asyncio.run(main())
+        bm = engine.block_mgr.stats()
+        if bm["reserved_blocks"] or bm["live_blocks"] or stats["adapters"]["t0"]["pinned"]:
+            fail(f"{label}: engine not idle after the wave: {bm} {stats['adapters']['t0']}")
+        for i, r in enumerate(results):
+            if not r["tokens"] or not all(math.isfinite(x) for x in r["logprobs"]):
+                fail(f"{label}: request {i} returned no finite tokens")
+        return results, wall, stats, rows_seen, mc.layers
+
+    real_mq, mq_calls = llama_paged.paged_attention_multiquery_partial, []
+
+    def recording_mq(q, *args, **kw):
+        mq_calls.append((q.shape[0], q.shape[1]))
+        return real_mq(q, *args, **kw)
+
+    reset_counts()
+    t0 = time.monotonic()
+    llama_paged.paged_attention_multiquery_partial = recording_mq
+    try:
+        spec, wall, stats, rows_seen, layers = run(True)
+    finally:
+        llama_paged.paged_attention_multiquery_partial = real_mq
+    plain, plain_wall, plain_stats, _, _ = run(False)
+    counts = read_counts()
+    sp, dc = stats["speculative"], stats["decode-chunks"]
+    shapes = sorted({bt: mq_calls.count(bt) // layers for bt in set(mq_calls)}.items())
+    row_ids = sorted({int(r) for rows in rows_seen if rows is not None for r in rows if r})
+    n_tokens = sum(len(r["tokens"]) for r in spec)
+    steps = sp["steps"] + dc["steps"]
+    same = total = 0
+    for a, b in zip(spec, plain):
+        n = min(len(a["tokens"]), len(b["tokens"]))
+        same += next((i for i in range(n) if a["tokens"][i] != b["tokens"][i]), n)
+        total += max(len(a["tokens"]), len(b["tokens"]))
+    print(f"path [{label}]: wall_s={time.monotonic() - t0:.3f} wave_s={wall:.3f} "
+          f"requests={len(prompts)} tokens={n_tokens} speculative={sp} "
+          f"tokens_per_step={(n_tokens - len(prompts)) / steps if steps else 0.0:.3f} "
+          f"multiquery_calls_per_step (B, T): count={shapes} adapter rows in the "
+          f"speculative dispatches {row_ids}; speculation off: wave_s={plain_wall:.3f} "
+          f"decode_steps={plain_stats['decode-chunks']['steps']}; common prefix "
+          f"{same}/{total} tokens ({same / total:.3f}); launches={counts}", flush=True)
+    if sp["steps"] == 0 or not any(t == 5 for _, t in mq_calls):
+        fail(f"{label}: no verify at T=5 ran: {sp} {shapes}")
+    if len(row_ids) < 2:
+        fail(f"{label}: the speculative dispatches carried adapter rows {row_ids}")
+    if device == "cuda" and (counts["paged_attention_multiquery"] == 0
+                             or counts["paged_attention"] == 0
+                             or counts["flash_attention"] == 0):
+        fail(f"{label}: the multi-query read, the bf16 read and flash must launch: {counts}")
+    return counts
+
+
+def adapter_round_trip(torch, cfg: dict, device: str, params) -> tuple:
+    """Phase 5's adapter case on one device: greedy tokens of two prompts
+    under one adapter (rank 4, ``scale=0.5``), and of a store-less engine
+    whose weights carry the adapter merged offline."""
+    from langstream_tpu_torch.serving.adapters import make_lora_arrays, merge_adapter_into_params
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    arrays = make_lora_arrays(layers=2, hidden=64, heads=4, kv_heads=2, head_dim=16, rank=4,
+                              seed=41, scale=0.5)
+    prompts = [list(range(1, 80)), "paged cache equivalence under an adapter"]
+    opts = {"max-tokens": 12, "temperature": 0}
+
+    async def serve(engine, adapter):
+        try:
+            out = []
+            for p in prompts:
+                out.append((await engine.generate(
+                    p, {**opts, **({"adapter": adapter} if adapter else {})}))["tokens"])
+            return out
+        finally:
+            await engine.close()
+
+    eng = TorchServingEngine(ServingConfig.from_dict(
+        {**cfg, "adapter-store": {"rank": 4, "t0-entries": 2}}), device=device, params=params)
+    eng.install_adapter("tenant-a", arrays)
+    adapted = asyncio.run(serve(eng, "tenant-a"))
+    merged = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
+                                params=merge_adapter_into_params(params, arrays))
+    base = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+    return adapted, asyncio.run(serve(merged, "")), asyncio.run(serve(base, ""))
+
+
 def tier_round_trip(torch, cfg: dict, device: str, params) -> list:
     """Phase 5's tier layout on one device: a request cold, the same again
     after its blocks demoted to T2 (promotion), and on a fresh engine over
@@ -2570,6 +3150,17 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
               f"CPU", flush=True)
     for layout in ({}, {"kv-quantize": "int8"}):
         cfg = {**tiny, **layout, "prefix-cache": False}
+        out = {name: adapter_round_trip(torch, cfg, device, params["tiny"])
+               for name, device in zip(("cuda", "cpu"), devices)}
+        adapted, merged, base = out["cuda"]
+        if out["cuda"][:2] != out["cpu"][:2] or adapted != merged or adapted == base:
+            fail(f"card vs CPU adapter {layout}: adapted, offline-merged and base streams "
+                 f"(card, cpu):\n{out}")
+        print(f"card vs CPU [adapter, paged {layout.get('kv-quantize') or 'f32'} KV]: greedy "
+              f"streams under one adapter identical on the card and the CPU and equal to "
+              f"the offline-merged weights'; base differs", flush=True)
+    for layout in ({}, {"kv-quantize": "int8"}):
+        cfg = {**tiny, **layout, "prefix-cache": False}
         ref = handoff_across(torch, cfg, devices[1], devices[1], params["tiny"])
         out = {f"{a}->{b}": handoff_across(torch, cfg, da, db, params["tiny"])
                for (a, da), (b, db) in ((("card", devices[0]), ("cpu", devices[1])),
@@ -2696,6 +3287,15 @@ def main() -> int:
     i2_counts = phase_handoff_path(torch, params)
     i_counts = {k: i1_counts[k] + i2_counts[k] for k in i1_counts}
     print(f"path I: {time.monotonic() - t_i:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_j = time.monotonic()
+    j1_counts = phase_lora_path(torch, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    j2_counts = phase_lora_spec_path(torch, params)
+    j_counts = {k: j1_counts[k] + j2_counts[k] for k in j1_counts}
+    print(f"path J: {time.monotonic() - t_j:.1f} s", flush=True)
     del params  # path E makes its own weights: two 8B sets never share the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -2704,7 +3304,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_f = time.monotonic()
-    f_counts = phase_saturated(torch, base)
+    with cut_depth(base["model"], F_LAYERS):
+        f_counts = phase_saturated(torch, base)
     gc.collect()
     torch.cuda.empty_cache()
     t_g = time.monotonic()
@@ -2712,7 +3313,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_h = time.monotonic()
-    h_counts = phase_qos_path(torch)
+    with cut_depth(CHAT_EXAMPLE_RESOURCE["configuration"]["model"], H_LAYERS):
+        h_counts = phase_qos_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
           f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
           f"{time.monotonic() - t_h:.1f} s)", flush=True)
@@ -2725,8 +3327,9 @@ def main() -> int:
     # -- phase 6: kernels line, then the device line ------------------------
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
-             "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts}
-    meta = {  # launches: summed over the nine main paths
+             "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
+             "J": j_counts}
+    meta = {  # launches: summed over the ten main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -186,13 +186,66 @@ def _default_ffn(h, lp, valid=None):
     return _swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
-def _qkv(c: LlamaConfig, h: torch.Tensor, lp: dict):
-    """Projections reshaped to (..., heads|kv_heads, head_dim)."""
+def _qkv(c: LlamaConfig, h: torch.Tensor, lp: dict, ad=None):
+    """Projections reshaped to (..., heads|kv_heads, head_dim). ``ad`` is
+    one layer's ``(ids, factors)`` from :func:`adapter_layer`: each
+    projection then gains its per-slot :func:`lora_delta` before the
+    reshape, as in the JAX package."""
     lead = h.shape[:-1]
-    q = (h @ _w(lp["wq"])).reshape(*lead, c.heads, c.head_dim)
-    k = (h @ _w(lp["wk"])).reshape(*lead, c.kv_heads, c.head_dim)
-    v = (h @ _w(lp["wv"])).reshape(*lead, c.kv_heads, c.head_dim)
-    return q, k, v
+    q = h @ _w(lp["wq"])
+    k = h @ _w(lp["wk"])
+    v = h @ _w(lp["wv"])
+    if ad is not None:
+        ids, al = ad
+        q = q + lora_delta(h, ids, al["wq_a"], al["wq_b"])
+        k = k + lora_delta(h, ids, al["wk_a"], al["wk_b"])
+        v = v + lora_delta(h, ids, al["wv_a"], al["wv_b"])
+    return (q.reshape(*lead, c.heads, c.head_dim),
+            k.reshape(*lead, c.kv_heads, c.head_dim),
+            v.reshape(*lead, c.kv_heads, c.head_dim))
+
+
+def _out_proj(out: torch.Tensor, lp: dict, ad=None) -> torch.Tensor:
+    """The attention output projection ``out @ wo``, plus the per-slot
+    ``wo`` delta when ``ad`` is given (added before the residual, as in the
+    JAX package)."""
+    attn = out @ _w(lp["wo"])
+    if ad is not None:
+        ids, al = ad
+        attn = attn + lora_delta(out, ids, al["wo_a"], al["wo_b"])
+    return attn
+
+
+# ---------------------------------------------------------------------------
+# batched ragged LoRA (Punica/S-LoRA-style adapter gather)
+# ---------------------------------------------------------------------------
+
+
+def lora_delta(h: torch.Tensor, ids: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """Per-slot low-rank delta ``h @ A[id] @ B[id]`` for one projection.
+
+    ``a``/``b`` are one layer's slices of the stacked adapter buffers,
+    ``(n_rows, d_in, rank)`` / ``(n_rows, rank, d_out)``, and ``ids`` is
+    the per-row ``(B,)`` row index; ``h`` is ``(B, d_in)`` or ``(B, P,
+    d_in)``. Row 0 is all zeros, so adapter-less rows get an exact zero
+    and a batch of mixed adapters is one gather and two batched products
+    (the rows are data, not structure). The LoRA alpha/rank scale is
+    folded into B at publish time (``serving/adapters.py``)."""
+    a_sel = a.index_select(0, ids)  # (B, d_in, rank)
+    b_sel = b.index_select(0, ids)  # (B, rank, d_out)
+    if h.dim() == 2:
+        return torch.bmm(torch.bmm(h[:, None, :], a_sel), b_sel)[:, 0]
+    return torch.bmm(torch.bmm(h, a_sel), b_sel)
+
+
+def adapter_layer(adapters: dict | None, layer: int):
+    """One layer's ``(ids, factors)`` of an ``adapters`` argument
+    (``{"ids": (B,) int64, "layers": {wq_a: (L, N, d_in, r), ...}}``), as
+    :func:`_qkv` and :func:`_out_proj` take it; None without adapters."""
+    if adapters is None:
+        return None
+    return adapters["ids"], {k: v[layer] for k, v in adapters["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +259,7 @@ def prefill_forward(
     tokens: torch.Tensor,   # (B, P) int, right-padded
     lengths: torch.Tensor,  # (B,) true lengths
     ffn=None,               # (h (B,P,H), lp, valid (B,P)) -> (B,P,H); default SwiGLU
+    adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Shared prompt forward: returns (last-token logits (B, V) f32, ks, vs)
     where ks/vs are the roped per-layer K/V ``(L, B, P, Kh, D)``.
@@ -213,7 +267,8 @@ def prefill_forward(
     Causality alone hides right-padded keys from every real query row, so
     the attention needs no per-row length; padded rows' outputs are
     garbage the caller discards. The FFN hook gets the (B, P) real-token
-    mask."""
+    mask. ``adapters`` adds each row's LoRA deltas to the q/k/v/o
+    projections (None: no delta is computed)."""
     c = config
     if ffn is None:
         ffn = _default_ffn
@@ -225,12 +280,13 @@ def prefill_forward(
     ks, vs = [], []
     for layer in range(c.layers):
         lp = layer_params(params, layer)
+        ad = adapter_layer(adapters, layer)
         h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q, k, v = _qkv(c, h, lp)
+        q, k, v = _qkv(c, h, lp, ad)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         out = flash_attention(q, k, v, causal=True)
-        x = x + out.reshape(B, Pn, c.heads * c.head_dim) @ _w(lp["wo"])
+        x = x + _out_proj(out.reshape(B, Pn, c.heads * c.head_dim), lp, ad)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp, pos_valid)
         ks.append(k)

@@ -25,9 +25,11 @@ from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     _apply_rope,
     _default_ffn,
+    _out_proj,
     _qkv,
     _rms_norm,
     _rope,
+    adapter_layer,
     layer_params,
     prefill_forward,
 )
@@ -54,6 +56,7 @@ def llama_prefill_paged(
     block_tables: torch.Tensor,  # (B, max_blocks) — rows for THIS batch
     ffn=None,                    # FFN hook (MoE family), see prefill_forward
     commit_rows: torch.Tensor | None = None,  # (B,) bool — rows that commit
+    adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
 ):
     """Prompt forward + paged cache fill (one scatter per K and V, in place).
     ``commit_rows`` leaves out rows whose K/V must not land (a padded
@@ -61,7 +64,8 @@ def llama_prefill_paged(
     pool_k, pool_v)``."""
     c = config
     B, Pn = tokens.shape
-    logits, ks, vs = prefill_forward(c, params, tokens, lengths, ffn=ffn)
+    logits, ks, vs = prefill_forward(c, params, tokens, lengths, ffn=ffn,
+                                     adapters=adapters)
     KhD = c.kv_heads * c.head_dim
     L = ks.shape[0]
     valid = (
@@ -89,6 +93,7 @@ def llama_prefill_continue_paged(
     return_all_logits: bool = False,
     ffn=None,                      # FFN hook (MoE family), gets pos_valid
     commit_rows: torch.Tensor | None = None,  # (B,) bool — rows that commit
+    adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
 ):
     """Prefill CONTINUATION: process a prompt suffix whose prefix K/V is
     already in the paged pool (positions ``[0, start)`` per slot) — the
@@ -190,8 +195,9 @@ def llama_prefill_continue_paged(
     for layer in range(c.layers):
         lp = layer_params(params, layer)
         ck_l, cv_l = pool_layer(pool_k, layer), pool_layer(pool_v, layer)
+        ad = adapter_layer(adapters, layer)
         h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q, k, v = _qkv(c, h, lp)                     # (B, P2, heads|Kh, D)
+        q, k, v = _qkv(c, h, lp, ad)                 # (B, P2, heads|Kh, D)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
         # the kvquant helpers work on (B, Kh, G', T/D): fold P2 into G
@@ -229,7 +235,7 @@ def llama_prefill_continue_paged(
         out = (o * inv[..., None]).to(x.dtype)       # (B, Kh, G, P2, D)
         del o
         out = out.permute(0, 3, 1, 2, 4).reshape(B, P2, c.heads * D)
-        x = x + out @ _w(lp["wo"])
+        x = x + _out_proj(out, lp, ad)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp, pos_valid)
         # commit this layer's suffix rows (in place, through layer views)
@@ -314,6 +320,7 @@ def llama_spec_step_paged(
     topps: torch.Tensor | None = None,
     sampler_mode: tuple | None = None,
     ffn=None,
+    adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
 ):
     """One speculative step on the device: prompt-lookup drafts from the
     context rows, the verify forward, and the context update, with no host
@@ -339,6 +346,7 @@ def llama_spec_step_paged(
             config, params, tokens, base_lengths, active, pool_k, pool_v,
             block_tables, num_read_blocks, generator=generator, temps=temps,
             topks=topks, topps=topps, sampler_mode=sampler_mode, ffn=ffn,
+            adapters=adapters,
         )
     )
     D1 = num_drafts + 1
@@ -374,6 +382,7 @@ def llama_verify_chunk_paged(
     topps: torch.Tensor | None = None,
     sampler_mode: tuple | None = None,   # (use_top_p, use_top_k, all_greedy)
     ffn=None,                            # FFN hook (MoE family)
+    adapters: dict | None = None,        # batched ragged LoRA, see adapter_layer
 ):
     """Speculative VERIFY step: one continuation forward over ``D1 = 1 +
     drafts`` positions per slot scores every draft at once (its history
@@ -409,6 +418,7 @@ def llama_verify_chunk_paged(
     logits, pool_k, pool_v = llama_prefill_continue_paged(
         c, params, tokens, base_lengths, suffix_lengths, pool_k, pool_v,
         block_tables, num_read_blocks, return_all_logits=True, ffn=ffn,
+        adapters=adapters,
     )  # (B, D1, V) f32
     drafts = tokens[:, 1:]
     if sampler_mode is None or sampler_mode[2]:  # all greedy
@@ -474,6 +484,7 @@ def llama_decode_chunk_paged(
     return_packed: bool = False,
     commit_inactive: bool = False,
     ffn=None,                     # (h (B,H), lp, active (B,)) -> (B,H); default SwiGLU
+    adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
 ):
     """K fused decode steps against the paged pool: the pool is read-only,
     each step's new K/V lands in a chunk buffer ``(L, B, K, Kh, D)``, and
@@ -507,8 +518,9 @@ def llama_decode_chunk_paged(
         cos, sin = _rope(positions, c.head_dim, c.rope_theta)
         for layer in range(c.layers):
             lp = layer_params(params, layer)
+            ad = adapter_layer(adapters, layer)
             h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
-            q, k, v = _qkv(c, h, lp)
+            q, k, v = _qkv(c, h, lp, ad)
             q = _apply_rope(q, cos, sin)
             k = _apply_rope(k, cos, sin)
             kbuf[layer, :, step] = k
@@ -541,7 +553,7 @@ def llama_decode_chunk_paged(
                     l_b.reshape(B, c.heads),
                 ),
             ]).to(x.dtype)
-            x = x + out.reshape(B, c.heads * c.head_dim) @ _w(lp["wo"])
+            x = x + _out_proj(out.reshape(B, c.heads * c.head_dim), lp, ad)
             h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
             x = x + ffn(h2, lp, active)
         x = _rms_norm(x, params["final_norm"], c.norm_eps)

@@ -69,7 +69,7 @@ Execution model:
   capacity as there, and only the last copy commits its K/V (the JAX
   scatter's last write on the CPU).
 - Submit-time refusals, as in the JAX engine: a request naming an
-  ``adapter`` (no adapter store here) raises ``ValueError``; one whose
+  ``adapter`` on an engine without an adapter store raises ``ValueError``; one whose
   ``deadline``/``deadline-s`` budget is spent raises
   :class:`~langstream_tpu_torch.serving.deadline.DeadlineExceeded`; both
   before the request queues.
@@ -111,6 +111,16 @@ Execution model:
   frees its slot; ``pool-role: decode`` admits payloads through
   :meth:`TorchServingEngine.import_handoff` with no prefill. Payloads and
   blobs are byte-compatible with the JAX package's.
+- Multi-LoRA (``serving/adapters.py``): with ``adapter-store`` (paged layout
+  only) a request's ``adapter`` resolves at admission to a pinned row of
+  the stacked device A/B buffers (T0; a T1 host copy loads into a free or
+  unpinned row on the dispatch thread, a T2 blob hydrates while the request
+  waits off the queue, an unknown one is refused with
+  :class:`~langstream_tpu_torch.serving.adapters.AdapterUnavailable`).
+  Every paged prefill, continuation, decode chunk and speculative step
+  then adds each row's ``lora_delta`` to the q/k/v/o projections, row 0
+  being the base model; adapter requests stay out of the prefix cache both
+  ways. Without the section no delta is computed.
 
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item; settings that only change latency are accepted and
@@ -177,6 +187,12 @@ from langstream_tpu_torch.ops.paged_attention import (
     _paged_attention_partial_q8,
     paged_attention_multiquery_partial,
     paged_attention_partial,
+)
+from langstream_tpu_torch.serving.adapters import (
+    FACTOR_KEYS,
+    AdapterStore,
+    AdapterStoreSpec,
+    AdapterUnavailable,
 )
 from langstream_tpu_torch.serving.attribution import (
     ModelShape,
@@ -247,10 +263,9 @@ def _parse_bool(v: Any) -> bool:
 class ServingConfig:
     """The ``tpu-serving-configuration`` resource: the same fields, kebab
     keys and defaults as the JAX package's ``ServingConfig``. ``qos``,
-    ``slo`` and ``prefix-store`` parse into their frozen specs (so the
-    config stays hashable); sections of planes this port does not carry yet
-    (adapter-store, faults) are kept as the raw mapping the resource
-    gave."""
+    ``slo``, ``prefix-store`` and ``adapter-store`` parse into their frozen
+    specs (so the config stays hashable); ``faults``, a plane this port
+    does not carry yet, is kept as the raw entries the resource gave."""
 
     model: str = "tiny"
     slots: int = 8
@@ -285,7 +300,7 @@ class ServingConfig:
     stream_stall_s: float = 2.0
     pool_role: str = "combined"
     prefix_store: PrefixStoreSpec | None = None
-    adapter_store: Any = None
+    adapter_store: AdapterStoreSpec | None = None
     shrink_fraction: float = 0.125
     shrink_recovery_s: float = 30.0
     faults: tuple = ()
@@ -333,7 +348,7 @@ class ServingConfig:
             prefix_cache=_parse_bool(get("prefix-cache", True)),
             prefix_cache_max_suffix=int(get("prefix-cache-max-suffix", 4096)),
             prefix_store=PrefixStoreSpec.from_dict(get("prefix-store")),
-            adapter_store=get("adapter-store"),
+            adapter_store=AdapterStoreSpec.from_dict(get("adapter-store")),
             prefill_chunk=int(get("prefill-chunk", 0)),
             speculative_drafts=int(get("speculative-drafts", 0)),
             qos=QosSpec.from_dict(d.get("qos")),
@@ -358,12 +373,15 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
-    (lambda c: c.adapter_store is not None,
-     "adapter-store: multi-LoRA is ROADMAP.md Queue 1 item 9, the next slice"),
     (lambda c: bool(c.faults), "faults: fault injection is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.journal_dir is not None,
+    # the JAX engine arms plans from the variable too: a chaos run whose
+    # faults silently failed to arm would pass against a healthy engine
+    (lambda c: bool(os.environ.get("LS_TPU_FAULTS", "").strip()),
+     "LS_TPU_FAULTS: fault injection is ROADMAP.md Queue 1 item 9"),
+    # the JAX engine tests both directories for truthiness: "" serves
+    (lambda c: bool(c.journal_dir),
      "journal-dir: the crash-requeue journal is ROADMAP.md Queue 1 item 9"),
-    (lambda c: c.incident_dir is not None,
+    (lambda c: bool(c.incident_dir),
      "incident-dir: incident capture is ROADMAP.md Queue 1 item 9"),
 )
 
@@ -377,6 +395,11 @@ def _check_supported(config: ServingConfig) -> None:
     for unsupported, message in _UNSUPPORTED:
         if unsupported(config):
             raise NotImplementedError(f"not in this port yet: {message}")
+    # the JAX engine's bounds, checked though the pool shrink is not ported
+    if not 0.0 < config.shrink_fraction <= 1.0:
+        raise ValueError("shrink_fraction must be in (0, 1]")
+    if config.shrink_recovery_s <= 0:
+        raise ValueError("shrink_recovery_s must be > 0")
     if config.quantize not in (None, "none", "int8"):
         raise ValueError(f"unknown quantize mode {config.quantize!r}")
     if config.kv_quantize not in (None, "none", "int8"):
@@ -410,6 +433,12 @@ def _check_supported(config: ServingConfig) -> None:
         raise ValueError(
             "pool-role prefill/decode requires kv-layout=paged (the KV handoff "
             "serializes paged blocks; a dense cache has no block tables)"
+        )
+    if (config.adapter_store is not None and config.adapter_store.enabled
+            and config.kv_layout != "paged"):
+        raise ValueError(
+            "adapter-store requires kv-layout=paged (batched ragged adapter "
+            "application rides the paged decode/prefill programs)"
         )
     if config.prefix_store is not None and config.prefix_store.enabled:
         if config.kv_layout != "paged":
@@ -493,6 +522,13 @@ class _Request:
     # KV handoff: admitted through import_handoff on a decode-role engine
     # (its KV arrived over the wire; admission skipped prefill)
     imported: bool = False
+    # multi-LoRA: the adapter the request named ("" = base model), the
+    # T0 row resolved at admission, whether it stashed once for a T2
+    # hydration, and whether it holds a pin on the row
+    adapter: str = ""
+    adapter_row: int = 0
+    adapter_hydrate_attempted: bool = False
+    adapter_pinned: bool = False
 
     @property
     def context_tokens(self) -> list[int]:
@@ -851,6 +887,35 @@ class TorchServingEngine:
             )
             # pool-pressure evictions bypass demotion: record the loss
             self.block_mgr.on_prefix_evict = self._note_prefix_pool_evict
+        # tiered multi-LoRA adapter store (serving/adapters.py): T0 rows of
+        # the stacked device A/B buffers, T1 host RAM, T2 object storage.
+        # Requests whose adapter is hydrating are stashed off the
+        # scheduler, as for the prefix store. Without an enabled section
+        # the engine has no store, no buffers and computes no delta.
+        self.adapter_store: AdapterStore | None = None
+        self._adapter_hydrating: list = []  # (request, deadline_m, name)
+        self.adapter_refusals = 0  # cold refusals (unknown or timed out)
+        # the stacked buffers (L, 1 + t0-entries, d_in, rank) and (L, 1 +
+        # t0-entries, rank, d_out) in the model dtype: row 0 stays zero
+        # (adapter-less slots), rows 1.. back T0. A row is written in place
+        # on the dispatch thread, so on the stream after every chunk
+        # dispatched before it; T0 evicts only unpinned rows, so no live
+        # slot reads a row while it is written. ``_ad_rows`` is the
+        # loop-side slot -> row mirror, snapshotted at every dispatch.
+        self._ad_layers: dict[str, torch.Tensor] | None = None
+        self._ad_rows: np.ndarray | None = None
+        if config.adapter_store is not None and config.adapter_store.enabled:
+            self.adapter_store = AdapterStore(
+                config.adapter_store, fingerprint=self.adapter_fingerprint(),
+                entry_bytes=self._adapter_entry_bytes(),
+            )
+            n_rows = config.adapter_store.t0_entries + 1
+            self._ad_layers = {
+                k: torch.zeros((mc.layers, n_rows, *shape), dtype=mc.dtype,
+                               device=self.device)
+                for k, shape in self._adapter_factor_shapes().items()
+            }
+            self._ad_rows = np.zeros(config.slots, dtype=np.int32)
 
     # ------------------------------------------------------------------
     # model + cache
@@ -1166,8 +1231,12 @@ class TorchServingEngine:
         ``deadline``/``deadline-s`` (shed at admission when the budget left
         cannot cover the median recent prefill).
 
-        Refused before the request queues: ``adapter`` (``ValueError``: no
-        adapter store in this port), a spent ``deadline``/``deadline-s``
+        ``adapter`` names a LoRA adapter of the engine's ``adapter-store``
+        (resolved at admission; :class:`AdapterUnavailable` when no tier
+        can produce it).
+
+        Refused before the request queues: ``adapter`` on an engine with no
+        adapter store (``ValueError``), a spent ``deadline``/``deadline-s``
         budget (:class:`DeadlineExceeded`) and, under QoS, a full class
         queue or an empty tenant bucket (:class:`RateLimited`).
         ``_warmup_probe`` is internal: warmup's own requests skip the warmup
@@ -1209,7 +1278,7 @@ class TorchServingEngine:
                 f"grow kv-pool-blocks/kv-pool-fraction"
             )
         adapter = str(options.get("adapter", "") or "")
-        if adapter:
+        if adapter and self.adapter_store is None:
             # refused loudly at submit: a silently-ignored adapter would
             # serve base-model output under the tenant's fine-tune name
             raise ValueError(
@@ -1235,6 +1304,7 @@ class TorchServingEngine:
             priority=normalize_priority(options.get("priority")),
             deadline=deadline_from_options(options),
             stream_key=str(options["stream-key"]) if options.get("stream-key") else None,
+            adapter=adapter,
         )
         if on_chunk is not None and self.config.streaming:
             # the bounded per-request TBT digest: only streaming engines pay
@@ -1335,6 +1405,10 @@ class TorchServingEngine:
             # per-tier bytes and budgets, hits, demotions, evictions and the
             # exact byte ledger
             out["prefixstore"] = self.prefix_store_section()
+        if self.adapter_store is not None:
+            # the adapter tiers: per-tier bytes and budgets, hits, loads,
+            # evictions, the resident rows and the exact byte ledger
+            out["adapters"] = self.adapter_store_section()
         if self.block_mgr is not None:
             out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
         if self.config.speculative_drafts > 0:
@@ -1559,10 +1633,13 @@ class TorchServingEngine:
         self._fetch_executor.shutdown(wait=True)
         if self.prefix_store is not None:
             self.prefix_store.close()
+        if self.adapter_store is not None:
+            self.adapter_store.close()
         closed = RuntimeError("serving engine closed")
-        stashed = [entry[0] for entry in self._prefix_hydrating]
+        stashed = [entry[0] for entry in self._prefix_hydrating + self._adapter_hydrating]
         imports = [entry[2] for entry in self._pending_imports]
         self._prefix_hydrating = []
+        self._adapter_hydrating = []
         self._pending_imports.clear()
         for request in self.scheduler.drain() + stashed + imports:
             if not request.future.done():
@@ -1584,6 +1661,10 @@ class TorchServingEngine:
                     # tier bookkeeping first: hydrations that landed requeue
                     # at their class's front, so the admission below sees them
                     self._prefix_tier_step()
+                if self.adapter_store is not None:
+                    # adapter hydrations settle at the same safe point:
+                    # requeue at the class's front, or a counted refusal
+                    self._adapter_tier_step()
                 if self._pending_imports:
                     # KV handoff imports land at the safe point, like
                     # admission: a free slot and a worst-case reservation,
@@ -1631,6 +1712,7 @@ class TorchServingEngine:
                         # thread and a T0 cache over budget has demotions
                         # to run: poll tightly while either is pending
                         idle_s = (0.02 if self._prefix_hydrating
+                                  or self._adapter_hydrating
                                   or self._prefix_demote_pending() else 1.0)
                         try:
                             await asyncio.wait_for(self._wake.wait(), timeout=idle_s)
@@ -1679,13 +1761,15 @@ class TorchServingEngine:
         # imports not yet landed and hydration stashes fail with the loop's
         # error too: a stash outliving the failure would strand its future
         for request in ([entry[2] for entry in self._pending_imports]
-                        + [entry[0] for entry in self._prefix_hydrating]):
+                        + [entry[0] for entry in self._prefix_hydrating]
+                        + [entry[0] for entry in self._adapter_hydrating]):
             if not request.future.done():
                 request.future.set_exception(error)
                 if not request.warmup:
                     self._slo_record("availability", False)
         self._pending_imports.clear()
         self._prefix_hydrating = []
+        self._adapter_hydrating = []
         self._pending_emits.clear()
         self._finished_requests.clear()
 
@@ -1705,6 +1789,13 @@ class TorchServingEngine:
         slot.prefill_done = 0
         self._lengths[slot_id] = 0
         self._ctx_synced[slot_id] = 0
+        if request is not None:
+            self._adapter_release(request)
+        if self._ad_rows is not None:
+            # the slot computes the base model again: a chunk dispatched
+            # after this reads row 0 for it (an in-flight one still reads
+            # the pinned row it was dispatched with)
+            self._ad_rows[slot_id] = 0
         self._release_blocks(slot_id)
 
     def _release_blocks(self, slot_id: int) -> None:
@@ -1792,6 +1883,9 @@ class TorchServingEngine:
         request = self.slots[slot_id].request
         now = time.monotonic()
         self._release_slot(slot_id)
+        # the release dropped the adapter pin (the row may evict meanwhile):
+        # re-admission re-resolves, and may hydrate again
+        request.adapter_hydrate_attempted = False
         request.preemptions += 1
         request.preempt_time = now
         self.scheduler.note_preempted(request)
@@ -1822,11 +1916,11 @@ class TorchServingEngine:
         self.flight.event("prefix-evict", tier="t0", digest=digest_hex[:16],
                           bytes=self._kv_block_bytes, reason="pool-pressure")
 
-    def _emit_prefix_events(self) -> None:
-        """Drain the store's pending events into the flight ring (the
-        Prometheus mirror waits for the pod-endpoint plane, ROADMAP.md
-        Queue 1 item 9)."""
-        for kind, detail in self.prefix_store.drain_events():
+    def _emit_store_events(self, events) -> None:
+        """Drain a tier store's pending events (prefix or adapter) into the
+        flight ring (the Prometheus mirror waits for the pod-endpoint plane,
+        ROADMAP.md Queue 1 item 9)."""
+        for kind, detail in events:
             self.flight.event(kind, **detail)
 
     def _prefix_tier_step(self) -> None:
@@ -1837,7 +1931,7 @@ class TorchServingEngine:
         right after finds it; a timeout is a counted cold compute."""
         store = self.prefix_store
         store.apply_results()
-        self._emit_prefix_events()
+        self._emit_store_events(self.prefix_store.drain_events())
         if not self._prefix_hydrating:
             return
         now = time.monotonic()
@@ -1945,7 +2039,7 @@ class TorchServingEngine:
             self._executor, partial(self._run_scatter, arrays, table_row, rows, padded))
         nbytes = sum(e["nbytes"] for e in entries)
         store.note_promoted(len(blocks), nbytes, device_ms=device_s * 1e3)
-        self._emit_prefix_events()
+        self._emit_store_events(self.prefix_store.drain_events())
         return len(blocks)
 
     @torch.no_grad()
@@ -1989,7 +2083,7 @@ class TorchServingEngine:
             if self.block_mgr.drop_prefix(digest) is None:
                 continue  # re-referenced while gathering: it stays in T0
             store.insert_t1(digest.hex(), parent.hex() if parent else "", rows)
-        self._emit_prefix_events()
+        self._emit_store_events(self.prefix_store.drain_events())
 
     @torch.no_grad()
     def _run_gather(self, table_row, rows: int | None):
@@ -2024,6 +2118,214 @@ class TorchServingEngine:
             "hydrating_requests": len(self._prefix_hydrating),
             **store.stats(),
         }
+
+    # ------------------------------------------------------------------
+    # multi-LoRA adapter tiers (serving/adapters.py)
+    # ------------------------------------------------------------------
+
+    def adapter_fingerprint(self) -> dict[str, Any]:
+        """The facts a LoRA adapter blob must agree on before its factors
+        may touch the device buffers, spelled as the JAX engine spells them
+        (so both packages' blobs cross): serialized into every T2 header
+        and checked on fetch (a mismatch is refused AND deleted).
+        Attribute reads only."""
+        mc = self.model_config
+        spec = self.config.adapter_store
+        return {
+            "model": self.config.model,
+            "dtype": _DTYPE_NAMES[mc.dtype],
+            "rank": spec.rank if spec is not None else 0,
+            "layers": mc.layers,
+            "hidden": mc.hidden,
+            "heads": mc.heads,
+            "kv-heads": mc.kv_heads,
+            "head-dim": mc.head_dim,
+        }
+
+    def _adapter_factor_shapes(self) -> dict[str, tuple[int, int]]:
+        """One layer's shape of each LoRA factor at the store's rank."""
+        mc = self.model_config
+        r = self.config.adapter_store.rank
+        q_dim = mc.heads * mc.head_dim
+        kv_dim = mc.kv_heads * mc.head_dim
+        return {
+            "wq_a": (mc.hidden, r), "wq_b": (r, q_dim),
+            "wk_a": (mc.hidden, r), "wk_b": (r, kv_dim),
+            "wv_a": (mc.hidden, r), "wv_b": (r, kv_dim),
+            "wo_a": (q_dim, r), "wo_b": (r, mc.hidden),
+        }
+
+    def _adapter_entry_bytes(self) -> int:
+        """Device bytes one resident adapter row occupies across the eight
+        stacked factor buffers (all layers, model dtype)."""
+        mc = self.model_config
+        per_layer = sum(a * b for a, b in self._adapter_factor_shapes().values())
+        return mc.layers * per_layer * torch.empty((), dtype=mc.dtype).element_size()
+
+    def install_adapter(self, name: str, arrays: dict[str, Any]) -> None:
+        """Install LoRA factors into the store's T1 tier directly (the local
+        load path: tests, bench seeding, a sidecar that fetched them out of
+        band). Shapes are checked against the model here, so a wrong-rank
+        adapter fails at install, not mid-decode."""
+        if self.adapter_store is None:
+            raise ValueError("adapter store not configured (serving adapter-store)")
+        layers = self.model_config.layers
+        for k, shape in self._adapter_factor_shapes().items():
+            expect = (layers, *shape)
+            got = tuple(arrays[k].shape) if k in arrays else None
+            if got != expect:
+                raise ValueError(
+                    f"adapter {name!r} factor {k}: shape {got}, model expects {expect}"
+                )
+        self.adapter_store.install(name, arrays)
+
+    async def _resolve_adapter(self, loop, request: _Request) -> str:
+        """Admission-side adapter resolve. Returns one of:
+
+        - ``"ready"``: a device row holds the adapter; the request is pinned
+          against eviction and carries the row index;
+        - ``"wait"``: the adapter is hydrating T2 -> T1; the request was
+          popped and stashed off the scheduler (it never blocks the head);
+        - ``"refused"``: unknown adapter or a spent hydration attempt; the
+          request was popped and failed with :class:`AdapterUnavailable`;
+        - ``"backpressure"``: every T0 row is pinned by in-flight requests;
+          the caller ends the admission pass and retries after decode frees
+          pins.
+
+        Wait-free on the loop side apart from the one awaited row copy (the
+        T2 I/O runs on the hydrator)."""
+        store = self.adapter_store
+        name = request.adapter
+        row = store.t0_row(name)
+        if row is None and store.t1_has(name):
+            row = store.t0_assign(name)
+            if row is None:
+                return "backpressure"
+            await self._load_adapter_row(loop, name, row)
+        if row is not None:
+            request.adapter_row = row
+            store.pin(name)
+            request.adapter_pinned = True
+            return "ready"
+        if not request.adapter_hydrate_attempted and (store.t2_has(name)
+                                                      or store.hydrating(name)):
+            request.adapter_hydrate_attempted = True
+            if store.request_hydration([name]):
+                self.scheduler.pop()
+                deadline_m = time.monotonic() + store.spec.hydrate_timeout_s
+                self._adapter_hydrating.append((request, deadline_m, name))
+                store.hydrations += 1
+                self.flight.event("adapter-hydrate", stage="begin", adapter=name)
+                # (the adapter-hydrate journey edge waits for the journey
+                # plane, ROADMAP.md Queue 1 item 9)
+                return "wait"
+        self.scheduler.pop()
+        self.adapter_refusals += 1
+        self.flight.event("adapter-refused", adapter=name)
+        if not request.future.done():
+            request.future.set_exception(AdapterUnavailable(
+                f"adapter {name!r} unavailable: not resident in any tier "
+                "(install it or publish it to the T2 origin)"))
+        return "refused"
+
+    async def _load_adapter_row(self, loop, name: str, row: int) -> None:
+        """Copy a T1-resident adapter's factors into device row ``row`` (T1
+        -> T0) on the dispatch thread, the only thread that touches the
+        buffers: the copy is queued on the stream behind every chunk
+        dispatched before it, which still reads the old row."""
+        store = self.adapter_store
+        arrays = store.t1_peek(name)["arrays"]
+        device_ms = await loop.run_in_executor(
+            self._executor, partial(self._run_adapter_load, arrays, row))
+        store.note_loaded(name, row, device_ms)
+
+    @torch.no_grad()
+    def _run_adapter_load(self, arrays: dict[str, Any], row: int) -> float:
+        """Dispatch thread: write one adapter's factors into row ``row`` of
+        the stacked buffers in place. Each host factor uploads from pinned
+        memory without blocking (the caching host allocator keeps the
+        staging block until its copy has run) and converts to the model
+        dtype on the card; one timed wait for the copies. Returns their
+        device milliseconds: the CUDA-event span on the card, the wall on
+        the CPU."""
+        start = self._timing_event()
+        t0 = time.monotonic()
+        for k in FACTOR_KEYS:
+            self._ad_layers[k][:, row].copy_(kvtransfer.upload(arrays[k], self.device))
+        end = self._timing_event()
+        if end is None:
+            return (time.monotonic() - t0) * 1e3
+        end.synchronize()
+        return self._span_s(start, end) * 1e3
+
+    def _adapter_release(self, request: _Request) -> None:
+        """Release a finished, failed or preempted request's pin on its
+        adapter row (wait-free)."""
+        if request.adapter_pinned:
+            request.adapter_pinned = False
+            if self.adapter_store is not None:
+                self.adapter_store.unpin(request.adapter)
+
+    def _adapter_tier_step(self) -> None:
+        """Adapter bookkeeping at the loop's safe point (wait-free): apply
+        the hydrator's results, emit the store's events, and settle the
+        hydration stash. A request whose adapter landed in T1 requeues at
+        the FRONT of its class; a failed or timed-out hydration is a cold
+        refusal (:class:`AdapterUnavailable`): unlike a prefix miss there is
+        no cheaper fallback compute, and base-model output under the
+        adapter's name would be wrong."""
+        store = self.adapter_store
+        store.apply_results()
+        self._emit_store_events(store.drain_events())
+        if not self._adapter_hydrating:
+            return
+        now = time.monotonic()
+        still_waiting = []
+        # newest first: each settled request requeues at the front, so the
+        # oldest ends at the head and arrival order survives
+        for request, deadline_m, name in reversed(self._adapter_hydrating):
+            if request.future.cancelled():
+                continue
+            if store.t1_has(name):
+                self.flight.event("adapter-hydrate", stage="done", adapter=name)
+                self.scheduler.requeue_front(request)
+                continue
+            if store.hydrating(name) and now < deadline_m:
+                still_waiting.append((request, deadline_m, name))
+                continue
+            store.hydrate_failures += 1
+            self.adapter_refusals += 1
+            self.flight.event("adapter-hydrate", stage="timeout", adapter=name)
+            self.flight.event("adapter-refused", adapter=name)
+            if not request.future.done():
+                request.future.set_exception(AdapterUnavailable(
+                    f"adapter {name!r} hydration timed out after "
+                    f"{store.spec.hydrate_timeout_s:.1f}s"))
+        still_waiting.reverse()
+        self._adapter_hydrating = still_waiting
+
+    def adapter_store_section(self) -> dict[str, Any]:
+        """``stats()["adapters"]``: per-tier bytes against budget, hit, load
+        and eviction counters, the resident row map and the exact byte
+        ledger (the JAX engine's keys; its Prometheus gauges wait for the
+        pod seam, ROADMAP.md Queue 1 item 9). Snapshot reads."""
+        return {
+            "hydrating_requests": len(self._adapter_hydrating),
+            "refusals": self.adapter_refusals,
+            **self.adapter_store.stats(),
+        }
+
+    def _adapters_device(self, rows: np.ndarray | None) -> dict | None:
+        """The ``adapters`` argument of a model call for per-row adapter
+        rows (a loop-thread snapshot of ``_ad_rows``): the row ids upload
+        through the content-keyed device cache of the block tables, so an
+        unchanged mix costs no copy. None without a store."""
+        if rows is None:
+            return None
+        ids = self._tables_dev_cache.get_or_put(
+            b"adapter-rows:" + rows.tobytes(),
+            lambda: self._upload(rows.astype(np.int64)))
+        return {"ids": ids, "layers": self._ad_layers}
 
     # ------------------------------------------------------------------
     # KV handoff: prefill and decode pools (serving/kvtransfer.py)
@@ -2356,7 +2658,10 @@ class TorchServingEngine:
         such row goes through the continuation path. A resumed request
         prefills its whole context (prompt and generated tokens) and stays
         out of the prefix cache both ways, as in the JAX engine: its chain
-        mixes generated tokens into what looks like a prompt. With
+        mixes generated tokens into what looks like a prompt. A request that
+        names an adapter first resolves it to a pinned T0 row (or is
+        stashed for a T2 hydration, or refused) and stays out of the prefix
+        plane both ways too: its KV is coloured by the adapter. With
         ``prefill-chunk`` a request with more tokens to prefill than the
         chunk claims its slot and reservation here and prefills in
         :meth:`_advance_prefills`.
@@ -2378,15 +2683,33 @@ class TorchServingEngine:
                     break
                 if request.future.cancelled():
                     self.scheduler.pop()  # caller gave up while queued
+                    self._adapter_release(request)  # a pin kept from an earlier pass
                     continue
                 if request.deadline is not None:
                     left = remaining_s(request.deadline)
                     estimate = self._admit_estimate_s()
                     if left <= estimate:
                         self.scheduler.pop()
+                        self._adapter_release(request)
                         err = self._note_deadline_shed(request, "admission", left, estimate)
                         if not request.future.done():
                             request.future.set_exception(err)
+                        continue
+                if (self.adapter_store is not None and request.adapter
+                        and not request.adapter_pinned):
+                    # the request admits only once its adapter holds a
+                    # device row; "wait" and "refused" popped it. A request
+                    # left queued with its pin (a bucket break, KV
+                    # backpressure) keeps its row and does not pin twice.
+                    verdict = await self._resolve_adapter(loop, request)
+                    if verdict == "backpressure":
+                        break  # every T0 row pinned: finishing slots unpin
+                    if verdict != "ready":
+                        continue
+                    if self.scheduler.peek() is not request:
+                        # the row copy yielded to the event loop: another
+                        # request heads the queue now; this one keeps its
+                        # pinned row for its turn
                         continue
                 ctx = request.context_tokens
                 total = len(request.prompt_tokens) + request.max_tokens + 1
@@ -2395,7 +2718,7 @@ class TorchServingEngine:
                 chain = (
                     self.block_mgr.chain_digests(ctx)
                     if self.prefix_store is not None and use_prefix
-                    and not request.preemptions else None
+                    and not request.preemptions and not request.adapter else None
                 )
                 if chain is not None and not request.hydrate_attempted:
                     # the prompt's chain reaches into T2: stash the request
@@ -2416,7 +2739,10 @@ class TorchServingEngine:
                     # (under QoS the loop may preempt a lower-class victim)
                     break
                 blocks, reuse = [], 0
-                if use_prefix and not request.preemptions:
+                # adapter requests bypass the shared prefix plane both ways:
+                # a base or other-adapter chain would splice foreign KV
+                # under them, and theirs would poison adapter-less traffic
+                if use_prefix and not request.preemptions and not request.adapter:
                     if chain is not None and await self._promote_prefix(loop, request, chain):
                         # the scatter yielded to the event loop: a request
                         # submitted meanwhile may head the queue now, and
@@ -2439,6 +2765,8 @@ class TorchServingEngine:
                     slot.request = request
                     slot.prefilling = True
                     slot.prefill_done = reuse
+                    if self._ad_rows is not None:
+                        self._ad_rows[slot_id] = request.adapter_row
                     self.block_mgr.ensure_capacity(slot_id, len(ctx))
                     request.admit_time = time.monotonic()
                     self._note_resume(request)
@@ -2464,6 +2792,8 @@ class TorchServingEngine:
             now = time.monotonic()
             for slot_id, request, _ in batch:
                 self.slots[slot_id].request = request
+                if self._ad_rows is not None:
+                    self._ad_rows[slot_id] = request.adapter_row
                 request.admit_time = now
                 self._note_resume(request)
                 if self.block_mgr is not None:
@@ -2502,15 +2832,17 @@ class TorchServingEngine:
                 self._program_prefill_continue(cont[1], _pow2(B), bucket, mode)
                 if cont is not None else self._program_prefill(bucket, _pow2(B), mode)
             )
+            # per-row adapter rows (a loop-thread snapshot)
+            ad_rows = self._ad_rows[slot_ids].copy() if self._ad_rows is not None else None
             next_np, logprob_np, wait_s, span_s = await loop.run_in_executor(
                 self._executor,
                 partial(self._run_prefill, padded, lengths, slot_ids, tables,
-                        temps, topks, topps, mode, cont),
+                        temps, topks, topps, mode, cont, ad_rows),
             )
             if use_prefix:
                 for slot_id, request, reuse in batch:
-                    if request.preemptions:
-                        continue  # a resumed context is no shareable prompt
+                    if request.preemptions or request.adapter:
+                        continue  # a resumed or adapter context is no shareable prompt
                     self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
                     if reuse:
                         self.prefix_hits += 1
@@ -2583,11 +2915,12 @@ class TorchServingEngine:
         cont = (starts, self._read_blocks_for(max(int(starts.max()), 1)))
         mode = self._sampler_mode(temps, topks, topps)
         program = self._program_prefill_continue(cont[1], _pow2(B), C, mode)
+        ad_rows = self._ad_rows[slot_ids].copy() if self._ad_rows is not None else None
         next_np, logprob_np, wait_s, span_s = await loop.run_in_executor(
             self._executor,
             partial(self._run_prefill, tokens, suffix_lens, slot_ids,
                     self.block_mgr.tables[slot_ids].copy(), temps, topks,
-                    topps, mode, cont),
+                    topps, mode, cont, ad_rows),
         )
         now = time.monotonic()
         done = 0
@@ -2603,7 +2936,7 @@ class TorchServingEngine:
             # register BEFORE emitting: a max-tokens=1 or instant-EOS
             # request is released inside _emit_token, and registering
             # against a released slot's empty table publishes nothing
-            if self.config.prefix_cache and not request.preemptions:
+            if self.config.prefix_cache and not request.preemptions and not request.adapter:
                 self.block_mgr.register_prefix(slot_id, request.prompt_tokens)
             self._emit_token(slot_id, int(next_np[i]), float(logprob_np[i]))
         self._flight_record("prefill", wait_s, tokens=done, program=program,
@@ -2666,11 +2999,12 @@ class TorchServingEngine:
 
     @torch.no_grad()
     def _run_prefill(self, padded, lengths, slot_ids, tables, temps, topks,
-                     topps, mode, cont=None):
+                     topps, mode, cont=None, ad_rows=None):
         """Dispatch thread: one batched prefill + first-token sample; one
         packed device-to-host copy. ``cont = (starts, num_read_blocks)``
         sends the batch through the continuation path (``padded`` then
-        holds each row's suffix). Returns (tokens, logprobs) numpy, the
+        holds each row's suffix); ``ad_rows`` are the rows' adapter rows
+        (None without a store). Returns (tokens, logprobs) numpy, the
         seconds the copy waited for the card and the dispatch's span on
         the card (None on the CPU)."""
         mc, up = self.model_config, self._upload
@@ -2680,18 +3014,19 @@ class TorchServingEngine:
         # a slot named by several rows (a padded batch) commits its last row
         commit = np.array([s not in slot_ids[i + 1:] for i, s in enumerate(slot_ids)])
         commit_t = None if commit.all() else up(commit)
+        adapters = self._adapters_device(ad_rows)
         if cont is not None:
             starts, nrb = cont
             logits, _, _ = llama_prefill_continue_paged(
                 mc, self.params, tokens, up(starts), lengths_t, self.cache_k,
                 self.cache_v, up(tables), num_read_blocks=nrb, ffn=self._ffn,
-                commit_rows=commit_t,
+                commit_rows=commit_t, adapters=adapters,
             )
             self._continue_calls += 1
         elif self.block_mgr is not None:
             logits, _, _ = llama_prefill_paged(
                 mc, self.params, tokens, lengths_t, self.cache_k, self.cache_v,
-                up(tables), ffn=self._ffn, commit_rows=commit_t,
+                up(tables), ffn=self._ffn, commit_rows=commit_t, adapters=adapters,
             )
         else:
             logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t,
@@ -2846,6 +3181,7 @@ class TorchServingEngine:
                 self._topks.copy(), self._topps.copy(),
                 self._pres.copy() if pen else None,
                 self._freq.copy() if pen else None, counts,
+                self._ad_rows.copy() if self._ad_rows is not None else None,
             ),
         )
         before = self.total_generated
@@ -2879,11 +3215,14 @@ class TorchServingEngine:
             tables = self._grow_blocks(active, K, pending_chunks)
             sampler = (mask.copy(), self._temps.copy(), self._topks.copy(),
                        self._topps.copy())
+            # the slot -> adapter-row mirror, snapshotted here on the loop
+            # thread: admission rewrites it between bursts
+            ad_rows = self._ad_rows.copy() if self._ad_rows is not None else None
             self._heavy_chunks += 1
             return loop.run_in_executor(
                 self._executor,
                 partial(self._dispatch_decode, tokens, lengths, sampler, tables,
-                        window, K, mode),
+                        window, K, mode, ad_rows=ad_rows),
             )
 
         def busy(task) -> bool:
@@ -2962,22 +3301,24 @@ class TorchServingEngine:
 
     @torch.no_grad()
     def _run_decode(self, tokens, lengths, active_mask, tables, window, K, mode,
-                    temps, topks, topps, pres, freq, counts):
+                    temps, topks, topps, pres, freq, counts, ad_rows=None):
         """Dispatch thread, sequential loop: one chunk from host state,
         then its fetch. Returns what ``_fetch_chunk`` returns."""
         out = self._dispatch_decode(
             tokens, lengths, (active_mask, temps, topks, topps), tables, window,
-            K, mode, None if pres is None else (pres, freq, counts),
+            K, mode, None if pres is None else (pres, freq, counts), ad_rows,
         )
         return self._fetch_chunk(out[0], K)
 
     @torch.no_grad()
     def _dispatch_decode(self, tokens, lengths, sampler: tuple, tables, window,
-                         K: int, mode: tuple, penalties: tuple | None = None):
+                         K: int, mode: tuple, penalties: tuple | None = None,
+                         ad_rows: np.ndarray | None = None):
         """Dispatch thread: launch one decode chunk and start its packed
         fetch; nothing here waits for the card. ``tokens``/``lengths`` are
         host arrays (a burst's first chunk, uploaded) or the previous
-        chunk's device outputs. Returns (fetch handle, final tokens, final
+        chunk's device outputs; ``ad_rows`` the slots' adapter rows at
+        dispatch (None without a store). Returns (fetch handle, final tokens, final
         lengths), the last two on the device."""
         t0 = time.monotonic()
         self.profiler.on_decode_chunk()
@@ -2996,6 +3337,7 @@ class TorchServingEngine:
                 mc, self.params, tokens, lengths, amask, self.cache_k, self.cache_v,
                 self._tables_device(tables), sample_fn, K, num_read_blocks=window,
                 sample_extras=extras, return_packed=True, ffn=self._ffn,
+                adapters=self._adapters_device(ad_rows),
             )
         else:
             out = llama_decode_chunk_dense_pallas(
@@ -3214,7 +3556,8 @@ class TorchServingEngine:
                 partial(self._run_spec_step, ctx_rows, ctx_vals, self._current.copy(),
                         self._lengths.copy(), active_mask,
                         self.block_mgr.tables.copy(), nrb, mode, self._temps.copy(),
-                        self._topks.copy(), self._topps.copy()),
+                        self._topks.copy(), self._topps.copy(),
+                        self._ad_rows.copy() if self._ad_rows is not None else None),
             )
             emitted, adv, nxt, _, n_real, logprobs = fetched
             self.spec_steps += 1
@@ -3266,7 +3609,7 @@ class TorchServingEngine:
 
     @torch.no_grad()
     def _run_spec_step(self, ctx_rows, ctx_vals, current, lengths, active_mask,
-                       tables, nrb, mode, temps, topks, topps):
+                       tables, nrb, mode, temps, topks, topps, ad_rows=None):
         """Dispatch thread: patch the stale context rows, one
         ``llama_spec_step_paged``, one packed fetch. Returns the fetched
         parts, the seconds the fetch waited and the step's span on the card
@@ -3288,7 +3631,7 @@ class TorchServingEngine:
             temps=None if greedy else up(temps),
             topks=None if greedy else up(topks),
             topps=None if greedy else up(topps),
-            sampler_mode=mode, ffn=self._ffn,
+            sampler_mode=mode, ffn=self._ffn, adapters=self._adapters_device(ad_rows),
         )
         self._spec_dispatches += 1
         end = self._timing_event()
@@ -3562,3 +3905,24 @@ def health_report() -> list[dict[str, Any]]:
     constructor holding it; a torn read at worst misses a brand-new
     engine for one poll."""
     return [engine.health() for engine in list(TorchServingEngine._instances.values())]
+
+
+def kick_warmups() -> None:
+    """Begin the warmup of every live ``warmup-on-start`` engine that has not
+    begun it (the readiness probe calls this, so a fresh pod warms inside its
+    not-ready window). Task creation only: it runs on the engines' event
+    loop and never waits."""
+    for engine in list(TorchServingEngine._instances.values()):
+        if engine.config.warmup_on_start and engine._warmup_task is None and not engine._stop:
+            engine._warmup_begun()
+
+
+def take_kv_export(request_id: str) -> dict[str, Any] | None:
+    """Pop one KV handoff export entry (``{"payload", "bytes", ...}``) from
+    whichever live engine holds it (a pod's ``GET /kv/export/{request}``).
+    Wait-free: an instance-map snapshot and one dict pop per engine."""
+    for engine in list(TorchServingEngine._instances.values()):
+        entry = engine.take_export_entry(request_id)
+        if entry is not None:
+            return entry
+    return None

@@ -24,7 +24,8 @@ Stdlib only. Clocks are ``time.monotonic()``: these durations feed
 throttle decisions and retry-after arithmetic. The deploy-time validation
 of an application's ``qos`` sections belongs to the control plane, which
 keeps the JAX package's copy. A tenant's ``adapter`` parses here; the
-engine refuses a request naming an adapter until multi-LoRA is ported.
+engine serves it when its ``adapter-store`` is configured
+(``serving/adapters.py``) and refuses a request naming one otherwise.
 """
 
 from __future__ import annotations
@@ -170,8 +171,9 @@ class TenantPolicy:
     means unlimited on that axis. ``adapter`` names the LoRA adapter
     this tenant's traffic decodes with (``serving/adapters.py``): the
     gateway stamps it as the ``langstream-adapter`` record header and
-    the AI agents forward it into engine options — empty means base
-    weights, byte-identical to a pre-adapter deploy."""
+    the AI agents forward it into engine options, where an engine with an
+    ``adapter-store`` serves it — empty means base weights, byte-identical
+    to a pre-adapter deploy."""
 
     name: str
     requests_per_s: float | None = None

@@ -630,3 +630,52 @@ def test_kv_transfer_pinned_paths_equal_the_cpu(int8):
     for x, y in zip(out["cuda"][2:], out["cpu"][2:]):
         for a, b in (zip(x.values(), y.values()) if int8 else [(x, y)]):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_adapter_card_matches_cpu_and_offline_merge(kv):
+    """``chip_smoke.py`` phase 5's adapter case: greedy f32 tokens under one
+    adapter (rank 4, ``scale=0.5``) are the same on the card and the CPU and
+    equal a store-less engine whose weights carry the adapter merged
+    offline; the base model's differ."""
+    import chip_smoke
+
+    c = dataclasses.replace(LlamaConfig.tiny(max_seq_len=256), dtype=torch.float32)
+    params = init_llama_params(c, torch.Generator().manual_seed(3), device="cpu")
+    cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3, "max-seq-len": 256,
+           "decode-chunk": 4, "kv-layout": "paged", "kv-block-size": 16,
+           "prefix-cache": False, "kv-quantize": kv}
+    out = {device: chip_smoke.adapter_round_trip(torch, cfg, device, params)
+           for device in ("cuda", "cpu")}
+    adapted, merged, base = out["cuda"]
+    assert out["cuda"][:2] == out["cpu"][:2]
+    assert adapted == merged and adapted != base
+
+
+def test_adapter_row_load_in_place_and_lora_delta_on_the_card():
+    """A row written in place on the dispatch thread (pinned uploads, the
+    f32 factors converted on the card) holds the bf16 factors, row 0 stays
+    zero, and ``lora_delta`` on the card equals the CPU within 2e-2."""
+    from langstream_tpu_torch.models.llama import lora_delta
+    from langstream_tpu_torch.serving.adapters import make_lora_arrays
+
+    cfg = ServingConfig.from_dict({"model": "tiny", "slots": 4, "max-seq-len": 256,
+                                   "kv-layout": "paged", "kv-block-size": 16,
+                                   "adapter-store": {"rank": 4, "t0-entries": 2}})
+    engine = TorchServingEngine(cfg, device="cuda")
+    arrays = make_lora_arrays(layers=2, hidden=64, heads=4, kv_heads=2, head_dim=16, rank=4,
+                              seed=5, scale=0.5)
+    engine._run_adapter_load(arrays, 2)
+    torch.cuda.synchronize()
+    for k, buf in engine._ad_layers.items():
+        assert buf.dtype == torch.bfloat16
+        assert torch.equal(buf[:, 2].cpu(), torch.from_numpy(arrays[k]).to(torch.bfloat16))
+        assert not buf[:, 0].any() and not buf[:, 1].any()
+    h = torch.randn(4, 7, 64, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
+    ids = torch.tensor([0, 2, 2, 0])
+    a, b = engine._ad_layers["wq_a"][0], engine._ad_layers["wq_b"][0]
+    got = lora_delta(h.cuda(), ids.cuda(), a, b).float().cpu()
+    want = lora_delta(h, ids, a.cpu(), b.cpu()).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert not got[0].any() and not got[3].any()
+    asyncio.run(engine.close())

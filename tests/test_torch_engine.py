@@ -198,7 +198,11 @@ def test_engine_needs_the_card_unless_told_cpu():
         ({"mesh": {"tp": 2}}, "mesh"),
         ({"model": "moe-tiny", "mesh": {"ep": 2}}, "mesh"),
         ({"kv-quantize": "int8"}, "kv-layout: paged"),
-        ({"adapter-store": {"rank": 4}}, "adapter-store"),
+        # adapter-store is served since the multi-LoRA slice
+        # (tests/test_torch_lora_engine.py); on this dense layout it is the
+        # JAX engine's ValueError, not a NotImplementedError
+        pytest.param({"adapter-store": {"rank": 4}}, "adapter-store requires kv-layout=paged",
+                     id="overrides3-adapter-store"),
         # prefix-store and pool-role are served since the KV-tiers slice
         # (tests/test_torch_prefixstore.py, test_torch_kvtransfer.py); the
         # cases after them keep their ids
@@ -209,6 +213,12 @@ def test_engine_needs_the_card_unless_told_cpu():
 )
 def test_unsupported_settings_raise_naming_the_roadmap(overrides, match):
     cfg = ServingConfig.from_dict({"model": "tiny", **overrides})
+    if "adapter-store" in overrides:
+        with pytest.raises(ValueError, match=match):
+            TorchServingEngine(cfg, device="cpu")
+        with pytest.raises(ValueError, match=match):
+            TpuServingEngine(JaxServingConfig.from_dict({"model": "tiny", **overrides}))
+        return
     with pytest.raises(NotImplementedError, match=match) as info:
         TorchServingEngine(cfg, device="cpu")
     assert "ROADMAP.md" in str(info.value)

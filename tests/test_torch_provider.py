@@ -431,9 +431,9 @@ def test_get_or_create_one_engine_per_config_and_device():
     assert asyncio.run(b.generate("hi", {"max-tokens": 3}))["tokens"] == first["tokens"]
     # a refused key holding a raw mapping is refused before the config is
     # hashed; a qos section parses into a hashable spec and shares
-    with pytest.raises(NotImplementedError, match="adapter-store"):
+    with pytest.raises(NotImplementedError, match="faults"):
         TorchServingEngine.get_or_create(
-            ServingConfig.from_dict({"model": "tiny", "adapter-store": {"rank": 4}}), "cpu")
+            ServingConfig.from_dict({"model": "tiny", "faults": [{"site": "prefill"}]}), "cpu")
     qos = {"model": "tiny", "model-dtype": "float32", "qos": {"classes": {}}}
     q = TorchServingEngine.get_or_create(ServingConfig.from_dict(qos), "cpu")
     assert TorchServingEngine.get_or_create(ServingConfig.from_dict(qos), "cpu") is q
