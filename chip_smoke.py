@@ -123,6 +123,33 @@ Phases (every one unguarded: any failure exits non-zero):
    repetitive prompts: the verify's (B, T) multi-query calls with the
    adapter rows of the speculative dispatches, tokens per step, then the
    same with speculation off and the common prefix (printed);
+   main path K: the device-survival plane and the drain at llama3-8b int8
+   on path A's params (run after J), the chat example's resource with
+   paged int8 KV, the pipelined loop and ``shrink-recovery-s: 2``. K1: a
+   64-request greedy wave (path F's lengths and budgets) unfaulted (inert
+   plans count the seams' passes), then under two allocator failures at
+   pool-grow (at half the unfaulted wave's passes) and one at the third
+   prefill: every request completes within its budget, preemptions equal
+   resumes, ``pool-shrink`` events name their site after their
+   ``fault-injected`` events, the budget is restored to 0 within 10 s of
+   the last shrink, the block manager ends idle, one fetch per chunk; ms
+   per step, tok/s and the share of greedy tokens equal to the unfaulted
+   wave (int8 KV: not required equal); a genuine out-of-memory error from
+   the card is classified as an allocator failure. K2: a ``fetch`` hang of
+   three wedge windows (6 s) in a wave of 16: ``health()`` wedged during
+   it, ok after, every request complete; path I2's pair with a ``scatter``
+   failure on the decode pool shrinks and serves every import. K3: a child
+   process (``--k3-child``) builds llama3-8b at 8 of 32 layers from a seed
+   with a journal, accepts 32 requests behind a hung prefill and is killed
+   with SIGKILL; an engine here on the same seed and directory replays
+   them: the same weight checksum, all served, each entry retired once,
+   the journal empty, one ``journal-replay`` event. K4: a wave of 64
+   drained (grace 120 s) after its first chunk: requeued equals the slots
+   occupied at the preempt pass, 64 completed, nothing shed but a refused
+   submission; a fresh wave drained with a 0.5 s grace: completed and shed
+   cover it, no future pending; then the port's module-level
+   ``drain_engines``, ``flight_report``, ``attribution_report`` and
+   ``profile_engines`` over those engines;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -141,8 +168,12 @@ Phases (every one unguarded: any failure exits non-zero):
    streams are one stream on both devices; handoffs whose export is made
    on the card and import on the CPU, and the reverse, equal to CPU->CPU;
    paged f32 and int8 KV under one adapter, equal on both devices and to
-   a store-less engine whose weights carry the adapter merged offline);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-J),
+   a store-less engine whose weights carry the adapter merged offline;
+   the survival plane on paged f32 and int8 KV with the pipelined loop
+   under the mixed load: unfaulted, under K1's chaos plan and drained
+   mid-wave, one stream on both devices, and a journal written on the card
+   replays on the CPU to it);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-K),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2290,24 +2321,27 @@ def i2_prompts() -> list[str]:
 
 
 def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
-                       device="cuda") -> dict:
+                       device="cuda", dec_faults=None) -> dict:
     """Path I2: the chat example's resource with paged bf16 KV as a
     ``combined`` engine, then as a ``pool-role: prefill`` engine whose 16
     exports (``take_export``) land in a ``pool-role: decode`` engine
     (``import_handoff``), all three on the same weights: bf16 rows through
     the wire as raw 2-byte words. The 16 arrive together at every engine, so
     the prefill batches and the decode chunks are the same; the decoded
-    greedy tokens must equal the combined engine's."""
+    greedy tokens must equal the combined engine's. With ``dec_faults``
+    (path K2) the decode engine is armed with them and must also shrink its
+    budget at an injected ``scatter`` failure and serve every import."""
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
     base.update({"kv-layout": "paged", "prefix-cache": False})
     prompts = i2_prompts()
     opts = {"max-tokens": I2_MAX_TOKENS, "temperature": 0}
-    label = "I2 pool roles"
+    label = "K2 scatter fault on the decode pool" if dec_faults else "I2 pool roles"
 
     def make(role):
-        return TorchServingEngine(ServingConfig.from_dict({**base, "pool-role": role}),
+        extra = {"faults": dec_faults} if dec_faults and role == "decode" else {}
+        return TorchServingEngine(ServingConfig.from_dict({**base, "pool-role": role, **extra}),
                                   device=device, params=params)
 
     reset_counts()
@@ -2333,12 +2367,13 @@ def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
             got = await asyncio.gather(*(dec.import_handoff(p) for p in payloads))
             return (tickets, payloads, got, time.monotonic() - t_imp,
                     _events_since(pre, 0, "kv-export"), _events_since(dec, 0, "kv-import"),
-                    pre.stats(), dec.stats())
+                    pre.stats(), dec.stats(), dec.flight.recent_events(0))
         finally:
             await pre.close()
             await dec.close()
 
-    tickets, payloads, got, import_wall, exports, imports, st_pre, st_dec = asyncio.run(run_pair())
+    (tickets, payloads, got, import_wall, exports, imports, st_pre, st_dec,
+     dec_events) = asyncio.run(run_pair())
     wall = time.monotonic() - t0
     counts = read_counts()
     for name, engine in (("prefill", pre), ("decode", dec)):
@@ -2362,6 +2397,14 @@ def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
         fail(f"{label}: {st_dec['kvtransfer']} imports, launches {counts}")
     if st_dec["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
         fail(f"{label}: host_fetches_per_chunk != 1.0")
+    if dec_faults:
+        survival = st_dec["survival"]
+        shrinks = [e for e in dec_events if e["kind"] == "pool-shrink"]
+        if (survival["shrinks"] < 1 or [e["site"] for e in shrinks][:1] != ["scatter"]
+                or any(f["fired"] != f["count"] for f in survival["faults"])):
+            fail(f"{label}: the scatter failure must shrink the budget: {survival}, {shrinks}")
+        print(f"path K [{label}]: shrinks={survival['shrinks']} at "
+              f"{[e['site'] for e in shrinks]}, every import served", flush=True)
     sizes = sorted(len(p) for p in payloads)
     exp_ms = sorted(e["ms"] for e in exports)
     exp_dev = sorted(e["device_ms"] for e in exports)
@@ -2876,6 +2919,608 @@ def phase_lora_spec_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path K: the device-survival plane and the drain
+# ---------------------------------------------------------------------------
+
+def k1_plan(grow_passes: int) -> list:
+    """K1's chaos plan: two allocator failures in a row at a pool-grow pass
+    (a decode or admission block growth) half way through ``grow_passes``,
+    the unfaulted wave's pool-grow passes (64 requests make about 18), so
+    they land mid-wave whatever the burst structure; one at the third
+    prefill."""
+    return [{"site": "pool-grow", "after": grow_passes // 2, "count": 2, "shape": "oom"},
+            {"site": "prefill", "after": 2, "count": 1, "shape": "oom"}]
+K_REQUESTS = 64
+#: K2's wedge-window-s: above the longest gap between two recorded
+#: dispatches at llama3-8b on the card (~5 s: a pipelined burst records its
+#: first chunk after the second chunk's launches, ~2.4 s each; a 2 s window
+#: read every chunk, a 4 s one the burst's start, as a wedge); the fetch
+#: hangs for three windows
+K2_WEDGE_S = 6.0
+K2_REQUESTS = 16
+K3_LAYERS = 8         # K3's crashed child and its replaying successor
+K3_REQUESTS = 32
+K3_SEED = 7
+
+
+def k_resource(resource: dict = CHAT_EXAMPLE_RESOURCE) -> dict:
+    """Path K's serving configuration: the chat example's resource with
+    paged int8 KV, the pipelined loop (the default) and a 2 s recovery
+    window; no warmup, so the fault plans count the wave's passes only."""
+    base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
+    return {**base, "kv-layout": "paged", "kv-quantize": "int8", "pipeline": True,
+            "shrink-recovery-s": 2.0}
+
+
+def _k_wave_line(label, stats, before, wall) -> dict:
+    dc, dc0 = stats["decode-chunks"], before["decode-chunks"]
+    steps, secs = dc["steps"] - dc0["steps"], dc["seconds"] - dc0["seconds"]
+    gen = stats["total-generated"] - before["total-generated"]
+    line = {"wall_s": round(wall, 3),
+            "ms_per_step": round(secs / steps * 1e3, 2) if steps else None,
+            "decode_tok_s": round(gen / secs, 1) if secs else None,
+            "host_fetches_per_chunk": dc["host_fetches_per_chunk"]}
+    print(f"path K [{label}]: {json.dumps(line)}", flush=True)
+    return line
+
+
+def _k_check_idle(label, engine) -> None:
+    kv = engine.stats()["kv"]
+    if kv["reserved_blocks"] or kv["live_blocks"] or engine._deferred_releases:
+        fail(f"{label}: the block manager is not idle: {kv}")
+
+
+def phase_chaos_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                     device="cuda") -> tuple:
+    """K1: a greedy wave of ``K_REQUESTS`` (path F's lengths and budgets)
+    without faults, then the same wave under :func:`k1_plan`'s faults, on the same
+    weights. Hard checks: every request completes within its budget,
+    preemptions equal resumes, a ``pool-shrink`` event naming its site
+    after its ``fault-injected`` event, a ``pool-restore`` that brings the
+    withheld blocks back to 0 within 10 s of the last shrink, an idle block
+    manager and one fetch per chunk. Recorded: ms per step and decode tok/s
+    of both waves, the share of greedy tokens equal to the unfaulted wave's
+    (int8 KV: not required equal). Then a genuine out-of-memory error from
+    the card must be classified as an allocator failure."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    requests = saturated_requests(K_REQUESTS)
+    cfg = k_resource(resource)
+
+    def wave(faults):
+        engine = TorchServingEngine(ServingConfig.from_dict(
+            {**cfg, **({"faults": faults} if faults else {})}), device=device, params=params)
+        preempted = []
+        real_preempt = engine._preempt_slot
+
+        def note_preempt(slot_id, *args, **kwargs):
+            preempted.append(kwargs.get("reason", args[0] if args else None))
+            real_preempt(slot_id, *args, **kwargs)
+
+        engine._preempt_slot = note_preempt
+
+        async def run():
+            try:
+                before = engine.stats()
+                t0 = time.monotonic()
+                results = await asyncio.gather(*(
+                    engine.generate(p, {"max-tokens": m, "temperature": 0})
+                    for p, m in requests))
+                wall = time.monotonic() - t0
+                # the recovery probe restores one quantum per quiet window
+                t_wait = time.monotonic()
+                while engine.block_mgr.budget_reduction and time.monotonic() - t_wait < 30:
+                    await asyncio.sleep(0.05)
+                await engine.settled()
+                return results, wall, before
+            finally:
+                await engine.close()
+
+        results, wall, before = asyncio.run(run())
+        return engine, results, wall, before, preempted
+
+    reset_counts()
+    # the unfaulted wave carries inert plans: they fire never and count the
+    # seams' passes (an armed plan that never fires changes no token)
+    clean, want, wall0, before0, _ = wave([{"site": "pool-grow", "after": 10 ** 9},
+                                           {"site": "prefill", "after": 10 ** 9}])
+    line0 = _k_wave_line("K1 unfaulted", clean.stats(), before0, wall0)
+    _k_check_idle("K1 unfaulted", clean)
+    passes = {f["site"]: f["seen"] for f in clean.stats()["survival"]["faults"]}
+    plan = k1_plan(passes["pool-grow"])
+    print(f"path K [K1]: the unfaulted wave passed the seams {passes}; chaos plan {plan}",
+          flush=True)
+    del clean
+    gc.collect()
+    engine, got, wall1, before1, preempted = wave(plan)
+    counts = read_counts()
+    stats = engine.stats()
+    line1 = _k_wave_line("K1 chaos", stats, before1, wall1)
+    label = "K1 chaos"
+    for i, ((_, budget), r) in enumerate(zip(requests, got)):
+        if not 0 < len(r["tokens"]) <= budget or r["finish_reason"] not in ("stop", "length"):
+            fail(f"{label}: request {i} returned {len(r['tokens'])} tokens of {budget}, "
+                 f"finish_reason {r['finish_reason']!r}")
+    events = engine.flight.recent_events(0)
+    kinds = [e["kind"] for e in events]
+    resumes = engine.flight.events_by_type.get("resume", 0)
+    if len(preempted) != resumes:
+        fail(f"{label}: {len(preempted)} preemptions ({preempted}) against {resumes} resumes")
+    shrinks = [e for e in events if e["kind"] == "pool-shrink"]
+    if not shrinks or any(not e.get("site") for e in shrinks):
+        fail(f"{label}: no pool-shrink event naming its site: {shrinks}")
+    if "fault-injected" not in kinds or kinds.index("fault-injected") > kinds.index(
+            "pool-shrink"):
+        fail(f"{label}: no fault-injected event before the first pool-shrink: {kinds[:40]}")
+    fired = stats["survival"]["faults"]
+    if any(f["fired"] != f["count"] for f in fired):
+        fail(f"{label}: a fault plan did not fire in full (the chaos did not arm): {fired}")
+    restores = [e for e in events if e["kind"] == "pool-restore"]
+    last_shrink, last_restore = shrinks[-1]["m_s"], (restores[-1]["m_s"] if restores else None)
+    if (stats["survival"]["withheld_blocks"] or last_restore is None
+            or last_restore - last_shrink > 10.0):
+        fail(f"{label}: the budget was not restored to 0 within 10 s of the last shrink: "
+             f"{stats['survival']}, restores {restores}")
+    _k_check_idle(label, engine)
+    if stats["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk {stats['decode-chunks']['host_fetches_per_chunk']}")
+    same = sum(1 for a, b in zip(want, got) for x, y in zip(a["tokens"], b["tokens"]) if x == y)
+    total = sum(len(a["tokens"]) for a in want)
+    print(f"path K [{label}]: shrinks={stats['survival']['shrinks']} "
+          f"restores={stats['survival']['restores']} preempted={len(preempted)} "
+          f"(by reason {dict((r, preempted.count(r)) for r in set(preempted))}) "
+          f"resumes={resumes} restore_s_after_last_shrink="
+          f"{round(last_restore - last_shrink, 3)} shrink_sites="
+          f"{[e['site'] for e in shrinks]} faults={fired}; greedy tokens equal to the "
+          f"unfaulted wave: {same}/{total} ({same / total:.4f}); launches={counts}", flush=True)
+    del engine
+    gc.collect()
+    if device != "cuda":
+        return counts, line0, line1
+    # a genuine allocator refusal on the card: more bytes than it holds
+    try:
+        torch.empty(torch.cuda.get_device_properties(0).total_memory * 2,
+                    dtype=torch.uint8, device=device)
+        fail("K1: an allocation of twice the card's memory succeeded")
+    except RuntimeError as e:  # torch.OutOfMemoryError is a RuntimeError
+        if not TorchServingEngine._resource_exhausted(e):
+            fail(f"K1: the classifier missed a genuine {type(e).__name__}: {e}")
+        print(f"path K [K1]: a genuine {type(e).__module__}.{type(e).__name__} "
+              f"({str(e).splitlines()[0][:90]}...) is classified resource-exhausted",
+              flush=True)
+    torch.cuda.empty_cache()
+    return counts, line0, line1
+
+
+def phase_wedge_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                     device="cuda") -> dict:
+    """K2: a ``fetch`` hang of three wedge windows during a wave of
+    ``K2_REQUESTS``: ``health()`` reads WEDGED while it lasts and ok after,
+    every request completes. Then path I2's pair (bf16 KV) with a ``scatter``
+    allocator failure on the decode pool: it shrinks and serves every
+    import (I2's checks hold: the combined engine's tokens)."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    cfg = {**k_resource(resource), "wedge-window-s": K2_WEDGE_S,
+           "faults": [{"site": "fetch", "shape": "hang", "after": 3,
+                       "hang-ms": 3 * K2_WEDGE_S * 1000.0}]}
+    requests = saturated_requests(K2_REQUESTS)
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+    async def run():
+        try:
+            tasks = [asyncio.ensure_future(engine.generate(
+                p, {"max-tokens": m, "temperature": 0})) for p, m in requests]
+            states, t0 = [], time.monotonic()
+            while not all(t.done() for t in tasks):
+                states.append((round(time.monotonic() - t0, 2), engine.health()["state"]))
+                await asyncio.sleep(0.1)
+            results = await asyncio.gather(*tasks)
+            for _ in range(100):
+                if engine.health()["state"] == "ok":
+                    break
+                await asyncio.sleep(0.1)
+            return states, results, engine.health()
+        finally:
+            await engine.close()
+
+    reset_counts()
+    states, results, health = asyncio.run(run())
+    counts = read_counts()
+    label = "K2 wedge"
+    for i, ((_, budget), r) in enumerate(zip(requests, results)):
+        if not 0 < len(r["tokens"]) <= budget:
+            fail(f"{label}: request {i} returned {len(r['tokens'])} tokens of {budget}")
+    wedged = [i for i, (_, s) in enumerate(states) if s == "wedged"]
+    # wedged only while the hang lasts: one unbroken run of wedged readings,
+    # shorter than the hang (the heartbeat's age crosses the window inside it)
+    if (not wedged or wedged[-1] - wedged[0] + 1 != len(wedged)
+            or states[wedged[-1]][0] - states[wedged[0]][0] > 3 * K2_WEDGE_S
+            or health["state"] != "ok"):
+        fail(f"{label}: health must read wedged during the hang and ok after: "
+             f"{states}, final {health}")
+    wedged = [states[i][0] for i in wedged]
+    fired = engine.stats()["survival"]["faults"]
+    if fired[0]["fired"] != 1:
+        fail(f"{label}: the hang did not fire: {fired}")
+    print(f"path K [{label}]: wedged from {wedged[0]} s to {wedged[-1]} s of the wave "
+          f"(hang {3 * K2_WEDGE_S:.1f} s, window {K2_WEDGE_S:.1f} s), health after "
+          f"{health['state']}; {len(results)} requests complete; launches={counts}",
+          flush=True)
+    del engine
+    gc.collect()
+    i2_counts = phase_handoff_path(torch, params, resource, device,
+                                   dec_faults=[{"site": "scatter", "count": 1}])
+    return {k: counts[k] + i2_counts[k] for k in counts}
+
+
+def weights_checksum(params) -> str:
+    """A digest of every weight tensor, sampled every 997th element (both
+    sides of K3 make their weights from one seed)."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                walk(tree[key])
+        elif hasattr(tree, "q"):
+            walk(tree.q)
+            walk(tree.s)
+        else:
+            sample = tree.reshape(-1)[::997].to("cpu")
+            if sample.dtype == torch.bfloat16:
+                sample = sample.float()  # exact; numpy has no bf16
+            digest.update(sample.numpy().tobytes())
+
+    walk(params)
+    return digest.hexdigest()[:16]
+
+
+def k3_config(journal_dir: str, resource: dict) -> dict:
+    return {**k_resource(resource), "seed": K3_SEED, "journal-dir": journal_dir}
+
+
+def k3_child(journal_dir: str, device: str = "cuda",
+             resource: dict = CHAT_EXAMPLE_RESOURCE) -> int:
+    """K3's crashing process: llama3-8b at ``K3_LAYERS`` layers from the
+    seed, a journal in ``journal_dir``, a prefill that hangs for ten minutes
+    so nothing it accepts is answered; it accepts ``K3_REQUESTS``, flushes
+    the journal, prints its weight checksum and waits for its SIGKILL."""
+    import torch
+
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    if device == "cuda" and not torch.cuda.is_available():
+        return 2
+    with cut_depth(resource["configuration"]["model"], K3_LAYERS):
+        engine = TorchServingEngine(ServingConfig.from_dict({
+            **k3_config(journal_dir, resource),
+            "faults": [{"site": "prefill", "shape": "hang", "hang-ms": 600000.0}]}),
+            device=device)
+    print(f"K3 child checksum {weights_checksum(engine.params)}", flush=True)
+
+    async def accept():
+        tasks = [asyncio.ensure_future(engine.generate(p, {"max-tokens": m, "temperature": 0}))
+                 for p, m in saturated_requests(K3_REQUESTS)]
+        await asyncio.sleep(0)
+        if not engine.journal.flush(30.0) or engine.journal.stats()["live"] != K3_REQUESTS:
+            print(f"K3 child journal {engine.journal.stats()}", flush=True)
+            return
+        print(f"K3 child journaled {engine.journal.stats()['live']}", flush=True)
+        await asyncio.sleep(3600)  # the parent kills this process
+        del tasks
+
+    asyncio.run(accept())
+    return 1
+
+
+def phase_crash_requeue_path(torch, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                             device="cuda") -> dict:
+    """K3: a child process accepts ``K3_REQUESTS`` into its journal and is
+    killed with SIGKILL; an engine here, on the same seed and directory,
+    replays them. Hard checks: the same weight checksum, every request
+    served, each entry retired once, the journal's depth 0, a
+    ``journal-replay`` event with the count. Recorded: the seconds from the
+    engine's construction to the last replayed completion."""
+    import shutil
+    import signal
+    import tempfile
+
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    label = "K3 crash-requeue"
+    journal_dir = tempfile.mkdtemp(prefix="ls-journal-")
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--k3-child",
+                              journal_dir, device, json.dumps(resource)],
+                             stdout=subprocess.PIPE, text=True)
+    lines = []
+    try:
+        t_child = time.monotonic()
+        for line in child.stdout:
+            lines.append(line.strip())
+            if line.startswith("K3 child journal"):
+                break
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+        child.stdout.close()
+    print(f"path K [{label}]: child {lines} killed with SIGKILL after "
+          f"{time.monotonic() - t_child:.1f} s, exit {child.returncode}", flush=True)
+    if not any(line == f"K3 child journaled {K3_REQUESTS}" for line in lines):
+        fail(f"{label}: the child did not journal {K3_REQUESTS} requests: {lines}")
+    child_sum = next(line.split()[-1] for line in lines if line.startswith("K3 child checksum"))
+    reset_counts()
+    t0 = time.monotonic()
+    with cut_depth(resource["configuration"]["model"], K3_LAYERS):
+        engine = TorchServingEngine(ServingConfig.from_dict(k3_config(journal_dir, resource)),
+                                    device=device)
+    ours = weights_checksum(engine.params)
+    replayed = []
+    requeue = engine.scheduler.requeue_front
+
+    def capture(request):
+        if request.journey_id and request.preemptions == 0:
+            replayed.append(request)
+        requeue(request)
+
+    engine.scheduler.requeue_front = capture
+
+    async def run():
+        try:
+            fresh = await engine.generate("a fresh request after the restart",
+                                          {"max-tokens": 8, "temperature": 0})
+            results = await asyncio.wait_for(
+                asyncio.gather(*(r.future for r in replayed)), 600)
+            done_s = time.monotonic() - t0
+            for _ in range(200):
+                if engine.journal.depth() == 0:
+                    break
+                await asyncio.sleep(0.05)
+            return fresh, results, done_s, engine.journal.stats(), engine.journal.depth()
+        finally:
+            await engine.close()
+
+    fresh, results, done_s, jstats, depth = asyncio.run(run())
+    shutil.rmtree(journal_dir, ignore_errors=True)
+    counts = read_counts()
+    events = [e for e in engine.flight.recent_events(0) if e["kind"] == "journal-replay"]
+    if ours != child_sum:
+        fail(f"{label}: weight checksums differ: child {child_sum}, here {ours}")
+    if len(results) != K3_REQUESTS or any(not r["tokens"] for r in results) or not fresh["tokens"]:
+        fail(f"{label}: {len(results)} of {K3_REQUESTS} replayed requests served")
+    if (jstats["replayed"] != K3_REQUESTS or jstats["retired"] != K3_REQUESTS + 1
+            or jstats["live"] or depth):
+        fail(f"{label}: each entry must retire once and the depth end 0: {jstats}, "
+             f"depth {depth}")
+    if [e["requests"] for e in events] != [K3_REQUESTS]:
+        fail(f"{label}: journal-replay events {events}")
+    print(f"path K [{label}]: checksum {ours} on both sides; {len(results)} replayed "
+          f"requests served, the last {done_s:.3f} s after the engine's construction; "
+          f"journal {jstats}; launches={counts}", flush=True)
+    del engine
+    gc.collect()
+    return counts
+
+
+def phase_drain_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                     device="cuda") -> dict:
+    """K4: a wave of ``K_REQUESTS`` drained (grace 120 s) after its first
+    chunk: the requeued count equals the slots occupied at the preempt
+    pass, every request completes, none is shed, a submission during the
+    drain is refused with ``RateLimited``. Then a fresh wave drained with a
+    0.5 s grace: completed and shed add up to the wave and no future is
+    left pending. Then the port's module-level ``drain_engines``,
+    ``flight_report``, ``attribution_report`` and ``profile_engines`` over
+    the two engines."""
+    import tempfile
+
+    from langstream_tpu_torch.serving import engine as engine_module
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.qos import RateLimited
+
+    requests = saturated_requests(K_REQUESTS)
+    cfg = ServingConfig.from_dict(k_resource(resource))
+    engines = []
+
+    def drained_wave(grace_s):
+        engine = TorchServingEngine(cfg, device=device, params=params)
+        engines.append(engine)
+        occupied = []
+        real_pass = engine._drain_preempt_pass
+
+        def note_pass():
+            occupied.append(sum(1 for s in engine.slots
+                                if s.request is not None and not s.request.future.done()))
+            return real_pass()
+
+        engine._drain_preempt_pass = note_pass
+
+        async def run():
+            tasks = [asyncio.ensure_future(engine.generate(
+                p, {"max-tokens": m, "temperature": 0})) for p, m in requests]
+            while engine._decode_fetches < 1:  # the wave's first chunk landed
+                await asyncio.sleep(0.005)
+            t0 = time.monotonic()
+            drain = asyncio.ensure_future(engine.drain(grace_s=grace_s))
+            await asyncio.sleep(0)
+            try:
+                await engine.generate("a submission during the drain", {"max-tokens": 4})
+                refused = None
+            except RateLimited as e:
+                refused = e.reason
+            report = await drain
+            wall = time.monotonic() - t0
+            done = await asyncio.gather(*tasks, return_exceptions=True)
+            return report, wall, refused, done, [t.done() for t in tasks]
+
+        return (*asyncio.run(run()), occupied, engine)
+
+    reset_counts()
+    report, wall, refused, done, finished, occupied, engine = drained_wave(120.0)
+    label = "K4 drain"
+    errors = [r for r in done if isinstance(r, BaseException)]
+    if (report["requeued"] != (occupied[0] if occupied else -1) or report["completed"]
+            != K_REQUESTS or report["shed"] != 1 or errors or refused != "draining"):
+        fail(f"{label}: report {report} with {occupied} occupied at the pass, "
+             f"refusal {refused!r}, errors {errors[:3]}")
+    _k_check_idle(label, engine)
+    print(f"path K [{label}, grace 120 s]: {json.dumps(report)} (the one shed is the "
+          f"refused submission); {occupied[0]} slots occupied at the pass; drained in "
+          f"{wall:.3f} s", flush=True)
+    report2, wall2, _, done2, finished2, occupied2, engine2 = drained_wave(0.5)
+    shed = [r for r in done2 if isinstance(r, RateLimited) and r.reason == "draining"]
+    served = [r for r in done2 if isinstance(r, dict)]
+    if (not all(finished2) or len(shed) + len(served) != K_REQUESTS
+            or report2["completed"] + report2["shed"] - 1 != K_REQUESTS):
+        fail(f"{label}, grace 0.5 s: report {report2}, {len(served)} served, {len(shed)} "
+             f"shed, pending {finished2.count(False)}")
+    _k_check_idle(f"{label}, grace 0.5 s", engine2)
+    print(f"path K [{label}, grace 0.5 s]: {json.dumps(report2)}; {len(served)} served, "
+          f"{len(shed)} shed explicitly, none pending", flush=True)
+    # the module-level pod seam over the live engines (the engines join the
+    # shared instance map as get_or_create would have put them there)
+    for i, e in enumerate(engines):
+        TorchServingEngine._instances[(f"k4-{i}", str(e.device))] = e
+    trace_dir = tempfile.mkdtemp(prefix="ls-profile-")
+    try:
+        reports = asyncio.run(engine_module.drain_engines(grace_s=5.0))
+        summary = engine_module.flight_report(summary_only=True)
+        attribution = engine_module.attribution_report()
+        started = engine_module.profile_engines("start", trace_dir)
+        stopped = engine_module.profile_engines("stop")
+    finally:
+        TorchServingEngine.reset_instances()
+        for e in engines:  # joins a dispatch the shed wave left running
+            asyncio.run(e.close())
+    counts = read_counts()
+    if (len(summary) != 2 or len(attribution) != 2 or not all(started.values())
+            or not all(stopped.values()) or any("survival" not in s for s in summary)):
+        fail(f"{label}: the pod seam over the live engines: {reports}, {len(summary)} "
+             f"flight entries, {len(attribution)} attribution entries, {started}, {stopped}")
+    print(f"path K [{label}]: drain_engines {reports}; flight_report(summary_only) "
+          f"{len(summary)} entries with {sorted(summary[0])}; attribution_report "
+          f"{len(attribution)}; profile_engines start {started} stop {stopped}", flush=True)
+    del engine, engine2, engines
+    gc.collect()
+    return counts
+
+
+def survival_round_trip(torch, cfg: dict, device: str, params) -> dict:
+    """Phase 5's survival layouts on one device, under the mixed-length load
+    on 3 slots: the greedy streams unfaulted, under K1's chaos plan (its
+    pool-grow ``after`` scaled to this load), and drained mid-wave."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    prompts, budgets = survival_load()
+    plan = k1_plan(12)  # this load passes pool-grow about 14 times
+
+    async def wave(engine, on_token=None):
+        return await asyncio.gather(*(
+            engine.generate(p, {"max-tokens": m, "temperature": 0}, on_token=on_token)
+            for p, m in zip(prompts, budgets)))
+
+    def run(extra, scenario):
+        engine = TorchServingEngine(ServingConfig.from_dict({**cfg, **extra}), device=device,
+                                    params=params)
+
+        async def main():
+            try:
+                return await scenario(engine)
+            finally:
+                await engine.close()
+
+        return asyncio.run(main()), engine
+
+    async def drained(engine):
+        gate, held, seen = asyncio.Event(), asyncio.Event(), [0]
+
+        async def on_token(token, logprob, last):
+            seen[0] += 1
+            if seen[0] == len(prompts) + 2:
+                held.set()
+                await gate.wait()
+
+        task = asyncio.ensure_future(wave(engine, on_token))
+        await held.wait()
+        drain = asyncio.ensure_future(engine.drain(grace_s=120.0))
+        await asyncio.sleep(0)
+        gate.set()
+        report = await drain
+        if report["requeued"] < 1 or report["shed"]:
+            fail(f"card vs CPU survival {cfg} on {device}: drain report {report}")
+        return await task
+
+    clean, _ = run({}, wave)
+    chaos, engine = run({"faults": plan}, wave)
+    survival = engine.stats()["survival"]
+    if survival["shrinks"] < 1 or any(f["fired"] != f["count"] for f in survival["faults"]):
+        fail(f"card vs CPU survival {cfg} on {device}: the chaos plan did not fire: {survival}")
+    drain, _ = run({}, drained)
+    return {name: [r["tokens"] for r in results]
+            for name, results in (("clean", clean), ("chaos", chaos), ("drain", drain))}
+
+
+def survival_load() -> tuple[list, list]:
+    prompts = ["paged cache equivalence", "second prompt!", "a", "judge my vow",
+               "abcdefgh, ijklmnop", "the quick brown fox", "survival plane", "drain me"]
+    return prompts, [5, 12, 9, 16, 7, 21, 11, 14]
+
+
+def journal_across(torch, cfg: dict, src: str, dst: str, params) -> list:
+    """A journal written on ``src`` (its prefill hangs, so nothing it
+    accepts is answered before its loop is abandoned) and replayed on
+    ``dst``; the replayed requests' greedy streams in the order accepted."""
+    import tempfile
+
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    prompts, budgets = survival_load()
+    journal = {"journal-dir": tempfile.mkdtemp(prefix="ls-journal-")}
+
+    async def crash():
+        engine = TorchServingEngine(ServingConfig.from_dict(
+            {**cfg, **journal, "faults": [{"site": "prefill", "shape": "hang",
+                                           "hang-ms": 2000.0}]}), device=src, params=params)
+        tasks = [asyncio.ensure_future(engine.generate(p, {"max-tokens": m, "temperature": 0}))
+                 for p, m in zip(prompts, budgets)]
+        await asyncio.sleep(0)
+        if not engine.journal.flush(10.0) or engine.journal.stats()["live"] != len(prompts):
+            fail(f"card vs CPU journal {cfg}: {engine.journal.stats()}")
+        engine._loop_task.cancel()
+        for t in tasks:
+            t.cancel()
+
+    asyncio.run(crash())
+    engine = TorchServingEngine(ServingConfig.from_dict({**cfg, **journal}), device=dst,
+                                params=params)
+    replayed = []
+    requeue = engine.scheduler.requeue_front
+    engine.scheduler.requeue_front = lambda r: (replayed.append(r) if r.preemptions == 0
+                                                else None, requeue(r))
+
+    async def replay():
+        try:
+            await engine.generate("fresh", {"max-tokens": 2, "temperature": 0})
+            results = await asyncio.wait_for(asyncio.gather(*(r.future for r in replayed)), 120)
+            engine.journal.flush(10.0)
+            return [r["tokens"] for r in reversed(results)], engine.journal.stats()
+        finally:
+            await engine.close()
+
+    tokens, stats = asyncio.run(replay())
+    if stats["replayed"] != len(prompts) or stats["live"]:
+        fail(f"card vs CPU journal {cfg} {src}->{dst}: {stats}")
+    return tokens
+
+
 def adapter_round_trip(torch, cfg: dict, device: str, params) -> tuple:
     """Phase 5's adapter case on one device: greedy tokens of two prompts
     under one adapter (rank 4, ``scale=0.5``), and of a store-less engine
@@ -3171,6 +3816,23 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
               f"exports made on the card decode on the CPU and the reverse with the "
               f"CPU->CPU greedy tokens", flush=True)
 
+    # the survival plane (path K's shapes, tiny): chaos, a drain mid-wave, a
+    # journal written on the card and replayed on the CPU, under the mixed
+    # load with the pipelined loop
+    for layout in ({}, {"kv-quantize": "int8"}):
+        cfg = {**tiny, **layout, "pipeline": True, "shrink-recovery-s": 0.3}
+        out = {name: survival_round_trip(torch, cfg, device, params["tiny"])
+               for name, device in zip(("cuda", "cpu"), devices)}
+        streams = [out[d][k] for d in out for k in ("clean", "chaos", "drain")]
+        replayed = journal_across(torch, cfg, devices[0], devices[1], params["tiny"])
+        if any(t != streams[0] for t in streams + [replayed]):
+            fail(f"card vs CPU survival {layout}: clean, chaos, drained and replayed greedy "
+                 f"streams must be one on both devices:\n{out}\nreplayed {replayed}")
+        print(f"card vs CPU [survival, paged {layout.get('kv-quantize') or 'f32'} KV, "
+              f"pipelined]: unfaulted, K1-chaos and drained greedy streams identical on "
+              f"the card and the CPU; a journal written on the card replays on the CPU to "
+              f"them", flush=True)
+
 
 def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
     """A batch request alone, then again with an interactive request
@@ -3296,6 +3958,24 @@ def main() -> int:
     j2_counts = phase_lora_spec_path(torch, params)
     j_counts = {k: j1_counts[k] + j2_counts[k] for k in j1_counts}
     print(f"path J: {time.monotonic() - t_j:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_k = time.monotonic()
+    k1_counts = phase_chaos_path(torch, params)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2_counts = phase_wedge_path(torch, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3_counts = phase_crash_requeue_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4_counts = phase_drain_path(torch, params)
+    k_counts = {k: sum(c[k] for c in (k1_counts, k2_counts, k3_counts, k4_counts))
+                for k in k1_counts}
+    if k_counts["flash_attention"] == 0 or k_counts["paged_attention_q8"] == 0:
+        fail(f"path K did not launch flash and the int8 paged read: {k_counts}")
+    print(f"path K: {time.monotonic() - t_k:.1f} s", flush=True)
     del params  # path E makes its own weights: two 8B sets never share the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -3328,8 +4008,8 @@ def main() -> int:
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
-             "J": j_counts}
-    meta = {  # launches: summed over the ten main paths
+             "J": j_counts, "K": k_counts}
+    meta = {  # launches: summed over the eleven main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
@@ -3362,4 +4042,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k3-child"]:  # path K3's crashing process
+        sys.path.insert(0, str(REPO))
+        sys.exit(k3_child(sys.argv[2], sys.argv[3], json.loads(sys.argv[4])))
     sys.exit(main())

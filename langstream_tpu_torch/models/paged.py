@@ -192,14 +192,20 @@ class BlockManager:
     segment (:meth:`install_prefix_chain`) that the engine scatters rows
     into. ``on_prefix_evict(digest_hex, block)`` is called when pool
     pressure evicts a cached block with no demotion, so the tier ledgers
-    see every block leave. The pool-shrink budget of the JAX package's
-    manager is not here (ROADMAP.md Queue 1 item 9).
+    see every block leave. The admission budget shrinks and restores
+    (:meth:`reduce_budget`, :meth:`restore_budget`) under the engine's
+    adaptive pool shrink.
     """
 
     def __init__(self, layout: PagedLayout, slots: int):
         self.layout = layout
         self._free = list(range(layout.num_blocks - 1, 0, -1))  # block 0 reserved
         self._reserved = 0
+        # adaptive pool shrink: blocks withheld from the admission budget
+        # after a device allocator failure. A logical reduction only (the
+        # pool tensors stay allocated), floored so the largest admissible
+        # request still fits one day
+        self._budget_reduction = 0
         # tiered prefix store hook: (digest_hex, block) of a cached block
         # that pool pressure evicted without a demotion
         self.on_prefix_evict = None
@@ -453,19 +459,54 @@ class BlockManager:
             and need <= self.layout.max_blocks_per_slot
         )
 
+    # -- adaptive budget (the engine's pool shrink) ----------------------
+
+    @property
+    def configured_blocks(self) -> int:
+        """The configured usable pool (block 0 is scratch)."""
+        return self.layout.num_blocks - 1
+
     @property
     def usable_blocks(self) -> int:
-        """The admission budget (block 0 is scratch)."""
-        return self.layout.num_blocks - 1
+        """The live admission budget: configured minus withheld."""
+        return self.configured_blocks - self._budget_reduction
+
+    @property
+    def budget_reduction(self) -> int:
+        return self._budget_reduction
 
     @property
     def reserved_blocks(self) -> int:
         return self._reserved
 
+    def _budget_floor(self) -> int:
+        """Never below one max-size slot: a request that passed
+        :meth:`fits_ever` must stay admissible under a shrink that never
+        fully restores."""
+        return min(self.layout.max_blocks_per_slot, self.configured_blocks)
+
+    def reduce_budget(self, blocks: int) -> int:
+        """Withhold up to ``blocks`` from the admission budget (clamped at
+        the floor); returns the blocks withheld, 0 at the floor. Existing
+        reservations may exceed the new budget for a while: ``can_admit``
+        refuses new work until completions or preemptions drain them."""
+        actual = max(0, min(int(blocks), self.usable_blocks - self._budget_floor()))
+        self._budget_reduction += actual
+        return actual
+
+    def restore_budget(self, blocks: int | None = None) -> int:
+        """Return withheld blocks to the budget (all of them for None);
+        returns the blocks restored."""
+        actual = (self._budget_reduction if blocks is None
+                  else max(0, min(int(blocks), self._budget_reduction)))
+        self._budget_reduction -= actual
+        return actual
+
     def used_ratio(self) -> float:
-        """Admission pressure: the reserved share of the usable pool (the
+        """Admission pressure: the reserved share of the live budget (the
         flight recorder's ``kv_used``; admission gates on reservations,
-        not on allocated blocks)."""
+        not on allocated blocks, and a shrunk pool reports the pressure
+        admissions face)."""
         usable = self.usable_blocks
         return self._reserved / usable if usable > 0 else 1.0
 
@@ -514,6 +555,9 @@ class BlockManager:
             "num_blocks": self.layout.num_blocks,
             "free_blocks": len(self._free),
             "reserved_blocks": self._reserved,
+            # the live admission budget against the configured one
+            "budget_blocks": self.usable_blocks,
+            "withheld_blocks": self._budget_reduction,
             # distinct physical blocks: a prefix block adopted by several
             # slots counts once
             "live_blocks": len({

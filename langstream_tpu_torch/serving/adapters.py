@@ -288,8 +288,14 @@ class AdapterStore:
         fingerprint: dict[str, Any],
         entry_bytes: int,
         clock: Callable[[], float] = time.monotonic,
+        fault_injector=None,
     ):
         self.spec = spec
+        # the `t2-get` fault seam (serving/faults.py): the engine hands its
+        # armed injector down, so a chaos test can drop or delay the
+        # hydrator's object-storage fetch (a dropped fetch takes the
+        # hydrate-timeout fallback). None in production.
+        self._fault_injector = fault_injector
         self.fingerprint = dict(fingerprint)
         # every adapter in a fleet has identical factor shapes (the
         # fingerprint enforces it), so T0 residency is exact arithmetic
@@ -864,7 +870,20 @@ class AdapterStore:
         self._results.append(("put-done", name, len(blob)))
 
     def _io_fetch(self, storage: PrefixStorage, name: str) -> None:
-        # the `t2-get` fault seam is not ported (faults: ROADMAP.md Queue 1 item 9)
+        if self._fault_injector is not None:
+            action = self._fault_injector.fire("t2-get")
+            if action is not None:
+                # hydrator thread: a stall or drop never touches the engine
+                # loop; a drop reports fetch-missing (the blob "vanished")
+                self._events.append(
+                    ("fault-injected",
+                     {"site": "t2-get", "shape": action.shape, "fire": action.seq})
+                )
+                if action.shape == "delay-ms":
+                    time.sleep(action.hang_ms / 1000.0)
+                elif action.shape in ("drop", "error", "oom", "hang"):
+                    self._results.append(("fetch-missing", name))
+                    return
         try:
             blob = storage.get(name)
         except Exception:

@@ -122,6 +122,26 @@ Execution model:
   being the base model; adapter requests stay out of the prefix cache both
   ways. Without the section no delta is computed.
 
+- Device-survival plane (``serving/faults.py``, ``serving/journal.py``):
+  ``faults`` (or ``LS_TPU_FAULTS``) arms deterministic fault plans at the
+  engine's seams (``pool-grow``, ``prefill``, ``scatter``, ``fetch``,
+  ``t2-get``); a production engine has no injector. A device error that
+  :meth:`TorchServingEngine._resource_exhausted` classifies as an allocator
+  failure (an injected one, the block manager's ``pool exhausted`` or a
+  CUDA out-of-memory) does not fail the in-flight work: the loop withholds
+  ``shrink-fraction`` of the KV admission budget, requeues the slots whose
+  prefill never landed and the lowest-class victims until the
+  reservations fit, and restores one quantum per quiet
+  ``shrink-recovery-s`` (``pool-shrink``/``pool-restore`` flight events).
+  With ``journal-dir`` every accepted request is journaled at submit and
+  retired when the caller is answered; a new engine on the same directory
+  replays what its predecessor never answered, front of class, on its
+  loop's first pass.
+- Drain (:meth:`TorchServingEngine.drain`): admission closes (submissions
+  shed with ``RateLimited("draining")``), the loop's safe point requeues
+  every running request once, the backlog is served within the grace and
+  what is left past it fails loudly.
+
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item; settings that only change latency are accepted and
 logged once. The engine runs on the card (``device="cuda"``) unless the
@@ -134,6 +154,7 @@ import asyncio
 import dataclasses
 import logging
 import os
+import re
 import threading
 import time
 from collections import OrderedDict, deque
@@ -206,7 +227,14 @@ from langstream_tpu_torch.serving.attribution import (
 from langstream_tpu_torch.serving.deadline import (
     DeadlineExceeded,
     deadline_from_options,
+    parse_deadline,
     remaining_s,
+)
+from langstream_tpu_torch.serving.faults import (
+    FaultInjector,
+    FaultPlan,
+    InjectedFault,
+    plans_from_env,
 )
 from langstream_tpu_torch.serving.flight import FlightRecorder
 from langstream_tpu_torch.serving import kvtransfer
@@ -222,8 +250,14 @@ from langstream_tpu_torch.serving.profiling import (
     detect_hbm_capacity,
     detect_hbm_gbps,
 )
+from langstream_tpu_torch.serving.journal import RequestJournal, request_entry
 from langstream_tpu_torch.serving.prefixstore import PrefixStore, PrefixStoreSpec
-from langstream_tpu_torch.serving.qos import QosSpec, RateLimited, normalize_priority
+from langstream_tpu_torch.serving.qos import (
+    QosSpec,
+    RateLimited,
+    normalize_priority,
+    priority_rank,
+)
 from langstream_tpu_torch.serving.sampler import K_MAX, sample_tokens
 from langstream_tpu_torch.serving.scheduler import make_scheduler
 from langstream_tpu_torch.serving.streaming import STREAMS, StreamCancelRegistry, TbtDigest
@@ -251,6 +285,38 @@ _DTYPES = {
 #: the model dtypes as the JAX engine's fingerprint spells them
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
+#: adaptive pool shrink: the preempt-and-retry rounds a request whose
+#: dispatch keeps failing gets before it is shed loudly (the bound that
+#: keeps a deterministic failure from livelocking admit, fail, requeue)
+_SHRINK_RETRY_CAP = 3
+
+#: allocator-failure spellings: the JAX package's (XLA's, and the block
+#: manager's "pool exhausted") and PyTorch's (the caching allocator's
+#: "CUDA out of memory", the runtime's "CUDA error: out of memory",
+#: cuBLAS's workspace refusal). One regex so every catch site agrees.
+_RESOURCE_EXHAUSTED_RE = re.compile(
+    r"RESOURCE_EXHAUSTED"
+    r"|pool exhausted"
+    r"|Out of memory"
+    r"|Failed to allocate"
+    r"|Allocation .* exceeds"
+    r"|CUDA out of memory"
+    r"|CUDA error: out of memory"
+    r"|CUBLAS_STATUS_ALLOC_FAILED"
+)
+#: PyTorch's out-of-memory exception types (``torch.OutOfMemoryError`` and
+#: its older alias under ``torch.cuda``), classified by type
+_OOM_TYPES = tuple({t for t in (getattr(torch, "OutOfMemoryError", None),
+                                getattr(torch.cuda, "OutOfMemoryError", None))
+                    if t is not None})
+
+
+def _fresh_trace_id() -> str:
+    """A new 32-hex trace-id-shaped identifier (the JAX package's
+    ``core.tracing.fresh_trace_id``): the journal keys each accepted
+    request with one."""
+    return os.urandom(16).hex()
+
 
 def _parse_bool(v: Any) -> bool:
     """YAML/env values arrive as strings; bool("false") is True, so parse."""
@@ -264,8 +330,8 @@ class ServingConfig:
     """The ``tpu-serving-configuration`` resource: the same fields, kebab
     keys and defaults as the JAX package's ``ServingConfig``. ``qos``,
     ``slo``, ``prefix-store`` and ``adapter-store`` parse into their frozen
-    specs (so the config stays hashable); ``faults``, a plane this port
-    does not carry yet, is kept as the raw entries the resource gave."""
+    specs and ``faults`` into :class:`FaultPlan` entries (so the config
+    stays hashable)."""
 
     model: str = "tiny"
     slots: int = 8
@@ -360,7 +426,7 @@ class ServingConfig:
             stream_stall_s=float(get("stream-stall-s", 2.0)),
             shrink_fraction=float(get("shrink-fraction", 0.125)),
             shrink_recovery_s=float(get("shrink-recovery-s", 30.0)),
-            faults=tuple(d.get("faults") or ()),
+            faults=tuple(FaultPlan.from_dict(p) for p in (d.get("faults") or ())),
             journal_dir=get("journal-dir", os.environ.get("LS_TPU_JOURNAL_DIR") or None),
             incident_dir=get("incident-dir", os.environ.get("LS_TPU_INCIDENT_DIR") or None),
         )
@@ -373,29 +439,21 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
-    (lambda c: bool(c.faults), "faults: fault injection is ROADMAP.md Queue 1 item 9"),
-    # the JAX engine arms plans from the variable too: a chaos run whose
-    # faults silently failed to arm would pass against a healthy engine
-    (lambda c: bool(os.environ.get("LS_TPU_FAULTS", "").strip()),
-     "LS_TPU_FAULTS: fault injection is ROADMAP.md Queue 1 item 9"),
-    # the JAX engine tests both directories for truthiness: "" serves
-    (lambda c: bool(c.journal_dir),
-     "journal-dir: the crash-requeue journal is ROADMAP.md Queue 1 item 9"),
+    # the JAX engine tests the directory for truthiness: "" serves
     (lambda c: bool(c.incident_dir),
      "incident-dir: incident capture is ROADMAP.md Queue 1 item 9"),
 )
 
-#: accepted settings that change only latency here; logged once when set
-_LATENCY_ONLY = (
-    "paged_kernel", "dense_kernel", "shrink_fraction", "shrink_recovery_s",
-)
+#: accepted settings that change only latency here (the kernel choices the
+#: JAX engine makes between Pallas and XLA paths); logged once when set
+_LATENCY_ONLY = ("paged_kernel", "dense_kernel")
 
 
 def _check_supported(config: ServingConfig) -> None:
     for unsupported, message in _UNSUPPORTED:
         if unsupported(config):
             raise NotImplementedError(f"not in this port yet: {message}")
-    # the JAX engine's bounds, checked though the pool shrink is not ported
+    # the adaptive pool shrink's bounds, the JAX engine's messages
     if not 0.0 < config.shrink_fraction <= 1.0:
         raise ValueError("shrink_fraction must be in (0, 1]")
     if config.shrink_recovery_s <= 0:
@@ -529,6 +587,11 @@ class _Request:
     adapter_row: int = 0
     adapter_hydrate_attempted: bool = False
     adapter_pinned: bool = False
+    # the crash-requeue journal's key (a fresh trace-id-shaped id at
+    # submit; warmup probes have none), and the times an import's scatter
+    # failed on an allocator refusal and was retried
+    journey_id: str | None = None
+    import_retries: int = 0
 
     @property
     def context_tokens(self) -> list[int]:
@@ -869,6 +932,47 @@ class TorchServingEngine:
         self.kv_import_sheds = 0
         self.kv_export_bytes = 0
         self.kv_import_bytes = 0
+        # device-survival plane. A default engine has no injector (each
+        # seam is one attribute test) and no journal; the recovery probe is
+        # one None test per loop pass. Fired faults hand off to the loop
+        # through a deque: the seams run on the loop, the dispatch and fetch
+        # threads and the hydrators, the flight ring is the loop's.
+        plans = tuple(config.faults) or plans_from_env()
+        self._faults: FaultInjector | None = FaultInjector(plans) if plans else None
+        self._fault_fired: deque = deque()
+        self.pool_shrinks = 0
+        self.pool_restores = 0
+        self.shrink_preempted = 0
+        self._shrink_recover_at: float | None = None
+        # requeues and sheds made at a catch site (the chunked-prefill grow,
+        # an import's scatter) before the loop's shrink pass: the pass
+        # counts them as adaptation, so a pool already at its budget floor
+        # does not fall through to failing every request in flight
+        self._shrink_inline_preempted = 0
+        self._shrink_inline_shed = 0
+        self.journal: RequestJournal | None = None
+        self._journal_replay_pending: list = []
+        if config.journal_dir:
+            self.journal = RequestJournal(
+                config.journal_dir,
+                on_evict=lambda rid: self.flight.event("journal-evict", request=rid),
+                # entries of another model or tokenizer are refused at
+                # replay: their token ids mean nothing here
+                fingerprint={"model": config.model,
+                             "tokenizer": config.tokenizer or "byte"},
+            )
+            self._journal_replay_pending = self.journal.pending()
+        # a prefill pool's exports keep their journal entry live until the
+        # decode side answers (:meth:`handoff_settled`): export id -> id
+        self._handoff_journal: "OrderedDict[str, str]" = OrderedDict()
+        # drain: admission closed, the one preempt pass at the safe point
+        # pending or done, and the counts of the drain in progress or done
+        self._draining = False
+        self._drain_pass_done = False
+        self._drain_requeued = 0
+        self._drain_shed = 0
+        self._drain_base_completed = 0
+        self._drain_report: dict[str, Any] | None = None
         # tiered prefix store: T1 host RAM and T2 object storage under the
         # T0 prefix cache (paged engines with the cache on, checked above).
         # Requests waiting on a T2 hydration are stashed off the scheduler,
@@ -884,6 +988,7 @@ class TorchServingEngine:
                 config.prefix_store, fingerprint=self.kv_fingerprint(),
                 block_bytes=self._kv_block_bytes,
                 rows_per_block=self.paged_layout.block_size,
+                fault_injector=self._faults,
             )
             # pool-pressure evictions bypass demotion: record the loss
             self.block_mgr.on_prefix_evict = self._note_prefix_pool_evict
@@ -907,7 +1012,7 @@ class TorchServingEngine:
         if config.adapter_store is not None and config.adapter_store.enabled:
             self.adapter_store = AdapterStore(
                 config.adapter_store, fingerprint=self.adapter_fingerprint(),
-                entry_bytes=self._adapter_entry_bytes(),
+                entry_bytes=self._adapter_entry_bytes(), fault_injector=self._faults,
             )
             n_rows = config.adapter_store.t0_entries + 1
             self._ad_layers = {
@@ -1130,6 +1235,11 @@ class TorchServingEngine:
         )
         # watchdog heartbeat: a recorded dispatch is step progress
         self.watchdog.beat(sample["queue_depth"])
+        if self._shrink_recover_at is not None:
+            # the pool shrink's recovery probe runs at every dispatch as well
+            # as at the loop's passes: a long burst does not hold the
+            # budget down past its quiet windows
+            self._shrink_step()
         if phase == "decode":
             self._decode_s += sample["wall_ms"] / 1000.0
             if self.config.speculative_drafts > 0 and self._spec_auto_disabled:
@@ -1161,8 +1271,8 @@ class TorchServingEngine:
     def _memory_ledger(self) -> dict[str, Any]:
         """Device bytes by owner; the limit is the card's total memory.
         ``in-transit`` names the serialized handoff payloads awaiting
-        pickup; no pool shrink in this port (ROADMAP.md Queue 1 item 9):
-        its term is 0."""
+        pickup; ``kv_pool_withheld_bytes`` the budget the pool shrink
+        withholds (a share of the pool's bytes, which do not move)."""
         return memory_ledger(
             weights_bytes=self._weights_bytes,
             kv_pool_bytes=self._kv_cache_bytes,
@@ -1174,6 +1284,8 @@ class TorchServingEngine:
             limit_bytes=self._hbm_limit,
             limit_source=self._hbm_limit_source,
             in_transit_bytes=self._kv_in_transit_bytes,
+            kv_withheld_bytes=(self.block_mgr.budget_reduction * self._kv_block_bytes
+                               if self.block_mgr is not None else 0),
         )
 
     # ------------------------------------------------------------------
@@ -1309,6 +1421,9 @@ class TorchServingEngine:
         if on_chunk is not None and self.config.streaming:
             # the bounded per-request TBT digest: only streaming engines pay
             request.stream_tbt = TbtDigest()
+        if not _warmup_probe:
+            # the journal's key, shaped as the JAX engine's journey id
+            request.journey_id = _fresh_trace_id()
         if request.deadline is not None and not _warmup_probe:
             left = remaining_s(request.deadline)
             if left <= 0.0:
@@ -1316,18 +1431,32 @@ class TorchServingEngine:
                 # silent late completion
                 raise self._note_deadline_shed(request, "submit", left)
         try:
+            if self._draining and not _warmup_probe:
+                # admission is closed: an explicit shed with a retry hint,
+                # so the gateway resends to a live replica
+                raise RateLimited(
+                    "draining", 1.0,
+                    "engine is draining (scale-down or pod termination in "
+                    "progress); retry against another replica",
+                )
             self.scheduler.submit(request)
         except RateLimited as e:
             # load shed or tenant throttle, refused before any slot or block
             # was touched; callers map it to 429 with Retry-After
             self.flight.event("shed", reason=e.reason, tenant=request.tenant,
                               priority=request.priority, retry_after_s=e.retry_after)
+            if e.reason == "draining":
+                self._drain_shed += 1
             if not _warmup_probe:
                 self._slo_record("shed-rate", False)
             raise
         if not _warmup_probe:
             # the shed-rate objective counts every submission: admitted good
             self._slo_record("shed-rate", True)
+            if self.journal is not None:
+                # accepted now: journaled before the caller holds a future,
+                # retired when finish, shed or failure answers it
+                self.journal.admit(request_entry(request))
             if request.stream_key is not None:
                 # the disconnect-as-cancellation bridge: a cancel by this
                 # key cancels the future (at once if the key was cancelled
@@ -1389,6 +1518,11 @@ class TorchServingEngine:
             "attribution": self.attribution_section(),
             # the watchdog's verdict and the readiness posture
             "health": self.health(),
+            # the drain's posture and its last counts
+            "drain": self._drain_section(),
+            # the live KV budget against the configured one, shrink and
+            # restore counts, the armed faults and the journal
+            "survival": self.survival_section(),
             # launch counters of the port's kernels in this process
             "kernels": {
                 "flash_attention": flash_attention.launches,
@@ -1451,8 +1585,8 @@ class TorchServingEngine:
         the watchdog's heartbeat against the live queue and occupancy and
         runs the degradation predicates over the flight window; a state
         transition is recorded as a ``health`` flight event. The keys are
-        the JAX engine's (``draining`` and ``budget_withheld`` stay at their
-        idle values: the drain and pool-shrink planes are not ported)."""
+        the JAX engine's: a draining engine is alive but not ready, and
+        ``budget_withheld`` is what the pool shrink withholds now."""
         queued = self.scheduler.qsize()
         occupancy = sum(1 for s in self.slots if not s.free)
         tbt_burn = self._tbt_burning()
@@ -1477,9 +1611,11 @@ class TorchServingEngine:
             "slots": self.config.slots,
             **verdict,
             "warmup": warmup,
-            "draining": False,
-            "ready": warmup not in ("pending", "running") and verdict["state"] != "wedged",
-            "budget_withheld": 0,
+            "draining": self._draining,
+            "ready": (warmup not in ("pending", "running") and verdict["state"] != "wedged"
+                      and not self._draining),
+            "budget_withheld": (self.block_mgr.budget_reduction
+                                if self.block_mgr is not None else 0),
         }
         if self.config.streaming:
             out["tbt_burn"] = tbt_burn
@@ -1635,6 +1771,10 @@ class TorchServingEngine:
             self.prefix_store.close()
         if self.adapter_store is not None:
             self.adapter_store.close()
+        if self.journal is not None:
+            # flush the retire tail: the journal left behind replays exactly
+            # the work this process never answered
+            self.journal.close()
         closed = RuntimeError("serving engine closed")
         stashed = [entry[0] for entry in self._prefix_hydrating + self._adapter_hydrating]
         imports = [entry[2] for entry in self._pending_imports]
@@ -1646,6 +1786,110 @@ class TorchServingEngine:
                 request.future.set_exception(closed)
 
     # ------------------------------------------------------------------
+    # drain before termination
+    # ------------------------------------------------------------------
+
+    async def drain(self, grace_s: float = 30.0) -> dict[str, Any]:
+        """Drain this engine for termination: admission closes (submissions
+        and imports are shed with :class:`RateLimited` ``"draining"``), the
+        loop's safe point requeues every running request once (its tokens
+        and sampling settings are the snapshot; a greedy resume equals the
+        undisturbed run) together with the requests stashed for a T2
+        hydration, and the backlog is served. What is left when the grace
+        runs out fails explicitly with :class:`RateLimited`, never silently.
+
+        Returns ``{"requeued", "completed", "shed", "duration_s"}`` (also a
+        ``drain`` flight event and ``stats()["drain"]``). A second call
+        joins the drain with its own grace. Draining is terminal for
+        admission; the engine still answers ``stats()`` and ``health()``."""
+        if self._stop:
+            return {"requeued": 0, "completed": 0, "shed": 0, "duration_s": 0.0,
+                    "stopped": True}
+        start = time.monotonic()
+        if not self._draining:
+            self._draining = True
+            self._drain_pass_done = False
+            self._drain_requeued = 0
+            self._drain_shed = 0
+            self._drain_base_completed = self.completed_requests
+            self._drain_report = None
+            self.flight.event("drain", stage="begin", queued=self.scheduler.qsize(),
+                              inflight=sum(1 for s in self.slots if not s.free))
+        self._event_loop = self._event_loop or asyncio.get_running_loop()
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.ensure_future(self._run_loop())
+        self._wake.set()
+        deadline = start + grace_s
+        while time.monotonic() < deadline:
+            if (self.scheduler.empty() and all(s.free for s in self.slots)
+                    and self._pending_chunk is None and not self._pending_imports
+                    and not self._prefix_hydrating and not self._adapter_hydrating):
+                break
+            await asyncio.sleep(0.02)
+        leftovers = (
+            self.scheduler.qsize() + len(self._pending_imports)
+            + len(self._prefix_hydrating) + len(self._adapter_hydrating)
+            + sum(1 for s in self.slots
+                  if s.request is not None and not s.request.future.done())
+        )
+        if leftovers:
+            # grace spent: _fail_inflight releases every slot and block and
+            # fails the running, queued and stashed futures; the error
+            # carries the retry hint of a 429
+            self._fail_inflight(RateLimited(
+                "draining", 1.0,
+                f"engine drained with {leftovers} requests unfinished after "
+                f"{grace_s:.1f}s grace; retry another replica",
+            ))
+            self._drain_shed += leftovers
+        report = {
+            "requeued": self._drain_requeued,
+            "completed": self.completed_requests - self._drain_base_completed,
+            "shed": self._drain_shed,
+            "duration_s": round(time.monotonic() - start, 3),
+        }
+        self._drain_report = report
+        self.flight.event("drain", stage="end", **report)
+        return report
+
+    def _drain_preempt_pass(self) -> int:
+        """The drain's one preempt-and-requeue of every occupied slot, at
+        the loop's safe point (no chunk in flight, the pending chunk
+        applied, the deferred releases done). Requests stashed for a T2
+        prefix or adapter hydration rejoin the queue too: a drain serves or
+        sheds every accepted request. Returns the requests requeued."""
+        requeued = 0
+        # newest first: each requeues at the front, so arrival order holds
+        for request, *_ in reversed(self._prefix_hydrating + self._adapter_hydrating):
+            if request.future.done():
+                continue
+            self.scheduler.requeue_front(request)
+            requeued += 1
+        self._prefix_hydrating = []
+        self._adapter_hydrating = []
+        for slot_id, slot in enumerate(self.slots):
+            request = slot.request
+            if request is None or request.future.done():
+                continue
+            self._preempt_slot(slot_id, reason="drain")
+            requeued += 1
+        return requeued
+
+    def _drain_section(self) -> dict[str, Any]:
+        """``stats()["drain"]``: the final report once a drain finished,
+        live counters while it runs."""
+        out: dict[str, Any] = {"draining": self._draining}
+        if self._drain_report is not None:
+            out.update(self._drain_report)
+        elif self._draining:
+            out.update({
+                "requeued": self._drain_requeued,
+                "completed": self.completed_requests - self._drain_base_completed,
+                "shed": self._drain_shed,
+            })
+        return out
+
+    # ------------------------------------------------------------------
     # the loop
     # ------------------------------------------------------------------
 
@@ -1655,8 +1899,19 @@ class TorchServingEngine:
         # is no sample's wall time, and the wedge window measures from here
         self.flight.mark()
         self.watchdog.beat(self.scheduler.qsize())
+        if self._journal_replay_pending:
+            # the previous process died with accepted work unanswered:
+            # requeue it front of class before any new admission
+            self._replay_journal(loop)
         while not self._stop:
             try:
+                if self._fault_fired:
+                    # injected faults reach the ring before what they caused
+                    self._drain_fault_events()
+                if self._shrink_recover_at is not None:
+                    # the pool shrink's recovery probe: a quiet window
+                    # restores one quantum (wait-free)
+                    self._shrink_step()
                 if self.prefix_store is not None:
                     # tier bookkeeping first: hydrations that landed requeue
                     # at their class's front, so the admission below sees them
@@ -1679,6 +1934,11 @@ class TorchServingEngine:
                 # settled (the JAX engine's order)
                 if self._pending_chunk is not None:
                     await self._drain_pending(loop)
+                if self._draining and not self._drain_pass_done:
+                    # the drain's one preempt-and-requeue sweep, at the safe
+                    # point; the requeued work re-admits below
+                    self._drain_pass_done = True
+                    self._drain_requeued += self._drain_preempt_pass()
                 if not self.scheduler.empty():
                     # the slots the drained chunk freed admit at once; then,
                     # under QoS, a head stalled on KV blocks may preempt a
@@ -1726,8 +1986,13 @@ class TorchServingEngine:
                     await self._speculative_burst(loop, active)
                 else:
                     await self._decode_burst(loop, active)
-            except Exception as e:  # device/runtime error: fail in-flight work,
-                # free the slots, keep serving (callers see the exception)
+            except Exception as e:  # device/runtime error
+                if self._resource_exhausted(e) and self._maybe_pool_shrink(e):
+                    # memory pressure is a load signal: the budget shrank,
+                    # the victims requeued front of class, nothing failed
+                    continue
+                # otherwise fail the in-flight work, free the slots, keep
+                # serving (callers see the exception)
                 log.exception("serving engine step failed")
                 self._fail_inflight(e)
         if self._pending_chunk is not None:
@@ -1749,6 +2014,9 @@ class TorchServingEngine:
         self._settled.set()
         self._defer_release = False
         self._flush_deferred_releases()
+        # stale inline-adaptation counts must not reach a later shrink
+        self._shrink_inline_preempted = 0
+        self._shrink_inline_shed = 0
         for slot_id, slot in enumerate(self.slots):
             request = slot.request
             if request is None:
@@ -1758,15 +2026,22 @@ class TorchServingEngine:
                 request.future.set_exception(error)
                 if not request.warmup:
                     self._slo_record("availability", False)
-        # imports not yet landed and hydration stashes fail with the loop's
-        # error too: a stash outliving the failure would strand its future
-        for request in ([entry[2] for entry in self._pending_imports]
+            # an explicitly failed request was answered: a restart must not
+            # replay a served error
+            self._journal_retire(request)
+        # queued work, imports not yet landed and hydration stashes fail
+        # with the loop's error too, as in the JAX engine: a stash outliving
+        # the failure would strand its future
+        for request in (self.scheduler.drain()
+                        + [entry[2] for entry in self._pending_imports]
                         + [entry[0] for entry in self._prefix_hydrating]
                         + [entry[0] for entry in self._adapter_hydrating]):
+            self._adapter_release(request)  # a pin kept while queued
             if not request.future.done():
                 request.future.set_exception(error)
                 if not request.warmup:
                     self._slo_record("availability", False)
+            self._journal_retire(request)
         self._pending_imports.clear()
         self._prefix_hydrating = []
         self._adapter_hydrating = []
@@ -1905,6 +2180,274 @@ class TorchServingEngine:
         request.preempt_time = None
 
     # ------------------------------------------------------------------
+    # device-survival plane: fault seams, adaptive pool shrink, journal
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _resource_exhausted(error: BaseException) -> bool:
+        """True for a device allocator failure: PyTorch's out-of-memory
+        types, or a message with one of the JAX package's spellings (an
+        injected fault, the block manager's ``pool exhausted``) or
+        PyTorch's (``CUDA out of memory``, ``CUDA error: out of memory``,
+        ``CUBLAS_STATUS_ALLOC_FAILED``). A spelling this misses fails the
+        in-flight work instead of adapting, so each is pinned by a test."""
+        if _OOM_TYPES and isinstance(error, _OOM_TYPES):
+            return True
+        return bool(_RESOURCE_EXHAUSTED_RE.search(f"{type(error).__name__}: {error}"))
+
+    def _fault(self, site: str) -> None:
+        """The fault-injection seam (tests and chaos drills only): one
+        attribute test on an engine without plans. A fired fault is queued
+        for a ``fault-injected`` flight event at the loop's next safe point
+        (the seams run on several threads, the ring is the loop's), then
+        acted on: an ``oom`` raises :class:`InjectedFault`, a ``hang``
+        stalls the calling thread (the heartbeat stops; ``health()`` reads
+        WEDGED until it ends)."""
+        faults = self._faults
+        if faults is None:
+            return
+        action = faults.fire(site)
+        if action is None:
+            return
+        self._fault_fired.append({
+            "site": site, "shape": action.shape, "fire": action.seq,
+            "hang_ms": action.hang_ms if action.shape == "hang" else None,
+        })
+        if action.shape == "hang":
+            time.sleep(action.hang_ms / 1000.0)
+            return
+        raise InjectedFault(site, action.message)
+
+    def _drain_fault_events(self) -> None:
+        """Emit the queued ``fault-injected`` events (loop thread), before
+        any ``pool-shrink`` they cause: the ring reads cause, then effect."""
+        while self._fault_fired:
+            self.flight.event("fault-injected", **self._fault_fired.popleft())
+
+    def _shed_stranded(self, slot_id: int, error: Exception) -> None:
+        """Shed a request whose prefill keeps failing past
+        ``_SHRINK_RETRY_CAP`` retries: the card cannot serve it now, so the
+        answer is :class:`RateLimited` ``"device-oom"`` with a retry hint
+        (another replica may have the memory), never a livelock and never a
+        silent drop."""
+        request = self.slots[slot_id].request
+        self._release_slot(slot_id)
+        self.flight.event("shed", reason="device-oom", tenant=request.tenant,
+                          priority=request.priority, retry_after_s=2.0,
+                          retries=request.preemptions)
+        if not request.warmup:
+            self._slo_record("availability", False)
+        self._journal_retire(request)
+        if not request.future.done():
+            request.future.set_exception(RateLimited(
+                "device-oom", 2.0,
+                f"device memory pressure persisted across {request.preemptions} "
+                f"adaptation retries ({type(error).__name__}: {error}); retry "
+                f"another replica",
+            ))
+
+    def _shrink_victim(self) -> int | None:
+        """The next victim under memory pressure: the occupied slot of the
+        lowest priority class, the least generated progress breaking ties
+        (the cheapest resume). Mid-prefill slots qualify: their worst-case
+        reservations are the blocks the shrink needs back."""
+        best = best_key = None
+        for slot_id, slot in enumerate(self.slots):
+            request = slot.request
+            if request is None:
+                continue
+            key = (-priority_rank(request.priority), len(request.generated))
+            if best_key is None or key < best_key:
+                best, best_key = slot_id, key
+        return best
+
+    def _maybe_pool_shrink(self, error: Exception) -> bool:
+        """Adapt to an allocator failure instead of failing the work in
+        flight: withhold one quantum (``shrink-fraction`` of the configured
+        pool) from the admission budget, requeue the slots whose monolithic
+        prefill never landed (``_lengths == 0``: no row of theirs is
+        trustworthy, the failed dispatch may have been theirs) or shed them
+        past the retry cap, preempt the lowest-class victims until the
+        reservations fit the budget, and arm the recovery probe. Runs on
+        the loop at the exception edge, where nothing is in flight (the
+        pipelined burst fetched its dispatched chunks before re-raising;
+        their host state is unchanged, so the next dispatch rewrites their
+        rows). False when nothing could be adapted: the caller fails the
+        work loudly."""
+        bm = self.block_mgr
+        if bm is None:
+            return False
+        self._drain_fault_events()  # cause before effect in the ring
+        quantum = max(1, int(bm.configured_blocks * self.config.shrink_fraction))
+        reduced = bm.reduce_budget(quantum)
+        reserved_before = bm.reserved_blocks
+        preempted, shed = self._shrink_inline_preempted, self._shrink_inline_shed
+        self._shrink_inline_preempted = self._shrink_inline_shed = 0
+        for slot_id, slot in enumerate(self.slots):
+            if (slot.request is not None and not slot.prefilling
+                    and int(self._lengths[slot_id]) == 0):
+                if slot.request.preemptions >= _SHRINK_RETRY_CAP:
+                    self._shed_stranded(slot_id, error)
+                    shed += 1
+                else:
+                    self._preempt_slot(slot_id, reason="pool-shrink")
+                    preempted += 1
+        while bm.reserved_blocks > bm.usable_blocks:
+            victim = self._shrink_victim()
+            if victim is None:
+                break
+            self._preempt_slot(victim, reason="pool-shrink")
+            preempted += 1
+        if reduced == 0 and preempted == 0 and shed == 0:
+            return False
+        self.pool_shrinks += 1
+        self.shrink_preempted += preempted
+        self._shrink_recover_at = time.monotonic() + self.config.shrink_recovery_s
+        freed = reserved_before - bm.reserved_blocks
+        # the evidence precedes any admission against the new budget
+        self.flight.event(
+            "pool-shrink",
+            site=getattr(error, "fault_site", None) or "device",
+            error=f"{type(error).__name__}: {error}"[:160],
+            withheld_blocks=reduced, withheld_bytes=reduced * self._kv_block_bytes,
+            freed_blocks=freed, freed_bytes=freed * self._kv_block_bytes,
+            preempted=preempted, shed=shed, budget_blocks=bm.usable_blocks,
+            configured_blocks=bm.configured_blocks,
+            recovery_s=self.config.shrink_recovery_s,
+        )
+        log.warning("device memory pressure (%s): KV budget shrunk to %d/%d blocks, "
+                    "%d victims requeued front of class", type(error).__name__,
+                    bm.usable_blocks, bm.configured_blocks, preempted)
+        return True
+
+    def _shrink_step(self) -> None:
+        """The recovery probe (loop thread, wait-free: at each loop pass and
+        each recorded dispatch): restore one quantum for every quiet
+        ``shrink-recovery-s`` window that has closed since the last
+        allocator failure (which pushed the first window out). The windows
+        keep their schedule whatever the probe's rate (a K=32 chunk can
+        outlast a window), and the budget still comes back one quantum per
+        window, so pressure that persists re-shrinks at once and shows as
+        repeated shrinks, not as a swinging budget. Host bookkeeping only: a
+        restore inside a burst changes what the next admission may
+        reserve."""
+        at = self._shrink_recover_at
+        bm = self.block_mgr
+        now = time.monotonic()
+        if at is None or bm is None or now < at:
+            return
+        quantum = max(1, int(bm.configured_blocks * self.config.shrink_fraction))
+        while at <= now and bm.budget_reduction:
+            restored = bm.restore_budget(quantum)
+            self.pool_restores += 1
+            self.flight.event("pool-restore", restored_blocks=restored,
+                              restored_bytes=restored * self._kv_block_bytes,
+                              budget_blocks=bm.usable_blocks,
+                              configured_blocks=bm.configured_blocks)
+            at += self.config.shrink_recovery_s
+        if bm.budget_reduction == 0:
+            self._shrink_recover_at = None
+            self._wake.set()  # restored headroom may admit
+        else:
+            self._shrink_recover_at = at
+
+    def _replay_journal(self, loop) -> None:
+        """Requeue the previous process's accepted, unanswered entries
+        front of class (the preemption resume path), ahead of anything this
+        process accepted. Each gets a fresh future whose completion or
+        explicit failure retires the entry, so each entry retires once. The
+        clamps of :meth:`generate` apply (this engine may have a shorter
+        context or a smaller pool); an entry that no longer fits, or a
+        corrupt one, is retired loudly, never left to block admission."""
+        entries, self._journal_replay_pending = self._journal_replay_pending, []
+        replayed = 0
+        S = self.model_config.max_seq_len
+        for entry in reversed(entries):  # each to the front: order holds
+            try:
+                tokens = [int(t) for t in entry["prompt"]]
+                if len(tokens) > S - 2:
+                    tokens = tokens[-(S - 2):]
+                max_tokens = min(int(entry["max-tokens"]), S - len(tokens) - 1)
+                if max_tokens < 1 or (self.block_mgr is not None and not
+                                      self.block_mgr.fits_ever(len(tokens) + max_tokens + 1)):
+                    raise ValueError("request no longer fits the restarted engine's KV pool")
+                request = _Request(
+                    prompt_tokens=tokens, max_tokens=max_tokens,
+                    temperature=float(entry.get("temperature", 0.0)),
+                    top_k=int(entry.get("top-k", 0)),
+                    top_p=float(entry.get("top-p", 1.0)),
+                    future=loop.create_future(),
+                    presence_penalty=float(entry.get("presence-penalty", 0.0)),
+                    frequency_penalty=float(entry.get("frequency-penalty", 0.0)),
+                    enqueue_time=time.monotonic(),
+                    stop=_normalize_stop(entry.get("stop")),
+                    tenant=str(entry.get("tenant", "") or ""),
+                    priority=normalize_priority(entry.get("priority")),
+                    # the original budget: the admission gate sheds it if
+                    # the crash outlived it
+                    deadline=parse_deadline(entry.get("deadline")),
+                )
+            except (KeyError, TypeError, ValueError) as e:
+                log.error("journal entry unreplayable (%s): %r", e, entry)
+                self.journal.retire(entry.get("id"))
+                continue
+            request.journey_id = entry.get("id")
+            # nobody awaits a replayed future: retrieve its outcome so a
+            # shed replay does not log "exception never retrieved"
+            request.future.add_done_callback(
+                lambda f: f.exception() if not f.cancelled() else None)
+            self.scheduler.requeue_front(request)
+            replayed += 1
+        if replayed:
+            self.journal.note_replayed(replayed)
+            self.flight.event("journal-replay", requests=replayed)
+            log.info("journal replay: %d accepted, unanswered requests requeued "
+                     "front of class", replayed)
+
+    def _journal_retire(self, request: _Request) -> None:
+        """Retire a request's journal entry on a path that answered its
+        caller (a deque append; warmup probes were never journaled)."""
+        if self.journal is not None and not request.warmup:
+            self.journal.retire(request.journey_id)
+
+    def handoff_settled(self, request_id: str) -> None:
+        """The decode side answered this handoff (a result or a terminal
+        refusal): the prefill-side journal entry retires. Until then it
+        stays live, so a decode pod dying mid-handoff leaves the request to
+        replay here. Idempotent."""
+        journal_id = self._handoff_journal.pop(request_id, None)
+        if journal_id is not None and self.journal is not None:
+            self.journal.retire(journal_id)
+
+    def survival_section(self) -> dict[str, Any]:
+        """``stats()["survival"]``: the live budget against the configured
+        one, shrink and restore counts, the armed faults and the journal
+        (the JAX engine's keys; the cross-replica counters stay 0 until the
+        handoff chainer is ported). Attribute reads and small copies."""
+        bm = self.block_mgr
+        out: dict[str, Any] = {
+            "shrinks": self.pool_shrinks,
+            "restores": self.pool_restores,
+            "shrink_preempted": self.shrink_preempted,
+            "recovery_s": self.config.shrink_recovery_s,
+            "recovering": self._shrink_recover_at is not None,
+            "deadline_sheds": self.deadline_sheds,
+            "deadline_overruns": 0,
+            "handoff_retries": 0,
+            "handoff_fallbacks": 0,
+        }
+        if bm is not None:
+            out["budget_blocks"] = bm.usable_blocks
+            out["configured_blocks"] = bm.configured_blocks
+            out["withheld_blocks"] = bm.budget_reduction
+            out["withheld_bytes"] = bm.budget_reduction * self._kv_block_bytes
+        if self._faults is not None:
+            out["faults"] = self._faults.stats()
+        if self.journal is not None:
+            out["journal"] = self.journal.stats()
+        return out
+
+    # ------------------------------------------------------------------
     # tiered prefix store (serving/prefixstore.py)
     # ------------------------------------------------------------------
 
@@ -2035,8 +2578,18 @@ class TorchServingEngine:
         # each name's per-block rows in chain order (the scatter uploads them
         # block by block: demoted blocks are pinned already)
         arrays = {name: [e["arrays"][name] for e in entries] for name in entries[0]["arrays"]}
-        device_s = await loop.run_in_executor(
-            self._executor, partial(self._run_scatter, arrays, table_row, rows, padded))
+        try:
+            device_s = await loop.run_in_executor(
+                self._executor, partial(self._run_scatter, arrays, table_row, rows, padded))
+        except Exception:
+            # the installed blocks never received their rows: unpublish them
+            # (leaf first) and hand the entries back to T1 before the error
+            # goes on to the loop
+            for (d, parent), entry in reversed(list(zip(run, entries))):
+                self.block_mgr.drop_prefix(d)
+                store.insert_t1(d.hex(), parent.hex() if parent else "",
+                                entry["arrays"], source="t2")
+            raise
         nbytes = sum(e["nbytes"] for e in entries)
         store.note_promoted(len(blocks), nbytes, device_ms=device_s * 1e3)
         self._emit_store_events(self.prefix_store.drain_events())
@@ -2048,6 +2601,7 @@ class TorchServingEngine:
         block-table row (a promotion or an import), then wait for the
         scatter. Returns its device seconds: the CUDA-event span on the
         card, the wall of the (synchronous) scatter on the CPU."""
+        self._fault("scatter")
         start = self._timing_event()
         t0 = time.monotonic()
         self.cache_k, self.cache_v = kvtransfer.scatter_slot(
@@ -2207,8 +2761,8 @@ class TorchServingEngine:
             store.pin(name)
             request.adapter_pinned = True
             return "ready"
-        if not request.adapter_hydrate_attempted and (store.t2_has(name)
-                                                      or store.hydrating(name)):
+        if (not request.adapter_hydrate_attempted and not self._draining
+                and (store.t2_has(name) or store.hydrating(name))):
             request.adapter_hydrate_attempted = True
             if store.request_hydration([name]):
                 self.scheduler.pop()
@@ -2222,6 +2776,7 @@ class TorchServingEngine:
         self.scheduler.pop()
         self.adapter_refusals += 1
         self.flight.event("adapter-refused", adapter=name)
+        self._journal_retire(request)
         if not request.future.done():
             request.future.set_exception(AdapterUnavailable(
                 f"adapter {name!r} unavailable: not resident in any tier "
@@ -2285,6 +2840,7 @@ class TorchServingEngine:
         # oldest ends at the head and arrival order survives
         for request, deadline_m, name in reversed(self._adapter_hydrating):
             if request.future.cancelled():
+                self._journal_retire(request)
                 continue
             if store.t1_has(name):
                 self.flight.event("adapter-hydrate", stage="done", adapter=name)
@@ -2297,6 +2853,7 @@ class TorchServingEngine:
             self.adapter_refusals += 1
             self.flight.event("adapter-hydrate", stage="timeout", adapter=name)
             self.flight.event("adapter-refused", adapter=name)
+            self._journal_retire(request)
             if not request.future.done():
                 request.future.set_exception(AdapterUnavailable(
                     f"adapter {name!r} hydration timed out after "
@@ -2348,8 +2905,9 @@ class TorchServingEngine:
         }
 
     def kv_transfer_section(self) -> dict[str, Any]:
-        """``stats()["kvtransfer"]``: transfer counters and the in-transit
-        posture (the cross-replica chainer's keys wait for ``handoff.py``,
+        """``stats()["kvtransfer"]``: transfer counters, the in-transit
+        posture and the exports whose journal entry awaits the decode side's
+        answer (the cross-replica chainer's keys wait for ``handoff.py``,
         ROADMAP.md Queue 1 item 9)."""
         return {
             "role": self._pool_role,
@@ -2362,6 +2920,7 @@ class TorchServingEngine:
             "pending_exports": len(self._exports),
             "pending_imports": len(self._pending_imports),
             "in_transit_bytes": self._kv_in_transit_bytes,
+            "unsettled_handoffs": len(self._handoff_journal),
         }
 
     def take_export_entry(self, request_id: str) -> dict[str, Any] | None:
@@ -2478,6 +3037,15 @@ class TorchServingEngine:
                           device_ms=round(device_s * 1000.0, 3), warmup=request.warmup)
         self.scheduler.on_finished(request)
         self.completed_requests += 1
+        if self.journal is not None and not request.warmup:
+            # not the request's end for the journal: the decode side may
+            # still die before it answers. The entry stays live until
+            # handoff_settled; the mapping is bounded (an overflow drops the
+            # mapping loudly, the entry stays live for the journal's bound)
+            self._handoff_journal[rid] = request.journey_id
+            while len(self._handoff_journal) > 4 * self._export_cap:
+                old_rid, _ = self._handoff_journal.popitem(last=False)
+                self.flight.event("handoff-settle-evict", request=old_rid)
         if not request.future.done():
             request.future.set_result({
                 "handoff": rid,
@@ -2512,6 +3080,9 @@ class TorchServingEngine:
         self._event_loop = self._event_loop or asyncio.get_running_loop()
         header, arrays = kvtransfer.deserialize_handoff(payload, header)
         kvtransfer.check_fingerprint(self.kv_fingerprint(), header.get("fingerprint") or {})
+        if self._draining:
+            raise RateLimited("draining", 1.0,
+                              "engine is draining; retry another decode replica")
         prompt = [int(t) for t in header.get("prompt-tokens") or []]
         generated = [int(t) for t in header.get("generated") or []]
         rows = int(header.get("kv-rows") or 0)
@@ -2572,7 +3143,10 @@ class TorchServingEngine:
     async def _apply_imports(self, loop) -> None:
         """Admit every queued KV import at the loop's safe point: a free
         slot and the worst-case block reservation, as admission needs; a
-        refusal is an explicit retryable shed."""
+        refusal is an explicit retryable shed. An allocator failure in the
+        scatter puts the import back at the front and re-raises, so the
+        loop's pool shrink adapts and the next pass retries it; past
+        ``_SHRINK_RETRY_CAP`` retries it is shed (``kv-import-oom``)."""
         while self._pending_imports:
             header, arrays, request, nbytes = self._pending_imports.popleft()
             if request.future.done():
@@ -2584,6 +3158,10 @@ class TorchServingEngine:
                     if not request.future.done():
                         request.future.set_exception(err)
                     continue
+            if self._draining:
+                self._shed_import(request, "draining",
+                                  "engine is draining; retry another decode replica")
+                continue
             free = next((i for i, s in enumerate(self.slots) if s.free), None)
             total = len(request.prompt_tokens) + request.max_tokens + 1
             if free is None:
@@ -2613,8 +3191,19 @@ class TorchServingEngine:
                 device_s = await loop.run_in_executor(
                     self._executor,
                     partial(self._run_scatter, arrays, table_row, rows, padded))
-            except Exception:
+            except Exception as e:
                 self.block_mgr.release(free)
+                if not self._resource_exhausted(e):
+                    raise
+                if request.import_retries >= _SHRINK_RETRY_CAP:
+                    self._shed_import(request, "kv-import-oom",
+                                      f"device allocation failed mid-scatter ({e}); "
+                                      f"retry another replica")
+                    self._shrink_inline_shed += 1
+                    continue
+                request.import_retries += 1
+                self._pending_imports.appendleft((header, arrays, request, nbytes))
+                self._shrink_inline_preempted += 1
                 raise
             slot = self.slots[free]
             slot.request = request
@@ -2684,6 +3273,7 @@ class TorchServingEngine:
                 if request.future.cancelled():
                     self.scheduler.pop()  # caller gave up while queued
                     self._adapter_release(request)  # a pin kept from an earlier pass
+                    self._journal_retire(request)
                     continue
                 if request.deadline is not None:
                     left = remaining_s(request.deadline)
@@ -2691,6 +3281,7 @@ class TorchServingEngine:
                     if left <= estimate:
                         self.scheduler.pop()
                         self._adapter_release(request)
+                        self._journal_retire(request)
                         err = self._note_deadline_shed(request, "admission", left, estimate)
                         if not request.future.done():
                             request.future.set_exception(err)
@@ -2720,7 +3311,7 @@ class TorchServingEngine:
                     if self.prefix_store is not None and use_prefix
                     and not request.preemptions and not request.adapter else None
                 )
-                if chain is not None and not request.hydrate_attempted:
+                if chain is not None and not request.hydrate_attempted and not self._draining:
                     # the prompt's chain reaches into T2: stash the request
                     # off the queue while the hydrator pulls the blobs into
                     # T1; it requeues at its class's front when they land or
@@ -2762,12 +3353,35 @@ class TorchServingEngine:
                     if blocks:
                         self.block_mgr.adopt_prefix(slot_id, blocks)
                     slot = self.slots[slot_id]
+                    # the slot is claimed before the grow: a failure below is
+                    # then visible to the failure paths. It undoes itself: a
+                    # mid-prefill slot whose table never grew would write
+                    # its chunks to the scratch block, and the shrink's
+                    # sweep leaves mid-prefill slots alone
                     slot.request = request
                     slot.prefilling = True
                     slot.prefill_done = reuse
                     if self._ad_rows is not None:
                         self._ad_rows[slot_id] = request.adapter_row
-                    self.block_mgr.ensure_capacity(slot_id, len(ctx))
+                    try:
+                        self._fault("pool-grow")
+                        self.block_mgr.ensure_capacity(slot_id, len(ctx))
+                    except Exception as e:
+                        # the batch members popped and reserved this pass
+                        # sit in no slot yet: back to the queue, in order
+                        for sid, req, _ in reversed(batch):
+                            self.block_mgr.release(sid)
+                            self.scheduler.requeue_front(req)
+                        batch.clear()
+                        if not self._resource_exhausted(e):
+                            raise
+                        if request.preemptions >= _SHRINK_RETRY_CAP:
+                            self._shed_stranded(slot_id, e)
+                            self._shrink_inline_shed += 1
+                        else:
+                            self._preempt_slot(slot_id, reason="pool-shrink")
+                            self._shrink_inline_preempted += 1
+                        raise
                     request.admit_time = time.monotonic()
                     self._note_resume(request)
                     if reuse:
@@ -2796,7 +3410,12 @@ class TorchServingEngine:
                     self._ad_rows[slot_id] = request.adapter_row
                 request.admit_time = now
                 self._note_resume(request)
-                if self.block_mgr is not None:
+            # the grows come after every member holds its slot: an allocator
+            # failure here is then seen by the shrink's sweep of the slots
+            # whose prefill never landed
+            if self.block_mgr is not None:
+                self._fault("pool-grow")
+                for slot_id, request, _ in batch:
                     self.block_mgr.ensure_capacity(slot_id, len(request.context_tokens))
             B = len(batch)
             rows = self._prefill_rows(B)
@@ -2887,6 +3506,7 @@ class TorchServingEngine:
         decode."""
         for slot_id, slot in enumerate(self.slots):
             if slot.prefilling and slot.request.future.cancelled():
+                self._journal_retire(slot.request)
                 self._release_slot(slot_id)  # frees the reservation too
         pre = [i for i, s in enumerate(self.slots) if s.prefilling]
         if not pre:
@@ -3007,6 +3627,7 @@ class TorchServingEngine:
         (None without a store). Returns (tokens, logprobs) numpy, the
         seconds the copy waited for the card and the dispatch's span on
         the card (None on the CPU)."""
+        self._fault("prefill")
         mc, up = self.model_config, self._upload
         start = self._timing_event()
         tokens = up(padded)
@@ -3088,6 +3709,10 @@ class TorchServingEngine:
         is queued: the slot freezes in the device mask instead."""
         if self._stop or self._has_prefilling():
             return True
+        if self._draining and not self._drain_pass_done:
+            # a drain preempts at the loop's safe point after this chunk,
+            # not after the whole burst
+            return True
         if finished:
             return not (pipelined and self.scheduler.empty())
         if self.scheduler.empty():
@@ -3104,6 +3729,7 @@ class TorchServingEngine:
         each request's own budget. Returns a host copy of the tables."""
         if self.block_mgr is None:
             return None
+        self._fault("pool-grow")
         S = self.model_config.max_seq_len
         grown_blocks = grown_slots = 0
         for slot_id in active:
@@ -3232,11 +3858,17 @@ class TorchServingEngine:
         out = await submit(self._current.copy(), self._lengths.copy(), 0)
         self._defer_release = self.block_mgr is not None
         finished = False
+        # on an error the burst fetches what it dispatched and nothing
+        # fetched (``unfetched``: a dispatched chunk; ``next_task``: a
+        # dispatch not awaited) before the error reaches the loop, so its
+        # failure path finds no chunk in flight and one fetch per chunk holds
+        unfetched, next_task = out, None
         try:
             while True:
                 if finished:
                     live = [i for i in active if self.slots[i].request is not None]
                     if not live:  # all done: apply the over-run chunk, end
+                        unfetched = None
                         await self._apply_chunk(loop, out, active, [None] * len(active),
                                                 K, programs.pop(0))
                         return
@@ -3246,6 +3878,7 @@ class TorchServingEngine:
                         mask[active] = True
                 base_max += K
                 next_task = submit(out[1], out[2], 1)
+                unfetched = None  # _fetch_chunk fetches it, or waits for it and raises
                 chunk_t, chunk_lp, wait_s, span_s = await loop.run_in_executor(
                     self._fetch_executor, partial(self._fetch_chunk, out[0], K))
                 before = self.total_generated
@@ -3260,12 +3893,14 @@ class TorchServingEngine:
                     overlapped_s = elapsed  # the card outlasted the host's work
                 else:
                     overlapped_s = elapsed / 2.0  # it finished in between
-                out = await next_task
+                out, next_task = await next_task, None
+                unfetched = out
                 self._flight_record("decode", wait_s, tokens=self.total_generated - before,
                                     overlapped_s=overlapped_s, program=programs.pop(0),
                                     span_s=span_s)
                 if self._burst_should_yield(finished, pipelined=True):
                     expected = [self.slots[i].request for i in active]
+                    unfetched = None
                     if self._stop:  # nothing will drain it later
                         await self._apply_chunk(loop, out, active, expected, K,
                                                 programs.pop(0))
@@ -3273,9 +3908,32 @@ class TorchServingEngine:
                         self._pending_chunk = (out, list(active), expected, K,
                                                programs.pop(0))
                     return
+        except Exception:
+            await self._settle_abandoned(loop, next_task, unfetched, K)
+            raise
         finally:
             self._defer_release = False
             self._flush_deferred_releases()
+
+    async def _settle_abandoned(self, loop, task, out, K: int) -> None:
+        """A pipelined burst failed: wait for the dispatch it left running
+        (``task``) and fetch every chunk it dispatched and never fetched,
+        their tokens dropped. Host state never saw them, so the next
+        dispatch re-derives their steps and rewrites their rows; what
+        matters here is that none is still in flight when the loop's
+        failure path frees blocks, and that each chunk is fetched once."""
+        handles = [] if out is None else [out[0]]
+        if task is not None:
+            try:
+                handles.append((await task)[0])
+            except Exception:
+                log.exception("an abandoned decode dispatch failed too")
+        for handle in handles:
+            try:
+                await loop.run_in_executor(self._fetch_executor,
+                                           partial(self._wait_chunk, handle, K))
+            except Exception:
+                log.exception("an abandoned decode chunk failed")
 
     async def _apply_chunk(self, loop, out, active: list[int], expected: list,
                            K: int, program: str) -> None:
@@ -3295,9 +3953,11 @@ class TorchServingEngine:
         behind it; a slot re-admitted since its dispatch ignores the old
         request's tokens."""
         pending, self._pending_chunk = self._pending_chunk, None
-        if pending is not None:
-            await self._apply_chunk(loop, *pending)
-        self._settled.set()
+        try:
+            if pending is not None:
+                await self._apply_chunk(loop, *pending)
+        finally:
+            self._settled.set()
 
     @torch.no_grad()
     def _run_decode(self, tokens, lengths, active_mask, tables, window, K, mode,
@@ -3377,10 +4037,21 @@ class TorchServingEngine:
         return handle[1] is None or handle[1].query()
 
     def _fetch_chunk(self, handle: tuple, K: int):
-        """The chunk's ONE device-to-host copy: wait for its event, split
-        the packed int32 into tokens (K, B) and logprobs (K, B); then the
-        seconds blocked on the card and the chunk's span on the card (None
-        on the CPU)."""
+        """The chunk's ONE device-to-host copy behind the ``fetch`` fault
+        seam: an injected failure still waits for the chunk (its fetch
+        counted) before it raises, so nothing of the chunk is in flight
+        when the error reaches the loop. See :meth:`_wait_chunk`."""
+        try:
+            self._fault("fetch")
+        except InjectedFault:
+            self._wait_chunk(handle, K)
+            raise
+        return self._wait_chunk(handle, K)
+
+    def _wait_chunk(self, handle: tuple, K: int):
+        """Wait for a chunk's copy, split the packed int32 into tokens (K,
+        B) and logprobs (K, B); then the seconds blocked on the card and
+        the chunk's span on the card (None on the CPU)."""
         view, event, start = handle
         t0 = time.monotonic()
         if event is not None:
@@ -3439,6 +4110,12 @@ class TorchServingEngine:
         logprobs; with the seconds the copy waited for the card."""
         B = self.config.slots
         nE = B * d1
+        try:
+            self._fault("fetch")
+        except InjectedFault:
+            packed.cpu()  # the step lands before the error leaves (see _fetch_chunk)
+            self._spec_fetches += 1
+            raise
         t0 = time.monotonic()
         flat = packed.cpu().numpy()
         wait_s = time.monotonic() - t0
@@ -3538,6 +4215,7 @@ class TorchServingEngine:
                 if self._spec_check_uplift() or self._should_yield(live):
                     return
                 continue  # the chunk advanced the lengths
+            self._fault("pool-grow")
             for slot_id in live:
                 self.block_mgr.ensure_capacity(
                     slot_id, min(int(self._lengths[slot_id]) + D1, S))
@@ -3605,6 +4283,7 @@ class TorchServingEngine:
         return (
             any(self.slots[i].request is None for i in live)
             or not self.scheduler.empty() or self._stop or self._has_prefilling()
+            or (self._draining and not self._drain_pass_done)
         )
 
     @torch.no_grad()
@@ -3813,6 +4492,8 @@ class TorchServingEngine:
             # the tenant's tokens/s post-debit; a cancelled request's tokens
             # burned capacity too
             self.scheduler.on_finished(request)
+            # answered (a result or a cancellation): nothing left to replay
+            self._journal_retire(request)
             if request.future.done():
                 # cancelled by the caller: not a served request (its slot
                 # and the stream-cancel count went with _release_slot)
@@ -3926,3 +4607,123 @@ def take_kv_export(request_id: str) -> dict[str, Any] | None:
         if entry is not None:
             return entry
     return None
+
+
+def flight_report(summary_only: bool = False, samples: int = 240) -> list[dict[str, Any]]:
+    """The flight-recorder payload of every live shared engine (the pod's
+    ``/flight`` and ``/flight/summary``): per engine its model, the rollup,
+    the scheduler, health, drain, pool-role, survival and the sections of
+    the planes it runs, with the JAX engine's keys; unless
+    ``summary_only``, the recent samples and the event tail too."""
+    with TorchServingEngine._instances_lock:
+        engines = list(TorchServingEngine._instances.values())
+    report: list[dict[str, Any]] = []
+    for engine in engines:
+        entry: dict[str, Any] = {
+            "model": engine.config.model,
+            "slots": engine.config.slots,
+            "summary": engine.flight.summary(),
+            "scheduler": engine.scheduler.stats(),
+            "health": engine.health(),
+            "drain": engine._drain_section(),
+            "pool_role": engine.config.pool_role,
+            "kvtransfer": engine.kv_transfer_section(),
+            "survival": engine.survival_section(),
+        }
+        if engine.prefix_store is not None:
+            entry["prefixstore"] = engine.prefix_store_section()
+        if engine.adapter_store is not None:
+            entry["adapters"] = engine.adapter_store_section()
+        if engine.config.streaming:
+            entry["streaming"] = engine.streaming_section()
+        if engine.config.speculative_drafts > 0:
+            entry["speculative"] = engine.speculative_section()
+        slo = engine.slo_status()
+        if slo is not None:
+            entry["slo"] = slo
+        if not summary_only:
+            entry["samples"] = engine.flight.recent(samples)
+            entry["events"] = engine.flight.recent_events()
+        report.append(entry)
+    return report
+
+
+def attribution_report() -> list[dict[str, Any]]:
+    """Every live shared engine's ``attribution_section()`` (the pod's
+    ``/attribution`` and ``/memory``). Wait-free like :func:`health_report`:
+    the instance map is copied without its lock."""
+    return [engine.attribution_section()
+            for engine in list(TorchServingEngine._instances.values())]
+
+
+async def drain_engines(grace_s: float = 30.0) -> dict[str, Any]:
+    """Drain every live shared engine (the pod's ``/drain`` and its preStop
+    hook) under ONE deadline for the whole pod: each engine drains in the
+    time left to it (at least 0.5 s, so the last engines still shed their
+    leftovers explicitly). Sequential: the engines share a loop and a card.
+    Returns the drain report by model."""
+    with TorchServingEngine._instances_lock:
+        engines = list(TorchServingEngine._instances.values())
+    deadline = time.monotonic() + grace_s
+    reports: dict[str, Any] = {}
+    for engine in engines:
+        remaining = max(0.5, deadline - time.monotonic())
+        reports[engine.config.model] = await engine.drain(remaining)
+    return reports
+
+
+def import_candidates(model: str | None) -> list[TorchServingEngine]:
+    """The live shared engines that can take a KV handoff of ``model``: paged,
+    not a prefill pool; decode pools first (a combined paged engine also
+    accepts, the dev and test posture)."""
+    candidates = [
+        engine for engine in list(TorchServingEngine._instances.values())
+        if engine.config.model == model and engine.block_mgr is not None
+        and engine.config.pool_role != "prefill"
+    ]
+    candidates.sort(key=lambda e: 0 if e.config.pool_role == "decode" else 1)
+    return candidates
+
+
+async def import_kv_handoff(payload: bytes, trace_header: str | None = None,
+                            deadline_header: str | None = None) -> dict[str, Any]:
+    """Route one KV handoff payload to this process's engine for its model
+    (the pod's ``POST /kv/import``): the header's fingerprint names the
+    model, decode pools first. ``deadline_header`` (the request's
+    ``langstream-deadline``) is the budget when the wire header carries
+    none; ``trace_header`` is echoed as the result's ``trace`` when the
+    payload carries no trace. Raises
+    :class:`~langstream_tpu_torch.serving.kvtransfer.LayoutMismatch` when
+    no engine here can take it, and what :meth:`TorchServingEngine.import_handoff`
+    raises."""
+    header = kvtransfer.peek_header(payload)
+    model = (header.get("fingerprint") or {}).get("model")
+    candidates = import_candidates(model)
+    if not candidates:
+        raise kvtransfer.LayoutMismatch(
+            f"no decode-capable paged engine for model {model!r} in this pod")
+    result = await candidates[0].import_handoff(
+        payload, header=header, deadline=parse_deadline(deadline_header))
+    trace = header.get("trace") or trace_header
+    if trace and "trace" not in result:
+        result = {**result, "trace": trace}
+    return result
+
+
+def profile_engines(action: str, trace_dir: str | None = None) -> dict[str, bool]:
+    """Start or stop the ``torch.profiler`` capture of the live shared
+    engines (the pod's ``/profile/{start,stop}``); by model, whether their
+    capture started or stopped. ``torch.profiler`` records the whole
+    process and runs one session at a time, so one engine's capture covers
+    every engine (a second session would fail)."""
+    if action not in ("start", "stop"):
+        raise ValueError(f"unknown profile action {action!r} (start|stop)")
+    with TorchServingEngine._instances_lock:
+        engines = list(TorchServingEngine._instances.values())
+    if action == "start":
+        done = False
+        for engine in engines:
+            done = done or engine.profiler.start_trace(trace_dir)
+    else:
+        done = any([engine.profiler.stop_trace() for engine in engines])
+    return {engine.config.model: done for engine in engines}

@@ -19,10 +19,11 @@ The flight recorder (``serving/flight.py``) measures; this module judges:
   flight event) when BOTH the fast and slow windows burn above
   ``fast_burn``.
 
-``recompile_storm`` and ``shrink_pressure`` read ``recompile`` and
-``pool-shrink`` flight events, which the port does not emit (an eager
-engine compiles no programs; the pool-shrink plane is not ported). They
-are carried unchanged and stay quiet until those events exist.
+``shrink_pressure`` reads the ``pool-shrink`` flight events the engine's
+adaptive pool shrink emits: repeated shrinks inside one recovery window
+turn the engine DEGRADED. ``recompile_storm`` reads ``recompile`` events,
+which the port does not emit (an eager engine compiles no programs); it
+is carried unchanged and stays quiet.
 
 Wait-free contract: everything here is arithmetic over snapshots — deque
 appends, attribute reads, list scans. **No device syncs, no blocking I/O,

@@ -22,12 +22,15 @@ The port's engines register ``stream-key`` requests with the platform's
 stream registry (``langstream_tpu.serving.streaming.STREAMS``), the one the
 gateway cancels by on a client disconnect and the AI agents consult, so a
 disconnect frees the port's decode slot as it frees the JAX engine's. The
-pod's ``/healthz`` and ``/ready`` probes and its ``/kv/export`` pickup read
-``health_report``, ``kick_warmups`` and ``take_kv_export`` from
-``langstream_tpu.serving.engine`` when they run; :func:`register` points
-those three at functions over both packages' engines, so a wedged port
-engine answers 503 and a ``warmup-on-start`` port engine warms inside the
-pod's not-ready window.
+pod's routes read their functions from ``langstream_tpu.serving.engine``
+when they run (:data:`POD_SEAM`); :func:`register` points each at a
+function over both packages' engines: a wedged port engine answers 503 on
+``/healthz``, a ``warmup-on-start`` port engine warms inside the pod's
+not-ready window, ``/drain`` (and the preStop hook) drains both packages'
+engines under one grace, ``/kv/import`` lands a payload in a port engine
+and answers 409, 503 and 504 for its refusals, and ``/flight``,
+``/attribution``, ``/memory`` and ``/profile`` list both packages'
+engines.
 
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
@@ -39,17 +42,71 @@ plane) load JAX on import, so it runs only where JAX is installed;
 from __future__ import annotations
 
 import sys
+import time
 
 
 #: the pod functions (``langstream_tpu/runtime/pod.py`` reads them from
 #: ``langstream_tpu.serving.engine`` at call time) that also answer for the
 #: port's engines once :func:`register` ran
-POD_SEAM = ("health_report", "kick_warmups", "take_kv_export")
+POD_SEAM = ("health_report", "kick_warmups", "take_kv_export", "flight_report",
+            "attribution_report", "drain_engines", "import_kv_handoff",
+            "profile_engines")
 
 
-def _with_port(name: str, jax_fn, port_fn):
+def _merge(jax_out: dict, port_out: dict) -> dict:
+    """Two by-model dicts as one: a port engine whose model a JAX engine
+    also serves is keyed ``"<model> (torch)"``."""
+    out = dict(jax_out)
+    for model, value in port_out.items():
+        out[model if model not in out else f"{model} (torch)"] = value
+    return out
+
+
+def _translated(error: Exception) -> Exception:
+    """A port refusal as the JAX package's class, the one the pod's
+    ``/kv/import`` handler maps to its status (409, 503 + Retry-After, 504);
+    any other error as it is."""
+    from langstream_tpu.serving.handoff import DeadlineExceeded
+    from langstream_tpu.serving.kvtransfer import LayoutMismatch
+    from langstream_tpu.serving.qos import RateLimited
+    from langstream_tpu_torch.serving import deadline, kvtransfer, qos
+
+    if isinstance(error, kvtransfer.LayoutMismatch):
+        return LayoutMismatch(str(error))
+    if isinstance(error, qos.RateLimited):
+        return RateLimited(error.reason, error.retry_after, str(error))
+    if isinstance(error, deadline.DeadlineExceeded):
+        return DeadlineExceeded(str(error), overrun_s=error.overrun_s)
+    return error
+
+
+def _port_takes_import(payload: bytes, port_engine) -> bool:
+    """Whether the port lands this payload: it has an engine that can take
+    the payload's model, and the JAX package has none or only combined ones
+    while the port has a decode pool (decode pools first, as within one
+    package; on a tie the JAX engine)."""
+    from langstream_tpu.serving.engine import TpuServingEngine
+    from langstream_tpu.serving.kvtransfer import peek_header
+
+    model = (peek_header(payload).get("fingerprint") or {}).get("model")
+    port = port_engine.import_candidates(model)
+    if not port:
+        return False
+    jax = [e for e in list(TpuServingEngine._instances.values())
+           if e.config.model == model and e.block_mgr is not None
+           and e.config.pool_role != "prefill"]
+    if not jax:
+        return True
+    return (port[0].config.pool_role == "decode"
+            and all(e.config.pool_role != "decode" for e in jax))
+
+
+def _with_port(name: str, jax_fn, port_engine):
     """``name`` over both packages' engines: the JAX list plus the port's
-    (health), both kicks (warmup), the first entry found (export)."""
+    (health, flight, attribution), both kicks (warmup), the first entry
+    found (export), both packages' drains under one deadline, one engine of
+    either package for an import, both packages' profiles."""
+    port_fn = getattr(port_engine, name)
     if name == "take_kv_export":
         def seam(request_id):
             entry = jax_fn(request_id)
@@ -58,6 +115,31 @@ def _with_port(name: str, jax_fn, port_fn):
         def seam():
             jax_fn()
             port_fn()
+    elif name == "flight_report":
+        def seam(summary_only=False, samples=240):
+            return jax_fn(summary_only, samples) + port_fn(summary_only, samples)
+    elif name == "drain_engines":
+        async def seam(grace_s=30.0):
+            # one deadline for the pod: the port drains in what is left
+            deadline = time.monotonic() + grace_s
+            reports = await jax_fn(grace_s)
+            return _merge(reports, await port_fn(max(0.5, deadline - time.monotonic())))
+    elif name == "import_kv_handoff":
+        async def seam(payload, trace_header=None, deadline_header=None):
+            if not _port_takes_import(payload, port_engine):
+                # the JAX engine's, or its LayoutMismatch when no engine of
+                # either package takes the model
+                return await jax_fn(payload, trace_header, deadline_header)
+            try:
+                return await port_fn(payload, trace_header, deadline_header)
+            except Exception as e:
+                translated = _translated(e)
+                if translated is e:
+                    raise
+                raise translated from e
+    elif name == "profile_engines":
+        def seam(action, trace_dir=None):
+            return _merge(jax_fn(action, trace_dir), port_fn(action, trace_dir))
     else:
         def seam():
             return jax_fn() + port_fn()
@@ -70,10 +152,10 @@ def _with_port(name: str, jax_fn, port_fn):
 def register(device="cuda") -> None:
     """Make the port serve every ``tpu-serving-configuration`` resource
     resolved from now on in this process, its stream keys registered with
-    the platform's stream registry, and point the pod's probes and
-    ``/kv/export`` (:data:`POD_SEAM`) at the port's engines as well as the
-    JAX package's. A second call changes nothing more: the pod functions are
-    wrapped once."""
+    the platform's stream registry, and point the pod's functions
+    (:data:`POD_SEAM`) at the port's engines as well as the JAX package's.
+    A second call changes nothing more: the pod functions are wrapped
+    once."""
     import langstream_tpu.serving.engine as jax_engine
     from langstream_tpu.agents.services import register_provider
     from langstream_tpu.serving.streaming import STREAMS
@@ -87,7 +169,7 @@ def register(device="cuda") -> None:
     for name in POD_SEAM:
         current = getattr(jax_engine, name)
         if not getattr(current, "with_port", False):
-            setattr(jax_engine, name, _with_port(name, current, getattr(port_engine, name)))
+            setattr(jax_engine, name, _with_port(name, current, port_engine))
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -679,3 +679,43 @@ def test_adapter_row_load_in_place_and_lora_delta_on_the_card():
     torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
     assert not got[0].any() and not got[3].any()
     asyncio.run(engine.close())
+
+
+def test_a_genuine_cuda_oom_is_classified_as_an_allocator_failure():
+    with pytest.raises(RuntimeError) as err:
+        torch.empty(torch.cuda.get_device_properties(0).total_memory * 2,
+                    dtype=torch.uint8, device="cuda")
+    assert TorchServingEngine._resource_exhausted(err.value)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["f32", "int8"])
+def test_pool_shrink_chaos_card_matches_cpu(kv):
+    """Allocator failures injected at pool-grow and prefill on the card: the
+    shrink requeues and every request completes with the CPU's tokens."""
+    cfg = {"model": "tiny", "model-dtype": "float32", "slots": 3, "max-seq-len": 256,
+           "decode-chunk": 4, "kv-layout": "paged", "kv-block-size": 16, "kv-quantize": kv,
+           "shrink-recovery-s": 0.3,
+           "faults": [{"site": "pool-grow", "after": 4, "count": 2},
+                      {"site": "prefill", "after": 1, "count": 1}]}
+    params = init_llama_params(dataclasses.replace(LlamaConfig.tiny(max_seq_len=256),
+                                                   dtype=torch.float32),
+                               torch.Generator().manual_seed(3), device="cpu")
+    prompts = ["paged cache equivalence", "second prompt!", "a", "judge my vow", "fox"]
+
+    def run(device):
+        engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+        async def main():
+            try:
+                outs = await asyncio.gather(*(engine.generate(p, {"max-tokens": 12,
+                                                                  "temperature": 0})
+                                              for p in prompts))
+                return [o["tokens"] for o in outs], engine.stats()["survival"]["shrinks"]
+            finally:
+                await engine.close()
+
+        return asyncio.run(main())
+
+    card, cpu = run("cuda"), run("cpu")
+    assert card == cpu and card[1] >= 1

@@ -25,6 +25,7 @@ from langstream_tpu.serving.engine import (
 )
 from langstream_tpu_torch.models.convert import params_from_numpy
 from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+from langstream_tpu_torch.serving.faults import FaultPlan
 
 REPO = Path(__file__).resolve().parents[1]
 EOS = 258
@@ -205,14 +206,35 @@ def test_engine_needs_the_card_unless_told_cpu():
                      id="overrides3-adapter-store"),
         # prefix-store and pool-role are served since the KV-tiers slice
         # (tests/test_torch_prefixstore.py, test_torch_kvtransfer.py); the
-        # cases after them keep their ids
+        # cases after them keep their ids. faults and journal-dir are served
+        # since the device-survival slice (tests/test_torch_faults.py,
+        # test_torch_journal.py): their cases hold the armed engine to the
+        # JAX engine's
         pytest.param({"faults": [{"site": "prefill"}]}, "faults", id="overrides6-faults"),
         pytest.param({"journal-dir": "j"}, "journal-dir", id="overrides7-journal-dir"),
         pytest.param({"incident-dir": "i"}, "incident-dir", id="overrides8-incident-dir"),
     ],
 )
-def test_unsupported_settings_raise_naming_the_roadmap(overrides, match):
+def test_unsupported_settings_raise_naming_the_roadmap(overrides, match, tmp_path):
+    if "journal-dir" in overrides:
+        overrides = {"journal-dir": str(tmp_path / overrides["journal-dir"])}
     cfg = ServingConfig.from_dict({"model": "tiny", **overrides})
+    if match in ("faults", "journal-dir"):
+        port = TorchServingEngine(cfg, device="cpu")
+        jax = TpuServingEngine(JaxServingConfig.from_dict({"model": "tiny", **overrides}))
+        try:
+            if match == "faults":
+                assert port.survival_section()["faults"] == jax.survival_section()["faults"]
+                assert port.config.faults == tuple(
+                    FaultPlan.from_dict(p) for p in overrides["faults"])
+            else:
+                assert port.journal.path == jax.journal.path
+                assert port.journal.pending() == jax.journal.pending() == []
+        finally:
+            asyncio.run(port.close())
+            asyncio.run(jax.close())
+            TpuServingEngine.reset_instances()
+        return
     if "adapter-store" in overrides:
         with pytest.raises(ValueError, match=match):
             TorchServingEngine(cfg, device="cpu")

@@ -346,9 +346,7 @@ def _hook_script(mgr, evicted: list):
     # pool pressure: a slot big enough to evict cached leaves organically
     mgr.admit(2, 8 * 16)
     mgr.ensure_capacity(2, 8 * 16)
-    # (the pool-shrink budget keys are the JAX manager's alone)
-    out.append({k: v for k, v in mgr.stats().items()
-                if k not in ("budget_blocks", "withheld_blocks")})
+    out.append(mgr.stats())
     out.append(mgr.evictable_prefixes(8))
     return out
 

@@ -164,11 +164,29 @@ def test_port_module_functions_alone(registered):
 
 @pytest.mark.parametrize("value", ['[{"site": "prefill"}]', "not json", "[]"])
 def test_ls_tpu_faults_set_is_refused(monkeypatch, value):
-    """The JAX engine arms fault plans from ``LS_TPU_FAULTS``: a chaos run
-    whose faults fail to arm must not pass quietly on the port."""
+    """``LS_TPU_FAULTS`` arms the port's engine as it arms the JAX engine: the
+    same plans, the same refusal of malformed JSON (a chaos run whose faults
+    failed to arm would pass against a healthy engine), no injector for an
+    empty list."""
     monkeypatch.setenv("LS_TPU_FAULTS", value)
-    with pytest.raises(NotImplementedError, match="LS_TPU_FAULTS.*item 9"):
-        TorchServingEngine(ServingConfig.from_dict(TINY), device="cpu")
+
+    def armed(make):
+        try:
+            engine = make()
+        except ValueError as e:  # json.JSONDecodeError is a ValueError
+            return type(e).__name__
+        try:
+            return engine.survival_section().get("faults")
+        finally:
+            asyncio.run(engine.close())
+
+    want = armed(lambda: TpuServingEngine(JaxServingConfig.from_dict(TINY)))
+    TpuServingEngine.reset_instances()
+    got = armed(lambda: TorchServingEngine(ServingConfig.from_dict(TINY), device="cpu"))
+    assert got == want
+    assert got == {'[{"site": "prefill"}]': [
+        {"site": "prefill", "shape": "oom", "after": 0, "count": 1, "seen": 0, "fired": 0,
+         "armed": True}], "not json": "JSONDecodeError", "[]": None}[value]
 
 
 def test_ls_tpu_faults_blank_serves(monkeypatch):
@@ -221,3 +239,172 @@ def test_empty_dirs_and_disabled_adapter_store_serve_as_jax(overrides):
     got = asyncio.run(serve(TorchServingEngine(ServingConfig.from_dict(d), device="cpu")))
     assert got[0] and got[1] is None and got[2] is False
     assert want[1] is None and want[2] is False
+
+
+# --------------------------------------------------------------------------
+# drain, KV import, flight, attribution and profile through the pod
+# --------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def _pod(monkeypatch):
+    """The pod's info server on a free port: (server, aiohttp session, base)."""
+    import aiohttp
+
+    port = _free_port()
+    monkeypatch.setenv("LS_HTTP_PORT", str(port))
+    server = await pod._serve_info(None, health=pod.PodHealth())
+    return server, aiohttp.ClientSession(), f"http://127.0.0.1:{port}"
+
+
+def test_register_wraps_the_eight_pod_functions(registered):
+    assert serve_torch.POD_SEAM == (
+        "health_report", "kick_warmups", "take_kv_export", "flight_report",
+        "attribution_report", "drain_engines", "import_kv_handoff", "profile_engines")
+    for name in serve_torch.POD_SEAM:
+        assert getattr(jax_engine, name).with_port
+        assert callable(getattr(port_engine, name))
+
+
+def test_pod_drain_covers_both_packages_under_one_grace(registered, monkeypatch):
+    """``GET /drain?grace-s=2`` with a JAX and a port engine whose work
+    outlasts the grace: both drain, the port in what the JAX engine left of
+    the one deadline (its 0.5 s floor), not a grace of its own."""
+    cfg = {**TINY, "kv-layout": "paged", "kv-block-size": 16, "max-seq-len": 256}
+
+    async def slow(token, logprob, last):
+        await asyncio.sleep(0.05)
+
+    async def main():
+        jax = TpuServingEngine.get_or_create(JaxServingConfig.from_dict(cfg))
+        port = TorchServingEngine.get_or_create(ServingConfig.from_dict(cfg), device="cpu")
+        server, session, base = await _pod(monkeypatch)
+        try:
+            tasks = [asyncio.ensure_future(e.generate(f"long {i}", {"max-tokens": 200},
+                                                      on_token=slow))
+                     for e in (jax, port) for i in range(2)]
+            while not all(any(not s.free for s in e.slots) for e in (jax, port)):
+                await asyncio.sleep(0.02)
+            t0 = time.monotonic()
+            async with session.get(f"{base}/drain?grace-s=2") as resp:
+                status, body = resp.status, await resp.json()
+            wall = time.monotonic() - t0
+            done = await asyncio.gather(*tasks, return_exceptions=True)
+            return status, body, wall, done
+        finally:
+            await session.close()
+            server.close()
+            await jax.close()
+            await port.close()
+
+    status, body, wall, done = asyncio.run(main())
+    reports = body["engines"]
+    assert status == 200 and body["draining"] is True
+    assert set(reports) == {"tiny", "tiny (torch)"}
+    assert reports["tiny"]["duration_s"] >= 1.9
+    assert reports["tiny (torch)"]["duration_s"] < 1.0  # the deadline's remainder
+    assert wall < 3.5  # one grace (+ the floor), not two
+    for report in reports.values():
+        assert report["shed"] >= 1 and report["completed"] + report["shed"] == 2
+    assert all(isinstance(r, BaseException) for r in done)
+
+
+def test_pod_kv_import_reaches_a_port_decode_pool(registered, monkeypatch):
+    """``POST /kv/import`` lands a port prefill pool's export in a port decode
+    pool (200, the tokens of a combined engine) and answers 409 (layout
+    mismatch), 504 (spent deadline) and 503 with Retry-After (draining) for
+    the port's refusals, never 500."""
+    paged = {**TINY, "kv-layout": "paged", "kv-block-size": 16}
+
+    async def main():
+        pre = TorchServingEngine.get_or_create(
+            ServingConfig.from_dict({**paged, "pool-role": "prefill"}), device="cpu")
+        combined = TorchServingEngine(ServingConfig.from_dict(paged), device="cpu")
+        server, session, base = await _pod(monkeypatch)
+        dec = None
+        try:
+            tickets = [await pre.generate(p, {"max-tokens": 6, "temperature": 0})
+                       for p in ("first handoff", "second handoff", "third", "fourth")]
+            payloads = [pre.take_export(t["handoff"]) for t in tickets]
+            want = await combined.generate("first handoff", {"max-tokens": 6,
+                                                              "temperature": 0})
+            answers = {}
+
+            async def post(payload, **headers):
+                async with session.post(f"{base}/kv/import", data=payload,
+                                        headers=headers) as resp:
+                    return resp.status, await resp.json(), resp.headers.get("Retry-After")
+
+            # no decode-capable engine of either package: the JAX refusal
+            answers["none"] = await post(payloads[0])
+            # a decode pool whose block size differs: the port's refusal
+            odd = TorchServingEngine.get_or_create(ServingConfig.from_dict(
+                {**paged, "kv-block-size": 32, "pool-role": "decode"}), device="cpu")
+            answers["mismatch"] = await post(payloads[0])
+            await odd.close()
+            TorchServingEngine._instances.pop(next(
+                k for k, v in TorchServingEngine._instances.items() if v is odd))
+            dec = TorchServingEngine.get_or_create(ServingConfig.from_dict(
+                {**paged, "pool-role": "decode"}), device="cpu")
+            answers["ok"] = await post(payloads[0])
+            answers["late"] = await post(payloads[1], **{"langstream-deadline": "1.0"})
+            await dec.drain(grace_s=1.0)
+            answers["draining"] = await post(payloads[2])
+            return want, answers
+        finally:
+            await session.close()
+            server.close()
+            for engine in (pre, combined, dec):
+                if engine is not None:
+                    await engine.close()
+
+    want, answers = asyncio.run(main())
+    assert answers["none"][0] == 409
+    assert answers["mismatch"][0] == 409 and "kv-block-size" in answers["mismatch"][1]["error"]
+    status, body, _ = answers["ok"]
+    assert status == 200 and body["tokens"] == want["tokens"]
+    assert answers["late"][0] == 504 and "deadline" in answers["late"][1]["error"]
+    status, body, retry = answers["draining"]
+    assert status == 503 and body["reason"] == "draining" and retry == "1"
+
+
+def test_flight_attribution_and_profile_list_both_packages(registered, tmp_path):
+    async def main():
+        jax = TpuServingEngine.get_or_create(JaxServingConfig.from_dict(TINY))
+        port = TorchServingEngine.get_or_create(ServingConfig.from_dict(TINY), device="cpu")
+        try:
+            for engine in (jax, port):
+                await engine.generate("hello", {"max-tokens": 2})
+            flight = jax_engine.flight_report()
+            summary = jax_engine.flight_report(summary_only=True)
+            attribution = jax_engine.attribution_report()
+            memory = pod._memory_payload()
+            started = jax_engine.profile_engines("start", str(tmp_path))
+            await jax.generate("traced", {"max-tokens": 2})
+            stopped = jax_engine.profile_engines("stop")
+            with pytest.raises(ValueError):
+                jax_engine.profile_engines("pause")
+            return flight, summary, attribution, memory, started, stopped
+        finally:
+            await jax.close()
+            await port.close()
+
+    flight, summary, attribution, memory, started, stopped = asyncio.run(main())
+    assert [e["model"] for e in flight] == ["tiny", "tiny"]
+    port_entry = flight[1]
+    assert set(flight[0]) - {"incidents"} <= set(port_entry)
+    assert {"samples", "events"} <= set(port_entry)
+    assert not {"samples", "events"} & set(summary[1])
+    assert port_entry["survival"]["shrinks"] == 0 and port_entry["drain"] == {"draining": False}
+    assert len(attribution) == len(memory) == 2
+    assert set(attribution[0]) == set(attribution[1])
+    assert set(started) == set(stopped) == {"tiny", "tiny (torch)"}
+    assert started["tiny (torch)"] and stopped["tiny (torch)"]
+    assert list(tmp_path.glob("trace-*.json"))

@@ -429,11 +429,17 @@ def test_get_or_create_one_engine_per_config_and_device():
     b = TorchServingEngine.get_or_create(cfg, device="cpu")
     assert b is not a
     assert asyncio.run(b.generate("hi", {"max-tokens": 3}))["tokens"] == first["tokens"]
-    # a refused key holding a raw mapping is refused before the config is
-    # hashed; a qos section parses into a hashable spec and shares
-    with pytest.raises(NotImplementedError, match="faults"):
+    # a refused key is refused before the config is hashed; a faults list
+    # parses into hashable plans and a qos section into a hashable spec, and
+    # each shares one engine
+    with pytest.raises(NotImplementedError, match="mesh"):
         TorchServingEngine.get_or_create(
-            ServingConfig.from_dict({"model": "tiny", "faults": [{"site": "prefill"}]}), "cpu")
+            ServingConfig.from_dict({"model": "tiny", "mesh": {"tp": 2}}), "cpu")
+    faulty = {"model": "tiny", "model-dtype": "float32",
+              "faults": [{"site": "prefill", "after": 10 ** 9}]}
+    f = TorchServingEngine.get_or_create(ServingConfig.from_dict(faulty), "cpu")
+    assert TorchServingEngine.get_or_create(ServingConfig.from_dict(faulty), "cpu") is f
+    assert f is not b and f._faults is not None
     qos = {"model": "tiny", "model-dtype": "float32", "qos": {"classes": {}}}
     q = TorchServingEngine.get_or_create(ServingConfig.from_dict(qos), "cpu")
     assert TorchServingEngine.get_or_create(ServingConfig.from_dict(qos), "cpu") is q

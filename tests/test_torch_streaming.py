@@ -178,8 +178,8 @@ def test_streamed_chunks_equal_the_jax_engines(layout):
 def test_default_engine_stays_as_it_was():
     """No ``streaming`` key: ``on_chunk`` still tiles the text, but no
     streaming section, ``tbt_burn``, TBT timing key or stream event appears,
-    and ``stats()`` gains only the JAX engine's ``health`` and
-    ``scheduler`` sections."""
+    and ``stats()`` gains only the JAX engine's ``health``, ``scheduler``,
+    ``drain`` and ``survival`` sections."""
     cfg = {**TINY, **PAGED}
 
     async def scenario(engine):
@@ -204,7 +204,8 @@ def test_default_engine_stays_as_it_was():
         "prefill-calls", "prefill-continue-calls", "prefix", "decode-chunks", "pipeline",
         "device-cache", "steps", "attribution", "kernels", "kv", "deadline-sheds", "warmup",
     }
-    assert set(stats) == before_this_slice | {"health", "scheduler"}
+    assert set(stats) == before_this_slice | {"health", "scheduler", "drain", "survival"}
+    assert {"drain", "survival"} <= set(want[3])
 
 
 class _ReleaseLog:
