@@ -150,6 +150,28 @@ Phases (every one unguarded: any failure exits non-zero):
    cover it, no future pending; then the port's module-level
    ``drain_engines``, ``flight_report``, ``attribution_report`` and
    ``profile_engines`` over those engines;
+   main path L: the request-evidence and cross-replica planes at llama3-8b
+   int8 on path A's params (run after K). L1: K1's unfaulted wave on K's
+   configuration with an ``incident-dir`` and an ``slo`` section whose TTFT
+   objective the wave breaches, each request under its own ambient trace:
+   ms per step and tok/s beside K1's, the p50 and p99 of the journey
+   segments, spans per request, bundles captured and suppressed; fails
+   unless every journey ends in ``finish`` in ``LIFECYCLE_CHAIN`` order
+   with no event dropped, every request has its ``engine.queue``,
+   ``engine.prefill`` and ``engine.decode`` spans, an ``slo-fast-burn``
+   bundle is on disk, re-indexed by a fresh recorder and listed by
+   ``incident_report()``, one fetch per chunk and an idle block manager.
+   L2: I2's pair (paged bf16 KV) behind a router of three dead replicas
+   and one live decode replica (one port ``CircuitBreaker`` each), an
+   ``http-export`` drop and ``http-import`` drops on two offers: 16 prompts
+   chained by ``HandoffChainer``, then 4 with every replica dead, which
+   fall back to local decode; fails unless the greedy tokens equal I2's
+   combined engine's, the dead replicas' breakers open, a
+   ``breaker-storm`` bundle is captured on the prefill engine, every
+   journey runs export -> export-taken -> import-received -> import ->
+   first-step -> finish (the fallbacks' import on the prefill engine) and
+   ``survival_section()`` counts the retries and fallbacks; prints the
+   retries, fallbacks, breaker opens and the transfer segment;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -172,8 +194,10 @@ Phases (every one unguarded: any failure exits non-zero):
    the survival plane on paged f32 and int8 KV with the pipelined loop
    under the mixed load: unfaulted, under K1's chaos plan and drained
    mid-wave, one stream on both devices, and a journal written on the card
-   replays on the CPU to it);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-K),
+   replays on the CPU to it; a mixed wave and a chained handoff's local
+   fallback, whose greedy tokens and journey kinds per request are the
+   same on both devices);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-L),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1088,7 +1112,7 @@ def phase_provider_path(torch, resource: dict, device="cuda", max_tokens=32) -> 
     embeddings service (minilm-l6, weights from a CPU generator seeded 0)
     on ``device`` against the CPU. Returns the launch counts of (a)-(e)."""
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
-    from langstream_tpu_torch.serving.deadline import DeadlineExceeded
+    from langstream_tpu_torch.serving.handoff import DeadlineExceeded
     from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
     from langstream_tpu_torch.serving.engine import TorchServingEngine
 
@@ -2321,7 +2345,7 @@ def i2_prompts() -> list[str]:
 
 
 def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
-                       device="cuda", dec_faults=None) -> dict:
+                       device="cuda", dec_faults=None) -> tuple:
     """Path I2: the chat example's resource with paged bf16 KV as a
     ``combined`` engine, then as a ``pool-role: prefill`` engine whose 16
     exports (``take_export``) land in a ``pool-role: decode`` engine
@@ -2330,7 +2354,9 @@ def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
     the prefill batches and the decode chunks are the same; the decoded
     greedy tokens must equal the combined engine's. With ``dec_faults``
     (path K2) the decode engine is armed with them and must also shrink its
-    budget at an injected ``scatter`` failure and serve every import."""
+    budget at an injected ``scatter`` failure and serve every import. Returns
+    the launch counts and the combined engine's greedy tokens (path L2
+    holds its chained handoffs to them)."""
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
@@ -2419,7 +2445,7 @@ def phase_handoff_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
           f"{imp_dev[-1]:.3f}, {total / sum(imp_dev) / 1e6:.3f} GB/s host->device) "
           f"import_wall_s={import_wall:.3f}; greedy tokens equal the combined engine's "
           f"({len(prompts)} x <= {I2_MAX_TOKENS}); launches={counts}", flush=True)
-    return counts
+    return counts, want_t
 
 
 # ---------------------------------------------------------------------------
@@ -2953,7 +2979,7 @@ def k_resource(resource: dict = CHAT_EXAMPLE_RESOURCE) -> dict:
             "shrink-recovery-s": 2.0}
 
 
-def _k_wave_line(label, stats, before, wall) -> dict:
+def _k_wave_line(label, stats, before, wall, path="K") -> dict:
     dc, dc0 = stats["decode-chunks"], before["decode-chunks"]
     steps, secs = dc["steps"] - dc0["steps"], dc["seconds"] - dc0["seconds"]
     gen = stats["total-generated"] - before["total-generated"]
@@ -2961,7 +2987,7 @@ def _k_wave_line(label, stats, before, wall) -> dict:
             "ms_per_step": round(secs / steps * 1e3, 2) if steps else None,
             "decode_tok_s": round(gen / secs, 1) if secs else None,
             "host_fetches_per_chunk": dc["host_fetches_per_chunk"]}
-    print(f"path K [{label}]: {json.dumps(line)}", flush=True)
+    print(f"path {path} [{label}]: {json.dumps(line)}", flush=True)
     return line
 
 
@@ -3151,7 +3177,7 @@ def phase_wedge_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
     del engine
     gc.collect()
     i2_counts = phase_handoff_path(torch, params, resource, device,
-                                   dec_faults=[{"site": "scatter", "count": 1}])
+                                   dec_faults=[{"site": "scatter", "count": 1}])[0]
     return {k: counts[k] + i2_counts[k] for k in counts}
 
 
@@ -3413,6 +3439,359 @@ def phase_drain_path(torch, params, resource: dict = CHAT_EXAMPLE_RESOURCE,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path L: the request-evidence and cross-replica planes
+# ---------------------------------------------------------------------------
+
+#: L1's slo section: a TTFT objective the 64-request wave breaches (its
+#: queued requests wait whole prefill batches), so the fast burn pages
+L_SLO = {"objectives": {"ttft": {"target": 0.99, "threshold-ms": 250}}}
+#: the journey segments path L reports (the TTFT decomposition and decode)
+L_SEGMENTS = ("queue", "prefill", "transfer", "decode-admission", "first-step", "decode")
+L2_DEAD = ("dead-0", "dead-1", "dead-2")
+L2_FALLBACKS = 4
+
+
+def _quantile(values: list, q: float):
+    if not values:
+        return None
+    ordered = sorted(values)
+    return round(ordered[min(len(ordered) - 1, int(q * len(ordered)))], 3)
+
+
+def journey_segments(journeys: list[list[dict]]) -> dict:
+    """Per segment of :data:`L_SEGMENTS`: the journeys that have it, and the
+    p50 and p99 of each journey's total ms in it."""
+    from langstream_tpu_torch.serving.journey import segments
+
+    per: dict = {name: [] for name in L_SEGMENTS}
+    for events in journeys:
+        totals: dict = {}
+        for seg in segments(events):
+            totals[seg["segment"]] = totals.get(seg["segment"], 0.0) + seg["ms"]
+        for name in L_SEGMENTS:
+            if name in totals:
+                per[name].append(totals[name])
+    return {name: {"n": len(v), "p50_ms": _quantile(v, 0.5), "p99_ms": _quantile(v, 0.99)}
+            for name, v in per.items()}
+
+
+def _chain_order(label: str, kinds: list, chain) -> None:
+    """Fail unless the first occurrences of ``chain``'s kinds are all in
+    ``kinds`` and in that order."""
+    first = {}
+    for i, kind in enumerate(kinds):
+        first.setdefault(kind, i)
+    if any(k not in first for k in chain) or [first[k] for k in chain] != sorted(
+            first[k] for k in chain):
+        fail(f"{label}: journey {kinds} does not run {list(chain)} in order")
+
+
+def phase_evidence_path(torch, params, k1_line: dict, resource: dict = CHAT_EXAMPLE_RESOURCE,
+                        device="cuda") -> tuple:
+    """L1: K1's unfaulted wave (``K_REQUESTS`` greedy requests, path F's
+    lengths and budgets) on K's configuration with an ``incident-dir`` and
+    :data:`L_SLO`, each request under its own ambient trace. Prints ms per
+    step and tok/s beside K1's, the journey segments, spans per request and
+    the bundles captured and suppressed. Fails unless every journey ends in
+    ``finish`` with its first occurrences in ``LIFECYCLE_CHAIN`` order and
+    no event dropped, every request has its ``engine.queue``,
+    ``engine.prefill`` and ``engine.decode`` spans under its trace, an
+    ``slo-fast-burn`` bundle is on disk, re-indexed by a fresh recorder and
+    listed by ``incident_report()``, one fetch per chunk holds and the block
+    manager ends idle."""
+    import tempfile
+
+    from langstream_tpu_torch.core import tracing
+    from langstream_tpu_torch.serving import engine as engine_module
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.incident import IncidentRecorder
+    from langstream_tpu_torch.serving.journey import JOURNEYS, LIFECYCLE_CHAIN
+
+    label = "L1 journeys, spans and incidents"
+    requests = saturated_requests(K_REQUESTS)
+    incident_dir = tempfile.mkdtemp(prefix="ls-l1-incidents-")
+    engine = TorchServingEngine(ServingConfig.from_dict(
+        {**k_resource(resource), "incident-dir": incident_dir, "slo": L_SLO}),
+        device=device, params=params)
+    key = ("chip-smoke", "L1")
+    TorchServingEngine._instances[key] = engine  # incident_report walks the instance map
+    traces = [tracing.TraceContext.new() for _ in requests]
+    dropped0 = JOURNEYS.dropped_events
+
+    async def traced(ctx, prompt, budget):
+        token = tracing.set_current(ctx)
+        try:
+            return await engine.generate(prompt, {"max-tokens": budget, "temperature": 0})
+        finally:
+            tracing.reset_current(token)
+
+    async def run():
+        try:
+            before = engine.stats()
+            t0 = time.monotonic()
+            results = await asyncio.gather(*(traced(ctx, p, m)
+                                             for ctx, (p, m) in zip(traces, requests)))
+            wall = time.monotonic() - t0
+            await engine.settled()
+            engine.health()
+            if not engine.incidents.flush(30.0):
+                fail(f"{label}: the incident writer did not drain")
+            return results, wall, before, engine.stats(), engine_module.incident_report()
+        finally:
+            await engine.close()
+            TorchServingEngine._instances.pop(key, None)
+
+    reset_counts()
+    results, wall, before, stats, report = asyncio.run(run())
+    counts = read_counts()
+    line = _k_wave_line(label, stats, before, wall, path="L")
+    print(f"path L [L1 against K1 unfaulted]: ms_per_step {line['ms_per_step']} against "
+          f"{k1_line['ms_per_step']}, decode_tok_s {line['decode_tok_s']} against "
+          f"{k1_line['decode_tok_s']}, wall_s {line['wall_s']} against {k1_line['wall_s']} "
+          f"(recorded, not claimed)", flush=True)
+    journeys, spans = [], 0
+    for i, (ctx, (_, budget), r) in enumerate(zip(traces, requests, results)):
+        if not 0 < len(r["tokens"]) <= budget:
+            fail(f"{label}: request {i} returned {len(r['tokens'])} tokens of {budget}")
+        events = JOURNEYS.events(ctx.trace_id)
+        kinds = [e["kind"] for e in events]
+        if not kinds or kinds[-1] != "finish":
+            fail(f"{label}: request {i}'s journey does not end in finish: {kinds}")
+        _chain_order(f"{label} request {i}", kinds, [k for k in LIFECYCLE_CHAIN if k in kinds])
+        journeys.append(events)
+        mine = [s for s in tracing.SPANS.spans(ctx.trace_id) if s["parent_id"] == ctx.span_id]
+        names = {s["name"] for s in mine}
+        if not {"engine.queue", "engine.prefill", "engine.decode"} <= names:
+            fail(f"{label}: request {i}'s spans under its trace are {sorted(names)}")
+        spans += len(mine)
+    if JOURNEYS.dropped_events != dropped0:
+        fail(f"{label}: {JOURNEYS.dropped_events - dropped0} journey events dropped")
+    if stats["decode-chunks"]["host_fetches_per_chunk"] != 1.0:
+        fail(f"{label}: host_fetches_per_chunk {stats['decode-chunks']['host_fetches_per_chunk']}")
+    _k_check_idle(label, engine)
+    on_disk = sorted(p.name[:-len(".json")] for p in Path(incident_dir).glob(
+        "incident-*-slo-fast-burn.json"))
+    if not on_disk:
+        fail(f"{label}: no slo-fast-burn bundle on disk: {stats.get('incidents')}")
+    fresh = IncidentRecorder(incident_dir)
+    try:
+        reindexed = [b["id"] for b in fresh.list()]
+    finally:
+        fresh.close()
+    listed = [b["id"] for entry in report for b in entry.get("incidents", [])]
+    if not set(on_disk) <= set(reindexed) or not set(on_disk) <= set(listed):
+        fail(f"{label}: bundles on disk {on_disk}, re-indexed {reindexed}, listed {listed}")
+    inc = stats["incidents"]
+    segs = journey_segments(journeys)
+    print(f"path L [{label}]: journeys={len(journeys)} segments={json.dumps(segs)} "
+          f"spans_per_request={spans / len(results):.2f} bundles captured={inc['captured']} "
+          f"written={inc['written']} suppressed={inc['suppressed']} on_disk={on_disk}; "
+          f"every journey ends in finish in chain order, 0 events dropped; "
+          f"launches={counts}", flush=True)
+    del engine
+    gc.collect()
+    return counts, segs
+
+
+class L2Router:
+    """The part of the platform's router the chainer uses (``pick``,
+    ``report_failure``, ``report_success``, ``hold``, ``on_breaker_event``),
+    holding one port :class:`CircuitBreaker` per replica. Picks in its
+    replica order, the dead replicas first (they look least loaded), past
+    the excluded one and the breakers that refuse; OPEN and CLOSED edges go
+    to ``on_breaker_event`` as the platform router's do."""
+
+    def __init__(self, replicas, spec):
+        from langstream_tpu_torch.serving.handoff import CircuitBreaker
+
+        self.order = list(replicas)
+        self.breakers = {r: CircuitBreaker(spec) for r in replicas}
+        self.on_breaker_event = None
+
+    def _emit(self, kind: str, replica: str, **detail) -> None:
+        detail["open_replicas"] = sum(1 for b in self.breakers.values() if b.state == "open")
+        if self.on_breaker_event is not None:
+            self.on_breaker_event(kind, replica, detail)
+
+    def pick(self, phase=None, exclude=None):
+        for replica in self.order:
+            breaker = self.breakers[replica]
+            if replica not in (exclude or ()) and breaker.can_serve():
+                breaker.note_probe()
+                return replica
+        return None
+
+    def report_failure(self, replica: str, kind: str = "error") -> None:
+        breaker = self.breakers[replica]
+        before = breaker.state
+        if breaker.record_failure(kind) == "open" and before != "open":
+            self._emit("breaker-open", replica, failures=breaker.stats()["window_failures"],
+                       last_kind=kind)
+
+    def report_success(self, replica: str) -> None:
+        breaker = self.breakers[replica]
+        before = breaker.state
+        if breaker.record_success() != before:
+            self._emit("breaker-close", replica)
+
+    def hold(self, replica: str, retry_after_s: float) -> None:
+        pass  # no replica here sheds with a hint
+
+
+def phase_chainer_path(torch, params, combined_tokens: list,
+                       resource: dict = CHAT_EXAMPLE_RESOURCE, device="cuda") -> tuple:
+    """L2: I2's pair (paged bf16 KV; the prefill engine with an
+    ``incident-dir``, an ``http-export`` drop and ``http-import`` drops on
+    two offers) behind :class:`L2Router`: three dead replicas whose
+    transport raises ``ConnectionError`` and one live decode replica, whose
+    in-process transport lands the 16 offers in the decode engine's
+    ``import_handoff`` together (in prompt order, as I2 lands them). 16
+    prompts chained by :class:`HandoffChainer`, then 4 with the live replica
+    dead too, which fall back to local decode. Fails unless every greedy
+    token equals I2's combined engine, the dead replicas' breakers open and
+    a ``breaker-storm`` bundle is captured on the prefill engine, every
+    journey runs export -> export-taken -> import-received -> import ->
+    first-step -> finish (the fallbacks' import on the prefill engine), and
+    ``survival_section()`` counts the retries and fallbacks."""
+    import tempfile
+
+    from langstream_tpu_torch.core import tracing
+    from langstream_tpu_torch.serving import kvtransfer
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.handoff import (
+        BreakerSpec, HandoffChainer, HandoffLost, RetryPolicy,
+    )
+    from langstream_tpu_torch.serving.journey import JOURNEYS, stitch
+
+    label = "L2 chainer across replicas"
+    base = {k: v for k, v in resource["configuration"].items() if k != "warmup-on-start"}
+    base.update({"kv-layout": "paged", "prefix-cache": False})
+    incident_dir = tempfile.mkdtemp(prefix="ls-l2-incidents-")
+    pre = TorchServingEngine(ServingConfig.from_dict({
+        **base, "pool-role": "prefill", "incident-dir": incident_dir,
+        "faults": [{"site": "http-export", "shape": "drop", "count": 1},
+                   {"site": "http-import", "shape": "drop", "after": 3, "count": 2}]}),
+        device=device, params=params)
+    dec = TorchServingEngine(ServingConfig.from_dict({**base, "pool-role": "decode"}),
+                             device=device, params=params)
+    prompts = i2_prompts()
+    extra = [f"Fallback question {i}: name a colour." for i in range(L2_FALLBACKS)]
+    opts = {"max-tokens": I2_MAX_TOKENS, "temperature": 0}
+    router = L2Router(L2_DEAD + ("live-0",), BreakerSpec(failures=3, window_s=30.0,
+                                                          open_s=30.0))
+    chainer = HandoffChainer(pre, router=router, policy=RetryPolicy(
+        attempts=8, backoff_s=0.01, backoff_cap_s=0.05))
+    live = {"up": True, "order": {}, "waiting": []}
+
+    async def transport(replica, payload, headers, timeout_s):
+        if replica != "live-0" or not live["up"]:
+            raise ConnectionError(f"{replica} refused the connection")
+        waiter = asyncio.get_running_loop().create_future()
+        live["waiting"].append((payload, waiter))
+        if len(live["waiting"]) == len(prompts):
+            # every offer is here: land them together, in prompt order
+            batch = sorted(live["waiting"], key=lambda pw: live["order"][
+                kvtransfer.peek_header(pw[0])["request"]])
+            outs = await asyncio.gather(*(dec.import_handoff(p) for p, _ in batch))
+            for (_, w), out in zip(batch, outs):
+                w.set_result(out)
+        return 200, await waiter, {}
+
+    chainer.transport = transport
+
+    async def chain(ticket):
+        try:
+            return await chainer.chain(ticket)
+        except HandoffLost:
+            # the http-export drop: the pickup never arrived and the payload
+            # stayed put; the retried pickup lands
+            return await chainer.chain(ticket)
+
+    async def traced_tickets(texts):
+        traces = [tracing.TraceContext.new() for _ in texts]
+
+        async def one(ctx, text):
+            token = tracing.set_current(ctx)
+            try:
+                return await pre.generate(text, dict(opts))
+            finally:
+                tracing.reset_current(token)
+
+        return traces, await asyncio.gather(*(one(c, t) for c, t in zip(traces, texts)))
+
+    async def run():
+        try:
+            traces, tickets = await traced_tickets(prompts)
+            live["order"] = {t["handoff"]: i for i, t in enumerate(tickets)}
+            t0 = time.monotonic()
+            got = await asyncio.gather(*(chain(t) for t in tickets))
+            chain_wall = time.monotonic() - t0
+            pre.health()  # the breaker-storm predicate reads the ring here
+            live["up"] = False
+            f_traces, f_tickets = await traced_tickets(extra)
+            fallen = await asyncio.gather(*(chain(t) for t in f_tickets))
+            await pre.settled()
+            await dec.settled()
+            if not pre.incidents.flush(30.0):
+                fail(f"{label}: the incident writer did not drain")
+            return (traces, got, f_traces, fallen, chain_wall, pre.stats(), dec.stats(),
+                    pre.incidents.list())
+        finally:
+            await pre.close()
+            await dec.close()
+
+    reset_counts()
+    traces, got, f_traces, fallen, chain_wall, st_pre, st_dec, bundles = asyncio.run(run())
+    counts = read_counts()
+    got_t = [r["tokens"] for r in got]
+    if got_t != combined_tokens:
+        diffs = [i for i, (a, b) in enumerate(zip(got_t, combined_tokens)) if a != b]
+        fail(f"{label}: chained greedy tokens differ from I2's combined engine at {diffs}")
+    opened = {r: b.opens for r, b in router.breakers.items()}
+    if any(opened[r] < 1 for r in L2_DEAD):
+        fail(f"{label}: the dead replicas' breakers did not all open: {opened}")
+    kinds_by_bundle = [b["kind"] for b in bundles]
+    if "breaker-storm" not in kinds_by_bundle:
+        fail(f"{label}: no breaker-storm bundle on the prefill engine: {kinds_by_bundle}")
+    chain_kinds = ["export", "export-taken", "import-received", "import", "first-step",
+                   "finish"]
+    stitched = []
+    for i, ctx in enumerate(traces + f_traces):
+        events = JOURNEYS.events(ctx.trace_id)
+        kinds = [e["kind"] for e in events]
+        _chain_order(f"{label} request {i}", kinds, chain_kinds)
+        merged = stitch(ctx.trace_id, [events])
+        if not merged["complete"] or merged["anomalies"] or kinds[-1] != "finish":
+            fail(f"{label}: request {i}'s stitched journey {kinds}: {merged['anomalies']}")
+        role = [e.get("role") for e in events if e["kind"] == "import"][-1]
+        if role != ("decode" if i < len(traces) else "prefill"):
+            fail(f"{label}: request {i} imported on the {role} engine")
+        stitched.append(events)
+    survival = st_pre["survival"]
+    cstats = chainer.stats()
+    if (survival["handoff_retries"] != cstats["retries"] or cstats["retries"] < len(L2_DEAD)
+            or survival["handoff_fallbacks"] != cstats["fallbacks"] != L2_FALLBACKS):
+        fail(f"{label}: survival {survival} against the chainer's {cstats}")
+    for name, st in (("prefill", st_pre), ("decode", st_dec)):
+        if st["decode-chunks"]["dispatched"] and st["decode-chunks"][
+                "host_fetches_per_chunk"] != 1.0:
+            fail(f"{label}: the {name} engine's host_fetches_per_chunk != 1.0")
+        if st["kv"]["reserved_blocks"] or st["kv"]["live_blocks"]:
+            fail(f"{label}: the {name} engine's block manager is not idle: {st['kv']}")
+    if any(not r["tokens"] for r in fallen):
+        fail(f"{label}: a local fallback returned no tokens")
+    segs = journey_segments(stitched[:len(traces)])
+    print(f"path L [{label}]: {len(got)} chained in {chain_wall:.3f} s, greedy tokens equal "
+          f"I2's combined engine; retries={cstats['retries']} fallbacks={cstats['fallbacks']} "
+          f"breaker_opens={opened} bundles={kinds_by_bundle} transfer_ms p50="
+          f"{segs['transfer']['p50_ms']} p99={segs['transfer']['p99_ms']} "
+          f"segments={json.dumps(segs)} survival={{'handoff_retries': "
+          f"{survival['handoff_retries']}, 'handoff_fallbacks': "
+          f"{survival['handoff_fallbacks']}}}; launches={counts}", flush=True)
+    return counts, segs
+
+
 def survival_round_trip(torch, cfg: dict, device: str, params) -> dict:
     """Phase 5's survival layouts on one device, under the mixed-length load
     on 3 slots: the greedy streams unfaulted, under K1's chaos plan (its
@@ -3619,6 +3998,42 @@ def handoff_across(torch, cfg: dict, src: str, dst: str, params) -> list:
         finally:
             await pre.close()
             await dec.close()
+
+    return asyncio.run(run())
+
+
+def evidence_round_trip(torch, cfg: dict, device: str, params) -> tuple:
+    """Phase 5's request-evidence check: a mixed wave on a combined engine,
+    then one chained handoff whose only decode replica is dead (the local
+    fallback on the prefill engine). Returns the greedy tokens and each
+    request's journey kinds."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.handoff import BreakerSpec, HandoffChainer, RetryPolicy
+    from langstream_tpu_torch.serving.journey import JOURNEYS
+
+    async def dead(replica, payload, headers, timeout_s):
+        raise ConnectionError(f"{replica} refused the connection")
+
+    async def run():
+        wave = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+        pre = TorchServingEngine(ServingConfig.from_dict({**cfg, "pool-role": "prefill"}),
+                                 device=device, params=params)
+        before = set(JOURNEYS.ids())
+        try:
+            outs = await asyncio.gather(*(wave.generate(p, {"max-tokens": m, "temperature": 0})
+                                          for p, m in zip(*survival_load())))
+            chainer = HandoffChainer(pre, router=L2Router(("dead-0",), BreakerSpec(failures=1)),
+                                     transport=dead,
+                                     policy=RetryPolicy(attempts=2, backoff_s=0.001))
+            ticket = await pre.generate("a chained handoff falls back", {"max-tokens": 10,
+                                                                          "temperature": 0})
+            fallback = await chainer.chain(ticket)
+        finally:
+            await wave.close()
+            await pre.close()
+        kinds = [[e["kind"] for e in JOURNEYS.events(j)] for j in JOURNEYS.ids()
+                 if j not in before]
+        return [o["tokens"] for o in outs] + [fallback["tokens"]], kinds
 
     return asyncio.run(run())
 
@@ -3833,6 +4248,19 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
               f"the card and the CPU; a journal written on the card replays on the CPU to "
               f"them", flush=True)
 
+    # the request-evidence and cross-replica planes (path L's shapes, tiny)
+    cfg = {**tiny, "prefix-cache": False}
+    out = {name: evidence_round_trip(torch, cfg, device, params["tiny"])
+           for name, device in zip(("cuda", "cpu"), devices)}
+    tokens, kinds = out["cuda"]
+    if out["cuda"] != out["cpu"] or kinds[-1] != [
+            "submit", "admit", "first-token", "export", "export-taken", "import-received",
+            "import", "first-step", "finish"] or any(k[-1] != "finish" for k in kinds):
+        fail(f"card vs CPU [journeys]: the card {out['cuda']} against the CPU {out['cpu']}")
+    print(f"card vs CPU [journeys, paged f32 KV]: a mixed wave of {len(tokens) - 1} and a "
+          f"chained handoff's local fallback: greedy tokens and the journey kinds of every "
+          f"request identical on the card and the CPU", flush=True)
+
 
 def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
     """A batch request alone, then again with an interactive request
@@ -3946,7 +4374,7 @@ def main() -> int:
     i1_counts = phase_tier_path(torch, params)
     gc.collect()
     torch.cuda.empty_cache()
-    i2_counts = phase_handoff_path(torch, params)
+    i2_counts, i2_tokens = phase_handoff_path(torch, params)
     i_counts = {k: i1_counts[k] + i2_counts[k] for k in i1_counts}
     print(f"path I: {time.monotonic() - t_i:.1f} s", flush=True)
     gc.collect()
@@ -3961,7 +4389,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_k = time.monotonic()
-    k1_counts = phase_chaos_path(torch, params)[0]
+    k1_counts, k1_line, _ = phase_chaos_path(torch, params)
     gc.collect()
     torch.cuda.empty_cache()
     k2_counts = phase_wedge_path(torch, params)
@@ -3976,6 +4404,18 @@ def main() -> int:
     if k_counts["flash_attention"] == 0 or k_counts["paged_attention_q8"] == 0:
         fail(f"path K did not launch flash and the int8 paged read: {k_counts}")
     print(f"path K: {time.monotonic() - t_k:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_l = time.monotonic()
+    l1_counts = phase_evidence_path(torch, params, k1_line)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    l2_counts = phase_chainer_path(torch, params, i2_tokens)[0]
+    l_counts = {k: l1_counts[k] + l2_counts[k] for k in l1_counts}
+    if l_counts["flash_attention"] == 0 or l_counts["paged_attention_q8"] == 0 or (
+            l_counts["paged_attention"] == 0):
+        fail(f"path L did not launch flash and both paged reads: {l_counts}")
+    print(f"path L: {time.monotonic() - t_l:.1f} s", flush=True)
     del params  # path E makes its own weights: two 8B sets never share the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -4008,8 +4448,8 @@ def main() -> int:
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
-             "J": j_counts, "K": k_counts}
-    meta = {  # launches: summed over the eleven main paths
+             "J": j_counts, "K": k_counts, "L": l_counts}
+    meta = {  # launches: summed over the twelve main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

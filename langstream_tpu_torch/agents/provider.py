@@ -16,7 +16,7 @@ port's requests by their ``stream-key``.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 from langstream_tpu_torch.agents.services import (
     Chunk,
@@ -26,6 +26,7 @@ from langstream_tpu_torch.agents.services import (
     ServiceProvider,
     StreamingChunksConsumer,
 )
+from langstream_tpu_torch.core.tracing import TraceContext, reset_current, set_current
 from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
 from langstream_tpu_torch.serving.engine import (
     ServingConfig,
@@ -118,24 +119,24 @@ class _ChunkAdapter:
 
 
 class TorchCompletionsService(CompletionsService):
-    def __init__(self, engine: TorchServingEngine):
+    """Completions on one engine. ``ambient_trace`` returns the caller's
+    ambient ``langstream-trace`` value (or None); the request then runs under
+    it, so the engine's journey and spans join the record's trace."""
+
+    def __init__(self, engine: TorchServingEngine,
+                 ambient_trace: Callable[[], str | None] | None = None):
         self.engine = engine
+        self.ambient_trace = ambient_trace
 
     async def _generate(self, prompt: str, options: dict[str, Any],
                         consumer: StreamingChunksConsumer | None) -> CompletionResult:
-        if consumer is not None and self.engine.config.streaming:
-            # a streaming engine delivers at the chunk boundary (timed for
-            # TBT) and holds back itself
-            result = await self.engine.generate(
-                prompt, options, on_chunk=_ChunkAdapter(consumer).on_chunk)
-        else:
-            adapter = (
-                _StreamAdapter(self.engine.tokenizer, consumer, stop=options.get("stop"))
-                if consumer is not None else None
-            )
-            result = await self.engine.generate(
-                prompt, options, on_token=adapter.on_token if adapter else None,
-            )
+        ctx = TraceContext.parse(self.ambient_trace()) if self.ambient_trace else None
+        token = set_current(ctx) if ctx is not None else None
+        try:
+            result = await self._run(prompt, options, consumer)
+        finally:
+            if token is not None:
+                reset_current(token)
         return CompletionResult(
             text=result["text"],
             num_prompt_tokens=result["num_prompt_tokens"],
@@ -144,6 +145,21 @@ class TorchCompletionsService(CompletionsService):
             ttft_s=result.get("ttft", 0.0),
             queue_wait_s=result.get("queue_wait", 0.0),
             prefill_s=result.get("prefill", 0.0),
+        )
+
+    async def _run(self, prompt: str, options: dict[str, Any],
+                   consumer: StreamingChunksConsumer | None) -> dict[str, Any]:
+        if consumer is not None and self.engine.config.streaming:
+            # a streaming engine delivers at the chunk boundary (timed for
+            # TBT) and holds back itself
+            return await self.engine.generate(
+                prompt, options, on_chunk=_ChunkAdapter(consumer).on_chunk)
+        adapter = (
+            _StreamAdapter(self.engine.tokenizer, consumer, stop=options.get("stop"))
+            if consumer is not None else None
+        )
+        return await self.engine.generate(
+            prompt, options, on_token=adapter.on_token if adapter else None,
         )
 
     async def chat_completions(
@@ -176,13 +192,16 @@ class TorchServiceProvider(ServiceProvider):
     ``type`` and ``name`` stripped), on ``device`` (the card unless the
     caller asks for the CPU). ``streams`` is the stream registry its
     engine registers ``stream-key`` requests with (``None``: the port's
-    own)."""
+    own); ``ambient_trace`` returns the platform's ambient trace as a
+    header value (``None``: the port's own context is the ambient one)."""
 
     def __init__(self, resource_config: dict[str, Any], *, device="cuda",
-                 streams: StreamCancelRegistry | None = None):
+                 streams: StreamCancelRegistry | None = None,
+                 ambient_trace: Callable[[], str | None] | None = None):
         self.resource_config = resource_config
         self.device = device
         self.streams = streams
+        self.ambient_trace = ambient_trace
 
     def _engine_config(self) -> dict[str, Any]:
         return {k: v for k, v in self.resource_config.items() if k not in ("type", "name")}
@@ -191,7 +210,7 @@ class TorchServiceProvider(ServiceProvider):
         engine = TorchServingEngine.get_or_create(
             ServingConfig.from_dict(self._engine_config()), device=self.device,
             streams=self.streams)
-        return TorchCompletionsService(engine)
+        return TorchCompletionsService(engine, self.ambient_trace)
 
     def get_embeddings_service(self, config: dict[str, Any]) -> EmbeddingsService:
         cfg = self._engine_config()

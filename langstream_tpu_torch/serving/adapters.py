@@ -796,10 +796,9 @@ class AdapterStore:
             },
             "rank": self.spec.rank,
             "entry_bytes": self.entry_bytes,
-            # the thrash-analysis window (the JAX package's engine_top
-            # and adapter-storm predicate count same-adapter evictions
-            # inside one hydrate window; the port's incident plane is
-            # ROADMAP.md Queue 1 item 9)
+            # the thrash-analysis window (engine_top and the
+            # adapter-storm predicate, serving/incident.py, count
+            # same-adapter evictions inside one hydrate window)
             "hydrate_timeout_s": self.spec.hydrate_timeout_s,
             "installs": self.installs,
             "demotions_t1_t2": self.demotions_t1_t2,

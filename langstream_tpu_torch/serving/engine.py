@@ -71,7 +71,7 @@ Execution model:
 - Submit-time refusals, as in the JAX engine: a request naming an
   ``adapter`` on an engine without an adapter store raises ``ValueError``; one whose
   ``deadline``/``deadline-s`` budget is spent raises
-  :class:`~langstream_tpu_torch.serving.deadline.DeadlineExceeded`; both
+  :class:`~langstream_tpu_torch.serving.handoff.DeadlineExceeded`; both
   before the request queues.
 - Admission plane (``serving/scheduler.py``, ``serving/qos.py``): every
   request enters through ``self.scheduler`` — FIFO by default, the QoS
@@ -141,6 +141,21 @@ Execution model:
   shed with ``RateLimited("draining")``), the loop's safe point requeues
   every running request once, the backlog is served within the grace and
   what is left past it fails loudly.
+- Request evidence (``core/tracing.py``, ``serving/journey.py``,
+  ``serving/incident.py``): every request carries a journey id (its trace
+  id when ``generate`` runs under an ambient trace) and records the JAX
+  engine's lifecycle edges in :data:`~langstream_tpu_torch.serving.journey.JOURNEYS`
+  as wait-free appends at the sites where the host learns them; a traced
+  request's phases become ``engine.*`` spans at completion. With
+  ``incident-dir`` a breach (health transition, SLO or TBT fast burn,
+  breaker or adapter storm) captures a bundle on the recorder's writer
+  thread (:func:`incident_report`).
+- Cross-replica handoff (``serving/handoff.py``): the export's wire header
+  carries the trace and journey; :class:`~langstream_tpu_torch.serving.handoff.HandoffChainer`
+  drives an export through :meth:`TorchServingEngine.take_export_entry`,
+  a router's decode picks and :meth:`TorchServingEngine.import_handoff`,
+  falling back to the prefill engine itself (``local_fallback``), and
+  counts its re-offers and fallbacks through the ``note_*`` hooks.
 
 Settings whose feature this slice lacks raise ``NotImplementedError`` naming
 the ``ROADMAP.md`` item; settings that only change latency are accepted and
@@ -166,6 +181,12 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch._device import require_device
+from langstream_tpu_torch.core.tracing import (
+    TraceContext,
+    current_context,
+    fresh_trace_id,
+    record_span,
+)
 from langstream_tpu_torch.models.checkpoints import (
     load_llama_checkpoint,
     load_moe_checkpoint,
@@ -224,7 +245,7 @@ from langstream_tpu_torch.serving.attribution import (
     tree_device_bytes,
     verify_cost,
 )
-from langstream_tpu_torch.serving.deadline import (
+from langstream_tpu_torch.serving.handoff import (
     DeadlineExceeded,
     deadline_from_options,
     parse_deadline,
@@ -250,7 +271,14 @@ from langstream_tpu_torch.serving.profiling import (
     detect_hbm_capacity,
     detect_hbm_gbps,
 )
+from langstream_tpu_torch.serving.incident import (
+    IncidentRecorder,
+    adapter_eviction_storm,
+    breaker_storm,
+    worst_journeys,
+)
 from langstream_tpu_torch.serving.journal import RequestJournal, request_entry
+from langstream_tpu_torch.serving.journey import JOURNEYS
 from langstream_tpu_torch.serving.prefixstore import PrefixStore, PrefixStoreSpec
 from langstream_tpu_torch.serving.qos import (
     QosSpec,
@@ -309,13 +337,6 @@ _RESOURCE_EXHAUSTED_RE = re.compile(
 _OOM_TYPES = tuple({t for t in (getattr(torch, "OutOfMemoryError", None),
                                 getattr(torch.cuda, "OutOfMemoryError", None))
                     if t is not None})
-
-
-def _fresh_trace_id() -> str:
-    """A new 32-hex trace-id-shaped identifier (the JAX package's
-    ``core.tracing.fresh_trace_id``): the journal keys each accepted
-    request with one."""
-    return os.urandom(16).hex()
 
 
 def _parse_bool(v: Any) -> bool:
@@ -431,6 +452,54 @@ class ServingConfig:
             incident_dir=get("incident-dir", os.environ.get("LS_TPU_INCIDENT_DIR") or None),
         )
 
+    def to_dict(self) -> dict[str, Any]:
+        """Kebab-case dict that :meth:`from_dict` round-trips (the JAX
+        config's keys; an incident bundle carries it as ``config``)."""
+        return {
+            "model": self.model,
+            "slots": self.slots,
+            "max-seq-len": self.max_seq_len,
+            "tokenizer": self.tokenizer,
+            "checkpoint": self.checkpoint,
+            "mesh": dict(self.mesh),
+            "max-tokens": self.default_max_tokens,
+            "seed": self.seed,
+            "decode-chunk": self.decode_chunk,
+            "decode-chunk-light": self.decode_chunk_light,
+            "light-load-slots": self.light_load_slots,
+            "warmup-on-start": self.warmup_on_start,
+            "prefill-batch": self.prefill_batch,
+            "quantize": self.quantize,
+            "kv-quantize": self.kv_quantize,
+            "kv-layout": self.kv_layout,
+            "kv-block-size": self.kv_block_size,
+            "kv-pool-fraction": self.kv_pool_fraction,
+            "kv-pool-blocks": self.kv_pool_blocks,
+            "paged-kernel": self.paged_kernel,
+            "dense-kernel": self.dense_kernel,
+            "prefix-cache": self.prefix_cache,
+            "prefix-cache-max-suffix": self.prefix_cache_max_suffix,
+            "prefix-store": (self.prefix_store.to_dict()
+                             if self.prefix_store is not None else None),
+            "adapter-store": (self.adapter_store.to_dict()
+                              if self.adapter_store is not None else None),
+            "prefill-chunk": self.prefill_chunk,
+            "speculative-drafts": self.speculative_drafts,
+            "model-dtype": self.model_dtype,
+            "qos": self.qos.to_dict() if self.qos is not None else None,
+            "pool-role": self.pool_role,
+            "pipeline": self.pipeline,
+            "wedge-window-s": self.wedge_window_s,
+            "slo": self.slo.to_dict() if self.slo is not None else None,
+            "streaming": self.streaming,
+            "stream-stall-s": self.stream_stall_s,
+            "shrink-fraction": self.shrink_fraction,
+            "shrink-recovery-s": self.shrink_recovery_s,
+            "faults": [p.to_dict() for p in self.faults],
+            "journal-dir": self.journal_dir,
+            "incident-dir": self.incident_dir,
+        }
+
 
 #: settings this slice does not serve: (predicate, message)
 _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
@@ -439,9 +508,6 @@ _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
     (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
      "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
      "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
-    # the JAX engine tests the directory for truthiness: "" serves
-    (lambda c: bool(c.incident_dir),
-     "incident-dir: incident capture is ROADMAP.md Queue 1 item 9"),
 )
 
 #: accepted settings that change only latency here (the kernel choices the
@@ -587,11 +653,19 @@ class _Request:
     adapter_row: int = 0
     adapter_hydrate_attempted: bool = False
     adapter_pinned: bool = False
-    # the crash-requeue journal's key (a fresh trace-id-shaped id at
-    # submit; warmup probes have none), and the times an import's scatter
-    # failed on an allocator refusal and was retried
+    # the journey ledger's and the journal's key: the trace id when the
+    # request is traced, a fresh trace-id-shaped id otherwise (warmup
+    # probes have none); the trace is the ambient context at submit (the
+    # wire header's on an import), the parent of the request's spans
     journey_id: str | None = None
+    trace: TraceContext | None = None
+    # the times an import's scatter failed on an allocator refusal and was
+    # retried
     import_retries: int = 0
+    # an import's generated-token count on arrival, and whether its first
+    # new token was recorded (the decode-admission segment's end)
+    import_base_tokens: int = 0
+    first_step_noted: bool = False
 
     @property
     def context_tokens(self) -> list[int]:
@@ -943,6 +1017,11 @@ class TorchServingEngine:
         self.pool_shrinks = 0
         self.pool_restores = 0
         self.shrink_preempted = 0
+        # the cross-replica failure domain (serving/handoff.py): chainer
+        # re-offers and local fallbacks, and completions past their deadline
+        self.handoff_retries = 0
+        self.handoff_fallbacks = 0
+        self.deadline_overruns = 0
         self._shrink_recover_at: float | None = None
         # requeues and sheds made at a catch site (the chunked-prefill grow,
         # an import's scatter) before the loop's shrink pass: the pass
@@ -965,6 +1044,18 @@ class TorchServingEngine:
         # a prefill pool's exports keep their journal entry live until the
         # decode side answers (:meth:`handoff_settled`): export id -> id
         self._handoff_journal: "OrderedDict[str, str]" = OrderedDict()
+        # a prefill pool's own exports (export id -> prompt digest), the
+        # only payloads its local fallback admits; bounded like the mapping
+        self._own_exports: "OrderedDict[str, str]" = OrderedDict()
+        # incident capture (serving/incident.py): breach-triggered evidence
+        # bundles. None (the default, and "") keeps every observe path one
+        # attribute test
+        self.incidents: IncidentRecorder | None = None
+        if config.incident_dir:
+            self.incidents = IncidentRecorder(
+                config.incident_dir,
+                on_evict=lambda bid: self.flight.event("incident-evict", bundle=bid),
+            )
         # drain: admission closed, the one preempt pass at the safe point
         # pending or done, and the counts of the drain in progress or done
         self._draining = False
@@ -1417,13 +1508,22 @@ class TorchServingEngine:
             deadline=deadline_from_options(options),
             stream_key=str(options["stream-key"]) if options.get("stream-key") else None,
             adapter=adapter,
+            # warmup probes attach no spans to the record whose task
+            # happened to start the warmup
+            trace=None if _warmup_probe else current_context(),
         )
         if on_chunk is not None and self.config.streaming:
             # the bounded per-request TBT digest: only streaming engines pay
             request.stream_tbt = TbtDigest()
         if not _warmup_probe:
-            # the journal's key, shaped as the JAX engine's journey id
-            request.journey_id = _fresh_trace_id()
+            # the journey's (and the journal's) key: the trace id when
+            # traced, the one id that spans gateway, broker and engine and
+            # rides the handoff header; a fresh one of the same shape else
+            request.journey_id = (request.trace.trace_id if request.trace is not None
+                                  else fresh_trace_id())
+            self._journey(request, "submit", model=self.config.model,
+                          role=self._pool_role, prompt_tokens=len(tokens),
+                          max_tokens=max_tokens)
         if request.deadline is not None and not _warmup_probe:
             left = remaining_s(request.deadline)
             if left <= 0.0:
@@ -1445,6 +1545,7 @@ class TorchServingEngine:
             # was touched; callers map it to 429 with Retry-After
             self.flight.event("shed", reason=e.reason, tenant=request.tenant,
                               priority=request.priority, retry_after_s=e.retry_after)
+            self._journey(request, "shed", reason=e.reason, retry_after_s=e.retry_after)
             if e.reason == "draining":
                 self._drain_shed += 1
             if not _warmup_probe:
@@ -1547,6 +1648,9 @@ class TorchServingEngine:
             out["kv"] = {"layout": "paged", **self.block_mgr.stats()}
         if self.config.speculative_drafts > 0:
             out["speculative"] = self.speculative_section()
+        if self.incidents is not None:
+            # captured, suppressed, written and evicted bundle counts
+            out["incidents"] = self.incidents.stats()
         slo = self.slo_status()
         if slo is not None:
             out["slo"] = slo
@@ -1605,6 +1709,40 @@ class TorchServingEngine:
                 last_step_age_s=verdict["last_step_age_s"], queued=queued,
                 occupancy=occupancy,
             )
+            if self.incidents is not None and verdict["state"] in ("degraded", "wedged"):
+                # a worsening transition pages: the trigger is the dominant
+                # reason, so the bundle's worst journeys rank by the
+                # segment that reason indicts
+                reasons = list(verdict["reasons"])
+                if verdict["state"] == "wedged":
+                    kind = "health-wedged"
+                elif any("memory pressure" in r for r in reasons):
+                    kind = "shrink-pressure"
+                elif any("tbt burn" in r for r in reasons):
+                    kind = "tbt-burn"
+                else:
+                    kind = "health-degraded"
+                self._incident_capture(kind, {
+                    "source": "health", "state": verdict["state"],
+                    "previous": verdict["previous"], "reasons": reasons,
+                    "queued": queued, "occupancy": occupancy,
+                })
+        if self.incidents is not None:
+            # the storm predicates over the snapshotted event tail, whatever
+            # the watchdog says: a replica fan-out melting down (the
+            # router's breaker events mirror into this ring) or one adapter
+            # bouncing out of the tiers inside one hydrate window
+            tail = self.flight.recent_events(256)
+            storm = breaker_storm(tail, time.monotonic())
+            if storm is not None:
+                self._incident_capture("breaker-storm", {"source": "health", **storm})
+            if self.adapter_store is not None:
+                thrash = adapter_eviction_storm(
+                    tail, time.monotonic(),
+                    window_s=self.adapter_store.spec.hydrate_timeout_s)
+                if thrash is not None:
+                    self._incident_capture("adapter-storm", {"source": "health", **thrash},
+                                           dedup_key=thrash["adapter"])
         warmup = self._warmup_state()
         out = {
             "model": self.config.model,
@@ -1650,6 +1788,57 @@ class TorchServingEngine:
                 burn_rate_slow=verdict["burn_rate_slow"],
                 budget_remaining=verdict["budget_remaining"], target=verdict["target"],
             )
+            if verdict["alerting"] and self.incidents is not None:
+                # the page threshold was crossed: the evidence at the breach
+                # instant (per-objective cooldown in the recorder)
+                self._incident_capture("slo-fast-burn", {
+                    "source": "slo", "objective": objective,
+                    "burn_rate_fast": verdict["burn_rate_fast"],
+                    "burn_rate_slow": verdict["burn_rate_slow"],
+                    "budget_remaining": verdict["budget_remaining"],
+                    "target": verdict["target"],
+                }, dedup_key=objective)
+
+    def _incident_capture(self, kind: str, evidence: dict[str, Any],
+                          dedup_key: str | None = None) -> None:
+        """Assemble one incident bundle at the breach site and hand it to
+        the recorder's writer thread (the JAX engine's bundle, key for
+        key). Wait-free: the cooldown gate is GIL-atomic dict work, every
+        section is a snapshot read, and the handoff is a deque append; it
+        runs inside ``health()`` and the finish path."""
+        rec = self.incidents
+        if rec is None or not rec.should_capture(kind, dedup_key):
+            return
+        # only events past the recorder's high-water mark: overlapping
+        # captures never report one event twice
+        events = self.flight.recent_events(256)
+        watermark = rec.last_event_seq
+        fresh = [e for e in events if e.get("seq", 0) > watermark]
+        if events:
+            rec.last_event_seq = max(watermark, events[-1].get("seq", 0))
+        bundle: dict[str, Any] = {
+            # a wall anchor for cross-pod alignment, never subtracted
+            "captured_at_ms": round(time.time() * 1000.0, 3),
+            "model": self.config.model,
+            "trigger": {"kind": kind, **evidence},
+            "flight": self.flight.summary(),
+            "events": fresh,
+            "worst_journeys": worst_journeys(kind),
+            "attribution": self.attribution_section(),
+            "survival": self.survival_section(),
+            "kvtransfer": self.kv_transfer_section(),
+            "breakers": {
+                "open": self.flight.events_by_type.get("breaker-open", 0),
+                "close": self.flight.events_by_type.get("breaker-close", 0),
+            },
+            "slo": self.slo_status(),
+            "streaming": self.streaming_section() if self.config.streaming else None,
+            "config": self.config.to_dict(),
+        }
+        if self.adapter_store is not None:
+            bundle["adapters"] = self.adapter_store_section()
+        bundle_id = rec.submit(bundle)
+        self.flight.event("incident", bundle=bundle_id, trigger=kind)
 
     def streaming_section(self) -> dict[str, Any]:
         """``stats()["streaming"]`` (streaming engines only): streams that
@@ -1775,6 +1964,10 @@ class TorchServingEngine:
             # flush the retire tail: the journal left behind replays exactly
             # the work this process never answered
             self.journal.close()
+        if self.incidents is not None:
+            # flush the bundles in flight: evidence captured just before a
+            # shutdown is the evidence worth keeping
+            self.incidents.close()
         closed = RuntimeError("serving engine closed")
         stashed = [entry[0] for entry in self._prefix_hydrating + self._adapter_hydrating]
         imports = [entry[2] for entry in self._pending_imports]
@@ -1859,10 +2052,19 @@ class TorchServingEngine:
         prefix or adapter hydration rejoin the queue too: a drain serves or
         sheds every accepted request. Returns the requests requeued."""
         requeued = 0
-        # newest first: each requeues at the front, so arrival order holds
-        for request, *_ in reversed(self._prefix_hydrating + self._adapter_hydrating):
+        # newest first: each requeues at the front, so arrival order holds.
+        # A prefix stash closes its hydrate segment as the JAX engine's
+        # drain does; an adapter stash (which the JAX drain leaves behind)
+        # closes its adapter-hydrate segment the same way
+        for request, _deadline_m, what in reversed(self._prefix_hydrating
+                                                   + self._adapter_hydrating):
             if request.future.done():
                 continue
+            if isinstance(what, str):
+                self._journey(request, "adapter-hydrate-done", adapter=what,
+                              timeout=True, drain=True)
+            else:
+                self._journey(request, "hydrate-done", timeout=True, drain=True)
             self.scheduler.requeue_front(request)
             requeued += 1
         self._prefix_hydrating = []
@@ -2017,6 +2219,7 @@ class TorchServingEngine:
         # stale inline-adaptation counts must not reach a later shrink
         self._shrink_inline_preempted = 0
         self._shrink_inline_shed = 0
+        error_text = f"{type(error).__name__}: {error}"[:160]
         for slot_id, slot in enumerate(self.slots):
             request = slot.request
             if request is None:
@@ -2024,6 +2227,7 @@ class TorchServingEngine:
             self._release_slot(slot_id)
             if not request.future.done():
                 request.future.set_exception(error)
+                self._journey(request, "fail", error=error_text)
                 if not request.warmup:
                     self._slo_record("availability", False)
             # an explicitly failed request was answered: a restart must not
@@ -2039,6 +2243,7 @@ class TorchServingEngine:
             self._adapter_release(request)  # a pin kept while queued
             if not request.future.done():
                 request.future.set_exception(error)
+                self._journey(request, "fail", error=error_text)
                 if not request.warmup:
                     self._slo_record("availability", False)
             self._journal_retire(request)
@@ -2110,6 +2315,8 @@ class TorchServingEngine:
         self.flight.event("deadline-exceeded", where=where, remaining_s=round(left, 6),
                           estimate_s=round(estimate, 6), tenant=request.tenant,
                           priority=request.priority)
+        self._journey(request, "deadline-exceeded", where=where,
+                      remaining_s=round(left, 6))
         if not request.warmup:
             self._slo_record("shed-rate", False)
         return DeadlineExceeded(
@@ -2167,17 +2374,36 @@ class TorchServingEngine:
         self.scheduler.requeue_front(request)
         self.flight.event("preempt", reason=reason, priority=request.priority,
                           tenant=request.tenant, generated=len(request.generated))
+        self._journey(request, "preempt", reason=reason, generated=len(request.generated))
+        if request.trace is not None:
+            record_span("engine.preempt", f"engine:{self.config.model}", request.trace,
+                        now, now, attributes={"generated": len(request.generated)})
 
     def _note_resume(self, request: _Request) -> None:
         """A preempted request was just readmitted: a ``resume`` flight
         event with the wait since its preemption."""
         if request.preempt_time is None:
             return
-        waited = time.monotonic() - request.preempt_time
+        now = time.monotonic()
+        waited = now - request.preempt_time
         self.flight.event("resume", priority=request.priority, tenant=request.tenant,
                           generated=len(request.generated),
                           waited_ms=round(waited * 1000.0, 3))
+        self._journey(request, "resume", waited_ms=round(waited * 1000.0, 3),
+                      generated=len(request.generated))
+        if request.trace is not None:
+            record_span("engine.resume", f"engine:{self.config.model}", request.trace,
+                        request.preempt_time, now,
+                        attributes={"generated": len(request.generated)})
         request.preempt_time = None
+
+    def _journey(self, request: _Request, kind: str, **detail: Any) -> None:
+        """Append one lifecycle edge to the request's journey
+        (serving/journey.py): a wait-free append, so it may run on the
+        loop or the dispatch thread. Warmup probes have no journey id and
+        record nothing."""
+        if request.journey_id is not None:
+            JOURNEYS.record(request.journey_id, kind, **detail)
 
     # ------------------------------------------------------------------
     # device-survival plane: fault seams, adaptive pool shrink, journal
@@ -2235,6 +2461,7 @@ class TorchServingEngine:
         self.flight.event("shed", reason="device-oom", tenant=request.tenant,
                           priority=request.priority, retry_after_s=2.0,
                           retries=request.preemptions)
+        self._journey(request, "shed", reason="device-oom", retries=request.preemptions)
         if not request.warmup:
             self._slo_record("availability", False)
         self._journal_retire(request)
@@ -2392,6 +2619,7 @@ class TorchServingEngine:
                 self.journal.retire(entry.get("id"))
                 continue
             request.journey_id = entry.get("id")
+            self._journey(request, "journal-replay")
             # nobody awaits a replayed future: retrieve its outcome so a
             # shed replay does not log "exception never retrieved"
             request.future.add_done_callback(
@@ -2421,9 +2649,9 @@ class TorchServingEngine:
 
     def survival_section(self) -> dict[str, Any]:
         """``stats()["survival"]``: the live budget against the configured
-        one, shrink and restore counts, the armed faults and the journal
-        (the JAX engine's keys; the cross-replica counters stay 0 until the
-        handoff chainer is ported). Attribute reads and small copies."""
+        one, shrink and restore counts, the deadline and cross-replica
+        counters, the armed faults and the journal (the JAX engine's keys).
+        Attribute reads and small copies."""
         bm = self.block_mgr
         out: dict[str, Any] = {
             "shrinks": self.pool_shrinks,
@@ -2432,9 +2660,9 @@ class TorchServingEngine:
             "recovery_s": self.config.shrink_recovery_s,
             "recovering": self._shrink_recover_at is not None,
             "deadline_sheds": self.deadline_sheds,
-            "deadline_overruns": 0,
-            "handoff_retries": 0,
-            "handoff_fallbacks": 0,
+            "deadline_overruns": self.deadline_overruns,
+            "handoff_retries": self.handoff_retries,
+            "handoff_fallbacks": self.handoff_fallbacks,
         }
         if bm is not None:
             out["budget_blocks"] = bm.usable_blocks
@@ -2483,6 +2711,7 @@ class TorchServingEngine:
         # oldest ends at the head and arrival order survives
         for request, deadline_m, digests in reversed(self._prefix_hydrating):
             if request.future.cancelled():
+                self._journey(request, "cancelled", stage="prefix-hydrate")
                 continue
             ready = all(store.t1_has(d) for d in digests)
             pending = any(store.hydrating(d) for d in digests)
@@ -2497,8 +2726,8 @@ class TorchServingEngine:
                 store.hydrate_failures += 1
             self.flight.event("prefix-hydrate", stage="timeout" if timed_out else "done",
                               blocks=hit, requested=len(digests))
-            # (the hydrate-done journey edge waits for the journey plane,
-            # ROADMAP.md Queue 1 item 9)
+            self._journey(request, "hydrate-done", blocks=hit, requested=len(digests),
+                          timeout=timed_out)
             self.scheduler.requeue_front(request)
         still_waiting.reverse()
         self._prefix_hydrating = still_waiting
@@ -2770,8 +2999,7 @@ class TorchServingEngine:
                 self._adapter_hydrating.append((request, deadline_m, name))
                 store.hydrations += 1
                 self.flight.event("adapter-hydrate", stage="begin", adapter=name)
-                # (the adapter-hydrate journey edge waits for the journey
-                # plane, ROADMAP.md Queue 1 item 9)
+                self._journey(request, "adapter-hydrate", adapter=name)
                 return "wait"
         self.scheduler.pop()
         self.adapter_refusals += 1
@@ -2840,10 +3068,12 @@ class TorchServingEngine:
         # oldest ends at the head and arrival order survives
         for request, deadline_m, name in reversed(self._adapter_hydrating):
             if request.future.cancelled():
+                self._journey(request, "cancelled", stage="adapter-hydrate")
                 self._journal_retire(request)
                 continue
             if store.t1_has(name):
                 self.flight.event("adapter-hydrate", stage="done", adapter=name)
+                self._journey(request, "adapter-hydrate-done", adapter=name)
                 self.scheduler.requeue_front(request)
                 continue
             if store.hydrating(name) and now < deadline_m:
@@ -2853,6 +3083,7 @@ class TorchServingEngine:
             self.adapter_refusals += 1
             self.flight.event("adapter-hydrate", stage="timeout", adapter=name)
             self.flight.event("adapter-refused", adapter=name)
+            self._journey(request, "adapter-hydrate-done", adapter=name, timeout=True)
             self._journal_retire(request)
             if not request.future.done():
                 request.future.set_exception(AdapterUnavailable(
@@ -2906,9 +3137,8 @@ class TorchServingEngine:
 
     def kv_transfer_section(self) -> dict[str, Any]:
         """``stats()["kvtransfer"]``: transfer counters, the in-transit
-        posture and the exports whose journal entry awaits the decode side's
-        answer (the cross-replica chainer's keys wait for ``handoff.py``,
-        ROADMAP.md Queue 1 item 9)."""
+        posture, the chainer's re-offers and fallbacks, and the exports whose
+        journal entry awaits the decode side's answer."""
         return {
             "role": self._pool_role,
             "exports": self.kv_exports_total,
@@ -2920,16 +3150,68 @@ class TorchServingEngine:
             "pending_exports": len(self._exports),
             "pending_imports": len(self._pending_imports),
             "in_transit_bytes": self._kv_in_transit_bytes,
+            "retries": self.handoff_retries,
+            "fallbacks": self.handoff_fallbacks,
             "unsettled_handoffs": len(self._handoff_journal),
         }
 
-    def take_export_entry(self, request_id: str) -> dict[str, Any] | None:
-        """Pop one export entry (the payload and its stashed coordinates);
-        the payload leaves the in-transit ledger here."""
+    def note_handoff_retry(self, request_id: str, replica: str | None = None,
+                           attempt: int = 0, reason: str = "") -> None:
+        """One re-offer by the chainer (serving/handoff.py): a counter and
+        a ``handoff-retry`` flight event. Wait-free."""
+        self.handoff_retries += 1
+        self.flight.event("handoff-retry", request=request_id, replica=replica,
+                          attempt=attempt, reason=str(reason)[:160])
+
+    def note_handoff_fallback(self, request_id: str, attempts: int = 0) -> None:
+        """The chainer gave up on the decode pool and imports the payload
+        here: a counter and a ``handoff-fallback`` flight event (this
+        prefill replica now pays a decode)."""
+        self.handoff_fallbacks += 1
+        self.flight.event("handoff-fallback", request=request_id, attempts=attempts)
+
+    def note_breaker_open(self, open_replicas: int = 0) -> None:
+        """The router's breaker pressure. The JAX engine mirrors it into a
+        gauge; the port registers no metric yet (its Prometheus gauges are
+        ROADMAP.md Queue 1 item 9), and the ``breaker-open`` flight event
+        the chainer records beside this call is the evidence."""
+
+    def note_fault_fired(self, **detail: Any) -> None:
+        """The ``fault-injected`` event of a network seam (the chainer runs
+        on the loop, so the cause lands in the ring before the retry or
+        fallback it triggers)."""
+        self.flight.event("fault-injected", **detail)
+
+    def take_export_entry(self, request_id: str, settle: bool = True) -> dict[str, Any] | None:
+        """Pop one export entry (the payload and its stashed trace, journey
+        and deadline); the payload leaves the in-transit ledger and the
+        pickup is the journey's ``export-taken`` edge. Wait-free.
+
+        ``settle`` (the pull model, the pod's ``/kv/export`` pickup): the
+        pickup is the last this engine sees of the handoff, so the journal
+        entry retires here. The chainer passes False and settles on the
+        decode side's answer (:meth:`handoff_settled`)."""
+        if self._faults is not None:
+            # the http-export network seam: a dropped pickup answers None
+            # without popping, so a retried pickup can still succeed
+            action = self._faults.fire("http-export")
+            if action is not None:
+                self._fault_fired.append({"site": "http-export", "shape": action.shape,
+                                          "fire": action.seq, "hang_ms": None})
+                if action.shape == "delay-ms":
+                    time.sleep(action.hang_ms / 1000.0)
+                elif action.shape == "error":
+                    raise RuntimeError(action.message)
+                else:
+                    return None
         entry = self._exports.pop(request_id, None)
         if entry is None:
             return None
         self._kv_in_transit_bytes -= entry["bytes"]
+        if settle:
+            self.handoff_settled(request_id)
+        JOURNEYS.record(entry.get("journey"), "export-taken", handoff=request_id,
+                        bytes=entry["bytes"])
         return entry
 
     def take_export(self, request_id: str) -> bytes | None:
@@ -2952,6 +3234,7 @@ class TorchServingEngine:
                 # hand off; the tenant's post-debit still happens
                 self._release_slot(slot_id)
                 self.scheduler.on_finished(request)
+                self._journey(request, "cancelled")
                 continue
             if request.future.done():
                 continue
@@ -2981,10 +3264,10 @@ class TorchServingEngine:
         header = {
             "fingerprint": self.kv_fingerprint(),
             "request": rid,
-            # no tracing plane in the port (journeys: ROADMAP.md Queue 1
-            # item 9): the coordinates ride empty
-            "trace": None,
-            "journey": None,
+            # the decode pool parents its spans under this trace and records
+            # its edges under this journey: one trace id end to end
+            "trace": request.trace.to_header() if request.trace is not None else None,
+            "journey": request.journey_id,
             "prompt-digest": kvtransfer.prompt_digest(request.prompt_tokens),
             "prompt-tokens": list(request.prompt_tokens),
             "generated": list(request.generated),
@@ -3004,12 +3287,21 @@ class TorchServingEngine:
             "timings": {k: round(v, 6) for k, v in timings.items()},
         }
         payload = kvtransfer.serialize_handoff(header, arrays)
+        if not request.warmup:
+            self._own_exports[rid] = header["prompt-digest"]
+            while len(self._own_exports) > 4 * self._export_cap:
+                self._own_exports.popitem(last=False)
         # released before stashing: the slot serves the next prompt now;
         # published prefix blocks stay cached (the cache holds its refs)
         self._release_slot(slot_id)
         if not request.warmup:
+            # the trace and journey ride beside the payload, so the pickup
+            # echoes the trace and closes the handoff-wait edge without
+            # parsing it; the chainer derives its timeouts from the deadline
             self._exports[rid] = {"payload": payload, "bytes": len(payload),
                                   "blocks": blocks_live, "m_s": now,
+                                  "trace": header["trace"],
+                                  "journey": request.journey_id,
                                   "deadline": request.deadline}
             self._kv_in_transit_bytes += len(payload)
             while len(self._exports) > self._export_cap:
@@ -3035,6 +3327,18 @@ class TorchServingEngine:
         self.flight.event("kv-export", request=rid, bytes=len(payload),
                           blocks=blocks_live, rows=rows, ms=ms,
                           device_ms=round(device_s * 1000.0, 3), warmup=request.warmup)
+        self._journey(request, "export", handoff=rid, bytes=len(payload), rows=rows,
+                      ms=ms, device_ms=round(device_s * 1000.0, 3),
+                      model=self.config.model, role=self._pool_role)
+        if request.trace is not None and not request.warmup:
+            # a handoff never reaches the finish path: its prefill-side
+            # phases become spans here, the trace the decode side joins
+            svc = f"engine:{self.config.model}"
+            record_span("engine.queue", svc, request.trace, request.enqueue_time, admit)
+            record_span("engine.prefill", svc, request.trace, admit, first,
+                        attributes={"prompt-tokens": len(request.prompt_tokens)})
+            record_span("engine.kv-export", svc, request.trace, t_start, time.monotonic(),
+                        attributes={"bytes": len(payload), "rows": rows})
         self.scheduler.on_finished(request)
         self.completed_requests += 1
         if self.journal is not None and not request.warmup:
@@ -3061,18 +3365,27 @@ class TorchServingEngine:
             })
 
     async def import_handoff(self, payload: bytes, header: dict[str, Any] | None = None,
-                             deadline: float | None = None) -> dict[str, Any]:
+                             trace_header: str | None = None,
+                             deadline: float | None = None,
+                             local_fallback: bool = False) -> dict[str, Any]:
         """Decode-pool half of the handoff: admit a request whose KV state
         arrived over the wire. Blocks allocate through the block manager,
         the rows scatter back through ``write_rows`` and the request joins
         decode directly (prefill skipped; its ``request_timings`` entry
-        carries ``imported``). Raises
+        carries ``imported``). The wire header's ``trace`` and ``journey``
+        (else ``trace_header``, the pod request's ``langstream-trace``)
+        join this engine's spans and edges to the prefill side's. Raises
         :class:`~langstream_tpu_torch.serving.kvtransfer.LayoutMismatch` on a
         wire or fingerprint mismatch (a refusal) and :class:`RateLimited`
-        when the pool cannot take it now (retry another decode replica)."""
+        when the pool cannot take it now (retry another decode replica).
+
+        A prefill pool refuses imports, but for ``local_fallback``: the
+        chainer's way back when no decode replica takes the payload, which
+        the prefill engine then decodes itself on the combined path (the
+        snapshot is the whole request state)."""
         if self._stop:
             raise RuntimeError("serving engine is stopped (closed)")
-        if self._pool_role == "prefill":
+        if self._pool_role == "prefill" and not local_fallback:
             raise kvtransfer.LayoutMismatch("prefill-role engine does not accept KV imports")
         if self.block_mgr is None:
             raise kvtransfer.LayoutMismatch(
@@ -3080,6 +3393,13 @@ class TorchServingEngine:
         self._event_loop = self._event_loop or asyncio.get_running_loop()
         header, arrays = kvtransfer.deserialize_handoff(payload, header)
         kvtransfer.check_fingerprint(self.kv_fingerprint(), header.get("fingerprint") or {})
+        if self._pool_role == "prefill":
+            # the fallback takes back exactly this engine's own export, once
+            rid = header.get("request")
+            if self._own_exports.get(rid) != header.get("prompt-digest"):
+                raise kvtransfer.LayoutMismatch(
+                    "a prefill pool's local fallback admits only its own exports")
+            del self._own_exports[rid]
         if self._draining:
             raise RateLimited("draining", 1.0,
                               "engine is draining; retry another decode replica")
@@ -3101,6 +3421,9 @@ class TorchServingEngine:
                 f"KV, more than this pool can ever hold")
         loop = asyncio.get_running_loop()
         wire_deadline = header.get("deadline")
+        # the wire's trace first (the prefill engine stamped it), then the
+        # pod request's header
+        trace = kvtransfer.trace_context(header) or TraceContext.parse(trace_header)
         request = _Request(
             prompt_tokens=prompt,
             max_tokens=max_tokens,
@@ -3117,12 +3440,20 @@ class TorchServingEngine:
             tenant=str(header.get("tenant") or ""),
             priority=normalize_priority(header.get("priority")),
             imported=True,
+            trace=trace,
             # the wire's stamp (the prefill side's original budget) first
             deadline=(float(wire_deadline) if wire_deadline else
                       float(deadline) if deadline else None),
+            import_base_tokens=len(generated),
         )
+        request.journey_id = kvtransfer.journey_id(header) or (
+            trace.trace_id if trace is not None else fresh_trace_id())
+        self._journey(request, "import-received", bytes=len(payload),
+                      handoff=header.get("request"), model=self.config.model,
+                      role=self._pool_role)
         if request.deadline is not None and remaining_s(request.deadline) <= 0.0:
-            # expired in transit: refused before any block or device work
+            # expired in transit: refused before any block or device work,
+            # after the journey id is bound (a terminal edge, not a gap)
             raise self._note_deadline_shed(request, "kv-import", 0.0)
         self._pending_imports.append((header, arrays, request, len(payload)))
         if self._loop_task is None or self._loop_task.done():
@@ -3137,6 +3468,7 @@ class TorchServingEngine:
         self.kv_import_sheds += 1
         self.flight.event("shed", reason=reason, tenant=request.tenant,
                           priority=request.priority, retry_after_s=1.0, imported=True)
+        self._journey(request, "shed", reason=reason, imported=True)
         if not request.future.done():
             request.future.set_exception(RateLimited(reason, 1.0, detail))
 
@@ -3230,6 +3562,16 @@ class TorchServingEngine:
                 ms=round((time.monotonic() - t_start) * 1000.0, 3),
                 device_ms=round(device_s * 1000.0, 3),
             )
+            self._journey(request, "import", bytes=nbytes, rows=rows,
+                          ms=round((time.monotonic() - t_start) * 1000.0, 3),
+                          device_ms=round(device_s * 1000.0, 3),
+                          model=self.config.model, role=self._pool_role)
+            if request.trace is not None:
+                # the block admit and scatter under the prefill side's trace;
+                # the decode phase follows at finish
+                record_span("engine.kv-import", f"engine:{self.config.model}",
+                            request.trace, t_start, now,
+                            attributes={"bytes": nbytes, "rows": rows})
 
     # ------------------------------------------------------------------
     # admission + prefill
@@ -3324,6 +3666,7 @@ class TorchServingEngine:
                         self._prefix_hydrating.append((request, deadline_m, missing))
                         self.flight.event("prefix-hydrate", stage="begin",
                                           blocks=len(missing))
+                        self._journey(request, "hydrate-begin", blocks=len(missing))
                         continue
                 if self.block_mgr is not None and not self.block_mgr.can_admit(total):
                     # paged backpressure: finishing slots free reservations
@@ -3384,6 +3727,7 @@ class TorchServingEngine:
                         raise
                     request.admit_time = time.monotonic()
                     self._note_resume(request)
+                    self._journey(request, "admit", chunked=True)
                     if reuse:
                         self.prefix_hits += 1
                         self.prefix_tokens += reuse
@@ -3410,6 +3754,7 @@ class TorchServingEngine:
                     self._ad_rows[slot_id] = request.adapter_row
                 request.admit_time = now
                 self._note_resume(request)
+                self._journey(request, "admit")
             # the grows come after every member holds its slot: an allocator
             # failure here is then seen by the shrink's sweep of the slots
             # whose prefill never landed
@@ -3497,6 +3842,9 @@ class TorchServingEngine:
         self._freq[slot_id] = request.frequency_penalty
         if request.first_token_time is None:
             request.first_token_time = now
+            # stamped where the host learns the token: after the prefill's
+            # one fetch, never through an extra device sync
+            self._journey(request, "first-token")
 
     async def _advance_prefills(self, loop) -> None:
         """One chunk of at most ``prefill-chunk`` prompt tokens for every
@@ -4437,6 +4785,7 @@ class TorchServingEngine:
         if request.stream_tbt is not None:
             if request.stream_first_emit is None:
                 request.stream_first_emit = now
+                self._journey(request, "first-emit")
             else:
                 interval = now - (request.stream_last_emit or now)
                 request.stream_tbt.add(interval)
@@ -4448,7 +4797,8 @@ class TorchServingEngine:
                 if interval > threshold:
                     request.stream_stalls += 1
                     self.stream_stalls_total += 1
-                    self.flight.event("stream-stall", interval_s=round(interval, 6),
+                    self.flight.event("stream-stall", request=request.journey_id,
+                                      interval_s=round(interval, 6),
                                       threshold_s=threshold, priority=request.priority,
                                       tokens=len(request.generated))
             request.stream_last_emit = now
@@ -4460,11 +4810,12 @@ class TorchServingEngine:
                 # one summarized event per stream, never one per chunk
                 summary = request.stream_tbt.summary()
                 self.flight.event(
-                    "stream-emit", emits=request.stream_emits,
+                    "stream-emit", request=request.journey_id, emits=request.stream_emits,
                     tokens=len(request.generated), tbt_p50_s=summary["p50"],
                     tbt_p99_s=summary["p99"], tbt_max_s=summary["max"],
                     stalls=request.stream_stalls, priority=request.priority,
                 )
+                self._journey(request, "last-emit", emits=request.stream_emits)
         result = request.on_chunk(new_ids, delta, is_final)
         if asyncio.iscoroutine(result):
             await result
@@ -4487,6 +4838,15 @@ class TorchServingEngine:
             now = time.monotonic()
             for request, done in chunks.values():
                 await self._deliver_chunk(request, done, now)
+        # an import's first new token closes its decode-admission segment:
+        # read off the slots (an import streams nothing), one attribute
+        # test per slot and flush
+        for slot in self.slots:
+            request = slot.request
+            if (request is not None and request.imported and not request.first_step_noted
+                    and len(request.generated) > request.import_base_tokens):
+                request.first_step_noted = True
+                self._journey(request, "first-step")
         finished, self._finished_requests = self._finished_requests, []
         for request, is_eos in finished:
             # the tenant's tokens/s post-debit; a cancelled request's tokens
@@ -4494,17 +4854,23 @@ class TorchServingEngine:
             self.scheduler.on_finished(request)
             # answered (a result or a cancellation): nothing left to replay
             self._journal_retire(request)
+            if request.imported and not request.first_step_noted:
+                # finished inside its first flush: its slot is released
+                request.first_step_noted = True
+                self._journey(request, "first-step")
             if request.future.done():
                 # cancelled by the caller: not a served request (its slot
                 # and the stream-cancel count went with _release_slot)
                 if request.stream_cancel_counted:
                     self.flight.event(
-                        "stream-cancel", tokens_generated=len(request.generated),
+                        "stream-cancel", request=request.journey_id,
+                        tokens_generated=len(request.generated),
                         tokens_delivered=request.stream_sent_tokens,
                         tokens_wasted=len(request.generated) - request.stream_sent_tokens,
                         emits=request.stream_emits, priority=request.priority,
                         tenant=request.tenant, slot_reclaimed=True,
                     )
+                self._journey(request, "cancelled")
                 continue
             self.completed_requests += 1
             done_t = time.monotonic()
@@ -4515,8 +4881,10 @@ class TorchServingEngine:
                 # recorded
                 overrun = time.time() - request.deadline
                 if overrun > 0:
+                    self.deadline_overruns += 1
                     self.flight.event("deadline-overrun", overrun_s=round(overrun, 6),
                                       tokens=len(request.generated), tenant=request.tenant)
+                    self._journey(request, "deadline-overrun", overrun_s=round(overrun, 6))
             timing = {
                 "queue_wait": admit - request.enqueue_time,
                 "prefill": first - admit,
@@ -4557,6 +4925,29 @@ class TorchServingEngine:
                                 budget_remaining=verdict["budget_remaining"],
                                 target=verdict["target"],
                             )
+                            if verdict["alerting"]:
+                                # the class's streaming objective paged:
+                                # capture, deduplicated per class
+                                self._incident_capture("tbt-burn", {
+                                    "source": "stream-slo",
+                                    "objective": f"tbt:{request.priority}",
+                                    "tbt_p99_s": p99,
+                                    "burn_rate_fast": verdict["burn_rate_fast"],
+                                    "budget_remaining": verdict["budget_remaining"],
+                                    "target": verdict["target"],
+                                }, dedup_key=request.priority)
+            finish_reason = "stop" if is_eos or request.stop_matched else "length"
+            self._journey(request, "finish", reason=finish_reason,
+                          tokens=len(request.generated), model=self.config.model)
+            if request.trace is not None:
+                # the request's phases as child spans of its trace, from the
+                # stamps above (no clock in the decode loop)
+                svc = f"engine:{self.config.model}"
+                record_span("engine.queue", svc, request.trace, request.enqueue_time, admit)
+                record_span("engine.prefill", svc, request.trace, admit, first,
+                            attributes={"prompt-tokens": len(request.prompt_tokens)})
+                record_span("engine.decode", svc, request.trace, first, done_t,
+                            attributes={"tokens": len(request.generated)})
             request.future.set_result({
                 "tokens": request.generated,
                 "text": self._final_text(request),
@@ -4566,9 +4957,7 @@ class TorchServingEngine:
                 "ttft": timing["ttft"],
                 "queue_wait": timing["queue_wait"],
                 "prefill": timing["prefill"],
-                "finish_reason": (
-                    "stop" if is_eos or request.stop_matched else "length"
-                ),
+                "finish_reason": finish_reason,
             })
 
 def _to_device(tree, device):
@@ -4638,12 +5027,40 @@ def flight_report(summary_only: bool = False, samples: int = 240) -> list[dict[s
             entry["streaming"] = engine.streaming_section()
         if engine.config.speculative_drafts > 0:
             entry["speculative"] = engine.speculative_section()
+        if engine.incidents is not None:
+            # the capture posture and the newest bundles (incident-dir only)
+            entry["incidents"] = {**engine.incidents.stats(),
+                                  "recent": engine.incidents.list()[-4:]}
         slo = engine.slo_status()
         if slo is not None:
             entry["slo"] = slo
         if not summary_only:
             entry["samples"] = engine.flight.recent(samples)
             entry["events"] = engine.flight.recent_events()
+        report.append(entry)
+    return report
+
+
+def incident_report(bundle_id: str | None = None) -> list[dict[str, Any]]:
+    """Every live engine's incident payload (the pod's ``/incidents``): per
+    engine with an ``incident-dir`` its bundle index and capture stats, or,
+    with ``bundle_id``, the full bundle from whichever engine holds it. The
+    instance map is copied without its lock, as in :func:`health_report`;
+    the recorder's own table lock is never the loop's."""
+    report: list[dict[str, Any]] = []
+    for engine in list(TorchServingEngine._instances.values()):
+        rec = engine.incidents
+        if rec is None:
+            continue
+        entry: dict[str, Any] = {"model": engine.config.model}
+        if bundle_id is not None:
+            bundle = rec.get(bundle_id)
+            if bundle is None:
+                continue
+            entry["bundle"] = bundle
+        else:
+            entry["incidents"] = rec.list()
+            entry["stats"] = rec.stats()
         report.append(entry)
     return report
 
@@ -4691,8 +5108,9 @@ async def import_kv_handoff(payload: bytes, trace_header: str | None = None,
     (the pod's ``POST /kv/import``): the header's fingerprint names the
     model, decode pools first. ``deadline_header`` (the request's
     ``langstream-deadline``) is the budget when the wire header carries
-    none; ``trace_header`` is echoed as the result's ``trace`` when the
-    payload carries no trace. Raises
+    none; ``trace_header`` (its ``langstream-trace``) parents the import's
+    spans when the payload carries no trace, and is echoed as the result's
+    ``trace``. Raises
     :class:`~langstream_tpu_torch.serving.kvtransfer.LayoutMismatch` when
     no engine here can take it, and what :meth:`TorchServingEngine.import_handoff`
     raises."""
@@ -4703,7 +5121,8 @@ async def import_kv_handoff(payload: bytes, trace_header: str | None = None,
         raise kvtransfer.LayoutMismatch(
             f"no decode-capable paged engine for model {model!r} in this pod")
     result = await candidates[0].import_handoff(
-        payload, header=header, deadline=parse_deadline(deadline_header))
+        payload, header=header, trace_header=trace_header,
+        deadline=parse_deadline(deadline_header))
     trace = header.get("trace") or trace_header
     if trace and "trace" not in result:
         result = {**result, "trace": trace}

@@ -21,9 +21,11 @@ Sites the port fires: ``pool-grow`` (decode and admission block growth),
 ``scatter`` (host rows into the pool: imports and T1 promotions),
 ``fetch`` (a decode chunk's or speculative step's device-to-host copy) and
 ``t2-get`` (the prefix and adapter hydrators' object-storage reads).
-``http-export``, ``http-import`` and ``route`` parse and arm, but nothing
-in the port fires them yet: they belong to the cross-replica handoff
-chainer and the router, which the port does not carry.
+The network sites fire on the cross-replica path: ``http-export`` at the
+engine's ``take_export_entry``, ``http-import`` in the
+:class:`~langstream_tpu_torch.serving.handoff.HandoffChainer`'s offers,
+and ``route`` in a router that holds this injector (the platform's
+``ReplicaRouter.fault_injector``).
 
 Determinism: ``after``/``count`` are plain pass counters per plan, bumped
 at the site, so a chaos test can aim a fault at exactly the N-th

@@ -31,7 +31,6 @@ pinned memory without blocking, as the engine's do.
 
 from __future__ import annotations
 
-import dataclasses
 import hashlib
 import json
 import time
@@ -41,6 +40,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from langstream_tpu_torch.core.tracing import TraceContext
 from langstream_tpu_torch.models.paged import gather_kv, write_rows
 
 WIRE_MAGIC = b"LSKV"
@@ -81,38 +81,6 @@ class LayoutMismatch(ValueError):
     layout fingerprint that disagrees on any geometry or dtype fact. A
     refusal, never a retry: no decode replica of the same fleet accepts
     it either."""
-
-
-@dataclasses.dataclass(frozen=True)
-class TraceContext:
-    """One (trace, parent-span) coordinate of a ``langstream-trace`` /
-    ``traceparent`` value (the JAX package's ``core.tracing.TraceContext``,
-    carried here so the port imports nothing of it)."""
-
-    trace_id: str  # 32 hex chars
-    span_id: str   # 16 hex chars
-
-    @classmethod
-    def parse(cls, value: Any) -> "TraceContext | None":
-        """None when the value is absent or malformed."""
-        if not isinstance(value, str):
-            return None
-        parts = value.strip().split("-")
-        if len(parts) != 4:
-            return None
-        version, trace_id, span_id, _flags = parts
-        if len(version) != 2 or len(trace_id) != 32 or len(span_id) != 16:
-            return None
-        try:
-            int(trace_id, 16), int(span_id, 16)
-        except ValueError:
-            return None
-        if trace_id == "0" * 32 or span_id == "0" * 16:
-            return None
-        return cls(trace_id=trace_id, span_id=span_id)
-
-    def to_header(self) -> str:
-        return f"00-{self.trace_id}-{self.span_id}-01"
 
 
 def trace_context(header: dict[str, Any]) -> TraceContext | None:

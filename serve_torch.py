@@ -29,8 +29,18 @@ function over both packages' engines: a wedged port engine answers 503 on
 not-ready window, ``/drain`` (and the preStop hook) drains both packages'
 engines under one grace, ``/kv/import`` lands a payload in a port engine
 and answers 409, 503 and 504 for its refusals, and ``/flight``,
-``/attribution``, ``/memory`` and ``/profile`` list both packages'
-engines.
+``/attribution``, ``/memory``, ``/profile`` and ``/incidents`` list both
+packages' engines.
+
+The request-evidence planes cross too. A request an agent sends to the
+port runs under the platform's ambient trace, handed over as a header
+value, so the port's spans and journey edges join the record's trace. The
+port's journey ledger and span buffer mirror every edge and span into the
+platform's (:data:`langstream_tpu.serving.journey.JOURNEYS`,
+:data:`langstream_tpu.core.tracing.SPANS`), so ``/journey``,
+``/journey/{id}`` and ``/traces`` list both packages, and a request whose
+prefill ran in one package and decode in the other reads as one timeline.
+The mirror is an append, as wait-free as the port's own.
 
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
@@ -50,7 +60,7 @@ import time
 #: port's engines once :func:`register` ran
 POD_SEAM = ("health_report", "kick_warmups", "take_kv_export", "flight_report",
             "attribution_report", "drain_engines", "import_kv_handoff",
-            "profile_engines")
+            "profile_engines", "incident_report")
 
 
 def _merge(jax_out: dict, port_out: dict) -> dict:
@@ -69,13 +79,13 @@ def _translated(error: Exception) -> Exception:
     from langstream_tpu.serving.handoff import DeadlineExceeded
     from langstream_tpu.serving.kvtransfer import LayoutMismatch
     from langstream_tpu.serving.qos import RateLimited
-    from langstream_tpu_torch.serving import deadline, kvtransfer, qos
+    from langstream_tpu_torch.serving import handoff, kvtransfer, qos
 
     if isinstance(error, kvtransfer.LayoutMismatch):
         return LayoutMismatch(str(error))
     if isinstance(error, qos.RateLimited):
         return RateLimited(error.reason, error.retry_after, str(error))
-    if isinstance(error, deadline.DeadlineExceeded):
+    if isinstance(error, handoff.DeadlineExceeded):
         return DeadlineExceeded(str(error), overrun_s=error.overrun_s)
     return error
 
@@ -103,9 +113,9 @@ def _port_takes_import(payload: bytes, port_engine) -> bool:
 
 def _with_port(name: str, jax_fn, port_engine):
     """``name`` over both packages' engines: the JAX list plus the port's
-    (health, flight, attribution), both kicks (warmup), the first entry
-    found (export), both packages' drains under one deadline, one engine of
-    either package for an import, both packages' profiles."""
+    (health, flight, attribution, incidents), both kicks (warmup), the
+    first entry found (export), both packages' drains under one deadline,
+    one engine of either package for an import, both packages' profiles."""
     port_fn = getattr(port_engine, name)
     if name == "take_kv_export":
         def seam(request_id):
@@ -140,6 +150,9 @@ def _with_port(name: str, jax_fn, port_engine):
     elif name == "profile_engines":
         def seam(action, trace_dir=None):
             return _merge(jax_fn(action, trace_dir), port_fn(action, trace_dir))
+    elif name == "incident_report":
+        def seam(bundle_id=None):
+            return jax_fn(bundle_id) + port_fn(bundle_id)
     else:
         def seam():
             return jax_fn() + port_fn()
@@ -149,23 +162,40 @@ def _with_port(name: str, jax_fn, port_engine):
     return seam
 
 
+def _platform_trace() -> str | None:
+    """The platform's ambient trace as a header value (None outside one)."""
+    from langstream_tpu.core.tracing import current_context
+
+    ctx = current_context()
+    return ctx.to_header() if ctx is not None else None
+
+
 def register(device="cuda") -> None:
     """Make the port serve every ``tpu-serving-configuration`` resource
     resolved from now on in this process, its stream keys registered with
-    the platform's stream registry, and point the pod's functions
+    the platform's stream registry and its requests under the platform's
+    ambient trace; mirror the port's journey edges and spans into the
+    platform's ledger and span buffer; and point the pod's functions
     (:data:`POD_SEAM`) at the port's engines as well as the JAX package's.
     A second call changes nothing more: the pod functions are wrapped
     once."""
     import langstream_tpu.serving.engine as jax_engine
     from langstream_tpu.agents.services import register_provider
+    from langstream_tpu.core import tracing as jax_tracing
+    from langstream_tpu.serving import journey as jax_journey
     from langstream_tpu.serving.streaming import STREAMS
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.core import tracing as port_tracing
     from langstream_tpu_torch.serving import engine as port_engine
+    from langstream_tpu_torch.serving import journey as port_journey
 
     register_provider(
         "tpu-serving-configuration",
-        lambda resource: TorchServiceProvider(resource, device=device, streams=STREAMS),
+        lambda resource: TorchServiceProvider(resource, device=device, streams=STREAMS,
+                                              ambient_trace=_platform_trace),
     )
+    port_journey.JOURNEYS.mirror = jax_journey.JOURNEYS
+    port_tracing.SPANS.mirror = jax_tracing.SPANS
     for name in POD_SEAM:
         current = getattr(jax_engine, name)
         if not getattr(current, "with_port", False):

@@ -719,3 +719,56 @@ def test_pool_shrink_chaos_card_matches_cpu(kv):
 
     card, cpu = run("cuda"), run("cpu")
     assert card == cpu and card[1] >= 1
+
+
+def test_journey_kinds_card_match_cpu():
+    """A mixed wave and a chained handoff whose decode replica is dead (the
+    local fallback): the journey kinds of every request and the tokens are
+    the same on the card as on the CPU."""
+    from langstream_tpu_torch.serving.handoff import HandoffChainer, RetryPolicy
+    from langstream_tpu_torch.serving.journey import JOURNEYS
+
+    base = {"model": "tiny", "model-dtype": "float32", "slots": 3, "max-seq-len": 192,
+            "decode-chunk": 4, "kv-layout": "paged", "kv-block-size": 16}
+    params = init_llama_params(dataclasses.replace(LlamaConfig.tiny(max_seq_len=192),
+                                                   dtype=torch.float32),
+                               torch.Generator().manual_seed(5), device="cpu")
+
+    class _DeadRouter:
+        on_breaker_event = None
+
+        def pick(self, phase=None, exclude=None):
+            return "dead-0"
+
+        def report_failure(self, replica, kind="error"):
+            pass
+
+    async def dead(replica, payload, headers, timeout_s):
+        raise ConnectionError("refused")
+
+    def run(device):
+        wave = TorchServingEngine(ServingConfig.from_dict(base), device=device, params=params)
+        pre = TorchServingEngine(ServingConfig.from_dict({**base, "pool-role": "prefill"}),
+                                 device=device, params=params)
+
+        async def main():
+            before = set(JOURNEYS.ids())
+            try:
+                outs = await asyncio.gather(*(wave.generate(p, {"max-tokens": 9})
+                                              for p in ("mixed wave", "of three", "prompts")))
+                chainer = HandoffChainer(pre, router=_DeadRouter(), transport=dead,
+                                         policy=RetryPolicy(attempts=2, backoff_s=0.001))
+                fallback = await chainer.chain(await pre.generate("fall back", {"max-tokens": 7}))
+            finally:
+                await wave.close()
+                await pre.close()
+            journeys = [[e["kind"] for e in JOURNEYS.events(j)] for j in JOURNEYS.ids()
+                        if j not in before]
+            return [o["tokens"] for o in outs] + [fallback["tokens"]], journeys
+
+        return asyncio.run(main())
+
+    card, cpu = run("cuda"), run("cpu")
+    assert card == cpu
+    assert card[1][-1] == ["submit", "admit", "first-token", "export", "export-taken",
+                           "import-received", "import", "first-step", "finish"]

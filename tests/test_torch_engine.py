@@ -209,27 +209,50 @@ def test_engine_needs_the_card_unless_told_cpu():
         # cases after them keep their ids. faults and journal-dir are served
         # since the device-survival slice (tests/test_torch_faults.py,
         # test_torch_journal.py): their cases hold the armed engine to the
-        # JAX engine's
+        # JAX engine's. incident-dir is served since the request-evidence
+        # slice (tests/test_torch_incident.py): its case serves a request
+        # and captures a bundle on both engines
         pytest.param({"faults": [{"site": "prefill"}]}, "faults", id="overrides6-faults"),
         pytest.param({"journal-dir": "j"}, "journal-dir", id="overrides7-journal-dir"),
         pytest.param({"incident-dir": "i"}, "incident-dir", id="overrides8-incident-dir"),
     ],
 )
 def test_unsupported_settings_raise_naming_the_roadmap(overrides, match, tmp_path):
+    jax_overrides = overrides
     if "journal-dir" in overrides:
-        overrides = {"journal-dir": str(tmp_path / overrides["journal-dir"])}
+        overrides = jax_overrides = {"journal-dir": str(tmp_path / overrides["journal-dir"])}
+    if "incident-dir" in overrides:
+        # one directory per engine: each recorder numbers its own bundles
+        overrides = {"incident-dir": str(tmp_path / "port")}
+        jax_overrides = {"incident-dir": str(tmp_path / "jax")}
     cfg = ServingConfig.from_dict({"model": "tiny", **overrides})
-    if match in ("faults", "journal-dir"):
+    if match in ("faults", "journal-dir", "incident-dir"):
         port = TorchServingEngine(cfg, device="cpu")
-        jax = TpuServingEngine(JaxServingConfig.from_dict({"model": "tiny", **overrides}))
+        jax = TpuServingEngine(JaxServingConfig.from_dict({"model": "tiny", **jax_overrides}))
         try:
             if match == "faults":
                 assert port.survival_section()["faults"] == jax.survival_section()["faults"]
                 assert port.config.faults == tuple(
                     FaultPlan.from_dict(p) for p in overrides["faults"])
-            else:
+            elif match == "journal-dir":
                 assert port.journal.path == jax.journal.path
                 assert port.journal.pending() == jax.journal.pending() == []
+            else:
+                async def serve_and_capture(engine):
+                    try:
+                        got = await engine.generate("hello", {"max-tokens": 3})
+                        engine._incident_capture("health-degraded", {"source": "test"})
+                        assert engine.incidents.flush(5.0)
+                        return got, engine.stats()["incidents"], engine.incidents.list()
+                    finally:
+                        await engine.close()
+
+                runs = [asyncio.run(serve_and_capture(engine)) for engine in (port, jax)]
+                for got, stats, _ in runs:
+                    assert len(got["tokens"]) == 3 and stats["written"] == 1
+                assert [b["id"] for b in runs[0][2]] == [b["id"] for b in runs[1][2]] == [
+                    "incident-000001-health-degraded"]
+                assert (tmp_path / "port" / "incident-000001-health-degraded.json").exists()
         finally:
             asyncio.run(port.close())
             asyncio.run(jax.close())
@@ -310,6 +333,12 @@ def test_importing_the_port_loads_no_jax():
     )
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
     assert len(mods) >= 24
+    # the request-evidence and cross-replica modules are among those checked,
+    # and the deadline helpers live only in serving/handoff.py
+    assert {"langstream_tpu_torch.core.tracing", "langstream_tpu_torch.serving.journey",
+            "langstream_tpu_torch.serving.incident",
+            "langstream_tpu_torch.serving.handoff"} <= set(mods)
+    assert "langstream_tpu_torch.serving.deadline" not in mods
 
 
 def test_port_sources_import_no_jax():

@@ -39,9 +39,14 @@ def registered(monkeypatch):
     package's instance map."""
     from langstream_tpu.agents import services
 
+    from langstream_tpu_torch.core.tracing import SPANS
+    from langstream_tpu_torch.serving.journey import JOURNEYS
+
     for name in serve_torch.POD_SEAM:
         monkeypatch.setattr(jax_engine, name, getattr(jax_engine, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
+    monkeypatch.setattr(JOURNEYS, "mirror", JOURNEYS.mirror)
+    monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
     monkeypatch.setattr(TpuServingEngine, "_instances", {})
     monkeypatch.setattr(TorchServingEngine, "_instances", {})
     serve_torch.register(device="cpu")
@@ -58,6 +63,7 @@ def test_register_wraps_the_pod_functions_once(registered):
         assert not getattr(current.__wrapped__, "with_port", False)
     assert jax_engine.health_report() == []
     assert jax_engine.take_kv_export("nothing") is None
+    assert jax_engine.incident_report() == jax_engine.incident_report("incident-1") == []
 
 
 def test_healthz_answers_503_for_a_wedged_port_engine(registered):
@@ -265,9 +271,12 @@ async def _pod(monkeypatch):
 
 
 def test_register_wraps_the_eight_pod_functions(registered):
+    # the eight of the device-survival slice, and incident_report since the
+    # request-evidence slice: every function the pod reads from the engine
     assert serve_torch.POD_SEAM == (
         "health_report", "kick_warmups", "take_kv_export", "flight_report",
-        "attribution_report", "drain_engines", "import_kv_handoff", "profile_engines")
+        "attribution_report", "drain_engines", "import_kv_handoff", "profile_engines",
+        "incident_report")
     for name in serve_torch.POD_SEAM:
         assert getattr(jax_engine, name).with_port
         assert callable(getattr(port_engine, name))
@@ -399,7 +408,7 @@ def test_flight_attribution_and_profile_list_both_packages(registered, tmp_path)
     flight, summary, attribution, memory, started, stopped = asyncio.run(main())
     assert [e["model"] for e in flight] == ["tiny", "tiny"]
     port_entry = flight[1]
-    assert set(flight[0]) - {"incidents"} <= set(port_entry)
+    assert set(flight[0]) <= set(port_entry)
     assert {"samples", "events"} <= set(port_entry)
     assert not {"samples", "events"} & set(summary[1])
     assert port_entry["survival"]["shrinks"] == 0 and port_entry["drain"] == {"draining": False}
@@ -408,3 +417,44 @@ def test_flight_attribution_and_profile_list_both_packages(registered, tmp_path)
     assert set(started) == set(stopped) == {"tiny", "tiny (torch)"}
     assert started["tiny (torch)"] and stopped["tiny (torch)"]
     assert list(tmp_path.glob("trace-*.json"))
+
+
+def test_pod_journey_and_traces_list_both_packages_as_one_timeline(registered):
+    """Through ``serve_torch.register`` the port's journey edges and spans are
+    mirrored into the platform's ledger and span buffer: a traced request
+    whose prefill ran on a JAX prefill pool and whose decode ran on a port
+    decode pool reads as one journey on the pod's ``/journey/{id}`` and one
+    trace on ``/traces/{id}``."""
+    from langstream_tpu.core import tracing as jax_tracing
+    from langstream_tpu_torch.models.convert import params_from_numpy
+    from test_torch_engine import flatten_jax_params
+
+    paged = {**TINY, "kv-layout": "paged", "kv-block-size": 16, "prefix-cache": False}
+
+    async def main():
+        pre = TpuServingEngine(JaxServingConfig.from_dict({**paged, "pool-role": "prefill"}))
+        dec = TorchServingEngine(
+            ServingConfig.from_dict({**paged, "pool-role": "decode"}), device="cpu",
+            params=params_from_numpy(flatten_jax_params(pre.params), device="cpu"))
+        ctx = jax_tracing.TraceContext.new()
+        token = jax_tracing.set_current(ctx)
+        try:
+            ticket = await pre.generate("one timeline", {"max-tokens": 5})
+        finally:
+            jax_tracing.reset_current(token)
+        try:
+            await dec.import_handoff(pre.take_export(ticket["handoff"]))
+        finally:
+            await pre.close()
+            await dec.close()
+        return ctx
+
+    ctx = asyncio.run(main())
+    events = pod._journey_payload(ctx.trace_id)
+    assert [e["kind"] for e in events] == [
+        "submit", "admit", "first-token", "export", "export-taken", "import-received",
+        "import", "first-step", "finish"]
+    assert ctx.trace_id in {j["journey"] for j in pod._journey_payload(None)}
+    spans = jax_tracing.SPANS.spans(ctx.trace_id)
+    assert {"engine.kv-export", "engine.kv-import", "engine.decode"} <= {s["name"] for s in spans}
+    assert all(s["parent_id"] == ctx.span_id for s in spans)

@@ -35,7 +35,7 @@ from langstream_tpu_torch.agents.provider import (
     _StreamAdapter,
 )
 from langstream_tpu_torch.models.tokenizer import ByteTokenizer
-from langstream_tpu_torch.serving.deadline import DeadlineExceeded
+from langstream_tpu_torch.serving.handoff import DeadlineExceeded
 from langstream_tpu_torch.serving.streaming import STREAMS as PORT_STREAMS
 from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 

@@ -30,7 +30,7 @@ from langstream_tpu.serving.engine import TpuServingEngine
 from langstream_tpu.serving.handoff import DeadlineExceeded as JaxDeadlineExceeded
 from langstream_tpu_torch.models.convert import params_from_numpy
 from langstream_tpu_torch.serving import qos, scheduler
-from langstream_tpu_torch.serving.deadline import DeadlineExceeded
+from langstream_tpu_torch.serving.handoff import DeadlineExceeded
 from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 from test_torch_engine import flatten_jax_params
 from test_torch_pipeline import _engine as pipeline_engine
