@@ -172,6 +172,25 @@ Phases (every one unguarded: any failure exits non-zero):
    first-step -> finish (the fallbacks' import on the prefill engine) and
    ``survival_section()`` counts the retries and fallbacks; prints the
    retries, fallbacks, breaker opens and the transfer segment;
+   main path M: the Prometheus plane, the checkpoint writers and dense int8
+   KV. M3 (after L, on path A's params): the chat prompts of A and B
+   greedy at 32 layers with ``kv-quantize: int8`` on the dense layout; ms
+   per step beside A's and B's, the common prefix against B; fails unless
+   the int8 read kernel launched and the bf16 one did not. M2: llama3-8b
+   at full width and 2 layers (``M2_LAYERS``), random bf16 weights from
+   seed 0, written by ``save_llama_checkpoint`` (~5.9 GB of f32) to a
+   temporary directory and served through ``checkpoint:`` with
+   ``quantize: int8``: 8 greedy streams equal those of an engine on the
+   same params in memory; the write and load seconds and the bytes. M1
+   (after H, so every plane's engines have served): the port's registry
+   rendered and held to the OpenMetrics line grammar, every plane's
+   families present (``M_FAMILIES``), L1's scrape deltas of tokens and
+   requests equal to its ``stats()`` and a TTFT exemplar naming one of
+   its journeys (checked in L1), one fetch per chunk on K1 and L1 with
+   their ms per step beside the reference's, ``recompile`` events on A,
+   ``warmup`` begin and end on E, ``spec-auto-disable`` on D exactly when
+   D's speculation flipped off, and the host nanoseconds of a counter
+   increment and of an exemplar observation over 10^5 calls;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -196,8 +215,9 @@ Phases (every one unguarded: any failure exits non-zero):
    mid-wave, one stream on both devices, and a journal written on the card
    replays on the CPU to it; a mixed wave and a chained handoff's local
    fallback, whose greedy tokens and journey kinds per request are the
-   same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-L),
+   same on both devices; dense int8 KV; one wave's scrape, whose series
+   change the same on both devices);
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-M),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -215,6 +235,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -744,7 +765,10 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
     return "\n".join(lines)
 
 
-def phase_main_path(torch, label, cfg: dict, params=None, profile=False):
+def phase_main_path(torch, label, cfg: dict, params=None, profile=False, note=None):
+    """Serve the chat prompts greedy once (and once more under the profiler
+    with ``profile``); with ``note``, leave the tokens, ms per step and the
+    flight events by kind in ``NOTES[note]``."""
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     t0 = time.monotonic()
@@ -797,6 +821,9 @@ def phase_main_path(torch, label, cfg: dict, params=None, profile=False):
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.1f}", flush=True)
     if report:
         print(report, flush=True)
+    if note is not None:
+        NOTES[note] = {"tokens": [r["tokens"] for r in results], "ms_per_step": step_ms,
+                       "events": dict(engine.flight.events_by_type)}
     return engine.params, counts
 
 
@@ -1016,6 +1043,8 @@ def phase_spec_path(torch, label, cfg: dict, params):
           f"{ms(t / k for k, t in plain_log if k > 1)}", flush=True)
     if sp["steps"] == 0:
         fail(f"{label}: no speculative step ran: {sp}")
+    NOTES["D"] = {"events": dict(engine.flight.events_by_type), "flips": sp["flips"],
+                  "uplift": sp["uplift"]}
     if not sp["dispatches"] == sp["fetches"] == sp["steps"]:
         fail(f"{label}: dispatches/fetches/steps differ: {sp}")
     if not any(t == cfg["speculative-drafts"] + 1 for _, t in mq_calls):
@@ -1184,6 +1213,7 @@ def phase_provider_path(torch, resource: dict, device="cuda", max_tokens=32) -> 
                 fail(f"{label}: a refused request touched the engine: "
                      f"{[(k, before[k], after[k]) for k in keys]}")
             out["stats"] = after
+            NOTES["E"] = {"events": dict(engine.flight.events_by_type)}
             return out
         finally:
             TorchServingEngine.reset_instances()
@@ -3502,7 +3532,7 @@ def phase_evidence_path(torch, params, k1_line: dict, resource: dict = CHAT_EXAM
     manager ends idle."""
     import tempfile
 
-    from langstream_tpu_torch.core import tracing
+    from langstream_tpu_torch.core import metrics, tracing
     from langstream_tpu_torch.serving import engine as engine_module
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
     from langstream_tpu_torch.serving.incident import IncidentRecorder
@@ -3529,23 +3559,43 @@ def phase_evidence_path(torch, params, k1_line: dict, resource: dict = CHAT_EXAM
     async def run():
         try:
             before = engine.stats()
+            snap0 = metrics.snapshot()  # path M1: the wave's scrape deltas
             t0 = time.monotonic()
             results = await asyncio.gather(*(traced(ctx, p, m)
                                              for ctx, (p, m) in zip(traces, requests)))
             wall = time.monotonic() - t0
             await engine.settled()
+            snap1 = metrics.snapshot()
             engine.health()
             if not engine.incidents.flush(30.0):
                 fail(f"{label}: the incident writer did not drain")
-            return results, wall, before, engine.stats(), engine_module.incident_report()
+            return (results, wall, before, engine.stats(), engine_module.incident_report(),
+                    (snap0, snap1))
         finally:
             await engine.close()
             TorchServingEngine._instances.pop(key, None)
 
     reset_counts()
-    results, wall, before, stats, report = asyncio.run(run())
+    results, wall, before, stats, report, snaps = asyncio.run(run())
     counts = read_counts()
     line = _k_wave_line(label, stats, before, wall, path="L")
+    # path M1: the scrape's deltas over the wave equal what the engine
+    # reports, and a TTFT exemplar names one of the wave's journeys
+    deltas = scrape_changes(*snaps, engine.config.model)
+    want = {"langstream_serving_tokens_generated_total":
+            stats["total-generated"] - before["total-generated"],
+            "langstream_serving_requests_completed_total":
+            stats["completed"] - before["completed"]}
+    if any(deltas.get(k) != v for k, v in want.items()):
+        fail(f"{label}: scrape deltas {[(k, deltas.get(k)) for k in want]} against stats {want}")
+    ids = {ctx.trace_id for ctx in traces}
+    named = [t for n, t in scrape_grammar(metrics.render_metrics().decode())
+             if n == "langstream_serving_ttft_seconds_bucket" and t in ids]
+    if not named or not JOURNEYS.events(named[0]):
+        fail(f"{label}: no TTFT exemplar names a journey of the wave: {named}")
+    NOTES["L1"] = {**line, "tokens_delta": deltas["langstream_serving_tokens_generated_total"],
+                   "requests_delta": deltas["langstream_serving_requests_completed_total"],
+                   "exemplar": named[0], "exemplar_events": len(JOURNEYS.events(named[0]))}
     print(f"path L [L1 against K1 unfaulted]: ms_per_step {line['ms_per_step']} against "
           f"{k1_line['ms_per_step']}, decode_tok_s {line['decode_tok_s']} against "
           f"{k1_line['decode_tok_s']}, wall_s {line['wall_s']} against {k1_line['wall_s']} "
@@ -3790,6 +3840,270 @@ def phase_chainer_path(torch, params, combined_tokens: list,
           f"{survival['handoff_retries']}, 'handoff_fallbacks': "
           f"{survival['handoff_fallbacks']}}}; launches={counts}", flush=True)
     return counts, segs
+
+
+# ---------------------------------------------------------------------------
+# path M: the Prometheus plane's scrape, the checkpoint writers, dense int8 KV
+# ---------------------------------------------------------------------------
+
+#: what the earlier paths leave for path M's checks, by path
+NOTES: dict = {}
+#: the reference ms per step of K1's unfaulted wave and of L1, from an
+#: earlier run of this script on one NVIDIA H100 80GB HBM3 at 700.00 W
+#: (PERF.md), printed beside this run's
+REFERENCE_MS_PER_STEP = {"K1": 71.43, "L1": 69.43}
+M2_LAYERS = 2      # the written checkpoint's depth (full width)
+M_REQUESTS = 8
+#: series a scrape compares by presence only: times (and ratios of times)
+#: and the memory ledger's device bytes
+M_TIMED = re.compile(r"_seconds(_total)?$|_uplift$|hbm_bytes_")
+
+# the OpenMetrics line grammar of tests/test_incident.py
+_M_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_M_VALUE = r"(?:[-+]?(?:[0-9]*\.?[0-9]+(?:[eE][-+]?[0-9]+)?)|NaN|[-+]?Inf)"
+_M_LABEL = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+_M_LABELS = rf"\{{(?:{_M_LABEL}(?:,{_M_LABEL})*)?,?\}}"
+_M_HELP = re.compile(rf"^# HELP {_M_NAME} .*$")
+_M_TYPE = re.compile(rf"^# TYPE {_M_NAME} (counter|gauge|histogram|summary|untyped)$")
+_M_SAMPLE = re.compile(
+    rf"^(?P<name>{_M_NAME})(?:{_M_LABELS})? {_M_VALUE}(?: {_M_VALUE})?"
+    rf'(?P<exemplar> # \{{trace_id="(?P<trace>[^"]+)"\}} {_M_VALUE} {_M_VALUE})?$')
+
+#: each plane's families, and the path whose engines register them
+M_FAMILIES = {
+    "always (A)": ("tokens_generated_total", "requests_completed_total", "ttft_seconds",
+                   "queue_wait_seconds", "decode_step_seconds", "kv_pool_used_ratio",
+                   "recompiles_total", "hbm_bytes_weights"),
+    "QoS (H)": ("qos_queue_depth_interactive", "qos_shed_total", "qos_preempted_total",
+                "qos_resume_seconds"),
+    "streaming TBT (H)": ("langstream_stream_tbt_seconds",),
+    "prefix tiers (I1)": ("prefix_tier_t0_bytes", "prefix_t1_promotions_total",
+                          "prefix_t2_hydrations_total", "prefix_demotions_total"),
+    "handoff and KV transfer (I2, L2)": ("handoff_retries_total", "handoff_fallbacks_total",
+                                         "kv_export_seconds", "kv_import_bytes_total",
+                                         "breaker_open_replicas"),
+    "adapters (J)": ("adapter_tier_t0_bytes", "adapter_loads_total",
+                     "adapter_hydrations_total"),
+    "survival (K)": ("pool_shrinks_total", "pool_restores_total", "kv_budget_blocks",
+                     "journal_depth"),
+    "SLO (L1)": ("slo_burn_rate_ttft", "slo_budget_remaining_ttft"),
+    "embeddings and deadlines (E)": ("embeddings_total", "deadline_shed_total"),
+}
+
+
+def scrape_grammar(body: str) -> list[tuple[str, str]]:
+    """Fail unless every line of ``body`` is a HELP/TYPE comment or a
+    well-formed sample with exemplars on ``_bucket`` lines only; returns
+    the exemplars as (bucket line's name, trace id)."""
+    exemplars = []
+    for line in body.splitlines():
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            if not (_M_HELP.match(line) or _M_TYPE.match(line)):
+                fail(f"M1: malformed comment line {line!r}")
+            continue
+        m = _M_SAMPLE.match(line)
+        if m is None:
+            fail(f"M1: malformed sample line {line!r}")
+        if m.group("exemplar"):
+            if not m.group("name").endswith("_bucket"):
+                fail(f"M1: an exemplar off a bucket line: {line!r}")
+            exemplars.append((m.group("name"), m.group("trace")))
+    return exemplars
+
+
+def scrape_changes(before: dict, after: dict, agent: str) -> dict:
+    """One agent's series between two ``metrics.snapshot()``s: counters and
+    histogram counts by their change, gauges by their value; times by
+    presence only (None)."""
+    out = {}
+    for (name, label), (kind, value) in after.items():
+        if label != agent:
+            continue
+        if M_TIMED.search(name):
+            out[name] = None
+        elif kind == "gauge":
+            out[name] = value
+        else:
+            out[name] = value - before.get((name, label), (kind, 0.0))[1]
+    return out
+
+
+def phase_metrics_path(torch) -> None:
+    """M1, after paths A-L: the port's registry rendered and held to the
+    OpenMetrics line grammar; every plane's families present; L1's scrape
+    deltas and TTFT exemplar (checked in :func:`phase_evidence_path`); K1's
+    and L1's one fetch per chunk and ms per step beside the reference's; the new
+    flight events where the smoke exercises them; and the host cost of a
+    counter increment and of an exemplar observation over 10^5 calls."""
+    from langstream_tpu_torch.core import metrics
+
+    label = "M1 the Prometheus scrape"
+    body = metrics.render_metrics().decode()
+    exemplars = scrape_grammar(body)
+    families = {line.split(" ")[2] for line in body.splitlines()
+                if line.startswith("# TYPE ")}
+    missing = {}
+    for plane, names in M_FAMILIES.items():
+        gone = [n for n in names if not any(f.endswith(n) for f in families)]
+        if gone:
+            missing[plane] = gone
+    if missing:
+        fail(f"{label}: families missing by plane: {missing}")
+    for path in ("K1", "L1"):
+        line = NOTES[path]
+        if line["host_fetches_per_chunk"] != 1.0:
+            fail(f"{label}: {path} host_fetches_per_chunk {line['host_fetches_per_chunk']}")
+    events = {"A recompile": NOTES["A"]["events"].get("recompile", 0),
+              "E warmup": NOTES["E"]["events"].get("warmup", 0),
+              "D spec-auto-disable": NOTES["D"]["events"].get("spec-auto-disable", 0)}
+    if events["A recompile"] < 2 or events["E warmup"] != 2:
+        fail(f"{label}: recompile on A and warmup begin/end on E expected: {events}")
+    if bool(events["D spec-auto-disable"]) != bool(NOTES["D"]["flips"]):
+        fail(f"{label}: D's auto-disable events {events} against its flips "
+             f"{NOTES['D']['flips']} (uplift {NOTES['D']['uplift']})")
+    rep = metrics.PrometheusMetricsReporter(prefix="langstream_smoke", agent_id="m1")
+    inc = rep.counter("cost_total", "the host cost probe")
+    observe = rep.exemplar_histogram("cost_seconds", "the host cost probe")
+    n = 100_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        inc(1)
+    inc_ns = (time.perf_counter() - t0) / n * 1e9
+    t0 = time.perf_counter()
+    for _ in range(n):
+        observe(0.004, "0af7651916cd43dd8448eb211c80319c")
+    obs_ns = (time.perf_counter() - t0) / n * 1e9
+    l1 = NOTES["L1"]
+    print(f"path M [{label}]: {len(body.splitlines())} lines, {len(families)} families, "
+          f"{len(exemplars)} exemplars, grammar ok; every plane present "
+          f"({', '.join(M_FAMILIES)}); L1 deltas tokens={l1['tokens_delta']} "
+          f"requests={l1['requests_delta']} equal its stats, its TTFT exemplar "
+          f"{l1['exemplar']} names a journey of {l1['exemplar_events']} events; "
+          f"host_fetches_per_chunk K1={NOTES['K1']['host_fetches_per_chunk']} "
+          f"L1={l1['host_fetches_per_chunk']}; ms_per_step K1={NOTES['K1']['ms_per_step']} "
+          f"L1={l1['ms_per_step']} (reference: {REFERENCE_MS_PER_STEP['K1']} and "
+          f"{REFERENCE_MS_PER_STEP['L1']}); events {events} (D uplift {NOTES['D']['uplift']}); "
+          f"host ns per counter increment {inc_ns:.1f}, per exemplar observation "
+          f"{obs_ns:.1f} (over {n} calls)", flush=True)
+
+
+def phase_writer_path(torch, model: str = "llama3-8b", device="cuda") -> dict:
+    """M2: ``model`` (llama3-8b) at full width and ``M2_LAYERS`` layers, random
+    weights from seed 0, written by ``save_llama_checkpoint`` (f32, ~5.9 GB)
+    to a temporary directory, then served by an engine whose resource names
+    it under ``checkpoint:`` with ``quantize: int8``; fails unless its
+    greedy tokens for ``M_REQUESTS`` prompts equal those of an engine built
+    from the same params in memory. Prints the write and load seconds and
+    the bytes written; the directory is deleted after."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.models.checkpoints import save_llama_checkpoint
+    from langstream_tpu_torch.models.llama import init_llama_params
+    from langstream_tpu_torch.serving import engine as engine_module
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    label = "M2 checkpoint writer"
+    cfg = {"model": model, "quantize": "int8", "slots": M_REQUESTS,
+           "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
+    prompts = chat_prompts()[:M_REQUESTS]
+    tmp = tempfile.mkdtemp(prefix="ls-m2-checkpoint-")
+    reset_counts()
+    try:
+        with cut_depth(model, M2_LAYERS):
+            mc = engine_module._MODEL_CONFIGS[model](max_seq_len=2048)
+            params = init_llama_params(mc, torch.Generator(device=device).manual_seed(0),
+                                       device=device)
+            t0 = time.monotonic()
+            save_llama_checkpoint(params, mc, tmp)
+            write_s = time.monotonic() - t0
+            nbytes = sum(p.stat().st_size for p in Path(tmp).iterdir())
+            t0 = time.monotonic()
+            loaded = TorchServingEngine(ServingConfig.from_dict({**cfg, "checkpoint": tmp}),
+                                        device=device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            in_memory = TorchServingEngine(ServingConfig.from_dict(cfg), device=device,
+                                           params=params)
+
+            async def run():
+                try:
+                    return ((await serve(loaded, prompts, 32))[0],
+                            (await serve(in_memory, prompts, 32))[0])
+                finally:
+                    await loaded.close()
+                    await in_memory.close()
+
+            got, want = asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = read_counts()
+    if any(not r["tokens"] for r in got):
+        fail(f"{label}: a request returned no tokens")
+    if [r["tokens"] for r in got] != [r["tokens"] for r in want]:
+        fail(f"{label}: greedy tokens through checkpoint: differ from the in-memory "
+             f"engine's")
+    print(f"path M [{label}]: {model} full width at {M2_LAYERS} layers, "
+          f"{nbytes} bytes written in {write_s:.2f} s, loaded and quantized in "
+          f"{load_s:.2f} s; {M_REQUESTS} greedy streams "
+          f"({sum(len(r['tokens']) for r in got)} tokens) equal the in-memory engine's; "
+          f"launches={counts}", flush=True)
+    del params, loaded, in_memory
+    gc.collect()
+    return counts
+
+
+def phase_dense_int8_path(torch, params, base: dict) -> dict:
+    """M3: dense int8 KV (``kv-quantize: int8`` on the dense layout) at
+    llama3-8b's 32 layers on path B's int8 weights, the chat prompts of
+    paths A and B greedy; ms per step beside A's (dense bf16) and B's
+    (paged int8) of this run and the greedy common prefix against B. Fails
+    unless the int8 read kernel launched and the bf16 one did not."""
+    label = "M3 dense int8 KV"
+    counts = phase_main_path(torch, label, {**base, "kv-quantize": "int8"}, params=params,
+                             note="M3")[1]
+    if counts["paged_attention_q8"] == 0 or counts["paged_attention"] != 0:
+        fail(f"{label}: expected the int8 read kernel only: {counts}")
+    m3, a, b = (NOTES[k] for k in ("M3", "A", "B"))
+    same = total = 0
+    for x, y in zip(m3["tokens"], b["tokens"]):
+        n = min(len(x), len(y))
+        same += next((i for i in range(n) if x[i] != y[i]), n)
+        total += max(len(x), len(y))
+    print(f"path M [{label}]: ms_per_step {m3['ms_per_step']:.2f} against A (dense bf16) "
+          f"{a['ms_per_step']:.2f} and B (paged int8) {b['ms_per_step']:.2f}; greedy "
+          f"common prefix against B {same}/{total} ({same / total:.3f}); "
+          f"launches={counts}", flush=True)
+    return counts
+
+
+def scrape_round_trip(torch, cfg: dict, device: str, params) -> tuple:
+    """Phase 5: one wave on a tiny engine, its tokens and its agent's scrape
+    changes (:func:`scrape_changes` between two registry snapshots)."""
+    from langstream_tpu_torch.core import metrics
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+    async def run():
+        try:
+            before = metrics.snapshot()
+            outs = await asyncio.gather(*(engine.generate(p, {"max-tokens": 9})
+                                          for p in ("scrape", "the same", "wave", "twice")))
+            for _ in range(500):  # the loop's last pass sets the slot gauges
+                if all(s.free for s in engine.slots) and not engine._wake.is_set():
+                    break
+                await asyncio.sleep(0.01)
+            engine.stats()  # the section gauges
+            return [o["tokens"] for o in outs], scrape_changes(
+                before, metrics.snapshot(), cfg["model"])
+        finally:
+            await engine.close()
+
+    return asyncio.run(run())
 
 
 def survival_round_trip(torch, cfg: dict, device: str, params) -> dict:
@@ -4105,6 +4419,7 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
                    {**checkpoint, "kv-layout": "paged", "prefix-cache": False,
                     "kv-block-size": 16, "kv-quantize": "int8"},
                    {"kv-layout": "dense"},
+                   {"kv-layout": "dense", "kv-quantize": "int8"},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
                    {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
                     "kv-quantize": "int8"},
@@ -4261,6 +4576,18 @@ def phase_card_vs_cpu(torch, devices=("cuda", "cpu")):
           f"chained handoff's local fallback: greedy tokens and the journey kinds of every "
           f"request identical on the card and the CPU", flush=True)
 
+    # the Prometheus plane (path M1's series, tiny): one wave's scrape
+    cfg = {**tiny, "kv-quantize": "int8", "prefix-cache": False}
+    out = {name: scrape_round_trip(torch, cfg, device, params["tiny"])
+           for name, device in zip(("cuda", "cpu"), devices)}
+    tokens, changes = out["cuda"]
+    if out["cuda"] != out["cpu"] or not changes.get(
+            "langstream_serving_tokens_generated_total"):
+        fail(f"card vs CPU [scrape]: the card {out['cuda']} against the CPU {out['cpu']}")
+    print(f"card vs CPU [scrape, paged int8 KV]: a wave of {len(tokens)}: greedy tokens and "
+          f"the change of all {len(changes)} series (counters, gauges, histogram counts; "
+          f"times by presence) identical on the card and the CPU", flush=True)
+
 
 def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
     """A batch request alone, then again with an interactive request
@@ -4342,7 +4669,8 @@ def main() -> int:
     base = {"model": "llama3-8b", "quantize": "int8", "slots": 64,
             "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
     t0 = time.monotonic()
-    params, dense_counts = phase_main_path(torch, "dense bf16 KV", base, profile=True)
+    params, dense_counts = phase_main_path(torch, "dense bf16 KV", base, profile=True,
+                                           note="A")
     if dense_counts["flash_attention"] == 0 or dense_counts["paged_attention"] == 0:
         fail(f"dense main path did not launch flash and paged kernels: {dense_counts}")
     gc.collect()
@@ -4350,7 +4678,7 @@ def main() -> int:
     q8_counts = phase_main_path(
         torch, "paged int8 KV",
         {**base, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False},
-        params=params, profile=True,
+        params=params, profile=True, note="B",
     )[1]  # (its params are path A's: bound to no name, freed with them below)
     if q8_counts["paged_attention_q8"] == 0 or q8_counts["flash_attention"] == 0:
         fail(f"int8-KV main path did not launch flash and q8 kernels: {q8_counts}")
@@ -4390,6 +4718,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_k = time.monotonic()
     k1_counts, k1_line, _ = phase_chaos_path(torch, params)
+    NOTES["K1"] = k1_line
     gc.collect()
     torch.cuda.empty_cache()
     k2_counts = phase_wedge_path(torch, params)
@@ -4416,6 +4745,15 @@ def main() -> int:
             l_counts["paged_attention"] == 0):
         fail(f"path L did not launch flash and both paged reads: {l_counts}")
     print(f"path L: {time.monotonic() - t_l:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_m = time.monotonic()
+    m3_counts = phase_dense_int8_path(torch, params, base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m2_counts = phase_writer_path(torch)
+    m_counts = {k: m2_counts[k] + m3_counts[k] for k in m2_counts}
+    m_s = time.monotonic() - t_m
     del params  # path E makes its own weights: two 8B sets never share the card
     gc.collect()
     torch.cuda.empty_cache()
@@ -4435,9 +4773,12 @@ def main() -> int:
     t_h = time.monotonic()
     with cut_depth(CHAT_EXAMPLE_RESOURCE["configuration"]["model"], H_LAYERS):
         h_counts = phase_qos_path(torch)
+    t_m1 = time.monotonic()
+    phase_metrics_path(torch)  # M1: after every plane's engines have served
+    m_s += time.monotonic() - t_m1
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
           f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
-          f"{time.monotonic() - t_h:.1f} s)", flush=True)
+          f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -4448,8 +4789,8 @@ def main() -> int:
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
-             "J": j_counts, "K": k_counts, "L": l_counts}
-    meta = {  # launches: summed over the twelve main paths
+             "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts}
+    meta = {  # launches: summed over the thirteen main paths
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -1,2 +1,2 @@
 """Cross-cutting pieces of the port that every layer may import (stdlib
-only): request tracing."""
+only): request tracing and the Prometheus metrics reporter."""

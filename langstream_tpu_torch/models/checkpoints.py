@@ -7,12 +7,19 @@ without the ``model.`` prefix) into the port's stacked-layer tree:
 ``(L, in, out)`` matrices, ``(L, hidden)`` norms, and for Mixtral ``(L, E,
 in, out)`` experts and a float32 ``(L, hidden, E)`` router. Nothing is
 downloaded. A missing directory or missing weight files raise
-``FileNotFoundError``; the caller never falls back to random weights. The
-writer (``save_moe_checkpoint``) is not ported.
+``FileNotFoundError``; the caller never falls back to random weights.
+
+The writers (:func:`save_llama_checkpoint`, :func:`save_moe_checkpoint`)
+are the inverses, as the JAX package writes them: the HF tensor names
+(with the ``model.`` prefix), ``(out, in)`` matrices, every tensor f32 in
+one ``pytorch_model.bin`` written with ``torch.save``, and a minimal
+``config.json``. They take a float parameter tree; a quantized one raises
+``TypeError``, as the JAX writer does (write before quantizing).
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import torch
@@ -142,3 +149,97 @@ def load_moe_checkpoint(checkpoint_dir: str, config: MoEConfig) -> dict:
         "final_norm": head["final_norm"],
         "lm_head": head["lm_head"],
     }
+
+
+# ---------------------------------------------------------------------------
+# writers
+# ---------------------------------------------------------------------------
+
+
+def _host_f32(t: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """One tensor as a contiguous f32 CPU tensor, ``(out, in)`` when
+    ``transpose``."""
+    t = t.detach().to("cpu", torch.float32)
+    return (t.T if transpose else t).contiguous()
+
+
+def _check_float(params: dict) -> None:
+    """Refuse a quantized tree before anything is written."""
+    for leaf in [params["embed"], params["final_norm"], params["lm_head"],
+                 *params["layers"].values()]:
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(
+                f"checkpoint writers take float parameters, not {type(leaf).__name__} "
+                "(write the tree before quantizing it)")
+
+
+def _head_state(params: dict) -> dict[str, torch.Tensor]:
+    return {
+        "model.embed_tokens.weight": _host_f32(params["embed"]),
+        "model.norm.weight": _host_f32(params["final_norm"]),
+        "lm_head.weight": _host_f32(params["lm_head"], transpose=True),
+    }
+
+
+def _config_json(c, **arch) -> str:
+    return json.dumps({
+        **{k: arch[k] for k in ("architectures", "model_type")},
+        "vocab_size": c.vocab_size,
+        "hidden_size": c.hidden,
+        "num_hidden_layers": c.layers,
+        "num_attention_heads": c.heads,
+        "num_key_value_heads": c.kv_heads,
+        "head_dim": c.head_dim,
+        **{k: v for k, v in arch.items() if k not in ("architectures", "model_type")},
+        "rope_theta": c.rope_theta,
+        "rms_norm_eps": c.norm_eps,
+        "max_position_embeddings": c.max_seq_len,
+        "tie_word_embeddings": False,
+        "torch_dtype": "float32",
+    }, indent=2)
+
+
+def save_llama_checkpoint(params: dict, config: LlamaConfig, checkpoint_dir: str) -> None:
+    """Write the port's float Llama tree as an HF-format directory
+    (``pytorch_model.bin`` + ``config.json``), the inverse of
+    :func:`load_llama_checkpoint` and the JAX writer's output."""
+    _check_float(params)
+    path = Path(checkpoint_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    c = config
+    layers = params["layers"]
+    state = _head_state(params)
+    for i in range(c.layers):
+        for ours, (hf, transpose) in {**_ATTN_NAMES, **_MLP_NAMES}.items():
+            state[f"model.layers.{i}.{hf}"] = _host_f32(layers[ours][i], transpose)
+    torch.save(state, path / "pytorch_model.bin")
+    (path / "config.json").write_text(_config_json(
+        c, architectures=["LlamaForCausalLM"], model_type="llama",
+        intermediate_size=c.intermediate))
+
+
+def save_moe_checkpoint(params: dict, config: MoEConfig, checkpoint_dir: str) -> None:
+    """Write the port's float Mixtral tree as an HF-format directory: the
+    router as ``block_sparse_moe.gate``, expert ``e``'s ``w_gate``/``w_up``/
+    ``w_down`` as ``experts.{e}.w1``/``w3``/``w2``; the inverse of
+    :func:`load_moe_checkpoint` and the JAX writer's output."""
+    _check_float(params)
+    path = Path(checkpoint_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    c = config
+    layers = params["layers"]
+    state = _head_state(params)
+    for i in range(c.layers):
+        for ours, (hf, transpose) in _ATTN_NAMES.items():
+            state[f"model.layers.{i}.{hf}"] = _host_f32(layers[ours][i], transpose)
+        base = f"model.layers.{i}.block_sparse_moe"
+        state[f"{base}.gate.weight"] = _host_f32(layers["router"][i], transpose=True)
+        for e in range(c.experts):
+            for ours, hf in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+                state[f"{base}.experts.{e}.{hf}.weight"] = _host_f32(
+                    layers[ours][i, e], transpose=True)
+    torch.save(state, path / "pytorch_model.bin")
+    (path / "config.json").write_text(_config_json(
+        c, architectures=["MixtralForCausalLM"], model_type="mixtral",
+        intermediate_size=c.moe_intermediate, num_local_experts=c.experts,
+        num_experts_per_tok=c.experts_per_token))

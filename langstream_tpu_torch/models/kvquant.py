@@ -17,6 +17,8 @@ from typing import Any
 
 import torch
 
+from langstream_tpu_torch._device import require_device
+
 
 def is_quant_cache(cache: Any) -> bool:
     return isinstance(cache, dict) and "q" in cache and "s" in cache
@@ -35,6 +37,27 @@ def quantize_rows(x: torch.Tensor) -> dict[str, torch.Tensor]:
         torch.int8
     )
     return {"q": q, "s": scale}
+
+
+def init_kv_cache_int8(config, slots: int, max_seq_len: int | None = None,
+                       device="cuda") -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """Zeroed dense int8 caches for K and V, on the card unless the caller
+    asks for the CPU: ``q`` int8 ``(L, slots, S, Kh, D)`` and ``s`` f32
+    ``(L, slots, S, Kh)``, one scale per (layer, slot, position, kv head)
+    row (the JAX package's layout). Both are contiguous, so a dense decode
+    views them as the int8 pool layout ``(L, slots*S/bs, bs, Kh*D)`` and
+    ``(L, slots*S/bs, bs, Kh)`` without a copy."""
+    device = require_device(device, "init_kv_cache_int8")
+    c = config
+    shape = (c.layers, slots, max_seq_len or c.max_seq_len, c.kv_heads)
+
+    def make():
+        return {
+            "q": torch.zeros(shape + (c.head_dim,), dtype=torch.int8, device=device),
+            "s": torch.zeros(shape, dtype=torch.float32, device=device),
+        }
+
+    return make(), make()
 
 
 def cache_scores(qg: torch.Tensor, ck_l: Any) -> torch.Tensor:

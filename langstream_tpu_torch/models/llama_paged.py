@@ -598,8 +598,8 @@ def llama_decode_chunk_dense_pallas(
     tokens0: torch.Tensor,
     base_lengths: torch.Tensor,
     active: torch.Tensor,
-    cache_k: torch.Tensor,        # (L, B, S, Kh, D) — the DENSE layout
-    cache_v: torch.Tensor,
+    cache_k,                      # (L, B, S, Kh, D) — the DENSE layout, or int8
+    cache_v,                      # {"q": (L, B, S, Kh, D), "s": (L, B, S, Kh)}
     sample_fn: Callable,
     num_steps: int,
     window: int | None,           # cache rows the read may cover (None = S)
@@ -612,16 +612,25 @@ def llama_decode_chunk_dense_pallas(
     degenerate block pool — slot ``b``'s rows are the contiguous blocks
     ``[b*S/bs, (b+1)*S/bs)`` — so the cache viewed as
     ``(L, B*S/bs, bs, Kh*D)`` with identity block tables goes through the
-    same kernel (and the commit writes through the view, in place). Block
-    0 is slot 0's first rows here, not scratch, so inactive slots commit
-    into their own rows past their length instead."""
+    same kernel (and the commit writes through the view, in place). An int8
+    cache views as the int8 pool the same way (rows ``(L, B*S/bs, bs,
+    Kh*D)``, scales ``(L, B*S/bs, bs, Kh)``) and reads through the int8
+    kernel. Block 0 is slot 0's first rows here, not scratch, so inactive
+    slots commit into their own rows past their length instead."""
     c = config
-    L, B, S, Kh, D = cache_k.shape
+    quant = isinstance(cache_k, dict)
+    L, B, S, Kh, D = (cache_k["q"] if quant else cache_k).shape
     bs = dense_block_size(S, block_size)
     nb = S // bs
-    pool_k = cache_k.view(L, B * nb, bs, Kh * D)
-    pool_v = cache_v.view(L, B * nb, bs, Kh * D)
-    device = cache_k.device
+
+    def view(cache):
+        if quant:
+            return {"q": cache["q"].view(L, B * nb, bs, Kh * D),
+                    "s": cache["s"].view(L, B * nb, bs, Kh)}
+        return cache.view(L, B * nb, bs, Kh * D)
+
+    pool_k, pool_v = view(cache_k), view(cache_v)
+    device = (cache_k["q"] if quant else cache_k).device
     tables = (
         torch.arange(B, dtype=torch.int32, device=device)[:, None] * nb
         + torch.arange(nb, dtype=torch.int32, device=device)[None, :]

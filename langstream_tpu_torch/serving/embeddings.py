@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch._device import require_device
+from langstream_tpu_torch.core import metrics
 from langstream_tpu_torch.models.encoder import (
     EncoderConfig,
     encode,
@@ -70,6 +71,9 @@ class EmbeddingEngine:
         self.params = _to_device(params, self.device)
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix="torch-embed")
+        self._m_embeddings = metrics.REPORTER(
+            prefix="langstream_serving", agent_id=model).counter(
+            "embeddings_total", "embedding vectors computed")
 
     def _encode(self, tokens: np.ndarray, mask: np.ndarray) -> np.ndarray:
         out = encode(self.config, self.params,
@@ -94,6 +98,7 @@ class EmbeddingEngine:
             mask[i, : len(row)] = 1
         out = await asyncio.get_running_loop().run_in_executor(
             self._executor, self._encode, tokens, mask)
+        self._m_embeddings(len(texts))
         return out[:B].tolist()
 
     def close(self) -> None:

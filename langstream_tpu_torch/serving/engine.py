@@ -150,6 +150,16 @@ Execution model:
   ``incident-dir`` a breach (health transition, SLO or TBT fast burn,
   breaker or adapter storm) captures a bundle on the recorder's writer
   thread (:func:`incident_report`).
+- Prometheus plane (``core/metrics.py``): the engine registers the JAX
+  engine's ``langstream_serving_*`` series under its conditions (the QoS,
+  SLO, split-pool, tier, paged-pool and journal families only with their
+  planes; the breaker gauge, the deadline counter and the per-class
+  streaming TBT histograms at first use) and feeds them host numbers it
+  already holds at the JAX engine's sites; a traced request stamps its
+  journey id on its TTFT, TBT and KV-transfer buckets (exemplars). The
+  flight ring also gets the JAX engine's ``recompile`` (a shape's first
+  dispatch), ``spec-auto-disable``/``spec-auto-enable`` and ``warmup``
+  events.
 - Cross-replica handoff (``serving/handoff.py``): the export's wire header
   carries the trace and journey; :class:`~langstream_tpu_torch.serving.handoff.HandoffChainer`
   drives an export through :meth:`TorchServingEngine.take_export_entry`,
@@ -181,6 +191,7 @@ import numpy as np
 import torch
 
 from langstream_tpu_torch._device import require_device
+from langstream_tpu_torch.core import metrics
 from langstream_tpu_torch.core.tracing import (
     TraceContext,
     current_context,
@@ -190,6 +201,11 @@ from langstream_tpu_torch.core.tracing import (
 from langstream_tpu_torch.models.checkpoints import (
     load_llama_checkpoint,
     load_moe_checkpoint,
+)
+from langstream_tpu_torch.models.kvquant import (
+    init_kv_cache_int8,
+    is_quant_cache,
+    quantize_rows,
 )
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
@@ -281,6 +297,7 @@ from langstream_tpu_torch.serving.journal import RequestJournal, request_entry
 from langstream_tpu_torch.serving.journey import JOURNEYS
 from langstream_tpu_torch.serving.prefixstore import PrefixStore, PrefixStoreSpec
 from langstream_tpu_torch.serving.qos import (
+    PRIORITY_CLASSES,
     QosSpec,
     RateLimited,
     normalize_priority,
@@ -505,9 +522,6 @@ class ServingConfig:
 _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
     (lambda c: bool(c.mesh),
      "mesh: multi-GPU serving (expert parallelism too) is ROADMAP.md Queue 1 item 13"),
-    (lambda c: c.kv_quantize == "int8" and c.kv_layout == "dense",
-     "kv-quantize: int8 with kv-layout: dense: the port serves int8 KV from "
-     "the paged pool only (ROADMAP.md Queue 1 item 3); use kv-layout: paged"),
 )
 
 #: accepted settings that change only latency here (the kernel choices the
@@ -677,6 +691,12 @@ class _Request:
         if not self.generated:
             return self.prompt_tokens
         return self.prompt_tokens + self.generated
+
+
+def _exemplar(request: "_Request") -> str | None:
+    """The trace id a traced request stamps on the buckets it lands in (its
+    journey id); None for untraced traffic, which records no exemplar."""
+    return request.journey_id if request.trace is not None else None
 
 
 def _normalize_stop(value) -> list[str]:
@@ -1112,6 +1132,7 @@ class TorchServingEngine:
                 for k, shape in self._adapter_factor_shapes().items()
             }
             self._ad_rows = np.zeros(config.slots, dtype=np.int32)
+        self._init_metrics()
 
     # ------------------------------------------------------------------
     # model + cache
@@ -1165,11 +1186,274 @@ class TorchServingEngine:
                 else init_paged_kv_cache
             )
             self.cache_k, self.cache_v = init_pool(mc, self.paged_layout, device=dev)
+        elif self.config.kv_quantize == "int8":
+            # (L, slots, S, Kh, D) int8 rows and (L, slots, S, Kh) scales: the
+            # dense decode views them as the int8 pool layout with no copy
+            self.cache_k, self.cache_v = init_kv_cache_int8(
+                mc, self.config.slots, device=dev)
         else:
             shape = (mc.layers, self.config.slots, mc.max_seq_len,
                      mc.kv_heads, mc.head_dim)
             self.cache_k = torch.zeros(shape, dtype=mc.dtype, device=dev)
             self.cache_v = torch.zeros(shape, dtype=mc.dtype, device=dev)
+
+    # ------------------------------------------------------------------
+    # Prometheus plane (core/metrics.py)
+    # ------------------------------------------------------------------
+
+    def _init_metrics(self) -> None:
+        """Register the JAX engine's ``langstream_serving_*`` series under
+        its conditions, so a configuration's scrape surface is the JAX
+        engine's: the always-on families, then the SLO, QoS, split-pool,
+        prefix-tier, adapter-tier, paged-pool and journal families only
+        when those planes exist. ``breaker_open_replicas``,
+        ``deadline_shed_total`` and the per-class streaming TBT histograms
+        register at first use. Every update site feeds a host number the
+        engine already holds: no device read, no fetch."""
+        cfg = self.config
+        # the seam is read once, here: every series of this engine goes to
+        # one registry
+        self._reporter_cls = metrics.REPORTER
+        reporter = self._reporter = self._reporter_cls(prefix="langstream_serving",
+                                                       agent_id=cfg.model)
+        self._m_tokens = reporter.counter(
+            "tokens_generated_total", "tokens generated by the engine")
+        self._m_tokens_seen = 0  # total_generated already counted
+        self._m_requests = reporter.counter(
+            "requests_completed_total", "completed generation requests")
+        self._m_ttft = reporter.gauge(
+            "last_ttft_seconds", "time to first token of the last request")
+        # a traced request stamps its journey id on its TTFT bucket
+        self._m_ttft_hist = reporter.exemplar_histogram(
+            "ttft_seconds", "engine time-to-first-token (enqueue to token 1)")
+        self._m_queue_wait_hist = reporter.histogram(
+            "queue_wait_seconds", "enqueue to slot admission")
+        self._m_active = reporter.gauge("slots_active", "decode slots currently generating")
+        self._m_queued = reporter.gauge("queued_requests", "requests awaiting a free slot")
+        self._m_prefix_hits = reporter.counter(
+            "prefix_cache_hits_total", "admissions that adopted cached prefix blocks")
+        self._m_prefix_tokens = reporter.counter(
+            "prefix_cache_tokens_reused_total",
+            "prompt tokens served from cached prefix blocks (prefill skipped)")
+        self._m_spec_steps = reporter.counter(
+            "speculative_steps_total", "speculative verify steps run")
+        self._m_spec_accepted = reporter.counter(
+            "speculative_drafts_accepted_total",
+            "draft tokens accepted by verify steps (free extra tokens)")
+        self._m_slo_burn: dict[str, Any] = {}
+        self._m_slo_budget: dict[str, Any] = {}
+        if cfg.slo is not None:
+            for objective in cfg.slo.objectives:
+                self._m_slo_burn[objective.name] = reporter.gauge(
+                    f"slo_burn_rate_{objective.name}",
+                    f"fast-window error-budget burn rate for the {objective.name} "
+                    f"objective (1.0 = budget exhausts exactly at the window's end)")
+                self._m_slo_budget[objective.name] = reporter.gauge(
+                    f"slo_budget_remaining_{objective.name}",
+                    f"slow-window error budget remaining for the {objective.name} "
+                    f"objective (1 - slow burn; negative = overspent)")
+        self._m_tbt_hist: dict[str, Any] = {}
+        self._m_step_hist = {
+            "decode": reporter.histogram(
+                "decode_step_seconds", "wall time per dispatched decode chunk"),
+            "prefill": reporter.histogram(
+                "prefill_step_seconds", "wall time per dispatched prefill batch"),
+            "verify": reporter.histogram(
+                "verify_step_seconds", "wall time per speculative verify step"),
+        }
+        self._m_host_overhead = reporter.histogram(
+            "host_overhead_seconds",
+            "host-side share of each dispatched burst (wall - device wait)")
+        self._m_kv_used = reporter.gauge(
+            "kv_pool_used_ratio",
+            "paged KV block-pool RESERVED fraction (0-1): the admission pressure "
+            "that produces no-kv-blocks, not physical fullness")
+        self._m_stall = {
+            reason: reporter.counter(
+                f"admission_stall_{reason.replace('-', '_')}_seconds_total",
+                f"seconds admission could not proceed: {reason} (accrues while the "
+                f"engine is busy decoding too — queue pressure, not engine "
+                f"idleness; the flight rollup's stall_ms is the idle component)")
+            for reason in ("no-free-slot", "no-kv-blocks", "prefill-in-flight",
+                           "queue-empty")
+        }
+        self._m_spec_rejected = reporter.counter(
+            "speculative_drafts_rejected_total", "draft tokens rejected by verify steps")
+        self._m_spec_ratio = reporter.gauge(
+            "speculative_accept_ratio", "accepted / drafted ratio over the engine's life")
+        self._m_spec_uplift = reporter.gauge(
+            "speculative_uplift",
+            "rolling measured speculative-vs-plain tokens/s ratio (the auto-disable "
+            "verdict input; 0 until the first full window)")
+        self._m_recompiles = reporter.counter(
+            "recompiles_total",
+            "jit program variants/shapes compiled (bucket or sampler-mode misses; "
+            "each is a potential mid-traffic convoy)")
+        # the (kind, shape key) pairs dispatched so far, and the sampler
+        # modes of the plain prefills (the JAX engine's prefill variants)
+        self._compiled_shapes: set = set()
+        self._prefill_modes: set = set()
+        self._m_class_depth: dict[str, Any] = {}
+        self._m_shed = self._m_preempted = None
+        self._m_resume_hist = self._m_preempt_hist = None
+        if self._qos_enabled:
+            self._m_class_depth = {
+                cls: reporter.gauge(f"qos_queue_depth_{cls}",
+                                    f"requests queued in the {cls} priority class")
+                for cls in PRIORITY_CLASSES
+            }
+            self._m_shed = reporter.counter(
+                "qos_shed_total",
+                "requests refused by QoS policy (tenant throttle or a full class queue)")
+            self._m_preempted = reporter.counter(
+                "qos_preempted_total",
+                "running requests preempted under KV pressure (snapshot + requeue for "
+                "transparent resume)")
+            self._m_resume_hist = reporter.histogram(
+                "qos_resume_seconds",
+                "preemption → re-admission wall time (how long preempted work waited "
+                "to resume)")
+            self._m_preempt_hist = reporter.histogram(
+                "qos_preempted_run_seconds",
+                "how long a victim had been running when preempted (the decode "
+                "progress the preemption put at risk)")
+        self._m_handoff_retries = self._m_handoff_fallbacks = None
+        self._m_kv_export_hist = self._m_kv_import_hist = None
+        self._m_kv_export_bytes = self._m_kv_import_bytes = None
+        self._m_deadline_shed = self._m_breaker_open = None
+        if self._pool_role != "combined":
+            self._m_handoff_retries = reporter.counter(
+                "handoff_retries_total",
+                "KV handoff offers re-routed to another decode replica after a "
+                "timeout/refusal/shed (serving/handoff.py)")
+            self._m_handoff_fallbacks = reporter.counter(
+                "handoff_fallbacks_total",
+                "KV handoffs decoded LOCALLY after the re-offer cap (every decode "
+                "replica dead, held, or refusing)")
+            self._m_kv_export_hist = reporter.exemplar_histogram(
+                "kv_export_seconds",
+                "device gather + serialization wall time per KV handoff export "
+                "(prefill pool)")
+            self._m_kv_import_hist = reporter.exemplar_histogram(
+                "kv_import_seconds",
+                "block allocation + device scatter wall time per KV handoff import "
+                "(decode pool)")
+            self._m_kv_export_bytes = reporter.counter(
+                "kv_export_bytes_total",
+                "serialized KV handoff bytes exported to decode replicas")
+            self._m_kv_import_bytes = reporter.counter(
+                "kv_import_bytes_total",
+                "serialized KV handoff bytes imported from prefill replicas")
+        # refreshed where the attribution section is computed
+        self._m_hbm_owner = {
+            owner: reporter.gauge(
+                f"hbm_bytes_{owner.replace('-', '_')}",
+                f"resident HBM bytes attributed to {owner} (serving/attribution.py "
+                f"memory ledger; slack = detected limit minus every accounted owner)")
+            for owner in ("weights", "kv-pool", "sampler-state", "device-lru",
+                          "in-transit", "slack")
+        }
+        self._m_prefix_tier: dict[str, Any] = {}
+        if self.prefix_store is not None:
+            self._m_prefix_tier = {
+                "t0_bytes": reporter.gauge(
+                    "prefix_tier_t0_bytes",
+                    "HBM bytes held by cached prefix blocks (the paged pool's prefix "
+                    "sub-owner; budget = prefix-store t0-bytes)"),
+                "t1_bytes": reporter.gauge(
+                    "prefix_tier_t1_bytes", "host-RAM bytes held by T1 spilled prefix blocks"),
+                "t2_bytes": reporter.gauge(
+                    "prefix_tier_t2_bytes", "object-storage payload bytes indexed in T2"),
+                "t1_hits": reporter.counter(
+                    "prefix_t1_promotions_total", "prefix blocks promoted T1→T0 at admission"),
+                "t2_hits": reporter.counter(
+                    "prefix_t2_hydrations_total",
+                    "prefix blocks hydrated T2→T1 for an admission"),
+                "demotions": reporter.counter(
+                    "prefix_demotions_total",
+                    "prefix blocks demoted down-tier (T0→T1 and T1→T2)"),
+                "evictions": reporter.counter(
+                    "prefix_evictions_total",
+                    "prefix blocks evicted from any tier (bytes left the store — "
+                    "counted, never silent)"),
+            }
+        self._m_adapters: dict[str, Any] = {}
+        if self.adapter_store is not None:
+            self._m_adapters = {
+                "t0_bytes": reporter.gauge(
+                    "adapter_tier_t0_bytes",
+                    "HBM bytes held by device-resident LoRA adapter rows (budget = "
+                    "adapter-store t0-entries x entry bytes)"),
+                "t1_bytes": reporter.gauge(
+                    "adapter_tier_t1_bytes", "host-RAM bytes held by T1 spilled LoRA adapters"),
+                "t2_bytes": reporter.gauge(
+                    "adapter_tier_t2_bytes",
+                    "object-storage payload bytes indexed in adapter T2"),
+                "loads": reporter.counter(
+                    "adapter_loads_total",
+                    "LoRA adapter rows loaded into the device buffers (T1→T0 promotions)"),
+                "hydrations": reporter.counter(
+                    "adapter_hydrations_total",
+                    "LoRA adapters hydrated T2→T1 for an admission"),
+                "demotions": reporter.counter(
+                    "adapter_demotions_total",
+                    "LoRA adapters demoted T1→T2 under host-RAM pressure"),
+                "evictions": reporter.counter(
+                    "adapter_evictions_total",
+                    "LoRA adapters evicted from any tier (bytes left the store — counted, "
+                    "never silent)"),
+            }
+        self._m_shrinks = self._m_restores = self._m_budget = None
+        if self.block_mgr is not None:
+            self._m_shrinks = reporter.counter(
+                "pool_shrinks_total",
+                "adaptive KV-budget shrinks after a device allocator failure "
+                "(degrade-don't-die: evidence rides the pool-shrink flight events)")
+            self._m_restores = reporter.counter(
+                "pool_restores_total",
+                "shrink quanta restored by the recovery probe after a quiet window")
+            self._m_budget = reporter.gauge(
+                "kv_budget_blocks",
+                "live paged-KV admission budget in blocks (configured pool minus "
+                "blocks withheld by adaptive shrink)")
+            self._m_budget(self.block_mgr.usable_blocks)
+        self._m_journal_depth = None
+        if self.journal is not None:
+            self._m_journal_depth = reporter.gauge(
+                "journal_depth",
+                "admitted-but-unfinished requests in the crash-requeue journal")
+
+    def _note_compile(self, kind: str, key) -> None:
+        """A ``recompile`` flight event and ``recompiles_total`` the first
+        time a ``(kind, shape key)`` pair is dispatched, at the JAX engine's
+        keys: ``decode`` (sampler mode, window, K, penalties), ``prefill``
+        (sampler mode, bucket, padded rows), ``prefill-continue`` (sampler
+        mode, read blocks, padded rows, chunk) and ``spec_step`` (read
+        blocks, sampler mode). The port compiles nothing: a shape's first
+        PyTorch dispatch is where its first-call costs land (the caching
+        allocator's growth, cuBLAS's choice of kernels for the shape, a
+        kernel's first load), so the event marks the same boundary. Loop
+        thread; a set test per dispatch."""
+        shape_key = (kind, repr(key))
+        if shape_key in self._compiled_shapes:
+            return
+        self._compiled_shapes.add(shape_key)
+        self.flight.event("recompile", what=kind, variant=repr(key))
+        self._m_recompiles(1)
+
+    def _stream_tbt_hist(self, cls_name: str):
+        """The class's ``langstream_stream_tbt_seconds{agent_id="<class>"}``
+        exemplar histogram, registered at the class's first measured gap
+        (streaming engines only; classes are the QoS vocabulary, so the map
+        stays bounded)."""
+        h = self._m_tbt_hist.get(cls_name)
+        if h is None:
+            h = self._m_tbt_hist[cls_name] = self._reporter_cls(
+                prefix="langstream_stream", agent_id=cls_name).exemplar_histogram(
+                "tbt_seconds",
+                "streaming inter-chunk interval (time between token deliveries) "
+                "by QoS class")
+        return h
 
     # ------------------------------------------------------------------
     # attribution plane (serving/attribution.py)
@@ -1245,6 +1529,7 @@ class TorchServingEngine:
         """Program id of a decode-chunk variant (the JAX engine's id);
         registers its cost on first sight."""
         rows = self._window_rows(window)
+        self._note_compile("decode", (sampler_mode, window, k_steps, pen))
         return self._program(
             f"decode:w{rows}:k{k_steps}:{self._sampler_code(sampler_mode)}"
             + (":pen" if pen else ""),
@@ -1254,6 +1539,8 @@ class TorchServingEngine:
         )
 
     def _program_prefill(self, bucket: int, rows: int, sampler_mode: tuple) -> str:
+        self._prefill_modes.add(sampler_mode)
+        self._note_compile("prefill", (sampler_mode, bucket, rows))
         return self._program(
             f"prefill:p{bucket}:b{rows}:{self._sampler_code(sampler_mode)}",
             lambda: prefill_cost(self._prog_shape, rows=rows, tokens_per_row=bucket,
@@ -1262,6 +1549,7 @@ class TorchServingEngine:
 
     def _program_prefill_continue(self, nrb: int, rows: int, chunk: int,
                                   sampler_mode: tuple) -> str:
+        self._note_compile("prefill-continue", (sampler_mode, nrb, rows, chunk))
         return self._program(
             f"prefill-continue:nrb{nrb}:b{rows}:c{chunk}:"
             f"{self._sampler_code(sampler_mode)}",
@@ -1272,6 +1560,7 @@ class TorchServingEngine:
 
     def _program_spec_step(self, nrb: int, sampler_mode: tuple) -> str:
         drafts = self.config.speculative_drafts
+        self._note_compile("spec_step", (nrb, sampler_mode))
         return self._program(
             f"specstep:nrb{nrb}:d{drafts}:{self._sampler_code(sampler_mode)}",
             lambda: verify_cost(self._prog_shape, slots=self.config.slots,
@@ -1316,13 +1605,14 @@ class TorchServingEngine:
         if program is not None:
             self.attribution.observe(
                 program, span_s if span_s is not None else device_s + overlapped_s)
+        stall, kv_used, depths = self._admission_stall(), self._kv_used(), self.scheduler.depths()
         sample = self.flight.sample(
             phase, device_s=device_s, overlapped_s=overlapped_s, tokens=tokens,
             occupancy=sum(1 for s in self.slots if not s.free),
-            queue_depth=self.scheduler.qsize(), stall=self._admission_stall(),
-            kv_used=self._kv_used(), prefix_hits=self.prefix_hits,
+            queue_depth=self.scheduler.qsize(), stall=stall,
+            kv_used=kv_used, prefix_hits=self.prefix_hits,
             spec_accepted=spec_accepted, spec_rejected=spec_rejected,
-            queue_by_class=self.scheduler.depths(), program=program,
+            queue_by_class=depths, program=program,
         )
         # watchdog heartbeat: a recorded dispatch is step progress
         self.watchdog.beat(sample["queue_depth"])
@@ -1335,6 +1625,19 @@ class TorchServingEngine:
             self._decode_s += sample["wall_ms"] / 1000.0
             if self.config.speculative_drafts > 0 and self._spec_auto_disabled:
                 self._spec_count_plain_chunk()
+        # the Prometheus mirrors: the class depths, the step's wall, its
+        # exposed host share, the pool's reserved ratio and the stall
+        if depths:
+            for cls, gauge in self._m_class_depth.items():
+                gauge(depths.get(cls, 0))
+        hist = self._m_step_hist.get(phase)
+        if hist is not None:
+            hist(sample["wall_ms"] / 1000.0)
+        self._m_host_overhead(sample["host_ms"] / 1000.0)
+        if kv_used is not None:
+            self._m_kv_used(kv_used)
+        if stall is not None:
+            self._m_stall[stall](sample["wall_ms"] / 1000.0)
 
     def _flight_stall(self, reason: str) -> None:
         """An idle gap of the loop, recorded as stall time; it beats the
@@ -1345,18 +1648,24 @@ class TorchServingEngine:
             queue_by_class=self.scheduler.depths(),
         )
         self.watchdog.beat(sample["queue_depth"])
+        self._m_stall[reason](sample["wall_ms"] / 1000.0)
 
     def attribution_section(self) -> dict[str, Any]:
         """``stats()["attribution"]``: the per-program achieved-vs-expected
         ledger and the device-memory ledger (the JAX engine's keys);
-        snapshot reads and arithmetic only."""
+        snapshot reads and arithmetic only. The ``hbm_bytes_<owner>`` gauges
+        refresh here, so every reader keeps the scrape current."""
+        memory = self._memory_ledger()
+        owners = memory["hbm_bytes_by_owner"]
+        for owner, gauge in self._m_hbm_owner.items():
+            gauge(owners.get(owner) or 0)
         return {
             "model": self.config.model,
             "slots": self.config.slots,
             "generation": self._hbm_generation,
             "hbm_gbps_assumed": self._hbm_gbps,
             "programs": self.attribution.report(),
-            "memory": self._memory_ledger(),
+            "memory": memory,
         }
 
     def _memory_ledger(self) -> dict[str, Any]:
@@ -1548,6 +1857,8 @@ class TorchServingEngine:
             self._journey(request, "shed", reason=e.reason, retry_after_s=e.retry_after)
             if e.reason == "draining":
                 self._drain_shed += 1
+            if self._m_shed is not None:
+                self._m_shed(1)
             if not _warmup_probe:
                 self._slo_record("shed-rate", False)
             raise
@@ -1558,6 +1869,7 @@ class TorchServingEngine:
                 # accepted now: journaled before the caller holds a future,
                 # retired when finish, shed or failure answers it
                 self.journal.admit(request_entry(request))
+                self._m_journal_depth(self.journal.depth())
             if request.stream_key is not None:
                 # the disconnect-as-cancellation bridge: a cancel by this
                 # key cancels the future (at once if the key was cancelled
@@ -1690,13 +2002,17 @@ class TorchServingEngine:
         runs the degradation predicates over the flight window; a state
         transition is recorded as a ``health`` flight event. The keys are
         the JAX engine's: a draining engine is alive but not ready, and
-        ``budget_withheld`` is what the pool shrink withholds now."""
+        ``budget_withheld`` is what the pool shrink withholds now. The
+        ``recompile`` events stay out of the verdict: they mark a shape's
+        first eager dispatch, which compiles nothing, so a cluster of them
+        is no compile storm here."""
         queued = self.scheduler.qsize()
         occupancy = sum(1 for s in self.slots if not s.free)
         tbt_burn = self._tbt_burning()
+        events = [e for e in self.flight.recent_events(256) if e.get("kind") != "recompile"]
         verdict = self.watchdog.evaluate(
             queued=queued, occupancy=occupancy,
-            samples=self.flight.recent(240), events=self.flight.recent_events(256),
+            samples=self.flight.recent(240), events=events,
             stopped=self._stop,
             extra_reasons=tuple(
                 f"tbt burn-rate alert: class {name!r} is burning its tbt-p99-s "
@@ -1777,10 +2093,19 @@ class TorchServingEngine:
             self._slo_emit(objective, self.slo.record_latency(objective, seconds * 1000.0))
 
     def _slo_emit(self, objective: str, verdict: dict | None) -> None:
-        """An ``alert`` flight event when an objective's multi-window fast
+        """Mirror one evaluation onto the objective's burn and budget
+        gauges, and an ``alert`` flight event when its multi-window fast
         burn starts or stops: alerts fire at record time, so an unwatched
         engine still leaves the evidence in its event ring."""
-        if verdict is not None and verdict["transition"]:
+        if verdict is None:
+            return
+        gauge = self._m_slo_burn.get(objective)
+        if gauge is not None:
+            gauge(verdict["burn_rate_fast"] or 0.0)
+        gauge = self._m_slo_budget.get(objective)
+        if gauge is not None:
+            gauge(verdict["budget_remaining"])
+        if verdict["transition"]:
             self.flight.event(
                 "alert", objective=objective,
                 state="firing" if verdict["alerting"] else "resolved",
@@ -1923,6 +2248,7 @@ class TorchServingEngine:
         text = "engine warmup probe text. " * 4
         k = max(self.config.decode_chunk, self.config.decode_chunk_light) + 1
         opts = {"max-tokens": k, "temperature": 0}
+        self.flight.event("warmup", stage="begin")
         await self.generate(text, dict(opts), _warmup_probe=True)
         wave = min(
             self.config.slots,
@@ -1938,6 +2264,11 @@ class TorchServingEngine:
         await self.settled()
         self._warmup_result = {"probe_tokens": k, "wave": wave,
                                "seconds": time.monotonic() - t0}
+        # the JAX engine's details: the variants its warmup compiled
+        self.flight.event(
+            "warmup", stage="end",
+            decode_variants=sum(1 for kind, _ in self._compiled_shapes if kind == "decode"),
+            prefill_variants=len(self._prefill_modes))
         return self._warmup_result
 
     async def settled(self) -> None:
@@ -2167,6 +2498,8 @@ class TorchServingEngine:
                     i for i, s in enumerate(self.slots)
                     if not s.free and not s.prefilling
                 ]
+                self._m_active(len(active))
+                self._m_queued(self.scheduler.qsize())
                 if not active:
                     if self.scheduler.empty() and not self._has_prefilling():
                         self._wake.clear()
@@ -2312,6 +2645,15 @@ class TorchServingEngine:
         flight event, a bad shed-rate event) and build the error the caller
         raises or sets."""
         self.deadline_sheds += 1
+        if self._m_deadline_shed is None:
+            # registered at first use: a deadline-less engine's scrape
+            # surface stays the default one
+            self._m_deadline_shed = self._reporter.counter(
+                "deadline_shed_total",
+                "requests refused because the remaining langstream-deadline budget "
+                "could not cover the admission estimate (504-shaped; "
+                "docs/RESILIENCE.md)")
+        self._m_deadline_shed(1)
         self.flight.event("deadline-exceeded", where=where, remaining_s=round(left, 6),
                           estimate_s=round(estimate, 6), tenant=request.tenant,
                           priority=request.priority)
@@ -2372,6 +2714,10 @@ class TorchServingEngine:
         request.preempt_time = now
         self.scheduler.note_preempted(request)
         self.scheduler.requeue_front(request)
+        if self._m_preempted is not None:
+            self._m_preempted(1)
+        if self._m_preempt_hist is not None and request.admit_time is not None:
+            self._m_preempt_hist(now - request.admit_time)
         self.flight.event("preempt", reason=reason, priority=request.priority,
                           tenant=request.tenant, generated=len(request.generated))
         self._journey(request, "preempt", reason=reason, generated=len(request.generated))
@@ -2386,6 +2732,8 @@ class TorchServingEngine:
             return
         now = time.monotonic()
         waited = now - request.preempt_time
+        if self._m_resume_hist is not None:
+            self._m_resume_hist(waited)
         self.flight.event("resume", priority=request.priority, tenant=request.tenant,
                           generated=len(request.generated),
                           waited_ms=round(waited * 1000.0, 3))
@@ -2462,6 +2810,8 @@ class TorchServingEngine:
                           priority=request.priority, retry_after_s=2.0,
                           retries=request.preemptions)
         self._journey(request, "shed", reason="device-oom", retries=request.preemptions)
+        if self._m_shed is not None:
+            self._m_shed(1)
         if not request.warmup:
             self._slo_record("availability", False)
         self._journal_retire(request)
@@ -2529,6 +2879,8 @@ class TorchServingEngine:
             return False
         self.pool_shrinks += 1
         self.shrink_preempted += preempted
+        self._m_shrinks(1)
+        self._m_budget(bm.usable_blocks)
         self._shrink_recover_at = time.monotonic() + self.config.shrink_recovery_s
         freed = reserved_before - bm.reserved_blocks
         # the evidence precedes any admission against the new budget
@@ -2567,6 +2919,8 @@ class TorchServingEngine:
         while at <= now and bm.budget_reduction:
             restored = bm.restore_budget(quantum)
             self.pool_restores += 1
+            self._m_restores(1)
+            self._m_budget(bm.usable_blocks)
             self.flight.event("pool-restore", restored_blocks=restored,
                               restored_bytes=restored * self._kv_block_bytes,
                               budget_blocks=bm.usable_blocks,
@@ -2637,6 +2991,7 @@ class TorchServingEngine:
         caller (a deque append; warmup probes were never journaled)."""
         if self.journal is not None and not request.warmup:
             self.journal.retire(request.journey_id)
+            self._m_journal_depth(self.journal.depth())
 
     def handoff_settled(self, request_id: str) -> None:
         """The decode side answered this handoff (a result or a terminal
@@ -2646,6 +3001,7 @@ class TorchServingEngine:
         journal_id = self._handoff_journal.pop(request_id, None)
         if journal_id is not None and self.journal is not None:
             self.journal.retire(journal_id)
+            self._m_journal_depth(self.journal.depth())
 
     def survival_section(self) -> dict[str, Any]:
         """``stats()["survival"]``: the live budget against the configured
@@ -2684,15 +3040,40 @@ class TorchServingEngine:
         (``BlockManager._evict_one``): the T0 loss is counted and evented,
         never silent."""
         self.prefix_t0_evictions += 1
+        if self._m_prefix_tier:
+            self._m_prefix_tier["evictions"](1)
         self.flight.event("prefix-evict", tier="t0", digest=digest_hex[:16],
                           bytes=self._kv_block_bytes, reason="pool-pressure")
 
     def _emit_store_events(self, events) -> None:
         """Drain a tier store's pending events (prefix or adapter) into the
-        flight ring (the Prometheus mirror waits for the pod-endpoint plane,
-        ROADMAP.md Queue 1 item 9)."""
+        flight ring and mirror each transition onto its counter: the one
+        emission path of both stores, so the scrape never drifts from the
+        events."""
         for kind, detail in events:
             self.flight.event(kind, **detail)
+            if kind.startswith("adapter-"):
+                if not self._m_adapters:
+                    continue
+                if kind == "adapter-evict":
+                    self._m_adapters["evictions"](1)
+                elif kind == "adapter-demote":
+                    self._m_adapters["demotions"](1)
+                elif kind == "adapter-load":
+                    self._m_adapters["loads"](1)
+                elif kind == "adapter-hydrate" and detail.get("stage") == "fetched":
+                    self._m_adapters["hydrations"](1)
+                continue
+            if not self._m_prefix_tier:
+                continue
+            if kind == "prefix-demote":
+                self._m_prefix_tier["demotions"](1)
+            elif kind == "prefix-evict":
+                self._m_prefix_tier["evictions"](1)
+            elif kind == "prefix-promote":
+                self._m_prefix_tier["t1_hits"](detail.get("blocks") or 1)
+            elif kind == "prefix-hydrate" and detail.get("stage") == "fetched":
+                self._m_prefix_tier["t2_hits"](1)
 
     def _prefix_tier_step(self) -> None:
         """Tier bookkeeping at the loop's safe point (wait-free): apply the
@@ -2886,6 +3267,9 @@ class TorchServingEngine:
         engine's keys); snapshot reads and arithmetic."""
         store = self.prefix_store
         t0_blocks = self.block_mgr.prefix_block_count()
+        self._m_prefix_tier["t0_bytes"](t0_blocks * self._kv_block_bytes)
+        self._m_prefix_tier["t1_bytes"](store.t1_bytes)
+        self._m_prefix_tier["t2_bytes"](store.t2_bytes)
         return {
             "t0": {
                 "blocks": t0_blocks,
@@ -3095,13 +3479,18 @@ class TorchServingEngine:
     def adapter_store_section(self) -> dict[str, Any]:
         """``stats()["adapters"]``: per-tier bytes against budget, hit, load
         and eviction counters, the resident row map and the exact byte
-        ledger (the JAX engine's keys; its Prometheus gauges wait for the
-        pod seam, ROADMAP.md Queue 1 item 9). Snapshot reads."""
-        return {
+        ledger (the JAX engine's keys); the tier gauges refresh here.
+        Snapshot reads."""
+        store = self.adapter_store
+        section = {
             "hydrating_requests": len(self._adapter_hydrating),
             "refusals": self.adapter_refusals,
-            **self.adapter_store.stats(),
+            **store.stats(),
         }
+        self._m_adapters["t0_bytes"](section["t0"]["bytes"])
+        self._m_adapters["t1_bytes"](store.t1_bytes)
+        self._m_adapters["t2_bytes"](store.t2_bytes)
+        return section
 
     def _adapters_device(self, rows: np.ndarray | None) -> dict | None:
         """The ``adapters`` argument of a model call for per-row adapter
@@ -3160,6 +3549,8 @@ class TorchServingEngine:
         """One re-offer by the chainer (serving/handoff.py): a counter and
         a ``handoff-retry`` flight event. Wait-free."""
         self.handoff_retries += 1
+        if self._m_handoff_retries is not None:
+            self._m_handoff_retries(1)
         self.flight.event("handoff-retry", request=request_id, replica=replica,
                           attempt=attempt, reason=str(reason)[:160])
 
@@ -3168,13 +3559,22 @@ class TorchServingEngine:
         here: a counter and a ``handoff-fallback`` flight event (this
         prefill replica now pays a decode)."""
         self.handoff_fallbacks += 1
+        if self._m_handoff_fallbacks is not None:
+            self._m_handoff_fallbacks(1)
         self.flight.event("handoff-fallback", request=request_id, attempts=attempts)
 
     def note_breaker_open(self, open_replicas: int = 0) -> None:
-        """The router's breaker pressure. The JAX engine mirrors it into a
-        gauge; the port registers no metric yet (its Prometheus gauges are
-        ROADMAP.md Queue 1 item 9), and the ``breaker-open`` flight event
-        the chainer records beside this call is the evidence."""
+        """The router's breaker pressure, mirrored into the
+        ``breaker_open_replicas`` gauge. It registers at the first breaker
+        event, so a fleet that never trips one keeps the default scrape
+        surface; the chainer records a ``breaker-open`` flight event beside
+        this call."""
+        if self._m_breaker_open is None:
+            self._m_breaker_open = self._reporter.gauge(
+                "breaker_open_replicas",
+                "replicas currently excluded from routing by an OPEN circuit breaker "
+                "(gateway/router.py; docs/RESILIENCE.md)")
+        self._m_breaker_open(open_replicas)
 
     def note_fault_fired(self, **detail: Any) -> None:
         """The ``fault-injected`` event of a network seam (the chainer runs
@@ -3320,10 +3720,16 @@ class TorchServingEngine:
                                          "decode": 0.0,
                                          "tokens": float(len(request.generated)),
                                          "handoff": 1.0})
+            self._m_ttft_hist(timings["ttft"], _exemplar(request))
+            self._m_queue_wait_hist(timings["queue_wait"])
             self._slo_record("availability", True)
             self._slo_record_latency("ttft", timings["ttft"])
             self._slo_record_latency("queue-wait", timings["queue_wait"])
-        ms = round((time.monotonic() - t_start) * 1000.0, 3)
+        elapsed = time.monotonic() - t_start
+        ms = round(elapsed * 1000.0, 3)
+        self._m_kv_export_hist(elapsed, _exemplar(request))
+        if not request.warmup:
+            self._m_kv_export_bytes(len(payload))
         self.flight.event("kv-export", request=rid, bytes=len(payload),
                           blocks=blocks_live, rows=rows, ms=ms,
                           device_ms=round(device_s * 1000.0, 3), warmup=request.warmup)
@@ -3555,6 +3961,9 @@ class TorchServingEngine:
             request.first_token_time = now
             self.kv_imports_total += 1
             self.kv_import_bytes += nbytes
+            if self._m_kv_import_hist is not None:  # a combined engine has none
+                self._m_kv_import_hist(time.monotonic() - t_start, _exemplar(request))
+                self._m_kv_import_bytes(nbytes)
             self.flight.event(
                 "kv-import", request=header.get("request"),
                 digest=header.get("prompt-digest"), bytes=nbytes,
@@ -3731,6 +4140,8 @@ class TorchServingEngine:
                     if reuse:
                         self.prefix_hits += 1
                         self.prefix_tokens += reuse
+                        self._m_prefix_hits(1)
+                        self._m_prefix_tokens(reuse)
                     continue
                 b = _bucket(to_prefill, hi=S)
                 if bucket is None:
@@ -3811,6 +4222,8 @@ class TorchServingEngine:
                     if reuse:
                         self.prefix_hits += 1
                         self.prefix_tokens += reuse
+                        self._m_prefix_hits(1)
+                        self._m_prefix_tokens(reuse)
             now = time.monotonic()
             for i, (slot_id, request, _) in enumerate(batch):
                 self._start_decoding(slot_id, request, int(next_np[i]), now)
@@ -4007,8 +4420,14 @@ class TorchServingEngine:
                 sel = up(slot_ids[commit])
                 keep = up(np.flatnonzero(commit))
                 ks, vs = ks[:, keep], vs[:, keep]
-            self.cache_k[:, sel, :Pn] = ks
-            self.cache_v[:, sel, :Pn] = vs
+            for cache, rows in ((self.cache_k, ks), (self.cache_v, vs)):
+                if is_quant_cache(cache):
+                    # an int8 cache takes the rows quantized, one scale each
+                    rows = quantize_rows(rows)
+                    cache["q"][:, sel, :Pn] = rows["q"]
+                    cache["s"][:, sel, :Pn] = rows["s"]
+                else:
+                    cache[:, sel, :Pn] = rows
         nxt, lps = self._sample_fn(up(temps), up(topks), up(topps), mode)(logits)
         self._prefill_calls += 1
         packed = pack_tokens_logprobs(nxt, lps)
@@ -4507,11 +4926,15 @@ class TorchServingEngine:
         if uplift is None:
             return False
         self._spec_last_uplift = uplift
+        self._m_spec_uplift(uplift)
         if uplift >= 1.0:
             return False
         self._spec_auto_disabled = True
         self._spec_plain_since_disable = 0
         self._spec_flips += 1
+        self.flight.event("spec-auto-disable", uplift=round(uplift, 4),
+                          window_steps=len(self._spec_window),
+                          plain_samples=len(self._plain_window))
         log.info("speculation auto-disabled: measured uplift %.4f over %d steps "
                  "and %d plain samples", uplift, len(self._spec_window),
                  len(self._plain_window))
@@ -4532,6 +4955,7 @@ class TorchServingEngine:
         self._spec_window.clear()
         self._plain_window.clear()
         self._spec_flips += 1
+        self.flight.event("spec-auto-enable", plain_chunks=self._spec_retry_plain)
         log.info("speculation re-enabled after %d plain decode chunks",
                  self._spec_retry_plain)
 
@@ -4586,6 +5010,7 @@ class TorchServingEngine:
                         self._ad_rows.copy() if self._ad_rows is not None else None),
             )
             emitted, adv, nxt, _, n_real, logprobs = fetched
+            self._m_spec_steps(1)
             self.spec_steps += 1
             self._spec_steps_since_cal += 1
             emitted_before = self.total_generated
@@ -4613,6 +5038,11 @@ class TorchServingEngine:
                 # only real drafts count as rejected; drafts left unread by
                 # a stop or EOS inside the run were wasted positions too
                 self.spec_rejected += max(0, int(n_real[slot_id]) - accepted)
+            self._m_spec_accepted(self.spec_accepted - accepted_before)
+            self._m_spec_rejected(self.spec_rejected - rejected_before)
+            drafted = self.spec_accepted + self.spec_rejected
+            if drafted:
+                self._m_spec_ratio(self.spec_accepted / drafted)
             self._spec_note_step(self.total_generated - emitted_before,
                                  time.monotonic() - t_wall)
             self._flight_record(
@@ -4793,6 +5223,7 @@ class TorchServingEngine:
                 if digest is None:
                     digest = self._stream_tbt_by_class[request.priority] = TbtDigest()
                 digest.add(interval)
+                self._stream_tbt_hist(request.priority)(interval, _exemplar(request))
                 threshold = self._stream_stall_threshold(request.priority)
                 if interval > threshold:
                     request.stream_stalls += 1
@@ -4821,6 +5252,12 @@ class TorchServingEngine:
             await result
 
     async def _flush_emits(self) -> None:
+        # one counter update per flush, before any caller hears of a token:
+        # every emit path (prefill, chunk, speculative step) flushes
+        tokens_new = self.total_generated - self._m_tokens_seen
+        if tokens_new:
+            self._m_tokens_seen = self.total_generated
+            self._m_tokens(tokens_new)
         emits, self._pending_emits = self._pending_emits, []
         # on_token consumers get every token; on_chunk consumers one delivery
         # per request per flush, in first-appearance order
@@ -4873,6 +5310,9 @@ class TorchServingEngine:
                 self._journey(request, "cancelled")
                 continue
             self.completed_requests += 1
+            self._m_requests()
+            if request.first_token_time is not None:
+                self._m_ttft(request.first_token_time - request.enqueue_time)
             done_t = time.monotonic()
             first = request.first_token_time or done_t
             admit = request.admit_time or first
@@ -4904,6 +5344,9 @@ class TorchServingEngine:
                 timing["tbt_count"] = float(summary["count"])
             if not request.warmup:
                 self.request_timings.append(timing)
+                # a traced request's journey id rides its TTFT bucket
+                self._m_ttft_hist(timing["ttft"], _exemplar(request))
+                self._m_queue_wait_hist(timing["queue_wait"])
                 # SLO evidence (no-ops without a declared objective)
                 self._slo_record("availability", True)
                 self._slo_record_latency("ttft", timing["ttft"])

@@ -21,9 +21,9 @@ The flight recorder (``serving/flight.py``) measures; this module judges:
 
 ``shrink_pressure`` reads the ``pool-shrink`` flight events the engine's
 adaptive pool shrink emits: repeated shrinks inside one recovery window
-turn the engine DEGRADED. ``recompile_storm`` reads ``recompile`` events,
-which the port does not emit (an eager engine compiles no programs); it
-is carried unchanged and stays quiet.
+turn the engine DEGRADED. ``recompile_storm`` reads ``recompile`` events;
+it is carried unchanged, and the port's engine keeps its own ``recompile``
+events (a shape's first eager dispatch, no compile) out of the verdict.
 
 Wait-free contract: everything here is arithmetic over snapshots — deque
 appends, attribute reads, list scans. **No device syncs, no blocking I/O,

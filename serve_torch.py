@@ -42,6 +42,14 @@ platform's (:data:`langstream_tpu.serving.journey.JOURNEYS`,
 prefill ran in one package and decode in the other reads as one timeline.
 The mirror is an append, as wait-free as the port's own.
 
+The Prometheus plane crosses the same way: the port's engines build their
+reporters from ``langstream_tpu_torch.core.metrics.REPORTER``, which
+:func:`register` points at the platform's reporter class, so the pod's one
+``/metrics`` scrape (``langstream_tpu.api.metrics.render_metrics``) carries
+the port's ``langstream_serving_*`` and ``langstream_stream_*`` series
+under the JAX engine's names, TTFT exemplars included. An engine built
+before :func:`register` keeps the port's own registry.
+
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
 nothing of JAX. The platform layers it starts (runner, gateway, control
@@ -175,16 +183,19 @@ def register(device="cuda") -> None:
     resolved from now on in this process, its stream keys registered with
     the platform's stream registry and its requests under the platform's
     ambient trace; mirror the port's journey edges and spans into the
-    platform's ledger and span buffer; and point the pod's functions
+    platform's ledger and span buffer; build the port's metric series in
+    the platform's registry; and point the pod's functions
     (:data:`POD_SEAM`) at the port's engines as well as the JAX package's.
     A second call changes nothing more: the pod functions are wrapped
     once."""
     import langstream_tpu.serving.engine as jax_engine
     from langstream_tpu.agents.services import register_provider
+    from langstream_tpu.api.metrics import PrometheusMetricsReporter
     from langstream_tpu.core import tracing as jax_tracing
     from langstream_tpu.serving import journey as jax_journey
     from langstream_tpu.serving.streaming import STREAMS
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.core import metrics as port_metrics
     from langstream_tpu_torch.core import tracing as port_tracing
     from langstream_tpu_torch.serving import engine as port_engine
     from langstream_tpu_torch.serving import journey as port_journey
@@ -196,6 +207,7 @@ def register(device="cuda") -> None:
     )
     port_journey.JOURNEYS.mirror = jax_journey.JOURNEYS
     port_tracing.SPANS.mirror = jax_tracing.SPANS
+    port_metrics.REPORTER = PrometheusMetricsReporter
     for name in POD_SEAM:
         current = getattr(jax_engine, name)
         if not getattr(current, "with_port", False):

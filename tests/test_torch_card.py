@@ -483,6 +483,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     "layout",
     [
         {"kv-layout": "dense"},
+        # dense int8 KV: the int8 read kernel through identity tables
+        {"kv-layout": "dense", "kv-quantize": "int8"},
         {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16},
         {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16,
          "kv-quantize": "int8"},
@@ -772,3 +774,48 @@ def test_journey_kinds_card_match_cpu():
     assert card == cpu
     assert card[1][-1] == ["submit", "admit", "first-token", "export", "export-taken",
                            "import-received", "import", "first-step", "finish"]
+
+
+def test_scrape_changes_card_match_cpu(monkeypatch):
+    """One wave on the card and on the CPU (tiny f32, paged int8 KV, the
+    same params, each engine on a fresh registry): the same series, and the
+    same change of every counter, gauge that is not a time and histogram
+    count."""
+    import re
+
+    from langstream_tpu_torch.core import metrics
+
+    timed = re.compile(r"_seconds(_total)?$|_uplift$|hbm_bytes_")
+    params = init_llama_params(dataclasses.replace(LlamaConfig.tiny(max_seq_len=192),
+                                                   dtype=torch.float32),
+                               torch.Generator().manual_seed(7), device="cpu")
+    cfg = ServingConfig.from_dict({"model": "tiny", "model-dtype": "float32", "slots": 3,
+                                   "max-seq-len": 192, "decode-chunk": 4,
+                                   "kv-layout": "paged", "kv-block-size": 16,
+                                   "kv-quantize": "int8"})
+
+    def run(device):
+        monkeypatch.setattr(metrics, "_registry", {})
+        engine = TorchServingEngine(cfg, device=device, params=params)
+
+        async def main():
+            try:
+                before = metrics.snapshot()
+                outs = await asyncio.gather(*(engine.generate(p, {"max-tokens": 9})
+                                              for p in ("scrape", "the same", "wave", "twice")))
+                for _ in range(500):  # the loop's last pass sets the gauges
+                    if all(s.free for s in engine.slots) and not engine._wake.is_set():
+                        break
+                    await asyncio.sleep(0.01)
+                after = metrics.snapshot()
+            finally:
+                await engine.close()
+            return [o["tokens"] for o in outs], {
+                key: value - before.get(key, (kind, 0.0))[1]
+                for key, (kind, value) in after.items() if not timed.search(key[0])}
+
+        return asyncio.run(main())
+
+    card, cpu = run("cuda"), run("cpu")
+    assert card == cpu
+    assert card[1][("langstream_serving_tokens_generated_total", "tiny")] > 0

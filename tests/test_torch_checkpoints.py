@@ -116,3 +116,76 @@ def test_engine_checkpoint_params_match_jax_engine(settings):
     if "quantize" in settings:
         assert isinstance(got["layers"]["wq"], QTensor)
     _assert_trees_equal(want, got)
+
+
+# ---------------------------------------------------------------------------
+# the writers, across packages both ways
+# ---------------------------------------------------------------------------
+
+
+def _writer_case(kind: str):
+    """(JAX tree, port tree on its numpy, JAX config, port config, JAX
+    writer and loader, port writer) of a tiny f32 model."""
+    import jax
+
+    from langstream_tpu.models import moe as jm
+    from langstream_tpu_torch.models import moe as tm
+    from langstream_tpu_torch.models.convert import params_from_numpy
+    from test_torch_engine import flatten_jax_params
+
+    if kind == "llama":
+        jc, tc = jl.LlamaConfig.tiny(128), tl.LlamaConfig.tiny(128)
+        tree = jl.init_llama_params(jc, jax.random.PRNGKey(3))
+        jax_io = (jck.save_llama_checkpoint, jck.load_llama_checkpoint)
+        port_save = tck.save_llama_checkpoint
+    else:
+        jc, tc = jm.MoEConfig.tiny(128), tm.MoEConfig.tiny(128)
+        tree = jm.init_moe_params(jc, jax.random.PRNGKey(3))
+        jax_io = (jck.save_moe_checkpoint, jck.load_moe_checkpoint)
+        port_save = tck.save_moe_checkpoint
+    port_tree = params_from_numpy(flatten_jax_params(tree), device="cpu",
+                                  dtype=torch.float32)
+    return tree, port_tree, jc, tc, jax_io, port_save
+
+
+@pytest.mark.parametrize("kind", ["llama", "moe"])
+def test_port_writer_is_read_by_the_jax_loader(kind, tmp_path):
+    """The port writes, the JAX loader reads: every tensor equals the
+    source; the port's own loader reads it back to the port's tree."""
+    tree, port_tree, jc, tc, (_, jax_load), port_save = _writer_case(kind)
+    port_save(port_tree, tc, str(tmp_path))
+    _assert_trees_equal(tree, jax_load(str(tmp_path), jc))
+    port_load = tck.load_llama_checkpoint if kind == "llama" else tck.load_moe_checkpoint
+    _assert_trees_equal(tree, port_load(str(tmp_path), tc))
+
+
+@pytest.mark.parametrize("kind", ["llama", "moe"])
+def test_both_writers_write_the_same_files(kind, tmp_path):
+    """The same params through both writers: state dicts equal tensor for
+    tensor (names, order, f32, values) and ``config.json`` equal key for
+    key."""
+    import json
+
+    tree, port_tree, jc, tc, (jax_save, _), port_save = _writer_case(kind)
+    jax_save(tree, jc, str(tmp_path / "jax"))
+    port_save(port_tree, tc, str(tmp_path / "port"))
+    want = torch.load(tmp_path / "jax" / "pytorch_model.bin", weights_only=True)
+    got = torch.load(tmp_path / "port" / "pytorch_model.bin", weights_only=True)
+    assert list(got) == list(want)
+    for name, tensor in want.items():
+        assert got[name].dtype == tensor.dtype == torch.float32, name
+        assert torch.equal(got[name], tensor), name
+    configs = [json.loads((tmp_path / p / "config.json").read_text()) for p in ("jax", "port")]
+    assert configs[1] == configs[0] and list(configs[1]) == list(configs[0])
+
+
+def test_writers_refuse_a_quantized_tree_as_jax(tmp_path):
+    from langstream_tpu.models.quant import quantize_llama_params as jax_quantize
+    from langstream_tpu_torch.models.quant import quantize_llama_params
+
+    tree, port_tree, jc, tc, (jax_save, _), port_save = _writer_case("llama")
+    with pytest.raises(TypeError):
+        jax_save(jax_quantize(tree), jc, str(tmp_path / "jax"))
+    with pytest.raises(TypeError, match="float parameters"):
+        port_save(quantize_llama_params(port_tree), tc, str(tmp_path / "port"))
+    assert not (tmp_path / "port").exists()

@@ -34,6 +34,10 @@ BASE = {"model": "tiny", "model-dtype": "float32", "slots": 3,
 PAGED = {"kv-layout": "paged", "prefix-cache": False, "kv-block-size": 16}
 CONFIGS = {  # name: (settings, the token whose lm_head column EOS copies)
     "dense": ({}, 32),
+    # int8 KV on the dense layout (the default layout): the decode reads it
+    # through the int8 paged kernel's plain version via identity tables, the
+    # JAX engine through its XLA einsum
+    "dense-int8-kv": ({"kv-quantize": "int8"}, 32),
     "paged": (PAGED, 32),
     "paged-int8-weights": ({**PAGED, "quantize": "int8"}, 116),
     "paged-int8-kv": ({**PAGED, "kv-quantize": "int8"}, 32),
@@ -198,7 +202,8 @@ def test_engine_needs_the_card_unless_told_cpu():
     [
         ({"mesh": {"tp": 2}}, "mesh"),
         ({"model": "moe-tiny", "mesh": {"ep": 2}}, "mesh"),
-        ({"kv-quantize": "int8"}, "kv-layout: paged"),
+        # kv-quantize: int8 on the dense layout is served since the slice
+        # of the Prometheus plane (CONFIGS["dense-int8-kv"] above)
         # adapter-store is served since the multi-LoRA slice
         # (tests/test_torch_lora_engine.py); on this dense layout it is the
         # JAX engine's ValueError, not a NotImplementedError

@@ -402,6 +402,7 @@ def test_chainer_over_the_pod_http_plane(monkeypatch, flat):
     from langstream_tpu.agents import services
     from langstream_tpu.runtime import pod
     from langstream_tpu.serving import engine as jax_engine_module
+    from langstream_tpu_torch.core import metrics as port_metrics
     from langstream_tpu_torch.core.tracing import SPANS
     from langstream_tpu_torch.serving.engine import ServingConfig
 
@@ -414,6 +415,7 @@ def test_chainer_over_the_pod_http_plane(monkeypatch, flat):
         monkeypatch.setattr(jax_engine_module, name, getattr(jax_engine_module, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
+    monkeypatch.setattr(port_metrics, "REPORTER", port_metrics.REPORTER)
     monkeypatch.setattr(TpuServingEngine, "_instances", {})
     monkeypatch.setattr(TorchServingEngine, "_instances", {})
     serve_torch.register(device="cpu")

@@ -287,6 +287,7 @@ def test_pod_incidents_list_a_port_engine_through_the_launcher(tmp_path, monkeyp
     from langstream_tpu.runtime import pod
     from langstream_tpu.serving import engine as jax_engine
     from langstream_tpu.serving.engine import TpuServingEngine
+    from langstream_tpu_torch.core import metrics as port_metrics
     from langstream_tpu_torch.core.tracing import SPANS
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
@@ -294,6 +295,7 @@ def test_pod_incidents_list_a_port_engine_through_the_launcher(tmp_path, monkeyp
         monkeypatch.setattr(jax_engine, name, getattr(jax_engine, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
+    monkeypatch.setattr(port_metrics, "REPORTER", port_metrics.REPORTER)
     monkeypatch.setattr(TpuServingEngine, "_instances", {})
     monkeypatch.setattr(TorchServingEngine, "_instances", {})
     serve_torch.register(device="cpu")

@@ -39,6 +39,7 @@ def registered(monkeypatch):
     package's instance map."""
     from langstream_tpu.agents import services
 
+    from langstream_tpu_torch.core import metrics as port_metrics
     from langstream_tpu_torch.core.tracing import SPANS
     from langstream_tpu_torch.serving.journey import JOURNEYS
 
@@ -47,6 +48,7 @@ def registered(monkeypatch):
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(JOURNEYS, "mirror", JOURNEYS.mirror)
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
+    monkeypatch.setattr(port_metrics, "REPORTER", port_metrics.REPORTER)
     monkeypatch.setattr(TpuServingEngine, "_instances", {})
     monkeypatch.setattr(TorchServingEngine, "_instances", {})
     serve_torch.register(device="cpu")
@@ -458,3 +460,47 @@ def test_pod_journey_and_traces_list_both_packages_as_one_timeline(registered):
     spans = jax_tracing.SPANS.spans(ctx.trace_id)
     assert {"engine.kv-export", "engine.kv-import", "engine.decode"} <= {s["name"] for s in spans}
     assert all(s["parent_id"] == ctx.span_id for s in spans)
+
+
+
+def test_pod_metrics_scrape_carries_a_port_engines_series(registered, monkeypatch):
+    """Through ``serve_torch.register`` a port engine registers in the
+    platform's registry: the pod's one ``GET /metrics`` carries its
+    ``langstream_serving_*`` series under the JAX names, with a traced
+    request's TTFT exemplar, and the port's own registry stays empty."""
+    from langstream_tpu.api import metrics as jax_metrics
+    from langstream_tpu_torch.core import metrics as port_metrics
+    from langstream_tpu_torch.core import tracing as port_tracing
+
+    # the platform's stdlib registry, fresh: the scrape holds this test's
+    # series only
+    monkeypatch.setattr(jax_metrics, "_HAVE_PROM", False)
+    monkeypatch.setattr(jax_metrics, "_fallback", {})
+    monkeypatch.setattr(jax_metrics, "_exemplars", {})
+    monkeypatch.setattr(port_metrics, "_registry", {})
+    assert port_metrics.REPORTER is jax_metrics.PrometheusMetricsReporter
+
+    async def main():
+        engine = TorchServingEngine(ServingConfig.from_dict(TINY), device="cpu")
+        server, session, base = await _pod(monkeypatch)
+        ctx = port_tracing.TraceContext.new()
+        try:
+            token = port_tracing.set_current(ctx)
+            try:
+                await engine.generate("scrape me", {"max-tokens": 5})
+            finally:
+                port_tracing.reset_current(token)
+            async with session.get(f"{base}/metrics") as resp:
+                return resp.status, await resp.text(), engine.total_generated, ctx
+        finally:
+            await session.close()
+            server.close()
+            await engine.close()
+
+    status, body, generated, ctx = asyncio.run(main())
+    assert status == 200 and generated > 0
+    assert (f'langstream_serving_tokens_generated_total{{agent_id="tiny"}} '
+            f'{float(generated)}') in body
+    assert 'langstream_serving_requests_completed_total{agent_id="tiny"} 1.0' in body
+    assert f'# {{trace_id="{ctx.trace_id}"}}' in body
+    assert port_metrics.render_metrics() == b"# no metrics registered yet\n"
