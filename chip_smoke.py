@@ -21,7 +21,9 @@ Phases (every one unguarded: any failure exits non-zero):
    chunk's T=512, the prefix hits' T=64 and T=16, and the speculative
    verify's T=5 at B=8 (history split) and B=64 (bf16 through the wgmma
    kernel with its plan of warpgroups and history spans; f32 through the
-   FMA kernel); and at Mixtral-8x7B's context (path G), flash at S=4096,
+   FMA kernel); at one tp=2 rank's heads (H=16, Kh=4, path N1), flash at
+   S=2048 and the bf16 and int8 decode reads; and at Mixtral-8x7B's
+   context (path G), flash at S=4096,
    the bf16 and int8 decode reads over 4,096 history rows and the
    multi-query read over histories to 3,584 rows;
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
@@ -101,8 +103,9 @@ Phases (every one unguarded: any failure exits non-zero):
    a ``pool-role: decode`` engine (bf16 rows through the wire as raw
    words); the decoded greedy tokens must equal the combined engine's;
    payload bytes and export/import ms;
-   main path J: multi-LoRA at llama3-8b int8 on path A's params (run after
-   I, while those params are on the card). J1: the chat example's resource
+   main path J: multi-LoRA at llama3-8b int8 on the first 16 of path A's
+   32 layers (``J_LAYERS``, a cut for the time limit; run after I, while
+   those params are on the card). J1: the chat example's resource
    with paged int8 KV (no warmup, the prefix cache off) and an
    ``adapter-store`` (rank 16, four T0 rows, T1 for four adapters' f32
    factors, T2 a local temporary directory); six adapters
@@ -124,7 +127,8 @@ Phases (every one unguarded: any failure exits non-zero):
    adapter rows of the speculative dispatches, tokens per step, then the
    same with speculation off and the common prefix (printed);
    main path K: the device-survival plane and the drain at llama3-8b int8
-   on path A's params (run after J), the chat example's resource with
+   on the first 16 of path A's layers for K1, K2 and K4 (``K_LAYERS``, a
+   cut for the time limit; run after J), the chat example's resource with
    paged int8 KV, the pipelined loop and ``shrink-recovery-s: 2``. K1: a
    64-request greedy wave (path F's lengths and budgets) unfaulted (inert
    plans count the seams' passes), then under two allocator failures at
@@ -191,6 +195,24 @@ Phases (every one unguarded: any failure exits non-zero):
    ``warmup`` begin and end on E, ``spec-auto-disable`` on D exactly when
    D's speculation flipped off, and the host nanoseconds of a counter
    increment and of an exemplar observation over 10^5 calls;
+   main path N (after M1): multi-GPU serving, two ranks of one mesh on
+   this card: this process is rank 0 and spawns rank 1
+   (``python -m langstream_tpu_torch.serving.lockstep_demo --index 1``),
+   gloo between them (NCCL refuses two ranks on one device). N1:
+   llama3-8b int8 at 8 layers (``N_LAYERS``), paged int8 KV, 16 slots,
+   ``mesh: {tp: 2}``, 16 greedy requests of 64 tokens, against a tp=1
+   engine on the same weights: first tokens equal wherever tp=1's top-2
+   logprob gap exceeds 0.05, first logprobs within 0.05, the common
+   prefixes printed, kernels #1 and #3 launched on both ranks. N2:
+   Mixtral-8x7B int8 at 2 layers, ``mesh: {ep: 2, tp: 1}``, 8 requests,
+   the same rule against ep=1. N3: ``tiny`` f32 on the HF fixture,
+   ``mesh: {tp: 2}``, paged with the prefix cache, chunked prefill and
+   speculation, then the same without speculation: every lockstep op runs
+   and the greedy tokens equal a CPU tp=1 run. Every rank's dispatches
+   sampled the same tokens. One line per run: ms per step of both
+   engines, both ranks' launches, the collectives by call site and the
+   logits gather's share of decode; two ranks on one card measure the
+   seam, not the speed of TP;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -217,7 +239,9 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-M),
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-N,
+   rank 0's on N; each row carries a ``tp2_rank`` entry, phase 2's case
+   at one tp=2 rank's heads),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -288,6 +312,8 @@ def ptxas_report(logs: dict) -> list[str]:
 #: host at full depth
 F_LAYERS = 16
 H_LAYERS = 16
+J_LAYERS = 16  # paths J and K1, K2, K4 at 16 layers, so path N fits the
+K_LAYERS = 16  # time limit (K3's child runs at 8)
 
 
 @contextlib.contextmanager
@@ -304,6 +330,12 @@ def cut_depth(model: str, layers: int):
         yield
     finally:
         engine_module._MODEL_CONFIGS[model] = full
+
+
+def at_depth(params: dict, layers: int) -> dict:
+    """A parameter tree's first ``layers`` layers (views of the stacked
+    per-layer weights, int8 ones included); the rest shared."""
+    return {**params, "layers": {name: w[:layers] for name, w in params["layers"].items()}}
 
 
 def fail(msg: str) -> None:
@@ -462,14 +494,23 @@ def phase_kernels(torch) -> dict:
         ("paged_attention_q8", "bs64 int8 4096", _paged_attention_partial_q8,
          dict(bs=64, dtype=torch.bfloat16, int8=True, dense=False, max_len=4096),
          TOL_BF16),
+        # one rank's shapes at tp=2 on Llama-3-8B (path N1): H=16, Kh=4
+        ("paged_attention", "tp2 bs64 bf16", paged_attention_partial,
+         dict(bs=64, dtype=torch.bfloat16, int8=False, dense=False, H=H // 2,
+              Kh=Kh // 2), TOL_BF16),
+        ("paged_attention_q8", "tp2 bs64 int8", _paged_attention_partial_q8,
+         dict(bs=64, dtype=torch.bfloat16, int8=True, dense=False, H=H // 2,
+              Kh=Kh // 2), TOL_BF16),
     ]
+    per_rank = {}
     for name, label, fn, spec, tol in cases:
         spec = {"max_len": 2048, **spec}
-        case = paged_case(torch, B=B, H=H, Kh=Kh, D=D, seed=7, **spec)
+        h, kh = spec.pop("H", H), spec.pop("Kh", Kh)
+        case = paged_case(torch, B=B, H=h, Kh=kh, D=D, seed=7, **spec)
         err = check_paged(torch, f"{name} {label}", fn, paged_attention_reference,
-                          case, kv_heads=Kh, head_dim=D, tol=tol)
+                          case, kv_heads=kh, head_dim=D, tol=tol)
         q, kp, vp, tables, lengths, nrb = case
-        kw = dict(num_read_blocks=nrb, kv_heads=Kh, head_dim=D)
+        kw = dict(num_read_blocks=nrb, kv_heads=kh, head_dim=D)
         ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw), graph=True)
         eager_ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))
         plain_ms = cuda_ms(torch, lambda: paged_attention_reference(
@@ -477,17 +518,17 @@ def phase_kernels(torch) -> dict:
         n_rows = int(lengths.clamp(max=nrb * spec["bs"]).sum())
         elem = 1 if spec["int8"] else (2 if spec["dtype"] == torch.bfloat16 else 4)
         nbytes = (
-            2 * n_rows * Kh * D * elem + (2 * n_rows * Kh * 4 if spec["int8"] else 0)
-            + q.numel() * q.element_size() + B * H * (D + 2) * 4
+            2 * n_rows * kh * D * elem + (2 * n_rows * kh * 4 if spec["int8"] else 0)
+            + q.numel() * q.element_size() + B * h * (D + 2) * 4
             + tables.numel() * 4 + B * 4
         )
-        flops = 4.0 * H * D * n_rows
+        flops = 4.0 * h * D * n_rows
         peak = BF16_FLOPS_PER_S if spec["dtype"] == torch.bfloat16 else F32_FLOPS_PER_S
         b_ms, b_by = bound_ms(nbytes, flops, peak)
         spans = f"spans={paged_read_splits(nrb, spec['bs'])}"
         if spec["int8"]:  # the int8 read's products: mma.sync for bf16 q, FMAs for f32
             spans += f" kernel={'mma' if spec['dtype'] == torch.bfloat16 else 'fma'}"
-        print(f"kernel {name} [{label}] B={B} H={H} Kh={Kh} D={D} rows={n_rows} {spans}: "
+        print(f"kernel {name} [{label}] B={B} H={h} Kh={kh} D={D} rows={n_rows} {spans}: "
               f"max_abs_err={err:.3e} ms={ms:.4f} eager_ms={eager_ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               f"achieved={nbytes / ms / 1e6:.1f} GB/s by_kernel="
@@ -499,15 +540,21 @@ def phase_kernels(torch) -> dict:
             rows[name] = timing
         elif label.endswith("4096"):
             at_4096[name] = {"case": label, **timing}
+        elif label.startswith("tp2"):
+            per_rank[name] = {"case": f"{label} H={h} Kh={kh}", **timing}
 
     # -- kernel 1: flash prefill ---------------------------------------------
     g = torch.Generator().manual_seed(11)
+    full_heads = (H, Kh)
     for S, dtype, tol, label in (
         (512, torch.bfloat16, TOL_BF16, "bf16"),
         (2048, torch.bfloat16, TOL_BF16, "bf16"),
         (4096, torch.bfloat16, TOL_BF16, "bf16"),  # path G's longest bucket
         (512, torch.float32, TOL_F32, "f32"),
+        (2048, torch.bfloat16, TOL_BF16, "tp2 bf16"),  # one rank at tp=2 (path N1)
     ):
+        H, Kh = (full_heads[0] // 2, full_heads[1] // 2) if label.startswith("tp2") \
+            else full_heads
         Bf = 2 if S == 4096 else 4  # the plain version holds B*H*S*S f32 scores
         true_len = torch.tensor([S, S - 37, S // 2 + 3, 17])[:Bf]
         valid = (torch.arange(S)[None, :] < true_len[:, None])[:, :, None, None]
@@ -546,7 +593,10 @@ def phase_kernels(torch) -> dict:
               f"achieved={flops / ms / 1e9:.1f} TFLOP/s", flush=True)
         timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                       bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-        if S == 2048:
+        if label.startswith("tp2"):
+            per_rank["flash_attention"] = {"case": f"B={Bf} S={S} {label} H={H} Kh={Kh}",
+                                           **timing}
+        elif S == 2048:
             rows["flash_attention"] = timing
         elif S == 4096:
             at_4096["flash_attention"] = {"case": f"B={Bf} S=4096 bf16", **timing}
@@ -554,6 +604,8 @@ def phase_kernels(torch) -> dict:
         torch.cuda.empty_cache()
     for name, timing in at_4096.items():  # beside each row of the kernels line
         rows[name]["mixtral_4096"] = timing
+    for name, timing in per_rank.items():
+        rows[name]["tp2_rank"] = timing
     return rows
 
 
@@ -1535,11 +1587,11 @@ class _Ranges:
     a profiler running on the dispatch thread attributes their kernels."""
 
     def __init__(self, torch):
-        from langstream_tpu_torch.models import llama, llama_paged, moe
+        from langstream_tpu_torch.models import llama, moe
 
         self.torch = torch
-        self.sites = [(llama, "_w", "dequant"), (llama_paged, "_w", "dequant"),
-                      (moe, "as_weight", "dequant"), (moe, "moe_ffn", "expert ffn")]
+        self.sites = [(llama, "_w", "dequant"), (moe, "as_weight", "dequant"),
+                      (moe, "moe_ffn", "expert ffn")]
         self.saved = [getattr(mod, name) for mod, name, _ in self.sites]
 
     def __enter__(self):
@@ -3596,7 +3648,8 @@ def phase_evidence_path(torch, params, k1_line: dict, resource: dict = CHAT_EXAM
     NOTES["L1"] = {**line, "tokens_delta": deltas["langstream_serving_tokens_generated_total"],
                    "requests_delta": deltas["langstream_serving_requests_completed_total"],
                    "exemplar": named[0], "exemplar_events": len(JOURNEYS.events(named[0]))}
-    print(f"path L [L1 against K1 unfaulted]: ms_per_step {line['ms_per_step']} against "
+    print(f"path L [L1 against K1 unfaulted, K1 at {K_LAYERS} layers]: ms_per_step "
+          f"{line['ms_per_step']} against "
           f"{k1_line['ms_per_step']}, decode_tok_s {line['decode_tok_s']} against "
           f"{k1_line['decode_tok_s']}, wall_s {line['wall_s']} against {k1_line['wall_s']} "
           f"(recorded, not claimed)", flush=True)
@@ -3983,7 +4036,8 @@ def phase_metrics_path(torch) -> None:
           f"{l1['exemplar']} names a journey of {l1['exemplar_events']} events; "
           f"host_fetches_per_chunk K1={NOTES['K1']['host_fetches_per_chunk']} "
           f"L1={l1['host_fetches_per_chunk']}; ms_per_step K1={NOTES['K1']['ms_per_step']} "
-          f"L1={l1['ms_per_step']} (reference: {REFERENCE_MS_PER_STEP['K1']} and "
+          f"(at {K_LAYERS} layers) L1={l1['ms_per_step']} (reference at 32 layers: "
+          f"{REFERENCE_MS_PER_STEP['K1']} and "
           f"{REFERENCE_MS_PER_STEP['L1']}); events {events} (D uplift {NOTES['D']['uplift']}); "
           f"host ns per counter increment {inc_ns:.1f}, per exemplar observation "
           f"{obs_ns:.1f} (over {n} calls)", flush=True)
@@ -4627,6 +4681,321 @@ def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
     return asyncio.run(run())
 
 
+# ---------------------------------------------------------------------------
+# path N: multi-GPU serving, two ranks of one mesh on this card
+# ---------------------------------------------------------------------------
+
+N_LAYERS = 8          # N1 (Llama-3-8B) depth, of 32
+N2_LAYERS = 2         # N2 (Mixtral-8x7B) depth, of 32
+N1_MAX_TOKENS = 64
+N_GAP = 0.05          # the first token must match where tp=1's top-2 gap exceeds it
+N_RESOURCE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged",
+              "kv-quantize": "int8", "prefix-cache": False, "slots": 16,
+              "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
+N2_RESOURCE = {"model": "moe-8x7b", "quantize": "int8", "slots": 8,
+               "max-seq-len": 1024, "decode-chunk": 8, "seed": 0}
+N3_RESOURCE = {"model": "tiny", "model-dtype": "float32", "kv-layout": "paged",
+               "kv-block-size": 16, "prefix-cache": True, "prefill-chunk": 16,
+               "speculative-drafts": 4, "slots": 4, "max-seq-len": 256,
+               "decode-chunk": 4, "seed": 0,
+               "checkpoint": str(REPO / "tests" / "fixtures" / "llama_tiny_golden")}
+
+
+def n_prompts(n: int = 16) -> list[str]:
+    topics = ["GPUs", "rivers", "databases", "chess", "tea", "orbits", "bridges", "bees"]
+    return [f"Request {i}: write a short paragraph about {topics[i % len(topics)]}"
+            + " and why it matters" * (i % 4) for i in range(n)]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
+             max_tokens: int, layers: int | None = None, device="cuda") -> list[dict]:
+    """Serve ``configs`` in turn on a two-rank mesh: this process is rank 0
+    (the leader), one spawned ``lockstep_demo --index 1`` process is rank 1,
+    both on this card over gloo. Per configuration: the results, stats and
+    mesh section, rank 0's launches (counts set to 0 just before the run),
+    rank 1's launches and the dispatches both ranks sampled, checked equal.
+    Fails on a follower that does not start or exits non-zero, a collective
+    timeout or a lockstep failure."""
+    import torch.distributed as dist
+
+    from langstream_tpu_torch.parallel.mesh import init_distributed
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.lockstep_demo import cut_layers
+
+    coordinator, lockstep = _free_port(), _free_port()
+    out = Path(os.environ.get("TMPDIR", "/tmp")) / f"chip_smoke_rank1_{os.getpid()}.json"
+    flat = [p for wave in waves for p in wave]
+    cmd = [sys.executable, "-m", "langstream_tpu_torch.serving.lockstep_demo",
+           "--index", "1", "--num-processes", "2", "--coordinator-port", str(coordinator),
+           "--lockstep-port", str(lockstep), "--device", device,
+           "--config", json.dumps(configs), "--prompts", json.dumps(flat),
+           "--max-tokens", str(max_tokens), "--out", str(out)]
+    if layers:
+        cmd += ["--layers", str(layers)]
+    env = {**os.environ, "PYTHONPATH": str(REPO), "LS_TORCH_COLLECTIVE_TIMEOUT_S": "120"}
+    log_path = out.with_suffix(".log")
+    with open(log_path, "wb") as log_file:  # a file: a full pipe would stall rank 1
+        follower = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                                    stderr=log_file)
+
+    def rank1_log() -> str:
+        text = log_path.read_text(errors="replace")[-3000:]
+        log_path.unlink(missing_ok=True)
+        return text
+
+    os.environ["LS_LOCKSTEP_PORT"] = str(lockstep)
+    runs = []
+    try:
+        init_distributed(f"127.0.0.1:{coordinator}", 2, 0, device, timeout_s=120)
+        for cfg in configs:
+            t0 = time.monotonic()
+            with cut_layers(layers):
+                engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+            init_s = time.monotonic() - t0
+            reset_counts()
+            t0 = time.monotonic()
+            results = []
+
+            async def drive():
+                try:
+                    for wave in waves:
+                        results.extend(await asyncio.gather(*(
+                            engine.generate(p, {"max-tokens": max_tokens, "temperature": 0})
+                            for p in wave)))
+                    return engine.stats()
+                finally:
+                    await engine.close()
+
+            stats = asyncio.run(drive())
+            if device == "cuda":
+                torch.cuda.synchronize()
+            runs.append({"results": results, "stats": stats, "wall_s": time.monotonic() - t0,
+                         "init_s": init_s, "counts": read_counts(),
+                         "mesh": engine.mesh_section(),
+                         "dispatches": [[op, v.tolist()] for _, (op, v) in
+                                        sorted(engine.lockstep_tokens.items())]})
+            del engine
+            gc.collect()
+    except BaseException:
+        follower.kill()
+        follower.wait()
+        print(f"path N [{label}]: rank 1's stderr tail:\n{rank1_log()}", flush=True)
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        os.environ.pop("LS_LOCKSTEP_PORT", None)
+    try:
+        follower.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        follower.kill()
+        follower.wait()
+        fail(f"path N [{label}]: rank 1 did not exit after the leader's stop: {rank1_log()}")
+    err = rank1_log()
+    if follower.returncode != 0:
+        fail(f"path N [{label}]: rank 1 exited {follower.returncode}: {err}")
+    rank1 = json.loads(out.read_text())
+    out.unlink()
+    for run, other in zip(runs, rank1):
+        if other["dispatches"] != run["dispatches"]:
+            fail(f"path N [{label}]: rank 1 sampled other tokens than rank 0")
+        run["rank1"] = other
+    return runs
+
+
+def top2_gaps(torch, engine, prompts: list[str]) -> list[float]:
+    """The tp=1 reference's first-token top-2 logprob gap per prompt, from
+    one prefill forward of each prompt on the engine's own params."""
+    from langstream_tpu_torch.models.llama import prefill_forward
+
+    gaps = []
+    for p in prompts:
+        ids = engine.tokenizer.encode(p)
+        tokens = torch.tensor([ids], device=engine.device)
+        lengths = torch.tensor([len(ids)], device=engine.device)
+        with torch.no_grad():
+            logits = prefill_forward(engine.model_config, engine.params, tokens, lengths,
+                                     ffn=engine._ffn)[0]
+        top = torch.log_softmax(logits[0].float(), dim=-1).topk(2).values
+        gaps.append(float(top[0] - top[1]))
+    return gaps
+
+
+def reference_run(torch, cfg: dict, waves, max_tokens: int, layers: int | None,
+                  device="cuda") -> tuple[dict, list[float]]:
+    """The same configuration without its mesh, on ``device``: results,
+    stats and the first tokens' top-2 gaps."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.lockstep_demo import cut_layers
+
+    cfg = {k: v for k, v in cfg.items() if k != "mesh"}
+    with cut_layers(layers):
+        engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+    flat = [p for wave in waves for p in wave]
+    gaps = top2_gaps(torch, engine, flat)
+    results = []
+
+    async def drive():
+        try:
+            for wave in waves:
+                results.extend(await asyncio.gather(*(
+                    engine.generate(p, {"max-tokens": max_tokens, "temperature": 0})
+                    for p in wave)))
+            return engine.stats()
+        finally:
+            await engine.close()
+
+    t0 = time.monotonic()
+    stats = asyncio.run(drive())
+    out = {"results": results, "stats": stats, "wall_s": time.monotonic() - t0}
+    del engine
+    gc.collect()
+    return out, gaps
+
+
+def _step_ms(stats: dict) -> float | None:
+    dc = stats["decode-chunks"]
+    return round(dc["seconds"] / dc["steps"] * 1e3, 3) if dc["steps"] else None
+
+
+def check_first_tokens(label: str, mesh_results, ref_results, gaps) -> dict:
+    """The first-token rule: equal wherever the reference's top-2 gap
+    exceeds ``N_GAP``, the first logprob within ``N_GAP``; every stream's
+    common prefix with the reference."""
+    prefixes, checked = [], 0
+    for i, (m, r, gap) in enumerate(zip(mesh_results, ref_results, gaps)):
+        if not m["tokens"] or not r["tokens"]:
+            fail(f"path N [{label}]: request {i} generated nothing")
+        if gap > N_GAP:
+            checked += 1
+            if m["tokens"][0] != r["tokens"][0]:
+                fail(f"path N [{label}]: request {i}'s first token {m['tokens'][0]} != "
+                     f"{r['tokens'][0]} at a top-2 gap of {gap:.4f}")
+        if abs(m["logprobs"][0] - r["logprobs"][0]) > N_GAP:
+            fail(f"path N [{label}]: request {i}'s first logprob {m['logprobs'][0]:.4f} "
+                 f"vs {r['logprobs'][0]:.4f}")
+        common = 0
+        for a, b in zip(m["tokens"], r["tokens"]):
+            if a != b:
+                break
+            common += 1
+        prefixes.append(f"{common}/{len(r['tokens'])}")
+    print(f"path N [{label}]: first tokens equal at {checked} of {len(gaps)} requests "
+          f"with a top-2 gap > {N_GAP}; common prefixes {prefixes}", flush=True)
+    return {"checked": checked, "prefixes": prefixes}
+
+
+def _mesh_line(label: str, run: dict, ref: dict | None = None) -> None:
+    mesh = run["mesh"]
+    coll = mesh["collectives"]
+    step = _step_ms(run["stats"])
+    decode_s = run["stats"]["decode-chunks"]["seconds"]
+    gather = coll.get("logits", {"seconds": 0.0, "calls": 0, "bytes": 0})
+    report = {
+        "ms_per_step_mesh": step,
+        "ms_per_step_reference": _step_ms(ref["stats"]) if ref else None,
+        "wall_s": round(run["wall_s"], 3), "init_s": round(run["init_s"], 3),
+        "backend": mesh["backend"], "backend_reason": mesh["backend-reason"],
+        "rank0_launches": {k: v for k, v in run["counts"].items() if v},
+        "rank1_launches": {k: v for k, v in run["rank1"]["kernels"].items() if v},
+        "collectives": coll,
+        "logits_gather_share_of_decode": (round(gather["seconds"] / decode_s, 4)
+                                          if decode_s else None),
+    }
+    print(f"path N [{label}]: {json.dumps(report)}", flush=True)
+
+
+def phase_mesh_path(torch, device="cuda") -> dict:
+    """Path N: multi-GPU serving through the port's lockstep mesh, two
+    ranks sharing this card over gloo (NCCL refuses two ranks on one device;
+    one card per rank is not exercised on a one-card machine). Two ranks on
+    one card measure the seam, not the speed of TP: no speed is claimed.
+
+    - N1: Llama-3-8B int8 at full width and ``N_LAYERS`` layers, paged int8
+      KV, ``mesh: {tp: 2}``, 16 slots, 16 greedy requests of
+      ``N1_MAX_TOKENS`` tokens, against a tp=1 engine on the same weights
+      (the same seed): the first-token rule; kernels #1 and #3 launch on both
+      ranks.
+    - N2: Mixtral-8x7B int8 at full width and ``N2_LAYERS`` layers,
+      ``mesh: {ep: 2, tp: 1}`` (the MoE specs name tp, so the ep-only mesh
+      carries tp of 1), 8 requests of 32 tokens, the same rule against ep=1.
+    - N3: ``tiny`` f32 on the HF fixture, ``mesh: {tp: 2}``, paged with the
+      prefix cache, chunked prefill and speculation, then the same without
+      speculation (the pipelined burst's chained chunks): every lockstep
+      op runs and the leader's greedy tokens equal a CPU tp=1 run.
+
+    Returns rank 0's launches summed over N1-N3."""
+    totals = {name: 0 for name in _wrappers()}
+    t0 = time.monotonic()
+    # -- N1 -----------------------------------------------------------------
+    waves = [n_prompts(16)]
+    n1 = mesh_run(torch, "N1", [{**N_RESOURCE, "mesh": {"tp": 2}}], waves,
+                  N1_MAX_TOKENS, layers=N_LAYERS, device=device)[0]
+    ref, gaps = reference_run(torch, N_RESOURCE, waves, N1_MAX_TOKENS, N_LAYERS, device)
+    _mesh_line("N1 llama3-8b int8 tp=2", n1, ref)
+    check_first_tokens("N1", n1["results"], ref["results"], gaps)
+    for rank, counts in (("0", n1["counts"]), ("1", n1["rank1"]["kernels"])):
+        if device == "cuda" and (counts["flash_attention"] == 0
+                                 or counts["paged_attention_q8"] == 0):
+            fail(f"path N1: rank {rank} did not launch kernels #1 and #3: {counts}")
+    print("path N1: two ranks share one card here; the ms per step measure the "
+          "lockstep seam and gloo collectives through the host, not the speed of "
+          "tensor parallelism", flush=True)
+    totals = {k: totals[k] + n1["counts"][k] for k in totals}
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    # -- N2 -----------------------------------------------------------------
+    waves = [n_prompts(8)]
+    n2 = mesh_run(torch, "N2", [{**N2_RESOURCE, "mesh": {"ep": 2, "tp": 1}}], waves, 32,
+                  layers=N2_LAYERS, device=device)[0]
+    ref, gaps = reference_run(torch, N2_RESOURCE, waves, 32, N2_LAYERS, device)
+    _mesh_line("N2 moe-8x7b int8 ep=2", n2, ref)
+    check_first_tokens("N2", n2["results"], ref["results"], gaps)
+    totals = {k: totals[k] + n2["counts"][k] for k in totals}
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t2 = time.monotonic()
+    # -- N3 -----------------------------------------------------------------
+    preamble = "System: answer briefly and well, with care. "
+    waves = [["hello gpu world", preamble + "the quick brown fox", "abcdefgh, ijklmnop",
+              preamble * 3 + "a long prompt in chunks"],
+             [preamble + "judge my vow", "a", preamble * 3 + "and again"]]
+    plain = {**N3_RESOURCE, "speculative-drafts": 0, "decode-chunk-light": 0}
+    n3 = mesh_run(torch, "N3", [{**N3_RESOURCE, "mesh": {"tp": 2}},
+                                {**plain, "mesh": {"tp": 2}}], waves, 24, device=device)
+    ops = {op for run in n3 for op, _ in run["dispatches"]}
+    want_ops = {"prefill", "prefill_continue", "spec_step", "decode", "decode_cont"}
+    if not want_ops <= ops:
+        fail(f"path N3: lockstep ops {sorted(ops)} miss {sorted(want_ops - ops)}")
+    for run, cfg in zip(n3, (N3_RESOURCE, plain)):
+        cpu, _ = reference_run(torch, cfg, waves, 24, None, "cpu")
+        got = [r["tokens"] for r in run["results"]]
+        want = [r["tokens"] for r in cpu["results"]]
+        if got != want:
+            fail(f"path N3: tp=2 tokens on the card {got} != the CPU tp=1 run {want}")
+        totals = {k: totals[k] + run["counts"][k] for k in totals}
+    print(f"path N3: tiny f32 tp=2, ops {sorted(ops)}, tokens equal the CPU tp=1 run "
+          f"(speculative and plain); prefix hits "
+          f"{n3[0]['stats']['prefix']['hits']}, verify steps "
+          f"{n3[0]['stats']['speculative']['steps']}", flush=True)
+    print(f"path N: {time.monotonic() - t0:.1f} s (N1 {t1 - t0:.1f} s, N2 {t2 - t1:.1f} s, "
+          f"N3 {time.monotonic() - t2:.1f} s)", flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -4708,26 +5077,29 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_j = time.monotonic()
-    j1_counts = phase_lora_path(torch, params)
-    gc.collect()
-    torch.cuda.empty_cache()
-    j2_counts = phase_lora_spec_path(torch, params)
+    with cut_depth(base["model"], J_LAYERS):  # path A's first J_LAYERS layers
+        j1_counts = phase_lora_path(torch, at_depth(params, J_LAYERS))
+        gc.collect()
+        torch.cuda.empty_cache()
+        j2_counts = phase_lora_spec_path(torch, at_depth(params, J_LAYERS))
     j_counts = {k: j1_counts[k] + j2_counts[k] for k in j1_counts}
     print(f"path J: {time.monotonic() - t_j:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t_k = time.monotonic()
-    k1_counts, k1_line, _ = phase_chaos_path(torch, params)
-    NOTES["K1"] = k1_line
-    gc.collect()
-    torch.cuda.empty_cache()
-    k2_counts = phase_wedge_path(torch, params)
+    with cut_depth(base["model"], K_LAYERS):  # K1, K2 and K4 on A's first layers
+        k1_counts, k1_line, _ = phase_chaos_path(torch, at_depth(params, K_LAYERS))
+        NOTES["K1"] = k1_line
+        gc.collect()
+        torch.cuda.empty_cache()
+        k2_counts = phase_wedge_path(torch, at_depth(params, K_LAYERS))
     gc.collect()
     torch.cuda.empty_cache()
     k3_counts = phase_crash_requeue_path(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    k4_counts = phase_drain_path(torch, params)
+    with cut_depth(base["model"], K_LAYERS):
+        k4_counts = phase_drain_path(torch, at_depth(params, K_LAYERS))
     k_counts = {k: sum(c[k] for c in (k1_counts, k2_counts, k3_counts, k4_counts))
                 for k in k1_counts}
     if k_counts["flash_attention"] == 0 or k_counts["paged_attention_q8"] == 0:
@@ -4776,9 +5148,14 @@ def main() -> int:
     t_m1 = time.monotonic()
     phase_metrics_path(torch)  # M1: after every plane's engines have served
     m_s += time.monotonic() - t_m1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_n = time.monotonic()
+    n_counts = phase_mesh_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
           f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
-          f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s)", flush=True)
+          f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s, path N "
+          f"{time.monotonic() - t_n:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -4789,8 +5166,8 @@ def main() -> int:
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
-             "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts}
-    meta = {  # launches: summed over the thirteen main paths
+             "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts}
+    meta = {  # launches: summed over the fourteen main paths (rank 0's on path N)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

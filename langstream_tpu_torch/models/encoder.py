@@ -8,7 +8,7 @@ products here are plain ``torch.matmul``. Real weights load from a local
 sentence-transformers directory (:func:`load_from_sentence_transformers`);
 otherwise :func:`init_encoder_params` makes random ones from a generator.
 The JAX package's tensor-parallel specs come with multi-GPU serving
-(ROADMAP.md Queue 1 item 13).
+(ROADMAP.md Queue 1 item 13b).
 """
 
 from __future__ import annotations

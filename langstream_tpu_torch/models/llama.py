@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from langstream_tpu_torch._device import require_device
 from langstream_tpu_torch.models.quant import as_weight as _w, embedding_take
 from langstream_tpu_torch.ops.flash_attention import flash_attention
+from langstream_tpu_torch.parallel.mesh import P, shard_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +40,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
+    #: this rank's :class:`RankShard` under a mesh (see :func:`local_config`)
+    shard: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
     def llama3_8b(cls, max_seq_len: int = 8192) -> "LlamaConfig":
@@ -137,6 +141,141 @@ def layer_params(params: dict, layer: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism: specs, a rank's config and its collectives
+# ---------------------------------------------------------------------------
+
+
+def llama_param_specs(config: LlamaConfig) -> dict:
+    """PartitionSpecs per param (Megatron TP over axis ``tp``)."""
+    return {
+        "embed": P("tp", None),          # vocab-sharded
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, None, "tp"),   # column (heads)
+            "wk": P(None, None, "tp"),
+            "wv": P(None, None, "tp"),
+            "wo": P(None, "tp", None),   # row
+            "mlp_norm": P(None, None),
+            "w_gate": P(None, None, "tp"),
+            "w_up": P(None, None, "tp"),
+            "w_down": P(None, "tp", None),
+        },
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),        # vocab-sharded logits
+    }
+
+
+#: the attention block's weights, replicated over tp where the KV heads
+#: do not split
+ATTENTION_WEIGHTS = ("wq", "wk", "wv", "wo")
+
+
+def attention_splits(config, tp: int) -> bool:
+    """Whether the attention heads split over ``tp`` ranks: both the query
+    and the KV heads must divide (the JAX read wrappers' rule)."""
+    return tp > 1 and config.heads % tp == 0 and config.kv_heads % tp == 0
+
+
+def rank_specs(specs: dict, config, mesh) -> dict:
+    """``specs`` as this mesh serves them: the attention weights replicated
+    over ``tp`` when :func:`attention_splits` says no."""
+    if attention_splits(config, mesh.size("tp")) or "tp" not in mesh.axis_names:
+        return specs
+    layers = dict(specs["layers"])
+    for name in ATTENTION_WEIGHTS:
+        layers[name] = P(*(None if e == "tp" else e for e in layers[name]))
+    return {**specs, "layers": layers}
+
+
+def shard_llama_params(params: dict, config: LlamaConfig, mesh) -> dict:
+    """This rank's shards of the full ``params`` (int8 trees too)."""
+    from langstream_tpu_torch.models.quant import quantize_specs
+
+    specs = rank_specs(llama_param_specs(config), config, mesh)
+    return shard_tree(params, quantize_specs(specs, params), mesh)
+
+
+def kv_cache_spec(mesh_axes: tuple[str, ...]):
+    """Cache (L, slots, S, kv_heads, head_dim): slots on dp, kv heads on tp."""
+    dp = "dp" if "dp" in mesh_axes else None
+    tp = "tp" if "tp" in mesh_axes else None
+    return P(None, dp, None, tp, None)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankShard:
+    """What a rank's local config needs of the mesh: the mesh itself, and
+    whether the attention heads and the rest (FFN intermediate, vocab)
+    split over ``tp``."""
+
+    mesh: Any
+    attention: bool
+    tp: bool
+
+
+def local_config(config, mesh):
+    """This rank's config under ``mesh``: ``heads``/``kv_heads`` divided by
+    ``tp`` where :func:`attention_splits`, the FFN intermediate divided by
+    ``tp``, and ``shard`` set. The vocab and the experts keep their global
+    counts (the embedding, the LM head and the expert FFN read their
+    shards' offsets from the mesh)."""
+    tp = mesh.size("tp")
+    inter = "moe_intermediate" if hasattr(config, "moe_intermediate") else "intermediate"
+    for name, value in (("vocab_size", config.vocab_size), (inter, getattr(config, inter))):
+        if value % tp:
+            raise ValueError(f"{name} {value} does not split over tp={tp}")
+    attention = attention_splits(config, tp)
+    changes = {inter: getattr(config, inter) // tp,
+               "shard": RankShard(mesh, attention, tp > 1)}
+    if attention:
+        changes.update(heads=config.heads // tp, kv_heads=config.kv_heads // tp)
+    return dataclasses.replace(config, **changes)
+
+
+def embed_tokens(c, embed, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings; vocab-parallel under tp (this rank's rows of
+    the table, a masked lookup, then a sum over ``tp``)."""
+    if c.shard is None or not c.shard.tp:
+        return embedding_take(embed, tokens)
+    rows = (embed.q if hasattr(embed, "q") else embed).shape[0]
+    lo = c.shard.mesh.index("tp") * rows
+    local = tokens.to(torch.long) - lo
+    mine = (local >= 0) & (local < rows)
+    x = embedding_take(embed, local.clamp(0, rows - 1))
+    x = x * mine[..., None].to(x.dtype)
+    return c.shard.mesh.sum(x, "tp", tag="embed")
+
+
+def lm_logits(c, x: torch.Tensor, lm_head) -> torch.Tensor:
+    """f32 logits over the whole vocab; under tp each rank's vocab columns
+    are gathered into every rank (a sum of zero-padded shards)."""
+    logits = (x @ _w(lm_head)).to(torch.float32)
+    if c.shard is None or not c.shard.tp:
+        return logits
+    V = logits.shape[-1]
+    full = logits.new_zeros(logits.shape[:-1] + (c.vocab_size,))
+    lo = c.shard.mesh.index("tp") * V
+    full[..., lo:lo + V] = logits
+    return c.shard.mesh.sum(full, "tp", tag="logits")
+
+
+def tp_sum(c, y: torch.Tensor, attention: bool = False) -> torch.Tensor:
+    """A row-parallel product's partial sums added over ``tp`` (the
+    attention block's only when its heads split)."""
+    shard = c.shard
+    if shard is None or not (shard.attention if attention else shard.tp):
+        return y
+    return shard.mesh.sum(y, "tp")
+
+
+def attention_prefill(c, q, k, v) -> torch.Tensor:
+    """Causal prefill attention: the flash kernel on this rank's heads,
+    per rank under a mesh (see ``flash_attention(mesh=)``)."""
+    return flash_attention(q, k, v, causal=True,
+                           mesh=None if c.shard is None else c.shard.mesh)
+
+
+# ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
 
@@ -186,6 +325,17 @@ def _default_ffn(h, lp, valid=None):
     return _swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
+def ffn_for(c, ffn):
+    """The FFN a model entry point runs: ``ffn`` when given (the MoE FFN
+    sums its own shards), else the dense SwiGLU, its row-parallel
+    ``w_down`` summed over ``tp`` under a mesh."""
+    if ffn is not None:
+        return ffn
+    if c.shard is None or not c.shard.tp:
+        return _default_ffn
+    return lambda h, lp, valid=None: tp_sum(c, _default_ffn(h, lp, valid))
+
+
 def _qkv(c: LlamaConfig, h: torch.Tensor, lp: dict, ad=None):
     """Projections reshaped to (..., heads|kv_heads, head_dim). ``ad`` is
     one layer's ``(ids, factors)`` from :func:`adapter_layer`: each
@@ -205,15 +355,16 @@ def _qkv(c: LlamaConfig, h: torch.Tensor, lp: dict, ad=None):
             v.reshape(*lead, c.kv_heads, c.head_dim))
 
 
-def _out_proj(out: torch.Tensor, lp: dict, ad=None) -> torch.Tensor:
+def _out_proj(out: torch.Tensor, lp: dict, ad=None, c=None) -> torch.Tensor:
     """The attention output projection ``out @ wo``, plus the per-slot
     ``wo`` delta when ``ad`` is given (added before the residual, as in the
-    JAX package)."""
+    JAX package); under a mesh (``c.shard``) the row-parallel partial sums
+    are added over ``tp``."""
     attn = out @ _w(lp["wo"])
     if ad is not None:
         ids, al = ad
         attn = attn + lora_delta(out, ids, al["wo_a"], al["wo_b"])
-    return attn
+    return attn if c is None else tp_sum(c, attn, attention=True)
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +421,9 @@ def prefill_forward(
     mask. ``adapters`` adds each row's LoRA deltas to the q/k/v/o
     projections (None: no delta is computed)."""
     c = config
-    if ffn is None:
-        ffn = _default_ffn
+    ffn = ffn_for(c, ffn)
     B, Pn = tokens.shape
-    x = embedding_take(params["embed"], tokens)  # (B, P, H)
+    x = embed_tokens(c, params["embed"], tokens)  # (B, P, H)
     positions = torch.arange(Pn, device=tokens.device)[None, :].expand(B, Pn)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
     pos_valid = positions < lengths.to(torch.long)[:, None]
@@ -285,8 +435,8 @@ def prefill_forward(
         q, k, v = _qkv(c, h, lp, ad)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        out = flash_attention(q, k, v, causal=True)
-        x = x + _out_proj(out.reshape(B, Pn, c.heads * c.head_dim), lp, ad)
+        out = attention_prefill(c, q, k, v)
+        x = x + _out_proj(out.reshape(B, Pn, c.heads * c.head_dim), lp, ad, c)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp, pos_valid)
         ks.append(k)
@@ -294,7 +444,7 @@ def prefill_forward(
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     rows = torch.arange(B, device=tokens.device)
     last = x[rows, (lengths.to(torch.long) - 1).clamp(min=0)]
-    logits = (last @ _w(params["lm_head"])).to(torch.float32)
+    logits = lm_logits(c, last, params["lm_head"])
     return logits, torch.stack(ks), torch.stack(vs)
 
 
@@ -307,10 +457,9 @@ def llama_forward(
     """All-position logits (B, S, V) f32, no KV cache (causal attention);
     every position is a real token."""
     c = config
-    if ffn is None:
-        ffn = _default_ffn
+    ffn = ffn_for(c, ffn)
     B, S = tokens.shape
-    x = embedding_take(params["embed"], tokens)
+    x = embed_tokens(c, params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
     for layer in range(c.layers):
@@ -319,9 +468,9 @@ def llama_forward(
         q, k, v = _qkv(c, h, lp)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        out = flash_attention(q, k, v, causal=True)
-        x = x + out.reshape(B, S, c.heads * c.head_dim) @ _w(lp["wo"])
+        out = attention_prefill(c, q, k, v)
+        x = x + _out_proj(out.reshape(B, S, c.heads * c.head_dim), lp, None, c)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
-    return (x @ _w(params["lm_head"])).to(torch.float32)
+    return lm_logits(c, x, params["lm_head"])

@@ -24,26 +24,43 @@ import torch
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     _apply_rope,
-    _default_ffn,
     _out_proj,
     _qkv,
     _rms_norm,
     _rope,
     adapter_layer,
+    embed_tokens,
+    ffn_for,
     layer_params,
+    lm_logits,
     prefill_forward,
 )
 from langstream_tpu_torch.models.kvquant import cache_scores, cache_values
 from langstream_tpu_torch.models.paged import pool_layer, write_rows
-from langstream_tpu_torch.models.quant import as_weight as _w, embedding_take
 from langstream_tpu_torch.ops.paged_attention import (
     NEG_INF,
     merge_partial_attention,
     paged_attention_multiquery_partial,
     paged_attention_partial,
     paged_attention_reference,
+    shard_mapped_paged_read,
 )
 from langstream_tpu_torch.serving.sampler import speculative_accept
+
+
+def _paged_read(c, fn, q, pool_k, pool_v, tables, lengths, **kw):
+    """A paged read call site (decode and continuation alike): the kernel on
+    everything, or under a mesh on this rank's rows and heads
+    (:func:`shard_mapped_paged_read`), the rows summed back over ``dp``."""
+    if c.shard is None:
+        return fn(q, pool_k, pool_v, tables, lengths, kv_heads=c.kv_heads, **kw)
+    mesh = c.shard.mesh
+    kv_heads = c.kv_heads * (mesh.size("tp") if c.shard.attention else 1)
+    read = shard_mapped_paged_read(fn, mesh, kv_heads=kv_heads, batch=q.shape[0])
+    out = read(q, pool_k, pool_v, tables, lengths, **kw)
+    if read.rows is None:
+        return out
+    return tuple(mesh.dp_assemble(o, read.rows, q.shape[0]) for o in out)
 
 
 def llama_prefill_paged(
@@ -123,8 +140,7 @@ def llama_prefill_continue_paged(
     pool_v)``: the last real suffix token's logits ``(B, V)`` f32, or with
     ``return_all_logits`` every position's ``(B, P2, V)``."""
     c = config
-    if ffn is None:
-        ffn = _default_ffn
+    ffn = ffn_for(c, ffn)
     B, P2 = tokens.shape
     device = tokens.device
     quant = isinstance(pool_k, dict)
@@ -133,7 +149,7 @@ def llama_prefill_continue_paged(
     Kh, G, D = c.kv_heads, c.heads // c.kv_heads, c.head_dim
     starts = start_lengths.to(torch.long)
     suffix_lengths = suffix_lengths.to(torch.long)
-    x = embedding_take(params["embed"], tokens)
+    x = embed_tokens(c, params["embed"], tokens)
     ar = torch.arange(P2, device=device)
     cos, sin = _rope(starts[:, None] + ar[None, :], D, c.rope_theta)
     pos_valid = ar[None, :] < suffix_lengths[:, None]                 # (B, P2)
@@ -207,10 +223,10 @@ def llama_prefill_continue_paged(
         if quant:
             carry = history_gather(ck_l, cv_l, qg_flat)
         else:
-            acc_h, m_h, l_h = paged_attention_multiquery_partial(
-                q.contiguous(), ck_l, cv_l, block_tables, start_lengths,
-                num_read_blocks=num_read_blocks, kv_heads=Kh, head_dim=D,
-                scale=scale,
+            acc_h, m_h, l_h = _paged_read(
+                c, paged_attention_multiquery_partial, q.contiguous(), ck_l, cv_l,
+                block_tables, start_lengths, num_read_blocks=num_read_blocks,
+                head_dim=D, scale=scale,
             )
             # (B, P2, H[, D]) -> the (B, Kh, G, P2[, D]) carry layout
             carry = (
@@ -235,7 +251,7 @@ def llama_prefill_continue_paged(
         out = (o * inv[..., None]).to(x.dtype)       # (B, Kh, G, P2, D)
         del o
         out = out.permute(0, 3, 1, 2, 4).reshape(B, P2, c.heads * D)
-        x = x + _out_proj(out, lp, ad)
+        x = x + _out_proj(out, lp, ad, c)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp, pos_valid)
         # commit this layer's suffix rows (in place, through layer views)
@@ -245,10 +261,10 @@ def llama_prefill_continue_paged(
                    block_tables, start_lengths, commit)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     if return_all_logits:
-        logits = (x @ _w(params["lm_head"])).to(torch.float32)
+        logits = lm_logits(c, x, params["lm_head"])
     else:
         last = x[torch.arange(B, device=device), (suffix_lengths - 1).clamp(min=0)]
-        logits = (last @ _w(params["lm_head"])).to(torch.float32)
+        logits = lm_logits(c, last, params["lm_head"])
     return logits, pool_k, pool_v
 
 
@@ -485,6 +501,7 @@ def llama_decode_chunk_paged(
     commit_inactive: bool = False,
     ffn=None,                     # (h (B,H), lp, active (B,)) -> (B,H); default SwiGLU
     adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
+    commit_range: tuple[int, int] | None = None,  # rows this rank's pool holds
 ):
     """K fused decode steps against the paged pool: the pool is read-only,
     each step's new K/V lands in a chunk buffer ``(L, B, K, Kh, D)``, and
@@ -497,8 +514,7 @@ def llama_decode_chunk_paged(
     final_lengths, pool_k, pool_v)``, or with ``return_packed``
     ``(packed, final_tokens, final_lengths, pool_k, pool_v)``."""
     c = config
-    if ffn is None:
-        ffn = _default_ffn
+    ffn = ffn_for(c, ffn)
     B = tokens0.shape[0]
     device = tokens0.device
     KhD = c.kv_heads * c.head_dim
@@ -513,7 +529,7 @@ def llama_decode_chunk_paged(
     tokens = tokens0
     out_tokens, out_lps = [], []
     for step in range(num_steps):
-        x = embedding_take(params["embed"], tokens)
+        x = embed_tokens(c, params["embed"], tokens)
         positions = base_lengths + step * adv
         cos, sin = _rope(positions, c.head_dim, c.rope_theta)
         for layer in range(c.layers):
@@ -526,11 +542,10 @@ def llama_decode_chunk_paged(
             kbuf[layer, :, step] = k
             vbuf[layer, :, step] = v
             # segment 1: paged pool (partial stats)
-            acc_c, m_c, l_c = paged_attention_partial(
-                q, pool_layer(pool_k, layer), pool_layer(pool_v, layer),
-                block_tables, base_lengths,
-                num_read_blocks=num_read_blocks, kv_heads=c.kv_heads,
-                head_dim=c.head_dim,
+            acc_c, m_c, l_c = _paged_read(
+                c, paged_attention_partial, q, pool_layer(pool_k, layer),
+                pool_layer(pool_v, layer), block_tables, base_lengths,
+                num_read_blocks=num_read_blocks, head_dim=c.head_dim,
             )
             # segment 2: in-chunk buffer rows 0..step (partial stats, tiny)
             qg = q.reshape(B, c.kv_heads, G, c.head_dim)
@@ -553,11 +568,11 @@ def llama_decode_chunk_paged(
                     l_b.reshape(B, c.heads),
                 ),
             ]).to(x.dtype)
-            x = x + _out_proj(out.reshape(B, c.heads * c.head_dim), lp, ad)
+            x = x + _out_proj(out.reshape(B, c.heads * c.head_dim), lp, ad, c)
             h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
             x = x + ffn(h2, lp, active)
         x = _rms_norm(x, params["final_norm"], c.norm_eps)
-        logits = (x @ _w(params["lm_head"])).to(torch.float32)
+        logits = lm_logits(c, x, params["lm_head"])
         nxt, lp_ = sample_fn(logits, counts) if pen else sample_fn(logits)
         nxt = torch.where(active, nxt.to(tokens.dtype), tokens)
         if pen:
@@ -570,10 +585,10 @@ def llama_decode_chunk_paged(
     L = c.layers
     valid = (torch.ones_like(active) if commit_inactive else active)[:, None].expand(
         B, num_steps)
-    pool_k = write_rows(pool_k, kbuf.reshape(L, B, num_steps, KhD),
-                        block_tables, base_lengths, valid)
-    pool_v = write_rows(pool_v, vbuf.reshape(L, B, num_steps, KhD),
-                        block_tables, base_lengths, valid)
+    lo, hi = commit_range or (0, B)
+    for pool, buf in ((pool_k, kbuf), (pool_v, vbuf)):
+        write_rows(pool, buf[:, lo:hi].reshape(L, hi - lo, num_steps, KhD),
+                   block_tables[lo:hi], base_lengths[lo:hi], valid[lo:hi])
     final_lengths = base_lengths + num_steps * adv
     chunk_tokens = torch.stack(out_tokens)
     chunk_lps = torch.stack(out_lps)
@@ -616,10 +631,20 @@ def llama_decode_chunk_dense_pallas(
     cache views as the int8 pool the same way (rows ``(L, B*S/bs, bs,
     Kh*D)``, scales ``(L, B*S/bs, bs, Kh)``) and reads through the int8
     kernel. Block 0 is slot 0's first rows here, not scratch, so inactive
-    slots commit into their own rows past their length instead."""
+    slots commit into their own rows past their length instead. Under a
+    mesh whose ``dp`` splits the slots, the cache holds this rank's slots
+    only: their rows read and commit through it, the other rows' tables
+    name its first slot and are neither read (the read splits the same rows
+    over ``dp``) nor committed."""
     c = config
     quant = isinstance(cache_k, dict)
     L, B, S, Kh, D = (cache_k["q"] if quant else cache_k).shape
+    batch = tokens0.shape[0]
+    rows = None
+    if B != batch:
+        rows = c.shard.mesh.dp_rows(batch) if c.shard is not None else None
+        if rows is None or rows[1] - rows[0] != B:
+            raise ValueError(f"a dense cache of {B} slots cannot serve a batch of {batch}")
     bs = dense_block_size(S, block_size)
     nb = S // bs
 
@@ -635,12 +660,16 @@ def llama_decode_chunk_dense_pallas(
         torch.arange(B, dtype=torch.int32, device=device)[:, None] * nb
         + torch.arange(nb, dtype=torch.int32, device=device)[None, :]
     )
-    rows = window if window is not None else S
-    num_read_blocks = max(1, min(-(-rows // bs), nb))
+    if rows is not None:
+        full = tables[:1].expand(batch, nb).clone()
+        full[rows[0]:rows[1]] = tables
+        tables = full
+    span = window if window is not None else S
+    num_read_blocks = max(1, min(-(-span // bs), nb))
     out = llama_decode_chunk_paged(
         c, params, tokens0, base_lengths, active, pool_k, pool_v, tables,
         sample_fn, num_steps, num_read_blocks=num_read_blocks,
         sample_extras=sample_extras, return_packed=return_packed,
-        commit_inactive=True, ffn=ffn,
+        commit_inactive=True, ffn=ffn, commit_range=rows,
     )
     return out[:-2] + (cache_k, cache_v)

@@ -20,8 +20,14 @@ one ``bmm`` per projection over the experts, and a gather weighted back.
 hold the index form to. No routing step reads a device value on the host
 or takes a shape from the data.
 
-Not here: ``moe_param_specs``, ``shard_moe_params`` and
-``moe_forward_sharded`` (multi-GPU, ROADMAP.md Queue 1 item 13).
+**Expert parallelism** (:func:`moe_param_specs`, :func:`shard_moe_params`,
+``moe_serving_ffn(mesh=)``): each rank holds ``E/ep`` experts with their
+intermediate split on ``tp``. Routing and capacity are computed the same
+on every rank (the activations are replicated over ``ep``), each rank
+computes only its own experts' combine terms, and one sum over the ``ep``
+and ``tp`` groups adds them, which keeps the global-capacity semantics of
+:func:`top2_routing` exactly. The JAX package's all-to-alls become that
+one sum.
 """
 
 from __future__ import annotations
@@ -34,15 +40,23 @@ import torch
 import torch.nn.functional as F
 
 from langstream_tpu_torch._device import require_device
+from typing import Any
+
 from langstream_tpu_torch.models.llama import (
     _apply_rope,
+    _out_proj,
     _qkv,
     _rms_norm,
     _rope,
+    embed_tokens,
     layer_params,
+    lm_logits,
+    local_config,
+    rank_specs,
 )
-from langstream_tpu_torch.models.quant import as_weight, embedding_take
+from langstream_tpu_torch.models.quant import as_weight, quantize_specs
 from langstream_tpu_torch.ops.flash_attention import flash_attention_reference
+from langstream_tpu_torch.parallel.mesh import P, shard_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +75,8 @@ class MoEConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 4096
     dtype: torch.dtype = torch.bfloat16
+    #: this rank's shard under a mesh (see ``models.llama.local_config``)
+    shard: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @classmethod
     def mixtral_8x7b(cls, max_seq_len: int = 4096) -> "MoEConfig":
@@ -127,6 +143,33 @@ def init_moe_params(config: MoEConfig, generator: torch.Generator | None = None,
         "final_norm": norm_init(c.hidden),
         "lm_head": w_init(c.hidden, c.vocab_size, fan_in=c.hidden),
     }
+
+
+def moe_param_specs(config: MoEConfig) -> dict:
+    """Expert axis on ``ep``, Megatron TP inside each expert."""
+    return {
+        "embed": P(None, None),
+        "layers": {
+            "attn_norm": P(None, None),
+            "wq": P(None, None, "tp"),
+            "wk": P(None, None, "tp"),
+            "wv": P(None, None, "tp"),
+            "wo": P(None, "tp", None),
+            "mlp_norm": P(None, None),
+            "router": P(None, None, None),
+            "w_gate": P(None, "ep", None, "tp"),
+            "w_up": P(None, "ep", None, "tp"),
+            "w_down": P(None, "ep", "tp", None),
+        },
+        "final_norm": P(None),
+        "lm_head": P(None, "tp"),
+    }
+
+
+def shard_moe_params(params: dict, config: MoEConfig, mesh) -> dict:
+    """This rank's shards of the full ``params`` (int8 trees too)."""
+    specs = rank_specs(moe_param_specs(config), config, mesh)
+    return shard_tree(params, quantize_specs(specs, params), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -238,33 +281,48 @@ def moe_ffn(
     w_down: torch.Tensor,     # (E, I, H)
     capacity: int,
     valid: torch.Tensor | None = None,  # (B, S) bool — see top2_gating
+    mesh=None,
 ):
     """Top-2 MoE feed-forward in index form; returns ``(output (B, S, H),
     aux_loss)``. The combine weights are cast to ``x``'s dtype, as the JAX
     package casts its combine tensor, and the two weighted expert outputs
-    sum in f32."""
+    sum in f32.
+
+    Under a ``mesh`` the expert weights are this rank's: ``E/ep`` experts
+    from ``mesh.index("ep") * E/ep`` on, their intermediate split on
+    ``tp``. The routing is the whole batch's, the same on every rank; the
+    rank keeps only the choices that land on its experts and the f32 sum of
+    every rank's terms over ``ep`` and ``tp`` is the output."""
     B, S, H = x.shape
     N = B * S
-    E = router_w.shape[1]
+    E_local = w_gate.shape[0]
+    lo = 0 if mesh is None else mesh.index("ep") * E_local
     xf = x.reshape(N, H)
     logits = xf.to(torch.float32) @ router_w
     experts, slots, weights, aux = top2_routing(
         logits, capacity, None if valid is None else valid.reshape(N))
+    mine = slots < capacity
+    if mesh is not None:
+        mine = mine & (experts >= lo) & (experts < lo + E_local)
     # row e*C + slot of the expert-major buffer; E*C is the thrown-away row
-    rows = torch.where(slots < capacity, experts * capacity + slots,
-                       torch.full_like(slots, E * capacity))
-    xe = x.new_zeros((E * capacity + 1, H))
+    rows = torch.where(mine, (experts - lo) * capacity + slots,
+                       torch.full_like(slots, E_local * capacity))
+    xe = x.new_zeros((E_local * capacity + 1, H))
     xe.index_copy_(0, rows[:, 0], xf)
     xe.index_copy_(0, rows[:, 1], xf)
-    xe = xe[:-1].view(E, capacity, H)
+    xe = xe[:-1].view(E_local, capacity, H)
     gate = F.silu(torch.bmm(xe, w_gate))
     up = torch.bmm(xe, w_up)
-    ye = torch.bmm(gate * up, w_down).view(E * capacity, H)
-    # a dropped choice gathers some row with weight 0
-    y = ye[rows.clamp(max=E * capacity - 1)]
+    ye = torch.bmm(gate * up, w_down).view(E_local * capacity, H)
+    # a dropped (or another rank's) choice gathers some row with weight 0
+    y = ye[rows.clamp(max=E_local * capacity - 1)]
+    if mesh is not None:
+        weights = torch.where(mine, weights, torch.zeros_like(weights))
     w = weights.to(x.dtype).to(torch.float32)
-    out = (w[..., None] * y.to(torch.float32)).sum(dim=1).to(x.dtype)
-    return out.view(B, S, H), aux
+    out = (w[..., None] * y.to(torch.float32)).sum(dim=1)
+    if mesh is not None:
+        out = mesh.sum(out, "ep", "tp")
+    return out.to(x.dtype).view(B, S, H), aux
 
 
 def moe_ffn_reference(x, router_w, w_gate, w_up, w_down, capacity, valid=None):
@@ -280,14 +338,15 @@ def moe_ffn_reference(x, router_w, w_gate, w_up, w_down, capacity, valid=None):
     return torch.einsum("bsec,ech->bsh", combine.to(x.dtype), ye), aux
 
 
-def moe_serving_ffn(config: MoEConfig):
+def moe_serving_ffn(config: MoEConfig, mesh=None):
     """The FFN hook of the Llama serving paths (``ffn=`` on the prefill,
     continuation, decode and verify entry points): routes each position
     through the top-2 expert mix. Takes ``(B, H)`` decode activations with
     a ``(B,)`` active mask or ``(B, S, H)`` prefill activations with a
     ``(B, S)`` real-token mask, and int8 expert weights (dequantized per
     layer by ``as_weight``, as the JAX package does). Capacity follows the
-    batch's padded shape: ``B`` is the slot count in decode."""
+    batch's padded shape: ``B`` is the slot count in decode. Under a
+    ``mesh`` the layer's experts are this rank's (see :func:`moe_ffn`)."""
 
     def ffn(h: torch.Tensor, lp: dict, valid: torch.Tensor | None = None) -> torch.Tensor:
         squeeze = h.dim() == 2
@@ -297,7 +356,7 @@ def moe_serving_ffn(config: MoEConfig):
         B, S, _ = x.shape
         out, _aux = moe_ffn(
             x, lp["router"], as_weight(lp["w_gate"]), as_weight(lp["w_up"]),
-            as_weight(lp["w_down"]), config.capacity(B * S), valid=valid,
+            as_weight(lp["w_down"]), config.capacity(B * S), valid=valid, mesh=mesh,
         )
         return out[:, 0, :] if squeeze else out
 
@@ -305,18 +364,19 @@ def moe_serving_ffn(config: MoEConfig):
 
 
 def moe_forward(config: MoEConfig, params: dict, tokens: torch.Tensor,
-                *, attention=None):
+                *, attention=None, mesh=None):
     """All-position logits ``(B, S, V)`` f32 and the summed aux loss, no KV
     cache. ``attention(q, k, v)`` defaults to dense causal attention
     (:func:`~langstream_tpu_torch.ops.flash_attention.flash_attention_reference`,
     the JAX package's default ``dense_attention``); every position is a
-    real token."""
+    real token. Under a ``mesh``, ``config`` is this rank's local config
+    and ``params`` its shards (:func:`moe_forward_sharded`)."""
     c = config
     B, S = tokens.shape
     if attention is None:
         attention = partial(flash_attention_reference, causal=True)
     capacity = c.capacity(B * S)
-    x = embedding_take(params["embed"], tokens)
+    x = embed_tokens(c, params["embed"], tokens)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -325,17 +385,27 @@ def moe_forward(config: MoEConfig, params: dict, tokens: torch.Tensor,
         h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
         q, k, v = _qkv(c, h, lp)
         out = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
-        x = x + out.reshape(B, S, c.heads * c.head_dim) @ as_weight(lp["wo"])
+        x = x + _out_proj(out.reshape(B, S, c.heads * c.head_dim), lp, None, c)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         ffn, aux = moe_ffn(
             h2, lp["router"], as_weight(lp["w_gate"]), as_weight(lp["w_up"]),
-            as_weight(lp["w_down"]), capacity,
+            as_weight(lp["w_down"]), capacity, mesh=mesh,
         )
         x = x + ffn
         aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
-    logits = (x @ as_weight(params["lm_head"])).to(torch.float32)
-    return logits, aux_total
+    return lm_logits(c, x, params["lm_head"]), aux_total
+
+
+def moe_forward_sharded(config: MoEConfig, params: dict, tokens: torch.Tensor,
+                        mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE forward on this rank: ``params`` the full tree (this rank
+    keeps its shards, :func:`shard_moe_params`), attention per rank over
+    its heads on ``tp``, the experts on ``ep``; every rank returns the
+    whole batch's logits and the aux loss."""
+    local = local_config(config, mesh)
+    return moe_forward(local, shard_moe_params(params, config, mesh), tokens,
+                       mesh=mesh)
 
 
 def moe_param_count(config: MoEConfig) -> int:

@@ -88,6 +88,17 @@ def init_paged_kv_cache_int8(config, layout: PagedLayout, device="cuda"):
     return make(), make()
 
 
+def paged_cache_spec(mesh_axes: tuple[str, ...]):
+    """Pool (L, nb, bs, Kh*D): the trailing fused head axis shards on tp
+    (at head boundaries). Blocks are NOT sharded on dp (any slot may use
+    any block), so paged serving shards the model, not the pool rows. An
+    int8 pool's scales (L, nb, bs, Kh) take the same spec."""
+    from langstream_tpu_torch.parallel.mesh import P
+
+    tp = "tp" if "tp" in mesh_axes else None
+    return P(None, None, None, tp)
+
+
 def pool_layer(pool, layer: int):
     """One layer's ``(nb, bs, ...)`` view of a pool (either layout)."""
     if isinstance(pool, dict):

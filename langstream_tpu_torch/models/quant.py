@@ -54,6 +54,26 @@ def embedding_take(embed, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens]
 
 
+def quantize_specs(specs, params):
+    """Lift a PartitionSpec tree over a (partially) quantized param tree.
+
+    Each QTensor leaf's spec ``P`` becomes ``QTensor(q=P, s=P')`` where
+    ``P'`` drops the mesh axis on dimensions the scale reduces to size 1:
+    the scale is replicated along the contraction axis, which is the axis
+    TP row-sharding splits. Column-sharded weights keep the axis: their
+    scales are per-output-channel and shard with the outputs."""
+    from langstream_tpu_torch.parallel.mesh import P
+
+    if isinstance(params, dict):
+        return {k: quantize_specs(specs[k], v) for k, v in params.items()}
+    if not isinstance(params, QTensor):
+        return specs
+    entries = list(specs) + [None] * (params.q.dim() - len(specs))
+    s_entries = [None if params.s.shape[i] == 1 else entries[i]
+                 for i in range(params.q.dim())]
+    return QTensor(q=specs, s=P(*s_entries), dtype=params.dtype)
+
+
 def quantize_tensor(w: torch.Tensor, axis: int) -> QTensor:
     """Symmetric per-channel int8: scale reduces over ``axis`` (the
     contraction dimension of the matmul that consumes ``w``)."""

@@ -643,3 +643,35 @@ def paged_attention_multiquery_partial(
 paged_attention_partial.launches = 0
 _paged_attention_partial_q8.launches = 0
 paged_attention_multiquery_partial.launches = 0
+
+
+def shard_mapped_paged_read(fn, mesh, *, kv_heads: int, batch: int):
+    """The paged read kernels per rank (port of the JAX package's
+    ``shard_mapped_paged_read``, shared by the decode and the continuation
+    call sites): slots on ``dp``, heads on ``tp`` (the pool's fused Kh*D
+    axis splits on head boundaries), an axis degrading to replicated when
+    the batch does not divide ``dp`` or the KV heads ``kv_heads`` (global)
+    do not divide ``tp``.
+
+    Returns ``read(q, k_pool, v_pool, tables, lengths, **kw)``: ``q`` and the
+    pools hold this rank's heads when they split (all heads otherwise),
+    ``tables`` and ``lengths`` the whole batch's. It runs ``fn`` on this
+    rank's rows and heads (``kv_heads`` passed as the local count) and
+    returns this rank's block of each output; ``read.rows`` is the rows'
+    ``(lo, hi)``, None when dp degrades (every row)."""
+    dp = mesh.size("dp")
+    tp = mesh.size("tp")
+    split_tp = tp > 1 and kv_heads % tp == 0
+    rows = mesh.dp_rows(batch)
+    local_kh = kv_heads // tp if split_tp else kv_heads
+
+    def read(q, k_pool, v_pool, tables, lengths, **kw):
+        if rows is not None:
+            lo, hi = rows
+            q, tables, lengths = q[lo:hi], tables[lo:hi], lengths[lo:hi]
+        return fn(q, k_pool, v_pool, tables, lengths, kv_heads=local_kh, **kw)
+
+    read.rows = rows
+    read.split = ("dp" if rows is not None and dp > 1 else None,
+                  "tp" if split_tp else None)
+    return read

@@ -42,8 +42,8 @@ class EmbeddingEngine:
                       device="cuda") -> "EmbeddingEngine":
         if mesh:
             raise NotImplementedError(
-                "not in this port yet: mesh: multi-GPU serving is ROADMAP.md "
-                "Queue 1 item 13")
+                "not in this port yet: mesh: the embeddings engine's mesh "
+                "(encoder_param_specs, dp fan-out) is ROADMAP.md Queue 1 item 13b")
         key = (model, tokenizer, checkpoint, str(torch.device(device)))
         with cls._instances_lock:
             if key not in cls._instances:

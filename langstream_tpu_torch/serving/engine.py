@@ -57,6 +57,14 @@ Execution model:
   per step. A plain K=1 chunk every ``_spec_cal_every`` steps measures the
   uplift; below 1 speculation turns off until ``_spec_retry_plain`` plain
   chunks have run (``stats()["speculative"]``).
+- Under ``mesh`` every rank is a process (``torch.distributed``), serving
+  Megatron TP, dp over the attention reads and expert parallelism on its
+  shards (``models/llama.py``, ``models/moe.py``). Rank 0 leads: it
+  consumes requests, admits, samples and, before every dispatch,
+  broadcasts a step descriptor that the other ranks replay on their own
+  engines (:mod:`langstream_tpu_torch.serving.lockstep`); only the leader
+  fetches. A broken group fails the work in flight and stops the engine.
+  ``sp`` is ROADMAP.md Queue 1 item 13b.
 - Device work runs on one executor thread, so the asyncio loop stays live.
 - ``warmup-on-start``: the first request starts one shared warmup task (a
   lone greedy probe, then a concurrent wave) and every early request awaits
@@ -177,7 +185,9 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import json
 import logging
+import math
 import os
 import re
 import threading
@@ -210,8 +220,11 @@ from langstream_tpu_torch.models.kvquant import (
 from langstream_tpu_torch.models.llama import (
     LlamaConfig,
     init_llama_params,
+    llama_param_specs,
+    local_config,
     param_count,
     prefill_forward,
+    rank_specs,
 )
 from langstream_tpu_torch.models.llama_paged import (
     llama_decode_chunk_dense_pallas,
@@ -224,6 +237,7 @@ from langstream_tpu_torch.models.llama_paged import (
 from langstream_tpu_torch.models.moe import (
     MoEConfig,
     init_moe_params,
+    moe_param_specs,
     moe_serving_ffn,
 )
 from langstream_tpu_torch.models.paged import (
@@ -238,6 +252,13 @@ from langstream_tpu_torch.models.quant import (
     init_moe_params_q8,
     quantize_llama_params,
     quantize_moe_params,
+    quantize_specs,
+)
+from langstream_tpu_torch.parallel.mesh import (
+    PartitionSpec,
+    make_mesh,
+    rank_device,
+    shard_tree,
 )
 from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
 from langstream_tpu_torch.ops.flash_attention import flash_attention
@@ -295,6 +316,7 @@ from langstream_tpu_torch.serving.incident import (
 )
 from langstream_tpu_torch.serving.journal import RequestJournal, request_entry
 from langstream_tpu_torch.serving.journey import JOURNEYS
+from langstream_tpu_torch.serving.lockstep import LockstepBroken, LockstepLeader
 from langstream_tpu_torch.serving.prefixstore import PrefixStore, PrefixStoreSpec
 from langstream_tpu_torch.serving.qos import (
     PRIORITY_CLASSES,
@@ -520,9 +542,16 @@ class ServingConfig:
 
 #: settings this slice does not serve: (predicate, message)
 _UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
-    (lambda c: bool(c.mesh),
-     "mesh: multi-GPU serving (expert parallelism too) is ROADMAP.md Queue 1 item 13"),
+    (lambda c: dict(c.mesh).get("sp", 1) != 1,
+     "mesh axis sp: sequence parallelism (ring/Ulysses prefill) is ROADMAP.md "
+     "Queue 1 item 13b"),
 )
+
+
+def _multi_rank(config: ServingConfig) -> bool:
+    """A mesh of more than one rank (every such mesh is multi-process)."""
+    sizes = [n for _, n in config.mesh]
+    return -1 in sizes or math.prod(sizes) > 1
 
 #: accepted settings that change only latency here (the kernel choices the
 #: JAX engine makes between Pallas and XLA paths); logged once when set
@@ -578,6 +607,27 @@ def _check_supported(config: ServingConfig) -> None:
             "adapter-store requires kv-layout=paged (batched ragged adapter "
             "application rides the paged decode/prefill programs)"
         )
+    if _multi_rank(config):
+        # lockstep followers replay only the model dispatches: no descriptor
+        # carries adapter rows, KV tier moves, or LSKV exports and imports
+        if config.adapter_store is not None and config.adapter_store.enabled:
+            raise ValueError(
+                "adapter-store is incompatible with multi-host "
+                "lockstep (followers replay positional dispatch "
+                "descriptors that carry no adapter rows)"
+            )
+        if config.prefix_store is not None and config.prefix_store.enabled:
+            raise ValueError(
+                "prefix-store is incompatible with a multi-rank mesh: the "
+                "lockstep followers replay no descriptor for KV tier moves "
+                "(demotion gathers and promotion scatters of pool blocks)"
+            )
+        if config.pool_role != "combined":
+            raise ValueError(
+                "pool-role prefill/decode is incompatible with a multi-rank "
+                "mesh: the lockstep followers replay no descriptor for LSKV "
+                "exports and imports"
+            )
     if config.prefix_store is not None and config.prefix_store.enabled:
         if config.kv_layout != "paged":
             raise ValueError(
@@ -829,9 +879,11 @@ class TorchServingEngine:
 
     def __init__(self, config: ServingConfig, *, device="cuda",
                  params: dict | None = None,
-                 streams: StreamCancelRegistry | None = None):
+                 streams: StreamCancelRegistry | None = None,
+                 lockstep_role: str | None = None):
         _check_supported(config)
         self.device = require_device(device, "TorchServingEngine")
+        self._init_mesh(config, lockstep_role)
         self.config = config
         self.is_moe = config.model in _MOE_MODELS
         factory = (_MOE_MODELS if self.is_moe else _MODEL_CONFIGS)[config.model]
@@ -866,6 +918,12 @@ class TorchServingEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(config.seed)
         self._init_model(params)
+        # lockstep: the dispatch counter and, on the leader, the tokens each
+        # dispatch sampled by dispatch number (held against the followers')
+        self._ls_seq = 0
+        self._ls_carry = None  # the last decode chunk's device tokens
+        self._ls_pending: dict[int, tuple[str, int]] = {}
+        self.lockstep_tokens: dict[int, tuple[str, np.ndarray]] = {}
 
         self.slots = [_Slot() for _ in range(config.slots)]
         # admission: FIFO, or the QoS scheduler under a qos section
@@ -1138,6 +1196,91 @@ class TorchServingEngine:
     # model + cache
     # ------------------------------------------------------------------
 
+    def _init_mesh(self, config: ServingConfig, lockstep_role: str | None) -> None:
+        """Under ``mesh``: lead the lockstep group (rank 0 of a joined
+        ``torch.distributed`` world of more than one rank; the followers
+        must be connected before the mesh's groups are made, which every
+        rank joins), make this rank's mesh and take this rank's card."""
+        self.mesh = None
+        self._lockstep = None
+        self.lockstep_role = lockstep_role
+        if not config.mesh:
+            return
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if lockstep_role != "follower" and world > 1:
+            if rank != 0:
+                raise ValueError(
+                    f"rank {rank} of a lockstep group replays the leader's "
+                    f"dispatches: build it through LockstepFollower")
+            port = int(os.environ.get("LS_LOCKSTEP_PORT", "0")) or None
+            self._lockstep = LockstepLeader(
+                {"config_json": json.dumps(config.to_dict())},
+                expected_followers=world - 1, port=port,
+                token=os.environ.get("LS_LOCKSTEP_TOKEN", ""),
+            )
+            self.lockstep_role = "leader"
+            log.info("lockstep leader on :%d awaiting %d followers",
+                     self._lockstep.port, world - 1)
+            self._lockstep.wait_ready()
+        self.mesh = make_mesh(dict(config.mesh))
+        self.device = rank_device(self.device, self.mesh.rank)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    def mesh_section(self) -> dict[str, Any] | None:
+        """The mesh, this rank's place in it, its backend and why, and the
+        lockstep role (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        return {**self.mesh.describe(), "lockstep-role": self.lockstep_role,
+                "lockstep-dispatches": self._ls_seq,
+                "attention-split": bool(self.model_config.shard.attention)}
+
+    def _shard_params(self, params: dict, mc) -> dict:
+        """This rank's shards of a full tree, by the model's specs with
+        absent mesh axes removed: only ``ep`` may be absent (the experts
+        are then replicated, with a warning); any other absent axis is a
+        misconfigured mesh (the JAX engine's ``_present`` rule)."""
+        axes = set(self.mesh.axis_names)
+        base = moe_param_specs(mc) if self.is_moe else llama_param_specs(mc)
+
+        def present(entry):
+            if entry is None:
+                return None
+            names = entry if isinstance(entry, tuple) else (entry,)
+            for a in names:
+                if a in axes:
+                    continue
+                if a != "ep":
+                    raise ValueError(
+                        f"model {self.config.model!r} shards over mesh "
+                        f"axis {a!r} but the configured mesh has axes "
+                        f"{sorted(axes)}; add {a!r} to the mesh"
+                    )
+                log.warning("mesh has no 'ep' axis: expert weights will be "
+                            "replicated on every device")
+            kept = tuple(a for a in names if a in axes)
+            if isinstance(entry, tuple):
+                return kept or None
+            return kept[0] if kept else None
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                return {k: walk(v) for k, v in tree.items()}
+            return PartitionSpec(*(present(e) for e in tree))
+
+        specs = rank_specs(walk(base), mc, self.mesh)
+        return shard_tree(params, quantize_specs(specs, params), self.mesh)
+
+    def _dense_slots(self) -> int:
+        """The slots this rank's dense cache holds: its share of the slots
+        on ``dp`` (the cache spec), or all of them when they do not split."""
+        rows = None if self.mesh is None else self.mesh.dp_rows(self.config.slots)
+        return self.config.slots if rows is None else rows[1] - rows[0]
+
     @torch.no_grad()
     def _init_model(self, params: dict | None) -> None:
         mc, dev = self.model_config, self.device
@@ -1170,6 +1313,13 @@ class TorchServingEngine:
             params = _to_device(params, dev)
             if int8 and not isinstance(params["layers"]["wq"], QTensor):
                 params = quantize(params)
+        if self.mesh is not None:
+            # every rank built the full tree (the same seed or checkpoint);
+            # it keeps its shards and serves them through a local config
+            params = self._shard_params(params, mc)
+            self.global_model_config = mc
+            self.model_config = mc = local_config(mc, self.mesh)
+            self._ffn = moe_serving_ffn(mc, mesh=self.mesh) if self.is_moe else None
         self.params = params
         self.block_mgr = None
         self.paged_layout = None
@@ -1189,10 +1339,11 @@ class TorchServingEngine:
         elif self.config.kv_quantize == "int8":
             # (L, slots, S, Kh, D) int8 rows and (L, slots, S, Kh) scales: the
             # dense decode views them as the int8 pool layout with no copy
+            # (under a mesh this rank's slots on dp and heads on tp)
             self.cache_k, self.cache_v = init_kv_cache_int8(
-                mc, self.config.slots, device=dev)
+                mc, self._dense_slots(), device=dev)
         else:
-            shape = (mc.layers, self.config.slots, mc.max_seq_len,
+            shape = (mc.layers, self._dense_slots(), mc.max_seq_len,
                      mc.kv_heads, mc.head_dim)
             self.cache_k = torch.zeros(shape, dtype=mc.dtype, device=dev)
             self.cache_v = torch.zeros(shape, dtype=mc.dtype, device=dev)
@@ -1754,7 +1905,8 @@ class TorchServingEngine:
         ``_warmup_probe`` is internal: warmup's own requests skip the warmup
         gate (they are the warmup) and QoS policy."""
         if self._stop:
-            raise RuntimeError("serving engine is stopped (closed)")
+            raise RuntimeError(
+                "serving engine is stopped (closed or lockstep group broken)")
         self._event_loop = self._event_loop or asyncio.get_running_loop()
         options = options or {}
         if self.config.warmup_on_start and not _warmup_probe:
@@ -1968,6 +2120,8 @@ class TorchServingEngine:
             out["slo"] = slo
         if self.config.streaming:
             out["streaming"] = self.streaming_section()
+        if self.mesh is not None:
+            out["mesh"] = self.mesh_section()
         out["deadline-sheds"] = self.deadline_sheds
         out["warmup"] = {"state": self._warmup_state(), **(self._warmup_result or {})}
         return out
@@ -2287,6 +2441,8 @@ class TorchServingEngine:
             await self._loop_task
         self._executor.shutdown(wait=True)
         self._fetch_executor.shutdown(wait=True)
+        if self._lockstep is not None:
+            self._lockstep.close()  # "stop": the followers' replay ends
         if self.prefix_store is not None:
             self.prefix_store.close()
         if self.adapter_store is not None:
@@ -2522,14 +2678,27 @@ class TorchServingEngine:
                 else:
                     await self._decode_burst(loop, active)
             except Exception as e:  # device/runtime error
-                if self._resource_exhausted(e) and self._maybe_pool_shrink(e):
+                if (self._lockstep is None and self._resource_exhausted(e)
+                        and self._maybe_pool_shrink(e)):
                     # memory pressure is a load signal: the budget shrank,
                     # the victims requeued front of class, nothing failed
                     continue
                 # otherwise fail the in-flight work, free the slots, keep
                 # serving (callers see the exception)
                 log.exception("serving engine step failed")
+                if self._lockstep is not None and not isinstance(e, LockstepBroken):
+                    # leading a group: any step failure is group-fatal (the
+                    # followers may have replayed collectives this process
+                    # aborted mid-step, or a collective timed out on a dead
+                    # peer), so wrap it in the one loud type
+                    e = LockstepBroken(f"multi-host step failed: {type(e).__name__}: {e}")
                 self._fail_inflight(e)
+                if isinstance(e, LockstepBroken):
+                    # a lost follower is unrecoverable for this group: stop
+                    # serving, so the slice restarts as a unit
+                    log.error("lockstep group broken; engine stops serving")
+                    self.flight.event("lockstep-divergence", error=str(e)[:200])
+                    self._stop = True
         if self._pending_chunk is not None:
             # a stop between a pipelined burst and the next pass leaves one
             # chunk in flight: apply it, so dispatches and fetches stay 1:1
@@ -3790,7 +3959,8 @@ class TorchServingEngine:
         the prefill engine then decodes itself on the combined path (the
         snapshot is the whole request state)."""
         if self._stop:
-            raise RuntimeError("serving engine is stopped (closed)")
+            raise RuntimeError(
+                "serving engine is stopped (closed or lockstep group broken)")
         if self._pool_role == "prefill" and not local_fallback:
             raise kvtransfer.LayoutMismatch("prefill-role engine does not accept KV imports")
         if self.block_mgr is None:
@@ -4378,6 +4548,30 @@ class TorchServingEngine:
         return self._tables_dev_cache.get_or_put(tables.tobytes(),
                                                  lambda: self._upload(tables))
 
+    def _ls_broadcast(self, op: str, **fields) -> int | None:
+        """Leader: broadcast the descriptor of the dispatch about to run,
+        with the generator's state (every rank samples the same gathered
+        logits from it); returns the dispatch's number, None without a
+        lockstep group. ``None`` fields are left out."""
+        if self._lockstep is None:
+            return None
+        seq = self._ls_seq
+        self._ls_seq += 1
+        desc = {"op": op}
+        desc.update((k, v) for k, v in fields.items() if v is not None)
+        desc["gen"] = self._generator.get_state().numpy()  # uint8, a copy
+        self._lockstep.broadcast(desc)
+        return seq
+
+    def _ls_note(self, seq: int | None, op: str, tokens: np.ndarray) -> None:
+        """Leader: the tokens dispatch ``seq`` sampled (the last 4,096
+        dispatches), to hold against a follower's."""
+        if seq is None:
+            return
+        self.lockstep_tokens[seq] = (op, tokens.copy())
+        if len(self.lockstep_tokens) > 4096:
+            del self.lockstep_tokens[min(self.lockstep_tokens)]
+
     @torch.no_grad()
     def _run_prefill(self, padded, lengths, slot_ids, tables, temps, topks,
                      topps, mode, cont=None, ad_rows=None):
@@ -4389,6 +4583,14 @@ class TorchServingEngine:
         seconds the copy waited for the card and the dispatch's span on
         the card (None on the CPU)."""
         self._fault("prefill")
+        op = "prefill" if cont is None else "prefill_continue"
+        seq = self._ls_broadcast(
+            op, tokens=padded, lengths=lengths, slot_ids=np.asarray(slot_ids),
+            tables=tables, temps=temps, topks=topks, topps=topps,
+            sampler_mode=[bool(x) for x in mode],
+            starts=None if cont is None else cont[0],
+            nrb=None if cont is None else int(cont[1]),
+        )
         mc, up = self.model_config, self._upload
         start = self._timing_event()
         tokens = up(padded)
@@ -4414,11 +4616,17 @@ class TorchServingEngine:
             logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t,
                                              ffn=self._ffn)
             Pn = tokens.shape[1]
-            if commit_t is None:
-                sel = up(slot_ids)
+            # the rows this rank's cache holds (its slots on dp), at their
+            # places in it
+            lo = 0
+            if self._dense_slots() != self.config.slots:
+                lo = self.mesh.dp_rows(self.config.slots)[0]
+            mine = commit & (slot_ids >= lo) & (slot_ids < lo + self._dense_slots())
+            if mine.all():
+                sel = up(slot_ids - lo)
             else:
-                sel = up(slot_ids[commit])
-                keep = up(np.flatnonzero(commit))
+                sel = up(slot_ids[mine] - lo)
+                keep = up(np.flatnonzero(mine))
                 ks, vs = ks[:, keep], vs[:, keep]
             for cache, rows in ((self.cache_k, ks), (self.cache_v, vs)):
                 if is_quant_cache(cache):
@@ -4436,6 +4644,7 @@ class TorchServingEngine:
         host = packed.cpu().numpy()  # the prefill's one device-to-host copy
         wait_s = time.monotonic() - t0
         B = len(lengths)
+        self._ls_note(seq, op, host[:B])
         return host[:B], host[B:].view(np.float32), wait_s, self._span_s(start, end)
 
     # ------------------------------------------------------------------
@@ -4748,6 +4957,23 @@ class TorchServingEngine:
         dispatch (None without a store). Returns (fetch handle, final tokens, final
         lengths), the last two on the device."""
         t0 = time.monotonic()
+        seq = None
+        if self._lockstep is not None:
+            op = "decode" if isinstance(tokens, np.ndarray) else "decode_cont"
+            if op == "decode_cont" and tokens is not self._ls_carry:
+                # a follower chains its own last chunk's outputs
+                raise RuntimeError("a chained decode chunk must follow the last one dispatched")
+            pen_fields = {}
+            if penalties is not None:
+                pen_fields = dict(pen=True, pres=penalties[0], freq=penalties[1],
+                                  counts=penalties[2])
+            seq = self._ls_broadcast(
+                op, tokens=tokens if op == "decode" else None,
+                lengths=lengths if op == "decode" else None,
+                active=sampler[0], temps=sampler[1], topks=sampler[2], topps=sampler[3],
+                tables=tables, window=None if window is None else int(window),
+                k=int(K), sampler_mode=[bool(x) for x in mode], **pen_fields,
+            )
         self.profiler.on_decode_chunk()
         start = self._timing_event()
         if isinstance(tokens, np.ndarray):
@@ -4775,6 +5001,9 @@ class TorchServingEngine:
         self._decode_dispatches += 1
         self._decode_steps += K
         handle = self._start_fetch(out[0], start)
+        if seq is not None:
+            self._ls_carry = out[1]
+            self._ls_pending[id(handle[0])] = (op, seq)
         self._decode_launch_s += time.monotonic() - t0
         return handle, out[1], out[2]
 
@@ -4828,6 +5057,9 @@ class TorchServingEngine:
         self._decode_fetches += 1
         B = self.config.slots
         n = K * B
+        if self._ls_pending:
+            op, seq = self._ls_pending.pop(id(view), (None, None))
+            self._ls_note(seq, op, flat[:n].reshape(K, B))
         return (flat[:n].reshape(K, B), flat[n:].view(np.float32).reshape(K, B), wait_s,
                 self._span_s(start, event))
 
@@ -5072,6 +5304,11 @@ class TorchServingEngine:
         parts, the seconds the fetch waited and the step's span on the card
         (None on the CPU)."""
         S = self.model_config.max_seq_len
+        seq = self._ls_broadcast(
+            "spec_step", ctx_rows=ctx_rows, ctx_vals=ctx_vals, current=current,
+            lengths=lengths, active=active_mask, tables=tables, nrb=int(nrb),
+            sampler_mode=[bool(x) for x in mode], temps=temps, topks=topks, topps=topps,
+        )
         up = self._upload
         start = self._timing_event()
         if self._ctx_dev is None:
@@ -5093,6 +5330,7 @@ class TorchServingEngine:
         self._spec_dispatches += 1
         end = self._timing_event()
         parts, wait_s = self._fetch_spec(packed, self.config.speculative_drafts + 1)
+        self._ls_note(seq, "spec_step", parts[0])
         return parts, wait_s, self._span_s(start, end)
 
     # ------------------------------------------------------------------

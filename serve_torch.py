@@ -42,6 +42,13 @@ platform's (:data:`langstream_tpu.serving.journey.JOURNEYS`,
 prefill ran in one package and decode in the other reads as one timeline.
 The mirror is an append, as wait-free as the port's own.
 
+A multi-host slice of the port (a ``mesh`` over ``LS_SLICE_HOSTS`` pods)
+starts through the pod's own slice seam: :func:`register` points
+``langstream_tpu.runtime.pod.maybe_join_slice`` and
+``_run_slice_follower`` at the port's (:data:`SLICE_SEAM`), so every pod
+joins the ``torch.distributed`` group and the followers replay the
+leader's dispatches behind the pod's info server.
+
 The Prometheus plane crosses the same way: the port's engines build their
 reporters from ``langstream_tpu_torch.core.metrics.REPORTER``, which
 :func:`register` points at the platform's reporter class, so the pod's one
@@ -170,6 +177,31 @@ def _with_port(name: str, jax_fn, port_engine):
     return seam
 
 
+#: the pod's slice functions (``langstream_tpu/runtime/pod.py`` calls them
+#: from ``run_agent``) that :func:`register` points at the port's
+SLICE_SEAM = ("maybe_join_slice", "_run_slice_follower")
+
+
+def _slice_seam(name: str, jax_fn, device):
+    """The port's ``name`` of the pod's slice seam, on ``device``: joining
+    the ``torch.distributed`` group, or replaying the leader's dispatches
+    behind the pod's own info server."""
+    from langstream_tpu.runtime import pod
+    from langstream_tpu_torch.runtime import pod as port_pod
+
+    if name == "maybe_join_slice":
+        def seam():
+            port_pod.maybe_join_slice(device)
+    else:
+        async def seam(hosts, ordinal):
+            await port_pod.run_slice_follower(hosts, ordinal, serve_info=pod._serve_info,
+                                              device=device)
+    seam.__name__ = name
+    seam.__wrapped__ = jax_fn
+    seam.with_port = True
+    return seam
+
+
 def _platform_trace() -> str | None:
     """The platform's ambient trace as a header value (None outside one)."""
     from langstream_tpu.core.tracing import current_context
@@ -184,9 +216,10 @@ def register(device="cuda") -> None:
     the platform's stream registry and its requests under the platform's
     ambient trace; mirror the port's journey edges and spans into the
     platform's ledger and span buffer; build the port's metric series in
-    the platform's registry; and point the pod's functions
-    (:data:`POD_SEAM`) at the port's engines as well as the JAX package's.
-    A second call changes nothing more: the pod functions are wrapped
+    the platform's registry; point the pod's functions
+    (:data:`POD_SEAM`) at the port's engines as well as the JAX package's,
+    and the pod's slice functions (:data:`SLICE_SEAM`) at the port's. A
+    second call changes nothing more: the pod functions are wrapped
     once."""
     import langstream_tpu.serving.engine as jax_engine
     from langstream_tpu.agents.services import register_provider
@@ -212,6 +245,12 @@ def register(device="cuda") -> None:
         current = getattr(jax_engine, name)
         if not getattr(current, "with_port", False):
             setattr(jax_engine, name, _with_port(name, current, port_engine))
+    from langstream_tpu.runtime import pod
+
+    for name in SLICE_SEAM:
+        current = getattr(pod, name)
+        if not getattr(current, "with_port", False):
+            setattr(pod, name, _slice_seam(name, current, device))
 
 
 def main(argv: list[str] | None = None) -> None:

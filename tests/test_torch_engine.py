@@ -200,8 +200,11 @@ def test_engine_needs_the_card_unless_told_cpu():
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        ({"mesh": {"tp": 2}}, "mesh"),
-        ({"model": "moe-tiny", "mesh": {"ep": 2}}, "mesh"),
+        # a mesh is served since the multi-GPU slice (tests/test_torch_tp.py,
+        # tests/test_torch_lockstep.py); an sp axis is still refused, naming
+        # item 13b
+        ({"mesh": {"sp": 2}}, "13b"),
+        ({"model": "moe-tiny", "mesh": {"ep": 2, "sp": 2, "tp": 1}}, "13b"),
         # kv-quantize: int8 on the dense layout is served since the slice
         # of the Prometheus plane (CONFIGS["dense-int8-kv"] above)
         # adapter-store is served since the multi-LoRA slice

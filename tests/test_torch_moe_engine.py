@@ -169,8 +169,9 @@ def test_moe_attribution_counts_params_from_weight_bytes():
 
 def test_smoke_moe_resource_is_the_example_without_its_mesh():
     """``chip_smoke.py`` path G serves the ``moe-mixtral-ep`` example's
-    resource, less the mesh (expert parallelism is multi-GPU, item 13),
-    which the port refuses."""
+    resource, less the mesh: its ``ep: 4, tp: 2`` needs eight ranks, one
+    process each, which a one-process engine refuses naming both counts
+    (the mesh itself is served since the multi-GPU slice, path N2)."""
     import yaml
 
     import chip_smoke
@@ -181,5 +182,5 @@ def test_smoke_moe_resource_is_the_example_without_its_mesh():
     resource = example["configuration"]["resources"][0]["configuration"]
     assert {k: v for k, v in resource.items() if k != "mesh"} == \
         chip_smoke.MOE_EXAMPLE_RESOURCE
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="needs 8 devices, have 1"):
         TorchServingEngine(ServingConfig.from_dict(resource), device="cpu")

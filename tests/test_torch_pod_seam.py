@@ -43,8 +43,12 @@ def registered(monkeypatch):
     from langstream_tpu_torch.core.tracing import SPANS
     from langstream_tpu_torch.serving.journey import JOURNEYS
 
+    from langstream_tpu.runtime import pod
+
     for name in serve_torch.POD_SEAM:
         monkeypatch.setattr(jax_engine, name, getattr(jax_engine, name))
+    for name in serve_torch.SLICE_SEAM:
+        monkeypatch.setattr(pod, name, getattr(pod, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(JOURNEYS, "mirror", JOURNEYS.mirror)
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)

@@ -432,9 +432,9 @@ def test_get_or_create_one_engine_per_config_and_device():
     # a refused key is refused before the config is hashed; a faults list
     # parses into hashable plans and a qos section into a hashable spec, and
     # each shares one engine
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="13b"):
         TorchServingEngine.get_or_create(
-            ServingConfig.from_dict({"model": "tiny", "mesh": {"tp": 2}}), "cpu")
+            ServingConfig.from_dict({"model": "tiny", "mesh": {"sp": 2}}), "cpu")
     faulty = {"model": "tiny", "model-dtype": "float32",
               "faults": [{"site": "prefill", "after": 10 ** 9}]}
     f = TorchServingEngine.get_or_create(ServingConfig.from_dict(faulty), "cpu")
