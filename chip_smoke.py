@@ -85,7 +85,8 @@ Phases (every one unguarded: any failure exits non-zero):
    reclaimed equals cancelled, the block manager ends idle,
    ``host_fetches_per_chunk`` is 1.0 and H1's ``health()`` ends ok;
    the preempted streams against H2's (recorded);
-   main path I: KV off the card at llama3-8b int8 on path A's params (run
+   main path I: KV off the card at llama3-8b int8 on the first 16 of path
+   A's layers (``I_LAYERS``, a cut for the time limit; run
    between D and E, while those params are on the card). I1: the chat
    example's resource with paged int8 KV and a ``prefix-store`` (T0 budget
    the 24-block preamble P and two blocks, T1 three preambles' blocks, T2
@@ -155,7 +156,8 @@ Phases (every one unguarded: any failure exits non-zero):
    ``drain_engines``, ``flight_report``, ``attribution_report`` and
    ``profile_engines`` over those engines;
    main path L: the request-evidence and cross-replica planes at llama3-8b
-   int8 on path A's params (run after K). L1: K1's unfaulted wave on K's
+   int8 on path A's params (run after K; L1 at K's ``K_LAYERS``, L2 at
+   I2's ``I_LAYERS``). L1: K1's unfaulted wave on K's
    configuration with an ``incident-dir`` and an ``slo`` section whose TTFT
    objective the wave breaches, each request under its own ambient trace:
    ms per step and tok/s beside K1's, the p50 and p99 of the journey
@@ -203,15 +205,20 @@ Phases (every one unguarded: any failure exits non-zero):
    ``mesh: {tp: 2}``, 16 greedy requests of 64 tokens, against a tp=1
    engine on the same weights: first tokens equal wherever tp=1's top-2
    logprob gap exceeds 0.05, first logprobs within 0.05, the common
-   prefixes printed, kernels #1 and #3 launched on both ranks. N2:
+   prefixes printed, kernels #1 and #3 launched on both ranks, and each
+   rank's device peak while placing its weights under the tp=1 tree's
+   bytes (``N_LOAD_PEAK``: its shards and one whole leaf at a time, never
+   the whole tree). N2:
    Mixtral-8x7B int8 at 2 layers, ``mesh: {ep: 2, tp: 1}``, 8 requests,
    the same rule against ep=1. N3: ``tiny`` f32 on the HF fixture,
    ``mesh: {tp: 2}``, paged with the prefix cache, chunked prefill and
-   speculation, then the same without speculation: every lockstep op runs
-   and the greedy tokens equal a CPU tp=1 run. Every rank's dispatches
-   sampled the same tokens. One line per run: ms per step of both
-   engines, both ranks' launches, the collectives by call site and the
-   logits gather's share of decode; two ranks on one card measure the
+   speculation, then the same without speculation, then dense KV at
+   ``mesh: {dp: 2, tp: 1}`` (each replica runs its own slots' rows): every
+   lockstep op runs and the greedy tokens equal a CPU one-rank run. Every
+   rank's dispatches sampled the same tokens. One line per run: ms per
+   step of both engines, both ranks' launches, the collectives by call
+   site, the decode steps' logits gather's share of decode, and each
+   rank's weight bytes and load peak; two ranks on one card measure the
    seam, not the speed of TP;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
@@ -312,8 +319,9 @@ def ptxas_report(logs: dict) -> list[str]:
 #: host at full depth
 F_LAYERS = 16
 H_LAYERS = 16
-J_LAYERS = 16  # paths J and K1, K2, K4 at 16 layers, so path N fits the
-K_LAYERS = 16  # time limit (K3's child runs at 8)
+I_LAYERS = 16  # paths I, J, K1, K2, K4 and L at 16 layers, so path N
+J_LAYERS = 16  # fits the time limit on a slow host (K3's child runs at 8)
+K_LAYERS = 16
 
 
 @contextlib.contextmanager
@@ -3648,7 +3656,7 @@ def phase_evidence_path(torch, params, k1_line: dict, resource: dict = CHAT_EXAM
     NOTES["L1"] = {**line, "tokens_delta": deltas["langstream_serving_tokens_generated_total"],
                    "requests_delta": deltas["langstream_serving_requests_completed_total"],
                    "exemplar": named[0], "exemplar_events": len(JOURNEYS.events(named[0]))}
-    print(f"path L [L1 against K1 unfaulted, K1 at {K_LAYERS} layers]: ms_per_step "
+    print(f"path L [L1 against K1 unfaulted, both at {K_LAYERS} layers]: ms_per_step "
           f"{line['ms_per_step']} against "
           f"{k1_line['ms_per_step']}, decode_tok_s {line['decode_tok_s']} against "
           f"{k1_line['decode_tok_s']}, wall_s {line['wall_s']} against {k1_line['wall_s']} "
@@ -3901,10 +3909,6 @@ def phase_chainer_path(torch, params, combined_tokens: list,
 
 #: what the earlier paths leave for path M's checks, by path
 NOTES: dict = {}
-#: the reference ms per step of K1's unfaulted wave and of L1, from an
-#: earlier run of this script on one NVIDIA H100 80GB HBM3 at 700.00 W
-#: (PERF.md), printed beside this run's
-REFERENCE_MS_PER_STEP = {"K1": 71.43, "L1": 69.43}
 M2_LAYERS = 2      # the written checkpoint's depth (full width)
 M_REQUESTS = 8
 #: series a scrape compares by presence only: times (and ratios of times)
@@ -3987,7 +3991,7 @@ def phase_metrics_path(torch) -> None:
     """M1, after paths A-L: the port's registry rendered and held to the
     OpenMetrics line grammar; every plane's families present; L1's scrape
     deltas and TTFT exemplar (checked in :func:`phase_evidence_path`); K1's
-    and L1's one fetch per chunk and ms per step beside the reference's; the new
+    and L1's one fetch per chunk and ms per step (the same depth); the new
     flight events where the smoke exercises them; and the host cost of a
     counter increment and of an exemplar observation over 10^5 calls."""
     from langstream_tpu_torch.core import metrics
@@ -4036,9 +4040,8 @@ def phase_metrics_path(torch) -> None:
           f"{l1['exemplar']} names a journey of {l1['exemplar_events']} events; "
           f"host_fetches_per_chunk K1={NOTES['K1']['host_fetches_per_chunk']} "
           f"L1={l1['host_fetches_per_chunk']}; ms_per_step K1={NOTES['K1']['ms_per_step']} "
-          f"(at {K_LAYERS} layers) L1={l1['ms_per_step']} (reference at 32 layers: "
-          f"{REFERENCE_MS_PER_STEP['K1']} and "
-          f"{REFERENCE_MS_PER_STEP['L1']}); events {events} (D uplift {NOTES['D']['uplift']}); "
+          f"L1={l1['ms_per_step']} (both at {K_LAYERS} layers); "
+          f"events {events} (D uplift {NOTES['D']['uplift']}); "
           f"host ns per counter increment {inc_ns:.1f}, per exemplar observation "
           f"{obs_ns:.1f} (over {n} calls)", flush=True)
 
@@ -4689,6 +4692,7 @@ N_LAYERS = 8          # N1 (Llama-3-8B) depth, of 32
 N2_LAYERS = 2         # N2 (Mixtral-8x7B) depth, of 32
 N1_MAX_TOKENS = 64
 N_GAP = 0.05          # the first token must match where tp=1's top-2 gap exceeds it
+N_LOAD_PEAK = 1.0     # a tp=2 rank's load peak must stay under the tp=1 tree's bytes
 N_RESOURCE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged",
               "kv-quantize": "int8", "prefix-cache": False, "slots": 16,
               "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
@@ -4759,6 +4763,7 @@ def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
             t0 = time.monotonic()
             with cut_layers(layers):
                 engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+            engine.lockstep_tokens = {}  # held against rank 1's
             init_s = time.monotonic() - t0
             reset_counts()
             t0 = time.monotonic()
@@ -4855,7 +4860,8 @@ def reference_run(torch, cfg: dict, waves, max_tokens: int, layers: int | None,
 
     t0 = time.monotonic()
     stats = asyncio.run(drive())
-    out = {"results": results, "stats": stats, "wall_s": time.monotonic() - t0}
+    out = {"results": results, "stats": stats, "wall_s": time.monotonic() - t0,
+           "weights_bytes": engine._weights_bytes}
     del engine
     gc.collect()
     return out, gaps
@@ -4898,7 +4904,10 @@ def _mesh_line(label: str, run: dict, ref: dict | None = None) -> None:
     coll = mesh["collectives"]
     step = _step_ms(run["stats"])
     decode_s = run["stats"]["decode-chunks"]["seconds"]
-    gather = coll.get("logits", {"seconds": 0.0, "calls": 0, "bytes": 0})
+    # the decode steps' vocab gathers only (prefill and verify gathers are
+    # tagged "logits"); over gloo on the card a collective's seconds are its
+    # own (the stream is synchronized before its timer starts)
+    gather = coll.get("logits-decode", {"seconds": 0.0, "calls": 0, "bytes": 0})
     report = {
         "ms_per_step_mesh": step,
         "ms_per_step_reference": _step_ms(ref["stats"]) if ref else None,
@@ -4907,8 +4916,12 @@ def _mesh_line(label: str, run: dict, ref: dict | None = None) -> None:
         "rank0_launches": {k: v for k, v in run["counts"].items() if v},
         "rank1_launches": {k: v for k, v in run["rank1"]["kernels"].items() if v},
         "collectives": coll,
-        "logits_gather_share_of_decode": (round(gather["seconds"] / decode_s, 4)
-                                          if decode_s else None),
+        "decode_logits_gather_share_of_decode": (round(gather["seconds"] / decode_s, 4)
+                                                 if decode_s else None),
+        "weights_bytes": [mesh["weights-bytes"], run["rank1"]["mesh"]["weights-bytes"]],
+        "load_peak_bytes": [mesh["load-peak-bytes"],
+                            run["rank1"]["mesh"]["load-peak-bytes"]],
+        "reference_weights_bytes": ref["weights_bytes"] if ref else None,
     }
     print(f"path N [{label}]: {json.dumps(report)}", flush=True)
 
@@ -4929,8 +4942,9 @@ def phase_mesh_path(torch, device="cuda") -> dict:
       carries tp of 1), 8 requests of 32 tokens, the same rule against ep=1.
     - N3: ``tiny`` f32 on the HF fixture, ``mesh: {tp: 2}``, paged with the
       prefix cache, chunked prefill and speculation, then the same without
-      speculation (the pipelined burst's chained chunks): every lockstep
-      op runs and the leader's greedy tokens equal a CPU tp=1 run.
+      speculation (the pipelined burst's chained chunks), then dense KV at
+      ``mesh: {dp: 2, tp: 1}``: every lockstep op runs and the leader's
+      greedy tokens equal a CPU one-rank run.
 
     Returns rank 0's launches summed over N1-N3."""
     totals = {name: 0 for name in _wrappers()}
@@ -4942,6 +4956,12 @@ def phase_mesh_path(torch, device="cuda") -> dict:
     ref, gaps = reference_run(torch, N_RESOURCE, waves, N1_MAX_TOKENS, N_LAYERS, device)
     _mesh_line("N1 llama3-8b int8 tp=2", n1, ref)
     check_first_tokens("N1", n1["results"], ref["results"], gaps)
+    # each rank places its shards and never the whole tree: its peak while
+    # loading is its half plus one whole leaf and a chunk's transient
+    for rank, mesh in (("0", n1["mesh"]), ("1", n1["rank1"]["mesh"])):
+        if device == "cuda" and mesh["load-peak-bytes"] > N_LOAD_PEAK * ref["weights_bytes"]:
+            fail(f"path N1: rank {rank} peaked at {mesh['load-peak-bytes']} bytes while "
+                 f"loading, over {N_LOAD_PEAK} of the tp=1 tree's {ref['weights_bytes']}")
     for rank, counts in (("0", n1["counts"]), ("1", n1["rank1"]["kernels"])):
         if device == "cuda" and (counts["flash_attention"] == 0
                                  or counts["paged_attention_q8"] == 0):
@@ -4974,22 +4994,30 @@ def phase_mesh_path(torch, device="cuda") -> dict:
               preamble * 3 + "a long prompt in chunks"],
              [preamble + "judge my vow", "a", preamble * 3 + "and again"]]
     plain = {**N3_RESOURCE, "speculative-drafts": 0, "decode-chunk-light": 0}
+    dense = {**plain, "kv-layout": "dense", "prefix-cache": False, "prefill-chunk": 0}
     n3 = mesh_run(torch, "N3", [{**N3_RESOURCE, "mesh": {"tp": 2}},
-                                {**plain, "mesh": {"tp": 2}}], waves, 24, device=device)
+                                {**plain, "mesh": {"tp": 2}},
+                                {**dense, "mesh": {"dp": 2, "tp": 1}}], waves, 24,
+                  device=device)
     ops = {op for run in n3 for op, _ in run["dispatches"]}
     want_ops = {"prefill", "prefill_continue", "spec_step", "decode", "decode_cont"}
     if not want_ops <= ops:
         fail(f"path N3: lockstep ops {sorted(ops)} miss {sorted(want_ops - ops)}")
-    for run, cfg in zip(n3, (N3_RESOURCE, plain)):
+    for run, cfg in zip(n3, (N3_RESOURCE, plain, dense)):
         cpu, _ = reference_run(torch, cfg, waves, 24, None, "cpu")
         got = [r["tokens"] for r in run["results"]]
         want = [r["tokens"] for r in cpu["results"]]
         if got != want:
-            fail(f"path N3: tp=2 tokens on the card {got} != the CPU tp=1 run {want}")
+            fail(f"path N3: {run['mesh']['axes']} tokens on the card {got} != the CPU "
+                 f"one-rank run {want}")
         totals = {k: totals[k] + run["counts"][k] for k in totals}
-    print(f"path N3: tiny f32 tp=2, ops {sorted(ops)}, tokens equal the CPU tp=1 run "
-          f"(speculative and plain); prefix hits "
-          f"{n3[0]['stats']['prefix']['hits']}, verify steps "
+    dp = n3[2]["mesh"]
+    if dp["dp-slots"] != [0, 2] or "dp-rows" not in dp["collectives"]:
+        fail(f"path N3: the dp=2 engine did not split its slots' rows: {dp}")
+    print(f"path N3: tiny f32 tp=2, ops {sorted(ops)}, tokens equal the CPU one-rank "
+          f"run (speculative, plain, and dense at dp=2 with rank 0 on slots "
+          f"{dp['dp-slots']} and {dp['collectives']['dp-rows']['calls']} row sums over "
+          f"dp); prefix hits {n3[0]['stats']['prefix']['hits']}, verify steps "
           f"{n3[0]['stats']['speculative']['steps']}", flush=True)
     print(f"path N: {time.monotonic() - t0:.1f} s (N1 {t1 - t0:.1f} s, N2 {t2 - t1:.1f} s, "
           f"N3 {time.monotonic() - t2:.1f} s)", flush=True)
@@ -5068,10 +5096,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_i = time.monotonic()
-    i1_counts = phase_tier_path(torch, params)
-    gc.collect()
-    torch.cuda.empty_cache()
-    i2_counts, i2_tokens = phase_handoff_path(torch, params)
+    with cut_depth(base["model"], I_LAYERS):  # path A's first I_LAYERS layers
+        i1_counts = phase_tier_path(torch, at_depth(params, I_LAYERS))
+        gc.collect()
+        torch.cuda.empty_cache()
+        i2_counts, i2_tokens = phase_handoff_path(torch, at_depth(params, I_LAYERS))
     i_counts = {k: i1_counts[k] + i2_counts[k] for k in i1_counts}
     print(f"path I: {time.monotonic() - t_i:.1f} s", flush=True)
     gc.collect()
@@ -5108,10 +5137,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t_l = time.monotonic()
-    l1_counts = phase_evidence_path(torch, params, k1_line)[0]
+    with cut_depth(base["model"], K_LAYERS):  # L1 at K1's depth: like for like
+        l1_counts = phase_evidence_path(torch, at_depth(params, K_LAYERS), k1_line)[0]
     gc.collect()
     torch.cuda.empty_cache()
-    l2_counts = phase_chainer_path(torch, params, i2_tokens)[0]
+    with cut_depth(base["model"], I_LAYERS):  # L2 at I2's depth: its tokens
+        l2_counts = phase_chainer_path(torch, at_depth(params, I_LAYERS), i2_tokens)[0]
     l_counts = {k: l1_counts[k] + l2_counts[k] for k in l1_counts}
     if l_counts["flash_attention"] == 0 or l_counts["paged_attention_q8"] == 0 or (
             l_counts["paged_attention"] == 0):

@@ -20,6 +20,8 @@ one ``pytorch_model.bin`` written with ``torch.save``, and a minimal
 from __future__ import annotations
 
 import json
+from collections.abc import Mapping
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -28,27 +30,51 @@ from langstream_tpu_torch.models.llama import LlamaConfig
 from langstream_tpu_torch.models.moe import MoEConfig
 
 
-def _load_state_dict(path: Path) -> dict[str, torch.Tensor]:
+class _LazyState(Mapping):
+    """A checkpoint's tensors by name, each read from its file when asked
+    for: the host holds what the loader is building, not the files."""
+
+    def __init__(self, readers: dict):
+        self._readers = readers
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._readers[name]()
+
+    def __iter__(self):
+        return iter(self._readers)
+
+    def __len__(self) -> int:
+        return len(self._readers)
+
+
+def _load_state_dict(path: Path) -> Mapping:
+    """safetensors files opened for reads by offset, ``.bin`` files through
+    a memory map (a file ``torch.load`` cannot map is read whole)."""
     if not path.is_dir():
         raise FileNotFoundError(f"no checkpoint directory at {path}")
     safetensors = sorted(path.glob("*.safetensors"))
     if safetensors:
         try:
-            from safetensors.torch import load_file
+            from safetensors import safe_open
         except ImportError as e:
             raise RuntimeError(
                 "checkpoint is in safetensors format but the safetensors "
                 f"library is unavailable: {e}"
             ) from e
-        state: dict[str, torch.Tensor] = {}
+        readers = {}
         for f in safetensors:
-            state.update(load_file(str(f), device="cpu"))
-        return state
+            handle = safe_open(str(f), framework="pt", device="cpu")
+            readers.update((name, partial(handle.get_tensor, name)) for name in handle.keys())
+        return _LazyState(readers)
     bins = sorted(path.glob("pytorch_model*.bin"))
     if bins:
         state = {}
         for f in bins:
-            state.update(torch.load(str(f), map_location="cpu", weights_only=True))
+            try:
+                state.update(torch.load(str(f), map_location="cpu", weights_only=True,
+                                        mmap=True))
+            except RuntimeError:  # not a zip archive: no map
+                state.update(torch.load(str(f), map_location="cpu", weights_only=True))
         return state
     raise FileNotFoundError(f"no weight files under {path}")
 
@@ -86,28 +112,34 @@ def _stack_layers(g, fmt: str, layers: int, dtype: torch.dtype,
     return torch.stack([m.T if transpose else m for m in mats]).to(dtype).contiguous()
 
 
-def _load_head_tensors(state: dict, g, dtype: torch.dtype) -> dict:
+def _load_head_tensors(state: Mapping, g, dtype: torch.dtype, put) -> dict:
     """Embedding, final norm and LM head (tied to the embedding when the
     checkpoint has no ``lm_head.weight``), the head as ``(hidden, vocab)``."""
-    lm_head = state.get("lm_head.weight", g("embed_tokens.weight"))
+    lm_head = state["lm_head.weight"] if "lm_head.weight" in state else g(
+        "embed_tokens.weight")
     return {
-        "embed": g("embed_tokens.weight").to(dtype).contiguous(),
-        "final_norm": g("norm.weight").to(dtype).contiguous(),
-        "lm_head": lm_head.T.to(dtype).contiguous(),
+        "embed": put("embed", g("embed_tokens.weight").to(dtype).contiguous()),
+        "final_norm": put("final_norm", g("norm.weight").to(dtype).contiguous()),
+        "lm_head": put("lm_head", lm_head.T.to(dtype).contiguous()),
     }
 
 
-def load_llama_checkpoint(checkpoint_dir: str, config: LlamaConfig) -> dict:
+def load_llama_checkpoint(checkpoint_dir: str, config: LlamaConfig, place=None) -> dict:
     """The port's parameter tree from an HF-format Llama directory, on the
     CPU in ``config.dtype`` (the engine moves it to its device and
-    quantizes it)."""
+    quantizes it). ``place(path, leaf)`` takes each leaf as it is built
+    (``path`` dotted, e.g. ``layers.wq``) and returns what the tree keeps
+    (under a mesh a rank's shard, on its device): the host then holds one
+    whole leaf at a time."""
+    put = place or (lambda path, leaf: leaf)
     state = _load_state_dict(Path(checkpoint_dir))
     g = _getter(state)
-    head = _load_head_tensors(state, g, config.dtype)
+    head = _load_head_tensors(state, g, config.dtype, put)
     return {
         "embed": head["embed"],
         "layers": {
-            ours: _stack_layers(g, "layers.{i}." + hf, config.layers, config.dtype, t)
+            ours: put(f"layers.{ours}", _stack_layers(g, "layers.{i}." + hf, config.layers,
+                                                      config.dtype, t))
             for ours, (hf, t) in {**_ATTN_NAMES, **_MLP_NAMES}.items()
         },
         "final_norm": head["final_norm"],
@@ -115,16 +147,18 @@ def load_llama_checkpoint(checkpoint_dir: str, config: LlamaConfig) -> dict:
     }
 
 
-def load_moe_checkpoint(checkpoint_dir: str, config: MoEConfig) -> dict:
+def load_moe_checkpoint(checkpoint_dir: str, config: MoEConfig, place=None) -> dict:
     """The port's MoE parameter tree from an HF-format Mixtral directory, on
     the CPU in ``config.dtype``: ``block_sparse_moe.experts.{e}.w1/w3/w2``
     become ``w_gate``/``w_up``/``w_down`` (transposed), each expert cast
     as it is read (a stacked f32 Mixtral projection would be ~60 GB of
-    host memory); ``block_sparse_moe.gate`` becomes the float32 router."""
+    host memory); ``block_sparse_moe.gate`` becomes the float32 router.
+    ``place`` as in :func:`load_llama_checkpoint`."""
+    put = place or (lambda path, leaf: leaf)
     state = _load_state_dict(Path(checkpoint_dir))
     c = config
     g = _getter(state)
-    head = _load_head_tensors(state, g, c.dtype)
+    head = _load_head_tensors(state, g, c.dtype, put)
 
     def experts(w: str) -> torch.Tensor:
         return torch.stack([
@@ -138,13 +172,14 @@ def load_moe_checkpoint(checkpoint_dir: str, config: MoEConfig) -> dict:
     return {
         "embed": head["embed"],
         "layers": {
-            **{ours: _stack_layers(g, "layers.{i}." + hf, c.layers, c.dtype, t)
+            **{ours: put(f"layers.{ours}", _stack_layers(g, "layers.{i}." + hf, c.layers,
+                                                         c.dtype, t))
                for ours, (hf, t) in _ATTN_NAMES.items()},
-            "router": _stack_layers(g, "layers.{i}.block_sparse_moe.gate.weight",
-                                    c.layers, torch.float32),
-            "w_gate": experts("w1"),
-            "w_up": experts("w3"),
-            "w_down": experts("w2"),
+            "router": put("layers.router", _stack_layers(
+                g, "layers.{i}.block_sparse_moe.gate.weight", c.layers, torch.float32)),
+            "w_gate": put("layers.w_gate", experts("w1")),
+            "w_up": put("layers.w_up", experts("w3")),
+            "w_down": put("layers.w_down", experts("w2")),
         },
         "final_norm": head["final_norm"],
         "lm_head": head["lm_head"],

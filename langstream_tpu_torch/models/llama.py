@@ -97,41 +97,47 @@ def param_count(config: LlamaConfig) -> int:
 
 def init_llama_params(config: LlamaConfig,
                       generator: torch.Generator | None = None,
-                      device="cuda") -> dict:
+                      device="cuda", place=None) -> dict:
     """Random-init params (stacked per-layer leading dim L) on ``device``
     (the card unless the caller asks for the CPU; the generator must live
     on the same device). The numbers differ from the JAX package's init
     for the same seed: the two RNGs differ, so tests carry parameters
-    across with ``params_from_numpy``."""
+    across with ``params_from_numpy``. ``place(path, leaf)`` takes each
+    leaf as it is made (``path`` dotted, e.g. ``layers.wq``) and returns
+    what the tree keeps (a rank's shard: the full leaf is freed before the
+    next is drawn; the draws are the same)."""
     device = require_device(device, "init_llama_params")
     c = config
     qkv_dim = c.heads * c.head_dim
     kv_dim = c.kv_heads * c.head_dim
     L = c.layers
+    put = place or (lambda path, leaf: leaf)
 
-    def norm_init(*shape):
-        return torch.ones(shape, dtype=c.dtype, device=device)
+    def norm_init(path, *shape):
+        return put(path, torch.ones(shape, dtype=c.dtype, device=device))
 
-    def w_init(*shape, fan_in):
+    def w_init(path, *shape, fan_in):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * (1.0 / math.sqrt(fan_in))).to(c.dtype)
+        return put(path, (w * (1.0 / math.sqrt(fan_in))).to(c.dtype))
 
     return {
-        "embed": w_init(c.vocab_size, c.hidden, fan_in=c.hidden),
+        "embed": w_init("embed", c.vocab_size, c.hidden, fan_in=c.hidden),
         "layers": {
-            "attn_norm": norm_init(L, c.hidden),
-            "wq": w_init(L, c.hidden, qkv_dim, fan_in=c.hidden),
-            "wk": w_init(L, c.hidden, kv_dim, fan_in=c.hidden),
-            "wv": w_init(L, c.hidden, kv_dim, fan_in=c.hidden),
-            "wo": w_init(L, qkv_dim, c.hidden, fan_in=qkv_dim),
-            "mlp_norm": norm_init(L, c.hidden),
-            "w_gate": w_init(L, c.hidden, c.intermediate, fan_in=c.hidden),
-            "w_up": w_init(L, c.hidden, c.intermediate, fan_in=c.hidden),
-            "w_down": w_init(L, c.intermediate, c.hidden, fan_in=c.intermediate),
+            "attn_norm": norm_init("layers.attn_norm", L, c.hidden),
+            "wq": w_init("layers.wq", L, c.hidden, qkv_dim, fan_in=c.hidden),
+            "wk": w_init("layers.wk", L, c.hidden, kv_dim, fan_in=c.hidden),
+            "wv": w_init("layers.wv", L, c.hidden, kv_dim, fan_in=c.hidden),
+            "wo": w_init("layers.wo", L, qkv_dim, c.hidden, fan_in=qkv_dim),
+            "mlp_norm": norm_init("layers.mlp_norm", L, c.hidden),
+            "w_gate": w_init("layers.w_gate", L, c.hidden, c.intermediate,
+                             fan_in=c.hidden),
+            "w_up": w_init("layers.w_up", L, c.hidden, c.intermediate, fan_in=c.hidden),
+            "w_down": w_init("layers.w_down", L, c.intermediate, c.hidden,
+                             fan_in=c.intermediate),
         },
-        "final_norm": norm_init(c.hidden),
-        "lm_head": w_init(c.hidden, c.vocab_size, fan_in=c.hidden),
+        "final_norm": norm_init("final_norm", c.hidden),
+        "lm_head": w_init("lm_head", c.hidden, c.vocab_size, fan_in=c.hidden),
     }
 
 
@@ -246,9 +252,10 @@ def embed_tokens(c, embed, tokens: torch.Tensor) -> torch.Tensor:
     return c.shard.mesh.sum(x, "tp", tag="embed")
 
 
-def lm_logits(c, x: torch.Tensor, lm_head) -> torch.Tensor:
+def lm_logits(c, x: torch.Tensor, lm_head, tag: str = "logits") -> torch.Tensor:
     """f32 logits over the whole vocab; under tp each rank's vocab columns
-    are gathered into every rank (a sum of zero-padded shards)."""
+    are gathered into every rank (a sum of zero-padded shards; ``tag``
+    names the call site in the mesh's collective counters)."""
     logits = (x @ _w(lm_head)).to(torch.float32)
     if c.shard is None or not c.shard.tp:
         return logits
@@ -256,7 +263,7 @@ def lm_logits(c, x: torch.Tensor, lm_head) -> torch.Tensor:
     full = logits.new_zeros(logits.shape[:-1] + (c.vocab_size,))
     lo = c.shard.mesh.index("tp") * V
     full[..., lo:lo + V] = logits
-    return c.shard.mesh.sum(full, "tp", tag="logits")
+    return c.shard.mesh.sum(full, "tp", tag=tag)
 
 
 def tp_sum(c, y: torch.Tensor, attention: bool = False) -> torch.Tensor:
@@ -269,10 +276,8 @@ def tp_sum(c, y: torch.Tensor, attention: bool = False) -> torch.Tensor:
 
 
 def attention_prefill(c, q, k, v) -> torch.Tensor:
-    """Causal prefill attention: the flash kernel on this rank's heads,
-    per rank under a mesh (see ``flash_attention(mesh=)``)."""
-    return flash_attention(q, k, v, causal=True,
-                           mesh=None if c.shard is None else c.shard.mesh)
+    """Causal prefill attention: the flash kernel on this rank's heads."""
+    return flash_attention(q, k, v, causal=True)
 
 
 # ---------------------------------------------------------------------------

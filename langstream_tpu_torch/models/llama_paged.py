@@ -50,17 +50,15 @@ from langstream_tpu_torch.serving.sampler import speculative_accept
 
 def _paged_read(c, fn, q, pool_k, pool_v, tables, lengths, **kw):
     """A paged read call site (decode and continuation alike): the kernel on
-    everything, or under a mesh on this rank's rows and heads
-    (:func:`shard_mapped_paged_read`), the rows summed back over ``dp``."""
+    everything, or under a mesh on this rank's heads
+    (:func:`shard_mapped_paged_read` over the replica's mesh, which has no
+    ``dp``: the engine hands the model its replica's rows only)."""
     if c.shard is None:
         return fn(q, pool_k, pool_v, tables, lengths, kv_heads=c.kv_heads, **kw)
     mesh = c.shard.mesh
     kv_heads = c.kv_heads * (mesh.size("tp") if c.shard.attention else 1)
     read = shard_mapped_paged_read(fn, mesh, kv_heads=kv_heads, batch=q.shape[0])
-    out = read(q, pool_k, pool_v, tables, lengths, **kw)
-    if read.rows is None:
-        return out
-    return tuple(mesh.dp_assemble(o, read.rows, q.shape[0]) for o in out)
+    return read(q, pool_k, pool_v, tables, lengths, **kw)
 
 
 def llama_prefill_paged(
@@ -337,6 +335,7 @@ def llama_spec_step_paged(
     sampler_mode: tuple | None = None,
     ffn=None,
     adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
+    sample_rows: tuple | None = None,  # (batch, index): one dp replica's rows
 ):
     """One speculative step on the device: prompt-lookup drafts from the
     context rows, the verify forward, and the context update, with no host
@@ -362,7 +361,7 @@ def llama_spec_step_paged(
             config, params, tokens, base_lengths, active, pool_k, pool_v,
             block_tables, num_read_blocks, generator=generator, temps=temps,
             topks=topks, topps=topps, sampler_mode=sampler_mode, ffn=ffn,
-            adapters=adapters,
+            adapters=adapters, sample_rows=sample_rows,
         )
     )
     D1 = num_drafts + 1
@@ -399,6 +398,7 @@ def llama_verify_chunk_paged(
     sampler_mode: tuple | None = None,   # (use_top_p, use_top_k, all_greedy)
     ffn=None,                            # FFN hook (MoE family)
     adapters: dict | None = None,        # batched ragged LoRA, see adapter_layer
+    sample_rows: tuple | None = None,    # (batch, index): one dp replica's rows
 ):
     """Speculative VERIFY step: one continuation forward over ``D1 = 1 +
     drafts`` positions per slot scores every draft at once (its history
@@ -448,7 +448,7 @@ def llama_verify_chunk_paged(
         use_top_p, use_top_k, _ = sampler_mode
         accepted, fallback = speculative_accept(
             logits, drafts, generator, temps, topks, topps,
-            use_top_p=use_top_p, use_top_k=use_top_k,
+            use_top_p=use_top_p, use_top_k=use_top_k, rows=sample_rows,
         )
         # accepted drafts verbatim, then the residual/bonus sample at the
         # stop position (the only fallback column the engine reads)
@@ -501,7 +501,6 @@ def llama_decode_chunk_paged(
     commit_inactive: bool = False,
     ffn=None,                     # (h (B,H), lp, active (B,)) -> (B,H); default SwiGLU
     adapters: dict | None = None,  # batched ragged LoRA, see adapter_layer
-    commit_range: tuple[int, int] | None = None,  # rows this rank's pool holds
 ):
     """K fused decode steps against the paged pool: the pool is read-only,
     each step's new K/V lands in a chunk buffer ``(L, B, K, Kh, D)``, and
@@ -572,7 +571,7 @@ def llama_decode_chunk_paged(
             h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
             x = x + ffn(h2, lp, active)
         x = _rms_norm(x, params["final_norm"], c.norm_eps)
-        logits = lm_logits(c, x, params["lm_head"])
+        logits = lm_logits(c, x, params["lm_head"], tag="logits-decode")
         nxt, lp_ = sample_fn(logits, counts) if pen else sample_fn(logits)
         nxt = torch.where(active, nxt.to(tokens.dtype), tokens)
         if pen:
@@ -585,10 +584,10 @@ def llama_decode_chunk_paged(
     L = c.layers
     valid = (torch.ones_like(active) if commit_inactive else active)[:, None].expand(
         B, num_steps)
-    lo, hi = commit_range or (0, B)
-    for pool, buf in ((pool_k, kbuf), (pool_v, vbuf)):
-        write_rows(pool, buf[:, lo:hi].reshape(L, hi - lo, num_steps, KhD),
-                   block_tables[lo:hi], base_lengths[lo:hi], valid[lo:hi])
+    pool_k = write_rows(pool_k, kbuf.reshape(L, B, num_steps, KhD),
+                        block_tables, base_lengths, valid)
+    pool_v = write_rows(pool_v, vbuf.reshape(L, B, num_steps, KhD),
+                        block_tables, base_lengths, valid)
     final_lengths = base_lengths + num_steps * adv
     chunk_tokens = torch.stack(out_tokens)
     chunk_lps = torch.stack(out_lps)
@@ -631,20 +630,10 @@ def llama_decode_chunk_dense_pallas(
     cache views as the int8 pool the same way (rows ``(L, B*S/bs, bs,
     Kh*D)``, scales ``(L, B*S/bs, bs, Kh)``) and reads through the int8
     kernel. Block 0 is slot 0's first rows here, not scratch, so inactive
-    slots commit into their own rows past their length instead. Under a
-    mesh whose ``dp`` splits the slots, the cache holds this rank's slots
-    only: their rows read and commit through it, the other rows' tables
-    name its first slot and are neither read (the read splits the same rows
-    over ``dp``) nor committed."""
+    slots commit into their own rows past their length instead."""
     c = config
     quant = isinstance(cache_k, dict)
     L, B, S, Kh, D = (cache_k["q"] if quant else cache_k).shape
-    batch = tokens0.shape[0]
-    rows = None
-    if B != batch:
-        rows = c.shard.mesh.dp_rows(batch) if c.shard is not None else None
-        if rows is None or rows[1] - rows[0] != B:
-            raise ValueError(f"a dense cache of {B} slots cannot serve a batch of {batch}")
     bs = dense_block_size(S, block_size)
     nb = S // bs
 
@@ -660,16 +649,12 @@ def llama_decode_chunk_dense_pallas(
         torch.arange(B, dtype=torch.int32, device=device)[:, None] * nb
         + torch.arange(nb, dtype=torch.int32, device=device)[None, :]
     )
-    if rows is not None:
-        full = tables[:1].expand(batch, nb).clone()
-        full[rows[0]:rows[1]] = tables
-        tables = full
-    span = window if window is not None else S
-    num_read_blocks = max(1, min(-(-span // bs), nb))
+    rows = window if window is not None else S
+    num_read_blocks = max(1, min(-(-rows // bs), nb))
     out = llama_decode_chunk_paged(
         c, params, tokens0, base_lengths, active, pool_k, pool_v, tables,
         sample_fn, num_steps, num_read_blocks=num_read_blocks,
         sample_extras=sample_extras, return_packed=return_packed,
-        commit_inactive=True, ffn=ffn, commit_range=rows,
+        commit_inactive=True, ffn=ffn,
     )
     return out[:-2] + (cache_k, cache_v)

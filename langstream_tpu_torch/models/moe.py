@@ -102,46 +102,48 @@ class MoEConfig:
 
 
 def init_moe_params(config: MoEConfig, generator: torch.Generator | None = None,
-                    device="cuda") -> dict:
+                    device="cuda", place=None) -> dict:
     """Random-init params on ``device`` (the card unless the caller asks for
     the CPU; the generator must live there): the Llama layout plus a
     float32 ``router`` ``(L, hidden, E)`` and stacked experts ``w_gate``/
     ``w_up`` ``(L, E, hidden, I)`` and ``w_down`` ``(L, E, I, hidden)``.
     The numbers differ from the JAX package's for the same seed; tests
-    carry parameters across with ``params_from_numpy``."""
+    carry parameters across with ``params_from_numpy``. ``place`` as in
+    ``init_llama_params``."""
     device = require_device(device, "init_moe_params")
     c = config
     qkv_dim = c.heads * c.head_dim
     kv_dim = c.kv_heads * c.head_dim
     L, E, I = c.layers, c.experts, c.moe_intermediate
+    put = place or (lambda path, leaf: leaf)
 
-    def norm_init(*shape):
-        return torch.ones(shape, dtype=c.dtype, device=device)
+    def norm_init(path, *shape):
+        return put(path, torch.ones(shape, dtype=c.dtype, device=device))
 
     def normal(*shape, fan_in):
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
         return w * (1.0 / math.sqrt(fan_in))
 
-    def w_init(*shape, fan_in):
-        return normal(*shape, fan_in=fan_in).to(c.dtype)
+    def w_init(path, *shape, fan_in):
+        return put(path, normal(*shape, fan_in=fan_in).to(c.dtype))
 
     return {
-        "embed": w_init(c.vocab_size, c.hidden, fan_in=c.hidden),
+        "embed": w_init("embed", c.vocab_size, c.hidden, fan_in=c.hidden),
         "layers": {
-            "attn_norm": norm_init(L, c.hidden),
-            "wq": w_init(L, c.hidden, qkv_dim, fan_in=c.hidden),
-            "wk": w_init(L, c.hidden, kv_dim, fan_in=c.hidden),
-            "wv": w_init(L, c.hidden, kv_dim, fan_in=c.hidden),
-            "wo": w_init(L, qkv_dim, c.hidden, fan_in=qkv_dim),
-            "mlp_norm": norm_init(L, c.hidden),
+            "attn_norm": norm_init("layers.attn_norm", L, c.hidden),
+            "wq": w_init("layers.wq", L, c.hidden, qkv_dim, fan_in=c.hidden),
+            "wk": w_init("layers.wk", L, c.hidden, kv_dim, fan_in=c.hidden),
+            "wv": w_init("layers.wv", L, c.hidden, kv_dim, fan_in=c.hidden),
+            "wo": w_init("layers.wo", L, qkv_dim, c.hidden, fan_in=qkv_dim),
+            "mlp_norm": norm_init("layers.mlp_norm", L, c.hidden),
             # float32: routing decisions are numerically delicate
-            "router": normal(L, c.hidden, E, fan_in=c.hidden),
-            "w_gate": w_init(L, E, c.hidden, I, fan_in=c.hidden),
-            "w_up": w_init(L, E, c.hidden, I, fan_in=c.hidden),
-            "w_down": w_init(L, E, I, c.hidden, fan_in=I),
+            "router": put("layers.router", normal(L, c.hidden, E, fan_in=c.hidden)),
+            "w_gate": w_init("layers.w_gate", L, E, c.hidden, I, fan_in=c.hidden),
+            "w_up": w_init("layers.w_up", L, E, c.hidden, I, fan_in=c.hidden),
+            "w_down": w_init("layers.w_down", L, E, I, c.hidden, fan_in=I),
         },
-        "final_norm": norm_init(c.hidden),
-        "lm_head": w_init(c.hidden, c.vocab_size, fan_in=c.hidden),
+        "final_norm": norm_init("final_norm", c.hidden),
+        "lm_head": w_init("lm_head", c.hidden, c.vocab_size, fan_in=c.hidden),
     }
 
 

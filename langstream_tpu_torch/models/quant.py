@@ -84,60 +84,59 @@ def quantize_tensor(w: torch.Tensor, axis: int) -> QTensor:
     return QTensor(q=q, s=scale, dtype=w.dtype)
 
 
+def quantize_stacked(w: torch.Tensor, axis: int) -> QTensor:
+    """:func:`quantize_tensor` of a stacked ``(L, ...)`` weight, one layer
+    at a time (the same numbers; the f32 transient is one layer's)."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(w.shape[:axis] + (1,) + w.shape[axis + 1:], dtype=torch.float32,
+                    device=w.device)
+    for i in range(w.shape[0]):
+        t = quantize_tensor(w[i], axis=axis - 1)
+        q[i], s[i] = t.q, t.s
+    return QTensor(q=q, s=s, dtype=w.dtype)
+
+
+#: the contraction axis each quantized leaf of a Llama tree reduces over
+#: (by dotted path; the norms are absent: they stay as they are).
+#: Projections contract the middle axis of their stacked ``(L, in, out)``
+#: layout; embed is gathered per row; lm_head contracts hidden
+LLAMA_QUANT_AXES = {"embed": 1, "lm_head": 0, **{
+    f"layers.{name}": 1 for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}}
+#: the MoE tree's: attention, embed and LM head as Llama's; experts per
+#: (layer, expert, output column), contracting axis 2 of ``(L, E, in,
+#: out)``; the router stays float32
+MOE_QUANT_AXES = {**{k: v for k, v in LLAMA_QUANT_AXES.items()
+                     if k not in ("layers.w_gate", "layers.w_up", "layers.w_down")},
+                  "layers.w_gate": 2, "layers.w_up": 2, "layers.w_down": 2}
+
+
+def quantize_leaf(path: str, w, axes: dict):
+    """The leaf at ``path`` as its tree's quantizer leaves it: stacked
+    layer weights one layer at a time (:func:`quantize_stacked`), the
+    others whole, leaves absent from ``axes`` (and quantized ones) as
+    they are."""
+    axis = axes.get(path)
+    if axis is None or isinstance(w, QTensor):
+        return w
+    return quantize_stacked(w, axis) if path.startswith("layers.") else quantize_tensor(w, axis)
+
+
+def _quantize_tree(params: dict, axes: dict, prefix: str = "") -> dict:
+    return {k: (_quantize_tree(v, axes, f"{prefix}{k}.") if isinstance(v, dict)
+                else quantize_leaf(prefix + k, v, axes))
+            for k, v in params.items()}
+
+
 def quantize_llama_params(params: dict) -> dict:
-    """Quantize every matmul weight of a Llama param tree; norms stay as
-    they are. Projections contract the middle axis of their stacked
-    ``(L, in, out)`` layout; embed is gathered per row; lm_head contracts
-    hidden."""
-    layers = params["layers"]
-    out_layers = {
-        "attn_norm": layers["attn_norm"],
-        "mlp_norm": layers["mlp_norm"],
-    }
-    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-        out_layers[name] = quantize_tensor(layers[name], axis=1)
-    return {
-        "embed": quantize_tensor(params["embed"], axis=1),
-        "layers": out_layers,
-        "final_norm": params["final_norm"],
-        "lm_head": quantize_tensor(params["lm_head"], axis=0),
-    }
+    """Quantize every matmul weight of a Llama param tree
+    (:data:`LLAMA_QUANT_AXES`); norms stay as they are."""
+    return _quantize_tree(params, LLAMA_QUANT_AXES)
 
 
 def quantize_moe_params(params: dict) -> dict:
-    """MoE twin of :func:`quantize_llama_params`: attention, embed and LM
-    head as there; experts per (layer, expert, output column), contracting
-    axis 2 of ``(L, E, in, out)``, one layer at a time so the f32
-    transient is one layer's experts; the router stays float32."""
-    layers = params["layers"]
-
-    def experts(w: torch.Tensor) -> QTensor:
-        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-        s = torch.empty(w.shape[:2] + (1, w.shape[3]), dtype=torch.float32,
-                        device=w.device)
-        for i in range(w.shape[0]):
-            t = quantize_tensor(w[i], axis=1)
-            q[i], s[i] = t.q, t.s
-        return QTensor(q=q, s=s, dtype=w.dtype)
-
-    return {
-        "embed": quantize_tensor(params["embed"], axis=1),
-        "layers": {
-            "attn_norm": layers["attn_norm"],
-            "wq": quantize_tensor(layers["wq"], axis=1),
-            "wk": quantize_tensor(layers["wk"], axis=1),
-            "wv": quantize_tensor(layers["wv"], axis=1),
-            "wo": quantize_tensor(layers["wo"], axis=1),
-            "mlp_norm": layers["mlp_norm"],
-            "router": layers["router"],
-            # (L, E, H, I) contract H; (L, E, I, H) contract I
-            "w_gate": experts(layers["w_gate"]),
-            "w_up": experts(layers["w_up"]),
-            "w_down": experts(layers["w_down"]),
-        },
-        "final_norm": params["final_norm"],
-        "lm_head": quantize_tensor(params["lm_head"], axis=0),
-    }
+    """MoE twin of :func:`quantize_llama_params` (:data:`MOE_QUANT_AXES`):
+    one layer at a time, so the f32 transient is one layer's experts."""
+    return _quantize_tree(params, MOE_QUANT_AXES)
 
 
 # ---------------------------------------------------------------------------
@@ -200,79 +199,92 @@ def _q8_lm_head(c, generator, device) -> QTensor:
     return QTensor(q=hq, s=hs, dtype=c.dtype)
 
 
-def _q8_attention(c, generator, device) -> dict:
+def _q8_attention(c, generator, device, put) -> dict:
     """A layer stack's attention projections, quantized per output column."""
     L, Hd = c.layers, c.hidden
     qkv_dim = c.heads * c.head_dim
     kv_dim = c.kv_heads * c.head_dim
     return {
-        "wq": _q8_stacked(L, Hd, qkv_dim, Hd, c.dtype, generator, device),
-        "wk": _q8_stacked(L, Hd, kv_dim, Hd, c.dtype, generator, device),
-        "wv": _q8_stacked(L, Hd, kv_dim, Hd, c.dtype, generator, device),
-        "wo": _q8_stacked(L, qkv_dim, Hd, qkv_dim, c.dtype, generator, device),
+        "wq": put("layers.wq", _q8_stacked(L, Hd, qkv_dim, Hd, c.dtype, generator, device)),
+        "wk": put("layers.wk", _q8_stacked(L, Hd, kv_dim, Hd, c.dtype, generator, device)),
+        "wv": put("layers.wv", _q8_stacked(L, Hd, kv_dim, Hd, c.dtype, generator, device)),
+        "wo": put("layers.wo", _q8_stacked(L, qkv_dim, Hd, qkv_dim, c.dtype, generator,
+                                           device)),
     }
 
 
 def init_llama_params_q8(config, generator: torch.Generator | None = None,
-                         device="cuda") -> dict:
+                         device="cuda", place=None) -> dict:
     """Random-init Llama params already weight-quantized: the same tree,
     shapes and scale layout as ``quantize_llama_params(init_llama_params(c))``,
     but the peak during init is the int8 tree plus ONE chunk's f32
     transient (one layer's ``(in, out)`` matrix, or 1/32 of the vocab),
     never the full-precision tree. Runs on ``device``: the card unless the
-    caller asks for the CPU."""
+    caller asks for the CPU. ``place`` as in ``init_llama_params`` (with
+    it the peak is the kept tree plus one full int8 leaf)."""
     device = require_device(device, "init_llama_params_q8")
     c = config
     L, Hd, I = c.layers, c.hidden, c.intermediate
-    embed = _q8_embed(c, generator, device)
+    put = place or (lambda path, leaf: leaf)
+
+    def ones(path, *shape):
+        return put(path, torch.ones(shape, dtype=c.dtype, device=device))
+
+    embed = put("embed", _q8_embed(c, generator, device))
     layers = {
-        "attn_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
-        **_q8_attention(c, generator, device),
-        "mlp_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
-        "w_gate": _q8_stacked(L, Hd, I, Hd, c.dtype, generator, device),
-        "w_up": _q8_stacked(L, Hd, I, Hd, c.dtype, generator, device),
-        "w_down": _q8_stacked(L, I, Hd, I, c.dtype, generator, device),
+        "attn_norm": ones("layers.attn_norm", L, Hd),
+        **_q8_attention(c, generator, device, put),
+        "mlp_norm": ones("layers.mlp_norm", L, Hd),
+        "w_gate": put("layers.w_gate", _q8_stacked(L, Hd, I, Hd, c.dtype, generator, device)),
+        "w_up": put("layers.w_up", _q8_stacked(L, Hd, I, Hd, c.dtype, generator, device)),
+        "w_down": put("layers.w_down", _q8_stacked(L, I, Hd, I, c.dtype, generator, device)),
     }
     return {
         "embed": embed,
         "layers": layers,
-        "final_norm": torch.ones((Hd,), dtype=c.dtype, device=device),
-        "lm_head": _q8_lm_head(c, generator, device),
+        "final_norm": ones("final_norm", Hd),
+        "lm_head": put("lm_head", _q8_lm_head(c, generator, device)),
     }
 
 
 def init_moe_params_q8(config, generator: torch.Generator | None = None,
-                       device="cuda") -> dict:
+                       device="cuda", place=None) -> dict:
     """MoE twin of :func:`init_llama_params_q8`: the tree of
     ``quantize_moe_params(init_moe_params(c))``, experts made one ``(in,
     out)`` f32 chunk per (layer, expert) on ``device`` (a Mixtral-8x7B
     expert chunk is 235 MB; the stacked f32 tensor would be 60 GB). The
-    router stays float32, unquantized."""
+    router stays float32, unquantized. ``place`` as in
+    ``init_llama_params``."""
     device = require_device(device, "init_moe_params_q8")
     c = config
     L, E, Hd, I = c.layers, c.experts, c.hidden, c.moe_intermediate
+    put = place or (lambda path, leaf: leaf)
 
-    def experts(rows, cols, fan_in) -> QTensor:
+    def ones(path, *shape):
+        return put(path, torch.ones(shape, dtype=c.dtype, device=device))
+
+    def experts(path, rows, cols, fan_in) -> QTensor:
         # (L*E) chunks -> (L, E, rows, cols), scales (L, E, 1, cols): the
         # layout of quantize_tensor(axis=2)
         w = _q8_stacked(L * E, rows, cols, fan_in, c.dtype, generator, device)
-        return QTensor(q=w.q.view(L, E, rows, cols), s=w.s.view(L, E, 1, cols),
-                       dtype=c.dtype)
+        return put(path, QTensor(q=w.q.view(L, E, rows, cols),
+                                 s=w.s.view(L, E, 1, cols), dtype=c.dtype))
 
-    embed = _q8_embed(c, generator, device)
+    embed = put("embed", _q8_embed(c, generator, device))
     layers = {
-        "attn_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
-        **_q8_attention(c, generator, device),
-        "mlp_norm": torch.ones((L, Hd), dtype=c.dtype, device=device),
-        "router": torch.randn((L, Hd, E), generator=generator, device=device,
-                              dtype=torch.float32) * (1.0 / math.sqrt(Hd)),
-        "w_gate": experts(Hd, I, Hd),
-        "w_up": experts(Hd, I, Hd),
-        "w_down": experts(I, Hd, I),
+        "attn_norm": ones("layers.attn_norm", L, Hd),
+        **_q8_attention(c, generator, device, put),
+        "mlp_norm": ones("layers.mlp_norm", L, Hd),
+        "router": put("layers.router", torch.randn(
+            (L, Hd, E), generator=generator, device=device,
+            dtype=torch.float32) * (1.0 / math.sqrt(Hd))),
+        "w_gate": experts("layers.w_gate", Hd, I, Hd),
+        "w_up": experts("layers.w_up", Hd, I, Hd),
+        "w_down": experts("layers.w_down", I, Hd, I),
     }
     return {
         "embed": embed,
         "layers": layers,
-        "final_norm": torch.ones((Hd,), dtype=c.dtype, device=device),
-        "lm_head": _q8_lm_head(c, generator, device),
+        "final_norm": ones("final_norm", Hd),
+        "lm_head": put("lm_head", _q8_lm_head(c, generator, device)),
     }

@@ -112,22 +112,11 @@ def flash_attention(
     *,
     causal: bool = True,
     scale: float | None = None,
-    mesh=None,
 ) -> torch.Tensor:
     """Flash attention over ``(batch, seq, heads, head_dim)`` tensors:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-
-    Under a ``mesh`` (a :class:`~langstream_tpu_torch.parallel.mesh.Mesh`)
-    the call runs per rank, the port of the JAX package's ``shard_map``
-    branch: ``q``/``k``/``v`` hold this rank's heads (heads on ``tp``), the
-    kernel runs on this rank's batch rows when the batch divides ``dp`` and
-    the rows are summed back over ``dp``; otherwise the plain call on the
-    whole batch."""
-    rows = None if mesh is None else mesh.dp_rows(q.shape[0])
-    if rows is not None:
-        lo, hi = rows
-        out = flash_attention(q[lo:hi], k[lo:hi], v[lo:hi], causal=causal, scale=scale)
-        return mesh.dp_assemble(out, rows, q.shape[0])
+    Under a mesh each rank calls it on its own heads (heads on ``tp``) and
+    its replica's rows (the engine splits the batch over ``dp``)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if causal and Sq != Sk:

@@ -30,6 +30,7 @@ at this rank's coordinates.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import logging
@@ -142,9 +143,9 @@ class Mesh:
         self.backend = backend
         self.reason = reason
         self._groups = groups or {}
-        #: per call site (``tag``): calls, host seconds, bytes summed. A
-        #: collective waits for the work queued before it, so its seconds
-        #: include that work's tail
+        #: per call site (``tag``): calls, host seconds, bytes summed. Over
+        #: gloo on the card the seconds are the collective's alone (the
+        #: stream is synchronized first); over NCCL they are the launch
         self.collectives: dict[str, list] = {}
         sizes = tuple(self.axis_sizes.values())
         index = np.unravel_index(rank, sizes) if sizes else ()
@@ -188,6 +189,11 @@ class Mesh:
 
         buf = x.to(torch.float32) if x.dtype in (torch.bfloat16, torch.float16) \
             else x.contiguous().clone()
+        if buf.is_cuda and self.backend == "gloo":
+            # gloo stages a CUDA tensor through the host, which waits for
+            # the work queued before it anyway: wait here, so the seconds
+            # below are the collective's own and not that work's tail
+            torch.cuda.current_stream(buf.device).synchronize()
         t0 = time.monotonic()
         dist.all_reduce(buf, group=group)
         entry = self.collectives.setdefault(tag or "+".join(axes), [0, 0.0, 0])
@@ -206,13 +212,15 @@ class Mesh:
         lo = self.index("dp") * step
         return lo, lo + step
 
-    def dp_assemble(self, x: torch.Tensor, rows: tuple[int, int], batch: int) -> torch.Tensor:
-        """The full batch from each dp rank's ``x`` (its ``rows``):
-        zero-padded and summed over ``dp``, exact since every row is one
-        rank's alone."""
-        full = x.new_zeros((batch,) + tuple(x.shape[1:]))
-        full[rows[0]:rows[1]] = x
-        return self.sum(full, "dp")
+    def replica(self) -> "Mesh":
+        """This rank's view without ``dp``: the mesh of one data-parallel
+        replica, which the model code runs on (the engine hands each replica
+        its own slots' rows and sums the outputs over ``dp``). Shares the
+        groups and the collective counters."""
+        view = copy.copy(self)
+        view.axis_sizes = {a: n for a, n in self.axis_sizes.items() if a != "dp"}
+        view.coords = {a: i for a, i in self.coords.items() if a != "dp"}
+        return view
 
     def describe(self) -> dict[str, Any]:
         return {"axes": dict(self.axis_sizes), "rank": self.rank,

@@ -247,12 +247,15 @@ from langstream_tpu_torch.models.paged import (
     init_paged_kv_cache_int8,
 )
 from langstream_tpu_torch.models.quant import (
+    LLAMA_QUANT_AXES,
+    MOE_QUANT_AXES,
     QTensor,
     init_llama_params_q8,
     init_moe_params_q8,
     quantize_llama_params,
     quantize_moe_params,
     quantize_specs,
+    quantize_tensor,
 )
 from langstream_tpu_torch.parallel.mesh import (
     PartitionSpec,
@@ -918,12 +921,12 @@ class TorchServingEngine:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(config.seed)
         self._init_model(params)
-        # lockstep: the dispatch counter and, on the leader, the tokens each
-        # dispatch sampled by dispatch number (held against the followers')
+        # lockstep: the dispatch counter; on a leader whose caller asks for
+        # it (a dict here), the tokens each dispatch sampled by dispatch
+        # number, to hold against the followers' (the demo and the tests)
         self._ls_seq = 0
         self._ls_carry = None  # the last decode chunk's device tokens
-        self._ls_pending: dict[int, tuple[str, int]] = {}
-        self.lockstep_tokens: dict[int, tuple[str, np.ndarray]] = {}
+        self.lockstep_tokens: dict[int, tuple[str, np.ndarray]] | None = None
 
         self.slots = [_Slot() for _ in range(config.slots)]
         # admission: FIFO, or the QoS scheduler under a qos section
@@ -1202,6 +1205,11 @@ class TorchServingEngine:
         must be connected before the mesh's groups are made, which every
         rank joins), make this rank's mesh and take this rank's card."""
         self.mesh = None
+        self._dp_span = None  # the slots this rank's dp replica serves
+        self._dp_prefill_split = False  # prefill splits over dp too
+        # the order admission fills free slots in: under a dp split the
+        # replicas take turns, so a light load spreads over them
+        self._slot_order = list(range(config.slots))
         self._lockstep = None
         self.lockstep_role = lockstep_role
         if not config.mesh:
@@ -1226,24 +1234,84 @@ class TorchServingEngine:
                      self._lockstep.port, world - 1)
             self._lockstep.wait_ready()
         self.mesh = make_mesh(dict(config.mesh))
+        self._dp_span = self.mesh.dp_rows(config.slots)
+        if self._dp_span is not None:
+            per = self._dp_span[1] - self._dp_span[0]
+            self._slot_order.sort(key=lambda slot: (slot % per, slot // per))
+            # a slot's decode and verify rows live in its replica's cache
+            # alone; the prefix cache hands prompt blocks across slots, so
+            # with it every replica prefills every row (the prompt rows
+            # then lie in every replica's pool)
+            self._dp_prefill_split = not (config.kv_layout == "paged"
+                                          and config.prefix_cache)
         self.device = rank_device(self.device, self.mesh.rank)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
 
     def mesh_section(self) -> dict[str, Any] | None:
-        """The mesh, this rank's place in it, its backend and why, and the
-        lockstep role (None without a mesh)."""
+        """The mesh, this rank's place in it, its backend and why, the
+        lockstep role, the slots its dp replica serves, its weights' device
+        bytes and the device bytes their placement peaked at (None on the
+        CPU); None without a mesh."""
         if self.mesh is None:
             return None
         return {**self.mesh.describe(), "lockstep-role": self.lockstep_role,
                 "lockstep-dispatches": self._ls_seq,
-                "attention-split": bool(self.model_config.shard.attention)}
+                "attention-split": bool(self.model_config.shard.attention),
+                "dp-slots": None if self._dp_span is None else list(self._dp_span),
+                "dp-prefill-split": self._dp_prefill_split,
+                "weights-bytes": self._weights_bytes,
+                "load-peak-bytes": self._load_peak_bytes}
 
-    def _shard_params(self, params: dict, mc) -> dict:
-        """This rank's shards of a full tree, by the model's specs with
-        absent mesh axes removed: only ``ep`` may be absent (the experts
-        are then replicated, with a warning); any other absent axis is a
-        misconfigured mesh (the JAX engine's ``_present`` rule)."""
+    def _warn_random_init(self) -> None:
+        log.warning(
+            "no checkpoint configured for model %r: using random-init "
+            "weights (offline/dev mode)", self.config.model,
+        )
+
+    def _place_shards(self, params: dict | None, mc, load, init, int8: bool) -> dict:
+        """This rank's shards on its device, leaf by leaf, never the whole
+        tree there: each leaf of the checkpoint (read leaf by leaf on the
+        host) or of the random init (drawn on the device, the draws a
+        one-rank engine's) is, in the model dtype, quantized (int8; a
+        stacked weight one layer at a time on the device, so the scales are
+        the whole tree's) and sharded, and only the shard is kept. The peak
+        is the shards plus one whole leaf."""
+        specs = self._param_specs(mc)
+        axes = (MOE_QUANT_AXES if self.is_moe else LLAMA_QUANT_AXES) if int8 else {}
+        mesh, dev = self.mesh, self.device
+
+        def shard(leaf, spec):
+            return shard_tree(leaf, quantize_specs(spec, leaf), mesh)
+
+        def place(path, leaf):
+            spec = specs
+            for key in path.split("."):
+                spec = spec[key]
+            axis = axes.get(path)
+            if axis is None or isinstance(leaf, QTensor):
+                return _to_device(shard(leaf, spec), dev)  # only the shard moves
+            if not path.startswith("layers."):
+                return shard(quantize_tensor(leaf.to(dev), axis), spec)
+            per_layer = PartitionSpec(*tuple(spec)[1:])
+            parts = [shard(quantize_tensor(w.to(dev), axis - 1), per_layer) for w in leaf]
+            return QTensor(q=torch.stack([t.q for t in parts]),
+                           s=torch.stack([t.s for t in parts]), dtype=leaf.dtype)
+
+        if params is not None:
+            raise ValueError(
+                "under a mesh every rank builds its own weights from the "
+                "configuration (checkpoint or seed): params cannot be passed")
+        if self.config.checkpoint:
+            return load(self.config.checkpoint, mc, place=place)
+        self._warn_random_init()
+        return init(mc, self._generator, device=dev, place=place)
+
+    def _param_specs(self, mc) -> dict:
+        """The model's specs with absent mesh axes removed: only ``ep`` may
+        be absent (the experts are then replicated, with a warning); any
+        other absent axis is a misconfigured mesh (the JAX engine's
+        ``_present`` rule)."""
         axes = set(self.mesh.axis_names)
         base = moe_param_specs(mc) if self.is_moe else llama_param_specs(mc)
 
@@ -1272,14 +1340,39 @@ class TorchServingEngine:
                 return {k: walk(v) for k, v in tree.items()}
             return PartitionSpec(*(present(e) for e in tree))
 
-        specs = rank_specs(walk(base), mc, self.mesh)
-        return shard_tree(params, quantize_specs(specs, params), self.mesh)
+        return rank_specs(walk(base), mc, self.mesh)
 
     def _dense_slots(self) -> int:
-        """The slots this rank's dense cache holds: its share of the slots
-        on ``dp`` (the cache spec), or all of them when they do not split."""
-        rows = None if self.mesh is None else self.mesh.dp_rows(self.config.slots)
-        return self.config.slots if rows is None else rows[1] - rows[0]
+        """The slots this rank's dense cache holds: its dp replica's (the
+        cache spec), or all of them when dp does not split them."""
+        span = self._dp_span
+        return self.config.slots if span is None else span[1] - span[0]
+
+    def _dp_rows(self, slot_ids: np.ndarray) -> np.ndarray | None:
+        """The rows of a prefill that this rank's dp replica runs: those of
+        the slots it serves. None when dp does not split the slots (every
+        rank runs every row, the JAX rule's degradation)."""
+        if self._dp_span is None:
+            return None
+        lo, hi = self._dp_span
+        return np.flatnonzero((slot_ids >= lo) & (slot_ids < hi))
+
+    def _dp_gather(self, packed: torch.Tensor, rows, batch: int, segments) -> torch.Tensor:
+        """A dispatch's packed int32 output made whole from each replica's
+        ``rows`` (a slice or an index tensor into a batch of ``batch``):
+        each segment ``(lead, width)`` holds ``(lead, rows, width)`` values;
+        zero-padded to the batch and summed over ``dp``, exact since every
+        row is one replica's. One collective per dispatch."""
+        n_rows = rows.stop - rows.start if isinstance(rows, slice) else len(rows)
+        whole, off = [], 0
+        for lead, width in segments:
+            n = lead * n_rows * width
+            seg = packed[off:off + n].view(lead, n_rows, width)
+            off += n
+            full = seg.new_zeros((lead, batch, width))
+            full[:, rows] = seg
+            whole.append(full.reshape(-1))
+        return self.mesh.sum(torch.cat(whole), "dp", tag="dp-rows")
 
     @torch.no_grad()
     def _init_model(self, params: dict | None) -> None:
@@ -1295,31 +1388,36 @@ class TorchServingEngine:
             load, init, init_q8, quantize = (
                 load_llama_checkpoint, init_llama_params, init_llama_params_q8,
                 quantize_llama_params)
-        if params is None and self.config.checkpoint:
-            # loaded on the CPU in the model dtype, then (int8) quantized:
-            # the JAX engine's order, so the bf16 rounding happens before
-            # the quantizer as there. A MoE tree is quantized before it
-            # moves: an int8 Mixtral-8x7B fits the card, a bf16 one not
-            params = load(self.config.checkpoint, mc)
-            if int8 and self.is_moe:
-                params = quantize(params)
-        if params is None:
-            log.warning(
-                "no checkpoint configured for model %r: using random-init "
-                "weights (offline/dev mode)", self.config.model,
-            )
-            params = (init_q8 if int8 else init)(mc, self._generator, device=dev)
-        else:
-            params = _to_device(params, dev)
-            if int8 and not isinstance(params["layers"]["wq"], QTensor):
-                params = quantize(params)
         if self.mesh is not None:
-            # every rank built the full tree (the same seed or checkpoint);
-            # it keeps its shards and serves them through a local config
-            params = self._shard_params(params, mc)
+            cuda = dev.type == "cuda"
+            if cuda:  # the device bytes the placement peaks at, reported
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            params = self._place_shards(params, mc, load, init_q8 if int8 else init, int8)
+            self._load_peak_bytes = (torch.cuda.max_memory_allocated(dev) - base
+                                     if cuda else None)
             self.global_model_config = mc
-            self.model_config = mc = local_config(mc, self.mesh)
-            self._ffn = moe_serving_ffn(mc, mesh=self.mesh) if self.is_moe else None
+            # the model runs on one dp replica's rows: its mesh has no dp
+            replica = self.mesh.replica()
+            self.model_config = mc = local_config(mc, replica)
+            self._ffn = moe_serving_ffn(mc, mesh=replica) if self.is_moe else None
+        else:
+            if params is None and self.config.checkpoint:
+                # loaded on the CPU in the model dtype, then (int8)
+                # quantized: the JAX engine's order, so the bf16 rounding
+                # happens before the quantizer as there. A MoE tree is
+                # quantized before it moves: an int8 Mixtral-8x7B fits the
+                # card, a bf16 one not
+                params = load(self.config.checkpoint, mc)
+                if int8 and self.is_moe:
+                    params = quantize(params)
+            if params is None:
+                self._warn_random_init()
+                params = (init_q8 if int8 else init)(mc, self._generator, device=dev)
+            else:
+                params = _to_device(params, dev)
+                if int8 and not isinstance(params["layers"]["wq"], QTensor):
+                    params = quantize(params)
         self.params = params
         self.block_mgr = None
         self.paged_layout = None
@@ -4180,7 +4278,7 @@ class TorchServingEngine:
         cfg = self.config
         use_prefix = self.block_mgr is not None and cfg.prefix_cache
         while not self.scheduler.empty():
-            free = [i for i, s in enumerate(self.slots) if s.free]
+            free = [i for i in self._slot_order if self.slots[i].free]
             if not free:
                 return
             batch: list[tuple[int, _Request, int]] = []  # (slot, request, reuse)
@@ -4518,8 +4616,10 @@ class TorchServingEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.clone()
 
-    def _sample_fn(self, temps_t, topks_t, topps_t, mode, pres_t=None, freq_t=None):
-        """A ``sample_fn`` closure over device tensors of the rows' settings."""
+    def _sample_fn(self, temps_t, topks_t, topps_t, mode, pres_t=None, freq_t=None,
+                   draw=None):
+        """A ``sample_fn`` closure over device tensors of the rows' settings
+        (``draw``: the rows' ``(batch, index)`` under a dp split)."""
         use_top_p, use_top_k, all_greedy = mode
         pen = pres_t is not None
 
@@ -4528,7 +4628,7 @@ class TorchServingEngine:
                 logits, self._generator, temps_t, topks_t,
                 use_top_p=use_top_p, top_ps=topps_t, use_top_k=use_top_k,
                 all_greedy=all_greedy, use_penalties=pen, presences=pres_t,
-                frequencies=freq_t, counts=counts,
+                frequencies=freq_t, counts=counts, rows=draw,
             )
 
         return sample_fn
@@ -4564,13 +4664,10 @@ class TorchServingEngine:
         return seq
 
     def _ls_note(self, seq: int | None, op: str, tokens: np.ndarray) -> None:
-        """Leader: the tokens dispatch ``seq`` sampled (the last 4,096
-        dispatches), to hold against a follower's."""
-        if seq is None:
-            return
-        self.lockstep_tokens[seq] = (op, tokens.copy())
-        if len(self.lockstep_tokens) > 4096:
-            del self.lockstep_tokens[min(self.lockstep_tokens)]
+        """Leader: the tokens dispatch ``seq`` sampled, kept when the caller
+        asked for :attr:`lockstep_tokens`."""
+        if seq is not None and self.lockstep_tokens is not None:
+            self.lockstep_tokens[seq] = (op, tokens.copy())
 
     @torch.no_grad()
     def _run_prefill(self, padded, lengths, slot_ids, tables, temps, topks,
@@ -4593,10 +4690,45 @@ class TorchServingEngine:
         )
         mc, up = self.model_config, self._upload
         start = self._timing_event()
-        tokens = up(padded)
-        lengths_t = up(lengths)
+        B = len(lengths)
+        slot_ids = np.asarray(slot_ids)
         # a slot named by several rows (a padded batch) commits its last row
         commit = np.array([s not in slot_ids[i + 1:] for i, s in enumerate(slot_ids)])
+        own = self._dp_rows(slot_ids) if self._dp_prefill_split else None
+        if own is not None:
+            # this dp replica runs the rows of its own slots
+            padded, lengths, slot_ids, commit = (
+                padded[own], lengths[own], slot_ids[own], commit[own])
+            temps, topks, topps = temps[own], topks[own], topps[own]
+            tables = None if tables is None else tables[own]
+            ad_rows = None if ad_rows is None else ad_rows[own]
+            cont = None if cont is None else (cont[0][own], cont[1])
+        if own is not None and not len(own):
+            nxt = torch.zeros(0, dtype=torch.int32, device=self.device)
+            lps = torch.zeros(0, dtype=torch.float32, device=self.device)
+        else:
+            nxt, lps = self._prefill_own(padded, lengths, slot_ids, tables, temps,
+                                         topks, topps, mode, cont, ad_rows, commit,
+                                         None if own is None else (B, up(own)))
+        self._prefill_calls += 1
+        packed = pack_tokens_logprobs(nxt, lps)
+        if own is not None:
+            packed = self._dp_gather(packed, up(own), B, [(1, 1), (1, 1)])
+        end = self._timing_event()
+        t0 = time.monotonic()
+        host = packed.cpu().numpy()  # the prefill's one device-to-host copy
+        wait_s = time.monotonic() - t0
+        self._ls_note(seq, op, host[:B])
+        return host[:B], host[B:].view(np.float32), wait_s, self._span_s(start, end)
+
+    def _prefill_own(self, padded, lengths, slot_ids, tables, temps, topks, topps,
+                     mode, cont, ad_rows, commit, draw):
+        """The prefill forward and first-token sample of the rows this rank
+        runs (``draw``: their ``(batch, index)`` under a dp split, for the
+        sampler's draws). Returns the device tokens and logprobs."""
+        mc, up = self.model_config, self._upload
+        tokens = up(padded)
+        lengths_t = up(lengths)
         commit_t = None if commit.all() else up(commit)
         adapters = self._adapters_device(ad_rows)
         if cont is not None:
@@ -4616,17 +4748,13 @@ class TorchServingEngine:
             logits, ks, vs = prefill_forward(mc, self.params, tokens, lengths_t,
                                              ffn=self._ffn)
             Pn = tokens.shape[1]
-            # the rows this rank's cache holds (its slots on dp), at their
-            # places in it
-            lo = 0
-            if self._dense_slots() != self.config.slots:
-                lo = self.mesh.dp_rows(self.config.slots)[0]
-            mine = commit & (slot_ids >= lo) & (slot_ids < lo + self._dense_slots())
-            if mine.all():
-                sel = up(slot_ids - lo)
+            # the dense cache holds this replica's slots, from its first
+            slots = slot_ids - (self._dp_span[0] if self._dp_span else 0)
+            if commit_t is None:
+                sel = up(slots)
             else:
-                sel = up(slot_ids[mine] - lo)
-                keep = up(np.flatnonzero(mine))
+                sel = up(slots[commit])
+                keep = up(np.flatnonzero(commit))
                 ks, vs = ks[:, keep], vs[:, keep]
             for cache, rows in ((self.cache_k, ks), (self.cache_v, vs)):
                 if is_quant_cache(cache):
@@ -4636,16 +4764,7 @@ class TorchServingEngine:
                     cache["s"][:, sel, :Pn] = rows["s"]
                 else:
                     cache[:, sel, :Pn] = rows
-        nxt, lps = self._sample_fn(up(temps), up(topks), up(topps), mode)(logits)
-        self._prefill_calls += 1
-        packed = pack_tokens_logprobs(nxt, lps)
-        end = self._timing_event()
-        t0 = time.monotonic()
-        host = packed.cpu().numpy()  # the prefill's one device-to-host copy
-        wait_s = time.monotonic() - t0
-        B = len(lengths)
-        self._ls_note(seq, op, host[:B])
-        return host[:B], host[B:].view(np.float32), wait_s, self._span_s(start, end)
+        return self._sample_fn(up(temps), up(topks), up(topps), mode, draw=draw)(logits)
 
     # ------------------------------------------------------------------
     # decode
@@ -4976,6 +5095,16 @@ class TorchServingEngine:
             )
         self.profiler.on_decode_chunk()
         start = self._timing_event()
+        rows = None if self._dp_span is None else slice(*self._dp_span)
+        if rows is not None:
+            # this dp replica runs its own slots' rows (a chained chunk's
+            # device tokens and lengths are its rows already)
+            if isinstance(tokens, np.ndarray):
+                tokens, lengths = tokens[rows], lengths[rows]
+            sampler = tuple(a[rows] for a in sampler)
+            tables = None if tables is None else tables[rows]
+            penalties = None if penalties is None else tuple(a[rows] for a in penalties)
+            ad_rows = None if ad_rows is None else ad_rows[rows]
         if isinstance(tokens, np.ndarray):
             tokens, lengths = self._upload(tokens), self._upload(lengths)
         amask, temps_t, topks_t, topps_t = self._sampler_device(*sampler)
@@ -4983,7 +5112,8 @@ class TorchServingEngine:
         if penalties is not None:
             pres_t, freq_t, counts_t = (self._upload(a) for a in penalties)
             extras = (None, None, counts_t)
-        sample_fn = self._sample_fn(temps_t, topks_t, topps_t, mode, pres_t, freq_t)
+        sample_fn = self._sample_fn(temps_t, topks_t, topps_t, mode, pres_t, freq_t,
+                                    draw=None if rows is None else (self.config.slots, rows))
         mc = self.model_config
         if self.block_mgr is not None:
             out = llama_decode_chunk_paged(
@@ -5000,20 +5130,24 @@ class TorchServingEngine:
             )
         self._decode_dispatches += 1
         self._decode_steps += K
-        handle = self._start_fetch(out[0], start)
+        packed = out[0]
+        if rows is not None:
+            packed = self._dp_gather(packed, rows, self.config.slots, [(K, 1), (K, 1)])
+        handle = self._start_fetch(packed, start, None if seq is None else (op, seq))
         if seq is not None:
             self._ls_carry = out[1]
-            self._ls_pending[id(handle[0])] = (op, seq)
         self._decode_launch_s += time.monotonic() - t0
         return handle, out[1], out[2]
 
-    def _start_fetch(self, packed: torch.Tensor, start=None) -> tuple:
+    def _start_fetch(self, packed: torch.Tensor, start=None, note=None) -> tuple:
         """Begin the chunk's one device-to-host copy without blocking: into
         one of the two pinned buffers (at most two chunks are in flight),
         with a CUDA event behind it (``start``: the event before the
-        chunk's first launch). On the CPU the tensor is the result."""
+        chunk's first launch). On the CPU the tensor is the result.
+        ``note``: the lockstep ``(op, dispatch number)`` it carries to
+        :meth:`_ls_note`."""
         if packed.device.type != "cuda":
-            return packed, None, None
+            return packed, None, None, note
         n = packed.numel()
         buf = self._fetch_bufs[self._fetch_turn]
         if buf is None or buf.numel() < n:
@@ -5024,7 +5158,7 @@ class TorchServingEngine:
         self._fetch_turn ^= 1
         view = buf[:n]
         view.copy_(packed, non_blocking=True)
-        return view, self._timing_event(), start
+        return view, self._timing_event(), start, note
 
     @staticmethod
     def _chunk_ready(handle: tuple) -> bool:
@@ -5048,7 +5182,7 @@ class TorchServingEngine:
         """Wait for a chunk's copy, split the packed int32 into tokens (K,
         B) and logprobs (K, B); then the seconds blocked on the card and
         the chunk's span on the card (None on the CPU)."""
-        view, event, start = handle
+        view, event, start, note = handle
         t0 = time.monotonic()
         if event is not None:
             event.synchronize()
@@ -5057,9 +5191,8 @@ class TorchServingEngine:
         self._decode_fetches += 1
         B = self.config.slots
         n = K * B
-        if self._ls_pending:
-            op, seq = self._ls_pending.pop(id(view), (None, None))
-            self._ls_note(seq, op, flat[:n].reshape(K, B))
+        if note is not None:
+            self._ls_note(note[1], note[0], flat[:n].reshape(K, B))
         return (flat[:n].reshape(K, B), flat[n:].view(np.float32).reshape(K, B), wait_s,
                 self._span_s(start, event))
 
@@ -5311,10 +5444,21 @@ class TorchServingEngine:
         )
         up = self._upload
         start = self._timing_event()
+        rows = None if self._dp_span is None else slice(*self._dp_span)
+        if rows is not None:
+            # this dp replica runs its own slots' rows; its context rows
+            # are theirs, from its first slot
+            current, lengths, active_mask, tables, temps, topks, topps = (
+                a[rows] for a in (current, lengths, active_mask, tables, temps,
+                                  topks, topps))
+            ad_rows = None if ad_rows is None else ad_rows[rows]
+            if ctx_rows is not None:
+                mine = (ctx_rows >= rows.start) & (ctx_rows < rows.stop)
+                ctx_rows, ctx_vals = ctx_rows[mine] - rows.start, ctx_vals[mine]
         if self._ctx_dev is None:
-            self._ctx_dev = torch.zeros((self.config.slots, S + 1), dtype=torch.int32,
+            self._ctx_dev = torch.zeros((len(active_mask), S + 1), dtype=torch.int32,
                                         device=self.device)
-        if ctx_rows is not None:
+        if ctx_rows is not None and len(ctx_rows):
             self._ctx_dev[up(ctx_rows), :S] = up(ctx_vals)
         greedy = mode[2]
         packed, self._ctx_dev, self.cache_k, self.cache_v = llama_spec_step_paged(
@@ -5326,10 +5470,15 @@ class TorchServingEngine:
             topks=None if greedy else up(topks),
             topps=None if greedy else up(topps),
             sampler_mode=mode, ffn=self._ffn, adapters=self._adapters_device(ad_rows),
+            sample_rows=None if rows is None else (self.config.slots, rows),
         )
+        d1 = self.config.speculative_drafts + 1
+        if rows is not None:
+            packed = self._dp_gather(packed, rows, self.config.slots,
+                                     [(1, d1), (1, 1), (1, 1), (1, 1), (1, 1), (1, d1)])
         self._spec_dispatches += 1
         end = self._timing_event()
-        parts, wait_s = self._fetch_spec(packed, self.config.speculative_drafts + 1)
+        parts, wait_s = self._fetch_spec(packed, d1)
         self._ls_note(seq, "spec_step", parts[0])
         return parts, wait_s, self._span_s(start, end)
 

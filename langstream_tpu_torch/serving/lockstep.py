@@ -286,20 +286,26 @@ class LockstepFollower:
 
     def __init__(self, leader_host: str, port: int | None = None,
                  connect_timeout: float = 600.0, token: str = "",
-                 device="cuda"):
+                 device="cuda", record_tokens: bool = False):
         self.addr = (leader_host, port if port is not None else DEFAULT_PORT)
         self.connect_timeout = connect_timeout
         self.token = token
         self.device = device
         self.engine = None
-        #: the tokens each replayed op sampled on this rank, in replay order
-        #: (``(op, int32 array)``), to hold against the leader's
-        self.tokens_log: list[tuple[str, np.ndarray]] = []
+        #: with ``record_tokens``, the tokens each replayed op sampled on
+        #: this rank, in replay order (``(op, int32 array)``), to hold
+        #: against the leader's (the demo and the tests ask for it)
+        self.tokens_log: list[tuple[str, np.ndarray]] | None = (
+            [] if record_tokens else None)
         # stop() is a cross-thread signal: the pod's event loop calls it
         # while run() blocks in recv on the replay thread
         self._sock_lock = threading.Lock()
         self._sock: socket.socket | None = None
         self._stopping = threading.Event()
+
+    def _record(self, op: str, tokens) -> None:
+        if self.tokens_log is not None:
+            self.tokens_log.append((op, np.asarray(tokens).copy()))
 
     def stop(self) -> None:
         """Unblock a blocked ``run`` (SIGTERM path): closing the socket
@@ -396,25 +402,22 @@ class LockstepFollower:
                     (desc["active"], desc["temps"], desc["topks"], desc["topps"]),
                     desc.get("tables"), desc.get("window"), K, _mode(desc), pen,
                 )
-                chunk_tokens = engine._wait_chunk(handle, K)[0]
-                self.tokens_log.append((op, chunk_tokens.copy()))
+                self._record(op, engine._wait_chunk(handle, K)[0])
             elif op in ("prefill", "prefill_continue"):
                 cont = None
                 if op == "prefill_continue":
                     cont = (desc["starts"], int(desc["nrb"]))
-                first = engine._run_prefill(
+                self._record(op, engine._run_prefill(
                     desc["tokens"], desc["lengths"], desc["slot_ids"],
                     desc.get("tables"), desc["temps"], desc["topks"],
                     desc["topps"], _mode(desc), cont=cont,
-                )[0]
-                self.tokens_log.append((op, first.copy()))
+                )[0])
             elif op == "spec_step":
-                parts = engine._run_spec_step(
+                self._record(op, engine._run_spec_step(
                     desc.get("ctx_rows"), desc.get("ctx_vals"), desc["current"],
                     desc["lengths"], desc["active"], desc["tables"], int(desc["nrb"]),
                     _mode(desc), desc["temps"], desc["topks"], desc["topps"],
-                )[0]
-                self.tokens_log.append((op, np.asarray(parts[0]).copy()))
+                )[0][0])
             else:
                 raise RuntimeError(f"unknown lockstep op {op!r}")
             engine._ls_seq += 1

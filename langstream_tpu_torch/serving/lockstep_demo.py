@@ -92,6 +92,7 @@ async def _drive(engine, prompts: list, max_tokens: int) -> dict:
         # a crashed leader never sends
         return out
     await engine.close()
+    out["mesh"] = engine.mesh_section()  # with the chunk close() drained
     out["dispatches"] = {str(k): [op, v.tolist()]
                          for k, (op, v) in sorted(engine.lockstep_tokens.items())}
     return out
@@ -114,6 +115,7 @@ def run_process(index: int, num_processes: int, coordinator_port: int,
         os.environ["LS_LOCKSTEP_PORT"] = str(lockstep_port)
         for cfg in configs:
             engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+            engine.lockstep_tokens = {}  # held against the followers' logs
             try:
                 outputs.append(asyncio.run(_drive(engine, prompts, max_tokens)))
             except LockstepBroken as e:
@@ -132,7 +134,8 @@ def run_process(index: int, num_processes: int, coordinator_port: int,
 
         die_after = int(os.environ.get("LS_DEMO_FOLLOWER_DIE_AFTER", "0"))
         for _ in configs:
-            follower = LockstepFollower("127.0.0.1", lockstep_port, device=device)
+            follower = LockstepFollower("127.0.0.1", lockstep_port, device=device,
+                                        record_tokens=True)
             steps = follower.run(die_after_steps=die_after or None)
             outputs.append({
                 "replayed": steps,

@@ -34,8 +34,14 @@ def sample_tokens(
     presences: torch.Tensor | None = None,    # (B,)
     frequencies: torch.Tensor | None = None,  # (B,)
     counts: torch.Tensor | None = None,       # (B, V) output-token counts
+    rows: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """→ (tokens (B,) int32, logprobs (B,) float32 of the sampled token)."""
+    """→ (tokens (B,) int32, logprobs (B,) float32 of the sampled token).
+
+    ``rows = (batch, index)`` says these ``B`` rows are the rows ``index``
+    of a batch of ``batch`` (one dp replica's): the draws are made for the
+    whole batch and these rows kept, so the replica samples as the whole
+    batch would (see :func:`draw_uniform`)."""
     if use_penalties:
         # applied before everything: greedy argmax and logprobs see the
         # penalised distribution
@@ -57,12 +63,23 @@ def sample_tokens(
         logits, temperatures, top_ks,
         use_top_p=use_top_p, top_ps=top_ps, use_top_k=use_top_k,
     )
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device,
-                   dtype=torch.float32)
+    u = draw_uniform(scaled.shape, generator, scaled.device, rows)
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)
     sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
     tokens = torch.where(temperatures <= 0, greedy_tokens, sampled)
     return tokens.to(torch.int32), token_logprob(tokens)
+
+
+def draw_uniform(shape, generator: torch.Generator | None, device,
+                 rows: tuple | None = None) -> torch.Tensor:
+    """``torch.rand`` of ``shape`` (f32); with ``rows = (batch, index)`` the
+    draws of a ``batch``-row tensor (dim 0), of which the rows ``index``."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    batch, index = rows
+    full = torch.rand((batch,) + tuple(shape[1:]), generator=generator, device=device,
+                      dtype=torch.float32)
+    return full[index]
 
 
 def filtered_logits(
@@ -110,6 +127,7 @@ def speculative_accept(
     top_ps: torch.Tensor | None,  # (B,)
     use_top_p: bool = False,
     use_top_k: bool = True,
+    rows: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Rejection sampling for a DETERMINISTIC drafter (prompt lookup).
 
@@ -124,7 +142,8 @@ def speculative_accept(
     argmax`` and every fallback is the argmax.
 
     Draws come from ``generator``: ``torch.rand`` for ``u`` and Gumbel-max
-    for the categorical, with no host sync. Returns ``(accepted (B,)
+    for the categorical, with no host sync (``rows`` as in
+    :func:`sample_tokens`). Returns ``(accepted (B,)
     int32, fallback (B, D1) int32)``: the count of accepted drafts, and
     the token to emit at each position if the run stops there."""
     B, D1, V = logits.shape
@@ -144,8 +163,7 @@ def speculative_accept(
 
     drafts = drafts.to(torch.long)
     p_draft = torch.gather(p[:, :-1], 2, drafts[..., None]).squeeze(-1)  # (B, D1-1)
-    u = torch.rand((B, D1 - 1), generator=generator, device=logits.device,
-                   dtype=torch.float32)
+    u = draw_uniform((B, D1 - 1), generator, logits.device, rows)
     accepted = torch.cumprod((u < p_draft).to(torch.int32), dim=1).sum(dim=1)
 
     # fallback per position: a categorical over log p with the draft masked
@@ -157,8 +175,7 @@ def speculative_accept(
     draft_hot = torch.zeros((B, D1, V), dtype=torch.bool, device=logits.device)
     draft_hot[:, :-1].scatter_(2, drafts[..., None], True)
     fb_logits = fb_logits.masked_fill(draft_hot, neg)
-    g = torch.rand(fb_logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32)
+    g = draw_uniform(fb_logits.shape, generator, logits.device, rows)
     g = g.clamp_(min=torch.finfo(torch.float32).tiny)
     fallback = torch.argmax(fb_logits - torch.log(-torch.log(g)), dim=-1)
     return accepted.to(torch.int32), fallback.to(torch.int32)

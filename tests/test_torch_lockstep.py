@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from langstream_tpu.serving import lockstep as jax_lockstep
 from langstream_tpu_torch.serving import lockstep as port_lockstep
@@ -368,6 +369,10 @@ def test_a_one_rank_mesh_serves_in_process_and_through_the_provider():
             await engine.close()
 
     assert asyncio.run(serve(meshed)) == asyncio.run(serve(plain))
+    # every rank builds its weights from the configuration, none from a caller
+    with pytest.raises(ValueError, match="every rank builds its own weights"):
+        TorchServingEngine(ServingConfig.from_dict({**TINY, "mesh": {"tp": 1}}),
+                           device="cpu", params=plain.params)
     section = meshed.stats()["mesh"]
     assert section["axes"] == {"tp": 1} and section["world-size"] == 1
     assert section["lockstep-role"] is None
@@ -375,6 +380,41 @@ def test_a_one_rank_mesh_serves_in_process_and_through_the_provider():
                                      **TINY, "mesh": {"tp": 1}}, device="cpu")
     service = provider.get_completions_service({})
     assert service.engine.config.mesh == (("tp", 1),)
+    TorchServingEngine.reset_instances()
+
+
+@pytest.mark.parametrize("model,fixture", [("tiny", "llama_tiny_golden"),
+                                           ("moe-tiny", "moe_tiny_golden")])
+def test_a_mesh_engine_places_the_one_rank_engines_weights(model, fixture):
+    """Under a mesh the engine places its weights leaf by leaf (a checkpoint
+    read leaf by leaf, each stacked weight quantized one layer at a time on
+    the device, then sharded): at one rank that is exactly the tree of an
+    engine without a mesh, which quantizes the whole tree."""
+    from langstream_tpu_torch.models.quant import QTensor
+
+    cfg = {**TINY, "model": model, "quantize": "int8",
+           "checkpoint": str(REPO / "tests" / "fixtures" / fixture)}
+    plain = TorchServingEngine(ServingConfig.from_dict(cfg), device="cpu")
+    meshed = TorchServingEngine(ServingConfig.from_dict({**cfg, "mesh": {"tp": 1}}),
+                                device="cpu")
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            elif isinstance(v, QTensor):
+                yield f"{prefix}{k}.q", v.q
+                yield f"{prefix}{k}.s", v.s
+            else:
+                yield prefix + k, v
+
+    want, got = dict(leaves(plain.params)), dict(leaves(meshed.params))
+    assert want.keys() == got.keys()
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype and torch.equal(got[name], w), name
+    assert meshed.stats()["mesh"]["weights-bytes"] == plain._weights_bytes
+    for engine in (plain, meshed):
+        asyncio.run(engine.close())
     TorchServingEngine.reset_instances()
 
 

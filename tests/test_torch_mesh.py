@@ -239,3 +239,109 @@ def test_local_config_splits_heads_and_ffn_and_degrades_attention():
     moe = tl.local_config(tm.MoEConfig.tiny(), make_mesh(
         {"ep": 2, "tp": 2}, world_size=4, rank=0, groups=False))
     assert (moe.moe_intermediate, moe.experts) == (64, 4)
+
+
+# ---------------------------------------------------------------------------
+# a rank places its shards, never the whole tree
+# ---------------------------------------------------------------------------
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, QTensor):
+        return _tree_bytes(tree.q) + _tree_bytes(tree.s)
+    return tree.numel() * tree.element_size()
+
+
+def _assert_trees_equal(got, want) -> None:
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _assert_trees_equal(got[k], want[k])
+    elif isinstance(want, QTensor):
+        _assert_trees_equal(got.q, want.q)
+        _assert_trees_equal(got.s, want.s)
+    else:
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("family,int8", [("llama", False), ("llama", True),
+                                         ("moe", False), ("moe", True)],
+                         ids=["llama", "llama-int8", "moe", "moe-int8"])
+def test_random_init_places_each_leaf_as_it_is_drawn(family, int8):
+    """The init functions' ``place`` hook (what an engine under a mesh runs):
+    each rank keeps the slices of the very weights a one-rank engine draws
+    from the same seed, leaf by leaf, and a tp=2 rank keeps about half the
+    bytes (the norms and, for MoE at tp=1, the attention stay whole)."""
+    from langstream_tpu_torch.models import quant as tq
+
+    if family == "llama":
+        c = dataclasses.replace(tl.LlamaConfig.tiny(), dtype=torch.float32)
+        init = tq.init_llama_params_q8 if int8 else tl.init_llama_params
+        axes, base = {"tp": 2}, tl.llama_param_specs(c)
+    else:
+        c = dataclasses.replace(tm.MoEConfig.tiny(), dtype=torch.float32)
+        init = tq.init_moe_params_q8 if int8 else tm.init_moe_params
+        axes, base = {"ep": 2, "tp": 1}, tm.moe_param_specs(c)
+    full = init(c, torch.Generator().manual_seed(0), device="cpu")
+    for mesh in _ranks(axes, 2):
+        specs = tl.rank_specs(base, c, mesh)
+        paths = []
+
+        def place(path, leaf):
+            spec = specs
+            for key in path.split("."):
+                spec = spec[key]
+            paths.append(path)
+            return shard_tree(leaf, quantize_specs(spec, leaf), mesh)
+
+        got = init(c, torch.Generator().manual_seed(0), device="cpu", place=place)
+        _assert_trees_equal(got, shard_tree(full, quantize_specs(specs, full), mesh))
+        assert len(paths) == len(set(paths)) == 3 + len(full["layers"])
+        share = _tree_bytes(got) / _tree_bytes(full)
+        assert (0.45 < share < 0.6) if family == "llama" else share < 0.8, share
+
+
+def test_stacked_quantization_is_the_whole_tensors():
+    """Quantizing a stacked weight one layer at a time (the host's f32
+    transient stays one layer's) gives the whole tensor's numbers."""
+    from langstream_tpu_torch.models.quant import quantize_stacked, quantize_tensor
+
+    g = torch.Generator().manual_seed(3)
+    for shape, axis in (((3, 16, 24), 1), ((2, 3, 16, 8), 2)):
+        w = torch.randn(shape, generator=g).to(torch.bfloat16)
+        got, want = quantize_stacked(w, axis), quantize_tensor(w, axis)
+        assert torch.equal(got.q, want.q) and torch.equal(got.s, want.s)
+        assert got.dtype == want.dtype
+
+
+def test_a_replica_samples_its_rows_as_the_whole_batch_would():
+    """Under a dp split a replica samples only its rows, drawing for the
+    whole batch: its tokens are the whole batch's at those rows, for a
+    contiguous span (decode, verify) and an index (prefill) alike."""
+    from langstream_tpu_torch.serving.sampler import sample_tokens, speculative_accept
+
+    rng = np.random.RandomState(0)
+    B, V, D1 = 6, 40, 3
+    logits = torch.from_numpy(rng.randn(B, V).astype(np.float32))
+    temps = torch.tensor([0.7, 1.0, 0.0, 1.3, 0.9, 1.0])
+    topks = torch.tensor([0, 5, 0, 10, 0, 3])
+    topps = torch.tensor([0.9, 1.0, 1.0, 0.8, 1.0, 0.95])
+    kw = dict(use_top_p=True, use_top_k=True)
+    whole = sample_tokens(logits, torch.Generator().manual_seed(1), temps, topks,
+                          top_ps=topps, **kw)
+    for rows in (slice(2, 4), torch.tensor([0, 5])):
+        part = sample_tokens(logits[rows], torch.Generator().manual_seed(1), temps[rows],
+                             topks[rows], top_ps=topps[rows], rows=(B, rows), **kw)
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b[rows])
+    vlogits = torch.from_numpy(rng.randn(B, D1, V).astype(np.float32))
+    drafts = torch.from_numpy(rng.randint(0, V, (B, D1 - 1)))
+    whole = speculative_accept(vlogits, drafts, torch.Generator().manual_seed(2), temps,
+                               topks, topps, **kw)
+    rows = slice(3, 6)
+    part = speculative_accept(vlogits[rows], drafts[rows], torch.Generator().manual_seed(2),
+                              temps[rows], topks[rows], topps[rows], rows=(B, rows), **kw)
+    for a, b in zip(part, whole):
+        assert torch.equal(a, b[rows])

@@ -62,6 +62,11 @@ CASES = {
     "moe-ep2tp2-paged": (4, {**MOE, **PAGED, "prefix-cache": False,
                              "mesh": {"ep": 2, "tp": 2}}),
 }
+# cases held against the port's own one-rank engine only
+PORT_CASES = {
+    "tp2-int8": (2, {**LLAMA, "quantize": "int8", "mesh": {"tp": 2}}),
+}
+WORLDS = {**CASES, **PORT_CASES}
 
 
 # ---------------------------------------------------------------------------
@@ -178,15 +183,15 @@ def port_worlds(tmp_path_factory):
     """The two worlds, started at once; joined on first use."""
     started = {}
     for n in (2, 4):
-        names = [name for name, (size, _) in CASES.items() if size == n]
+        names = [name for name, (size, _) in WORLDS.items() if size == n]
         tmp = tmp_path_factory.mktemp(f"world{n}")
-        procs, outs = spawn_world(tmp, n, [CASES[name][1] for name in names],
+        procs, outs = spawn_world(tmp, n, [WORLDS[name][1] for name in names],
                                   prompts=WAVES, max_tokens=MAX_TOKENS)
         started[n] = (names, procs, outs)
     results: dict[str, dict] = {}
 
     def get(name: str) -> dict:
-        n = CASES[name][0]
+        n = WORLDS[name][0]
         if name not in results:
             names, procs, outs = started[n]
             ranks = world_outputs(procs, outs, timeout=300)
@@ -201,7 +206,7 @@ def port_worlds(tmp_path_factory):
                 p.kill()
 
 
-async def _jax_serve(engine):
+async def _serve(engine):
     out = []
     try:
         for wave in WAVES:
@@ -219,7 +224,7 @@ async def _jax_serve(engine):
 def test_mesh_engine_tokens_equal_the_jax_engine(case, port_worlds, run_async):
     _, cfg = CASES[case]
     jax_engine = TpuServingEngine(JaxServingConfig.from_dict(cfg))
-    want = run_async(_jax_serve(jax_engine))
+    want = run_async(_serve(jax_engine))
     TpuServingEngine.reset_instances()
     got = port_worlds(case)
     assert got["mesh"]["axes"] == cfg["mesh"]
@@ -233,6 +238,58 @@ def test_mesh_engine_tokens_equal_the_jax_engine(case, port_worlds, run_async):
         # verify steps
         assert got["continue-calls"] > 0 and got["speculative-steps"] > 0
         assert got["prefix"]["hits"] > 0
+
+
+def test_a_tp_rank_holds_half_the_weights(port_worlds, run_async):
+    """A rank under ``{tp: 2}`` keeps only its shards (the checkpoint's tree
+    is sharded on the host and only the shards move): about half the
+    weight bytes of a one-rank engine on the same checkpoint."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    cfg = {k: v for k, v in CASES["tp2-dense"][1].items() if k != "mesh"}
+    one = TorchServingEngine(ServingConfig.from_dict(cfg), device="cpu")
+    run_async(one.close())
+    share = port_worlds("tp2-dense")["mesh"]["weights-bytes"] / one._weights_bytes
+    assert 0.45 < share < 0.6, share
+
+
+def test_an_int8_checkpoint_serves_as_the_one_rank_engine(port_worlds, run_async):
+    """``{tp: 2}`` with ``quantize: int8`` from a checkpoint: each rank
+    quantizes every stacked weight one layer at a time over the whole
+    contraction axis before it keeps its shard (a row-parallel weight's
+    scales are the whole tree's), so its streams are the one-rank engine's
+    and it holds half its bytes."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    cfg = {k: v for k, v in PORT_CASES["tp2-int8"][1].items() if k != "mesh"}
+    one = TorchServingEngine(ServingConfig.from_dict(cfg), device="cpu")
+    want = run_async(_serve(one))
+    got = port_worlds("tp2-int8")
+    assert got["tokens"] == [list(r["tokens"]) for r in want]
+    for g, w in zip(got["logprobs"], want):
+        np.testing.assert_allclose(g, w["logprobs"], atol=1e-4)
+    share = got["mesh"]["weights-bytes"] / one._weights_bytes
+    assert 0.45 < share < 0.6, share
+
+
+def test_dp_replicas_run_their_own_slots_rows(port_worlds):
+    """Under ``{dp: 2, tp: 2}`` each dp replica runs the rows of its own
+    slots: the model issues no dp collective of its own, the
+    engine sums each dispatch's outputs over ``dp`` once, and the leader's
+    replica embeds (and so computes) well under the rows the tp-only
+    engine does on the same workload."""
+    dp, tp_only = port_worlds("dp2tp2-dense")["mesh"], port_worlds("tp2-dense")["mesh"]
+    assert dp["dp-slots"] == [0, 2] and tp_only["dp-slots"] is None
+    assert dp["dp-prefill-split"]
+    # the prefix cache hands prompt blocks across slots: every replica
+    # prefills every row, and splits the decode and verify rows only
+    assert not port_worlds("dp2tp2-paged-prefix")["mesh"]["dp-prefill-split"]
+    coll = dp["collectives"]
+    assert set(coll) <= {"embed", "tp", "logits", "logits-decode", "dp-rows"}, coll
+    assert coll["dp-rows"]["calls"] == dp["lockstep-dispatches"]
+    assert "dp-rows" not in tp_only["collectives"]
+    share = coll["embed"]["bytes"] / tp_only["collectives"]["embed"]["bytes"]
+    assert share < 0.75, share
 
 
 _MOE_RANK = """
