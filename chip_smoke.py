@@ -220,6 +220,22 @@ Phases (every one unguarded: any failure exits non-zero):
    site, the decode steps' logits gather's share of decode, and each
    rank's weight bytes and load peak; two ranks on one card measure the
    seam, not the speed of TP;
+   main path O (after N): sequence parallelism and the embeddings mesh,
+   two ranks on this card again. O1: long-context-summarizer's resource
+   (llama3-8b int8, paged int8 KV, 8 slots, 8,192 context,
+   ``speculative-drafts: 4``) at 8 layers (``O_LAYERS``), ``mesh: {sp: 2,
+   tp: 1}`` (the example's ``{sp: 4, tp: 2}`` cut to two ranks), 8 greedy
+   reports of 1,500-7,000 tokens, 64 tokens each, against sp=1 on the same
+   weights: every request completes, the first-token rule, the longest
+   prompt's prefilled cache rows equal sp=1's within 2e-2 of their max
+   abs, kernel #3 launched on both ranks, the ring's collectives counted;
+   ms per prefilled prompt at sp=2 and sp=1 and the ring's seconds and
+   bytes printed. O2: ``llama_forward_sp`` with the ring and Ulysses on
+   one 2,048-token sequence at 8 layers on two ranks (this process and
+   ``chip_smoke.py --o2-rank``), each within 2e-2 of the one-rank forward
+   with the plain attention of its arithmetic (Ulysses through the
+   host-staged all-to-all). O3: minilm-l6 at ``mesh: {dp: 2}`` over 64
+   texts, equal to the one-rank engine within 1e-4;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -246,8 +262,8 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-N,
-   rank 0's on N; each row carries a ``tp2_rank`` entry, phase 2's case
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-O,
+   rank 0's on N and O; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -4720,17 +4736,19 @@ def _free_port() -> int:
 
 
 def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
-             max_tokens: int, layers: int | None = None, device="cuda") -> list[dict]:
+             max_tokens: int, layers: int | None = None, device="cuda",
+             before=None, after=None) -> list[dict]:
     """Serve ``configs`` in turn on a two-rank mesh: this process is rank 0
     (the leader), one spawned ``lockstep_demo --index 1`` process is rank 1,
     both on this card over gloo. Per configuration: the results, stats and
     mesh section, rank 0's launches (counts set to 0 just before the run),
     rank 1's launches and the dispatches both ranks sampled, checked equal.
-    Fails on a follower that does not start or exits non-zero, a collective
-    timeout or a lockstep failure."""
-    import torch.distributed as dist
-
-    from langstream_tpu_torch.parallel.mesh import init_distributed
+    ``before(engine)`` runs on rank 0's engine before the waves,
+    ``after(engine)`` after them and before ``close()`` (its value in the
+    run's ``after``). Each configuration is one world, ended by the
+    engine's ``close()``. Fails on a follower that does not start or exits
+    non-zero, a collective timeout or a lockstep failure."""
+    from langstream_tpu_torch.parallel.mesh import init_distributed, shutdown
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
     from langstream_tpu_torch.serving.lockstep_demo import cut_layers
 
@@ -4758,16 +4776,19 @@ def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
     os.environ["LS_LOCKSTEP_PORT"] = str(lockstep)
     runs = []
     try:
-        init_distributed(f"127.0.0.1:{coordinator}", 2, 0, device, timeout_s=120)
         for cfg in configs:
+            # one world per configuration: the engine's close() ends it
+            init_distributed(f"127.0.0.1:{coordinator}", 2, 0, device, timeout_s=120)
             t0 = time.monotonic()
             with cut_layers(layers):
                 engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
             engine.lockstep_tokens = {}  # held against rank 1's
             init_s = time.monotonic() - t0
+            if before is not None:
+                before(engine)
             reset_counts()
             t0 = time.monotonic()
-            results = []
+            results, inspected = [], []
 
             async def drive():
                 try:
@@ -4775,6 +4796,8 @@ def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
                         results.extend(await asyncio.gather(*(
                             engine.generate(p, {"max-tokens": max_tokens, "temperature": 0})
                             for p in wave)))
+                    if after is not None:
+                        inspected.append(after(engine))
                     return engine.stats()
                 finally:
                     await engine.close()
@@ -4785,6 +4808,7 @@ def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
             runs.append({"results": results, "stats": stats, "wall_s": time.monotonic() - t0,
                          "init_s": init_s, "counts": read_counts(),
                          "mesh": engine.mesh_section(),
+                         "after": inspected[0] if inspected else None,
                          "dispatches": [[op, v.tolist()] for _, (op, v) in
                                         sorted(engine.lockstep_tokens.items())]})
             del engine
@@ -4795,8 +4819,7 @@ def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
         print(f"path N [{label}]: rank 1's stderr tail:\n{rank1_log()}", flush=True)
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown(barrier=False)  # a failed run's world; nothing after close()
         os.environ.pop("LS_LOCKSTEP_PORT", None)
     try:
         follower.wait(timeout=120)
@@ -4835,9 +4858,10 @@ def top2_gaps(torch, engine, prompts: list[str]) -> list[float]:
 
 
 def reference_run(torch, cfg: dict, waves, max_tokens: int, layers: int | None,
-                  device="cuda") -> tuple[dict, list[float]]:
+                  device="cuda", before=None, after=None) -> tuple[dict, list[float]]:
     """The same configuration without its mesh, on ``device``: results,
-    stats and the first tokens' top-2 gaps."""
+    stats and the first tokens' top-2 gaps (``before``/``after`` as in
+    :func:`mesh_run`)."""
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
     from langstream_tpu_torch.serving.lockstep_demo import cut_layers
 
@@ -4846,7 +4870,9 @@ def reference_run(torch, cfg: dict, waves, max_tokens: int, layers: int | None,
         engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
     flat = [p for wave in waves for p in wave]
     gaps = top2_gaps(torch, engine, flat)
-    results = []
+    if before is not None:
+        before(engine)
+    results, inspected = [], []
 
     async def drive():
         try:
@@ -4854,6 +4880,8 @@ def reference_run(torch, cfg: dict, waves, max_tokens: int, layers: int | None,
                 results.extend(await asyncio.gather(*(
                     engine.generate(p, {"max-tokens": max_tokens, "temperature": 0})
                     for p in wave)))
+            if after is not None:
+                inspected.append(after(engine))
             return engine.stats()
         finally:
             await engine.close()
@@ -4861,7 +4889,8 @@ def reference_run(torch, cfg: dict, waves, max_tokens: int, layers: int | None,
     t0 = time.monotonic()
     stats = asyncio.run(drive())
     out = {"results": results, "stats": stats, "wall_s": time.monotonic() - t0,
-           "weights_bytes": engine._weights_bytes}
+           "weights_bytes": engine._weights_bytes,
+           "after": inspected[0] if inspected else None}
     del engine
     gc.collect()
     return out, gaps
@@ -4872,21 +4901,22 @@ def _step_ms(stats: dict) -> float | None:
     return round(dc["seconds"] / dc["steps"] * 1e3, 3) if dc["steps"] else None
 
 
-def check_first_tokens(label: str, mesh_results, ref_results, gaps) -> dict:
+def check_first_tokens(label: str, mesh_results, ref_results, gaps,
+                       path: str = "N") -> dict:
     """The first-token rule: equal wherever the reference's top-2 gap
     exceeds ``N_GAP``, the first logprob within ``N_GAP``; every stream's
     common prefix with the reference."""
     prefixes, checked = [], 0
     for i, (m, r, gap) in enumerate(zip(mesh_results, ref_results, gaps)):
         if not m["tokens"] or not r["tokens"]:
-            fail(f"path N [{label}]: request {i} generated nothing")
+            fail(f"path {path} [{label}]: request {i} generated nothing")
         if gap > N_GAP:
             checked += 1
             if m["tokens"][0] != r["tokens"][0]:
-                fail(f"path N [{label}]: request {i}'s first token {m['tokens'][0]} != "
+                fail(f"path {path} [{label}]: request {i}'s first token {m['tokens'][0]} != "
                      f"{r['tokens'][0]} at a top-2 gap of {gap:.4f}")
         if abs(m["logprobs"][0] - r["logprobs"][0]) > N_GAP:
-            fail(f"path N [{label}]: request {i}'s first logprob {m['logprobs'][0]:.4f} "
+            fail(f"path {path} [{label}]: request {i}'s first logprob {m['logprobs'][0]:.4f} "
                  f"vs {r['logprobs'][0]:.4f}")
         common = 0
         for a, b in zip(m["tokens"], r["tokens"]):
@@ -4894,12 +4924,13 @@ def check_first_tokens(label: str, mesh_results, ref_results, gaps) -> dict:
                 break
             common += 1
         prefixes.append(f"{common}/{len(r['tokens'])}")
-    print(f"path N [{label}]: first tokens equal at {checked} of {len(gaps)} requests "
+    print(f"path {path} [{label}]: first tokens equal at {checked} of {len(gaps)} requests "
           f"with a top-2 gap > {N_GAP}; common prefixes {prefixes}", flush=True)
     return {"checked": checked, "prefixes": prefixes}
 
 
-def _mesh_line(label: str, run: dict, ref: dict | None = None) -> None:
+def _mesh_line(label: str, run: dict, ref: dict | None = None, path: str = "N",
+               extra: dict | None = None) -> None:
     mesh = run["mesh"]
     coll = mesh["collectives"]
     step = _step_ms(run["stats"])
@@ -4923,7 +4954,8 @@ def _mesh_line(label: str, run: dict, ref: dict | None = None) -> None:
                             run["rank1"]["mesh"]["load-peak-bytes"]],
         "reference_weights_bytes": ref["weights_bytes"] if ref else None,
     }
-    print(f"path N [{label}]: {json.dumps(report)}", flush=True)
+    report.update(extra or {})
+    print(f"path {path} [{label}]: {json.dumps(report)}", flush=True)
 
 
 def phase_mesh_path(torch, device="cuda") -> dict:
@@ -5022,6 +5054,371 @@ def phase_mesh_path(torch, device="cuda") -> dict:
     print(f"path N: {time.monotonic() - t0:.1f} s (N1 {t1 - t0:.1f} s, N2 {t2 - t1:.1f} s, "
           f"N3 {time.monotonic() - t2:.1f} s)", flush=True)
     return totals
+
+
+# ---------------------------------------------------------------------------
+# path O: sequence parallelism and the embeddings mesh, two ranks on this card
+# ---------------------------------------------------------------------------
+
+O_LAYERS = 8           # O1 and O2 (Llama-3-8B) depth, of 32
+O_MAX_TOKENS = 64
+# long-context-summarizer's resource (examples/applications/
+# long-context-summarizer/configuration.yaml) with paged int8 KV; its mesh
+# {sp: 4, tp: 2} is {sp: 2, tp: 1} here (eight ranks on one card do not fit
+# the smoke's time; the Llama specs name tp, so the sp-only mesh carries tp: 1)
+O_RESOURCE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged",
+              "kv-quantize": "int8", "slots": 8, "max-seq-len": 8192,
+              "speculative-drafts": 4, "seed": 0}
+O_MESH = {"sp": 2, "tp": 1}
+O_PROMPT_TOKENS = (1500, 7000)
+# a plain K=1 decode chunk calibrates speculation every this many steps
+# (the engine's default is 32): the decode read (kernel #3) then runs on
+# both ranks within 64 tokens
+O_CALIBRATE_EVERY = "8"
+O2_TOKENS = 2048
+O3_TEXTS = 64
+O3_RESOURCE = {"embeddings-model": "minilm-l6", "mesh": {"dp": 2}}
+
+
+def o_prompts(n: int = 8) -> list[str]:
+    """``n`` reports of ``O_PROMPT_TOKENS`` byte tokens (evenly spread),
+    each ending in a request to summarize it."""
+    topics = ["river deltas", "GPU kernels", "tea markets", "bridge loads", "orbits",
+              "bee colonies", "chess openings", "grid storage"]
+    lo, hi = O_PROMPT_TOKENS
+    out = []
+    for i in range(n):
+        target = lo + (hi - lo) * i // max(n - 1, 1)
+        body, k = [], 0
+        while sum(len(x) for x in body) < target:
+            body.append(f"Section {k} of report {i} on {topics[i % len(topics)]}: the "
+                        f"measurements repeat, the numbers hold at {k * 7 % 97}, and the "
+                        f"summary follows the data. ")
+            k += 1
+        tail = "\nSummarize the report above:"
+        out.append("".join(body)[:target - len(tail)] + tail)
+    return out
+
+
+def _dequant(torch, rows):
+    """A paged gather's rows as f32: int8 ``{"q", "s"}`` dequantized."""
+    if isinstance(rows, dict):
+        q, sc = rows["q"], rows["s"]
+        return (q.unflatten(-1, (sc.shape[-1], -1)).float() * sc.float()[..., None]).flatten(-2)
+    return rows.float()
+
+
+def o_cache_rows(torch, prompt: str):
+    """An ``after`` hook: the cache rows of ``prompt``'s full blocks, found
+    through the prefix cache after the wave, as f32 on the card."""
+    from langstream_tpu_torch.models.paged import gather_kv
+
+    def after(engine):
+        blocks, n = engine.block_mgr.match_prefix(engine.tokenizer.encode(prompt))
+        if not blocks:
+            fail("path O1: the long prompt's blocks are not in the prefix cache")
+        tables = torch.tensor([blocks], dtype=torch.int32, device=engine.device)
+        return {"tokens": n,
+                "k": _dequant(torch, gather_kv(engine.cache_k, tables, len(blocks))),
+                "v": _dequant(torch, gather_kv(engine.cache_v, tables, len(blocks)))}
+
+    return after
+
+
+def o_prefill_timer(torch):
+    """A ``before`` hook wrapping the engine's prefill dispatch (the first
+    prompts' prefills: continuations are not counted): the seconds, the
+    calls and the prompts, on the dispatch thread, whose numpy result
+    waits for the card."""
+    spent = {"s": 0.0, "calls": 0, "prompts": 0, "shapes": []}
+
+    def before(engine):
+        run = engine._run_prefill
+
+        def timed(padded, lengths, slot_ids, *args, **kw):
+            t0 = time.monotonic()
+            out = run(padded, lengths, slot_ids, *args, **kw)
+            if kw.get("cont") is None:
+                spent["s"] += time.monotonic() - t0
+                spent["calls"] += 1
+                spent["prompts"] += len(slot_ids)
+                spent["shapes"].append(list(padded.shape))
+            return out
+
+        engine._run_prefill = timed
+
+    return spent, before
+
+
+def _spawn_rank1(cmd: list[str], tag: str):
+    """Start rank 1 (``cmd``), its stderr to a file; returns the process and
+    a function that reads (and removes) the file's tail."""
+    log_path = Path(os.environ.get("TMPDIR", "/tmp")) / f"chip_smoke_{tag}_{os.getpid()}.log"
+    env = {**os.environ, "PYTHONPATH": str(REPO), "LS_TORCH_COLLECTIVE_TIMEOUT_S": "120"}
+    with open(log_path, "wb") as log_file:  # a file: a full pipe would stall rank 1
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                                stderr=log_file)
+
+    def tail() -> str:
+        text = log_path.read_text(errors="replace")[-3000:] if log_path.exists() else ""
+        log_path.unlink(missing_ok=True)
+        return text
+
+    return proc, tail
+
+
+def _join_rank1(proc, tail, label: str) -> None:
+    try:
+        proc.wait(timeout=180)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"path O [{label}]: rank 1 did not exit: {tail()}")
+    err = tail()
+    if proc.returncode != 0:
+        fail(f"path O [{label}]: rank 1 exited {proc.returncode}: {err}")
+
+
+def o2_forward(torch, rank: int, coordinator: str, device="cuda",
+               model: str | None = None, n_tokens: int | None = None) -> dict:
+    """O2 on one rank (this process is rank 0, ``--o2-rank`` rank 1): the
+    resource's model at full width and ``O_LAYERS`` layers on one
+    ``O2_TOKENS``-token sequence, ``llama_forward_sp`` with the ring and
+    with Ulysses at ``{sp: 2}`` against the one-rank ``llama_forward`` with
+    dense attention (the JAX library's default) on this rank's positions;
+    the normalised max abs error (by the reference's max abs) and ms of
+    each. The weights are made from seed 0 on both ranks; ``model`` and
+    ``n_tokens`` default to ``O_RESOURCE``'s model and ``O2_TOKENS`` (rank
+    0 passes its own to rank 1)."""
+    from functools import partial
+
+    from langstream_tpu_torch.models.llama import (
+        llama_forward,
+        llama_forward_sp,
+        local_config,
+    )
+    from langstream_tpu_torch.models.quant import init_llama_params_q8
+    from langstream_tpu_torch.parallel.mesh import init_distributed, make_mesh, shutdown
+    from langstream_tpu_torch.parallel.ring import dense_attention
+    from langstream_tpu_torch.serving.engine import _MODEL_CONFIGS
+
+    init_distributed(coordinator, 2, rank, device, timeout_s=120)
+    ok = False
+    try:
+        n_tokens = n_tokens or O2_TOKENS
+        config = dataclasses.replace(
+            _MODEL_CONFIGS[model or O_RESOURCE["model"]](max_seq_len=n_tokens),
+            layers=O_LAYERS)
+        params = init_llama_params_q8(
+            config, torch.Generator(device=device).manual_seed(0), device=device)
+        tokens = torch.randint(0, config.vocab_size, (1, n_tokens),
+                               generator=torch.Generator().manual_seed(1)).to(device)
+        mesh = make_mesh(O_MESH)
+        rows = n_tokens // mesh.size("sp")
+        lo = mesh.index("sp") * rows
+        dense = partial(dense_attention, causal=True, scale=1.0 / math.sqrt(config.head_dim))
+
+        def dense_f32(q, k, v):
+            return dense(q.float(), k.float(), v.float()).to(q.dtype)
+
+        out = {}
+        with torch.no_grad():
+            # each path against the one-rank forward of its own arithmetic:
+            # the ring's f32 softmax and products, Ulysses' dense attention
+            # in the input dtype with f32 accumulation
+            for attn, plain in (("ring", dense_f32), ("ulysses", dense)):
+                # causal: this rank's positions need the tokens up to its last
+                ref = llama_forward(config, params, tokens[:, :lo + rows],
+                                    attention=plain)[:, lo:]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.monotonic()
+                got = llama_forward_sp(local_config(config, mesh), params, tokens, mesh,
+                                       attn=attn)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                out[attn] = {"ms": round((time.monotonic() - t0) * 1e3, 3),
+                             "err": float((got - ref).abs().max()) / float(ref.abs().max())}
+                del got, ref
+        out["collectives"] = mesh.describe()["collectives"]
+        ok = True
+        return out
+    finally:
+        shutdown(barrier=ok)
+
+
+def o2_rank(coordinator: str, device: str, out_path: str, model: str,
+            n_tokens: str) -> int:
+    """``chip_smoke.py --o2-rank``: rank 1 of O2."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = o2_forward(torch, 1, coordinator, device, model, int(n_tokens))
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def o3_embeddings(torch, texts: list[str], device="cuda") -> dict:
+    """O3: the embeddings engine (``O3_RESOURCE``: minilm-l6 at its full
+    width, ``mesh: {dp: 2}``) on two ranks, this process the leader and a
+    ``lockstep_demo`` follower replaying its ``embed`` frames, against the
+    one-rank engine on the same texts."""
+    from langstream_tpu_torch.parallel.mesh import init_distributed, shutdown
+    from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+
+    coordinator, lockstep = _free_port(), _free_port()
+    proc, tail = _spawn_rank1(
+        [sys.executable, "-m", "langstream_tpu_torch.serving.lockstep_demo", "--index",
+         "1", "--num-processes", "2", "--coordinator-port", str(coordinator),
+         "--lockstep-port", str(lockstep), "--device", device,
+         "--config", json.dumps([O3_RESOURCE])], "o3")
+    os.environ["LS_LOCKSTEP_PORT"] = str(lockstep)
+    try:
+        init_distributed(f"127.0.0.1:{coordinator}", 2, 0, device, timeout_s=120)
+        engine = EmbeddingEngine(O3_RESOURCE["embeddings-model"], mesh=O3_RESOURCE["mesh"],
+                                 device=device)
+        t0 = time.monotonic()
+        try:
+            vectors = asyncio.run(engine.embed(texts))
+            mesh_ms = (time.monotonic() - t0) * 1e3
+            section = engine.mesh_section()
+        finally:
+            engine.close()  # the last user of the channel: "stop", then the world ends
+    except BaseException:
+        proc.kill()
+        print(f"path O [O3]: rank 1's stderr tail:\n{tail()}", flush=True)
+        raise
+    finally:
+        shutdown(barrier=False)  # a failed run's world; nothing after close()
+        os.environ.pop("LS_LOCKSTEP_PORT", None)
+    _join_rank1(proc, tail, "O3")
+    one = EmbeddingEngine(O3_RESOURCE["embeddings-model"], device=device)
+    try:
+        t0 = time.monotonic()
+        want = asyncio.run(one.embed(texts))
+        one_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        one.close()
+    err = max(abs(a - b) for va, vb in zip(vectors, want) for a, b in zip(va, vb))
+    if not err <= TOL_EMBED:
+        fail(f"path O3: dp=2 vectors differ from the one-rank engine's by {err} > {TOL_EMBED}")
+    if section["collectives"].get("enc-dp", {}).get("calls") != 1:
+        fail(f"path O3: the dp replicas did not sum their rows once: {section}")
+    return {"max_abs_err": err, "ms_dp2": round(mesh_ms, 3), "ms_one_rank": round(one_ms, 3),
+            "collectives": section["collectives"]}
+
+
+def phase_sp_path(torch, device="cuda") -> dict:
+    """Path O: sequence parallelism and the embeddings mesh, two ranks
+    sharing this card over gloo (as path N). Two ranks on one card measure
+    the seam, not the speed of sequence parallelism: no speed is claimed.
+
+    - O1: ``O_RESOURCE`` (long-context-summarizer's) at full width and
+      ``O_LAYERS`` layers, ``mesh: O_MESH``, 8 greedy requests of
+      1,500-7,000-token reports, ``O_MAX_TOKENS`` tokens each, against the
+      sp=1 engine on the same weights: every request completes; the first
+      token equals sp=1's wherever its top-2 gap exceeds ``N_GAP``; the
+      longest prompt's cache rows (its full blocks, found through the
+      prefix cache) equal sp=1's within ``TOL_BF16`` of their max abs;
+      kernel #3 launches on both ranks; the ``sp-ring`` and ``sp-kv``
+      collectives are counted. Printed: ms per prefilled prompt at sp=2
+      and sp=1, the ring's seconds and bytes.
+    - O2: :func:`o2_forward` on two ranks (this one and ``--o2-rank``),
+      ring and Ulysses within ``TOL_BF16``.
+    - O3: :func:`o3_embeddings`.
+
+    Returns rank 0's O1 launches."""
+    t0 = time.monotonic()
+    # -- O1 -----------------------------------------------------------------
+    prompts = o_prompts(8)
+    longest = max(prompts, key=len)
+    waves = [prompts]
+    os.environ["LS_TPU_SPEC_CALIBRATE_EVERY"] = O_CALIBRATE_EVERY
+    try:
+        sp_spent, sp_before = o_prefill_timer(torch)
+        o1 = mesh_run(torch, "O1", [{**O_RESOURCE, "mesh": O_MESH}], waves, O_MAX_TOKENS,
+                      layers=O_LAYERS, device=device, before=sp_before,
+                      after=o_cache_rows(torch, longest))[0]
+        one_spent, one_before = o_prefill_timer(torch)
+        ref, gaps = reference_run(torch, O_RESOURCE, waves, O_MAX_TOKENS, O_LAYERS, device,
+                                  before=one_before, after=o_cache_rows(torch, longest))
+    finally:
+        os.environ.pop("LS_TPU_SPEC_CALIBRATE_EVERY", None)
+    for i, r in enumerate(o1["results"]):
+        if r.get("finish_reason") not in ("length", "stop"):
+            fail(f"path O1: request {i} did not complete: {r.get('finish_reason')}")
+    check_first_tokens("O1", o1["results"], ref["results"], gaps, path="O")
+    got, want = o1["after"], ref["after"]
+    if got["tokens"] != want["tokens"]:
+        fail(f"path O1: {got['tokens']} cached prompt rows at sp=2, {want['tokens']} at sp=1")
+    cache_err = max(float((got[x] - want[x]).abs().max()) / float(want[x].abs().max())
+                    for x in ("k", "v"))
+    print(f"path O1: the longest prompt's {got['tokens']} prefilled cache rows (8 layers, "
+          f"K and V, int8 dequantized) at sp=2 vs sp=1: normalised max abs difference "
+          f"{cache_err:.6f} (limit {TOL_BF16})", flush=True)
+    if not cache_err <= TOL_BF16:
+        fail(f"path O1: the prefilled cache rows differ from sp=1's by {cache_err}")
+    del got, want
+    for rank, counts in (("0", o1["counts"]), ("1", o1["rank1"]["kernels"])):
+        if device == "cuda" and counts["paged_attention_q8"] == 0:
+            fail(f"path O1: rank {rank} did not launch kernel #3: {counts}")
+    coll = o1["mesh"]["collectives"]
+    if not {"sp-ring", "sp-kv", "sp-last"} <= set(coll):
+        fail(f"path O1: the sp prefill's collectives were not counted: {sorted(coll)}")
+
+    def per_prompt(spent):
+        return round(spent["s"] / spent["prompts"] * 1e3, 3) if spent["prompts"] else None
+
+    ring = coll["sp-ring"]
+    _mesh_line("O1 llama3-8b int8 sp=2", o1, ref, path="O", extra={
+        "prefill_ms_per_prompt_sp2": per_prompt(sp_spent),
+        "prefill_ms_per_prompt_sp1": per_prompt(one_spent),
+        "prefill_calls_sp2": sp_spent["calls"], "prefill_shapes": sp_spent["shapes"],
+        "ring_seconds": ring["seconds"], "ring_bytes": ring["bytes"],
+        "ring_calls": ring["calls"], "kv_gather_bytes": coll["sp-kv"]["bytes"],
+        "speculative_steps": o1["stats"]["speculative"]["steps"]})
+    print("path O1: two ranks share one card here; the prefill ms measure the ring "
+          "through gloo and the host, not the speed of sequence parallelism", flush=True)
+    counts = dict(o1["counts"])
+    del ref
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    # -- O2 -----------------------------------------------------------------
+    coordinator = f"127.0.0.1:{_free_port()}"
+    out = Path(os.environ.get("TMPDIR", "/tmp")) / f"chip_smoke_o2_{os.getpid()}.json"
+    proc, tail = _spawn_rank1([sys.executable, str(REPO / "chip_smoke.py"), "--o2-rank",
+                               coordinator, device, str(out), O_RESOURCE["model"],
+                               str(O2_TOKENS)], "o2")
+    try:
+        mine = o2_forward(torch, 0, coordinator, device)
+    except BaseException:
+        proc.kill()
+        print(f"path O [O2]: rank 1's stderr tail:\n{tail()}", flush=True)
+        raise
+    _join_rank1(proc, tail, "O2")
+    theirs = json.loads(out.read_text())
+    out.unlink()
+    for attn in ("ring", "ulysses"):
+        for rank, res in (("0", mine), ("1", theirs)):
+            if not res[attn]["err"] <= TOL_BF16:
+                fail(f"path O2: {attn} on rank {rank}: normalised max abs error "
+                     f"{res[attn]['err']} > {TOL_BF16} against the one-rank forward")
+    print(f"path O [O2 llama_forward_sp, {O2_TOKENS} tokens, {O_LAYERS} layers]: "
+          f"{json.dumps({'rank0': mine, 'rank1': theirs})}", flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t2 = time.monotonic()
+    # -- O3 -----------------------------------------------------------------
+    texts = [f"text {i}: " + "embeddings under a data-parallel mesh " * (1 + i % 7)
+             for i in range(O3_TEXTS)]
+    o3 = o3_embeddings(torch, texts, device)
+    print(f"path O [O3 minilm-l6 dp=2, {O3_TEXTS} texts]: {json.dumps(o3)}", flush=True)
+    print(f"path O: {time.monotonic() - t0:.1f} s (O1 {t1 - t0:.1f} s, O2 {t2 - t1:.1f} s, "
+          f"O3 {time.monotonic() - t2:.1f} s)", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -5183,10 +5580,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_n = time.monotonic()
     n_counts = phase_mesh_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_o = time.monotonic()
+    o_counts = phase_sp_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
           f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
           f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s, path N "
-          f"{time.monotonic() - t_n:.1f} s)", flush=True)
+          f"{t_o - t_n:.1f} s, path O {time.monotonic() - t_o:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -5197,8 +5598,9 @@ def main() -> int:
     g_counts = {k: g1_counts[k] + g2_counts[k] for k in g1_counts}
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
-             "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts}
-    meta = {  # launches: summed over the fourteen main paths (rank 0's on path N)
+             "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
+             "O": o_counts}
+    meta = {  # launches: summed over the fifteen main paths (rank 0's on N and O)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
@@ -5234,4 +5636,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--k3-child"]:  # path K3's crashing process
         sys.path.insert(0, str(REPO))
         sys.exit(k3_child(sys.argv[2], sys.argv[3], json.loads(sys.argv[4])))
+    if sys.argv[1:2] == ["--o2-rank"]:  # path O2's rank 1
+        sys.path.insert(0, str(REPO))
+        sys.exit(o2_rank(*sys.argv[2:7]))
     sys.exit(main())

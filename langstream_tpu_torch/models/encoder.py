@@ -7,8 +7,14 @@ an L2 norm. The JAX package computes it outside any Pallas kernel, so the
 products here are plain ``torch.matmul``. Real weights load from a local
 sentence-transformers directory (:func:`load_from_sentence_transformers`);
 otherwise :func:`init_encoder_params` makes random ones from a generator.
-The JAX package's tensor-parallel specs come with multi-GPU serving
-(ROADMAP.md Queue 1 item 13b).
+
+Under a mesh (:func:`encoder_param_specs`, :func:`shard_encoder_params`,
+``encode(mesh=)``) each rank holds its heads and its share of the FFN
+width on ``tp`` (the attention and FFN output products are summed over
+``tp``, and their replicated biases added once after the sum), and each
+``dp`` replica encodes its rows of the batch (the rule of
+``Mesh.dp_rows``: every row when they do not divide), summed over ``dp``
+zero-padded so every rank holds them all.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from langstream_tpu_torch._device import require_device
+from langstream_tpu_torch.parallel.mesh import P, shard_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +93,31 @@ def init_encoder_params(config: EncoderConfig,
     }
 
 
+def encoder_param_specs(config: EncoderConfig) -> dict:
+    """TP specs (column/row split per layer); dp shards the batch."""
+    return {
+        "tok_embed": P(None, None),
+        "pos_embed": P(None, None),
+        "embed_norm_w": P(None),
+        "embed_norm_b": P(None),
+        "layers": {
+            "wq": P(None, None, "tp"), "bq": P(None, "tp"),
+            "wk": P(None, None, "tp"), "bk": P(None, "tp"),
+            "wv": P(None, None, "tp"), "bv": P(None, "tp"),
+            "wo": P(None, "tp", None), "bo": P(None, None),
+            "attn_norm_w": P(None, None), "attn_norm_b": P(None, None),
+            "w1": P(None, None, "tp"), "b1": P(None, "tp"),
+            "w2": P(None, "tp", None), "b2": P(None, None),
+            "mlp_norm_w": P(None, None), "mlp_norm_b": P(None, None),
+        },
+    }
+
+
+def shard_encoder_params(params: dict, config: EncoderConfig, mesh) -> dict:
+    """This rank's shards of the full ``params``."""
+    return shard_tree(params, encoder_param_specs(config), mesh)
+
+
 def _layer_norm(x, w, b, eps):
     """Normalize in f32, cast back to the input dtype, then scale and shift
     (the JAX package's cast order)."""
@@ -97,12 +129,22 @@ def _layer_norm(x, w, b, eps):
 
 @torch.no_grad()
 def encode(config: EncoderConfig, params: dict, tokens: torch.Tensor,
-           mask: torch.Tensor) -> torch.Tensor:
+           mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """(B, S) right-padded ids and their (B, S) 1/0 mask → (B, hidden) f32
     sentence embeddings: mean pooling over real tokens, L2-normalised. Keys
     are masked with the f32 minimum, not -inf, so an all-padding row stays
-    finite (uniform attention, a zero pooled vector, a guarded norm)."""
+    finite (uniform attention, a zero pooled vector, a guarded norm).
+    Under a ``mesh`` ``params`` are this rank's shards
+    (:func:`shard_encoder_params`); every rank returns the whole batch."""
     c = config
+    batch = tokens.shape[0]
+    rows = mesh.dp_rows(batch) if mesh is not None else None
+    if rows is not None:
+        tokens, mask = tokens[rows[0]:rows[1]], mask[rows[0]:rows[1]]
+
+    def tp_sum(y):
+        return y if mesh is None else mesh.sum(y, "tp", tag="enc-tp")
+
     B, S = tokens.shape
     head_dim = c.hidden // c.heads
     x = params["tok_embed"][tokens] + params["pos_embed"][None, :S]
@@ -110,25 +152,32 @@ def encode(config: EncoderConfig, params: dict, tokens: torch.Tensor,
     keep = (mask == 1)[:, None, None, :]
     neg = torch.finfo(torch.float32).min
     lp_all = params["layers"]
+    heads = lp_all["wq"].shape[-1] // head_dim  # this rank's
     for i in range(c.layers):
         lp = {name: t[i] for name, t in lp_all.items()}
 
-        def heads(w, b):
-            return (torch.matmul(x, w) + b).reshape(B, S, c.heads, head_dim)
+        def project(w, b):
+            return (torch.matmul(x, w) + b).reshape(B, S, heads, head_dim)
 
-        q, k, v = heads(lp["wq"], lp["bq"]), heads(lp["wk"], lp["bk"]), heads(lp["wv"], lp["bv"])
+        q, k, v = (project(lp["wq"], lp["bq"]), project(lp["wk"], lp["bk"]),
+                   project(lp["wv"], lp["bv"]))
         scores = torch.einsum("bqnd,bknd->bnqk", q, k).to(torch.float32)
         scores = torch.where(keep, scores / math.sqrt(head_dim), neg)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(B, S, c.hidden)
-        out = torch.matmul(out, lp["wo"]) + lp["bo"]
+        out = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(B, S, heads * head_dim)
+        out = tp_sum(torch.matmul(out, lp["wo"])) + lp["bo"]
         x = _layer_norm(x + out, lp["attn_norm_w"], lp["attn_norm_b"], c.norm_eps)
         h = F.gelu(torch.matmul(x, lp["w1"]) + lp["b1"], approximate="tanh")
-        h = torch.matmul(h, lp["w2"]) + lp["b2"]
+        h = tp_sum(torch.matmul(h, lp["w2"])) + lp["b2"]
         x = _layer_norm(x + h, lp["mlp_norm_w"], lp["mlp_norm_b"], c.norm_eps)
     m = mask[..., None].to(x.dtype)
     pooled = ((x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)).to(torch.float32)
-    return pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-9)
+    out = pooled / torch.clamp(torch.linalg.norm(pooled, dim=-1, keepdim=True), min=1e-9)
+    if rows is None:
+        return out
+    whole = out.new_zeros((batch, out.shape[-1]))
+    whole[rows[0]:rows[1]] = out
+    return mesh.sum(whole, "dp", tag="enc-dp")
 
 
 def load_from_sentence_transformers(model_name_or_path: str) -> tuple[EncoderConfig, dict]:

@@ -10,12 +10,22 @@ Prefill attention always goes through
 kernel for tensors on the card, its plain version for tensors on the CPU.
 The JAX package's ``seq_len >= 512`` gate was a TPU measurement and does not
 carry over.
+
+Under a mesh with ``sp > 1`` a prompt whose padded length divides ``sp``
+prefills sequence-parallel (the JAX package's condition): each rank embeds
+and projects its shard of the positions and attends through
+:func:`~langstream_tpu_torch.parallel.ring.ring_attention`; the K/V of
+each layer are gathered whole over ``sp`` (the cache stays whole on every
+``sp`` rank, so decode is unchanged), and one sum over ``sp`` hands every
+rank each row's last hidden state. :func:`llama_forward_sp` is the
+library's sequence-parallel forward (ring or Ulysses).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any
 
 import torch
@@ -25,6 +35,7 @@ from langstream_tpu_torch._device import require_device
 from langstream_tpu_torch.models.quant import as_weight as _w, embedding_take
 from langstream_tpu_torch.ops.flash_attention import flash_attention
 from langstream_tpu_torch.parallel.mesh import P, shard_tree
+from langstream_tpu_torch.parallel.ring import ring_attention, ulysses_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,8 +437,10 @@ def prefill_forward(
     mask. ``adapters`` adds each row's LoRA deltas to the q/k/v/o
     projections (None: no delta is computed)."""
     c = config
-    ffn = ffn_for(c, ffn)
     B, Pn = tokens.shape
+    if sp_ring(c, Pn):
+        return _prefill_forward_sp(c, params, tokens, lengths, ffn, adapters)
+    ffn = ffn_for(c, ffn)
     x = embed_tokens(c, params["embed"], tokens)  # (B, P, H)
     positions = torch.arange(Pn, device=tokens.device)[None, :].expand(B, Pn)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
@@ -453,19 +466,96 @@ def prefill_forward(
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+def sp_ring(c, Pn: int) -> bool:
+    """Whether a prefill of ``Pn`` padded positions runs sequence-parallel:
+    the mesh has ``sp > 1`` and ``Pn`` divides it (the JAX package's
+    condition; otherwise every ``sp`` rank prefills the whole prompt)."""
+    if c.shard is None:
+        return False
+    sp = c.shard.mesh.size("sp")
+    return sp > 1 and Pn % sp == 0
+
+
+def _sp_ffn(mesh, ffn, whole_valid: torch.Tensor, lo: int, rows: int):
+    """The FFN of a sequence shard. A pointwise FFN runs on the shard; a
+    routed one (``ffn.routed``, the MoE FFN, whose capacity and expert
+    queues are the whole batch's) runs on the FFN input gathered over
+    ``sp`` and keeps this rank's positions, so it drops the tokens the
+    one-rank prefill drops."""
+    if not getattr(ffn, "routed", False):
+        return ffn
+
+    def run(h, lp, valid=None):
+        whole = mesh.all_gather(h, "sp", dim=1, tag="sp-moe")
+        return ffn(whole, lp, whole_valid)[:, lo:lo + rows]
+
+    return run
+
+
+def _prefill_forward_sp(c, params, tokens, lengths, ffn, adapters):
+    """:func:`prefill_forward` on this rank's sequence shard (see the
+    module's docstring): the same outputs, whole on every ``sp`` rank."""
+    mesh = c.shard.mesh
+    sp, idx = mesh.size("sp"), mesh.index("sp")
+    B, Pn = tokens.shape
+    rows = Pn // sp
+    lo = idx * rows
+    dev = tokens.device
+    lengths = lengths.to(torch.long)
+    whole = torch.arange(Pn, device=dev)[None, :].expand(B, Pn)
+    whole_valid = whole < lengths[:, None]
+    ffn = _sp_ffn(mesh, ffn_for(c, ffn), whole_valid, lo, rows)
+    x = embed_tokens(c, params["embed"], tokens[:, lo:lo + rows])  # (B, P/sp, H)
+    positions = whole[:, lo:lo + rows]  # global positions
+    cos, sin = _rope(positions, c.head_dim, c.rope_theta)
+    pos_valid = whole_valid[:, lo:lo + rows]
+    ks, vs = [], []
+    for layer in range(c.layers):
+        lp = layer_params(params, layer)
+        ad = adapter_layer(adapters, layer)
+        h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
+        q, k, v = _qkv(c, h, lp, ad)
+        q = _apply_rope(q, cos, sin)
+        k = _apply_rope(k, cos, sin)
+        # causality alone hides right-padded keys from every real query
+        # row; padded rows' outputs are garbage the caller discards
+        out = ring_attention(q, k, v, mesh, causal=True)
+        x = x + _out_proj(out.reshape(B, rows, c.heads * c.head_dim), lp, ad, c)
+        h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
+        x = x + ffn(h2, lp, pos_valid)
+        kv = mesh.all_gather(torch.stack([k, v]), "sp", dim=2, tag="sp-kv")
+        ks.append(kv[0])
+        vs.append(kv[1])
+    x = _rms_norm(x, params["final_norm"], c.norm_eps)
+    # each row's last real token lies on one rank: it contributes the row,
+    # the others zeros, and the sum hands every rank the same hidden state
+    last_pos = (lengths - 1).clamp(min=0)
+    mine = (last_pos >= lo) & (last_pos < lo + rows)
+    here = x[torch.arange(B, device=dev), (last_pos - lo).clamp(0, rows - 1)]
+    last = mesh.sum(torch.where(mine[:, None], here, torch.zeros_like(here)), "sp",
+                    tag="sp-last")
+    logits = lm_logits(c, last, params["lm_head"])
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
 def llama_forward(
     config: LlamaConfig,
     params: dict,
     tokens: torch.Tensor,  # (B, S) int
     ffn=None,              # (h (B,S,H), lp, valid=None) -> (B,S,H); default SwiGLU
+    attention=None,        # (q, k, v) -> out; default the flash kernel, causal
+    offset: int = 0,       # the global position of tokens[:, 0]
 ) -> torch.Tensor:
     """All-position logits (B, S, V) f32, no KV cache (causal attention);
-    every position is a real token."""
+    every position is a real token. ``attention`` and ``offset`` let a
+    sequence shard run it (:func:`llama_forward_sp`)."""
     c = config
     ffn = ffn_for(c, ffn)
+    if attention is None:
+        attention = partial(attention_prefill, c)
     B, S = tokens.shape
     x = embed_tokens(c, params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    positions = offset + torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
     for layer in range(c.layers):
         lp = layer_params(params, layer)
@@ -473,9 +563,42 @@ def llama_forward(
         q, k, v = _qkv(c, h, lp)
         q = _apply_rope(q, cos, sin)
         k = _apply_rope(k, cos, sin)
-        out = attention_prefill(c, q, k, v)
+        out = attention(q, k, v)
         x = x + _out_proj(out.reshape(B, S, c.heads * c.head_dim), lp, None, c)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
     return lm_logits(c, x, params["lm_head"])
+
+
+def llama_forward_sp(
+    config: LlamaConfig,
+    params: dict,
+    tokens: torch.Tensor,  # (B, S) int, the whole sequences; S divisible by sp
+    mesh,
+    attn: str = "ring",
+) -> torch.Tensor:
+    """Sequence-parallel long-context forward (the JAX package's
+    ``llama_forward_sp``): this rank embeds and runs its ``S/sp`` positions
+    of every layer, attention runs as a collective over ``sp``, ring
+    attention (K/V rotation with an online softmax) or Ulysses (all-to-all
+    head re-sharding). ``config`` is this rank's local config
+    (:func:`local_config` over ``mesh``) and ``params`` its shards
+    (:func:`shard_llama_params`). With ``dp`` in the mesh the rank runs
+    its rows (``Mesh.dp_rows``: every row when they do not divide).
+    Returns this rank's ``(B/dp, S/sp, V)`` f32 logits, the block the JAX
+    package's sharded output holds here."""
+    attn_fn = {"ring": ring_attention, "ulysses": ulysses_attention}[attn]
+    sp, idx = mesh.size("sp"), mesh.index("sp")
+    S = tokens.shape[1]
+    if S % sp:
+        raise ValueError(f"sequence length {S} does not split over sp={sp}")
+    span = mesh.dp_rows(tokens.shape[0])
+    if span is not None:
+        tokens = tokens[span[0]:span[1]]
+    rows = S // sp
+    return llama_forward(
+        config, params, tokens[:, idx * rows:(idx + 1) * rows],
+        attention=lambda q, k, v: attn_fn(q, k, v, mesh, causal=True),
+        offset=idx * rows,
+    )

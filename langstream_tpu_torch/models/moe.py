@@ -28,6 +28,12 @@ computes only its own experts' combine terms, and one sum over the ``ep``
 and ``tp`` groups adds them, which keeps the global-capacity semantics of
 :func:`top2_routing` exactly. The JAX package's all-to-alls become that
 one sum.
+
+**Sequence parallelism.** Capacity and each expert's queue are the whole
+flattened batch's, so a rank that routed only its sequence shard would
+drop other tokens. Under ``sp`` the routed FFN runs on its input gathered
+over ``sp`` (``ffn.routed`` tells the sp prefill so), and each rank keeps
+its own positions: the drops are the one-rank model's.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from langstream_tpu_torch.models.llama import (
 from langstream_tpu_torch.models.quant import as_weight, quantize_specs
 from langstream_tpu_torch.ops.flash_attention import flash_attention_reference
 from langstream_tpu_torch.parallel.mesh import P, shard_tree
+from langstream_tpu_torch.parallel.ring import ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -362,6 +369,7 @@ def moe_serving_ffn(config: MoEConfig, mesh=None):
         )
         return out[:, 0, :] if squeeze else out
 
+    ffn.routed = True  # capacity is the whole batch's: see the module docstring
     return ffn
 
 
@@ -372,14 +380,24 @@ def moe_forward(config: MoEConfig, params: dict, tokens: torch.Tensor,
     (:func:`~langstream_tpu_torch.ops.flash_attention.flash_attention_reference`,
     the JAX package's default ``dense_attention``); every position is a
     real token. Under a ``mesh``, ``config`` is this rank's local config
-    and ``params`` its shards (:func:`moe_forward_sharded`)."""
+    and ``params`` its shards (:func:`moe_forward_sharded`); with ``sp`` in
+    it, the rank runs its ``S/sp`` positions with ring attention, the
+    routed FFN on the input gathered over ``sp`` (the whole batch's
+    capacity), and the final hidden states are gathered whole."""
     c = config
     B, S = tokens.shape
-    if attention is None:
+    sp = mesh.size("sp") if mesh is not None else 1
+    rows, lo = S // sp, (mesh.index("sp") if sp > 1 else 0) * (S // sp)
+    if sp > 1:
+        if S % sp:
+            raise ValueError(f"sequence length {S} does not split over sp={sp}")
+        tokens = tokens[:, lo:lo + rows]
+        attention = partial(ring_attention, mesh=mesh, causal=True)
+    elif attention is None:
         attention = partial(flash_attention_reference, causal=True)
     capacity = c.capacity(B * S)
     x = embed_tokens(c, params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    positions = lo + torch.arange(rows, device=tokens.device)[None, :].expand(B, rows)
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in range(c.layers):
@@ -387,15 +405,19 @@ def moe_forward(config: MoEConfig, params: dict, tokens: torch.Tensor,
         h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
         q, k, v = _qkv(c, h, lp)
         out = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
-        x = x + _out_proj(out.reshape(B, S, c.heads * c.head_dim), lp, None, c)
+        x = x + _out_proj(out.reshape(B, rows, c.heads * c.head_dim), lp, None, c)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
+        if sp > 1:
+            h2 = mesh.all_gather(h2, "sp", dim=1, tag="sp-moe")
         ffn, aux = moe_ffn(
             h2, lp["router"], as_weight(lp["w_gate"]), as_weight(lp["w_up"]),
             as_weight(lp["w_down"]), capacity, mesh=mesh,
         )
-        x = x + ffn
+        x = x + ffn[:, lo:lo + rows]
         aux_total = aux_total + aux
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
+    if sp > 1:
+        x = mesh.all_gather(x, "sp", dim=1, tag="sp-rows")
     return lm_logits(c, x, params["lm_head"]), aux_total
 
 
@@ -403,8 +425,9 @@ def moe_forward_sharded(config: MoEConfig, params: dict, tokens: torch.Tensor,
                         mesh) -> tuple[torch.Tensor, torch.Tensor]:
     """The MoE forward on this rank: ``params`` the full tree (this rank
     keeps its shards, :func:`shard_moe_params`), attention per rank over
-    its heads on ``tp``, the experts on ``ep``; every rank returns the
-    whole batch's logits and the aux loss."""
+    its heads on ``tp`` (and its positions on ``sp``, through the ring),
+    the experts on ``ep``; every rank returns the whole batch's logits and
+    the aux loss."""
     local = local_config(config, mesh)
     return moe_forward(local, shard_moe_params(params, config, mesh), tokens,
                        mesh=mesh)

@@ -7,19 +7,28 @@ order, this rank's coordinates (rank ``r`` sits at
 ``np.unravel_index(r, sizes)``, the JAX layout of ``devices[:total]``) and
 one process group per axis (and one over ``ep`` and ``tp`` together, for
 the expert FFN's sum). The model code calls the collectives itself, on
-the groups: :meth:`Mesh.sum` is the only one the port needs, and
-``broadcast`` the only other one the lockstep plane could use, because the
-backend table of ``torch.distributed`` lists only these two for gloo on
-CUDA tensors.
+the groups: :meth:`Mesh.sum` (an all-reduce), and for sequence parallelism
+:meth:`Mesh.permute` (the ring's ``ppermute``), :meth:`Mesh.all_to_all`
+(Ulysses) and :meth:`Mesh.all_gather`.
 
 **The backend rule** (:func:`backend_rule`) is explicit, logged and
 reported in :meth:`Mesh.describe`: NCCL when every rank of a host has its
 own card, gloo when ranks share a card or run on the CPU. Ranks that share
 a card are not a fallback: every kernel still runs on the card, and only
 the collectives go through the host. The rule reads the devices, never an
-exception. Every group gets a bounded timeout at init
-(``LS_TORCH_COLLECTIVE_TIMEOUT_S``, default 120 s), so a dead peer raises
-inside a collective instead of hanging it.
+exception. Each collective has one route per transport, chosen from the
+backend and the tensor's device: NCCL's own op; gloo's CPU op on a CUDA
+tensor staged through pinned host memory (gloo on CUDA tensors has only
+``all_reduce`` and ``broadcast``); gloo's CPU op on a CPU tensor. Every
+group gets a bounded timeout at init (``LS_TORCH_COLLECTIVE_TIMEOUT_S``,
+default 120 s), so a dead peer raises inside a collective instead of
+hanging it.
+
+**Joining and leaving.** :func:`init_distributed` keeps the coordinator's
+``TCPStore`` for the life of the process, so a world that
+:func:`shutdown` ended (a barrier, then ``destroy_process_group``) can be
+joined again at the same address: every world of a process is one
+generation of keys in that store.
 
 :func:`shard_for_rank` is the counterpart of ``put_global``: every process
 holds the full value (the same seed or the same checkpoint on every rank)
@@ -37,6 +46,7 @@ import logging
 import math
 import os
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -94,9 +104,10 @@ def rank_device(device, rank: int) -> torch.device:
 
 def init_distributed(coordinator: str, world_size: int, rank: int, device="cuda",
                      timeout_s: float | None = None) -> str:
-    """Join the group at ``tcp://coordinator`` (``host:port``) as ``rank`` of
+    """Join the group at ``coordinator`` (``host:port``) as ``rank`` of
     ``world_size``, with the backend of :func:`backend_rule` and a bounded
-    timeout. Returns the backend. A group already joined is kept."""
+    timeout. Returns the backend. A group already joined is kept; after
+    :func:`shutdown` the same address is joined again (the next world)."""
     import torch.distributed as dist
 
     if dist.is_initialized():
@@ -108,16 +119,45 @@ def init_distributed(coordinator: str, world_size: int, rank: int, device="cuda"
     _JOINED["reason"] = reason
     if backend == "nccl":
         torch.cuda.set_device(rank_device(device, rank))
+    timeout = datetime.timedelta(
+        seconds=timeout_s if timeout_s is not None else collective_timeout_s())
+    key = (coordinator, world_size, rank)
+    if _STORE.get("key") != key:
+        host, port = coordinator.rsplit(":", 1)
+        _STORE.update(key=key, generation=0, store=dist.TCPStore(
+            host, int(port), world_size, rank == 0, timeout=timeout))
+    generation = _STORE["generation"]
+    _STORE["generation"] += 1
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator}", world_size=world_size,
-        rank=rank, timeout=datetime.timedelta(
-            seconds=timeout_s if timeout_s is not None else collective_timeout_s()),
+        backend, store=dist.PrefixStore(f"world{generation}/", _STORE["store"]),
+        world_size=world_size, rank=rank, timeout=timeout,
     )
     return backend
 
 
+def shutdown(barrier: bool = True) -> None:
+    """End this process's world: a barrier over it (bounded by the
+    timeout the world was joined with), then ``destroy_process_group``,
+    which ends every group of every mesh made in it. Every rank calls it,
+    so none leaves while a peer still talks to it. ``barrier=False`` when
+    a peer is known dead (the barrier would only time out). Nothing when
+    no group is initialized."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    try:
+        if barrier:
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 #: why :func:`init_distributed` chose the backend of the group it joined
 _JOINED: dict[str, str] = {}
+#: the coordinator's store, kept across worlds: ``key`` (address, world
+#: size, rank), ``store`` and the next world's ``generation``
+_STORE: dict[str, Any] = {}
 
 
 def _world() -> tuple[int, int]:
@@ -177,6 +217,12 @@ class Mesh:
         key = tuple(a for a in self.axis_names if a in axes and self.axis_sizes[a] > 1)
         return self._groups.get(key) if key else None
 
+    def _count(self, tag: str, t0: float, nbytes: int) -> None:
+        entry = self.collectives.setdefault(tag, [0, 0.0, 0])
+        entry[0] += 1
+        entry[1] += time.monotonic() - t0
+        entry[2] += nbytes
+
     def sum(self, x: torch.Tensor, *axes: str, tag: str | None = None) -> torch.Tensor:
         """``x`` summed over ``axes`` (an all-reduce on their group; ``x``
         itself when they hold one rank). Half-precision tensors are summed
@@ -196,11 +242,106 @@ class Mesh:
             torch.cuda.current_stream(buf.device).synchronize()
         t0 = time.monotonic()
         dist.all_reduce(buf, group=group)
-        entry = self.collectives.setdefault(tag or "+".join(axes), [0, 0.0, 0])
-        entry[0] += 1
-        entry[1] += time.monotonic() - t0
-        entry[2] += buf.numel() * buf.element_size()
+        self._count(tag or "+".join(axes), t0, buf.numel() * buf.element_size())
         return buf.to(x.dtype)
+
+    # -- data movement: bytes only, so every dtype travels every route ----
+
+    def _staged(self, x: torch.Tensor, op) -> torch.Tensor:
+        """Run ``op(bytes) -> bytes`` on ``x``'s raw bytes (a flat uint8
+        tensor) by its route, and view the result back in ``x``'s dtype
+        on ``x``'s device: NCCL's op on the card, gloo's on the CPU, and
+        for a CUDA tensor under gloo (which has only ``all_reduce`` and
+        ``broadcast`` for them) gloo's CPU op on a pinned host copy."""
+        flat = x.contiguous().view(-1).view(torch.uint8)
+        if x.is_cuda and self.backend != "nccl":
+            torch.cuda.current_stream(x.device).synchronize()
+            host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(flat)
+            out = op(host).to(x.device)
+        else:
+            out = op(flat)
+        return out.view(x.dtype)
+
+    def permute(self, x: torch.Tensor, axis: str, shift: int = 1,
+                tag: str | None = None) -> torch.Tensor:
+        """``x`` sent to the rank ``(i + shift) % n`` along ``axis`` and
+        the tensor of rank ``(i - shift) % n`` received (``lax.ppermute``
+        with the ring's ``perm``); ``x`` itself when the axis holds one
+        rank."""
+        group = self.group(axis)
+        n = self.size(axis)
+        if group is None or shift % n == 0:
+            return x
+        import torch.distributed as dist
+
+        ranks = dist.get_process_group_ranks(group)  # in axis order
+        i = self.index(axis)
+        dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+        t0 = time.monotonic()
+
+        def op(flat):
+            recv = torch.empty_like(flat)
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, flat, dst, group=group),
+                    dist.P2POp(dist.irecv, recv, src, group=group)]):
+                work.wait()
+            return recv
+
+        out = self._staged(x, op).view(x.shape)
+        self._count(tag or f"{axis}-permute", t0, x.numel() * x.element_size())
+        return out
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
+                   tag: str | None = None) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+        ``x`` cut into ``n`` equal parts along ``split_dim``, part ``j`` sent
+        to rank ``j`` of ``axis``, the parts received concatenated along
+        ``concat_dim`` in rank order."""
+        group = self.group(axis)
+        n = self.size(axis)
+        if group is None:
+            return x
+        if x.shape[split_dim] % n:
+            raise ValueError(  # the JAX package's message
+                f"The size of all_to_all split_axis ({x.shape[split_dim]}) has to "
+                f"be divisible by the size of the named axis {axis} ({n})")
+        import torch.distributed as dist
+
+        parts = torch.stack(x.tensor_split(n, dim=split_dim))  # (n, *part)
+        t0 = time.monotonic()
+
+        def op(flat):
+            recv = torch.empty_like(flat)
+            dist.all_to_all_single(recv, flat, group=group)
+            return recv
+
+        got = self._staged(parts, op).view(parts.shape)
+        self._count(tag or f"{axis}-a2a", t0, parts.numel() * parts.element_size())
+        return torch.cat(got.unbind(0), dim=concat_dim)
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int,
+                   tag: str | None = None) -> torch.Tensor:
+        """Every rank's ``x`` along ``axis`` concatenated along ``dim`` in
+        rank order; ``x`` itself when the axis holds one rank."""
+        group = self.group(axis)
+        n = self.size(axis)
+        if group is None:
+            return x
+        import torch.distributed as dist
+
+        t0 = time.monotonic()
+
+        def op(flat):
+            out = flat.new_empty((n * flat.numel(),))
+            with warnings.catch_warnings():  # renamed in later torch releases
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.all_gather_into_tensor(out, flat, group=group)
+            return out
+
+        got = self._staged(x, op).view(n, *x.shape)
+        self._count(tag or f"{axis}-gather", t0, x.numel() * x.element_size() * n)
+        return torch.cat(got.unbind(0), dim=dim)
 
     def dp_rows(self, batch: int) -> tuple[int, int] | None:
         """This rank's rows of a ``batch`` split over ``dp``; None when the
@@ -238,8 +379,9 @@ def mesh_axes(mesh: Mesh | None) -> tuple[str, ...]:
 
 
 def _group_keys(axis_sizes: dict[str, int]) -> list[tuple[str, ...]]:
-    """The axis sets that get a process group: each axis of size > 1, and
-    ``ep`` with ``tp`` for the expert FFN's sum."""
+    """The axis sets that get a process group: each axis of size > 1 (``sp``
+    for the ring, Ulysses and the sequence gathers), and ``ep`` with ``tp``
+    for the expert FFN's sum."""
     names = [a for a, n in axis_sizes.items() if n > 1]
     keys = [(a,) for a in names]
     if "ep" in names and "tp" in names:

@@ -59,7 +59,11 @@ async def run_slice_follower(hosts: int, ordinal: int,
     ``info()`` describes this follower, so ``/ready`` answers on every pod
     of the StatefulSet (the platform's ``_serve_info``); it returns a
     server with ``close()``. Returns the descriptors replayed; SIGTERM or
-    SIGINT stops the replay."""
+    SIGINT stops the replay. The world ends with the replay
+    (:func:`~langstream_tpu_torch.parallel.mesh.shutdown`): after the
+    leader's ``stop``, through the barrier every rank makes; after a
+    signal or a broken channel, without it."""
+    from langstream_tpu_torch.parallel.mesh import shutdown
     from langstream_tpu_torch.serving.lockstep import DEFAULT_PORT, LockstepFollower
 
     log.info("slice follower %d/%d: joining lockstep channel", ordinal, hosts)
@@ -113,6 +117,11 @@ async def run_slice_follower(hosts: int, ordinal: int,
     finally:
         if server is not None:
             server.close()
+        # the leader's "stop" ended the replay: every rank meets at the
+        # barrier; otherwise the leader is not coming, so no barrier
+        led_out = (replay_done.is_set() and not stop.is_set() and bool(replay_result)
+                   and not isinstance(replay_result[0], BaseException))
+        shutdown(barrier=led_out)
     if replay_result and isinstance(replay_result[0], BaseException):
         raise replay_result[0]
     replayed = replay_result[0] if replay_result else 0

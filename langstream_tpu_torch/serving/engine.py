@@ -64,7 +64,11 @@ Execution model:
   broadcasts a step descriptor that the other ranks replay on their own
   engines (:mod:`langstream_tpu_torch.serving.lockstep`); only the leader
   fetches. A broken group fails the work in flight and stops the engine.
-  ``sp`` is ROADMAP.md Queue 1 item 13b.
+  Under ``sp`` a prompt whose padded length divides ``sp`` prefills
+  sequence-parallel (ring attention over the ``sp`` ranks, the cache
+  gathered whole on each); decode, verify and continuation run replicated
+  over ``sp``. ``close()`` on the leader sends ``stop`` and ends the world
+  (``parallel.mesh.shutdown``) once the followers have left the replay.
 - Device work runs on one executor thread, so the asyncio loop stays live.
 - ``warmup-on-start``: the first request starts one shared warmup task (a
   lone greedy probe, then a concurrent wave) and every early request awaits
@@ -262,6 +266,7 @@ from langstream_tpu_torch.parallel.mesh import (
     make_mesh,
     rank_device,
     shard_tree,
+    shutdown,
 )
 from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
 from langstream_tpu_torch.ops.flash_attention import flash_attention
@@ -319,7 +324,8 @@ from langstream_tpu_torch.serving.incident import (
 )
 from langstream_tpu_torch.serving.journal import RequestJournal, request_entry
 from langstream_tpu_torch.serving.journey import JOURNEYS
-from langstream_tpu_torch.serving.lockstep import LockstepBroken, LockstepLeader
+from langstream_tpu_torch.serving import lockstep
+from langstream_tpu_torch.serving.lockstep import LockstepBroken
 from langstream_tpu_torch.serving.prefixstore import PrefixStore, PrefixStoreSpec
 from langstream_tpu_torch.serving.qos import (
     PRIORITY_CLASSES,
@@ -544,11 +550,7 @@ class ServingConfig:
 
 
 #: settings this slice does not serve: (predicate, message)
-_UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = (
-    (lambda c: dict(c.mesh).get("sp", 1) != 1,
-     "mesh axis sp: sequence parallelism (ring/Ulysses prefill) is ROADMAP.md "
-     "Queue 1 item 13b"),
-)
+_UNSUPPORTED: tuple[tuple[Callable[[ServingConfig], bool], str], ...] = ()
 
 
 def _multi_rank(config: ServingConfig) -> bool:
@@ -1224,15 +1226,19 @@ class TorchServingEngine:
                     f"rank {rank} of a lockstep group replays the leader's "
                     f"dispatches: build it through LockstepFollower")
             port = int(os.environ.get("LS_LOCKSTEP_PORT", "0")) or None
-            self._lockstep = LockstepLeader(
-                {"config_json": json.dumps(config.to_dict())},
-                expected_followers=world - 1, port=port,
+            config_json = json.dumps(config.to_dict())
+            self._lockstep, opened = lockstep.lead(
+                {"config_json": config_json}, expected_followers=world - 1, port=port,
                 token=os.environ.get("LS_LOCKSTEP_TOKEN", ""),
             )
             self.lockstep_role = "leader"
             log.info("lockstep leader on :%d awaiting %d followers",
                      self._lockstep.port, world - 1)
             self._lockstep.wait_ready()
+            if not opened:
+                # the channel was opened by an embeddings engine: the
+                # followers build this one from its own frame
+                self._lockstep.broadcast({"op": "engine", "config_json": config_json})
         self.mesh = make_mesh(dict(config.mesh))
         self._dp_span = self.mesh.dp_rows(config.slots)
         if self._dp_span is not None:
@@ -2539,8 +2545,10 @@ class TorchServingEngine:
             await self._loop_task
         self._executor.shutdown(wait=True)
         self._fetch_executor.shutdown(wait=True)
-        if self._lockstep is not None:
-            self._lockstep.close()  # "stop": the followers' replay ends
+        # "stop": the followers leave the replay, then the world ends
+        # together (no barrier when a follower is known dead)
+        if self._lockstep is not None and self._lockstep.close():
+            shutdown(barrier=not self._lockstep.broken)
         if self.prefix_store is not None:
             self.prefix_store.close()
         if self.adapter_store is not None:

@@ -26,6 +26,18 @@ stream has no such constraint, keeps the control plane off the card, and
 fails loudly (a socket error) instead of hanging a collective when a rank
 dies.
 
+**One channel per rank.** A resource served by a completions agent and an
+embeddings agent under one mesh has two engines in the leader's process;
+both lead through the same :class:`LockstepLeader` (:func:`lead`, counted
+by users, keyed by port), so each follower has one channel and replays one
+ordered stream. The first engine opens the channel and its handshake; an
+engine that joins an open channel announces itself with a frame the
+followers build it from (``engine`` for a serving engine, the first
+``embed`` for an embeddings engine). The last :func:`release` sends
+``stop``. The serving engine's frames are byte for byte the JAX package's;
+``engine`` and ``embed`` are the port's own (the JAX embeddings engine
+runs its mesh in one process and needs no frame).
+
 Wire format (no pickle; the channel crosses pod boundaries), byte for
 byte the JAX package's: ``u32 big-endian frame length | u32 header length
 | JSON header | concatenated raw array bytes``; the header maps argument
@@ -147,6 +159,9 @@ class LockstepLeader:
         self._lock = threading.Lock()
         self._broken = False
         self._closed = False
+        #: engines sharing this channel (:func:`lead`), and its key there
+        self.users = 1
+        self.key: int | None = None
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._server.bind(("0.0.0.0", port if port is not None else DEFAULT_PORT))
@@ -242,11 +257,22 @@ class LockstepLeader:
                 f"lost lockstep follower(s): {failed}; slice must restart"
             )
 
-    def close(self) -> None:
-        """Stop listening, then send ``stop``: a follower that reconnects
-        at once (the next group on the same port) must not reach this
-        leader's accept loop. ``shutdown`` wakes that loop, so the port is
-        released."""
+    @property
+    def broken(self) -> bool:
+        return self._broken
+
+    def close(self) -> bool:
+        """One user of the channel is done; the last one stops listening,
+        then sends ``stop`` (a follower that reconnects at once, for the
+        next group on the same port, must not reach this leader's accept
+        loop; ``shutdown`` wakes that loop, so the port is released).
+        Returns whether the channel closed."""
+        with _LEADERS_LOCK:
+            self.users -= 1
+            if self.users > 0:
+                return False
+            if self.key is not None and _LEADERS.get(self.key) is self:
+                del _LEADERS[self.key]
         with self._lock:
             self._closed = True
         for end in (lambda: self._server.shutdown(socket.SHUT_RDWR), self._server.close):
@@ -265,6 +291,30 @@ class LockstepLeader:
                 except OSError:
                     pass
             self._followers.clear()
+        return True
+
+
+#: the process's open leaders by port
+_LEADERS: dict[int, LockstepLeader] = {}
+_LEADERS_LOCK = threading.Lock()
+
+
+def lead(handshake: dict[str, Any], expected_followers: int, port: int | None = None,
+         token: str = "") -> tuple[LockstepLeader, bool]:
+    """This process's leader on ``port`` (``DEFAULT_PORT`` when None) and
+    whether this call opened it (with ``handshake``): an engine that joins
+    an open channel shares it. Every call is matched by one
+    :meth:`LockstepLeader.close`."""
+    key = port if port is not None else DEFAULT_PORT
+    with _LEADERS_LOCK:
+        leader = _LEADERS.get(key)
+        if leader is None:
+            leader = LockstepLeader(handshake, expected_followers, port=key, token=token)
+            leader.key = key
+            _LEADERS[key] = leader
+            return leader, True
+        leader.users += 1
+        return leader, False
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +342,8 @@ class LockstepFollower:
         self.token = token
         self.device = device
         self.engine = None
+        #: the embeddings engines built from ``embed`` frames, by identity
+        self.embedders: dict[tuple, Any] = {}
         #: with ``record_tokens``, the tokens each replayed op sampled on
         #: this rank, in replay order (``(op, int32 array)``), to hold
         #: against the leader's (the demo and the tests ask for it)
@@ -365,11 +417,18 @@ class LockstepFollower:
             )
         if handshake.get("op") != "handshake":
             raise RuntimeError(f"expected handshake, got {handshake.get('op')}")
-        config = ServingConfig.from_dict(json.loads(handshake["config_json"]))
-        self.engine = engine = TorchServingEngine(
-            config, device=self.device, lockstep_role="follower")
+        engine = None
+
+        def build(config_json: str):
+            config = ServingConfig.from_dict(json.loads(config_json))
+            self.engine = TorchServingEngine(
+                config, device=self.device, lockstep_role="follower")
+            log.info("lockstep follower ready (model %s)", config.model)
+            return self.engine
+
+        if handshake.get("config_json"):
+            engine = build(handshake["config_json"])
         steps = 0
-        log.info("lockstep follower ready (model %s)", config.model)
         carry: tuple | None = None  # the last decode chunk's device tokens, lengths
         while True:
             try:
@@ -384,6 +443,15 @@ class LockstepFollower:
             # the engine takes writable arrays (frombuffer's are read-only)
             desc = {k: v.copy() if isinstance(v, np.ndarray) else v
                     for k, v in desc.items()}
+            if op == "engine":
+                engine = build(desc["config_json"])
+                continue
+            if op == "embed":
+                self._embed(desc)
+                steps += 1
+                continue
+            if engine is None:
+                raise RuntimeError(f"lockstep op {op!r} before any serving engine")
             if "gen" in desc:
                 engine._generator.set_state(torch.from_numpy(desc["gen"]))
             if op in ("decode", "decode_cont"):
@@ -427,3 +495,19 @@ class LockstepFollower:
                 os._exit(3)
         sock.close()
         return steps
+
+    def _embed(self, desc: dict[str, Any]) -> None:
+        """Replay an ``embed`` frame: the encoder call of the leader's
+        embeddings engine, on an engine of the same identity built at its
+        first frame."""
+        from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+
+        key = (desc["model"], desc.get("tokenizer"), desc.get("checkpoint"),
+               desc["mesh_json"])
+        embedder = self.embedders.get(key)
+        if embedder is None:
+            embedder = self.embedders[key] = EmbeddingEngine(
+                desc["model"], desc.get("tokenizer"), desc.get("checkpoint"),
+                mesh=json.loads(desc["mesh_json"]), device=self.device,
+                lockstep_role="follower")
+        embedder._encode(desc["tokens"], desc["mask"])

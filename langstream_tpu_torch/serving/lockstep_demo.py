@@ -21,6 +21,16 @@ object or a list of them, served one after the other in the same world).
 and ``--max-tokens`` set the requests, which run greedy. ``--layers N``
 serves every model at N layers (full width), a cut of depth for time.
 
+A configuration with ``embeddings-model`` (and ``tokenizer``,
+``embeddings-checkpoint``, as the provider reads them) also serves the
+embeddings engine under the same mesh: the leader embeds the prompts
+through it (``vectors`` in its output), on the channel of the serving
+engine when the configuration names a ``model`` too, on its own otherwise.
+
+Every configuration is one world: each rank joins it, serves, and ends it
+(:func:`~langstream_tpu_torch.parallel.mesh.shutdown`; the leader's
+engines end it when the last one closes).
+
 The leader writes, per configuration, its token streams, their logprobs,
 the tokens each dispatch sampled and its engine's mesh section to
 ``--out``; a follower writes the tokens each replayed dispatch sampled, so
@@ -68,11 +78,32 @@ def cut_layers(layers: int | None):
             table.update(full)
 
 
-async def _drive(engine, prompts: list, max_tokens: int) -> dict:
+async def _embed(cfg: dict, prompts: list, device: str) -> dict:
+    """The configuration's embeddings engine (under its mesh, if any) on
+    the prompts; closed after."""
+    from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+
+    flat = [p for wave in prompts for p in wave] if prompts and isinstance(
+        prompts[0], list) else list(prompts)
+    engine = EmbeddingEngine(cfg["embeddings-model"], cfg.get("tokenizer"),
+                             cfg.get("embeddings-checkpoint"), mesh=cfg.get("mesh"),
+                             device=device)
+    try:
+        vectors = await engine.embed(flat)
+        return {"vectors": vectors, "embed-mesh": engine.mesh_section()}
+    finally:
+        engine.close()
+
+
+async def _drive(engine, prompts: list, max_tokens: int, embed_cfg: dict | None = None,
+                 device: str = "cpu") -> dict:
     """Serve ``prompts`` greedy, all at once, or in waves (a list of lists,
     each awaited before the next, so a later wave can hit the prefix
-    cache)."""
+    cache); with ``embed_cfg`` the embeddings engine embeds them too, on
+    the serving engine's channel."""
     waves = prompts if prompts and isinstance(prompts[0], list) else [prompts]
+    embedded = (asyncio.ensure_future(_embed(embed_cfg, prompts, device))
+                if embed_cfg else None)
     results = []
     for wave in waves:
         results += await asyncio.gather(*(
@@ -87,6 +118,8 @@ async def _drive(engine, prompts: list, max_tokens: int) -> dict:
         "speculative-steps": engine.spec_steps,
         "continue-calls": engine._continue_calls,
     }
+    if embedded is not None:
+        out.update(await embedded)
     if os.environ.get("LS_DEMO_LEADER_ABRUPT_EXIT") == "1":
         # leader-death injection: skip close(), whose "stop" frame is what
         # a crashed leader never sends
@@ -102,51 +135,66 @@ def run_process(index: int, num_processes: int, coordinator_port: int,
                 lockstep_port: int, configs: list[dict], prompts: list[str],
                 max_tokens: int, device: str = "cpu",
                 out_path: str | None = None) -> None:
-    from langstream_tpu_torch.parallel.mesh import init_distributed
-
-    init_distributed(f"127.0.0.1:{coordinator_port}", num_processes, index, device)
-    import torch.distributed as dist
+    from langstream_tpu_torch.parallel.mesh import init_distributed, shutdown
 
     outputs = []
-    if index == 0:
-        from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
-        from langstream_tpu_torch.serving.lockstep import LockstepBroken
-
-        os.environ["LS_LOCKSTEP_PORT"] = str(lockstep_port)
-        for cfg in configs:
-            engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
-            engine.lockstep_tokens = {}  # held against the followers' logs
-            try:
-                outputs.append(asyncio.run(_drive(engine, prompts, max_tokens)))
-            except LockstepBroken as e:
-                # the fail-loud contract: in-flight work already failed
-                # with this error; exit non-zero so the slice restarts
-                print(f"leader saw LockstepBroken: {e}; engine stopped serving: "
-                      f"{engine._stop}", file=sys.stderr, flush=True)
-                os._exit(5)
-            if os.environ.get("LS_DEMO_LEADER_ABRUPT_EXIT") == "1":
-                if out_path:
-                    Path(out_path).write_text(json.dumps(outputs))
-                print("fault injection: leader abrupt exit", file=sys.stderr, flush=True)
-                os._exit(4)
-    else:
-        from langstream_tpu_torch.serving.lockstep import LockstepFollower
-
-        die_after = int(os.environ.get("LS_DEMO_FOLLOWER_DIE_AFTER", "0"))
-        for _ in configs:
-            follower = LockstepFollower("127.0.0.1", lockstep_port, device=device,
-                                        record_tokens=True)
-            steps = follower.run(die_after_steps=die_after or None)
-            outputs.append({
-                "replayed": steps,
-                "dispatches": [[op, v.tolist()] for op, v in follower.tokens_log],
-                "mesh": follower.engine.mesh_section(),
-                "kernels": follower.engine.stats()["kernels"],
-            })
-            print(f"follower replayed {steps} steps", file=sys.stderr)
+    for cfg in configs:
+        # one world per configuration: the last engine's close() (the
+        # leader) or the replay's end (a follower) ends it
+        init_distributed(f"127.0.0.1:{coordinator_port}", num_processes, index, device)
+        if index == 0:
+            outputs.append(_lead(cfg, prompts, max_tokens, device, lockstep_port,
+                                 outputs, out_path))
+        else:
+            outputs.append(_follow(lockstep_port, device))
+        shutdown()  # nothing when the world already ended
     if out_path:
         Path(out_path).write_text(json.dumps(outputs))
-    dist.destroy_process_group()
+
+
+def _lead(cfg: dict, prompts, max_tokens: int, device: str, lockstep_port: int,
+          outputs: list, out_path: str | None) -> dict:
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+    from langstream_tpu_torch.serving.lockstep import LockstepBroken
+
+    os.environ["LS_LOCKSTEP_PORT"] = str(lockstep_port)
+    embed_cfg = cfg if "embeddings-model" in cfg else None
+    if "model" not in cfg:  # an embeddings resource alone: no dispatch
+        return {**asyncio.run(_embed(cfg, prompts, device)), "dispatches": {}}
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
+    engine.lockstep_tokens = {}  # held against the followers' logs
+    try:
+        out = asyncio.run(_drive(engine, prompts, max_tokens, embed_cfg, device))
+    except LockstepBroken as e:
+        # the fail-loud contract: in-flight work already failed with this
+        # error; exit non-zero so the slice restarts
+        print(f"leader saw LockstepBroken: {e}; engine stopped serving: "
+              f"{engine._stop}", file=sys.stderr, flush=True)
+        os._exit(5)
+    if os.environ.get("LS_DEMO_LEADER_ABRUPT_EXIT") == "1":
+        if out_path:
+            Path(out_path).write_text(json.dumps(outputs + [out]))
+        print("fault injection: leader abrupt exit", file=sys.stderr, flush=True)
+        os._exit(4)
+    return out
+
+
+def _follow(lockstep_port: int, device: str) -> dict:
+    from langstream_tpu_torch.serving.lockstep import LockstepFollower
+
+    die_after = int(os.environ.get("LS_DEMO_FOLLOWER_DIE_AFTER", "0"))
+    follower = LockstepFollower("127.0.0.1", lockstep_port, device=device,
+                                record_tokens=True)
+    steps = follower.run(die_after_steps=die_after or None)
+    print(f"follower replayed {steps} steps", file=sys.stderr)
+    engine = follower.engine
+    return {
+        "replayed": steps,
+        "dispatches": [[op, v.tolist()] for op, v in follower.tokens_log],
+        "mesh": engine.mesh_section() if engine is not None else None,
+        "kernels": engine.stats()["kernels"] if engine is not None else None,
+        "embed-mesh": [e.mesh_section() for e in follower.embedders.values()],
+    }
 
 
 def demo_config(num_processes: int) -> dict:
@@ -171,8 +219,13 @@ def run_reference(configs: list[dict], prompts: list[str], max_tokens: int,
     outputs = []
     for cfg in configs:
         cfg = {k: v for k, v in cfg.items() if k != "mesh"}
+        if "model" not in cfg:
+            outputs.append(asyncio.run(_embed(cfg, prompts, device)))
+            continue
         engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device)
-        outputs.append(asyncio.run(_drive(engine, prompts, max_tokens)))
+        engine.lockstep_tokens = {}
+        embed_cfg = cfg if "embeddings-model" in cfg else None
+        outputs.append(asyncio.run(_drive(engine, prompts, max_tokens, embed_cfg, device)))
     return outputs
 
 

@@ -144,8 +144,8 @@ def test_load_from_sentence_transformers_matches_jax(tmp_path):
 
 def test_provider_embeddings_service_and_engine_sharing():
     """The provider's embeddings service goes through ``get_or_create``
-    (one engine per model, tokenizer, checkpoint and device); a mesh
-    raises naming the ROADMAP item."""
+    (one engine per model, tokenizer, checkpoint, mesh and device); a
+    mesh of more ranks than the world raises."""
     EmbeddingEngine.reset_instances()
     try:
         resource = {"type": "tpu-serving-configuration", "name": "tpu",
@@ -157,7 +157,10 @@ def test_provider_embeddings_service_and_engine_sharing():
         vectors = asyncio.run(service.compute_embeddings(["one", "two words"]))
         direct = asyncio.run(service.engine.embed(["one", "two words"]))
         assert vectors == direct and len(vectors[0]) == te.EncoderConfig.tiny().hidden
-        with pytest.raises(NotImplementedError, match="item 13"):
+        # a mesh is served since the sequence-parallel slice
+        # (tests/test_torch_encoder_mesh.py): one process is refused by the
+        # mesh's count of ranks
+        with pytest.raises(ValueError, match="needs 2 devices, have 1"):
             TorchServiceProvider({**resource, "mesh": {"tp": 2}},
                                  device="cpu").get_embeddings_service({})
     finally:

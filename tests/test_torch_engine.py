@@ -201,10 +201,13 @@ def test_engine_needs_the_card_unless_told_cpu():
     "overrides,match",
     [
         # a mesh is served since the multi-GPU slice (tests/test_torch_tp.py,
-        # tests/test_torch_lockstep.py); an sp axis is still refused, naming
-        # item 13b
-        ({"mesh": {"sp": 2}}, "13b"),
-        ({"model": "moe-tiny", "mesh": {"ep": 2, "sp": 2, "tp": 1}}, "13b"),
+        # tests/test_torch_lockstep.py), an sp axis since the sequence-
+        # parallel slice (tests/test_torch_ring.py): these two cases keep
+        # their ids and check that sp is no longer refused by name, only
+        # by the mesh's own count of ranks (one process is no world of 2)
+        pytest.param({"mesh": {"sp": 2}}, "sp", id="overrides0-13b"),
+        pytest.param({"model": "moe-tiny", "mesh": {"ep": 2, "sp": 2, "tp": 1}}, "sp",
+                     id="overrides1-13b"),
         # kv-quantize: int8 on the dense layout is served since the slice
         # of the Prometheus plane (CONFIGS["dense-int8-kv"] above)
         # adapter-store is served since the multi-LoRA slice
@@ -265,6 +268,11 @@ def test_unsupported_settings_raise_naming_the_roadmap(overrides, match, tmp_pat
             asyncio.run(port.close())
             asyncio.run(jax.close())
             TpuServingEngine.reset_instances()
+        return
+    if match == "sp":
+        ranks = int(np.prod(list(overrides["mesh"].values())))
+        with pytest.raises(ValueError, match=f"needs {ranks} devices, have 1"):
+            TorchServingEngine(cfg, device="cpu")
         return
     if "adapter-store" in overrides:
         with pytest.raises(ValueError, match=match):

@@ -345,7 +345,10 @@ def test_follower_death_mid_burst_leader_fails_loud(tmp_path):
      ValueError, "prefix-store is incompatible with a multi-rank mesh"),
     ({"kv-layout": "paged", "pool-role": "decode"}, ValueError,
      "pool-role prefill/decode is incompatible with a multi-rank mesh"),
-    ({"mesh": {"sp": 2, "tp": 2}}, NotImplementedError, "item 13b"),
+    # sp is served since the sequence-parallel slice: the case keeps its id,
+    # and one process is refused by the mesh's count of ranks only
+    pytest.param({"mesh": {"sp": 2, "tp": 2}}, ValueError, "needs 4 devices, have 1",
+                 id="overrides3-NotImplementedError-item 13b"),
 ])
 def test_refusals_under_a_mesh(overrides, error, match):
     cfg = ServingConfig.from_dict({**TINY, "mesh": {"tp": 2}, **overrides})

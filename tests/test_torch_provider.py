@@ -432,7 +432,9 @@ def test_get_or_create_one_engine_per_config_and_device():
     # a refused key is refused before the config is hashed; a faults list
     # parses into hashable plans and a qos section into a hashable spec, and
     # each shares one engine
-    with pytest.raises(NotImplementedError, match="13b"):
+    # (an sp mesh is served since the sequence-parallel slice: one process
+    # is refused by the mesh's count of ranks)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         TorchServingEngine.get_or_create(
             ServingConfig.from_dict({"model": "tiny", "mesh": {"sp": 2}}), "cpu")
     faulty = {"model": "tiny", "model-dtype": "float32",

@@ -13,10 +13,14 @@ against the JAX package's.
   dense and paged, paged with the prefix cache, chunked prefill and
   speculation, and ``moe-tiny`` under ``{ep: 2}`` and ``{ep: 2, tp: 2}``
   (the MoE specs name ``tp``, so the ep-only mesh carries ``tp: 1``, as the
-  JAX engine needs), on the in-repo HF fixtures. The port runs as gloo
-  processes of ``python -m langstream_tpu_torch.serving.lockstep_demo``
-  (no JAX there), one world of 2 ranks and one of 4, started before the
-  JAX engines run so both proceed at once; the leader's greedy tokens equal
+  JAX engine needs), and ``tiny`` under ``{sp: 2, tp: 1}`` dense, ``{sp: 2,
+  tp: 2}`` paged, ``{dp: 2, sp: 2, tp: 2}`` and the long-context example's
+  ``{sp: 4, tp: 2}`` (every prefill through the ring), on the in-repo HF
+  fixtures. The port runs as gloo processes of ``python -m
+  langstream_tpu_torch.serving.lockstep_demo`` (no JAX there), one world
+  of 2 ranks, one of 4 and one of 8, each configuration a world of its
+  own in turn (joined and ended through ``parallel.mesh``), started
+  before the JAX engines run so both proceed at once; the leader's greedy tokens equal
   the JAX engine's under the same mesh, the logprobs agree within 1e-4,
   and every follower ends each dispatch with the leader's tokens.
 """
@@ -61,6 +65,15 @@ CASES = {
     "moe-ep2tp2": (4, {**MOE, "mesh": {"ep": 2, "tp": 2}}),
     "moe-ep2tp2-paged": (4, {**MOE, **PAGED, "prefix-cache": False,
                              "mesh": {"ep": 2, "tp": 2}}),
+    # sequence parallelism: every prompt's padded length (a power of two
+    # from 32) divides sp, so every prefill takes the ring (the Llama specs
+    # name tp, so the sp-only mesh carries tp: 1, as the JAX engine needs)
+    "sp2-dense": (2, {**LLAMA, "mesh": {"sp": 2, "tp": 1}}),
+    "sp2tp2-paged": (4, {**LLAMA, **PAGED, "prefix-cache": False,
+                         "mesh": {"sp": 2, "tp": 2}}),
+    "dp2sp2tp2-dense": (8, {**LLAMA, "mesh": {"dp": 2, "sp": 2, "tp": 2}}),
+    # the long-context-summarizer example's mesh
+    "sp4tp2-paged": (8, {**LLAMA, **PAGED, "mesh": {"sp": 4, "tp": 2}}),
 }
 # cases held against the port's own one-rank engine only
 PORT_CASES = {
@@ -180,9 +193,9 @@ def test_per_rank_paged_read_matches_jax_shard_mapped_read(axes, B, Kh, int8, T)
 
 @pytest.fixture(scope="module")
 def port_worlds(tmp_path_factory):
-    """The two worlds, started at once; joined on first use."""
+    """The three worlds, started at once; joined on first use."""
     started = {}
-    for n in (2, 4):
+    for n in (2, 4, 8):
         names = [name for name, (size, _) in WORLDS.items() if size == n]
         tmp = tmp_path_factory.mktemp(f"world{n}")
         procs, outs = spawn_world(tmp, n, [WORLDS[name][1] for name in names],
@@ -233,6 +246,9 @@ def test_mesh_engine_tokens_equal_the_jax_engine(case, port_worlds, run_async):
     assert got["tokens"] == [list(r["tokens"]) for r in want]
     for g, w in zip(got["logprobs"], want):
         np.testing.assert_allclose(g, w["logprobs"], atol=1e-4)
+    if cfg["mesh"].get("sp", 1) > 1:
+        # the prefills ran the ring, gathered the cache and the last rows
+        assert {"sp-ring", "sp-kv", "sp-last"} <= set(got["mesh"]["collectives"])
     if "speculative-drafts" in cfg:
         # every lockstep op ran: chunked prefill continues, a prefix hit,
         # verify steps
@@ -296,7 +312,7 @@ _MOE_RANK = """
 import dataclasses, sys, numpy as np, torch
 from langstream_tpu_torch.models import moe as tm
 from langstream_tpu_torch.models.convert import params_from_numpy
-from langstream_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from langstream_tpu_torch.parallel.mesh import init_distributed, make_mesh, shutdown
 rank, coordinator, path, axes = int(sys.argv[1]), sys.argv[2], sys.argv[3], eval(sys.argv[4])
 world = int(np.prod(list(axes.values())))
 init_distributed(coordinator, world, rank, "cpu", timeout_s=60)
@@ -313,14 +329,13 @@ config = dataclasses.replace(tm.MoEConfig.tiny(), dtype=torch.float32)
 logits, aux = tm.moe_forward_sharded(config, params, torch.from_numpy(data["tokens"]),
                                      make_mesh(axes))
 np.save(f"{path}/logits{rank}.npy", logits.numpy())
+shutdown()  # every rank leaves together: none exits while a peer talks to it
 """
 
 
-@pytest.mark.parametrize("axes", [{"ep": 2, "tp": 1}, {"ep": 2, "tp": 2}], ids=str)
-def test_moe_forward_sharded_matches_jax(axes, tmp_path):
-    """``moe_forward_sharded`` on every rank of a gloo world gives the whole
-    batch's logits of the JAX package's ``moe_forward_sharded`` under the
-    same mesh (f32, within 1e-4)."""
+def _moe_world(axes: dict, tmp_path, runs: int = 1) -> np.ndarray:
+    """Run ``_MOE_RANK`` on a gloo world over ``axes`` ``runs`` times in a
+    row (every rank must exit 0 each time); the JAX logits it is held to."""
     import dataclasses
     import subprocess
     import sys
@@ -339,20 +354,47 @@ def test_moe_forward_sharded_matches_jax(axes, tmp_path):
             "lm_head": np.asarray(params["lm_head"])}
     flat.update({f"layers.{k}": np.asarray(v) for k, v in params["layers"].items()})
     np.savez(tmp_path / "inputs.npz", **flat)
-    coordinator = f"127.0.0.1:{free_port()}"
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
     env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _MOE_RANK, str(r), coordinator,
-                               str(tmp_path), repr(axes)], cwd=REPO, env=env,
-                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
-             for r in range(world)]
-    try:
-        errs = [p.communicate(timeout=120)[1].decode(errors="replace")[-2000:] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for rank, (p, err) in enumerate(zip(procs, errs)):
-        assert p.returncode == 0, f"rank {rank}: {err}"
-        np.testing.assert_allclose(np.load(tmp_path / f"logits{rank}.npy"), want,
-                                   atol=1e-4, rtol=1e-4)
+    for run in range(runs):
+        coordinator = f"127.0.0.1:{free_port()}"
+        procs = [subprocess.Popen([sys.executable, "-c", _MOE_RANK, str(r), coordinator,
+                                   str(tmp_path), repr(axes)], cwd=REPO, env=env,
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+                 for r in range(world)]
+        try:
+            errs = [p.communicate(timeout=120)[1].decode(errors="replace")[-2000:]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for rank, (p, err) in enumerate(zip(procs, errs)):
+            assert p.returncode == 0, f"run {run}, rank {rank}: {err}"
+            np.testing.assert_allclose(np.load(tmp_path / f"logits{rank}.npy"), want,
+                                       atol=1e-4, rtol=1e-4)
+    return want
+
+
+@pytest.mark.parametrize("axes", [{"ep": 2, "tp": 1}, {"ep": 2, "tp": 2}], ids=str)
+def test_moe_forward_sharded_matches_jax(axes, tmp_path):
+    """``moe_forward_sharded`` on every rank of a gloo world gives the whole
+    batch's logits of the JAX package's ``moe_forward_sharded`` under the
+    same mesh (f32, within 1e-4)."""
+    _moe_world(axes, tmp_path)
+
+
+def test_an_ep2tp2_world_exits_cleanly_three_times_in_a_row(tmp_path):
+    """The world ends through ``parallel.mesh.shutdown()`` (a barrier, then
+    ``destroy_process_group``): three ``{ep: 2, tp: 2}`` worlds in a row,
+    every rank exits 0 each time, with the JAX logits."""
+    _moe_world({"ep": 2, "tp": 2}, tmp_path, runs=3)
+
+
+@pytest.mark.parametrize("axes", [{"sp": 2, "tp": 1}, {"ep": 2, "sp": 2, "tp": 1}], ids=str)
+def test_moe_forward_sharded_under_sp_matches_jax(axes, tmp_path):
+    """Under ``sp`` each rank runs its positions with ring attention and the
+    routed FFN on its input gathered over ``sp`` (the whole batch's
+    capacity); every rank returns the whole batch's logits of the JAX
+    package's ``moe_forward_sharded`` under the same mesh (within 1e-4)."""
+    _moe_world(axes, tmp_path)
