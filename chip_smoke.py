@@ -49,7 +49,7 @@ Phases (every one unguarded: any failure exits non-zero):
    a stop string; an ``adapter`` and a spent ``deadline`` refused before
    they queue; then the embeddings service (minilm-l6) on the card against
    the CPU within 1e-4;
-   main path F: the saturated load at 16 of llama3-8b's 32 layers
+   main path F: the saturated load at 8 of llama3-8b's 32 layers
    (``F_LAYERS``), 96 greedy requests (30-600 byte tokens,
    max-tokens cycling 48/96/128/160) on 64 slots, four times: F1 the chat
    example's resource (dense bf16 KV) with the pipelined loop, F2 the same
@@ -104,7 +104,7 @@ Phases (every one unguarded: any failure exits non-zero):
    a ``pool-role: decode`` engine (bf16 rows through the wire as raw
    words); the decoded greedy tokens must equal the combined engine's;
    payload bytes and export/import ms;
-   main path J: multi-LoRA at llama3-8b int8 on the first 16 of path A's
+   main path J: multi-LoRA at llama3-8b int8 on the first 8 of path A's
    32 layers (``J_LAYERS``, a cut for the time limit; run after I, while
    those params are on the card). J1: the chat example's resource
    with paged int8 KV (no warmup, the prefix cache off) and an
@@ -236,6 +236,22 @@ Phases (every one unguarded: any failure exits non-zero):
    with the plain attention of its arithmetic (Ulysses through the
    host-staged all-to-all). O3: minilm-l6 at ``mesh: {dp: 2}`` over 64
    texts, equal to the one-rank engine within 1e-4;
+   main path P (after O): training through the mesh, two ranks on this
+   card again (rank 1 is ``chip_smoke.py --p-rank``, one world per part),
+   bf16 parameters from a seed, f32 logits and loss, one SGD step at lr
+   1e-3. P1: Mixtral-8x7B widths at 2 layers, ``moe_forward_pp`` at
+   ``{pp: 2}`` (one layer per stage), 4 sequences of 256 tokens in 2
+   microbatches, NLL + 0.01 aux, against the same step at pp=1: the loss
+   within 2e-2 relative, every gradient and updated leaf of both stages
+   within 2e-2 of its max abs; ms per step at both, the bubble, the
+   hand-off's bytes and seconds both ways, each rank's parameter,
+   gradient and peak bytes. P2: Llama-3-8B widths at 2 layers, one
+   2,048-token sequence, ``llama_forward_sp`` at ``{sp: 2, tp: 1}`` with
+   the ring and then Ulysses, gradients summed by ``sync_grads``, each
+   against one rank's ``llama_forward`` with dense attention within the
+   same tolerances; ms per step, the ring's bytes both ways,
+   ``sync_grads``' seconds and bytes. P3: the flash kernel and the decode
+   read raise on CUDA inputs that require grad. No kernel launches on P;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -262,7 +278,7 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-O,
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-P,
    rank 0's on N and O; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
@@ -332,11 +348,11 @@ def ptxas_report(logs: dict) -> list[str]:
 
 #: depth of paths F and H (of llama3-8b's 32 layers, full width) from PR
 #: 11 on: with path J the whole smoke took 1,141 s of its 1,200 on a slow
-#: host at full depth
-F_LAYERS = 16
+#: host at full depth; F at 8 since path P came (the smoke took 1,085 s)
+F_LAYERS = 8
 H_LAYERS = 16
-I_LAYERS = 16  # paths I, J, K1, K2, K4 and L at 16 layers, so path N
-J_LAYERS = 16  # fits the time limit on a slow host (K3's child runs at 8)
+I_LAYERS = 16  # paths I, K1, K2, K4 and L at 16 layers, so path N
+J_LAYERS = 8   # fits the time limit on a slow host (K3's child runs at 8)
 K_LAYERS = 16
 
 
@@ -5421,6 +5437,383 @@ def phase_sp_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path P: training through the mesh
+# ---------------------------------------------------------------------------
+
+P_LR = 1e-3
+#: P1: the MoE pipeline step (Mixtral-8x7B widths, one layer per stage)
+P1 = {"model": "mixtral-8x7b", "layers": 2, "batch": 4, "tokens": 256, "micro": 2,
+      "dtype": "bfloat16"}
+#: P2: the dense sequence-parallel step (Llama-3-8B widths, one sequence)
+P2 = {"model": "llama3-8b", "layers": 2, "tokens": 2048, "dtype": "bfloat16"}
+
+
+def _p_config(spec: dict):
+    """The model config of a path P part at its depth and dtype."""
+    from langstream_tpu_torch.serving.engine import _DTYPES, _MODEL_CONFIGS, _MOE_MODELS
+
+    make = {**_MODEL_CONFIGS, **_MOE_MODELS}[spec["model"]]
+    return dataclasses.replace(make(max_seq_len=spec["tokens"]), layers=spec["layers"],
+                               dtype=_DTYPES[spec["dtype"]])
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sgd_step(torch, loss_fn, params: dict, device, sync=None) -> dict:
+    """One training step on ``params`` (leaves that require grad): the loss,
+    its backward, ``sync()`` (the gradients' sum over dp/sp) and the SGD
+    update at ``P_LR``, timed to a synchronised end. Returns the loss, each
+    leaf's gradient and updated value by path, and the ms."""
+    for _, p in _leaves(params):
+        p.grad = None
+    _sync(torch, device)
+    t0 = time.monotonic()
+    loss = loss_fn()
+    loss.backward()
+    if sync is not None:
+        sync()
+    with torch.no_grad():
+        new = {path: p - P_LR * p.grad for path, p in _leaves(params)}
+    _sync(torch, device)
+    ms = (time.monotonic() - t0) * 1e3
+    return {"loss": float(loss.detach()),
+            "grads": {path: p.grad for path, p in _leaves(params)},
+            "new": new, "ms": ms}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 for an all-zero ``want`` equal
+    to ``got``)."""
+    scale = float(want.float().abs().max())
+    diff = float((got.float() - want.float()).abs().max())
+    return diff / scale if scale else diff
+
+
+def _hold(label: str, got: dict, want: dict, leaf_map=None) -> dict:
+    """Hold a step's loss, gradients and updated leaves against the
+    reference's within ``TOL_BF16`` (the loss relative, a leaf of its max
+    abs); ``leaf_map(path, ref)`` picks the reference's slice of a leaf.
+    Returns the worst errors."""
+    pick = leaf_map or (lambda path, t: t)
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    if not loss_err <= TOL_BF16:
+        fail(f"path {label}: loss {got['loss']} against {want['loss']} "
+             f"(relative {loss_err} > {TOL_BF16})")
+    worst = {}
+    for kind in ("grads", "new"):
+        errs = {path: _rel_err(t, pick(path, want[kind][path]))
+                for path, t in got[kind].items()}
+        path = max(errs, key=errs.get)
+        if not errs[path] <= TOL_BF16:
+            fail(f"path {label}: {kind} of {path} differ by {errs[path]} of their "
+                 f"max abs (> {TOL_BF16})")
+        worst[kind] = [path, round(errs[path], 6)]
+    return {"loss_err": loss_err, "worst_grad": worst["grads"], "worst_new": worst["new"]}
+
+
+def _tree_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def p1_moe_step(torch, rank: int, coordinator: str, device="cuda", spec=None) -> dict:
+    """P1 on one rank of ``{pp: 2}`` (this process is rank 0, ``--p-rank``
+    rank 1): the spec's MoE model, each rank its one stage's layers (its
+    ``shard_pp_params`` shard, drawn from seed 0 leaf by leaf) plus the
+    embed and head, one training step of the JAX package's loss (NLL +
+    0.01 aux) through ``moe_forward_pp``; rank 1's layer gradients and
+    updated leaves then cross to rank 0, which runs the same step at pp=1
+    (one rank, the same microbatches) and holds both stages to it."""
+    from langstream_tpu_torch.models.llama import next_token_nll
+    from langstream_tpu_torch.models.moe import init_moe_params
+    from langstream_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, shard_for_rank, shutdown)
+    from langstream_tpu_torch.parallel.pipeline import moe_forward_pp, pp_param_specs
+
+    spec = spec or P1
+    init_distributed(coordinator, 2, rank, device, timeout_s=120)
+    ok = False
+    try:
+        config = _p_config(spec)
+        B, S, M = spec["batch"], spec["tokens"], spec["micro"]
+        mesh = make_mesh({"pp": 2})
+        specs = pp_param_specs(config, mesh)
+
+        def place(path, leaf):
+            node = specs
+            for key in path.split("."):
+                node = node[key]
+            return shard_for_rank(leaf, node, mesh)
+
+        params = init_moe_params(config, torch.Generator(device=device).manual_seed(0),
+                                 device=device, place=place)
+        for _, p in _leaves(params):
+            p.requires_grad_(True)
+        tokens = torch.randint(0, config.vocab_size, (B, S),
+                               generator=torch.Generator().manual_seed(1)).to(device)
+
+        def loss_fn(tree, m):
+            logits, aux = moe_forward_pp(config, tree, tokens, m, num_microbatches=M)
+            return next_token_nll(logits, tokens) + 0.01 * aux
+
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        step = _sgd_step(torch, lambda: loss_fn(params, mesh), params, device)
+        coll = mesh.describe()["collectives"]
+        peak = (round(torch.cuda.max_memory_allocated() / 2**30, 3)
+                if torch.device(device).type == "cuda" else None)
+        # the same step again, warm (the first pays each process's first
+        # launches); the update is out of place, so it sees the same params
+        warm = _sgd_step(torch, lambda: loss_fn(params, mesh), params, device)["ms"]
+        out = {"ms": round(step["ms"], 3), "warm_ms": round(warm, 3), "loss": step["loss"],
+               "param_bytes": _tree_bytes(p for _, p in _leaves(params)),
+               "grad_bytes": _tree_bytes(step["grads"].values()),
+               "peak_gb": peak, "handoff": {k: coll[k] for k in ("pp-handoff", "pp-handoff-bwd")},
+               "collectives": coll}
+        # the stage's layer leaves cross to the other stage (a permute of
+        # two: rank 0 receives rank 1's), outside the step's counts
+        layer_paths = [p for p in step["grads"] if p.startswith("layers.")]
+        with torch.no_grad():
+            theirs = {(kind, p): mesh.permute(step[kind][p], "pp", 1, tag="p1-check")
+                      for kind in ("grads", "new") for p in layer_paths}
+        if rank == 0:
+            ref_params = init_moe_params(config, torch.Generator(device=device).manual_seed(0),
+                                         device=device)
+            for _, p in _leaves(ref_params):
+                p.requires_grad_(True)
+            one = make_mesh({"pp": 1}, world_size=1, rank=0, groups=False)
+            ref = _sgd_step(torch, lambda: loss_fn(ref_params, one), ref_params, device)
+            out["pp1_ms"] = round(ref["ms"], 3)
+            out["pp1_warm_ms"] = round(_sgd_step(
+                torch, lambda: loss_fn(ref_params, one), ref_params, device)["ms"], 3)
+            out["pp1_loss"] = ref["loss"]
+            for stage, got in ((0, step), (1, {"loss": step["loss"],
+                                               **{k: {p: theirs[(k, p)] for p in layer_paths}
+                                                  for k in ("grads", "new")}})):
+                out[f"stage{stage}"] = _hold(
+                    f"P1 stage {stage}", got, ref,
+                    lambda path, t, stage=stage: t[stage:stage + 1]
+                    if path.startswith("layers.") else t)
+        ok = True
+        return out
+    finally:
+        shutdown(barrier=ok)
+
+
+def p2_sp_step(torch, rank: int, coordinator: str, device="cuda", spec=None) -> dict:
+    """P2 on one rank of ``{sp: 2, tp: 1}``: the spec's Llama model (every
+    rank holds it whole, from seed 0), one sequence, one training step of
+    the next-token NLL through ``llama_forward_sp`` with the ring and then
+    Ulysses, the gradients summed over sp by ``sync_grads``; rank 0 holds
+    each to one rank's ``llama_forward`` with the dense attention of its
+    arithmetic (as O2 does: f32 for the ring, the input dtype with f32
+    accumulation for Ulysses)."""
+    from functools import partial
+
+    from langstream_tpu_torch.models.llama import (
+        init_llama_params, llama_forward, llama_forward_sp, llama_param_specs,
+        local_config, next_token_nll, rank_specs)
+    from langstream_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, shutdown, sync_grads)
+    from langstream_tpu_torch.parallel.ring import dense_attention
+
+    spec = spec or P2
+    init_distributed(coordinator, 2, rank, device, timeout_s=120)
+    ok = False
+    try:
+        config = _p_config(spec)
+        n = spec["tokens"]
+        params = init_llama_params(config, torch.Generator(device=device).manual_seed(0),
+                                   device=device)
+        for _, p in _leaves(params):
+            p.requires_grad_(True)
+        tokens = torch.randint(0, config.vocab_size, (1, n),
+                               generator=torch.Generator().manual_seed(1)).to(device)
+        mesh = make_mesh({"sp": 2, "tp": 1})
+        local = local_config(config, mesh)
+        specs = rank_specs(llama_param_specs(config), config, mesh)
+        out, steps = {}, {}
+        for attn in ("ring", "ulysses"):
+            before = {k: list(v) for k, v in mesh.collectives.items()}
+            step = _sgd_step(
+                torch, lambda: next_token_nll(
+                    llama_forward_sp(local, params, tokens, mesh, attn=attn), tokens, mesh),
+                params, device, sync=lambda: sync_grads(params, specs, mesh))
+            coll = {k: [v[0] - before.get(k, [0, 0.0, 0])[0],
+                        round(v[1] - before.get(k, [0, 0.0, 0])[1], 6),
+                        v[2] - before.get(k, [0, 0.0, 0])[2]]
+                    for k, v in mesh.collectives.items()}
+            out[attn] = {"ms": round(step["ms"], 3), "loss": step["loss"],
+                         "collectives": {k: {"calls": c, "seconds": s, "bytes": b}
+                                         for k, (c, s, b) in coll.items() if c}}
+            steps[attn] = step
+        if rank == 0:
+            dense = partial(dense_attention, causal=True,
+                            scale=1.0 / math.sqrt(config.head_dim))
+
+            def dense_f32(q, k, v):
+                return dense(q.float(), k.float(), v.float()).to(q.dtype)
+
+            for attn, plain in (("ring", dense_f32), ("ulysses", dense)):
+                ref = _sgd_step(torch, lambda: next_token_nll(
+                    llama_forward(config, params, tokens, attention=plain), tokens),
+                    params, device)
+                out[attn]["one_rank_ms"] = round(ref["ms"], 3)
+                out[attn].update(_hold(f"P2 {attn}", steps.pop(attn), ref))
+                del ref
+        ok = True
+        return out
+    finally:
+        shutdown(barrier=ok)
+
+
+def p_rank(coordinator: str, device: str, out_path: str, part: str, spec: str) -> int:
+    """``chip_smoke.py --p-rank``: rank 1 of P1 or P2."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    run = {"P1": p1_moe_step, "P2": p2_sp_step}[part]
+    out = run(torch, 1, coordinator, device, json.loads(spec))
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def _p_world(torch, part: str, spec: dict, device: str) -> tuple[dict, dict]:
+    """One world of two ranks on this card: rank 1 spawned, this process
+    rank 0; both ranks' results."""
+    run = {"P1": p1_moe_step, "P2": p2_sp_step}[part]
+    coordinator = f"127.0.0.1:{_free_port()}"
+    out = Path(os.environ.get("TMPDIR", "/tmp")) / f"chip_smoke_{part}_{os.getpid()}.json"
+    proc, tail = _spawn_rank1([sys.executable, str(REPO / "chip_smoke.py"), "--p-rank",
+                               coordinator, device, str(out), part, json.dumps(spec)], part)
+    try:
+        mine = run(torch, 0, coordinator, device, spec)
+    except BaseException:
+        proc.kill()
+        print(f"path P [{part}]: rank 1's stderr tail:\n{tail()}", flush=True)
+        raise
+    _join_rank1(proc, tail, part)
+    theirs = json.loads(out.read_text())
+    out.unlink()
+    return mine, theirs
+
+
+def phase_train_path(torch, device="cuda") -> dict:
+    """Path P: training through the mesh, two ranks sharing this card over
+    gloo (as paths N and O: they measure the seam, not the speed of
+    pipelining or sequence parallelism). Both parts run bf16 parameters
+    with f32 logits and loss, random weights from a seed, one SGD step at
+    lr ``P_LR``.
+
+    - P1: :func:`p1_moe_step`, ``P1`` (Mixtral-8x7B widths, 2 layers, one
+      per stage, ``{pp: 2}``, 4 sequences of 256 tokens, 2 microbatches)
+      against pp=1: the loss within ``TOL_BF16`` relative, each gradient
+      and updated leaf of both stages within ``TOL_BF16`` of its max abs.
+      Printed: ms per step at pp=2 and pp=1, the bubble, the hand-off's
+      bytes and host seconds both ways, each rank's parameter, gradient
+      and peak bytes.
+    - P2: :func:`p2_sp_step`, ``P2`` (Llama-3-8B widths, 2 layers, one
+      2,048-token sequence, ``{sp: 2, tp: 1}``), ring then Ulysses, each
+      against one rank's forward within the same tolerances. Printed: ms
+      per step, the ring's bytes both ways, ``sync_grads``' seconds and
+      bytes.
+    - P3: the flash kernel and the decode read refuse CUDA inputs that
+      require grad (on the CPU they take their differentiable plain
+      versions: nothing to check).
+
+    Returns the kernels' launches on the path (none: training attends
+    through the plain functions, as the JAX package's does)."""
+    t0 = time.monotonic()
+    reset_counts()
+    # -- P1 -----------------------------------------------------------------
+    p1 = _p_world(torch, "P1", P1, device)
+    mine, theirs = p1
+    bubble = (2 - 1) / (P1["micro"] + 2 - 1)
+    print(f"path P [P1 moe_forward_pp {P1['model']} {P1['layers']} layers {P1['dtype']}, "
+          f"pp=2, {P1['batch']}x{P1['tokens']} tokens, M={P1['micro']}]: " + json.dumps({
+              "ms_per_step_pp2": mine["ms"], "ms_per_step_pp1": mine["pp1_ms"],
+              "warm_ms_pp2": [mine["warm_ms"], theirs["warm_ms"]],
+              "warm_ms_pp1": mine["pp1_warm_ms"],
+              "bubble": round(bubble, 4), "loss_pp2": mine["loss"], "loss_pp1": mine["pp1_loss"],
+              "stage0": mine["stage0"], "stage1": mine["stage1"],
+              "handoff": {"rank0": mine["handoff"], "rank1": theirs["handoff"]},
+              "param_bytes": [mine["param_bytes"], theirs["param_bytes"]],
+              "grad_bytes": [mine["grad_bytes"], theirs["grad_bytes"]],
+              "peak_gb": [mine["peak_gb"], theirs["peak_gb"]]}), flush=True)
+    for rank, res in (("0", mine), ("1", theirs)):
+        h = res["handoff"]
+        if not h["pp-handoff"]["calls"] == h["pp-handoff-bwd"]["calls"] > 0:
+            fail(f"path P1: rank {rank}'s hand-offs forward and back: {h}")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    # -- P2 -----------------------------------------------------------------
+    mine, theirs = _p_world(torch, "P2", P2, device)
+    for attn in ("ring", "ulysses"):
+        tag = "sp-ring" if attn == "ring" else "sp-a2a"
+        for rank, res in (("0", mine), ("1", theirs)):
+            coll = res[attn]["collectives"]
+            if not {tag, f"{tag}-bwd", "grads"} <= set(coll):
+                fail(f"path P2: rank {rank}'s {attn} step did not move its collectives "
+                     f"both ways and sum its gradients: {sorted(coll)}")
+        print(f"path P [P2 llama_forward_sp {attn} {P2['model']} {P2['layers']} layers "
+              f"{P2['dtype']}, sp=2, {P2['tokens']} tokens]: " + json.dumps({
+                  "ms_per_step": [mine[attn]["ms"], theirs[attn]["ms"]],
+                  "one_rank_ms": mine[attn]["one_rank_ms"],
+                  "loss": [mine[attn]["loss"], theirs[attn]["loss"]],
+                  **{k: mine[attn][k] for k in ("loss_err", "worst_grad", "worst_new")},
+                  "collectives": {"rank0": mine[attn]["collectives"],
+                                  "rank1": theirs[attn]["collectives"]}}), flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t2 = time.monotonic()
+    # -- P3 -----------------------------------------------------------------
+    if device == "cuda":
+        from langstream_tpu_torch.ops.flash_attention import flash_attention
+        from langstream_tpu_torch.ops.paged_attention import paged_attention_partial
+
+        q = torch.randn((1, 64, 8, 128), device=device, dtype=torch.bfloat16,
+                        requires_grad=True)
+        k = torch.randn((1, 64, 2, 128), device=device, dtype=torch.bfloat16)
+        qd, kp, vp, tables, lengths, nrb = paged_case(
+            torch, B=4, H=8, Kh=2, D=128, bs=16, max_len=64, dtype=torch.bfloat16,
+            int8=False, dense=False, seed=5)
+        calls = {
+            "flash_attention": lambda: flash_attention(q, k, k, causal=True),
+            "paged_attention": lambda: paged_attention_partial(
+                qd.requires_grad_(True), kp, vp, tables, lengths, num_read_blocks=nrb,
+                kv_heads=2, head_dim=128),
+        }
+        for name, call in calls.items():
+            try:
+                call()
+            except RuntimeError as e:
+                if "has no backward" not in str(e):
+                    raise
+                print(f"path P [P3]: {name} on inputs that require grad: {e}", flush=True)
+            else:
+                fail(f"path P3: {name} launched on inputs that require grad")
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"path P: a kernel launched on the training path: {counts}")
+    print(f"path P: {time.monotonic() - t0:.1f} s (P1 {t1 - t0:.1f} s, P2 {t2 - t1:.1f} s)",
+          flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5584,10 +5977,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_o = time.monotonic()
     o_counts = phase_sp_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_p = time.monotonic()
+    p_counts = phase_train_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
           f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
           f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s, path N "
-          f"{t_o - t_n:.1f} s, path O {time.monotonic() - t_o:.1f} s)", flush=True)
+          f"{t_o - t_n:.1f} s, path O {t_p - t_o:.1f} s, path P "
+          f"{time.monotonic() - t_p:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -5599,8 +5997,8 @@ def main() -> int:
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
-             "O": o_counts}
-    meta = {  # launches: summed over the fifteen main paths (rank 0's on N and O)
+             "O": o_counts, "P": p_counts}
+    meta = {  # launches: summed over the sixteen main paths (rank 0's on N and O)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
@@ -5639,4 +6037,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--o2-rank"]:  # path O2's rank 1
         sys.path.insert(0, str(REPO))
         sys.exit(o2_rank(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--p-rank"]:  # path P's rank 1
+        sys.path.insert(0, str(REPO))
+        sys.exit(p_rank(*sys.argv[2:7]))
     sys.exit(main())

@@ -251,10 +251,12 @@ def local_config(config, mesh):
 
 def embed_tokens(c, embed, tokens: torch.Tensor) -> torch.Tensor:
     """The token embeddings; vocab-parallel under tp (this rank's rows of
-    the table, a masked lookup, then a sum over ``tp``)."""
-    if c.shard is None or not c.shard.tp:
-        return embedding_take(embed, tokens)
+    the table, a masked lookup, then a sum over ``tp``). A table every
+    rank holds whole (the MoE specs replicate it) is a plain lookup, so
+    each rank's gradient of it is the whole table's."""
     rows = (embed.q if hasattr(embed, "q") else embed).shape[0]
+    if c.shard is None or not c.shard.tp or rows == c.vocab_size:
+        return embedding_take(embed, tokens)
     lo = c.shard.mesh.index("tp") * rows
     local = tokens.to(torch.long) - lo
     mine = (local >= 0) & (local < rows)
@@ -267,9 +269,9 @@ def lm_logits(c, x: torch.Tensor, lm_head, tag: str = "logits") -> torch.Tensor:
     """f32 logits over the whole vocab; under tp each rank's vocab columns
     are gathered into every rank (a sum of zero-padded shards; ``tag``
     names the call site in the mesh's collective counters)."""
-    logits = (x @ _w(lm_head)).to(torch.float32)
     if c.shard is None or not c.shard.tp:
-        return logits
+        return (x @ _w(lm_head)).to(torch.float32)
+    logits = (c.shard.mesh.enter(x, "tp", tag=tag) @ _w(lm_head)).to(torch.float32)
     V = logits.shape[-1]
     full = logits.new_zeros(logits.shape[:-1] + (c.vocab_size,))
     lo = c.shard.mesh.index("tp") * V
@@ -284,6 +286,16 @@ def tp_sum(c, y: torch.Tensor, attention: bool = False) -> torch.Tensor:
     if shard is None or not (shard.attention if attention else shard.tp):
         return y
     return shard.mesh.sum(y, "tp")
+
+
+def tp_enter(c, x: torch.Tensor, attention: bool = False) -> torch.Tensor:
+    """A column-parallel product's replicated input, whose gradient is
+    summed over ``tp`` in the backward (the pair of :func:`tp_sum`; the
+    attention block's only when its heads split)."""
+    shard = c.shard
+    if shard is None or not (shard.attention if attention else shard.tp):
+        return x
+    return shard.mesh.enter(x, "tp")
 
 
 def attention_prefill(c, q, k, v) -> torch.Tensor:
@@ -349,7 +361,7 @@ def ffn_for(c, ffn):
         return ffn
     if c.shard is None or not c.shard.tp:
         return _default_ffn
-    return lambda h, lp, valid=None: tp_sum(c, _default_ffn(h, lp, valid))
+    return lambda h, lp, valid=None: tp_sum(c, _default_ffn(tp_enter(c, h), lp, valid))
 
 
 def _qkv(c: LlamaConfig, h: torch.Tensor, lp: dict, ad=None):
@@ -358,6 +370,7 @@ def _qkv(c: LlamaConfig, h: torch.Tensor, lp: dict, ad=None):
     projection then gains its per-slot :func:`lora_delta` before the
     reshape, as in the JAX package."""
     lead = h.shape[:-1]
+    h = tp_enter(c, h, attention=True)
     q = h @ _w(lp["wq"])
     k = h @ _w(lp["wk"])
     v = h @ _w(lp["wv"])
@@ -381,6 +394,17 @@ def _out_proj(out: torch.Tensor, lp: dict, ad=None, c=None) -> torch.Tensor:
         ids, al = ad
         attn = attn + lora_delta(out, ids, al["wo_a"], al["wo_b"])
     return attn if c is None else tp_sum(c, attn, attention=True)
+
+
+def attention_block(c, x: torch.Tensor, lp: dict, cos, sin, attention) -> torch.Tensor:
+    """The pre-norm attention sub-block and its residual, ``(B, S, H)`` in
+    and out (the JAX package's ``attention_block``, shared by the dense,
+    MoE and pipeline-stage forwards; ``attention(q, k, v)`` on roped q/k)."""
+    B, S = x.shape[0], x.shape[1]
+    h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
+    q, k, v = _qkv(c, h, lp)
+    out = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
+    return x + _out_proj(out.reshape(B, S, c.heads * c.head_dim), lp, None, c)
 
 
 # ---------------------------------------------------------------------------
@@ -559,12 +583,7 @@ def llama_forward(
     cos, sin = _rope(positions, c.head_dim, c.rope_theta)
     for layer in range(c.layers):
         lp = layer_params(params, layer)
-        h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q, k, v = _qkv(c, h, lp)
-        q = _apply_rope(q, cos, sin)
-        k = _apply_rope(k, cos, sin)
-        out = attention(q, k, v)
-        x = x + _out_proj(out.reshape(B, S, c.heads * c.head_dim), lp, None, c)
+        x = attention_block(c, x, lp, cos, sin, attention)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         x = x + ffn(h2, lp)
     x = _rms_norm(x, params["final_norm"], c.norm_eps)
@@ -602,3 +621,31 @@ def llama_forward_sp(
         attention=lambda q, k, v: attn_fn(q, k, v, mesh, causal=True),
         offset=idx * rows,
     )
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean next-token NLL of the whole ``(B, S)`` ``tokens`` (the JAX
+    package's training loss: position ``p`` predicts ``tokens[:, p + 1]``,
+    the last position drops out, the mean is over ``B * (S - 1)``).
+    ``logits`` are f32: the whole ``(B, S, V)``, or under a ``mesh`` with
+    ``dp`` or ``sp`` this rank's block of :func:`llama_forward_sp` (its
+    rows on ``dp``, its positions on ``sp``), whose targets cross the
+    block's edge into the next rank's positions. The rank's share is summed
+    over ``dp`` and ``sp``, so every rank returns the whole loss; the
+    sum's backward is the identity, so each rank's gradients are its own
+    share's (:func:`~langstream_tpu_torch.parallel.mesh.sync_grads` adds
+    them)."""
+    B, S = tokens.shape
+    lo, axes = 0, ()
+    if mesh is not None:
+        if mesh.size("dp") > 1:
+            span = mesh.dp_rows(B)
+            if span is None:
+                raise ValueError(f"batch {B} does not split over dp={mesh.size('dp')}")
+            tokens, axes = tokens[span[0]:span[1]], ("dp",)
+        if mesh.size("sp") > 1:
+            lo, axes = mesh.index("sp") * (S // mesh.size("sp")), axes + ("sp",)
+    targets = tokens[:, lo + 1:lo + 1 + logits.shape[1]].to(torch.long)
+    logp = torch.log_softmax(logits[:, :targets.shape[1]], dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None]).sum() / (B * (S - 1))
+    return mesh.sum(nll, *axes, tag="loss") if axes else nll

@@ -49,11 +49,9 @@ from langstream_tpu_torch._device import require_device
 from typing import Any
 
 from langstream_tpu_torch.models.llama import (
-    _apply_rope,
-    _out_proj,
-    _qkv,
     _rms_norm,
     _rope,
+    attention_block,
     embed_tokens,
     layer_params,
     lm_logits,
@@ -291,6 +289,7 @@ def moe_ffn(
     capacity: int,
     valid: torch.Tensor | None = None,  # (B, S) bool — see top2_gating
     mesh=None,
+    route_axis: str | None = None,
 ):
     """Top-2 MoE feed-forward in index form; returns ``(output (B, S, H),
     aux_loss)``. The combine weights are cast to ``x``'s dtype, as the JAX
@@ -301,18 +300,39 @@ def moe_ffn(
     from ``mesh.index("ep") * E/ep`` on, their intermediate split on
     ``tp``. The routing is the whole batch's, the same on every rank; the
     rank keeps only the choices that land on its experts and the f32 sum of
-    every rank's terms over ``ep`` and ``tp`` is the output."""
+    every rank's terms over ``ep`` and ``tp`` is the output. For the
+    backward, the routing is replicated work and the experts' is each
+    rank's own: the tokens and the combine weights enter it through
+    :meth:`Mesh.enter` over ``ep`` and ``tp``, so their gradients are
+    summed there and the router's is whole on every rank.
+
+    ``route_axis`` names a mesh axis whose ranks hold the other rows of
+    the routed batch (``dp`` in the pipeline's microbatches): the router
+    logits are gathered over it in rank order, every rank routes the
+    whole batch (its capacity, its queues, its aux loss) and keeps its own
+    rows' choices."""
     B, S, H = x.shape
     N = B * S
     E_local = w_gate.shape[0]
     lo = 0 if mesh is None else mesh.index("ep") * E_local
     xf = x.reshape(N, H)
     logits = xf.to(torch.float32) @ router_w
-    experts, slots, weights, aux = top2_routing(
-        logits, capacity, None if valid is None else valid.reshape(N))
+    if valid is not None:
+        valid = valid.reshape(N)
+    if route_axis is not None and mesh is not None and mesh.size(route_axis) > 1:
+        own = slice(mesh.index(route_axis) * N, (mesh.index(route_axis) + 1) * N)
+        logits = mesh.all_gather(logits, route_axis, dim=0, tag=f"{route_axis}-route")
+        if valid is not None:
+            valid = mesh.all_gather(valid, route_axis, dim=0, tag=f"{route_axis}-route")
+        experts, slots, weights, aux = top2_routing(logits, capacity, valid)
+        experts, slots, weights = experts[own], slots[own], weights[own]
+    else:
+        experts, slots, weights, aux = top2_routing(logits, capacity, valid)
     mine = slots < capacity
     if mesh is not None:
         mine = mine & (experts >= lo) & (experts < lo + E_local)
+        xf = mesh.enter(xf, "ep", "tp")
+        weights = mesh.enter(weights, "ep", "tp")
     # row e*C + slot of the expert-major buffer; E*C is the thrown-away row
     rows = torch.where(mine, (experts - lo) * capacity + slots,
                        torch.full_like(slots, E_local * capacity))
@@ -402,10 +422,7 @@ def moe_forward(config: MoEConfig, params: dict, tokens: torch.Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in range(c.layers):
         lp = layer_params(params, layer)
-        h = _rms_norm(x, lp["attn_norm"], c.norm_eps)
-        q, k, v = _qkv(c, h, lp)
-        out = attention(_apply_rope(q, cos, sin), _apply_rope(k, cos, sin), v)
-        x = x + _out_proj(out.reshape(B, rows, c.heads * c.head_dim), lp, None, c)
+        x = attention_block(c, x, lp, cos, sin, attention)
         h2 = _rms_norm(x, lp["mlp_norm"], c.norm_eps)
         if sp > 1:
             h2 = mesh.all_gather(h2, "sp", dim=1, tag="sp-moe")

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from langstream_tpu_torch.ops import refuse_grad
 from langstream_tpu_torch.ops._build import load_library
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -116,7 +117,9 @@ def flash_attention(
     """Flash attention over ``(batch, seq, heads, head_dim)`` tensors:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     Under a mesh each rank calls it on its own heads (heads on ``tp``) and
-    its replica's rows (the engine splits the batch over ``dp``)."""
+    its replica's rows (the engine splits the batch over ``dp``). The
+    kernel has no backward: on the card, inputs that require grad under
+    grad mode raise ``RuntimeError`` (:func:`~langstream_tpu_torch.ops.refuse_grad`)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     if causal and Sq != Sk:
@@ -128,6 +131,7 @@ def flash_attention(
         scale = 1.0 / math.sqrt(D)
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v)
     out = torch.empty_like(q)
     if out.numel() == 0:

@@ -42,6 +42,7 @@ import torch
 
 from langstream_tpu_torch.models.kvquant import cache_scores, cache_values
 from langstream_tpu_torch.models.paged import gather_kv
+from langstream_tpu_torch.ops import refuse_grad
 from langstream_tpu_torch.ops._build import load_library
 
 NEG_INF = float(torch.finfo(torch.float32).min)
@@ -326,6 +327,7 @@ def paged_attention_partial(
             num_read_blocks=num_read_blocks, kv_heads=kv_heads,
             head_dim=head_dim, scale=scale,
         )
+    refuse_grad("paged_attention", q, k_pool, v_pool)
     for pool in (k_pool, v_pool):
         _check_common(q, block_tables, lengths, pool, kv_heads, head_dim,
                       num_read_blocks)
@@ -373,6 +375,7 @@ def _paged_attention_partial_q8(
             num_read_blocks=num_read_blocks, kv_heads=kv_heads,
             head_dim=head_dim, scale=scale,
         )
+    refuse_grad("paged_attention_q8", q, k_pool, v_pool)
     for pool in (k_pool, v_pool):
         _check_common(q, block_tables, lengths, pool["q"], kv_heads, head_dim,
                       num_read_blocks)
@@ -566,6 +569,7 @@ def paged_attention_multiquery_partial(
             num_read_blocks=num_read_blocks, kv_heads=kv_heads,
             head_dim=head_dim, scale=scale,
         )
+    refuse_grad("paged_attention_multiquery", q, k_pool, v_pool)
     dev = q.device
     if q.dim() != 4 or not q.is_contiguous() or q.dtype not in _DTYPE_CODES:
         raise ValueError(

@@ -11,6 +11,17 @@ the groups: :meth:`Mesh.sum` (an all-reduce), and for sequence parallelism
 :meth:`Mesh.permute` (the ring's ``ppermute``), :meth:`Mesh.all_to_all`
 (Ulysses) and :meth:`Mesh.all_gather`.
 
+**Gradients.** Every collective carries one back, as ``jax.grad``
+transposes the JAX package's: the sum's backward is the identity (its
+output is replicated and each rank's loss is the same), :meth:`Mesh.enter`
+marks where a replicated tensor enters a rank's own share of the work
+(identity forward, a sum backward), a permute's backward is the permute
+the other way, an all-to-all's the same exchange, an all-gather's this
+rank's slice. The backward's transfers are counted under ``<tag>-bwd``;
+under ``no_grad`` nothing is recorded and the serving paths move what they
+moved before. :func:`sync_grads` is data parallelism's sum of the
+gradients over ``dp`` and ``sp``.
+
 **The backend rule** (:func:`backend_rule`) is explicit, logged and
 reported in :meth:`Mesh.describe`: NCCL when every rank of a host has its
 own card, gloo when ranks share a card or run on the CPU. Ranks that share
@@ -168,6 +179,34 @@ def _world() -> tuple[int, int]:
     return 1, 0
 
 
+def _tracks(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` here."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Collective(torch.autograd.Function):
+    """A collective with its backward: ``forward(x)`` and ``backward(g)``
+    are the mesh's transfers (each one collective over the same group, so
+    every rank of the group runs both, in the same order)."""
+
+    @staticmethod
+    def forward(ctx, x, forward, backward):
+        ctx.inverse = backward
+        return forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.inverse(g), None, None
+
+
+def _collective(x: torch.Tensor, forward, backward) -> torch.Tensor:
+    """``forward(x)``, recorded with ``backward`` when autograd tracks ``x``
+    (a serving call under ``no_grad`` runs the transfer alone)."""
+    if _tracks(x):
+        return _Collective.apply(x, forward, backward)
+    return forward(x)
+
+
 class Mesh:
     """This rank's view of a device mesh: axis sizes in dict order, its
     coordinates, and its process group over each axis (None where the axis
@@ -227,10 +266,26 @@ class Mesh:
         """``x`` summed over ``axes`` (an all-reduce on their group; ``x``
         itself when they hold one rank). Half-precision tensors are summed
         in f32 and rounded once. ``tag`` names the call site in
-        :attr:`collectives` (default: the axes)."""
-        group = self.group(*axes)
-        if group is None:
+        :attr:`collectives` (default: the axes). The backward is the
+        identity: the output is replicated and every rank computes the same
+        loss from it (Megatron's *g*)."""
+        if self.group(*axes) is None:
             return x
+        tag = tag or "+".join(axes)
+        return _collective(x, lambda t: self._all_reduce(t, axes, tag), lambda g: g)
+
+    def enter(self, x: torch.Tensor, *axes: str, tag: str | None = None) -> torch.Tensor:
+        """``x`` itself, where a tensor replicated over ``axes`` enters work
+        that each of their ranks does on its own share (Megatron's *f*):
+        the backward sums the gradient over ``axes``, counted under
+        ``<tag>-bwd``. No traffic forward, and none without a gradient."""
+        if self.group(*axes) is None or not _tracks(x):
+            return x
+        tag = f"{tag or '+'.join(axes)}-bwd"
+        return _collective(x, lambda t: t.view_as(t),
+                           lambda g: self._all_reduce(g, axes, tag))
+
+    def _all_reduce(self, x: torch.Tensor, axes, tag: str) -> torch.Tensor:
         import torch.distributed as dist
 
         buf = x.to(torch.float32) if x.dtype in (torch.bfloat16, torch.float16) \
@@ -241,8 +296,8 @@ class Mesh:
             # below are the collective's own and not that work's tail
             torch.cuda.current_stream(buf.device).synchronize()
         t0 = time.monotonic()
-        dist.all_reduce(buf, group=group)
-        self._count(tag or "+".join(axes), t0, buf.numel() * buf.element_size())
+        dist.all_reduce(buf, group=self.group(*axes))
+        self._count(tag, t0, buf.numel() * buf.element_size())
         return buf.to(x.dtype)
 
     # -- data movement: bytes only, so every dtype travels every route ----
@@ -268,13 +323,17 @@ class Mesh:
         """``x`` sent to the rank ``(i + shift) % n`` along ``axis`` and
         the tensor of rank ``(i - shift) % n`` received (``lax.ppermute``
         with the ring's ``perm``); ``x`` itself when the axis holds one
-        rank."""
-        group = self.group(axis)
-        n = self.size(axis)
-        if group is None or shift % n == 0:
+        rank. The backward is the permute by ``-shift``."""
+        if self.group(axis) is None or shift % self.size(axis) == 0:
             return x
+        tag = tag or f"{axis}-permute"
+        return _collective(x, lambda t: self._permute(t, axis, shift, tag),
+                           lambda g: self._permute(g, axis, -shift, f"{tag}-bwd"))
+
+    def _permute(self, x: torch.Tensor, axis: str, shift: int, tag: str) -> torch.Tensor:
         import torch.distributed as dist
 
+        group, n = self.group(axis), self.size(axis)
         ranks = dist.get_process_group_ranks(group)  # in axis order
         i = self.index(axis)
         dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
@@ -289,7 +348,7 @@ class Mesh:
             return recv
 
         out = self._staged(x, op).view(x.shape)
-        self._count(tag or f"{axis}-permute", t0, x.numel() * x.element_size())
+        self._count(tag, t0, x.numel() * x.element_size())
         return out
 
     def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int, concat_dim: int,
@@ -297,51 +356,65 @@ class Mesh:
         """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
         ``x`` cut into ``n`` equal parts along ``split_dim``, part ``j`` sent
         to rank ``j`` of ``axis``, the parts received concatenated along
-        ``concat_dim`` in rank order."""
-        group = self.group(axis)
+        ``concat_dim`` in rank order. The exchange of the stacked parts is
+        its own inverse, so the backward is the same exchange."""
         n = self.size(axis)
-        if group is None:
+        if self.group(axis) is None:
             return x
         if x.shape[split_dim] % n:
             raise ValueError(  # the JAX package's message
                 f"The size of all_to_all split_axis ({x.shape[split_dim]}) has to "
                 f"be divisible by the size of the named axis {axis} ({n})")
+        tag = tag or f"{axis}-a2a"
+        parts = torch.stack(x.tensor_split(n, dim=split_dim))  # (n, *part)
+        got = _collective(parts, lambda t: self._all_to_all(t, axis, tag),
+                          lambda g: self._all_to_all(g, axis, f"{tag}-bwd"))
+        return torch.cat(got.unbind(0), dim=concat_dim)
+
+    def _all_to_all(self, parts: torch.Tensor, axis: str, tag: str) -> torch.Tensor:
         import torch.distributed as dist
 
-        parts = torch.stack(x.tensor_split(n, dim=split_dim))  # (n, *part)
         t0 = time.monotonic()
 
         def op(flat):
             recv = torch.empty_like(flat)
-            dist.all_to_all_single(recv, flat, group=group)
+            dist.all_to_all_single(recv, flat, group=self.group(axis))
             return recv
 
         got = self._staged(parts, op).view(parts.shape)
-        self._count(tag or f"{axis}-a2a", t0, parts.numel() * parts.element_size())
-        return torch.cat(got.unbind(0), dim=concat_dim)
+        self._count(tag, t0, parts.numel() * parts.element_size())
+        return got
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int,
                    tag: str | None = None) -> torch.Tensor:
         """Every rank's ``x`` along ``axis`` concatenated along ``dim`` in
-        rank order; ``x`` itself when the axis holds one rank."""
-        group = self.group(axis)
-        n = self.size(axis)
-        if group is None:
+        rank order; ``x`` itself when the axis holds one rank. The backward
+        takes this rank's slice of the gradient (the loss downstream is
+        replicated over ``axis``)."""
+        if self.group(axis) is None:
             return x
+        tag = tag or f"{axis}-gather"
+        i = self.index(axis)
+        got = _collective(x, lambda t: self._all_gather(t, axis, tag), lambda g: g[i])
+        return torch.cat(got.unbind(0), dim=dim)
+
+    def _all_gather(self, x: torch.Tensor, axis: str, tag: str) -> torch.Tensor:
+        """``(n, *x.shape)``: every rank's ``x`` in rank order."""
         import torch.distributed as dist
 
+        n = self.size(axis)
         t0 = time.monotonic()
 
         def op(flat):
             out = flat.new_empty((n * flat.numel(),))
             with warnings.catch_warnings():  # renamed in later torch releases
                 warnings.simplefilter("ignore", FutureWarning)
-                dist.all_gather_into_tensor(out, flat, group=group)
+                dist.all_gather_into_tensor(out, flat, group=self.group(axis))
             return out
 
         got = self._staged(x, op).view(n, *x.shape)
-        self._count(tag or f"{axis}-gather", t0, x.numel() * x.element_size() * n)
-        return torch.cat(got.unbind(0), dim=dim)
+        self._count(tag, t0, x.numel() * x.element_size() * n)
+        return got
 
     def dp_rows(self, batch: int) -> tuple[int, int] | None:
         """This rank's rows of a ``batch`` split over ``dp``; None when the
@@ -380,12 +453,14 @@ def mesh_axes(mesh: Mesh | None) -> tuple[str, ...]:
 
 def _group_keys(axis_sizes: dict[str, int]) -> list[tuple[str, ...]]:
     """The axis sets that get a process group: each axis of size > 1 (``sp``
-    for the ring, Ulysses and the sequence gathers), and ``ep`` with ``tp``
-    for the expert FFN's sum."""
+    for the ring, Ulysses and the sequence gathers), ``ep`` with ``tp``
+    for the expert FFN's sum, and ``dp`` with ``sp`` for the gradients'
+    sum (:func:`sync_grads`) and a training loss's."""
     names = [a for a, n in axis_sizes.items() if n > 1]
     keys = [(a,) for a in names]
-    if "ep" in names and "tp" in names:
-        keys.append(tuple(a for a in names if a in ("ep", "tp")))
+    for pair in (("ep", "tp"), ("dp", "sp")):
+        if all(a in names for a in pair):
+            keys.append(tuple(a for a in names if a in pair))
     return keys
 
 
@@ -519,3 +594,23 @@ def shard_tree(tree, specs, mesh: Mesh):
         return dataclasses.replace(tree, q=shard_for_rank(tree.q, specs.q, mesh),
                                    s=shard_for_rank(tree.s, specs.s, mesh))
     return shard_for_rank(tree, specs, mesh)
+
+
+def sync_grads(params, specs, mesh: Mesh) -> None:
+    """Data parallelism's all-reduce, once before the update: the gradient
+    of every leaf of ``params`` that neither ``dp`` nor ``sp`` shards under
+    its spec in ``specs`` is summed over those of the two the mesh has
+    (each rank's gradient holds its own rows' and positions' share; GSPMD
+    gives the JAX package the same sum), counted under ``grads``. Leaves
+    without a gradient are left alone."""
+    if isinstance(params, dict):
+        for name, leaf in params.items():
+            sync_grads(leaf, specs[name], mesh)
+        return
+    if not isinstance(params, torch.Tensor) or params.grad is None:
+        return
+    named = {a for entry in specs for a in _entry_axes(entry)}
+    axes = tuple(a for a in ("dp", "sp") if a not in named)
+    if mesh.group(*axes) is not None:
+        with torch.no_grad():
+            params.grad = mesh.sum(params.grad, *axes, tag="grads")

@@ -19,7 +19,9 @@ rank's shard, ``(B, S/n, H, D)``, and return its shard of the output. Both
 support GQA and causal masking at *global* positions (each rank's block
 offset is its index along ``sp``). The JAX ring body is XLA einsums, not a
 Pallas kernel, so the products here stay ``torch`` ops, in the JAX
-package's f32 arithmetic.
+package's f32 arithmetic. Both differentiate: the collectives carry the
+gradients back (see :mod:`langstream_tpu_torch.parallel.mesh`), and every
+rank runs every rotation's backward, a skipped block's too.
 """
 
 from __future__ import annotations
@@ -58,7 +60,10 @@ def _ring_attention_local(
     """One rank's online-softmax attention over every K/V block as the
     blocks rotate around the ``axis_name`` ring. Every rank makes the same
     transfers on every step; the causal skip skips a future block's
-    compute only."""
+    compute only. The accumulators are made anew at each step (each row
+    chunk's ``m``, ``l`` and ``o``, concatenated at the end), so the
+    function differentiates; the running max is a stabiliser the output
+    does not depend on, so no gradient goes through it."""
     n = mesh.size(axis_name)
     idx = mesh.index(axis_name)
     B, Sq, H, D = q.shape
@@ -69,24 +74,25 @@ def _ring_attention_local(
     q_pos = idx * Sq + torch.arange(Sq, device=dev)
     neg = torch.tensor(torch.finfo(torch.float32).min, device=dev)
 
-    # accumulators in (B, Kh, G, Sq, ...) layout
-    m = torch.full((B, Kh, G, Sq), neg.item(), dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Kh, G, Sq), dtype=torch.float32, device=dev)
-    o = torch.zeros((B, Kh, G, Sq, D), dtype=torch.float32, device=dev)
+    # per chunk of query rows, accumulators in (B, Kh, G, rows, ...) layout
     rows = max(1, SCORE_BUDGET // max(1, B * H * Sk))
+    spans = [(a, min(Sq, a + rows)) for a in range(0, Sq, rows)]
+    acc = [(torch.full((B, Kh, G, b - a), neg.item(), dtype=torch.float32, device=dev),
+            torch.zeros((B, Kh, G, b - a), dtype=torch.float32, device=dev),
+            torch.zeros((B, Kh, G, b - a, D), dtype=torch.float32, device=dev))
+           for a, b in spans]
 
     def accumulate(k_blk, v_blk, s):
         j = (idx - s) % n  # global block index currently held
         kf, vf = k_blk.to(torch.float32), v_blk.to(torch.float32)
         k_pos = j * Sk + torch.arange(Sk, device=dev)
-        for a in range(0, Sq, rows):
-            b = min(Sq, a + rows)
+        for c, (a, b) in enumerate(spans):
+            m_old, l_old, o_old = acc[c]
             scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, a:b], kf)
             if causal:
                 mask = (q_pos[a:b, None] >= k_pos[None, :])[None, None, None]
                 scores = torch.where(mask, scores, neg)
-            m_old = m[..., a:b]
-            m_new = torch.maximum(m_old, scores.amax(dim=-1))
+            m_new = torch.maximum(m_old, scores.detach().amax(dim=-1))
             # rows with no valid key yet keep m = neg; exp(neg - neg) would
             # not be 0, so the shift is guarded (the JAX package's order)
             shift = torch.where(m_new <= neg, torch.zeros_like(m_new), m_new)
@@ -94,10 +100,8 @@ def _ring_attention_local(
             if causal:
                 p = torch.where(mask, p, torch.zeros_like(p))
             alpha = torch.exp(torch.where(m_old <= neg, neg, m_old - shift))
-            l[..., a:b] = l[..., a:b] * alpha + p.sum(dim=-1)
-            o[..., a:b, :] = (o[..., a:b, :] * alpha[..., None]
-                              + torch.einsum("bkgqs,bskd->bkgqd", p, vf))
-            m[..., a:b] = m_new
+            acc[c] = (m_new, l_old * alpha + p.sum(dim=-1),
+                      o_old * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vf))
 
     def needed(s) -> bool:
         # a block entirely in the future is fully masked: skip its compute
@@ -110,9 +114,29 @@ def _ring_attention_local(
             accumulate(kv[0], kv[1], s)
         if s < n - 1:  # n - 1 rotations: the last block stays put
             kv = mesh.permute(kv, axis_name, 1, tag=f"{axis_name}-ring")
+    o = torch.cat([o for _, _, o in acc], dim=3)
+    l = torch.cat([l for _, l, _ in acc], dim=3)
     out = o / torch.clamp(l, min=1e-30)[..., None]  # (B, Kh, G, Sq, D)
-    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
-    return out.to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+    if n > 1 and not needed(n - 1) and torch.is_grad_enabled() and kv.requires_grad:
+        # the last block arrived and was skipped: keep it in the graph at a
+        # zero gradient, so this rank runs the rotations' backward with its
+        # peers, whose last block was used
+        out = _Keep.apply(out, kv)
+    return out
+
+
+class _Keep(torch.autograd.Function):
+    """``y`` itself, with ``x`` in the graph at a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, y, x):
+        ctx.x_shape, ctx.x_dtype, ctx.x_device = x.shape, x.dtype, x.device
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, torch.zeros(ctx.x_shape, dtype=ctx.x_dtype, device=ctx.x_device)
 
 
 def ring_attention(

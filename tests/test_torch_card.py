@@ -819,3 +819,28 @@ def test_scrape_changes_card_match_cpu(monkeypatch):
     card, cpu = run("cuda"), run("cpu")
     assert card == cpu
     assert card[1][("langstream_serving_tokens_generated_total", "tiny")] > 0
+
+
+def test_kernels_refuse_inputs_that_require_grad():
+    """The kernels have no backward: on the card, a wrapper whose inputs
+    require grad under grad mode raises, naming the kernel, and launches
+    nothing; under ``no_grad`` the same call launches."""
+    q = torch.randn((1, 64, 8, 128), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn((1, 64, 2, 128), device="cuda", dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="flash_attention: the CUDA kernel has no backward"):
+        flash_attention(q, k, k, causal=True)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        flash_attention(q, k, k, causal=True)
+    assert flash_attention.launches == before + 1
+    qd = torch.randn((3, 8, 128), device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    pool = torch.randn((10, 16, 2 * 128), device="cuda", dtype=torch.bfloat16)
+    tables = torch.from_numpy(TABLES).cuda()
+    lengths = torch.tensor([40, 20, 64], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="paged_attention: the CUDA kernel has no backward"):
+        paged_attention_partial(qd, pool, pool, tables, lengths, num_read_blocks=4,
+                                kv_heads=2, head_dim=128)
+    with pytest.raises(RuntimeError, match="paged_attention_multiquery"):
+        paged_attention_multiquery_partial(qd[:, None], pool, pool, tables, lengths,
+                                           num_read_blocks=4, kv_heads=2, head_dim=128)
