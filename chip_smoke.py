@@ -252,6 +252,21 @@ Phases (every one unguarded: any failure exits non-zero):
    same tolerances; ms per step, the ring's bytes both ways,
    ``sync_grads``' seconds and bytes. P3: the flash kernel and the decode
    read raise on CUDA inputs that require grad. No kernel launches on P;
+   main path Q (after P): meshes from the normal entry points, every rank
+   but the caller's started by the port's launcher (``parallel/launch.py``;
+   this script starts no rank). Q1: path B's resource (llama3-8b int8,
+   paged int8 KV, 32 layers, 64 slots) at ``mesh: {tp: 2}`` through
+   ``TorchServiceProvider`` under ``LOCAL_WORLD_SIZE=2`` (two ranks share
+   the card over gloo): B's 8 prompts, 64 greedy tokens, N1's first-token
+   rule against B's streams of this run, kernels #1 and #3 launched on both
+   ranks; the seconds until the engine is ready and ms per step beside
+   B's. Q2: a slice of 2 pods x 2 local ranks on the card (two ``--q2-pod``
+   processes, ``LS_SLICE_HOSTS=2``, ``LS_POD_NAME`` q-0 and q-1, through the
+   port's ``maybe_join_slice`` and ``run_slice_follower``), tiny f32 on the
+   HF fixture at ``{dp: 2, tp: 2}``: the tokens equal a one-process CPU
+   run. Q3: minilm-l6 at ``{dp: 2}`` through the provider's embeddings
+   service, within ``TOL_EMBED`` of one rank. Every started rank exits 0
+   and no process of it is left;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -278,8 +293,8 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-P,
-   rank 0's on N and O; each row carries a ``tp2_rank`` entry, phase 2's case
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-Q,
+   rank 0's on N, O and Q; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -859,8 +874,10 @@ def device_breakdown(torch, prof, wall_s: float) -> str:
 
 def phase_main_path(torch, label, cfg: dict, params=None, profile=False, note=None):
     """Serve the chat prompts greedy once (and once more under the profiler
-    with ``profile``); with ``note``, leave the tokens, ms per step and the
-    flight events by kind in ``NOTES[note]``."""
+    with ``profile``); with ``note``, leave the tokens, ms per step, the
+    flight events by kind, the configuration and the results in
+    ``NOTES[note]``, and for B, whose streams Q1 is held to, the first
+    tokens' top-2 gaps (one more prefill per prompt)."""
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     t0 = time.monotonic()
@@ -915,7 +932,10 @@ def phase_main_path(torch, label, cfg: dict, params=None, profile=False, note=No
         print(report, flush=True)
     if note is not None:
         NOTES[note] = {"tokens": [r["tokens"] for r in results], "ms_per_step": step_ms,
-                       "events": dict(engine.flight.events_by_type)}
+                       "events": dict(engine.flight.events_by_type), "config": cfg,
+                       "results": results}
+        if note == "B":
+            NOTES[note]["gaps"] = top2_gaps(torch, engine, prompts)
     return engine.params, counts
 
 
@@ -5814,6 +5834,251 @@ def phase_train_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path Q: a mesh from the normal entry points (the port starts its ranks)
+# ---------------------------------------------------------------------------
+
+#: Q1: path B's resource (32 layers) at tp=2 through the provider
+Q1_MESH = {"tp": 2}
+#: Q2: a slice of two pods of two local ranks each, on this card (the HF
+#: fixture: a random init draws other numbers on the card than on the CPU)
+Q2_RESOURCE = {"model": "tiny", "model-dtype": "float32", "kv-layout": "paged",
+               "kv-block-size": 16, "slots": 4, "max-seq-len": 128, "decode-chunk": 4,
+               "seed": 0, "mesh": {"dp": 2, "tp": 2},
+               "checkpoint": str(REPO / "tests" / "fixtures" / "llama_tiny_golden")}
+Q2_PROMPTS = ["hello gpu world", "a slice of two pods", "abcdefgh, ijklmnop", "q"]
+Q2_MAX_TOKENS = 12
+#: Q3: the embeddings service at dp=2 (path O3's resource and bound)
+Q3_RESOURCE = {"embeddings-model": "minilm-l6", "mesh": {"dp": 2}}
+
+
+@contextlib.contextmanager
+def local_world_size(n: int):
+    """``LOCAL_WORLD_SIZE=n`` inside the block: the ranks this host may run
+    (here ``n`` ranks share the one card, over gloo)."""
+    saved = os.environ.get("LOCAL_WORLD_SIZE")
+    os.environ["LOCAL_WORLD_SIZE"] = str(n)
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("LOCAL_WORLD_SIZE", None)
+        else:
+            os.environ["LOCAL_WORLD_SIZE"] = saved
+
+
+def children_ended(label: str, launched: dict) -> list:
+    """Every rank the launcher started exited 0 and no process of it is
+    left; their exit codes."""
+    codes = []
+    for child in launched["children"]:
+        if child["exit-code"] != 0:
+            fail(f"path Q [{label}]: local rank {child['rank']} exited {child['exit-code']}")
+        try:
+            os.kill(child["pid"], 0)
+        except ProcessLookupError:
+            codes.append(child["exit-code"])
+            continue
+        fail(f"path Q [{label}]: local rank {child['rank']} (pid {child['pid']}) outlived "
+             f"its world")
+    return codes
+
+
+def q1_provider_mesh(torch, device="cuda") -> dict:
+    """Q1: path B's resource at ``Q1_MESH`` through ``TorchServiceProvider``
+    with two local ranks on this card; nothing here starts a rank. B's 8
+    prompts, 64 greedy tokens, held to B's streams by the first-token rule;
+    kernels #1 and #3 on both ranks. Returns rank 0's launches."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.serving.engine import TorchServingEngine
+
+    b = NOTES["B"]
+    resource = {**b["config"], "mesh": Q1_MESH}
+    with local_world_size(2):
+        t0 = time.monotonic()
+        engine = TorchServiceProvider(resource, device=device).get_completions_service(
+            {}).engine
+        ready_s = time.monotonic() - t0
+    TorchServingEngine.reset_instances()
+
+    async def drive():
+        try:
+            return await serve(engine, chat_prompts(), 64)
+        finally:
+            await engine.close()  # "stop", the world ends, the ranks are reaped
+
+    reset_counts()
+    results, wall, stats = asyncio.run(drive())
+    counts = read_counts()
+    mesh = engine.mesh_section()
+    del engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rank1 = mesh["launched"]["children"][0]["kernels"]
+    for rank, c in (("0", counts), ("1", rank1)):
+        if device == "cuda" and (c["flash_attention"] == 0 or c["paged_attention_q8"] == 0):
+            fail(f"path Q1: rank {rank} did not launch kernels #1 and #3: {c}")
+    codes = children_ended("Q1", mesh["launched"])
+    rule = check_first_tokens("Q1", results, b["results"], b["gaps"], path="Q")
+    print(f"path Q [Q1 llama3-8b int8 tp=2, 32 layers, provider]: " + json.dumps({
+        "ready_s": round(ready_s, 3), "wall_s": round(wall, 3),
+        "ms_per_step_mesh": _step_ms(stats), "ms_per_step_B": round(b["ms_per_step"], 3),
+        "backend": mesh["backend"], "backend_reason": mesh["backend-reason"],
+        "rank0_launches": {k: v for k, v in counts.items() if v},
+        "rank1_launches": {k: v for k, v in rank1.items() if v},
+        "first_tokens_checked": rule["checked"], "child_exit_codes": codes,
+        "weights_bytes": [mesh["weights-bytes"],
+                          mesh["launched"]["children"][0]["mesh"][0]["weights-bytes"]]}),
+        flush=True)
+    return counts
+
+
+def q2_pod(resource: str, prompts: str, max_tokens: str, device: str, out_path: str) -> int:
+    """``chip_smoke.py --q2-pod``: one pod of a slice, its place from
+    ``LS_SLICE_HOSTS``, ``LS_POD_NAME``, ``LOCAL_WORLD_SIZE``,
+    ``LS_COORDINATOR_ADDRESS``, ``LS_LOCKSTEP_PORT`` and
+    ``LS_LOCKSTEP_TOKEN``, as the platform's pod runs it: the port's
+    ``maybe_join_slice`` (the pod's local ranks started), then the ordinal-0
+    pod serves ``prompts`` greedy through the provider and the others
+    replay (``run_slice_follower``). Writes the tokens, the mesh, the
+    launched ranks and this process's launches to ``out_path``."""
+    import torch
+
+    from langstream_tpu_torch.ops import launch_counts
+    from langstream_tpu_torch.runtime import pod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = pod.maybe_join_slice(device)
+    ordinal = pod.pod_ordinal(os.environ["LS_POD_NAME"])
+    if ordinal:
+        out = {"replayed": asyncio.run(pod.run_slice_follower(world.hosts, ordinal,
+                                                              device=device))}
+    else:
+        from langstream_tpu_torch.agents.provider import TorchServiceProvider
+
+        engine = TorchServiceProvider(json.loads(resource), device=device
+                                      ).get_completions_service({}).engine
+
+        async def drive():
+            try:
+                return await asyncio.gather(*(
+                    engine.generate(p, {"max-tokens": int(max_tokens), "temperature": 0})
+                    for p in json.loads(prompts)))
+            finally:
+                await engine.close()
+
+        out = {"tokens": [list(r["tokens"]) for r in asyncio.run(drive())],
+               "mesh": engine.mesh_section()}
+    out.update(launched=world.describe(), kernels=launch_counts())
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def q2_slice(torch, device="cuda") -> dict:
+    """Q2: a slice of 2 hosts x 2 local ranks on this card: two pod
+    processes (``--q2-pod``, ``LS_POD_NAME`` q-0 and q-1), each starting
+    its second rank itself; ``Q2_RESOURCE`` (tiny f32, ``{dp: 2, tp: 2}``)
+    must give a one-process CPU run's tokens without the mesh."""
+    coordinator, lockstep = f"127.0.0.1:{_free_port()}", _free_port()
+    tmp = Path(os.environ.get("TMPDIR", "/tmp"))
+    pods = []
+    for name in ("q-0", "q-1"):
+        out = tmp / f"chip_smoke_{name}_{os.getpid()}.json"
+        env = {**os.environ, "PYTHONPATH": str(REPO), "LS_SLICE_HOSTS": "2",
+               "LS_POD_NAME": name, "LOCAL_WORLD_SIZE": "2",
+               "LS_COORDINATOR_ADDRESS": coordinator, "LS_LOCKSTEP_PORT": str(lockstep),
+               "LS_LOCKSTEP_TOKEN": f"q2-{os.getpid()}"}
+        with open(out.with_suffix(".log"), "wb") as log_file:  # a file, not a pipe
+            proc = subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--q2-pod",
+                 json.dumps(Q2_RESOURCE), json.dumps(Q2_PROMPTS), str(Q2_MAX_TOKENS),
+                 device, str(out)], cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                stderr=log_file)
+        pods.append((name, proc, out))
+    deadline = time.monotonic() + 240
+    for name, proc, out in pods:
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for _, other, _ in pods:
+                other.kill()
+                other.wait()
+        err = out.with_suffix(".log").read_text(errors="replace")[-3000:]
+        out.with_suffix(".log").unlink()
+        if proc.returncode != 0:
+            fail(f"path Q2: pod {name} exited {proc.returncode}: {err}")
+    reports = []
+    for name, _, out in pods:
+        reports.append(json.loads(out.read_text()))
+        out.unlink()
+        children_ended(f"Q2 {name}", reports[-1]["launched"])
+    leader = reports[0]
+    if leader["mesh"]["world-size"] != 4 or leader["mesh"]["dp-slots"] != [0, 2]:
+        fail(f"path Q2: the leader's mesh is not the 2 x 2 slice's: {leader['mesh']}")
+    cpu, _ = reference_run(torch, Q2_RESOURCE, [Q2_PROMPTS], Q2_MAX_TOKENS, None, "cpu")
+    want = [list(r["tokens"]) for r in cpu["results"]]
+    if leader["tokens"] != want:
+        fail(f"path Q2: the slice's tokens {leader['tokens']} != the CPU one-process run "
+             f"{want}")
+    ranks = {c["rank"]: c["pid"] for r in reports for c in r["launched"]["children"]}
+    return {"tokens_equal_cpu": True, "started_ranks": ranks,
+            "replayed_by_pod_q1": reports[1]["replayed"],
+            "launches_by_pod": [r["kernels"] for r in reports]}
+
+
+def q3_embeddings(torch, texts: list[str], device="cuda") -> dict:
+    """Q3: ``Q3_RESOURCE`` through the provider's embeddings service with
+    two local ranks on this card, against the one-rank engine within
+    ``TOL_EMBED`` (path O3's bound)."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+
+    with local_world_size(2):
+        service = TorchServiceProvider(Q3_RESOURCE, device=device).get_embeddings_service({})
+    EmbeddingEngine.reset_instances()
+    try:
+        t0 = time.monotonic()
+        vectors = asyncio.run(service.compute_embeddings(texts))
+        mesh_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        service.engine.close()
+    mesh = service.engine.mesh_section()
+    codes = children_ended("Q3", mesh["launched"])
+    one = EmbeddingEngine(Q3_RESOURCE["embeddings-model"], device=device)
+    try:
+        want = asyncio.run(one.embed(texts))
+    finally:
+        one.close()
+    err = max(abs(a - b) for va, vb in zip(vectors, want) for a, b in zip(va, vb))
+    if not err <= TOL_EMBED:
+        fail(f"path Q3: dp=2 vectors differ from the one-rank engine's by {err} > {TOL_EMBED}")
+    return {"max_abs_err": err, "ms_dp2": round(mesh_ms, 3), "child_exit_codes": codes,
+            "collectives": mesh["collectives"]}
+
+
+def phase_launch_path(torch, device="cuda") -> dict:
+    """Path Q: meshes from the normal entry points, every rank but the
+    caller's started by the port's launcher (``parallel/launch.py``), two
+    local ranks sharing this card over gloo: :func:`q1_provider_mesh`,
+    :func:`q2_slice`, :func:`q3_embeddings`. Returns rank 0's Q1
+    launches."""
+    t0 = time.monotonic()
+    counts = q1_provider_mesh(torch, device)
+    t1 = time.monotonic()
+    q2 = q2_slice(torch, device)
+    print(f"path Q [Q2 tiny f32 2 hosts x 2 local ranks, dp=2 tp=2]: {json.dumps(q2)}",
+          flush=True)
+    t2 = time.monotonic()
+    texts = [f"text {i}: " + "embeddings served by launched ranks " * (1 + i % 7)
+             for i in range(O3_TEXTS)]
+    q3 = q3_embeddings(torch, texts, device)
+    print(f"path Q [Q3 minilm-l6 dp=2, {O3_TEXTS} texts]: {json.dumps(q3)}", flush=True)
+    print(f"path Q: {time.monotonic() - t0:.1f} s (Q1 {t1 - t0:.1f} s, Q2 {t2 - t1:.1f} s, "
+          f"Q3 {time.monotonic() - t2:.1f} s)", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -5981,11 +6246,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_p = time.monotonic()
     p_counts = phase_train_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_q = time.monotonic()
+    q_counts = phase_launch_path(torch)
     print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
           f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
           f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s, path N "
           f"{t_o - t_n:.1f} s, path O {t_p - t_o:.1f} s, path P "
-          f"{time.monotonic() - t_p:.1f} s)", flush=True)
+          f"{t_q - t_p:.1f} s, path Q {time.monotonic() - t_q:.1f} s)", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -5997,8 +6266,8 @@ def main() -> int:
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
-             "O": o_counts, "P": p_counts}
-    meta = {  # launches: summed over the sixteen main paths (rank 0's on N and O)
+             "O": o_counts, "P": p_counts, "Q": q_counts}
+    meta = {  # launches: summed over the seventeen main paths (rank 0's on N, O and Q)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",
@@ -6040,4 +6309,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--p-rank"]:  # path P's rank 1
         sys.path.insert(0, str(REPO))
         sys.exit(p_rank(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--q2-pod"]:  # one of path Q2's two pods
+        sys.path.insert(0, str(REPO))
+        sys.exit(q2_pod(*sys.argv[2:7]))
     sys.exit(main())

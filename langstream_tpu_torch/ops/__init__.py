@@ -26,3 +26,20 @@ def refuse_grad(kernel: str, *tensors) -> None:
             f"{kernel}: the CUDA kernel has no backward, and its inputs require "
             f"grad; call it under torch.no_grad() (serving does), or train through "
             f"the plain attention of parallel/ring.py")
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launches in this process, by kernel name."""
+    from langstream_tpu_torch.ops.flash_attention import flash_attention
+    from langstream_tpu_torch.ops.paged_attention import (
+        _paged_attention_partial_q8,
+        paged_attention_multiquery_partial,
+        paged_attention_partial,
+    )
+
+    return {
+        "flash_attention": flash_attention.launches,
+        "paged_attention": paged_attention_partial.launches,
+        "paged_attention_q8": _paged_attention_partial_q8.launches,
+        "paged_attention_multiquery": paged_attention_multiquery_partial.launches,
+    }

@@ -11,7 +11,10 @@
 
 One process per rank: the model code calls the collectives on the mesh's
 groups (see :mod:`langstream_tpu_torch.parallel.mesh`), where GSPMD put
-them in the JAX package; every world ends through :func:`shutdown`. Every
+them in the JAX package; an engine whose mesh finds no world starts its
+host's other ranks itself (:mod:`langstream_tpu_torch.parallel.launch`);
+every world ends through :func:`shutdown` (the launcher's ``end_world``
+then reaps the ranks it started). Every
 collective carries its gradient, so the forwards train: ``gpipe``,
 ``llama_forward_pp`` and ``moe_forward_pp`` at ``{dp, pp, ep, tp}``,
 ``llama_forward_sp`` at ``{dp, sp, tp}``, with :func:`sync_grads` summing

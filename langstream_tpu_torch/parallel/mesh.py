@@ -39,7 +39,11 @@ hanging it.
 ``TCPStore`` for the life of the process, so a world that
 :func:`shutdown` ended (a barrier, then ``destroy_process_group``) can be
 joined again at the same address: every world of a process is one
-generation of keys in that store.
+generation of keys in that store. The ranks need not be started by hand:
+an engine whose mesh finds no world starts the missing local ranks itself
+(:mod:`langstream_tpu_torch.parallel.launch`, what ``jax.devices()`` gives
+a JAX process), and its ``end_world`` reaps them once :func:`shutdown`
+has ended the world.
 
 :func:`shard_for_rank` is the counterpart of ``put_global``: every process
 holds the full value (the same seed or the same checkpoint on every rank)
@@ -113,17 +117,35 @@ def rank_device(device, rank: int) -> torch.device:
     return dev
 
 
+def open_store(host: str, world_size: int, timeout_s: float | None = None) -> str:
+    """Host the coordinator's ``TCPStore`` on a port the kernel picks (no
+    race between choosing a free port and binding it) and return its
+    ``host:port``, which :func:`init_distributed` then joins as rank 0."""
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(
+        seconds=timeout_s if timeout_s is not None else collective_timeout_s())
+    store = dist.TCPStore(host, 0, world_size, True, timeout=timeout,
+                          wait_for_workers=False)
+    coordinator = f"{host}:{store.port}"
+    _STORE.update(key=(coordinator, world_size, 0), generation=0, store=store)
+    return coordinator
+
+
 def init_distributed(coordinator: str, world_size: int, rank: int, device="cuda",
-                     timeout_s: float | None = None) -> str:
+                     timeout_s: float | None = None,
+                     local_world_size: int | None = None) -> str:
     """Join the group at ``coordinator`` (``host:port``) as ``rank`` of
-    ``world_size``, with the backend of :func:`backend_rule` and a bounded
-    timeout. Returns the backend. A group already joined is kept; after
-    :func:`shutdown` the same address is joined again (the next world)."""
+    ``world_size``, with the backend of :func:`backend_rule` for
+    ``local_world_size`` ranks on this host (default: ``LOCAL_WORLD_SIZE``,
+    else every rank) and a bounded timeout. Returns the backend. A group
+    already joined is kept; after :func:`shutdown` the same address is
+    joined again (the next world)."""
     import torch.distributed as dist
 
     if dist.is_initialized():
         return dist.get_backend()
-    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0")) or None
+    local = local_world_size or int(os.environ.get("LOCAL_WORLD_SIZE", "0")) or None
     backend, reason = backend_rule(device, world_size, local)
     log.info("torch.distributed: rank %d/%d joins %s with %s (%s)",
              rank, world_size, coordinator, backend, reason)
@@ -152,7 +174,9 @@ def shutdown(barrier: bool = True) -> None:
     which ends every group of every mesh made in it. Every rank calls it,
     so none leaves while a peer still talks to it. ``barrier=False`` when
     a peer is known dead (the barrier would only time out). Nothing when
-    no group is initialized."""
+    no group is initialized. A world whose ranks the launcher started ends
+    through :func:`langstream_tpu_torch.parallel.launch.end_world`, which
+    calls this and then reaps them."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
@@ -486,6 +510,19 @@ def _make_groups(axis_sizes: dict[str, int], rank: int, timeout_s: float) -> dic
     return groups
 
 
+def resolve_axes(axis_sizes: dict[str, int], world: int) -> dict[str, int]:
+    """``axis_sizes`` with its one ``-1`` axis (if any) given every rank of
+    ``world`` the other axes leave."""
+    axis_sizes = dict(axis_sizes)
+    wildcard = [k for k, v in axis_sizes.items() if v == -1]
+    if wildcard:
+        if len(wildcard) > 1:
+            raise ValueError("only one axis may be -1")
+        known = math.prod(v for v in axis_sizes.values() if v != -1)
+        axis_sizes[wildcard[0]] = world // known
+    return axis_sizes
+
+
 def make_mesh(axis_sizes: dict[str, int] | None = None, *,
               world_size: int | None = None, rank: int | None = None,
               groups: bool = True, timeout_s: float | None = None) -> Mesh:
@@ -500,13 +537,7 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, *,
     joined_world, joined_rank = _world()
     world = joined_world if world_size is None else world_size
     me = joined_rank if rank is None else rank
-    axis_sizes = dict(axis_sizes or {"tp": world})
-    wildcard = [k for k, v in axis_sizes.items() if v == -1]
-    known = math.prod(v for v in axis_sizes.values() if v != -1)
-    if wildcard:
-        if len(wildcard) > 1:
-            raise ValueError("only one axis may be -1")
-        axis_sizes[wildcard[0]] = world // known
+    axis_sizes = resolve_axes(axis_sizes or {"tp": world}, world)
     total = math.prod(axis_sizes.values())
     if total > world:
         raise ValueError(

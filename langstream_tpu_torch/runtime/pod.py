@@ -1,15 +1,21 @@
 """The pod's slice seam for the port (port of ``maybe_join_slice`` and
 ``_run_slice_follower`` of ``langstream_tpu/runtime/pod.py``).
 
-A multi-host slice is a StatefulSet of ``LS_SLICE_HOSTS`` pods. Every pod
-joins one ``torch.distributed`` group at ``LS_COORDINATOR_ADDRESS``
-(``host:port``) as rank ``<pod ordinal>`` (``LS_POD_NAME``), with the
+A multi-host slice is a StatefulSet of ``LS_SLICE_HOSTS`` pods, each with
+``local`` ranks (``LOCAL_WORLD_SIZE``, else its card count; one JAX pod
+drives every chip it holds the same way). Every pod joins one
+``torch.distributed`` group at ``LS_COORDINATOR_ADDRESS`` (``host:port``)
+as rank ``<pod ordinal> * local`` (``LS_POD_NAME``) of ``hosts * local``
+and starts its other ranks ``<pod ordinal> * local + i`` itself
+(:func:`langstream_tpu_torch.parallel.launch.join_slice`), with the
 backend rule of :func:`langstream_tpu_torch.parallel.mesh.backend_rule`.
 The ordinal-0 pod leads: its engine serves the records and broadcasts each
 dispatch over the lockstep channel (``LS_LOCKSTEP_PORT``, joins
-authenticated by ``LS_LOCKSTEP_TOKEN``). The other pods open no consumer
-and replay (:func:`run_slice_follower`). The platform's pod reaches these
-through ``serve_torch.register``, which points its two names at them.
+authenticated by ``LS_LOCKSTEP_TOKEN``), which every other rank of the
+slice replays: the other pods open no consumer
+(:func:`run_slice_follower`), and every pod's started ranks follow the same
+leader. The platform's pod reaches these through ``serve_torch.register``,
+which points its two names at them.
 """
 
 from __future__ import annotations
@@ -32,19 +38,14 @@ def pod_ordinal(pod_name: str | None) -> int:
     return int(tail) if tail.isdigit() else 0
 
 
-def maybe_join_slice(device="cuda") -> None:
-    """Join the slice's ``torch.distributed`` group when this pod is one
-    host of a multi-host slice (``LS_SLICE_HOSTS`` > 1); nothing otherwise."""
-    from langstream_tpu_torch.parallel.mesh import init_distributed
+def maybe_join_slice(device="cuda"):
+    """Join the slice's ``torch.distributed`` group, this pod's other local
+    ranks started, when this pod is one host of a multi-host slice
+    (``LS_SLICE_HOSTS`` > 1): the :class:`~langstream_tpu_torch.parallel.launch.LocalWorld`;
+    None otherwise."""
+    from langstream_tpu_torch.parallel.launch import join_slice
 
-    hosts = int(os.environ.get("LS_SLICE_HOSTS", "1"))
-    if hosts <= 1:
-        return
-    coordinator = os.environ["LS_COORDINATOR_ADDRESS"]
-    rank = pod_ordinal(os.environ.get("LS_POD_NAME"))
-    log.info("joining %d-host slice as rank %d (coordinator %s)",
-             hosts, rank, coordinator)
-    init_distributed(coordinator, hosts, rank, device)
+    return join_slice(device)
 
 
 async def run_slice_follower(hosts: int, ordinal: int,
@@ -60,10 +61,10 @@ async def run_slice_follower(hosts: int, ordinal: int,
     of the StatefulSet (the platform's ``_serve_info``); it returns a
     server with ``close()``. Returns the descriptors replayed; SIGTERM or
     SIGINT stops the replay. The world ends with the replay
-    (:func:`~langstream_tpu_torch.parallel.mesh.shutdown`): after the
-    leader's ``stop``, through the barrier every rank makes; after a
-    signal or a broken channel, without it."""
-    from langstream_tpu_torch.parallel.mesh import shutdown
+    (:func:`~langstream_tpu_torch.parallel.launch.end_world`, which reaps
+    this pod's started ranks): after the leader's ``stop``, through the barrier
+    every rank makes; after a signal or a broken channel, without it."""
+    from langstream_tpu_torch.parallel.launch import end_world
     from langstream_tpu_torch.serving.lockstep import DEFAULT_PORT, LockstepFollower
 
     log.info("slice follower %d/%d: joining lockstep channel", ordinal, hosts)
@@ -121,7 +122,7 @@ async def run_slice_follower(hosts: int, ordinal: int,
         # barrier; otherwise the leader is not coming, so no barrier
         led_out = (replay_done.is_set() and not stop.is_set() and bool(replay_result)
                    and not isinstance(replay_result[0], BaseException))
-        shutdown(barrier=led_out)
+        end_world(barrier=led_out)
     if replay_result and isinstance(replay_result[0], BaseException):
         raise replay_result[0]
     replayed = replay_result[0] if replay_result else 0

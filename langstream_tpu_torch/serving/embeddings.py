@@ -3,7 +3,10 @@
 agent reaches through the provider's embeddings service.
 
 Under a ``mesh`` of more than one rank every rank is a process, as for the
-serving engine: rank 0 leads, and each encoder call is replayed on every
+serving engine (started by the engine when no world is joined,
+:func:`~langstream_tpu_torch.parallel.launch.ensure_world`, or shared with
+a serving engine of the same mesh size): rank 0 leads, and each encoder
+call is replayed on every
 rank (the ``embed`` frame of :mod:`langstream_tpu_torch.serving.lockstep`,
 carrying the padded tokens and mask), or the first ``tp`` sum would wait
 forever. The mesh, its groups and the weights' shards are made at the
@@ -16,7 +19,6 @@ from __future__ import annotations
 
 import asyncio
 import json
-import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
@@ -33,7 +35,8 @@ from langstream_tpu_torch.models.encoder import (
     load_from_sentence_transformers,
     shard_encoder_params,
 )
-from langstream_tpu_torch.parallel.mesh import make_mesh, rank_device, shutdown
+from langstream_tpu_torch.parallel import launch
+from langstream_tpu_torch.parallel.mesh import make_mesh, rank_device
 from langstream_tpu_torch.models.tokenizer import load_tokenizer
 from langstream_tpu_torch.serving.engine import _bucket, _to_device
 
@@ -87,12 +90,20 @@ class EmbeddingEngine:
         self.lockstep_role = lockstep_role
         self._lockstep = None
         self._full_params = None
+        # the world whose ranks this process started (None: none started)
+        self._launched, started = (launch.ensure_world(self.mesh_axes, self.device)
+                                   if lockstep_role != "follower" else (None, False))
         if self.mesh_axes:
-            # the sizes against the world now (no collective); the groups
-            # and shards at the first call, which every rank makes
-            probe = make_mesh(self.mesh_axes, groups=False)
-            if probe.world_size > 1 and lockstep_role != "follower":
-                self._lead(probe)
+            try:
+                # the sizes against the world now (no collective); the
+                # groups and shards at the first call, which every rank makes
+                probe = make_mesh(self.mesh_axes, groups=False)
+                if probe.world_size > 1 and lockstep_role != "follower":
+                    self._lead(probe)
+            except BaseException as e:
+                if started:  # no rank waits on an engine that failed
+                    launch.abandon(e)
+                raise
             self.device = rank_device(self.device, probe.rank)
             self._full_params, self.params = params, None
         else:
@@ -112,12 +123,8 @@ class EmbeddingEngine:
             raise ValueError(
                 f"rank {probe.rank} of a lockstep group replays the leader's "
                 f"embed calls: build it through LockstepFollower")
-        port = int(os.environ.get("LS_LOCKSTEP_PORT", "0")) or None
-        self._lockstep, _ = lockstep.lead(
-            {}, expected_followers=probe.world_size - 1, port=port,
-            token=os.environ.get("LS_LOCKSTEP_TOKEN", ""))
+        self._lockstep, _ = lockstep.lead_world({}, probe.world_size - 1, self._launched)
         self.lockstep_role = "leader"
-        self._lockstep.wait_ready()
 
     def _place(self) -> None:
         """The mesh, its groups and this rank's shards (every rank, at the
@@ -134,7 +141,8 @@ class EmbeddingEngine:
         without a mesh or before the first call."""
         if self.mesh is None:
             return None
-        return {**self.mesh.describe(), "lockstep-role": self.lockstep_role}
+        return {**self.mesh.describe(), "lockstep-role": self.lockstep_role,
+                "launched": self._launched.describe() if self._launched else None}
 
     def _encode(self, tokens: np.ndarray, mask: np.ndarray) -> np.ndarray:
         if self._lockstep is not None:
@@ -172,6 +180,7 @@ class EmbeddingEngine:
     def close(self) -> None:
         self._executor.shutdown(wait=True)
         # the last user of the channel sends "stop", and the world ends
-        if self._lockstep is not None and self._lockstep.close():
-            shutdown(barrier=not self._lockstep.broken)
-        self._lockstep = None
+        # (the ranks this process started reaped; one that failed raises)
+        channel, self._lockstep = self._lockstep, None
+        if channel is not None and channel.close():
+            launch.end_world(barrier=not channel.broken)

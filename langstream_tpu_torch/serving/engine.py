@@ -59,7 +59,11 @@ Execution model:
   chunks have run (``stats()["speculative"]``).
 - Under ``mesh`` every rank is a process (``torch.distributed``), serving
   Megatron TP, dp over the attention reads and expert parallelism on its
-  shards (``models/llama.py``, ``models/moe.py``). Rank 0 leads: it
+  shards (``models/llama.py``, ``models/moe.py``). With no world joined,
+  the engine starts the missing local ranks itself, one process per card
+  (``LOCAL_WORLD_SIZE`` of them on the CPU or to share a card), as a JAX
+  process takes its host's devices (:mod:`langstream_tpu_torch.parallel.launch`);
+  on a slice the pod's seam has joined the world. Rank 0 leads: it
   consumes requests, admits, samples and, before every dispatch,
   broadcasts a step descriptor that the other ranks replay on their own
   engines (:mod:`langstream_tpu_torch.serving.lockstep`); only the leader
@@ -68,7 +72,9 @@ Execution model:
   sequence-parallel (ring attention over the ``sp`` ranks, the cache
   gathered whole on each); decode, verify and continuation run replicated
   over ``sp``. ``close()`` on the leader sends ``stop`` and ends the world
-  (``parallel.mesh.shutdown``) once the followers have left the replay.
+  once the followers have left the replay (``parallel.launch.end_world``:
+  ``parallel.mesh.shutdown``, then the ranks it started reaped; an exit
+  code other than 0 raises).
 - Device work runs on one executor thread, so the asyncio loop stays live.
 - ``warmup-on-start``: the first request starts one shared warmup task (a
   lone greedy probe, then a concurrent wave) and every early request awaits
@@ -261,20 +267,15 @@ from langstream_tpu_torch.models.quant import (
     quantize_specs,
     quantize_tensor,
 )
+from langstream_tpu_torch.parallel import launch
 from langstream_tpu_torch.parallel.mesh import (
     PartitionSpec,
     make_mesh,
     rank_device,
     shard_tree,
-    shutdown,
 )
 from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
-from langstream_tpu_torch.ops.flash_attention import flash_attention
-from langstream_tpu_torch.ops.paged_attention import (
-    _paged_attention_partial_q8,
-    paged_attention_multiquery_partial,
-    paged_attention_partial,
-)
+from langstream_tpu_torch.ops import launch_counts
 from langstream_tpu_torch.serving.adapters import (
     FACTOR_KEYS,
     AdapterStore,
@@ -863,15 +864,20 @@ class TorchServingEngine:
         """The process's engine for ``(config, device, streams)``, made on
         first use. An engine that was closed, or whose event loop has closed
         (a finished ``asyncio.run``), is replaced: its loop task and events
-        cannot serve another loop."""
+        cannot serve another loop. A mesh engine replaced without
+        ``close()`` ends its world first, its ranks reaped, before the new
+        one starts its own."""
         _check_supported(config)  # before hashing: rejected keys hold dicts
         key = (config, str(torch.device(device)), streams or STREAMS)
         with cls._instances_lock:
             engine = cls._instances.get(key)
             if engine is None or engine._stale():
                 if engine is not None:
-                    engine._executor.shutdown(wait=False)
-                    engine._fetch_executor.shutdown(wait=False)
+                    # a mesh engine's last dispatch ends before its world
+                    meshed = engine._lockstep is not None
+                    engine._executor.shutdown(wait=meshed)
+                    engine._fetch_executor.shutdown(wait=meshed)
+                    engine._end_world()
                 engine = cls._instances[key] = cls(config, device=device,
                                                    streams=streams)
             return engine
@@ -888,7 +894,26 @@ class TorchServingEngine:
                  lockstep_role: str | None = None):
         _check_supported(config)
         self.device = require_device(device, "TorchServingEngine")
-        self._init_mesh(config, lockstep_role)
+        # under a mesh, the world: this host's missing ranks started when
+        # none is joined (the world whose ranks this process started, or
+        # None; started: by this call)
+        self._launched, started = (launch.ensure_world(config.mesh, self.device)
+                                   if lockstep_role != "follower" else (None, False))
+        try:
+            self._init_mesh(config, lockstep_role)
+            self._init_engine(config, params, streams)
+        except BaseException as e:
+            # this engine's place on the channel released; a world it
+            # started ends (no rank waits on an engine that failed: the
+            # ranks killed and reaped), one it joined stays up for the
+            # engines that share it
+            self._release_channel()
+            if started:
+                launch.abandon(e)
+            raise
+
+    def _init_engine(self, config: ServingConfig, params: dict | None,
+                     streams: StreamCancelRegistry | None) -> None:
         self.config = config
         self.is_moe = config.model in _MOE_MODELS
         factory = (_MOE_MODELS if self.is_moe else _MODEL_CONFIGS)[config.model]
@@ -1225,16 +1250,10 @@ class TorchServingEngine:
                 raise ValueError(
                     f"rank {rank} of a lockstep group replays the leader's "
                     f"dispatches: build it through LockstepFollower")
-            port = int(os.environ.get("LS_LOCKSTEP_PORT", "0")) or None
             config_json = json.dumps(config.to_dict())
-            self._lockstep, opened = lockstep.lead(
-                {"config_json": config_json}, expected_followers=world - 1, port=port,
-                token=os.environ.get("LS_LOCKSTEP_TOKEN", ""),
-            )
+            self._lockstep, opened = lockstep.lead_world(
+                {"config_json": config_json}, world - 1, self._launched)
             self.lockstep_role = "leader"
-            log.info("lockstep leader on :%d awaiting %d followers",
-                     self._lockstep.port, world - 1)
-            self._lockstep.wait_ready()
             if not opened:
                 # the channel was opened by an embeddings engine: the
                 # followers build this one from its own frame
@@ -1263,6 +1282,7 @@ class TorchServingEngine:
             return None
         return {**self.mesh.describe(), "lockstep-role": self.lockstep_role,
                 "lockstep-dispatches": self._ls_seq,
+                "launched": self._launched.describe() if self._launched else None,
                 "attention-split": bool(self.model_config.shard.attention),
                 "dp-slots": None if self._dp_span is None else list(self._dp_span),
                 "dp-prefill-split": self._dp_prefill_split,
@@ -2193,12 +2213,7 @@ class TorchServingEngine:
             # restore counts, the armed faults and the journal
             "survival": self.survival_section(),
             # launch counters of the port's kernels in this process
-            "kernels": {
-                "flash_attention": flash_attention.launches,
-                "paged_attention": paged_attention_partial.launches,
-                "paged_attention_q8": _paged_attention_partial_q8.launches,
-                "paged_attention_multiquery": paged_attention_multiquery_partial.launches,
-            },
+            "kernels": launch_counts(),
         }
         if self._pool_role != "combined":
             # the KV handoff's counters and in-transit posture (a combined
@@ -2545,10 +2560,11 @@ class TorchServingEngine:
             await self._loop_task
         self._executor.shutdown(wait=True)
         self._fetch_executor.shutdown(wait=True)
-        # "stop": the followers leave the replay, then the world ends
-        # together (no barrier when a follower is known dead)
-        if self._lockstep is not None and self._lockstep.close():
-            shutdown(barrier=not self._lockstep.broken)
+        ended = None
+        try:
+            self._end_world()
+        except RuntimeError as e:  # a rank this process started failed
+            ended = e
         if self.prefix_store is not None:
             self.prefix_store.close()
         if self.adapter_store is not None:
@@ -2570,6 +2586,27 @@ class TorchServingEngine:
         for request in self.scheduler.drain() + stashed + imports:
             if not request.future.done():
                 request.future.set_exception(closed)
+        if ended is not None:
+            raise ended
+
+    def _end_world(self) -> None:
+        """Release this engine's lockstep channel; its last user sends
+        ``stop`` (the followers leave the replay) and ends the world
+        together (no barrier when a follower is known dead), reaping the
+        ranks this process started."""
+        channel = self._lockstep
+        if self._release_channel():
+            launch.end_world(barrier=not channel.broken)
+
+    def _release_channel(self) -> bool:
+        """Give up this engine's place on its lockstep channel (another
+        serving engine may lead it then); whether the channel closed (its
+        last user sends ``stop``)."""
+        channel, self._lockstep = self._lockstep, None
+        if channel is None:
+            return False
+        channel.serving = None
+        return channel.close()
 
     # ------------------------------------------------------------------
     # drain before termination

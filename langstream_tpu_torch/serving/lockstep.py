@@ -147,11 +147,14 @@ class LockstepLeader:
     connectors get an explicit ``reject`` frame instead of a silent hang.
     Joins are authenticated with the shared ``token``
     (``LS_LOCKSTEP_TOKEN``), so an arbitrary connector can neither read
-    prompt descriptors nor take a membership slot."""
+    prompt descriptors nor take a membership slot. ``server`` is a socket
+    the caller already bound and listens on (the launcher's, whose port
+    its ranks were given before they started); otherwise the leader binds
+    ``port``."""
 
     def __init__(self, serving_config_dict: dict[str, Any],
                  expected_followers: int, port: int | None = None,
-                 token: str = ""):
+                 token: str = "", server: socket.socket | None = None):
         self.expected = expected_followers
         self.handshake = serving_config_dict
         self.token = token
@@ -162,10 +165,16 @@ class LockstepLeader:
         #: engines sharing this channel (:func:`lead`), and its key there
         self.users = 1
         self.key: int | None = None
-        self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._server.bind(("0.0.0.0", port if port is not None else DEFAULT_PORT))
-        self._server.listen(max(expected_followers, 1))
+        #: the config (JSON) of the serving engine leading this channel, if
+        #: one does (a follower replays one serving engine); it clears this
+        #: when it leaves
+        self.serving: str | None = serving_config_dict.get("config_json")
+        if server is None:
+            server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            server.bind(("0.0.0.0", port if port is not None else DEFAULT_PORT))
+            server.listen(max(expected_followers, 1))
+        self._server = server
         self.port = self._server.getsockname()[1]
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="lockstep-accept", daemon=True
@@ -216,12 +225,16 @@ class LockstepLeader:
                 except OSError:
                     pass
 
-    def wait_ready(self, timeout: float = 600.0) -> None:
+    def wait_ready(self, timeout: float = 600.0, check=None) -> None:
         """Block until every follower is connected: the first dispatch
         would otherwise broadcast into the void and wait in a collective
-        for processes that never heard about the step."""
+        for processes that never heard about the step. ``check()`` runs at
+        every poll and raises to end the wait early (a follower process
+        that already exited)."""
         deadline = time.monotonic() + timeout
         while len(self._followers) < self.expected:
+            if check is not None:
+                check()
             if time.monotonic() > deadline:
                 raise TimeoutError(
                     f"only {len(self._followers)}/{self.expected} lockstep "
@@ -300,21 +313,66 @@ _LEADERS_LOCK = threading.Lock()
 
 
 def lead(handshake: dict[str, Any], expected_followers: int, port: int | None = None,
-         token: str = "") -> tuple[LockstepLeader, bool]:
+         token: str = "", server: socket.socket | None = None
+         ) -> tuple[LockstepLeader, bool]:
     """This process's leader on ``port`` (``DEFAULT_PORT`` when None) and
-    whether this call opened it (with ``handshake``): an engine that joins
-    an open channel shares it. Every call is matched by one
-    :meth:`LockstepLeader.close`."""
+    whether this call opened it (with ``handshake``, on ``server`` when
+    given: a socket already listening on ``port``): an engine that joins
+    an open channel shares it. A serving engine (``handshake`` carries its
+    ``config_json``) is refused where another serving engine leads the
+    channel: the followers replay one serving engine, and the second's
+    frames would replace the first's on every rank. Every call that
+    returns is matched by one :meth:`LockstepLeader.close`."""
     key = port if port is not None else DEFAULT_PORT
+    serving = handshake.get("config_json")
     with _LEADERS_LOCK:
         leader = _LEADERS.get(key)
         if leader is None:
-            leader = LockstepLeader(handshake, expected_followers, port=key, token=token)
+            leader = LockstepLeader(handshake, expected_followers, port=key, token=token,
+                                    server=server)
             leader.key = key
             _LEADERS[key] = leader
             return leader, True
+        if serving is not None:
+            if leader.serving is not None:
+                raise ValueError(
+                    f"a serving engine ({serving}) cannot join the lockstep channel "
+                    f"on :{key}, which the serving engine of {leader.serving} leads: "
+                    f"its ranks replay one serving engine (embeddings engines share "
+                    f"the world; close the first serving engine first)")
+            leader.serving = serving
         leader.users += 1
         return leader, False
+
+
+def lead_world(handshake: dict[str, Any], expected_followers: int, launched=None
+               ) -> tuple[LockstepLeader, bool]:
+    """:func:`lead`, then wait for every follower: on the channel of the
+    world this process's launcher started (``launched``, a
+    :class:`~langstream_tpu_torch.parallel.launch.LocalWorld`: the port and
+    token it gave its ranks, its listening socket, a wait bounded by the
+    world's timeout that ends early when a rank exits), else on
+    ``LS_LOCKSTEP_PORT`` with ``LS_LOCKSTEP_TOKEN``. A failed wait
+    releases the channel."""
+    from langstream_tpu_torch.parallel.mesh import collective_timeout_s
+
+    if launched is not None:
+        leader, opened = lead(handshake, expected_followers, port=launched.lockstep_port,
+                              token=launched.token, server=launched.take_server())
+    else:
+        leader, opened = lead(handshake, expected_followers,
+                              port=int(os.environ.get("LS_LOCKSTEP_PORT", "0")) or None,
+                              token=os.environ.get("LS_LOCKSTEP_TOKEN", ""))
+    log.info("lockstep leader on :%d awaiting %d followers", leader.port, expected_followers)
+    try:
+        if launched is not None:
+            leader.wait_ready(collective_timeout_s(), check=launched.check)
+        else:
+            leader.wait_ready()
+    except BaseException:
+        leader.close()
+        raise
+    return leader, opened
 
 
 # ---------------------------------------------------------------------------

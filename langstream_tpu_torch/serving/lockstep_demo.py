@@ -3,7 +3,10 @@ mesh engine runs (the leader consumes and samples, the followers replay
 the same model calls on their shards, the collectives cross processes).
 Port of ``langstream_tpu/serving/lockstep_demo.py``.
 
-Run one process per rank (the tests and ``chip_smoke.py`` spawn these):
+An engine whose mesh finds no world starts its own ranks
+(:mod:`langstream_tpu_torch.parallel.launch`); this demo instead runs each
+rank as a process of its own, started by hand (the tests and
+``chip_smoke.py`` spawn these, to drive ranks one by one):
 
     python -m langstream_tpu_torch.serving.lockstep_demo \\
         --index 0 --num-processes 2 --coordinator-port P --lockstep-port Q \\

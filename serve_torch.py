@@ -42,12 +42,19 @@ platform's (:data:`langstream_tpu.serving.journey.JOURNEYS`,
 prefill ran in one package and decode in the other reads as one timeline.
 The mirror is an append, as wait-free as the port's own.
 
-A multi-host slice of the port (a ``mesh`` over ``LS_SLICE_HOSTS`` pods)
-starts through the pod's own slice seam: :func:`register` points
+A resource with a ``mesh`` serves from the same command on a host with
+several cards: the engine starts the mesh's other ranks itself, one
+process per card, and leads them
+(:mod:`langstream_tpu_torch.parallel.launch`), as one JAX process drives
+every chip of its host; ``LOCAL_WORLD_SIZE`` sets how many ranks the host
+may run (on the CPU, or ranks sharing one card over gloo). A multi-host
+slice of the port (a ``mesh`` over ``LS_SLICE_HOSTS`` pods) starts
+through the pod's own slice seam: :func:`register` points
 ``langstream_tpu.runtime.pod.maybe_join_slice`` and
 ``_run_slice_follower`` at the port's (:data:`SLICE_SEAM`), so every pod
-joins the ``torch.distributed`` group and the followers replay the
-leader's dispatches behind the pod's info server.
+joins the ``torch.distributed`` group as rank ``ordinal * local``, starts
+its other local ranks, and the followers replay the leader's dispatches
+behind the pod's info server.
 
 The Prometheus plane crosses the same way: the port's engines build their
 reporters from ``langstream_tpu_torch.core.metrics.REPORTER``, which
