@@ -28,7 +28,8 @@ Phases (every one unguarded: any failure exits non-zero):
    multi-query read over histories to 3,584 rows;
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
-   KV) answering concurrent greedy requests, launch counters set to 0 just
+   KV; every llama3-8b engine of the run at ``MAIN_LAYERS`` = 16 of its 32
+   layers at most, A, B, C, E, M3 and Q1 at it, the others cut further) answering concurrent greedy requests, launch counters set to 0 just
    before and read just after (as for every path);
 4. main path B: the same with ``kv-layout: paged``, ``kv-quantize: int8``
    (a profiled second wave, as path A);
@@ -36,7 +37,8 @@ Phases (every one unguarded: any failure exits non-zero):
    512``, three waves in turn over a shared ~1,100-token preamble (chunked
    prefills, then prefix hits, then a repeated prompt), printing the
    (batch, T) of each multi-query call;
-   main path D: paged bf16 KV with ``speculative-drafts: 4``, one wave of
+   main path D: paged bf16 KV with ``speculative-drafts: 4`` on the first
+   8 of path A's layers (``D_LAYERS``), one wave of
    six greedy prompts that repeat a phrase and two sampled ones: the
    speculative stats, the (batch, T) of the verify's multi-query calls,
    TTFT and tokens per step; then the greedy prompts with speculation off
@@ -49,7 +51,7 @@ Phases (every one unguarded: any failure exits non-zero):
    a stop string; an ``adapter`` and a spent ``deadline`` refused before
    they queue; then the embeddings service (minilm-l6) on the card against
    the CPU within 1e-4;
-   main path F: the saturated load at 8 of llama3-8b's 32 layers
+   main path F: the saturated load at 4 of llama3-8b's 32 layers
    (``F_LAYERS``), 96 greedy requests (30-600 byte tokens,
    max-tokens cycling 48/96/128/160) on 64 slots, four times: F1 the chat
    example's resource (dense bf16 KV) with the pipelined loop, F2 the same
@@ -59,7 +61,7 @@ Phases (every one unguarded: any failure exits non-zero):
    exposed host, stall, overlapped host) and idle share, the attribution's expected against achieved decode ms at
    the card's bandwidth, device-cache counts and peak memory; F1's greedy
    streams against F2's (recorded); the block manager idle after F3/F4;
-   main path G: Mixtral-8x7B (``moe-8x7b``, 8 of its 32 layers, full width, random
+   main path G: Mixtral-8x7B (``moe-8x7b``, 2 of its 32 layers, full width, random
    int8 weights) at the ``moe-mixtral-ep`` resource without its mesh (32
    slots, 4,096 context): G1 with the example's dense bf16 KV, a wave of 8
    (one ~3,000-token prompt: flash at the 4,096 bucket), a wave of 32
@@ -68,7 +70,7 @@ Phases (every one unguarded: any failure exits non-zero):
    FFN's routing/dispatch/activation/combine, flash, paged read); G2 paged int8 KV, a wave
    of 32; per run ms per step, decode tok/s, TTFT, the attribution's
    expected against achieved ms and peak memory;
-   main path H: the admission and delivery planes at llama3-8b (16 of its
+   main path H: the admission and delivery planes at llama3-8b (4 of its
    32 layers, ``H_LAYERS``), the chat example's resource with paged int8
    KV, ``streaming: true``, a ``qos``
    section (three classes, a ``bulk`` tenant's request bucket) and an
@@ -85,7 +87,7 @@ Phases (every one unguarded: any failure exits non-zero):
    reclaimed equals cancelled, the block manager ends idle,
    ``host_fetches_per_chunk`` is 1.0 and H1's ``health()`` ends ok;
    the preempted streams against H2's (recorded);
-   main path I: KV off the card at llama3-8b int8 on the first 16 of path
+   main path I: KV off the card at llama3-8b int8 on the first 4 of path
    A's layers (``I_LAYERS``, a cut for the time limit; run
    between D and E, while those params are on the card). I1: the chat
    example's resource with paged int8 KV and a ``prefix-store`` (T0 budget
@@ -104,8 +106,8 @@ Phases (every one unguarded: any failure exits non-zero):
    a ``pool-role: decode`` engine (bf16 rows through the wire as raw
    words); the decoded greedy tokens must equal the combined engine's;
    payload bytes and export/import ms;
-   main path J: multi-LoRA at llama3-8b int8 on the first 8 of path A's
-   32 layers (``J_LAYERS``, a cut for the time limit; run after I, while
+   main path J: multi-LoRA at llama3-8b int8 on the first 4 of path A's
+   layers (``J_LAYERS``, a cut for the time limit; run after I, while
    those params are on the card). J1: the chat example's resource
    with paged int8 KV (no warmup, the prefix cache off) and an
    ``adapter-store`` (rank 16, four T0 rows, T1 for four adapters' f32
@@ -128,7 +130,7 @@ Phases (every one unguarded: any failure exits non-zero):
    adapter rows of the speculative dispatches, tokens per step, then the
    same with speculation off and the common prefix (printed);
    main path K: the device-survival plane and the drain at llama3-8b int8
-   on the first 16 of path A's layers for K1, K2 and K4 (``K_LAYERS``, a
+   on the first 8 of path A's layers for K1, K2 and K4 (``K_LAYERS``, a
    cut for the time limit; run after J), the chat example's resource with
    paged int8 KV, the pipelined loop and ``shrink-recovery-s: 2``. K1: a
    64-request greedy wave (path F's lengths and budgets) unfaulted (inert
@@ -180,7 +182,7 @@ Phases (every one unguarded: any failure exits non-zero):
    retries, fallbacks, breaker opens and the transfer segment;
    main path M: the Prometheus plane, the checkpoint writers and dense int8
    KV. M3 (after L, on path A's params): the chat prompts of A and B
-   greedy at 32 layers with ``kv-quantize: int8`` on the dense layout; ms
+   greedy at A's 16 layers with ``kv-quantize: int8`` on the dense layout; ms
    per step beside A's and B's, the common prefix against B; fails unless
    the int8 read kernel launched and the bf16 one did not. M2: llama3-8b
    at full width and 2 layers (``M2_LAYERS``), random bf16 weights from
@@ -201,7 +203,7 @@ Phases (every one unguarded: any failure exits non-zero):
    this card: this process is rank 0 and spawns rank 1
    (``python -m langstream_tpu_torch.serving.lockstep_demo --index 1``),
    gloo between them (NCCL refuses two ranks on one device). N1:
-   llama3-8b int8 at 8 layers (``N_LAYERS``), paged int8 KV, 16 slots,
+   llama3-8b int8 at 4 layers (``N_LAYERS``; 8 until path R came), paged int8 KV, 16 slots,
    ``mesh: {tp: 2}``, 16 greedy requests of 64 tokens, against a tp=1
    engine on the same weights: first tokens equal wherever tp=1's top-2
    logprob gap exceeds 0.05, first logprobs within 0.05, the common
@@ -223,7 +225,7 @@ Phases (every one unguarded: any failure exits non-zero):
    main path O (after N): sequence parallelism and the embeddings mesh,
    two ranks on this card again. O1: long-context-summarizer's resource
    (llama3-8b int8, paged int8 KV, 8 slots, 8,192 context,
-   ``speculative-drafts: 4``) at 8 layers (``O_LAYERS``), ``mesh: {sp: 2,
+   ``speculative-drafts: 4``) at 2 layers (``O_LAYERS``), ``mesh: {sp: 2,
    tp: 1}`` (the example's ``{sp: 4, tp: 2}`` cut to two ranks), 8 greedy
    reports of 1,500-7,000 tokens, 64 tokens each, against sp=1 on the same
    weights: every request completes, the first-token rule, the longest
@@ -231,7 +233,7 @@ Phases (every one unguarded: any failure exits non-zero):
    abs, kernel #3 launched on both ranks, the ring's collectives counted;
    ms per prefilled prompt at sp=2 and sp=1 and the ring's seconds and
    bytes printed. O2: ``llama_forward_sp`` with the ring and Ulysses on
-   one 2,048-token sequence at 8 layers on two ranks (this process and
+   one 2,048-token sequence at 2 layers on two ranks (this process and
    ``chip_smoke.py --o2-rank``), each within 2e-2 of the one-rank forward
    with the plain attention of its arithmetic (Ulysses through the
    host-staged all-to-all). O3: minilm-l6 at ``mesh: {dp: 2}`` over 64
@@ -255,7 +257,7 @@ Phases (every one unguarded: any failure exits non-zero):
    main path Q (after P): meshes from the normal entry points, every rank
    but the caller's started by the port's launcher (``parallel/launch.py``;
    this script starts no rank). Q1: path B's resource (llama3-8b int8,
-   paged int8 KV, 32 layers, 64 slots) at ``mesh: {tp: 2}`` through
+   paged int8 KV, 16 layers, 64 slots) at ``mesh: {tp: 2}`` through
    ``TorchServiceProvider`` under ``LOCAL_WORLD_SIZE=2`` (two ranks share
    the card over gloo): B's 8 prompts, 64 greedy tokens, N1's first-token
    rule against B's streams of this run, kernels #1 and #3 launched on both
@@ -267,6 +269,31 @@ Phases (every one unguarded: any failure exits non-zero):
    run. Q3: minilm-l6 at ``{dp: 2}`` through the provider's embeddings
    service, within ``TOL_EMBED`` of one rank. Every started rank exits 0
    and no process of it is left;
+   main path R (after Q): the tiered stores and the pool roles under a
+   mesh, llama3-8b int8 at 4 layers (``R_LAYERS``) at ``{tp: 2}`` through
+   ``TorchServiceProvider`` with two local ranks on the card started by the
+   launcher (a ``sitecustomize`` on their ``PYTHONPATH`` cuts their depth
+   as this process's), each tp=2 run against a tp=1 engine on the same
+   weights. R1: paged bf16 KV, the prefix cache and a prefix store (T0 two
+   blocks, T1 twelve, a local T2): path I's eight questions on its
+   1,536-token preamble at once, 32 greedy tokens; the tiers drain (22
+   blocks to T1, the oldest on to T2); the wave again hydrates the chain's
+   T2 blocks and promotes its T1 blocks; every rank's promoted rows equal
+   its demoted rows byte for byte (``LS_TORCH_TIER_DIGESTS``), kernel #4
+   launches on both ranks, the warm streams hold N1's first-token rule
+   against the cold ones; the demotion's and promotion's GB/s. R2: paged
+   int8 KV, an adapter store of rank 16 with two T0 rows for three
+   adapters; 24 requests mixed across base and the adapters, against the
+   same wave at tp=1 under the first-token rule (the gaps under each
+   request's adapter); an adapter stream differs from its base stream;
+   both ranks loaded the same rows; each rank's ``lora_delta`` calls. R3:
+   paged int8 KV, a ``pool-role: prefill`` engine at tp=2 exports 8
+   requests and closes, a ``pool-role: decode`` engine at tp=1 decodes
+   them against a combined tp=2 run (R2's engine, which serves the same
+   prompts on the base model in its wave; the first-token rule); the payloads'
+   fingerprints equal a tp=1 prefill engine's and their dequantized rows
+   are within ``R3_TOL`` of its max abs. Kernels #1-#4 each launch on both
+   ranks over R; every started rank exits 0;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -293,8 +320,8 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-Q,
-   rank 0's on N, O and Q; each row carries a ``tp2_rank`` entry, phase 2's case
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-R,
+   rank 0's on N, O, Q and R; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -361,14 +388,21 @@ def ptxas_report(logs: dict) -> list[str]:
     return out
 
 
-#: depth of paths F and H (of llama3-8b's 32 layers, full width) from PR
-#: 11 on: with path J the whole smoke took 1,141 s of its 1,200 on a slow
-#: host at full depth; F at 8 since path P came (the smoke took 1,085 s)
-F_LAYERS = 8
-H_LAYERS = 16
-I_LAYERS = 16  # paths I, K1, K2, K4 and L at 16 layers, so path N
-J_LAYERS = 8   # fits the time limit on a slow host (K3's child runs at 8)
-K_LAYERS = 16
+#: depth of the paths at llama3-8b (of its 32 layers, full width), cut for
+#: the time limit: with path J the whole smoke took 1,141 s of its 1,200 on
+#: a slow host at full depth; F at 8 since path P came (1,085 s); with path
+#: R it took 1,181-1,226 s on slow hosts (an H100 80GB HBM3 at 700 W), so
+#: every path came down (a path's numbers compare only at one depth).
+#: ``MAIN_LAYERS`` holds every llama3-8b engine of the run (A, B, C, E, M3
+#: and Q1 at it; the others at their own cut below it)
+MAIN_LAYERS = 16
+D_LAYERS = 8
+F_LAYERS = 4
+H_LAYERS = 4
+I_LAYERS = 4   # paths I and L2 (L2 serves I2's tokens)
+J_LAYERS = 4
+K_LAYERS = 8   # K1, K2, K4 and L1 (L1 compares with K1, and at 4 layers its
+               # wave no longer breaches L_SLO's 250 ms TTFT; K3's child runs at 8)
 
 
 @contextlib.contextmanager
@@ -1613,11 +1647,11 @@ MOE_EXAMPLE_RESOURCE = {
     "quantize": "int8",
 }
 G_MAX_TOKENS = 32
-# path G's depth: 8 of Mixtral-8x7B's 32 layers at the published widths
+# path G's depth: 2 of Mixtral-8x7B's 32 layers at the published widths
 # (16 when path H joined the smoke, 8 since path I did; a Mixtral step is
 # device-bound, so its time and the profiled wave's kernel count follow the
-# depth)
-G_LAYERS = 8
+# depth; 2 since path R did)
+G_LAYERS = 2
 
 
 def moe_prompts() -> tuple[list[str], list[str], list[str]]:
@@ -4167,7 +4201,7 @@ def phase_writer_path(torch, model: str = "llama3-8b", device="cuda") -> dict:
 
 def phase_dense_int8_path(torch, params, base: dict) -> dict:
     """M3: dense int8 KV (``kv-quantize: int8`` on the dense layout) at
-    llama3-8b's 32 layers on path B's int8 weights, the chat prompts of
+    path B's depth on its int8 weights, the chat prompts of
     paths A and B greedy; ms per step beside A's (dense bf16) and B's
     (paged int8) of this run and the greedy common prefix against B. Fails
     unless the int8 read kernel launched and the bf16 one did not."""
@@ -4740,7 +4774,7 @@ def qos_preemption_round_trip(torch, cfg: dict, device: str, params):
 # path N: multi-GPU serving, two ranks of one mesh on this card
 # ---------------------------------------------------------------------------
 
-N_LAYERS = 8          # N1 (Llama-3-8B) depth, of 32
+N_LAYERS = 4          # N1 (Llama-3-8B) depth, of 32 (8 until path R came)
 N2_LAYERS = 2         # N2 (Mixtral-8x7B) depth, of 32
 N1_MAX_TOKENS = 64
 N_GAP = 0.05          # the first token must match where tp=1's top-2 gap exceeds it
@@ -4875,19 +4909,29 @@ def mesh_run(torch, label: str, configs: list[dict], waves: list[list[str]],
     return runs
 
 
-def top2_gaps(torch, engine, prompts: list[str]) -> list[float]:
+def top2_gaps(torch, engine, prompts: list[str], adapters=None) -> list[float]:
     """The tp=1 reference's first-token top-2 logprob gap per prompt, from
-    one prefill forward of each prompt on the engine's own params."""
+    one prefill forward of each prompt on the engine's own params;
+    ``adapters[i]`` (factors by name, or None) is prompt i's LoRA adapter,
+    applied as a one-row ``adapters`` argument."""
     from langstream_tpu_torch.models.llama import prefill_forward
 
     gaps = []
-    for p in prompts:
+    for i, p in enumerate(prompts):
         ids = engine.tokenizer.encode(p)
         tokens = torch.tensor([ids], device=engine.device)
         lengths = torch.tensor([len(ids)], device=engine.device)
+        lora = None
+        if adapters is not None and adapters[i] is not None:
+            dtype = engine.model_config.dtype
+            factors = {k: torch.as_tensor(v).to(engine.device, dtype)
+                       for k, v in adapters[i].items()}
+            lora = {"ids": torch.ones(1, dtype=torch.long, device=engine.device),
+                    "layers": {k: torch.stack([torch.zeros_like(t), t], dim=1)
+                               for k, t in factors.items()}}
         with torch.no_grad():
             logits = prefill_forward(engine.model_config, engine.params, tokens, lengths,
-                                     ffn=engine._ffn)[0]
+                                     ffn=engine._ffn, adapters=lora)[0]
         top = torch.log_softmax(logits[0].float(), dim=-1).topk(2).values
         gaps.append(float(top[0] - top[1]))
     return gaps
@@ -5096,7 +5140,7 @@ def phase_mesh_path(torch, device="cuda") -> dict:
 # path O: sequence parallelism and the embeddings mesh, two ranks on this card
 # ---------------------------------------------------------------------------
 
-O_LAYERS = 8           # O1 and O2 (Llama-3-8B) depth, of 32
+O_LAYERS = 2           # O1 and O2 (Llama-3-8B) depth, of 32 (8 until path R came)
 O_MAX_TOKENS = 64
 # long-context-summarizer's resource (examples/applications/
 # long-context-summarizer/configuration.yaml) with paged int8 KV; its mesh
@@ -5838,7 +5882,7 @@ def phase_train_path(torch, device="cuda") -> dict:
 # path Q: a mesh from the normal entry points (the port starts its ranks)
 # ---------------------------------------------------------------------------
 
-#: Q1: path B's resource (32 layers) at tp=2 through the provider
+#: Q1: path B's resource (at B's ``MAIN_LAYERS``) at tp=2 through the provider
 Q1_MESH = {"tp": 2}
 #: Q2: a slice of two pods of two local ranks each, on this card (the HF
 #: fixture: a random init draws other numbers on the card than on the CPU)
@@ -5853,34 +5897,37 @@ Q3_RESOURCE = {"embeddings-model": "minilm-l6", "mesh": {"dp": 2}}
 
 
 @contextlib.contextmanager
-def local_world_size(n: int):
-    """``LOCAL_WORLD_SIZE=n`` inside the block: the ranks this host may run
-    (here ``n`` ranks share the one card, over gloo)."""
-    saved = os.environ.get("LOCAL_WORLD_SIZE")
-    os.environ["LOCAL_WORLD_SIZE"] = str(n)
+def environment(**env: str):
+    """``env`` set in this process's environment inside the block (the
+    ranks started inside it inherit it; ``LOCAL_WORLD_SIZE`` is the ranks
+    this host may run, here ranks that share the one card over gloo)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         yield
     finally:
-        if saved is None:
-            os.environ.pop("LOCAL_WORLD_SIZE", None)
-        else:
-            os.environ["LOCAL_WORLD_SIZE"] = saved
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
-def children_ended(label: str, launched: dict) -> list:
+def children_ended(label: str, launched: dict, path: str = "Q") -> list:
     """Every rank the launcher started exited 0 and no process of it is
     left; their exit codes."""
     codes = []
     for child in launched["children"]:
         if child["exit-code"] != 0:
-            fail(f"path Q [{label}]: local rank {child['rank']} exited {child['exit-code']}")
+            fail(f"path {path} [{label}]: local rank {child['rank']} exited "
+                 f"{child['exit-code']}")
         try:
             os.kill(child["pid"], 0)
         except ProcessLookupError:
             codes.append(child["exit-code"])
             continue
-        fail(f"path Q [{label}]: local rank {child['rank']} (pid {child['pid']}) outlived "
-             f"its world")
+        fail(f"path {path} [{label}]: local rank {child['rank']} (pid {child['pid']}) "
+             f"outlived its world")
     return codes
 
 
@@ -5894,7 +5941,7 @@ def q1_provider_mesh(torch, device="cuda") -> dict:
 
     b = NOTES["B"]
     resource = {**b["config"], "mesh": Q1_MESH}
-    with local_world_size(2):
+    with ranks_at_depth(MAIN_LAYERS):  # its ranks at B's depth too
         t0 = time.monotonic()
         engine = TorchServiceProvider(resource, device=device).get_completions_service(
             {}).engine
@@ -5921,7 +5968,7 @@ def q1_provider_mesh(torch, device="cuda") -> dict:
             fail(f"path Q1: rank {rank} did not launch kernels #1 and #3: {c}")
     codes = children_ended("Q1", mesh["launched"])
     rule = check_first_tokens("Q1", results, b["results"], b["gaps"], path="Q")
-    print(f"path Q [Q1 llama3-8b int8 tp=2, 32 layers, provider]: " + json.dumps({
+    print(f"path Q [Q1 llama3-8b int8 tp=2, {MAIN_LAYERS} layers, provider]: " + json.dumps({
         "ready_s": round(ready_s, 3), "wall_s": round(wall, 3),
         "ms_per_step_mesh": _step_ms(stats), "ms_per_step_B": round(b["ms_per_step"], 3),
         "backend": mesh["backend"], "backend_reason": mesh["backend-reason"],
@@ -6034,7 +6081,7 @@ def q3_embeddings(torch, texts: list[str], device="cuda") -> dict:
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
     from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
 
-    with local_world_size(2):
+    with environment(LOCAL_WORLD_SIZE="2"):
         service = TorchServiceProvider(Q3_RESOURCE, device=device).get_embeddings_service({})
     EmbeddingEngine.reset_instances()
     try:
@@ -6079,6 +6126,419 @@ def phase_launch_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path R: the tiered stores and the pool roles under a mesh
+# ---------------------------------------------------------------------------
+
+#: llama3-8b at full width and ``R_LAYERS`` of its 32 layers, int8 weights
+#: from seed 0: the tp=2 engines (two local ranks sharing the card, started
+#: by the launcher) and the tp=1 references on the same weights
+R_LAYERS = 4   # at 8 the smoke took 1,181 s of its 1,200 (H100 80GB HBM3, 700 W)
+R_MESH = {"tp": 2}
+R_BASE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged", "slots": 16,
+          "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
+R1_MAX_TOKENS = 32
+R2_RANK = 16
+#: the adapters' B scale: a delta about a fifth of the weights' size, as a
+#: trained adapter's (``sqrt(rank) x scale`` of them); at 0.5, twice the
+#: weights, the adapter streams' first tokens had logprobs near -8 (a
+#: near-uniform vocabulary) and bf16 tp=2 and tp=1 rounding parted them by
+#: 0.16 on an H100 80GB HBM3 at 700 W
+R2_SCALE = 0.05
+R2_NAMES = ("tenant-r1", "tenant-r2", "tenant-r3")
+R2_MAX_TOKENS = 32
+R3_MAX_TOKENS = 32
+R3_TOL = 2e-2   # an export's rows against a tp=1 export's, of its max abs
+
+#: a ``sitecustomize`` put on the started ranks' ``PYTHONPATH`` by
+#: :func:`ranks_at_depth`: once the engine module is imported, its model
+#: tables serve every model at ``LS_SMOKE_LAYERS`` layers, as
+#: ``lockstep_demo.cut_layers`` does in this process (a started rank learns
+#: its model only from the leader's handshake)
+_DEPTH_SITE = '''
+import dataclasses, importlib.abc, importlib.util, os, sys
+
+
+class _Depth(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name != "langstream_tpu_torch.serving.engine":
+            return None
+        sys.meta_path.remove(self)
+        spec = importlib.util.find_spec(name)
+        run = spec.loader.exec_module
+        layers = int(os.environ["LS_SMOKE_LAYERS"])
+
+        def cut(make):
+            return lambda **kw: dataclasses.replace(
+                make(**kw), layers=min(make(**kw).layers, layers))
+
+        def exec_module(module):
+            run(module)
+            for table in (module._MODEL_CONFIGS, module._MOE_MODELS):
+                for key, make in list(table.items()):
+                    table[key] = cut(make)
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+if os.environ.get("LS_SMOKE_LAYERS"):
+    sys.meta_path.insert(0, _Depth())
+'''
+
+
+@contextlib.contextmanager
+def ranks_at_depth(layers: int | None):
+    """Engines made inside the block, here and on the ranks the launcher
+    starts, serve every model at ``layers`` layers (None: as they are);
+    two local ranks share the card."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.serving.lockstep_demo import cut_layers
+
+    site = tempfile.mkdtemp(prefix="chip-smoke-site-")
+    Path(site, "sitecustomize.py").write_text(_DEPTH_SITE)
+    env = {"PYTHONPATH": os.pathsep.join(p for p in (site, os.environ.get("PYTHONPATH"))
+                                         if p), "LOCAL_WORLD_SIZE": "2"}
+    if layers:
+        env["LS_SMOKE_LAYERS"] = str(layers)
+    try:
+        with environment(**env), cut_layers(layers):
+            yield
+    finally:
+        shutil.rmtree(site, ignore_errors=True)
+
+
+def r_mesh(torch, label: str, cfg: dict, drive, device="cuda") -> dict:
+    """``drive(engine)`` on ``cfg`` at ``R_MESH`` through
+    ``TorchServiceProvider`` (inside :func:`ranks_at_depth`), the engine
+    closed in its loop: the world ends, its rank is reaped and must have
+    exited 0. Rank 0's launches (set to 0 just before the drive, read just
+    after), the mesh section with the started rank's report, the seconds
+    until the engine was ready and the drive's wall."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.models import llama
+    from langstream_tpu_torch.serving.engine import TorchServingEngine
+
+    t0 = time.monotonic()
+    engine = TorchServiceProvider({**cfg, "mesh": R_MESH}, device=device
+                                  ).get_completions_service({}).engine
+    ready_s = time.monotonic() - t0
+    TorchServingEngine.reset_instances()
+
+    async def run():
+        try:
+            return await drive(engine)
+        finally:
+            await engine.close()
+
+    reset_counts()
+    lora0 = llama.LORA_DELTA_CALLS
+    t0 = time.monotonic()
+    out = asyncio.run(run())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    run_out = {"out": out, "counts": read_counts(), "mesh": engine.mesh_section(),
+               "lora_delta": llama.LORA_DELTA_CALLS - lora0, "ready_s": ready_s,
+               "wall_s": wall, "digests": engine.tier_digests}
+    children_ended(label, run_out["mesh"]["launched"], path="R")
+    run_out["rank1"] = run_out["mesh"]["launched"]["children"][0]
+    del engine
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return run_out
+
+
+def r_reference(cfg: dict, params, drive, device="cuda"):
+    """``drive(engine)`` on ``cfg`` without the mesh, one rank on the
+    path's weights (``params``), closed in its loop."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    engine = TorchServingEngine(ServingConfig.from_dict(cfg), device=device, params=params)
+
+    async def run():
+        try:
+            return await drive(engine)
+        finally:
+            await engine.close()
+
+    out = asyncio.run(run())
+    del engine
+    gc.collect()
+    return out
+
+
+def _digest_check(label: str, digests) -> dict:
+    """A rank's tier digests: every promoted block's rows, read back from
+    its pools after the scatter, equal a demoted block's at its gather."""
+    demoted = {d for op, ds in digests if op == "kv_gather" for d in ds}
+    promoted = [d for op, ds in digests if op == "kv_scatter" for d in ds]
+    if not promoted or not set(promoted) <= demoted:
+        fail(f"path R [{label}]: {len(promoted)} promoted blocks, "
+             f"{len(set(promoted) - demoted)} of them not byte-equal to a demoted one")
+    return {"demoted_blocks": len(demoted), "promoted_blocks": len(promoted)}
+
+
+def r1_tiers(torch, params, ref, device="cuda") -> dict:
+    """R1: paged bf16 KV with the prefix cache and a prefix store (T0 two
+    blocks, T1 twelve, a local T2). Wave 1: path I's eight questions on
+    its 1,536-token preamble at once, ``R1_MAX_TOKENS`` greedy tokens (the
+    cold wave). Then the tiers drain (demotions to T1, twelve blocks on to
+    T2) and the wave runs again: it hydrates the chain's T2 blocks and
+    promotes its T1 blocks. Every rank's promoted rows equal its demoted
+    ones byte for byte; kernel #4 launches on both ranks; the warm streams
+    hold the first-token rule against the cold ones."""
+    import tempfile
+
+    from langstream_tpu_torch.serving.engine import _MODEL_CONFIGS
+
+    label = "R1 prefix tiers"
+    bs = int(R_BASE.get("kv-block-size", 64))
+    prompts = tier_prompts(bs)[0]
+    mc = _MODEL_CONFIGS[R_BASE["model"]](max_seq_len=int(R_BASE["max-seq-len"]))
+    width = 4 if R_BASE.get("model-dtype") == "float32" else 2
+    block_bytes = 2 * mc.layers * bs * mc.kv_heads * mc.head_dim * width
+    store = {"t0-bytes": 2 * block_bytes, "t1-bytes": 12 * block_bytes,
+             "t2": {"type": "local", "path": tempfile.mkdtemp(prefix="ls-r1-t2-")},
+             "t2-rescan-s": 0.2, "hydrate-timeout-s": 60.0}
+    cfg = {**R_BASE, "prefix-cache": True, "prefix-store": store}
+    opts = {"max-tokens": R1_MAX_TOKENS, "temperature": 0}
+
+    async def drive(engine):
+        if engine._tier_block_bytes != block_bytes:
+            fail(f"path R [{label}]: whole-head block bytes {engine._tier_block_bytes} "
+                 f"!= {block_bytes}")
+        t0 = time.monotonic()
+        cold = await asyncio.gather(*(engine.generate(p, dict(opts)) for p in prompts))
+        t1 = time.monotonic()
+        for _ in range(2400):  # T0 down to its budget, every T2 write landed
+            drained = engine.stats()["prefixstore"]
+            if (drained["t0"]["bytes"] <= store["t0-bytes"] and drained["demotions_t1_t2"]
+                    and not drained["t2"]["pending_jobs"]
+                    and not drained["t2"]["in_transit_bytes"]):
+                break
+            await asyncio.sleep(0.05)
+        else:
+            fail(f"path R [{label}]: the tiers did not drain: {drained}")
+        seq = engine.flight.recent_events(1)[-1]["seq"]
+        t2 = time.monotonic()
+        warm = await asyncio.gather(*(engine.generate(p, dict(opts)) for p in prompts))
+        return {"cold": cold, "warm": warm, "drained": drained,
+                "seconds": {"cold": round(t1 - t0, 3), "drain": round(t2 - t1, 3),
+                            "warm": round(time.monotonic() - t2, 3)},
+                "stats": engine.stats()["prefixstore"],
+                "promoted": _events_since(engine, seq, "prefix-promote")}
+
+    with environment(LS_TORCH_TIER_DIGESTS="1"):  # every rank keeps its moves' digests
+        run = r_mesh(torch, label, cfg, drive, device)
+    out, st, drained = run["out"], run["out"]["stats"], run["out"]["drained"]
+    if not (drained["demotions_t0_t1"] and drained["demotions_t1_t2"]):
+        fail(f"path R [{label}]: the drain must demote to T1 and spill to T2: {drained}")
+    if not (st["promotions"] > drained["promotions"] and st["hydrations"]):
+        fail(f"path R [{label}]: the second wave must promote from T1 and hydrate from T2: "
+             f"{st}")
+    ranks = {"0": _digest_check(f"{label} rank 0", run["digests"]),
+             "1": _digest_check(f"{label} rank 1", run["rank1"]["mesh"][0]["tier-digests"])}
+    for rank, c in (("0", run["counts"]), ("1", run["rank1"]["kernels"])):
+        if device == "cuda" and c["paged_attention_multiquery"] == 0:
+            fail(f"path R [{label}]: rank {rank} did not launch kernel #4: {c}")
+    gaps = top2_gaps(torch, ref, prompts)
+    rule = check_first_tokens(label, out["warm"], out["cold"], gaps, path="R")
+    moved = run["mesh"]["collectives"].get("kv-tier", {"bytes": 0, "seconds": 0.0})
+    demoted = drained["demotions_t0_t1"] * block_bytes
+    prom_bytes = sum(e["bytes"] for e in out["promoted"])
+    prom_ms = sum(e["device_ms"] for e in out["promoted"])
+    print(f"path R [{label}]: " + json.dumps({
+        "ready_s": round(run["ready_s"], 3), "wall_s": round(run["wall_s"], 3),
+        "seconds": out["seconds"], "block_bytes": block_bytes, "tiers_drained": {k: drained[k] for k in (
+            "demotions_t0_t1", "demotions_t1_t2")},
+        "tiers_warm": {k: st[k] for k in ("promotions", "hydrations")},
+        "demote_bytes": demoted, "demote_fetch_s": drained["t0"]["demote_seconds"],
+        "demote_gbps": (round(demoted / drained["t0"]["demote_seconds"] / 1e9, 3)
+                        if drained["t0"]["demote_seconds"] else None),
+        "promote_bytes": prom_bytes, "promote_device_ms": round(prom_ms, 3),
+        "promote_gbps": round(prom_bytes / prom_ms / 1e6, 3) if prom_ms else None,
+        "tier_collectives": moved, "digests": ranks,
+        "first_tokens_checked": rule["checked"],
+        "rank0_launches": {k: v for k, v in run["counts"].items() if v},
+        "rank1_launches": {k: v for k, v in run["rank1"]["kernels"].items() if v},
+        "tier_moves": [run["mesh"]["tier-moves"], run["rank1"]["mesh"][0]["tier-moves"]]}),
+        flush=True)
+    return run
+
+
+def r2_adapters(torch, params, ref, device="cuda") -> dict:
+    """R2: paged int8 KV and an adapter store of rank ``R2_RANK`` with two
+    T0 rows for three adapters, so rows are evicted and loaded again. 24
+    requests at once: eight prompts on the base model, six each on two
+    adapters, four on the third; with them R3's eight prompts on the base
+    model (the combined tp=2 run R3 is held to: a base row's delta is an
+    exact zero). Every stream holds the first-token rule (each request's
+    gap under its adapter) against the same wave at tp=1; at least one
+    adapter stream differs from its base stream; every rank loaded the
+    rows the leader did."""
+    from langstream_tpu_torch.serving.adapters import make_lora_arrays
+    from langstream_tpu_torch.serving.engine import _MODEL_CONFIGS
+
+    label = "R2 adapters"
+    mc = _MODEL_CONFIGS[R_BASE["model"]](max_seq_len=int(R_BASE["max-seq-len"]))
+    arrays = {name: make_lora_arrays(layers=mc.layers, hidden=mc.hidden, heads=mc.heads,
+                                     kv_heads=mc.kv_heads, head_dim=mc.head_dim,
+                                     rank=R2_RANK, seed=200 + i, scale=R2_SCALE)
+              for i, name in enumerate(R2_NAMES)}
+    per = int(sum(a.nbytes for a in arrays[R2_NAMES[0]].values()))
+    cfg = {**R_BASE, "kv-quantize": "int8", "prefix-cache": False,
+           "adapter-store": {"rank": R2_RANK, "t0-entries": 2, "t1-bytes": 4 * per,
+                             "hydrate-timeout-s": 60.0}}
+    prompts = j_prompts()[:8]
+    wave = ([(p, None) for p in prompts] + [(p, R2_NAMES[0]) for p in prompts[:6]]
+            + [(p, R2_NAMES[1]) for p in prompts[:6]] + [(p, R2_NAMES[2]) for p in prompts[:4]]
+            + [(p, None) for p in r3_prompts()])
+
+    async def drive(engine):
+        for name, factors in arrays.items():
+            engine.install_adapter(name, factors)
+        results = await asyncio.gather(*(engine.generate(p, {
+            "max-tokens": R2_MAX_TOKENS, "temperature": 0, **({"adapter": n} if n else {})})
+            for p, n in wave))
+        return {"results": results, "t0": engine.stats()["adapters"]["t0"],
+                "stats": engine.stats()}
+
+    run = r_mesh(torch, label, cfg, drive, device)
+    want = r_reference(cfg, params, drive, device)
+    got = run["out"]["results"]
+    gaps = top2_gaps(torch, ref, [p for p, _ in wave], [arrays.get(n) for _, n in wave])
+    rule = check_first_tokens(label, got, want["results"], gaps, path="R")
+    base = {p: r["tokens"] for (p, n), r in zip(wave, got) if n is None}
+    steered = sum(r["tokens"] != base[p] for (p, n), r in zip(wave, got) if n)
+    if not steered:
+        fail(f"path R [{label}]: no adapter stream differs from its base stream")
+    t0, leader, rank1 = run["out"]["t0"], run["mesh"], run["rank1"]["mesh"][0]
+    if not t0["evictions"] or leader["tier-moves"]["adapter_row"] < len(R2_NAMES):
+        fail(f"path R [{label}]: the rows were not evicted and loaded again: {t0}")
+    if (rank1["tier-moves"] != leader["tier-moves"]
+            or rank1["adapter-rows"] != leader["adapter-rows"]):
+        fail(f"path R [{label}]: rank 1 loaded other rows than the leader: "
+             f"{rank1['tier-moves']} {rank1['adapter-rows']} against "
+             f"{leader['tier-moves']} {leader['adapter-rows']}")
+    print(f"path R [{label}]: " + json.dumps({
+        "ready_s": round(run["ready_s"], 3), "wall_s": round(run["wall_s"], 3),
+        "ms_per_step": [_step_ms(run["out"]["stats"]), _step_ms(want["stats"])],
+        "first_tokens_checked": rule["checked"], "adapter_streams_steered": steered,
+        "row_loads": leader["tier-moves"]["adapter_row"], "t0": t0,
+        "lora_delta_calls": [run["lora_delta"], run["rank1"]["lora_delta"]],
+        "adapter_collectives": leader["collectives"].get("adapter-rows"),
+        "rank0_launches": {k: v for k, v in run["counts"].items() if v},
+        "rank1_launches": {k: v for k, v in run["rank1"]["kernels"].items() if v}}),
+        flush=True)
+    return run
+
+
+def r3_prompts() -> list[str]:
+    return chat_prompts()[:8]
+
+
+def r3_pool_roles(torch, params, ref, combined: list, device="cuda") -> dict:
+    """R3: paged int8 KV, one engine at a time. A ``pool-role: prefill``
+    engine at tp=2 exports eight requests and closes; a ``pool-role:
+    decode`` engine at tp=1 imports and decodes them, held by the
+    first-token rule to ``combined``, R2's combined tp=2 run of the same
+    prompts (the same pool and weights). The payloads' fingerprints
+    equal a tp=1 prefill engine's and their rows, dequantized, are within
+    ``R3_TOL`` of that engine's max abs."""
+    from langstream_tpu_torch.serving import kvtransfer
+
+    label = "R3 pool roles"
+    cfg = {**R_BASE, "kv-quantize": "int8", "prefix-cache": False}
+    prompts = r3_prompts()
+    opts = {"max-tokens": R3_MAX_TOKENS, "temperature": 0}
+
+    async def prefill(engine):
+        tickets = await asyncio.gather(*(engine.generate(p, dict(opts)) for p in prompts))
+        return [engine.take_export(t["handoff"]) for t in tickets]
+
+    async def decode(engine):
+        return await asyncio.gather(*(engine.import_handoff(p) for p in payloads))
+
+    exported = r_mesh(torch, f"{label}: prefill tp=2", {**cfg, "pool-role": "prefill"},
+                      prefill, device)
+    payloads = exported["out"]
+    decoded = r_reference({**cfg, "pool-role": "decode"}, params, decode, device)
+    local = r_reference({**cfg, "pool-role": "prefill"}, params, prefill, device)
+    rule = check_first_tokens(label, decoded, combined, top2_gaps(torch, ref, prompts),
+                              path="R")
+    worst = 0.0
+    for ours, theirs in zip(payloads, local, strict=True):
+        (ha, aa), (hb, ab) = (kvtransfer.deserialize_handoff(x) for x in (ours, theirs))
+        if ha["fingerprint"] != hb["fingerprint"] or ha["kv-rows"] != hb["kv-rows"]:
+            fail(f"path R [{label}]: the tp=2 export's fingerprint {ha['fingerprint']} "
+                 f"!= the tp=1 export's {hb['fingerprint']}")
+        for cache in ("k", "v"):
+            rows = []
+            for arrays in (aa, ab):
+                q, sc = arrays[f"{cache}.q"].float(), arrays[f"{cache}.s"].float()
+                rows.append((q.reshape(*sc.shape, -1) * sc[..., None]).reshape(q.shape))
+            err = float((rows[0] - rows[1]).abs().max() / rows[1].abs().max())
+            worst = max(worst, err)
+    if not worst <= R3_TOL:
+        fail(f"path R [{label}]: the tp=2 export's rows differ from the tp=1 export's by "
+             f"{worst} of their max abs > {R3_TOL}")
+    gathers = [exported["mesh"]["tier-moves"]["kv_gather"],
+               exported["rank1"]["mesh"][0]["tier-moves"]["kv_gather"]]
+    if gathers != [len(prompts)] * 2:
+        fail(f"path R [{label}]: export gathers by rank {gathers}, not {len(prompts)} each")
+    print(f"path R [{label}]: " + json.dumps({
+        "ready_s": round(exported["ready_s"], 3), "wall_s": round(exported["wall_s"], 3),
+        "payload_bytes": sum(len(p) for p in payloads), "rows_err_of_max_abs": worst,
+        "first_tokens_checked": rule["checked"], "export_gathers": gathers,
+        "tier_collectives": exported["mesh"]["collectives"].get("kv-tier"),
+        "rank0_launches": {k: v for k, v in exported["counts"].items() if v},
+        "rank1_launches": {k: v for k, v in exported["rank1"]["kernels"].items() if v}}),
+        flush=True)
+    return exported
+
+
+def phase_store_mesh_path(torch, device="cuda") -> dict:
+    """Path R: the tiered stores and the pool roles under ``R_MESH``, two
+    local ranks on this card started by the launcher (``ranks_at_depth``
+    cuts them to ``R_LAYERS`` as it cuts this process): :func:`r1_tiers`,
+    :func:`r2_adapters`, :func:`r3_pool_roles`, each against a tp=1
+    reference on the same weights (a tp=1 engine's, from the same seed or
+    checkpoint). Kernels #1-#4 must each launch on both ranks over R's
+    tp=2 runs. Returns rank 0's launches summed over them."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    t0 = time.monotonic()
+    with ranks_at_depth(R_LAYERS):
+        ref = TorchServingEngine(ServingConfig.from_dict({**R_BASE, "prefix-cache": False}),
+                                 device=device)
+        params = ref.params
+        r1 = r1_tiers(torch, params, ref, device)
+        t1 = time.monotonic()
+        r2 = r2_adapters(torch, params, ref, device)
+        t2 = time.monotonic()
+        r3 = r3_pool_roles(torch, params, ref, r2["out"]["results"][-len(r3_prompts()):],
+                           device)
+    runs = [r1, r2, r3]
+    rank0 = {k: sum(r["counts"][k] for r in runs) for k in runs[0]["counts"]}
+    rank1 = {k: sum(r["rank1"]["kernels"][k] for r in runs) for k in rank0}
+    for rank, counts in (("0", rank0), ("1", rank1)):
+        if device == "cuda" and not all(counts.values()):
+            fail(f"path R: rank {rank} did not launch every kernel: {counts}")
+    asyncio.run(ref.close())
+    del ref, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    print(f"path R: {time.monotonic() - t0:.1f} s (R1 {t1 - t0:.1f} s, R2 {t2 - t1:.1f} s, "
+          f"R3 {time.monotonic() - t2:.1f} s); launches rank 0 {rank0}, rank 1 {rank1}",
+          flush=True)
+    return rank0
+
+
 def main() -> int:
     import torch
 
@@ -6120,13 +6580,18 @@ def main() -> int:
     # -- phases 3 and 4: the main path --------------------------------------
     base = {"model": "llama3-8b", "quantize": "int8", "slots": 64,
             "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
+    depth = contextlib.ExitStack()  # every llama3-8b engine at MAIN_LAYERS at most
+    depth.enter_context(cut_depth(base["model"], MAIN_LAYERS))
     t0 = time.monotonic()
+    secs: dict[str, float] = {}  # each main path's seconds
     params, dense_counts = phase_main_path(torch, "dense bf16 KV", base, profile=True,
                                            note="A")
+    secs["A"] = time.monotonic() - t0
     if dense_counts["flash_attention"] == 0 or dense_counts["paged_attention"] == 0:
         fail(f"dense main path did not launch flash and paged kernels: {dense_counts}")
     gc.collect()
     torch.cuda.empty_cache()
+    t_b = time.monotonic()
     q8_counts = phase_main_path(
         torch, "paged int8 KV",
         {**base, "kv-layout": "paged", "kv-quantize": "int8", "prefix-cache": False},
@@ -6134,20 +6599,26 @@ def main() -> int:
     )[1]  # (its params are path A's: bound to no name, freed with them below)
     if q8_counts["paged_attention_q8"] == 0 or q8_counts["flash_attention"] == 0:
         fail(f"int8-KV main path did not launch flash and q8 kernels: {q8_counts}")
+    secs["B"] = time.monotonic() - t_b
     gc.collect()
     torch.cuda.empty_cache()
+    t_c = time.monotonic()
     c_counts = phase_prefix_path(
         torch, "paged bf16 KV, prefix cache, prefill-chunk 512",
         {**base, "kv-layout": "paged", "prefix-cache": True, "prefill-chunk": 512},
         params=params,
     )
+    secs["C"] = time.monotonic() - t_c
     gc.collect()
     torch.cuda.empty_cache()
-    d_counts = phase_spec_path(
-        torch, "paged bf16 KV, speculative-drafts 4",
-        {**base, "kv-layout": "paged", "prefix-cache": False, "speculative-drafts": 4},
-        params=params,
-    )
+    t_d = time.monotonic()
+    with cut_depth(base["model"], D_LAYERS):  # path A's first D_LAYERS layers
+        d_counts = phase_spec_path(
+            torch, "paged bf16 KV, speculative-drafts 4",
+            {**base, "kv-layout": "paged", "prefix-cache": False, "speculative-drafts": 4},
+            params=at_depth(params, D_LAYERS),
+        )
+    secs["D"] = time.monotonic() - t_d
     gc.collect()
     torch.cuda.empty_cache()
     t_i = time.monotonic()
@@ -6157,7 +6628,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         i2_counts, i2_tokens = phase_handoff_path(torch, at_depth(params, I_LAYERS))
     i_counts = {k: i1_counts[k] + i2_counts[k] for k in i1_counts}
-    print(f"path I: {time.monotonic() - t_i:.1f} s", flush=True)
+    secs["I"] = time.monotonic() - t_i
+    print(f"path I: {secs['I']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t_j = time.monotonic()
@@ -6167,7 +6639,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         j2_counts = phase_lora_spec_path(torch, at_depth(params, J_LAYERS))
     j_counts = {k: j1_counts[k] + j2_counts[k] for k in j1_counts}
-    print(f"path J: {time.monotonic() - t_j:.1f} s", flush=True)
+    secs["J"] = time.monotonic() - t_j
+    print(f"path J: {secs['J']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t_k = time.monotonic()
@@ -6188,7 +6661,8 @@ def main() -> int:
                 for k in k1_counts}
     if k_counts["flash_attention"] == 0 or k_counts["paged_attention_q8"] == 0:
         fail(f"path K did not launch flash and the int8 paged read: {k_counts}")
-    print(f"path K: {time.monotonic() - t_k:.1f} s", flush=True)
+    secs["K"] = time.monotonic() - t_k
+    print(f"path K: {secs['K']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t_l = time.monotonic()
@@ -6202,7 +6676,8 @@ def main() -> int:
     if l_counts["flash_attention"] == 0 or l_counts["paged_attention_q8"] == 0 or (
             l_counts["paged_attention"] == 0):
         fail(f"path L did not launch flash and both paged reads: {l_counts}")
-    print(f"path L: {time.monotonic() - t_l:.1f} s", flush=True)
+    secs["L"] = time.monotonic() - t_l
+    print(f"path L: {secs['L']:.1f} s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t_m = time.monotonic()
@@ -6216,7 +6691,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    t_e = time.monotonic()
     e_counts = phase_provider_path(torch, CHAT_EXAMPLE_RESOURCE)
+    secs["E"] = time.monotonic() - t_e
     gc.collect()
     torch.cuda.empty_cache()
     t_f = time.monotonic()
@@ -6250,11 +6727,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_q = time.monotonic()
     q_counts = phase_launch_path(torch)
-    print(f"phase main path: {time.monotonic() - t0:.1f} s (path F "
-          f"{t_g - t_f:.1f} s, path G {t_h - t_g:.1f} s, path H "
-          f"{t_m1 - t_h:.1f} s, path M {m_s:.1f} s, path N "
-          f"{t_o - t_n:.1f} s, path O {t_p - t_o:.1f} s, path P "
-          f"{t_q - t_p:.1f} s, path Q {time.monotonic() - t_q:.1f} s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_r = time.monotonic()
+    r_counts = phase_store_mesh_path(torch)
+    secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
+                P=t_q - t_p, Q=t_r - t_q, R=time.monotonic() - t_r)
+    depth.close()
+    print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
+          f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
     # -- phase 5: card against CPU -----------------------------------------
     t0 = time.monotonic()
@@ -6266,8 +6747,8 @@ def main() -> int:
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
-             "O": o_counts, "P": p_counts, "Q": q_counts}
-    meta = {  # launches: summed over the seventeen main paths (rank 0's on N, O and Q)
+             "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts}
+    meta = {  # launches: summed over the eighteen main paths (rank 0's on N, O, Q and R)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -390,7 +390,7 @@ def _out_proj(out: torch.Tensor, lp: dict, ad=None, c=None) -> torch.Tensor:
     JAX package); under a mesh (``c.shard``) the row-parallel partial sums
     are added over ``tp``."""
     attn = out @ _w(lp["wo"])
-    if ad is not None:
+    if ad is not None:  # inside the sum: a partial under tp, as ``attn`` is
         ids, al = ad
         attn = attn + lora_delta(out, ids, al["wo_a"], al["wo_b"])
     return attn if c is None else tp_sum(c, attn, attention=True)
@@ -412,6 +412,10 @@ def attention_block(c, x: torch.Tensor, lp: dict, cos, sin, attention) -> torch.
 # ---------------------------------------------------------------------------
 
 
+#: the calls of :func:`lora_delta` in this process
+LORA_DELTA_CALLS = 0
+
+
 def lora_delta(h: torch.Tensor, ids: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """Per-slot low-rank delta ``h @ A[id] @ B[id]`` for one projection.
@@ -422,7 +426,13 @@ def lora_delta(h: torch.Tensor, ids: torch.Tensor, a: torch.Tensor,
     d_in)``. Row 0 is all zeros, so adapter-less rows get an exact zero
     and a batch of mixed adapters is one gather and two batched products
     (the rows are data, not structure). The LoRA alpha/rank scale is
-    folded into B at publish time (``serving/adapters.py``)."""
+    folded into B at publish time (``serving/adapters.py``). Under a mesh
+    ``a``/``b`` are this rank's shares (its heads' columns of a q/k/v B,
+    rows of the wo A) and the wo delta is a row-parallel partial, added
+    before :func:`_out_proj`'s sum over ``tp``. :data:`LORA_DELTA_CALLS`
+    counts the calls in this process."""
+    global LORA_DELTA_CALLS
+    LORA_DELTA_CALLS += 1
     a_sel = a.index_select(0, ids)  # (B, d_in, rank)
     b_sel = b.index_select(0, ids)  # (B, rank, d_out)
     if h.dim() == 2:

@@ -228,8 +228,9 @@ class LocalWorld:
 
     def describe(self) -> dict[str, Any]:
         """Each child's rank, pid, exit code (None while it runs), whether
-        it was killed, and from its report the dispatches it replayed and
-        its kernels' launches."""
+        it was killed, and from its report the dispatches it replayed, its
+        kernels' launches, its ``lora_delta`` calls and its engines' mesh
+        sections."""
         return {"hosts": self.hosts, "local-ranks": self.local,
                 "children": [c.describe() for c in self.children]}
 
@@ -388,6 +389,7 @@ def _child() -> int:
     """A started rank: join the world, replay the leader's channel until
     ``stop``, end the world, write the report, exit 0. Any failure raises
     (a traceback in its output and a non-zero exit code)."""
+    from langstream_tpu_torch.models import llama
     from langstream_tpu_torch.ops import launch_counts
     from langstream_tpu_torch.serving.lockstep import LockstepFollower
 
@@ -411,7 +413,7 @@ def _child() -> int:
     engines = ([follower.engine] if follower.engine is not None else []) + list(
         follower.embedders.values())
     Path(os.environ["LS_LAUNCH_REPORT"]).write_text(json.dumps({
-        "replayed": replayed, "kernels": launch_counts(),
+        "replayed": replayed, "kernels": launch_counts(), "lora_delta": llama.LORA_DELTA_CALLS,
         "mesh": [e.mesh_section() for e in engines]}))
     return 0
 

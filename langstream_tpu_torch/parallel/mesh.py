@@ -9,7 +9,8 @@ one process group per axis (and one over ``ep`` and ``tp`` together, for
 the expert FFN's sum). The model code calls the collectives itself, on
 the groups: :meth:`Mesh.sum` (an all-reduce), and for sequence parallelism
 :meth:`Mesh.permute` (the ring's ``ppermute``), :meth:`Mesh.all_to_all`
-(Ulysses) and :meth:`Mesh.all_gather`.
+(Ulysses) and :meth:`Mesh.all_gather`; the serving tiers move KV rows and
+adapter factors with :meth:`Mesh.all_gather` and :meth:`Mesh.broadcast`.
 
 **Gradients.** Every collective carries one back, as ``jax.grad``
 transposes the JAX package's: the sum's backward is the identity (its
@@ -439,6 +440,34 @@ class Mesh:
         got = self._staged(x, op).view(n, *x.shape)
         self._count(tag, t0, x.numel() * x.element_size() * n)
         return got
+
+    def broadcast(self, x: torch.Tensor, axis: str | None = None, src: int = 0,
+                  tag: str | None = None) -> torch.Tensor:
+        """The ``x`` of the rank at index ``src`` along ``axis`` on every
+        rank of that axis (``axis`` None: rank ``src`` of the world, to
+        every rank); elsewhere ``x`` is only the receive buffer, of the same
+        shape and dtype. ``x`` itself when the axis holds one rank. Serving
+        only: it records no backward."""
+        import torch.distributed as dist
+
+        if axis is None:
+            if self.world_size <= 1 or not self._groups:
+                return x
+            group, root = None, src
+        else:
+            group = self.group(axis)
+            if group is None:
+                return x
+            root = dist.get_process_group_ranks(group)[src]
+        t0 = time.monotonic()
+
+        def op(flat):
+            dist.broadcast(flat, src=root, group=group)
+            return flat
+
+        out = self._staged(x, op).view(x.shape)
+        self._count(tag or f"{axis or 'world'}-broadcast", t0, x.numel() * x.element_size())
+        return out
 
     def dp_rows(self, batch: int) -> tuple[int, int] | None:
         """This rank's rows of a ``batch`` split over ``dp``; None when the

@@ -15,7 +15,10 @@ authenticated by ``LS_LOCKSTEP_TOKEN``), which every other rank of the
 slice replays: the other pods open no consumer
 (:func:`run_slice_follower`), and every pod's started ranks follow the same
 leader. The platform's pod reaches these through ``serve_torch.register``,
-which points its two names at them.
+which points its two names at them. A mesh engine's KV handoff routes
+(``/kv/export`` pickups and ``/kv/import``) reach its leader, the one
+engine in the pod's instance map: its ranks replay the gathers and
+scatters, and a follower pod serves no handoff.
 """
 
 from __future__ import annotations

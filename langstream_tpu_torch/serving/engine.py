@@ -67,7 +67,13 @@ Execution model:
   consumes requests, admits, samples and, before every dispatch,
   broadcasts a step descriptor that the other ranks replay on their own
   engines (:mod:`langstream_tpu_torch.serving.lockstep`); only the leader
-  fetches. A broken group fails the work in flight and stops the engine.
+  fetches. The tiers' device moves are replayed too, in order with the
+  dispatches: a demotion or export gathers each rank's KV heads to the
+  leader, a promotion, hydration or import broadcasts whole rows from it
+  and every rank keeps its heads, an adapter row load broadcasts the
+  factors and every rank keeps its heads' share; the stores and their
+  entries (whole rows, the JAX layout) are the leader's. A broken group
+  fails the work in flight and stops the engine.
   Under ``sp`` a prompt whose padded length divides ``sp`` prefills
   sequence-parallel (ring attention over the ``sp`` ranks, the cache
   gathered whole on each); decode, verify and continuation run replicated
@@ -195,6 +201,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import hashlib
 import json
 import logging
 import math
@@ -253,6 +260,7 @@ from langstream_tpu_torch.models.moe import (
 from langstream_tpu_torch.models.paged import (
     BlockManager,
     PagedLayout,
+    gather_kv,
     init_paged_kv_cache,
     init_paged_kv_cache_int8,
 )
@@ -277,7 +285,6 @@ from langstream_tpu_torch.parallel.mesh import (
 from langstream_tpu_torch.models.tokenizer import Tokenizer, load_tokenizer
 from langstream_tpu_torch.ops import launch_counts
 from langstream_tpu_torch.serving.adapters import (
-    FACTOR_KEYS,
     AdapterStore,
     AdapterStoreSpec,
     AdapterUnavailable,
@@ -613,27 +620,16 @@ def _check_supported(config: ServingConfig) -> None:
             "adapter-store requires kv-layout=paged (batched ragged adapter "
             "application rides the paged decode/prefill programs)"
         )
-    if _multi_rank(config):
-        # lockstep followers replay only the model dispatches: no descriptor
-        # carries adapter rows, KV tier moves, or LSKV exports and imports
-        if config.adapter_store is not None and config.adapter_store.enabled:
-            raise ValueError(
-                "adapter-store is incompatible with multi-host "
-                "lockstep (followers replay positional dispatch "
-                "descriptors that carry no adapter rows)"
-            )
-        if config.prefix_store is not None and config.prefix_store.enabled:
-            raise ValueError(
-                "prefix-store is incompatible with a multi-rank mesh: the "
-                "lockstep followers replay no descriptor for KV tier moves "
-                "(demotion gathers and promotion scatters of pool blocks)"
-            )
-        if config.pool_role != "combined":
-            raise ValueError(
-                "pool-role prefill/decode is incompatible with a multi-rank "
-                "mesh: the lockstep followers replay no descriptor for LSKV "
-                "exports and imports"
-            )
+    if (config.adapter_store is not None and config.adapter_store.enabled
+            and _multi_rank(config) and launch.slice_hosts() > 1):
+        # the JAX engine refuses it on a slice of several hosts
+        # (process_count() > 1), in these words; a one-host mesh replays
+        # the adapter rows (the ``adapter_row`` frame)
+        raise ValueError(
+            "adapter-store is incompatible with multi-host "
+            "lockstep (followers replay positional dispatch "
+            "descriptors that carry no adapter rows)"
+        )
     if config.prefix_store is not None and config.prefix_store.enabled:
         if config.kv_layout != "paged":
             raise ValueError(
@@ -1119,7 +1115,10 @@ class TorchServingEngine:
         # one None test per loop pass. Fired faults hand off to the loop
         # through a deque: the seams run on the loop, the dispatch and fetch
         # threads and the hydrators, the flight ring is the loop's.
-        plans = tuple(config.faults) or plans_from_env()
+        # the seams are the leader's: a follower replays what the leader
+        # dispatched, so a fault fires once, on the leader, before its frame
+        plans = (tuple(config.faults) or plans_from_env()
+                 if self.lockstep_role != "follower" else ())
         self._faults: FaultInjector | None = FaultInjector(plans) if plans else None
         self._fault_fired: deque = deque()
         self.pool_shrinks = 0
@@ -1181,11 +1180,23 @@ class TorchServingEngine:
         self.prefix_t0_evictions = 0
         self.prefix_demote_fetches = 0
         self.prefix_demote_s = 0.0
+        # Under a mesh the leader alone keeps the stores (a follower only
+        # replays their device moves: the ``kv_gather``, ``kv_scatter`` and
+        # ``adapter_row`` frames), and their entries hold whole rows and
+        # factors, the JAX layout
+        self._tier_moves = {"kv_gather": 0, "kv_scatter": 0, "adapter_row": 0}
+        #: with ``LS_TORCH_TIER_DIGESTS=1``, ``(op, [digest per whole block])``
+        #: of this rank's own pool rows at every tier move (a gather's
+        #: before it, a scatter's read back after it), to hold a promotion
+        #: against its demotion on every rank
+        self.tier_digests: list | None = (
+            [] if os.environ.get("LS_TORCH_TIER_DIGESTS") == "1" else None)
+        leads = self.lockstep_role != "follower"
         if (config.prefix_store is not None and config.prefix_store.enabled
-                and self.block_mgr is not None and config.prefix_cache):
+                and self.block_mgr is not None and config.prefix_cache and leads):
             self.prefix_store = PrefixStore(
                 config.prefix_store, fingerprint=self.kv_fingerprint(),
-                block_bytes=self._kv_block_bytes,
+                block_bytes=self._tier_block_bytes,
                 rows_per_block=self.paged_layout.block_size,
                 fault_injector=self._faults,
             )
@@ -1209,17 +1220,22 @@ class TorchServingEngine:
         self._ad_layers: dict[str, torch.Tensor] | None = None
         self._ad_rows: np.ndarray | None = None
         if config.adapter_store is not None and config.adapter_store.enabled:
-            self.adapter_store = AdapterStore(
-                config.adapter_store, fingerprint=self.adapter_fingerprint(),
-                entry_bytes=self._adapter_entry_bytes(), fault_injector=self._faults,
-            )
+            if leads:
+                self.adapter_store = AdapterStore(
+                    config.adapter_store, fingerprint=self.adapter_fingerprint(),
+                    entry_bytes=self._adapter_entry_bytes(), fault_injector=self._faults,
+                )
             n_rows = config.adapter_store.t0_entries + 1
+            # this rank's share of each factor: its heads' columns of the
+            # q/k/v B factors and rows of the wo A factor under tp
             self._ad_layers = {
                 k: torch.zeros((mc.layers, n_rows, *shape), dtype=mc.dtype,
                                device=self.device)
-                for k, shape in self._adapter_factor_shapes().items()
+                for k, shape in self._adapter_factor_shapes(self.model_config).items()
             }
             self._ad_rows = np.zeros(config.slots, dtype=np.int32)
+            # the adapter each device row holds (every rank keeps it)
+            self._ad_row_names: dict[int, str] = {}
         self._init_metrics()
 
     # ------------------------------------------------------------------
@@ -1277,7 +1293,7 @@ class TorchServingEngine:
         """The mesh, this rank's place in it, its backend and why, the
         lockstep role, the slots its dp replica serves, its weights' device
         bytes and the device bytes their placement peaked at (None on the
-        CPU); None without a mesh."""
+        CPU), its tier moves; None without a mesh."""
         if self.mesh is None:
             return None
         return {**self.mesh.describe(), "lockstep-role": self.lockstep_role,
@@ -1287,7 +1303,14 @@ class TorchServingEngine:
                 "dp-slots": None if self._dp_span is None else list(self._dp_span),
                 "dp-prefill-split": self._dp_prefill_split,
                 "weights-bytes": self._weights_bytes,
-                "load-peak-bytes": self._load_peak_bytes}
+                "load-peak-bytes": self._load_peak_bytes,
+                # the tier moves this rank made (each a frame it led or
+                # replayed), the adapter in each device row, and with
+                # LS_TORCH_TIER_DIGESTS=1 each move's block digests
+                "tier-moves": dict(self._tier_moves),
+                "adapter-rows": (None if self._ad_layers is None else
+                                 {str(r): n for r, n in sorted(self._ad_row_names.items())}),
+                "tier-digests": self.tier_digests}
 
     def _warn_random_init(self) -> None:
         log.warning(
@@ -1414,6 +1437,8 @@ class TorchServingEngine:
             load, init, init_q8, quantize = (
                 load_llama_checkpoint, init_llama_params, init_llama_params_q8,
                 quantize_llama_params)
+        # the whole model's config (a rank's ``model_config`` has its heads)
+        self.global_model_config = mc
         if self.mesh is not None:
             cuda = dev.type == "cuda"
             if cuda:  # the device bytes the placement peaks at, reported
@@ -1422,7 +1447,6 @@ class TorchServingEngine:
             params = self._place_shards(params, mc, load, init_q8 if int8 else init, int8)
             self._load_peak_bytes = (torch.cuda.max_memory_allocated(dev) - base
                                      if cuda else None)
-            self.global_model_config = mc
             # the model runs on one dp replica's rows: its mesh has no dp
             replica = self.mesh.replica()
             self.model_config = mc = local_config(mc, replica)
@@ -1746,6 +1770,10 @@ class TorchServingEngine:
             self._kv_cache_bytes // self.paged_layout.num_blocks
             if self.block_mgr is not None else 0
         )
+        # a block of every KV head, what the prefix tiers hold and budget
+        # (this rank's block times the ranks its heads split over)
+        _, heads = self._tier_mesh()
+        self._tier_block_bytes = self._kv_block_bytes * (heads[1] if heads else 1)
         act_bytes = torch.empty((), dtype=mc.dtype).element_size()
         if self.is_moe:
             # routed experts: which ones fire is the data's, so the
@@ -3355,7 +3383,7 @@ class TorchServingEngine:
         if self._m_prefix_tier:
             self._m_prefix_tier["evictions"](1)
         self.flight.event("prefix-evict", tier="t0", digest=digest_hex[:16],
-                          bytes=self._kv_block_bytes, reason="pool-pressure")
+                          bytes=self._tier_block_bytes, reason="pool-pressure")
 
     def _emit_store_events(self, events) -> None:
         """Drain a tier store's pending events (prefix or adapter) into the
@@ -3431,7 +3459,7 @@ class TorchServingEngine:
         store = self.prefix_store
         if store is None or store.spec.t0_bytes is None:
             return False
-        if self.block_mgr.prefix_block_count() * self._kv_block_bytes <= store.spec.t0_bytes:
+        if self.block_mgr.prefix_block_count() * self._tier_block_bytes <= store.spec.t0_bytes:
             return False
         return bool(self.block_mgr.evictable_prefixes(1))
 
@@ -3517,22 +3545,67 @@ class TorchServingEngine:
         self._emit_store_events(self.prefix_store.drain_events())
         return len(blocks)
 
+    def _tier_mesh(self):
+        """The mesh a tier move goes through and this rank's ``(index,
+        count)`` share of the KV heads: ``(None, None)`` without a mesh of
+        several ranks; the share None where every rank holds every head
+        (the heads do not split over ``tp``)."""
+        mesh = self.mesh
+        if mesh is None or mesh.world_size <= 1:
+            return None, None
+        if not self.model_config.shard.attention:
+            return mesh, None
+        return mesh, (mesh.index("tp"), mesh.size("tp"))
+
+    def _tier_note(self, op: str, table_row, blocks: int) -> None:
+        """Count a tier move on this rank and, with :attr:`tier_digests`
+        on, keep a digest of each of the first ``blocks`` whole blocks of
+        ``table_row`` as this rank's pools hold them (one host read)."""
+        self._tier_moves[op] += 1
+        if self.tier_digests is None:
+            return
+        tables = kvtransfer.upload(np.asarray(table_row, dtype=np.int32)[None, :blocks],
+                                   self.device)
+        leaves = []
+        for cache in (self.cache_k, self.cache_v):
+            got = gather_kv(cache, tables, blocks)
+            leaves += [got[k] for k in sorted(got)] if isinstance(got, dict) else [got]
+        bs = self.paged_layout.block_size
+        host = [leaf[:, 0].cpu() for leaf in leaves]
+        self.tier_digests.append((op, [
+            hashlib.blake2b(b"".join(h[:, i * bs:(i + 1) * bs].contiguous().view(torch.uint8)
+                                     .numpy().tobytes() for h in host),
+                            digest_size=16).hexdigest()
+            for i in range(blocks)]))
+
     @torch.no_grad()
     def _run_scatter(self, arrays, table_row, rows: int, padded: int) -> float:
         """Dispatch thread: write host rows into the pools through one
         block-table row (a promotion or an import), then wait for the
         scatter. Returns its device seconds: the CUDA-event span on the
-        card, the wall of the (synchronous) scatter on the CPU."""
+        card, the wall of the (synchronous) scatter on the CPU.
+
+        Under a mesh every rank runs it (the ``kv_scatter`` frame; a
+        follower with ``arrays=None``): the leader broadcasts the whole
+        rows and each rank writes its heads' share, in every dp replica."""
         self._fault("scatter")
+        self._ls_broadcast("kv_scatter",
+                           table=np.asarray(table_row, dtype=np.int32),
+                           rows=int(rows), padded=int(padded))
+        mesh, heads = self._tier_mesh()
         start = self._timing_event()
         t0 = time.monotonic()
         self.cache_k, self.cache_v = kvtransfer.scatter_slot(
-            self.cache_k, self.cache_v, arrays, table_row, rows, padded)
+            self.cache_k, self.cache_v, arrays, table_row, rows, padded,
+            mesh=mesh, heads=heads)
         end = self._timing_event()
         if end is None:
-            return time.monotonic() - t0
-        end.synchronize()
-        return self._span_s(start, end)
+            seconds = time.monotonic() - t0
+        else:
+            end.synchronize()
+            seconds = self._span_s(start, end)
+        self._tier_note("kv_scatter", table_row, rows // self.paged_layout.block_size)
+        return seconds
 
     async def _demote_prefix_blocks(self, loop) -> None:
         """T0 byte-budget enforcement at the loop's safe point: while the
@@ -3542,12 +3615,12 @@ class TorchServingEngine:
         admission."""
         store = self.prefix_store
         budget = store.spec.t0_bytes
-        if budget is None or self._kv_block_bytes <= 0:
+        if budget is None or self._tier_block_bytes <= 0:
             return
-        over = self.block_mgr.prefix_block_count() * self._kv_block_bytes - budget
+        over = self.block_mgr.prefix_block_count() * self._tier_block_bytes - budget
         if over <= 0:
             return
-        candidates = self.block_mgr.evictable_prefixes(min(4, -(-over // self._kv_block_bytes)))
+        candidates = self.block_mgr.evictable_prefixes(min(4, -(-over // self._tier_block_bytes)))
         if not candidates:
             return
         table_row = np.asarray([b for _, b, _ in candidates], dtype=np.int32)
@@ -3562,16 +3635,44 @@ class TorchServingEngine:
         self._emit_store_events(self.prefix_store.drain_events())
 
     @torch.no_grad()
-    def _run_gather(self, table_row, rows: int | None):
+    def _run_gather(self, table_row, rows: int | None, replica: int = 0):
         """Dispatch thread: gather the blocks of one table row and fetch
         them in one timed device-to-host fetch: their first ``rows`` rows
         (:func:`kvtransfer.fetch_rows`, an export), or block by block with
-        ``rows=None`` (:func:`kvtransfer.fetch_blocks`, a demotion)."""
+        ``rows=None`` (:func:`kvtransfer.fetch_blocks`, a demotion).
+
+        Under a mesh every rank runs it (the ``kv_gather`` frame) and the
+        leader alone fetches (a follower returns None): the rows of dp
+        ``replica`` (the one that holds them; the pools are not split on
+        dp), each rank's heads all-gathered over its ``tp`` group and, from
+        another replica than the leader's, broadcast over ``dp``. The ranks
+        of other replicas take no part in a gather of the leader's."""
+        self._ls_broadcast("kv_gather",
+                           table=np.asarray(table_row, dtype=np.int32), rows=rows,
+                           replica=replica or None)
+        n = len(table_row)
+        mesh, heads = self._tier_mesh()
+        self._tier_note("kv_gather", table_row,
+                        n if rows is None else rows // self.paged_layout.block_size)
+        if mesh is not None and replica == 0 and mesh.index("dp") != 0:
+            return None
         gathered_k, gathered_v = kvtransfer.gather_slot(
-            self.cache_k, self.cache_v, table_row, len(table_row))
+            self.cache_k, self.cache_v, table_row, n, mesh=mesh,
+            split=heads is not None, replica=replica)
+        if self.lockstep_role == "follower":
+            return None
         if rows is None:
-            return kvtransfer.fetch_blocks(gathered_k, gathered_v, len(table_row))
+            return kvtransfer.fetch_blocks(gathered_k, gathered_v, n)
         return kvtransfer.fetch_rows(gathered_k, gathered_v, rows)
+
+    def _slot_replica(self, slot_id: int) -> int:
+        """The dp replica whose pools hold a slot's rows: its own under a
+        dp split of the prefill (each replica prefills its slots' rows),
+        else the leader's (every replica holds every prompt row)."""
+        if not self._dp_prefill_split:
+            return 0
+        lo, hi = self._dp_span
+        return slot_id // (hi - lo)
 
     def prefix_store_section(self) -> dict[str, Any]:
         """``stats()["prefixstore"]``: per-tier bytes against budget, hit,
@@ -3579,13 +3680,13 @@ class TorchServingEngine:
         engine's keys); snapshot reads and arithmetic."""
         store = self.prefix_store
         t0_blocks = self.block_mgr.prefix_block_count()
-        self._m_prefix_tier["t0_bytes"](t0_blocks * self._kv_block_bytes)
+        self._m_prefix_tier["t0_bytes"](t0_blocks * self._tier_block_bytes)
         self._m_prefix_tier["t1_bytes"](store.t1_bytes)
         self._m_prefix_tier["t2_bytes"](store.t2_bytes)
         return {
             "t0": {
                 "blocks": t0_blocks,
-                "bytes": t0_blocks * self._kv_block_bytes,
+                "bytes": t0_blocks * self._tier_block_bytes,
                 "budget_bytes": store.spec.t0_bytes,
                 "hits": self.prefix_hits,
                 "tokens_reused": self.prefix_tokens,
@@ -3608,7 +3709,7 @@ class TorchServingEngine:
         (so both packages' blobs cross): serialized into every T2 header
         and checked on fetch (a mismatch is refused AND deleted).
         Attribute reads only."""
-        mc = self.model_config
+        mc = self.global_model_config
         spec = self.config.adapter_store
         return {
             "model": self.config.model,
@@ -3621,9 +3722,10 @@ class TorchServingEngine:
             "head-dim": mc.head_dim,
         }
 
-    def _adapter_factor_shapes(self) -> dict[str, tuple[int, int]]:
-        """One layer's shape of each LoRA factor at the store's rank."""
-        mc = self.model_config
+    def _adapter_factor_shapes(self, mc=None) -> dict[str, tuple[int, int]]:
+        """One layer's shape of each LoRA factor at the store's rank, of the
+        whole model (``mc`` None) or of ``mc``'s heads (a rank's share)."""
+        mc = mc or self.global_model_config
         r = self.config.adapter_store.rank
         q_dim = mc.heads * mc.head_dim
         kv_dim = mc.kv_heads * mc.head_dim
@@ -3636,8 +3738,9 @@ class TorchServingEngine:
 
     def _adapter_entry_bytes(self) -> int:
         """Device bytes one resident adapter row occupies across the eight
-        stacked factor buffers (all layers, model dtype)."""
-        mc = self.model_config
+        stacked factor buffers (all layers, model dtype; the whole model's
+        factors, as the store's tiers hold them)."""
+        mc = self.global_model_config
         per_layer = sum(a * b for a, b in self._adapter_factor_shapes().values())
         return mc.layers * per_layer * torch.empty((), dtype=mc.dtype).element_size()
 
@@ -3715,27 +3818,56 @@ class TorchServingEngine:
         store = self.adapter_store
         arrays = store.t1_peek(name)["arrays"]
         device_ms = await loop.run_in_executor(
-            self._executor, partial(self._run_adapter_load, arrays, row))
+            self._executor, partial(self._run_adapter_load, arrays, row, name))
         store.note_loaded(name, row, device_ms)
 
     @torch.no_grad()
-    def _run_adapter_load(self, arrays: dict[str, Any], row: int) -> float:
+    def _run_adapter_load(self, arrays: dict[str, Any] | None, row: int,
+                          name: str | None = None) -> float:
         """Dispatch thread: write one adapter's factors into row ``row`` of
-        the stacked buffers in place. Each host factor uploads from pinned
-        memory without blocking (the caching host allocator keeps the
-        staging block until its copy has run) and converts to the model
-        dtype on the card; one timed wait for the copies. Returns their
-        device milliseconds: the CUDA-event span on the card, the wall on
-        the CPU."""
+        the stacked buffers in place (the row's previous adapter, if any,
+        is evicted by it). Each host factor uploads from pinned memory
+        without blocking (the caching host allocator keeps the staging
+        block until its copy has run) and converts to the model dtype on
+        the card; one timed wait for the copies. Returns their device
+        milliseconds: the CUDA-event span on the card, the wall on the CPU.
+
+        Under a mesh every rank runs it (the ``adapter_row`` frame; a
+        follower with ``arrays=None``): the leader broadcasts each whole
+        factor and each rank keeps its share (:meth:`_adapter_share`)."""
+        self._ls_broadcast("adapter_row", row=int(row), name=name)
+        mesh, _ = self._tier_mesh()
+        layers = self.model_config.layers
         start = self._timing_event()
         t0 = time.monotonic()
-        for k in FACTOR_KEYS:
-            self._ad_layers[k][:, row].copy_(kvtransfer.upload(arrays[k], self.device))
+        for k, shape in self._adapter_factor_shapes().items():
+            buf = self._ad_layers[k][:, row]
+            if mesh is None:
+                buf.copy_(kvtransfer.upload(arrays[k], self.device))
+                continue
+            whole = (kvtransfer.upload(arrays[k], self.device).to(buf.dtype)
+                     if arrays is not None else
+                     torch.empty((layers, *shape), dtype=buf.dtype, device=self.device))
+            buf.copy_(self._adapter_share(mesh.broadcast(whole, tag="adapter-rows"), buf))
+        self._ad_row_names[row] = name
+        self._tier_moves["adapter_row"] += 1
         end = self._timing_event()
         if end is None:
             return (time.monotonic() - t0) * 1e3
         end.synchronize()
         return self._span_s(start, end) * 1e3
+
+    def _adapter_share(self, whole: torch.Tensor, buf: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a whole ``(L, d_in, d_out)`` factor, the
+        shape of its buffer row ``buf``: under tp its heads' columns of a
+        q/k/v B factor and rows of the wo A factor (the heads' slices of
+        ``wq``/``wk``/``wv``/``wo``), the others whole."""
+        index = self.mesh.index("tp")
+        for dim in (1, 2):
+            n = buf.shape[dim]
+            if whole.shape[dim] != n:
+                whole = whole.narrow(dim, index * n, n)
+        return whole
 
     def _adapter_release(self, request: _Request) -> None:
         """Release a finished, failed or preempted request's pin on its
@@ -3823,8 +3955,9 @@ class TorchServingEngine:
     def kv_fingerprint(self) -> dict[str, Any]:
         """The layout facts a KV handoff or a T2 prefix blob must agree on,
         spelled as the JAX engine spells them (so the packages' payloads
-        and blobs cross); attribute reads only."""
-        mc = self.model_config
+        and blobs cross; the whole model's heads under a mesh, whose tiers
+        and payloads hold whole rows); attribute reads only."""
+        mc = self.global_model_config
         return {
             "model": self.config.model,
             "dtype": _DTYPE_NAMES[mc.dtype],
@@ -3962,7 +4095,8 @@ class TorchServingEngine:
         blocks_live = self.block_mgr.blocks_needed(max(rows, 1))
         table_row = self.block_mgr.tables[slot_id, :blocks_live].copy()
         arrays, device_s = await loop.run_in_executor(
-            self._executor, partial(self._run_gather, table_row, rows))
+            self._executor, partial(self._run_gather, table_row, rows,
+                                    self._slot_replica(slot_id)))
         self._export_seq += 1
         rid = f"{self.config.model}-{self._export_seq:08d}"
         now = time.monotonic()
@@ -4732,6 +4866,7 @@ class TorchServingEngine:
             sampler_mode=[bool(x) for x in mode],
             starts=None if cont is None else cont[0],
             nrb=None if cont is None else int(cont[1]),
+            ad_rows=ad_rows,  # None (left out) without an adapter store
         )
         mc, up = self.model_config, self._upload
         start = self._timing_event()
@@ -5136,7 +5271,8 @@ class TorchServingEngine:
                 lengths=lengths if op == "decode" else None,
                 active=sampler[0], temps=sampler[1], topks=sampler[2], topps=sampler[3],
                 tables=tables, window=None if window is None else int(window),
-                k=int(K), sampler_mode=[bool(x) for x in mode], **pen_fields,
+                k=int(K), sampler_mode=[bool(x) for x in mode], ad_rows=ad_rows,
+                **pen_fields,
             )
         self.profiler.on_decode_chunk()
         start = self._timing_event()
@@ -5486,6 +5622,7 @@ class TorchServingEngine:
             "spec_step", ctx_rows=ctx_rows, ctx_vals=ctx_vals, current=current,
             lengths=lengths, active=active_mask, tables=tables, nrb=int(nrb),
             sampler_mode=[bool(x) for x in mode], temps=temps, topks=topks, topps=topps,
+            ad_rows=ad_rows,
         )
         up = self._upload
         start = self._timing_event()

@@ -26,7 +26,10 @@ Device side: :func:`gather_slot` densifies one slot's blocks through
 is the export's ONE device sync (timed, on the engine's dispatch thread);
 :func:`scatter_slot` writes imported rows back through
 :func:`~langstream_tpu_torch.models.paged.write_rows`. Uploads go through
-pinned memory without blocking, as the engine's do.
+pinned memory without blocking, as the engine's do. Under a mesh each rank
+holds its KV heads: a gather all-gathers the heads over ``tp`` into whole
+rows, a scatter broadcasts whole rows from rank 0 and each rank writes its
+heads, so payloads and blobs keep the layout above.
 """
 
 from __future__ import annotations
@@ -258,16 +261,40 @@ def upload(array, device: torch.device) -> torch.Tensor:
     return t.clone()
 
 
-def gather_slot(cache_k, cache_v, table_row, num_blocks: int):
+def _each_leaf(tree, fn):
+    """``fn(leaf)`` over a pool's or a row payload's leaves (a tensor, or an
+    int8 ``{"q", "s"}`` pair)."""
+    if isinstance(tree, dict):
+        return {name: fn(leaf) for name, leaf in tree.items()}
+    return fn(tree)
+
+
+def gather_slot(cache_k, cache_v, table_row, num_blocks: int, mesh=None,
+                split: bool = False, replica: int = 0):
     """Queue the gather of one slot's first ``num_blocks`` K and V blocks.
     Returns device tensors ``(L, 1, num_blocks * bs, ...)`` (int8 pools:
-    the ``{"q", "s"}`` pair each); :func:`fetch_rows` syncs and slices."""
+    the ``{"q", "s"}`` pair each); :func:`fetch_rows` syncs and slices.
+
+    Under ``mesh`` every rank that takes part gathers the same blocks.
+    ``split``: the pools hold this rank's KV heads (its share of the fused
+    head axis, the scales' too), so each rank's rows are all-gathered over
+    its ``tp`` group in ``tp`` order, whole rows in the JAX package's
+    layout. ``replica``: the dp replica whose rows these are, broadcast
+    over ``dp`` from it when it is not the first."""
     device = _pool_device(cache_k)
     tables = upload(np.asarray(table_row, dtype=np.int32)[None, :num_blocks], device)
-    return (
-        gather_kv(cache_k, tables, num_blocks),
-        gather_kv(cache_v, tables, num_blocks),
-    )
+    rows = (gather_kv(cache_k, tables, num_blocks), gather_kv(cache_v, tables, num_blocks))
+    if mesh is None:
+        return rows
+
+    def whole(x):
+        if split:
+            x = mesh.all_gather(x, "tp", x.dim() - 1, tag="kv-tier")
+        if replica:
+            x = mesh.broadcast(x, "dp", replica, tag="kv-tier")
+        return x
+
+    return tuple(_each_leaf(t, whole) for t in rows)
 
 
 def _leaves(tree, prefix: str) -> dict[str, torch.Tensor]:
@@ -387,15 +414,52 @@ def _rows_tree(arrays: dict[str, Any], prefix: str, rows: int, padded: int,
     return quant
 
 
-def scatter_slot(cache_k, cache_v, arrays: dict[str, Any], table_row,
-                 rows: int, padded_rows: int):
+def _whole_rows(arrays: dict[str, Any] | None, prefix: str, cache, rows: int,
+                padded: int, mesh, heads: tuple[int, int] | None):
+    """One cache's padded rows on this rank's device, of this rank's heads.
+    Without ``mesh``: :func:`_rows_tree` of ``arrays``. Under ``mesh``, rank
+    0 alone passes ``arrays``: it uploads them whole, in the pool's dtypes,
+    and broadcasts them to every rank (the others receive into buffers of
+    the whole rows' shape); ``heads = (index, count)`` then keeps this
+    rank's share of the fused head axis (None: every rank holds every
+    head)."""
+    device = _pool_device(cache)
+    if arrays is not None:
+        tree = _rows_tree(arrays, prefix, rows, padded, device)
+        if mesh is None:
+            return tree
+        tree = (tree.to(cache.dtype) if not isinstance(tree, dict)
+                else {leaf: tree[leaf].to(cache[leaf].dtype) for leaf in tree})
+    else:
+        count = 1 if heads is None else heads[1]
+        tree = _each_leaf(cache, lambda pool: torch.empty(
+            (pool.shape[0], 1, padded, pool.shape[3] * count), dtype=pool.dtype,
+            device=device))
+    tree = _each_leaf(tree, lambda x: mesh.broadcast(x, tag="kv-tier"))
+    if heads is None:
+        return tree
+    index, count = heads
+
+    def mine(x):
+        width = x.shape[-1] // count
+        return x.narrow(-1, index * width, width)
+
+    return _each_leaf(tree, mine)
+
+
+def scatter_slot(cache_k, cache_v, arrays: dict[str, Any] | None, table_row,
+                 rows: int, padded_rows: int, mesh=None,
+                 heads: tuple[int, int] | None = None):
     """Write an imported slot's rows into the pools (in place) through the
     slot's freshly allocated block-table row. ``arrays`` maps each manifest
     name to an ``(L, rows, ...)`` host array or to a list of them in row
-    order. Queued on the stream, no sync; returns the (same) pools."""
+    order. Queued on the stream, no sync (but for a mesh's broadcast);
+    returns the (same) pools. Under ``mesh`` every rank calls it, rank 0
+    with the whole rows and the others with ``arrays=None``
+    (:func:`_whole_rows`)."""
     device = _pool_device(cache_k)
-    k_rows = _rows_tree(arrays, "k", rows, padded_rows, device)
-    v_rows = _rows_tree(arrays, "v", rows, padded_rows, device)
+    k_rows = _whole_rows(arrays, "k", cache_k, rows, padded_rows, mesh, heads)
+    v_rows = _whole_rows(arrays, "v", cache_v, rows, padded_rows, mesh, heads)
     tables = upload(np.asarray(table_row, dtype=np.int32)[None, :], device)
     starts = upload(np.zeros((1,), dtype=np.int32), device)
     valid = upload((np.arange(padded_rows) < rows)[None, :], device)

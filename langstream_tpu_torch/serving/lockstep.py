@@ -14,7 +14,19 @@ chunk, speculative step), its static choices (window, steps per chunk,
 sampler mode) and its host inputs (token ids, lengths, block tables, slot
 masks, sampling settings, and the state of the engine's generator).
 Followers replay each descriptor as the same call of the port's engine on
-their shards (:meth:`LockstepFollower.run`). Ordering is TCP FIFO; the
+their shards (:meth:`LockstepFollower.run`). With an adapter store, the
+prefill, decode and speculative frames also carry each row's adapter row
+(``ad_rows``); an engine without one sends the JAX package's frames.
+
+The tiers move rows on every rank too, in order with the model calls, on
+the dispatch thread: ``kv_gather`` (a table row and the rows to fetch, none
+for a demotion's whole blocks; a T0 demotion or an LSKV export),
+``kv_scatter`` (a table row, the rows and their padded length; a T1
+promotion, a T2 hydration's landing or an LSKV import) and ``adapter_row``
+(an adapter loaded into a T0 row, evicting the row's last one). The frame
+carries only the move; the rows themselves go through the mesh's
+collectives (each rank's heads all-gathered to the leader, whole rows
+broadcast from it), since a demotion wave is megabytes to gigabytes. Ordering is TCP FIFO; the
 device collectives ride ``torch.distributed``. Every rank samples from the
 same gathered logits with the same generator state, so every rank ends a
 chunk with the same tokens, and a ``decode_cont`` chunk chains each
@@ -35,8 +47,8 @@ engine that joins an open channel announces itself with a frame the
 followers build it from (``engine`` for a serving engine, the first
 ``embed`` for an embeddings engine). The last :func:`release` sends
 ``stop``. The serving engine's frames are byte for byte the JAX package's;
-``engine`` and ``embed`` are the port's own (the JAX embeddings engine
-runs its mesh in one process and needs no frame).
+``engine``, ``embed`` and the three tier moves are the port's own (the JAX
+engines run a one-host mesh in one process and need no frame).
 
 Wire format (no pickle; the channel crosses pod boundaries), byte for
 byte the JAX package's: ``u32 big-endian frame length | u32 header length
@@ -527,6 +539,7 @@ class LockstepFollower:
                     tokens, lengths,
                     (desc["active"], desc["temps"], desc["topks"], desc["topps"]),
                     desc.get("tables"), desc.get("window"), K, _mode(desc), pen,
+                    desc.get("ad_rows"),
                 )
                 self._record(op, engine._wait_chunk(handle, K)[0])
             elif op in ("prefill", "prefill_continue"):
@@ -536,14 +549,24 @@ class LockstepFollower:
                 self._record(op, engine._run_prefill(
                     desc["tokens"], desc["lengths"], desc["slot_ids"],
                     desc.get("tables"), desc["temps"], desc["topks"],
-                    desc["topps"], _mode(desc), cont=cont,
+                    desc["topps"], _mode(desc), cont=cont, ad_rows=desc.get("ad_rows"),
                 )[0])
             elif op == "spec_step":
                 self._record(op, engine._run_spec_step(
                     desc.get("ctx_rows"), desc.get("ctx_vals"), desc["current"],
                     desc["lengths"], desc["active"], desc["tables"], int(desc["nrb"]),
                     _mode(desc), desc["temps"], desc["topks"], desc["topps"],
+                    desc.get("ad_rows"),
                 )[0][0])
+            # the tier moves: this rank's share of the leader's gather (its
+            # rows go to the leader), scatter (the rows come from it) or
+            # adapter row load (the factors come from it)
+            elif op == "kv_gather":
+                engine._run_gather(desc["table"], desc.get("rows"), int(desc.get("replica", 0)))
+            elif op == "kv_scatter":
+                engine._run_scatter(None, desc["table"], int(desc["rows"]), int(desc["padded"]))
+            elif op == "adapter_row":
+                engine._run_adapter_load(None, int(desc["row"]), desc.get("name"))
             else:
                 raise RuntimeError(f"unknown lockstep op {op!r}")
             engine._ls_seq += 1

@@ -338,19 +338,23 @@ def test_follower_death_mid_burst_leader_fails_loud(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("overrides,error,match", [
-    ({"kv-layout": "paged", "adapter-store": {"rank": 4}}, ValueError,
-     "adapter-store is incompatible with multi-host lockstep"),
-    ({"kv-layout": "paged", "prefix-store": {"t2": {"type": "local", "path": "x"}}},
-     ValueError, "prefix-store is incompatible with a multi-rank mesh"),
-    ({"kv-layout": "paged", "pool-role": "decode"}, ValueError,
-     "pool-role prefill/decode is incompatible with a multi-rank mesh"),
+@pytest.mark.parametrize("overrides,error,match,slice_hosts", [
+    # a one-host mesh serves the adapter store (the adapter_row frame); a
+    # slice of several hosts refuses it in the JAX engine's words, as the
+    # JAX engine does when process_count() > 1 (prefix-store and pool-role
+    # serve under every mesh, so their cases went with their refusals)
+    pytest.param({"kv-layout": "paged", "adapter-store": {"rank": 4}}, ValueError,
+                 "adapter-store is incompatible with multi-host lockstep", "2",
+                 id="overrides0-ValueError-adapter-store is incompatible with multi-host "
+                    "lockstep"),
     # sp is served since the sequence-parallel slice: the case keeps its id,
     # and one process is refused by the mesh's count of ranks only
-    pytest.param({"mesh": {"sp": 2, "tp": 2}}, ValueError, "needs 4 devices, have 1",
+    pytest.param({"mesh": {"sp": 2, "tp": 2}}, ValueError, "needs 4 devices, have 1", None,
                  id="overrides3-NotImplementedError-item 13b"),
 ])
-def test_refusals_under_a_mesh(overrides, error, match):
+def test_refusals_under_a_mesh(overrides, error, match, slice_hosts, monkeypatch):
+    if slice_hosts is not None:
+        monkeypatch.setenv("LS_SLICE_HOSTS", slice_hosts)
     cfg = ServingConfig.from_dict({**TINY, "mesh": {"tp": 2}, **overrides})
     with pytest.raises(error, match=match):
         TorchServingEngine(cfg, device="cpu")
