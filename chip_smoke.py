@@ -294,6 +294,21 @@ Phases (every one unguarded: any failure exits non-zero):
    fingerprints equal a tp=1 prefill engine's and their dequantized rows
    are within ``R3_TOL`` of its max abs. Kernels #1-#4 each launch on both
    ranks over R; every started rank exits 0;
+   main path S (after R): the port in the cluster, from the manifests of
+   the port's k8s factory (``langstream_tpu_torch/k8s/resources.py``). S1:
+   the StatefulSet of an agent whose device mesh has the card count asks
+   for that many ``nvidia.com/gpu``, and the entry its node selector names
+   is the card ``torch.cuda.get_device_name(0)`` reports. S2: the
+   StatefulSet of the ``h100-2g`` entry (hosts of 2 cards) for a device
+   mesh of 4 cards: 2 pods, ``LOCAL_WORLD_SIZE=2``; a manifest whose ranks
+   disagree with the resource's mesh is refused in the launcher's words;
+   its two pods run as ``--q2-pod`` processes whose env is the runtime
+   container's, resolved as a kubelet would (``LS_POD_NAME`` from the
+   ``fieldRef``, the coordinator's service name as 127.0.0.1), each
+   starting its second rank: llama3-8b int8 weights and int8 paged KV at
+   full width and ``S_LAYERS`` layers, ``{dp: 2, tp: 2}``, 8 prompts, 32
+   greedy tokens, held to a one-rank engine of the same seed by the
+   first-token rule; kernels #1 and #3 on every rank; every rank exits 0;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -320,8 +335,8 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-R,
-   rank 0's on N, O, Q and R; each row carries a ``tp2_rank`` entry, phase 2's case
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-S,
+   rank 0's on N, O, Q, R and S; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -6015,8 +6030,11 @@ def q2_pod(resource: str, prompts: str, max_tokens: str, device: str, out_path: 
             finally:
                 await engine.close()
 
-        out = {"tokens": [list(r["tokens"]) for r in asyncio.run(drive())],
-               "mesh": engine.mesh_section()}
+        t0 = time.monotonic()
+        results = asyncio.run(drive())
+        out = {"tokens": [list(r["tokens"]) for r in results],
+               "logprobs": [list(r["logprobs"]) for r in results],
+               "serve_s": time.monotonic() - t0, "mesh": engine.mesh_section()}
     out.update(launched=world.describe(), kernels=launch_counts())
     Path(out_path).write_text(json.dumps(out))
     return 0
@@ -6539,6 +6557,193 @@ def phase_store_mesh_path(torch, device="cuda") -> dict:
     return rank0
 
 
+# ---------------------------------------------------------------------------
+# path S: the port in the cluster
+# ---------------------------------------------------------------------------
+
+#: S2's serving resource: llama3-8b at full width, int8 weights and int8
+#: paged KV from seed 0, at ``S_LAYERS`` of its 32 layers, over the slice's
+#: four ranks
+S_LAYERS = 4
+S_RESOURCE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged",
+              "kv-quantize": "int8", "slots": 8, "max-seq-len": 2048, "decode-chunk": 32,
+              "seed": 0, "mesh": {"dp": 2, "tp": 2}}
+S_MAX_TOKENS = 32
+S_ACCELERATOR = "h100-2g"  # hosts of 2 cards: a mesh of 4 is 2 pods of 2 ranks
+
+
+def s_agent_cr(device_mesh: dict) -> dict:
+    """An Agent CR, as the operator receives it, whose agent asks for
+    ``device_mesh``."""
+    return {"apiVersion": "langstream.tpu/v1alpha1", "kind": "Agent",
+            "metadata": {"name": "smoke-chat", "namespace": "langstream-smoke"},
+            "spec": {"tenant": "smoke", "applicationId": "smoke", "agentId": "chat",
+                     "image": "langstream-tpu-torch/runtime:latest",
+                     "agentConfigSecretRef": "smoke-chat-config",
+                     "agentConfigSecretRefChecksum": "path-s",
+                     "resources": {"parallelism": 1, "size": 1,
+                                   "deviceMesh": device_mesh}}}
+
+
+def pod_env(sts: dict, ordinal: int) -> dict:
+    """The runtime container's env of pod ``ordinal`` of ``sts`` as a
+    kubelet gives it: ``LS_POD_NAME`` from its ``fieldRef`` as
+    ``<sts>-<ordinal>``, the coordinator's headless-service name resolved
+    to 127.0.0.1 (where every pod of this host listens)."""
+    env = {}
+    for var in sts["spec"]["template"]["spec"]["containers"][0]["env"]:
+        if "value" in var:
+            env[var["name"]] = var["value"]
+        elif var["valueFrom"]["fieldRef"]["fieldPath"] == "metadata.name":
+            env[var["name"]] = f"{sts['metadata']['name']}-{ordinal}"
+    env["LS_COORDINATOR_ADDRESS"] = "127.0.0.1:" + env["LS_COORDINATOR_ADDRESS"].rsplit(":", 1)[1]
+    return env
+
+
+def s1_placement(torch, smi: str) -> dict:
+    """S1: the port factory's StatefulSet for an agent whose device mesh has
+    this machine's card count asks for that many cards, on a node pool
+    whose entry names the card found."""
+    from langstream_tpu_torch.k8s.resources import GPU_TOPOLOGIES, AgentResourcesFactory
+
+    count = torch.cuda.device_count()
+    (sts,) = AgentResourcesFactory.generate_statefulsets(s_agent_cr({"tp": count}))
+    pod = sts["spec"]["template"]["spec"]
+    resources = pod["containers"][0]["resources"]
+    asked = (resources["limits"].get("nvidia.com/gpu"),
+             resources["requests"].get("nvidia.com/gpu"))
+    if asked != (str(count), str(count)):
+        fail(f"path S1: the StatefulSet asks for {asked} cards, the machine has {count}")
+    entries = [n for n, t in GPU_TOPOLOGIES.items() if t.node_selector == pod["nodeSelector"]]
+    card = torch.cuda.get_device_name(0)
+    if not entries or GPU_TOPOLOGIES[entries[0]].card != card:
+        fail(f"path S1: the node selector {pod['nodeSelector']} (entries {entries}) does not "
+             f"name the card found, {card!r}")
+    return {"cards": count, "entry": entries[0], "node_selector": pod["nodeSelector"],
+            "card": card, "nvidia_smi": smi}
+
+
+def s2_refusals(device="cuda") -> list[str]:
+    """A manifest whose ranks disagree with the resource's mesh is refused
+    at the pod's start, in the launcher's words, before anything starts:
+    one host of 2 ranks for a mesh of 4, and a slice of 4 hosts x 2 ranks
+    for it."""
+    from langstream_tpu_torch.k8s.resources import AgentResourcesFactory
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    said = []
+    for accelerator, cards, words in (
+            ("h100", 2, "needs 4 devices, have 2"),
+            (S_ACCELERATOR, 8, "a slice of 4 hosts x 2 local ranks has 8")):
+        (sts,) = AgentResourcesFactory.generate_statefulsets(
+            s_agent_cr({"tp": cards}), accelerator=accelerator, device=device)
+        with environment(**pod_env(sts, 0)):
+            try:
+                TorchServingEngine(ServingConfig.from_dict(S_RESOURCE), device=device)
+            except ValueError as e:
+                if words not in str(e):
+                    fail(f"path S2: a {cards}-card manifest was refused otherwise: {e}")
+                said.append(str(e))
+                continue
+        fail(f"path S2: a {cards}-card manifest served a mesh of 4")
+    return said
+
+
+def s2_slice(torch, device="cuda") -> dict:
+    """S2: the 2-host slice from the ``S_ACCELERATOR`` manifest of a 4-card
+    device mesh, its two pods as processes (``--q2-pod``) with the runtime
+    container's env, at ``S_LAYERS`` (a ``sitecustomize`` on their
+    ``PYTHONPATH``, inherited by the ranks they start), held to a one-rank
+    engine of the same seed. Returns the leader rank's launches."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.k8s.resources import AgentResourcesFactory
+
+    (sts,) = AgentResourcesFactory.generate_statefulsets(
+        s_agent_cr(S_RESOURCE["mesh"]), accelerator=S_ACCELERATOR, device=device)
+    envs = [pod_env(sts, i) for i in range(sts["spec"]["replicas"])]
+    if len(envs) != 2 or any(e["LOCAL_WORLD_SIZE"] != "2" or e["LS_SLICE_HOSTS"] != "2"
+                             for e in envs):
+        fail(f"path S2: the manifest is not 2 pods of 2 ranks: {envs}")
+    refusals = s2_refusals(device)
+    prompts = chat_prompts()
+    site = tempfile.mkdtemp(prefix="chip-smoke-site-")
+    Path(site, "sitecustomize.py").write_text(_DEPTH_SITE)
+    tmp = Path(os.environ.get("TMPDIR", "/tmp"))
+    pods = []
+    t0 = time.monotonic()
+    try:
+        for env in envs:
+            out = tmp / f"chip_smoke_{env['LS_POD_NAME']}_{os.getpid()}.json"
+            with open(out.with_suffix(".log"), "wb") as log_file:  # a file, not a pipe
+                proc = subprocess.Popen(
+                    [sys.executable, str(REPO / "chip_smoke.py"), "--q2-pod",
+                     json.dumps(S_RESOURCE), json.dumps(prompts), str(S_MAX_TOKENS), device,
+                     str(out)], cwd=REPO, stdout=subprocess.DEVNULL, stderr=log_file,
+                    env={**os.environ, **env, "LS_SMOKE_LAYERS": str(S_LAYERS),
+                         "PYTHONPATH": os.pathsep.join((site, str(REPO)))})
+            pods.append((env["LS_POD_NAME"], proc, out))
+        deadline = time.monotonic() + 300
+        for name, proc, out in pods:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for _, other, _ in pods:
+                    other.kill()
+                    other.wait()
+            err = out.with_suffix(".log").read_text(errors="replace")[-3000:]
+            out.with_suffix(".log").unlink()
+            if proc.returncode != 0:
+                fail(f"path S2: pod {name} exited {proc.returncode}: {err}")
+    finally:
+        shutil.rmtree(site, ignore_errors=True)
+    slice_s = time.monotonic() - t0
+    reports = []
+    for name, _, out in pods:
+        reports.append(json.loads(out.read_text()))
+        out.unlink()
+        children_ended(f"S2 {name}", reports[-1]["launched"], path="S")
+    leader = reports[0]
+    mesh = leader["mesh"]
+    if (mesh["world-size"], mesh["rank"], mesh["axes"]) != (4, 0, S_RESOURCE["mesh"]):
+        fail(f"path S2: the leader's mesh is not the slice's: {mesh}")
+    ranks = {0: leader["kernels"], 2: reports[1]["kernels"]}
+    for report in reports:
+        ranks.update({c["rank"]: c["kernels"] for c in report["launched"]["children"]})
+    for rank, counts in sorted(ranks.items()):
+        if device == "cuda" and (counts["flash_attention"] == 0
+                                 or counts["paged_attention_q8"] == 0):
+            fail(f"path S2: rank {rank} did not launch kernels #1 and #3: {counts}")
+    ref, gaps = reference_run(torch, S_RESOURCE, [prompts], S_MAX_TOKENS, S_LAYERS, device)
+    results = [{"tokens": t, "logprobs": lp}
+               for t, lp in zip(leader["tokens"], leader["logprobs"])]
+    rule = check_first_tokens("S2", results, ref["results"], gaps, path="S")
+    return {"slice_s": round(slice_s, 3), "refusals": refusals,
+            "first_tokens_checked": rule["checked"], "prefixes": rule["prefixes"],
+            "wave_s": round(leader["serve_s"], 3), "wave_s_one_rank": round(ref["wall_s"], 3),
+            "replayed_by_pod_1": reports[1]["replayed"],
+            "lockstep_dispatches": mesh["lockstep-dispatches"],
+            "collectives": mesh["collectives"],
+            "launches_by_rank": {r: {k: v for k, v in c.items() if v}
+                                 for r, c in sorted(ranks.items())},
+            "counts": leader["kernels"]}
+
+
+def phase_cluster_path(torch, smi: str, device="cuda") -> dict:
+    """Path S: the port in the cluster (:func:`s1_placement`,
+    :func:`s2_slice`). Returns the leader rank's S2 launches."""
+    t0 = time.monotonic()
+    s1 = s1_placement(torch, smi)
+    print(f"path S [S1 placement]: {json.dumps(s1)}", flush=True)
+    s2 = s2_slice(torch, device)
+    counts = s2.pop("counts")
+    print(f"path S [S2 llama3-8b int8 {S_LAYERS} layers, 2 pods x 2 ranks, dp=2 tp=2, "
+          f"from the {S_ACCELERATOR} manifest]: {json.dumps(s2)}", flush=True)
+    print(f"path S: {time.monotonic() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -6731,9 +6936,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_r = time.monotonic()
     r_counts = phase_store_mesh_path(torch)
-    secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
-                P=t_q - t_p, Q=t_r - t_q, R=time.monotonic() - t_r)
     depth.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_s = time.monotonic()
+    s_counts = phase_cluster_path(torch, smi)
+    secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
+                P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=time.monotonic() - t_s)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -6747,8 +6956,8 @@ def main() -> int:
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
-             "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts}
-    meta = {  # launches: summed over the eighteen main paths (rank 0's on N, O, Q and R)
+             "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts}
+    meta = {  # launches: summed over the nineteen main paths (rank 0's on N, O, Q, R, S)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

@@ -15,7 +15,9 @@ authenticated by ``LS_LOCKSTEP_TOKEN``), which every other rank of the
 slice replays: the other pods open no consumer
 (:func:`run_slice_follower`), and every pod's started ranks follow the same
 leader. The platform's pod reaches these through ``serve_torch.register``,
-which points its two names at them. A mesh engine's KV handoff routes
+which points its names at them; at the agent's end it closes the port's
+engines (:func:`close_engines`), so a slice's world ends through its
+leader's ``stop`` and every rank exits 0. A mesh engine's KV handoff routes
 (``/kv/export`` pickups and ``/kv/import``) reach its leader, the one
 engine in the pod's instance map: its ranks replay the gathers and
 scatters, and a follower pod serves no handoff.
@@ -132,3 +134,34 @@ async def run_slice_follower(hosts: int, ordinal: int,
     log.info("lockstep replay finished after %s steps; slice follower %d stopping",
              replayed, ordinal)
     return replayed
+
+
+async def close_engines() -> None:
+    """Close this process's shared engines, serving and embeddings, at the
+    pod's end (after its agent drained and stopped): the last user of a
+    world's lockstep channel sends ``stop``, so every rank of the mesh
+    leaves its replay and meets the final barrier, and the ranks this pod
+    started are reaped. Raises the first failure after closing them all (a
+    rank that did not exit 0 among them)."""
+    from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+    from langstream_tpu_torch.serving.engine import TorchServingEngine
+
+    with TorchServingEngine._instances_lock:
+        engines = list(TorchServingEngine._instances.values())
+    with EmbeddingEngine._instances_lock:
+        embedders = list(EmbeddingEngine._instances.values())
+    TorchServingEngine.reset_instances()
+    EmbeddingEngine.reset_instances()
+    errors = []
+    for engine in engines:
+        try:
+            await engine.close()
+        except RuntimeError as e:
+            errors.append(e)
+    for embedder in embedders:
+        try:
+            embedder.close()
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]

@@ -2,11 +2,15 @@
 """Serve LangStream applications through the PyTorch port.
 
     python serve_torch.py [--device cpu|cuda] <langstream-tpu CLI arguments>
+    python -m serve_torch [--device cpu|cuda] pod <pod command ...>
+    python -m serve_torch [--device cpu|cuda] operator
 
-for example, the single-process dev mode on the chat example:
+for example, the single-process dev mode on the chat example, and the
+one-command local cluster:
 
     python serve_torch.py run chat -app examples/applications/chat-completions
     python serve_torch.py --device cpu run chat -app <application directory>
+    python -m serve_torch --device cpu mini up --once
 
 The launcher registers the port's provider
 (:class:`langstream_tpu_torch.agents.provider.TorchServiceProvider`) for
@@ -54,7 +58,9 @@ through the pod's own slice seam: :func:`register` points
 ``_run_slice_follower`` at the port's (:data:`SLICE_SEAM`), so every pod
 joins the ``torch.distributed`` group as rank ``ordinal * local``, starts
 its other local ranks, and the followers replay the leader's dispatches
-behind the pod's info server.
+behind the pod's info server; ``run_agent`` is wrapped too, so at the
+agent's end the pod closes the port's engines and a slice's world ends
+through its leader's ``stop``, every rank reaped.
 
 The Prometheus plane crosses the same way: the port's engines build their
 reporters from ``langstream_tpu_torch.core.metrics.REPORTER``, which
@@ -63,6 +69,19 @@ reporters from ``langstream_tpu_torch.core.metrics.REPORTER``, which
 the port's ``langstream_serving_*`` and ``langstream_stream_*`` series
 under the JAX engine's names, TTFT exemplars included. An engine built
 before :func:`register` keeps the port's own registry.
+
+In the cluster the port's pods are the operator's. :func:`register` points
+the platform operator's ``AgentResourcesFactory`` at the port's
+(:mod:`langstream_tpu_torch.k8s.resources`, :data:`OPERATOR_SEAM`): an
+agent with a device mesh asks for ``nvidia.com/gpu`` cards on an H100 node
+pool, and every agent pod starts as ``python -m serve_torch --device
+<device> pod agent-runtime ...``, which registers the port and runs the
+platform's pod entrypoint (``langstream_tpu.runtime.pod.main``). The
+placement name is ``LS_ACCELERATOR``, one of the port's entries (unset:
+``h100``); any other name, a TPU's among them, is refused. ``python -m
+serve_torch operator`` runs the platform's operator so; under ``mini up``
+the operator and the process kubelet run in this process, so its agent
+pods serve through the port too.
 
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
@@ -184,21 +203,31 @@ def _with_port(name: str, jax_fn, port_engine):
     return seam
 
 
-#: the pod's slice functions (``langstream_tpu/runtime/pod.py`` calls them
-#: from ``run_agent``) that :func:`register` points at the port's
-SLICE_SEAM = ("maybe_join_slice", "_run_slice_follower")
+#: the pod's slice functions (``langstream_tpu/runtime/pod.py`` calls the
+#: first two from ``run_agent``, and ``main`` calls ``run_agent``) that
+#: :func:`register` points at the port's: joining, following, and the
+#: agent's end, which closes the port's engines
+SLICE_SEAM = ("maybe_join_slice", "_run_slice_follower", "run_agent")
 
 
 def _slice_seam(name: str, jax_fn, device):
     """The port's ``name`` of the pod's slice seam, on ``device``: joining
-    the ``torch.distributed`` group, or replaying the leader's dispatches
-    behind the pod's own info server."""
+    the ``torch.distributed`` group, replaying the leader's dispatches
+    behind the pod's own info server, or running the agent and then closing
+    the port's engines (a slice's world ends through its leader's
+    ``stop``, every rank reaped)."""
     from langstream_tpu.runtime import pod
     from langstream_tpu_torch.runtime import pod as port_pod
 
     if name == "maybe_join_slice":
         def seam():
             port_pod.maybe_join_slice(device)
+    elif name == "run_agent":
+        async def seam(config_path, code_dir=None):
+            try:
+                await jax_fn(config_path, code_dir)
+            finally:
+                await port_pod.close_engines()
     else:
         async def seam(hosts, ordinal):
             await port_pod.run_slice_follower(hosts, ordinal, serve_info=pod._serve_info,
@@ -207,6 +236,42 @@ def _slice_seam(name: str, jax_fn, device):
     seam.__wrapped__ = jax_fn
     seam.with_port = True
     return seam
+
+
+#: the platform operator's factory (``langstream_tpu/k8s/operator.py`` looks
+#: it up at reconcile time) that :func:`register` points at the port's
+OPERATOR_SEAM = ("AgentResourcesFactory",)
+
+
+def _factory_seam(jax_factory, device):
+    """The operator's ``AgentResourcesFactory`` over the port's: the calls
+    ``AgentController`` makes, on its typed Agent CR, answered with the
+    port's manifests at the placement ``LS_ACCELERATOR`` names
+    (:func:`~langstream_tpu_torch.k8s.resources.accelerator_from_env`; the
+    TPU name the operator passes is not used), the pods started on
+    ``device``."""
+    from langstream_tpu_torch.k8s.resources import AgentResourcesFactory as port
+    from langstream_tpu_torch.k8s.resources import accelerator_from_env
+
+    class PortAgentResourcesFactory:
+        with_port = True
+        __wrapped__ = jax_factory
+        agent_resource_name = staticmethod(port.agent_resource_name)
+
+        @staticmethod
+        def generate_headless_service(cr):
+            return port.generate_headless_service(cr.to_dict())
+
+        @staticmethod
+        def generate_statefulsets(cr, accelerator=None):
+            return port.generate_statefulsets(cr.to_dict(), accelerator_from_env(),
+                                              device=device)
+
+        @staticmethod
+        def generate_pod_disruption_budgets(cr, statefulsets):
+            return port.generate_pod_disruption_budgets(cr.to_dict(), statefulsets)
+
+    return PortAgentResourcesFactory
 
 
 def _platform_trace() -> str | None:
@@ -225,8 +290,9 @@ def register(device="cuda") -> None:
     platform's ledger and span buffer; build the port's metric series in
     the platform's registry; point the pod's functions
     (:data:`POD_SEAM`) at the port's engines as well as the JAX package's,
-    and the pod's slice functions (:data:`SLICE_SEAM`) at the port's. A
-    second call changes nothing more: the pod functions are wrapped
+    the pod's slice functions (:data:`SLICE_SEAM`) at the port's, and the
+    operator's factory (:data:`OPERATOR_SEAM`) at the port's, its pods on
+    ``device``. A second call changes nothing more: each seam is wrapped
     once."""
     import langstream_tpu.serving.engine as jax_engine
     from langstream_tpu.agents.services import register_provider
@@ -258,12 +324,20 @@ def register(device="cuda") -> None:
         current = getattr(pod, name)
         if not getattr(current, "with_port", False):
             setattr(pod, name, _slice_seam(name, current, device))
+    from langstream_tpu.k8s import operator
+
+    for name in OPERATOR_SEAM:
+        current = getattr(operator, name)
+        if not getattr(current, "with_port", False):
+            setattr(operator, name, _factory_seam(current, device))
 
 
 def main(argv: list[str] | None = None) -> None:
-    """Register on ``--device`` (a leading option), then run the CLI on the
-    remaining arguments; like any click entry point it exits the process
-    with the command's code."""
+    """Register on ``--device`` (a leading option), then run what the
+    remaining arguments name: ``pod <pod command ...>`` the platform's pod
+    entrypoint, ``operator`` the platform's operator (after checking
+    ``LS_ACCELERATOR``), anything else the CLI. It exits the process with
+    the command's code."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     if argv[:1] == ["--device"]:
@@ -271,6 +345,17 @@ def main(argv: list[str] | None = None) -> None:
             raise SystemExit("serve_torch.py: --device needs a value (cpu or cuda)")
         device, argv = argv[1], argv[2:]
     register(device)
+    if argv[:1] == ["pod"]:
+        from langstream_tpu.runtime import pod
+
+        raise SystemExit(pod.main(argv[1:]))
+    if argv[:1] == ["operator"]:
+        from langstream_tpu.k8s import operator
+        from langstream_tpu_torch.k8s.resources import accelerator_from_env
+
+        accelerator_from_env()  # a TPU name fails here, before the loop starts
+        operator.main()
+        return
     from langstream_tpu.cli.main import cli
 
     cli.main(args=argv, prog_name="serve_torch.py")

@@ -400,6 +400,7 @@ def test_chainer_over_the_pod_http_plane(monkeypatch, flat):
 
     import serve_torch
     from langstream_tpu.agents import services
+    from langstream_tpu.k8s import operator as k8s_operator
     from langstream_tpu.runtime import pod
     from langstream_tpu.serving import engine as jax_engine_module
     from langstream_tpu_torch.core import metrics as port_metrics
@@ -413,6 +414,10 @@ def test_chainer_over_the_pod_http_plane(monkeypatch, flat):
 
     for name in serve_torch.POD_SEAM:
         monkeypatch.setattr(jax_engine_module, name, getattr(jax_engine_module, name))
+    for name in serve_torch.SLICE_SEAM:
+        monkeypatch.setattr(pod, name, getattr(pod, name))
+    for name in serve_torch.OPERATOR_SEAM:
+        monkeypatch.setattr(k8s_operator, name, getattr(k8s_operator, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
     monkeypatch.setattr(port_metrics, "REPORTER", port_metrics.REPORTER)

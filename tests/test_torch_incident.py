@@ -284,6 +284,7 @@ def test_pod_incidents_list_a_port_engine_through_the_launcher(tmp_path, monkeyp
 
     import serve_torch
     from langstream_tpu.agents import services
+    from langstream_tpu.k8s import operator as k8s_operator
     from langstream_tpu.runtime import pod
     from langstream_tpu.serving import engine as jax_engine
     from langstream_tpu.serving.engine import TpuServingEngine
@@ -293,6 +294,10 @@ def test_pod_incidents_list_a_port_engine_through_the_launcher(tmp_path, monkeyp
 
     for name in serve_torch.POD_SEAM:
         monkeypatch.setattr(jax_engine, name, getattr(jax_engine, name))
+    for name in serve_torch.SLICE_SEAM:
+        monkeypatch.setattr(pod, name, getattr(pod, name))
+    for name in serve_torch.OPERATOR_SEAM:
+        monkeypatch.setattr(k8s_operator, name, getattr(k8s_operator, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
     monkeypatch.setattr(port_metrics, "REPORTER", port_metrics.REPORTER)

@@ -428,6 +428,7 @@ def test_a_mesh_engine_places_the_one_rank_engines_weights(model, fixture):
 def test_register_points_the_pods_slice_functions_at_the_port_once(monkeypatch):
     import serve_torch
     from langstream_tpu.agents import services
+    from langstream_tpu.k8s import operator as k8s_operator
     from langstream_tpu.runtime import pod
     from langstream_tpu.serving import engine as jax_engine
     from langstream_tpu_torch.core import metrics as port_metrics
@@ -440,6 +441,8 @@ def test_register_points_the_pods_slice_functions_at_the_port_once(monkeypatch):
     originals = {name: getattr(pod, name) for name in serve_torch.SLICE_SEAM}
     for name, fn in originals.items():
         monkeypatch.setattr(pod, name, fn)
+    for name in serve_torch.OPERATOR_SEAM:
+        monkeypatch.setattr(k8s_operator, name, getattr(k8s_operator, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(JOURNEYS, "mirror", JOURNEYS.mirror)
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)

@@ -38,6 +38,7 @@ def registered(monkeypatch):
     it touches restored afterwards, and no foreign engine in either
     package's instance map."""
     from langstream_tpu.agents import services
+    from langstream_tpu.k8s import operator as k8s_operator
 
     from langstream_tpu_torch.core import metrics as port_metrics
     from langstream_tpu_torch.core.tracing import SPANS
@@ -49,6 +50,8 @@ def registered(monkeypatch):
         monkeypatch.setattr(jax_engine, name, getattr(jax_engine, name))
     for name in serve_torch.SLICE_SEAM:
         monkeypatch.setattr(pod, name, getattr(pod, name))
+    for name in serve_torch.OPERATOR_SEAM:
+        monkeypatch.setattr(k8s_operator, name, getattr(k8s_operator, name))
     monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
     monkeypatch.setattr(JOURNEYS, "mirror", JOURNEYS.mirror)
     monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)

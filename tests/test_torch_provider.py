@@ -224,10 +224,18 @@ def _run_chat_pipeline(app_dir):
     return asyncio.run(main())
 
 
-def test_chat_pipeline_through_the_launcher_matches_jax(tmp_path):
+def test_chat_pipeline_through_the_launcher_matches_jax(tmp_path, monkeypatch):
     """``serve_torch.register(device="cpu")`` makes the platform's agents
     reach the port: the same answer and stream as the JAX provider."""
     import serve_torch
+    from langstream_tpu.k8s import operator as k8s_operator
+    from langstream_tpu.runtime import pod
+    from langstream_tpu.serving import engine as jax_engine
+
+    for module, names in ((jax_engine, serve_torch.POD_SEAM), (pod, serve_torch.SLICE_SEAM),
+                          (k8s_operator, serve_torch.OPERATOR_SEAM)):
+        for name in names:  # restored after the test, as the provider factory is
+            monkeypatch.setattr(module, name, getattr(module, name))
 
     (tmp_path / "pipeline.yaml").write_text(CHAT_PIPELINE)
     (tmp_path / "configuration.yaml").write_text(_pipeline_config())
@@ -245,8 +253,16 @@ def test_chat_pipeline_through_the_launcher_matches_jax(tmp_path):
     assert got[0] and got[0] == got[1]
 
 
-def test_launcher_registers_then_runs_the_cli():
+def test_launcher_registers_then_runs_the_cli(monkeypatch):
     import serve_torch
+    from langstream_tpu.k8s import operator as k8s_operator
+    from langstream_tpu.runtime import pod
+    from langstream_tpu.serving import engine as jax_engine
+
+    for module, names in ((jax_engine, serve_torch.POD_SEAM), (pod, serve_torch.SLICE_SEAM),
+                          (k8s_operator, serve_torch.OPERATOR_SEAM)):
+        for name in names:  # restored after the test, as the provider factory is
+            monkeypatch.setattr(module, name, getattr(module, name))
 
     factory = jax_services._provider_factories["tpu-serving-configuration"]
     try:

@@ -428,6 +428,14 @@ def test_platform_cancel_reaches_the_port_through_the_launcher(tmp_path, monkeyp
     disconnect check consumes the key and commits the record without an
     answer, and the next record is answered."""
     import serve_torch
+    from langstream_tpu.k8s import operator as k8s_operator
+    from langstream_tpu.runtime import pod
+    from langstream_tpu.serving import engine as jax_engine
+
+    for module, names in ((jax_engine, serve_torch.POD_SEAM), (pod, serve_torch.SLICE_SEAM),
+                          (k8s_operator, serve_torch.OPERATOR_SEAM)):
+        for name in names:  # restored after the test, as the provider factory is
+            monkeypatch.setattr(module, name, getattr(module, name))
 
     (tmp_path / "pipeline.yaml").write_text(CHAT_PIPELINE)
     (tmp_path / "configuration.yaml").write_text(yaml.safe_dump({"configuration": {
