@@ -7,7 +7,9 @@ Phases (every one unguarded: any failure exits non-zero):
 
 1. set-up: require CUDA, print the card's name and power limit, build the
    kernels from ``langstream_tpu_torch/ops/csrc`` (one ``nvcc`` per source,
-   started together) and print the build time;
+   started together) and print the build time (a ``first build:`` line:
+   the seconds, or null when the build directory was warm: what a pod's
+   first start pays unless its image carries the libraries);
 2. each kernel against its plain PyTorch version at Llama-3-8B width
    (H=32, Kh=8, D=128) in bf16 and f32, with its time (the card's alone:
    a CUDA graph of the calls replayed; the eager time, host included,
@@ -267,7 +269,10 @@ Phases (every one unguarded: any failure exits non-zero):
    port's ``maybe_join_slice`` and ``run_slice_follower``), tiny f32 on the
    HF fixture at ``{dp: 2, tp: 2}``: the tokens equal a one-process CPU
    run. Q3: minilm-l6 at ``{dp: 2}`` through the provider's embeddings
-   service, within ``TOL_EMBED`` of one rank. Every started rank exits 0
+   service, within ``TOL_EMBED`` of one rank; then a serving engine that
+   joins its world with a ``checkpoint`` that exists on no rank is refused
+   by its constructor (``FileNotFoundError``), every rank stays alive and
+   the vectors asked for again are equal. Every started rank exits 0
    and no process of it is left;
    main path R (after Q): the tiered stores and the pool roles under a
    mesh, llama3-8b int8 at 4 layers (``R_LAYERS``) at ``{tp: 2}`` through
@@ -296,9 +301,11 @@ Phases (every one unguarded: any failure exits non-zero):
    ranks over R; every started rank exits 0;
    main path S (after R): the port in the cluster, from the manifests of
    the port's k8s factory (``langstream_tpu_torch/k8s/resources.py``). S1:
-   the StatefulSet of an agent whose device mesh has the card count asks
-   for that many ``nvidia.com/gpu``, and the entry its node selector names
-   is the card ``torch.cuda.get_device_name(0)`` reports. S2: the
+   at the ``LS_ACCELERATOR`` of the committed install (the operator
+   manifest in ``deploy/torch/k8s/`` and the chart's ``values.yaml``, which
+   must agree), the StatefulSet of an agent whose device mesh has the card
+   count asks for that many ``nvidia.com/gpu``, and that entry's card is
+   the one ``torch.cuda.get_device_name(0)`` reports. S2: the
    StatefulSet of the ``h100-2g`` entry (hosts of 2 cards) for a device
    mesh of 4 cards: 2 pods, ``LOCAL_WORLD_SIZE=2``; a manifest whose ranks
    disagree with the resource's mesh is refused in the launcher's words;
@@ -308,7 +315,15 @@ Phases (every one unguarded: any failure exits non-zero):
    starting its second rank: llama3-8b int8 weights and int8 paged KV at
    full width and ``S_LAYERS`` layers, ``{dp: 2, tp: 2}``, 8 prompts, 32
    greedy tokens, held to a one-rank engine of the same seed by the
-   first-token rule; kernels #1 and #3 on every rank; every rank exits 0;
+   first-token rule; kernels #1 and #3 on every rank; every rank exits 0.
+   S3: S2's slice with the prefix cache and a prefix store (T0 two
+   blocks, T1 twelve, a local T2): path I1's eight questions on its
+   1,536-token preamble cold, the tiers drained (demotion to T1, a spill
+   to T2), the questions again warm (T1 promotion, T2 hydration); on all
+   four ranks every promoted block's rows equal a demoted one's byte for
+   byte and the tier moves are the leader's; the cold streams held to one
+   rank and the warm ones to the cold ones by the first-token rule; the
+   demotion's and promotion's GB/s, each rank's launches;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -5996,45 +6011,114 @@ def q1_provider_mesh(torch, device="cuda") -> dict:
     return counts
 
 
-def q2_pod(resource: str, prompts: str, max_tokens: str, device: str, out_path: str) -> int:
+#: the scenarios a ``--q2-pod`` leader drives (the followers only replay)
+POD_SCENARIOS = ("serve", "tiers", "prefill", "decode")
+
+
+async def tiers_drained(engine, store: dict, timeout_s: float = 120.0) -> dict:
+    """Wait until the demotions have brought T0 and T1 within ``store``'s
+    budgets, spilled to T2, and no T2 write is in flight; the prefix
+    store's stats then."""
+    for _ in range(int(timeout_s / 0.05)):
+        st = engine.stats()["prefixstore"]
+        if (st["t0"]["bytes"] <= store["t0-bytes"] and st["t1"]["bytes"] <= store["t1-bytes"]
+                and st["demotions_t1_t2"] and not st["t2"]["pending_jobs"]
+                and not st["t2"]["in_transit_bytes"]):
+            return st
+        await asyncio.sleep(0.05)
+    raise RuntimeError(f"the tiers did not drain within {timeout_s} s: {st}")
+
+
+async def pod_scenario(engine, scenario: str, prompts: list, max_tokens: int,
+                       payloads: list[bytes] | None = None) -> dict:
+    """What a ``--q2-pod`` leader does with its engine: ``serve`` the
+    prompts greedy at once; ``tiers``: the same wave cold, the prefix
+    store drained to its budgets (demotion to T1, spill to T2), then the
+    wave again (T1 promotion, T2 hydration); ``prefill``: the wave on a
+    ``pool-role: prefill`` engine, each request's LSKV export taken;
+    ``decode``: ``payloads`` imported and decoded."""
+    opts = {"max-tokens": max_tokens, "temperature": 0}
+
+    def streams(results):
+        return {"tokens": [list(r["tokens"]) for r in results],
+                "logprobs": [list(r["logprobs"]) for r in results]}
+
+    async def wave():
+        return await asyncio.gather(*(engine.generate(p, dict(opts)) for p in prompts))
+
+    t0 = time.monotonic()
+    if scenario == "decode":
+        return {**streams(await asyncio.gather(*(engine.import_handoff(x) for x in payloads))),
+                "serve_s": time.monotonic() - t0}
+    results = await wave()
+    out = {**streams(results), "serve_s": time.monotonic() - t0}
+    if scenario == "prefill":
+        out["payloads"] = [engine.take_export(r["handoff"]).hex() for r in results]
+    elif scenario == "tiers":
+        store = engine.config.to_dict()["prefix-store"]
+        t1 = time.monotonic()
+        drained = await tiers_drained(engine, store)
+        seq = engine.flight.recent_events(1)[-1]["seq"]
+        t2 = time.monotonic()
+        warm = await wave()
+        out.update(warm=streams(warm), drained=drained, stats=engine.stats()["prefixstore"],
+                   block_bytes=engine._tier_block_bytes,
+                   promoted=_events_since(engine, seq, "prefix-promote"),
+                   seconds={"cold": round(t1 - t0, 3), "drain": round(t2 - t1, 3),
+                            "warm": round(time.monotonic() - t2, 3)})
+    return out
+
+
+def q2_pod(resource: str, prompts: str, max_tokens: str, device: str, out_path: str,
+           scenario: str = "serve", payloads_path: str | None = None) -> int:
     """``chip_smoke.py --q2-pod``: one pod of a slice, its place from
     ``LS_SLICE_HOSTS``, ``LS_POD_NAME``, ``LOCAL_WORLD_SIZE``,
     ``LS_COORDINATOR_ADDRESS``, ``LS_LOCKSTEP_PORT`` and
     ``LS_LOCKSTEP_TOKEN``, as the platform's pod runs it: the port's
     ``maybe_join_slice`` (the pod's local ranks started), then the ordinal-0
-    pod serves ``prompts`` greedy through the provider and the others
-    replay (``run_slice_follower``). Writes the tokens, the mesh, the
-    launched ranks and this process's launches to ``out_path``."""
+    pod drives ``scenario`` (:func:`pod_scenario`; ``decode`` imports the
+    hex payloads of the JSON list at ``payloads_path``) through the
+    provider and the others replay (``run_slice_follower``). Writes what
+    the scenario returns, the mesh (a follower pod's from its info
+    object), the launched ranks and this process's launches to
+    ``out_path``."""
     import torch
 
     from langstream_tpu_torch.ops import launch_counts
     from langstream_tpu_torch.runtime import pod
 
+    if scenario not in POD_SCENARIOS:
+        raise SystemExit(f"--q2-pod: unknown scenario {scenario!r}, not one of {POD_SCENARIOS}")
     torch.backends.cuda.matmul.allow_tf32 = False
     world = pod.maybe_join_slice(device)
     ordinal = pod.pod_ordinal(os.environ["LS_POD_NAME"])
     if ordinal:
-        out = {"replayed": asyncio.run(pod.run_slice_follower(world.hosts, ordinal,
-                                                              device=device))}
+        infos = []
+
+        async def keep_info(info):  # what the pod's info server would serve
+            infos.append(info)
+
+        out = {"replayed": asyncio.run(pod.run_slice_follower(
+            world.hosts, ordinal, serve_info=keep_info, device=device))}
+        out["mesh"] = infos[0].info()["mesh"]
     else:
         from langstream_tpu_torch.agents.provider import TorchServiceProvider
 
         engine = TorchServiceProvider(json.loads(resource), device=device
                                       ).get_completions_service({}).engine
+        payloads = ([bytes.fromhex(x) for x in json.loads(Path(payloads_path).read_text())]
+                    if payloads_path else None)
 
         async def drive():
             try:
-                return await asyncio.gather(*(
-                    engine.generate(p, {"max-tokens": int(max_tokens), "temperature": 0})
-                    for p in json.loads(prompts)))
+                return await pod_scenario(engine, scenario, json.loads(prompts),
+                                          int(max_tokens), payloads)
             finally:
                 await engine.close()
 
-        t0 = time.monotonic()
-        results = asyncio.run(drive())
-        out = {"tokens": [list(r["tokens"]) for r in results],
-               "logprobs": [list(r["logprobs"]) for r in results],
-               "serve_s": time.monotonic() - t0, "mesh": engine.mesh_section()}
+        out = asyncio.run(drive())
+        out["mesh"] = engine.mesh_section()
+        out["digests"] = engine.tier_digests
     out.update(launched=world.describe(), kernels=launch_counts())
     Path(out_path).write_text(json.dumps(out))
     return 0
@@ -6092,10 +6176,44 @@ def q2_slice(torch, device="cuda") -> dict:
             "launches_by_pod": [r["kernels"] for r in reports]}
 
 
+#: Q3's refused serving engine: its mesh fits the embeddings engine's world,
+#: its checkpoint directory exists on no rank
+Q3_FAILING = {"model": "tiny", "slots": 4, "max-seq-len": 128, "mesh": {"tp": 2},
+              "checkpoint": str(REPO / "no-such-checkpoint")}
+
+
+def q3_failed_build(engine, texts: list[str], vectors, device="cuda") -> dict:
+    """A serving engine that joins the world ``engine`` (embeddings) leads
+    and fails to build on every rank is refused by its constructor; the
+    world's started ranks are alive after it and the embeddings engine
+    gives ``vectors`` again, exactly."""
+    from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
+
+    t0 = time.monotonic()
+    try:
+        with environment(LOCAL_WORLD_SIZE="2"):
+            TorchServingEngine(ServingConfig.from_dict(Q3_FAILING), device=device)
+    except FileNotFoundError as e:
+        refused = f"{type(e).__name__}: {e}"
+    else:
+        fail("path Q3: a serving engine with no checkpoint on any rank was built")
+    refused_s = time.monotonic() - t0
+    alive = [c.proc.poll() is None for c in engine._launched.children]
+    if not all(alive):
+        fail(f"path Q3: a rank of the embeddings world exited after the refused build: {alive}")
+    again = asyncio.run(engine.embed(texts))
+    if again != vectors:
+        err = max(abs(a - b) for va, vb in zip(again, vectors) for a, b in zip(va, vb))
+        fail(f"path Q3: the vectors after the refused build differ by {err}")
+    return {"refused": refused, "refused_s": round(refused_s, 3), "ranks_alive": len(alive),
+            "vectors_equal_after": True}
+
+
 def q3_embeddings(torch, texts: list[str], device="cuda") -> dict:
     """Q3: ``Q3_RESOURCE`` through the provider's embeddings service with
     two local ranks on this card, against the one-rank engine within
-    ``TOL_EMBED`` (path O3's bound)."""
+    ``TOL_EMBED`` (path O3's bound); then :func:`q3_failed_build` before
+    the world ends through ``close()``."""
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
     from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
 
@@ -6106,6 +6224,7 @@ def q3_embeddings(torch, texts: list[str], device="cuda") -> dict:
         t0 = time.monotonic()
         vectors = asyncio.run(service.compute_embeddings(texts))
         mesh_ms = (time.monotonic() - t0) * 1e3
+        failed_build = q3_failed_build(service.engine, texts, vectors, device)
     finally:
         service.engine.close()
     mesh = service.engine.mesh_section()
@@ -6119,7 +6238,7 @@ def q3_embeddings(torch, texts: list[str], device="cuda") -> dict:
     if not err <= TOL_EMBED:
         fail(f"path Q3: dp=2 vectors differ from the one-rank engine's by {err} > {TOL_EMBED}")
     return {"max_abs_err": err, "ms_dp2": round(mesh_ms, 3), "child_exit_codes": codes,
-            "collectives": mesh["collectives"]}
+            "failed_build": failed_build, "collectives": mesh["collectives"]}
 
 
 def phase_launch_path(torch, device="cuda") -> dict:
@@ -6289,13 +6408,13 @@ def r_reference(cfg: dict, params, drive, device="cuda"):
     return out
 
 
-def _digest_check(label: str, digests) -> dict:
+def _digest_check(label: str, digests, path: str = "R") -> dict:
     """A rank's tier digests: every promoted block's rows, read back from
     its pools after the scatter, equal a demoted block's at its gather."""
     demoted = {d for op, ds in digests if op == "kv_gather" for d in ds}
     promoted = [d for op, ds in digests if op == "kv_scatter" for d in ds]
     if not promoted or not set(promoted) <= demoted:
-        fail(f"path R [{label}]: {len(promoted)} promoted blocks, "
+        fail(f"path {path} [{label}]: {len(promoted)} promoted blocks, "
              f"{len(set(promoted) - demoted)} of them not byte-equal to a demoted one")
     return {"demoted_blocks": len(demoted), "promoted_blocks": len(promoted)}
 
@@ -6600,27 +6719,46 @@ def pod_env(sts: dict, ordinal: int) -> dict:
     return env
 
 
+def committed_accelerator() -> dict:
+    """The ``LS_ACCELERATOR`` of the committed install: the operator
+    manifest's (``deploy/torch/k8s/05-operator.yaml``) and the chart's
+    default (``deploy/torch/helm/langstream-tpu-torch/values.yaml``), which
+    must agree (read as text: the card's machine need not have PyYAML)."""
+    manifest = (REPO / "deploy" / "torch" / "k8s" / "05-operator.yaml").read_text()
+    values = (REPO / "deploy" / "torch" / "helm" / "langstream-tpu-torch" / "values.yaml"
+              ).read_text()
+    found = {"manifest": re.search(r"- name: LS_ACCELERATOR\n\s+value: (\S+)\n", manifest),
+             "chart": re.search(r"^accelerator: (\S+)$", values, re.M)}
+    found = {k: m.group(1) if m else None for k, m in found.items()}
+    if found["manifest"] is None or found["manifest"] != found["chart"]:
+        fail(f"path S1: the committed install names no one accelerator: {found}")
+    return found
+
+
 def s1_placement(torch, smi: str) -> dict:
-    """S1: the port factory's StatefulSet for an agent whose device mesh has
-    this machine's card count asks for that many cards, on a node pool
-    whose entry names the card found."""
+    """S1: the port factory's StatefulSet, at the accelerator the committed
+    install names (:func:`committed_accelerator`), for an agent whose
+    device mesh has this machine's card count asks for that many cards, on
+    a node pool whose entry names the card found."""
     from langstream_tpu_torch.k8s.resources import GPU_TOPOLOGIES, AgentResourcesFactory
 
     count = torch.cuda.device_count()
-    (sts,) = AgentResourcesFactory.generate_statefulsets(s_agent_cr({"tp": count}))
+    accelerator = committed_accelerator()["manifest"]
+    (sts,) = AgentResourcesFactory.generate_statefulsets(s_agent_cr({"tp": count}),
+                                                         accelerator=accelerator)
     pod = sts["spec"]["template"]["spec"]
     resources = pod["containers"][0]["resources"]
     asked = (resources["limits"].get("nvidia.com/gpu"),
              resources["requests"].get("nvidia.com/gpu"))
     if asked != (str(count), str(count)):
         fail(f"path S1: the StatefulSet asks for {asked} cards, the machine has {count}")
-    entries = [n for n, t in GPU_TOPOLOGIES.items() if t.node_selector == pod["nodeSelector"]]
     card = torch.cuda.get_device_name(0)
-    if not entries or GPU_TOPOLOGIES[entries[0]].card != card:
-        fail(f"path S1: the node selector {pod['nodeSelector']} (entries {entries}) does not "
-             f"name the card found, {card!r}")
-    return {"cards": count, "entry": entries[0], "node_selector": pod["nodeSelector"],
-            "card": card, "nvidia_smi": smi}
+    entry = GPU_TOPOLOGIES[accelerator]
+    if pod["nodeSelector"] != entry.node_selector or entry.card != card:
+        fail(f"path S1: the committed install's {accelerator!r} ({entry}) does not place on "
+             f"the card found, {card!r}: node selector {pod['nodeSelector']}")
+    return {"cards": count, "committed_accelerator": accelerator,
+            "node_selector": pod["nodeSelector"], "card": card, "nvidia_smi": smi}
 
 
 def s2_refusals(device="cuda") -> list[str]:
@@ -6649,41 +6787,42 @@ def s2_refusals(device="cuda") -> list[str]:
     return said
 
 
-def s2_slice(torch, device="cuda") -> dict:
-    """S2: the 2-host slice from the ``S_ACCELERATOR`` manifest of a 4-card
-    device mesh, its two pods as processes (``--q2-pod``) with the runtime
-    container's env, at ``S_LAYERS`` (a ``sitecustomize`` on their
-    ``PYTHONPATH``, inherited by the ranks they start), held to a one-rank
-    engine of the same seed. Returns the leader rank's launches."""
+def slice_pods(label: str, resource: dict, prompts: list, max_tokens: int, scenario: str,
+               device="cuda", **env: str) -> tuple[list[dict], float]:
+    """The 2-host slice from the ``S_ACCELERATOR`` manifest of ``resource``'s
+    mesh, its pods as processes (``--q2-pod``, driving ``scenario``) with
+    the runtime container's env (and ``env``), at ``S_LAYERS`` (a
+    ``sitecustomize`` on their ``PYTHONPATH``, inherited by the ranks they
+    start). Every pod and started rank must exit 0. The pods' reports and
+    the seconds from their start to their exit."""
     import shutil
     import tempfile
 
     from langstream_tpu_torch.k8s.resources import AgentResourcesFactory
 
     (sts,) = AgentResourcesFactory.generate_statefulsets(
-        s_agent_cr(S_RESOURCE["mesh"]), accelerator=S_ACCELERATOR, device=device)
+        s_agent_cr(resource["mesh"]), accelerator=S_ACCELERATOR, device=device)
     envs = [pod_env(sts, i) for i in range(sts["spec"]["replicas"])]
     if len(envs) != 2 or any(e["LOCAL_WORLD_SIZE"] != "2" or e["LS_SLICE_HOSTS"] != "2"
                              for e in envs):
-        fail(f"path S2: the manifest is not 2 pods of 2 ranks: {envs}")
-    refusals = s2_refusals(device)
-    prompts = chat_prompts()
+        fail(f"path S [{label}]: the manifest is not 2 pods of 2 ranks: {envs}")
     site = tempfile.mkdtemp(prefix="chip-smoke-site-")
     Path(site, "sitecustomize.py").write_text(_DEPTH_SITE)
     tmp = Path(os.environ.get("TMPDIR", "/tmp"))
     pods = []
     t0 = time.monotonic()
     try:
-        for env in envs:
-            out = tmp / f"chip_smoke_{env['LS_POD_NAME']}_{os.getpid()}.json"
+        for pod in envs:
+            out = tmp / f"chip_smoke_{pod['LS_POD_NAME']}_{os.getpid()}.json"
             with open(out.with_suffix(".log"), "wb") as log_file:  # a file, not a pipe
                 proc = subprocess.Popen(
                     [sys.executable, str(REPO / "chip_smoke.py"), "--q2-pod",
-                     json.dumps(S_RESOURCE), json.dumps(prompts), str(S_MAX_TOKENS), device,
-                     str(out)], cwd=REPO, stdout=subprocess.DEVNULL, stderr=log_file,
-                    env={**os.environ, **env, "LS_SMOKE_LAYERS": str(S_LAYERS),
+                     json.dumps(resource), json.dumps(prompts), str(max_tokens), device,
+                     str(out), scenario], cwd=REPO, stdout=subprocess.DEVNULL,
+                    stderr=log_file,
+                    env={**os.environ, **pod, **env, "LS_SMOKE_LAYERS": str(S_LAYERS),
                          "PYTHONPATH": os.pathsep.join((site, str(REPO)))})
-            pods.append((env["LS_POD_NAME"], proc, out))
+            pods.append((pod["LS_POD_NAME"], proc, out))
         deadline = time.monotonic() + 300
         for name, proc, out in pods:
             try:
@@ -6695,7 +6834,7 @@ def s2_slice(torch, device="cuda") -> dict:
             err = out.with_suffix(".log").read_text(errors="replace")[-3000:]
             out.with_suffix(".log").unlink()
             if proc.returncode != 0:
-                fail(f"path S2: pod {name} exited {proc.returncode}: {err}")
+                fail(f"path S [{label}]: pod {name} exited {proc.returncode}: {err}")
     finally:
         shutil.rmtree(site, ignore_errors=True)
     slice_s = time.monotonic() - t0
@@ -6703,36 +6842,131 @@ def s2_slice(torch, device="cuda") -> dict:
     for name, _, out in pods:
         reports.append(json.loads(out.read_text()))
         out.unlink()
-        children_ended(f"S2 {name}", reports[-1]["launched"], path="S")
-    leader = reports[0]
-    mesh = leader["mesh"]
-    if (mesh["world-size"], mesh["rank"], mesh["axes"]) != (4, 0, S_RESOURCE["mesh"]):
-        fail(f"path S2: the leader's mesh is not the slice's: {mesh}")
-    ranks = {0: leader["kernels"], 2: reports[1]["kernels"]}
+        children_ended(f"{label} {name}", reports[-1]["launched"], path="S")
+    mesh = reports[0]["mesh"]
+    if (mesh["world-size"], mesh["rank"], mesh["axes"]) != (4, 0, resource["mesh"]):
+        fail(f"path S [{label}]: the leader's mesh is not the slice's: {mesh}")
+    return reports, slice_s
+
+
+def slice_launches(label: str, reports: list[dict], device="cuda") -> dict:
+    """Each of the slice's four ranks' kernel launches (the pods' own and
+    their started ranks'); kernels #1 and #3 must have launched on each."""
+    ranks = {0: reports[0]["kernels"], 2: reports[1]["kernels"]}
     for report in reports:
         ranks.update({c["rank"]: c["kernels"] for c in report["launched"]["children"]})
     for rank, counts in sorted(ranks.items()):
         if device == "cuda" and (counts["flash_attention"] == 0
                                  or counts["paged_attention_q8"] == 0):
-            fail(f"path S2: rank {rank} did not launch kernels #1 and #3: {counts}")
+            fail(f"path S [{label}]: rank {rank} did not launch kernels #1 and #3: {counts}")
+    return dict(sorted(ranks.items()))
+
+
+def _streams(out: dict) -> list[dict]:
+    return [{"tokens": t, "logprobs": lp} for t, lp in zip(out["tokens"], out["logprobs"])]
+
+
+def s2_slice(torch, device="cuda") -> dict:
+    """S2: the 2-host slice from the ``S_ACCELERATOR`` manifest of a 4-card
+    device mesh (:func:`slice_pods`), held to a one-rank engine of the same
+    seed, and the manifests' refusals. Returns the leader rank's
+    launches."""
+    refusals = s2_refusals(device)
+    prompts = chat_prompts()
+    reports, slice_s = slice_pods("S2", S_RESOURCE, prompts, S_MAX_TOKENS, "serve", device)
+    leader, mesh = reports[0], reports[0]["mesh"]
+    ranks = slice_launches("S2", reports, device)
     ref, gaps = reference_run(torch, S_RESOURCE, [prompts], S_MAX_TOKENS, S_LAYERS, device)
-    results = [{"tokens": t, "logprobs": lp}
-               for t, lp in zip(leader["tokens"], leader["logprobs"])]
-    rule = check_first_tokens("S2", results, ref["results"], gaps, path="S")
+    rule = check_first_tokens("S2", _streams(leader), ref["results"], gaps, path="S")
     return {"slice_s": round(slice_s, 3), "refusals": refusals,
             "first_tokens_checked": rule["checked"], "prefixes": rule["prefixes"],
             "wave_s": round(leader["serve_s"], 3), "wave_s_one_rank": round(ref["wall_s"], 3),
             "replayed_by_pod_1": reports[1]["replayed"],
             "lockstep_dispatches": mesh["lockstep-dispatches"],
             "collectives": mesh["collectives"],
-            "launches_by_rank": {r: {k: v for k, v in c.items() if v}
-                                 for r, c in sorted(ranks.items())},
+            "launches_by_rank": {r: {k: v for k, v in c.items() if v} for r, c in ranks.items()},
+            "counts": leader["kernels"]}
+
+
+#: S3: S2's slice with the prefix cache and a prefix store (T0 two blocks,
+#: T1 twelve, a local T2), path I1's eight questions on its 1,536-token
+#: preamble, cold and then warm
+S3_MAX_TOKENS = 32
+
+
+def s3_tiers(torch, device="cuda") -> dict:
+    """S3: a cold wave on the slice, the tiers drained (demotion to T1, a
+    spill to T2), the wave again (T1 promotion, T2 hydration) landing on
+    all four ranks: every rank's promoted rows byte-equal to demoted ones
+    (``LS_TORCH_TIER_DIGESTS``), every rank's tier moves the leader's; the
+    cold streams held to a one-rank engine by the first-token rule, the
+    warm ones to the cold ones. Returns the leader rank's launches."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.serving.engine import _MODEL_CONFIGS
+
+    label = "S3 prefix tiers"
+    bs = int(S_RESOURCE.get("kv-block-size", 64))
+    mc = _MODEL_CONFIGS[S_RESOURCE["model"]](max_seq_len=int(S_RESOURCE["max-seq-len"]))
+    block_bytes = 2 * S_LAYERS * bs * mc.kv_heads * (mc.head_dim + 4)  # int8 rows, f32 scales
+    t2 = tempfile.mkdtemp(prefix="ls-s3-t2-")
+    store = {"t0-bytes": 2 * block_bytes, "t1-bytes": 12 * block_bytes,
+             "t2": {"type": "local", "path": t2}, "t2-rescan-s": 0.2,
+             "hydrate-timeout-s": 60.0}
+    cfg = {**S_RESOURCE, "prefix-cache": True, "prefix-store": store}
+    prompts = tier_prompts(bs)[0]
+    try:
+        reports, slice_s = slice_pods("S3", cfg, prompts, S3_MAX_TOKENS, "tiers", device,
+                                      LS_TORCH_TIER_DIGESTS="1")
+    finally:
+        shutil.rmtree(t2, ignore_errors=True)
+    leader, follower = reports
+    if leader["block_bytes"] != block_bytes:
+        fail(f"path S [{label}]: whole-head block bytes {leader['block_bytes']} != {block_bytes}")
+    drained, st = leader["drained"], leader["stats"]
+    if not (drained["demotions_t0_t1"] and drained["demotions_t1_t2"]):
+        fail(f"path S [{label}]: the drain must demote to T1 and spill to T2: {drained}")
+    if not (st["promotions"] > drained["promotions"]):
+        fail(f"path S [{label}]: the warm wave promoted nothing: {st}")
+    meshes = {0: leader["mesh"], 1: leader["launched"]["children"][0]["mesh"][0],
+              2: follower["mesh"][0], 3: follower["launched"]["children"][0]["mesh"][0]}
+    digests = {}
+    for rank, mesh in meshes.items():
+        if mesh["tier-moves"] != leader["mesh"]["tier-moves"]:
+            fail(f"path S [{label}]: rank {rank}'s tier moves {mesh['tier-moves']} are not "
+                 f"the leader's {leader['mesh']['tier-moves']}")
+        digests[rank] = _digest_check(f"{label} rank {rank}", mesh["tier-digests"], "S")
+    ranks = slice_launches("S3", reports, device)
+    ref, gaps = reference_run(torch, S_RESOURCE, [prompts], S3_MAX_TOKENS, S_LAYERS, device)
+    cold_rule = check_first_tokens(f"{label}: cold", _streams(leader), ref["results"], gaps,
+                                   path="S")
+    warm_rule = check_first_tokens(f"{label}: warm", _streams(leader["warm"]),
+                                   _streams(leader), gaps, path="S")
+    demoted = drained["demotions_t0_t1"] * block_bytes
+    prom_bytes = sum(e["bytes"] for e in leader["promoted"])
+    prom_ms = sum(e["device_ms"] for e in leader["promoted"])
+    return {"slice_s": round(slice_s, 3), "seconds": leader["seconds"],
+            "block_bytes": block_bytes,
+            "tiers_drained": {k: drained[k] for k in ("demotions_t0_t1", "demotions_t1_t2")},
+            "tiers_warm": {k: st[k] for k in ("promotions", "hydrations")},
+            "demote_bytes": demoted, "demote_fetch_s": drained["t0"]["demote_seconds"],
+            "demote_gbps": (round(demoted / drained["t0"]["demote_seconds"] / 1e9, 3)
+                            if drained["t0"]["demote_seconds"] else None),
+            "promote_bytes": prom_bytes, "promote_device_ms": round(prom_ms, 3),
+            "promote_gbps": round(prom_bytes / prom_ms / 1e6, 3) if prom_ms else None,
+            "digests_by_rank": digests, "tier_moves": leader["mesh"]["tier-moves"],
+            "tier_collectives": leader["mesh"]["collectives"].get("kv-tier"),
+            "first_tokens_checked": {"cold": cold_rule["checked"], "warm": warm_rule["checked"]},
+            "wave_s_one_rank": round(ref["wall_s"], 3),
+            "launches_by_rank": {r: {k: v for k, v in c.items() if v} for r, c in ranks.items()},
             "counts": leader["kernels"]}
 
 
 def phase_cluster_path(torch, smi: str, device="cuda") -> dict:
     """Path S: the port in the cluster (:func:`s1_placement`,
-    :func:`s2_slice`). Returns the leader rank's S2 launches."""
+    :func:`s2_slice`, :func:`s3_tiers`). Returns the leader rank's S2 and
+    S3 launches."""
     t0 = time.monotonic()
     s1 = s1_placement(torch, smi)
     print(f"path S [S1 placement]: {json.dumps(s1)}", flush=True)
@@ -6740,8 +6974,14 @@ def phase_cluster_path(torch, smi: str, device="cuda") -> dict:
     counts = s2.pop("counts")
     print(f"path S [S2 llama3-8b int8 {S_LAYERS} layers, 2 pods x 2 ranks, dp=2 tp=2, "
           f"from the {S_ACCELERATOR} manifest]: {json.dumps(s2)}", flush=True)
-    print(f"path S: {time.monotonic() - t0:.1f} s", flush=True)
-    return counts
+    t3 = time.monotonic()
+    s3 = s3_tiers(torch, device)
+    s3_counts = s3.pop("counts")
+    s3["path_s"] = round(time.monotonic() - t3, 3)
+    print(f"path S [S3 llama3-8b int8 {S_LAYERS} layers, 2 pods x 2 ranks, dp=2 tp=2, "
+          f"prefix store]: {json.dumps(s3)}", flush=True)
+    print(f"path S: {time.monotonic() - t0:.1f} s (S3 {s3['path_s']:.1f} s)", flush=True)
+    return {k: counts[k] + s3_counts[k] for k in counts}
 
 
 def main() -> int:
@@ -6771,8 +7011,12 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.monotonic()
     built = _build.build_all()
-    print(f"built {sorted(built)} in {time.monotonic() - t0:.1f} s into "
-          f"{_build.build_dir()}", flush=True)
+    build_s = time.monotonic() - t0
+    print(f"built {sorted(built)} in {build_s:.1f} s into {_build.build_dir()}", flush=True)
+    # what a pod's first start pays unless its image carries the libraries
+    print("first build: " + json.dumps({
+        "first_build_s": round(build_s, 3) if built else None, "built": sorted(built),
+        "build_dir": str(_build.build_dir()), "nvidia_smi": smi}), flush=True)
     for line in ptxas_report(built):
         print(line)
 
@@ -6999,7 +7243,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--p-rank"]:  # path P's rank 1
         sys.path.insert(0, str(REPO))
         sys.exit(p_rank(*sys.argv[2:7]))
-    if sys.argv[1:2] == ["--q2-pod"]:  # one of path Q2's two pods
+    if sys.argv[1:2] == ["--q2-pod"]:  # one pod of a slice (paths Q2 and S)
         sys.path.insert(0, str(REPO))
-        sys.exit(q2_pod(*sys.argv[2:7]))
+        sys.exit(q2_pod(*sys.argv[2:9]))
     sys.exit(main())

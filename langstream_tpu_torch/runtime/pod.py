@@ -74,22 +74,27 @@ async def run_slice_follower(hosts: int, ordinal: int,
 
     log.info("slice follower %d/%d: joining lockstep channel", ordinal, hosts)
     replayed = 0
-
-    class _FollowerInfo:
-        def info(self) -> dict[str, Any]:
-            return {
-                "role": "slice-follower",
-                "ordinal": ordinal,
-                "hosts": hosts,
-                "replayed-steps": replayed,
-            }
-
-    server = await serve_info(_FollowerInfo()) if serve_info is not None else None
     leader_host = os.environ["LS_COORDINATOR_ADDRESS"].rsplit(":", 1)[0]
     port = int(os.environ.get("LS_LOCKSTEP_PORT", str(DEFAULT_PORT)))
     follower = LockstepFollower(leader_host, port,
                                 token=os.environ.get("LS_LOCKSTEP_TOKEN", ""),
                                 device=device)
+
+    class _FollowerInfo:
+        def info(self) -> dict[str, Any]:
+            engines = ([follower.engine] if follower.engine is not None else []) + list(
+                follower.embedders.values())
+            return {
+                "role": "slice-follower",
+                "ordinal": ordinal,
+                "hosts": hosts,
+                "replayed-steps": replayed,
+                # the engines this pod replays: each one's mesh section
+                # (its rank, dispatches, tier moves)
+                "mesh": [e.mesh_section() for e in engines],
+            }
+
+    server = await serve_info(_FollowerInfo()) if serve_info is not None else None
     loop = asyncio.get_running_loop()
     stop = asyncio.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):

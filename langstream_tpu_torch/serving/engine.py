@@ -820,8 +820,11 @@ class _DeviceLru:
 
     def device_bytes(self) -> int:
         """Bytes held by the cached entries (the memory ledger's
-        ``device-lru`` and ``sampler-state`` owners); a snapshot read."""
-        return sum(tree_device_bytes(e) for e in list(self._entries.values()))
+        ``device-lru`` and ``sampler-state`` owners); a snapshot taken under
+        the lock the dispatch thread's inserts and evictions hold."""
+        with self._lock:
+            entries = list(self._entries.values())
+        return sum(tree_device_bytes(e) for e in entries)
 
     def stats(self) -> dict[str, int]:
         with self._lock:
@@ -890,23 +893,60 @@ class TorchServingEngine:
                  lockstep_role: str | None = None):
         _check_supported(config)
         self.device = require_device(device, "TorchServingEngine")
+        # the ``engine`` frame's build number when the followers build this
+        # engine from it (it joined a channel an embeddings engine opened)
+        self._announced: int | None = None
         # under a mesh, the world: this host's missing ranks started when
         # none is joined (the world whose ranks this process started, or
         # None; started: by this call)
         self._launched, started = (launch.ensure_world(config.mesh, self.device)
                                    if lockstep_role != "follower" else (None, False))
+        error = None
         try:
             self._init_mesh(config, lockstep_role)
             self._init_engine(config, params, streams)
         except BaseException as e:
+            error = e
+        if self._announced is not None:
+            error = self._followers_built(error)
+        if error is not None:
             # this engine's place on the channel released; a world it
             # started ends (no rank waits on an engine that failed: the
             # ranks killed and reaped), one it joined stays up for the
             # engines that share it
             self._release_channel()
             if started:
-                launch.abandon(e)
-            raise
+                launch.abandon(error)
+            raise error
+
+    def _followers_built(self, error: BaseException | None) -> BaseException | None:
+        """Leader of a joined channel: every follower's answer to this
+        engine's ``engine`` frame, read within twice the collective timeout
+        (a follower whose build waits in a collective this rank never
+        reached answers once that collective times out). When the build
+        failed on any rank, the followers drop it and the error to raise is
+        returned: this rank's own (the followers' errors in a note), or
+        one naming each follower's error. None when every rank built it."""
+        from langstream_tpu_torch.parallel.mesh import collective_timeout_s
+
+        try:
+            failed = self._lockstep.await_builds(self._announced, 2 * collective_timeout_s())
+            if error is not None or failed:
+                self._lockstep.broadcast({"op": "drop_engine"})
+        except (LockstepBroken, TimeoutError) as e:
+            if error is None:
+                return e
+            error.add_note(f"while waiting for the followers' builds: {e}")
+            return error
+        if not failed:
+            return error
+        said = "; ".join(f"rank {rank}: {why}" for rank, why in sorted(failed.items()))
+        if error is not None:
+            error.add_note(f"the followers' builds failed too ({said})")
+            return error
+        return RuntimeError(
+            f"the serving engine failed to build on {len(failed)} follower rank(s) of "
+            f"its world ({said}); every rank dropped it and the world serves on")
 
     def _init_engine(self, config: ServingConfig, params: dict | None,
                      streams: StreamCancelRegistry | None) -> None:
@@ -1272,8 +1312,8 @@ class TorchServingEngine:
             self.lockstep_role = "leader"
             if not opened:
                 # the channel was opened by an embeddings engine: the
-                # followers build this one from its own frame
-                self._lockstep.broadcast({"op": "engine", "config_json": config_json})
+                # followers build this one from its own frame and answer
+                self._announced = self._lockstep.announce(config_json)
         self.mesh = make_mesh(dict(config.mesh))
         self._dp_span = self.mesh.dp_rows(config.slots)
         if self._dp_span is not None:
@@ -2069,6 +2109,7 @@ class TorchServingEngine:
             if not task.done():
                 try:
                     await asyncio.shield(task)
+                # graftcheck: disable=EXC402 warmup failure is logged by the task done-callback
                 except Exception:
                     pass
         tokens = (
@@ -2630,6 +2671,7 @@ class TorchServingEngine:
         """Give up this engine's place on its lockstep channel (another
         serving engine may lead it then); whether the channel closed (its
         last user sends ``stop``)."""
+        # graftcheck: disable=RACE801 ordered after the dispatch thread: close() and get_or_create join the executor (wait=True) first, a failed constructor never dispatched
         channel, self._lockstep = self._lockstep, None
         if channel is None:
             return False
@@ -2965,7 +3007,10 @@ class TorchServingEngine:
         self._note_reclaimed(slot_id)
 
     def _flush_deferred_releases(self) -> None:
+        """The releases a pipelined burst deferred, made in its ``finally``
+        (or by ``_fail_inflight``) once no chunk of it is in flight."""
         for slot_id in self._deferred_releases:
+            # graftcheck: disable=INV901 this is the burst's finally-path flush: no chunk of the burst is in flight
             self.block_mgr.release(slot_id)
             self._note_reclaimed(slot_id)
         self._deferred_releases.clear()
@@ -4739,6 +4784,7 @@ class TorchServingEngine:
             temps[i] = request.temperature
             topks[i] = request.top_k
             topps[i] = request.top_p
+        # graftcheck: disable=PERF701 a host list of slot ids: no device tensor is read
         slot_ids = np.asarray([pre[j] for j in rows], dtype=np.int64)
         cont = (starts, self._read_blocks_for(max(int(starts.max()), 1)))
         mode = self._sampler_mode(temps, topks, topps)
@@ -4832,14 +4878,15 @@ class TorchServingEngine:
         with the generator's state (every rank samples the same gathered
         logits from it); returns the dispatch's number, None without a
         lockstep group. ``None`` fields are left out."""
-        if self._lockstep is None:
+        channel = self._lockstep  # one read: checked and used as one
+        if channel is None:
             return None
         seq = self._ls_seq
         self._ls_seq += 1
         desc = {"op": op}
         desc.update((k, v) for k, v in fields.items() if v is not None)
         desc["gen"] = self._generator.get_state().numpy()  # uint8, a copy
-        self._lockstep.broadcast(desc)
+        channel.broadcast(desc)
         return seq
 
     def _ls_note(self, seq: int | None, op: str, tokens: np.ndarray) -> None:
@@ -5415,6 +5462,7 @@ class TorchServingEngine:
             self._ctx_synced[slot_id] = n
         if not rows:
             return None, None
+        # graftcheck: disable=INV902 a host list of slot ids: no device tensor is read
         return np.asarray(rows, dtype=np.int64), np.stack(vals)
 
     def _fetch_spec(self, packed: torch.Tensor, d1: int) -> tuple:

@@ -46,9 +46,23 @@ ordered stream. The first engine opens the channel and its handshake; an
 engine that joins an open channel announces itself with a frame the
 followers build it from (``engine`` for a serving engine, the first
 ``embed`` for an embeddings engine). The last :func:`release` sends
-``stop``. The serving engine's frames are byte for byte the JAX package's;
-``engine``, ``embed`` and the three tier moves are the port's own (the JAX
-engines run a one-host mesh in one process and need no frame).
+``stop``.
+
+**A failed build leaves the world up.** Each follower answers an ``engine``
+frame with one ``built`` frame back on its channel (the frame's ``build``
+number, its rank, and its error when the build raised); a follower whose
+build failed drops that engine and goes on replaying. The leader reads
+every answer (:meth:`LockstepLeader.await_builds`, bounded) once its own
+build has ended; when the build failed on any rank, it sends
+``drop_engine`` (every follower lets the engine go) and the serving
+engine's constructor raises, naming each follower's error. So a serving
+engine that fails to build never takes down the world an embeddings
+engine leads, as in the JAX package, where both live in one process.
+
+The serving engine's frames are byte for byte the JAX package's;
+``engine``, ``built``, ``drop_engine``, ``embed`` and the three tier moves
+are the port's own (the JAX engines run a one-host mesh in one process and
+need no frame).
 
 Wire format (no pickle; the channel crosses pod boundaries), byte for
 byte the JAX package's: ``u32 big-endian frame length | u32 header length
@@ -61,6 +75,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import select
 import socket
 import struct
 import threading
@@ -181,6 +196,7 @@ class LockstepLeader:
         #: one does (a follower replays one serving engine); it clears this
         #: when it leaves
         self.serving: str | None = serving_config_dict.get("config_json")
+        self._builds = 0  # the ``engine`` frames announced
         if server is None:
             server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -281,6 +297,43 @@ class LockstepLeader:
             raise LockstepBroken(
                 f"lost lockstep follower(s): {failed}; slice must restart"
             )
+
+    def announce(self, config_json: str) -> int:
+        """Send the ``engine`` frame the followers build a serving engine
+        from; its build number, which each follower's ``built`` answer
+        carries."""
+        self._builds += 1
+        self.broadcast({"op": "engine", "config_json": config_json, "build": self._builds})
+        return self._builds
+
+    def await_builds(self, build: int, timeout: float) -> dict[int, str]:
+        """Every follower's answer to ``engine`` frame ``build``, within
+        ``timeout`` seconds: ``{rank: error}`` for the followers whose build
+        raised (empty when every one built it). Raises ``TimeoutError``
+        counting the followers that did not answer in time, and
+        :class:`LockstepBroken` when a follower's channel closed."""
+        deadline = time.monotonic() + timeout
+        with self._lock:
+            waiting = list(self._followers)
+        failed: dict[int, str] = {}
+        while waiting:
+            ready, _, _ = select.select(waiting, [], [], max(0.0, deadline - time.monotonic()))
+            if not ready:
+                raise TimeoutError(
+                    f"{len(waiting)} lockstep follower(s) did not answer the serving "
+                    f"engine's build within {timeout:.0f}s")
+            for conn in ready:
+                try:
+                    answer = read_frame(conn)
+                except (ConnectionError, OSError) as e:
+                    raise LockstepBroken(
+                        f"a lockstep follower closed its channel during a build: {e}") from e
+                if answer.get("op") != "built" or answer.get("build") != build:
+                    continue  # a stale answer (an earlier build the leader gave up on)
+                waiting.remove(conn)
+                if answer.get("error"):
+                    failed[int(answer["rank"])] = answer["error"]
+        return failed
 
     @property
     def broken(self) -> bool:
@@ -496,6 +549,24 @@ class LockstepFollower:
             log.info("lockstep follower ready (model %s)", config.model)
             return self.engine
 
+        def build_announced(desc: dict[str, Any]):
+            """An ``engine`` frame: build it and answer the leader with a
+            ``built`` frame; a failed build is dropped (this rank keeps
+            replaying the other engines' frames) and its error answered."""
+            import torch.distributed as dist
+
+            answer = {"op": "built", "build": desc.get("build"),
+                      "rank": dist.get_rank() if dist.is_initialized() else 0}
+            self.engine = None
+            try:
+                built = build(desc["config_json"])
+            except Exception as e:
+                log.exception("lockstep follower: the announced serving engine failed "
+                              "to build; dropped, the replay goes on")
+                built, answer["error"] = None, f"{type(e).__name__}: {e}"
+            sock.sendall(encode_descriptor(answer))
+            return built
+
         if handshake.get("config_json"):
             engine = build(handshake["config_json"])
         steps = 0
@@ -514,7 +585,10 @@ class LockstepFollower:
             desc = {k: v.copy() if isinstance(v, np.ndarray) else v
                     for k, v in desc.items()}
             if op == "engine":
-                engine = build(desc["config_json"])
+                engine = build_announced(desc)
+                continue
+            if op == "drop_engine":  # the build failed on some rank
+                engine = self.engine = None
                 continue
             if op == "embed":
                 self._embed(desc)

@@ -4,6 +4,7 @@
     python serve_torch.py [--device cpu|cuda] <langstream-tpu CLI arguments>
     python -m serve_torch [--device cpu|cuda] pod <pod command ...>
     python -m serve_torch [--device cpu|cuda] operator
+    python -m serve_torch [--device cpu|cuda] controlplane
 
 for example, the single-process dev mode on the chat example, and the
 one-command local cluster:
@@ -81,7 +82,14 @@ placement name is ``LS_ACCELERATOR``, one of the port's entries (unset:
 ``h100``); any other name, a TPU's among them, is refused. ``python -m
 serve_torch operator`` runs the platform's operator so; under ``mini up``
 the operator and the process kubelet run in this process, so its agent
-pods serve through the port too.
+pods serve through the port too. ``python -m serve_torch controlplane``
+runs the platform's control plane (``langstream_tpu.controlplane``) after
+:func:`register`: in ``LS_MODE: local`` (the compose stack,
+``deploy/torch/docker-compose.yaml``) its in-process agents serve through
+the port; in ``LS_MODE: k8s`` it writes Agent CRs stamped with
+``LS_RUNTIME_IMAGE``, which the port's operator places. The port's install
+(``deploy/torch/``: manifests, a Helm chart and the compose file) is
+rendered by ``tools/render_deploy_torch.py``.
 
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
@@ -336,8 +344,8 @@ def main(argv: list[str] | None = None) -> None:
     """Register on ``--device`` (a leading option), then run what the
     remaining arguments name: ``pod <pod command ...>`` the platform's pod
     entrypoint, ``operator`` the platform's operator (after checking
-    ``LS_ACCELERATOR``), anything else the CLI. It exits the process with
-    the command's code."""
+    ``LS_ACCELERATOR``), ``controlplane`` the platform's control plane,
+    anything else the CLI. It exits the process with the command's code."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     if argv[:1] == ["--device"]:
@@ -355,6 +363,15 @@ def main(argv: list[str] | None = None) -> None:
 
         accelerator_from_env()  # a TPU name fails here, before the loop starts
         operator.main()
+        return
+    if argv[:1] == ["controlplane"]:
+        import asyncio
+        import logging
+
+        from langstream_tpu.controlplane.__main__ import main as controlplane
+
+        logging.basicConfig(level=logging.INFO)
+        asyncio.run(controlplane())
         return
     from langstream_tpu.cli.main import cli
 
