@@ -31,7 +31,7 @@ Phases (every one unguarded: any failure exits non-zero):
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV; every llama3-8b engine of the run at ``MAIN_LAYERS`` = 16 of its 32
-   layers at most, A, B, C, E, M3 and Q1 at it, the others cut further) answering concurrent greedy requests, launch counters set to 0 just
+   layers at most, A, B, C, M3, Q1 and T at it, the others cut further) answering concurrent greedy requests, launch counters set to 0 just
    before and read just after (as for every path);
 4. main path B: the same with ``kv-layout: paged``, ``kv-quantize: int8``
    (a profiled second wave, as path A);
@@ -46,7 +46,9 @@ Phases (every one unguarded: any failure exits non-zero):
    TTFT and tokens per step; then the greedy prompts with speculation off
    and the share of tokens that match (printed, not required);
    main path E: the chat example's resource (``CHAT_EXAMPLE_RESOURCE``:
-   dense bf16 KV, ``decode-chunk-light: 8``, ``warmup-on-start``) through
+   dense bf16 KV, ``decode-chunk-light: 8``, ``warmup-on-start``) at 4 of
+   its 32 layers (``E_LAYERS``; 16 before, path T serves the resource at
+   ``MAIN_LAYERS`` through the whole application path) through
    the port's provider, as the ``ai-chat-completions`` agent reaches it:
    the first chat runs the warmup; a streamed wave of 8 (light regime, at
    most 8 steps per decode dispatch) and one of 24 (heavy, more than 8);
@@ -324,6 +326,24 @@ Phases (every one unguarded: any failure exits non-zero):
    byte and the tier moves are the leader's; the cold streams held to one
    rank and the warm ones to the cold ones by the first-token rule; the
    demotion's and promotion's GB/s, each rank's launches;
+   main path T (after S): the application path without JAX, through the
+   port's own ``run``, runner and gateway (``langstream_tpu_torch.cli``,
+   ``runtime``, ``gateway``), llama3-8b at ``MAIN_LAYERS``. T1: the
+   chat-completions example as it is (its resource: int8 weights, 64
+   slots, 2,048 context, ``decode-chunk-light: 8``, ``warmup-on-start``,
+   which must have warmed the engine inside the start), the LM head cut to
+   printable ASCII as path E's; a wave of ``T_WAVE`` = 8 sessions, each a
+   produce socket on ``user-input`` and a consume socket on
+   ``bot-output``: every streamed answer equals its answers-topic value
+   and the greedy text the port's provider gives directly on the agent's
+   engine for the same messages; no ``jax``, ``langstream_tpu``, ``yaml``,
+   ``aiohttp`` or ``click`` in ``sys.modules``; the gateway TTFT (produce
+   frame to first chunk) beside the engine's TTFT, chunks per answer,
+   records per topic. T1b: the ``chatbot-gateway`` example over its
+   ``/v1/chat`` route, 4 sessions, chunks joined to each answer. T2:
+   ``python -m langstream_tpu_torch.cli run`` as its own process on the
+   card with the example at the tiny model (the HF fixture): one question,
+   then SIGINT, exit 0. Kernels #1 and #2 launch on T1 and T1b;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -350,7 +370,7 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-S,
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-T,
    rank 0's on N, O, Q, R and S; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
@@ -423,10 +443,12 @@ def ptxas_report(logs: dict) -> list[str]:
 #: a slow host at full depth; F at 8 since path P came (1,085 s); with path
 #: R it took 1,181-1,226 s on slow hosts (an H100 80GB HBM3 at 700 W), so
 #: every path came down (a path's numbers compare only at one depth).
-#: ``MAIN_LAYERS`` holds every llama3-8b engine of the run (A, B, C, E, M3
-#: and Q1 at it; the others at their own cut below it)
+#: ``MAIN_LAYERS`` holds every llama3-8b engine of the run (A, B, C, M3, Q1
+#: and T at it; the others at their own cut below it). With path T the
+#: smoke took 986.9 s, so E came down to 4 (T serves its resource at 16)
 MAIN_LAYERS = 16
 D_LAYERS = 8
+E_LAYERS = 4
 F_LAYERS = 4
 H_LAYERS = 4
 I_LAYERS = 4   # paths I and L2 (L2 serves I2's tokens)
@@ -6984,6 +7006,344 @@ def phase_cluster_path(torch, smi: str, device="cuda") -> dict:
     return {k: counts[k] + s3_counts[k] for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# path T: the application path without JAX
+# ---------------------------------------------------------------------------
+
+T_WAVE = 8             # T1's sessions, one question each, all at once
+T1B_SESSIONS = 4       # T1b's sessions over /v1/chat
+T_TIMEOUT = 300.0      # seconds any one frame may take
+#: what the port must run without (none of it may be in sys.modules)
+T_REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click")
+T_APPS = REPO / "examples" / "applications"
+T_INSTANCE = REPO / "examples" / "instances" / "memory.yaml"
+T_SECRETS = REPO / "examples" / "secrets" / "secrets.yaml"
+#: T2's resource: the chat example's at the tiny model, the in-repo HF
+#: fixture's weights (so the answer has text)
+T2_RESOURCE = {"model": "tiny", "model-dtype": "float32", "slots": 4, "max-seq-len": 256,
+               "checkpoint": str(REPO / "tests" / "fixtures" / "llama_tiny_golden"),
+               "decode-chunk": 4, "decode-chunk-light": 2, "max-tokens": 16,
+               "warmup-on-start": True}
+
+
+def _t_leaks() -> list[str]:
+    return sorted(m for m in sys.modules if m.split(".")[0] in T_REFUSED)
+
+
+def _t_stats(values: list[float]) -> dict:
+    values = sorted(values)
+    return {"p50": round(values[len(values) // 2], 4), "max": round(values[-1], 4),
+            "min": round(values[0], 4)} if values else {}
+
+
+async def _t_topic_counts(run, topics) -> dict:
+    counts = {}
+    for topic in topics:
+        reader = run.runner.reader(topic, "earliest")
+        await reader.start()
+        counts[topic] = len(await reader.read(timeout=0))
+        await reader.close()
+    return counts
+
+
+def t1_chat_app(torch, device="cuda") -> tuple[dict, dict]:
+    """T1: the chat-completions example as it is in the repository (its
+    resource: llama3-8b int8, 64 slots, 2,048 context, ``decode-chunk-light:
+    8``, ``warmup-on-start``), run by the port's ``run`` in this process and
+    driven through the port's gateway: a wave of ``T_WAVE`` sessions, each
+    a produce socket on ``user-input`` and a consume socket on
+    ``bot-output``. Every streamed answer must equal its answers-topic value
+    and the greedy text the port's provider gives directly, on the engine
+    the agent uses, for the same messages. Returns (the path's line, the
+    launches of the app's run)."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    label = "T1: chat-completions through the port's run and gateway"
+    questions = chat_prompts()[:T_WAVE]
+    sessions = [f"t1-{i}" for i in range(len(questions))]
+
+    async def drive():
+        out = {}
+        t0 = time.monotonic()
+        run = LocalRun("chat", T_APPS / "chat-completions", T_INSTANCE, device=device,
+                       gateway_port=0)
+        await run.start()
+        out["start_s"] = time.monotonic() - t0
+        try:
+            # the provider resolves the agent's engine (one per resource)
+            cfg = {"type": CHAT_EXAMPLE_RESOURCE["type"], "name": CHAT_EXAMPLE_RESOURCE["name"],
+                   **CHAT_EXAMPLE_RESOURCE["configuration"]}
+            service = TorchServiceProvider(cfg, device=device).get_completions_service({})
+            engine = service.engine
+            if engine._warmup_task is None:
+                fail(f"{label}: the provider's engine is not the one the app's start warmed")
+            out["warmup"] = engine.stats()["warmup"]
+            completed = engine.stats()["completed"]
+            ascii_head(engine)  # after the warmup: the answers need text
+            consumers = [await WebSocketClient.connect(run.url("consume", "bot-output",
+                                                               sessionId=s))
+                         for s in sessions]
+            producers = [await WebSocketClient.connect(run.url("produce", "user-input",
+                                                               sessionId=s))
+                         for s in sessions]
+
+            async def one(i):
+                t = time.monotonic()
+                await producers[i].send_json({"value": questions[i]})
+                ack = await producers[i].receive_json(T_TIMEOUT)
+                if ack.get("status") != "OK":
+                    fail(f"{label}: session {i} produce refused: {ack}")
+                first, chunks = None, []
+                while True:
+                    frame = await consumers[i].receive_json(T_TIMEOUT)
+                    if first is None:
+                        first = time.monotonic() - t
+                    headers = frame["record"]["headers"]
+                    if headers.get("langstream-client-session-id") != sessions[i]:
+                        fail(f"{label}: session {i} got another session's frame: {headers}")
+                    chunks.append(frame["record"]["value"])
+                    if headers.get("stream-last-message") == "true":
+                        return first, chunks
+
+            t = time.monotonic()
+            out["streams"] = await asyncio.gather(*(one(i) for i in range(len(questions))))
+            out["wave_s"] = time.monotonic() - t
+            answers = await run.runner.wait_for_messages("answers-topic", len(questions),
+                                                         timeout=T_TIMEOUT)
+            out["answers"] = {a.header("langstream-client-session-id"): a for a in answers}
+            out["topics"] = await _t_topic_counts(
+                run, ("questions-topic", "answers-topic", "stream-topic"))
+            for ws in consumers + producers:
+                await ws.close()
+            out["counts"] = read_counts()
+            out["leaks"] = _t_leaks()
+            if engine.stats()["completed"] - completed != len(questions):
+                fail(f"{label}: the agent's requests did not run on the provider's engine")
+            # the provider directly, on the agent's engine, the agent's options
+            # (its resolved ``model``), the same messages, as one wave
+            out["direct"] = await asyncio.gather(*(
+                service.chat_completions([{"role": "user", "content": q}],
+                                         {"model": "llama3-8b"})
+                for q in questions))
+            out["stats"] = engine.stats()
+        finally:
+            await run.stop()
+        return out
+
+    reset_counts()
+    out = asyncio.run(drive())
+    if out["leaks"]:
+        fail(f"{label}: the port's run loaded {out['leaks']}")
+    if out["warmup"]["state"] != "done":
+        fail(f"{label}: warmup-on-start did not warm the engine inside the start: "
+             f"{out['warmup']}")
+    gateway_ttft, engine_ttft, n_chunks = [], [], []
+    for i, (first, chunks) in enumerate(out["streams"]):
+        streamed = "".join(chunks)
+        record = out["answers"].get(sessions[i])
+        if record is None:
+            fail(f"{label}: no answers-topic record for session {i}")
+        answer = record.value["answer"]
+        direct = out["direct"][i].text
+        if not streamed or streamed != answer:
+            fail(f"{label}: session {i}: streamed {streamed!r} != answers-topic {answer!r}")
+        if answer != direct:
+            fail(f"{label}: session {i}: answer {answer!r} != the provider's greedy "
+                 f"text {direct!r}")
+        gateway_ttft.append(first)
+        engine_ttft.append(float(record.header("langstream-ttft-ms")) / 1e3)
+        n_chunks.append(len(chunks))
+    counts = out["counts"]
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    line = {"sessions": len(questions), "start_s": round(out["start_s"], 3),
+            "warmup_s": round(out["warmup"]["seconds"], 3), "wave_s": round(out["wave_s"], 3),
+            "gateway_ttft_s": _t_stats(gateway_ttft), "engine_ttft_s": _t_stats(engine_ttft),
+            "gateway_minus_engine_ttft_s": _t_stats(
+                [g - e for g, e in zip(gateway_ttft, engine_ttft)]),
+            "chunks_per_answer": _t_stats([float(n) for n in n_chunks]),
+            "answer_tokens": sum(r.num_completion_tokens for r in out["direct"]),
+            "records_per_topic": out["topics"], "launches": counts,
+            "equal_to_provider": True, "modules_refused_and_absent": list(T_REFUSED)}
+    return line, counts
+
+
+def t1b_chat_route(torch, device="cuda") -> tuple[dict, dict]:
+    """T1b: the ``chatbot-gateway`` example (llama3-8b int8) through its
+    unauthenticated ``/v1/chat`` gateway, the bench's route: ``T1B_SESSIONS``
+    chat sockets at once, each a question whose chunks and final answer
+    come back on the same socket; the chunks must join to the answer."""
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    label = "T1b: chatbot-gateway over /v1/chat"
+    questions = chat_prompts()[2:2 + T1B_SESSIONS]
+
+    async def drive():
+        out = {}
+        t0 = time.monotonic()
+        run = LocalRun("chatbot", T_APPS / "chatbot-gateway", T_INSTANCE, T_SECRETS,
+                       device=device, gateway_port=0)
+        await run.start()
+        out["start_s"] = time.monotonic() - t0
+        try:
+            from langstream_tpu_torch.agents.provider import TorchServiceProvider
+            from langstream_tpu_torch.core.yaml_subset import safe_load
+
+            config = T_APPS / "chatbot-gateway" / "configuration.yaml"
+            (resource,) = safe_load(config.read_text(), str(config))["configuration"]["resources"]
+            cfg = {"type": resource["type"], "name": resource["name"], **resource["configuration"]}
+            ascii_head(TorchServiceProvider(cfg, device=device).get_completions_service({}).engine)
+
+            async def one(i):
+                ws = await WebSocketClient.connect(run.url("chat", "chat", sessionId=f"t1b-{i}"))
+                t = time.monotonic()
+                await ws.send_json({"value": questions[i]})
+                ack = await ws.receive_json(T_TIMEOUT)
+                if ack.get("status") != "OK":
+                    fail(f"{label}: session {i} refused: {ack}")
+                first, chunks = None, []
+                while True:
+                    frame = await ws.receive_json(T_TIMEOUT)
+                    value = frame["record"]["value"]
+                    if isinstance(value, dict):  # the final answer record
+                        await ws.close()
+                        return first, chunks, value["answer"]
+                    if first is None:
+                        first = time.monotonic() - t
+                    chunks.append(value)
+
+            t = time.monotonic()
+            out["chats"] = await asyncio.gather(*(one(i) for i in range(len(questions))))
+            out["wave_s"] = time.monotonic() - t
+            out["counts"] = read_counts()
+        finally:
+            await run.stop()
+        return out
+
+    reset_counts()
+    out = asyncio.run(drive())
+    for i, (first, chunks, answer) in enumerate(out["chats"]):
+        if not answer or "".join(chunks) != answer:
+            fail(f"{label}: session {i}: chunks {chunks!r} do not join to {answer!r}")
+    counts = out["counts"]
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    line = {"sessions": len(questions), "start_s": round(out["start_s"], 3),
+            "wave_s": round(out["wave_s"], 3),
+            "gateway_ttft_s": _t_stats([c[0] for c in out["chats"]]),
+            "chunks_per_answer": _t_stats([float(len(c[1])) for c in out["chats"]]),
+            "launches": counts}
+    return line, counts
+
+
+def t2_cli_process(device="cuda") -> dict:
+    """T2: ``python -m langstream_tpu_torch.cli run`` as its own process on
+    the card, the chat example at the tiny model: one question through the
+    gateway, then SIGINT; the process must exit 0."""
+    import queue
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    label = "T2: python -m langstream_tpu_torch.cli run"
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-t2-"))
+    app = tmp / "chat"
+    app.mkdir()
+    for name in ("pipeline.yaml", "gateways.yaml"):
+        shutil.copy(T_APPS / "chat-completions" / name, app / name)
+    # JSON is YAML's flow style: the port's loader reads it as it is
+    (app / "configuration.yaml").write_text(json.dumps({"configuration": {"resources": [{
+        "type": "tpu-serving-configuration", "name": "tpu", "configuration": T2_RESOURCE}]}}))
+    port = _free_port()
+    cmd = [sys.executable, "-m", "langstream_tpu_torch.cli", "run", "chat", "-app", str(app),
+           "-i", str(T_INSTANCE), "--device", device, "--gateway-port", str(port)]
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
+    err_path = tmp / "stderr.log"
+    t0 = time.monotonic()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    try:
+        try:
+            first = lines.get(timeout=240)
+        except queue.Empty:
+            first = ""
+        if "deployed" not in first:
+            fail(f"{label}: no 'deployed' line ({first!r}); stderr: "
+                 f"{err_path.read_text()[-3000:]}")
+        ready_s = time.monotonic() - t0
+
+        async def ask():
+            base = f"ws://127.0.0.1:{port}/v1/%s/default/chat/%s?param:sessionId=t2"
+            consumer = await WebSocketClient.connect(base % ("consume", "bot-output"))
+            producer = await WebSocketClient.connect(base % ("produce", "user-input"))
+            t = time.monotonic()
+            await producer.send_json({"value": "what is it?"})
+            ack = await producer.receive_json(T_TIMEOUT)
+            chunks, ttft = [], None
+            while True:
+                frame = await consumer.receive_json(T_TIMEOUT)
+                ttft = ttft if ttft is not None else time.monotonic() - t
+                chunks.append(frame["record"]["value"])
+                if frame["record"]["headers"]["stream-last-message"] == "true":
+                    break
+            await producer.close()
+            await consumer.close()
+            return ack, "".join(chunks), ttft
+
+        ack, answer, ttft = asyncio.run(ask())
+        if ack.get("status") != "OK" or not answer:
+            fail(f"{label}: ack {ack}, answer {answer!r}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rest = []
+    while not lines.empty():
+        rest.append(lines.get())
+    if rc != 0 or not any("stopped" in x for x in rest):
+        fail(f"{label}: exit {rc}, output {rest}; stderr: {err_path.read_text()[-3000:]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"ready_s": round(ready_s, 3), "gateway_ttft_s": round(ttft, 4),
+            "answer_chars": len(answer), "exit": rc, "wall_s": round(time.monotonic() - t0, 3)}
+
+
+def phase_app_path(torch, device="cuda") -> dict:
+    """Path T: the application path without JAX (:func:`t1_chat_app`,
+    :func:`t1b_chat_route`, :func:`t2_cli_process`). Returns T1's and
+    T1b's launches (T2's are its own process's)."""
+    t0 = time.monotonic()
+    with cut_depth("llama3-8b", MAIN_LAYERS):
+        t1, t1_counts = t1_chat_app(torch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1["path_s"] = round(time.monotonic() - t0, 3)
+        print(f"path T [T1 chat-completions, llama3-8b int8 {MAIN_LAYERS} layers, "
+              f"{T_WAVE} sessions over user-input/bot-output]: {json.dumps(t1)}", flush=True)
+        t_b = time.monotonic()
+        t1b, t1b_counts = t1b_chat_route(torch, device)
+        t1b["path_s"] = round(time.monotonic() - t_b, 3)
+        print(f"path T [T1b chatbot-gateway, llama3-8b int8 {MAIN_LAYERS} layers, "
+              f"{T1B_SESSIONS} sessions over /v1/chat]: {json.dumps(t1b)}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = t2_cli_process(device)
+    print(f"path T [T2 the cli run process, tiny f32]: {json.dumps(t2)}", flush=True)
+    counts = {k: t1_counts[k] + t1b_counts[k] for k in t1_counts}
+    print(f"path T: {time.monotonic() - t0:.1f} s; launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -7141,7 +7501,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_e = time.monotonic()
-    e_counts = phase_provider_path(torch, CHAT_EXAMPLE_RESOURCE)
+    with cut_depth(CHAT_EXAMPLE_RESOURCE["configuration"]["model"], E_LAYERS):
+        e_counts = phase_provider_path(torch, CHAT_EXAMPLE_RESOURCE)
     secs["E"] = time.monotonic() - t_e
     gc.collect()
     torch.cuda.empty_cache()
@@ -7185,8 +7546,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_s = time.monotonic()
     s_counts = phase_cluster_path(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_t = time.monotonic()
+    t_counts = phase_app_path(torch)
+    if t_counts["flash_attention"] == 0 or t_counts["paged_attention"] == 0:
+        fail(f"path T did not launch flash and the bf16 paged read: {t_counts}")
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
-                P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=time.monotonic() - t_s)
+                P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=time.monotonic() - t_t)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -7200,8 +7567,9 @@ def main() -> int:
     paths = {"A": dense_counts, "B": q8_counts, "C": c_counts, "D": d_counts,
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
-             "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts}
-    meta = {  # launches: summed over the nineteen main paths (rank 0's on N, O, Q, R, S)
+             "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
+             "T": t_counts}
+    meta = {  # launches: summed over the twenty main paths (rank 0's on N, O, Q, R, S)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

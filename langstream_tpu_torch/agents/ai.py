@@ -1,0 +1,370 @@
+"""AI agents: chat and text completions, and embeddings (the port's copy
+of the first three agents of ``langstream_tpu/agents/ai.py``).
+
+Parity: ``langstream-ai-agents`` --
+``ChatCompletionsStep.java:42`` (Mustache prompt templating, token streaming
+to a topic with growing chunk batches up to ``min-chunks-per-message``,
+``completion-field``/``log-field``), ``TextCompletionsStep.java``,
+``ComputeAIEmbeddingsStep.java:46`` (batched via ``OrderedAsyncBatchExecutor``
+-- batch-size / flush-interval / concurrency config).
+
+The backing :class:`ServiceProvider` for a ``tpu-serving-configuration``
+resource is the port's engine, so "call the model" means "enqueue into the
+continuous-batching decode loop on this process's card". The JAX module's
+``query``, ``re-rank`` and ``flare-controller`` agents are not ported yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import uuid
+from typing import Any
+
+from langstream_tpu_torch.api.agent import (
+    AgentProcessor,
+    RecordSink,
+    SingleRecordProcessor,
+    SourceRecordAndResult,
+)
+from langstream_tpu_torch.api.batching import OrderedAsyncBatchExecutor
+from langstream_tpu_torch.api.record import MutableRecord, Record, make_record
+from langstream_tpu_torch.agents.services import (
+    Chunk,
+    ServiceProvider,
+    resolve_service_provider,
+)
+from langstream_tpu_torch.core.expressions import render_template
+
+log = logging.getLogger(__name__)
+
+
+class _AIAgentBase(SingleRecordProcessor):
+    async def init(self, configuration: dict[str, Any]) -> None:
+        await super().init(configuration)
+        self.provider: ServiceProvider = resolve_service_provider(
+            configuration.get("__resources__", {})
+        )
+
+    def _options(self, record: Record | None = None) -> dict[str, Any]:
+        keys = (
+            "model",
+            "max-tokens",
+            "temperature",
+            "top-p",
+            "top-k",
+            "stop",
+            "presence-penalty",
+            "frequency-penalty",
+            "logprobs",
+            # pipeline-wide QoS defaults (the record headers below
+            # override per request)
+            "priority",
+            "qos-tenant",
+        )
+        options = {
+            k: self.configuration[k] for k in keys if k in self.configuration
+        }
+        if record is not None:
+            # the gateway stamped the client's QoS identity onto the
+            # record; forward it so the engine's scheduler sees the same
+            # tenant/priority the gateway throttled on
+            headers = record.header_map()
+            qos_tenant = headers.get("langstream-qos-tenant")
+            if qos_tenant:
+                options["qos-tenant"] = qos_tenant
+            priority = headers.get("langstream-qos-priority")
+            if priority:
+                options["priority"] = priority
+            deadline = headers.get("langstream-deadline")
+            if deadline:
+                # the gateway's end-to-end budget (serving/handoff.py):
+                # the engine's admission gate enforces it 504-shaped, so
+                # the same deadline the client saw bounds the device work
+                options["deadline"] = deadline
+            stream_id = headers.get("langstream-stream-id")
+            if stream_id:
+                # the gateway's per-message stream identity: the engine
+                # registers the request future under this key so a client
+                # disconnect at the gateway cancels the decode and frees
+                # the slot (serving/streaming.py)
+                options["stream-key"] = stream_id
+            adapter = headers.get("langstream-adapter")
+            if adapter:
+                # the LoRA adapter the gateway resolved from QoS tenant
+                # config (serving/adapters.py): the engine's admission
+                # gate hydrates it through the tier store and the decode
+                # program applies it per-slot (docs/ADAPTERS.md)
+                options["adapter"] = adapter
+        return options
+
+    @staticmethod
+    def _stream_cancelled(record: Record | None) -> bool:
+        """Classify a ``CancelledError`` out of the completion call:
+        True means the client disconnected and the gateway cancelled this
+        record's stream-key (serving/streaming.py) — the record is
+        TERMINAL (the engine already reclaimed the slot and logged
+        ``stream-cancel``), so the agent commits it with zero results
+        instead of letting the cancel fall through ``composite._done``'s
+        cancelled branch, which would leak the record as forever-inflight.
+        False means shutdown (or an unrelated cancel): keep propagating.
+        """
+        if record is None:
+            return False
+        key = record.header_map().get("langstream-stream-id")
+        if not key:
+            return False
+        from langstream_tpu_torch.serving.streaming import STREAMS
+
+        return STREAMS.consume_cancelled(str(key))
+
+
+class _StreamWriter:
+    """Streams completion chunks to a topic with growing batch sizes.
+
+    Parity: ``ChatCompletionsStep.java:65,151`` — the first message carries 1
+    chunk, the second 2, … up to ``min-chunks-per-message``, so TTFT stays low
+    while steady-state per-message overhead amortises. Each streamed record
+    carries the source record's headers (session filters keep working) plus
+    ``stream-id`` / ``stream-index`` / ``stream-last-message``.
+    """
+
+    def __init__(
+        self,
+        producer,
+        source_record: Record,
+        completion_field: str,
+        min_chunks_per_message: int,
+    ):
+        self.producer = producer
+        self.source_record = source_record
+        self.completion_field = completion_field
+        self.min_chunks = max(1, min_chunks_per_message)
+        self.stream_id = str(uuid.uuid4())
+        self.buffer: list[str] = []
+        self.next_batch = 1
+        self.index = 0
+
+    async def on_chunk(self, chunk: Chunk) -> None:
+        self.buffer.append(chunk.text)
+        if chunk.last or len(self.buffer) >= self.next_batch:
+            await self._flush(last=chunk.last)
+            self.next_batch = min(self.next_batch * 2, self.min_chunks)
+
+    async def _flush(self, last: bool) -> None:
+        if not self.buffer and not last:
+            return
+        text = "".join(self.buffer)
+        self.buffer = []
+        if self.completion_field == "value":
+            value: Any = text
+        else:
+            mutable = MutableRecord(value={})
+            mutable.set_field(self.completion_field, text)
+            value = mutable.value
+        record = make_record(
+            value=value,
+            key=self.source_record.key,
+            headers=dict(self.source_record.headers)
+            | {
+                "stream-id": self.stream_id,
+                "stream-index": str(self.index),
+                "stream-last-message": str(last).lower(),
+            },
+        )
+        self.index += 1
+        await self.producer.write(record)
+
+
+async def _build_at_start(provider: ServiceProvider, configuration: dict[str, Any]) -> None:
+    """Build the agent's completions service when the agent starts (for a
+    serving resource: the shared engine) and, on a ``warmup-on-start``
+    engine, run its warmup inside the start, so the first record finds a
+    warm engine."""
+    service = provider.get_completions_service(configuration)
+    engine = getattr(service, "engine", None)
+    if engine is not None and engine.config.warmup_on_start:
+        await engine.warmup()
+
+
+class ChatCompletionsAgent(_AIAgentBase):
+    """``ai-chat-completions``."""
+
+    async def start(self) -> None:
+        await _build_at_start(self.provider, self.configuration)
+
+    async def setup(self, context) -> None:
+        await super().setup(context)
+        self._stream_producer = None
+        stream_topic = self.configuration.get("stream-to-topic")
+        if stream_topic:
+            self._stream_producer = context.get_topic_producer(stream_topic)
+
+    async def process_record(self, record: Record) -> list[Record]:
+        mutable = MutableRecord.from_record(record)
+        messages = [
+            {
+                "role": m.get("role", "user"),
+                "content": render_template(m.get("content", ""), mutable),
+            }
+            for m in self.configuration.get("messages", [])
+        ]
+        writer = None
+        consumer = None
+        if self._stream_producer is not None:
+            writer = _StreamWriter(
+                self._stream_producer,
+                record,
+                self.configuration.get("stream-response-completion-field", "value"),
+                int(self.configuration.get("min-chunks-per-message", 20)),
+            )
+            consumer = writer.on_chunk
+        try:
+            result = await self.provider.get_completions_service(
+                self.configuration
+            ).chat_completions(messages, self._options(record), consumer)
+        except asyncio.CancelledError:
+            if self._stream_cancelled(record):
+                return []  # client disconnect: terminal, commit quietly
+            raise
+
+        completion_field = self.configuration.get("completion-field")
+        if completion_field:
+            if completion_field == "value":
+                mutable.value = result.text
+            else:
+                mutable.set_field(completion_field, result.text)
+        log_field = self.configuration.get("log-field")
+        if log_field:
+            mutable.set_field(log_field, json.dumps(messages))
+        for header_name, attr in (
+            ("prompt-tokens", "num_prompt_tokens"),
+            ("completion-tokens", "num_completion_tokens"),
+        ):
+            mutable.properties[f"langstream-{header_name}"] = str(
+                getattr(result, attr)
+            )
+        if result.ttft_s > 0:
+            # engine-measured decomposition: client TTFT minus this is the
+            # gateway/broker transport share
+            for header_name, attr in (
+                ("ttft-ms", "ttft_s"),
+                ("queue-wait-ms", "queue_wait_s"),
+                ("prefill-ms", "prefill_s"),
+            ):
+                mutable.properties[f"langstream-{header_name}"] = str(
+                    round(getattr(result, attr) * 1000, 3)
+                )
+        return [mutable.to_record()]
+
+
+class TextCompletionsAgent(_AIAgentBase):
+    """``ai-text-completions``."""
+
+    async def start(self) -> None:
+        await _build_at_start(self.provider, self.configuration)
+
+    async def setup(self, context) -> None:
+        await super().setup(context)
+        self._stream_producer = None
+        stream_topic = self.configuration.get("stream-to-topic")
+        if stream_topic:
+            self._stream_producer = context.get_topic_producer(stream_topic)
+
+    async def process_record(self, record: Record) -> list[Record]:
+        mutable = MutableRecord.from_record(record)
+        prompt_cfg = self.configuration.get("prompt", [])
+        if isinstance(prompt_cfg, str):
+            prompt_cfg = [prompt_cfg]
+        prompt = "\n".join(render_template(p, mutable) for p in prompt_cfg)
+        consumer = None
+        if self._stream_producer is not None:
+            writer = _StreamWriter(
+                self._stream_producer,
+                record,
+                self.configuration.get("stream-response-completion-field", "value"),
+                int(self.configuration.get("min-chunks-per-message", 20)),
+            )
+            consumer = writer.on_chunk
+        try:
+            result = await self.provider.get_completions_service(
+                self.configuration
+            ).text_completions(prompt, self._options(record), consumer)
+        except asyncio.CancelledError:
+            if self._stream_cancelled(record):
+                return []  # client disconnect: terminal, commit quietly
+            raise
+        completion_field = self.configuration.get("completion-field", "value")
+        if completion_field == "value":
+            mutable.value = result.text
+        else:
+            mutable.set_field(completion_field, result.text)
+        log_field = self.configuration.get("log-field")
+        if log_field:
+            mutable.set_field(log_field, prompt)
+        return [mutable.to_record()]
+
+
+class ComputeAIEmbeddingsAgent(AgentProcessor):
+    """``compute-ai-embeddings``: batched, ordered, async.
+
+    The batch executor keeps the TPU matmuls fat (batch dimension) while
+    preserving per-key ordering — the exact role ``OrderedAsyncBatchExecutor``
+    plays in the reference (``ComputeAIEmbeddingsStep.java:97-99``).
+    """
+
+    async def init(self, configuration: dict[str, Any]) -> None:
+        await super().init(configuration)
+        self.provider = resolve_service_provider(
+            configuration.get("__resources__", {})
+        )
+        self.service = self.provider.get_embeddings_service(configuration)
+        self.text_template = configuration.get("text", "{{ value }}")
+        self.embeddings_field = configuration.get(
+            "embeddings-field", "value.embeddings"
+        )
+        # flush-interval default 100 ms keeps batches filling (flush-interval
+        # 0 means flush-per-add, matching the reference's semantics when an
+        # app explicitly opts out of batching latency)
+        self.executor: OrderedAsyncBatchExecutor = OrderedAsyncBatchExecutor(
+            batch_size=int(configuration.get("batch-size", 10)),
+            processor=self._process_batch,
+            flush_interval=float(configuration.get("flush-interval", 100)) / 1000.0,
+            num_buckets=int(configuration.get("concurrency", 4)),
+            key_fn=lambda item: item[0].key,
+        )
+        self._add_tasks: set = set()
+
+    def process(self, records: list[Record], sink: RecordSink) -> None:
+        from langstream_tpu_torch.core.asyncutil import spawn_retained
+
+        for record in records:
+            # an add() that raises (bucket closed mid-shutdown) must surface
+            spawn_retained(
+                self.executor.add((record, sink)),
+                self._add_tasks,
+                log,
+                "embeddings batch submit failed",
+            )
+
+    async def _process_batch(self, items: list[tuple[Record, RecordSink]]) -> None:
+        mutables = [MutableRecord.from_record(r) for r, _ in items]
+        texts = [render_template(self.text_template, m) for m in mutables]
+        try:
+            embeddings = await self.service.compute_embeddings(texts)
+        except Exception as e:
+            for (record, sink), _ in zip(items, mutables):
+                sink.emit(SourceRecordAndResult(record, [], e))
+            return
+        for (record, sink), mutable, emb in zip(items, mutables, embeddings):
+            mutable.set_field(self.embeddings_field, list(map(float, emb)))
+            sink.emit(SourceRecordAndResult(record, [mutable.to_record()], None))
+
+    async def close(self) -> None:
+        await self.executor.close()
+
+    def component_type(self):
+        from langstream_tpu_torch.api.agent import ComponentType
+
+        return ComponentType.PROCESSOR

@@ -94,8 +94,15 @@ rendered by ``tools/render_deploy_torch.py``.
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
 nothing of JAX. The platform layers it starts (runner, gateway, control
-plane) load JAX on import, so it runs only where JAX is installed;
-``chip_smoke.py`` drives the port's provider on a card that has no JAX.
+plane) load JAX on import, so it runs only where JAX is installed.
+
+The application path does not need it: ``python -m langstream_tpu_torch.cli
+run NAME -app DIR [-i INSTANCE] [-s SECRETS] [--gateway-port P] [--device
+cuda|cpu]`` parses, plans and runs an application with the port's own
+runner and gateway, and imports no JAX, PyYAML, aiohttp or click (it runs
+on a card that has none of them; ``chip_smoke.py``'s path T does). What
+still needs this launcher, and so JAX, is its ``pod``, ``operator``,
+``controlplane`` and ``mini`` paths, until their slices of the port come.
 """
 
 from __future__ import annotations

@@ -1,0 +1,135 @@
+"""The port runs without JAX, the JAX package, PyYAML, aiohttp and click:
+in a subprocess whose import system refuses them, every module of
+``langstream_tpu_torch`` imports, and ``python -m langstream_tpu_torch.cli
+run`` serves a copy of the chat-completions example at the tiny model on
+the CPU, answers a question through the port's WebSocket client, and exits
+0 on SIGINT."""
+
+import asyncio
+import os
+import signal
+import socket
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import yaml
+
+from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+REPO = Path(__file__).resolve().parents[1]
+REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click")
+
+GUARD = textwrap.dedent(f"""
+    import importlib.abc
+    import sys
+
+    REFUSED = {REFUSED!r}
+
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in REFUSED:
+                raise ImportError(f"import of {{name}} refused")
+            return None
+
+
+    sys.meta_path.insert(0, Refuse())
+""")
+
+
+def _guarded(tmp_path: Path, body: str) -> Path:
+    script = tmp_path / "guarded.py"
+    script.write_text(GUARD + textwrap.dedent(body))
+    return script
+
+
+def _env():
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
+    env.pop("JAX_PLATFORMS", None)
+    return env
+
+
+def test_every_module_of_the_port_imports_without_them(tmp_path):
+    script = _guarded(tmp_path, f"""
+        import importlib
+        from pathlib import Path
+
+        root = Path({str(REPO / "langstream_tpu_torch")!r})
+        names = sorted(
+            ".".join(("langstream_tpu_torch",) + p.relative_to(root).with_suffix("").parts)
+            .removesuffix(".__init__")
+            for p in root.rglob("*.py")
+        )
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+        assert not leaked, leaked
+        print("imported", len(names))
+    """)
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert int(out.stdout.split()[-1]) > 80
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_the_cli_run_serves_the_chat_example_and_stops_on_sigint(tmp_path):
+    app = tmp_path / "chat"
+    app.mkdir()
+    example = REPO / "examples" / "applications" / "chat-completions"
+    for name in ("pipeline.yaml", "gateways.yaml"):
+        (app / name).write_text((example / name).read_text())
+    (app / "configuration.yaml").write_text(yaml.safe_dump({"configuration": {"resources": [{
+        "type": "tpu-serving-configuration", "name": "tpu", "configuration": {
+            "model": "tiny", "model-dtype": "float32", "slots": 4, "max-seq-len": 256,
+            "checkpoint": str(REPO / "tests" / "fixtures" / "llama_tiny_golden"),
+            "decode-chunk": 4, "decode-chunk-light": 2, "max-tokens": 16,
+            "warmup-on-start": True}}]}}))
+    port = _free_port()
+    script = _guarded(tmp_path, f"""
+        import runpy
+
+        sys.argv = ["langstream_tpu_torch.cli", "run", "chat", "-app", {str(app)!r},
+                    "-i", {str(REPO / "examples" / "instances" / "memory.yaml")!r},
+                    "--device", "cpu", "--gateway-port", "{port}"]
+        runpy.run_module("langstream_tpu_torch.cli", run_name="__main__")
+    """)
+    proc = subprocess.Popen([sys.executable, str(script)], cwd=tmp_path, env=_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "deployed" in line, (line, proc.stderr.read() if proc.poll() is not None else "")
+
+        async def ask():
+            base = f"ws://127.0.0.1:{port}/v1/%s/default/chat/%s?param:sessionId=g1"
+            consumer = await WebSocketClient.connect(base % ("consume", "bot-output"))
+            producer = await WebSocketClient.connect(base % ("produce", "user-input"))
+            await producer.send_json({"value": "what is it?"})
+            ack = await producer.receive_json(30)
+            chunks = []
+            while True:
+                frame = await consumer.receive_json(60)
+                chunks.append(frame["record"]["value"])
+                if frame["record"]["headers"]["stream-last-message"] == "true":
+                    break
+            await producer.close()
+            await consumer.close()
+            return ack, "".join(chunks)
+
+        ack, answer = asyncio.run(ask())
+        assert ack["status"] == "OK" and answer
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    assert "stopped" in out
