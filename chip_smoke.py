@@ -344,6 +344,31 @@ Phases (every one unguarded: any failure exits non-zero):
    ``python -m langstream_tpu_torch.cli run`` as its own process on the
    card with the example at the tiny model (the HF fixture): one question,
    then SIGINT, exit 0. Kernels #1 and #2 launch on T1 and T1b;
+   main path U (after T): the control-plane path without JAX, through the
+   port's REST control plane, admin client, authenticated gateway and CLI
+   (``langstream_tpu_torch.controlplane``, ``admin``, ``auth``, ``cli``),
+   llama3-8b at ``MAIN_LAYERS``. U1: the JAX ``run``'s layout in this
+   process (``ControlPlaneServer``, ``GatewayServer``, one
+   ``LocalComputeRuntime`` over a ``GatewayRegistry``); through
+   ``AdminClient`` a tenant, then ``chatbot-gateway`` as it is POSTed as a
+   multipart zip with the repository's instance and secrets; ``U_SESSIONS``
+   = 4 sessions over ``authenticated-chat``, each with its own HS256 token
+   (``sub`` ``u-0``..``u-3``, signed with the secret the deployed app
+   resolves), every record carrying its token's ``sub``; no, badly signed
+   and expired credentials refused 401 with the topics' counts unmoved;
+   ``/flight``, ``/health``, ``/qos``, ``/slo`` and ``/attribution`` carry
+   the app's llama3-8b engine, ``/journey`` of one session stitches the
+   engine's events, ``/logs`` holds the deploy line; the gateway TTFT
+   beside T1b's (their difference: authentication's cost). U2: a PATCH
+   with an invalid ``qos:`` refused 400 while the app answers a session; a
+   PATCH to ``kv-layout: paged``, ``kv-quantize: int8``, then 4 sessions:
+   kernel #3 launches, #2 does not; the card's allocated bytes before U1,
+   after the redeploy and after U3 (a report). U3: DELETE, then GET 404 and
+   ``/flight`` ``[]``. U4: ``python -m langstream_tpu_torch.cli run
+   --api-port P --gateway-port G`` on the card at T2's tiny resource, then
+   ``apps list``, ``apps get`` and ``gateway chat ... --credentials`` as
+   processes, in the JAX CLI's format and with no ``torch`` loaded; SIGINT
+   to ``run``, exit 0. Kernels #1, #2 and #3 launch on U;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -7262,7 +7287,8 @@ def t2_cli_process(device="cuda") -> dict:
         "type": "tpu-serving-configuration", "name": "tpu", "configuration": T2_RESOURCE}]}}))
     port = _free_port()
     cmd = [sys.executable, "-m", "langstream_tpu_torch.cli", "run", "chat", "-app", str(app),
-           "-i", str(T_INSTANCE), "--device", device, "--gateway-port", str(port)]
+           "-i", str(T_INSTANCE), "--device", device, "--gateway-port", str(port),
+           "--api-port", str(_free_port())]
     env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1")
     err_path = tmp / "stderr.log"
     t0 = time.monotonic()
@@ -7340,7 +7366,425 @@ def phase_app_path(torch, device="cuda") -> dict:
     t2 = t2_cli_process(device)
     print(f"path T [T2 the cli run process, tiny f32]: {json.dumps(t2)}", flush=True)
     counts = {k: t1_counts[k] + t1b_counts[k] for k in t1_counts}
+    NOTES["T1b"] = t1b
     print(f"path T: {time.monotonic() - t0:.1f} s; launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# path U: the control-plane path without JAX
+# ---------------------------------------------------------------------------
+
+U_SESSIONS = 4         # U1's and U2's sessions over authenticated-chat, one token each
+U_APP = T_APPS / "chatbot-gateway"
+#: U2's good update: the example's resource on paged int8 KV
+U_PAGED = {"kv-layout": "paged", "kv-quantize": "int8"}
+#: U2's bad update: a qos section the engine refuses at deploy
+U_BAD_QOS = {"qos": {"classes": {"interactive": {"weight": -1}}}}
+
+
+def _u_configuration(extra: dict) -> str:
+    """The example's ``configuration.yaml`` with ``extra`` merged into its
+    resource (JSON is YAML's flow style: the port reads it as it is)."""
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    config = U_APP / "configuration.yaml"
+    doc = safe_load(config.read_text(), str(config))
+    doc["configuration"]["resources"][0]["configuration"].update(extra)
+    return json.dumps(doc)
+
+
+def _u_engine(extra: dict, device: str):
+    """The engine the app's ``ai-chat-completions`` agent serves on (one
+    engine per resource): its LM head cut to printable ASCII, as T1b's."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    (resource,) = safe_load(_u_configuration(extra))["configuration"]["resources"]
+    cfg = {"type": resource["type"], "name": resource["name"], **resource["configuration"]}
+    engine = TorchServiceProvider(cfg, device=device).get_completions_service({}).engine
+    ascii_head(engine)
+    return engine
+
+
+async def _u_sessions(gateway_port: int, secret: str, label: str, subs: list[str]) -> list:
+    """One chat socket per ``sub`` over ``authenticated-chat``, each with its
+    own HS256 token, all at once: (gateway TTFT, chunks, answer, the
+    ``langstream-client-user`` of every record, the ack's trace id)."""
+    from langstream_tpu_torch.auth.jwt import encode_hs256
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    questions = chat_prompts()
+    base = f"ws://127.0.0.1:{gateway_port}/v1/chat/default/chatbot/authenticated-chat"
+
+    async def one(i, sub):
+        token = encode_hs256({"sub": sub, "exp": time.time() + 3600}, secret)
+        ws = await WebSocketClient.connect(f"{base}?credentials={token}")
+        t = time.monotonic()
+        await ws.send_json({"value": questions[(i + 4) % len(questions)]})
+        ack = await ws.receive_json(T_TIMEOUT)
+        if ack.get("status") != "OK":
+            fail(f"{label}: session {sub} refused: {ack}")
+        first, chunks, users = None, [], set()
+        while True:
+            frame = await ws.receive_json(T_TIMEOUT)
+            users.add(frame["record"]["headers"].get("langstream-client-user"))
+            value = frame["record"]["value"]
+            if isinstance(value, dict):  # the final answer record
+                await ws.close()
+                if not value["answer"] or "".join(chunks) != value["answer"]:
+                    fail(f"{label}: session {sub}: chunks {chunks!r} do not join to "
+                         f"{value['answer']!r}")
+                if users != {sub}:
+                    fail(f"{label}: session {sub}'s records carry users {users}")
+                return first, chunks, value["answer"], ack["trace"].split("-")[1]
+            if first is None:
+                first = time.monotonic() - t
+            chunks.append(value)
+
+    return await asyncio.gather(*(one(i, sub) for i, sub in enumerate(subs)))
+
+
+async def _u_topic_counts(runner) -> dict:
+    counts = {}
+    for topic in ("chat-in", "chat-out"):
+        reader = runner.reader(topic, "earliest")
+        await reader.start()
+        counts[topic] = len(await reader.read(timeout=0))
+        await reader.close()
+    return counts
+
+
+def u123_control_plane(torch, device="cuda") -> tuple[dict, dict]:
+    """U1-U3: the JAX ``run``'s layout in this process (a ``ControlPlaneServer``,
+    a ``GatewayServer``, one ``LocalComputeRuntime`` over a
+    ``GatewayRegistry``), driven only through the port's ``AdminClient`` and
+    gateway. U1: ``chatbot-gateway`` deployed as a multipart zip with the
+    repository's instance and secrets; ``U_SESSIONS`` sessions over
+    ``authenticated-chat`` with their own tokens; no, badly signed and
+    expired credentials refused 401 with no record produced; the engine
+    routes carry the app's engine, ``/journey`` stitches one session,
+    ``/logs`` holds the deploy line. U2: a bad PATCH refused 400 while the
+    app answers; a PATCH to paged int8 KV, then ``U_SESSIONS`` sessions on
+    the int8 read. U3: DELETE, then 404 and an empty ``/flight``. Returns
+    (the path's line, U1's and U2's launches)."""
+    from langstream_tpu_torch.admin.client import AdminApiError, AdminClient, multipart_body
+    from langstream_tpu_torch.agents import services
+    from langstream_tpu_torch.auth.jwt import encode_hs256
+    from langstream_tpu_torch.cli.main import close_engines
+    from langstream_tpu_torch.controlplane.server import ControlPlaneServer, LocalComputeRuntime
+    from langstream_tpu_torch.gateway import wire
+    from langstream_tpu_torch.gateway.server import GatewayRegistry, GatewayServer
+    from langstream_tpu_torch.runtime.memory_broker import MemoryBroker
+
+    label = "U: chatbot-gateway through the port's control plane"
+    app_zip = io_zip({name: (U_APP / name).read_text()
+                      for name in ("pipeline.yaml", "gateways.yaml", "configuration.yaml")})
+    mem = lambda: torch.cuda.memory_allocated() if device == "cuda" else 0  # noqa: E731
+
+    async def drive():
+        out = {"bytes": {"before_u1": mem()}}
+        # the in-memory broker's topics wait on asyncio conditions bound to
+        # the first loop that used them (in both packages): T1b's
+        # ``chat-in``/``chat-out`` belong to its finished loop, so this
+        # loop starts from a fresh broker, as a new ``run`` process would
+        MemoryBroker.reset()
+        previous = services.SERVING_DEVICE
+        services.set_serving_device(device)
+        registry = GatewayRegistry()
+        control = ControlPlaneServer(compute=LocalComputeRuntime(gateway_registry=registry),
+                                     port=0)
+        gateway = GatewayServer(registry=registry, port=0)
+        await control.start()
+        await gateway.start()
+        client = AdminClient(f"http://127.0.0.1:{control.port}")
+        path = "/api/applications/default/chatbot"
+        try:
+            # -- U1 ------------------------------------------------------------
+            await client.put_tenant("default")
+            body, ctype = multipart_body([
+                ("app", "chatbot-gateway.zip", app_zip, "application/zip"),
+                ("instance", None, T_INSTANCE.read_bytes(), None),
+                ("secrets", None, T_SECRETS.read_bytes(), None)])
+            t = time.monotonic()
+            deployed = await client.request("POST", path, data=body,
+                                            headers={"Content-Type": ctype})
+            out["deploy_s"] = time.monotonic() - t
+            if deployed["status"]["status"] != "DEPLOYED" or deployed["files"] != [
+                    "configuration.yaml", "gateways.yaml", "pipeline.yaml"]:
+                fail(f"{label}: U1 deploy answered {deployed}")
+            _u_engine({}, device)
+            app = registry.application("default", "chatbot")
+            (auth_gw,) = [g for g in app.gateways if g.id == "authenticated-chat"]
+            secret = auth_gw.authentication["configuration"]["secret"]
+            runner = control.compute.runners[("default", "chatbot")]
+            reset_counts()
+            t = time.monotonic()
+            out["u1"] = await _u_sessions(gateway.port, secret, label,
+                                          [f"u-{i}" for i in range(U_SESSIONS)])
+            out["u1_wave_s"] = time.monotonic() - t
+            before = await _u_topic_counts(runner)
+            url = f"ws://127.0.0.1:{gateway.port}/v1/chat/default/chatbot/authenticated-chat"
+            refusals = {}
+            for name, token in (
+                    ("none", None),
+                    ("bad-signature", encode_hs256({"sub": "u-x"}, secret + "-not")),
+                    ("expired", encode_hs256({"sub": "u-x", "exp": time.time() - 3600}, secret))):
+                try:
+                    ws = await wire.WebSocketClient.connect(
+                        url + (f"?credentials={token}" if token else ""))
+                    await ws.close()
+                    fail(f"{label}: U1 {name} credentials were let in")
+                except wire.HandshakeError as e:
+                    refusals[name] = (e.status, e.body.decode())
+            if await _u_topic_counts(runner) != before:
+                fail(f"{label}: a refused socket produced records")
+            out["refusals"] = refusals
+            if {s for s, _ in refusals.values()} != {401}:
+                fail(f"{label}: U1 refusals {refusals}")
+            reports = {r: await client.request("GET", f"{path}/{r}")
+                       for r in ("flight", "health", "qos", "slo", "attribution")}
+            models = {
+                "flight": [e["model"] for e in reports["flight"]],
+                "health": [e["model"] for p in reports["health"]["pods"] for e in p["engines"]],
+                "qos": [e["model"] for e in reports["qos"]["engines"]],
+                "slo": [e["model"] for e in reports["slo"]["engines"]],
+                "attribution": [e["model"] for e in reports["attribution"]]}
+            if any(v != ["llama3-8b"] for v in models.values()):
+                fail(f"{label}: the engine routes do not carry the app's engine: {models}")
+            journey = await client.request("GET", f"{path}/journey/{out['u1'][0][3]}")
+            kinds = [e["kind"] for e in journey["events"]]
+            if not {"gateway-produce", "submit", "finish"} <= set(kinds) or not any(
+                    e.get("model") == "llama3-8b" for e in journey["events"]):
+                fail(f"{label}: the journey does not stitch the engine's events: {kinds}")
+            out["journey_kinds"] = kinds
+            logs = await client.application_logs("default", "chatbot")
+            if "application chatbot deployed" not in logs:
+                fail(f"{label}: /logs lacks the deploy line: {logs[-500:]}")
+            # -- U2 ------------------------------------------------------------
+            t = time.monotonic()
+            try:
+                await client.update_application("default", "chatbot", {
+                    "files": {"configuration.yaml": _u_configuration(U_BAD_QOS)}})
+                fail(f"{label}: U2 the bad PATCH was accepted")
+            except AdminApiError as e:
+                if e.status != 400 or "qos" not in e.body:
+                    fail(f"{label}: U2 the bad PATCH answered {e.status}: {e.body}")
+                out["bad_patch"] = (e.status, round(time.monotonic() - t, 4))
+            out["after_bad_patch"] = await _u_sessions(gateway.port, secret, label, ["u-9"])
+            out["u1_counts"] = read_counts()
+            reset_counts()
+            t = time.monotonic()
+            updated = await client.update_application("default", "chatbot", {
+                "files": {"configuration.yaml": _u_configuration(U_PAGED)}})
+            out["redeploy_s"] = time.monotonic() - t
+            if updated["status"]["status"] != "DEPLOYED":
+                fail(f"{label}: U2 the PATCH answered {updated}")
+            _u_engine(U_PAGED, device)
+            out["bytes"]["after_u2_redeploy"] = mem()
+            out["u2"] = await _u_sessions(gateway.port, secret, label,
+                                          [f"u-{i}" for i in range(U_SESSIONS)])
+            out["u2_counts"] = read_counts()
+            # -- U3 ------------------------------------------------------------
+            deleted = await client.delete_application("default", "chatbot")
+            try:
+                got = await client.get_application("default", "chatbot")
+                fail(f"{label}: U3 GET after DELETE answered {got}")
+            except AdminApiError as e:
+                out["get_after_delete"] = e.status
+            out["flight_after_delete"] = await client.request("GET", f"{path}/flight")
+            if deleted != {"status": "OK"} or out["get_after_delete"] != 404 or (
+                    out["flight_after_delete"] != []):
+                fail(f"{label}: U3 {deleted}, GET {out['get_after_delete']}, flight "
+                     f"{out['flight_after_delete']}")
+            out["bytes"]["after_u3_delete"] = mem()
+        finally:
+            await gateway.stop()
+            await control.stop()
+            await close_engines()
+            services.set_serving_device(previous)
+        return out
+
+    out = asyncio.run(drive())
+    u1c, u2c = out["u1_counts"], out["u2_counts"]
+    if device == "cuda" and (min(u1c["flash_attention"], u1c["paged_attention"]) == 0
+                             or u2c["paged_attention_q8"] == 0 or u2c["paged_attention"] != 0):
+        fail(f"{label}: U1 must launch #1 and #2, U2 #3 and not #2: U1 {u1c}, U2 {u2c}")
+    t1b = NOTES.get("T1b", {}).get("gateway_ttft_s", {})
+    line = {"sessions": U_SESSIONS, "deploy_s": round(out["deploy_s"], 3),
+            "u1_wave_s": round(out["u1_wave_s"], 3),
+            "gateway_ttft_s": _t_stats([s[0] for s in out["u1"]]),
+            "t1b_gateway_ttft_s": t1b,
+            "auth_cost_p50_s": round(_t_stats([s[0] for s in out["u1"]])["p50"] - t1b["p50"], 4)
+            if t1b else None,
+            "chunks_per_answer": _t_stats([float(len(s[1])) for s in out["u1"]]),
+            "refusals": out["refusals"], "journey_kinds": sorted(set(out["journey_kinds"])),
+            "bad_patch": out["bad_patch"], "redeploy_s": round(out["redeploy_s"], 3),
+            "u2_gateway_ttft_s": _t_stats([s[0] for s in out["u2"]]),
+            "get_after_delete": out["get_after_delete"],
+            "allocated_bytes": out["bytes"], "launches_u1": u1c, "launches_u2": u2c}
+    return line, {k: u1c[k] + u2c[k] for k in u1c}
+
+
+def io_zip(files: dict) -> bytes:
+    import io
+    import zipfile
+
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        for name, content in files.items():
+            zf.writestr(name, content)
+    return buf.getvalue()
+
+
+#: runs the port's CLI in a process and reports whether ``torch`` was loaded
+U4_CLI = """
+import runpy
+import sys
+
+sys.argv = ["langstream_tpu_torch.cli"] + sys.argv[1:]
+code = 0
+try:
+    runpy.run_module("langstream_tpu_torch.cli", run_name="__main__")
+except SystemExit as e:
+    code = e.code or 0
+print("TORCH-LOADED", "torch" in sys.modules, file=sys.stderr)
+sys.exit(code)
+"""
+
+
+def u4_cli_processes(device="cuda") -> dict:
+    """U4: ``python -m langstream_tpu_torch.cli run ... --api-port P
+    --gateway-port G`` on the card with ``chatbot-gateway`` at T2's tiny
+    resource; then ``apps list``, ``apps get`` and ``gateway chat ...
+    --credentials <token>`` each as its own process, in the JAX CLI's output
+    format, each ending with no ``torch`` loaded; SIGINT to ``run``, exit 0."""
+    import queue
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from langstream_tpu_torch.auth.jwt import encode_hs256
+
+    label = "U4: the CLI as processes"
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-u4-"))
+    app = tmp / "chatbot"
+    app.mkdir()
+    for name in ("pipeline.yaml", "gateways.yaml"):
+        shutil.copy(U_APP / name, app / name)
+    (app / "configuration.yaml").write_text(json.dumps({"configuration": {"resources": [{
+        "type": "tpu-serving-configuration", "name": "tpu", "configuration": T2_RESOURCE}]}}))
+    instance = tmp / "instance.yaml"
+    instance.write_text(json.dumps({"instance": {"streamingCluster": {"type": "memory"},
+                                                 "globals": {"chat-model": "tiny"}}}))
+    (tmp / "cli.py").write_text(U4_CLI)
+    api, gw = _free_port(), _free_port()
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONUNBUFFERED="1", HOME=str(tmp))
+    err_path = tmp / "run.log"
+    t0 = time.monotonic()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "langstream_tpu_torch.cli", "run", "chatbot", "-app", str(app),
+             "-i", str(instance), "-s", str(T_SECRETS), "--api-port", str(api),
+             "--gateway-port", str(gw), "--device", device],
+            cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    out = {}
+
+    def cli(args, stdin=None):
+        t = time.monotonic()
+        res = subprocess.run([sys.executable, str(tmp / "cli.py"), *args], cwd=str(tmp),
+                             env=env, input=stdin, capture_output=True, text=True, timeout=120)
+        if res.returncode != 0 or "TORCH-LOADED False" not in res.stderr:
+            fail(f"{label}: {args[:2]} exit {res.returncode}: {res.stderr[-2000:]}")
+        return res.stdout, round(time.monotonic() - t, 3)
+
+    try:
+        head = []
+        for _ in range(3):
+            try:
+                head.append(lines.get(timeout=240))
+            except queue.Empty:
+                break
+        if len(head) < 3 or "deployed" not in head[0] or f":{api}" not in head[1]:
+            fail(f"{label}: run printed {head}; stderr: {err_path.read_text()[-3000:]}")
+        out["ready_s"] = round(time.monotonic() - t0, 3)
+        remote = ["--api-url", f"http://127.0.0.1:{api}"]
+        listed, out["apps_list_s"] = cli(["apps", "list", *remote])
+        if listed != json.dumps(["chatbot"], indent=2) + "\n":
+            fail(f"{label}: apps list printed {listed!r}")
+        got, out["apps_get_s"] = cli(["apps", "get", "chatbot", *remote])
+        view = json.loads(got)
+        if got != json.dumps(view, indent=2) + "\n" or view["status"]["status"] != "DEPLOYED" or (
+                sorted(view) != ["application-id", "created-at", "files", "status", "tenant",
+                                 "units"]):
+            fail(f"{label}: apps get printed {got!r}")
+        token = encode_hs256({"sub": "u4"}, "${GATEWAY_JWT_SECRET:-change-me}")
+        t = time.monotonic()
+        chat = subprocess.Popen(
+            [sys.executable, str(tmp / "cli.py"), "gateway", "chat", "chatbot",
+             "authenticated-chat", "--credentials", token, "--gateway-url",
+             f"http://127.0.0.1:{gw}"], cwd=str(tmp), env=env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        chat_lines: "queue.Queue[str]" = queue.Queue()
+        threading.Thread(target=lambda: [chat_lines.put(x) for x in chat.stdout],
+                         daemon=True).start()
+        chat.stdin.write("what is it?\n")
+        chat.stdin.flush()
+        printed = []
+        try:
+            while not (printed and printed[-1].startswith("{")):
+                printed.append(chat_lines.get(timeout=T_TIMEOUT))
+        except queue.Empty:
+            fail(f"{label}: the chat process printed {printed}")
+        chat.stdin.close()
+        chat.stdin = None
+        _, chat_err = chat.communicate(timeout=60)
+        out["chat_s"] = round(time.monotonic() - t, 3)
+        answer = json.loads(printed[-1])
+        if chat.returncode != 0 or "TORCH-LOADED False" not in chat_err or (
+                answer.get("question") != "what is it?" or not answer.get("answer")):
+            fail(f"{label}: the chat process exit {chat.returncode}, printed {printed}, "
+                 f"stderr {chat_err[-2000:]}")
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rest = []
+    while not lines.empty():
+        rest.append(lines.get())
+    if rc != 0 or not any("stopped" in x for x in rest):
+        fail(f"{label}: run exit {rc}, output {rest}; stderr: {err_path.read_text()[-3000:]}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    out.update(exit=rc, answer_chars=len(answer["answer"]),
+               wall_s=round(time.monotonic() - t0, 3))
+    return out
+
+
+def phase_control_plane_path(torch, device="cuda") -> dict:
+    """Path U: the control-plane path without JAX (:func:`u123_control_plane`
+    at ``MAIN_LAYERS``, :func:`u4_cli_processes`). Returns U1's and U2's
+    launches (U4's are its own process's)."""
+    t0 = time.monotonic()
+    with cut_depth("llama3-8b", MAIN_LAYERS):
+        line, counts = u123_control_plane(torch, device)
+    line["path_s"] = round(time.monotonic() - t0, 3)
+    print(f"path U [U1-U3 chatbot-gateway through the control plane, llama3-8b int8 "
+          f"{MAIN_LAYERS} layers, {U_SESSIONS} authenticated sessions]: {json.dumps(line)}",
+          flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    u4 = u4_cli_processes(device)
+    print(f"path U [U4 the cli as processes, tiny f32]: {json.dumps(u4)}", flush=True)
+    print(f"path U: {time.monotonic() - t0:.1f} s; checks: multipart deploy, "
+          f"{U_SESSIONS} authenticated sessions with their own sub, 3 refusals without records, "
+          f"engine routes, journey, logs, bad PATCH 400, int8 redeploy, DELETE 404, CLI "
+          f"processes without torch; launches {json.dumps(counts)}", flush=True)
     return counts
 
 
@@ -7552,8 +7996,16 @@ def main() -> int:
     t_counts = phase_app_path(torch)
     if t_counts["flash_attention"] == 0 or t_counts["paged_attention"] == 0:
         fail(f"path T did not launch flash and the bf16 paged read: {t_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_u = time.monotonic()
+    u_counts = phase_control_plane_path(torch)
+    if min(u_counts["flash_attention"], u_counts["paged_attention"],
+           u_counts["paged_attention_q8"]) == 0:
+        fail(f"path U did not launch flash and both paged reads: {u_counts}")
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
-                P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=time.monotonic() - t_t)
+                P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=t_u - t_t,
+                U=time.monotonic() - t_u)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -7568,8 +8020,8 @@ def main() -> int:
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
              "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
-             "T": t_counts}
-    meta = {  # launches: summed over the twenty main paths (rank 0's on N, O, Q, R, S)
+             "T": t_counts, "U": u_counts}
+    meta = {  # launches: summed over the 21 main paths (rank 0's on N, O, Q, R, S)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

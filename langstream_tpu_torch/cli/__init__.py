@@ -1,3 +1,5 @@
-"""The port's command line: ``python -m langstream_tpu_torch.cli run ...``,
-the dev mode that parses, plans and runs an application through the port
-and serves its gateways (see :mod:`langstream_tpu_torch.cli.main`)."""
+"""The port's command line: ``python -m langstream_tpu_torch.cli <command>``
+— the JAX CLI's admin commands (``configure``, ``tenants``, ``apps``,
+``archetypes``, ``gateway``, ``docs``) over the port's admin client, and
+``run``, the dev mode that serves the control plane, the gateway and the
+application through the port (see :mod:`langstream_tpu_torch.cli.main`)."""

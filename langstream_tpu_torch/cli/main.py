@@ -1,21 +1,36 @@
-"""The port's dev-mode ``run``: one process parses an application, plans
-it, runs every agent under the port's runner on the in-memory broker, and
-serves its gateways, until SIGINT or SIGTERM.
+"""The port's command line (a copy of ``langstream_tpu/cli/main.py`` on
+argparse instead of click, and on the port's stdlib client instead of
+aiohttp):
 
-    python -m langstream_tpu_torch.cli run NAME -app DIR [-i INSTANCE]
-        [-s SECRETS] [--gateway-port P] [--device cuda|cpu]
+    python -m langstream_tpu_torch.cli configure [--api-url U] [--gateway-url U] [--tenant T]
+    python -m langstream_tpu_torch.cli tenants put|list|delete ...
+    python -m langstream_tpu_torch.cli apps deploy|update|get|list|delete|download|logs|diagram ...
+    python -m langstream_tpu_torch.cli archetypes list|get|deploy ...
+    python -m langstream_tpu_torch.cli gateway produce|consume|chat APP GATEWAY
+        [-p name=value ...] [--credentials TOKEN] ...
+    python -m langstream_tpu_torch.cli docs agents [--format markdown|json] [-o FILE]
+    python -m langstream_tpu_torch.cli run NAME -app DIR [-i INSTANCE] [-s SECRETS]
+        [--api-port P] [--gateway-port G] [--archetypes DIR] [--device cuda|cpu]
 
-It follows the JAX package's ``run`` (``langstream_tpu/cli/main.py``)
-without the control plane's REST port: the application is deployed
-straight into the in-process compute runtime, and the gateway's routes are
-the JAX gateway's (``ws://127.0.0.1:<P>/v1/{produce,consume,chat}/default/
-<NAME>/<gateway>``). ``tpu-serving-configuration`` resources serve on
-``--device``: the card unless ``--device cpu`` is given; with no card and
-no ``--device cpu`` the command fails (``require_device``), it never falls
-back to the CPU. A signal stops the gateway, undeploys the application,
-closes the engines and exits 0.
+Every command prints what the JAX CLI prints (JSON bodies, the same lines)
+and fails as it does (``Error: <message>`` on stderr, exit 1). The profile
+is the JAX CLI's file, ``~/.langstream-tpu/config.json``; the bearer token
+comes from its ``token`` or ``LS_ADMIN_TOKEN``. The admin, gateway and
+docs commands import no ``torch``: they run on the admin client
+(:mod:`langstream_tpu_torch.admin`) and the stdlib client
+(:mod:`langstream_tpu_torch.gateway.wire`).
 
-:class:`LocalRun` is the same in-process, for callers that drive an
+``run`` is the single-process dev mode: it starts the control plane's REST
+API (``--api-port``) and the gateway (``--gateway-port``), deploys the
+application into the in-process compute runtime, and serves until SIGINT
+or SIGTERM, then undeploys, closes the engines and exits 0.
+``tpu-serving-configuration`` resources serve on ``--device``: the card
+unless ``--device cpu`` is given; with no card and no ``--device cpu`` the
+command fails (``require_device``), it never falls back to the CPU.
+
+Refused by name until their slice: ``apps ui``, ``python ...`` and ``mini``.
+
+:class:`LocalRun` is ``run`` in-process, for callers that drive an
 application themselves (the smoke, the tests).
 """
 
@@ -23,35 +38,338 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
+import os
 import signal
 import sys
 from pathlib import Path
 from typing import Any
 
-from langstream_tpu_torch.controlplane.server import LocalComputeRuntime
-from langstream_tpu_torch.controlplane.stores import StoredApplication
-from langstream_tpu_torch.gateway.server import GatewayRegistry, GatewayServer
-
 TENANT = "default"
+DEFAULT_API = "http://127.0.0.1:8090"
+DEFAULT_GATEWAY = "http://127.0.0.1:8091"
+#: what the unported commands answer
+NOT_PORTED = ("is not ported to langstream_tpu_torch yet; a later slice of the port "
+              "brings it")
+
+
+def profile_path() -> Path:
+    return Path.home() / ".langstream-tpu" / "config.json"
+
+
+class CliError(Exception):
+    """A command's failure: printed as ``Error: <message>``, exit 1 (the
+    JAX CLI's ``click.ClickException``)."""
+
+
+def _profile() -> dict:
+    path = profile_path()
+    if path.exists():
+        return json.loads(path.read_text())
+    return {}
+
+
+def _api_url(value: str | None) -> str:
+    return value or _profile().get("api-url", DEFAULT_API)
+
+
+def _gateway_url(value: str | None) -> str:
+    return value or _profile().get("gateway-url", DEFAULT_GATEWAY)
+
+
+def _tenant(value: str | None) -> str:
+    return value or _profile().get("tenant", "default")
+
+
+def _request(method: str, url: str, **kwargs) -> Any:
+    """All CLI HTTP goes through the AdminClient facade (retry policies,
+    auth header); ``apps update``'s PATCH is revalidated server-side, so it
+    rides the retry-safe lane the facade marks for it."""
+    from urllib.parse import urlsplit
+
+    from langstream_tpu_torch.admin import AdminApiError, AdminClient
+
+    parts = urlsplit(url)
+    base = f"{parts.scheme}://{parts.netloc}"
+    path = parts.path + (f"?{parts.query}" if parts.query else "")
+    token = (
+        kwargs.pop("token", None)
+        or _profile().get("token")
+        or os.environ.get("LS_ADMIN_TOKEN")
+    )
+    client = AdminClient(base, token=token)
+
+    async def call():
+        return await client.request(
+            method, path,
+            retry_safe=True if method.upper() == "PATCH" else None,
+            **kwargs,
+        )
+
+    try:
+        return asyncio.run(call())
+    except AdminApiError as e:
+        raise CliError(str(e))
+    except (OSError, asyncio.IncompleteReadError, ValueError) as e:
+        raise CliError(f"control plane unreachable: {e}")
+
+
+def _echo(value: Any, indent: int | None = None) -> None:
+    print(json.dumps(value, indent=indent), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# configure, tenants
+# ---------------------------------------------------------------------------
+
+
+def cmd_configure(args) -> None:
+    profile = _profile()
+    if args.api_url:
+        profile["api-url"] = args.api_url
+    if args.gateway_url:
+        profile["gateway-url"] = args.gateway_url
+    if args.tenant:
+        profile["tenant"] = args.tenant
+    path = profile_path()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(profile, indent=2))
+    print(f"profile saved: {path}", flush=True)
+
+
+def cmd_tenants(args) -> None:
+    base = _api_url(args.api_url)
+    if args.action == "put":
+        _echo(_request("PUT", f"{base}/api/tenants/{args.name}"))
+    elif args.action == "list":
+        _echo(_request("GET", f"{base}/api/tenants"), indent=2)
+    else:
+        _echo(_request("DELETE", f"{base}/api/tenants/{args.name}"))
+
+
+# ---------------------------------------------------------------------------
+# apps
+# ---------------------------------------------------------------------------
 
 
 def collect_files(app_dir: Path) -> dict[str, str]:
-    """An application directory's YAML files as the control plane stores
-    them (custom Python agents, which ship their ``python/`` code, are not
-    ported yet)."""
+    """An application directory as the control plane stores it: its
+    top-level YAML files, and custom agent code under ``python/`` and
+    ``python/lib/``."""
+    app_dir = Path(app_dir)
     files = {}
     for path in sorted(app_dir.glob("*.yaml")) + sorted(app_dir.glob("*.yml")):
         files[path.name] = path.read_text()
     if not files:
-        raise ValueError(f"no YAML files in {app_dir}")
+        raise CliError(f"no YAML files in {app_dir}")
+    for pattern in ("python/*.py", "python/lib/*.py"):
+        for path in sorted(app_dir.glob(pattern)):
+            files[path.relative_to(app_dir).as_posix()] = path.read_text()
     return files
 
 
+def _app_payload(app: str, instance: str | None, secrets: str | None) -> dict:
+    payload: dict = {"files": collect_files(Path(app))}
+    if instance:
+        payload["instance"] = Path(instance).read_text()
+    if secrets:
+        payload["secrets"] = Path(secrets).read_text()
+    return payload
+
+
+def cmd_apps(args) -> None:
+    if args.action == "diagram":
+        from langstream_tpu_torch.core.deployer import ApplicationDeployer
+        from langstream_tpu_torch.core.diagram import mermaid_diagram
+        from langstream_tpu_torch.core.parser import build_application_from_directory
+
+        application = build_application_from_directory(args.app, args.instance, args.secrets)
+        plan = ApplicationDeployer().create_implementation("app", application)
+        print(mermaid_diagram(plan), flush=True)
+        return
+    if args.action == "ui":
+        raise CliError(f"apps ui {NOT_PORTED}")
+    base = f"{_api_url(args.api_url)}/api/applications/{_tenant(args.tenant)}"
+    if args.action == "list":
+        _echo(_request("GET", base), indent=2)
+        return
+    url = f"{base}/{args.name}"
+    if args.action in ("deploy", "update"):
+        method = "POST" if args.action == "deploy" else "PATCH"
+        _echo(_request(method, url, json=_app_payload(args.app, args.instance, args.secrets)),
+              indent=2)
+    elif args.action == "get":
+        _echo(_request("GET", url), indent=2)
+    elif args.action == "delete":
+        _echo(_request("DELETE", url))
+    elif args.action == "download":
+        data = _request("GET", f"{url}/code", binary=True)
+        target = Path(args.output or f"{args.name}.zip")
+        target.write_bytes(data)
+        print(f"wrote {target} ({len(data)} bytes)", flush=True)
+    elif args.action == "logs":
+        print(_request("GET", f"{url}/logs"), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# archetypes + docs
+# ---------------------------------------------------------------------------
+
+
+def cmd_archetypes(args) -> None:
+    base = f"{_api_url(args.api_url)}/api/archetypes/{_tenant(args.tenant)}"
+    if args.action == "list":
+        _echo(_request("GET", base), indent=2)
+    elif args.action == "get":
+        _echo(_request("GET", f"{base}/{args.archetype_id}"), indent=2)
+    else:
+        payload: dict = {"parameters": dict(p.split("=", 1) for p in args.parameters)}
+        if args.instance:
+            payload["instance"] = Path(args.instance).read_text()
+        if args.secrets:
+            payload["secrets"] = Path(args.secrets).read_text()
+        _echo(_request("POST", f"{base}/{args.archetype_id}/applications/{args.name}",
+                       json=payload), indent=2)
+
+
+def cmd_docs(args) -> None:
+    from langstream_tpu_torch.core.docsgen import render_json, render_markdown
+
+    text = render_markdown() if args.format == "markdown" else render_json()
+    if args.output:
+        Path(args.output).write_text(text)
+        print(f"wrote {args.output}", flush=True)
+    else:
+        print(text, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# gateway clients
+# ---------------------------------------------------------------------------
+
+
+def _gw_ws_url(base: str, kind: str, tenant: str, app: str, gateway: str,
+               params: list[str], credentials: str | None,
+               options: dict | None = None) -> str:
+    from urllib.parse import quote
+
+    url = base.replace("http://", "ws://").replace("https://", "wss://")
+    qs = []
+    for p in params:
+        k, _, v = p.partition("=")
+        qs.append(f"param:{quote(k, safe='')}={quote(v, safe='')}")
+    if credentials:
+        qs.append(f"credentials={quote(credentials, safe='')}")
+    for k, v in (options or {}).items():
+        qs.append(f"option:{quote(str(k), safe='')}={quote(str(v), safe='')}")
+    query = ("?" + "&".join(qs)) if qs else ""
+    return f"{url}/v1/{kind}/{tenant}/{app}/{gateway}{query}"
+
+
+async def _ws_connect(url: str):
+    """The port's WebSocket client; a refused handshake is a CLI error, in
+    the JAX CLI's words."""
+    from langstream_tpu_torch.gateway import wire
+
+    try:
+        return await wire.WebSocketClient.connect(url)
+    except wire.HandshakeError as e:
+        raise CliError(
+            f"gateway refused connection ({e.status}): Invalid response status [{url}]")
+
+
+def cmd_gateway(args) -> None:
+    from langstream_tpu_torch.gateway.wire import WSMsgType
+
+    tenant = _tenant(args.tenant)
+    base = _gateway_url(args.gateway_url)
+    options = {"position": args.position} if args.action == "consume" else None
+    url = _gw_ws_url(base, args.action, tenant, args.application, args.gateway_id,
+                     args.param, args.credentials, options)
+
+    async def produce():
+        ws = await _ws_connect(url)
+        try:
+            await ws.send_json({"value": args.value, "key": args.key})
+            _echo(await ws.receive_json())
+        finally:
+            await ws.close()
+
+    async def consume():
+        ws = await _ws_connect(url)
+        count = 0
+        try:
+            async for msg in ws:
+                if msg.type == WSMsgType.TEXT:
+                    print(msg.data, flush=True)
+                    count += 1
+                    if args.num_messages and count >= args.num_messages:
+                        return
+        finally:
+            await ws.close()
+
+    async def chat():
+        import threading
+
+        ws = await _ws_connect(url)
+        loop = asyncio.get_running_loop()
+        # stdin is read on a daemon thread (not the default executor): when
+        # the server closes the socket mid-readline, asyncio.run's shutdown
+        # would otherwise join the blocked thread until the next keypress
+        lines: asyncio.Queue[str | None] = asyncio.Queue()
+
+        def read_stdin():
+            while True:
+                line = sys.stdin.readline()
+                loop.call_soon_threadsafe(lines.put_nowait, line or None)
+                if not line:
+                    return
+
+        threading.Thread(target=read_stdin, daemon=True).start()
+
+        async def pump_stdin():
+            while True:
+                line = await lines.get()
+                if line is None:
+                    await ws.close()
+                    return
+                await ws.send_json({"value": line.strip()})
+
+        stdin_task = asyncio.ensure_future(pump_stdin())
+        try:
+            async for msg in ws:
+                if msg.type != WSMsgType.TEXT:
+                    continue
+                data = json.loads(msg.data)
+                if "record" not in data:
+                    continue
+                value = data["record"].get("value")
+                if isinstance(value, str):
+                    print(value, end="", flush=True)
+                    headers = data["record"].get("headers", {})
+                    if headers.get("stream-last-message") == "true":
+                        print(flush=True)
+                else:
+                    _echo(value)
+        finally:
+            stdin_task.cancel()
+            await ws.close()
+
+    asyncio.run({"produce": produce, "consume": consume, "chat": chat}[args.action]())
+
+
+# ---------------------------------------------------------------------------
+# dev mode: everything in one process
+# ---------------------------------------------------------------------------
+
+
 class LocalRun:
-    """One application deployed in this process behind its gateway:
-    ``await LocalRun(...).start()``, then :meth:`url` for a gateway's
-    socket and :attr:`runner` for its topics; :meth:`stop` undeploys it and
-    closes the port's engines.
+    """One application deployed in this process behind its gateway and,
+    with ``api_port`` given, the control plane's REST API (as the JAX
+    ``run`` serves them): ``await LocalRun(...).start()``, then :meth:`url`
+    for a gateway's socket and :attr:`runner` for its topics; :meth:`stop`
+    stops both servers, undeploys the application and closes the port's
+    engines.
 
     One run serves in a process at a time: the serving device and the
     engines are the process's, so :meth:`start` refuses a second run until
@@ -61,8 +379,15 @@ class LocalRun:
 
     def __init__(self, name: str, app: str | Path, instance: str | Path | None = None,
                  secrets: str | Path | None = None, gateway_port: int = 8091,
-                 device: str = "cuda", host: str = "127.0.0.1"):
+                 device: str = "cuda", host: str = "127.0.0.1",
+                 api_port: int | None = None, archetypes: str | None = None):
         from langstream_tpu_torch._device import require_device
+        from langstream_tpu_torch.controlplane.server import (
+            ControlPlaneServer,
+            LocalComputeRuntime,
+        )
+        from langstream_tpu_torch.controlplane.stores import InMemoryApplicationStore
+        from langstream_tpu_torch.gateway.server import GatewayRegistry, GatewayServer
 
         require_device(device, "langstream_tpu_torch.cli run")
         self.name = name
@@ -73,9 +398,18 @@ class LocalRun:
         self.registry = GatewayRegistry()
         self.compute = LocalComputeRuntime(gateway_registry=self.registry)
         self.gateway = GatewayServer(registry=self.registry, port=gateway_port, host=host)
+        self.store = InMemoryApplicationStore()
+        self.store.put_tenant(TENANT)
+        self.control = None
+        if api_port is not None:
+            self.control = ControlPlaneServer(
+                store=self.store, compute=self.compute, port=api_port, host=host,
+                archetypes_path=archetypes,
+            )
 
     async def start(self) -> "LocalRun":
         from langstream_tpu_torch.agents import services
+        from langstream_tpu_torch.controlplane.stores import StoredApplication
 
         if LocalRun._active is not None:
             raise RuntimeError(
@@ -89,8 +423,12 @@ class LocalRun:
             instance=self.instance, secrets=self.secrets,
         )
         try:
+            if self.control is not None:
+                await self.control.start()
             await self.gateway.start()
+            self.store.put_application(stored)
             await self.compute.deploy(stored)
+            stored.status = "DEPLOYED"
         except BaseException:
             await self.stop()
             raise
@@ -114,6 +452,8 @@ class LocalRun:
 
         try:
             await self.gateway.stop()
+            if self.control is not None:
+                await self.control.stop()  # undeploys through the compute runtime
             await self.compute.close()
         finally:
             try:
@@ -141,15 +481,19 @@ async def close_engines() -> None:
 
 
 async def run(name: str, app: str, instance: str | None = None, secrets: str | None = None,
-              gateway_port: int = 8091, device: str = "cuda") -> int:
+              gateway_port: int = 8091, device: str = "cuda", api_port: int | None = 8090,
+              archetypes: str | None = None) -> int:
     """Serve ``app`` until SIGINT or SIGTERM, then stop cleanly (exit 0)."""
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    local = LocalRun(name, app, instance, secrets, gateway_port=gateway_port, device=device)
+    local = LocalRun(name, app, instance, secrets, gateway_port=gateway_port, device=device,
+                     api_port=api_port, archetypes=archetypes)
     await local.start()
     print(f"application {name!r} deployed", flush=True)
+    if local.control is not None:
+        print(f"control plane: http://127.0.0.1:{local.control.port}", flush=True)
     print(f"gateway:       ws://127.0.0.1:{local.gateway.port}", flush=True)
     try:
         await stop.wait()
@@ -161,28 +505,143 @@ async def run(name: str, app: str, instance: str | None = None, secrets: str | N
     return 0
 
 
+def cmd_run(args) -> int:
+    return asyncio.run(run(args.name, args.app, args.instance, args.secrets,
+                           gateway_port=args.gateway_port, device=args.device,
+                           api_port=args.api_port, archetypes=args.archetypes))
+
+
+def cmd_not_ported(args) -> None:
+    raise CliError(f"{args.command} {NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# the parser
+# ---------------------------------------------------------------------------
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m langstream_tpu_torch.cli",
         description="LangStream applications through the PyTorch port.")
     commands = parser.add_subparsers(dest="command", required=True)
-    run_cmd = commands.add_parser(
-        "run", help="single-process dev mode: deploy the application and serve "
-                    "its gateways until interrupted")
-    run_cmd.add_argument("name")
-    run_cmd.add_argument("-app", "--application", dest="app", required=True)
-    run_cmd.add_argument("-i", "--instance", default=None)
-    run_cmd.add_argument("-s", "--secrets", default=None)
-    run_cmd.add_argument("--gateway-port", type=int, default=8091)
-    run_cmd.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+
+    def app_files(cmd, required=True):
+        cmd.add_argument("-app", "--application", dest="app", required=required)
+        cmd.add_argument("-i", "--instance", default=None)
+        cmd.add_argument("-s", "--secrets", default=None)
+
+    def remote(cmd):
+        cmd.add_argument("--tenant", default=None)
+        cmd.add_argument("--api-url", default=None)
+
+    cmd = commands.add_parser("configure", help="save the connection profile")
+    cmd.add_argument("--api-url", default=None)
+    cmd.add_argument("--gateway-url", default=None)
+    cmd.add_argument("--tenant", default=None)
+    cmd.set_defaults(func=cmd_configure)
+
+    tenants = commands.add_parser("tenants", help="manage tenants")
+    actions = tenants.add_subparsers(dest="action", required=True)
+    for action in ("put", "list", "delete"):
+        cmd = actions.add_parser(action)
+        if action != "list":
+            cmd.add_argument("name")
+        cmd.add_argument("--api-url", default=None)
+        cmd.set_defaults(func=cmd_tenants)
+
+    apps = commands.add_parser("apps", help="manage applications")
+    actions = apps.add_subparsers(dest="action", required=True)
+    for action in ("deploy", "update"):
+        cmd = actions.add_parser(action)
+        cmd.add_argument("name")
+        app_files(cmd)
+        remote(cmd)
+        cmd.set_defaults(func=cmd_apps)
+    for action in ("get", "delete", "logs", "download", "ui"):
+        cmd = actions.add_parser(action)
+        cmd.add_argument("name")
+        if action == "download":
+            cmd.add_argument("-o", "--output", default=None)
+        remote(cmd)
+        cmd.set_defaults(func=cmd_apps)
+    cmd = actions.add_parser("list")
+    remote(cmd)
+    cmd.set_defaults(func=cmd_apps)
+    cmd = actions.add_parser("diagram")
+    app_files(cmd)
+    cmd.set_defaults(func=cmd_apps)
+
+    archetypes = commands.add_parser("archetypes", help="parameterized application templates")
+    actions = archetypes.add_subparsers(dest="action", required=True)
+    cmd = actions.add_parser("list")
+    remote(cmd)
+    cmd.set_defaults(func=cmd_archetypes)
+    cmd = actions.add_parser("get")
+    cmd.add_argument("archetype_id")
+    remote(cmd)
+    cmd.set_defaults(func=cmd_archetypes)
+    cmd = actions.add_parser("deploy")
+    cmd.add_argument("archetype_id")
+    cmd.add_argument("name")
+    cmd.add_argument("-p", "--parameter", dest="parameters", action="append", default=[])
+    cmd.add_argument("-i", "--instance", default=None)
+    cmd.add_argument("-s", "--secrets", default=None)
+    remote(cmd)
+    cmd.set_defaults(func=cmd_archetypes)
+
+    docs = commands.add_parser("docs", help="generated documentation")
+    actions = docs.add_subparsers(dest="action", required=True)
+    cmd = actions.add_parser("agents")
+    cmd.add_argument("--format", choices=("markdown", "json"), default="markdown")
+    cmd.add_argument("-o", "--output", default=None)
+    cmd.set_defaults(func=cmd_docs)
+
+    gateway = commands.add_parser("gateway", help="interact with application gateways")
+    actions = gateway.add_subparsers(dest="action", required=True)
+    for action in ("produce", "consume", "chat"):
+        cmd = actions.add_parser(action)
+        cmd.add_argument("application")
+        cmd.add_argument("gateway_id")
+        if action == "produce":
+            cmd.add_argument("-v", "--value", required=True)
+            cmd.add_argument("-k", "--key", default=None)
+        if action == "consume":
+            cmd.add_argument("--position", default="latest")
+            cmd.add_argument("-n", "--num-messages", type=int, default=0)
+        cmd.add_argument("-p", "--param", action="append", default=[])
+        cmd.add_argument("--credentials", default=None)
+        cmd.add_argument("--tenant", default=None)
+        cmd.add_argument("--gateway-url", default=None)
+        cmd.set_defaults(func=cmd_gateway)
+
+    cmd = commands.add_parser(
+        "run", help="single-process dev mode: the control plane and the gateway in "
+                    "this process, the application deployed, served until interrupted")
+    cmd.add_argument("name")
+    app_files(cmd)
+    cmd.add_argument("--api-port", type=int, default=8090)
+    cmd.add_argument("--gateway-port", type=int, default=8091)
+    cmd.add_argument("--archetypes", default=None)
+    cmd.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    cmd.set_defaults(func=cmd_run)
+
+    for name in ("python", "mini"):
+        cmd = commands.add_parser(name, help=f"not ported yet ({name})")
+        cmd.add_argument("rest", nargs=argparse.REMAINDER)
+        cmd.set_defaults(func=cmd_not_ported)
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for path in (args.app, args.instance, args.secrets):
+    for attr in ("app", "instance", "secrets", "archetypes"):
+        path = getattr(args, attr, None)
         if path is not None and not Path(path).exists():
             print(f"error: {path} does not exist", file=sys.stderr)
             return 2
-    return asyncio.run(run(args.name, args.app, args.instance, args.secrets,
-                           gateway_port=args.gateway_port, device=args.device))
+    try:
+        return args.func(args) or 0
+    except CliError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1

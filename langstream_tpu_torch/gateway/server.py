@@ -12,18 +12,12 @@ Endpoints (parity: ``WebSocketConfig.java:47-49``, ``GatewayResource.java``):
 
 Client protocol (reference-compatible shapes):
 - query params: ``param:<name>=value`` for declared gateway parameters,
-  ``option:position=earliest|latest`` for consume starting position
-  (``credentials=`` comes with gateway authentication).
+  ``credentials=`` for auth, ``option:position=earliest|latest`` for
+  consume starting position.
 - produce message: ``{"key":..., "value":..., "headers": {...}}``
 - consume push:   ``{"record": {...}, "offset": "..."}``
 - chat: client sends produce messages, receives consume pushes on one
   socket, correlated by the gateway's header mappings.
-
-Not ported yet, and refused loudly rather than served quietly: a gateway
-with an ``authentication`` section deploys, but a client that connects to
-it is answered 501 (gateway authentication comes with ``gateway/auth.py``
-and ``auth/``); the service routes (``/api/gateways/service/...``, topic
-round trips and the agent proxy) answer 501 too.
 """
 
 from __future__ import annotations
@@ -43,6 +37,10 @@ from langstream_tpu_torch.api.topics import (
 )
 from langstream_tpu_torch.core.tracing import TRACE_HEADER, TraceContext, start_span
 from langstream_tpu_torch.gateway import wire
+from langstream_tpu_torch.gateway.auth import (
+    AuthenticationException,
+    get_auth_provider,
+)
 from langstream_tpu_torch.gateway.router import REPLICA_HEADER, ReplicaRouter
 from langstream_tpu_torch.gateway.wire import WSMsgType
 from langstream_tpu_torch.serving.adapters import ADAPTER_HEADER
@@ -77,16 +75,6 @@ STREAM_ID_HEADER = "langstream-stream-id"
 #: record (agents/ai.py ``_StreamWriter``)
 STREAM_LAST_HEADER = "stream-last-message"
 
-#: the 501 reasons of what the port does not serve yet
-AUTH_NOT_PORTED = (
-    "gateway authentication is not ported to langstream_tpu_torch yet; a later "
-    "slice of the port brings gateway/auth.py"
-)
-SERVICE_NOT_PORTED = (
-    "service gateways (topic round trips and the agent proxy) are not ported to "
-    "langstream_tpu_torch yet; a later slice of the port brings them"
-)
-
 
 class GatewayRegistry:
     """Resolves (tenant, application, gateway-id) → (Gateway, streaming
@@ -95,6 +83,7 @@ class GatewayRegistry:
 
     def __init__(self) -> None:
         self._apps: dict[tuple[str, str], Application] = {}
+        self._service_uris: dict[tuple[str, str, str], str] = {}
         # per-app QoS limiter (built lazily from the app's
         # tpu-serving-configuration resource's qos section; invalidated on
         # register/unregister so a redeploy picks up new limits)
@@ -127,6 +116,8 @@ class GatewayRegistry:
         self._qos_limiters.pop((tenant, app_id), None)
         self._routers.pop((tenant, app_id), None)
         self._fleet_sources.pop((tenant, app_id), None)
+        for key in [k for k in self._service_uris if k[:2] == (tenant, app_id)]:
+            del self._service_uris[key]
 
     def update_fleet(
         self,
@@ -219,6 +210,18 @@ class GatewayRegistry:
             self._qos_limiters[key] = limiter
         return self._qos_limiters[key]
 
+    def register_service_uri(
+        self, tenant: str, app_id: str, agent_id: str, uri: str
+    ) -> None:
+        """Dev-mode/in-process agents register where they listen."""
+        self._service_uris[(tenant, app_id, agent_id)] = uri.rstrip("/")
+
+    def service_uri(self, tenant: str, app_id: str, agent_id: str) -> str | None:
+        """The agent's registered URI, or None. The JAX registry falls back
+        to the agent's in-cluster service name; the port runs no cluster
+        yet, so an agent that registered nothing has no address."""
+        return self._service_uris.get((tenant, app_id, agent_id))
+
     def resolve(
         self, tenant: str, app_id: str, gateway_id: str
     ) -> tuple[Gateway, dict[str, Any]]:
@@ -297,30 +300,43 @@ class GatewayServer:
         missing = [p for p in gateway.parameters if p not in params]
         if missing:
             raise wire.HTTPException(400, f"missing parameters: {missing}")
-        return tenant, app_id, gateway, streaming, params, options
+        credentials = request.query.get("credentials")
+        return tenant, app_id, gateway, streaming, params, options, credentials
+
+    async def _authenticate(
+        self, gateway: Gateway, credentials: str | None
+    ) -> dict[str, Any]:
+        if not gateway.authentication:
+            return {}
+        provider = get_auth_provider(
+            gateway.authentication.get("provider", "test"),
+            gateway.authentication.get("configuration", {}),
+        )
+        try:
+            return await provider.authenticate(credentials)
+        except AuthenticationException:
+            raise
+        except Exception as e:
+            # provider infrastructure failure (endpoint down, bad config):
+            # an auth failure to the client, not a 500 with a traceback
+            log.warning("auth provider failure: %s", e)
+            raise AuthenticationException(f"authentication unavailable: {e}")
 
     @staticmethod
-    def _refuse_authenticated(gateway: Gateway) -> None:
-        """Gateway authentication is not ported yet, so a client of a
-        gateway with an ``authentication`` section is answered 501 whatever
-        its credentials."""
-        if gateway.authentication:
-            raise wire.HTTPException(501, AUTH_NOT_PORTED)
-
-    @staticmethod
-    def _mapped_headers(mappings, params: dict[str, str]) -> dict[str, Any]:
-        """Headers from parameters and literals. A mapping from the
-        authenticated principal maps nothing: only a gateway without
-        authentication is served."""
+    def _mapped_headers(
+        mappings, params: dict[str, str], principal: dict[str, Any]
+    ) -> dict[str, Any]:
         headers: dict[str, Any] = {}
         for m in mappings:
-            if m.value_from_authentication:
-                continue
             if m.value_from_parameters:
                 value = params.get(m.value_from_parameters)
+            elif m.value_from_authentication:
+                value = principal.get(m.value_from_authentication)
             else:
                 value = m.literal_value
-            key = m.key or f"langstream-client-{m.value_from_parameters}"
+            key = m.key or (
+                f"langstream-client-{m.value_from_parameters or m.value_from_authentication}"
+            )
             if value is not None:
                 headers[key] = value
         return headers
@@ -372,18 +388,23 @@ class GatewayServer:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _qos_identity(params: dict[str, str]) -> tuple[str, str]:
-        """(qos tenant, priority class) for one client: ``param:tenant``,
-        as on the JAX gateway's unauthenticated gateways (the authenticated
-        subject comes with gateway authentication). Priority comes from
-        ``param:priority``, clamped to a known class."""
-        tenant = str(params.get("tenant") or "anonymous")
+    def _qos_identity(
+        params: dict[str, str], principal: dict[str, Any]
+    ) -> tuple[str, str]:
+        """(qos tenant, priority class) for one client: the authenticated
+        subject is the tenant when auth is on (clients cannot spoof it);
+        an explicit ``param:tenant`` covers unauthenticated dev setups.
+        Priority comes from ``param:priority``, clamped to a known class."""
+        tenant = str(
+            principal.get("subject") or params.get("tenant") or "anonymous"
+        )
         return tenant, normalize_priority(params.get("priority"))
 
     def _qos_headers(
         self,
         limiter: TenantLimiter | None,
         params: dict[str, str],
+        principal: dict[str, Any],
     ) -> dict[str, str]:
         """Record headers carrying the QoS identity downstream (the AI
         agents forward them into engine options, so the engine's own
@@ -397,7 +418,7 @@ class GatewayServer:
             and "priority" not in params
         ):
             return {}
-        tenant, priority = self._qos_identity(params)
+        tenant, priority = self._qos_identity(params, principal)
         out = {QOS_TENANT_HEADER: tenant, QOS_PRIORITY_HEADER: priority}
         if limiter is not None:
             # tenant config names the LoRA adapter this tenant decodes
@@ -449,13 +470,14 @@ class GatewayServer:
         tenant: str,
         app_id: str,
         params: dict[str, Any],
+        principal: dict[str, Any],
         value: Any = None,
     ) -> dict[str, Any]:
         """Stamp the routing choice onto one produced record (in place).
         Per-message, not per-connection: load shifts and affinity pins
         between messages on one WebSocket. The affinity key is the SAME
         QoS identity the limiter throttled on (resolved here from the
-        same params so the two can never disagree) — except
+        same params/principal so the two can never disagree) — except
         that the shared ``anonymous`` fallback gets no affinity pin:
         every unauthenticated client shares that name, and pinning it
         would funnel all anonymous traffic onto one replica, defeating
@@ -475,7 +497,7 @@ class GatewayServer:
             headers[PREFIX_HEADER] = prefix
         if REPLICA_HEADER in headers:
             return headers
-        qos_tenant, _ = self._qos_identity(params)
+        qos_tenant, _ = self._qos_identity(params, principal)
         affinity = qos_tenant if qos_tenant != "anonymous" else None
         # adapter identity was already injected from tenant config (or a
         # client header on adapter-permissive setups): route by adapter
@@ -582,9 +604,9 @@ class GatewayServer:
             )
 
     def _filters_match(
-        self, gateway: Gateway, params, record: Record
+        self, gateway: Gateway, params, principal, record: Record
     ) -> bool:
-        expected = self._mapped_headers(gateway.consume_filters, params)
+        expected = self._mapped_headers(gateway.consume_filters, params, principal)
         record_headers = record.header_map()
         return all(record_headers.get(k) == v for k, v in expected.items())
 
@@ -617,14 +639,17 @@ class GatewayServer:
     # ------------------------------------------------------------------
 
     async def _ws_produce(self, request: wire.Request) -> wire.WebSocketResponse:
-        tenant, app_id, gateway, streaming, params, options = (
+        tenant, app_id, gateway, streaming, params, options, credentials = (
             self._context(request)
         )
         if gateway.type != Gateway.PRODUCE:
             raise wire.HTTPException(400, "not a produce gateway")
-        self._refuse_authenticated(gateway)
+        try:
+            principal = await self._authenticate(gateway, credentials)
+        except AuthenticationException as e:
+            raise wire.HTTPException(401, str(e))
         limiter = self.registry.qos_limiter(tenant, app_id)
-        qos_tenant, qos_priority = self._qos_identity(params)
+        qos_tenant, qos_priority = self._qos_identity(params, principal)
         # an already-empty bucket refuses the upgrade itself with a real
         # 429 (per-message throttling below covers mid-stream exhaustion)
         self._ws_throttle_gate(limiter, qos_tenant)
@@ -652,8 +677,8 @@ class GatewayServer:
                 self._stream_push_loop(ws, stream_reader, active_streams)
             )
         inject = {
-            **self._mapped_headers(gateway.produce_headers, params),
-            **self._qos_headers(limiter, params),
+            **self._mapped_headers(gateway.produce_headers, params, principal),
+            **self._qos_headers(limiter, params, principal),
         }
         try:
             async for msg in ws:
@@ -666,7 +691,7 @@ class GatewayServer:
                         "gateway.produce",
                     )
                     self._stamp_replica(
-                        headers, tenant, app_id, params,
+                        headers, tenant, app_id, params, principal,
                         value=payload.get("value"),
                     )
                     self._stamp_deadline(
@@ -764,24 +789,27 @@ class GatewayServer:
             log.exception("stream push loop failed")
 
     async def _http_produce(self, request: wire.Request) -> wire.Response:
-        tenant, app_id, gateway, streaming, params, options = (
+        tenant, app_id, gateway, streaming, params, options, credentials = (
             self._context(request)
         )
         if gateway.type != Gateway.PRODUCE:
             raise wire.HTTPException(400, "not a produce gateway")
-        self._refuse_authenticated(gateway)
+        try:
+            principal = await self._authenticate(gateway, credentials)
+        except AuthenticationException as e:
+            raise wire.HTTPException(401, str(e))
         payload = await self._json_body(request)
         limiter = self.registry.qos_limiter(tenant, app_id)
-        qos_tenant, qos_priority = self._qos_identity(params)
+        qos_tenant, qos_priority = self._qos_identity(params, principal)
         inject = {
-            **self._mapped_headers(gateway.produce_headers, params),
-            **self._qos_headers(limiter, params),
+            **self._mapped_headers(gateway.produce_headers, params, principal),
+            **self._qos_headers(limiter, params, principal),
         }
         headers, span = self._traced_headers(
             {**(payload.get("headers") or {}), **inject}, "gateway.produce"
         )
         self._stamp_replica(
-            headers, tenant, app_id, params,
+            headers, tenant, app_id, params, principal,
             value=payload.get("value"),
         )
         self._stamp_deadline(headers, limiter, params, qos_priority)
@@ -906,12 +934,15 @@ class GatewayServer:
     # ------------------------------------------------------------------
 
     async def _ws_consume(self, request: wire.Request) -> wire.WebSocketResponse:
-        tenant, app_id, gateway, streaming, params, options = (
+        tenant, app_id, gateway, streaming, params, options, credentials = (
             self._context(request)
         )
         if gateway.type != Gateway.CONSUME:
             raise wire.HTTPException(400, "not a consume gateway")
-        self._refuse_authenticated(gateway)
+        try:
+            principal = await self._authenticate(gateway, credentials)
+        except AuthenticationException as e:
+            raise wire.HTTPException(401, str(e))
         ws = wire.WebSocketResponse()
         await ws.prepare(request)
         await self._emit_event(gateway, streaming, "ClientConnected", tenant, app_id)
@@ -922,7 +953,7 @@ class GatewayServer:
         )
         await reader.start()
         pusher = asyncio.ensure_future(
-            self._push_loop(ws, reader, gateway, params)
+            self._push_loop(ws, reader, gateway, params, principal)
         )
         try:
             async for msg in ws:
@@ -937,12 +968,12 @@ class GatewayServer:
             )
         return ws
 
-    async def _push_loop(self, ws, reader, gateway, params) -> None:
+    async def _push_loop(self, ws, reader, gateway, params, principal) -> None:
         try:
             while not ws.closed:
                 records = await reader.read(timeout=0.5)
                 for record in records:
-                    if self._filters_match(gateway, params, record):
+                    if self._filters_match(gateway, params, principal, record):
                         await ws.send_json(self._record_json(record))
         except (asyncio.CancelledError, ConnectionResetError):
             pass
@@ -954,19 +985,22 @@ class GatewayServer:
     # ------------------------------------------------------------------
 
     async def _ws_chat(self, request: wire.Request) -> wire.WebSocketResponse:
-        tenant, app_id, gateway, streaming, params, options = (
+        tenant, app_id, gateway, streaming, params, options, credentials = (
             self._context(request)
         )
         if gateway.type != Gateway.CHAT:
             raise wire.HTTPException(400, "not a chat gateway")
-        self._refuse_authenticated(gateway)
+        try:
+            principal = await self._authenticate(gateway, credentials)
+        except AuthenticationException as e:
+            raise wire.HTTPException(401, str(e))
         chat = gateway.chat_options
         questions_topic = chat.get("questions-topic")
         answers_topic = chat.get("answers-topic")
         if not questions_topic or not answers_topic:
             raise wire.HTTPException(400, "chat gateway needs questions/answers topics")
         limiter = self.registry.qos_limiter(tenant, app_id)
-        qos_tenant, qos_priority = self._qos_identity(params)
+        qos_tenant, qos_priority = self._qos_identity(params, principal)
         self._ws_throttle_gate(limiter, qos_tenant)
         ws = wire.WebSocketResponse()
         await ws.prepare(request)
@@ -979,8 +1013,8 @@ class GatewayServer:
         )
         await reader.start()
         inject = {
-            **self._mapped_headers(gateway.produce_headers, params),
-            **self._qos_headers(limiter, params),
+            **self._mapped_headers(gateway.produce_headers, params, principal),
+            **self._qos_headers(limiter, params, principal),
         }
         # streaming-flagged chat sockets get per-message stream ids: the
         # answers topic already carries the agent's chunk records back
@@ -1004,7 +1038,7 @@ class GatewayServer:
                         "gateway.chat",
                     )
                     self._stamp_replica(
-                        headers, tenant, app_id, params,
+                        headers, tenant, app_id, params, principal,
                         value=payload.get("value"),
                     )
                     self._stamp_deadline(
@@ -1090,11 +1124,151 @@ class GatewayServer:
             log.exception("chat push loop failed")
 
     # ------------------------------------------------------------------
-    # service gateways: not ported yet
+    # service gateway: agent proxy
+    # ------------------------------------------------------------------
+
+    _HOP_HEADERS = {
+        "connection", "keep-alive", "proxy-authenticate",
+        "proxy-authorization", "te", "trailers", "transfer-encoding",
+        "upgrade", "host", "content-length",
+        # the proxy decompresses gzip/deflate upstream bodies (as aiohttp
+        # does for the JAX gateway), so forwarding the upstream
+        # Content-Encoding would declare an encoding the payload no longer
+        # has
+        "content-encoding",
+    }
+
+    async def _proxy_to_agent(
+        self, request: wire.Request, tenant: str, app_id: str, agent_id: str
+    ) -> wire.Response:
+        base = self.registry.service_uri(tenant, app_id, agent_id)
+        if base is None:
+            raise wire.HTTPException(
+                502, f"agent {agent_id!r} service unreachable: it registered no "
+                "service URI (only an agent that declares service-port does)"
+            )
+        tail = request.match_info.get("tail", "")
+        url = f"{base}/{tail}" if tail else base
+        if request.query_string:
+            url += f"?{request.query_string}"
+        headers = {
+            k: v
+            for k, v in request.headers.items()
+            if k.lower() not in self._HOP_HEADERS
+        }
+        body = await request.read() if request.can_read_body else None
+        try:
+            status, _, upstream_headers, payload = await wire.http_request(
+                request.method, url, body=body, headers=headers,
+                timeout=60.0, decompress=True,
+            )
+        except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError,
+                ValueError) as e:
+            raise wire.HTTPException(
+                502, f"agent {agent_id!r} service unreachable: {e}"
+            )
+        out_headers = {
+            k: v
+            for k, v in upstream_headers.items()
+            if k.lower() not in self._HOP_HEADERS
+        }
+        content_type = out_headers.pop("content-type", "application/octet-stream")
+        return wire.Response(
+            status=status, body=payload, headers=out_headers,
+            content_type=content_type,
+        )
+
+    # ------------------------------------------------------------------
+    # service gateway: request/response over topics
     # ------------------------------------------------------------------
 
     async def _http_service(self, request: wire.Request) -> wire.Response:
-        """Resolved like every route (an unknown app or gateway is 404), then
-        answered 501: service gateways are not ported yet."""
-        self._context(request)
-        raise wire.HTTPException(501, SERVICE_NOT_PORTED)
+        tenant, app_id, gateway, streaming, params, options, credentials = (
+            self._context(request)
+        )
+        if gateway.type != Gateway.SERVICE:
+            raise wire.HTTPException(400, "not a service gateway")
+        try:
+            principal = await self._authenticate(gateway, credentials)
+        except AuthenticationException as e:
+            raise wire.HTTPException(401, str(e))
+        service = gateway.service_options
+        agent_id = service.get("agent-id")
+        if agent_id:
+            # agent-proxy mode (parity: GatewayResource.java:235-241):
+            # forward the request to the agent's service URI verbatim
+            return await self._proxy_to_agent(
+                request, tenant, app_id, agent_id
+            )
+        input_topic = service.get("input-topic")
+        output_topic = service.get("output-topic")
+        if not input_topic or not output_topic:
+            raise wire.HTTPException(
+                400,
+                "service gateway needs input-topic/output-topic "
+                "(topic mode) or agent-id (proxy mode)"
+            )
+        correlation = str(uuid.uuid4())
+        payload = await self._json_body(request) if request.can_read_body else {}
+        runtime = TopicConnectionsRuntimeRegistry.get_runtime(streaming)
+        reader = runtime.create_reader(
+            {"topic": output_topic}, initial_position="latest"
+        )
+        await reader.start()
+        producer = runtime.create_producer("gateway-service", {"topic": input_topic})
+        await producer.start()
+        # service round-trips stamp the QoS identity too (the engine's own
+        # buckets backstop them); gateway-side shedding stays on the
+        # produce/chat paths where a retry hint is actionable
+        limiter = self.registry.qos_limiter(tenant, app_id)
+        _, qos_priority = self._qos_identity(params, principal)
+        inject = {
+            **self._mapped_headers(gateway.produce_headers, params, principal),
+            **self._qos_headers(limiter, params, principal),
+        }
+        headers, span = self._traced_headers(
+            {
+                **(payload.get("headers") or {}),
+                **inject,
+                "langstream-service-request-id": correlation,
+            },
+            "gateway.service",
+        )
+        self._stamp_replica(
+            headers, tenant, app_id, params, principal,
+            value=payload.get("value"),
+        )
+        self._stamp_deadline(headers, limiter, params, qos_priority)
+        self._journey_produce(headers)
+        try:
+            # `with span:` so a broker failure mid-write/read still closes
+            # the span with its error (end() is idempotent — the explicit
+            # ends below keep their timings and error labels)
+            with span:
+                await producer.write(
+                    make_record(
+                        value=payload.get("value", payload),
+                        key=payload.get("key"),
+                        headers=headers,
+                    )
+                )
+                deadline = asyncio.get_event_loop().time() + float(
+                    service.get("timeout-seconds", 30)
+                )
+                while asyncio.get_event_loop().time() < deadline:
+                    for record in await reader.read(timeout=0.5):
+                        if (
+                            record.header("langstream-service-request-id")
+                            == correlation
+                        ):
+                            span.end()
+                            return wire.json_response(
+                                self._record_json(record),
+                                headers={TRACE_HEADER: headers[TRACE_HEADER]},
+                            )
+                span.end(error="timeout")
+                raise wire.HTTPException(504, "no response on output topic")
+        finally:
+            await producer.close()
+            await reader.close()
+            await runtime.close()

@@ -58,8 +58,9 @@ MAX_HEAD = 64 * 1024
 MAX_BODY = 16 * 1024 * 1024
 
 _REASONS = {
-    101: "Switching Protocols", 200: "OK", 400: "Bad Request", 401: "Unauthorized",
-    404: "Not Found", 405: "Method Not Allowed", 413: "Payload Too Large",
+    101: "Switching Protocols", 200: "OK", 201: "Created", 400: "Bad Request",
+    401: "Unauthorized", 404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
+    413: "Payload Too Large",
     429: "Too Many Requests", 500: "Internal Server Error", 501: "Not Implemented",
     502: "Bad Gateway", 504: "Gateway Timeout",
 }
@@ -135,11 +136,47 @@ class Request:
     async def json(self) -> Any:
         return json.loads(self.body.decode("utf-8"))
 
+    @property
+    def can_read_body(self) -> bool:
+        """Whether the request carried a body (aiohttp's name)."""
+        return bool(self.body)
+
+    async def read(self) -> bytes:
+        return self.body
+
+    @property
+    def content_type(self) -> str:
+        """The body's media type, without parameters (aiohttp's name)."""
+        return self.headers.get("content-type", "").split(";")[0].strip().lower()
+
     def keep_alive(self) -> bool:
         connection = self.headers.get("connection", "").lower()
         if self.version == "HTTP/1.0":
             return "keep-alive" in connection
         return "close" not in connection
+
+
+def multipart_parts(body: bytes, content_type: str) -> list[tuple[str | None, bytes]]:
+    """A ``multipart/form-data`` body's parts in order: each part's
+    ``Content-Disposition`` ``name`` and its payload with any
+    ``Content-Transfer-Encoding`` undone (aiohttp's ``part.read(decode=
+    True)``). A body that is not multipart, or has no boundary, raises
+    :class:`HTTPException` 400."""
+    from email.parser import BytesParser
+    from email.policy import HTTP
+
+    if "multipart/" not in content_type.lower() or "boundary=" not in content_type.lower():
+        raise HTTPException(400, "expected a multipart body with a boundary")
+    message = BytesParser(policy=HTTP).parsebytes(
+        b"Content-Type: " + content_type.encode("latin-1") + b"\r\n\r\n" + body)
+    if not message.is_multipart():
+        raise HTTPException(400, "malformed multipart body")
+    parts = []
+    for part in message.iter_parts():
+        payload = part.get_payload(decode=True)
+        parts.append((part.get_param("name", header="content-disposition"),
+                      payload if payload is not None else b""))
+    return parts
 
 
 class Response:
@@ -507,7 +544,7 @@ def _parse_headers(lines: list[str]) -> dict[str, str]:
     return headers
 
 
-async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
+async def _read_chunked(reader: asyncio.StreamReader, max_body: int = MAX_BODY) -> bytes:
     """A chunked body; a malformed one raises ValueError (or the reader's
     LimitOverrunError for an overlong size line)."""
     body = bytearray()
@@ -520,17 +557,18 @@ async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
             while (await reader.readuntil(b"\r\n")) != b"\r\n":
                 pass  # trailers
             return bytes(body)
-        if len(body) + size > MAX_BODY:
+        if len(body) + size > max_body:
             raise HTTPException(413, "request body too large")
         body += await reader.readexactly(size)
         if await reader.readexactly(2) != b"\r\n":
             raise ValueError("chunk not followed by CRLF")
 
 
-async def _read_body(reader: asyncio.StreamReader, headers: dict[str, str]) -> bytes:
+async def _read_body(reader: asyncio.StreamReader, headers: dict[str, str],
+                     max_body: int = MAX_BODY) -> bytes:
     if "chunked" in headers.get("transfer-encoding", "").lower():
         try:
-            return await _read_chunked(reader)
+            return await _read_chunked(reader, max_body)
         except (ValueError, asyncio.LimitOverrunError):
             raise HTTPException(400, "malformed chunked body") from None
     length = headers.get("content-length")
@@ -540,7 +578,7 @@ async def _read_body(reader: asyncio.StreamReader, headers: dict[str, str]) -> b
         n = int(length)
     except ValueError:
         raise HTTPException(400, "bad Content-Length") from None
-    if n > MAX_BODY:
+    if n > max_body:
         raise HTTPException(413, "request body too large")
     return await reader.readexactly(n)
 
@@ -548,13 +586,19 @@ async def _read_body(reader: asyncio.StreamReader, headers: dict[str, str]) -> b
 class HttpServer:
     """Routes (``method``, path pattern) to handlers on one asyncio listener.
     ``method`` ``"*"`` matches any. ``port=0`` binds a free port; ``port``
-    holds the bound one after :meth:`start`."""
+    holds the bound one after :meth:`start`. ``middleware``, when given, is
+    ``async def middleware(request, handler)`` around every matched
+    handler (aiohttp's middleware shape); ``max_body`` bounds a request's
+    body (413 above it)."""
 
     def __init__(self, routes: list[tuple[str, str, Handler]], host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, middleware: Callable[[Request, Handler], Awaitable[Any]]
+                 | None = None, max_body: int = MAX_BODY):
         self.routes = [(m, _compile(p), h) for m, p, h in routes]
         self.host = host
         self.port = port
+        self.middleware = middleware
+        self.max_body = max_body
         self._server: asyncio.base_events.Server | None = None
         self._connections: set[asyncio.Task] = set()
         self._sockets: set[_WebSocket] = set()
@@ -609,7 +653,7 @@ class HttpServer:
                     if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
                         raise HTTPException(400, "bad request line")
                     headers = _parse_headers(lines[1:])
-                    body = await _read_body(reader, headers)
+                    body = await _read_body(reader, headers, self.max_body)
                 except HTTPException as e:
                     writer.write(e.response().head(False) + e.response().body)
                     await writer.drain()
@@ -638,7 +682,8 @@ class HttpServer:
         except HTTPException as e:
             return e.response()
         request._server = self
-        request._handler_task = handler_task = asyncio.ensure_future(handler(request))
+        call = handler(request) if self.middleware is None else self.middleware(request, handler)
+        request._handler_task = handler_task = asyncio.ensure_future(call)
         try:
             await asyncio.wait({handler_task})
             result = None if handler_task.cancelled() else handler_task.result()
@@ -681,14 +726,23 @@ class HandshakeError(Exception):
         self.body = body
 
 
+class ConnectError(ConnectionError):
+    """The connection could not be opened: nothing of the request was sent
+    (a caller may retry any method after it)."""
+
+
 async def _open(url: str, timeout: float):
     parts = urlsplit(url)
     secure = parts.scheme in ("https", "wss")
     if secure:
         raise ValueError("the stdlib client speaks plain HTTP and ws:// only")
     port = parts.port or 80
-    reader, writer = await asyncio.wait_for(
-        asyncio.open_connection(parts.hostname, port, limit=MAX_MESSAGE + MAX_HEAD), timeout)
+    try:
+        reader, writer = await asyncio.wait_for(
+            asyncio.open_connection(parts.hostname, port, limit=MAX_MESSAGE + MAX_HEAD),
+            timeout)
+    except (OSError, asyncio.TimeoutError) as e:
+        raise ConnectError(f"cannot connect to {parts.hostname}:{port}: {e!r}") from e
     target = quote(parts.path or "/", safe="/%:@") + (f"?{parts.query}" if parts.query else "")
     return reader, writer, f"{parts.hostname}:{port}", target
 
@@ -730,27 +784,44 @@ class WebSocketClient(_WebSocket):
         return ws
 
 
-async def http_request(method: str, url: str, json_body: Any = None, body: bytes = b"",
-                       headers: dict[str, str] | None = None,
-                       timeout: float = 30.0) -> tuple[int, str, dict[str, str], bytes]:
+async def http_request(method: str, url: str, json_body: Any = None,
+                       body: bytes | None = b"", headers: dict[str, str] | None = None,
+                       timeout: float = 30.0, decompress: bool = False,
+                       ) -> tuple[int, str, dict[str, str], bytes]:
     """One request on its own connection: ``(status, reason, headers, body)``
-    (the body read to its length, or to the connection's end)."""
+    (the body read to its length, through its chunks, or to the
+    connection's end; none for HEAD, 204 and 304). ``body=None`` sends no
+    ``Content-Length``; ``decompress`` undoes a gzip or deflate
+    ``Content-Encoding``. A connection that cannot be opened raises
+    :class:`ConnectError` before anything is sent; a failure after that
+    raises what the stream raised."""
     reader, writer, host, target = await _open(url, timeout)
     hdrs = {"Host": host, "Connection": "close", **(headers or {})}
     if json_body is not None:
         body = json.dumps(json_body).encode()
         hdrs["Content-Type"] = "application/json"
-    hdrs["Content-Length"] = str(len(body))
+    if body is not None:
+        hdrs["Content-Length"] = str(len(body))
     head = [f"{method} {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in hdrs.items()]
-    writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + body)
-    await writer.drain()
     try:
+        writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + (body or b""))
+        await writer.drain()
         status, reason, resp_headers = await asyncio.wait_for(_read_response_head(reader), timeout)
         n = resp_headers.get("content-length")
-        data = await asyncio.wait_for(
-            reader.readexactly(int(n)) if n is not None else reader.read(), timeout)
+        if method.upper() == "HEAD" or status in (204, 304):
+            data = b""
+        elif "chunked" in resp_headers.get("transfer-encoding", "").lower():
+            data = await asyncio.wait_for(_read_chunked(reader, MAX_BODY * 4), timeout)
+        else:
+            data = await asyncio.wait_for(
+                reader.readexactly(int(n)) if n is not None else reader.read(), timeout)
     finally:
         writer.close()
+    encoding = resp_headers.get("content-encoding", "").lower()
+    if decompress and data and encoding in ("gzip", "deflate"):
+        import zlib
+
+        data = zlib.decompress(data, 16 + zlib.MAX_WBITS if encoding == "gzip" else zlib.MAX_WBITS)
     return status, reason, resp_headers, data
 
 

@@ -575,3 +575,18 @@ class SloTracker:
             ),
         }
 
+
+
+def validate_application_slo(application) -> None:
+    """Deploy-time validation: parse every ``tpu-serving-configuration``
+    resource's ``slo`` section so a malformed objective fails the deploy
+    (HTTP 400) instead of the first request — the same contract
+    :func:`~langstream_tpu_torch.serving.qos.validate_application_qos`
+    keeps for the ``qos`` section."""
+    for name, res in (getattr(application, "resources", None) or {}).items():
+        if getattr(res, "type", None) != "tpu-serving-configuration":
+            continue
+        try:
+            SloSpec.from_dict((res.configuration or {}).get("slo"))
+        except ValueError as e:
+            raise ValueError(f"resource {name!r}: invalid slo section: {e}") from e

@@ -482,3 +482,17 @@ class TenantLimiter:
     def stats(self) -> dict[str, dict[str, int]]:
         return {t: dict(c) for t, c in self.counters.items()}
 
+
+
+def validate_application_qos(application) -> None:
+    """Deploy-time validation: parse every ``tpu-serving-configuration``
+    resource's ``qos`` section so a malformed policy fails the deploy
+    (HTTP 400) instead of the first request. Duck-typed on the parsed
+    :class:`~langstream_tpu_torch.api.application.Application`."""
+    for name, res in (getattr(application, "resources", None) or {}).items():
+        if getattr(res, "type", None) != "tpu-serving-configuration":
+            continue
+        try:
+            QosSpec.from_dict((res.configuration or {}).get("qos"))
+        except ValueError as e:
+            raise ValueError(f"resource {name!r}: invalid qos section: {e}") from e

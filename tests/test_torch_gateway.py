@@ -9,8 +9,10 @@ Covered: produce and consume with session filters, ``/v1/chat`` on the
 server-sent-events variant, QoS 429s (HTTP, the WebSocket upgrade, and per
 message), a disconnect that cancels the stream and frees the engine's slot,
 records longer than 125 and 65,535 bytes both ways, fragmented client frames
-with a ping between them, and the close handshake. The port answers 501 on
-an authenticated gateway and on a service route (not ported yet)."""
+with a ping between them, and the close handshake. An authenticated
+gateway refuses a socket without credentials (401), and the service route
+answers over the topics (the JAX comparison of both is in
+``tests/test_torch_gateway_auth.py``)."""
 
 import asyncio
 import contextlib
@@ -528,24 +530,29 @@ def test_disconnect_cancels_the_stream_and_frees_the_slot(monkeypatch, client_na
 # ---------------------------------------------------------------------------
 
 def test_authenticated_and_service_gateways_answer_501():
+    """Named for the check it replaced, when both answered 501. Since gateway
+    authentication and the service gateways are ported, neither answers
+    501: the authenticated chat refuses a socket without
+    valid credentials with 401 (both clients), and the service route makes
+    its round trip over the topics (``tests/test_torch_gateway_auth.py``
+    holds both against the JAX gateway)."""
     async def main():
         async with deployed("port", chatbot_files()) as base, aiohttp.ClientSession() as session:
             with pytest.raises(aiohttp.WSServerHandshakeError) as info:
                 await session.ws_connect(
                     f"ws://{base}/v1/chat/t1/app/authenticated-chat?credentials=x")
-            assert info.value.status == 501
+            assert info.value.status == 401
             with pytest.raises(wire.HandshakeError) as port_info:
                 await wire.WebSocketClient.connect(
                     f"ws://{base}/v1/chat/t1/app/authenticated-chat")
-            assert port_info.value.status == 501
-            assert b"later slice of the port" in port_info.value.body
+            assert port_info.value.status == 401
+            assert port_info.value.body == b"401: missing bearer token"
         async with deployed("port", chat_files()) as base:
             status, reason, _, body = await wire.http_request(
-                "POST", f"http://{base}/api/gateways/service/t1/app/service", {"value": 1})
-            assert status == 501 and "are not ported to langstream_tpu_torch" in reason
-            status, *_ = await wire.http_request(
-                "GET", f"http://{base}/api/gateways/service/t1/app/service/sub/path")
-            assert status == 501
+                "POST", f"http://{base}/api/gateways/service/t1/app/service",
+                {"value": "a question"})
+            assert status == 200, (reason, body)
+            assert json.loads(body)["record"]["value"]["question"] == "a question"
             status, *_ = await wire.http_request(
                 "GET", f"http://{base}/api/gateways/service/t1/app/nope")
             assert status == 404

@@ -1,9 +1,11 @@
-"""The port runs without JAX, the JAX package, PyYAML, aiohttp and click:
-in a subprocess whose import system refuses them, every module of
-``langstream_tpu_torch`` imports, and ``python -m langstream_tpu_torch.cli
-run`` serves a copy of the chat-completions example at the tiny model on
-the CPU, answers a question through the port's WebSocket client, and exits
-0 on SIGINT."""
+"""The port runs without JAX, the JAX package, PyYAML, aiohttp, click and
+cryptography: in a subprocess whose import system refuses them, every
+module of ``langstream_tpu_torch`` imports; ``python -m
+langstream_tpu_torch.cli run`` serves a copy of the chat-completions
+example at the tiny model on the CPU, answers a question through the port's
+WebSocket client, and exits 0 on SIGINT; and ``python -m
+langstream_tpu_torch.controlplane`` serves its REST API, refuses
+``LS_MODE=k8s`` by name, and exits 0 on SIGINT."""
 
 import asyncio
 import os
@@ -19,7 +21,7 @@ import yaml
 from langstream_tpu_torch.gateway.wire import WebSocketClient
 
 REPO = Path(__file__).resolve().parents[1]
-REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click")
+REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click", "cryptography")
 
 GUARD = textwrap.dedent(f"""
     import importlib.abc
@@ -98,7 +100,7 @@ def test_the_cli_run_serves_the_chat_example_and_stops_on_sigint(tmp_path):
 
         sys.argv = ["langstream_tpu_torch.cli", "run", "chat", "-app", {str(app)!r},
                     "-i", {str(REPO / "examples" / "instances" / "memory.yaml")!r},
-                    "--device", "cpu", "--gateway-port", "{port}"]
+                    "--device", "cpu", "--gateway-port", "{port}", "--api-port", "0"]
         runpy.run_module("langstream_tpu_torch.cli", run_name="__main__")
     """)
     proc = subprocess.Popen([sys.executable, str(script)], cwd=tmp_path, env=_env(),
@@ -133,3 +135,38 @@ def test_the_cli_run_serves_the_chat_example_and_stops_on_sigint(tmp_path):
             proc.communicate()
     assert proc.returncode == 0, err[-4000:]
     assert "stopped" in out
+
+
+def test_the_control_plane_entrypoint_serves_and_refuses_k8s_by_name(tmp_path):
+    script = _guarded(tmp_path, """
+        import runpy
+
+        sys.argv = ["langstream_tpu_torch.controlplane", "--device", "cpu"]
+        runpy.run_module("langstream_tpu_torch.controlplane", run_name="__main__")
+    """)
+    env = dict(_env(), LS_MODE="k8s")
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "LS_MODE=k8s" in out.stderr and "not ported" in out.stderr
+    port = _free_port()
+    env = dict(_env(), LS_MODE="local", LS_PORT=str(port), LS_BIND="127.0.0.1",
+               LS_STORE_PATH=str(tmp_path / "store"))
+    proc = subprocess.Popen([sys.executable, str(script)], cwd=tmp_path, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert f":{port}" in line, (line, proc.stderr.read() if proc.poll() is not None else "")
+        from langstream_tpu_torch.gateway.wire import http_request
+
+        status, _, _, body = asyncio.run(http_request(
+            "PUT", f"http://127.0.0.1:{port}/api/tenants/t1", body=None))
+        assert status == 200 and b"OK" in body
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-4000:]
+    assert "stopped" in out
+    assert (tmp_path / "store" / "tenants" / "t1" / "tenant.json").exists()
