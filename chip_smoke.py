@@ -277,7 +277,7 @@ Phases (every one unguarded: any failure exits non-zero):
    the vectors asked for again are equal. Every started rank exits 0
    and no process of it is left;
    main path R (after Q): the tiered stores and the pool roles under a
-   mesh, llama3-8b int8 at 4 layers (``R_LAYERS``) at ``{tp: 2}`` through
+   mesh, llama3-8b int8 at 2 layers (``R_LAYERS``) at ``{tp: 2}`` through
    ``TorchServiceProvider`` with two local ranks on the card started by the
    launcher (a ``sitecustomize`` on their ``PYTHONPATH`` cuts their depth
    as this process's), each tp=2 run against a tp=1 engine on the same
@@ -369,6 +369,30 @@ Phases (every one unguarded: any failure exits non-zero):
    ``apps list``, ``apps get`` and ``gateway chat ... --credentials`` as
    processes, in the JAX CLI's format and with no ``torch`` loaded; SIGINT
    to ``run``, exit 0. Kernels #1, #2 and #3 launch on U;
+   main path V (after U): the cluster path without JAX. ``python -m
+   langstream_tpu_torch.cli mini up --device cuda`` as a process (the kube
+   API server, the control plane in k8s mode, the operator, the process
+   kubelet whose pods run ``python -m serve_torch --device cuda pod``, the
+   tpustream broker built from the port's source, the standalone gateway),
+   every process of it with an import system that refuses JAX, the JAX
+   package, PyYAML, aiohttp, click and cryptography (a ``sitecustomize`` on
+   the ``PYTHONPATH`` mini hands its pods, which also cuts llama3-8b to
+   ``V_LAYERS`` and the LM head to printable ASCII, as T1 does in this
+   process). mini-chat with T1's resource, its chat agent on one card
+   (``device-mesh: {tp: 1}``). V1: ``V_WAVE`` = 8 sessions at once over
+   ``user-input`` / ``bot-output``, every record crossing the broker twice
+   between the pods; the gateway TTFT beside T1's, chunks per answer, each
+   streamed answer equal to its answers-topic record. V2: the control
+   plane reports the app and both agents DEPLOYED and reads the pods'
+   health; the chat pod's ``/healthz`` and ``/ready`` 200, its
+   ``/metrics`` carries ``langstream_serving_*``; a profiled wave of 2
+   sessions through the pod's ``/profile/start`` and ``/stop`` counts its
+   kernels in the trace (#1 and #2 must launch, a multiple of
+   ``V_LAYERS`` times). V3: DELETE through the REST API: the StatefulSets
+   and Agent CRs go, both pod processes are reaped, the card's free memory
+   comes back; SIGINT to mini, exit 0, no process left. The deploy's split
+   (setup and deployer Jobs, the Agent CRs DEPLOYED, the chat pod ready)
+   and the delete's seconds are printed;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -395,8 +419,8 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-T,
-   rank 0's on N, O, Q, R and S; each row carries a ``tp2_rank`` entry, phase 2's case
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-V,
+   rank 0's on N, O, Q, R and S, V's the chat pod's in its profiled window; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -416,6 +440,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -6317,7 +6342,8 @@ def phase_launch_path(torch, device="cuda") -> dict:
 #: llama3-8b at full width and ``R_LAYERS`` of its 32 layers, int8 weights
 #: from seed 0: the tp=2 engines (two local ranks sharing the card, started
 #: by the launcher) and the tp=1 references on the same weights
-R_LAYERS = 4   # at 8 the smoke took 1,181 s of its 1,200 (H100 80GB HBM3, 700 W)
+R_LAYERS = 2   # at 8 the smoke took 1,181 s of its 1,200 (H100 80GB HBM3, 700 W); 4 until
+               # path V came (1,018.5 s with R and S at 4)
 R_MESH = {"tp": 2}
 R_BASE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged", "slots": 16,
           "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
@@ -6730,7 +6756,7 @@ def phase_store_mesh_path(torch, device="cuda") -> dict:
 #: S2's serving resource: llama3-8b at full width, int8 weights and int8
 #: paged KV from seed 0, at ``S_LAYERS`` of its 32 layers, over the slice's
 #: four ranks
-S_LAYERS = 4
+S_LAYERS = 2   # 4 until path V came (the smoke 1,018.5 s with R and S at 4)
 S_RESOURCE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged",
               "kv-quantize": "int8", "slots": 8, "max-seq-len": 2048, "decode-chunk": 32,
               "seed": 0, "mesh": {"dp": 2, "tp": 2}}
@@ -7366,6 +7392,7 @@ def phase_app_path(torch, device="cuda") -> dict:
     t2 = t2_cli_process(device)
     print(f"path T [T2 the cli run process, tiny f32]: {json.dumps(t2)}", flush=True)
     counts = {k: t1_counts[k] + t1b_counts[k] for k in t1_counts}
+    NOTES["T1"] = t1
     NOTES["T1b"] = t1b
     print(f"path T: {time.monotonic() - t0:.1f} s; launches {json.dumps(counts)}", flush=True)
     return counts
@@ -7788,6 +7815,602 @@ def phase_control_plane_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path V: the cluster path without JAX
+# ---------------------------------------------------------------------------
+
+V_WAVE = 8             # V1's sessions, one question each, all at once
+V_PROFILED = 2         # V2's profiled sessions (the chat pod's kernel count)
+V_READY_S = 300.0      # what the chat pod's /ready gets to come up (17.6-25.3 s seen)
+V_TIMEOUT = 300.0      # seconds any one frame or wait may take
+V_APP = T_APPS / "mini-chat"
+V_TENANT = "default"
+V_NAME = "mini-chat"
+#: what no process of the cluster may load (each process's import system
+#: refuses them: the sitecustomize below)
+V_REFUSED = T_REFUSED + ("cryptography",)
+#: the chat agent's resource: path T1's (the chat example's), unchanged
+V_RESOURCE = CHAT_EXAMPLE_RESOURCE
+V_LAYERS = MAIN_LAYERS
+#: a ``sitecustomize`` on the ``PYTHONPATH`` that ``mini up`` hands to every
+#: pod (the kubelet passes its environment through): every process of the
+#: cluster refuses the packages of ``V_REFUSED``, and in a pod that builds a
+#: serving engine the model tables serve every model at ``{layers}`` layers
+#: and each engine's LM head keeps only the printable ASCII columns, as
+#: path T1's in-process ``cut_depth`` and ``ascii_head`` do
+_V_SITE = """
+import dataclasses, importlib.abc, importlib.util, sys
+
+REFUSED = {refused!r}
+LAYERS = {layers!r}
+
+
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"import of {{name}} refused")
+        return None
+
+
+class _Engine(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name != "langstream_tpu_torch.serving.engine":
+            return None
+        sys.meta_path.remove(self)
+        spec = importlib.util.find_spec(name)
+        run = spec.loader.exec_module
+
+        def cut(make):
+            return lambda **kw: dataclasses.replace(
+                make(**kw), layers=min(make(**kw).layers, LAYERS))
+
+        def exec_module(module):
+            run(module)
+            for table in (module._MODEL_CONFIGS, module._MOE_MODELS):
+                for key, make in list(table.items()):
+                    table[key] = cut(make)
+            init = module.TorchServingEngine.__init__
+
+            def ascii_init(self, *args, **kwargs):
+                init(self, *args, **kwargs)
+                import torch
+
+                head = self.params["lm_head"]
+                vocab = (head.q if hasattr(head, "q") else head).shape[-1]
+                keep = torch.zeros(vocab, dtype=torch.bool, device=self.device)
+                keep[32:127] = True
+                if hasattr(head, "s"):
+                    head.s[..., ~keep] = 0
+                else:
+                    head[:, ~keep] = 0
+
+            module.TorchServingEngine.__init__ = ascii_init
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+sys.meta_path.insert(0, _Refuse())
+sys.meta_path.insert(0, _Engine())
+"""
+
+
+def _v_app(root: Path) -> Path:
+    """A copy of the mini-chat example whose resource is ``V_RESOURCE`` and
+    whose chat agent asks for one card (``device-mesh: {tp: 1}``), written
+    as JSON (YAML's flow style: the port reads it as it is)."""
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    app = root / "app"
+    app.mkdir(parents=True)
+    (app / "gateways.yaml").write_text((V_APP / "gateways.yaml").read_text())
+    pipeline = safe_load((V_APP / "pipeline.yaml").read_text(), "pipeline.yaml")
+    (chat,) = [a for a in pipeline["pipeline"] if a["type"] == "ai-chat-completions"]
+    chat["resources"] = {"device-mesh": {"tp": 1}}
+    (app / "pipeline.yaml").write_text(json.dumps(pipeline))
+    (app / "configuration.yaml").write_text(json.dumps(
+        {"configuration": {"resources": [V_RESOURCE]}}))
+    return app
+
+
+def _v_pids(under: int) -> dict[int, str]:
+    """Every live process whose parent chain reaches ``under``: pid ->
+    command line (read from ``/proc``)."""
+    parents, cmds = {}, {}
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if fields[0] == "Z":
+            continue
+        parents[int(entry.name)], cmds[int(entry.name)] = int(fields[1]), cmd.strip()
+    out = {}
+    for pid in parents:
+        p, seen = pid, 0
+        while p in parents and seen < 64:
+            p, seen = parents[p], seen + 1
+            if p == under:
+                out[pid] = cmds[pid]
+                break
+    return out
+
+
+def _v_alive(pid: int) -> bool:
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return False
+    return state[state.rindex(")") + 2] != "Z"
+
+
+def _v_compute_apps() -> dict[int, int]:
+    """pid -> MiB on the card, as ``nvidia-smi --query-compute-apps`` lists
+    them (a process in another PID namespace is listed by its host pid)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    apps = {}
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps[int(parts[0])] = int(parts[1]) if parts[1].isdigit() else -1
+    return apps
+
+
+def _v_get(url: str, timeout: float = 30.0) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _v_trace_launches(trace: Path) -> dict:
+    """The kernel wrappers' launches in a ``torch.profiler`` Chrome trace:
+    one kernel a launch (flash: ``flash_fwd_*``; the bf16/f32 decode read:
+    ``paged_decode_split_kernel``, its combine apart; the int8 read:
+    ``paged_decode_split_q8*``; the multi-query read: ``paged_mq_kernel`` or
+    ``paged_mq_wgmma_kernel``)."""
+    counts = {"flash_attention": 0, "paged_attention": 0, "paged_attention_q8": 0,
+              "paged_attention_multiquery": 0}
+    for event in json.loads(trace.read_text()).get("traceEvents", []):
+        if event.get("cat") != "kernel":
+            continue
+        name = event.get("name", "")
+        if "flash_fwd_" in name:
+            counts["flash_attention"] += 1
+        elif "paged_decode_split_q8" in name:
+            counts["paged_attention_q8"] += 1
+        elif "paged_decode_split_kernel" in name:
+            counts["paged_attention"] += 1
+        elif "paged_mq_kernel" in name or "paged_mq_wgmma_kernel" in name:
+            counts["paged_attention_multiquery"] += 1
+    return counts
+
+
+async def _v_wave(gateway: str, label: str, prefix: str, questions: list[str]) -> list:
+    """One session a question over ``user-input`` / ``bot-output``, all at
+    once: each session's (gateway TTFT s, the streamed chunks)."""
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    base = f"{gateway}/v1/%s/{V_TENANT}/{V_NAME}/%s?param:sessionId=%s"
+    sessions = [f"{prefix}-{i}" for i in range(len(questions))]
+    consumers = [await WebSocketClient.connect(base % ("consume", "bot-output", s))
+                 for s in sessions]
+    producers = [await WebSocketClient.connect(base % ("produce", "user-input", s))
+                 for s in sessions]
+
+    async def one(i):
+        t = time.monotonic()
+        await producers[i].send_json({"value": questions[i]})
+        ack = await producers[i].receive_json(V_TIMEOUT)
+        if ack.get("status") != "OK":
+            fail(f"{label}: session {i} produce refused: {ack}")
+        first, chunks = None, []
+        while True:
+            frame = await consumers[i].receive_json(V_TIMEOUT)
+            if first is None:
+                first = time.monotonic() - t
+            headers = frame["record"]["headers"]
+            if headers.get("langstream-client-session-id") != sessions[i]:
+                fail(f"{label}: session {i} got another session's frame: {headers}")
+            chunks.append(frame["record"]["value"])
+            if headers.get("stream-last-message") == "true":
+                return first, chunks
+
+    try:
+        return await asyncio.gather(*(one(i) for i in range(len(questions))))
+    finally:
+        for ws in consumers + producers:
+            await ws.close()
+
+
+async def _v_gateway_ready(gateway: str, label: str) -> None:
+    """Wait until the gateway's registry sync has the app: a consume socket
+    on ``bot-output`` opens (the handshake answers 404 before)."""
+    from langstream_tpu_torch.gateway.wire import HandshakeError, WebSocketClient
+
+    deadline = time.monotonic() + V_TIMEOUT
+    while True:
+        try:
+            ws = await WebSocketClient.connect(
+                f"{gateway}/v1/consume/{V_TENANT}/{V_NAME}/bot-output?param:sessionId=v0")
+        except HandshakeError as e:
+            if time.monotonic() > deadline:
+                fail(f"{label}: the gateway never served the app: {e}")
+            await asyncio.sleep(0.25)
+            continue
+        await ws.close()
+        return
+
+
+async def _v_answers(broker: str, n: int) -> dict:
+    """The answers-topic records, by session, read from the cluster's
+    tsbroker with the port's client."""
+    from langstream_tpu_torch.runtime.tsb import TsbTopicConnectionsRuntime
+
+    runtime = TsbTopicConnectionsRuntime()
+    runtime.init({"bootstrap": broker})
+    reader = runtime.create_reader({"topic": "answers-topic"}, "earliest")
+    await reader.start()
+    out, deadline = {}, time.monotonic() + V_TIMEOUT
+    try:
+        while len(out) < n and time.monotonic() < deadline:
+            for record in await reader.read(timeout=0.5):
+                out[record.header("langstream-client-session-id")] = record
+    finally:
+        await reader.close()
+    return out
+
+
+def phase_mini_path(torch, device="cuda") -> dict:
+    """Path V: the cluster path without JAX. ``python -m
+    langstream_tpu_torch.cli mini up --device <device>`` as a process: the
+    kube API server, the control plane in k8s mode, the operator, the
+    process kubelet (whose pods run the port's pod entrypoint), the
+    tpustream broker and the standalone gateway, no process loading a
+    package of ``V_REFUSED``; the mini-chat app (``_v_app``) deployed into
+    pods. V1: a wave of ``V_WAVE`` sessions through the gateway, every
+    record crossing the broker twice between the pods; V2: the control
+    plane reports the app DEPLOYED and reads the pods' health, the chat
+    pod answers its probes and metrics, and a profiled wave through its
+    ``/profile`` route counts the kernels it launched; V3: a DELETE through
+    the REST API reaps every pod and gives the chat pod's card memory back,
+    then SIGINT stops mini (exit 0, no process left). Returns the chat
+    pod's launches in V2's profiled window."""
+    import shutil
+    import tempfile
+    import threading
+
+    from langstream_tpu_torch.k8s.client import HttpKubeApi
+
+    label = "V: the cluster path (mini up)"
+    t_v = time.monotonic()
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-mini-"))
+    site = root / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        _V_SITE.format(refused=V_REFUSED, layers=V_LAYERS))
+    app = _v_app(root)
+    data = root / "data"
+    env = {**os.environ, "PYTHONUNBUFFERED": "1",
+           "PYTHONPATH": os.pathsep.join(p for p in (str(site), str(REPO),
+                                                     os.environ.get("PYTHONPATH")) if p)}
+    env.pop("LS_ACCELERATOR", None)
+    log_path = root / "mini.log"
+    log_f = open(log_path, "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "langstream_tpu_torch.cli", "mini", "up", "--device", device,
+         "-app", str(app), "--name", V_NAME, "--tenant", V_TENANT, "--data-dir", str(data),
+         "--api-port", "0", "--gateway-port", "0"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=log_f, text=True)
+    lines: list[str] = []
+    marks: dict[str, float] = {}
+    urls: dict[str, str] = {}
+    up = threading.Event()
+
+    def read_out():
+        for line in proc.stdout:
+            lines.append(line)
+            words = line.split()
+            for key, word in (("kube", "kube"), ("broker", "tsbroker"),
+                              ("control", "control"), ("gateway", "gateway")):
+                if key not in urls and word in words[:3]:
+                    urls[key] = words[-1] if key != "gateway" else words[-1].replace(
+                        "ws://", "http://")
+            if "deployed (tenant" in line:
+                marks.setdefault("deployed", time.monotonic())
+            if "agent pod(s) running" in line:
+                marks.setdefault("running", time.monotonic())
+                up.set()
+        up.set()
+
+    def tail() -> str:
+        log_f.flush()
+        return "".join(lines)[-3000:] + "\n--- stderr ---\n" + log_path.read_text(
+            errors="replace")[-6000:]
+
+    reader = threading.Thread(target=read_out, daemon=True)
+    reader.start()
+    jobs: dict[str, float] = {}
+    stop_poll = threading.Event()
+
+    def poll_kube():
+        """When the setup and deployer Jobs succeed and the Agent CRs turn
+        DEPLOYED, read from mini's API server."""
+        while not stop_poll.is_set() and "kube" not in urls:
+            time.sleep(0.05)
+        api = HttpKubeApi(urls.get("kube", "http://127.0.0.1:1"))
+        while not stop_poll.is_set() and proc.poll() is None:
+            try:
+                ns = f"langstream-{V_TENANT}"
+                for job in api.list("Job", ns):
+                    kind = "setup" if "setup" in job["metadata"]["name"] else "deployer"
+                    if (job.get("status") or {}).get("succeeded"):
+                        jobs.setdefault(kind, time.monotonic())
+                agents = api.list("Agent", ns)
+                if agents and all((a.get("status") or {}).get("status") == "DEPLOYED"
+                                  for a in agents):
+                    jobs.setdefault("agents", time.monotonic())
+            except Exception:  # the namespace is not there yet
+                pass
+            time.sleep(0.1)
+
+    poller = threading.Thread(target=poll_kube, daemon=True)
+    poller.start()
+    line: dict = {}
+    try:
+        if not up.wait(V_TIMEOUT) or "running" not in marks:
+            fail(f"{label}: mini did not bring the agent pods up (rc {proc.poll()}):\n"
+                 + tail())
+        t_deployed = marks["deployed"]
+        api = HttpKubeApi(urls["kube"])
+        ns = f"langstream-{V_TENANT}"
+        placed = {}
+        for sts in api.list("StatefulSet", ns):
+            runtime = sts["spec"]["template"]["spec"]["containers"][0]
+            if runtime["command"][:6] != ["python", "-m", "serve_torch", "--device", device,
+                                          "pod"]:
+                fail(f"{label}: {sts['metadata']['name']} does not start the port's pod "
+                     f"on {device}: {runtime['command']}")
+            placed[sts["metadata"]["name"]] = runtime["resources"].get("limits")
+        chat = [n for n, limits in placed.items() if limits == {"nvidia.com/gpu": "1"}]
+        if len(chat) != 1 or len(placed) != 2:
+            fail(f"{label}: want the chat agent's StatefulSet on one card and one "
+                 f"without: {placed}")
+        chat_pod = f"{chat[0]}-0"
+        pod_dir = data / "kubelet" / "pods" / ns / chat_pod
+        pod_url = f"http://127.0.0.1:{(pod_dir / 'http-port').read_text().strip()}"
+        # the engine's build and warmup: the chat pod's /ready turns 200
+        deadline = time.monotonic() + V_READY_S
+        while True:
+            try:
+                status, body = _v_get(pod_url + "/ready", 10)
+            except OSError:
+                status, body = 0, b""
+            if status == 200:
+                break
+            log_f.flush()
+            # a pod that fails (no card, a kernel that does not build or
+            # launch) exits and the kubelet restarts it: fail at once
+            restarted = f"{chat_pod} exited rc=" in log_path.read_text(errors="replace")
+            if time.monotonic() > deadline or proc.poll() is not None or restarted:
+                fail(f"{label}: the chat pod is not ready: {status} {body[:500]!r}\n"
+                     + (pod_dir / "pod.log").read_text(errors="replace")[-4000:])
+            time.sleep(0.25)
+        t_ready = time.monotonic()
+        served_by = sorted(pid for pid, cmd in _v_pids(proc.pid).items()
+                           if "agent-runtime" in cmd and chat_pod in cmd)
+        free_ready = torch.cuda.mem_get_info()[0] if device == "cuda" else 0
+        # the gateway serves the app once its registry sync read it
+        asyncio.run(_v_gateway_ready(urls["gateway"].replace("http://", "ws://"), label))
+
+        # V1: the wave
+        questions = chat_prompts()[:V_WAVE]
+        t = time.monotonic()
+        streams = asyncio.run(_v_wave(urls["gateway"].replace("http://", "ws://"), label,
+                                      "v1", questions))
+        wave_s = time.monotonic() - t
+        answers = asyncio.run(_v_answers(urls["broker"], len(questions)))
+        ttft, n_chunks = [], []
+        for i, (first, chunks) in enumerate(streams):
+            streamed = "".join(chunks)
+            record = answers.get(f"v1-{i}")
+            if record is None:
+                fail(f"{label}: no answers-topic record for session {i}")
+            if not streamed or streamed != record.value["answer"]:
+                fail(f"{label}: session {i}: streamed {streamed!r} != answers-topic "
+                     f"{record.value['answer']!r}")
+            if device == "cuda" and not all(32 <= ord(c) < 127 for c in streamed):
+                # the head cut reached the pod (its sitecustomize ran there)
+                fail(f"{label}: session {i}: {streamed!r} is not printable ASCII")
+            ttft.append(first)
+            n_chunks.append(float(len(chunks)))
+
+        # V2: the control plane in k8s mode, the chat pod's routes
+        app_url = f"{urls['control']}/api/applications/{V_TENANT}/{V_NAME}"
+        status, body = _v_get(app_url)
+        app_status = (json.loads(body).get("status") or {}).get("status")
+        _, agents_body = _v_get(app_url + "/agents")
+        agent_states = [(a.get("status") or {}).get("status")
+                        for a in json.loads(agents_body)]
+        if status != 200 or app_status != "DEPLOYED" or len(agent_states) != 2 or any(
+                s != "DEPLOYED" for s in agent_states):
+            fail(f"{label}: the control plane does not report the app DEPLOYED: "
+                 f"{status} {body[:500]!r} {agents_body[:800]!r}")
+        status, body = _v_get(app_url + "/health")
+        health = json.loads(body)
+        pods = {p.get("pod"): p for p in health.get("pods", [])}
+        if status != 200 or chat_pod not in pods or pods[chat_pod].get("unreachable"):
+            fail(f"{label}: the control plane read no health from {chat_pod}: "
+                 f"{status} {body[:800]!r}")
+        probes = {route: _v_get(pod_url + route)[0] for route in ("/healthz", "/ready")}
+        status, metrics = _v_get(pod_url + "/metrics")
+        if probes != {"/healthz": 200, "/ready": 200} or status != 200 or (
+                b"langstream_serving_" not in metrics):
+            fail(f"{label}: the chat pod's probes {probes}, /metrics {status} "
+                 f"{metrics[:300]!r}")
+        trace_dir = root / "profile"
+        status, body = _v_get(f"{pod_url}/profile/start?dir={trace_dir}")
+        if status != 200 or not any(json.loads(body).values()):
+            fail(f"{label}: /profile/start did not start a capture: {status} {body!r}")
+        t = time.monotonic()
+        asyncio.run(_v_wave(urls["gateway"].replace("http://", "ws://"), label, "v2",
+                            chat_prompts()[-V_PROFILED:]))
+        profiled_s = time.monotonic() - t
+        status, body = _v_get(f"{pod_url}/profile/stop", V_TIMEOUT)
+        traces = sorted(trace_dir.glob("trace-*.json"))
+        if status != 200 or not traces:
+            fail(f"{label}: /profile/stop wrote no trace: {status} {body!r}")
+        counts = _v_trace_launches(traces[-1])
+        if device == "cuda" and (
+                min(counts["flash_attention"], counts["paged_attention"]) == 0
+                or counts["flash_attention"] % V_LAYERS or counts["paged_attention"] % V_LAYERS):
+            # each prefill and decode step launches once a layer: the pod
+            # serves at V_LAYERS layers
+            fail(f"{label}: flash and the bf16 paged read must launch in the chat pod, "
+                 f"a multiple of {V_LAYERS} times: {counts}")
+
+        # V3: DELETE through the REST API
+        before = _v_pids(proc.pid)
+        pod_pids = {pid: cmd for pid, cmd in before.items() if "agent-runtime" in cmd}
+        chat_pids = [pid for pid, cmd in pod_pids.items() if chat_pod in cmd]
+        if len(pod_pids) != 2 or len(chat_pids) != 1:
+            fail(f"{label}: want two agent pods, one of them {chat_pod}: {pod_pids}")
+        if chat_pids != served_by:
+            # the kubelet restarted the chat pod since it turned ready
+            fail(f"{label}: the chat pod's process changed ({served_by} -> {chat_pids}):\n"
+                 + tail() + "\n--- chat pod ---\n"
+                 + (pod_dir / "pod.log").read_text(errors="replace")[-6000:])
+        chat_pid = chat_pids[0]
+        chat_children = len(_v_pids(chat_pid))
+        apps_before = _v_compute_apps() if device == "cuda" else {}
+        free_before = torch.cuda.mem_get_info()[0] if device == "cuda" else 0
+        t = time.monotonic()
+        from langstream_tpu_torch.gateway.wire import http_request
+
+        status, _, _, body = asyncio.run(http_request(
+            "DELETE", f"{urls['control']}/api/applications/{V_TENANT}/{V_NAME}", body=None))
+        if status != 200:
+            fail(f"{label}: DELETE answered {status} {body[:300]!r}")
+        deadline = time.monotonic() + V_TIMEOUT
+        while any(_v_alive(pid) for pid in pod_pids):
+            if time.monotonic() > deadline:
+                fail(f"{label}: pods not reaped after the DELETE: "
+                     f"{[p for p in pod_pids if _v_alive(p)]}")
+            time.sleep(0.1)
+        delete_s = time.monotonic() - t
+        left = api.list("StatefulSet", ns) + api.list("Agent", ns)
+        if left:
+            fail(f"{label}: the DELETE left {[o['metadata']['name'] for o in left]}")
+        # the GPU's kernel module gives a reaped process's memory back on its own time:
+        # wait for it, and say how long it took
+        t = time.monotonic()
+        free_after = free_before
+        while device == "cuda":
+            free_after = torch.cuda.mem_get_info()[0]
+            if free_after - free_before >= 1 << 30 or time.monotonic() - t > 60:
+                break
+            time.sleep(0.2)
+        memory_back_s = time.monotonic() - t
+        apps_after = _v_compute_apps() if device == "cuda" else {}
+        if device == "cuda":
+            if chat_pid in apps_before and chat_pid in apps_after:
+                fail(f"{label}: pid {chat_pid} still holds the card: {apps_after}")
+            if free_after - free_before < 1 << 30:
+                fail(f"{label}: the card's free memory did not come back within 60 s of the "
+                     f"pods' reaping: {free_before} -> {free_after} bytes; compute apps "
+                     f"{apps_before} -> {apps_after}; the chat pod had {chat_children} "
+                     f"child processes\n" + tail() + "\n--- chat pod ---\n"
+                     + (pod_dir / "pod.log").read_text(errors="replace")[-6000:])
+        status, _ = _v_get(f"{urls['control']}/api/applications/{V_TENANT}/{V_NAME}")
+        if status != 404:
+            fail(f"{label}: the deleted app answers {status}")
+
+        # then SIGINT mini: exit 0, nothing left behind
+        children = _v_pids(proc.pid)
+        t = time.monotonic()
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            fail(f"{label}: mini did not stop on SIGINT:\n" + tail())
+        stop_s = time.monotonic() - t
+        reader.join(10)
+        if rc != 0 or "stopped" not in "".join(lines):
+            fail(f"{label}: mini exited {rc}:\n" + tail())
+        alive = [pid for pid in children if _v_alive(pid)]
+        if alive:
+            fail(f"{label}: processes left behind: {[children[p] for p in alive]}")
+        refused = [ln for ln in log_path.read_text(errors="replace").splitlines()
+                   if "refused" in ln and "import of" in ln]
+        for pod_log in (data / "kubelet" / "pods").rglob("pod.log"):
+            refused += [ln for ln in pod_log.read_text(errors="replace").splitlines()
+                        if "import of" in ln and "refused" in ln]
+        if refused:
+            fail(f"{label}: a process of the cluster tried to import a refused package: "
+                 f"{refused[:5]}")
+        t1 = NOTES.get("T1") or {}
+        line = {
+            "sessions": len(questions), "wave_s": round(wave_s, 3),
+            "gateway_ttft_s": _t_stats(ttft),
+            "t1_gateway_ttft_s": t1.get("gateway_ttft_s"),
+            "cluster_minus_t1_ttft_p50_s": (
+                round(_t_stats(ttft)["p50"] - t1["gateway_ttft_s"]["p50"], 4)
+                if t1.get("gateway_ttft_s") else None),
+            "chunks_per_answer": _t_stats(n_chunks),
+            "mini_to_deployed_s": round(t_deployed - t_v, 3),
+            "setup_job_s": round(jobs["setup"] - t_deployed, 3) if "setup" in jobs else None,
+            "deployer_job_s": (round(jobs["deployer"] - t_deployed, 3)
+                               if "deployer" in jobs else None),
+            "agents_deployed_s": (round(jobs["agents"] - t_deployed, 3)
+                                  if "agents" in jobs else None),
+            "chat_pod_ready_s": round(t_ready - t_deployed, 3),
+            "app_status": app_status, "agent_statuses": agent_states,
+            "health": health.get("status"), "probes": probes,
+            "profiled_sessions": V_PROFILED, "profiled_wave_s": round(profiled_s, 3),
+            "chat_pod_launches": counts, "delete_until_reaped_s": round(delete_s, 3),
+            "card_free_gb_at_ready": round(free_ready / 1e9, 3),
+            "card_free_gb_before_after_delete": [round(free_before / 1e9, 3),
+                                                 round(free_after / 1e9, 3)],
+            "card_memory_back_after_reap_s": round(memory_back_s, 3),
+            "chat_pod_children": chat_children,
+            "chat_pod_in_compute_apps": [chat_pid in apps_before, chat_pid in apps_after],
+            "compute_apps_mib_before_after_delete": [sorted(apps_before.values()),
+                                                     sorted(apps_after.values())],
+            "mini_stop_s": round(stop_s, 3), "mini_rc": rc,
+            "processes_reaped": len(children),
+            "modules_refused_and_absent": list(V_REFUSED),
+        }
+    finally:
+        stop_poll.set()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                for pid in _v_pids(proc.pid):
+                    with contextlib.suppress(OSError):
+                        os.kill(pid, signal.SIGKILL)
+                proc.kill()
+                proc.wait()
+        log_f.close()
+        shutil.rmtree(root, ignore_errors=True)
+    line["path_s"] = round(time.monotonic() - t_v, 3)
+    print(f"path V [mini-chat through mini up: llama3-8b int8 {V_LAYERS} layers in its pod, "
+          f"{V_WAVE} sessions through tpustream]: {json.dumps(line)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -7813,14 +8436,36 @@ def main() -> int:
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    import threading
+
+    from langstream_tpu_torch import native
+
+    # the tsbroker (path V's streaming cluster) builds with g++ beside the
+    # kernels' nvcc builds, as a cluster's first start would build it
+    broker: dict = {}
+
+    def build_broker():
+        t = time.monotonic()
+        try:
+            broker["binary"] = native.ensure_broker_binary()
+        except native.NativeBuildError as e:
+            broker["error"] = e
+        broker["s"] = time.monotonic() - t
+
+    broker_thread = threading.Thread(target=build_broker, name="tsbroker-build")
     t0 = time.monotonic()
+    broker_thread.start()
     built = _build.build_all()
     build_s = time.monotonic() - t0
+    broker_thread.join()
+    if "error" in broker:
+        fail(f"the tsbroker did not build: {broker['error']}")
     print(f"built {sorted(built)} in {build_s:.1f} s into {_build.build_dir()}", flush=True)
     # what a pod's first start pays unless its image carries the libraries
     print("first build: " + json.dumps({
         "first_build_s": round(build_s, 3) if built else None, "built": sorted(built),
-        "build_dir": str(_build.build_dir()), "nvidia_smi": smi}), flush=True)
+        "build_dir": str(_build.build_dir()), "tsbroker_build_s": round(broker["s"], 3),
+        "nvidia_smi": smi}), flush=True)
     for line in ptxas_report(built):
         print(line)
 
@@ -8003,9 +8648,13 @@ def main() -> int:
     if min(u_counts["flash_attention"], u_counts["paged_attention"],
            u_counts["paged_attention_q8"]) == 0:
         fail(f"path U did not launch flash and both paged reads: {u_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_v = time.monotonic()
+    v_counts = phase_mini_path(torch)  # the chat pod's, read from its profile
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
                 P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=t_u - t_t,
-                U=time.monotonic() - t_u)
+                U=t_v - t_u, V=time.monotonic() - t_v)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -8020,8 +8669,9 @@ def main() -> int:
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
              "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
-             "T": t_counts, "U": u_counts}
-    meta = {  # launches: summed over the 21 main paths (rank 0's on N, O, Q, R, S)
+             "T": t_counts, "U": u_counts, "V": v_counts}
+    meta = {  # launches: summed over the 22 main paths (rank 0's on N, O, Q, R, S; V's
+        # the chat pod's, in its profiled window)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),
         "paged_attention": ("langstream_tpu_torch/ops/csrc/paged_attention.cu",

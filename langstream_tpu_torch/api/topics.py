@@ -138,15 +138,16 @@ class TopicConnectionsRuntime(abc.ABC):
 
 
 #: the JAX package's transports that the port does not carry yet
-UNPORTED_RUNTIMES = ("kafka", "pulsar", "pravega", "tpustream")
+UNPORTED_RUNTIMES = ("kafka", "pulsar", "pravega")
 
 
 class TopicConnectionsRuntimeRegistry:
     """Maps streaming-cluster ``type`` → runtime factory.
 
     Built-ins are registered by the runtime package on import: the port
-    carries ``memory`` (the first-party broker); the JAX package's other
-    transports (:data:`UNPORTED_RUNTIMES`) are refused by name.
+    carries ``memory`` (the in-process broker) and ``tpustream`` (the native
+    broker); the JAX package's other transports (:data:`UNPORTED_RUNTIMES`)
+    are refused by name.
     """
 
     _factories: dict[str, type[TopicConnectionsRuntime]] = {}

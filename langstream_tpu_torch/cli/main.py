@@ -11,6 +11,7 @@ aiohttp):
     python -m langstream_tpu_torch.cli docs agents [--format markdown|json] [-o FILE]
     python -m langstream_tpu_torch.cli run NAME -app DIR [-i INSTANCE] [-s SECRETS]
         [--api-port P] [--gateway-port G] [--archetypes DIR] [--device cuda|cpu]
+    python -m langstream_tpu_torch.cli mini up [-app DIR] [--device cuda|cpu] [--once] ...
 
 Every command prints what the JAX CLI prints (JSON bodies, the same lines)
 and fails as it does (``Error: <message>`` on stderr, exit 1). The profile
@@ -28,7 +29,9 @@ or SIGTERM, then undeploys, closes the engines and exits 0.
 unless ``--device cpu`` is given; with no card and no ``--device cpu`` the
 command fails (``require_device``), it never falls back to the CPU.
 
-Refused by name until their slice: ``apps ui``, ``python ...`` and ``mini``.
+``mini up`` is the one-command local cluster (:mod:`langstream_tpu_torch.cli.mini`).
+
+Refused by name until their slice: ``apps ui`` and ``python ...``.
 
 :class:`LocalRun` is ``run`` in-process, for callers that drive an
 application themselves (the smoke, the tests).
@@ -626,10 +629,13 @@ def build_parser() -> argparse.ArgumentParser:
     cmd.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     cmd.set_defaults(func=cmd_run)
 
-    for name in ("python", "mini"):
-        cmd = commands.add_parser(name, help=f"not ported yet ({name})")
-        cmd.add_argument("rest", nargs=argparse.REMAINDER)
-        cmd.set_defaults(func=cmd_not_ported)
+    from langstream_tpu_torch.cli import mini
+
+    mini.add_parser(commands)
+
+    cmd = commands.add_parser("python", help="not ported yet (python)")
+    cmd.add_argument("rest", nargs=argparse.REMAINDER)
+    cmd.set_defaults(func=cmd_not_ported)
     return parser
 
 

@@ -5,20 +5,29 @@
 
 Env:
 - ``LS_MODE``: ``local`` (in-process agents — the dev/docker-compose mode;
-  the default here). ``k8s`` (CRs + operator) is refused by name: the
-  port's k8s compute runtime and stores are still to come, and this
-  entrypoint never falls back to another mode.
+  the default here) or ``k8s`` (Application CRs, Agent CRs and Secrets
+  through the kube API, ``HttpKubeApi.in_cluster()``, which the operator
+  reconciles into the port's pods: the port's
+  :class:`~langstream_tpu_torch.k8s.stores.KubernetesApplicationStore` and
+  :class:`~langstream_tpu_torch.k8s.compute.KubernetesComputeRuntime`).
+  Any other mode is refused by name.
 - ``LS_PORT`` (default 8090), ``LS_BIND`` (default ``0.0.0.0``),
-- ``LS_STORE_PATH``: filesystem store dir (the in-memory store without it),
+- ``LS_RUNTIME_IMAGE`` (k8s: the agent pods' image, default the port's
+  runtime image), ``LS_CODE_STORAGE`` (k8s: JSON code-storage config,
+  ``type``/``configuration``),
+- ``LS_STORE_PATH``: filesystem store dir for local mode (the in-memory
+  store without it),
 - ``LS_ARCHETYPES``: archetype templates root for ``/api/archetypes``,
 - ``LS_ADMIN_AUTH``: JSON admin-JWT validator config — enables bearer-token
   auth on every /api route (and thereby the full application view with
   secrets).
 
-``tpu-serving-configuration`` resources serve on ``--device`` (the card
-unless ``--device cpu`` is given; without a card the command fails, it
-never falls back to the CPU). SIGINT or SIGTERM stops it: every
-application is undeployed and the engines closed, exit 0.
+In local mode ``tpu-serving-configuration`` resources serve on
+``--device`` (the card unless ``--device cpu`` is given; without a card the
+command fails, it never falls back to the CPU); in k8s mode the agents
+serve in their pods, on the device the operator gives them, and this
+process needs no card. SIGINT or SIGTERM stops it: in local mode every
+application is undeployed and the engines closed; exit 0.
 """
 
 from __future__ import annotations
@@ -31,12 +40,8 @@ import os
 import signal
 import sys
 
-#: why ``LS_MODE=k8s`` is refused
-K8S_NOT_PORTED = (
-    "LS_MODE=k8s: the control plane's k8s mode (KubernetesApplicationStore, "
-    "KubernetesComputeRuntime) is not ported to langstream_tpu_torch yet; a later "
-    "slice of the port brings it. Use LS_MODE=local."
-)
+#: the modes this entrypoint serves
+MODES = ("local", "k8s")
 
 
 async def main(device: str = "cuda") -> int:
@@ -53,22 +58,38 @@ async def main(device: str = "cuda") -> int:
     )
 
     mode = os.environ.get("LS_MODE", "local")
-    if mode != "local":
-        print(f"error: {K8S_NOT_PORTED}" if mode == "k8s" else
-              f"error: unknown LS_MODE {mode!r}", file=sys.stderr)
+    if mode not in MODES:
+        print(f"error: unknown LS_MODE {mode!r}; known: {', '.join(MODES)}",
+              file=sys.stderr)
         return 2
-    require_device(device, "python -m langstream_tpu_torch.controlplane")
-    services.set_serving_device(device)
     port = int(os.environ.get("LS_PORT", "8090"))
-    path = os.environ.get("LS_STORE_PATH")
-    store = FileSystemApplicationStore(path) if path else InMemoryApplicationStore()
+    if mode == "k8s":
+        from langstream_tpu_torch.k8s.client import HttpKubeApi
+        from langstream_tpu_torch.k8s.cluster_runtime import DEFAULT_IMAGE
+        from langstream_tpu_torch.k8s.compute import KubernetesComputeRuntime
+        from langstream_tpu_torch.k8s.stores import KubernetesApplicationStore
+
+        code_storage = (json.loads(os.environ["LS_CODE_STORAGE"])
+                        if os.environ.get("LS_CODE_STORAGE") else None)
+        api = HttpKubeApi.in_cluster()
+        image = os.environ.get("LS_RUNTIME_IMAGE", DEFAULT_IMAGE)
+        store = KubernetesApplicationStore(api, runtime_image=image,
+                                           code_storage_config=code_storage)
+        compute = KubernetesComputeRuntime(api, image=image,
+                                           code_storage_config=code_storage)
+    else:
+        require_device(device, "python -m langstream_tpu_torch.controlplane")
+        services.set_serving_device(device)
+        path = os.environ.get("LS_STORE_PATH")
+        store = FileSystemApplicationStore(path) if path else InMemoryApplicationStore()
+        compute = LocalComputeRuntime()
     admin_auth = (
         json.loads(os.environ["LS_ADMIN_AUTH"])
         if os.environ.get("LS_ADMIN_AUTH")
         else None
     )
     server = ControlPlaneServer(
-        store=store, compute=LocalComputeRuntime(), port=port,
+        store=store, compute=compute, port=port,
         host=os.environ.get("LS_BIND", "0.0.0.0"),
         archetypes_path=os.environ.get("LS_ARCHETYPES"),
         admin_auth=admin_auth,

@@ -81,6 +81,8 @@ class GatewayRegistry:
     cluster config). Backed by the application store in the control plane,
     or by directly-registered local apps in dev mode."""
 
+    AGENT_SERVICE_PORT = 8790
+
     def __init__(self) -> None:
         self._apps: dict[tuple[str, str], Application] = {}
         self._service_uris: dict[tuple[str, str, str], str] = {}
@@ -213,14 +215,32 @@ class GatewayRegistry:
     def register_service_uri(
         self, tenant: str, app_id: str, agent_id: str, uri: str
     ) -> None:
-        """Dev-mode/in-process agents register where they listen."""
+        """Dev-mode/in-process agents register where they listen; in-cluster
+        the naming-convention fallback below needs no registration."""
         self._service_uris[(tenant, app_id, agent_id)] = uri.rstrip("/")
 
-    def service_uri(self, tenant: str, app_id: str, agent_id: str) -> str | None:
-        """The agent's registered URI, or None. The JAX registry falls back
-        to the agent's in-cluster service name; the port runs no cluster
-        yet, so an agent that registered nothing has no address."""
-        return self._service_uris.get((tenant, app_id, agent_id))
+    def service_uri(self, tenant: str, app_id: str, agent_id: str) -> str:
+        explicit = self._service_uris.get((tenant, app_id, agent_id))
+        if explicit:
+            return explicit
+        # k8s: the agent's headless service lives in the TENANT namespace
+        # (cluster_runtime.tenant_namespace), not the gateway's own — the
+        # qualified name is what resolves from the gateway pod. The port is
+        # the agent's own declared service-port (a headless service resolves
+        # to pod IPs, so the declared Service ports don't constrain it);
+        # AGENT_SERVICE_PORT is only the convention-default.
+        port = self.AGENT_SERVICE_PORT
+        app = self._apps.get((tenant, app_id))
+        if app is not None:
+            for agent in app.all_agents():
+                if agent.id == agent_id:
+                    port = int(
+                        (agent.configuration or {}).get("service-port", port)
+                    )
+                    break
+        name = f"{app_id}-{agent_id}".lower().replace("_", "-")
+        namespace = f"langstream-{tenant}".lower()
+        return f"http://{name}.{namespace}.svc:{port}"
 
     def resolve(
         self, tenant: str, app_id: str, gateway_id: str
@@ -1142,11 +1162,6 @@ class GatewayServer:
         self, request: wire.Request, tenant: str, app_id: str, agent_id: str
     ) -> wire.Response:
         base = self.registry.service_uri(tenant, app_id, agent_id)
-        if base is None:
-            raise wire.HTTPException(
-                502, f"agent {agent_id!r} service unreachable: it registered no "
-                "service URI (only an agent that declares service-port does)"
-            )
         tail = request.match_info.get("tail", "")
         url = f"{base}/{tail}" if tail else base
         if request.query_string:

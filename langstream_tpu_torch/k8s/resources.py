@@ -1,5 +1,7 @@
-"""Agent CR -> StatefulSet(s) + headless Service + PDBs, for the port's pods
-(port of ``AgentResourcesFactory`` in ``langstream_tpu/k8s/resources.py``).
+"""Agent CR -> StatefulSet(s) + headless Service + PDBs, and the setup and
+deployer Jobs of an Application CR, for the port's pods (port of
+``AgentResourcesFactory`` and ``AppResourcesFactory`` in
+``langstream_tpu/k8s/resources.py``).
 
 The manifests are the JAX factory's for the same CR, but for the placement:
 
@@ -18,9 +20,9 @@ The manifests are the JAX factory's for the same CR, but for the placement:
   ``LS_COORDINATOR_ADDRESS`` (through the headless service); each pod takes
   all of its host's cards, so no pod anti-affinity is needed to spread
   them;
-- every pod, with or without a mesh, starts through the port's pod
-  entrypoint, ``python -m serve_torch --device <device> pod ...``
-  (``serve_torch.py`` registers the port, then runs the platform's pod).
+- every pod, with or without a mesh, and every Job starts through the
+  port's pod entrypoint, ``python -m serve_torch --device <device> pod ...``
+  (``serve_torch.py`` hands it to :mod:`langstream_tpu_torch.runtime.pod`).
 
 It works on the Agent CR as the dict the operator receives, and imports
 nothing of JAX or of ``langstream_tpu``: what it needs of the JAX package's
@@ -34,7 +36,7 @@ import hmac
 import os
 from typing import Any, NamedTuple
 
-AGENT_PORT = 8080  # /metrics + /info + /healthz + /ready (the platform's pod)
+AGENT_PORT = 8080  # /metrics + /info + /healthz + /ready (the pod's info server)
 AGENT_SERVICE_PORT = 8790  # custom service agents (gateway agent-proxy target)
 COORDINATOR_PORT = 8476  # the slice's torch.distributed store, on pod 0
 LOCKSTEP_PORT = 7077  # leader->follower step-descriptor channel (serving/lockstep.py)
@@ -344,7 +346,7 @@ class AgentResourcesFactory:
         runtime_mounts = volume_mounts + (
             [{"name": "dshm", "mountPath": "/dev/shm"}] if placement else [])
 
-        # the port's pod entrypoint; the platform pod's subcommand follows
+        # the port's pod entrypoint; the pod's subcommand follows
         entrypoint = ["python", "-m", "serve_torch", "--device", device, "pod"]
         pod_spec: dict[str, Any] = {
             "terminationGracePeriodSeconds": cls.TERMINATION_GRACE_S,
@@ -423,3 +425,72 @@ class AgentResourcesFactory:
                 "volumeClaimTemplates": volume_claim_templates,
             },
         }
+
+
+class AppResourcesFactory:
+    """Setup/deployer Job manifests (the in-cluster halves of deploy; port of
+    the JAX factory's): the same Jobs, each started through the port's pod
+    entrypoint on ``device`` (``python -m serve_torch --device <device> pod
+    application-setup|deployer-runtime ...``)."""
+
+    @staticmethod
+    def _job(name: str, namespace: str, image: str, args: list[str], config_secret: str,
+             labels: dict[str, str], device: str) -> dict[str, Any]:
+        return {
+            "apiVersion": "batch/v1",
+            "kind": "Job",
+            "metadata": {"name": name, "namespace": namespace, "labels": labels},
+            "spec": {
+                "backoffLimit": 6,
+                "template": {
+                    "metadata": {"labels": labels},
+                    "spec": {
+                        "restartPolicy": "OnFailure",
+                        "containers": [
+                            {
+                                "name": "main",
+                                "image": image,
+                                "command": ["python", "-m", "serve_torch", "--device", device,
+                                            "pod"] + args,
+                                "volumeMounts": [
+                                    {"name": "app-config", "mountPath": "/app-config"}],
+                            }
+                        ],
+                        "volumes": [
+                            {"name": "app-config", "secret": {"secretName": config_secret}}],
+                    },
+                },
+            },
+        }
+
+    @classmethod
+    def generate_setup_job(cls, tenant: str, application_id: str, namespace: str, image: str,
+                           config_secret: str, name_suffix: str = "",
+                           device: str = "cuda") -> dict[str, Any]:
+        """Creates the topics (pod command ``application-setup``).
+        ``name_suffix`` ties the Job's identity to the app-config checksum so
+        an updated application re-runs setup."""
+        return cls._job(
+            name=f"langstream-runtime-setup-{application_id}{name_suffix}",
+            namespace=namespace, image=image,
+            args=["application-setup", "setup", "/app-config/config"],
+            config_secret=config_secret,
+            labels={"app": "langstream-tpu-setup", "langstream-application": application_id},
+            device=device,
+        )
+
+    @classmethod
+    def generate_deployer_job(cls, tenant: str, application_id: str, namespace: str,
+                              image: str, config_secret: str, delete: bool = False,
+                              name_suffix: str = "", device: str = "cuda") -> dict[str, Any]:
+        """Plans the app in-cluster and writes/deletes Agent CRs (pod command
+        ``deployer-runtime``)."""
+        action = "delete" if delete else "deploy"
+        return cls._job(
+            name=f"langstream-runtime-deployer-{action}-{application_id}{name_suffix}",
+            namespace=namespace, image=image,
+            args=["deployer-runtime", action, "/app-config/config"],
+            config_secret=config_secret,
+            labels={"app": "langstream-tpu-deployer", "langstream-application": application_id},
+            device=device,
+        )

@@ -5,6 +5,7 @@
     python -m serve_torch [--device cpu|cuda] pod <pod command ...>
     python -m serve_torch [--device cpu|cuda] operator
     python -m serve_torch [--device cpu|cuda] controlplane
+    python -m serve_torch [--device cpu|cuda] mini up [--once] ...
 
 for example, the single-process dev mode on the chat example, and the
 one-command local cluster:
@@ -71,25 +72,27 @@ the port's ``langstream_serving_*`` and ``langstream_stream_*`` series
 under the JAX engine's names, TTFT exemplars included. An engine built
 before :func:`register` keeps the port's own registry.
 
-In the cluster the port's pods are the operator's. :func:`register` points
-the platform operator's ``AgentResourcesFactory`` at the port's
-(:mod:`langstream_tpu_torch.k8s.resources`, :data:`OPERATOR_SEAM`): an
-agent with a device mesh asks for ``nvidia.com/gpu`` cards on an H100 node
-pool, and every agent pod starts as ``python -m serve_torch --device
-<device> pod agent-runtime ...``, which registers the port and runs the
-platform's pod entrypoint (``langstream_tpu.runtime.pod.main``). The
-placement name is ``LS_ACCELERATOR``, one of the port's entries (unset:
-``h100``); any other name, a TPU's among them, is refused. ``python -m
-serve_torch operator`` runs the platform's operator so; under ``mini up``
-the operator and the process kubelet run in this process, so its agent
-pods serve through the port too. ``python -m serve_torch controlplane``
-runs the platform's control plane (``langstream_tpu.controlplane``) after
-:func:`register`: in ``LS_MODE: local`` (the compose stack,
-``deploy/torch/docker-compose.yaml``) its in-process agents serve through
-the port; in ``LS_MODE: k8s`` it writes Agent CRs stamped with
-``LS_RUNTIME_IMAGE``, which the port's operator places. The port's install
-(``deploy/torch/``: manifests, a Helm chart and the compose file) is
-rendered by ``tools/render_deploy_torch.py``.
+The cluster path runs without this seam. The ``pod``, ``operator``,
+``controlplane`` and ``mini`` subcommands go to the port's own modules
+before :func:`register` runs, so they import nothing of JAX:
+``pod`` is :func:`langstream_tpu_torch.runtime.pod.main` (every agent pod
+and Job the port's operator writes starts as ``python -m serve_torch
+--device <device> pod ...``), ``operator`` is
+:func:`langstream_tpu_torch.k8s.operator.main` (placement from
+``LS_ACCELERATOR``, one of the port's entries, ``h100`` when unset; any
+other name, a TPU's among them, is refused before its loop starts),
+``controlplane`` is :mod:`langstream_tpu_torch.controlplane` (``LS_MODE:
+local`` with in-process agents, or ``k8s``: Application and Agent CRs
+stamped with ``LS_RUNTIME_IMAGE``), and ``mini`` is ``python -m
+langstream_tpu_torch.cli mini`` with this launcher's ``--device``. The
+port's install (``deploy/torch/``: manifests, a Helm chart and the compose
+file) is rendered by ``tools/render_deploy_torch.py``.
+
+:func:`register` still points the platform operator's
+``AgentResourcesFactory`` at the port's (:data:`OPERATOR_SEAM`), and the
+JAX pod's slice functions at the port's (:data:`SLICE_SEAM`), for a
+platform operator or pod that a caller runs in a process with both
+packages.
 
 This file is the seam between the two packages, the one that imports both,
 and sits outside ``langstream_tpu_torch`` so that the port itself imports
@@ -101,8 +104,10 @@ run NAME -app DIR [-i INSTANCE] [-s SECRETS] [--gateway-port P] [--device
 cuda|cpu]`` parses, plans and runs an application with the port's own
 runner and gateway, and imports no JAX, PyYAML, aiohttp or click (it runs
 on a card that has none of them; ``chip_smoke.py``'s path T does). What
-still needs this launcher, and so JAX, is its ``pod``, ``operator``,
-``controlplane`` and ``mini`` paths, until their slices of the port come.
+still needs this launcher's :func:`register`, and so JAX, is what the
+port's CLI lacks (``apps ui``, ``python ...``) and an application whose
+agents the port does not carry yet; a pod of such an application refuses
+the agent by name at planning, as ``cli run`` does.
 """
 
 from __future__ import annotations
@@ -347,39 +352,51 @@ def register(device="cuda") -> None:
             setattr(operator, name, _factory_seam(current, device))
 
 
+#: the subcommands the port's own modules serve, with no JAX
+PORT_COMMANDS = ("pod", "operator", "controlplane", "mini")
+
+
+def run_port_command(device: str, argv: list[str]) -> int:
+    """``argv[0]`` of :data:`PORT_COMMANDS` through the port's module, on
+    ``device``; nothing of JAX or the JAX package is imported."""
+    command, rest = argv[0], argv[1:]
+    if command == "pod":
+        from langstream_tpu_torch.runtime import pod
+
+        return pod.main(["--device", device] + rest)
+    if command == "operator":
+        from langstream_tpu_torch.k8s import operator
+
+        operator.main(["--device", device] + rest)
+        return 0
+    if command == "controlplane":
+        import asyncio
+        import logging
+
+        from langstream_tpu_torch.controlplane.__main__ import main as controlplane
+
+        logging.basicConfig(level=logging.INFO)
+        return asyncio.run(controlplane(device))
+    from langstream_tpu_torch.cli.main import main as port_cli
+
+    return port_cli(["mini"] + rest + ([] if "--device" in rest else ["--device", device]))
+
+
 def main(argv: list[str] | None = None) -> None:
-    """Register on ``--device`` (a leading option), then run what the
-    remaining arguments name: ``pod <pod command ...>`` the platform's pod
-    entrypoint, ``operator`` the platform's operator (after checking
-    ``LS_ACCELERATOR``), ``controlplane`` the platform's control plane,
-    anything else the CLI. It exits the process with the command's code."""
+    """Run what the arguments after ``--device`` (a leading option) name:
+    ``pod <pod command ...>``, ``operator``, ``controlplane`` and ``mini
+    ...`` through the port's own modules (:func:`run_port_command`), before
+    anything registers; anything else after :func:`register`, through the
+    platform's CLI. It exits the process with the command's code."""
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     if argv[:1] == ["--device"]:
         if len(argv) < 2:
             raise SystemExit("serve_torch.py: --device needs a value (cpu or cuda)")
         device, argv = argv[1], argv[2:]
+    if argv[:1] and argv[0] in PORT_COMMANDS:
+        raise SystemExit(run_port_command(device, argv))
     register(device)
-    if argv[:1] == ["pod"]:
-        from langstream_tpu.runtime import pod
-
-        raise SystemExit(pod.main(argv[1:]))
-    if argv[:1] == ["operator"]:
-        from langstream_tpu.k8s import operator
-        from langstream_tpu_torch.k8s.resources import accelerator_from_env
-
-        accelerator_from_env()  # a TPU name fails here, before the loop starts
-        operator.main()
-        return
-    if argv[:1] == ["controlplane"]:
-        import asyncio
-        import logging
-
-        from langstream_tpu.controlplane.__main__ import main as controlplane
-
-        logging.basicConfig(level=logging.INFO)
-        asyncio.run(controlplane())
-        return
     from langstream_tpu.cli.main import cli
 
     cli.main(args=argv, prog_name="serve_torch.py")

@@ -5,17 +5,18 @@ the compose stack, and ``serve_torch.py``'s ``controlplane`` subcommand.
 - The committed ``deploy/torch/k8s/`` and ``deploy/torch/helm/langstream-tpu-torch/``
   are byte-equal to a fresh render.
 - In what is rendered, the operator runs ``python -m serve_torch --device
-  cuda operator`` with an ``LS_ACCELERATOR`` the port's
+  cuda operator``, the control plane ``... controlplane`` and the gateway
+  ``python -m langstream_tpu_torch.gateway``, with an ``LS_ACCELERATOR`` the port's
   ``accelerator_from_env`` accepts; every Deployment runs the port image,
   and the control plane stamps it into Agent CRs (``LS_RUNTIME_IMAGE``);
   the namespace, CRDs and RBAC are the platform's, byte for byte; the
   chart's templates stay valid YAML once values are substituted (as
   ``tests/test_k8s.py`` holds the platform's chart).
 - The compose file's control plane runs ``serve_torch ... controlplane``
-  in ``LS_MODE: local`` with one GPU reserved.
-- ``python -m serve_torch controlplane`` registers the port before the
-  platform's control plane starts, so its in-process agents resolve
-  ``tpu-serving-configuration`` to the port's provider.
+  in ``LS_MODE: local`` with one GPU reserved, beside the port's tsbroker
+  and gateway.
+- ``python -m serve_torch controlplane`` runs the port's own control plane
+  on its ``--device``, registering nothing in the platform.
 """
 
 import filecmp
@@ -27,8 +28,6 @@ import pytest
 import yaml
 
 import serve_torch
-from langstream_tpu.k8s import operator as k8s_operator
-from langstream_tpu_torch.agents.provider import TorchServiceProvider
 from langstream_tpu_torch.k8s.resources import accelerator_from_env
 
 REPO = Path(__file__).resolve().parent.parent
@@ -80,6 +79,10 @@ def test_the_manifests_install_the_port(tmp_path, monkeypatch):
     assert {c["image"] for c in containers.values()} == {IMAGE}
     operator = containers["langstream-operator"]
     assert operator["command"] == OPERATOR
+    assert containers["langstream-control-plane"]["command"] == OPERATOR[:-1] + [
+        "controlplane"]
+    assert containers["langstream-api-gateway"]["command"] == [
+        "python", "-m", "langstream_tpu_torch.gateway"]
     monkeypatch.setenv("LS_ACCELERATOR", _env(operator)["LS_ACCELERATOR"])
     assert accelerator_from_env() == "h100"
     control = _env(containers["langstream-control-plane"])
@@ -129,8 +132,8 @@ def test_the_charts_templates_substitute_to_valid_yaml(tmp_path, monkeypatch):
 
 def test_the_compose_stack_runs_the_control_plane_through_the_port():
     """The control plane is ``serve_torch ... controlplane`` in local mode on
-    one reserved GPU; the broker and the gateway are the platform's
-    commands, every service on the port image."""
+    one reserved GPU; the broker is the port's tsbroker and the gateway the
+    port's, every service on the port image."""
     compose = yaml.safe_load((DEPLOY / "docker-compose.yaml").read_text())
     services = compose["services"]
     assert set(services) == {"tsbroker", "control-plane", "api-gateway"}
@@ -141,37 +144,27 @@ def test_the_compose_stack_runs_the_control_plane_through_the_port():
     assert control["environment"]["LS_MODE"] == "local"
     (device,) = control["deploy"]["resources"]["reservations"]["devices"]
     assert device["count"] == 1 and device["capabilities"] == ["gpu"]
-    assert services["api-gateway"]["command"] == ["python", "-m", "langstream_tpu.gateway"]
+    assert services["api-gateway"]["command"] == ["python", "-m", "langstream_tpu_torch.gateway"]
+    assert "langstream_tpu_torch.native import" in services["tsbroker"]["command"]
     assert all(s["image"].endswith(IMAGE + "}") for s in services.values())
 
 
 def test_the_controlplane_subcommand_registers_the_port_first(monkeypatch):
-    """``serve_torch.main([... "controlplane"])`` runs the platform's
-    control plane with the port registered: a ``tpu-serving-configuration``
-    resource resolves to ``TorchServiceProvider`` on the given device."""
+    """``serve_torch.main([... "controlplane"])`` runs the port's own control
+    plane (``langstream_tpu_torch.controlplane``) on the given device, before
+    anything registers: the platform's provider registry is left as it is."""
     from langstream_tpu.agents import services
-    from langstream_tpu.controlplane import __main__ as controlplane
-    from langstream_tpu.runtime import pod
-    from langstream_tpu.serving import engine as jax_engine
-    from langstream_tpu_torch.core import metrics as port_metrics
-    from langstream_tpu_torch.core.tracing import SPANS
-    from langstream_tpu_torch.serving.journey import JOURNEYS
+    from langstream_tpu_torch.controlplane import __main__ as port_controlplane
 
-    for module, names in ((jax_engine, serve_torch.POD_SEAM), (pod, serve_torch.SLICE_SEAM),
-                          (k8s_operator, serve_torch.OPERATOR_SEAM)):
-        for name in names:
-            monkeypatch.setattr(module, name, getattr(module, name))
-    monkeypatch.setattr(services, "_provider_factories", dict(services._provider_factories))
-    monkeypatch.setattr(JOURNEYS, "mirror", JOURNEYS.mirror)
-    monkeypatch.setattr(SPANS, "mirror", SPANS.mirror)
-    monkeypatch.setattr(port_metrics, "REPORTER", port_metrics.REPORTER)
+    before = dict(services._provider_factories)
     seen = []
 
-    async def control_plane():
-        factory = services._provider_factories["tpu-serving-configuration"]
-        seen.append(factory({"model": "tiny"}))
+    async def control_plane(device):
+        seen.append(device)
+        return 0
 
-    monkeypatch.setattr(controlplane, "main", control_plane)
-    serve_torch.main(["--device", "cpu", "controlplane"])
-    (provider,) = seen
-    assert isinstance(provider, TorchServiceProvider) and str(provider.device) == "cpu"
+    monkeypatch.setattr(port_controlplane, "main", control_plane)
+    with pytest.raises(SystemExit) as info:
+        serve_torch.main(["--device", "cpu", "controlplane"])
+    assert info.value.code == 0 and seen == ["cpu"]
+    assert services._provider_factories == before

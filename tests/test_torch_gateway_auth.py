@@ -433,12 +433,14 @@ def test_the_agent_proxy_forwards_methods_tail_query_and_strips_hop_headers():
     assert port[7] == [502, "agent 'my-service' service unreachable"]
 
 
-def test_service_port_agents_register_their_local_uri():
+def test_service_port_agents_register_their_local_uri(monkeypatch):
     """``LocalComputeRuntime.deploy`` registers an agent that declares
     ``service-port`` at ``http://127.0.0.1:<port>`` (the JAX runtime's
-    dev-mode proxy target). Another agent has no address in the port, where
-    the JAX registry names its in-cluster service, so the port's proxy
-    answers 502 naming it without a name lookup."""
+    dev-mode proxy target). Another agent resolves in both packages to its
+    in-cluster service name, ``http://<app>-<agent>.langstream-<tenant>.svc:
+    <service-port or 8790>``; the port's proxy forwards to that name (here
+    to a stand-in for the cluster's DNS that reaches no such host) and
+    answers 502 naming the agent."""
     pipeline = PIPELINE.replace('      text-field: "q"\n',
                                 '      text-field: "q"\n      service-port: 8123\n')
     app_files = {**files(), "pipeline.yaml": pipeline}
@@ -449,8 +451,18 @@ def test_service_port_agents_register_their_local_uri():
 
     out = run_both(app_files, script)
     assert out["port"][0] == out["jax"][0] == "http://127.0.0.1:8123"
-    assert out["jax"][1] == "http://app-other.langstream-t1.svc:8790"
-    assert out["port"][1] is None
+    assert out["port"][1] == out["jax"][1] == "http://app-other.langstream-t1.svc:8790"
+
+    seen = []
+    real = wire.http_request
+
+    async def no_cluster_dns(method, url, *args, **kwargs):
+        if ".svc:" in url:
+            seen.append(url)
+            raise wire.ConnectError(f"cannot connect to {url}")
+        return await real(method, url, *args, **kwargs)
+
+    monkeypatch.setattr(wire, "http_request", no_cluster_dns)
 
     async def unregistered():
         async with deployed("port", app_files) as (base, _):
@@ -458,6 +470,5 @@ def test_service_port_agents_register_their_local_uri():
                 "GET", f"http://{base}/api/gateways/service/t1/app/proxy/x")
 
     status, reason, _, _ = asyncio.run(unregistered())
-    assert (status, reason) == (502, "agent 'my-service' service unreachable: it "
-                                "registered no service URI (only an agent that declares "
-                                "service-port does)")
+    assert (status, reason.split(":")[0]) == (502, "agent 'my-service' service unreachable")
+    assert seen == ["http://app-my-service.langstream-t1.svc:8790/x"]

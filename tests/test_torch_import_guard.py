@@ -4,8 +4,8 @@ module of ``langstream_tpu_torch`` imports; ``python -m
 langstream_tpu_torch.cli run`` serves a copy of the chat-completions
 example at the tiny model on the CPU, answers a question through the port's
 WebSocket client, and exits 0 on SIGINT; and ``python -m
-langstream_tpu_torch.controlplane`` serves its REST API, refuses
-``LS_MODE=k8s`` by name, and exits 0 on SIGINT."""
+langstream_tpu_torch.controlplane`` serves its REST API in ``LS_MODE=k8s``
+and ``local``, refuses an unknown mode by name, and exits 0 on SIGINT."""
 
 import asyncio
 import os
@@ -138,35 +138,52 @@ def test_the_cli_run_serves_the_chat_example_and_stops_on_sigint(tmp_path):
 
 
 def test_the_control_plane_entrypoint_serves_and_refuses_k8s_by_name(tmp_path):
+    """An unknown ``LS_MODE`` is refused by name (exit 2); ``LS_MODE=k8s``
+    serves the REST API over the port's kube store (a tenant PUT writes the
+    JAX store's Namespace and ConfigMap into the API server) and exits 0 on
+    SIGINT; so does ``LS_MODE=local`` over the file-system store."""
+    from langstream_tpu_torch.gateway.wire import http_request
+    from langstream_tpu_torch.k8s.apiserver import FakeKubeApiServer
+    from langstream_tpu_torch.k8s.client import HttpKubeApi
+
     script = _guarded(tmp_path, """
         import runpy
 
         sys.argv = ["langstream_tpu_torch.controlplane", "--device", "cpu"]
         runpy.run_module("langstream_tpu_torch.controlplane", run_name="__main__")
     """)
-    env = dict(_env(), LS_MODE="k8s")
+    env = dict(_env(), LS_MODE="bogus")
     out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
-    assert out.returncode == 2 and "LS_MODE=k8s" in out.stderr and "not ported" in out.stderr
-    port = _free_port()
-    env = dict(_env(), LS_MODE="local", LS_PORT=str(port), LS_BIND="127.0.0.1",
-               LS_STORE_PATH=str(tmp_path / "store"))
-    proc = subprocess.Popen([sys.executable, str(script)], cwd=tmp_path, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    assert out.returncode == 2 and "unknown LS_MODE 'bogus'" in out.stderr
+    kube = FakeKubeApiServer().start()
     try:
-        line = proc.stdout.readline()
-        assert f":{port}" in line, (line, proc.stderr.read() if proc.poll() is not None else "")
-        from langstream_tpu_torch.gateway.wire import http_request
-
-        status, _, _, body = asyncio.run(http_request(
-            "PUT", f"http://127.0.0.1:{port}/api/tenants/t1", body=None))
-        assert status == 200 and b"OK" in body
-        proc.send_signal(signal.SIGINT)
-        out, err = proc.communicate(timeout=60)
+        api = HttpKubeApi(kube.url)
+        api.apply({"apiVersion": "v1", "kind": "Namespace",
+                   "metadata": {"name": "langstream-system"}})
+        for mode, extra in (("k8s", {"LS_KUBE_API_URL": kube.url}),
+                            ("local", {"LS_STORE_PATH": str(tmp_path / "store")})):
+            port = _free_port()
+            env = dict(_env(), LS_MODE=mode, LS_PORT=str(port), LS_BIND="127.0.0.1", **extra)
+            proc = subprocess.Popen([sys.executable, str(script)], cwd=tmp_path, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                line = proc.stdout.readline()
+                assert f":{port}" in line, (line, proc.stderr.read()
+                                            if proc.poll() is not None else "")
+                status, _, _, body = asyncio.run(http_request(
+                    "PUT", f"http://127.0.0.1:{port}/api/tenants/t1", body=None))
+                assert status == 200 and b"OK" in body
+                proc.send_signal(signal.SIGINT)
+                out, err = proc.communicate(timeout=60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            assert proc.returncode == 0, err[-4000:]
+            assert "stopped" in out
+        assert api.get("Namespace", None, "langstream-t1") is not None
+        assert api.get("ConfigMap", "langstream-system", "langstream-tenant-t1") is not None
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    assert proc.returncode == 0, err[-4000:]
-    assert "stopped" in out
+        kube.stop()
     assert (tmp_path / "store" / "tenants" / "t1" / "tenant.json").exists()

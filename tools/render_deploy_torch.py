@@ -7,13 +7,17 @@ with ``--helm``, its Helm chart into ``deploy/torch/helm/langstream-tpu-torch/``
 
 The documents are the platform's (``tools/render_deploy.py``'s
 ``render_documents``: the namespace, the CRDs, the RBAC, the control plane
-and the API gateway, unchanged) with only what makes the install the
-port's:
+and the API gateway) with only what makes the install the port's, so that
+no process of it imports JAX:
 
-- the operator runs ``python -m serve_torch --device cuda operator``, so
-  its Agent CRs become the port's StatefulSets on H100 node pools
-  (``langstream_tpu_torch/k8s/resources.py``), each pod started as
-  ``python -m serve_torch --device cuda pod ...``;
+- the operator runs ``python -m serve_torch --device cuda operator`` (the
+  port's operator), so its Agent CRs become the port's StatefulSets on H100
+  node pools (``langstream_tpu_torch/k8s/resources.py``), each pod and Job
+  started as ``python -m serve_torch --device cuda pod ...``;
+- the control plane runs ``python -m serve_torch --device cuda
+  controlplane`` (the port's, in the platform's ``LS_MODE: k8s``; it serves
+  no model, so its pod needs no card), the API gateway ``python -m
+  langstream_tpu_torch.gateway``;
 - ``LS_ACCELERATOR`` is the port's default placement, ``h100``
   (``DEFAULT_ACCELERATOR``; any entry of ``GPU_TOPOLOGIES`` is accepted);
 - every Deployment runs the port's image, and the control plane stamps it
@@ -46,18 +50,21 @@ HELM_OUT = REPO / "deploy" / "torch" / "helm" / "langstream-tpu-torch"
 
 IMAGE = "langstream-tpu/runtime-torch:latest"
 OPERATOR_COMMAND = ["python", "-m", "serve_torch", "--device", "cuda", "operator"]
+CONTROL_PLANE_COMMAND = ["python", "-m", "serve_torch", "--device", "cuda", "controlplane"]
+GATEWAY_COMMAND = ["python", "-m", "langstream_tpu_torch.gateway"]
+COMMANDS = {"langstream-operator": OPERATOR_COMMAND,
+            "langstream-control-plane": CONTROL_PLANE_COMMAND,
+            "langstream-api-gateway": GATEWAY_COMMAND}
 CHART_VERSION = platform.CHART_VERSION
 
 
 def _ported(doc: dict) -> dict:
-    """A platform document with the port's image, operator command and
-    placement."""
+    """A platform document with the port's image, commands and placement."""
     if doc.get("kind") != "Deployment":
         return doc
     container = doc["spec"]["template"]["spec"]["containers"][0]
     container["image"] = IMAGE
-    if doc["metadata"]["name"] == "langstream-operator":
-        container["command"] = list(OPERATOR_COMMAND)
+    container["command"] = list(COMMANDS[doc["metadata"]["name"]])
     for var in container["env"]:
         if var["name"] == "LS_RUNTIME_IMAGE":
             var["value"] = IMAGE
