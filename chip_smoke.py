@@ -393,6 +393,26 @@ Phases (every one unguarded: any failure exits non-zero):
    comes back; SIGINT to mini, exit 0, no process left. The deploy's split
    (setup and deployer Jobs, the Agent CRs DEPLOYED, the chat pod ready)
    and the delete's seconds are printed;
+   main path W (after V): the chat app served over Kafka without JAX. The
+   port's fake broker (``tests/torch_fake_kafka.py``, loaded by path: no
+   Kafka broker runs on the machine) in a thread of this process, SASL
+   SCRAM-SHA-256 required; an instance file copying
+   ``examples/instances/kafka.yaml`` with the broker's address, the SASL
+   properties and ``client: wire``; mini-chat with T1's resource (at
+   ``W_LAYERS`` = ``MAIN_LAYERS``, the LM head to printable ASCII) served by
+   ``cli.main.LocalRun`` on the card. W1: ``W_WAVE`` = 8 sessions through
+   the port's gateway over WebSocket, the gateway TTFT beside T1's, chunks
+   per answer, every streamed chunk equal to its stream-topic record and
+   the joined chunks to the answers-topic record, both read back from the
+   broker's own log, printable ASCII. W2: from the broker's state: every
+   declared topic with its partitions, each agent group's committed offset
+   at its input topic's end, no dead-letter record, SaslHandshake and
+   SaslAuthenticate first on every connection and no failed
+   authentication, every (API, version) the broker saw one that the client
+   declares. W3: the run stopped and a second ``LocalRun`` started over
+   the same broker and instance (its start timed); 2 more questions each
+   answered once, no W1 question consumed again. Kernels #1 and #2 must
+   launch;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -419,7 +439,7 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-V,
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-W,
    rank 0's on N, O, Q, R and S, V's the chat pod's in its profiled window; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
@@ -7077,8 +7097,8 @@ T2_RESOURCE = {"model": "tiny", "model-dtype": "float32", "slots": 4, "max-seq-l
                "warmup-on-start": True}
 
 
-def _t_leaks() -> list[str]:
-    return sorted(m for m in sys.modules if m.split(".")[0] in T_REFUSED)
+def _t_leaks(refused=T_REFUSED) -> list[str]:
+    return sorted(m for m in sys.modules if m.split(".")[0] in refused)
 
 
 def _t_stats(values: list[float]) -> dict:
@@ -8411,6 +8431,345 @@ def phase_mini_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path W: the chat app served over Kafka without JAX
+# ---------------------------------------------------------------------------
+
+W_WAVE = 8             # W1's sessions, one question each, all at once
+#: W3's questions to the second run (none of W1's)
+W3_PROMPTS = ("What does a consumer group commit?", "Name the color of a clear sky.")
+W_TIMEOUT = 300.0      # seconds any one frame or wait may take
+W_APP = T_APPS / "mini-chat"
+W_INSTANCE = REPO / "examples" / "instances" / "kafka.yaml"
+W_FAKE = REPO / "tests" / "torch_fake_kafka.py"
+#: the broker's one SCRAM-SHA-256 user
+W_USER = ("langstream-w", "w-scram-secret")
+#: what this process may not load while path W serves (T's, and the
+#: client libraries the Kafka selector would take with ``client: auto``)
+W_REFUSED = T_REFUSED + ("cryptography", "confluent_kafka", "pulsar", "pravega_client")
+#: the chat agent's resource: path T1's (the chat example's), unchanged
+W_RESOURCE = CHAT_EXAMPLE_RESOURCE
+W_LAYERS = MAIN_LAYERS
+SESSION = "langstream-client-session-id"
+
+
+def _w_fake():
+    """``tests/torch_fake_kafka.py`` as a module, loaded by its path (the
+    card's machine has no JAX, so ``tests/fake_kafka.py`` cannot serve)."""
+    import importlib.util
+
+    if not W_FAKE.exists():
+        fail(f"W: the port's fake Kafka broker {W_FAKE} is not in the checkout")
+    if "torch_fake_kafka" in sys.modules:
+        return sys.modules["torch_fake_kafka"]
+    spec = importlib.util.spec_from_file_location("torch_fake_kafka", W_FAKE)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module  # its dataclasses look their module up
+    spec.loader.exec_module(module)
+    return module
+
+
+def _w_files(root: Path, port: int) -> tuple[Path, Path]:
+    """(a copy of mini-chat with ``W_RESOURCE``, an instance file copying
+    ``examples/instances/kafka.yaml`` with the broker's address, SASL
+    SCRAM-SHA-256 and ``client: wire``), written as JSON (YAML's flow
+    style: the port reads it as it is)."""
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    app = root / "app"
+    app.mkdir(parents=True)
+    for name in ("gateways.yaml", "pipeline.yaml"):
+        (app / name).write_text((W_APP / name).read_text())
+    (app / "configuration.yaml").write_text(json.dumps(
+        {"configuration": {"resources": [W_RESOURCE]}}))
+    instance = safe_load(W_INSTANCE.read_text(), str(W_INSTANCE))
+    configuration = instance["instance"]["streamingCluster"]["configuration"]
+    user, password = W_USER
+    configuration["admin"].update({
+        "bootstrap.servers": f"127.0.0.1:{port}",
+        "security.protocol": "SASL_PLAINTEXT",
+        "sasl.mechanism": "SCRAM-SHA-256",
+        "sasl.jaas.config": ("org.apache.kafka.common.security.scram.ScramLoginModule "
+                             f'required username="{user}" password="{password}";'),
+    })
+    configuration["client"] = "wire"
+    path = root / "instance.yaml"
+    path.write_text(json.dumps(instance))
+    return app, path
+
+
+def _w_log(broker, topic: str) -> list[dict]:
+    """A topic's records as the broker stored them, decoded here: value
+    (JSON when its kind header says so), headers as text, offset."""
+    out = []
+    for partition, part in sorted(broker.topics.get(topic, {}).items()):
+        for rec in part.records:
+            headers = {k: (v.decode("utf-8") if v is not None else None)
+                       for k, v in rec.headers}
+            value = rec.value.decode("utf-8") if rec.value is not None else None
+            if headers.get("__ls_vkind") == "json":
+                value = json.loads(value)
+            out.append({"partition": partition, "offset": rec.offset, "value": value,
+                        "headers": headers})
+    return out
+
+
+def _w_printable(text: str) -> bool:
+    return all(32 <= ord(c) < 127 for c in text)
+
+
+async def _w_ask(run, sessions: list[str], questions: list[str]) -> list[tuple]:
+    """One question per session at once through the gateway's produce and
+    consume sockets: [(gateway TTFT s, [chunks])]."""
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    consumers = [await WebSocketClient.connect(run.url("consume", "bot-output", sessionId=s))
+                 for s in sessions]
+    producers = [await WebSocketClient.connect(run.url("produce", "user-input", sessionId=s))
+                 for s in sessions]
+
+    async def one(i):
+        t = time.monotonic()
+        await producers[i].send_json({"value": questions[i]})
+        ack = await producers[i].receive_json(W_TIMEOUT)
+        if ack.get("status") != "OK":
+            fail(f"W: session {sessions[i]} produce refused: {ack}")
+        first, chunks = None, []
+        while True:
+            frame = await consumers[i].receive_json(W_TIMEOUT)
+            if first is None:
+                first = time.monotonic() - t
+            headers = frame["record"]["headers"]
+            if headers.get(SESSION) != sessions[i]:
+                fail(f"W: session {sessions[i]} got another session's frame: {headers}")
+            chunks.append(frame["record"]["value"])
+            if headers.get("stream-last-message") == "true":
+                return first, chunks
+
+    try:
+        return await asyncio.gather(*(one(i) for i in range(len(sessions))))
+    finally:
+        for ws in consumers + producers:
+            await ws.close()
+
+
+def _w_check_answers(label, broker, sessions, streams) -> list[float]:
+    """Each session's streamed chunks against the broker's own log: equal
+    to its stream-topic records in stream-index order, joined equal to its
+    one answers-topic record, printable ASCII. Returns the engine TTFTs (s)
+    the answers carry."""
+    answers = {}
+    for rec in _w_log(broker, "answers-topic"):
+        session = rec["headers"].get(SESSION)
+        if session in answers:
+            fail(f"{label}: session {session} answered twice on answers-topic")
+        answers[session] = rec
+    stream_log = {}
+    for rec in _w_log(broker, "stream-topic"):
+        stream_log.setdefault(rec["headers"].get(SESSION), []).append(
+            (int(rec["headers"]["stream-index"]), rec["value"]))
+    engine_ttft = []
+    for session, (_, chunks) in zip(sessions, streams):
+        logged = [v for _, v in sorted(stream_log.get(session, []))]
+        if chunks != logged:
+            fail(f"{label}: session {session}: streamed {chunks!r} != stream-topic "
+                 f"records {logged!r}")
+        record = answers.get(session)
+        if record is None:
+            fail(f"{label}: no answers-topic record for session {session}")
+        answer = record["value"]["answer"]
+        if not answer or "".join(chunks) != answer or not _w_printable(answer):
+            fail(f"{label}: session {session}: chunks {chunks!r} do not join to the "
+                 f"printable answers-topic answer {answer!r}")
+        engine_ttft.append(float(record["headers"]["langstream-ttft-ms"]) / 1e3)
+    return engine_ttft
+
+
+def _w_state(label, broker, plan, wire) -> dict:
+    """W2: the broker's own state after a wave (see :func:`phase_kafka_path`)."""
+    declared = {t.name: max(1, int(t.partitions or 1)) for t in plan.logical_topics()}
+    for name, partitions in declared.items():
+        if len(broker.topics.get(name, {})) != partitions:
+            fail(f"{label}: topic {name} has partitions {sorted(broker.topics.get(name, {}))}, "
+                 f"declared {partitions}")
+    inputs = {node.input.topic for node in plan.agents.values() if node.input is not None}
+    committed = {}
+    for (group, topic, partition), offset in broker.offsets.items():
+        committed.setdefault((group, topic), {})[partition] = offset
+    for topic in inputs:
+        ends = {p: part.log_end for p, part in broker.topics[topic].items()}
+        groups = {g: offs for (g, t), offs in committed.items() if t == topic}
+        if not groups or any(offs != ends for offs in groups.values()):
+            fail(f"{label}: input topic {topic} ends at {ends}; the groups committed {groups}")
+    dead = {t: sum(len(p.records) for p in parts.values())
+            for t, parts in broker.topics.items() if t.endswith("-deadletter")}
+    if any(dead.values()):
+        fail(f"{label}: records on dead-letter topics: {dead}")
+    sasl = {wire.API_SASL_HANDSHAKE, wire.API_SASL_AUTHENTICATE}
+    for seen in broker.connections:
+        keys = [k for k, _ in seen]
+        n_sasl = next((i for i, k in enumerate(keys) if k not in sasl), len(keys))
+        if keys and (n_sasl < 2 or sasl & set(keys[n_sasl:])):
+            fail(f"{label}: a connection's requests do not open with SASL: {keys[:8]}")
+    if broker.auth_failures:
+        fail(f"{label}: {broker.auth_failures} failed authentications")
+    undeclared = set(broker.requests) - set(wire.API_VERSIONS_SPOKEN.items())
+    if undeclared:
+        fail(f"{label}: the broker saw (api, version) the client does not declare: "
+             f"{sorted(undeclared)}")
+    return {"topics": {t: len(broker.topics[t]) for t in declared},
+            "groups": {f"{g}@{t}": offs for (g, t), offs in sorted(committed.items())},
+            "deadletter_records": sum(dead.values()),
+            "connections": len(broker.connections), "requests": len(broker.requests),
+            "apis_seen": sorted(set(broker.requests)), "auth_failures": broker.auth_failures}
+
+
+def _w_all_closed(label, broker, wait_s: float = 5.0) -> None:
+    """A stopped run leaves no connection to the broker open: the runners,
+    the gateway's sessions and the setup all closed their clients."""
+    t = time.monotonic()
+    while broker.open_connections and time.monotonic() - t < wait_s:
+        time.sleep(0.05)
+    if broker.open_connections:
+        fail(f"{label}: connections left open after the run stopped, their first "
+             f"requests: {[seen[:4] for seen in broker.open_connections]}")
+
+
+def phase_kafka_path(torch, device="cuda") -> dict:
+    """Path W: the mini-chat app over Kafka through the port's own runner,
+    gateway and wire client (``client: wire``, SASL SCRAM-SHA-256) against
+    the port's fake broker, on the card: W1 a wave of ``W_WAVE`` sessions
+    through the gateway, W2 the broker's state, W3 a second run over the
+    same broker resuming from the committed offsets. Returns W1's and W3's
+    launches."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.runtime import kafka_wire as wire
+
+    label = "W: mini-chat over Kafka"
+    t_w = time.monotonic()
+    fake = _w_fake()
+    broker = fake.FakeKafkaBroker(sasl={"SCRAM-SHA-256": W_USER}).start()
+    if not broker.port:
+        fail(f"{label}: the fake broker did not start")
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-w-"))
+    app, instance = _w_files(root, broker.port)
+    questions = chat_prompts()[:W_WAVE]
+    sessions = [f"w1-{i}" for i in range(W_WAVE)]
+    w3_questions = list(W3_PROMPTS)
+    w3_sessions = [f"w3-{i}" for i in range(len(w3_questions))]
+    cfg = {"type": W_RESOURCE["type"], "name": W_RESOURCE["name"],
+           **W_RESOURCE["configuration"]}
+
+    async def serve(sessions, questions):
+        out = {}
+        t0 = time.monotonic()
+        run = LocalRun("mini-chat", app, instance, device=device, gateway_port=0)
+        await run.start()
+        out["start_s"] = time.monotonic() - t0
+        try:
+            engine = TorchServiceProvider(cfg, device=device).get_completions_service({}).engine
+            if engine._warmup_task is None:
+                fail(f"{label}: the provider's engine is not the one the app's start warmed")
+            out["warmup"] = engine.stats()["warmup"]
+            ascii_head(engine)  # after the warmup: the answers need text
+            out["plan"] = run.runner.plan
+            t = time.monotonic()
+            out["streams"] = await _w_ask(run, sessions, questions)
+            out["wave_s"] = time.monotonic() - t
+            # the answers-topic record lands after the last stream chunk
+            t = time.monotonic()
+            while sum(r["headers"].get(SESSION) in sessions
+                      for r in _w_log(broker, "answers-topic")) < len(sessions):
+                if time.monotonic() - t > W_TIMEOUT:
+                    fail(f"{label}: the answers-topic records did not land")
+                await asyncio.sleep(0.05)
+            # ... and the groups commit after their writes are acknowledged
+            t = time.monotonic()
+            while True:
+                ends = {p: part.log_end
+                        for p, part in broker.topics["questions-topic"].items()}
+                done = [offs for (g, tp, p), offs in broker.offsets.items()
+                        if tp == "questions-topic" and offs == ends.get(p)]
+                if len(done) >= len(ends):
+                    break
+                if time.monotonic() - t > 30:
+                    break  # W2 reports what the groups committed
+                await asyncio.sleep(0.05)
+            out["counts"] = read_counts()
+            out["leaks"] = _t_leaks(W_REFUSED)
+        finally:
+            t = time.monotonic()
+            await run.stop()
+            out["stop_s"] = time.monotonic() - t
+        return out
+
+    try:
+        with cut_depth(W_RESOURCE["configuration"]["model"], W_LAYERS):
+            reset_counts()
+            w1 = asyncio.run(serve(sessions, questions))
+            if w1["leaks"]:
+                fail(f"{label}: the run loaded {w1['leaks']}")
+            if w1["warmup"]["state"] != "done":
+                fail(f"{label}: warmup-on-start did not warm the engine inside the start: "
+                     f"{w1['warmup']}")
+            engine_ttft = _w_check_answers("W1", broker, sessions, w1["streams"])
+            w2 = _w_state("W2", broker, w1["plan"], wire)
+            _w_all_closed("W2", broker)
+            before = {rec["offset"] for rec in _w_log(broker, "questions-topic")}
+            committed_w1 = dict(broker.offsets)
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_counts()
+            w3 = asyncio.run(serve(w3_sessions, w3_questions))
+        _w_check_answers("W3", broker, w3_sessions, w3["streams"])
+        answered = [r["headers"].get(SESSION) for r in _w_log(broker, "answers-topic")]
+        if sorted(answered) != sorted(sessions + w3_sessions):
+            fail(f"W3: the answers topic holds sessions {sorted(answered)}: a W1 question "
+                 "was consumed again or a W3 question was not answered once")
+        w3_state = _w_state("W3", broker, w3["plan"], wire)
+        _w_all_closed("W3", broker)
+        resumed = {k: v for k, v in committed_w1.items() if k[1] == "questions-topic"}
+        if not resumed or len(before) != W_WAVE:
+            fail(f"W3: W1 committed {resumed} over {len(before)} questions")
+    finally:
+        broker.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    t1 = NOTES.get("T1") or {}
+    counts = {k: w1["counts"][k] + w3["counts"][k] for k in w1["counts"]}
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    gateway_ttft = [first for first, _ in w1["streams"]]
+    line = {
+        "sessions": W_WAVE, "start_s": round(w1["start_s"], 3),
+        "warmup_s": round(w1["warmup"]["seconds"], 3), "wave_s": round(w1["wave_s"], 3),
+        "gateway_ttft_s": _t_stats(gateway_ttft),
+        "t1_gateway_ttft_s": t1.get("gateway_ttft_s"),
+        "engine_ttft_s": _t_stats(engine_ttft),
+        "gateway_minus_engine_ttft_s": _t_stats(
+            [g - e for g, e in zip(gateway_ttft, engine_ttft)]),
+        "chunks_per_answer": _t_stats([float(len(c)) for _, c in w1["streams"]]),
+        "stop_s": round(w1["stop_s"], 3), "launches": w1["counts"],
+        "modules_refused_and_absent": list(W_REFUSED)}
+    w3_line = {"questions": len(w3_questions), "second_start_s": round(w3["start_s"], 3),
+               "wave_s": round(w3["wave_s"], 3),
+               "gateway_ttft_s": _t_stats([first for first, _ in w3["streams"]]),
+               "answers_topic_sessions": len(answered), "redelivered": 0,
+               "groups": w3_state["groups"], "launches": w3["counts"]}
+    print(f"path W [W1 mini-chat over Kafka (wire client, SASL SCRAM-SHA-256), llama3-8b "
+          f"int8 {W_LAYERS} layers, {W_WAVE} sessions over user-input/bot-output]: "
+          f"{json.dumps(line)}", flush=True)
+    print(f"path W [W2 the broker's state, every connection closed at the stop]: "
+          f"{json.dumps(w2)}", flush=True)
+    print(f"path W [W3 a second run over the same broker]: {json.dumps(w3_line)}",
+          flush=True)
+    print(f"path W: {time.monotonic() - t_w:.1f} s; launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -8652,9 +9011,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_v = time.monotonic()
     v_counts = phase_mini_path(torch)  # the chat pod's, read from its profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_w = time.monotonic()
+    w_counts = phase_kafka_path(torch)
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
                 P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=t_u - t_t,
-                U=t_v - t_u, V=time.monotonic() - t_v)
+                U=t_v - t_u, V=t_w - t_v, W=time.monotonic() - t_w)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -8669,8 +9032,8 @@ def main() -> int:
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
              "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
-             "T": t_counts, "U": u_counts, "V": v_counts}
-    meta = {  # launches: summed over the 22 main paths (rank 0's on N, O, Q, R, S; V's
+             "T": t_counts, "U": u_counts, "V": v_counts, "W": w_counts}
+    meta = {  # launches: summed over the 23 main paths (rank 0's on N, O, Q, R, S; V's
         # the chat pod's, in its profiled window)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),

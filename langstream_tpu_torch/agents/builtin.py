@@ -1,5 +1,7 @@
 """Registration of every agent type the port carries (the port's copy of
-``langstream_tpu/agents/builtin.py``, for the types ported so far).
+``langstream_tpu/agents/builtin.py``, for the types ported so far), with
+the JAX package's component types (``_METADATA``) so the planner fuses
+sources, sinks and services as the JAX planner does.
 
 The planner refuses any other type by name
 (:mod:`langstream_tpu_torch.core.planner`), so an application that needs
@@ -13,9 +15,12 @@ from langstream_tpu_torch.api.agent import ComponentType
 from langstream_tpu_torch.api.registry import AgentCodeProvider, AgentCodeRegistry
 from langstream_tpu_torch.core.planner import register_agent_type
 
-from langstream_tpu_torch.agents import ai, text
+from langstream_tpu_torch.agents import ai, connect, python_custom, text
 
+SOURCE = ComponentType.SOURCE
 PROCESSOR = ComponentType.PROCESSOR
+SINK = ComponentType.SINK
+SERVICE = ComponentType.SERVICE
 
 _FACTORIES = {
     # AI
@@ -26,9 +31,36 @@ _FACTORIES = {
     "text-splitter": text.TextSplitterAgent,
     "language-detector": text.LanguageDetectorAgent,
     "document-to-json": text.DocumentToJsonAgent,
+    # Kafka-Connect-style bridge (reference: KafkaConnectCodeProvider.java:26)
+    "sink": connect.ConnectSinkBridge,
+    "source": connect.ConnectSourceBridge,
+    # custom python, in-process (the gRPC types are not ported yet)
+    "python-processor": python_custom.PythonProcessorAgent,
+    "python-function": python_custom.PythonProcessorAgent,
+    "experimental-python-processor": python_custom.PythonProcessorAgent,
+    "python-source": python_custom.PythonSourceAgent,
+    "experimental-python-source": python_custom.PythonSourceAgent,
+    "python-sink": python_custom.PythonSinkAgent,
+    "experimental-python-sink": python_custom.PythonSinkAgent,
+    "python-service": python_custom.PythonServiceAgent,
+    "experimental-python-service": python_custom.PythonServiceAgent,
+}
+
+#: component type and composability of the types that are not composable
+#: processors (the JAX ``_METADATA``'s entries for the ported types)
+_METADATA = {
+    "python-source": (SOURCE, True),
+    "experimental-python-source": (SOURCE, True),
+    "python-sink": (SINK, True),
+    "experimental-python-sink": (SINK, True),
+    "python-service": (SERVICE, False),
+    "experimental-python-service": (SERVICE, False),
+    "source": (SOURCE, True),
+    "sink": (SINK, True),
 }
 
 AgentCodeRegistry.register_provider(AgentCodeProvider(dict(_FACTORIES)))
 
 for name in _FACTORIES:
-    register_agent_type(name, PROCESSOR, True)
+    component_type, composable = _METADATA.get(name, (PROCESSOR, True))
+    register_agent_type(name, component_type, composable)

@@ -137,17 +137,17 @@ class TopicConnectionsRuntime(abc.ABC):
     async def close(self) -> None: ...
 
 
-#: the JAX package's transports that the port does not carry yet
-UNPORTED_RUNTIMES = ("kafka", "pulsar", "pravega")
+#: the transports that register only when their client library imports,
+#: with that library (named when such a transport is asked for without it)
+CLIENT_LIBRARIES = {"pulsar": "pulsar", "pravega": "pravega_client"}
 
 
 class TopicConnectionsRuntimeRegistry:
     """Maps streaming-cluster ``type`` → runtime factory.
 
-    Built-ins are registered by the runtime package on import: the port
-    carries ``memory`` (the in-process broker) and ``tpustream`` (the native
-    broker); the JAX package's other transports (:data:`UNPORTED_RUNTIMES`)
-    are refused by name.
+    Built-ins are registered by the runtime package on import: ``memory``,
+    ``tpustream`` and ``kafka`` always, ``pulsar`` and ``pravega`` when
+    their client libraries import (:data:`CLIENT_LIBRARIES`).
     """
 
     _factories: dict[str, type[TopicConnectionsRuntime]] = {}
@@ -163,13 +163,14 @@ class TopicConnectionsRuntimeRegistry:
             # Built-in runtimes self-register on package import.
             import langstream_tpu_torch.runtime  # noqa: F401
 
-        if type_name in UNPORTED_RUNTIMES:
-            raise ValueError(
-                f"streaming cluster type {type_name!r} is not ported to "
-                f"langstream_tpu_torch yet; a later slice of the port brings it "
-                f"(ported: {sorted(cls._factories)})"
-            )
         if type_name not in cls._factories:
+            library = CLIENT_LIBRARIES.get(type_name)
+            if library is not None:
+                raise ValueError(
+                    f"streaming cluster type {type_name!r} needs the {library!r} "
+                    f"client library, which is not installed "
+                    f"(known: {sorted(cls._factories)})"
+                )
             raise ValueError(
                 f"no TopicConnectionsRuntime for type {type_name!r}; "
                 f"known: {sorted(cls._factories)}"

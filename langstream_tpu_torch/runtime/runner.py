@@ -215,6 +215,10 @@ class AgentRunner:
             self._routing_base = ""
             self._routing_ordinal = replica
         self._reroute_producer: TopicProducer | None = None
+        # the producers agents asked the context for (``stream-to-topic``):
+        # closed at stop, so no socket of a network transport outlives the
+        # runner (the JAX runner leaves them open)
+        self._context_producers: list[Any] = []
         self.records_rerouted = 0
         # per-record trace spans, opened at read and closed when the record
         # reaches a terminal state (written / committed / dead-lettered);
@@ -397,7 +401,14 @@ class AgentRunner:
                     self._started = True
                 await self._producer.write(record)
 
-        return _Handle(producer)
+            async def close(self) -> None:
+                if self._started:
+                    self._started = False
+                    await self._producer.close()
+
+        handle = _Handle(producer)
+        self._context_producers.append(handle)
+        return handle
 
     def _on_critical_failure(self, error: Exception) -> None:
         log.error("agent %s critical failure: %s", self.agent_id, error)
@@ -646,6 +657,8 @@ class AgentRunner:
             await self.deadletter_producer.close()
         if self._reroute_producer is not None:
             await self._reroute_producer.close()
+        for handle in self._context_producers:
+            await handle.close()
         await self.topics_runtime.close()
         self._running = False
         if self._fatal is not None:

@@ -359,7 +359,11 @@ def test_docs_agents_documents_the_port_s_agents_as_the_jax_cli_does(tmp_path):
     jax = jax_docs()
     assert rc == 0 and set(port) == {"ai-chat-completions", "ai-text-completions",
                                      "compute-ai-embeddings", "document-to-json",
-                                     "language-detector", "text-splitter"}
+                                     "language-detector", "text-splitter", "sink", "source",
+                                     *(f"{prefix}python-{kind}"
+                                       for prefix in ("", "experimental-")
+                                       for kind in ("processor", "source", "sink", "service")),
+                                     "python-function"}
     assert all(port[t] == jax[t] for t in port)
     rc, stdout, _ = cli.run("port", ["docs", "agents", "-o", str(tmp_path / "a.md")])
     assert rc == 0 and stdout.strip() == f"wrote {tmp_path / 'a.md'}"

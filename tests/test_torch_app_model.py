@@ -27,7 +27,10 @@ INSTANCE = REPO / "examples" / "instances" / "memory.yaml"
 SECRETS = REPO / "examples" / "secrets" / "secrets.yaml"
 EXAMPLES = sorted(p.name for p in APPS.iterdir() if p.is_dir())
 PLANNED = ["chat-completions", "chatbot-gateway", "compute-embeddings", "embeddings-fanout-dp",
-           "mini-chat", "moe-mixtral-ep", "react-chatbot-ui", "text-completions", "llama-70b-tp"]
+           "mini-chat", "moe-mixtral-ep", "react-chatbot-ui", "text-completions", "llama-70b-tp",
+           # the in-process custom Python agents and the Connect bridges
+           "kafka-connect", "langchain-document-loader", "langchain-style-chat",
+           "llamaindex-style-sink", "python-agents", "service-agent-proxy"]
 
 
 def _parse_both(name):
@@ -73,7 +76,7 @@ def test_chat_example_fuses_into_one_composite_node():
 
 
 UNPORTED = [("flow-dispatch", "dispatch"), ("rag-pipeline", "query-vector-db"),
-            ("python-agents", "python-processor"), ("timer-heartbeat", "timer-source"),
+            ("http-enrichment", "http-request"), ("timer-heartbeat", "timer-source"),
             ("long-context-summarizer", "text-extractor")]
 
 
@@ -88,11 +91,20 @@ def test_an_unported_agent_type_is_refused_at_planning(name, agent_type):
     assert "later slice of the port" in str(info.value)
 
 
-def test_unported_transport_and_assets_are_refused():
+def test_unported_transport_and_assets_are_refused(monkeypatch):
+    """``kafka`` resolves to the selector; ``pulsar`` without its client is
+    refused naming the library; an unknown type is refused by name."""
     from langstream_tpu_torch.api.topics import TopicConnectionsRuntimeRegistry
+    from langstream_tpu_torch.runtime.kafka_wire_runtime import (
+        KafkaTopicConnectionsRuntimeSelector,
+    )
 
-    with pytest.raises(ValueError, match="'kafka' is not ported"):
-        TopicConnectionsRuntimeRegistry.get_runtime({"type": "kafka"})
+    kafka = TopicConnectionsRuntimeRegistry.get_runtime(
+        {"type": "kafka", "configuration": {"client": "wire"}})
+    assert isinstance(kafka, KafkaTopicConnectionsRuntimeSelector)
+    monkeypatch.delitem(TopicConnectionsRuntimeRegistry._factories, "pulsar", raising=False)
+    with pytest.raises(ValueError, match="'pulsar' needs the 'pulsar' client library"):
+        TopicConnectionsRuntimeRegistry.get_runtime({"type": "pulsar"})
     with pytest.raises(ValueError, match="no TopicConnectionsRuntime for type 'nope'"):
         TopicConnectionsRuntimeRegistry.get_runtime({"type": "nope"})
 

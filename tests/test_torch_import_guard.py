@@ -1,6 +1,10 @@
 """The port runs without JAX, the JAX package, PyYAML, aiohttp, click and
 cryptography: in a subprocess whose import system refuses them, every
-module of ``langstream_tpu_torch`` imports; ``python -m
+module of ``langstream_tpu_torch`` imports, and none of the client and
+codec libraries the transports load only when used (``LAZY``) is loaded;
+the chat app served over Kafka (``chip_smoke.py``'s path W at the tiny
+model on the CPU) loads none of them either, nor ``confluent_kafka``,
+``pulsar`` or ``pravega_client`` when they are refused; ``python -m
 langstream_tpu_torch.cli run`` serves a copy of the chat-completions
 example at the tiny model on the CPU, answers a question through the port's
 WebSocket client, and exits 0 on SIGINT; and ``python -m
@@ -22,6 +26,13 @@ from langstream_tpu_torch.gateway.wire import WebSocketClient
 
 REPO = Path(__file__).resolve().parents[1]
 REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click", "cryptography")
+#: imported by the transports only when a client is built or a batch in
+#: their codec arrives
+LAZY = ("confluent_kafka", "pulsar", "pravega_client", "zstandard", "snappy", "lz4")
+
+def guard(refused=REFUSED) -> str:
+    return GUARD.replace(repr(REFUSED), repr(tuple(refused)), 1)
+
 
 GUARD = textwrap.dedent(f"""
     import importlib.abc
@@ -41,9 +52,9 @@ GUARD = textwrap.dedent(f"""
 """)
 
 
-def _guarded(tmp_path: Path, body: str) -> Path:
+def _guarded(tmp_path: Path, body: str, refused=REFUSED) -> Path:
     script = tmp_path / "guarded.py"
-    script.write_text(GUARD + textwrap.dedent(body))
+    script.write_text(guard(refused) + textwrap.dedent(body))
     return script
 
 
@@ -68,12 +79,40 @@ def test_every_module_of_the_port_imports_without_them(tmp_path):
             importlib.import_module(name)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
         assert not leaked, leaked
+        lazy = sorted(m for m in sys.modules if m.split(".")[0] in {LAZY!r})
+        assert not lazy, lazy
         print("imported", len(names))
     """)
     out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-4000:]
     assert int(out.stdout.split()[-1]) > 80
+
+
+def test_the_chat_app_over_kafka_loads_none_of_them(tmp_path):
+    """``chip_smoke.py``'s path W in a guarded process, the model table
+    serving llama3-8b at the tiny model: the broker, SASL, W1's wave
+    through the gateway, W2's broker state and W3's resume, with the
+    client libraries refused too (``client: wire`` must never reach for
+    them)."""
+    script = _guarded(tmp_path, f"""
+        sys.path.insert(0, {str(REPO)!r})
+        import torch
+
+        import chip_smoke
+        from langstream_tpu_torch.serving import engine
+
+        engine._MODEL_CONFIGS["llama3-8b"] = engine._MODEL_CONFIGS["tiny"]
+        counts = chip_smoke.phase_kafka_path(torch, device="cpu")
+        leaked = sorted(m for m in sys.modules
+                        if m.split(".")[0] in REFUSED + {LAZY!r})
+        assert not leaked, leaked
+        print("served", len(counts), "kernels counted")
+    """, refused=REFUSED + ("confluent_kafka", "pulsar", "pravega_client"))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-4000:])
+    assert "path W [W3" in out.stdout and "served 4 kernels counted" in out.stdout
 
 
 def _free_port():

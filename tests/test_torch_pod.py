@@ -163,8 +163,15 @@ async def _routes(pkg, engine, monkeypatch):
 
 
 def test_the_info_servers_routes_answer_as_the_jax_pods(monkeypatch):
+    import langstream_tpu.core.tracing as jax_tracing
+    import langstream_tpu_torch.core.tracing as port_tracing
+
     monkeypatch.setattr(TpuServingEngine, "_instances", {})
     monkeypatch.setattr(TorchServingEngine, "_instances", {})
+    # each package's span ring is the process's: start both empty, so spans
+    # that other tests' runners left in one of them are not compared
+    for tracing in (jax_tracing, port_tracing):
+        monkeypatch.setattr(tracing, "SPANS", tracing.SpanBuffer(maxlen=1024))
 
     async def jax_side():
         engine = TpuServingEngine.get_or_create(JaxServingConfig.from_dict(TINY))
