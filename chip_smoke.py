@@ -413,6 +413,26 @@ Phases (every one unguarded: any failure exits non-zero):
    the same broker and instance (its start timed); 2 more questions each
    answered once, no W1 question consumed again. Kernels #1 and #2 must
    launch;
+   main path X (after W): the retrieval path without JAX, at ``X_LAYERS``
+   = ``MAIN_LAYERS``, the LM heads to printable ASCII, each app on a memory
+   broker cluster of its own. X1: an ingestion app (``text-splitter`` →
+   ``document-to-json`` → ``compute-ai-embeddings`` (minilm-l6) →
+   ``vector-db-sink``) run by ``cli.main.LocalRun`` takes ``X_DOCS`` = 512
+   seeded documents of about 2,000 characters into the ``vector-db``
+   in-memory store (seconds and chunks per second printed); then a copy of
+   ``examples/applications/rag-pipeline`` unchanged, with chat-completions'
+   gateways, answers ``X_WAVE`` = 8 questions through the port's gateway:
+   the gateway TTFT beside T1's, the engine's TTFT, chunks per answer;
+   each answer's ``related`` ids equal a plain numpy top-20 over the
+   store's own rows (ties within 1e-6), its ``context`` is 5 of them, its
+   joined stream chunks equal its answers-topic record; the multi-query
+   kernel must launch if speculation ran verify steps. X2: a copy of
+   ``chatbot-rag-memory`` with its SQLite file in a temporary directory,
+   whose ``history`` table the ``jdbc-table`` asset creates, over its
+   ``/v1/chat`` gateway: ``X_SESSIONS`` = 4 sessions of two turns, each
+   second turn's history holding its first, the table's 8 rows equal to
+   the streamed answers, the app's own engine completing exactly those 8
+   turns. Kernels #1 and #2 must launch;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -439,7 +459,7 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-W,
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-X,
    rank 0's on N, O, Q, R and S, V's the chat pod's in its profiled window; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
@@ -8770,6 +8790,413 @@ def phase_kafka_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path X: the retrieval path without JAX
+# ---------------------------------------------------------------------------
+
+X_DOCS = 512           # X1's ingested documents
+X_DOC_CHARS = 2000     # characters per document, about
+X_CHUNK = 300          # text-splitter chunk-size: rag-pipeline's 5 chunks and its
+                       # template stay under the 2,048-token context
+X_WAVE = 8             # X1's questions through the gateway, all at once
+X_SESSIONS = 4         # X2's sessions, two turns each
+X_TIMEOUT = 300.0      # seconds any one frame or wait may take
+X_TIE = 1e-6           # a related id may swap with another within this similarity
+X_LAYERS = MAIN_LAYERS
+#: what this process may not load while path X serves
+X_REFUSED = T_REFUSED + ("cryptography", "psycopg")
+#: the ingestion app: documents split, embedded by the rag-pipeline
+#: resource's encoder (minilm-l6) and written into its ``vector-db``
+X_INGEST_PIPELINE = """
+topics:
+  - name: "documents-topic"
+    creation-mode: create-if-not-exists
+pipeline:
+  - name: "split"
+    type: "text-splitter"
+    input: "documents-topic"
+    configuration:
+      chunk-size: %(chunk)d
+      chunk-overlap: %(overlap)d
+  - name: "to-json"
+    type: "document-to-json"
+    configuration:
+      text-field: "text"
+  - name: "embed"
+    type: "compute-ai-embeddings"
+    configuration:
+      model: "minilm-l6"
+      embeddings-field: "value.embeddings"
+      text: "{{ value.text }}"
+      batch-size: 64
+      flush-interval: 20
+  - name: "write"
+    type: "vector-db-sink"
+    configuration:
+      datasource: "vector-db"
+      collection-name: "docs"
+      fields:
+        - name: "id"
+          expression: "fn:concat(key, '-', properties.chunk_id)"
+        - name: "vector"
+          expression: "value.embeddings"
+        - name: "text"
+          expression: "value.text"
+"""
+X_SYLLABLES = ("ka ro mi tu se la vo ne pi da fe gu ho ji lu ma no pa qui re si ta "
+               "ve wo xa yo ze").split()
+
+
+def x_corpus(seed: int = 0):
+    """``X_DOCS`` documents of about ``X_DOC_CHARS`` printable characters
+    from a seed: sentences of words drawn from a 600-word vocabulary of
+    syllables, and ``X_WAVE`` questions, each six words of one document."""
+    import numpy as np
+
+    n, chars = X_DOCS, X_DOC_CHARS
+    rng = np.random.default_rng(seed)
+    vocab = sorted({"".join(rng.choice(X_SYLLABLES, int(rng.integers(2, 4))))
+                    for _ in range(900)})[:600]
+    docs = []
+    for i in range(n):
+        words, size = [], 0
+        while size < chars:
+            sentence = " ".join(rng.choice(vocab, int(rng.integers(6, 14))))
+            words.append(sentence.capitalize() + ".")
+            size += len(sentence) + 2
+        docs.append((f"doc{i:04d}", " ".join(words)))
+    picks = rng.choice(n, X_WAVE, replace=n < X_WAVE)
+    questions = [f"What about {' '.join(docs[int(d)][1].split()[3:9]).rstrip('.')}?"
+                 for d in picks]
+    return docs, questions
+
+
+def _x_files(root: Path) -> dict[str, Path]:
+    """The apps in ``root``: the ingestion app and copies of rag-pipeline
+    (and chat-completions' gateways over its topics) and
+    chatbot-rag-memory (its SQLite file in ``root``), each with
+    ``examples/instances/memory.yaml`` on a broker cluster of its own (a
+    memory topic serves only the first event loop that used it, and path T
+    used these topic names)."""
+    import shutil
+
+    instance = root / "instance.yaml"
+    instance.write_text(T_INSTANCE.read_text().replace(
+        'type: "memory"', 'type: "memory"\n    configuration: {cluster: "chip-smoke-x"}', 1))
+    ingest, rag, memory = root / "ingest", root / "rag-pipeline", root / "chatbot-rag-memory"
+    for d in (ingest, rag, memory):
+        d.mkdir()
+    (ingest / "pipeline.yaml").write_text(
+        X_INGEST_PIPELINE % {"chunk": X_CHUNK, "overlap": X_CHUNK // 10})
+    shutil.copy(T_APPS / "rag-pipeline" / "configuration.yaml", ingest / "configuration.yaml")
+    for name in ("pipeline.yaml", "configuration.yaml"):
+        shutil.copy(T_APPS / "rag-pipeline" / name, rag / name)
+    shutil.copy(T_APPS / "chat-completions" / "gateways.yaml", rag / "gateways.yaml")
+    db = root / "chat-history.db"
+    for name in ("pipeline.yaml", "configuration.yaml", "gateways.yaml"):
+        text = (T_APPS / "chatbot-rag-memory" / name).read_text()
+        (memory / name).write_text(text.replace("/tmp/chat-history.db", str(db)))
+    return {"instance": instance, "ingest": ingest, "rag": rag, "memory": memory, "db": db}
+
+
+def _x_engine(app: Path, device: str):
+    """The app's llama3-8b engine (one per resource), its LM head cut to
+    printable ASCII."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    config = app / "configuration.yaml"
+    resource = next(r for r in safe_load(config.read_text(), str(config))["configuration"][
+        "resources"] if r["type"] == "tpu-serving-configuration")
+    cfg = {"type": resource["type"], "name": resource["name"], **resource["configuration"]}
+    engine = TorchServiceProvider(cfg, device=device).get_completions_service({}).engine
+    ascii_head(engine)
+    return engine
+
+
+def _x_check_related(label: str, value: dict, ids: list, vectors) -> None:
+    """``related`` against a plain numpy top-20 over the store's rows: at
+    each rank the similarity numpy ranks there, and each id's own numpy
+    similarity, within ``X_TIE`` (so ties may swap); ``context`` 5 of them."""
+    import numpy as np
+
+    q = np.asarray(value["question_embeddings"], np.float32)
+    sims = vectors @ (q / (float(np.linalg.norm(q)) or 1.0))
+    top = np.sort(sims)[::-1][:20]
+    own = dict(zip(ids, sims.tolist()))
+    related = [(r["id"], r["similarity"]) for r in value["related"]]
+    if len(related) != len(top) or len({i for i, _ in related}) != len(related):
+        fail(f"{label}: related holds {len(related)} ids, numpy's top-20 {len(top)}")
+    for rank, (item, similarity) in enumerate(related):
+        if abs(similarity - float(top[rank])) > X_TIE or abs(own[item] - similarity) > X_TIE:
+            fail(f"{label}: related[{rank}] {item} at {similarity} (its row: {own[item]}), "
+                 f"numpy's rank {rank} at {float(top[rank])}")
+    context = [c["id"] for c in value["context"]]
+    if len(context) != 5 or not set(context) <= {i for i, _ in related}:
+        fail(f"{label}: context {context} is not 5 of the related ids")
+
+
+def x1_rag(torch, files: dict, device="cuda") -> tuple[dict, dict]:
+    """X1: the ingestion app, then ``rag-pipeline`` through the port's
+    gateway. Returns (the path's line, the launches of both runs)."""
+    from langstream_tpu_torch.agents import text as port_text
+    from langstream_tpu_torch.agents.vector import InMemoryVectorStore
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    import numpy as np
+
+    label = "X1: ingestion, then rag-pipeline through the port's run and gateway"
+    docs, questions = x_corpus()
+    sessions = [f"x1-{i}" for i in range(len(questions))]
+    splitter = port_text.RecursiveCharacterTextSplitter(chunk_size=X_CHUNK,
+                                                        chunk_overlap=X_CHUNK // 10)
+    n_chunks = sum(len(splitter.split_text(text)) for _, text in docs)
+
+    async def drive():
+        out = {}
+        run = LocalRun("ingest", files["ingest"], files["instance"], device=device,
+                       gateway_port=0)
+        await run.start()
+        try:
+            coll = InMemoryVectorStore.get("vector-db").collection("docs")
+            t = time.monotonic()
+            for key, text in docs:
+                await run.runner.produce("documents-topic", text, key=key)
+            while len(coll.ids) < n_chunks:
+                if time.monotonic() - t > X_TIMEOUT:
+                    fail(f"{label}: {len(coll.ids)} of {n_chunks} chunks stored")
+                await asyncio.sleep(0.02)
+            out["ingest_s"] = time.monotonic() - t
+        finally:
+            await run.stop()
+        t0 = time.monotonic()
+        run = LocalRun("rag-pipeline", files["rag"], files["instance"], device=device,
+                       gateway_port=0)
+        await run.start()
+        out["start_s"] = time.monotonic() - t0
+        try:
+            engine = _x_engine(files["rag"], device)
+            completed = engine.stats()["completed"]
+            consumers = [await WebSocketClient.connect(run.url("consume", "bot-output",
+                                                               sessionId=s))
+                         for s in sessions]
+            producers = [await WebSocketClient.connect(run.url("produce", "user-input",
+                                                               sessionId=s))
+                         for s in sessions]
+
+            async def one(i):
+                t = time.monotonic()
+                await producers[i].send_json({"value": questions[i]})
+                ack = await producers[i].receive_json(X_TIMEOUT)
+                if ack.get("status") != "OK":
+                    fail(f"{label}: session {i} produce refused: {ack}")
+                first, chunks = None, []
+                while True:
+                    frame = await consumers[i].receive_json(X_TIMEOUT)
+                    if first is None:
+                        first = time.monotonic() - t
+                    headers = frame["record"]["headers"]
+                    if headers.get(SESSION) != sessions[i]:
+                        fail(f"{label}: session {i} got another session's frame: {headers}")
+                    chunks.append(frame["record"]["value"])
+                    if headers.get("stream-last-message") == "true":
+                        return first, chunks
+
+            t = time.monotonic()
+            out["streams"] = await asyncio.gather(*(one(i) for i in range(len(questions))))
+            out["wave_s"] = time.monotonic() - t
+            answers = await run.runner.wait_for_messages("answers-topic", len(questions),
+                                                         timeout=X_TIMEOUT)
+            out["answers"] = {a.header(SESSION): a for a in answers}
+            for ws in consumers + producers:
+                await ws.close()
+            out["counts"] = read_counts()
+            out["leaks"] = _t_leaks(X_REFUSED)
+            if engine.stats()["completed"] - completed != len(questions):
+                fail(f"{label}: the agent's requests did not run on the resource's engine")
+            out["stats"] = engine.stats()
+        finally:
+            await run.stop()
+        return out
+
+    out = asyncio.run(drive())
+    if out["leaks"]:
+        fail(f"{label}: the port's run loaded {out['leaks']}")
+    coll = InMemoryVectorStore.get("vector-db").collection("docs")
+    ids, vectors = list(coll.ids), np.stack(coll.vectors)
+    if len(ids) != n_chunks or not np.isfinite(vectors).all():
+        fail(f"{label}: the store holds {len(ids)} rows of {n_chunks}, or a vector not finite")
+    gateway_ttft, engine_ttft, n_chunks_answer, prompt_chars = [], [], [], []
+    for i, (first, chunks) in enumerate(out["streams"]):
+        record = out["answers"].get(sessions[i])
+        if record is None:
+            fail(f"{label}: no answers-topic record for session {i}")
+        value = record.value
+        streamed = "".join(chunks)
+        if not streamed or streamed != value["answer"]:
+            fail(f"{label}: session {i}: streamed {streamed!r} != answers-topic "
+                 f"{value['answer']!r}")
+        _x_check_related(f"{label}: session {i}", value, ids, vectors)
+        gateway_ttft.append(first)
+        engine_ttft.append(float(record.header("langstream-ttft-ms")) / 1e3)
+        n_chunks_answer.append(len(chunks))
+        prompt_chars.append(sum(len(c["text"]) for c in value["context"]))
+    counts, stats = out["counts"], out["stats"]
+    sp = stats["speculative"]
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    if device == "cuda" and sp["steps"] and counts["paged_attention_multiquery"] == 0:
+        fail(f"{label}: {sp['steps']} verify steps ran without the multi-query kernel")
+    t1 = NOTES.get("T1") or {}
+    line = {"documents": len(docs), "chunks": len(ids), "ingest_s": round(out["ingest_s"], 3),
+            "chunks_per_s": round(len(ids) / out["ingest_s"], 1),
+            "sessions": len(questions), "start_s": round(out["start_s"], 3),
+            "wave_s": round(out["wave_s"], 3), "gateway_ttft_s": _t_stats(gateway_ttft),
+            "t1_gateway_ttft_s": t1.get("gateway_ttft_s"),
+            "engine_ttft_s": _t_stats(engine_ttft),
+            "gateway_minus_engine_ttft_s": _t_stats(
+                [g - e for g, e in zip(gateway_ttft, engine_ttft)]),
+            "chunks_per_answer": _t_stats([float(n) for n in n_chunks_answer]),
+            "context_chars": _t_stats([float(n) for n in prompt_chars]),
+            "speculative": {k: sp.get(k) for k in ("steps", "drafts_accepted", "rejected",
+                                                   "uplift", "flips")},
+            "related_equal_numpy_top20": True, "launches": counts,
+            "modules_refused_and_absent": list(X_REFUSED)}
+    return line, counts
+
+
+def x2_memory(torch, files: dict, device="cuda") -> tuple[dict, dict]:
+    """X2: ``chatbot-rag-memory`` over its ``chat`` gateway, ``X_SESSIONS``
+    sessions of two turns on one socket each (the sessions at once)."""
+    import sqlite3
+
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    label = "X2: chatbot-rag-memory through the port's chat gateway"
+    _, questions = x_corpus()
+    sessions = [f"x2-{i}" for i in range(X_SESSIONS)]
+    turns = [(questions[i % len(questions)], f"And what else of {questions[i][11:-1]}?")
+             for i in range(X_SESSIONS)]
+    if files["db"].exists():
+        fail(f"{label}: {files['db']} exists before the app is deployed")
+
+    async def drive():
+        out = {}
+        t0 = time.monotonic()
+        run = LocalRun("chatbot-rag-memory", files["memory"], files["instance"], device=device,
+                       gateway_port=0)
+        await run.start()
+        out["start_s"] = time.monotonic() - t0
+        try:
+            out["tables"] = sqlite3.connect(files["db"]).execute(
+                "SELECT name FROM sqlite_master WHERE type='table'").fetchall()
+            engine = _x_engine(files["memory"], device)
+            completed = engine.stats()["completed"]
+
+            async def one(i):
+                ws = await WebSocketClient.connect(run.url("chat", "chat", sessionId=sessions[i]))
+                got = []
+                for question in turns[i]:
+                    t = time.monotonic()
+                    await ws.send_json({"value": question})
+                    ack = await ws.receive_json(X_TIMEOUT)
+                    if ack.get("status") != "OK":
+                        fail(f"{label}: session {i} refused: {ack}")
+                    first, chunks = None, []
+                    while True:
+                        frame = await ws.receive_json(X_TIMEOUT)
+                        value = frame["record"]["value"]
+                        if isinstance(value, dict):  # save-turn's record
+                            got.append((first, chunks, value))
+                            break
+                        if first is None:
+                            first = time.monotonic() - t
+                        chunks.append(value)
+                await ws.close()
+                return got
+
+            t = time.monotonic()
+            out["chats"] = await asyncio.gather(*(one(i) for i in range(X_SESSIONS)))
+            out["wave_s"] = time.monotonic() - t
+            out["counts"] = read_counts()
+            out["leaks"] = _t_leaks(X_REFUSED)
+            if engine.stats()["completed"] - completed != 2 * X_SESSIONS:
+                fail(f"{label}: the agent's requests did not run on the resource's engine")
+        finally:
+            await run.stop()
+        return out
+
+    out = asyncio.run(drive())
+    if out["leaks"]:
+        fail(f"{label}: the port's run loaded {out['leaks']}")
+    if out["tables"] != [("history",)]:
+        fail(f"{label}: the jdbc-table asset made {out['tables']}, not the history table")
+    rows = sqlite3.connect(files["db"]).execute(
+        "SELECT session_id, question, answer FROM history").fetchall()
+    streamed = set()
+    for i, chat in enumerate(out["chats"]):
+        for (first, chunks, value), question in zip(chat, turns[i]):
+            joined = "".join(chunks)
+            if not joined or joined != value["answer"] or value["question"] != question:
+                fail(f"{label}: session {i}: chunks {chunks!r} do not join to "
+                     f"{value['answer']!r} for {question!r}")
+            if value["inserted"] != {"count": 1}:
+                fail(f"{label}: session {i}: the turn was not saved: {value['inserted']}")
+            streamed.add((sessions[i], question, joined))
+        first_turn = {"question": turns[i][0], "answer": chat[0][2]["answer"]}
+        if first_turn not in chat[1][2]["history"]:
+            fail(f"{label}: session {i}'s second turn read history {chat[1][2]['history']}, "
+                 f"without its first turn")
+    if len(rows) != 2 * X_SESSIONS or set(rows) != streamed:
+        fail(f"{label}: the history table holds {len(rows)} rows unlike the streamed answers")
+    counts = out["counts"]
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    line = {"sessions": X_SESSIONS, "turns": 2 * X_SESSIONS, "start_s": round(out["start_s"], 3),
+            "wave_s": round(out["wave_s"], 3),
+            "gateway_ttft_s": _t_stats([t[0] for chat in out["chats"] for t in chat]),
+            "history_rows": len(rows), "launches": counts}
+    return line, counts
+
+
+def phase_retrieval_path(torch, device="cuda") -> dict:
+    """Path X: the retrieval path without JAX (:func:`x1_rag`,
+    :func:`x2_memory`) at ``X_LAYERS``. Returns both runs' launches."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.agents.jdbc import JdbcDataSource
+    from langstream_tpu_torch.agents.vector import InMemoryVectorStore
+
+    t0 = time.monotonic()
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-x-"))
+    try:
+        files = _x_files(root)
+        with cut_depth("llama3-8b", X_LAYERS):
+            reset_counts()
+            x1, x1_counts = x1_rag(torch, files, device)
+            print(f"path X [X1 ingestion and rag-pipeline, llama3-8b int8 {X_LAYERS} layers, "
+                  f"minilm-l6, {X_WAVE} questions over user-input/bot-output]: "
+                  f"{json.dumps(x1)}", flush=True)
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            reset_counts()
+            x2, x2_counts = x2_memory(torch, files, device)
+            print(f"path X [X2 chatbot-rag-memory, llama3-8b int8 {X_LAYERS} layers, "
+                  f"{X_SESSIONS} sessions of 2 turns over /v1/chat]: {json.dumps(x2)}",
+                  flush=True)
+    finally:
+        InMemoryVectorStore.reset()
+        JdbcDataSource.reset_shared()
+        shutil.rmtree(root, ignore_errors=True)
+    counts = {k: x1_counts[k] + x2_counts[k] for k in x1_counts}
+    print(f"path X: {time.monotonic() - t0:.1f} s; launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -9015,9 +9442,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_w = time.monotonic()
     w_counts = phase_kafka_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_x = time.monotonic()
+    x_counts = phase_retrieval_path(torch)
+    if x_counts["flash_attention"] == 0 or x_counts["paged_attention"] == 0:
+        fail(f"path X did not launch flash and the bf16 paged read: {x_counts}")
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
                 P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=t_u - t_t,
-                U=t_v - t_u, V=t_w - t_v, W=time.monotonic() - t_w)
+                U=t_v - t_u, V=t_w - t_v, W=t_x - t_w, X=time.monotonic() - t_x)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -9032,8 +9465,8 @@ def main() -> int:
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
              "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
-             "T": t_counts, "U": u_counts, "V": v_counts, "W": w_counts}
-    meta = {  # launches: summed over the 23 main paths (rank 0's on N, O, Q, R, S; V's
+             "T": t_counts, "U": u_counts, "V": v_counts, "W": w_counts, "X": x_counts}
+    meta = {  # launches: summed over the 24 main paths (rank 0's on N, O, Q, R, S; V's
         # the chat pod's, in its profiled window)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),

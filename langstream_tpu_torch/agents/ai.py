@@ -1,17 +1,19 @@
-"""AI agents: chat and text completions, and embeddings (the port's copy
-of the first three agents of ``langstream_tpu/agents/ai.py``).
+"""AI agents: chat and text completions, embeddings, re-rank and datasource
+query (the port's copy of ``langstream_tpu/agents/ai.py`` but for
+``flare-controller``).
 
 Parity: ``langstream-ai-agents`` --
 ``ChatCompletionsStep.java:42`` (Mustache prompt templating, token streaming
 to a topic with growing chunk batches up to ``min-chunks-per-message``,
 ``completion-field``/``log-field``), ``TextCompletionsStep.java``,
 ``ComputeAIEmbeddingsStep.java:46`` (batched via ``OrderedAsyncBatchExecutor``
--- batch-size / flush-interval / concurrency config).
+-- batch-size / flush-interval / concurrency config), ``QueryStep.java``,
+``ReRankAgent.java`` (MMR).
 
 The backing :class:`ServiceProvider` for a ``tpu-serving-configuration``
 resource is the port's engine, so "call the model" means "enqueue into the
 continuous-batching decode loop on this process's card". The JAX module's
-``query``, ``re-rank`` and ``flare-controller`` agents are not ported yet.
+``flare-controller`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import math
 import uuid
 from typing import Any
 
@@ -35,7 +38,7 @@ from langstream_tpu_torch.agents.services import (
     ServiceProvider,
     resolve_service_provider,
 )
-from langstream_tpu_torch.core.expressions import render_template
+from langstream_tpu_torch.core.expressions import evaluate_accessor, render_template
 
 log = logging.getLogger(__name__)
 
@@ -368,3 +371,144 @@ class ComputeAIEmbeddingsAgent(AgentProcessor):
         from langstream_tpu_torch.api.agent import ComponentType
 
         return ComponentType.PROCESSOR
+
+
+# ---------------------------------------------------------------------------
+# re-rank (MMR) — parity: ai/agents/rerank/ReRankAgent.java
+# ---------------------------------------------------------------------------
+
+
+def _cosine(a: list[float], b: list[float]) -> float:
+    num = sum(x * y for x, y in zip(a, b))
+    da = math.sqrt(sum(x * x for x in a)) or 1.0
+    db = math.sqrt(sum(y * y for y in b)) or 1.0
+    return num / (da * db)
+
+
+def _bm25_scores(query: str, docs: list[str], k1: float, b: float) -> list[float]:
+    q_terms = query.lower().split()
+    tokenised = [d.lower().split() for d in docs]
+    if not docs:
+        return []
+    avgdl = sum(len(t) for t in tokenised) / len(tokenised) or 1.0
+    n = len(docs)
+    scores = []
+    for terms in tokenised:
+        score = 0.0
+        dl = len(terms) or 1
+        for q in set(q_terms):
+            tf = terms.count(q)
+            if tf == 0:
+                continue
+            df = sum(1 for t in tokenised if q in t)
+            idf = math.log(1 + (n - df + 0.5) / (df + 0.5))
+            score += idf * tf * (k1 + 1) / (tf + k1 * (1 - b + b * dl / avgdl))
+        scores.append(score)
+    return scores
+
+
+class ReRankAgent(SingleRecordProcessor):
+    """``re-rank``: MMR re-ranking of retrieved documents by a blend of
+    embedding similarity and BM25 text relevance."""
+
+    async def process_record(self, record: Record) -> list[Record]:
+        cfg = self.configuration
+        mutable = MutableRecord.from_record(record)
+        docs = evaluate_accessor(cfg.get("field", "value.documents"), mutable) or []
+        if not isinstance(docs, list):
+            docs = []
+        query_text = evaluate_accessor(cfg.get("query-text", ""), mutable) or ""
+        query_emb = evaluate_accessor(cfg.get("query-embeddings", ""), mutable)
+        text_field = cfg.get("text-field", "record.text").removeprefix("record.")
+        emb_field = cfg.get("embeddings-field", "record.embeddings").removeprefix(
+            "record."
+        )
+        max_out = int(cfg.get("max", 5))
+        lam = float(cfg.get("lambda", 0.5))
+        k1, b = float(cfg.get("k1", 1.2)), float(cfg.get("b", 0.75))
+
+        texts = [str((d or {}).get(text_field, "")) if isinstance(d, dict) else str(d) for d in docs]
+        bm25 = _bm25_scores(str(query_text), texts, k1, b)
+        max_bm25 = max(bm25) if bm25 else 1.0
+
+        def relevance(i: int) -> float:
+            score = 0.0
+            if query_emb is not None and isinstance(docs[i], dict):
+                emb = docs[i].get(emb_field)
+                if emb:
+                    score += _cosine(list(map(float, query_emb)), list(map(float, emb)))
+            if max_bm25 > 0:
+                score += bm25[i] / max_bm25
+            return score
+
+        selected: list[int] = []
+        candidates = list(range(len(docs)))
+        while candidates and len(selected) < max_out:
+            def mmr(i: int) -> float:
+                redundancy = 0.0
+                if selected and isinstance(docs[i], dict):
+                    emb_i = docs[i].get(emb_field)
+                    if emb_i:
+                        sims = [
+                            _cosine(list(map(float, emb_i)), list(map(float, docs[j].get(emb_field) or [])))
+                            for j in selected
+                            if isinstance(docs[j], dict) and docs[j].get(emb_field)
+                        ]
+                        redundancy = max(sims) if sims else 0.0
+                return lam * relevance(i) - (1 - lam) * redundancy
+
+            best = max(candidates, key=mmr)
+            selected.append(best)
+            candidates.remove(best)
+
+        mutable.set_field(
+            cfg.get("output-field", cfg.get("field", "value.documents")),
+            [docs[i] for i in selected],
+        )
+        return [mutable.to_record()]
+
+
+class QueryAgent(SingleRecordProcessor):
+    """``query``: run a datasource query with ``?`` bindings from record
+    fields into ``output-field`` (parity: ``QueryStep.java``)."""
+
+    async def init(self, configuration: dict[str, Any]) -> None:
+        await super().init(configuration)
+        from langstream_tpu_torch.agents.vector import resolve_datasource
+
+        self.datasource = resolve_datasource(
+            configuration.get("datasource"),
+            configuration.get("__resources__", {}),
+        )
+
+    async def process_record(self, record: Record) -> list[Record]:
+        cfg = self.configuration
+        mutable = MutableRecord.from_record(record)
+        params = [
+            evaluate_accessor(f, mutable) for f in cfg.get("fields", [])
+        ]
+        out_field = cfg.get("output-field", "value.query_results")
+        if cfg.get("mode") == "execute":
+            # writes go through execute_write so the datasource COMMITS
+            # (fetch_data on JDBC leaves an open deferred transaction that
+            # both loses the write on restart and locks the database file);
+            # parity: QueryStep.java's executeStatement mode
+            execute = getattr(self.datasource, "execute_write", None)
+            if execute is not None:
+                affected = await execute(cfg.get("query", ""), params)
+                # datasources that can't report affected rows return None
+                mutable.set_field(
+                    out_field,
+                    {"count": affected if isinstance(affected, int) and affected >= 0 else 1},
+                )
+            else:
+                results = await self.datasource.fetch_data(
+                    cfg.get("query", ""), params
+                )
+                mutable.set_field(out_field, {"count": len(results)})
+            return [mutable.to_record()]
+        results = await self.datasource.fetch_data(cfg.get("query", ""), params)
+        if cfg.get("only-first"):
+            results = results[:1]
+        mutable.set_field(out_field, results)
+        return [mutable.to_record()]

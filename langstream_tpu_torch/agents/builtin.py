@@ -1,7 +1,11 @@
 """Registration of every agent type the port carries (the port's copy of
 ``langstream_tpu/agents/builtin.py``, for the types ported so far), with
 the JAX package's component types (``_METADATA``) so the planner fuses
-sources, sinks and services as the JAX planner does.
+sources, sinks and services as the JAX planner does. Importing the store
+modules registers their asset managers
+(:class:`~langstream_tpu_torch.agents.assets.AssetManagerRegistry`); the
+Cassandra ones register when :mod:`.cassandra_cql` is first imported, as in
+the JAX package.
 
 The planner refuses any other type by name
 (:mod:`langstream_tpu_torch.core.planner`), so an application that needs
@@ -15,7 +19,9 @@ from langstream_tpu_torch.api.agent import ComponentType
 from langstream_tpu_torch.api.registry import AgentCodeProvider, AgentCodeRegistry
 from langstream_tpu_torch.core.planner import register_agent_type
 
-from langstream_tpu_torch.agents import ai, connect, python_custom, text
+from langstream_tpu_torch.agents import ai, connect, flow, python_custom, text, transform, vector
+from langstream_tpu_torch.agents import jdbc, opensearch  # noqa: F401  (asset managers)
+from langstream_tpu_torch.agents import astra, milvus, solr  # noqa: F401  (asset managers)
 
 SOURCE = ComponentType.SOURCE
 PROCESSOR = ComponentType.PROCESSOR
@@ -23,14 +29,32 @@ SINK = ComponentType.SINK
 SERVICE = ComponentType.SERVICE
 
 _FACTORIES = {
+    # GenAI transform steps
+    "cast": transform.CastStep,
+    "compute": transform.ComputeStep,
+    "drop": transform.DropStep,
+    "drop-fields": transform.DropFieldsStep,
+    "flatten": transform.FlattenStep,
+    "merge-key-value": transform.MergeKeyValueStep,
+    "unwrap-key-value": transform.UnwrapKeyValueStep,
     # AI
     "ai-chat-completions": ai.ChatCompletionsAgent,
     "ai-text-completions": ai.TextCompletionsAgent,
     "compute-ai-embeddings": ai.ComputeAIEmbeddingsAgent,
+    "query": ai.QueryAgent,
+    "re-rank": ai.ReRankAgent,
     # text processing
     "text-splitter": text.TextSplitterAgent,
     "language-detector": text.LanguageDetectorAgent,
     "document-to-json": text.DocumentToJsonAgent,
+    # flow control
+    "dispatch": flow.DispatchAgent,
+    "timer-source": flow.TimerSource,
+    "trigger-event": flow.TriggerEventProcessor,
+    "log-event": flow.LogEventProcessor,
+    # vector stores
+    "vector-db-sink": vector.VectorDBSinkAgent,
+    "query-vector-db": vector.QueryVectorDBAgent,
     # Kafka-Connect-style bridge (reference: KafkaConnectCodeProvider.java:26)
     "sink": connect.ConnectSinkBridge,
     "source": connect.ConnectSourceBridge,
@@ -49,8 +73,10 @@ _FACTORIES = {
 #: component type and composability of the types that are not composable
 #: processors (the JAX ``_METADATA``'s entries for the ported types)
 _METADATA = {
+    "timer-source": (SOURCE, True),
     "python-source": (SOURCE, True),
     "experimental-python-source": (SOURCE, True),
+    "vector-db-sink": (SINK, True),
     "python-sink": (SINK, True),
     "experimental-python-sink": (SINK, True),
     "python-service": (SERVICE, False),

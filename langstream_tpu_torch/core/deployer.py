@@ -41,16 +41,17 @@ class ApplicationDeployer:
         await runtime.close()
 
     async def _setup_assets(self, plan: ExecutionPlan) -> None:
-        """The port carries no asset manager yet: an asset the application
-        asks to create is refused by name instead of skipped."""
+        from langstream_tpu_torch.agents.assets import AssetManagerRegistry
+
         for asset in plan.assets:
             if asset.creation_mode != "create-if-not-exists":
                 continue
-            raise RuntimeError(
-                f"asset {asset.id!r} of type {asset.asset_type!r}: asset managers "
-                f"are not ported to langstream_tpu_torch yet; a later slice of the "
-                f"port brings them"
-            )
+            manager = AssetManagerRegistry.get(asset.asset_type)
+            if manager is None:
+                continue
+            exists = await manager.asset_exists(asset)
+            if not exists:
+                await manager.deploy_asset(asset)
 
     async def cleanup(self, plan: ExecutionPlan) -> None:
         streaming = plan.application.instance.streaming_cluster

@@ -30,8 +30,9 @@ tasks of one socket never interleave.
 
 The client (:class:`WebSocketClient`, :func:`http_request`,
 :func:`sse_events`) speaks the same protocol from the other side: masked
-frames, optional fragmentation, ping and close; tests and the smoke drive
-the gateway with it where aiohttp is not installed.
+frames, optional fragmentation, ping and close, over TCP or TLS (https and
+wss); tests and the smoke drive the gateway with it where aiohttp is not
+installed, and the port's vector stores reach their services through it.
 """
 
 from __future__ import annotations
@@ -732,14 +733,22 @@ class ConnectError(ConnectionError):
 
 
 async def _open(url: str, timeout: float):
+    """Connect for ``url``: plain for http and ws, TLS for https and wss
+    (``ssl.create_default_context``: the certificate chain and the host name
+    verified against the default trust store, which ``SSL_CERT_FILE`` can
+    name)."""
     parts = urlsplit(url)
-    secure = parts.scheme in ("https", "wss")
-    if secure:
-        raise ValueError("the stdlib client speaks plain HTTP and ws:// only")
-    port = parts.port or 80
+    ctx = None
+    if parts.scheme in ("https", "wss"):
+        import ssl
+
+        ctx = ssl.create_default_context()
+    port = parts.port or (443 if ctx is not None else 80)
     try:
         reader, writer = await asyncio.wait_for(
-            asyncio.open_connection(parts.hostname, port, limit=MAX_MESSAGE + MAX_HEAD),
+            asyncio.open_connection(parts.hostname, port, limit=MAX_MESSAGE + MAX_HEAD,
+                                    ssl=ctx,
+                                    server_hostname=parts.hostname if ctx is not None else None),
             timeout)
     except (OSError, asyncio.TimeoutError) as e:
         raise ConnectError(f"cannot connect to {parts.hostname}:{port}: {e!r}") from e
@@ -792,9 +801,10 @@ async def http_request(method: str, url: str, json_body: Any = None,
     (the body read to its length, through its chunks, or to the
     connection's end; none for HEAD, 204 and 304). ``body=None`` sends no
     ``Content-Length``; ``decompress`` undoes a gzip or deflate
-    ``Content-Encoding``. A connection that cannot be opened raises
-    :class:`ConnectError` before anything is sent; a failure after that
-    raises what the stream raised."""
+    ``Content-Encoding``. An https URL goes over TLS, verified against
+    the default trust store. A connection that cannot be
+    opened raises :class:`ConnectError` before anything is sent; a failure
+    after that raises what the stream raised."""
     reader, writer, host, target = await _open(url, timeout)
     hdrs = {"Host": host, "Connection": "close", **(headers or {})}
     if json_body is not None:

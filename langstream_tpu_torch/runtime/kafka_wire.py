@@ -803,6 +803,9 @@ class ScramClient:
             )
 
 
+CLOSE_WAIT_S = 5.0  # the longest a close waits for a call on its socket
+
+
 class _Conn:
     """One broker connection; requests are serialized (correlation ids
     still checked). The runtime's per-agent access pattern is sequential."""
@@ -903,13 +906,28 @@ class _Conn:
             scram.verify_server_final(server_final)
 
     async def close(self) -> None:
-        if self._writer is not None:
-            self._writer.close()
-            try:
-                await self._writer.wait_closed()
-            except (OSError, ConnectionError):
-                pass
-            self._writer = None
+        """Close the socket once no call is on it: a call in flight (a
+        commit at stop) ends before its socket does. A call still on it
+        after ``CLOSE_WAIT_S`` (a broker that never answers) has the socket
+        closed under it, and fails, so a close never waits longer than that."""
+        try:
+            await asyncio.wait_for(self._lock.acquire(), CLOSE_WAIT_S)
+            locked = True
+        except asyncio.TimeoutError:
+            locked = False
+            logger.warning("closing the connection to %s:%s under a call "
+                           "unanswered after %.1f s", self.host, self.port, CLOSE_WAIT_S)
+        try:
+            if self._writer is not None:
+                self._writer.close()
+                try:
+                    await self._writer.wait_closed()
+                except (OSError, ConnectionError):
+                    pass
+                self._writer = None
+        finally:
+            if locked:
+                self._lock.release()
 
     async def call(self, api_key: int, version: int, payload: bytes) -> Reader:
         async with self._lock:
@@ -1187,10 +1205,11 @@ class KafkaWireClient:
     ) -> Reader:
         """One coordinator RPC with a single re-lookup retry when the
         cached coordinator moved or the connection died (the group-API
-        analogue of the NOT_LEADER metadata refresh on produce/fetch)."""
+        analogue of the NOT_LEADER metadata refresh on produce/fetch). The
+        lookup is inside the retry: a dead bootstrap connection redials."""
         for attempt in (0, 1):
-            conn = await self.find_coordinator(group)
             try:
+                conn = await self.find_coordinator(group)
                 return await conn.call(api_key, version, payload)
             except (ConnectionError, OSError, asyncio.IncompleteReadError):
                 self._group_coordinators.pop(group, None)

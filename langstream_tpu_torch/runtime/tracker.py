@@ -7,6 +7,9 @@ committed only after all N are durably written by the sink. Combined with the
 consumer's contiguous-prefix commit this yields at-least-once end-to-end.
 
 The port's copy of ``langstream_tpu/runtime/tracker.py``; it imports only the port.
+One repair over it: a commit still awaited counts as pending, so the drain
+(:meth:`SourceRecordTracker.wait_for_no_pending`) cannot return, and the
+runner cannot close the source, while a commit is on its way to the broker.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ class SourceRecordTracker:
         self._commit = commit
         self._remaining: dict[int, int] = {}
         self._records: dict[int, Record] = {}
+        self._in_flight = 0  # commits awaited (popped from _remaining already)
         self._all_done = asyncio.Event()
         self._all_done.set()
 
@@ -59,23 +63,31 @@ class SourceRecordTracker:
         """Force-commit (skip / dead-letter paths)."""
         rid = id(source_record)
         self._remaining.pop(rid, None)
-        record = self._records.pop(rid, source_record)
-        await self._commit([record])
-        self._maybe_set_done()
+        await self._commit_counted(self._records.pop(rid, source_record))
 
     async def _finish(self, rid: int) -> None:
         self._remaining.pop(rid, None)
         record = self._records.pop(rid, None)
         if record is not None:
+            await self._commit_counted(record)
+        else:
+            self._maybe_set_done()
+
+    async def _commit_counted(self, record: Record) -> None:
+        self._in_flight += 1
+        self._all_done.clear()
+        try:
             await self._commit([record])
-        self._maybe_set_done()
+        finally:
+            self._in_flight -= 1
+            self._maybe_set_done()
 
     def _maybe_set_done(self) -> None:
-        if not any(v > 0 for v in self._remaining.values()):
+        if not self._in_flight and not any(v > 0 for v in self._remaining.values()):
             self._all_done.set()
 
     def pending_count(self) -> int:
-        return sum(1 for v in self._remaining.values() if v > 0)
+        return self._in_flight + sum(1 for v in self._remaining.values() if v > 0)
 
     async def wait_for_no_pending(self, timeout: float | None = None) -> bool:
         """Graceful drain (parity: ``AgentRunner.waitForNoPendingRecords``,

@@ -363,7 +363,12 @@ def test_docs_agents_documents_the_port_s_agents_as_the_jax_cli_does(tmp_path):
                                      *(f"{prefix}python-{kind}"
                                        for prefix in ("", "experimental-")
                                        for kind in ("processor", "source", "sink", "service")),
-                                     "python-function"}
+                                     "python-function",
+                                     # transforms, flow, the vector stores, query, re-rank
+                                     "cast", "compute", "drop", "drop-fields", "flatten",
+                                     "merge-key-value", "unwrap-key-value", "dispatch",
+                                     "timer-source", "trigger-event", "log-event",
+                                     "vector-db-sink", "query-vector-db", "query", "re-rank"}
     assert all(port[t] == jax[t] for t in port)
     rc, stdout, _ = cli.run("port", ["docs", "agents", "-o", str(tmp_path / "a.md")])
     assert rc == 0 and stdout.strip() == f"wrote {tmp_path / 'a.md'}"

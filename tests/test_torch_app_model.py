@@ -30,7 +30,11 @@ PLANNED = ["chat-completions", "chatbot-gateway", "compute-embeddings", "embeddi
            "mini-chat", "moe-mixtral-ep", "react-chatbot-ui", "text-completions", "llama-70b-tp",
            # the in-process custom Python agents and the Connect bridges
            "kafka-connect", "langchain-document-loader", "langchain-style-chat",
-           "llamaindex-style-sink", "python-agents", "service-agent-proxy"]
+           "llamaindex-style-sink", "python-agents", "service-agent-proxy",
+           # transforms, flow, the vector stores, query and re-rank
+           "chatbot-rag-memory", "flow-dispatch", "gateway-authentication", "multi-store-rag",
+           "query-astradb", "query-jdbc-chat-history", "query-milvus", "query-opensearch",
+           "query-pinecone", "query-solr", "rag-pipeline", "timer-heartbeat"]
 
 
 def _parse_both(name):
@@ -75,8 +79,8 @@ def test_chat_example_fuses_into_one_composite_node():
     assert node.agents[1].configuration["model"] == "llama3-8b"
 
 
-UNPORTED = [("flow-dispatch", "dispatch"), ("rag-pipeline", "query-vector-db"),
-            ("http-enrichment", "http-request"), ("timer-heartbeat", "timer-source"),
+UNPORTED = [("flare", "flare-controller"), ("s3-document-ingestion", "s3-source"),
+            ("http-enrichment", "http-request"), ("webcrawler-to-vector", "webcrawler"),
             ("long-context-summarizer", "text-extractor")]
 
 

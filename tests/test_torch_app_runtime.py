@@ -377,8 +377,8 @@ def test_local_run_serves_one_application_at_a_time(tmp_path):
         finally:
             await run.stop()
         after_stop = port_services.SERVING_DEVICE
-        with pytest.raises(PlanningError, match="'timer-source' is not ported"):
-            await LocalRun("c", REPO / "examples" / "applications" / "timer-heartbeat",
+        with pytest.raises(PlanningError, match="'grpc-python-processor' is not ported"):
+            await LocalRun("c", REPO / "examples" / "applications" / "grpc-sidecar-agent",
                            instance, device="cpu", gateway_port=0).start()
         return serving, out, after_stop, LocalRun._active
 

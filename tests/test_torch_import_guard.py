@@ -4,7 +4,9 @@ module of ``langstream_tpu_torch`` imports, and none of the client and
 codec libraries the transports load only when used (``LAZY``) is loaded;
 the chat app served over Kafka (``chip_smoke.py``'s path W at the tiny
 model on the CPU) loads none of them either, nor ``confluent_kafka``,
-``pulsar`` or ``pravega_client`` when they are refused; ``python -m
+``pulsar`` or ``pravega_client`` when they are refused; the retrieval
+path (path X at the tiny model) and every vector store's datasource run
+without them or ``psycopg``; ``python -m
 langstream_tpu_torch.cli run`` serves a copy of the chat-completions
 example at the tiny model on the CPU, answers a question through the port's
 WebSocket client, and exits 0 on SIGINT; and ``python -m
@@ -27,8 +29,9 @@ from langstream_tpu_torch.gateway.wire import WebSocketClient
 REPO = Path(__file__).resolve().parents[1]
 REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click", "cryptography")
 #: imported by the transports only when a client is built or a batch in
-#: their codec arrives
-LAZY = ("confluent_kafka", "pulsar", "pravega_client", "zstandard", "snappy", "lz4")
+#: their codec arrives; ``psycopg`` (the postgres JDBC driver) never
+LAZY = ("confluent_kafka", "pulsar", "pravega_client", "zstandard", "snappy", "lz4",
+        "psycopg")
 
 def guard(refused=REFUSED) -> str:
     return GUARD.replace(repr(REFUSED), repr(tuple(refused)), 1)
@@ -113,6 +116,81 @@ def test_the_chat_app_over_kafka_loads_none_of_them(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-4000:])
     assert "path W [W3" in out.stdout and "served 4 kernels counted" in out.stdout
+
+
+def test_the_retrieval_path_loads_none_of_them(tmp_path):
+    """``chip_smoke.py``'s path X in a guarded process, the model table
+    serving llama3-8b at the tiny model and the corpus cut to 4 documents:
+    the ingestion app, rag-pipeline through the gateway with X1's checks,
+    and chatbot-rag-memory over /v1/chat with X2's, with ``psycopg``
+    refused too."""
+    script = _guarded(tmp_path, f"""
+        sys.path.insert(0, {str(REPO)!r})
+        import torch
+
+        import chip_smoke
+        from langstream_tpu_torch.serving import engine
+
+        engine._MODEL_CONFIGS["llama3-8b"] = engine._MODEL_CONFIGS["tiny"]
+        chip_smoke.X_DOCS = 4
+        counts = chip_smoke.phase_retrieval_path(torch, device="cpu")
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED + {LAZY!r})
+        assert not leaked, leaked
+        print("served", len(counts), "kernels counted")
+    """, refused=REFUSED + ("psycopg",))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-4000:])
+    assert '"history_rows": 8' in out.stdout and "served 4 kernels counted" in out.stdout
+
+
+def test_the_vector_stores_load_no_client_library(tmp_path):
+    """Every datasource service resolves, the in-memory and SQLite stores
+    write and query, and the postgres driver is refused by name, in a
+    guarded process: none of the refused modules, the transports' libraries
+    or ``psycopg`` is loaded, and the CQL module only once a ``cassandra``
+    service is named."""
+    script = _guarded(tmp_path, f"""
+        import asyncio
+
+        from langstream_tpu_torch.agents import vector
+
+        assert "langstream_tpu_torch.agents.cassandra_cql" not in sys.modules
+        services = {{"mem": {{"service": "in-memory"}},
+                     "sql": {{"service": "jdbc", "url": {str(tmp_path / "v.db")!r}}},
+                     "os": {{"service": "opensearch"}}, "pc": {{"service": "pinecone"}},
+                     "mv": {{"service": "milvus"}}, "sl": {{"service": "solr"}},
+                     "as": {{"service": "astra"}}, "cql": {{"service": "cassandra"}}}}
+        resources = {{k: {{"type": "datasource", "name": k, "configuration": c}}
+                      for k, c in services.items()}}
+        stores = {{k: vector.resolve_datasource(k, resources) for k in services}}
+        assert "langstream_tpu_torch.agents.cassandra_cql" in sys.modules
+
+        async def main():
+            mem, sql = stores["mem"], stores["sql"]
+            await mem.upsert("docs", "a", [1.0, 0.0], {{"text": "alpha"}})
+            await sql.execute_write("CREATE TABLE docs (id TEXT PRIMARY KEY, embeddings TEXT, "
+                                    "text TEXT)", [])
+            await sql.upsert("docs", "a", [1.0, 0.0], {{"text": "alpha"}})
+            return (await mem.fetch_data('{{"collection": "docs", "vector": ?}}', [[1.0, 0.0]]),
+                    await sql.fetch_data("SELECT id, text FROM docs", []))
+
+        (hit,), (row,) = asyncio.run(main())
+        assert hit["id"] == row["id"] == "a"
+        try:
+            vector.resolve_datasource("pg", {{"pg": {{"type": "datasource", "configuration": {{
+                "service": "postgres"}}}}}})
+            raise AssertionError("postgres resolved")
+        except RuntimeError as e:
+            assert "psycopg" in str(e), e
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED + {LAZY!r})
+        assert not leaked, leaked
+        print("resolved", len(stores))
+    """)
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.split()[-1] == "8"
 
 
 def _free_port():

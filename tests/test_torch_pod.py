@@ -223,13 +223,13 @@ def test_a_pod_of_an_app_with_an_unported_agent_refuses_it_at_planning(tmp_path)
     from langstream_tpu_torch.core.planner import PlanningError
 
     pipeline = {"topics": [{"name": "in", "creation-mode": "create-if-not-exists"}],
-                "pipeline": [{"name": "c", "type": "compute", "input": "in",
-                              "configuration": {"fields": []}}]}
+                "pipeline": [{"name": "c", "type": "flare-controller", "input": "in",
+                              "configuration": {}}]}
     config = tmp_path / "config"
     config.write_text(json.dumps({
         "applicationId": "a", "tenant": "t1", "files": {"pipeline.yaml": json.dumps(pipeline)},
         "instance": None, "secrets": None}))
-    with pytest.raises(PlanningError, match="agent type 'compute' is not ported"):
+    with pytest.raises(PlanningError, match="agent type 'flare-controller' is not ported"):
         asyncio.run(port_pod.run_setup(str(config)))
-    with pytest.raises(PlanningError, match="agent type 'compute' is not ported"):
+    with pytest.raises(PlanningError, match="agent type 'flare-controller' is not ported"):
         asyncio.run(port_pod.run_deployer("deploy", str(config)))
