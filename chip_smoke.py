@@ -27,7 +27,13 @@ Phases (every one unguarded: any failure exits non-zero):
    S=2048 and the bf16 and int8 decode reads; and at Mixtral-8x7B's
    context (path G), flash at S=4096,
    the bf16 and int8 decode reads over 4,096 history rows and the
-   multi-query read over histories to 3,584 rows;
+   multi-query read over histories to 3,584 rows; at path Y1's lengths
+   (``summarizer_8192`` in the kernels line), flash at B=1, S=8192, the
+   bf16 decode read over 8 slots ragged to 8,192 rows and the verify's
+   multi-query read (T=5) over 8 histories to 8,187 rows; every bf16 case
+   is held both to 2e-2 absolute and to 2e-2 of its values' size
+   (:func:`scaled_err`), and flash at 8,192 prints the rows past 4,096
+   apart;
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV; every llama3-8b engine of the run at ``MAIN_LAYERS`` = 16 of its 32
@@ -277,7 +283,7 @@ Phases (every one unguarded: any failure exits non-zero):
    the vectors asked for again are equal. Every started rank exits 0
    and no process of it is left;
    main path R (after Q): the tiered stores and the pool roles under a
-   mesh, llama3-8b int8 at 2 layers (``R_LAYERS``) at ``{tp: 2}`` through
+   mesh, llama3-8b int8 at 1 layer (``R_LAYERS``) at ``{tp: 2}`` through
    ``TorchServiceProvider`` with two local ranks on the card started by the
    launcher (a ``sitecustomize`` on their ``PYTHONPATH`` cuts their depth
    as this process's), each tp=2 run against a tp=1 engine on the same
@@ -433,6 +439,27 @@ Phases (every one unguarded: any failure exits non-zero):
    second turn's history holding its first, the table's 8 rows equal to
    the streamed answers, the app's own engine completing exactly those 8
    turns. Kernels #1 and #2 must launch;
+   main path Y (after X): the document and HTTP agents without JAX, each
+   app on a memory broker cluster of its own. Y1: a copy of
+   ``long-context-summarizer`` without its ``mesh`` (8 slots, 8,192
+   context, paged bf16 KV, ``speculative-drafts: 4``, ``max-tokens: 256``)
+   at ``Y_LAYERS`` = ``MAIN_LAYERS``, the LM head to printable ASCII, run
+   by ``cli.main.LocalRun``: 8 documents from seed 0, written here with no
+   library (two PDFs, one stream compressed; two docx; two HTML; two plain
+   texts; 1,000 to 7,500 characters), produced as bytes to
+   ``documents-in``; each summary on ``summaries-out`` is the engine's own
+   greedy output for the rendered prompt or first differs at a top-2 gap
+   under 0.05, the prompt holds ``pdftext``'s or the HTML parser's text of
+   the bytes on the CPU, and it is 256 tokens or ends at EOS; per
+   document the prompt's tokens, TTFT and seconds, speculation's stats.
+   Kernels #1 and #2 must launch, #4 too if verify steps ran. Y2: a copy
+   of ``webcrawler-to-vector`` over a site of 16 seeded pages on a stdlib
+   ``http.server`` at 127.0.0.1 (``robots.txt`` disallowing a subtree and
+   naming a sitemap), the default 500 ms between requests: the pages
+   fetched equal a plain breadth-first walk under ``max-depth`` and the
+   robots rules, the store holds one row per chunk that extract and split
+   give on the CPU, each vector within 1e-4 of the CPU encoder's; pages
+   and chunks per second;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -459,7 +486,7 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-X,
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-Y,
    rank 0's on N, O, Q, R and S, V's the chat pod's in its profiled window; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
@@ -491,6 +518,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 TOL_BF16 = 2e-2
+#: a bf16 case's error also held against the values' size (:func:`scaled_err`),
+#: the plain version run in f32 on the same inputs (its bf16 run rounds the
+#: scores and the sums to bf16 and parts from an exact read by up to 2% of a
+#: value at ragged lengths: 1.84e-2 and 2.03e-2 at 2,048 rows on an H100
+#: 80GB HBM3 at 700 W)
+TOL_BF16_SCALED = 2e-2
 TOL_F32 = 1e-4
 TOL_EMBED = 1e-4
 # examples/applications/chat-completions/configuration.yaml's resource, as
@@ -618,6 +651,17 @@ def device_ms_by_kernel(torch, fn, iters: int = 10) -> dict:
     return {k: round(v, 4) for k, v in out.items()}
 
 
+def scaled_err(got, want) -> float:
+    """The largest ``|got - want| / (|want| + rms)``, ``rms`` the root mean
+    square of ``want``'s row (its last axis): the error held against the
+    values' own size. Long causal rows average many values to small
+    outputs (about ``sqrt(e / rows)`` at unit scores), which an absolute
+    bound of 2e-2 would not see. ``want`` is the plain version in f32."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    return ((got - want).abs() / (want.abs() + rms).clamp_min(1e-30)).max().item()
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -668,6 +712,11 @@ def paged_case(torch, *, B, H, Kh, D, bs, max_len, dtype, int8, dense, seed):
             max_blocks)
 
 
+def _f32(x):
+    """A bf16 query or pool as f32 (an int8 pool's ``{"q", "s"}`` as it is)."""
+    return x if isinstance(x, dict) else x.float()
+
+
 def check_paged(torch, name, fn, plain, case, *, kv_heads, head_dim, tol):
     from langstream_tpu_torch.ops.paged_attention import (
         NEG_INF, merge_partial_attention,
@@ -687,10 +736,17 @@ def check_paged(torch, name, fn, plain, case, *, kv_heads, head_dim, tol):
         (m[zero] == NEG_INF).all() and (l[zero] == 0).all() and (acc[zero] == 0).all()
     ):
         fail(f"{name}: a length-0 slot must give m=NEG_INF, l=0, acc=0")
-    err = (merge_partial_attention([got]) - merge_partial_attention([want])).abs().max().item()
+    out, ref = merge_partial_attention([got]), merge_partial_attention([want])
+    err = (out - ref).abs().max().item()
     if not err <= tol:
         fail(f"{name}: normalised max abs error {err} > {tol}")
-    return err
+    rel = None
+    if tol == TOL_BF16:
+        exact = merge_partial_attention([plain(*map(_f32, (q, kp, vp)), tables, lengths, **kw)])
+        rel = scaled_err(out, exact)
+        if not rel <= TOL_BF16_SCALED:
+            fail(f"{name}: scaled error {rel} > {TOL_BF16_SCALED}")
+    return err, rel
 
 
 def phase_kernels(torch) -> dict:
@@ -704,7 +760,7 @@ def phase_kernels(torch) -> dict:
 
     F = torch.nn.functional
     H, Kh, D, B = 32, 8, 128, 64
-    rows, at_4096 = {}, {}
+    rows, at_4096, at_8192 = {}, {}, {}
 
     # -- kernels 2 and 3: paged decode reads --------------------------------
     cases = [
@@ -725,6 +781,11 @@ def phase_kernels(torch) -> dict:
         ("paged_attention_q8", "bs64 int8 4096", _paged_attention_partial_q8,
          dict(bs=64, dtype=torch.bfloat16, int8=True, dense=False, max_len=4096),
          TOL_BF16),
+        # long-context-summarizer's pool (path Y1): 8 slots of 64-row blocks
+        # ragged to 8,192 rows
+        ("paged_attention", "bs64 bf16 8192", paged_attention_partial,
+         dict(bs=64, dtype=torch.bfloat16, int8=False, dense=False, max_len=8192, B=8),
+         TOL_BF16),
         # one rank's shapes at tp=2 on Llama-3-8B (path N1): H=16, Kh=4
         ("paged_attention", "tp2 bs64 bf16", paged_attention_partial,
          dict(bs=64, dtype=torch.bfloat16, int8=False, dense=False, H=H // 2,
@@ -736,10 +797,10 @@ def phase_kernels(torch) -> dict:
     per_rank = {}
     for name, label, fn, spec, tol in cases:
         spec = {"max_len": 2048, **spec}
-        h, kh = spec.pop("H", H), spec.pop("Kh", Kh)
-        case = paged_case(torch, B=B, H=h, Kh=kh, D=D, seed=7, **spec)
-        err = check_paged(torch, f"{name} {label}", fn, paged_attention_reference,
-                          case, kv_heads=kh, head_dim=D, tol=tol)
+        h, kh, b = spec.pop("H", H), spec.pop("Kh", Kh), spec.pop("B", B)
+        case = paged_case(torch, B=b, H=h, Kh=kh, D=D, seed=7, **spec)
+        err, rel = check_paged(torch, f"{name} {label}", fn, paged_attention_reference,
+                               case, kv_heads=kh, head_dim=D, tol=tol)
         q, kp, vp, tables, lengths, nrb = case
         kw = dict(num_read_blocks=nrb, kv_heads=kh, head_dim=D)
         ms = cuda_ms(torch, lambda: fn(q, kp, vp, tables, lengths, **kw), graph=True)
@@ -750,8 +811,8 @@ def phase_kernels(torch) -> dict:
         elem = 1 if spec["int8"] else (2 if spec["dtype"] == torch.bfloat16 else 4)
         nbytes = (
             2 * n_rows * kh * D * elem + (2 * n_rows * kh * 4 if spec["int8"] else 0)
-            + q.numel() * q.element_size() + B * h * (D + 2) * 4
-            + tables.numel() * 4 + B * 4
+            + q.numel() * q.element_size() + b * h * (D + 2) * 4
+            + tables.numel() * 4 + b * 4
         )
         flops = 4.0 * h * D * n_rows
         peak = BF16_FLOPS_PER_S if spec["dtype"] == torch.bfloat16 else F32_FLOPS_PER_S
@@ -759,16 +820,19 @@ def phase_kernels(torch) -> dict:
         spans = f"spans={paged_read_splits(nrb, spec['bs'])}"
         if spec["int8"]:  # the int8 read's products: mma.sync for bf16 q, FMAs for f32
             spans += f" kernel={'mma' if spec['dtype'] == torch.bfloat16 else 'fma'}"
-        print(f"kernel {name} [{label}] B={B} H={h} Kh={kh} D={D} rows={n_rows} {spans}: "
-              f"max_abs_err={err:.3e} ms={ms:.4f} eager_ms={eager_ms:.4f} "
+        print(f"kernel {name} [{label}] B={b} H={h} Kh={kh} D={D} rows={n_rows} {spans}: "
+              f"max_abs_err={err:.3e} scaled_err={rel if rel is None else f'{rel:.3e}'} "
+              f"ms={ms:.4f} eager_ms={eager_ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               f"achieved={nbytes / ms / 1e6:.1f} GB/s by_kernel="
               f"{device_ms_by_kernel(torch, lambda: fn(q, kp, vp, tables, lengths, **kw))}",
               flush=True)
-        timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        timing = dict(max_abs_err=err, scaled_err=rel, ms=ms, eager_ms=eager_ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
         if label in ("bs64 bf16", "bs64 int8"):
             rows[name] = timing
+        elif label.endswith("8192"):
+            at_8192[name] = {"case": f"{label} B={b} rows={n_rows}", **timing}
         elif label.endswith("4096"):
             at_4096[name] = {"case": label, **timing}
         elif label.startswith("tp2"):
@@ -781,12 +845,14 @@ def phase_kernels(torch) -> dict:
         (512, torch.bfloat16, TOL_BF16, "bf16"),
         (2048, torch.bfloat16, TOL_BF16, "bf16"),
         (4096, torch.bfloat16, TOL_BF16, "bf16"),  # path G's longest bucket
+        (8192, torch.bfloat16, TOL_BF16, "bf16"),  # path Y1's longest context
         (512, torch.float32, TOL_F32, "f32"),
         (2048, torch.bfloat16, TOL_BF16, "tp2 bf16"),  # one rank at tp=2 (path N1)
     ):
         H, Kh = (full_heads[0] // 2, full_heads[1] // 2) if label.startswith("tp2") \
             else full_heads
-        Bf = 2 if S == 4096 else 4  # the plain version holds B*H*S*S f32 scores
+        # the plain version holds B*H*S*S f32 scores (8.6 GB at S=8,192, B=1)
+        Bf = {4096: 2, 8192: 1}.get(S, 4)
         true_len = torch.tensor([S, S - 37, S // 2 + 3, 17])[:Bf]
         valid = (torch.arange(S)[None, :] < true_len[:, None])[:, :, None, None]
         q = (torch.randn((Bf, S, H, D), generator=g) * valid).to(dtype).cuda()
@@ -800,6 +866,19 @@ def phase_kernels(torch) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         if not err <= tol:
             fail(f"flash_attention S={S} {label}: max abs error {err} > {tol}")
+        rel, tail = None, None
+        if dtype == torch.bfloat16:
+            exact = flash_attention_reference(q.float(), k.float(), v.float(), causal=True)
+            rel = scaled_err(got, exact)
+            if not rel <= TOL_BF16_SCALED:
+                fail(f"flash_attention S={S} {label}: scaled error {rel} > {TOL_BF16_SCALED}")
+            if S == 8192:  # the rows past 4,096 alone, against their values' RMS
+                d, w = (got.float() - exact)[:, 4096:], exact[:, 4096:]
+                tail = dict(max_abs_err=d.abs().max().item(),
+                            rms=w.square().mean().sqrt().item(),
+                            scaled_err=scaled_err(got[:, 4096:], w))
+                del d, w
+            del exact
         ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True), graph=True)
         eager_ms = cuda_ms(torch, lambda: flash_attention(q, k, v, causal=True))
         plain_ms = cuda_ms(torch, lambda: flash_attention_reference(q, k, v, causal=True),
@@ -817,13 +896,15 @@ def phase_kernels(torch) -> dict:
         b_ms, b_by = bound_ms(nbytes, flops, peak)
         print(f"kernel flash_attention [{label}] B={Bf} S={S} H={H} Kh={Kh} D={D} "
               f"kernel={flash_kernel_route(dtype, D)}: "
-              f"max_abs_err={err:.3e} ms={ms:.4f} eager_ms={eager_ms:.4f} "
+              f"max_abs_err={err:.3e} scaled_err={rel if rel is None else f'{rel:.3e}'} "
+              f"{f'rows_past_4096={json.dumps(tail)} ' if tail else ''}"
+              f"ms={ms:.4f} eager_ms={eager_ms:.4f} "
               f"plain_ms={plain_ms:.4f} "
               f"library_ms={library_ms:.4f} (library err {lib_err:.2e}) "
               f"bound_ms={b_ms:.4f} ({b_by}) "
               f"achieved={flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-        timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        timing = dict(max_abs_err=err, scaled_err=rel, ms=ms, eager_ms=eager_ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
         if label.startswith("tp2"):
             per_rank["flash_attention"] = {"case": f"B={Bf} S={S} {label} H={H} Kh={Kh}",
                                            **timing}
@@ -831,20 +912,27 @@ def phase_kernels(torch) -> dict:
             rows["flash_attention"] = timing
         elif S == 4096:
             at_4096["flash_attention"] = {"case": f"B={Bf} S=4096 bf16", **timing}
+        elif S == 8192:
+            at_8192["flash_attention"] = {
+                "case": f"B={Bf} S=8192 bf16 H={H} Kh={Kh} D={D} causal",
+                "rows_past_4096": tail, **timing}
         del q, k, v, got, want, qt, kt, vt, lib_out
         torch.cuda.empty_cache()
     for name, timing in at_4096.items():  # beside each row of the kernels line
         rows[name]["mixtral_4096"] = timing
     for name, timing in per_rank.items():
         rows[name]["tp2_rank"] = timing
+    for name, timing in at_8192.items():
+        rows[name]["summarizer_8192"] = timing
     return rows
 
 
-def mq_case(torch, B: int, seed: int, max_len: int = 2048):
+def mq_case(torch, B: int, seed: int, max_len: int = 2048, top: int | None = None):
     """Ragged history over shuffled tables for the multi-query read: B
-    slots, starts 0, a sub-block, block-exact and ``max_len - 512`` among
-    them."""
-    bs, top = 64, max_len - 512
+    slots, starts 0, a sub-block, block-exact and ``top`` (default
+    ``max_len - 512``, room for a chunk of 512) among them."""
+    bs = 64
+    top = max_len - 512 if top is None else top
     g = torch.Generator().manual_seed(seed)
     starts = torch.randint(1, top + 1, (B,), generator=g)
     starts[:4] = torch.tensor([0, bs // 2 + 5, 2 * bs, top])
@@ -872,9 +960,12 @@ def phase_mq_kernel(torch) -> dict:
     H, Kh, D, bs = 32, 8, 128, 64
     cases = {B: mq_case(torch, B, seed) for B, seed in ((8, 13), (64, 17))}
     cases["8 at 4096"] = mq_case(torch, 8, 19, max_len=4096)  # Mixtral's context
+    # long-context-summarizer's verify (path Y1): histories to 8,192 - T rows
+    cases["8 at 8192"] = mq_case(torch, 8, 23, max_len=8192, top=8192 - 5)
     row, verify = None, {}
     for B, T, dtype, tol, label in ((8, 16, torch.bfloat16, TOL_BF16, "bf16"),
                                     ("8 at 4096", 64, torch.bfloat16, TOL_BF16, "bf16"),
+                                    ("8 at 8192", 5, torch.bfloat16, TOL_BF16, "bf16"),
                                     (8, 64, torch.bfloat16, TOL_BF16, "bf16"),
                                     (8, 512, torch.bfloat16, TOL_BF16, "bf16"),
                                     (8, 5, torch.bfloat16, TOL_BF16, "bf16"),
@@ -903,10 +994,19 @@ def phase_mq_kernel(torch) -> dict:
             fail(f"{tag}: non-finite partials")
         if not ((m[0] == NEG_INF).all() and (l[0] == 0).all() and (acc[0] == 0).all()):
             fail(f"{tag}: a starts == 0 slot must give m=NEG_INF, l=0, acc=0")
-        err = (merge_partial_attention([got]) - merge_partial_attention([want])
-               ).abs().max().item()
+        out, ref = merge_partial_attention([got]), merge_partial_attention([want])
+        err = (out - ref).abs().max().item()
         if not err <= tol:
             fail(f"{tag}: normalised max abs error {err} > {tol}")
+        rel = None
+        if dtype == torch.bfloat16:
+            exact = merge_partial_attention([paged_attention_multiquery_reference(
+                q.float(), kp.float(), vp.float(), tables, starts_d, **kw)])
+            rel = scaled_err(out, exact)
+            if not rel <= TOL_BF16_SCALED:
+                fail(f"{tag}: scaled error {rel} > {TOL_BF16_SCALED}")
+            del exact
+        del out, ref
         call = lambda: paged_attention_multiquery_partial(*args, **kw)  # noqa: E731
         ms = cuda_ms(torch, call, graph=True)
         eager_ms = cuda_ms(torch, call)
@@ -923,15 +1023,17 @@ def phase_mq_kernel(torch) -> dict:
               f"D={D} bs={bs} history_rows={n_rows} kernel={route} "
               f"warpgroups={kept_wg if route == 'wgmma' else '-'} "
               f"spans={spans if route == 'wgmma' else 1}: "
-              f"max_abs_err={err:.3e} "
+              f"max_abs_err={err:.3e} scaled_err={rel if rel is None else f'{rel:.3e}'} "
               f"ms={ms:.4f} eager_ms={eager_ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by}) achieved={flops / ms / 1e9:.1f} TFLOP/s "
               f"by_kernel={device_ms_by_kernel(torch, call)} "
               f"library_ms=none (no PyTorch call returns these partials from a "
               f"block table)", flush=True)
-        timing = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        if history == "8 at 4096":
+        timing = dict(max_abs_err=err, scaled_err=rel, ms=ms, eager_ms=eager_ms,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        if history == "8 at 8192":
+            at_8192 = {"case": f"B=8 T={T} history to {int(starts.max())} bf16", **timing}
+        elif history == "8 at 4096":
             at_4096 = {"case": f"B=8 T={T} history to {int(starts.max())} bf16", **timing}
         elif T == 512 and dtype == torch.bfloat16:
             row = timing
@@ -942,7 +1044,8 @@ def phase_mq_kernel(torch) -> dict:
     # the row of the kernels line: T=512 (path C's chunk) as in earlier
     # runs, the verify's T=5 beside it
     return {"paged_attention_multiquery": {**row, "verify_t5_bf16": verify,
-                                           "mixtral_4096": at_4096}}
+                                           "mixtral_4096": at_4096,
+                                           "summarizer_8192": at_8192}}
 
 
 # ---------------------------------------------------------------------------
@@ -6382,8 +6485,9 @@ def phase_launch_path(torch, device="cuda") -> dict:
 #: llama3-8b at full width and ``R_LAYERS`` of its 32 layers, int8 weights
 #: from seed 0: the tp=2 engines (two local ranks sharing the card, started
 #: by the launcher) and the tp=1 references on the same weights
-R_LAYERS = 2   # at 8 the smoke took 1,181 s of its 1,200 (H100 80GB HBM3, 700 W); 4 until
-               # path V came (1,018.5 s with R and S at 4)
+R_LAYERS = 1   # at 8 the smoke took 1,181 s of its 1,200 (H100 80GB HBM3, 700 W); 4 until
+               # path V came (1,018.5 s with R and S at 4), 2 until path Y came
+               # (1,052.3 s with R and S at 2 on a slow host)
 R_MESH = {"tp": 2}
 R_BASE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged", "slots": 16,
           "max-seq-len": 2048, "decode-chunk": 32, "seed": 0}
@@ -6796,7 +6900,8 @@ def phase_store_mesh_path(torch, device="cuda") -> dict:
 #: S2's serving resource: llama3-8b at full width, int8 weights and int8
 #: paged KV from seed 0, at ``S_LAYERS`` of its 32 layers, over the slice's
 #: four ranks
-S_LAYERS = 2   # 4 until path V came (the smoke 1,018.5 s with R and S at 4)
+S_LAYERS = 1   # 4 until path V came (the smoke 1,018.5 s with R and S at 4), 2
+               # until path Y came (1,052.3 s with R and S at 2 on a slow host)
 S_RESOURCE = {"model": "llama3-8b", "quantize": "int8", "kv-layout": "paged",
               "kv-quantize": "int8", "slots": 8, "max-seq-len": 2048, "decode-chunk": 32,
               "seed": 0, "mesh": {"dp": 2, "tp": 2}}
@@ -9197,6 +9302,514 @@ def phase_retrieval_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path Y: the document and HTTP agents without JAX
+# ---------------------------------------------------------------------------
+
+Y_LAYERS = MAIN_LAYERS
+Y_TIMEOUT = 600.0      # seconds any one wait may take
+Y_GAP = 0.05           # a summary may first differ from the engine's own greedy
+                       # output only where the top-2 logprob gap is under this
+#: Y1's documents: their kinds and the characters of their text
+Y_KINDS = ("pdf", "docx", "html", "text", "pdf-flate", "docx", "html", "text")
+Y_DOC_CHARS = (1000, 1900, 2700, 3600, 4400, 5300, 6400, 7500)
+Y2_PAGES = 16
+#: what this process may not load while path Y serves
+Y_REFUSED = T_REFUSED + ("cryptography", "psycopg")
+
+
+def _y_pdf(content: bytes, compress: bool) -> bytes:
+    """A one-page PDF around one content stream, raw or FlateDecode."""
+    import zlib
+
+    body = zlib.compress(content) if compress else content
+    head = b"/Filter /FlateDecode " if compress else b""
+    return (b"%PDF-1.4\n1 0 obj << /Type /Catalog /Pages 2 0 R >> endobj\n"
+            b"2 0 obj << /Type /Pages /Kids [3 0 R] /Count 1 >> endobj\n"
+            b"3 0 obj << /Type /Page /Parent 2 0 R /Contents 4 0 R >> endobj\n"
+            b"4 0 obj << " + head + b"/Length %d >>\nstream\n" % len(body) + body
+            + b"\nendstream\nendobj\ntrailer << /Root 1 0 R >>\n%%EOF\n")
+
+
+def _y_docx(lines: list[str]) -> bytes:
+    import io
+    import zipfile
+
+    ns = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+    body = "".join(f"<w:p><w:r><w:t>{line}</w:t></w:r></w:p>" for line in lines)
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("[Content_Types].xml", "<Types/>")
+        zf.writestr("word/document.xml",
+                    f'<w:document xmlns:w="{ns}"><w:body>{body}</w:body></w:document>')
+    return buf.getvalue()
+
+
+def _y_html(title: str, lines: list[str]) -> bytes:
+    return (f"<html><head><title>{title}</title><style>p {{ margin: 0 }}</style></head>"
+            f"<body>{''.join(f'<p>{line}</p>' for line in lines)}"
+            "<script>var seen = 1;</script></body></html>").encode()
+
+
+def _y_lines(rng, vocab, chars: int) -> list[str]:
+    lines, size = [], 0
+    while size < chars:
+        line = " ".join(rng.choice(vocab, int(rng.integers(8, 14)))).capitalize() + "."
+        lines.append(line)
+        size += len(line) + 1
+    return lines
+
+
+def y_documents(seed: int = 0) -> list[dict]:
+    """Y1's documents from a seed, each written here with no library: two
+    PDFs (one stream raw, one compressed), two docx, two HTML pages and two
+    plain texts; each one's text is its lines joined by newlines, from
+    1,000 to 7,500 characters."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = sorted({"".join(rng.choice(X_SYLLABLES, int(rng.integers(2, 4))))
+                    for _ in range(900)})[:600]
+    docs = []
+    for i, (kind, chars) in enumerate(zip(Y_KINDS, Y_DOC_CHARS)):
+        lines = _y_lines(rng, vocab, chars)
+        if kind.startswith("pdf"):
+            content = b"".join(b"BT /F1 11 Tf 72 %d Td (%s) Tj ET\n" % (760 - 12 * j, line.encode())
+                               for j, line in enumerate(lines))
+            data = _y_pdf(content, kind == "pdf-flate")
+        elif kind == "docx":
+            data = _y_docx(lines)
+        elif kind == "html":
+            data = _y_html(f"Document {i}", lines)
+        else:
+            data = "\n".join(lines).encode()
+        docs.append({"key": f"doc{i}-{kind}", "kind": kind, "data": data,
+                     "text": "\n".join(lines)})
+    return docs
+
+
+def y_extract_on_cpu(doc: dict) -> str:
+    """The document's text as ``pdftext`` or the HTML parser gives it for
+    its bytes (the plain text decoded)."""
+    from langstream_tpu_torch.agents import pdftext
+    from langstream_tpu_torch.agents.text import _HTMLTextExtractor
+
+    data = doc["data"]
+    if data[:4] == b"%PDF":
+        return pdftext.extract_pdf_text(data)
+    kind = pdftext.sniff_ooxml_kind(data)
+    if kind is not None:
+        return pdftext.extract_ooxml_text(data, kind)
+    text = data.decode("utf-8")
+    if "<html" in text.lower():
+        parser = _HTMLTextExtractor()
+        parser.feed(text)
+        return "\n".join(parser.parts)
+    return text
+
+
+def _y_summarizer(root: Path) -> tuple[Path, Path]:
+    """A copy of ``long-context-summarizer`` whose one change is that its
+    resource has no ``mesh`` (one card serves it), and
+    ``examples/instances/memory.yaml`` on a broker cluster of its own."""
+    source = T_APPS / "long-context-summarizer"
+    app = root / "long-context-summarizer"
+    app.mkdir()
+    (app / "pipeline.yaml").write_text((source / "pipeline.yaml").read_text())
+    config = (source / "configuration.yaml").read_text()
+    cut = re.sub(r"\n        mesh:\n          sp: 4\n          tp: 2\n", "\n", config)
+    if cut == config:
+        fail("Y1: the summarizer example's mesh is not where the copy removes it")
+    (app / "configuration.yaml").write_text(cut)
+    instance = root / "instance.yaml"
+    instance.write_text(T_INSTANCE.read_text().replace(
+        'type: "memory"', 'type: "memory"\n    configuration: {cluster: "chip-smoke-y"}', 1))
+    return app, instance
+
+
+def _y_gap(torch, engine, prompt: str, tokens: list[int]) -> float:
+    """The top-2 logprob gap of the next token after ``prompt`` and
+    ``tokens``, from one prefill on the engine's own params."""
+    from langstream_tpu_torch.models.llama import prefill_forward
+
+    ids = engine.tokenizer.encode(prompt) + list(tokens)
+    with torch.no_grad():
+        logits = prefill_forward(
+            engine.model_config, engine.params, torch.tensor([ids], device=engine.device),
+            torch.tensor([len(ids)], device=engine.device), ffn=engine._ffn)[0]
+    top = torch.log_softmax(logits[0].float(), dim=-1).topk(2).values
+    return float(top[0] - top[1])
+
+
+def y1_summarizer(torch, device="cuda") -> tuple[dict, dict]:
+    """Y1: ``long-context-summarizer`` through ``cli.main.LocalRun``: the
+    documents produced as bytes to ``documents-in``, the summaries read
+    from ``summaries-out`` and held to the engine's own greedy output.
+    Returns (the path's line, its launches)."""
+    import shutil
+    import tempfile
+
+    from langstream_tpu_torch.api.record import MutableRecord
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.core.expressions import render_template
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    label = "Y1: long-context-summarizer through the port's run"
+    docs = y_documents()
+    for doc in docs:
+        if y_extract_on_cpu(doc) != doc["text"]:
+            fail(f"{label}: {doc['key']}: the CPU extraction is not the text written")
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-y1-"))
+    try:
+        app, instance = _y_summarizer(root)
+        pipeline = safe_load((app / "pipeline.yaml").read_text(), "pipeline.yaml")
+        step = next(a for a in pipeline["pipeline"] if a["type"] == "ai-text-completions")
+        template, max_tokens = step["configuration"]["prompt"][0], step["configuration"][
+            "max-tokens"]
+        prompts = {doc["key"]: render_template(template, MutableRecord(value=doc["text"]))
+                   for doc in docs}
+
+        async def drive():
+            out = {}
+            t0 = time.monotonic()
+            run = LocalRun("long-context-summarizer", app, instance, device=device,
+                           gateway_port=0)
+            await run.start()
+            out["start_s"] = time.monotonic() - t0
+            try:
+                engine = _x_engine(app, device)
+                calls = []
+                generate = engine.generate
+
+                async def recorded(prompt, options=None, **kw):
+                    t = time.monotonic()
+                    result = await generate(prompt, options, **kw)
+                    calls.append({"prompt": prompt, "options": dict(options or {}),
+                                  "result": result, "s": time.monotonic() - t})
+                    return result
+
+                engine.generate = recorded
+                completed = engine.stats()["completed"]
+                reset_counts()
+                t = time.monotonic()
+                for doc in docs:
+                    await run.runner.produce("documents-in", doc["data"], key=doc["key"])
+                records = await run.runner.wait_for_messages("summaries-out", len(docs),
+                                                             timeout=Y_TIMEOUT)
+                out["wave_s"] = time.monotonic() - t
+                out["counts"] = read_counts()
+                out["stats"] = engine.stats()
+                out["leaks"] = _t_leaks(Y_REFUSED)
+                if engine.stats()["completed"] - completed != len(docs):
+                    fail(f"{label}: the agent's requests did not run on the resource's engine")
+                engine.generate = generate
+                out["eos"] = engine.tokenizer.eos_id
+                out["records"] = {r.key: r.value for r in records}
+                out["calls"] = calls
+                # the engine's own greedy output for each rendered prompt, one wave
+                out["reference"] = await asyncio.gather(*(
+                    generate(c["prompt"], c["options"]) for c in calls))
+                out["gaps"] = {}
+                for call, ref in zip(calls, out["reference"]):
+                    got, want = call["result"]["tokens"], ref["tokens"]
+                    if got != want:
+                        i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                                 min(len(got), len(want)))
+                        out["gaps"][call["prompt"]] = (i, _y_gap(torch, engine, call["prompt"],
+                                                                 want[:i]))
+            finally:
+                await run.stop()
+            return out
+
+        out = asyncio.run(drive())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if out["leaks"]:
+        fail(f"{label}: the port's run loaded {out['leaks']}")
+    by_prompt = {c["prompt"]: c for c in out["calls"]}
+    eos = out["eos"]
+    rows = []
+    for doc in docs:
+        call = by_prompt.get(prompts[doc["key"]])
+        if call is None:
+            fail(f"{label}: {doc['key']}: no request's prompt holds the CPU extraction of "
+                 f"its bytes")
+        record = out["records"].get(doc["key"])
+        tokens = call["result"]["tokens"]
+        if record is None or record.get("summary") != call["result"]["text"]:
+            fail(f"{label}: {doc['key']}: summaries-out holds {record!r}, not the completion")
+        if not (len(tokens) == max_tokens or (tokens and tokens[-1] == eos)):
+            fail(f"{label}: {doc['key']}: {len(tokens)} tokens, neither {max_tokens} nor "
+                 f"ended at EOS")
+        first_diff, gap = out["gaps"].get(call["prompt"], (None, None))
+        if first_diff is not None and not gap < Y_GAP:
+            fail(f"{label}: {doc['key']}: the summary first differs from the engine's greedy "
+                 f"output at token {first_diff}, where the top-2 gap is {gap:.4f} >= {Y_GAP}")
+        rows.append({"key": doc["key"], "chars": len(doc["text"]),
+                     "prompt_tokens": call["result"]["num_prompt_tokens"],
+                     "ttft_s": round(call["result"]["ttft"], 4), "seconds": round(call["s"], 3),
+                     "tokens": len(tokens), "greedy_equal": first_diff is None,
+                     "first_diff": first_diff, "gap": None if gap is None else round(gap, 4)})
+    counts, sp = out["counts"], out["stats"]["speculative"]
+    if device == "cuda" and min(counts["flash_attention"], counts["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts}")
+    if device == "cuda" and sp["steps"] and counts["paged_attention_multiquery"] == 0:
+        fail(f"{label}: {sp['steps']} verify steps ran without the multi-query kernel")
+    line = {"documents": rows, "start_s": round(out["start_s"], 3),
+            "wave_s": round(out["wave_s"], 3),
+            "speculative": {k: sp.get(k) for k in ("steps", "drafts_accepted", "rejected",
+                                                   "uplift", "flips", "auto_disabled")},
+            "launches": counts, "modules_refused_and_absent": list(Y_REFUSED)}
+    return line, counts
+
+
+def y2_site(seed: int = 0) -> dict:
+    """Y2's site of ``Y2_PAGES`` seeded HTML pages: a tree from ``/`` whose
+    deepest pages lie beyond ``max-depth`` 5, a ``/private/`` subtree that
+    ``robots.txt`` disallows, and three pages only the sitemap (named by
+    ``robots.txt``) leads to. Returns {path: (links, lines)} and the
+    sitemap's paths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = sorted({"".join(rng.choice(X_SYLLABLES, int(rng.integers(2, 4))))
+                    for _ in range(900)})[:600]
+    links = {
+        "/": ["/docs/a1.html", "/docs/a2.html", "/docs/a3.html", "/private/x.html"],
+        "/docs/a1.html": ["/docs/b1.html", "/"], "/docs/a2.html": ["/docs/b2.html",
+                                                                    "/private/y.html"],
+        "/docs/a3.html": ["/"], "/docs/b1.html": ["/docs/c1.html"],
+        "/docs/b2.html": ["/docs/a1.html"], "/docs/c1.html": ["/docs/d1.html"],
+        "/docs/d1.html": ["/docs/e1.html"], "/docs/e1.html": ["/docs/f1.html"],
+        "/docs/f1.html": ["/docs/g1.html"], "/docs/g1.html": [],
+        "/private/x.html": ["/private/y.html"], "/private/y.html": [],
+        "/orphan/a.html": ["/orphan/c.html"], "/orphan/b.html": [], "/orphan/c.html": []}
+    if len(links) != Y2_PAGES:
+        fail(f"Y2: the site has {len(links)} pages, not {Y2_PAGES}")
+    pages = {path: (out, _y_lines(rng, vocab, int(rng.integers(600, 1600))))
+             for path, out in links.items()}
+    return {"pages": pages, "sitemap": ["/orphan/a.html", "/orphan/b.html"],
+            "disallow": "/private/"}
+
+
+def y2_page(path: str, page: tuple) -> str:
+    """A page of :func:`y2_site` as the site serves it."""
+    links, lines = page
+    return (f"<html><head><title>{path}</title></head><body>"
+            + "".join(f"<p>{line}</p>" for line in lines)
+            + "".join(f'<a href="{link}">next</a>' for link in links) + "</body></html>")
+
+
+def y2_walk(site: dict, max_depth: int) -> set[str]:
+    """A plain breadth-first walk: from ``/`` and the sitemap's pages (depth
+    0), links followed from pages above ``max_depth``, robots rules kept."""
+    depth = {p: 0 for p in ["/"] + site["sitemap"]}
+    queue = list(depth)
+    while queue:
+        path = queue.pop(0)
+        if depth[path] >= max_depth:
+            continue
+        for link in site["pages"][path][0]:
+            if link not in depth:
+                depth[link] = depth[path] + 1
+                queue.append(link)
+    return {p for p in depth if not p.startswith(site["disallow"])}
+
+
+def _y2_serve(site: dict):
+    """The site on a stdlib ``http.server`` at 127.0.0.1 in a thread: (the
+    server, its base URL, the paths it was asked for)."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    hits: list[str] = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_GET(self):
+            hits.append(self.path)
+            base = f"http://127.0.0.1:{self.server.server_address[1]}"
+            page = site["pages"].get(self.path)
+            if self.path == "/robots.txt":
+                body, ctype = (f"User-agent: *\nDisallow: {site['disallow']}\n"
+                               f"Sitemap: {base}/sitemap.xml\n").encode(), "text/plain"
+            elif self.path == "/sitemap.xml":
+                body = ('<?xml version="1.0"?><urlset xmlns="http://www.sitemaps.org/schemas/'
+                        'sitemap/0.9">' + "".join(f"<url><loc>{base}{p}</loc></url>"
+                                                  for p in site["sitemap"]) + "</urlset>")
+                body, ctype = body.encode(), "application/xml"
+            elif page is not None:
+                body, ctype = y2_page(self.path, page).encode(), "text/html; charset=utf-8"
+            else:
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, name="y2-site", daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}", hits
+
+
+def y2_crawl(torch, device="cuda") -> tuple[dict, dict]:
+    """Y2: a copy of ``webcrawler-to-vector`` over :func:`y2_site`, its
+    ``seed-urls`` and ``allowed-domains`` pointing at the site and the
+    minilm-l6 encoder of a serving resource computing its embeddings (the
+    example declares none, so it would embed with the mock), the default
+    500 ms between requests kept. Returns (the path's line, its
+    launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.agents.text import RecursiveCharacterTextSplitter, TextExtractorAgent
+    from langstream_tpu_torch.agents.vector import InMemoryVectorStore
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.core.yaml_subset import safe_load
+
+    label = "Y2: webcrawler-to-vector through the port's run"
+    site = y2_site()
+    source = T_APPS / "webcrawler-to-vector"
+    pipeline = safe_load((source / "pipeline.yaml").read_text(), "pipeline.yaml")
+    crawl = next(a for a in pipeline["pipeline"] if a["type"] == "webcrawler")["configuration"]
+    split = next(a for a in pipeline["pipeline"] if a["type"] == "text-splitter")[
+        "configuration"]
+    server, base, hits = _y2_serve(site)
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-y2-"))
+    try:
+        app = root / "webcrawler-to-vector"
+        app.mkdir()
+        port = server.server_address[1]
+        text = (source / "pipeline.yaml").read_text()
+        # two repairs beside the site's address, each a fault of the example in
+        # both packages: a chunk reaches ``compute-ai-embeddings`` as a string,
+        # whose ``value.text`` is empty, so ``document-to-json`` wraps it first
+        # (as path X's ingestion app does); and ``fn:uuid()`` is in neither
+        # package's expression language (the sink fails at its first record),
+        # so the id is the chunk's page and number
+        embed = '  - name: "embed"\n    type: "compute-ai-embeddings"\n'
+        for old, new in ((embed + '    input: "chunks-topic"\n',
+                          '  - name: "to-json"\n    type: "document-to-json"\n'
+                          '    input: "chunks-topic"\n    configuration:\n'
+                          '      text-field: "text"\n' + embed),
+                         ('seed-urls: ["https://docs.example.com/"]', f'seed-urls: ["{base}/"]'),
+                         ('allowed-domains: ["docs.example.com"]',
+                          f'allowed-domains: ["127.0.0.1:{port}"]'),
+                         ('expression: "fn:uuid()"',
+                          "expression: \"fn:concat(key, '-', properties.chunk_id)\"")):
+            if old not in text:
+                fail(f"{label}: the example no longer says {old}")
+            text = text.replace(old, new)
+        (app / "pipeline.yaml").write_text(text)
+        resource = {"embeddings-model": "minilm-l6"}
+        (app / "configuration.yaml").write_text(
+            (source / "configuration.yaml").read_text().rstrip("\n")
+            + '\n    - type: "tpu-serving-configuration"\n      name: "encoder"\n'
+              '      configuration:\n        embeddings-model: "minilm-l6"\n')
+        instance = root / "instance.yaml"
+        instance.write_text(T_INSTANCE.read_text().replace(
+            'type: "memory"', 'type: "memory"\n    configuration: {cluster: "chip-smoke-y2"}', 1))
+        visited = y2_walk(site, int(crawl["max-depth"]))
+        extractor = TextExtractorAgent()
+        splitter = RecursiveCharacterTextSplitter(chunk_size=int(split["chunk-size"]),
+                                                  chunk_overlap=int(split["chunk-overlap"]))
+        expected = []
+        for path in sorted(visited):
+            expected += splitter.split_text(extractor._extract_html(y2_page(path,
+                                                                            site["pages"][path])))
+
+        async def drive():
+            out = {}
+            run = LocalRun("webcrawler-to-vector", app, instance, device=device, gateway_port=0)
+            t0 = time.monotonic()
+            await run.start()
+            out["start_s"] = time.monotonic() - t0
+            try:
+                coll = InMemoryVectorStore.get("vector-db").collection("docs")
+                reset_counts()
+                t = time.monotonic()
+                while len(coll.ids) < len(expected):
+                    if time.monotonic() - t > Y_TIMEOUT:
+                        fail(f"{label}: {len(coll.ids)} of {len(expected)} chunks stored")
+                    await asyncio.sleep(0.05)
+                out["crawl_s"] = time.monotonic() - t
+                await asyncio.sleep(2 * float(crawl.get("min-time-between-requests", 500)) / 1e3)
+                out["counts"] = read_counts()
+                out["leaks"] = _t_leaks(Y_REFUSED)
+            finally:
+                await run.stop()
+            return out
+
+        out = asyncio.run(drive())
+        coll = InMemoryVectorStore.get("vector-db").collection("docs")
+        texts = [p["text"] for p in coll.payloads]
+        vectors = np.stack(coll.vectors)
+        fetched = {h for h in hits if h not in ("/robots.txt", "/sitemap.xml")}
+        if fetched != visited:
+            fail(f"{label}: the crawler fetched {sorted(fetched)}, a plain walk of the site "
+                 f"visits {sorted(visited)}")
+        if sorted(texts) != sorted(expected):
+            fail(f"{label}: the store holds {len(texts)} rows, extract and split on the CPU "
+                 f"give {len(expected)} chunks, or their texts differ")
+        cpu = TorchServiceProvider({"type": "tpu-serving-configuration", **resource},
+                                   device="cpu").get_embeddings_service({})
+        want = np.asarray(asyncio.run(cpu.compute_embeddings(texts)), np.float32)
+        want /= np.maximum(np.linalg.norm(want, axis=1, keepdims=True), 1e-12)
+        err = float(np.abs(vectors - want).max())
+        if not np.isfinite(vectors).all() or not err <= TOL_EMBED:
+            fail(f"{label}: a stored vector is {err} from the CPU encoder's (tolerance "
+                 f"{TOL_EMBED})")
+    finally:
+        server.shutdown()
+        server.server_close()
+        shutil.rmtree(root, ignore_errors=True)
+        InMemoryVectorStore.reset()
+    if out["leaks"]:
+        fail(f"{label}: the port's run loaded {out['leaks']}")
+    line = {"pages": len(fetched), "chunks": len(texts), "start_s": round(out["start_s"], 3),
+            "crawl_s": round(out["crawl_s"], 3),
+            "pages_per_s": round(len(fetched) / out["crawl_s"], 3),
+            "chunks_per_s": round(len(texts) / out["crawl_s"], 3),
+            "min_time_between_requests_ms": int(crawl.get("min-time-between-requests", 500)),
+            "max_abs_err_vs_cpu": err, "tolerance": TOL_EMBED, "visited_equal_walk": True,
+            "launches": out["counts"]}
+    return line, out["counts"]
+
+
+def phase_document_path(torch, device="cuda") -> dict:
+    """Path Y: the document and HTTP agents without JAX (:func:`y1_summarizer`
+    at ``Y_LAYERS``, :func:`y2_crawl`). Returns both runs' launches."""
+    from langstream_tpu_torch.serving.embeddings import EmbeddingEngine
+
+    t0 = time.monotonic()
+    with cut_depth("llama3-8b", Y_LAYERS):
+        y1, y1_counts = y1_summarizer(torch, device)
+    print(f"path Y [Y1 long-context-summarizer, llama3-8b int8 {Y_LAYERS} layers, "
+          f"{len(Y_KINDS)} documents over documents-in/summaries-out]: {json.dumps(y1)}",
+          flush=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    y2, y2_counts = y2_crawl(torch, device)
+    print(f"path Y [Y2 webcrawler-to-vector, minilm-l6, {Y2_PAGES} pages on 127.0.0.1]: "
+          f"{json.dumps(y2)}", flush=True)
+    for engine_ in list(EmbeddingEngine._instances.values()):
+        engine_.close()
+    EmbeddingEngine.reset_instances()
+    counts = {k: y1_counts[k] + y2_counts[k] for k in y1_counts}
+    print(f"path Y: {time.monotonic() - t0:.1f} s; launches {json.dumps(counts)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -9448,9 +10061,16 @@ def main() -> int:
     x_counts = phase_retrieval_path(torch)
     if x_counts["flash_attention"] == 0 or x_counts["paged_attention"] == 0:
         fail(f"path X did not launch flash and the bf16 paged read: {x_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_y = time.monotonic()
+    y_counts = phase_document_path(torch)
+    if y_counts["flash_attention"] == 0 or y_counts["paged_attention"] == 0:
+        fail(f"path Y did not launch flash and the bf16 paged read: {y_counts}")
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
                 P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=t_u - t_t,
-                U=t_v - t_u, V=t_w - t_v, W=t_x - t_w, X=time.monotonic() - t_x)
+                U=t_v - t_u, V=t_w - t_v, W=t_x - t_w, X=t_y - t_x,
+                Y=time.monotonic() - t_y)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -9465,8 +10085,9 @@ def main() -> int:
              "E": e_counts, "F": f_counts, "G": g_counts, "H": h_counts, "I": i_counts,
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
              "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
-             "T": t_counts, "U": u_counts, "V": v_counts, "W": w_counts, "X": x_counts}
-    meta = {  # launches: summed over the 24 main paths (rank 0's on N, O, Q, R, S; V's
+             "T": t_counts, "U": u_counts, "V": v_counts, "W": w_counts, "X": x_counts,
+             "Y": y_counts}
+    meta = {  # launches: summed over the 25 main paths (rank 0's on N, O, Q, R, S; V's
         # the chat pod's, in its profiled window)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),

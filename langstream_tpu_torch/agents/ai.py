@@ -1,6 +1,5 @@
-"""AI agents: chat and text completions, embeddings, re-rank and datasource
-query (the port's copy of ``langstream_tpu/agents/ai.py`` but for
-``flare-controller``).
+"""AI agents: completions, embeddings, re-rank, FLARE, datasource query (the
+port's copy of ``langstream_tpu/agents/ai.py``).
 
 Parity: ``langstream-ai-agents`` --
 ``ChatCompletionsStep.java:42`` (Mustache prompt templating, token streaming
@@ -8,12 +7,11 @@ to a topic with growing chunk batches up to ``min-chunks-per-message``,
 ``completion-field``/``log-field``), ``TextCompletionsStep.java``,
 ``ComputeAIEmbeddingsStep.java:46`` (batched via ``OrderedAsyncBatchExecutor``
 -- batch-size / flush-interval / concurrency config), ``QueryStep.java``,
-``ReRankAgent.java`` (MMR).
+``ReRankAgent.java`` (MMR), ``FlareControllerAgent.java``.
 
 The backing :class:`ServiceProvider` for a ``tpu-serving-configuration``
 resource is the port's engine, so "call the model" means "enqueue into the
-continuous-batching decode loop on this process's card". The JAX module's
-``flare-controller`` is not ported yet.
+continuous-batching decode loop on this process's card".
 """
 
 from __future__ import annotations
@@ -465,6 +463,34 @@ class ReRankAgent(SingleRecordProcessor):
             cfg.get("output-field", cfg.get("field", "value.documents")),
             [docs[i] for i in selected],
         )
+        return [mutable.to_record()]
+
+
+class FlareControllerAgent(SingleRecordProcessor):
+    """``flare-controller``: FLARE active-retrieval loop control — if the
+    completion carries low-confidence tokens, route the record back to the
+    retrieval loop topic, else pass through."""
+
+    async def process_record(self, record: Record) -> list[Record]:
+        from langstream_tpu_torch.runtime.runner import DESTINATION_TOPIC_HEADER
+
+        cfg = self.configuration
+        mutable = MutableRecord.from_record(record)
+        tokens_field = cfg.get("tokens-field", "value.tokens")
+        logprobs_field = cfg.get("logprobs-field", "value.logprobs")
+        loop_topic = cfg.get("loop-topic", "flare-loop")
+        min_prob = float(cfg.get("min-prob", 0.2))
+        tokens = evaluate_accessor(tokens_field, mutable) or []
+        logprobs = evaluate_accessor(logprobs_field, mutable) or []
+        uncertain = [
+            t
+            for t, lp in zip(tokens, logprobs)
+            if math.exp(float(lp)) < min_prob
+        ]
+        if uncertain:
+            mutable.set_field("value.flare_uncertain_spans", uncertain)
+            out = mutable.to_record()
+            return [out.with_headers({DESTINATION_TOPIC_HEADER: loop_topic})]
         return [mutable.to_record()]
 
 

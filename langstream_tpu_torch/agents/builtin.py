@@ -1,7 +1,9 @@
 """Registration of every agent type the port carries (the port's copy of
-``langstream_tpu/agents/builtin.py``, for the types ported so far), with
-the JAX package's component types (``_METADATA``) so the planner fuses
-sources, sinks and services as the JAX planner does. Importing the store
+``langstream_tpu/agents/builtin.py``, for the types ported so far: all but
+the four ``grpc-*`` ones), with the JAX package's component types
+(``_METADATA``) so the planner fuses sources, sinks and services as the JAX
+planner does, and the JAX package's planning-time config validator
+(``camel-source``). Importing the store
 modules registers their asset managers
 (:class:`~langstream_tpu_torch.agents.assets.AssetManagerRegistry`); the
 Cassandra ones register when :mod:`.cassandra_cql` is first imported, as in
@@ -17,9 +19,10 @@ from __future__ import annotations
 
 from langstream_tpu_torch.api.agent import ComponentType
 from langstream_tpu_torch.api.registry import AgentCodeProvider, AgentCodeRegistry
-from langstream_tpu_torch.core.planner import register_agent_type
+from langstream_tpu_torch.core.planner import register_agent_type, register_config_validator
 
 from langstream_tpu_torch.agents import ai, connect, flow, python_custom, text, transform, vector
+from langstream_tpu_torch.agents import camel, http, storage, webcrawler
 from langstream_tpu_torch.agents import jdbc, opensearch  # noqa: F401  (asset managers)
 from langstream_tpu_torch.agents import astra, milvus, solr  # noqa: F401  (asset managers)
 
@@ -43,8 +46,11 @@ _FACTORIES = {
     "compute-ai-embeddings": ai.ComputeAIEmbeddingsAgent,
     "query": ai.QueryAgent,
     "re-rank": ai.ReRankAgent,
+    "flare-controller": ai.FlareControllerAgent,
     # text processing
+    "text-extractor": text.TextExtractorAgent,
     "text-splitter": text.TextSplitterAgent,
+    "text-normaliser": text.TextNormaliserAgent,
     "language-detector": text.LanguageDetectorAgent,
     "document-to-json": text.DocumentToJsonAgent,
     # flow control
@@ -55,6 +61,15 @@ _FACTORIES = {
     # vector stores
     "vector-db-sink": vector.VectorDBSinkAgent,
     "query-vector-db": vector.QueryVectorDBAgent,
+    # http
+    "http-request": http.HttpRequestAgent,
+    "langserve-invoke": http.LangServeInvokeAgent,
+    # sources
+    "camel-source": camel.CamelSource,
+    "webcrawler": webcrawler.WebCrawlerSource,
+    "local-storage-source": storage.LocalStorageSource,
+    "s3-source": storage.make_s3_source,
+    "azure-blob-storage-source": storage.make_azure_source,
     # Kafka-Connect-style bridge (reference: KafkaConnectCodeProvider.java:26)
     "sink": connect.ConnectSinkBridge,
     "source": connect.ConnectSourceBridge,
@@ -74,6 +89,11 @@ _FACTORIES = {
 #: processors (the JAX ``_METADATA``'s entries for the ported types)
 _METADATA = {
     "timer-source": (SOURCE, True),
+    "camel-source": (SOURCE, True),
+    "webcrawler": (SOURCE, True),
+    "local-storage-source": (SOURCE, True),
+    "s3-source": (SOURCE, True),
+    "azure-blob-storage-source": (SOURCE, True),
     "python-source": (SOURCE, True),
     "experimental-python-source": (SOURCE, True),
     "vector-db-sink": (SINK, True),
@@ -90,3 +110,7 @@ AgentCodeRegistry.register_provider(AgentCodeProvider(dict(_FACTORIES)))
 for name in _FACTORIES:
     component_type, composable = _METADATA.get(name, (PROCESSOR, True))
     register_agent_type(name, component_type, composable)
+
+# planning-time config validation (unsupported camel schemes fail in the
+# planner with the descope rationale, not at pod start)
+register_config_validator("camel-source", camel.validate_camel_config)

@@ -10,9 +10,9 @@ port's dataclasses carry across by their fields.
 :class:`~langstream_tpu_torch.agents.provider.TorchServiceProvider` on
 :data:`SERVING_DEVICE` (the card unless a caller, such as ``run
 --device cpu``, sets it with :func:`set_serving_device`);
-``mock-serving-configuration`` to the deterministic mock. The HTTP
-providers (``open-ai-configuration``, ``ollama-configuration``) are not
-ported yet and refuse by name when an agent resolves them.
+``mock-serving-configuration`` to the deterministic mock;
+``open-ai-configuration`` and ``ollama-configuration`` to the OpenAI-compatible
+HTTP provider (:mod:`langstream_tpu_torch.agents.http_providers`).
 """
 
 from __future__ import annotations
@@ -236,12 +236,11 @@ def _torch_provider(cfg: dict[str, Any]) -> ServiceProvider:
 register_provider("tpu-serving-configuration", _torch_provider)
 
 
-def _unported_provider(cfg: dict[str, Any]) -> ServiceProvider:
-    raise RuntimeError(
-        f"resource type {cfg.get('type')!r}: the HTTP model providers are not "
-        f"ported to langstream_tpu_torch yet; a later slice of the port brings them"
-    )
+def _openai_provider(cfg: dict[str, Any]) -> ServiceProvider:
+    from langstream_tpu_torch.agents.http_providers import OpenAICompatProvider
+
+    return OpenAICompatProvider(cfg)
 
 
-register_provider("open-ai-configuration", _unported_provider)
-register_provider("ollama-configuration", _unported_provider)
+register_provider("open-ai-configuration", _openai_provider)
+register_provider("ollama-configuration", _openai_provider)

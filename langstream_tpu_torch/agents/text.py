@@ -1,19 +1,22 @@
 """Text-processing agents.
 
 Parity: ``langstream-agents-text-processing``
-(``agents/text/*.java``): ``text-splitter`` (LangChain-compatible
-``RecursiveCharacterTextSplitter.java``), ``language-detector``,
-``document-to-json``.
+(``agents/text/*.java``): ``text-extractor`` (Tika in the reference; here
+html/markdown/plain extraction with stdlib parsers — binary formats gate on
+optional libs), ``text-splitter`` (LangChain-compatible
+``RecursiveCharacterTextSplitter.java``), ``text-normaliser``,
+``language-detector``, ``document-to-json``.
 
-The port's copy of ``langstream_tpu/agents/text.py``, for these three types;
-it imports only the port. ``text-extractor`` and ``text-normaliser`` come
-with the port's other agents, and the planner refuses them until then.
+The port's copy of ``langstream_tpu/agents/text.py``; it imports only the
+port (``pypdf`` only when a PDF arrives and it is installed).
 """
 
 from __future__ import annotations
 
 import json
 import re
+import unicodedata
+from html.parser import HTMLParser
 from typing import Any
 
 from langstream_tpu_torch.api.agent import SingleRecordProcessor
@@ -36,6 +39,98 @@ class DocumentToJsonAgent(SingleRecordProcessor):
         field = self.configuration.get("text-field", "text")
         value = {field: _text_of(record)}
         return [record.with_value(value)]
+
+
+class _HTMLTextExtractor(HTMLParser):
+    _SKIP = {"script", "style", "noscript", "template", "head"}
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.parts: list[str] = []
+        self._skip_depth = 0
+
+    def handle_starttag(self, tag: str, attrs) -> None:
+        if tag in self._SKIP:
+            self._skip_depth += 1
+
+    def handle_endtag(self, tag: str) -> None:
+        if tag in self._SKIP and self._skip_depth:
+            self._skip_depth -= 1
+
+    def handle_data(self, data: str) -> None:
+        if not self._skip_depth and data.strip():
+            self.parts.append(data.strip())
+
+
+class TextExtractorAgent(SingleRecordProcessor):
+    """``text-extractor``: document bytes → plain text.
+
+    The reference embeds Apache Tika; here HTML/plain/JSON extraction is
+    first-party and binary formats (pdf, docx) plug in behind optional
+    libraries when present.
+    """
+
+    async def process_record(self, record: Record) -> list[Record]:
+        raw = record.value
+        if isinstance(raw, bytes):
+            text = self._extract_bytes(raw)
+        else:
+            text = _text_of(record)
+            if "<html" in text.lower() or "<body" in text.lower():
+                text = self._extract_html(text)
+        return [record.with_value(text)]
+
+    def _extract_bytes(self, raw: bytes) -> str:
+        if raw[:4] == b"%PDF":
+            try:
+                from pypdf import PdfReader  # optional, better coverage
+                import io
+
+                reader = PdfReader(io.BytesIO(raw))
+                return "\n".join(page.extract_text() or "" for page in reader.pages)
+            except ImportError:
+                # in-tree fallback: content-stream scanning (agents/
+                # pdftext.py documents its honest coverage — the common
+                # digitally-produced case works, scanned/CID-font PDFs
+                # need pypdf)
+                from langstream_tpu_torch.agents.pdftext import extract_pdf_text
+
+                return extract_pdf_text(raw)
+        from langstream_tpu_torch.agents.pdftext import (
+            extract_ooxml_text,
+            sniff_ooxml_kind,
+        )
+
+        kind = sniff_ooxml_kind(raw)
+        if kind is not None:
+            return extract_ooxml_text(raw, kind)
+        text = raw.decode("utf-8", errors="replace")
+        if "<html" in text.lower():
+            return self._extract_html(text)
+        return text
+
+    def _extract_html(self, html: str) -> str:
+        parser = _HTMLTextExtractor()
+        parser.feed(html)
+        return "\n".join(parser.parts)
+
+
+class TextNormaliserAgent(SingleRecordProcessor):
+    """``text-normaliser``: lowercase / trim / unicode-normalise."""
+
+    async def process_record(self, record: Record) -> list[Record]:
+        text = _text_of(record)
+        if self.configuration.get("make-lowercase", True):
+            text = text.lower()
+        if self.configuration.get("trim-spaces", True):
+            text = re.sub(r"[ \t]+", " ", text)
+            text = "\n".join(line.strip() for line in text.splitlines())
+            text = text.strip()
+        if self.configuration.get("unicode-normalisation"):
+            text = unicodedata.normalize(
+                self.configuration["unicode-normalisation"], text
+            )
+        return [record.with_value(text)]
 
 
 # Tiny trigram-free language detector: wordlist scoring over frequent words.

@@ -7,11 +7,10 @@ provider module (``langstream-codestorage-providers``: S3 via MinIO client,
 Azure blobs). The control plane uploads the zipped app directory on deploy;
 agent pods' init container downloads it before the runtime starts.
 
-First-party stores: the local filesystem (shared volume / PV in-cluster)
-and S3-compatible object storage (SigV4 REST via the port's
-:class:`langstream_tpu_torch.serving.s3.SyncS3Client`, no SDK needed). The
-JAX package's Azure Blob store is not ported yet: ``type: azure`` is
-refused by name.
+First-party stores: the local filesystem (shared volume / PV in-cluster),
+S3-compatible object storage (SigV4 REST via the port's
+:class:`langstream_tpu_torch.serving.s3.SyncS3Client` — no SDK needed), and
+Azure Blob (SharedKey REST via :mod:`langstream_tpu_torch.agents.azure_impl`).
 """
 
 from __future__ import annotations
@@ -23,9 +22,6 @@ import shutil
 import zipfile
 from pathlib import Path
 from typing import Any
-
-#: the JAX package's code storages that the port does not carry yet
-UNPORTED_STORAGES = ("azure", "azure-blob-storage")
 
 
 class CodeStorage(abc.ABC):
@@ -122,6 +118,64 @@ class S3CodeStorage(CodeStorage):
         )
 
 
+class AzureBlobCodeStorage(CodeStorage):
+    """Azure-Blob-backed archives (parity:
+    ``AzureBlobCodeStorage.java`` in ``langstream-codestorage-providers``)
+    over the in-tree SharedKey REST client. Same lazy-container policy as
+    :class:`S3CodeStorage`."""
+
+    def __init__(self, configuration: dict[str, Any]):
+        from langstream_tpu_torch.agents.azure_impl import (
+            SyncAzureBlobClient,
+            parse_connection_string,
+        )
+
+        endpoint = configuration.get("endpoint")
+        if not endpoint:
+            raise ValueError("azure code storage requires 'endpoint'")
+        container = configuration.get("container", "langstream-code-storage")
+        conn = configuration.get("storage-account-connection-string")
+        account = configuration.get("storage-account-name")
+        key = configuration.get("storage-account-key")
+        sas = configuration.get("sas-token")
+        if conn and not (account and key):
+            parts = parse_connection_string(str(conn))
+            account = parts.get("AccountName")
+            key = parts.get("AccountKey")
+        if not sas and not (account and key):
+            # fail at config time, not at the first 401 in a deployer Job
+            raise ValueError(
+                "azure code storage needs sas-token, storage-account-name/"
+                "storage-account-key, or a connection string carrying "
+                "AccountName+AccountKey"
+            )
+        self.client = SyncAzureBlobClient(
+            endpoint, container,
+            account=account, account_key=key,
+            sas_token=sas,
+        )
+        self._container_ready = False
+
+    def _name(self, tenant: str, code_archive_id: str) -> str:
+        return f"{tenant}/{code_archive_id}.zip"
+
+    def store(self, tenant: str, application_id: str, archive: bytes) -> str:
+        if not self._container_ready:
+            if not self.client.container_exists():
+                self.client.create_container()
+            self._container_ready = True
+        digest = hashlib.sha256(archive).hexdigest()[:24]
+        code_archive_id = f"{application_id}-{digest}"
+        self.client.put_blob(self._name(tenant, code_archive_id), archive)
+        return code_archive_id
+
+    def download(self, tenant: str, code_archive_id: str) -> bytes:
+        return self.client.get_blob(self._name(tenant, code_archive_id))
+
+    def delete(self, tenant: str, code_archive_id: str) -> None:
+        self.client.delete_blob(self._name(tenant, code_archive_id))
+
+
 def make_code_storage(configuration: dict[str, Any] | None) -> CodeStorage:
     """Factory keyed by ``type`` (parity: CodeStorageRegistry)."""
     configuration = configuration or {}
@@ -132,10 +186,9 @@ def make_code_storage(configuration: dict[str, Any] | None) -> CodeStorage:
         )
     if storage_type == "s3":
         return S3CodeStorage(configuration.get("configuration", configuration))
-    if storage_type in UNPORTED_STORAGES:
-        raise ValueError(
-            f"code storage type {storage_type!r} is not ported to langstream_tpu_torch "
-            f"yet; a later slice of the port brings it (ported: local, s3)"
+    if storage_type in ("azure", "azure-blob-storage"):
+        return AzureBlobCodeStorage(
+            configuration.get("configuration", configuration)
         )
     raise ValueError(f"unknown code storage type {storage_type!r}")
 

@@ -17,6 +17,8 @@ refused here, at planning, naming the type: it never reaches a runner.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
+
 from langstream_tpu_torch.api.agent import ComponentType
 from langstream_tpu_torch.api.application import (
     AgentConfiguration,
@@ -63,6 +65,17 @@ class PlanningError(ValueError):
     pass
 
 
+# Per-type configuration validators, run at planning time (parity: the
+# reference validates agent configs in the planner-side agent providers,
+# langstream-k8s-runtime/.../k8s/agents/*.java, not in the pod). A validator
+# raises ValueError; the planner wraps it with the agent/pipeline context.
+AGENT_CONFIG_VALIDATORS: dict[str, Callable[[dict], None]] = {}
+
+
+def register_config_validator(agent_type: str, validator: Callable[[dict], None]):
+    AGENT_CONFIG_VALIDATORS[agent_type] = validator
+
+
 class Planner:
     def __init__(self, application_id: str, application: Application):
         self.application_id = application_id
@@ -106,6 +119,21 @@ class Planner:
                     f"{agent.type!r} is not ported to langstream_tpu_torch yet; a "
                     f"later slice of the port brings it (ported: {sorted(known)})"
                 )
+            validator = AGENT_CONFIG_VALIDATORS.get(agent.type)
+            if validator is not None:
+                try:
+                    validator(agent.configuration)
+                except PlanningError:
+                    raise
+                except Exception as e:
+                    # any validator crash IS a planning failure — wrap it so
+                    # the user always gets the agent/pipeline context instead
+                    # of a bare traceback (e.g. a string where a map belongs
+                    # raising AttributeError inside the validator)
+                    detail = str(e) if isinstance(e, ValueError) else f"{type(e).__name__}: {e}"
+                    raise PlanningError(
+                        f"agent {agent.id!r} in pipeline {pipeline.id!r}: {detail}"
+                    ) from None
 
         # 1. group consecutive fusable agents
         groups: list[list[AgentConfiguration]] = []

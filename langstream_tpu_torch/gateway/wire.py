@@ -28,11 +28,13 @@ the same names, so the gateway's handlers read as the JAX package's:
 Each frame is one ``write`` on the transport, so frames from concurrent
 tasks of one socket never interleave.
 
-The client (:class:`WebSocketClient`, :func:`http_request`,
-:func:`sse_events`) speaks the same protocol from the other side: masked
-frames, optional fragmentation, ping and close, over TCP or TLS (https and
-wss); tests and the smoke drive the gateway with it where aiohttp is not
-installed, and the port's vector stores reach their services through it.
+The client (:class:`WebSocketClient`, :func:`open_response`, with
+:func:`http_request` and :func:`sse_events` on it) speaks the same protocol
+from the other side: masked frames, optional fragmentation, ping and
+close, over TCP or TLS (https and wss); every request is written by one
+function and every response body read by :class:`ClientResponse`. Tests
+and the smoke drive the gateway with it where aiohttp is not installed,
+and the port's agents and stores reach their services through it.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ from urllib.parse import parse_qsl, quote, unquote, urlsplit
 
 log = logging.getLogger(__name__)
 
+#: what aiohttp (yarl) leaves unquoted in a request's path
+_PATH_SAFE = "/%:@!$&'()*+,;=~"
 #: the RFC 6455 GUID the accept hash appends to the client's key
 WS_GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
 #: largest WebSocket message (reassembled) either side accepts
@@ -545,10 +549,12 @@ def _parse_headers(lines: list[str]) -> dict[str, str]:
     return headers
 
 
-async def _read_chunked(reader: asyncio.StreamReader, max_body: int = MAX_BODY) -> bytes:
-    """A chunked body; a malformed one raises ValueError (or the reader's
-    LimitOverrunError for an overlong size line)."""
-    body = bytearray()
+async def _chunks(reader: asyncio.StreamReader, max_body: int | None = None):
+    """The pieces of a chunked body as they arrive; a malformed one raises
+    ValueError (or the reader's LimitOverrunError for an overlong size
+    line), one that would pass ``max_body`` bytes HTTPException 413 before
+    its chunk is read."""
+    total = 0
     while True:
         size_line = await reader.readuntil(b"\r\n")
         size = int(size_line.split(b";")[0].strip() or b"0", 16)
@@ -557,10 +563,11 @@ async def _read_chunked(reader: asyncio.StreamReader, max_body: int = MAX_BODY) 
         if size == 0:
             while (await reader.readuntil(b"\r\n")) != b"\r\n":
                 pass  # trailers
-            return bytes(body)
-        if len(body) + size > max_body:
+            return
+        total += size
+        if max_body is not None and total > max_body:
             raise HTTPException(413, "request body too large")
-        body += await reader.readexactly(size)
+        yield await reader.readexactly(size)
         if await reader.readexactly(2) != b"\r\n":
             raise ValueError("chunk not followed by CRLF")
 
@@ -569,7 +576,7 @@ async def _read_body(reader: asyncio.StreamReader, headers: dict[str, str],
                      max_body: int = MAX_BODY) -> bytes:
     if "chunked" in headers.get("transfer-encoding", "").lower():
         try:
-            return await _read_chunked(reader, max_body)
+            return b"".join([piece async for piece in _chunks(reader, max_body)])
         except (ValueError, asyncio.LimitOverrunError):
             raise HTTPException(400, "malformed chunked body") from None
     length = headers.get("content-length")
@@ -732,11 +739,35 @@ class ConnectError(ConnectionError):
     (a caller may retry any method after it)."""
 
 
+def host_header(url: str) -> str:
+    """The ``Host`` a request to ``url`` sends: the host, and its port only
+    when it is not the scheme's default (aiohttp's rule; an explicit
+    ``:443`` on https is left out as well)."""
+    parts = urlsplit(url)
+    host = parts.hostname or ""
+    if ":" in host:
+        host = f"[{host}]"
+    default = 443 if parts.scheme in ("https", "wss") else 80
+    return host if parts.port in (None, default) else f"{host}:{parts.port}"
+
+
+def _merge_headers(base: dict[str, str], extra: dict[str, str] | None) -> dict[str, str]:
+    """``base`` updated by ``extra``, header names compared without case
+    (a caller's ``host`` replaces the default ``Host``, never doubles it)."""
+    out = dict(base)
+    for name, value in (extra or {}).items():
+        for old in [k for k in out if k.lower() == name.lower()]:
+            del out[old]
+        out[name] = value
+    return out
+
+
 async def _open(url: str, timeout: float):
     """Connect for ``url``: plain for http and ws, TLS for https and wss
     (``ssl.create_default_context``: the certificate chain and the host name
     verified against the default trust store, which ``SSL_CERT_FILE`` can
-    name)."""
+    name). Returns the streams, the ``Host`` to send (:func:`host_header`)
+    and the request target, its path quoted as aiohttp quotes it."""
     parts = urlsplit(url)
     ctx = None
     if parts.scheme in ("https", "wss"):
@@ -752,8 +783,8 @@ async def _open(url: str, timeout: float):
             timeout)
     except (OSError, asyncio.TimeoutError) as e:
         raise ConnectError(f"cannot connect to {parts.hostname}:{port}: {e!r}") from e
-    target = quote(parts.path or "/", safe="/%:@") + (f"?{parts.query}" if parts.query else "")
-    return reader, writer, f"{parts.hostname}:{port}", target
+    target = quote(parts.path or "/", safe=_PATH_SAFE) + (f"?{parts.query}" if parts.query else "")
+    return reader, writer, host_header(url), target
 
 
 async def _read_response_head(reader: asyncio.StreamReader) -> tuple[int, str, dict[str, str]]:
@@ -773,10 +804,10 @@ class WebSocketClient(_WebSocket):
                       timeout: float = 10.0) -> "WebSocketClient":
         reader, writer, host, target = await _open(url, timeout)
         key = base64.b64encode(os.urandom(16)).decode()
-        lines = [f"GET {target} HTTP/1.1", f"Host: {host}", "Upgrade: websocket",
-                 "Connection: Upgrade", f"Sec-WebSocket-Key: {key}",
-                 "Sec-WebSocket-Version: 13"]
-        lines += [f"{k}: {v}" for k, v in (headers or {}).items()]
+        hdrs = _merge_headers({"Host": host, "Upgrade": "websocket", "Connection": "Upgrade",
+                               "Sec-WebSocket-Key": key, "Sec-WebSocket-Version": "13"},
+                              headers)
+        lines = [f"GET {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in hdrs.items()]
         writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
         await writer.drain()
         status, reason, resp_headers = await asyncio.wait_for(_read_response_head(reader), timeout)
@@ -793,78 +824,267 @@ class WebSocketClient(_WebSocket):
         return ws
 
 
-async def http_request(method: str, url: str, json_body: Any = None,
-                       body: bytes | None = b"", headers: dict[str, str] | None = None,
-                       timeout: float = 30.0, decompress: bool = False,
-                       ) -> tuple[int, str, dict[str, str], bytes]:
-    """One request on its own connection: ``(status, reason, headers, body)``
-    (the body read to its length, through its chunks, or to the
-    connection's end; none for HEAD, 204 and 304). ``body=None`` sends no
-    ``Content-Length``; ``decompress`` undoes a gzip or deflate
-    ``Content-Encoding``. An https URL goes over TLS, verified against
-    the default trust store. A connection that cannot be
-    opened raises :class:`ConnectError` before anything is sent; a failure
-    after that raises what the stream raised."""
+# ---------------------------------------------------------------------------
+# the client's requests: aiohttp's query, redirects and streamed bodies
+# ---------------------------------------------------------------------------
+
+_QUERY_SAFE = "/?:@!$'()*,~"
+#: redirects that are followed, and how many at most (aiohttp's defaults)
+_REDIRECTS = (301, 302, 303, 307, 308)
+MAX_REDIRECTS = 10
+#: methods that go without a ``Content-Length`` when they carry no body
+_BODYLESS = ("GET", "HEAD", "OPTIONS", "CONNECT", "TRACE")
+
+
+class TooManyRedirects(Exception):
+    """The server redirected ``MAX_REDIRECTS`` times in a row."""
+
+
+def with_query(url: str, params: dict[str, Any] | None) -> str:
+    """``url`` with ``params`` appended to the query it already has,
+    encoded as aiohttp encodes its ``params=`` (space as ``+``; ``&``,
+    ``=``, ``+``, ``;`` and ``%`` escaped)."""
+    from urllib.parse import quote_plus
+
+    if not params:
+        return url
+    base, sep, fragment = url.partition("#")
+    query = "&".join(f"{quote_plus(str(k), safe=_QUERY_SAFE)}={quote_plus(str(v), safe=_QUERY_SAFE)}"
+                     for k, v in params.items())
+    return base + ("&" if "?" in base else "?") + query + sep + fragment
+
+
+class ClientResponse:
+    """A response whose body is read as it arrives: :meth:`read`,
+    :meth:`text`, :meth:`json`, or ``async for line in response`` (each line
+    with its ``\n``, the last one without when the body does not end in
+    one), as aiohttp's ``resp.content`` gives them. Chunked transfer
+    encoding is undone, and (unless ``decompress`` is false) a gzip or
+    deflate ``Content-Encoding`` too. Close it, or use it as an async
+    context manager."""
+
+    def __init__(self, method: str, url: str, status: int, reason: str,
+                 headers: dict[str, str], reader: asyncio.StreamReader,
+                 writer: asyncio.StreamWriter, timeout: float, decompress: bool = True):
+        self.method, self.url, self.status, self.reason = method, url, status, reason
+        self.headers = headers
+        self._reader, self._writer, self._timeout = reader, writer, timeout
+        self._decompress = decompress
+        self._buffer = b""
+        self._pieces = self._body_pieces()
+
+    async def _raw_pieces(self):
+        reader, headers = self._reader, self.headers
+        if self.method.upper() == "HEAD" or self.status in (204, 304) or 100 <= self.status < 200:
+            return
+        if "chunked" in headers.get("transfer-encoding", "").lower():
+            async for piece in _chunks(reader):
+                yield piece
+            return
+        length = headers.get("content-length")
+        if length is not None:
+            left = int(length)
+            while left > 0:
+                piece = await reader.read(min(left, 65536))
+                if not piece:
+                    raise asyncio.IncompleteReadError(b"", left)
+                left -= len(piece)
+                yield piece
+            return
+        while piece := await reader.read(65536):
+            yield piece
+
+    async def _body_pieces(self):
+        import zlib
+
+        encoding = self.headers.get("content-encoding", "").lower()
+        inflate = None
+        if self._decompress and encoding in ("gzip", "deflate"):
+            inflate = zlib.decompressobj(16 + zlib.MAX_WBITS if encoding == "gzip"
+                                         else zlib.MAX_WBITS)
+        pieces = self._raw_pieces()
+        while True:
+            try:
+                piece = await asyncio.wait_for(pieces.__anext__(), self._timeout)
+            except StopAsyncIteration:
+                break
+            piece = inflate.decompress(piece) if inflate is not None else piece
+            if piece:
+                yield piece
+        if inflate is not None and (tail := inflate.flush()):
+            yield tail
+
+    async def readline(self) -> bytes:
+        """The next line with its ``\n``; ``b""`` at the body's end."""
+        while b"\n" not in self._buffer:
+            try:
+                self._buffer += await self._pieces.__anext__()
+            except StopAsyncIteration:
+                line, self._buffer = self._buffer, b""
+                return line
+        line, _, self._buffer = self._buffer.partition(b"\n")
+        return line + b"\n"
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self) -> bytes:
+        line = await self.readline()
+        if not line:
+            raise StopAsyncIteration
+        return line
+
+    async def read(self) -> bytes:
+        data = [self._buffer]
+        self._buffer = b""
+        async for piece in self._pieces:
+            data.append(piece)
+        return b"".join(data)
+
+    async def text(self, errors: str = "strict") -> str:
+        """The body decoded by the ``Content-Type``'s charset, else UTF-8."""
+        match = re.search(r"charset=\"?([^\";\s]+)", self.headers.get("content-type", ""), re.I)
+        return (await self.read()).decode(match.group(1) if match else "utf-8", errors=errors)
+
+    async def json(self) -> Any:
+        return json.loads(await self.read())
+
+    def close(self) -> None:
+        self._writer.close()
+
+    async def __aenter__(self) -> "ClientResponse":
+        return self
+
+    async def __aexit__(self, *exc) -> None:
+        self.close()
+
+
+async def _send(method: str, url: str, headers: dict[str, str], body: bytes | None,
+                timeout: float, decompress: bool = True) -> ClientResponse:
+    """Write one request on a connection of its own (``Host`` and
+    ``Connection: close`` first, ``headers`` over them) and return its
+    response once the head has come. A connection that cannot be opened
+    raises :class:`ConnectError` before anything is sent; a failure after
+    that raises what the stream raised."""
     reader, writer, host, target = await _open(url, timeout)
-    hdrs = {"Host": host, "Connection": "close", **(headers or {})}
-    if json_body is not None:
-        body = json.dumps(json_body).encode()
-        hdrs["Content-Type"] = "application/json"
-    if body is not None:
-        hdrs["Content-Length"] = str(len(body))
+    hdrs = _merge_headers({"Host": host, "Connection": "close"}, headers)
     head = [f"{method} {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in hdrs.items()]
     try:
         writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + (body or b""))
         await writer.drain()
         status, reason, resp_headers = await asyncio.wait_for(_read_response_head(reader), timeout)
-        n = resp_headers.get("content-length")
-        if method.upper() == "HEAD" or status in (204, 304):
-            data = b""
-        elif "chunked" in resp_headers.get("transfer-encoding", "").lower():
-            data = await asyncio.wait_for(_read_chunked(reader, MAX_BODY * 4), timeout)
-        else:
-            data = await asyncio.wait_for(
-                reader.readexactly(int(n)) if n is not None else reader.read(), timeout)
-    finally:
+    except BaseException:
         writer.close()
-    encoding = resp_headers.get("content-encoding", "").lower()
-    if decompress and data and encoding in ("gzip", "deflate"):
-        import zlib
+        raise
+    return ClientResponse(method, url, status, reason, resp_headers, reader, writer, timeout,
+                          decompress)
 
-        data = zlib.decompress(data, 16 + zlib.MAX_WBITS if encoding == "gzip" else zlib.MAX_WBITS)
-    return status, reason, resp_headers, data
+
+async def open_response(method: str, url: str, *, params: dict[str, Any] | None = None,
+                        data: str | bytes | None = None, json_body: Any = None,
+                        headers: dict[str, str] | None = None, allow_redirects: bool = True,
+                        timeout: float = 300.0) -> ClientResponse:
+    """Send one request and return its response once the head has come,
+    the body left to read (``async with await open_response(...) as
+    resp:``). As aiohttp does it:
+
+    - ``params`` are appended to the URL's query (:func:`with_query`);
+    - a ``str`` body goes as ``text/plain; charset=utf-8``, ``bytes`` as
+      ``application/octet-stream``, ``json_body`` as ``application/json``,
+      unless ``headers`` name a ``Content-Type``;
+    - ``Host`` leaves out the scheme's default port (:func:`host_header`);
+    - a request of another method than GET, HEAD, OPTIONS, CONNECT or
+      TRACE without a body says ``Content-Length: 0``;
+    - 301, 302, 303, 307 and 308 are followed to their ``Location`` (a
+      303 as GET, or HEAD; a POST as GET after 301 and 302; the method and
+      body kept otherwise), ``Authorization`` dropped when the origin
+      changes, up to :data:`MAX_REDIRECTS` (:class:`TooManyRedirects`).
+
+    ``timeout`` bounds the connection, the head and each read of the body."""
+    from urllib.parse import urljoin
+
+    url = with_query(url, params)
+    headers = dict(headers or {})
+    body: bytes | None = None
+    content_type = None
+    if json_body is not None:
+        body, content_type = json.dumps(json_body).encode(), "application/json"
+    elif isinstance(data, str):
+        body, content_type = data.encode(), "text/plain; charset=utf-8"
+    elif data is not None:
+        body, content_type = bytes(data), "application/octet-stream"
+    if any(k.lower() == "content-type" for k in headers):
+        content_type = None
+    redirects = 0
+    while True:
+        hdrs = dict(headers)
+        if body is not None:
+            if content_type is not None:
+                hdrs["Content-Type"] = content_type
+            hdrs = _merge_headers(hdrs, {"Content-Length": str(len(body))})
+        elif method.upper() not in _BODYLESS and not any(
+                k.lower() == "content-length" for k in hdrs):
+            hdrs["Content-Length"] = "0"
+        response = await _send(method, url, hdrs, body, timeout)
+        location = response.headers.get("location") or response.headers.get("uri")
+        if response.status not in _REDIRECTS or not allow_redirects or location is None:
+            return response
+        response.close()
+        redirects += 1
+        if redirects >= MAX_REDIRECTS:
+            raise TooManyRedirects(f"{method} {url}: {redirects} redirects")
+        if (response.status == 303 and method.upper() != "HEAD") or (
+                response.status in (301, 302) and method.upper() == "POST"):
+            method, body = "GET", None
+            headers = {k: v for k, v in headers.items() if k.lower() != "content-length"}
+        target_url = urljoin(url, location)
+        if urlsplit(target_url).scheme not in ("http", "https"):
+            raise ValueError(f"{method} {url}: redirected to {location!r}, not http(s)")
+        old, new = urlsplit(url), urlsplit(target_url)
+        if (old.scheme, old.hostname, old.port) != (new.scheme, new.hostname, new.port):
+            headers = {k: v for k, v in headers.items() if k.lower() != "authorization"}
+        url = target_url
+
+
+async def http_request(method: str, url: str, json_body: Any = None,
+                       body: bytes | None = b"", headers: dict[str, str] | None = None,
+                       timeout: float = 30.0, decompress: bool = False,
+                       ) -> tuple[int, str, dict[str, str], bytes]:
+    """One request, its body read whole: ``(status, reason, headers,
+    body)``. Redirects are not followed; ``body`` goes with its
+    ``Content-Length`` (``b""`` too; ``None`` sends none) and no
+    ``Content-Type`` of its own; ``decompress`` undoes a gzip or deflate
+    ``Content-Encoding``. A connection that cannot be opened raises
+    :class:`ConnectError` before anything is sent."""
+    hdrs = dict(headers or {})
+    if json_body is not None:
+        body = json.dumps(json_body).encode()
+        hdrs = _merge_headers(hdrs, {"Content-Type": "application/json"})
+    if body is not None:
+        hdrs = _merge_headers(hdrs, {"Content-Length": str(len(body))})
+    async with await _send(method, url, hdrs, body, timeout, decompress) as resp:
+        data = await resp.read()
+    return resp.status, resp.reason, resp.headers, data
 
 
 async def sse_events(url: str, json_body: Any, headers: dict[str, str] | None = None,
                      until: Callable[[Any], bool] | None = None,
                      timeout: float = 60.0) -> tuple[int, dict[str, str], list[Any]]:
     """POST ``json_body`` and read a ``text/event-stream`` answer: the status,
-    the headers and every ``data:`` event parsed as JSON, up to the one
-    ``until`` accepts (or the stream's end)."""
-    reader, writer, host, target = await _open(url, timeout)
-    body = json.dumps(json_body).encode()
-    hdrs = {"Host": host, "Content-Type": "application/json",
-            "Content-Length": str(len(body)), **(headers or {})}
-    head = [f"POST {target} HTTP/1.1"] + [f"{k}: {v}" for k, v in hdrs.items()]
-    writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1") + body)
-    await writer.drain()
+    the headers and every ``data: `` event parsed as JSON, up to the one
+    ``until`` accepts (or the stream's end), all within ``timeout``."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout
     events: list[Any] = []
-    try:
-        status, _, resp_headers = await asyncio.wait_for(_read_response_head(reader), timeout)
-        if status != 200:
-            return status, resp_headers, events
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + timeout
-        while True:
-            line = await asyncio.wait_for(reader.readline(), max(0.0, deadline - loop.time()))
-            if not line:
-                break
+    async with await open_response("POST", url, json_body=json_body, headers=headers,
+                                   allow_redirects=False, timeout=timeout) as resp:
+        if resp.status != 200:
+            return resp.status, resp.headers, events
+        while line := await asyncio.wait_for(resp.readline(),
+                                             max(0.0, deadline - loop.time())):
             text = line.decode("utf-8").rstrip("\r\n")
             if text.startswith("data: "):
-                event = json.loads(text[6:])
-                events.append(event)
-                if until is not None and until(event):
+                events.append(json.loads(text[6:]))
+                if until is not None and until(events[-1]):
                     break
-    finally:
-        writer.close()
-    return status, resp_headers, events
+    return resp.status, resp.headers, events

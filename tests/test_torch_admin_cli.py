@@ -368,7 +368,12 @@ def test_docs_agents_documents_the_port_s_agents_as_the_jax_cli_does(tmp_path):
                                      "cast", "compute", "drop", "drop-fields", "flatten",
                                      "merge-key-value", "unwrap-key-value", "dispatch",
                                      "timer-source", "trigger-event", "log-event",
-                                     "vector-db-sink", "query-vector-db", "query", "re-rank"}
+                                     "vector-db-sink", "query-vector-db", "query", "re-rank",
+                                     # the document, HTTP and source agents, FLARE
+                                     "text-extractor", "text-normaliser", "http-request",
+                                     "langserve-invoke", "camel-source", "webcrawler",
+                                     "local-storage-source", "s3-source",
+                                     "azure-blob-storage-source", "flare-controller"}
     assert all(port[t] == jax[t] for t in port)
     rc, stdout, _ = cli.run("port", ["docs", "agents", "-o", str(tmp_path / "a.md")])
     assert rc == 0 and stdout.strip() == f"wrote {tmp_path / 'a.md'}"

@@ -34,7 +34,11 @@ PLANNED = ["chat-completions", "chatbot-gateway", "compute-embeddings", "embeddi
            # transforms, flow, the vector stores, query and re-rank
            "chatbot-rag-memory", "flow-dispatch", "gateway-authentication", "multi-store-rag",
            "query-astradb", "query-jdbc-chat-history", "query-milvus", "query-opensearch",
-           "query-pinecone", "query-solr", "rag-pipeline", "timer-heartbeat"]
+           "query-pinecone", "query-solr", "rag-pipeline", "timer-heartbeat",
+           # the document, HTTP and source agents, FLARE
+           "azure-document-ingestion", "flare", "http-enrichment", "langserve-invoke",
+           "long-context-summarizer", "s3-document-ingestion", "slack-alerts",
+           "webcrawler-to-vector"]
 
 
 def _parse_both(name):
@@ -79,16 +83,36 @@ def test_chat_example_fuses_into_one_composite_node():
     assert node.agents[1].configuration["model"] == "llama3-8b"
 
 
-UNPORTED = [("flare", "flare-controller"), ("s3-document-ingestion", "s3-source"),
-            ("http-enrichment", "http-request"), ("webcrawler-to-vector", "webcrawler"),
-            ("long-context-summarizer", "text-extractor")]
+#: the grpc types: the example that names one, and a minimal app for each other
+UNPORTED = [("grpc-sidecar-agent", "grpc-python-processor"), (None, "grpc-agent"),
+            (None, "grpc-python-source"), (None, "grpc-python-sink")]
+GRPC_APP = """
+topics:
+  - name: "in"
+    creation-mode: create-if-not-exists
+  - name: "out"
+    creation-mode: create-if-not-exists
+pipeline:
+  - name: "step"
+    type: "%s"
+    input: "in"
+    output: "out"
+    configuration: {}
+"""
 
 
 @pytest.mark.parametrize("name,agent_type", UNPORTED)
 def test_an_unported_agent_type_is_refused_at_planning(name, agent_type):
     """The JAX planner plans these; the port refuses them when planning,
     naming the type and the later slice, before any agent starts."""
-    jax_app, app = _parse_both(name)
+    if name is None:
+        from langstream_tpu.core.parser import build_application_from_files as jax_files
+        from langstream_tpu_torch.core.parser import build_application_from_files
+
+        files = {"pipeline.yaml": GRPC_APP % agent_type}
+        jax_app, app = jax_files(files), build_application_from_files(files)
+    else:
+        jax_app, app = _parse_both(name)
     JaxDeployer().create_implementation("app", jax_app)
     with pytest.raises(PlanningError, match=f"agent type {agent_type!r} is not ported") as info:
         ApplicationDeployer().create_implementation("app", app)

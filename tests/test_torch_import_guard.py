@@ -6,7 +6,8 @@ the chat app served over Kafka (``chip_smoke.py``'s path W at the tiny
 model on the CPU) loads none of them either, nor ``confluent_kafka``,
 ``pulsar`` or ``pravega_client`` when they are refused; the retrieval
 path (path X at the tiny model) and every vector store's datasource run
-without them or ``psycopg``; ``python -m
+without them or ``psycopg``; the document path (path Y at the tiny
+model) runs without them or ``pypdf``; ``python -m
 langstream_tpu_torch.cli run`` serves a copy of the chat-completions
 example at the tiny model on the CPU, answers a question through the port's
 WebSocket client, and exits 0 on SIGINT; and ``python -m
@@ -29,9 +30,10 @@ from langstream_tpu_torch.gateway.wire import WebSocketClient
 REPO = Path(__file__).resolve().parents[1]
 REFUSED = ("jax", "jaxlib", "langstream_tpu", "yaml", "aiohttp", "click", "cryptography")
 #: imported by the transports only when a client is built or a batch in
-#: their codec arrives; ``psycopg`` (the postgres JDBC driver) never
+#: their codec arrives; ``psycopg`` (the postgres JDBC driver) never;
+#: ``pypdf`` by ``text-extractor`` only when a PDF arrives
 LAZY = ("confluent_kafka", "pulsar", "pravega_client", "zstandard", "snappy", "lz4",
-        "psycopg")
+        "psycopg", "pypdf")
 
 def guard(refused=REFUSED) -> str:
     return GUARD.replace(repr(REFUSED), repr(tuple(refused)), 1)
@@ -142,6 +144,34 @@ def test_the_retrieval_path_loads_none_of_them(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-4000:])
     assert '"history_rows": 8' in out.stdout and "served 4 kernels counted" in out.stdout
+
+
+def test_the_document_path_loads_none_of_them(tmp_path):
+    """``chip_smoke.py``'s path Y in a guarded process, the model table
+    serving llama3-8b at the tiny model and Y1 cut to 4 short documents:
+    the summarizer over a PDF (raw and compressed), a docx and HTML with
+    ``pypdf`` refused too (``text-extractor`` falls back to ``pdftext``),
+    and the crawl of Y2's site into the store through the port's client."""
+    script = _guarded(tmp_path, f"""
+        sys.path.insert(0, {str(REPO)!r})
+        import torch
+
+        import chip_smoke
+        from langstream_tpu_torch.serving import engine
+
+        engine._MODEL_CONFIGS["llama3-8b"] = engine._MODEL_CONFIGS["tiny"]
+        chip_smoke.Y_KINDS = ("pdf", "docx", "html", "pdf-flate")
+        chip_smoke.Y_DOC_CHARS = (300, 500, 700, 900)
+        counts = chip_smoke.phase_document_path(torch, device="cpu")
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED + {LAZY!r})
+        assert not leaked, leaked
+        print("served", len(counts), "kernels counted")
+    """, refused=REFUSED + ("pypdf",))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-4000:])
+    assert '"visited_equal_walk": true' in out.stdout
+    assert "served 4 kernels counted" in out.stdout
 
 
 def test_the_vector_stores_load_no_client_library(tmp_path):

@@ -109,11 +109,30 @@ def test_run_code_download_unpacks_the_stored_archive(side, tmp_path, caplog):
 
 
 def test_the_ports_code_storage_refuses_azure_by_name():
+    """``type: azure`` (and ``azure-blob-storage``) without credentials is
+    refused, naming what is missing, in the JAX package's words; an
+    unknown type is refused by name."""
     for kind in ("azure", "azure-blob-storage"):
-        with pytest.raises(ValueError, match=f"code storage type '{kind}' is not ported"):
-            port_codestorage.make_code_storage({"type": kind, "configuration": {}})
+        with pytest.raises(ValueError, match="azure code storage needs sas-token") as info:
+            port_codestorage.make_code_storage({"type": kind, "configuration": {
+                "endpoint": "http://127.0.0.1:1"}})
+        with pytest.raises(ValueError) as jax_info:
+            jax_codestorage.make_code_storage({"type": kind, "configuration": {
+                "endpoint": "http://127.0.0.1:1"}})
+        assert str(info.value) == str(jax_info.value)
     with pytest.raises(ValueError, match="unknown code storage type 'nope'"):
         port_codestorage.make_code_storage({"type": "nope"})
+
+
+def test_the_ports_code_storage_builds_azure_blob_storage():
+    """``type: azure`` (and ``azure-blob-storage``) with credentials builds
+    the port's Azure code storage on the configured container (its round
+    trip on the JAX tests' fake is in ``tests/test_torch_sources.py``)."""
+    for kind in ("azure", "azure-blob-storage"):
+        storage = port_codestorage.make_code_storage({"type": kind, "configuration": {
+            "endpoint": "http://127.0.0.1:1", "container": "c", "sas-token": "sv=1&sig=x"}})
+        assert isinstance(storage, port_codestorage.AzureBlobCodeStorage)
+        assert storage.client.container == "c"
 
 
 TINY = {"model": "tiny", "model-dtype": "float32", "slots": 2, "max-seq-len": 128,
@@ -223,13 +242,13 @@ def test_a_pod_of_an_app_with_an_unported_agent_refuses_it_at_planning(tmp_path)
     from langstream_tpu_torch.core.planner import PlanningError
 
     pipeline = {"topics": [{"name": "in", "creation-mode": "create-if-not-exists"}],
-                "pipeline": [{"name": "c", "type": "flare-controller", "input": "in",
+                "pipeline": [{"name": "c", "type": "grpc-python-processor", "input": "in",
                               "configuration": {}}]}
     config = tmp_path / "config"
     config.write_text(json.dumps({
         "applicationId": "a", "tenant": "t1", "files": {"pipeline.yaml": json.dumps(pipeline)},
         "instance": None, "secrets": None}))
-    with pytest.raises(PlanningError, match="agent type 'flare-controller' is not ported"):
+    with pytest.raises(PlanningError, match="agent type 'grpc-python-processor' is not ported"):
         asyncio.run(port_pod.run_setup(str(config)))
-    with pytest.raises(PlanningError, match="agent type 'flare-controller' is not ported"):
+    with pytest.raises(PlanningError, match="agent type 'grpc-python-processor' is not ported"):
         asyncio.run(port_pod.run_deployer("deploy", str(config)))
