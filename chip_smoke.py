@@ -37,7 +37,7 @@ Phases (every one unguarded: any failure exits non-zero):
 3. main path A: ``TorchServingEngine`` serving the chat example's resource
    (llama3-8b, int8 weights, 64 slots, 2048 context, decode-chunk 32, dense
    KV; every llama3-8b engine of the run at ``MAIN_LAYERS`` = 16 of its 32
-   layers at most, A, B, C, M3, Q1 and T at it, the others cut further) answering concurrent greedy requests, launch counters set to 0 just
+   layers at most, A, B, C, M3, T and X-Z at it, the others cut further) answering concurrent greedy requests, launch counters set to 0 just
    before and read just after (as for every path);
 4. main path B: the same with ``kv-layout: paged``, ``kv-quantize: int8``
    (a profiled second wave, as path A);
@@ -267,12 +267,14 @@ Phases (every one unguarded: any failure exits non-zero):
    main path Q (after P): meshes from the normal entry points, every rank
    but the caller's started by the port's launcher (``parallel/launch.py``;
    this script starts no rank). Q1: path B's resource (llama3-8b int8,
-   paged int8 KV, 16 layers, 64 slots) at ``mesh: {tp: 2}`` through
-   ``TorchServiceProvider`` under ``LOCAL_WORLD_SIZE=2`` (two ranks share
-   the card over gloo): B's 8 prompts, 64 greedy tokens, N1's first-token
-   rule against B's streams of this run, kernels #1 and #3 launched on both
-   ranks; the seconds until the engine is ready and ms per step beside
-   B's. Q2: a slice of 2 pods x 2 local ranks on the card (two ``--q2-pod``
+   paged int8 KV, 64 slots) at ``Q1_LAYERS`` = 4 layers (16, B's, until
+   path Z came) at ``mesh: {tp: 2}`` through ``TorchServiceProvider``
+   under ``LOCAL_WORLD_SIZE=2`` (two ranks share the card over gloo): B's
+   8 prompts, 64 greedy tokens, N1's first-token rule against the streams
+   of the same resource without its mesh at the same depth (a reference
+   engine of its own), kernels #1 and #3 launched on both ranks; the
+   seconds until the engine is ready and ms per step beside the
+   reference's. Q2: a slice of 2 pods x 2 local ranks on the card (two ``--q2-pod``
    processes, ``LS_SLICE_HOSTS=2``, ``LS_POD_NAME`` q-0 and q-1, through the
    port's ``maybe_join_slice`` and ``run_slice_follower``), tiny f32 on the
    HF fixture at ``{dp: 2, tp: 2}``: the tokens equal a one-process CPU
@@ -460,6 +462,30 @@ Phases (every one unguarded: any failure exits non-zero):
    robots rules, the store holds one row per chunk that extract and split
    give on the CPU, each vector within 1e-4 of the CPU encoder's; pages
    and chunks per second;
+   main path Z (after Y): the gRPC sidecar lane without JAX, grpcio or
+   protobuf, each app on a memory broker cluster of its own. Z1 (no
+   model): the ``grpc-sidecar-agent`` example unchanged through
+   ``cli.main.LocalRun``, ``Z_RECORDS`` = 64 records through its sidecar
+   interpreter, equal to the in-process ``python-processor`` lane's on the
+   same records and class; a ``grpc-agent`` step whose ``endpoint`` is a
+   port ``AgentServer`` started here, equal too; a ``grpc-python-source``
+   into a ``grpc-python-sink``, every record read written by the sink and
+   committed by the source. Z2: a copy of ``chat-completions`` with a
+   ``grpc-python-processor`` step first (it trims the question and writes
+   one record to a side topic; ``errors: retries``) at ``Z_LAYERS`` =
+   ``MAIN_LAYERS``, the LM head to printable ASCII: ``Z_WAVE`` = 8
+   sessions at once, each answer the provider's greedy text for the
+   trimmed question, 8 side records, the gateway TTFT beside T1's (the
+   difference is the sidecar hop's share); kernels #1 and #2 must launch.
+   Z3: a second wave, the sidecar killed with SIGKILL after its first
+   answer: one restart, every session answered, the seconds from the kill
+   to the next record through the sidecar. Z4: an app whose
+   ``python/requirements.txt`` names a wheel written here by hand into
+   ``python/wheels/``: ``python install-requirements`` provisions its venv
+   (its seconds), the sidecar runs on the venv's interpreter and imports
+   the wheel's module, which this interpreter cannot, a second call leaves
+   the venv as it was; ``apps ui --once --no-open`` serves the port's
+   ``app_ui.html`` byte for byte;
 5. the tiny f32 engine on the card against the same engine on the CPU with
    the same params, two waves in turn: greedy tokens must be identical
    (the HF fixture ``tests/fixtures/llama_tiny_golden`` loaded through
@@ -486,7 +512,7 @@ Phases (every one unguarded: any failure exits non-zero):
    fallback, whose greedy tokens and journey kinds per request are the
    same on both devices; dense int8 KV; one wave's scrape, whose series
    change the same on both devices);
-6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-Y,
+6. one ``{"kernels": [...]}`` JSON line (launches summed over paths A-Z,
    rank 0's on N, O, Q, R and S, V's the chat pod's in its profiled window; each row carries a ``tp2_rank`` entry, phase 2's case
    at one tp=2 rank's heads),
    then the last line
@@ -566,9 +592,10 @@ def ptxas_report(logs: dict) -> list[str]:
 #: a slow host at full depth; F at 8 since path P came (1,085 s); with path
 #: R it took 1,181-1,226 s on slow hosts (an H100 80GB HBM3 at 700 W), so
 #: every path came down (a path's numbers compare only at one depth).
-#: ``MAIN_LAYERS`` holds every llama3-8b engine of the run (A, B, C, M3, Q1
-#: and T at it; the others at their own cut below it). With path T the
-#: smoke took 986.9 s, so E came down to 4 (T serves its resource at 16)
+#: ``MAIN_LAYERS`` holds every llama3-8b engine of the run (A, B, C, M3, T
+#: and U-Z at it; the others at their own cut below it). With path T the
+#: smoke took 986.9 s, so E came down to 4 (T serves its resource at 16);
+#: with path Z, Q1 came down to ``Q1_LAYERS``
 MAIN_LAYERS = 16
 D_LAYERS = 8
 E_LAYERS = 4
@@ -1155,8 +1182,7 @@ def phase_main_path(torch, label, cfg: dict, params=None, profile=False, note=No
     """Serve the chat prompts greedy once (and once more under the profiler
     with ``profile``); with ``note``, leave the tokens, ms per step, the
     flight events by kind, the configuration and the results in
-    ``NOTES[note]``, and for B, whose streams Q1 is held to, the first
-    tokens' top-2 gaps (one more prefill per prompt)."""
+    ``NOTES[note]`` (Q1 serves B's configuration from it)."""
     from langstream_tpu_torch.serving.engine import ServingConfig, TorchServingEngine
 
     t0 = time.monotonic()
@@ -1213,8 +1239,6 @@ def phase_main_path(torch, label, cfg: dict, params=None, profile=False, note=No
         NOTES[note] = {"tokens": [r["tokens"] for r in results], "ms_per_step": step_ms,
                        "events": dict(engine.flight.events_by_type), "config": cfg,
                        "results": results}
-        if note == "B":
-            NOTES[note]["gaps"] = top2_gaps(torch, engine, prompts)
     return engine.params, counts
 
 
@@ -6127,8 +6151,11 @@ def phase_train_path(torch, device="cuda") -> dict:
 # path Q: a mesh from the normal entry points (the port starts its ranks)
 # ---------------------------------------------------------------------------
 
-#: Q1: path B's resource (at B's ``MAIN_LAYERS``) at tp=2 through the provider
+#: Q1: path B's resource at tp=2 through the provider, at ``Q1_LAYERS`` of
+#: llama3-8b's 32 (B's ``MAIN_LAYERS`` until path Z came), held to a tp=1
+#: reference engine of its own at that depth
 Q1_MESH = {"tp": 2}
+Q1_LAYERS = 4
 #: Q2: a slice of two pods of two local ranks each, on this card (the HF
 #: fixture: a random init draws other numbers on the card than on the CPU)
 Q2_RESOURCE = {"model": "tiny", "model-dtype": "float32", "kv-layout": "paged",
@@ -6178,15 +6205,21 @@ def children_ended(label: str, launched: dict, path: str = "Q") -> list:
 
 def q1_provider_mesh(torch, device="cuda") -> dict:
     """Q1: path B's resource at ``Q1_MESH`` through ``TorchServiceProvider``
-    with two local ranks on this card; nothing here starts a rank. B's 8
-    prompts, 64 greedy tokens, held to B's streams by the first-token rule;
-    kernels #1 and #3 on both ranks. Returns rank 0's launches."""
+    with two local ranks on this card, at ``Q1_LAYERS``; nothing here starts
+    a rank. B's 8 prompts, 64 greedy tokens, held by the first-token rule to
+    the streams of B's resource without its mesh at the same depth (a
+    reference engine of its own, :func:`reference_run`); kernels #1 and #3
+    on both ranks. Returns rank 0's launches."""
     from langstream_tpu_torch.agents.provider import TorchServiceProvider
     from langstream_tpu_torch.serving.engine import TorchServingEngine
 
     b = NOTES["B"]
     resource = {**b["config"], "mesh": Q1_MESH}
-    with ranks_at_depth(MAIN_LAYERS):  # its ranks at B's depth too
+    ref, gaps = reference_run(torch, b["config"], [chat_prompts()], 64, Q1_LAYERS,
+                              device=device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with ranks_at_depth(Q1_LAYERS):  # its ranks at the reference's depth too
         t0 = time.monotonic()
         engine = TorchServiceProvider(resource, device=device).get_completions_service(
             {}).engine
@@ -6212,10 +6245,10 @@ def q1_provider_mesh(torch, device="cuda") -> dict:
         if device == "cuda" and (c["flash_attention"] == 0 or c["paged_attention_q8"] == 0):
             fail(f"path Q1: rank {rank} did not launch kernels #1 and #3: {c}")
     codes = children_ended("Q1", mesh["launched"])
-    rule = check_first_tokens("Q1", results, b["results"], b["gaps"], path="Q")
-    print(f"path Q [Q1 llama3-8b int8 tp=2, {MAIN_LAYERS} layers, provider]: " + json.dumps({
+    rule = check_first_tokens("Q1", results, ref["results"], gaps, path="Q")
+    print(f"path Q [Q1 llama3-8b int8 tp=2, {Q1_LAYERS} layers, provider]: " + json.dumps({
         "ready_s": round(ready_s, 3), "wall_s": round(wall, 3),
-        "ms_per_step_mesh": _step_ms(stats), "ms_per_step_B": round(b["ms_per_step"], 3),
+        "ms_per_step_mesh": _step_ms(stats), "ms_per_step_tp1": _step_ms(ref["stats"]),
         "backend": mesh["backend"], "backend_reason": mesh["backend-reason"],
         "rank0_launches": {k: v for k, v in counts.items() if v},
         "rank1_launches": {k: v for k, v in rank1.items() if v},
@@ -9810,6 +9843,597 @@ def phase_document_path(torch, device="cuda") -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# path Z: the gRPC sidecar lane without JAX
+# ---------------------------------------------------------------------------
+
+Z_LAYERS = MAIN_LAYERS
+Z_RECORDS = 64         # Z1's records through each lane
+Z_WAVE = 8             # Z2's and Z3's sessions, one question each
+Z_TIMEOUT = 300.0      # seconds any one frame or wait may take
+Z_RETRIES = 5          # the sidecar step's ``errors: retries``
+Z_SIDE = "z2-side"     # the topic the sidecar step writes one record to per question
+#: what the lane must run without, grpcio and protobuf among them
+Z_REFUSED = T_REFUSED + ("cryptography", "grpc")
+Z_WHEEL = "lsz4_marker"
+Z_STEPS = '''
+import sys
+import time
+
+
+class Trim:
+    """Z2's sidecar step: trims the question and writes one side record."""
+
+    def init(self, config):
+        self.side = config["side-topic"]
+
+    def set_context(self, context):
+        self.context = context
+
+    async def process(self, record):
+        question = str(record.value).strip()
+        await self.context.get_topic_producer(self.side).write(
+            ({"question": question, "t": time.time()}, record.key,
+             {"langstream-client-session-id": record.header("langstream-client-session-id")}))
+        return [question]
+
+
+class Numbers:
+    """Z1's source: ``count`` records, each committed into ``out``."""
+
+    def init(self, config):
+        self.left = int(config["count"])
+        self.out = config["out"]
+        self.n = 0
+
+    def read(self):
+        if not self.left:
+            time.sleep(0.05)
+            return []
+        batch = []
+        while self.left and len(batch) < 8:
+            self.n += 1
+            self.left -= 1
+            batch.append(({"n": self.n}, str(self.n).encode(), {"from": "z1-source"}))
+        return batch
+
+    def commit(self, records):
+        with open(self.out + ".committed", "a") as f:
+            f.writelines(f"{r.value['n']}\\n" for r in records)
+
+
+class Store:
+    """Z1's sink: every record written into ``out``."""
+
+    def init(self, config):
+        self.out = config["out"]
+
+    def write(self, record):
+        with open(self.out + ".sunk", "a") as f:
+            f.write(f"{record.value['n']} {record.key.decode()} {record.header('from')}\\n")
+
+
+class Isolated:
+    """Z4's step: runs only where the app's wheel is installed."""
+
+    def process(self, record):
+        import lsz4_marker
+        return [(record.value + "@" + lsz4_marker.VALUE, None, None)]
+
+    def agent_info(self):
+        import lsz4_marker
+        return {"executable": sys.executable, "prefix": sys.prefix,
+                "marker": lsz4_marker.VALUE}
+'''
+Z_PIPELINE_Z1 = """
+topics:
+  - name: "z1-numbers"
+    creation-mode: create-if-not-exists
+pipeline:
+  - name: "numbers"
+    type: "grpc-python-source"
+    output: "z1-numbers"
+    configuration:
+      className: "z_steps.Numbers"
+      count: %d
+      out: "%s"
+  - name: "store"
+    type: "grpc-python-sink"
+    input: "z1-numbers"
+    configuration:
+      className: "z_steps.Store"
+      out: "%s"
+"""
+Z_PIPELINE_Z4 = """
+topics:
+  - name: "z4-in"
+    creation-mode: create-if-not-exists
+  - name: "z4-out"
+    creation-mode: create-if-not-exists
+pipeline:
+  - name: "isolated"
+    type: "grpc-python-processor"
+    input: "z4-in"
+    output: "z4-out"
+    configuration:
+      className: "z_steps.Isolated"
+"""
+
+
+def z_wheel(directory: Path, name: str = Z_WHEEL, version: str = "1.0",
+            value: str = "from-the-app-wheel") -> Path:
+    """A pure-Python wheel zipped by hand (``METADATA``, ``WHEEL``,
+    ``RECORD`` and the module), so pip installs it with nothing downloaded."""
+    import base64
+    import hashlib
+    import zipfile
+
+    dist = f"{name}-{version}.dist-info"
+    files = {
+        f"{name}.py": f"VALUE = {value!r}\n".encode(),
+        f"{dist}/METADATA": (f"Metadata-Version: 2.1\nName: {name.replace('_', '-')}\n"
+                             f"Version: {version}\n").encode(),
+        f"{dist}/WHEEL": (b"Wheel-Version: 1.0\nGenerator: chip-smoke\n"
+                          b"Root-Is-Purelib: true\nTag: py3-none-any\n"),
+    }
+    record = [f"{path},sha256="
+              f"{base64.urlsafe_b64encode(hashlib.sha256(data).digest()).rstrip(b'=').decode()}"
+              f",{len(data)}" for path, data in files.items()]
+    files[f"{dist}/RECORD"] = ("\n".join(record + [f"{dist}/RECORD,,"]) + "\n").encode()
+    directory.mkdir(parents=True, exist_ok=True)
+    wheel = directory / f"{name}-{version}-py3-none-any.whl"
+    with zipfile.ZipFile(wheel, "w") as archive:
+        for path, data in files.items():
+            archive.writestr(path, data)
+    return wheel
+
+
+def _z_instance(root: Path, cluster: str) -> Path:
+    """``examples/instances/memory.yaml`` on a broker cluster of its own."""
+    instance = root / f"instance-{cluster}.yaml"
+    instance.write_text(T_INSTANCE.read_text().replace(
+        'type: "memory"', f'type: "memory"\n    configuration: {{cluster: "{cluster}"}}', 1))
+    return instance
+
+
+def _z_app(root: Path, name: str, pipeline: str, configuration: str | None = None) -> Path:
+    app = root / name
+    (app / "python").mkdir(parents=True)
+    (app / "python" / "z_steps.py").write_text(Z_STEPS)
+    (app / "pipeline.yaml").write_text(pipeline)
+    if configuration is not None:
+        (app / "configuration.yaml").write_text(configuration)
+    return app
+
+
+def _z_sidecar_agents(runner) -> list:
+    """A running app's ``grpc-*`` agents (inside composite nodes too)."""
+    from langstream_tpu_torch.grpc.client import _GrpcAgentBase
+
+    found, todo = [], [r.processor for r in runner.runners if hasattr(r, "processor")]
+    todo += [r.source for r in runner.runners if hasattr(r, "source")]
+    todo += [r.sink for r in runner.runners if hasattr(r, "sink")]
+    while todo:
+        agent = todo.pop()
+        if isinstance(agent, _GrpcAgentBase):
+            found.append(agent)
+        todo.extend(getattr(agent, "processors", []))
+    return found
+
+
+async def _z_values(run, topic: str, n: int) -> list:
+    return [m.value for m in await run.runner.wait_for_messages(topic, n, timeout=Z_TIMEOUT)]
+
+
+def z1_lane(root: Path, device="cuda") -> dict:
+    """Z1: the lane without a model. (a) The ``grpc-sidecar-agent`` example
+    unchanged through the port's ``run`` (``LocalRun``): ``Z_RECORDS``
+    records in and out through its sidecar interpreter, equal to the
+    in-process ``python-processor`` lane's on the same records and class.
+    (b) A ``grpc-agent`` step whose ``endpoint`` is a port ``AgentServer``
+    started here. (c) ``grpc-python-source`` into ``grpc-python-sink``:
+    every record read is written by the sink and committed by the source."""
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.grpc.server import AgentServer
+
+    label = "Z1"
+    example = T_APPS / "grpc-sidecar-agent"
+    records = [f"z1 record {i:02d} " + "x" * (i % 7) for i in range(Z_RECORDS)]
+    in_process = root / "z1-in-process"
+    in_process.mkdir()
+    (in_process / "python").symlink_to(example / "python")
+    pipeline = (example / "pipeline.yaml").read_text()
+    if '"grpc-python-processor"' not in pipeline:
+        fail(f"{label}: the example's step is not a grpc-python-processor")
+    (in_process / "pipeline.yaml").write_text(
+        pipeline.replace('"grpc-python-processor"', '"python-processor"', 1))
+    endpoint_app = root / "z1-endpoint"
+    endpoint_app.mkdir()
+    (endpoint_app / "pipeline.yaml").write_text(pipeline.replace(
+        '"grpc-python-processor"', '"grpc-agent"', 1).replace(
+        'className: "example.Exclamation"', 'endpoint: "%s"', 1))
+    out = root / "z1-source-sink"
+    pair = _z_app(root, "z1-pair", Z_PIPELINE_Z1 % (Z_RECORDS, out, out))
+
+    async def one(app, name: str, cluster: str) -> tuple[list, float, dict]:
+        t0 = time.monotonic()
+        run = await LocalRun(name, app, _z_instance(root, cluster), device=device,
+                             gateway_port=0).start()
+        try:
+            for value in records:
+                await run.runner.produce("in-topic", value)
+            values = await _z_values(run, "out-topic", len(records))
+            agents = _z_sidecar_agents(run.runner)
+            info = await agents[0].fetch_agent_info() if agents else {}
+            info = {**info, **(agents[0].agent_info() if agents else {})}
+        finally:
+            await run.stop()
+        return values, time.monotonic() - t0, info
+
+    async def drive():
+        result = {}
+        result["sidecar"] = await one(example, "z1-sidecar", "chip-smoke-z1a")
+        result["in_process"] = await one(in_process, "z1-in-process", "chip-smoke-z1b")
+        server = AgentServer({"className": "example.Exclamation",
+                              "__application_directory__": str(example)})
+        port = await server.start()
+        try:
+            text = (endpoint_app / "pipeline.yaml").read_text()
+            (endpoint_app / "pipeline.yaml").write_text(text % f"127.0.0.1:{port}")
+            result["endpoint"] = await one(endpoint_app, "z1-endpoint", "chip-smoke-z1c")
+        finally:
+            await server.stop(1)
+        t0 = time.monotonic()
+        run = await LocalRun("z1-pair", pair, _z_instance(root, "chip-smoke-z1d"),
+                             device=device, gateway_port=0).start()
+        try:
+            committed = Path(str(out) + ".committed")
+            for _ in range(int(Z_TIMEOUT / 0.1)):
+                if committed.exists() and len(committed.read_text().split()) >= Z_RECORDS:
+                    break
+                await asyncio.sleep(0.1)
+            agents = [type(a).__name__ for a in _z_sidecar_agents(run.runner)]
+        finally:
+            await run.stop()
+        result["pair"] = (time.monotonic() - t0, agents)
+        return result
+
+    result = asyncio.run(drive())
+    want = sorted(v + "!" for v in records)
+    for lane in ("sidecar", "in_process", "endpoint"):
+        if sorted(result[lane][0]) != want:
+            fail(f"{label}: the {lane} lane's records differ: {sorted(result[lane][0])[:3]} ...")
+    if result["sidecar"][2].get("execution") != "sidecar" or (
+            result["endpoint"][2].get("execution") != "external-endpoint"):
+        fail(f"{label}: the lanes' executions: {result['sidecar'][2]}, {result['endpoint'][2]}")
+    sunk = Path(str(out) + ".sunk").read_text().split("\n")
+    committed = sorted(int(n) for n in Path(str(out) + ".committed").read_text().split())
+    sunk_n = sorted(int(line.split()[0]) for line in sunk if line)
+    if committed != list(range(1, Z_RECORDS + 1)) or sunk_n != committed:
+        fail(f"{label}: source-sink: {len(sunk_n)} sunk, {len(committed)} committed")
+    if any(line.split()[1:] != [line.split()[0], "z1-source"] for line in sunk if line):
+        fail(f"{label}: the sink got other keys or headers than the source read: {sunk[:2]}")
+    if sorted(result["pair"][1]) != ["GrpcAgentSink", "GrpcAgentSource"]:
+        fail(f"{label}: the pair ran as {result['pair'][1]}")
+    return {"records": Z_RECORDS, "sidecar_s": round(result["sidecar"][1], 3),
+            "in_process_s": round(result["in_process"][1], 3),
+            "endpoint_s": round(result["endpoint"][1], 3),
+            "source_sink_s": round(result["pair"][0], 3),
+            "sidecar_equal_to_in_process": True, "endpoint_equal": True,
+            "committed": len(committed), "sunk": len(sunk_n),
+            "sidecar_info": result["sidecar"][2]}
+
+
+def _z_chat_app(root: Path) -> Path:
+    """A copy of ``chat-completions`` with a ``grpc-python-processor`` step
+    (``z_steps.Trim``, ``errors: retries``) first, in front of
+    ``document-to-json`` and ``ai-chat-completions``."""
+    source = T_APPS / "chat-completions"
+    pipeline = (source / "pipeline.yaml").read_text()
+    head = '''  - name: "convert-to-structure"
+    type: "document-to-json"
+    input: "questions-topic"
+'''
+    if head not in pipeline:
+        fail("Z2: the chat example's first step is not where the copy puts the sidecar's")
+    step = f'''  - name: "trim"
+    type: "grpc-python-processor"
+    input: "questions-topic"
+    configuration:
+      className: "z_steps.Trim"
+      side-topic: "{Z_SIDE}"
+    errors:
+      retries: {Z_RETRIES}
+  - name: "convert-to-structure"
+    type: "document-to-json"
+'''
+    pipeline = pipeline.replace(head, step, 1).replace(
+        'pipeline:\n', f'  - name: "{Z_SIDE}"\n    creation-mode: create-if-not-exists\n'
+                      'pipeline:\n', 1)
+    app = _z_app(root, "chat-sidecar", pipeline, (source / "configuration.yaml").read_text())
+    (app / "gateways.yaml").write_text((source / "gateways.yaml").read_text())
+    return app
+
+
+def z23_chat(torch, root: Path, device="cuda") -> tuple[dict, dict, dict]:
+    """Z2: the chat app with a sidecar step (:func:`_z_chat_app`) through the
+    port's ``run`` and gateway, a wave of ``Z_WAVE`` sessions at once as in
+    T1, each question padded with white space the sidecar trims: every
+    streamed answer equals its answers-topic value and the provider's greedy
+    text for the trimmed question on the agent's engine; the side topic
+    holds one record per question. Z3: a second wave on the same run, the
+    sidecar killed (SIGKILL) once the first session's answer is in, the
+    other sessions sent at once: the step restarts its sidecar once, its
+    ``errors: retries`` resends what the dead sidecar held, every session
+    is answered. Each wave's launches are counted from 0 at its start to its
+    end, so the greedy reference run between them is in neither. Returns
+    (Z2's line, Z3's line, the launches of both waves)."""
+    from langstream_tpu_torch.agents.provider import TorchServiceProvider
+    from langstream_tpu_torch.cli.main import LocalRun
+    from langstream_tpu_torch.gateway.wire import WebSocketClient
+
+    label = "Z2: chat-completions with a sidecar step"
+    app = _z_chat_app(root)
+    questions = [q.strip() for q in chat_prompts()[:Z_WAVE]]
+    padded = [f"  {q}\n\t " for q in questions]
+
+    async def session(run, question: str, sid: str) -> tuple[float, list, float]:
+        consumer = await WebSocketClient.connect(run.url("consume", "bot-output", sessionId=sid))
+        producer = await WebSocketClient.connect(run.url("produce", "user-input", sessionId=sid))
+        try:
+            t = time.monotonic()
+            await producer.send_json({"value": question})
+            ack = await producer.receive_json(Z_TIMEOUT)
+            if ack.get("status") != "OK":
+                fail(f"{label}: session {sid} produce refused: {ack}")
+            first, chunks = None, []
+            while True:
+                frame = await consumer.receive_json(Z_TIMEOUT)
+                if first is None:
+                    first = time.monotonic() - t
+                headers = frame["record"]["headers"]
+                if headers.get("langstream-client-session-id") != sid:
+                    fail(f"{label}: session {sid} got another session's frame: {headers}")
+                chunks.append(frame["record"]["value"])
+                if headers.get("stream-last-message") == "true":
+                    return first, chunks, time.monotonic()
+        finally:
+            await consumer.close()
+            await producer.close()
+
+    async def drive():
+        out = {}
+        t0 = time.monotonic()
+        run = LocalRun("chat-sidecar", app, _z_instance(root, "chip-smoke-z2"), device=device,
+                       gateway_port=0)
+        await run.start()
+        out["start_s"] = time.monotonic() - t0
+        try:
+            cfg = {"type": CHAT_EXAMPLE_RESOURCE["type"], "name": CHAT_EXAMPLE_RESOURCE["name"],
+                   **CHAT_EXAMPLE_RESOURCE["configuration"]}
+            service = TorchServiceProvider(cfg, device=device).get_completions_service({})
+            engine = service.engine
+            ascii_head(engine)  # after the warmup: the answers need text
+            (sidecar,) = _z_sidecar_agents(run.runner)
+            out["sidecar_pid"] = sidecar.sidecar.process.pid
+            sessions = [f"z2-{i}" for i in range(Z_WAVE)]
+            t = time.monotonic()
+            out["z2"] = await asyncio.gather(*(session(run, padded[i], sessions[i])
+                                               for i in range(Z_WAVE)))
+            out["z2_wave_s"] = time.monotonic() - t
+            answers = await run.runner.wait_for_messages("answers-topic", Z_WAVE,
+                                                         timeout=Z_TIMEOUT)
+            out["answers"] = {a.header("langstream-client-session-id"): a for a in answers}
+            out["side"] = await run.runner.wait_for_messages(Z_SIDE, Z_WAVE, timeout=Z_TIMEOUT)
+            out["counts_z2"] = read_counts()
+            out["direct"] = await asyncio.gather(*(
+                service.chat_completions([{"role": "user", "content": q}],
+                                         {"model": "llama3-8b"})
+                for q in questions))
+            # the reference's launches are not path Z's: Z3 counts from 0
+            reset_counts()
+            # Z3: the second wave, the sidecar killed after its first answer
+            later = [f"z3-{i}" for i in range(Z_WAVE)]
+            first = await session(run, padded[0], later[0])
+            kill_t, kill_wall = time.monotonic(), time.time()
+            os.kill(out["sidecar_pid"], signal.SIGKILL)
+            rest = await asyncio.gather(*(session(run, padded[i], later[i])
+                                          for i in range(1, Z_WAVE)))
+            out["z3"] = [first, *rest]
+            out["z3_kill_to_last_answer_s"] = max(r[2] for r in rest) - kill_t
+            answers = await run.runner.wait_for_messages("answers-topic", 2 * Z_WAVE,
+                                                         timeout=Z_TIMEOUT)
+            out["answers_z3"] = {a.header("langstream-client-session-id"): a for a in answers
+                                 if a.header("langstream-client-session-id") in later}
+            side = await run.runner.wait_for_messages(Z_SIDE, 2 * Z_WAVE, timeout=Z_TIMEOUT)
+            out["z3_side_after_kill"] = sorted(m.value["t"] - kill_wall for m in side
+                                               if m.value["t"] > kill_wall)
+            out["restarts"] = getattr(sidecar, "_restarts", 0)
+            out["respawned_pid"] = sidecar.sidecar.process.pid
+            out["info"] = await sidecar.fetch_agent_info()
+            out["counts_z3"] = read_counts()
+            out["leaks"] = _t_leaks(Z_REFUSED) + sorted(
+                m for m in sys.modules if m.startswith("google.protobuf"))
+        finally:
+            await run.stop()
+        return out
+
+    reset_counts()
+    out = asyncio.run(drive())
+    if out["leaks"]:
+        fail(f"{label}: the port's run loaded {out['leaks']}")
+    gateway_ttft, engine_ttft = [], []
+    for i, (first, chunks, _) in enumerate(out["z2"]):
+        record = out["answers"].get(f"z2-{i}")
+        if record is None:
+            fail(f"{label}: no answers-topic record for session {i}")
+        streamed, answer = "".join(chunks), record.value["answer"]
+        if not streamed or streamed != answer:
+            fail(f"{label}: session {i}: streamed {streamed!r} != answers-topic {answer!r}")
+        if answer != out["direct"][i].text:
+            fail(f"{label}: session {i}: answer {answer!r} != the provider's greedy text "
+                 f"{out['direct'][i].text!r} for the trimmed question")
+        if record.value.get("question") != questions[i]:
+            fail(f"{label}: session {i}: the chat step saw {record.value.get('question')!r}")
+        gateway_ttft.append(first)
+        engine_ttft.append(float(record.header("langstream-ttft-ms")) / 1e3)
+    side = sorted((m.value["question"], m.header("langstream-client-session-id"))
+                  for m in out["side"])
+    if side != sorted((q, f"z2-{i}") for i, q in enumerate(questions)):
+        fail(f"{label}: the side topic holds {side}")
+    counts_z2 = out["counts_z2"]
+    if device == "cuda" and min(counts_z2["flash_attention"], counts_z2["paged_attention"]) == 0:
+        fail(f"{label}: flash and the bf16 paged read must launch: {counts_z2}")
+    t1 = NOTES.get("T1", {}).get("gateway_ttft_s", {})
+    z2 = {"sessions": Z_WAVE, "start_s": round(out["start_s"], 3),
+          "wave_s": round(out["z2_wave_s"], 3), "gateway_ttft_s": _t_stats(gateway_ttft),
+          "engine_ttft_s": _t_stats(engine_ttft),
+          "gateway_minus_engine_ttft_s": _t_stats(
+              [g - e for g, e in zip(gateway_ttft, engine_ttft)]),
+          "t1_gateway_ttft_p50_s": t1.get("p50"),
+          "sidecar_hop_p50_s": round(_t_stats(gateway_ttft)["p50"] - t1["p50"], 4)
+          if t1 else None,
+          "side_records": len(out["side"]), "equal_to_provider": True, "launches": counts_z2}
+    label = "Z3: the sidecar killed mid-wave"
+    for i, (_, chunks, _) in enumerate(out["z3"]):
+        record = out["answers_z3"].get(f"z3-{i}")
+        if record is None or not record.value["answer"] or (
+                "".join(chunks) != record.value["answer"]):
+            fail(f"{label}: session {i} was not answered whole")
+    if out["restarts"] != 1 or out["respawned_pid"] == out["sidecar_pid"]:
+        fail(f"{label}: {out['restarts']} restarts, pid {out['sidecar_pid']} -> "
+             f"{out['respawned_pid']}")
+    if not out["z3_side_after_kill"]:
+        fail(f"{label}: no record went through the sidecar after the kill")
+    if out["info"].get("className") != "z_steps.Trim":
+        fail(f"{label}: the respawned sidecar answers {out['info']}")
+    counts_z3 = out["counts_z3"]
+    z3 = {"sessions": Z_WAVE, "restarts": out["restarts"],
+          "kill_to_next_record_s": round(out["z3_side_after_kill"][0], 3),
+          "kill_to_last_answer_s": round(out["z3_kill_to_last_answer_s"], 3),
+          "records_through_after_kill": len(out["z3_side_after_kill"]),
+          "pids": [out["sidecar_pid"], out["respawned_pid"]],
+          "launches": counts_z3}
+    return z2, z3, {k: counts_z2[k] + counts_z3[k] for k in counts_z2}
+
+
+def z4_isolation(root: Path, device="cuda") -> dict:
+    """Z4: an app whose ``python/requirements.txt`` names a wheel written
+    here by hand into ``python/wheels/``: the port's ``python
+    install-requirements`` provisions its venv (its seconds); the sidecar
+    of a ``grpc-python-processor`` step runs on the venv's interpreter
+    (its ``agent_info`` says so) and imports the wheel's module, which the
+    base interpreter cannot; a second call returns the same interpreter and
+    leaves the marker as it was; the app runs through the dev runner on its
+    own directory (``run`` stores only YAML and ``python/*.py``). Then
+    ``apps ui --once --no-open`` serves the port's ``app_ui.html`` byte for
+    byte."""
+    import urllib.request
+
+    from langstream_tpu_torch.runtime.isolation import ensure_app_interpreter
+    from langstream_tpu_torch.runtime.local_runner import LocalApplicationRunner
+
+    label = "Z4"
+    app = _z_app(root, "z4-isolated", Z_PIPELINE_Z4)
+    z_wheel(app / "python" / "wheels")
+    (app / "python" / "requirements.txt").write_text(f"{Z_WHEEL.replace('_', '-')}==1.0\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env.pop("LS_VENV_ROOT", None)
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-m", "langstream_tpu_torch.cli", "python",
+                          "install-requirements", "-app", str(app)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    provision_s = time.monotonic() - t0
+    if out.returncode != 0:
+        fail(f"{label}: install-requirements exited {out.returncode}: {out.stderr[-2000:]}")
+    interpreter = out.stdout.split()[-1]
+    marker = app / ".venv" / ".requirements.sha256"
+    stamp = (marker.read_text(), marker.stat().st_mtime_ns)
+    base = subprocess.run([sys.executable, "-c", f"import {Z_WHEEL}"], capture_output=True,
+                          text=True, timeout=60)
+    if base.returncode == 0:
+        fail(f"{label}: the base interpreter imports {Z_WHEEL}")
+    pip = subprocess.run([interpreter, "-m", "pip", "--version"], capture_output=True,
+                         text=True, timeout=60)
+
+    async def drive():
+        # the dev runner on the app's own directory: ``run`` and a deploy
+        # store only an app's YAML and ``python/*.py`` (as the JAX control
+        # plane does), so its requirements and wheels stay behind
+        runner = LocalApplicationRunner.from_directory(app, _z_instance(root, "chip-smoke-z4"))
+        async with runner:
+            await runner.produce("z4-in", "isolated")
+            values = [m.value for m in await runner.wait_for_messages("z4-out", 1,
+                                                                      timeout=Z_TIMEOUT)]
+            (sidecar,) = _z_sidecar_agents(runner)
+            info = await sidecar.fetch_agent_info()
+        return values, info
+
+    values, info = asyncio.run(drive())
+    again = ensure_app_interpreter(app)
+    if again != interpreter or (marker.read_text(), marker.stat().st_mtime_ns) != stamp:
+        fail(f"{label}: a second call gave {again} (first {interpreter}) or moved the marker")
+    if info.get("executable") != interpreter or values != ["isolated@from-the-app-wheel"]:
+        fail(f"{label}: the sidecar ran on {info.get('executable')} (the venv's is "
+             f"{interpreter}) and answered {values}")
+    page = REPO / "langstream_tpu_torch" / "cli" / "app_ui.html"
+    proc = subprocess.Popen([sys.executable, "-m", "langstream_tpu_torch.cli", "apps", "ui",
+                             "z", "--port", "0", "--once", "--no-open"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline().strip()
+        if not line.startswith("chat UI: "):
+            fail(f"{label}: apps ui printed {line!r}")
+        with urllib.request.urlopen(line.removeprefix("chat UI: "), timeout=60) as answer:
+            served = answer.read()
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+    if served != page.read_bytes() or proc.returncode != 0:
+        fail(f"{label}: apps ui served {len(served)} bytes, exit {proc.returncode}")
+    return {"provision_s": round(provision_s, 3), "interpreter": interpreter,
+            "sidecar_executable": info["executable"], "marker": info["marker"],
+            "base_imports_wheel": False, "second_call_same": True,
+            "venv_pip": pip.stdout.strip() or pip.stderr.strip()[-200:],
+            "apps_ui_bytes": len(served)}
+
+
+def phase_sidecar_path(torch, device="cuda") -> dict:
+    """Path Z: the gRPC sidecar lane without JAX (:func:`z1_lane`,
+    :func:`z23_chat` at ``Z_LAYERS``, :func:`z4_isolation`), each app on a
+    memory broker cluster of its own. Returns Z2's and Z3's launches."""
+    import shutil
+    import tempfile
+
+    t0 = time.monotonic()
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-z-"))
+    try:
+        z1 = z1_lane(root, device)
+        print(f"path Z [Z1 the sidecar lane: grpc-sidecar-agent, grpc-agent, source and sink, "
+              f"{Z_RECORDS} records each]: {json.dumps(z1)}", flush=True)
+        t_z2 = time.monotonic()
+        with cut_depth("llama3-8b", Z_LAYERS):
+            z2, z3, counts = z23_chat(torch, root, device)
+        print(f"path Z [Z2 chat-completions with a sidecar step, llama3-8b int8 {Z_LAYERS} "
+              f"layers, {Z_WAVE} sessions]: {json.dumps(z2)}", flush=True)
+        print(f"path Z [Z3 the sidecar killed after the first answer of a second wave]: "
+              f"{json.dumps(z3)}", flush=True)
+        z23_s = time.monotonic() - t_z2
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        z4 = z4_isolation(root, device)
+        print(f"path Z [Z4 an app venv from a wheel in python/wheels, apps ui]: "
+              f"{json.dumps(z4)}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"path Z: {time.monotonic() - t0:.1f} s (Z2 and Z3 {z23_s:.1f} s); launches "
+          f"{json.dumps(counts)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -10067,10 +10691,16 @@ def main() -> int:
     y_counts = phase_document_path(torch)
     if y_counts["flash_attention"] == 0 or y_counts["paged_attention"] == 0:
         fail(f"path Y did not launch flash and the bf16 paged read: {y_counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_z = time.monotonic()
+    z_counts = phase_sidecar_path(torch)
+    if z_counts["flash_attention"] == 0 or z_counts["paged_attention"] == 0:
+        fail(f"path Z did not launch flash and the bf16 paged read: {z_counts}")
     secs.update(F=t_g - t_f, G=t_h - t_g, H=t_m1 - t_h, M=m_s, N=t_o - t_n, O=t_p - t_o,
                 P=t_q - t_p, Q=t_r - t_q, R=t_s - t_r, S=t_t - t_s, T=t_u - t_t,
-                U=t_v - t_u, V=t_w - t_v, W=t_x - t_w, X=t_y - t_x,
-                Y=time.monotonic() - t_y)
+                U=t_v - t_u, V=t_w - t_v, W=t_x - t_w, X=t_y - t_x, Y=t_z - t_y,
+                Z=time.monotonic() - t_z)
     print(f"phase main path: {time.monotonic() - t0:.1f} s; path seconds "
           f"{json.dumps({k: round(v, 1) for k, v in sorted(secs.items())})}", flush=True)
 
@@ -10086,8 +10716,8 @@ def main() -> int:
              "J": j_counts, "K": k_counts, "L": l_counts, "M": m_counts, "N": n_counts,
              "O": o_counts, "P": p_counts, "Q": q_counts, "R": r_counts, "S": s_counts,
              "T": t_counts, "U": u_counts, "V": v_counts, "W": w_counts, "X": x_counts,
-             "Y": y_counts}
-    meta = {  # launches: summed over the 25 main paths (rank 0's on N, O, Q, R, S; V's
+             "Y": y_counts, "Z": z_counts}
+    meta = {  # launches: summed over the 26 main paths (rank 0's on N, O, Q, R, S; V's
         # the chat pod's, in its profiled window)
         "flash_attention": ("langstream_tpu_torch/ops/csrc/flash_attention.cu",
                             "langstream_tpu/ops/flash_attention.py:36"),

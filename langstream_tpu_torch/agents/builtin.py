@@ -1,18 +1,17 @@
-"""Registration of every agent type the port carries (the port's copy of
-``langstream_tpu/agents/builtin.py``, for the types ported so far: all but
-the four ``grpc-*`` ones), with the JAX package's component types
-(``_METADATA``) so the planner fuses sources, sinks and services as the JAX
-planner does, and the JAX package's planning-time config validator
-(``camel-source``). Importing the store
-modules registers their asset managers
+"""Registration of every agent type (the port's copy of
+``langstream_tpu/agents/builtin.py``: its 46 types), with the JAX package's
+component types (``_METADATA``) so the planner fuses sources, sinks and
+services as the JAX planner does, and the JAX package's planning-time
+config validator (``camel-source``). Importing the store modules registers
+their asset managers
 (:class:`~langstream_tpu_torch.agents.assets.AssetManagerRegistry`); the
 Cassandra ones register when :mod:`.cassandra_cql` is first imported, as in
-the JAX package.
+the JAX package. The four ``grpc-*`` types load the sidecar lane
+(:mod:`langstream_tpu_torch.grpc`) only when an application uses one.
 
-The planner refuses any other type by name
-(:mod:`langstream_tpu_torch.core.planner`), so an application that needs
-one of the JAX package's other agents fails when it is planned, never at
-run time.
+A type no registry knows plans as a composable processor and fails when
+its agent starts, with the registry's ``ValueError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -73,7 +72,7 @@ _FACTORIES = {
     # Kafka-Connect-style bridge (reference: KafkaConnectCodeProvider.java:26)
     "sink": connect.ConnectSinkBridge,
     "source": connect.ConnectSourceBridge,
-    # custom python, in-process (the gRPC types are not ported yet)
+    # custom python (in-process; no gRPC hop needed — see python_custom.py)
     "python-processor": python_custom.PythonProcessorAgent,
     "python-function": python_custom.PythonProcessorAgent,
     "experimental-python-processor": python_custom.PythonProcessorAgent,
@@ -85,8 +84,40 @@ _FACTORIES = {
     "experimental-python-service": python_custom.PythonServiceAgent,
 }
 
+
+# out-of-process python/any-language agents over the sidecar gRPC protocol
+# (parity: the reference's default python-* execution; here opt-in, since
+# in-process is the zero-overhead default). Lazy imports: the gRPC lane
+# loads only when an application actually uses these types.
+def _grpc_processor():
+    from langstream_tpu_torch.grpc.client import GrpcAgentProcessor
+
+    return GrpcAgentProcessor()
+
+
+def _grpc_source():
+    from langstream_tpu_torch.grpc.client import GrpcAgentSource
+
+    return GrpcAgentSource()
+
+
+def _grpc_sink():
+    from langstream_tpu_torch.grpc.client import GrpcAgentSink
+
+    return GrpcAgentSink()
+
+
+_FACTORIES.update(
+    {
+        "grpc-python-processor": _grpc_processor,
+        "grpc-agent": _grpc_processor,  # external endpoint, any language
+        "grpc-python-source": _grpc_source,
+        "grpc-python-sink": _grpc_sink,
+    }
+)
+
 #: component type and composability of the types that are not composable
-#: processors (the JAX ``_METADATA``'s entries for the ported types)
+#: processors (the JAX ``_METADATA``)
 _METADATA = {
     "timer-source": (SOURCE, True),
     "camel-source": (SOURCE, True),
@@ -101,6 +132,8 @@ _METADATA = {
     "experimental-python-sink": (SINK, True),
     "python-service": (SERVICE, False),
     "experimental-python-service": (SERVICE, False),
+    "grpc-python-source": (SOURCE, True),
+    "grpc-python-sink": (SINK, True),
     "source": (SOURCE, True),
     "sink": (SINK, True),
 }

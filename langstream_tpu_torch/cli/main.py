@@ -5,6 +5,8 @@ aiohttp):
     python -m langstream_tpu_torch.cli configure [--api-url U] [--gateway-url U] [--tenant T]
     python -m langstream_tpu_torch.cli tenants put|list|delete ...
     python -m langstream_tpu_torch.cli apps deploy|update|get|list|delete|download|logs|diagram ...
+    python -m langstream_tpu_torch.cli apps ui NAME [--gateway G] [--gateway-url U] [--port P]
+        [--open/--no-open]
     python -m langstream_tpu_torch.cli archetypes list|get|deploy ...
     python -m langstream_tpu_torch.cli gateway produce|consume|chat APP GATEWAY
         [-p name=value ...] [--credentials TOKEN] ...
@@ -12,6 +14,8 @@ aiohttp):
     python -m langstream_tpu_torch.cli run NAME -app DIR [-i INSTANCE] [-s SECRETS]
         [--api-port P] [--gateway-port G] [--archetypes DIR] [--device cuda|cpu]
     python -m langstream_tpu_torch.cli mini up [-app DIR] [--device cuda|cpu] [--once] ...
+    python -m langstream_tpu_torch.cli python install-requirements -app DIR
+    python -m langstream_tpu_torch.cli python run-tests -app DIR [PYTEST ARGS ...]
 
 Every command prints what the JAX CLI prints (JSON bodies, the same lines)
 and fails as it does (``Error: <message>`` on stderr, exit 1). The profile
@@ -31,7 +35,11 @@ command fails (``require_device``), it never falls back to the CPU.
 
 ``mini up`` is the one-command local cluster (:mod:`langstream_tpu_torch.cli.mini`).
 
-Refused by name until their slice: ``apps ui`` and ``python ...``.
+``apps ui`` serves the bundled chat page (``app_ui.html``, the JAX CLI's)
+against an app's chat gateway; ``python install-requirements`` provisions
+an app's own interpreter for its sidecar agents and ``python run-tests``
+runs its ``python/`` tests on it
+(:mod:`langstream_tpu_torch.runtime.isolation`).
 
 :class:`LocalRun` is ``run`` in-process, for callers that drive an
 application themselves (the smoke, the tests).
@@ -51,9 +59,6 @@ from typing import Any
 TENANT = "default"
 DEFAULT_API = "http://127.0.0.1:8090"
 DEFAULT_GATEWAY = "http://127.0.0.1:8091"
-#: what the unported commands answer
-NOT_PORTED = ("is not ported to langstream_tpu_torch yet; a later slice of the port "
-              "brings it")
 
 
 def profile_path() -> Path:
@@ -191,7 +196,7 @@ def cmd_apps(args) -> None:
         print(mermaid_diagram(plan), flush=True)
         return
     if args.action == "ui":
-        raise CliError(f"apps ui {NOT_PORTED}")
+        return apps_ui(args)
     base = f"{_api_url(args.api_url)}/api/applications/{_tenant(args.tenant)}"
     if args.action == "list":
         _echo(_request("GET", base), indent=2)
@@ -514,8 +519,87 @@ def cmd_run(args) -> int:
                            api_port=args.api_port, archetypes=args.archetypes))
 
 
-def cmd_not_ported(args) -> None:
-    raise CliError(f"{args.command} {NOT_PORTED}")
+# ---------------------------------------------------------------------------
+# apps ui, python
+# ---------------------------------------------------------------------------
+
+
+def apps_ui(args) -> None:
+    """Serve the bundled chat UI against an app's chat gateway (parity:
+    `langstream apps ui` serving langstream-cli's app-ui/index.html)."""
+    import http.server
+    import threading
+    import urllib.parse
+    import webbrowser
+
+    tenant = _tenant(args.tenant)
+    ws_base = _gateway_url(args.gateway_url)
+    page = (Path(__file__).parent / "app_ui.html").read_bytes()
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 (stdlib naming)
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(page)))
+            self.end_headers()
+            self.wfile.write(page)
+
+        def log_message(self, *a):  # quiet
+            pass
+
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", args.port), Handler)
+    # the close waits for the handler's thread, so a ``--once`` process
+    # answers before it exits (the JAX CLI's daemon threads may not)
+    server.daemon_threads = False
+    actual_port = server.server_address[1]
+    query = urllib.parse.urlencode(
+        {"tenant": tenant, "app": args.name, "gw": args.gateway_id, "gateway": ws_base})
+    url = f"http://127.0.0.1:{actual_port}/?{query}"
+    print(f"chat UI: {url}", flush=True)
+    if args.open_browser:
+        threading.Thread(target=webbrowser.open, args=(url,), daemon=True).start()
+    try:
+        if args.once:
+            server.handle_request()
+        else:
+            server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+def cmd_python(args) -> int:
+    """``install-requirements``: provision the app's isolated venv from
+    python/requirements.txt and print the interpreter its sidecar agents
+    will run on (parity: load-pip-requirements; here deps install into a
+    venv-per-app instead of the shared lib dir, the NAR-isolation answer).
+    ``run-tests``: run the application's python/ test suite on the app's
+    interpreter (the venv when requirements are pinned), with pytest's exit
+    code."""
+    import subprocess
+
+    from langstream_tpu_torch.runtime.isolation import (
+        ensure_app_interpreter,
+        requirements_file,
+    )
+
+    if args.action == "install-requirements":
+        if requirements_file(args.app) is None:
+            print("no python/requirements.txt: sidecars use the base interpreter", flush=True)
+        try:
+            interpreter = ensure_app_interpreter(args.app)
+        except (RuntimeError, subprocess.CalledProcessError) as e:
+            raise CliError(str(e))
+        print(interpreter, flush=True)
+        return 0
+    code_dir = Path(args.app) / "python"
+    if not code_dir.is_dir():
+        raise CliError(f"{args.app} has no python/ directory")
+    interpreter = ensure_app_interpreter(args.app)
+    result = subprocess.run([interpreter, "-m", "pytest", *(args.pytest_args or ("-q",))],
+                            cwd=code_dir)
+    return result.returncode
 
 
 # ---------------------------------------------------------------------------
@@ -561,13 +645,27 @@ def build_parser() -> argparse.ArgumentParser:
         app_files(cmd)
         remote(cmd)
         cmd.set_defaults(func=cmd_apps)
-    for action in ("get", "delete", "logs", "download", "ui"):
+    for action in ("get", "delete", "logs", "download"):
         cmd = actions.add_parser(action)
         cmd.add_argument("name")
         if action == "download":
             cmd.add_argument("-o", "--output", default=None)
         remote(cmd)
         cmd.set_defaults(func=cmd_apps)
+    cmd = actions.add_parser("ui", help="serve the bundled chat UI against an app's chat gateway")
+    cmd.add_argument("name")
+    cmd.add_argument("--tenant", default=None)
+    cmd.add_argument("--gateway", dest="gateway_id", default="chat",
+                     help="chat gateway id in the app's gateways.yaml")
+    cmd.add_argument("--gateway-url", default=None,
+                     help="websocket gateway base (default: profile / ws://localhost:8091)")
+    cmd.add_argument("--port", type=int, default=8092,
+                     help="local port to serve the UI on (0 = ephemeral)")
+    cmd.add_argument("--open", dest="open_browser", action="store_true", default=True,
+                     help="open the page in a browser")
+    cmd.add_argument("--no-open", dest="open_browser", action="store_false")
+    cmd.add_argument("--once", action="store_true", help=argparse.SUPPRESS)
+    cmd.set_defaults(func=cmd_apps)
     cmd = actions.add_parser("list")
     remote(cmd)
     cmd.set_defaults(func=cmd_apps)
@@ -633,14 +731,22 @@ def build_parser() -> argparse.ArgumentParser:
 
     mini.add_parser(commands)
 
-    cmd = commands.add_parser("python", help="not ported yet (python)")
-    cmd.add_argument("rest", nargs=argparse.REMAINDER)
-    cmd.set_defaults(func=cmd_not_ported)
+    python = commands.add_parser("python", help="per-application Python tooling")
+    actions = python.add_subparsers(dest="action", required=True)
+    for action in ("install-requirements", "run-tests"):
+        cmd = actions.add_parser(action)
+        cmd.add_argument("-app", "--application", dest="app", required=True)
+        cmd.set_defaults(func=cmd_python)
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, extra = parser.parse_known_args(argv)
+    if args.command == "python" and args.action == "run-tests":
+        args.pytest_args = extra  # everything else goes to pytest
+    elif extra:
+        parser.error(f"unrecognized arguments: {' '.join(extra)}")
     for attr in ("app", "instance", "secrets", "archetypes"):
         path = getattr(args, attr, None)
         if path is not None and not Path(path).exists():

@@ -9,9 +9,10 @@ equal resource specs and no explicit topic between them are merged into one
 composite node, removing a broker round-trip. Stages that are not fused are
 joined by implicit topics.
 
-The port's copy of ``langstream_tpu/core/planner.py``. An agent type the
-port has not registered (:mod:`langstream_tpu_torch.agents.builtin`) is
-refused here, at planning, naming the type: it never reaches a runner.
+The port's copy of ``langstream_tpu/core/planner.py``. A type no registry
+knows plans as a composable processor (:func:`get_metadata`) and fails
+when its agent starts, with the registry's ``ValueError``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from langstream_tpu_torch.api.application import (
     TopicDefinition,
 )
 from langstream_tpu_torch.api.execution_plan import AgentNode, Connection, ExecutionPlan
-from langstream_tpu_torch.api.registry import AgentCodeRegistry
 
 
 @dataclass
@@ -111,14 +111,7 @@ class Planner:
         if not agents:
             return
 
-        known = AgentCodeRegistry.known_types()
         for agent in agents:
-            if agent.type not in known:
-                raise PlanningError(
-                    f"agent {agent.id!r} in pipeline {pipeline.id!r}: agent type "
-                    f"{agent.type!r} is not ported to langstream_tpu_torch yet; a "
-                    f"later slice of the port brings it (ported: {sorted(known)})"
-                )
             validator = AGENT_CONFIG_VALIDATORS.get(agent.type)
             if validator is not None:
                 try:

@@ -224,6 +224,12 @@ class AgentRunner:
         # reaches a terminal state (written / committed / dead-lettered);
         # keyed by id() like the tracker (record values may be dicts)
         self._record_spans: dict[int, Any] = {}
+        # the trace-stamped copy of each read record -> (the copy, the
+        # record the source read): commits and permanent failures hand the
+        # source back its own records (the JAX runner hands it the copies,
+        # so a source that knows its records by identity,
+        # ``grpc-python-source``, never sees either)
+        self._read_records: dict[int, tuple[Record, Record]] = {}
 
     # ---- wiring ----------------------------------------------------------
 
@@ -343,7 +349,7 @@ class AgentRunner:
             critical_failure_handler=self._on_critical_failure,
         )
         self.context = context
-        self.tracker = SourceRecordTracker(self.source.commit)
+        self.tracker = SourceRecordTracker(self._commit_read)
         self.errors_handler = StandardErrorsHandler(self.node.errors or ErrorsSpec())
         self.record_sink = _RunnerRecordSink(self)
 
@@ -552,9 +558,19 @@ class AgentRunner:
             parent=ctx,
             attributes={"agent": self.node.id, "replica": self.replica},
         )
-        record = record.with_headers({TRACE_HEADER: span.context().to_header()})
-        self._record_spans[id(record)] = span
-        return record
+        traced = record.with_headers({TRACE_HEADER: span.context().to_header()})
+        self._record_spans[id(traced)] = span
+        self._read_records[id(traced)] = (traced, record)
+        return traced
+
+    def _take_read_record(self, traced: Record) -> Record:
+        """The record the source read, for its trace-stamped copy, which
+        reaches its end here (committed or failed for good)."""
+        return self._read_records.pop(id(traced), (traced, traced))[1]
+
+    async def _commit_read(self, records: list[Record]) -> None:
+        """Commit the records the source read, for their traced copies."""
+        await self.source.commit([self._take_read_record(r) for r in records])
 
     def _finish_record_trace(
         self, record: Record, error: Exception | None = None, **attributes: Any
@@ -628,7 +644,8 @@ class AgentRunner:
         else:  # FAIL
             if isinstance(self.source, AgentSource):
                 try:
-                    await self.source.permanent_failure(source_record, error)
+                    await self.source.permanent_failure(
+                        self._take_read_record(source_record), error)
                 except Exception as e:
                     self._fatal = e
             self._stop_requested.set()

@@ -1,9 +1,9 @@
 """The port's application model against the JAX package's: the parser on
 every example (with ``examples/instances/memory.yaml`` and
 ``examples/secrets/secrets.yaml``), compared as plain data; the planner on
-every example whose agent types the port carries (topics, agent nodes,
-fusion groups, connections, gateways); the refusal of an agent type the
-port does not carry yet; the expression language and templates on
+every example (topics, agent nodes, fusion groups, connections,
+gateways), the four ``grpc-*`` types and a type no registry knows planned
+as the JAX planner plans them; the expression language and templates on
 ``tests/test_expressions.py``'s cases."""
 
 import dataclasses
@@ -19,7 +19,6 @@ from langstream_tpu_torch.api.record import MutableRecord
 from langstream_tpu_torch.core import expressions
 from langstream_tpu_torch.core.deployer import ApplicationDeployer
 from langstream_tpu_torch.core.parser import build_application_from_directory
-from langstream_tpu_torch.core.planner import PlanningError
 
 REPO = Path(__file__).resolve().parents[1]
 APPS = REPO / "examples" / "applications"
@@ -38,7 +37,9 @@ PLANNED = ["chat-completions", "chatbot-gateway", "compute-embeddings", "embeddi
            # the document, HTTP and source agents, FLARE
            "azure-document-ingestion", "flare", "http-enrichment", "langserve-invoke",
            "long-context-summarizer", "s3-document-ingestion", "slack-alerts",
-           "webcrawler-to-vector"]
+           "webcrawler-to-vector", "external-openai-compat",
+           # the sidecar lane
+           "grpc-sidecar-agent"]
 
 
 def _parse_both(name):
@@ -57,6 +58,10 @@ def _plan_data(plan):
     data = dataclasses.asdict(plan)
     data.pop("application")
     return data
+
+
+def test_every_example_is_planned():
+    assert sorted(PLANNED) == EXAMPLES and len(EXAMPLES) == 37
 
 
 @pytest.mark.parametrize("name", PLANNED)
@@ -101,22 +106,44 @@ pipeline:
 """
 
 
+def _parse_files_both(agent_type: str):
+    from langstream_tpu.core.parser import build_application_from_files as jax_files
+    from langstream_tpu_torch.core.parser import build_application_from_files
+
+    files = {"pipeline.yaml": GRPC_APP % agent_type}
+    return jax_files(files), build_application_from_files(files)
+
+
 @pytest.mark.parametrize("name,agent_type", UNPORTED)
 def test_an_unported_agent_type_is_refused_at_planning(name, agent_type):
-    """The JAX planner plans these; the port refuses them when planning,
-    naming the type and the later slice, before any agent starts."""
-    if name is None:
-        from langstream_tpu.core.parser import build_application_from_files as jax_files
-        from langstream_tpu_torch.core.parser import build_application_from_files
+    """The four ``grpc-*`` types (refused at planning until the sidecar
+    lane was ported) plan in both packages to equal plans, the source and
+    sink as the JAX metadata makes them (the name is from that refusal)."""
+    jax_app, app = _parse_both(name) if name else _parse_files_both(agent_type)
+    jax_plan = JaxDeployer().create_implementation("app", jax_app)
+    plan = ApplicationDeployer().create_implementation("app", app)
+    assert _plan_data(plan) == _plan_data(jax_plan)
+    assert [a.type for node in plan.agents.values() for a in node.agents] == [agent_type]
 
-        files = {"pipeline.yaml": GRPC_APP % agent_type}
-        jax_app, app = jax_files(files), build_application_from_files(files)
-    else:
-        jax_app, app = _parse_both(name)
-    JaxDeployer().create_implementation("app", jax_app)
-    with pytest.raises(PlanningError, match=f"agent type {agent_type!r} is not ported") as info:
-        ApplicationDeployer().create_implementation("app", app)
-    assert "later slice of the port" in str(info.value)
+
+def test_an_unknown_agent_type_plans_and_fails_at_start_as_in_jax():
+    """A type no registry knows plans in both packages as a composable
+    processor and fails when its agent is made, with the same message."""
+    from langstream_tpu.api.registry import AgentCodeRegistry as JaxRegistry
+    from langstream_tpu_torch.api.registry import AgentCodeRegistry
+
+    jax_app, app = _parse_files_both("no-such-agent")
+    jax_plan = JaxDeployer().create_implementation("app", jax_app)
+    plan = ApplicationDeployer().create_implementation("app", app)
+    assert _plan_data(plan) == _plan_data(jax_plan)
+    with pytest.raises(ValueError) as jax_error:
+        JaxRegistry.get_agent_code("no-such-agent")
+    with pytest.raises(ValueError) as port_error:
+        AgentCodeRegistry.get_agent_code("no-such-agent")
+    assert str(port_error.value) == str(jax_error.value)
+    assert str(port_error.value).startswith("no agent implementation for type 'no-such-agent'")
+    assert AgentCodeRegistry.known_types() == JaxRegistry.known_types()
+    assert len(AgentCodeRegistry.known_types()) == 46
 
 
 def test_unported_transport_and_assets_are_refused(monkeypatch):

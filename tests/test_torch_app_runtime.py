@@ -352,19 +352,28 @@ def test_mock_provider_agents_equal_the_jax_runner(tmp_path):
 def test_local_run_serves_one_application_at_a_time(tmp_path):
     """The port's in-process ``run``: it serves on the device it was given
     and puts the process's serving device back when it stops, also when
-    its start fails; a second run is refused while one is serving."""
+    its start fails; a second run is refused while one is serving. The
+    ``grpc-sidecar-agent`` example (refused at planning until the sidecar
+    lane was ported) runs through a sidecar
+    interpreter, its records equal to the JAX runner's; an app whose agent
+    type no registry knows fails at its start."""
     from langstream_tpu_torch.agents import services as port_services
     from langstream_tpu_torch.cli.main import LocalRun
-    from langstream_tpu_torch.core.planner import PlanningError
 
     app = tmp_path / "app"
     app.mkdir()
     (app / "pipeline.yaml").write_text(MOCK_APP)
     (app / "configuration.yaml").write_text(yaml.safe_dump({"configuration": {
         "resources": [{"type": "mock-serving-configuration", "name": "mock"}]}}))
+    unknown = tmp_path / "unknown"
+    unknown.mkdir()
+    (unknown / "pipeline.yaml").write_text(MOCK_APP.replace('"document-to-json"',
+                                                            '"no-such-agent"', 1))
+    sidecar = REPO / "examples" / "applications" / "grpc-sidecar-agent"
     instance = tmp_path / "instance.yaml"
     instance.write_text(_instance(f"local-run-{next(_CLUSTERS)}"))
     before = port_services.SERVING_DEVICE
+    values = ["ping", "pong", "é"]
 
     async def main():
         run = await LocalRun("a", app, instance, device="cpu", gateway_port=0).start()
@@ -377,15 +386,32 @@ def test_local_run_serves_one_application_at_a_time(tmp_path):
         finally:
             await run.stop()
         after_stop = port_services.SERVING_DEVICE
-        with pytest.raises(PlanningError, match="'grpc-python-processor' is not ported"):
-            await LocalRun("c", REPO / "examples" / "applications" / "grpc-sidecar-agent",
-                           instance, device="cpu", gateway_port=0).start()
-        return serving, out, after_stop, LocalRun._active
+        run = await LocalRun("c", sidecar, instance, device="cpu", gateway_port=0).start()
+        try:
+            for value in values:
+                await run.runner.produce("in-topic", value)
+            side = await run.runner.wait_for_messages("out-topic", len(values), timeout=60)
+        finally:
+            await run.stop()
+        with pytest.raises(ValueError, match="no agent implementation for type 'no-such-agent'"):
+            await LocalRun("d", unknown, instance, device="cpu", gateway_port=0).start()
+        return serving, out, after_stop, side, LocalRun._active
 
-    serving, out, after_stop, active = asyncio.run(main())
+    async def jax_side():
+        runner = jax_local.LocalApplicationRunner.from_directory(
+            sidecar, instance=_instance(f"local-run-{next(_CLUSTERS)}"))
+        async with runner:
+            for value in values:
+                await runner.produce("in-topic", value)
+            return await runner.wait_for_messages("out-topic", len(values), timeout=60)
+
+    serving, out, after_stop, side, active = asyncio.run(main())
+    jax_out = asyncio.run(jax_side())
     assert serving == "cpu" and out[0].value["answer"]
     assert after_stop == before == port_services.SERVING_DEVICE
     assert active is None
+    assert sorted(r.value for r in side) == sorted(r.value for r in jax_out) == \
+        sorted(v + "!" for v in values)
 
 
 # ---------------------------------------------------------------------------

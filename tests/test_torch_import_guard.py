@@ -12,7 +12,11 @@ langstream_tpu_torch.cli run`` serves a copy of the chat-completions
 example at the tiny model on the CPU, answers a question through the port's
 WebSocket client, and exits 0 on SIGINT; and ``python -m
 langstream_tpu_torch.controlplane`` serves its REST API in ``LS_MODE=k8s``
-and ``local``, refuses an unknown mode by name, and exits 0 on SIGINT."""
+and ``local``, refuses an unknown mode by name, and exits 0 on SIGINT;
+with grpcio and protobuf refused as well, in every process through a
+``sitecustomize``, ``cli run`` (``LocalRun``) of the ``grpc-sidecar-agent``
+example answers through its sidecar, and the sidecar server alone answers
+grpcio's calls."""
 
 import asyncio
 import os
@@ -334,3 +338,141 @@ def test_the_control_plane_entrypoint_serves_and_refuses_k8s_by_name(tmp_path):
     finally:
         kube.stop()
     assert (tmp_path / "store" / "tenants" / "t1" / "tenant.json").exists()
+
+
+#: the sidecar lane's runs refuse grpcio and protobuf as well (``google``
+#: itself is a namespace package that ``.pth`` files may load at start-up)
+GRPC_REFUSED = REFUSED + ("grpc",)
+PROTOBUF = "google.protobuf"
+
+
+def _guarded_site(tmp_path: Path) -> dict:
+    """An environment whose every Python process (the sidecars the port
+    spawns too) installs the guard first, through a ``sitecustomize`` on
+    ``PYTHONPATH``, and records its pid."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(guard(GRPC_REFUSED) + textwrap.dedent(f"""
+        import os
+
+
+        class RefuseProtobuf(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.startswith({PROTOBUF!r}):
+                    raise ImportError(f"import of {{name}} refused")
+                return None
+
+
+        sys.meta_path.insert(0, RefuseProtobuf())
+
+        with open({str(tmp_path / "guarded-pids")!r}, "a") as f:
+            f.write(f"{{os.getpid()}}\\n")
+    """))
+    return dict(_env(), PYTHONPATH=os.pathsep.join([str(REPO), str(site)]))
+
+
+def test_cli_run_of_the_grpc_sidecar_example_loads_none_of_them(tmp_path):
+    """``cli run`` (``LocalRun``, its in-process form) of the unchanged
+    ``grpc-sidecar-agent`` example in a process refusing JAX, grpcio and
+    protobuf among the rest; the sidecar interpreter it spawns refuses them
+    too, and answers every record."""
+    script = tmp_path / "run_sidecar_app.py"
+    script.write_text(textwrap.dedent(f"""
+        import asyncio
+        import sys
+
+        from langstream_tpu_torch.cli.main import LocalRun
+
+        async def main():
+            run = await LocalRun("g", {str(REPO / "examples" / "applications" /
+                                           "grpc-sidecar-agent")!r},
+                                 {str(REPO / "examples" / "instances" / "memory.yaml")!r},
+                                 device="cpu", gateway_port=0).start()
+            try:
+                for n in range(8):
+                    await run.runner.produce("in-topic", f"r{{n}}")
+                out = await run.runner.wait_for_messages("out-topic", 8, timeout=60)
+                (node,) = run.runner.agent_info()
+            finally:
+                await run.stop()
+            return sorted(m.value for m in out)
+
+        values = asyncio.run(main())
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {GRPC_REFUSED!r}
+                        or m.startswith({PROTOBUF!r}))
+        assert not leaked, leaked
+        print("answered", values)
+    """))
+    out = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                         env=_guarded_site(tmp_path), capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, (out.stdout[-3000:], out.stderr[-4000:])
+    assert f"answered {sorted(f'r{n}!' for n in range(8))!r}" in out.stdout
+    pids = (tmp_path / "guarded-pids").read_text().split()
+    assert len(set(pids)) >= 2  # the run and its sidecar both guarded
+
+
+def test_the_sidecar_server_process_loads_none_of_them(tmp_path):
+    """``python -m langstream_tpu_torch.grpc.server config.json`` refusing
+    JAX, grpcio and protobuf: it prints ``PORT=``, answers grpcio's
+    ``agent_info`` and ``process``, and exits 0 on SIGTERM."""
+    import json
+
+    import grpc
+
+    from langstream_tpu.grpc.proto import SERVICE_NAME, load_messages
+
+    (tmp_path / "python").mkdir()
+    (tmp_path / "python" / "guarded_agent.py").write_text(textwrap.dedent("""
+        class Upper:
+            def process(self, record):
+                return [(record.value.upper(), None, None)]
+
+            def agent_info(self):
+                import sys
+                return {"modules": sorted(m for m in sys.modules
+                                          if m.split(".")[0] in ("grpc", "jax", "jaxlib")
+                                          or m.startswith("google.protobuf"))}
+    """))
+    config = tmp_path / "config.json"
+    config.write_text(json.dumps({"className": "guarded_agent.Upper",
+                                  "__application_directory__": str(tmp_path)}))
+    proc = subprocess.Popen([sys.executable, "-m", "langstream_tpu_torch.grpc.server",
+                             str(config)], cwd=tmp_path, env=_guarded_site(tmp_path),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("PORT="), (line, proc.stderr.read()
+                                          if proc.poll() is not None else "")
+        pb2 = load_messages()
+
+        async def ask():
+            async with grpc.aio.insecure_channel(f"127.0.0.1:{line.split('=')[1].strip()}") \
+                    as channel:
+                info = await channel.unary_unary(
+                    f"/{SERVICE_NAME}/agent_info",
+                    request_serializer=pb2.InfoRequest.SerializeToString,
+                    response_deserializer=pb2.InfoResponse.FromString)(pb2.InfoRequest())
+                call = channel.stream_stream(
+                    f"/{SERVICE_NAME}/process",
+                    request_serializer=pb2.ProcessRequest.SerializeToString,
+                    response_deserializer=pb2.ProcessResponse.FromString)()
+                request = pb2.ProcessRequest()
+                record = request.records.add(record_id=5)
+                record.value.string_value = "quiet"
+                await call.write(request)
+                response = await call.read()
+                call.cancel()
+                return json.loads(info.info_json), response
+
+        info, response = asyncio.run(ask())
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert info == {"className": "guarded_agent.Upper", "modules": []}
+    (result,) = response.results
+    assert result.record_id == 5 and result.records[0].value.string_value == "QUIET"
+    assert proc.returncode == 0, err[-4000:]

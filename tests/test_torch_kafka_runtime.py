@@ -688,3 +688,65 @@ def test_cli_run_serves_mini_chat_over_the_fake_broker_process(tmp_path):
                     proc.kill()
                     proc.communicate()
     assert broker.returncode == 0
+
+
+COMMIT_AGENT = '''
+class Upper:
+    def process(self, record):
+        if record.value == "bad":
+            raise ValueError("a bad record")
+        return [(record.value.upper(), record.key, None)]
+'''
+COMMIT_PIPELINE = """
+topics:
+  - name: "commit-in"
+    creation-mode: create-if-not-exists
+  - name: "commit-out"
+    creation-mode: create-if-not-exists
+errors:
+  on-failure: skip
+pipeline:
+  - name: "upper"
+    type: "python-processor"
+    input: "commit-in"
+    output: "commit-out"
+    configuration: {className: "commit_agent.Upper"}
+"""
+
+
+async def _commits_over_kafka(runner_cls, app_dir, broker, values):
+    instance = yaml.safe_dump({"instance": {"streamingCluster": {"type": "kafka", "configuration": {
+        "client": "wire", "admin": {"bootstrap.servers": f"127.0.0.1:{broker.port}"}}}}})
+    async with runner_cls.from_directory(app_dir, instance=instance) as runner:
+        for value in values:
+            await runner.produce("commit-in", value)
+        out = await runner.wait_for_messages("commit-out", len(values) - 1, timeout=60)
+        for _ in range(200):  # the commit follows the write
+            if any(v == len(values) for k, v in broker.offsets.items() if k[1] == "commit-in"):
+                break
+            await asyncio.sleep(0.05)
+    return sorted(m.value for m in out), dict(broker.offsets)
+
+
+def test_a_kafka_source_commits_the_offsets_the_jax_runner_commits(tmp_path):
+    """The port's runner hands a source back the records it read, not their
+    trace-stamped copies: a Kafka source, which knows a record by its
+    offset header, commits through it what it commits through the JAX
+    runner, written and skipped records alike."""
+    from langstream_tpu.runtime import LocalApplicationRunner as JaxRunner
+    from langstream_tpu_torch.runtime import LocalApplicationRunner as PortRunner
+
+    app = tmp_path / "app"
+    (app / "python").mkdir(parents=True)
+    (app / "python" / "commit_agent.py").write_text(COMMIT_AGENT)
+    (app / "pipeline.yaml").write_text(COMMIT_PIPELINE)
+    values = ["a", "b", "bad", "c", "d", "e"]
+    out = {}
+    for name, runner_cls, fake in (("jax", JaxRunner, jax_fake.FakeKafkaBroker),
+                                   ("port", PortRunner, torch_fake_kafka.FakeKafkaBroker)):
+        with fake() as broker:
+            out[name] = asyncio.run(_commits_over_kafka(runner_cls, app, broker, values))
+    assert out["port"] == out["jax"]
+    written, offsets = out["port"]
+    assert written == ["A", "B", "C", "D", "E"]
+    assert [v for k, v in offsets.items() if k[1] == "commit-in"] == [len(values)]

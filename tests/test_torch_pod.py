@@ -235,11 +235,14 @@ def test_main_takes_the_device_first_and_refuses_by_name(monkeypatch, capsys):
         port_pod.main(["agent-runtime", "/nonexistent/config"])
 
 
-def test_a_pod_of_an_app_with_an_unported_agent_refuses_it_at_planning(tmp_path):
-    """An app whose agent the port does not carry yet fails in its setup
-    and deployer Jobs' pods at planning, naming the agent type, as ``cli
-    run`` does."""
-    from langstream_tpu_torch.core.planner import PlanningError
+def test_a_pod_of_an_app_with_an_unported_agent_refuses_it_at_planning(tmp_path, monkeypatch):
+    """An app with a ``grpc-python-processor`` step (refused at planning
+    until the sidecar lane was ported, whence the name): its setup
+    and deployer Jobs' pods succeed, and the deployer writes the step's
+    Agent CR into the kube API."""
+    from langstream_tpu_torch.k8s.apiserver import FakeKubeApiServer
+    from langstream_tpu_torch.k8s.client import HttpKubeApi
+    from langstream_tpu_torch.k8s.cluster_runtime import tenant_namespace
 
     pipeline = {"topics": [{"name": "in", "creation-mode": "create-if-not-exists"}],
                 "pipeline": [{"name": "c", "type": "grpc-python-processor", "input": "in",
@@ -248,7 +251,15 @@ def test_a_pod_of_an_app_with_an_unported_agent_refuses_it_at_planning(tmp_path)
     config.write_text(json.dumps({
         "applicationId": "a", "tenant": "t1", "files": {"pipeline.yaml": json.dumps(pipeline)},
         "instance": None, "secrets": None}))
-    with pytest.raises(PlanningError, match="agent type 'grpc-python-processor' is not ported"):
+    kube = FakeKubeApiServer().start()
+    try:
+        monkeypatch.setenv("LS_KUBE_API_URL", kube.url)
+        HttpKubeApi(kube.url).apply({"apiVersion": "v1", "kind": "Namespace",
+                                     "metadata": {"name": tenant_namespace("t1")}})
         asyncio.run(port_pod.run_setup(str(config)))
-    with pytest.raises(PlanningError, match="agent type 'grpc-python-processor' is not ported"):
         asyncio.run(port_pod.run_deployer("deploy", str(config)))
+        agents = HttpKubeApi(kube.url).list("Agent", tenant_namespace("t1"))
+    finally:
+        kube.stop()
+    (agent,) = agents
+    assert (agent["spec"]["applicationId"], agent["spec"]["agentId"]) == ("a", "c")
